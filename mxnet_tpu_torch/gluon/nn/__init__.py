@@ -1,0 +1,4 @@
+"""Basic layers (Dense, Dropout, LayerNorm, Embedding)."""
+from .basic_layers import Dense, Dropout, Embedding, LayerNorm
+
+__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm"]

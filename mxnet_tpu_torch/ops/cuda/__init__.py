@@ -1,0 +1,6 @@
+"""Hand-written Hopper kernels and their wrappers. Each wrapper checks its
+inputs, launches its kernel on a CUDA tensor (or raises), takes its plain
+PyTorch version on a CPU tensor, and counts its launches in ``launches``."""
+from . import flash_attention
+
+__all__ = ["flash_attention"]

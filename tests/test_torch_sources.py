@@ -1,0 +1,122 @@
+"""Source guards for the PyTorch/CUDA port, by AST (no CUDA, nvcc or triton
+needed): the port stays independent of JAX and of the JAX package, builds
+for sm_90a, never hides a kernel launch or build behind an ``except``,
+counts every kernel's launches, and keeps its build output out of git; and
+``chip_smoke.py`` fails without a card or without the package."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "mxnet_tpu_torch"
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+KERNEL_WRAPPERS = sorted(p for p in (PKG / "ops" / "cuda").glob("*.py")
+                         if p.name != "__init__.py")
+
+
+def _tree(path):
+    return ast.parse(path.read_text(), filename=str(path))
+
+
+def _forbidden(name: str) -> bool:
+    return name == "jax" or name.startswith("jax.") or name == "jaxlib" \
+        or name == "mxnet_tpu" or name.startswith("mxnet_tpu.")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    # depth of the module's package below the repo root: a relative import
+    # may not climb out of mxnet_tpu_torch
+    depth = len(path.relative_to(ROOT).parts) - 1
+    for node in ast.walk(_tree(path)):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                assert not _forbidden(a.name), f"{path}: import {a.name}"
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0:
+                assert not _forbidden(node.module or ""), \
+                    f"{path}: from {node.module} import ..."
+            else:
+                assert node.level <= depth, \
+                    f"{path}: relative import climbs out of the package"
+
+
+def test_port_import_loads_no_jax():
+    code = ("import pkgutil, importlib, sys\n"
+            "import mxnet_tpu_torch, chip_smoke\n"
+            "for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__, "
+            "'mxnet_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'jaxlib', 'mxnet_tpu'))\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_build_targets_sm90a():
+    consts = {n.value for n in ast.walk(_tree(PKG / "ops" / "_build.py"))
+              if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+    assert "arch=compute_90a,code=sm_90a" in consts
+
+
+@pytest.mark.parametrize(
+    "path", KERNEL_WRAPPERS + [PKG / "ops" / "_build.py"],
+    ids=lambda p: p.name)
+def test_no_except_around_a_launch_or_build(path):
+    """A CUDA tensor reaches its kernel or raises: no handler may catch a
+    failed build or launch and fall back to another path."""
+    for node in ast.walk(_tree(path)):
+        if isinstance(node, ast.Try) and node.handlers:
+            calls = [c for stmt in node.body for c in ast.walk(stmt)
+                     if isinstance(c, ast.Call)]
+            assert not calls, (f"{path}:{node.lineno}: try/except around "
+                               "calls in a kernel module")
+
+
+@pytest.mark.parametrize("path", KERNEL_WRAPPERS, ids=lambda p: p.name)
+def test_every_kernel_wrapper_counts_launches(path):
+    tree = _tree(path)
+    init = [n for n in tree.body if isinstance(n, ast.Assign)
+            and any(isinstance(t, ast.Name) and t.id == "launches"
+                    for t in n.targets)
+            and isinstance(n.value, ast.Constant) and n.value.value == 0]
+    assert init, f"{path}: no module-level `launches = 0`"
+    bumps = [n for n in ast.walk(tree) if isinstance(n, ast.AugAssign)
+             and isinstance(n.target, ast.Name) and n.target.id == "launches"]
+    assert bumps, f"{path}: `launches` is never incremented"
+    assert any(isinstance(n, ast.Global) and "launches" in n.names
+               for n in ast.walk(tree)), \
+        f"{path}: `launches` is bumped but not declared global"
+
+
+def test_gitignore_lists_the_build_directory():
+    lines = {ln.strip() for ln in (ROOT / ".gitignore").read_text().splitlines()}
+    assert "build/" in lines or "/build/" in lines
+
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_fails_without_a_card_or_the_package(where, tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line when there is
+    no CUDA card, and when the directory holds nothing else of the repo."""
+    cwd = ROOT
+    if where == "alone":
+        (tmp_path / "chip_smoke.py").write_text(
+            (ROOT / "chip_smoke.py").read_text())
+        cwd = tmp_path
+    proc = _run_smoke(cwd)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
