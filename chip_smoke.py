@@ -7,27 +7,53 @@ Needs one CUDA card, nvcc and the repository checkout; it imports neither
 JAX nor the JAX package. Phases (any failure exits non-zero):
 
 1. Environment: the card's name and power limit (nvidia-smi), the CUDA and
-   PyTorch versions, nvcc's version; builds the flash-attention kernel from
-   ``mxnet_tpu_torch/csrc`` and prints the build time and ptxas report.
-2. Kernel against its plain version: ``flash_attention_fwd`` (O and LSE)
+   PyTorch versions, nvcc's version; builds the flash-attention forward (K1)
+   and backward (K2, K3) libraries from ``mxnet_tpu_torch/csrc``, one nvcc
+   each, started together, and prints the build times and ptxas reports.
+2. K1 against its plain version: ``flash_attention_fwd`` (O and LSE)
    against ``flash_attention_fwd_reference`` on the card at every listed
    shape, f32 within 1e-4 (sum order only) and bf16 within 2e-2 (P is
    rounded to bf16; one bf16 ulp near 1 is 7.8e-3). At the BERT-base shape
    it times the kernel, the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only;
-   the port never calls it) with CUDA events, median of 30 after warm-up,
-   and prints the bound (bytes over 3.35 TB/s against operations over the
+   the port never calls it) with CUDA events around 10 back-to-back calls,
+   median of 30 such windows after warm-up, and prints the bound (bytes over 3.35 TB/s against operations over the
    peak for the type).
-3. The slice: ``bert_base()`` at full width with seeded random weights,
-   cast to bf16, served by ``ModelEndpoint`` + ``InferenceServer`` to 8
-   client threads sending 96 requests of 1-8 rows of 512 tokens. Checks:
-   every response is on the card and equals the direct forward of the same
-   rows (``|a - b| <= 2e-2 + 2e-2 |b|``, bf16 with other batch sizes in the
-   matrix products); the kernel's launch count is exactly 12 per executed
-   batch (the construction probe and warm-up included); and one row run in
-   f32 on the card matches the plain f32 forward on the CPU within 1e-3.
-   Prints requests/s, tokens/s and p50/p99 latency beside the card.
-4. A JSON line with the kernel's numbers, then the last line
+2b. K2 and K3 against the plain backward: ``flash_attention_bwd_dq`` and
+   ``flash_attention_bwd_dkv`` (given K1's out and lse) against
+   ``flash_attention_bwd_reference`` at every listed shape (the training
+   and serving shapes, ragged tails, causal, D = 32/64/128), each of dq, dk,
+   dv within tol * max(1, max|plain|): f32 1e-4 (sum order only), bf16 2e-2
+   (outputs rounded to bf16, and P and dS are rounded to bf16 on both
+   sides, where an f32 sum order can flip an ulp). At the training shape it
+   times K2, K3, K2 + K3 with delta, the plain backward, the backward of
+   ``scaled_dot_product_attention`` (a yardstick only) and K1, with their
+   bounds.
+3. The serving slice: ``bert_base()`` at full width with seeded random
+   weights, cast to bf16, served by ``ModelEndpoint`` + ``InferenceServer``
+   to 8 client threads sending 96 requests of 1-8 rows of 512 tokens.
+   Checks: every response is on the card and equals the direct forward of
+   the same rows (``|a - b| <= 2e-2 + 2e-2 |b|``, bf16 with other batch
+   sizes in the matrix products); K1's launch count is exactly 12 per
+   executed batch (the construction probe and warm-up included); and one
+   row run in f32 on the card matches the plain f32 forward on the CPU
+   within 1e-3. Prints requests/s, tokens/s and p50/p99 latency beside the
+   card.
+4. The training slice: ``BERTForPretraining(bert_base(max_length=128))`` at
+   full width, seeded weights through the weight carrier, ``Adam(1e-4)``,
+   bf16 compute over f32 masters, dropout 0.1, batch 64 x 128 with P = 19
+   masked positions, through ``ParallelTrainStep``: 2 warm-up steps, 3
+   ``step_n`` calls of K = 10, then 10 steps on one fixed batch. Checks:
+   every loss is finite; the fixed batch's loss falls; K1, K2 and K3 each
+   launched exactly 12 times per step. Then one f32 step at batch 2 x 128
+   on the card against the same step on the CPU (plain versions): loss
+   within 1e-4 relative; parameters after the update within 2 lr (the most
+   one Adam step can move a weight either way) and no more than 1e-3 of
+   them beyond 0.1 lr (a near-zero gradient whose sign the sum order flips
+   moves its weight by up to lr). Prints tokens/s (batch * seq * K * calls
+   / wall, as bench.py), the step's median ms and the peak device memory
+   beside the card.
+5. A JSON line with the kernels' numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -38,20 +64,26 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from mxnet_tpu_torch import serving
-from mxnet_tpu_torch.gluon.model_zoo.bert import bert_base, load_jax_params
+from mxnet_tpu_torch import cpu, serving
+from mxnet_tpu_torch.gluon.model_zoo.bert import (
+    BERTForPretraining, BERTPretrainingLoss, bert_base, load_jax_params)
 from mxnet_tpu_torch.ops import _build
 from mxnet_tpu_torch.ops.cuda import flash_attention as fa
-from mxnet_tpu_torch.tools import card, median_ms, seeded_bert_weights
+from mxnet_tpu_torch.optimizer import Adam
+from mxnet_tpu_torch.parallel import ParallelTrainStep, make_mesh
+from mxnet_tpu_torch.tools import (PretrainStep, card, median_ms,
+                                   pretrain_batch, seeded_bert_weights)
 
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,       # dense tensor cores
               torch.float32: 67e12}         # fp32 without the tensor cores
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+TIMED_CALLS = 10          # calls between two CUDA events (see median_ms)
 BERT_SHAPE = (32, 12, 512, 64)
 CHECK_SHAPES = [  # (B, H, S, D), causal
     (BERT_SHAPE, False), ((2, 2, 256, 64), False), ((2, 2, 256, 64), True),
@@ -61,19 +93,36 @@ CHECK_SHAPES = [  # (B, H, S, D), causal
 SEQ_LEN = 512
 N_CLIENTS = 8
 REQS_PER_CLIENT = 12
+TRAIN_SHAPE = (64, 12, 128, 64)             # BERT-base pretraining, B x H
+BWD_SHAPES = [  # (B, H, S, D), causal
+    (TRAIN_SHAPE, False), (BERT_SHAPE, False), ((2, 2, 300, 64), False),
+    ((1, 2, 640, 64), True), ((2, 4, 128, 32), False),
+    ((1, 2, 256, 128), False), ((1, 2, 256, 128), True)]
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_P = 64, 128, 19   # bench.py's BERT cell
+TRAIN_K, TRAIN_CALLS, TRAIN_WARMUP, TRAIN_FIXED = 10, 3, 2, 10
+TRAIN_LR = 1e-4
 
 
-def bound_ms(shape, dtype, causal: bool):
-    """Least time on an H100 for one forward: each input read once, each
-    output written once, against the products this input needs."""
-    B, H, S, D = shape
-    elt = torch.finfo(dtype).bits // 8
-    nbytes = 4 * B * H * S * D * elt + B * H * S * 4
-    pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * B * H * pairs * D
+def _bound(nbytes, flops, dtype):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops) * 1e3, by, nbytes, flops
+
+
+def bound_ms(shape, dtype, causal: bool, kernel: str = "fwd"):
+    """Least time on an H100 for one call of ``kernel``: each input read
+    once, each output written once, against the products this input needs
+    (causal: the lower triangle only). fwd (K1): q, k, v -> o, lse; dq (K2):
+    q, k, v, dO, lse, delta -> dq; dkv (K3): the same -> dk, dv; bwd: q, k,
+    v, o, dO, lse -> dq, dk, dv with delta computed (K2 + K3 + delta)."""
+    B, H, S, D = shape
+    elt = torch.finfo(dtype).bits // 8
+    mat, row = B * H * S * D * elt, B * H * S * 4
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    mats, rows, mults = {"fwd": (4, 1, 4), "dq": (5, 2, 6),
+                         "dkv": (6, 2, 8), "bwd": (8, 1, 14)}[kernel]
+    flops = mults * pairs * D + (2 * B * H * S * D if kernel == "bwd" else 0)
+    return _bound(mats * mat + rows * row, flops, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -84,15 +133,20 @@ def phase_environment(smi: str):
     nvcc = subprocess.run([_build._nvcc(), "--version"], check=True,
                           capture_output=True, text=True).stdout
     print(f"nvcc: {nvcc.strip().splitlines()[-1]}")
+    # one nvcc per library, started together
     t0 = time.perf_counter()
-    fa._kernel()
-    log = _build.build_log(fa._LIB_NAME)
-    print(f"built {log['path']} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {log['seconds']:.1f} s, cached={log['cached']})")
-    for line in log["ptxas"].splitlines():
-        if "Compiling entry" in line or "registers" in line or \
-                "spill" in line:
-            print("  ptxas:", line.strip())
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(fa._kernel), pool.submit(fa._bwd_kernels)]:
+            f.result()
+    print(f"built both libraries in {time.perf_counter() - t0:.1f} s")
+    for name in (fa._LIB_NAME, fa._BWD_LIB_NAME):
+        log = _build.build_log(name)
+        print(f"built {log['path']} (nvcc {log['seconds']:.1f} s, "
+              f"cached={log['cached']})")
+        for line in log["ptxas"].splitlines():
+            if "Compiling entry" in line or "registers" in line or \
+                    "spill" in line:
+                print("  ptxas:", line.strip())
 
 
 def phase_kernel(seed: int, smi: str):
@@ -116,12 +170,15 @@ def phase_kernel(seed: int, smi: str):
                     f"tol={TOL[dtype]:g}")
             if shape == BERT_SHAPE:
                 ms = median_ms(lambda: fa.flash_attention_fwd(q, k, v, scale,
-                                                              causal))
+                                                              causal),
+                               calls=TIMED_CALLS)
                 plain = median_ms(lambda: fa.flash_attention_fwd_reference(
-                    q, k, v, scale, causal), reps=20, warmup=2)
+                    q, k, v, scale, causal), reps=20, warmup=2,
+                    calls=TIMED_CALLS)
                 lib = median_ms(lambda: torch.nn.functional
                                 .scaled_dot_product_attention(
-                                    q, k, v, is_causal=causal, scale=scale))
+                                    q, k, v, is_causal=causal, scale=scale),
+                                calls=TIMED_CALLS)
                 bms, by, nbytes, flops = bound_ms(shape, dtype, causal)
                 line += (f" | kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                          f"sdpa {lib:.4f} ms, bound {bms * 1e3:.1f} us "
@@ -135,6 +192,84 @@ def phase_kernel(seed: int, smi: str):
                 raise SystemExit(f"FAIL: kernel disagrees with its plain "
                                  f"version at {shape} {dtype} causal={causal}")
             del q, k, v, out, lse, ref, ref_lse
+    return record
+
+
+def _randn(shape, gen, dtype):
+    return torch.randn(shape, generator=gen, device="cuda",
+                       dtype=torch.float32).to(dtype)
+
+
+def phase_backward(seed: int, smi: str):
+    """K2 and K3 against the plain backward at every listed shape; timings
+    and bounds at the training shape."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    record = {}
+    for shape, causal in BWD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (_randn(shape, gen, dtype) for _ in range(4))
+            scale = shape[-1] ** -0.5
+            out, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
+            delta = (do.float() * out.float()).sum(dim=-1)
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale,
+                                           causal)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                scale, causal)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                   scale, causal)
+            errs, oks = [], []
+            for got, want in zip((dq, dk, dv), ref):
+                err = (got.float() - want.float()).abs().max().item()
+                lim = TOL[dtype] * max(1.0, want.float().abs().max().item())
+                errs.append(err)
+                oks.append(err <= lim and bool(torch.isfinite(got).all()))
+            line = (f"backward {shape} {str(dtype)[6:]} causal={causal}: "
+                    f"max|d dq|={errs[0]:.3g} max|d dk|={errs[1]:.3g} "
+                    f"max|d dv|={errs[2]:.3g} tol={TOL[dtype]:g} x "
+                    f"max(1, max|plain|)")
+            if shape == TRAIN_SHAPE and dtype == torch.bfloat16:
+                t = {
+                    "dq": median_ms(lambda: fa.flash_attention_bwd_dq(
+                        q, k, v, do, lse, delta, scale, causal),
+                        calls=TIMED_CALLS),
+                    "dkv": median_ms(lambda: fa.flash_attention_bwd_dkv(
+                        q, k, v, do, lse, delta, scale, causal),
+                        calls=TIMED_CALLS),
+                    "bwd": median_ms(lambda: fa.flash_attention_bwd(
+                        q, k, v, out, lse, do, scale, causal),
+                        calls=TIMED_CALLS),
+                    "fwd": median_ms(lambda: fa.flash_attention_fwd(
+                        q, k, v, scale, causal), calls=TIMED_CALLS),
+                }
+                plain = median_ms(lambda: fa.flash_attention_bwd_reference(
+                    q, k, v, out, lse, do, scale, causal), calls=TIMED_CALLS)
+                qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+                o_lib = torch.nn.functional.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=causal, scale=scale)
+                lib = median_ms(lambda: torch.autograd.grad(
+                    o_lib, (qs, ks, vs), do, retain_graph=True),
+                    calls=TIMED_CALLS)
+                line += (f" | plain backward {plain:.4f} ms, sdpa backward "
+                         f"{lib:.4f} ms (dq, dk, dv together) on {smi}")
+                for kern in ("fwd", "dq", "dkv", "bwd"):
+                    bms, by, nbytes, flops = bound_ms(shape, dtype, causal,
+                                                      kern)
+                    line += (f"\n  {kern}: {t[kern]:.4f} ms, bound "
+                             f"{bms * 1e3:.1f} us ({by}: {nbytes / 1e6:.1f} "
+                             f"MB, {flops / 1e9:.2f} GFLOP)")
+                    record[kern] = {"ms": t[kern], "bound_ms": bms,
+                                    "bound_by": by}
+                record["dq"]["max_abs_err"] = errs[0]
+                record["dkv"]["max_abs_err"] = max(errs[1], errs[2])
+                record["plain_ms"], record["library_ms"] = plain, lib
+                del qs, ks, vs, o_lib
+            print(line)
+            if not all(oks):
+                raise SystemExit(f"FAIL: K2/K3 disagree with the plain "
+                                 f"backward at {shape} {dtype} "
+                                 f"causal={causal}")
+            del q, k, v, do, out, lse, delta, dq, dk, dv, ref
     return record
 
 
@@ -253,6 +388,108 @@ def phase_slice(seed: int, smi: str):
     return launches
 
 
+def _train_step(named, dropout, compute_dtype, ctx=None, seed=0):
+    model = BERTForPretraining(bert_base(max_length=TRAIN_SEQ,
+                                         dropout=dropout))
+    load_jax_params(model, named)
+    mesh = make_mesh({"dp": 1}) if ctx is None else make_mesh({"dp": 1},
+                                                               ctx=ctx)
+    return ParallelTrainStep(PretrainStep(model), BERTPretrainingLoss(),
+                             Adam(learning_rate=TRAIN_LR), mesh,
+                             compute_dtype=compute_dtype,
+                             extra_specs=("dp", "dp"), seed=seed)
+
+
+def phase_train(seed: int, smi: str):
+    rng = np.random.default_rng(seed + 2)
+    named = seeded_bert_weights(BERTForPretraining(
+        bert_base(max_length=TRAIN_SEQ, device="meta"), device="meta"), seed)
+    step = _train_step(named, 0.1, "bfloat16", seed=seed)
+    warm = pretrain_batch(rng, TRAIN_WARMUP, TRAIN_BATCH, TRAIN_SEQ,
+                          TRAIN_P)
+    bench = step.place_batch_n(*pretrain_batch(rng, TRAIN_K, TRAIN_BATCH,
+                                               TRAIN_SEQ, TRAIN_P))
+    fixed = step.place_batch_n(*pretrain_batch(rng, 1, TRAIN_BATCH,
+                                               TRAIN_SEQ, TRAIN_P))
+    fixed = (fixed[0][0], (fixed[1][0][0], fixed[1][1][0]), fixed[2][0],
+             fixed[3][0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts from 0 just before, read just after ----
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    losses = [step(warm[0][i], (warm[1][0][i], warm[1][1][i]), warm[2][i],
+                   warm[3][i]) for i in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_CALLS):
+        losses.append(step.step_n(*bench))
+    losses[-1][-1].item()                  # the window closes on a fetch
+    wall = time.perf_counter() - t0
+    fixed_losses, step_ms = [], []
+    for _ in range(TRAIN_FIXED):
+        t1 = time.perf_counter()
+        fixed_losses.append(step(*fixed).item())
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    counts = {"flash_attention_fwd": fa.launches,
+              "flash_attention_bwd_dq": fa.launches_dq,
+              "flash_attention_bwd_dkv": fa.launches_dkv}
+    # ---- end of the main path ----
+
+    peak = torch.cuda.max_memory_allocated()
+    all_losses = torch.cat([x.reshape(-1) for x in losses]).cpu()
+    steps = TRAIN_WARMUP + TRAIN_CALLS * TRAIN_K + TRAIN_FIXED
+    layers = len(step._block.inner.backbone.encoder._layers)
+    print(f"trained BERTForPretraining(bert_base) bf16, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, P={TRAIN_P}: {steps} steps; losses "
+          f"first {all_losses[0].item():.4f}, last "
+          f"{all_losses[-1].item():.4f}; fixed batch "
+          f"{fixed_losses[0]:.4f} -> {fixed_losses[-1]:.4f}; launches "
+          f"{counts} (expected {layers} x {steps} = {layers * steps} each)")
+    if not torch.isfinite(all_losses).all() or \
+            not np.isfinite(fixed_losses).all():
+        raise SystemExit("FAIL: a training loss is not finite")
+    if not fixed_losses[-1] < fixed_losses[0]:
+        raise SystemExit("FAIL: the fixed batch's loss did not fall")
+    if any(n != layers * steps for n in counts.values()):
+        raise SystemExit("FAIL: kernel launches do not match one per layer "
+                         "per step")
+    tokens = TRAIN_BATCH * TRAIN_SEQ * TRAIN_K * TRAIN_CALLS
+    print(f"training bert_base S={TRAIN_SEQ} bf16: {tokens / wall:.0f} "
+          f"tokens/s over {TRAIN_CALLS} step_n calls of K={TRAIN_K} (wall "
+          f"{wall:.3f} s), step median {float(np.median(step_ms)):.2f} ms "
+          f"(host clock to a fetched loss), peak device memory "
+          f"{peak / 2**30:.2f} GiB on {smi}")
+    del step, bench, fixed, losses
+
+    # one f32 step at batch 2 on the card against the plain versions on
+    # the CPU, same weights and batch, dropout 0
+    batch = pretrain_batch(rng, 1, 2, TRAIN_SEQ, TRAIN_P)
+    batch = (batch[0][0], (batch[1][0][0], batch[1][1][0]), batch[2][0],
+             batch[3][0])
+    results = []
+    for ctx in (None, cpu()):
+        st = _train_step(named, 0.0, None, ctx=ctx)
+        loss = st(*batch).item()
+        results.append((loss, {k: v.detach().cpu()
+                               for k, v in st.params.items()}))
+        del st
+    (l_gpu, p_gpu), (l_cpu, p_cpu) = results
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    diff = torch.cat([(p_gpu[k] - p_cpu[k]).abs().reshape(-1)
+                      for k in p_cpu])
+    worst, frac = diff.max().item(), (diff > 0.1 * TRAIN_LR).float().mean()
+    print(f"f32 step, card vs CPU plain versions (batch 2 x {TRAIN_SEQ}): "
+          f"loss {l_gpu:.6f} vs {l_cpu:.6f} (relative {rel:.3g}, tol 1e-4); "
+          f"parameters max|d| {worst / TRAIN_LR:.3g} lr (tol 2 lr), share "
+          f"beyond 0.1 lr {frac.item():.3g} (tol 1e-3), mean|d| "
+          f"{diff.mean().item() / TRAIN_LR:.3g} lr")
+    if not (rel <= 1e-4 and worst <= 2 * TRAIN_LR and frac <= 1e-3):
+        raise SystemExit("FAIL: the f32 training step on the card disagrees "
+                         "with the CPU")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -264,17 +501,44 @@ def main(argv=None) -> int:
     smi = card()
     phase_environment(smi)
     record = phase_kernel(args.seed, smi)
-    launches = phase_slice(args.seed, smi)
+    bwd = phase_backward(args.seed, smi)
+    serve_launches = phase_slice(args.seed, smi)
+    train_launches = phase_train(args.seed, smi)
     r = record[torch.bfloat16]
+    src = "mxnet_tpu_torch/csrc/flash_attention_bwd.cu"
+    pallas = "mxnet_tpu/ops/pallas/flash_attention.py"
+    common = {"route": "cuda", "source": src,
+              "plain_ms": bwd["plain_ms"], "library_ms": bwd["library_ms"],
+              "plain": "flash_attention_bwd_reference (dq, dk, dv together)",
+              "library": "scaled_dot_product_attention backward (dq, dk, dv "
+                         "together)",
+              "shape": list(TRAIN_SHAPE), "dtype": "bfloat16"}
+    kernels = [
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
+         "replaces": f"{pallas}:213",
+         "launches": serve_launches + train_launches["flash_attention_fwd"],
+         "launches_by_path": {
+             "serving": serve_launches,
+             "training": train_launches["flash_attention_fwd"]},
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "shape": list(BERT_SHAPE), "dtype": "bfloat16",
+         "ms_training_shape": bwd["fwd"]["ms"],
+         "bound_ms_training_shape": bwd["fwd"]["bound_ms"]},
+        {"name": "flash_attention_bwd_dq", "replaces": f"{pallas}:403",
+         "launches": train_launches["flash_attention_bwd_dq"],
+         "max_abs_err": bwd["dq"]["max_abs_err"], "ms": bwd["dq"]["ms"],
+         "bound_ms": bwd["dq"]["bound_ms"],
+         "bound_by": bwd["dq"]["bound_by"], **common},
+        {"name": "flash_attention_bwd_dkv", "replaces": f"{pallas}:421",
+         "launches": train_launches["flash_attention_bwd_dkv"],
+         "max_abs_err": bwd["dkv"]["max_abs_err"], "ms": bwd["dkv"]["ms"],
+         "bound_ms": bwd["dkv"]["bound_ms"],
+         "bound_by": bwd["dkv"]["bound_by"], **common}]
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "mxnet_tpu/ops/pallas/flash_attention.py:213",
-        "launches": launches, "max_abs_err": r["max_abs_err"],
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "shape": list(BERT_SHAPE), "dtype": "bfloat16"}]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,8 +3,9 @@
 The JAX package ``mxnet_tpu`` stays the reference; this package imports
 neither it nor JAX. Plain tensor code is PyTorch; each Pallas kernel that a
 ported path runs is a hand-written CUDA kernel under ``csrc/``, built with
-nvcc at first use. Entry points run on the card (``gpu(0)``) unless the
-caller passes ``cpu()``.
+nvcc at first use. Entry points (``serving.ModelEndpoint``,
+``parallel.make_mesh`` for ``ParallelTrainStep``) run on the card
+(``gpu(0)``) unless the caller passes ``cpu()``.
 """
 __version__ = "2.0.0"
 
@@ -17,7 +18,7 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from .base import Context, MXNetError, cpu, current_context, gpu
-from . import base, gluon, ndarray, ops, serving
+from . import base, gluon, ndarray, ops, optimizer, parallel, serving
 
 __all__ = ["Context", "MXNetError", "cpu", "gpu", "current_context", "base",
-           "gluon", "ndarray", "ops", "serving"]
+           "gluon", "ndarray", "ops", "optimizer", "parallel", "serving"]

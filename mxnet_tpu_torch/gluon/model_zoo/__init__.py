@@ -1,5 +1,7 @@
 """Model zoo of the port."""
 from . import bert
-from .bert import BERTModel, bert_base
+from .bert import (BERTForPretraining, BERTModel, BERTPretrainingLoss,
+                   bert_base)
 
-__all__ = ["bert", "BERTModel", "bert_base"]
+__all__ = ["bert", "BERTForPretraining", "BERTModel", "BERTPretrainingLoss",
+           "bert_base"]

@@ -1,10 +1,11 @@
-"""BERT encoder of the port: the counterpart of the encoder half of
-``mxnet_tpu/gluon/model_zoo/bert.py`` (``SelfAttention`` through
-``BERTModel`` and ``bert_base``).
+"""BERT of the port: the counterpart of ``mxnet_tpu/gluon/model_zoo/bert.py``
+from ``SelfAttention`` through ``BERTModel`` and ``bert_base`` to the
+pretraining heads ``BERTForPretraining`` and ``BERTPretrainingLoss``.
 
 The module tree mirrors the JAX block tree, so ``state_dict()`` keys equal
 the JAX package's ``_collect_params_with_prefix()`` names (for example
-``encoder.layer0.attention.qkv.weight``). Weights cross over as numpy
+``encoder.layer0.attention.qkv.weight``, ``backbone.word_embed.weight`` or
+``mlm_ln.gamma``). Weights cross over as numpy
 arrays: :func:`params_from_jax` turns such a dict into a state dict and
 :func:`load_jax_params` loads it into a model, both refusing missing keys,
 extra keys and shape mismatches; ``BERTModel.load_parameters`` reads a
@@ -12,7 +13,7 @@ extra keys and shape mismatches; ``BERTModel.load_parameters`` reads a
 
 Attention runs through ``ops.nn.multi_head_attention``: with no padding mask
 every layer's attention is one call of the hand-written flash-attention
-kernel on the card.
+kernels on the card (K1 forward; K2 + K3 in the backward).
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ from ...ops import nn as ops
 from ..nn import Dense, Dropout, Embedding, LayerNorm
 
 __all__ = ["SelfAttention", "PositionwiseFFN", "TransformerEncoderLayer",
-           "BERTEncoder", "BERTModel", "bert_base", "params_from_jax",
+           "BERTEncoder", "BERTModel", "BERTForPretraining",
+           "BERTPretrainingLoss", "bert_base", "params_from_jax",
            "load_jax_params"]
 
 
@@ -144,6 +146,57 @@ class BERTModel(nn.Module):
         load_jax_params(self, named)
 
 
+class BERTForPretraining(nn.Module):
+    """MLM + NSP heads over a :class:`BERTModel`.
+
+    ``forward(tokens, token_types=None, valid_mask=None,
+    masked_positions=None)`` returns ``(mlm_logits, nsp_logits)``. With
+    ``masked_positions`` (B, P) the MLM transform and the vocab decoder run
+    only at those rows, (B, P, V) logits instead of (B, S, V); the rows are
+    gathered with ``torch.gather`` (the reference's one-hot batched matmul is
+    a TPU choice; both pick the same rows exactly). The decoder is tied to
+    ``backbone.word_embed.weight`` and has no bias."""
+
+    def __init__(self, backbone: BERTModel, vocab_size=30522, device=None):
+        super().__init__()
+        self._vocab = vocab_size
+        units = backbone._units
+        self.backbone = backbone
+        self.mlm_transform = Dense(units, flatten=False, in_units=units,
+                                   device=device)
+        self.mlm_ln = LayerNorm(units, device=device)
+        self.nsp = Dense(2, flatten=False, in_units=units, device=device)
+
+    def forward(self, tokens, token_types=None, valid_mask=None,
+                masked_positions=None):
+        seq, pooled = self.backbone(tokens, token_types, valid_mask)
+        if masked_positions is not None:
+            idx = masked_positions.long().unsqueeze(-1).expand(
+                -1, -1, seq.shape[-1])
+            seq = torch.gather(seq, 1, idx)                 # (B, P, U)
+        h = self.mlm_ln(ops.gelu(self.mlm_transform(seq)))
+        mlm = torch.matmul(h, self.backbone.word_embed.weight.t())
+        return mlm, self.nsp(pooled)
+
+
+class BERTPretrainingLoss(nn.Module):
+    """Masked-LM + NSP loss. ``mlm_labels`` uses -1 for unmasked (ignored)
+    positions; the MLM term is the mean over labelled positions (at least
+    one), the NSP term the mean over the batch. Each term keeps the
+    reference's dtypes: log-softmax in f32, cast back to the logits'
+    dtype."""
+
+    def forward(self, mlm_logits, nsp_logits, mlm_labels, nsp_labels):
+        logp = ops.log_softmax(mlm_logits, axis=-1)
+        labels = mlm_labels.long()
+        picked = ops.pick(logp, labels.clamp_min(0), axis=-1)
+        valid = (labels >= 0).float()
+        mlm_loss = -(picked * valid).sum() / valid.sum().clamp_min(1.0)
+        nsp_logp = ops.log_softmax(nsp_logits, axis=-1)
+        nsp_loss = -ops.pick(nsp_logp, nsp_labels, axis=-1).mean()
+        return mlm_loss + nsp_loss
+
+
 def bert_base(vocab_size=30522, max_length=512, dropout=0.1, **kwargs):
     return BERTModel(num_layers=12, units=768, hidden_size=3072, num_heads=12,
                      vocab_size=vocab_size, max_length=max_length,
@@ -175,21 +228,26 @@ def _check_against(expected: Dict[str, tuple], got: Dict[str, tuple],
 
 
 def _bert_shapes(named: Dict[str, tuple]) -> Dict[str, tuple]:
-    """The full key -> shape set of the BERTModel whose sizes ``named``
-    implies (vocab, units, max length, type vocab, layers, FFN width)."""
+    """The full key -> shape set of the BERTModel (or, for ``backbone.``
+    names, the BERTForPretraining) whose sizes ``named`` implies (vocab,
+    units, max length, type vocab, layers, FFN width)."""
+    pre = "backbone." if any(k.startswith("backbone.") for k in named) else ""
     try:
-        vocab, units = named["word_embed.weight"]
-        max_length = named["position_embed.weight"][0]
-        type_vocab = named["token_type_embed.weight"][0]
-        hidden = named["encoder.layer0.ffn.ffn1.weight"][0]
+        vocab, units = named[pre + "word_embed.weight"]
+        max_length = named[pre + "position_embed.weight"][0]
+        type_vocab = named[pre + "token_type_embed.weight"][0]
+        hidden = named[pre + "encoder.layer0.ffn.ffn1.weight"][0]
     except (KeyError, ValueError, IndexError) as e:
         raise MXNetError(f"not a BERTModel parameter set: {e!r}") from None
     layers = 1 + max(int(m.group(1)) for m in
-                     (re.match(r"encoder\.layer(\d+)\.", k) for k in named)
+                     (re.match(re.escape(pre) + r"encoder\.layer(\d+)\.", k)
+                      for k in named)
                      if m)   # layer0 exists: its FFN was read above
     ref = BERTModel(num_layers=layers, units=units, hidden_size=hidden,
                     num_heads=1, vocab_size=vocab, max_length=max_length,
                     type_vocab_size=type_vocab, device="meta")
+    if pre:
+        ref = BERTForPretraining(ref, vocab_size=vocab, device="meta")
     return {k: tuple(v.shape) for k, v in ref.state_dict().items()}
 
 
@@ -197,9 +255,11 @@ def params_from_jax(named: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """State dict (CPU tensors, the arrays' own dtypes) from the JAX
     package's ``{_collect_params_with_prefix() name: array}``. Raises
     MXNetError unless the names and shapes are exactly those of one
-    BERTModel."""
+    BERTModel, or of one BERTForPretraining (names under ``backbone.``)."""
     shapes = {k: tuple(np.shape(v)) for k, v in named.items()}
-    _check_against(_bert_shapes(shapes), shapes, "a BERTModel")
+    what = "a BERTForPretraining" if any(
+        k.startswith("backbone.") for k in shapes) else "a BERTModel"
+    _check_against(_bert_shapes(shapes), shapes, what)
     return {k: _to_tensor(v) for k, v in named.items()}
 
 

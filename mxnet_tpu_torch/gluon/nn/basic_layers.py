@@ -47,16 +47,32 @@ class Dense(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Dropout with rate ``rate``; the identity in eval mode (serving)."""
+    """Dropout with rate ``rate``: in training mode each element is kept
+    with probability 1 - rate and divided by 1 - rate; the identity in
+    eval mode (serving) and at rate 0.
+
+    The mask is drawn from ``self.generator``, a ``torch.Generator`` on the
+    input's device that the caller sets (``ParallelTrainStep`` gives every
+    Dropout of its block the one it owns), never from PyTorch's global RNG;
+    training mode at a nonzero rate without one raises."""
 
     def __init__(self, rate: float):
         super().__init__()
         self._rate = float(rate)
+        #: the ``torch.Generator`` masks are drawn from (set by the caller)
+        self.generator = None
 
     def forward(self, x):
         if not self.training or self._rate <= 0:
             return x
-        return torch.nn.functional.dropout(x, self._rate, training=True)
+        if self.generator is None:
+            raise MXNetError("Dropout in training mode needs a torch.Generator "
+                             "(set .generator); it never draws from the "
+                             "global RNG")
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self._rate
+        # the reference's mask: bernoulli in x's dtype, divided by 1 - rate
+        return x * (keep.to(x.dtype) / (1.0 - self._rate))
 
 
 class LayerNorm(nn.Module):

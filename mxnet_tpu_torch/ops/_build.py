@@ -6,7 +6,8 @@ PyTorch headers, so a build takes seconds). The library lands in
 ``build/mxnet_tpu_torch/`` at the repository root, named by a hash of its
 sources and flags: a changed source builds anew, an unchanged one is reused.
 Nothing is built when a module is imported; the first call that launches a
-kernel builds it.
+kernel builds it. Different libraries build in parallel when first used from
+different threads (one nvcc each).
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ BUILD_DIR = _PKG.parent / "build" / "mxnet_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()              # guards _NAME_LOCKS
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOGS: Dict[str, dict] = {}
 
@@ -84,6 +86,8 @@ def build(name: str, sources: Sequence[str]) -> Path:
 def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """The loaded library for ``name``, building it on first use."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name, sources)))

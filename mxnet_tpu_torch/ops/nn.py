@@ -1,7 +1,8 @@
 """Neural-network operators of the port: the counterparts of the functions
-in ``mxnet_tpu/ops/nn.py`` (and ``gelu_tanh`` of ``ops/elemwise.py``) that
-the BERT serving path runs. Same layouts and conventions as the JAX package,
-plain functions on tensors.
+in ``mxnet_tpu/ops/nn.py`` (and ``gelu``/``gelu_tanh`` of
+``ops/elemwise.py``, ``pick`` of ``ops/tensor.py``) that the BERT serving and
+pretraining paths run. Same layouts, conventions and dtype rules as the JAX
+package, plain functions on tensors.
 """
 from __future__ import annotations
 
@@ -13,8 +14,8 @@ import torch.nn.functional as F
 
 from .cuda.flash_attention import _dense_attention, flash_attention
 
-__all__ = ["fully_connected", "layer_norm", "embedding", "gelu_tanh",
-           "multi_head_attention"]
+__all__ = ["fully_connected", "layer_norm", "embedding", "gelu", "gelu_tanh",
+           "log_softmax", "pick", "multi_head_attention"]
 
 
 def fully_connected(x, weight, bias=None, *, flatten: bool = True):
@@ -55,9 +56,31 @@ def embedding(indices, weight):
     return F.embedding(indices.long(), weight)
 
 
+def gelu(x):
+    """The erf-exact GELU (``gelu`` of ``ops/elemwise.py``; the pretraining
+    heads' MLM transform)."""
+    return F.gelu(x)
+
+
 def gelu_tanh(x):
     """The tanh-approximate GELU (original BERT)."""
     return F.gelu(x, approximate="tanh")
+
+
+def log_softmax(x, axis: int = -1):
+    """log-softmax over ``axis``, computed in f32 for bf16/fp16 input and
+    cast back to the input dtype (``_softmax_core``, ``ops/nn.py:206``)."""
+    acc = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) \
+        else x.dtype
+    return torch.log_softmax(x.to(acc), dim=axis).to(x.dtype)
+
+
+def pick(x, indices, *, axis: int = -1, keepdims: bool = False):
+    """``x`` at ``indices`` along ``axis`` (``pick`` of ``ops/tensor.py``);
+    ``indices`` has x's shape without ``axis``, any numeric dtype."""
+    idx = indices.long().unsqueeze(axis)
+    out = torch.gather(x, axis, idx)
+    return out if keepdims else out.squeeze(axis)
 
 
 def multi_head_attention(q, k, v, mask=None, *, heads: int = 1,
@@ -65,7 +88,8 @@ def multi_head_attention(q, k, v, mask=None, *, heads: int = 1,
     """Batched SDPA over q/k/v of shape (N, L, H*D).
 
     An unmasked call with Lq == Lk goes to :func:`flash_attention` (the
-    hand-written kernel on a CUDA tensor, its plain version on a CPU one);
+    hand-written kernels, K1 forward and K2 + K3 backward, on a CUDA tensor;
+    their plain versions on a CPU one);
     unmasked Lq != Lk takes the dense path; a ``mask`` (broadcastable to
     (N, H, Lq, Lk), nonzero = attend) takes the masked composite.
 

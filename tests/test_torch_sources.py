@@ -96,6 +96,37 @@ def test_every_kernel_wrapper_counts_launches(path):
         f"{path}: `launches` is bumped but not declared global"
 
 
+@pytest.mark.parametrize("counter", ["launches", "launches_dq",
+                                     "launches_dkv"])
+def test_flash_attention_counts_each_kernel(counter):
+    """K1, K2 and K3 each have a counter of their own: initialized to 0 at
+    module level, declared global and bumped in exactly one wrapper."""
+    tree = _tree(PKG / "ops" / "cuda" / "flash_attention.py")
+    assert any(isinstance(n, ast.Assign) and isinstance(n.value, ast.Constant)
+               and n.value.value == 0
+               and any(isinstance(t, ast.Name) and t.id == counter
+                       for t in n.targets) for n in tree.body), counter
+    bumpers = [f.name for f in tree.body if isinstance(f, ast.FunctionDef)
+               and any(isinstance(n, ast.AugAssign)
+                       and isinstance(n.target, ast.Name)
+                       and n.target.id == counter for n in ast.walk(f))]
+    assert len(bumpers) == 1, (counter, bumpers)
+    fn = next(f for f in tree.body if isinstance(f, ast.FunctionDef)
+              and f.name == bumpers[0])
+    assert any(isinstance(n, ast.Global) and counter in n.names
+               for n in ast.walk(fn)), counter
+
+
+@pytest.mark.parametrize("module", ["optimizer/optimizer.py",
+                                    "parallel/mesh.py",
+                                    "parallel/train_step.py"])
+def test_training_modules_are_guarded(module):
+    """The training slice's modules are among the files the import guards
+    read (so they import neither jax nor mxnet_tpu)."""
+    assert PKG / module in PORT_FILES
+    test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
+
+
 def test_gitignore_lists_the_build_directory():
     lines = {ln.strip() for ln in (ROOT / ".gitignore").read_text().splitlines()}
     assert "build/" in lines or "/build/" in lines
