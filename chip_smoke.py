@@ -8,8 +8,9 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
 
 1. Environment: the card's name and power limit (nvidia-smi), the CUDA and
    PyTorch versions, nvcc's version; builds the flash-attention forward (K1)
-   and backward (K2, K3) libraries from ``mxnet_tpu_torch/csrc``, one nvcc
-   each, started together, and prints the build times and ptxas reports.
+   and backward (K2, K3) libraries and the fused 1x1-conv library (K4) from
+   ``mxnet_tpu_torch/csrc``, one nvcc each, started together, and prints
+   the build times and ptxas reports.
 2. K1 against its plain version: ``flash_attention_fwd`` (O and LSE)
    against ``flash_attention_fwd_reference`` on the card at every listed
    shape, f32 within 1e-4 (sum order only) and bf16 within 2e-2 (P is
@@ -29,6 +30,17 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    times K2, K3, K2 + K3 with delta, the plain backward, the backward of
    ``scaled_dot_product_attention`` (a yardstick only) and K1, with their
    bounds.
+2c. K4 against its plain version: ``conv1x1_bn_act`` against
+   ``conv1x1_bn_act_reference`` at ResNet-50's nine batch-128 1x1 shapes
+   (bf16 x) and at a ragged M, K = 8, no ReLU and an f32 x: y within
+   2e-2 x max(1, max|plain|) (bf16 output, sum order), each moment within
+   1e-3 x max(1, max|plain|) of itself (f32 sums over up to 401,408 rows in
+   another order); each of the nine twice, bitwise equal (the moments are
+   reduced in a fixed order). At each of the nine it times the kernel, the
+   plain version and ``torch.matmul`` of the pre-activated bf16 x with w
+   (the product alone, a yardstick the port never calls) and prints the
+   bound (bytes over 3.35 TB/s against 2 M K N operations over 989
+   TFLOP/s).
 3. The serving slice: ``bert_base()`` at full width with seeded random
    weights, cast to bf16, served by ``ModelEndpoint`` + ``InferenceServer``
    to 8 client threads sending 96 requests of 1-8 rows of 512 tokens.
@@ -53,7 +65,35 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    moves its weight by up to lr). Prints tokens/s (batch * seq * K * calls
    / wall, as bench.py), the step's median ms and the peak device memory
    beside the card.
-5. A JSON line with the kernels' numbers, then the last line
+5. The ResNet-50 slice: ``resnet50_v1(classes=1000)`` at full width and
+   depth, seeded weights through the weight carrier (``collect_params()``
+   names), ``SGD(0.05, momentum 0.9)`` and ``SoftmaxCrossEntropyLoss``,
+   bf16 compute over f32 masters, batch 32 x 3 x 224 x 224 with labels in
+   [0, 1000), as ``bench.py``: 2 warm-up steps, 3 ``step_n`` calls of
+   K = 10, then 10 steps on one fixed batch. Checks: every loss is finite;
+   the fixed batch's loss falls; the running stats moved from (0, 1) and are
+   finite float32. Prints img/s (32 * K * calls / wall, closed by fetching
+   the last loss), the step's median ms and the peak device memory beside
+   the card. Then K4 on the model's own data: one bf16 training-mode
+   forward with hooks at the 16 bottlenecks takes the 3x3 conv's output as
+   an (N*H*W, C) matrix, the scale and shift its BatchNorm computes, and
+   the last 1x1 conv's weight as (K, N); K4 is launched once per
+   bottleneck (the count must be 16) and y + the conv's bias must equal the
+   conv's output within 2e-2 x max(1, max|out|), and sum/M (+ bias) and
+   sumsq/M - (sum/M)^2 the next BatchNorm's batch mean and variance within
+   2^-7 of each column's rms and 2^-6 of its mean square (the conv's output
+   is rounded to bf16, and the bias added in bf16, before that BatchNorm
+   reads it: two roundings of at most 2^-9 each, doubled). Then one f32
+   step at batch 2 on the card against the same step on the CPU: loss within
+   1e-4 relative; running stats within 1e-4 x max(1, |stat|) (f32 batch
+   moments, sum order only); and the update of all parameters (w before -
+   w after = lr * gradient on a first SGD step) held against the same step
+   computed in f64 on the CPU: the card's f32 update may be at most 3 times
+   as far from it (in norm) as the CPU's f32 update is. At random
+   initialization this net's gradient is ill-conditioned: f32 rounding
+   alone moves it by about 2% against f64, on the CPU as on the card, so
+   no fixed tolerance on the f32 difference would say anything.
+6. A JSON line with the kernels' numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -70,14 +110,19 @@ import numpy as np
 import torch
 
 from mxnet_tpu_torch import cpu, serving
+from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from mxnet_tpu_torch.gluon.model_zoo.bert import (
     BERTForPretraining, BERTPretrainingLoss, bert_base, load_jax_params)
+from mxnet_tpu_torch.gluon.model_zoo.vision import BottleneckV1, resnet50_v1
 from mxnet_tpu_torch.ops import _build
+from mxnet_tpu_torch.ops import nn as ops
 from mxnet_tpu_torch.ops.cuda import flash_attention as fa
-from mxnet_tpu_torch.optimizer import Adam
+from mxnet_tpu_torch.ops.cuda import fused_conv1x1 as fc
+from mxnet_tpu_torch.optimizer import SGD, Adam
 from mxnet_tpu_torch.parallel import ParallelTrainStep, make_mesh
 from mxnet_tpu_torch.tools import (PretrainStep, card, median_ms,
-                                   pretrain_batch, seeded_bert_weights)
+                                   pretrain_batch, seeded_bert_weights,
+                                   seeded_resnet_weights)
 
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,       # dense tensor cores
@@ -101,6 +146,26 @@ BWD_SHAPES = [  # (B, H, S, D), causal
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_P = 64, 128, 19   # bench.py's BERT cell
 TRAIN_K, TRAIN_CALLS, TRAIN_WARMUP, TRAIN_FIXED = 10, 3, 2, 10
 TRAIN_LR = 1e-4
+# ResNet-50 v1's distinct 1x1 convolutions at batch 128, as the reference's
+# K4 benchmark lists them: (label, M = 128 * H * W, K = Cin, N = Cout)
+K4_SHAPES = [("s2_reduce", 128 * 56 * 56, 64, 64),
+             ("s2_expand", 128 * 56 * 56, 64, 256),
+             ("s2_in", 128 * 56 * 56, 256, 64),
+             ("s3_in", 128 * 28 * 28, 512, 128),
+             ("s3_expand", 128 * 28 * 28, 128, 512),
+             ("s4_in", 128 * 14 * 14, 1024, 256),
+             ("s4_expand", 128 * 14 * 14, 256, 1024),
+             ("s5_in", 128 * 7 * 7, 2048, 512),
+             ("s5_expand", 128 * 7 * 7, 512, 2048)]
+K4_EDGES = [  # (M, K, N, relu, x dtype): ragged M, K = 8, no ReLU, f32 x
+    (1000, 64, 64, True, torch.bfloat16),
+    (32 * 7 * 7, 512, 2048, True, torch.bfloat16),
+    (1000, 8, 64, True, torch.bfloat16),
+    (4000, 64, 256, False, torch.bfloat16),
+    (32 * 7 * 7, 2048, 512, True, torch.float32)]
+K4_Y_TOL, K4_MOMENT_TOL = 2e-2, 1e-3
+RESNET_BATCH, RESNET_CLASSES, RESNET_LR = 32, 1000, 0.05   # bench.py's cell
+RESNET_BLOCKS = 3 + 4 + 6 + 3
 
 
 def _bound(nbytes, flops, dtype):
@@ -135,11 +200,12 @@ def phase_environment(smi: str):
     print(f"nvcc: {nvcc.strip().splitlines()[-1]}")
     # one nvcc per library, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(fa._kernel), pool.submit(fa._bwd_kernels)]:
+    with ThreadPoolExecutor(3) as pool:
+        for f in [pool.submit(fa._kernel), pool.submit(fa._bwd_kernels),
+                  pool.submit(fc._kernel)]:
             f.result()
-    print(f"built both libraries in {time.perf_counter() - t0:.1f} s")
-    for name in (fa._LIB_NAME, fa._BWD_LIB_NAME):
+    print(f"built the three libraries in {time.perf_counter() - t0:.1f} s")
+    for name in (fa._LIB_NAME, fa._BWD_LIB_NAME, fc._LIB_NAME):
         log = _build.build_log(name)
         print(f"built {log['path']} (nvcc {log['seconds']:.1f} s, "
               f"cached={log['cached']})")
@@ -270,6 +336,94 @@ def phase_backward(seed: int, smi: str):
                                  f"backward at {shape} {dtype} "
                                  f"causal={causal}")
             del q, k, v, do, out, lse, delta, dq, dk, dv, ref
+    return record
+
+
+def k4_bound_ms(M, K, N, x_dtype=torch.bfloat16):
+    """Least time on an H100 for one K4 call: x, w, scale, shift read once,
+    y, col_sum, col_sumsq written once, against the product's 2 M K N
+    operations at the bf16 tensor-core peak."""
+    nbytes = M * K * (torch.finfo(x_dtype).bits // 8) + K * N * 2 + \
+        2 * K * 4 + M * N * 2 + 2 * N * 4
+    return _bound(nbytes, 2 * M * K * N, torch.bfloat16)
+
+
+def _k4_inputs(gen, M, K, N, x_dtype):
+    x = _randn((M, K), gen, x_dtype)
+    w = (_randn((K, N), gen, torch.float32) * K ** -0.5).to(torch.bfloat16)
+    scale = torch.rand(K, generator=gen, device="cuda") + 0.5
+    shift = 0.1 * torch.randn(K, generator=gen, device="cuda")
+    return x, w, scale, shift
+
+
+def _k4_errors(got, want):
+    """max |y - plain y| and the moments' max errors, each over its
+    tolerance x max(1, max |plain|) (pass if every ratio <= 1)."""
+    errs, ratios = [], []
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.float(), b.float()
+        err = (a - b).abs().max().item()
+        tol = (K4_Y_TOL if i == 0 else K4_MOMENT_TOL) * \
+            max(1.0, b.abs().max().item())
+        errs.append(err)
+        ratios.append(err / tol if torch.isfinite(a).all() else float("inf"))
+    return errs, ratios
+
+
+def phase_fused_conv(seed: int, smi: str):
+    """K4 against its plain version at ResNet-50's nine batch-128 1x1
+    shapes (timed: the kernel, the plain version, torch.matmul of the
+    pre-activated bf16 x with w as the product alone, and the bound) and at
+    the edge cases; twice at each shape, to show the result does not change
+    from run to run."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    record = {"shapes": {}, "max_abs_err": 0.0}
+    for label, M, K, N in K4_SHAPES:
+        x, w, scale, shift = _k4_inputs(gen, M, K, N, torch.bfloat16)
+        got = fc.conv1x1_bn_act(x, w, scale, shift)
+        again = fc.conv1x1_bn_act(x, w, scale, shift)
+        torch.cuda.synchronize()
+        want = fc.conv1x1_bn_act_reference(x, w, scale, shift)
+        errs, ratios = _k4_errors(got, want)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        del got, again, want
+        xh = torch.relu(x.float() * scale + shift).to(torch.bfloat16)
+        ms = median_ms(lambda: fc.conv1x1_bn_act(x, w, scale, shift),
+                       reps=10, warmup=3, calls=TIMED_CALLS)
+        plain = median_ms(lambda: fc.conv1x1_bn_act_reference(
+            x, w, scale, shift), reps=5, warmup=1, calls=TIMED_CALLS)
+        lib = median_ms(lambda: torch.matmul(xh, w), reps=10, warmup=3,
+                        calls=TIMED_CALLS)
+        bms, by, nbytes, flops = k4_bound_ms(M, K, N)
+        print(f"K4 {label} (M={M}, K={K}, N={N}) bf16: max|dy|={errs[0]:.3g}"
+              f" max|dsum|={errs[1]:.3g} max|dsumsq|={errs[2]:.3g} "
+              f"(worst {max(ratios):.3g} of tolerance), repeatable={same} | "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, matmul of the "
+              f"product alone {lib:.4f} ms, bound {bms * 1e3:.1f} us ({by}:"
+              f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+              f"{bms / ms:.1%} of bound on {smi}")
+        if max(ratios) > 1 or not same:
+            raise SystemExit(f"FAIL: K4 disagrees with its plain version "
+                             f"(or with itself) at {label}")
+        record["shapes"][label] = {"M": M, "K": K, "N": N, "ms": ms,
+                                   "plain_ms": plain, "library_ms": lib,
+                                   "bound_ms": bms, "bound_by": by}
+        record["max_abs_err"] = max(record["max_abs_err"], *errs)
+        del x, w, scale, shift, xh
+    for M, K, N, relu, x_dtype in K4_EDGES:
+        x, w, scale, shift = _k4_inputs(gen, M, K, N, x_dtype)
+        got = fc.conv1x1_bn_act(x, w, scale, shift, relu=relu)
+        torch.cuda.synchronize()
+        errs, ratios = _k4_errors(got, fc.conv1x1_bn_act_reference(
+            x, w, scale, shift, relu=relu))
+        print(f"K4 (M={M}, K={K}, N={N}) relu={relu} x {str(x_dtype)[6:]}: "
+              f"max|dy|={errs[0]:.3g} max|dsum|={errs[1]:.3g} "
+              f"max|dsumsq|={errs[2]:.3g} (worst {max(ratios):.3g} of "
+              f"tolerance)")
+        if max(ratios) > 1:
+            raise SystemExit(f"FAIL: K4 disagrees with its plain version at "
+                             f"M={M} K={K} N={N} relu={relu} {x_dtype}")
+        record["max_abs_err"] = max(record["max_abs_err"], *errs)
     return record
 
 
@@ -490,6 +644,209 @@ def phase_train(seed: int, smi: str):
     return counts
 
 
+def _resnet_step(named, compute_dtype, ctx=None):
+    net = resnet50_v1(classes=RESNET_CLASSES)
+    load_jax_params(net, named)
+    mesh = make_mesh({"dp": 1}) if ctx is None else make_mesh({"dp": 1},
+                                                               ctx=ctx)
+    return ParallelTrainStep(net, SoftmaxCrossEntropyLoss(),
+                             SGD(learning_rate=RESNET_LR, momentum=0.9),
+                             mesh, compute_dtype=compute_dtype)
+
+
+def _images(rng, n, batch):
+    """``n`` stacked batches as bench.py draws them: images uniform in
+    [0, 1), labels in [0, 1000) as float32."""
+    xs = rng.random((n, batch, 3, 224, 224), dtype=np.float32)
+    ys = rng.integers(0, RESNET_CLASSES, (n, batch)).astype(np.float32)
+    return xs, ys
+
+
+def _k4_sites(net, cast, x):
+    """One bf16 training-mode forward of ``net`` (parameters ``cast``)
+    with hooks at every BottleneckV1: the 3x3 convolution's output, the
+    scale and shift its BatchNorm computes from it, the last 1x1
+    convolution's weight, bias and output, and the batch mean and variance
+    of its BatchNorm. Returns one dict per block."""
+    sites, handles = [], []
+
+    def bn_stats(bn, inp):
+        return ops.bn_scale_shift(inp, bn.gamma, bn.beta, bn.running_mean,
+                                  bn.running_var, training=True,
+                                  **{k: v for k, v in bn._kwargs.items()
+                                     if k != "use_global_stats"})
+
+    for blk in (m for m in net.modules() if isinstance(m, BottleneckV1)):
+        site = {}
+        sites.append(site)
+        body = blk.body
+
+        def pre_bn2(mod, args, site=site):
+            site["x"] = args[0]
+            site["a"], site["b"] = bn_stats(mod, args[0])[:2]
+
+        def post_conv(mod, args, out, site=site):
+            site["w"], site["bias"], site["out"] = mod.weight, mod.bias, out
+
+        def pre_bn3(mod, args, site=site):
+            site["mean"], site["var"] = bn_stats(mod, args[0])[2:4]
+
+        handles += [body[4].register_forward_pre_hook(pre_bn2),
+                    body[6].register_forward_hook(post_conv),
+                    body[7].register_forward_pre_hook(pre_bn3)]
+    try:
+        with torch.no_grad():
+            torch.func.functional_call(net, cast, (x,))
+    finally:
+        for h in handles:
+            h.remove()
+    return sites
+
+
+def phase_resnet(seed: int, smi: str):
+    """ResNet-50 v1 training as bench.py runs it, K4 on the model's own
+    activations, and one f32 step on the card against the CPU."""
+    probe = resnet50_v1(classes=RESNET_CLASSES, device="meta")
+    named = seeded_resnet_weights(probe, seed)
+    step = _resnet_step(named, "bfloat16")
+    rng = np.random.default_rng(seed + 4)
+    warm = step.place_batch_n(*_images(rng, TRAIN_WARMUP, RESNET_BATCH))
+    bench = step.place_batch_n(*_images(rng, TRAIN_K, RESNET_BATCH))
+    fixed = step.place_batch_n(*_images(rng, 1, RESNET_BATCH))
+    # bench.py hands the step bf16 images
+    warm, bench, fixed = ((xs.to(torch.bfloat16), ys)
+                          for xs, ys in (warm, bench, fixed))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: ResNet-50 training steps ----
+    losses = [step(warm[0][i], warm[1][i]) for i in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_CALLS):
+        losses.append(step.step_n(*bench))
+    losses[-1][-1].item()                  # the window closes on a fetch
+    wall = time.perf_counter() - t0
+    fixed_losses, step_ms = [], []
+    for _ in range(TRAIN_FIXED):
+        t1 = time.perf_counter()
+        fixed_losses.append(step(fixed[0][0], fixed[1][0]).item())
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    # ---- end of the main path ----
+
+    peak = torch.cuda.max_memory_allocated()
+    all_losses = torch.cat([x.reshape(-1) for x in losses]).cpu()
+    steps = TRAIN_WARMUP + TRAIN_CALLS * TRAIN_K + TRAIN_FIXED
+    net = step._block
+    stats = step.buffers
+    means = torch.cat([v for k, v in stats.items() if k.endswith("mean")])
+    varis = torch.cat([v for k, v in stats.items() if k.endswith("var")])
+    print(f"trained resnet50_v1 bf16, batch {RESNET_BATCH} x 3 x 224 x 224, "
+          f"SGD(lr {RESNET_LR}, momentum 0.9): {steps} steps; losses first "
+          f"{all_losses[0].item():.4f}, last {all_losses[-1].item():.4f}; "
+          f"fixed batch {fixed_losses[0]:.4f} -> {fixed_losses[-1]:.4f}; "
+          f"running means |max| {means.abs().max().item():.4g}, running "
+          f"variances in [{varis.min().item():.4g}, "
+          f"{varis.max().item():.4g}] over {len(stats) // 2} BatchNorms")
+    if not torch.isfinite(all_losses).all() or \
+            not np.isfinite(fixed_losses).all():
+        raise SystemExit("FAIL: a ResNet-50 training loss is not finite")
+    if not fixed_losses[-1] < fixed_losses[0]:
+        raise SystemExit("FAIL: the fixed batch's loss did not fall")
+    if not (torch.isfinite(means).all() and torch.isfinite(varis).all()
+            and all(v.dtype == torch.float32 for v in stats.values())
+            and (means != 0).any() and (varis != 1).any()):
+        raise SystemExit("FAIL: the running stats did not move from (0, 1) "
+                         "or are not finite float32")
+    images = RESNET_BATCH * TRAIN_K * TRAIN_CALLS
+    print(f"training resnet50_v1 bf16: {images / wall:.1f} img/s over "
+          f"{TRAIN_CALLS} step_n calls of K={TRAIN_K} (wall {wall:.3f} s), "
+          f"step median {float(np.median(step_ms)):.2f} ms (host clock to a "
+          f"fetched loss), peak device memory {peak / 2**30:.2f} GiB on "
+          f"{smi}")
+
+    # ---- K4 on the model's own activations: counts from 0 just before ----
+    cast = {n: p.to(torch.bfloat16) for n, p in step.params.items()}
+    sites = _k4_sites(net, cast, fixed[0][0])
+    fc.launches = 0
+    results = []
+    for site in sites:
+        x = site["x"]
+        n, c = x.shape[:2]
+        xm = x.permute(0, 2, 3, 1).reshape(-1, c).contiguous()
+        w = site["w"].reshape(site["w"].shape[0], c).t().contiguous()
+        results.append(fc.conv1x1_bn_act(xm, w, site["a"], site["b"]))
+    torch.cuda.synchronize()
+    k4_launches = fc.launches
+    # ---- end of the K4 path ----
+    worst_y = worst_m = worst_v = 0.0
+    for site, (y, col_sum, col_sumsq) in zip(sites, results):
+        out = site["out"]
+        rows = out.numel() // out.shape[1]
+        ref = out.permute(0, 2, 3, 1).reshape(rows, -1).float()
+        bias = site["bias"].float()
+        worst_y = max(worst_y, ((y.float() + bias - ref).abs().max()
+                                / (K4_Y_TOL * max(1.0, ref.abs().max()
+                                                  .item()))).item())
+        mean = col_sum / rows
+        var = col_sumsq / rows - mean.square()
+        # y is rounded to bf16 (and the bias added in bf16) before the
+        # BatchNorm sees it: two roundings of 2^-9 each bound the shift of
+        # a column's mean by 2^-8 of its rms and of its variance by 2^-7
+        # of its mean square; the tolerance is twice that
+        sq = site["var"] + site["mean"].square()
+        worst_m = max(worst_m, ((mean + bias - site["mean"]).abs()
+                                / (2 ** -7 * sq.sqrt() + 1e-6)).max().item())
+        worst_v = max(worst_v, ((var - site["var"]).abs()
+                                / (2 ** -6 * sq + 1e-6)).max().item())
+    print(f"K4 at the {len(sites)} bottlenecks of one bf16 training forward:"
+          f" launches {k4_launches} (expected {RESNET_BLOCKS}); y + bias vs "
+          f"the 1x1 conv's output {worst_y:.3g} of tolerance (2e-2 x "
+          f"max(1, max|out|)); moments vs the next BatchNorm's mean "
+          f"{worst_m:.3g} and variance {worst_v:.3g} of tolerance (2^-7 rms,"
+          f" 2^-6 mean square)")
+    if len(sites) != RESNET_BLOCKS or k4_launches != RESNET_BLOCKS:
+        raise SystemExit("FAIL: K4 was not launched once per bottleneck")
+    if max(worst_y, worst_m, worst_v) > 1:
+        raise SystemExit("FAIL: K4 disagrees with the model's conv and "
+                         "BatchNorm at a bottleneck")
+    del step, warm, bench, fixed, losses, sites, results, cast
+
+    # one f32 step at batch 2 on the card against the same step on the CPU,
+    # both held against the step computed in f64 on the CPU: at random
+    # initialization this net's gradient is ill-conditioned (f32 rounding
+    # alone moves it by ~2% against f64 on the CPU), so the card's f32
+    # update must be as close to the f64 one as the CPU's f32 update is
+    xs, ys = _images(rng, 1, 2)
+    runs = []
+    for ctx, dtype in ((None, None), (cpu(), None), (cpu(), "float64")):
+        st = _resnet_step(named, dtype, ctx=ctx)
+        w0 = {k: v.detach().cpu().clone() for k, v in st.params.items()}
+        loss = st(xs[0], ys[0]).item()
+        upd = torch.cat([(w0[k] - v.detach().cpu()).reshape(-1)
+                         for k, v in st.params.items()])
+        runs.append((loss, upd, {k: v.cpu() for k, v in st.buffers.items()}))
+        del st
+    (l_gpu, u_gpu, s_gpu), (l_cpu, u_cpu, s_cpu), (_, u_64, _) = runs
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    e_gpu = ((u_gpu - u_64).norm() / u_64.norm()).item()
+    e_cpu = ((u_cpu - u_64).norm() / u_64.norm()).item()
+    e_max = ((u_gpu - u_64).abs().max() / u_64.abs().max()).item()
+    stat_err = max(((s_gpu[k] - s_cpu[k]).abs().max()
+                    / max(1.0, s_cpu[k].abs().max().item())).item()
+                   for k in s_cpu)
+    print(f"f32 step, card vs CPU (batch 2): loss {l_gpu:.6f} vs {l_cpu:.6f}"
+          f" (relative {rel:.3g}, tol 1e-4); update of all parameters "
+          f"against the CPU's f64 step: card f32 {e_gpu:.4g}, CPU f32 "
+          f"{e_cpu:.4g} of its norm (tol: card <= 3 x CPU), card max|d| "
+          f"{e_max:.4g} of max|update|; running stats card vs CPU max|d| "
+          f"{stat_err:.3g} x max(1, |stat|) (tol 1e-4)")
+    if not (rel <= 1e-4 and e_gpu <= 3 * e_cpu + 1e-6 and stat_err <= 1e-4):
+        raise SystemExit("FAIL: the f32 ResNet-50 step on the card "
+                         "disagrees with the CPU")
+    return {"img_s": images / wall, "k4_launches": k4_launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -502,8 +859,10 @@ def main(argv=None) -> int:
     phase_environment(smi)
     record = phase_kernel(args.seed, smi)
     bwd = phase_backward(args.seed, smi)
+    k4 = phase_fused_conv(args.seed, smi)
     serve_launches = phase_slice(args.seed, smi)
     train_launches = phase_train(args.seed, smi)
+    resnet = phase_resnet(args.seed, smi)
     r = record[torch.bfloat16]
     src = "mxnet_tpu_torch/csrc/flash_attention_bwd.cu"
     pallas = "mxnet_tpu/ops/pallas/flash_attention.py"
@@ -537,6 +896,21 @@ def main(argv=None) -> int:
          "max_abs_err": bwd["dkv"]["max_abs_err"], "ms": bwd["dkv"]["ms"],
          "bound_ms": bwd["dkv"]["bound_ms"],
          "bound_by": bwd["dkv"]["bound_by"], **common}]
+    s2 = k4["shapes"]["s2_reduce"]
+    kernels.append({
+        "name": "conv1x1_bn_act", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/fused_conv1x1.cu",
+        "replaces": "mxnet_tpu/ops/pallas/fused_conv1x1.py:84",
+        "launches": resnet["k4_launches"],
+        "launches_by_path": {"resnet50_bottleneck_sites":
+                             resnet["k4_launches"]},
+        "max_abs_err": k4["max_abs_err"], "ms": s2["ms"],
+        "plain_ms": s2["plain_ms"], "bound_ms": s2["bound_ms"],
+        "bound_by": s2["bound_by"], "library_ms": s2["library_ms"],
+        "library": "torch.matmul of the pre-activated bf16 x with w (the "
+                   "product alone)",
+        "shape": [s2["M"], s2["K"], s2["N"]], "dtype": "bfloat16",
+        "by_shape": k4["shapes"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

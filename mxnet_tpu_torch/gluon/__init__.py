@@ -1,4 +1,4 @@
 """Layers and models of the port as ``torch.nn.Module``s."""
-from . import model_zoo, nn
+from . import loss, model_zoo, nn
 
-__all__ = ["model_zoo", "nn"]
+__all__ = ["loss", "model_zoo", "nn"]

@@ -6,7 +6,8 @@ The module tree mirrors the JAX block tree, so ``state_dict()`` keys equal
 the JAX package's ``_collect_params_with_prefix()`` names (for example
 ``encoder.layer0.attention.qkv.weight``, ``backbone.word_embed.weight`` or
 ``mlm_ln.gamma``). Weights cross over as numpy
-arrays: :func:`params_from_jax` turns such a dict into a state dict and
+arrays through the weight carrier (``carrier.py``, re-exported here):
+:func:`params_from_jax` turns such a dict into a state dict and
 :func:`load_jax_params` loads it into a model, both refusing missing keys,
 extra keys and shape mismatches; ``BERTModel.load_parameters`` reads a
 ``.params`` file the JAX package wrote.
@@ -27,6 +28,8 @@ from torch import nn
 from ...base import MXNetError
 from ...ops import nn as ops
 from ..nn import Dense, Dropout, Embedding, LayerNorm
+from .carrier import check_against, load_jax_params, params_from_jax, \
+    to_tensor
 
 __all__ = ["SelfAttention", "PositionwiseFFN", "TransformerEncoderLayer",
            "BERTEncoder", "BERTModel", "BERTForPretraining",
@@ -204,29 +207,8 @@ def bert_base(vocab_size=30522, max_length=512, dropout=0.1, **kwargs):
 
 
 # ---------------------------------------------------------------------------
-# weight carrier: JAX-package parameter dicts -> state dicts
+# weight carrier: the BERT shapes a JAX-package parameter dict implies
 # ---------------------------------------------------------------------------
-def _to_tensor(arr) -> torch.Tensor:
-    if isinstance(arr, torch.Tensor):
-        return arr.detach().to("cpu", copy=True)
-    a = np.asarray(arr)
-    if a.dtype.name == "bfloat16":      # ml_dtypes bf16 from the JAX side
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
-                                .copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.array(a, copy=True))
-
-
-def _check_against(expected: Dict[str, tuple], got: Dict[str, tuple],
-                   what: str):
-    missing = sorted(set(expected) - set(got))
-    extra = sorted(set(got) - set(expected))
-    bad = sorted(f"{k}: {got[k]} != {expected[k]}"
-                 for k in set(expected) & set(got) if got[k] != expected[k])
-    if missing or extra or bad:
-        raise MXNetError(f"parameters do not match {what}: missing {missing}, "
-                         f"extra {extra}, shape mismatches {bad}")
-
-
 def _bert_shapes(named: Dict[str, tuple]) -> Dict[str, tuple]:
     """The full key -> shape set of the BERTModel (or, for ``backbone.``
     names, the BERTForPretraining) whose sizes ``named`` implies (vocab,
@@ -251,24 +233,12 @@ def _bert_shapes(named: Dict[str, tuple]) -> Dict[str, tuple]:
     return {k: tuple(v.shape) for k, v in ref.state_dict().items()}
 
 
-def params_from_jax(named: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """State dict (CPU tensors, the arrays' own dtypes) from the JAX
-    package's ``{_collect_params_with_prefix() name: array}``. Raises
-    MXNetError unless the names and shapes are exactly those of one
-    BERTModel, or of one BERTForPretraining (names under ``backbone.``)."""
+def state_from_jax(named: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """:func:`params_from_jax` for BERT names: raises MXNetError unless the
+    names and shapes are exactly those of one BERTModel, or of one
+    BERTForPretraining (names under ``backbone.``)."""
     shapes = {k: tuple(np.shape(v)) for k, v in named.items()}
     what = "a BERTForPretraining" if any(
         k.startswith("backbone.") for k in shapes) else "a BERTModel"
-    _check_against(_bert_shapes(shapes), shapes, what)
-    return {k: _to_tensor(v) for k, v in named.items()}
-
-
-def load_jax_params(model: nn.Module, named: Dict[str, np.ndarray]):
-    """Copy a JAX-package parameter dict into ``model`` (cast to each
-    parameter's dtype and device). Raises MXNetError on any missing key,
-    extra key or shape mismatch, before anything is copied."""
-    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    got = {k: tuple(np.shape(v)) for k, v in named.items()}
-    _check_against(want, got, type(model).__name__)
-    model.load_state_dict({k: _to_tensor(v) for k, v in named.items()},
-                          strict=True)
+    check_against(_bert_shapes(shapes), shapes, what)
+    return {k: to_tensor(v) for k, v in named.items()}

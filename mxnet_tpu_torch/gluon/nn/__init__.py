@@ -1,4 +1,9 @@
-"""Basic layers (Dense, Dropout, LayerNorm, Embedding)."""
-from .basic_layers import Dense, Dropout, Embedding, LayerNorm
+"""Layers of the port: basic layers and the convolution and pooling
+layers."""
+from .basic_layers import (Activation, BatchNorm, Dense, Dropout, Embedding,
+                           Flatten, HybridSequential, LayerNorm)
+from .conv_layers import Conv2D, GlobalAvgPool2D, MaxPool2D
 
-__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm"]
+__all__ = ["Activation", "BatchNorm", "Conv2D", "Dense", "Dropout",
+           "Embedding", "Flatten", "GlobalAvgPool2D", "HybridSequential",
+           "LayerNorm", "MaxPool2D"]

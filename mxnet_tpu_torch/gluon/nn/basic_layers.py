@@ -1,8 +1,10 @@
 """Basic layers of the port as ``torch.nn.Module``s: the counterparts of
-``Dense``, ``Dropout``, ``LayerNorm`` and ``Embedding`` in
+``HybridSequential``, ``Dense``, ``Dropout``, ``BatchNorm``, ``LayerNorm``,
+``Embedding``, ``Flatten`` and ``Activation`` in
 ``mxnet_tpu/gluon/nn/basic_layers.py``, with the JAX package's parameter
-names and layouts (Dense weight is (out, in); LayerNorm has gamma/beta), so
-``state_dict()`` keys match its ``_collect_params_with_prefix()`` names.
+names and layouts (Dense weight is (out, in); LayerNorm has gamma/beta;
+BatchNorm gamma/beta/running_mean/running_var), so ``state_dict()`` keys
+match its ``_collect_params_with_prefix()`` names.
 
 Shapes are given at construction (no deferred initialization). Initial
 weights are random; served models load theirs (see
@@ -16,9 +18,24 @@ from torch import nn
 from ...base import MXNetError
 from ...ops import nn as ops
 
-__all__ = ["Dense", "Dropout", "LayerNorm", "Embedding"]
+__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm", "LayerNorm",
+           "Embedding", "Flatten", "Activation"]
 
 _ACTIVATIONS = {"tanh": torch.tanh}
+
+
+class HybridSequential(nn.Sequential):
+    """Blocks run in order; children are named "0", "1", ... as the
+    reference's. ``prefix`` is the reference's name scope (``"stage1_"``),
+    kept for the names of the weight carrier."""
+
+    def __init__(self, prefix: str = ""):
+        super().__init__()
+        self.prefix = prefix
+
+    def add(self, *blocks):
+        for b in blocks:
+            self.append(b)
 
 
 class Dense(nn.Module):
@@ -75,6 +92,58 @@ class Dropout(nn.Module):
         return x * (keep.to(x.dtype) / (1.0 - self._rate))
 
 
+class BatchNorm(nn.Module):
+    """Batch normalization over ``axis`` (channels of NCHW by default).
+
+    ``gamma`` and ``beta`` are parameters (``scale=False`` means fix_gamma:
+    gamma is taken as 1 and not trained; ``center=False`` leaves beta
+    untrained). ``running_mean`` and ``running_var`` are float32 buffers:
+    in training mode every forward writes the updated moving stats back into
+    them, in place and without gradient (the reference's aux states). As
+    ``BatchNorm.cast`` in the reference, a cast of the model to a half type
+    leaves all four in float32."""
+
+    def __init__(self, axis: int = 1, momentum: float = 0.9,
+                 epsilon: float = 1e-5, center: bool = True,
+                 scale: bool = True, use_global_stats: bool = False,
+                 in_channels: int = 0, device=None):
+        super().__init__()
+        if in_channels <= 0:
+            raise MXNetError("BatchNorm needs in_channels > 0 (the port has "
+                             "no deferred shape inference)")
+        self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
+                        "fix_gamma": not scale,
+                        "use_global_stats": use_global_stats}
+        self.gamma = nn.Parameter(torch.ones(in_channels, device=device),
+                                  requires_grad=scale)
+        self.beta = nn.Parameter(torch.zeros(in_channels, device=device),
+                                 requires_grad=center)
+        self.register_buffer("running_mean",
+                             torch.zeros(in_channels, device=device))
+        self.register_buffer("running_var",
+                             torch.ones(in_channels, device=device))
+
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        for t in list(self._parameters.values()):
+            if t.dtype in (torch.bfloat16, torch.float16):
+                t.data = t.data.float()
+        for k, t in list(self._buffers.items()):
+            if t.dtype in (torch.bfloat16, torch.float16):
+                self._buffers[k] = t.float()
+        return self
+
+    def forward(self, x):
+        out, new_mean, new_var = ops.batch_norm(
+            x, self.gamma, self.beta, self.running_mean, self.running_var,
+            training=self.training, **self._kwargs)
+        if self.training and not self._kwargs["use_global_stats"]:
+            with torch.no_grad():
+                self.running_mean.copy_(new_mean)
+                self.running_var.copy_(new_var)
+        return out
+
+
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis with parameters ``gamma`` (ones) and
     ``beta`` (zeros), eps 1e-5."""
@@ -100,3 +169,21 @@ class Embedding(nn.Module):
 
     def forward(self, x):
         return ops.embedding(x, self.weight)
+
+
+class Flatten(nn.Module):
+    """(N, ...) -> (N, prod(...))."""
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
+
+
+class Activation(nn.Module):
+    """Elementwise activation by name (``ops.nn.activation``)."""
+
+    def __init__(self, activation: str):
+        super().__init__()
+        self._act_type = activation
+
+    def forward(self, x):
+        return ops.activation(x, act_type=self._act_type)

@@ -1,8 +1,9 @@
 """Neural-network operators of the port: the counterparts of the functions
 in ``mxnet_tpu/ops/nn.py`` (and ``gelu``/``gelu_tanh`` of
 ``ops/elemwise.py``, ``pick`` of ``ops/tensor.py``) that the BERT serving and
-pretraining paths run. Same layouts, conventions and dtype rules as the JAX
-package, plain functions on tensors.
+pretraining paths and the ResNet-50 training path run. Same layouts (NCHW
+activations, OIHW convolution weights), conventions and dtype rules as the
+JAX package, plain functions on tensors.
 """
 from __future__ import annotations
 
@@ -12,10 +13,12 @@ import os
 import torch
 import torch.nn.functional as F
 
+from ..base import MXNetError
 from .cuda.flash_attention import _dense_attention, flash_attention
 
-__all__ = ["fully_connected", "layer_norm", "embedding", "gelu", "gelu_tanh",
-           "log_softmax", "pick", "multi_head_attention"]
+__all__ = ["fully_connected", "convolution", "pooling", "activation",
+           "batch_norm", "bn_scale_shift", "layer_norm", "embedding", "gelu",
+           "gelu_tanh", "log_softmax", "pick", "multi_head_attention"]
 
 
 def fully_connected(x, weight, bias=None, *, flatten: bool = True):
@@ -25,10 +28,139 @@ def fully_connected(x, weight, bias=None, *, flatten: bool = True):
     return F.linear(x, weight, bias)
 
 
+def _tup(v, n):
+    if v is None:
+        return (1,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    t = tuple(v)
+    return t if len(t) == n else t * n
+
+
+def convolution(x, weight, bias=None, *, stride=None, dilate=None, pad=None,
+                num_group=1):
+    """2-D convolution over NCHW ``x`` with OIHW ``weight`` (cuDNN through
+    ``torch.nn.functional.conv2d``, a library convolution in both packages;
+    TF32 stays off). bf16 in gives bf16 out."""
+    if x.dim() != 4:
+        raise MXNetError(f"convolution: NCHW input expected, got "
+                         f"{tuple(x.shape)}")
+    return F.conv2d(x, weight, bias, stride=_tup(stride, 2),
+                    padding=_tup(pad if pad is not None else 0, 2),
+                    dilation=_tup(dilate, 2), groups=num_group)
+
+
+def pooling(x, *, kernel=None, pool_type="max", global_pool=False,
+            stride=None, pad=None, pooling_convention="valid",
+            count_include_pad=True):
+    """2-D max or average pooling over NCHW ``x`` (``Pooling``): windows
+    ``kernel`` at ``stride`` (default the kernel) with ``pad`` on both
+    sides, the "valid" convention (output size rounded down); ``global_pool``
+    reduces all of H and W, keeping them as size 1. Max pads with -inf, as
+    the reference. The "full" convention and lp/sum pooling are not
+    ported."""
+    if pool_type not in ("max", "avg") or pooling_convention != "valid":
+        raise MXNetError(f"pooling: {pool_type!r} pooling with the "
+                         f"{pooling_convention!r} convention is not ported")
+    if global_pool:
+        if pool_type == "max":
+            return x.amax(dim=(2, 3), keepdim=True)
+        return x.mean(dim=(2, 3), keepdim=True)
+    kernel = _tup(kernel, 2)
+    stride = _tup(stride if stride is not None else kernel, 2)
+    pad = _tup(pad if pad is not None else 0, 2)
+    if pool_type == "max":
+        return F.max_pool2d(x, kernel, stride, pad)
+    return F.avg_pool2d(x, kernel, stride, pad,
+                        count_include_pad=count_include_pad)
+
+
+_ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
+                "tanh": torch.tanh, "softrelu": F.softplus}
+
+
+def activation(x, *, act_type: str = "relu"):
+    """``Activation``: relu, sigmoid, tanh or softrelu (softplus)."""
+    if act_type not in _ACTIVATIONS:
+        raise MXNetError(f"activation {act_type!r} is not ported; expected "
+                         f"one of {sorted(_ACTIVATIONS)}")
+    return _ACTIVATIONS[act_type](x)
+
+
+def _flag(name: str, default: str) -> str:
+    return os.environ.get(name, default).strip().lower()
+
+
 def _bf16_reduce() -> bool:
     """``MXNET_BN_BF16_REDUCE`` as the JAX package reads it (default on)."""
-    raw = os.environ.get("MXNET_BN_BF16_REDUCE")
-    return True if raw is None else raw.lower() in ("1", "true", "yes", "on")
+    return _flag("MXNET_BN_BF16_REDUCE", "1") in ("1", "true", "yes", "on")
+
+
+def _bn_onepass_enabled(dtype) -> bool:
+    """``MXNET_BN_ONEPASS`` as the JAX package resolves it: "auto" (the
+    default) takes the one-pass E[x^2] - E[x]^2 moments for bf16/fp16 input
+    only; otherwise the flag's truth value."""
+    v = _flag("MXNET_BN_ONEPASS", "auto")
+    if v in ("auto", ""):
+        return dtype in (torch.bfloat16, torch.float16)
+    return v in ("1", "true", "yes", "on")
+
+
+def bn_scale_shift(x, gamma, beta, moving_mean, moving_var, *, eps=1e-5,
+                   momentum=0.9, fix_gamma=True, use_global_stats=False,
+                   training=False, axis=1):
+    """BatchNorm's statistics in f32: ``(a, b, mean, var, new_moving_mean,
+    new_moving_var)`` with a = gamma / sqrt(var + eps) and b = beta - mean *
+    a, so that out = x * a + b. In training mode (unless
+    ``use_global_stats``) mean and var are the batch moments (one-pass
+    E[x^2] - E[x]^2 for bf16 input while ``MXNET_BN_BF16_REDUCE`` is on,
+    else as ``MXNET_BN_ONEPASS`` says), otherwise the moving ones. The
+    moving-stat update takes no gradient."""
+    red = tuple(i for i in range(x.dim()) if i != axis % x.dim())
+    xa = x.float()
+    if fix_gamma:
+        gamma = torch.ones_like(gamma)
+    if training and not use_global_stats:
+        mean = xa.mean(dim=red)
+        if (x.dtype == torch.bfloat16 and _bf16_reduce()) or \
+                _bn_onepass_enabled(x.dtype):
+            var = (xa.square().mean(dim=red) - mean.square()).clamp_min(0.0)
+        else:
+            shape = [1] * x.dim()
+            shape[axis] = x.shape[axis]
+            var = (xa - mean.reshape(shape)).square().mean(dim=red)
+        with torch.no_grad():
+            new_mean = momentum * moving_mean.float() + (1 - momentum) * mean
+            new_var = momentum * moving_var.float() + (1 - momentum) * var
+    else:
+        mean, var = moving_mean.float(), moving_var.float()
+        new_mean, new_var = mean, var
+    a = torch.rsqrt(var + eps) * gamma.float()
+    return a, beta.float() - mean * a, mean, var, new_mean, new_var
+
+
+def batch_norm(x, gamma, beta, moving_mean, moving_var, *, eps=1e-5,
+               momentum=0.9, fix_gamma=True, use_global_stats=False,
+               training=False, axis=1):
+    """BatchNorm (``nn/batch_norm.cc``): ``(out, new_moving_mean,
+    new_moving_var)``, the write-back left to the caller as in the
+    reference. bf16 input with ``MXNET_BN_BF16_REDUCE`` on (the default):
+    out = x * a + b computed in f32 and rounded to bf16. Otherwise the f32
+    form (x - mean) * a + beta. The new moving stats keep the moving
+    stats' dtype."""
+    a, b, mean, _, new_mean, new_var = bn_scale_shift(
+        x, gamma, beta, moving_mean, moving_var, eps=eps, momentum=momentum,
+        fix_gamma=fix_gamma, use_global_stats=use_global_stats,
+        training=training, axis=axis)
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    if x.dtype == torch.bfloat16 and _bf16_reduce():
+        out = x * a.reshape(shape) + b.reshape(shape)
+    else:
+        out = (x.float() - mean.reshape(shape)) * a.reshape(shape) \
+            + beta.float().reshape(shape)
+    return (out.to(x.dtype), new_mean.to(moving_mean.dtype),
+            new_var.to(moving_var.dtype))
 
 
 def layer_norm(x, gamma, beta, *, axis: int = -1, eps: float = 1e-5):

@@ -1,4 +1,4 @@
-"""Optimizers of the port (``Optimizer``, ``Adam``)."""
-from .optimizer import Adam, Optimizer
+"""Optimizers of the port (``Optimizer``, ``SGD``, ``Adam``)."""
+from .optimizer import SGD, Adam, Optimizer
 
-__all__ = ["Adam", "Optimizer"]
+__all__ = ["Adam", "Optimizer", "SGD"]

@@ -1,4 +1,4 @@
-"""Optimizers of the port: the ``Optimizer`` base and ``Adam`` of
+"""Optimizers of the port: the ``Optimizer`` base, ``SGD`` and ``Adam`` of
 ``mxnet_tpu/optimizer/optimizer.py``.
 
 The JAX package's update rule is a pure function over immutable arrays,
@@ -15,7 +15,7 @@ from typing import Any, Dict
 
 import torch
 
-__all__ = ["Optimizer", "Adam"]
+__all__ = ["Optimizer", "SGD", "Adam"]
 
 
 def _bf16_moments() -> bool:
@@ -72,6 +72,31 @@ class Optimizer:
         (already rescaled and clipped) at learning rate ``lr``, weight decay
         ``wd`` and update count ``t``."""
         raise NotImplementedError
+
+
+class SGD(Optimizer):
+    """SGD with momentum (``optimizer_op.cc sgd_update/sgd_mom_update``):
+    g' = g + wd * w; with momentum, mom = momentum * mom - lr * g' and
+    w += mom, else w -= lr * g'. In place, in the weight's dtype (the f32
+    masters)."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return torch.zeros_like(weight)
+
+    @torch.no_grad()
+    def _rule(self, w, g, state, lr, wd, t):
+        g = g + wd * w
+        if state is None:
+            w.sub_(lr * g)
+            return
+        state.mul_(self.momentum).sub_(lr * g)
+        w.add_(state)
 
 
 class Adam(Optimizer):

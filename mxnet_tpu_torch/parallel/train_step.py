@@ -16,6 +16,13 @@ parameters stay float32 masters on the mesh's device; with
 the masters through the cast. Not ``torch.autocast``: its per-op policy is
 another recipe.
 
+BatchNorm's moving statistics (the reference's aux states, written back as
+extra outputs of its step, ``train_step.py:261-266``) are float32 buffers of
+the block, not parameters: the cast above never touches them, and each
+``BatchNorm`` writes its updated moving mean and variance back into its own
+buffers, in place and in f32, during the step's one forward. So every step
+updates them exactly once, and ``step_n(K)`` equals K steps for them too.
+
 The step owns the ``torch.Generator`` that feeds every ``Dropout`` of the
 block (seeded by ``seed``). Multi-device meshes (P9), retry, the numerics
 guard, telemetry and rematerialization (P14/P16) are not ported yet.
@@ -77,6 +84,12 @@ class ParallelTrainStep:
         """The trained parameters by name (the float32 masters, updated in
         place by every step)."""
         return dict(zip(self._names, self._plist))
+
+    @property
+    def buffers(self) -> Dict[str, torch.Tensor]:
+        """The block's buffers by name (BatchNorm's moving statistics, in
+        float32, updated in place by every step)."""
+        return dict(self._block.named_buffers())
 
     def _place(self, a):
         return torch.as_tensor(a).to(self._device, non_blocking=True)

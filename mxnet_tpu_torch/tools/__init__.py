@@ -7,8 +7,8 @@ import subprocess
 import numpy as np
 import torch
 
-__all__ = ["card", "median_ms", "seeded_bert_weights", "PretrainStep",
-           "pretrain_batch"]
+__all__ = ["card", "median_ms", "seeded_bert_weights",
+           "seeded_resnet_weights", "PretrainStep", "pretrain_batch"]
 
 
 def card() -> str:
@@ -55,6 +55,34 @@ def seeded_bert_weights(net, seed: int):
         elif "embed" not in k:
             a = a * np.float32(p.shape[1] ** -0.5)
         named[k] = a
+    return named
+
+
+def seeded_resnet_weights(net, seed: int, prefix: str = "resnetv10_"):
+    """Seeded random weights for every parameter and running stat of the
+    ResNet ``net``, under the JAX package's ``collect_params()`` names
+    (``prefix`` + ``net.jax_names()``): convolution and dense weights
+    N(0, 1/fan_in), BatchNorm gamma 1 + N(0, 0.1^2), biases and beta
+    N(0, 0.02^2), running mean 0 and running variance 1 (the reference's
+    initial stats)."""
+    rng = np.random.default_rng(seed)
+    state = net.state_dict()
+    named = {}
+    for key, name in net.jax_names().items():
+        shape = tuple(state[key].shape)
+        if key.endswith("running_mean"):
+            a = np.zeros(shape, np.float32)
+        elif key.endswith("running_var"):
+            a = np.ones(shape, np.float32)
+        else:
+            a = rng.standard_normal(shape, dtype=np.float32)
+            if key.endswith("gamma"):
+                a = 1.0 + 0.1 * a
+            elif len(shape) == 1:
+                a = 0.02 * a
+            else:
+                a = a * np.float32(np.prod(shape[1:]) ** -0.5)
+        named[prefix + name] = a
     return named
 
 

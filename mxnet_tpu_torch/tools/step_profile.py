@@ -1,7 +1,8 @@
-"""Where the time of one BERT-base step goes on the card.
+"""Where the time of one BERT-base or ResNet-50 step goes on the card.
 
     python3 -m mxnet_tpu_torch.tools.step_profile [--bucket 32] [--seed 0]
     python3 -m mxnet_tpu_torch.tools.step_profile --train [--seed 0]
+    python3 -m mxnet_tpu_torch.tools.step_profile --resnet [--seed 0]
 
 Serving (default): builds ``bert_base()`` in bf16 with seeded random weights
 on ``gpu(0)`` and runs the endpoint's forward at one batch bucket of
@@ -11,6 +12,17 @@ on ``gpu(0)`` and runs the endpoint's forward at one batch bucket of
 max_length=128))`` through ``ParallelTrainStep`` (bf16 compute over f32
 masters, Adam, dropout 0.1) at batch 64 x 128 with 19 masked positions, the
 step ``chip_smoke.py`` phase 4 runs.
+
+``--resnet``: one training step of ``resnet50_v1(classes=1000)`` through
+``ParallelTrainStep`` (bf16 compute over f32 masters, SGD with momentum 0.9,
+``SoftmaxCrossEntropyLoss``) at batch 32 x 3 x 224 x 224, the step
+``chip_smoke.py`` phase 5 runs. Its kernels are grouped by the host op
+that launched them: convolution forward (``aten::convolution``) and
+backward (``aten::convolution_backward``), cuDNN's layout transforms
+included; the Dense layer's product; pooling and the loss; the SGD update
+(under ``mxt.optimizer``); and everything else (BatchNorm and ReLU
+elementwise work, reductions and casts). The device idle share is the rest
+of the step.
 
 Reports:
 
@@ -37,7 +49,7 @@ import numpy as np
 import torch
 
 from . import (PretrainStep, card, median_ms, pretrain_batch,
-               seeded_bert_weights)
+               seeded_bert_weights, seeded_resnet_weights)
 
 _MATMUL_MARKS = ("gemm", "cutlass", "xmma", "cublas", "nvjet", "sm90_",
                  "matmul")
@@ -45,6 +57,19 @@ _KERNELS = (("flash_bwd_dq", "K2 flash_attention_bwd_dq"),
             ("flash_bwd_dkv", "K3 flash_attention_bwd_dkv"),
             ("flash_fwd", "K1 flash_attention_fwd"))
 _OPTIMIZER_RANGE = "mxt.optimizer"
+
+
+# ResNet-50's classes, by the host op that launched each kernel: (class,
+# test on the op's name)
+_RESNET_OPS = (
+    ("conv forward (cuDNN, with its layout transforms)",
+     lambda n: n == "aten::convolution"),
+    ("conv backward (cuDNN, with its layout transforms)",
+     lambda n: n == "aten::convolution_backward"),
+    ("matmul (the Dense layer)", lambda n: n in ("aten::addmm", "aten::mm")),
+    ("pooling and loss", lambda n: any(
+        m in n for m in ("max_pool2d", "log_softmax", "gather"))))
+_RESNET_OTHER = "other: BatchNorm/ReLU elementwise, reductions, casts"
 
 
 def _category(name: str) -> str:
@@ -57,23 +82,34 @@ def _category(name: str) -> str:
     return "other"
 
 
+def _kernel_ms_under(events, match, skip: str = ""):
+    """Device ms of the kernels launched inside any host op whose name
+    passes ``match`` (or inside its children), each kernel counted once;
+    kernels named ``skip`` (a range's own annotation) are left out."""
+    from torch.autograd import DeviceType
+
+    seen = {}
+    stack = [e for e in events
+             if e.device_type == DeviceType.CPU and match(e.name)]
+    while stack:
+        e = stack.pop()
+        for k in e.kernels:
+            if k.name != skip:
+                seen[id(k)] = k.duration
+        stack.extend(e.cpu_children)
+    return sum(seen.values()) / 1e3
+
+
 def _range_ms(events, name):
     """(kernel ms, device window ms) under the host range ``name``: the
     device time of the kernels launched inside it, and the span of its
     annotation on the device timeline (first kernel start to last end)."""
     from torch.autograd import DeviceType
 
-    kernel_us = window_us = 0.0
-    stack = [e for e in events if e.name == name
-             and e.device_type == DeviceType.CPU]
-    for e in events:
-        if e.name == name and e.device_type == DeviceType.CUDA:
-            window_us += e.device_time_total
-    while stack:
-        e = stack.pop()
-        kernel_us += sum(k.duration for k in e.kernels if k.name != name)
-        stack.extend(e.cpu_children)
-    return kernel_us / 1e3, window_us / 1e3
+    window_us = sum(e.device_time_total for e in events
+                    if e.name == name and e.device_type == DeviceType.CUDA)
+    return _kernel_ms_under(events, lambda n: n == name, skip=name), \
+        window_us / 1e3
 
 
 def _serving_step(args):
@@ -118,25 +154,63 @@ def _train_step(args):
     def step():
         return ts(x, y, tt, pos)
 
-    for _ in range(3):
-        step().item()
-    times = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        step().item()
-        times.append((time.perf_counter() - t0) * 1e3)
+    times = _host_times(step)
     desc = (f"BERTForPretraining(bert_base) bf16 training step, batch "
             f"{batch} x {seq}, P={n_pred}, Adam, dropout 0.1")
     return step, float(np.median(times)), desc, \
         {"batch": batch, "seq": seq, "masked": n_pred}
 
 
+def _resnet_step(args):
+    from ..gluon.loss import SoftmaxCrossEntropyLoss
+    from ..gluon.model_zoo.carrier import load_jax_params
+    from ..gluon.model_zoo.vision import resnet50_v1
+    from ..optimizer import SGD
+    from ..parallel import ParallelTrainStep, make_mesh
+
+    batch = 32
+    net = resnet50_v1(classes=1000)
+    load_jax_params(net, seeded_resnet_weights(net, args.seed))
+    ts = ParallelTrainStep(net, SoftmaxCrossEntropyLoss(),
+                           SGD(learning_rate=0.05, momentum=0.9),
+                           make_mesh({"dp": 1}), compute_dtype="bfloat16")
+    rng = np.random.default_rng(args.seed)
+    x = torch.from_numpy(rng.random((batch, 3, 224, 224), dtype=np.float32))
+    x = x.to("cuda", torch.bfloat16)
+    y = torch.from_numpy(rng.integers(0, 1000, batch).astype(np.float32))
+    y = y.to("cuda")
+
+    def step():
+        return ts(x, y)
+
+    times = _host_times(step)
+    desc = (f"resnet50_v1 bf16 training step, batch {batch} x 3 x 224 x 224,"
+            f" SGD momentum 0.9")
+    return step, float(np.median(times)), desc, {"batch": batch}
+
+
+def _host_times(step, warmup: int = 3, reps: int = 10):
+    """Host-clock ms of ``reps`` steps, each closed by fetching its loss,
+    after ``warmup`` untimed ones."""
+    for _ in range(warmup):
+        step().item()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        step().item()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bucket", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--train", action="store_true",
-                    help="profile one pretraining step instead of serving")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="profile one BERT pretraining step")
+    mode.add_argument("--resnet", action="store_true",
+                      help="profile one ResNet-50 training step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("step_profile: no CUDA device", file=sys.stderr)
@@ -147,10 +221,12 @@ def main(argv=None) -> int:
     from ..ops.cuda import flash_attention as fa
 
     smi = card()
-    step, step_ms, desc, shape = (_train_step if args.train
+    training = args.train or args.resnet
+    step, step_ms, desc, shape = (_resnet_step if args.resnet else
+                                  _train_step if args.train
                                   else _serving_step)(args)
 
-    n_steps = 3 if args.train else 5
+    n_steps = 3 if training else 5
     counts0 = (fa.launches, fa.launches_dq, fa.launches_dkv)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -165,18 +241,30 @@ def main(argv=None) -> int:
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0
                and e.key != _OPTIMIZER_RANGE]
-    by_cat = {}
-    for e in kernels:
-        c = _category(e.key)
-        by_cat[c] = by_cat.get(c, 0.0) + e.self_device_time_total / 1e3
+    events = prof.events()
+    if args.resnet:
+        by_cat = {c: _kernel_ms_under(events, match)
+                  for c, match in _RESNET_OPS}
+        other = _RESNET_OTHER
+        by_cat[other] = sum(e.self_device_time_total for e in kernels) \
+            / 1e3 - sum(by_cat.values())
+    else:
+        other, by_cat = "other", {}
+        for e in kernels:
+            c = _category(e.key)
+            by_cat[c] = by_cat.get(c, 0.0) + e.self_device_time_total / 1e3
     # the optimizer's kernels are elementwise: move them out of "other"
-    opt_ms, opt_window_ms = _range_ms(prof.events(), _OPTIMIZER_RANGE)
+    opt_ms, opt_window_ms = _range_ms(events, _OPTIMIZER_RANGE)
     if opt_ms:
-        by_cat["optimizer (Adam, under mxt.optimizer)"] = opt_ms
-        by_cat["other"] = by_cat.get("other", 0.0) - opt_ms
+        name = "SGD" if args.resnet else "Adam"
+        by_cat[f"optimizer ({name}, under mxt.optimizer)"] = opt_ms
+        by_cat[other] = by_cat.get(other, 0.0) - opt_ms
     per_step = {c: ms / n_steps for c, ms in by_cat.items()}
     device_ms = sum(per_step.values())
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    if training:
+        per_step["device idle"] = max(0.0, step_ms - device_ms)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[
+        :25 if args.resnet else 12]
     print(f"card: {smi}")
     print(f"{desc}: step {step_ms:.3f} ms (median of 10); profiled device "
           f"time {device_ms:.3f} ms/step, busy share "
@@ -191,7 +279,8 @@ def main(argv=None) -> int:
     for e in top:
         print(f"  top: {e.self_device_time_total / 1e3 / n_steps:8.3f} "
               f"ms/step  x{e.count // n_steps:<4d} {e.key[:90]}")
-    result = {"card": smi, "mode": "train" if args.train else "serve",
+    result = {"card": smi, "mode": "resnet" if args.resnet else
+              "train" if args.train else "serve",
               **shape, "step_ms": step_ms, "device_ms": device_ms,
               "busy_share": device_ms / step_ms,
               "ms_per_step": per_step,

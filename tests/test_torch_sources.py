@@ -96,12 +96,8 @@ def test_every_kernel_wrapper_counts_launches(path):
         f"{path}: `launches` is bumped but not declared global"
 
 
-@pytest.mark.parametrize("counter", ["launches", "launches_dq",
-                                     "launches_dkv"])
-def test_flash_attention_counts_each_kernel(counter):
-    """K1, K2 and K3 each have a counter of their own: initialized to 0 at
-    module level, declared global and bumped in exactly one wrapper."""
-    tree = _tree(PKG / "ops" / "cuda" / "flash_attention.py")
+def _counted_in_one_wrapper(module, counter):
+    tree = _tree(PKG / "ops" / "cuda" / module)
     assert any(isinstance(n, ast.Assign) and isinstance(n.value, ast.Constant)
                and n.value.value == 0
                and any(isinstance(t, ast.Name) and t.id == counter
@@ -115,16 +111,54 @@ def test_flash_attention_counts_each_kernel(counter):
               and f.name == bumpers[0])
     assert any(isinstance(n, ast.Global) and counter in n.names
                for n in ast.walk(fn)), counter
+    return bumpers[0]
+
+
+@pytest.mark.parametrize("counter", ["launches", "launches_dq",
+                                     "launches_dkv"])
+def test_flash_attention_counts_each_kernel(counter):
+    """K1, K2 and K3 each have a counter of their own: initialized to 0 at
+    module level, declared global and bumped in exactly one wrapper."""
+    _counted_in_one_wrapper("flash_attention.py", counter)
+
+
+def test_fused_conv1x1_counts_its_kernel_in_one_wrapper():
+    """K4's counter is bumped in ``conv1x1_bn_act`` alone (its plain
+    version and the CPU route never count)."""
+    assert _counted_in_one_wrapper("fused_conv1x1.py",
+                                   "launches") == "conv1x1_bn_act"
 
 
 @pytest.mark.parametrize("module", ["optimizer/optimizer.py",
                                     "parallel/mesh.py",
-                                    "parallel/train_step.py"])
+                                    "parallel/train_step.py",
+                                    "ops/nn.py",
+                                    "ops/cuda/fused_conv1x1.py",
+                                    "gluon/loss.py",
+                                    "gluon/nn/conv_layers.py",
+                                    "gluon/nn/basic_layers.py",
+                                    "gluon/model_zoo/carrier.py",
+                                    "gluon/model_zoo/vision/__init__.py",
+                                    "gluon/model_zoo/vision/resnet.py"])
 def test_training_modules_are_guarded(module):
-    """The training slice's modules are among the files the import guards
-    read (so they import neither jax nor mxnet_tpu)."""
+    """The training slices' modules (BERT's and ResNet-50's) are among the
+    files the import guards read (so they import neither jax nor
+    mxnet_tpu)."""
     assert PKG / module in PORT_FILES
     test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "csrc").glob("*.cu")),
+                         ids=lambda p: p.name)
+def test_kernel_sources_do_their_own_products(path):
+    """Each kernel multiplies with mma.sync in its own body and includes no
+    library of finished kernels (cuBLAS, CUTLASS, cuDNN, PyTorch)."""
+    src = path.read_text()
+    assert "mma.sync.aligned.m16n8k16" in src
+    includes = {ln.split()[1] for ln in src.splitlines()
+                if ln.startswith("#include")}
+    assert includes <= {"<cuda_bf16.h>", "<cuda_runtime.h>", "<stdint.h>"}, \
+        includes
 
 
 def test_gitignore_lists_the_build_directory():
