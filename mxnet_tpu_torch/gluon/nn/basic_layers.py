@@ -21,8 +21,6 @@ from ...ops import nn as ops
 __all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm", "LayerNorm",
            "Embedding", "Flatten", "Activation"]
 
-_ACTIVATIONS = {"tanh": torch.tanh}
-
 
 class HybridSequential(nn.Sequential):
     """Blocks run in order; children are named "0", "1", ... as the
@@ -39,7 +37,8 @@ class HybridSequential(nn.Sequential):
 
 
 class Dense(nn.Module):
-    """Fully-connected layer: y = act(x W^T + b), weight (units, in_units)."""
+    """Fully-connected layer: y = act(x W^T + b), weight (units, in_units);
+    ``activation`` is a name ``ops.nn.activation`` takes."""
 
     def __init__(self, units: int, activation=None, flatten: bool = True,
                  in_units: int = 0, device=None):
@@ -47,9 +46,6 @@ class Dense(nn.Module):
         if in_units <= 0:
             raise MXNetError("Dense needs in_units > 0 (the port has no "
                              "deferred shape inference)")
-        if activation is not None and activation not in _ACTIVATIONS:
-            raise MXNetError(f"activation {activation!r} is not ported; "
-                             f"expected one of {sorted(_ACTIVATIONS)}")
         self._flatten = flatten
         self._act = activation
         self.weight = nn.Parameter(torch.empty(units, in_units, device=device))
@@ -60,7 +56,7 @@ class Dense(nn.Module):
     def forward(self, x):
         out = ops.fully_connected(x, self.weight, self.bias,
                                   flatten=self._flatten)
-        return _ACTIVATIONS[self._act](out) if self._act else out
+        return ops.activation(out, act_type=self._act) if self._act else out
 
 
 class Dropout(nn.Module):

@@ -12,12 +12,9 @@ from torch import nn
 
 from ...base import MXNetError
 from ...ops import nn as ops
+from ...ops.nn import _pair
 
 __all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
-
-
-def _pair(v):
-    return (v, v) if isinstance(v, int) else tuple(v)
 
 
 class Conv2D(nn.Module):

@@ -28,13 +28,11 @@ def fully_connected(x, weight, bias=None, *, flatten: bool = True):
     return F.linear(x, weight, bias)
 
 
-def _tup(v, n):
+def _pair(v, default=1):
+    """``v`` as an (h, w) pair: an int is repeated, None is ``default``."""
     if v is None:
-        return (1,) * n
-    if isinstance(v, int):
-        return (v,) * n
-    t = tuple(v)
-    return t if len(t) == n else t * n
+        v = default
+    return (v, v) if isinstance(v, int) else tuple(v)
 
 
 def convolution(x, weight, bias=None, *, stride=None, dilate=None, pad=None,
@@ -45,42 +43,33 @@ def convolution(x, weight, bias=None, *, stride=None, dilate=None, pad=None,
     if x.dim() != 4:
         raise MXNetError(f"convolution: NCHW input expected, got "
                          f"{tuple(x.shape)}")
-    return F.conv2d(x, weight, bias, stride=_tup(stride, 2),
-                    padding=_tup(pad if pad is not None else 0, 2),
-                    dilation=_tup(dilate, 2), groups=num_group)
+    return F.conv2d(x, weight, bias, stride=_pair(stride),
+                    padding=_pair(pad, 0), dilation=_pair(dilate),
+                    groups=num_group)
 
 
 def pooling(x, *, kernel=None, pool_type="max", global_pool=False,
-            stride=None, pad=None, pooling_convention="valid",
-            count_include_pad=True):
-    """2-D max or average pooling over NCHW ``x`` (``Pooling``): windows
-    ``kernel`` at ``stride`` (default the kernel) with ``pad`` on both
-    sides, the "valid" convention (output size rounded down); ``global_pool``
-    reduces all of H and W, keeping them as size 1. Max pads with -inf, as
-    the reference. The "full" convention and lp/sum pooling are not
-    ported."""
-    if pool_type not in ("max", "avg") or pooling_convention != "valid":
-        raise MXNetError(f"pooling: {pool_type!r} pooling with the "
-                         f"{pooling_convention!r} convention is not ported")
-    if global_pool:
-        if pool_type == "max":
-            return x.amax(dim=(2, 3), keepdim=True)
+            stride=None, pad=None):
+    """The two forms of ``Pooling`` that ResNet v1 runs, over NCHW ``x``:
+    max over ``kernel`` windows at ``stride`` (default the kernel) with
+    ``pad`` on both sides, -inf padded and the output size rounded down
+    (the reference's "valid" convention); and global average pooling
+    (``global_pool``), which keeps H and W as size 1. Other pool types and
+    windowed averages are not ported."""
+    if global_pool and pool_type == "avg":
         return x.mean(dim=(2, 3), keepdim=True)
-    kernel = _tup(kernel, 2)
-    stride = _tup(stride if stride is not None else kernel, 2)
-    pad = _tup(pad if pad is not None else 0, 2)
-    if pool_type == "max":
-        return F.max_pool2d(x, kernel, stride, pad)
-    return F.avg_pool2d(x, kernel, stride, pad,
-                        count_include_pad=count_include_pad)
+    if global_pool or pool_type != "max":
+        raise MXNetError(f"pooling: {pool_type!r} pooling with global_pool="
+                         f"{global_pool} is not ported")
+    kernel = _pair(kernel)
+    return F.max_pool2d(x, kernel, _pair(stride, kernel), _pair(pad, 0))
 
 
-_ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
-                "tanh": torch.tanh, "softrelu": F.softplus}
+_ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh}
 
 
 def activation(x, *, act_type: str = "relu"):
-    """``Activation``: relu, sigmoid, tanh or softrelu (softplus)."""
+    """``Activation``: relu (ResNet) or tanh (BERT's pooler)."""
     if act_type not in _ACTIVATIONS:
         raise MXNetError(f"activation {act_type!r} is not ported; expected "
                          f"one of {sorted(_ACTIVATIONS)}")

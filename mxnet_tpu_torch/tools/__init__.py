@@ -7,8 +7,15 @@ import subprocess
 import numpy as np
 import torch
 
+from ..gluon.loss import SoftmaxCrossEntropyLoss
+from ..gluon.model_zoo.carrier import load_jax_params
+from ..gluon.model_zoo.vision import resnet50_v1
+from ..optimizer import SGD
+from ..parallel import ParallelTrainStep, make_mesh
+
 __all__ = ["card", "median_ms", "seeded_bert_weights",
-           "seeded_resnet_weights", "PretrainStep", "pretrain_batch"]
+           "seeded_resnet_weights", "PretrainStep", "pretrain_batch",
+           "resnet_train_step", "resnet_batch"]
 
 
 def card() -> str:
@@ -58,10 +65,10 @@ def seeded_bert_weights(net, seed: int):
     return named
 
 
-def seeded_resnet_weights(net, seed: int, prefix: str = "resnetv10_"):
+def seeded_resnet_weights(net, seed: int):
     """Seeded random weights for every parameter and running stat of the
     ResNet ``net``, under the JAX package's ``collect_params()`` names
-    (``prefix`` + ``net.jax_names()``): convolution and dense weights
+    (``"resnetv10_"`` + ``net.jax_names()``): convolution and dense weights
     N(0, 1/fan_in), BatchNorm gamma 1 + N(0, 0.1^2), biases and beta
     N(0, 0.02^2), running mean 0 and running variance 1 (the reference's
     initial stats)."""
@@ -82,7 +89,7 @@ def seeded_resnet_weights(net, seed: int, prefix: str = "resnetv10_"):
                 a = 0.02 * a
             else:
                 a = a * np.float32(np.prod(shape[1:]) ** -0.5)
-        named[prefix + name] = a
+        named["resnetv10_" + name] = a
     return named
 
 
@@ -113,3 +120,26 @@ def pretrain_batch(rng, n: int, batch: int, seq: int, n_pred: int,
     mlm = rng.integers(0, vocab, (n, batch, n_pred), dtype=np.int32)
     nsp = rng.integers(0, 2, (n, batch), dtype=np.int32)
     return toks, (mlm, nsp), tt, pos
+
+
+def resnet_train_step(named, compute_dtype, ctx=None):
+    """``bench.py``'s ResNet-50 training step: ``resnet50_v1(classes=1000)``
+    with the weights ``named`` (``collect_params()`` names), ``SGD(0.05,
+    momentum 0.9)`` and ``SoftmaxCrossEntropyLoss`` through
+    ``ParallelTrainStep`` on ``ctx`` (default the card), ``compute_dtype``
+    over f32 masters."""
+    net = resnet50_v1(classes=1000)
+    load_jax_params(net, named)
+    return ParallelTrainStep(net, SoftmaxCrossEntropyLoss(),
+                             SGD(learning_rate=0.05, momentum=0.9),
+                             make_mesh({"dp": 1}, ctx=ctx),
+                             compute_dtype=compute_dtype)
+
+
+def resnet_batch(rng, n: int, batch: int):
+    """``n`` stacked ImageNet-shaped batches from ``rng`` (a numpy
+    Generator), as ``bench.py`` draws them: images (n, batch, 3, 224, 224)
+    uniform in [0, 1) and labels in [0, 1000) as float32."""
+    xs = rng.random((n, batch, 3, 224, 224), dtype=np.float32)
+    ys = rng.integers(0, 1000, (n, batch)).astype(np.float32)
+    return xs, ys

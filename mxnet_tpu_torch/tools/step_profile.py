@@ -48,8 +48,8 @@ import time
 import numpy as np
 import torch
 
-from . import (PretrainStep, card, median_ms, pretrain_batch,
-               seeded_bert_weights, seeded_resnet_weights)
+from . import (PretrainStep, card, median_ms, pretrain_batch, resnet_batch,
+               resnet_train_step, seeded_bert_weights, seeded_resnet_weights)
 
 _MATMUL_MARKS = ("gemm", "cutlass", "xmma", "cublas", "nvjet", "sm90_",
                  "matmul")
@@ -162,23 +162,15 @@ def _train_step(args):
 
 
 def _resnet_step(args):
-    from ..gluon.loss import SoftmaxCrossEntropyLoss
-    from ..gluon.model_zoo.carrier import load_jax_params
     from ..gluon.model_zoo.vision import resnet50_v1
-    from ..optimizer import SGD
-    from ..parallel import ParallelTrainStep, make_mesh
 
     batch = 32
-    net = resnet50_v1(classes=1000)
-    load_jax_params(net, seeded_resnet_weights(net, args.seed))
-    ts = ParallelTrainStep(net, SoftmaxCrossEntropyLoss(),
-                           SGD(learning_rate=0.05, momentum=0.9),
-                           make_mesh({"dp": 1}), compute_dtype="bfloat16")
-    rng = np.random.default_rng(args.seed)
-    x = torch.from_numpy(rng.random((batch, 3, 224, 224), dtype=np.float32))
-    x = x.to("cuda", torch.bfloat16)
-    y = torch.from_numpy(rng.integers(0, 1000, batch).astype(np.float32))
-    y = y.to("cuda")
+    named = seeded_resnet_weights(resnet50_v1(classes=1000, device="meta"),
+                                  args.seed)
+    ts = resnet_train_step(named, "bfloat16")
+    xs, ys = ts.place_batch_n(*resnet_batch(
+        np.random.default_rng(args.seed), 1, batch))
+    x, y = xs[0].to(torch.bfloat16), ys[0]
 
     def step():
         return ts(x, y)
