@@ -100,7 +100,36 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    is held to. Element maxima come from the handful of ReLU mask flips
    each device makes at its own positions, so they are compared per
    stage.
-6. A JSON line with the kernels' numbers, then the last line
+6. The rtc slice and the imperative path (K5), on ``gpu(0)``: the three
+   sources of ``csrc/rtc/`` compiled at run time by ``rtc.CudaModule``
+   (NVRTC, sm_90a; compile seconds printed). Each of these must raise
+   MXNetError at its call with the reference's message: a broken source
+   ("failed to compile", with the log), a missing name ("not found"), a
+   name outside ``exports`` ("not exported"), an argument of the wrong
+   dtype, a CPU array, and a launch the card refuses (1025 threads a
+   block, at ``launch``); an exported template (``twice<float>``) resolves
+   through its lowered name. The main path, with ``rtc.launches`` set to 0
+   just before and read just after: the reference's ``axpy``, ``scale`` and
+   ``k`` at 8 elements, ``axpy`` over as many f32 values as ``resnet50_v1``
+   has trainable parameters, three steps of ``GeluTanh`` (an
+   ``autograd.Function`` over the GELU kernel pair) under
+   ``autograd.record()`` at BERT-base's FFN width, (64 * 128, 3072) bf16
+   from ``nd.random.normal``, with ``loss = (y * w).sum()`` and
+   ``loss.backward()`` (2 launches a step), and ``log_softmax`` at the MLM
+   logits' (64 * 19, 30522) bf16 with 122 KB of dynamic shared memory.
+   Checks: axpy, scale and k bitwise equal to their plain versions (2x is
+   exact, so an FMA cannot change the sum), y and x.grad within one bf16
+   ulp of each value of the plain versions and of
+   ``F.gelu(approximate="tanh")`` under torch autograd, log_softmax within
+   one bf16 ulp of its plain version, the launch counts. Then each kernel
+   is timed beside its bound, its plain version and one PyTorch call
+   computing the same function (``torch.add(y, x, alpha=2)``, ``F.gelu``
+   and its backward, ``torch.log_softmax``), the host cost of one
+   ``CudaKernel.launch`` at 8 elements beside one ``torch.add``, and
+   NDArray/autograd cases run on the card against the same calls on
+   ``cpu()``. ``rtc.launches`` at the end equals every launch the phase
+   made.
+7. A JSON line with the kernels' numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -116,11 +145,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from mxnet_tpu_torch import cpu, serving
+from mxnet_tpu_torch import MXNetError, autograd, cpu, gpu, nd, rtc, serving
 from mxnet_tpu_torch.gluon.model_zoo.bert import (
     BERTForPretraining, BERTPretrainingLoss, bert_base, load_jax_params)
 from mxnet_tpu_torch.gluon.model_zoo.vision import BottleneckV1, resnet50_v1
-from mxnet_tpu_torch.ops import _build
+from mxnet_tpu_torch.ops import _build, _nvrtc
 from mxnet_tpu_torch.ops import nn as ops
 from mxnet_tpu_torch.ops.cuda import flash_attention as fa
 from mxnet_tpu_torch.ops.cuda import fused_conv1x1 as fc
@@ -130,6 +159,7 @@ from mxnet_tpu_torch.tools import (PretrainStep, card, f32_drift, median_ms,
                                    pretrain_batch, resnet_batch,
                                    resnet_train_step, seeded_bert_weights,
                                    seeded_resnet_weights)
+from mxnet_tpu_torch.tools import rtc_examples as rx
 
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,       # dense tensor cores
@@ -174,6 +204,17 @@ K4_Y_TOL, K4_MOMENT_TOL = 2e-2, 1e-3
 RESNET_BATCH = 32                  # bench.py's cell
 RESNET_BLOCKS = 3 + 4 + 6 + 3
 F32_RATIO = 3.0       # card vs CPU: f32 distance to the f64 step
+RTC_FFN = (TRAIN_BATCH * TRAIN_SEQ, 3072)     # BERT-base FFN activations
+RTC_MLM = (TRAIN_BATCH * TRAIN_P, 30522)      # masked-LM logits
+RTC_STEPS = 3
+RTC_REPS, RTC_WARMUP = 30, 5                  # median_ms defaults
+RTC_LAUNCH_CALLS = 100      # host cost of one launch, averaged over these
+TEMPLATED_SOURCE = r"""
+template <typename T> __global__ void twice(const T *x, int n, T *o) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x)
+    o[i] = x[i] + x[i];
+}"""
 
 
 def _bound(nbytes, flops, dtype):
@@ -864,6 +905,296 @@ def phase_resnet(seed: int, smi: str):
             "train_launches": train_launches}
 
 
+# ---------------------------------------------------------------------------
+def _bf16_ulps(got, want):
+    """max over the values of |got - want| in units of one bf16 ulp of
+    want (the spacing of bf16 numbers at |want|; 2^-133 at 0)."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(w.abs())
+    ulp = torch.ldexp(torch.ones_like(w), torch.where(w == 0, -133, e - 8))
+    d = (g - w).abs() / ulp
+    return d.max().item() if torch.isfinite(g).all() else float("inf")
+
+
+def _expect_error(what, match, fn):
+    """``fn()`` must raise MXNetError whose message holds ``match``."""
+    try:
+        fn()
+    except MXNetError as e:
+        msg = str(e)
+        if match not in msg:
+            raise SystemExit(f"FAIL: {what} raised without {match!r}: {msg}")
+        print(f"  {what}: MXNetError ({msg.splitlines()[0][:110]})")
+        return msg
+    raise SystemExit(f"FAIL: {what} did not raise MXNetError")
+
+
+def _imperative_cases(ctx):
+    """A few of the CPU tests' NDArray and autograd cases on ``ctx``:
+    numpy values and dtypes by name."""
+    a = nd.array(np.arange(12, dtype=np.float32).reshape(3, 4), ctx=ctx)
+    i = nd.array(np.array([1, 2, 3], np.int32), ctx=ctx)
+    b = nd.full((3, 4), 2.0, ctx=ctx)
+    out = {"array": a, "arange": nd.arange(0, 10, 2, ctx=ctx),
+           "ones_int": nd.ones((2, 3), ctx=ctx, dtype="int32"),
+           "arith": (a + b) * a - 1 / (a + 1) + a ** 2, "int_div": i / i,
+           "int_scalar": i + 1, "compare": a > 5, "sum": a.sum(axis=0),
+           "mean": a.mean(), "argmax": a.argmax(axis=1), "dot": nd.dot(a, a.T),
+           "index": a[1:, ::2], "roundtrip": nd.array(a.asnumpy(), ctx=ctx)}
+    x = nd.array([1.0, 2.0, 3.0], ctx=ctx)
+    x.attach_grad(grad_req="add")
+    for _ in range(2):
+        with autograd.record():
+            y = (nd.exp(x) * x).sum()
+        y.backward()
+    out["grad_add"] = x.grad
+    return {k: (v.asnumpy(), str(v.dtype), v.context) for k, v in out.items()}
+
+
+def rtc_bound_ms(nbytes, ops_per_elt, n):
+    """Least time on an H100: the bytes over 3.35 TB/s against the
+    elementwise operations over the f32 rate without tensor cores."""
+    return _bound(nbytes, ops_per_elt * n, torch.float32)
+
+
+def phase_rtc(seed: int, smi: str):
+    """The rtc slice and the imperative path on gpu(0) (phase 6)."""
+    ctx = gpu(0)
+    major, minor = _nvrtc.nvrtc_version()
+    print(f"NVRTC {major}.{minor} ({_nvrtc.cuda_home()}), target "
+          f"{' '.join(_nvrtc.ARCH_OPTIONS)}")
+    rtc.launches = 0
+    t0 = time.perf_counter()
+    names = sorted(set(rx.SOURCES.values()))
+    with ThreadPoolExecutor(len(names)) as pool:
+        mods = dict(zip(names, pool.map(rx.module, names)))
+    compile_s = {n: m.compile_seconds for n, m in mods.items()}
+    print(f"compiled {len(mods)} rtc modules in "
+          f"{time.perf_counter() - t0:.2f} s: " + ", ".join(
+              f"{n} {s:.3f} s" for n, s in compile_s.items()))
+
+    # ---- errors, each at its call ----
+    x8 = nd.array(np.arange(8, dtype=np.float32), ctx=ctx)
+    y8 = nd.ones((8,), ctx=ctx)
+    elementwise = (rx.CSRC_RTC / "elementwise.cu").read_text()
+    msg = _expect_error("broken source", "failed to compile",
+                        lambda: rtc.CudaModule(
+                            'extern "C" __global__ void broken(float *x) '
+                            '{ x[0] = ; }'))
+    if "error" not in msg:
+        raise SystemExit("FAIL: the compile error carries no NVRTC log")
+    _expect_error("missing name", "not found",
+                  lambda: rtc.CudaModule(elementwise).get_kernel(
+                      "missing", rx.SIGNATURES["k"]))
+    _expect_error("name outside exports", "not exported",
+                  lambda: rtc.CudaModule(elementwise, exports=("k",)).get_kernel(
+                      "axpy", rx.SIGNATURES["axpy"]))
+    _expect_error("wrong dtype", "must be float32",
+                  lambda: rx.axpy(x8.astype("float16"), y8))
+    _expect_error("CPU array", "GPU context",
+                  lambda: rx.axpy(x8.as_in_context(cpu()),
+                                  y8.as_in_context(cpu())))
+    _expect_error("1025 threads a block", "cuLaunchKernel",
+                  lambda: rx.kernel("k").launch(
+                      [x8, 8], block_dims=(1025, 1, 1), out_shapes=[(8,)]))
+    torch.cuda.synchronize()       # the refused launch left nothing behind
+    if rtc.launches != 0:
+        raise SystemExit("FAIL: a refused call counted as a launch")
+    # a templated kernel resolves through its lowered (mangled) name
+    tmpl = rtc.CudaModule(TEMPLATED_SOURCE, exports=("twice<float>",))
+    twice = tmpl.get_kernel("twice<float>", rx.SIGNATURES["k"]).launch(
+        [x8, 8], block_dims=(32, 1, 1), out_shapes=[(8,)])
+    ok = torch.equal(twice.data, 2 * x8.data)
+    print(f"  exported template twice<float> -> {tmpl._lowered}: "
+          f"{twice.asnumpy().tolist()} (equal to 2x: {ok})")
+    if not ok:
+        raise SystemExit("FAIL: the exported template kernel")
+
+    n_params = sum(p.numel() for p in resnet50_v1(
+        classes=1000, device="meta").parameters() if p.requires_grad)
+    nd.random.seed(seed, ctx=ctx)
+    xp = nd.random.normal(shape=(n_params,), ctx=ctx)
+    yp = nd.random.normal(shape=(n_params,), ctx=ctx)
+    xg = nd.random.normal(shape=RTC_FFN, dtype="bfloat16", ctx=ctx)
+    wg = nd.random.normal(shape=RTC_FFN, dtype="bfloat16", ctx=ctx)
+    logits = nd.random.normal(scale=4.0, shape=RTC_MLM, dtype="bfloat16",
+                              ctx=ctx)
+    xg.attach_grad()
+    torch.cuda.synchronize()
+
+    # ---- the main path: counts from 0 just before, read just after ----
+    before_main = rtc.launches
+    rtc.launches = 0
+    for k in rx.SIGNATURES:
+        rx.kernel(k).launches = 0
+    ref_outs = {"axpy": rx.axpy(x8, y8), "scale": rx.scale(x8),
+                "k": rx.identity(x8)}
+    big = rx.axpy(xp, yp)
+    per_step = []
+    for _ in range(RTC_STEPS):
+        before = rtc.launches
+        with autograd.record():
+            yg = rx.GeluTanh()(xg)
+            loss = (yg * wg).sum()
+        loss.backward()
+        per_step.append(rtc.launches - before)
+    lsm = rx.log_softmax(logits)
+    lsm.wait_to_read()
+    main_launches = rtc.launches
+    by_launches = {k: rx.kernel(k).launches for k in rx.SIGNATURES}
+    # ---- end of the main path ----
+    torch.cuda.synchronize()
+    expect_main = 3 + 1 + 2 * RTC_STEPS + 1
+    print(f"rtc main path: {main_launches} launches (expected "
+          f"{expect_main}), per GeluTanh step {per_step}, by kernel "
+          f"{by_launches}")
+    if main_launches != expect_main or per_step != [2] * RTC_STEPS or \
+            sum(by_launches.values()) != main_launches:
+        raise SystemExit("FAIL: rtc launch counts on the main path")
+
+    plain = {"axpy": rx.axpy_plain(x8.data, y8.data),
+             "scale": rx.scale_plain(x8.data), "k": rx.identity_plain(x8.data)}
+    for k, out in ref_outs.items():
+        same = torch.equal(out.data, plain[k])
+        print(f"  {k} at 8 elements: {out.asnumpy().tolist()} bitwise equal "
+              f"to the plain version: {same}")
+        if not same:
+            raise SystemExit(f"FAIL: rtc kernel {k} differs from its plain "
+                             "version")
+    lib_axpy = torch.add(yp.data, xp.data, alpha=2)
+    same_big = torch.equal(big.data, rx.axpy_plain(xp.data, yp.data))
+    same_lib = torch.equal(big.data, lib_axpy)
+    print(f"  axpy over {n_params} f32 (resnet50_v1's trainable parameters):"
+          f" bitwise equal to 2 * x + y: {same_big}, to torch.add(y, x, "
+          f"alpha=2): {same_lib}")
+    if not (same_big and same_lib):
+        raise SystemExit("FAIL: axpy differs from its plain version")
+
+    # GeluTanh: y and x.grad against the plain versions and torch autograd
+    xd = xg.data.detach()
+    xs = xd.clone().requires_grad_()
+    ys = torch.nn.functional.gelu(xs, approximate="tanh")
+    (ys * wg.data).sum().backward()
+    errs = {"gelu_tanh_fwd": max(_bf16_ulps(yg.data, rx.gelu_tanh_plain(
+                xd)), _bf16_ulps(yg.data, ys.detach())),
+            "gelu_tanh_bwd": max(_bf16_ulps(xg.grad.data, rx.gelu_tanh_grad_plain(
+                xd, wg.data)), _bf16_ulps(xg.grad.data, xs.grad)),
+            "log_softmax": _bf16_ulps(lsm.data, rx.log_softmax_plain(
+                logits.data))}
+    def max_abs(got, *wants):
+        return max((got.float() - w.float()).abs().max().item()
+                   for w in wants)
+    abs_err = {"gelu_tanh_fwd": max_abs(yg.data, rx.gelu_tanh_plain(xd),
+                                        ys.detach()),
+               "gelu_tanh_bwd": max_abs(xg.grad.data, rx.gelu_tanh_grad_plain(
+                   xd, wg.data), xs.grad),
+               "log_softmax": max_abs(lsm.data,
+                                      rx.log_softmax_plain(logits.data)),
+               "axpy": max_abs(big.data, rx.axpy_plain(xp.data, yp.data))}
+    print(f"  GeluTanh at {RTC_FFN} bf16, {RTC_STEPS} recorded steps: y within"
+          f" {errs['gelu_tanh_fwd']:.3g} and x.grad within "
+          f"{errs['gelu_tanh_bwd']:.3g} bf16 ulp of the plain versions and "
+          f"of F.gelu(approximate='tanh') under torch autograd (tol 1); "
+          f"log_softmax at {RTC_MLM} bf16 within {errs['log_softmax']:.3g} "
+          f"ulp (tol 1)")
+    if max(errs.values()) > 1:
+        raise SystemExit("FAIL: an rtc kernel is beyond one bf16 ulp of its "
+                         "plain version")
+    del xs, ys, yg, loss
+
+    # ---- timing: kernel, plain, one PyTorch call, bound ----
+    n_ffn, n_mlm = xg.size, logits.size
+    dy = wg.data
+    F = torch.nn.functional
+    timed = {
+        "axpy": (lambda: rx.axpy(xp, yp),
+                 lambda: rx.axpy_plain(xp.data, yp.data),
+                 lambda: torch.add(yp.data, xp.data, alpha=2),
+                 rtc_bound_ms(12 * n_params, 2, n_params),
+                 "torch.add(y, x, alpha=2)", [n_params], "float32"),
+        "gelu_tanh_fwd": (lambda: rx.gelu_tanh_fwd(xg),
+                          lambda: rx.gelu_tanh_plain(xd),
+                          lambda: F.gelu(xd, approximate="tanh"),
+                          rtc_bound_ms(4 * n_ffn, 9, n_ffn),
+                          "F.gelu(x, approximate='tanh')", list(RTC_FFN),
+                          "bfloat16"),
+        "gelu_tanh_bwd": (lambda: rx.gelu_tanh_bwd(xg, wg),
+                          lambda: rx.gelu_tanh_grad_plain(xd, dy),
+                          lambda: torch.ops.aten.gelu_backward(
+                              dy, xd, approximate="tanh"),
+                          rtc_bound_ms(6 * n_ffn, 18, n_ffn),
+                          "aten.gelu_backward(dy, x, approximate='tanh')",
+                          list(RTC_FFN), "bfloat16"),
+        "log_softmax": (lambda: rx.log_softmax(logits),
+                        lambda: rx.log_softmax_plain(logits.data),
+                        lambda: torch.log_softmax(logits.data, -1),
+                        rtc_bound_ms(4 * n_mlm, 6, n_mlm),
+                        "torch.log_softmax(x, -1)", list(RTC_MLM),
+                        "bfloat16"),
+    }
+    by_kernel = {}
+    for name, (kern, pl, lib, bound, lib_name, shape, dt) in timed.items():
+        ms = median_ms(kern, reps=RTC_REPS, warmup=RTC_WARMUP,
+                       calls=TIMED_CALLS)
+        plain_ms = median_ms(pl, reps=RTC_REPS, warmup=RTC_WARMUP,
+                             calls=TIMED_CALLS)
+        lib_ms = median_ms(lib, reps=RTC_REPS, warmup=RTC_WARMUP,
+                           calls=TIMED_CALLS)
+        bms, by, nbytes, _ = bound
+        print(f"  {name} {shape} {dt}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, bound "
+              f"{bms * 1e3:.1f} us ({by}: {nbytes / 1e6:.1f} MB), "
+              f"{bms / ms:.1%} of bound on {smi}")
+        by_kernel[name] = {"launches": by_launches[name], "ms": ms,
+                           "plain_ms": plain_ms, "library_ms": lib_ms,
+                           "library": lib_name, "bound_ms": bms,
+                           "bound_by": by, "max_abs_err": abs_err[name],
+                           "shape": shape, "dtype": dt}
+
+    # host cost of one launch (allocating form, 8 elements) beside torch.add
+    host = {}
+    for label, fn in (("rtc_launch_us", lambda: rx.axpy(x8, y8)),
+                      ("torch_add_us",
+                       lambda: torch.add(y8.data, x8.data, alpha=2))):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(RTC_LAUNCH_CALLS):
+            fn()
+        host[label] = (time.perf_counter() - t1) / RTC_LAUNCH_CALLS * 1e6
+        torch.cuda.synchronize()
+    print(f"  host cost of one CudaKernel.launch (axpy, 8 elements, output "
+          f"allocated): {host['rtc_launch_us']:.2f} us; one torch.add: "
+          f"{host['torch_add_us']:.2f} us (mean of {RTC_LAUNCH_CALLS} calls)")
+
+    # NDArray and autograd on the card against the same calls on the CPU
+    on_card, on_cpu = _imperative_cases(ctx), _imperative_cases(cpu())
+    worst = 0.0
+    for k, (a, dt, c) in on_card.items():
+        b, dt_cpu, _ = on_cpu[k]
+        if dt != dt_cpu or c != ctx or a.shape != b.shape:
+            raise SystemExit(f"FAIL: NDArray case {k}: {dt} on {c} vs "
+                             f"{dt_cpu} on the CPU")
+        worst = max(worst, float(np.max(np.abs(a.astype(np.float64) - b)
+                                        / np.maximum(1.0, np.abs(b)))))
+    print(f"  NDArray/autograd on {ctx} vs cpu(): {len(on_card)} cases, "
+          f"dtypes equal, max |d| / max(1, |cpu|) = {worst:.3g} (tol 1e-6: "
+          f"f32 exp and sums in another order)")
+    if worst > 1e-6:
+        raise SystemExit("FAIL: NDArray on the card differs from the CPU")
+
+    per_timing = RTC_WARMUP + RTC_REPS * TIMED_CALLS    # as median_ms calls
+    expect_all = before_main + main_launches + len(timed) * per_timing + \
+        10 + RTC_LAUNCH_CALLS
+    made = before_main + rtc.launches       # the counter restarted at 0
+    print(f"rtc launches over the phase: {made} (expected {expect_all})")
+    if made != expect_all:
+        raise SystemExit("FAIL: rtc.launches does not count every launch")
+    return {"launches": main_launches, "compile_seconds": compile_s,
+            "by_kernel": by_kernel, **host}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -880,6 +1211,7 @@ def main(argv=None) -> int:
     serve_launches = phase_slice(args.seed, smi)
     train_launches = phase_train(args.seed, smi)
     resnet = phase_resnet(args.seed, smi)
+    k5 = phase_rtc(args.seed, smi)
     r = record[torch.bfloat16]
     src = "mxnet_tpu_torch/csrc/flash_attention_bwd.cu"
     pallas = "mxnet_tpu/ops/pallas/flash_attention.py"
@@ -930,6 +1262,21 @@ def main(argv=None) -> int:
                    "product alone)",
         "shape": [s2["M"], s2["K"], s2["N"]], "dtype": "bfloat16",
         "by_shape": k4["shapes"]})
+    head = k5["by_kernel"]["gelu_tanh_fwd"]   # the differentiable path's
+    kernels.append({
+        "name": "rtc", "route": "cuda", "source": "mxnet_tpu_torch/rtc.py",
+        "kernel_sources": sorted(f"mxnet_tpu_torch/csrc/rtc/{f}"
+                                 for f in set(rx.SOURCES.values())),
+        "replaces": "mxnet_tpu/rtc.py:64", "launches": k5["launches"],
+        "max_abs_err": max(v["max_abs_err"]
+                           for v in k5["by_kernel"].values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "headline": "gelu_tanh_fwd",
+        "compile_seconds": k5["compile_seconds"],
+        "launch_host_us": k5["rtc_launch_us"],
+        "torch_add_host_us": k5["torch_add_us"],
+        "by_kernel": k5["by_kernel"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

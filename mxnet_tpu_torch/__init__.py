@@ -3,7 +3,9 @@
 The JAX package ``mxnet_tpu`` stays the reference; this package imports
 neither it nor JAX. Plain tensor code is PyTorch; each Pallas kernel that a
 ported path runs is a hand-written CUDA kernel under ``csrc/``, built with
-nvcc at first use. Entry points (``serving.ModelEndpoint``,
+nvcc at first use. The imperative API (``nd``, ``autograd``, ``random``)
+and ``rtc.CudaModule``, which compiles a user's CUDA source at run time
+with NVRTC, sit beside them. Entry points (``serving.ModelEndpoint``,
 ``parallel.make_mesh`` for ``ParallelTrainStep``) run on the card
 (``gpu(0)``) unless the caller passes ``cpu()``.
 """
@@ -18,7 +20,10 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from .base import Context, MXNetError, cpu, current_context, gpu
-from . import base, gluon, ndarray, ops, optimizer, parallel, serving
+from . import (autograd, base, gluon, ndarray, ops, optimizer, parallel,
+               random, rtc, serving)
+from . import ndarray as nd
 
-__all__ = ["Context", "MXNetError", "cpu", "gpu", "current_context", "base",
-           "gluon", "ndarray", "ops", "optimizer", "parallel", "serving"]
+__all__ = ["Context", "MXNetError", "cpu", "gpu", "current_context",
+           "autograd", "base", "gluon", "nd", "ndarray", "ops", "optimizer",
+           "parallel", "random", "rtc", "serving"]

@@ -1,8 +1,10 @@
 """Source guards for the PyTorch/CUDA port, by AST (no CUDA, nvcc or triton
 needed): the port stays independent of JAX and of the JAX package, builds
-for sm_90a, never hides a kernel launch or build behind an ``except``,
-counts every kernel's launches, and keeps its build output out of git; and
-``chip_smoke.py`` fails without a card or without the package."""
+for sm_90a, never hides a kernel launch or build behind an ``except``
+(the runtime-kernel facility ``rtc`` and its NVRTC bindings included),
+counts every kernel's launches, loads no CUDA library at import, and keeps
+its build output out of git; and ``chip_smoke.py`` fails without a card or
+without the package."""
 import ast
 import os
 import subprocess
@@ -67,7 +69,8 @@ def test_build_targets_sm90a():
 
 
 @pytest.mark.parametrize(
-    "path", KERNEL_WRAPPERS + [PKG / "ops" / "_build.py"],
+    "path", KERNEL_WRAPPERS + [PKG / "ops" / "_build.py", PKG / "rtc.py",
+                               PKG / "ops" / "_nvrtc.py"],
     ids=lambda p: p.name)
 def test_no_except_around_a_launch_or_build(path):
     """A CUDA tensor reaches its kernel or raises: no handler may catch a
@@ -146,6 +149,67 @@ def test_training_modules_are_guarded(module):
     mxnet_tpu)."""
     assert PKG / module in PORT_FILES
     test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
+
+
+RTC_MODULES = ["ndarray/ndarray.py", "ndarray/__init__.py",
+               "ndarray/random.py", "random.py", "autograd.py", "rtc.py",
+               "ops/_nvrtc.py", "tools/rtc_examples.py"]
+
+
+@pytest.mark.parametrize("module", RTC_MODULES)
+def test_rtc_slice_modules_are_guarded(module):
+    """The imperative path's and the runtime-kernel facility's modules are
+    among the files the import guards read."""
+    assert PKG / module in PORT_FILES
+    test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
+
+
+def test_rtc_counts_launches_in_cuda_kernel_launch_alone():
+    """``rtc.launches`` starts at 0 at module level and is bumped in
+    ``CudaKernel.launch`` and nowhere else."""
+    tree = _tree(PKG / "rtc.py")
+    assert any(isinstance(n, ast.Assign) and isinstance(n.value, ast.Constant)
+               and n.value.value == 0
+               and any(isinstance(t, ast.Name) and t.id == "launches"
+                       for t in n.targets) for n in tree.body)
+    bumpers = []
+    for cls in (n for n in tree.body if isinstance(n, ast.ClassDef)):
+        for fn in (f for f in cls.body if isinstance(f, ast.FunctionDef)):
+            if any(isinstance(n, ast.AugAssign)
+                   and isinstance(n.target, ast.Name)
+                   and n.target.id == "launches" for n in ast.walk(fn)):
+                bumpers.append((cls.name, fn.name, fn))
+    top = [f.name for f in tree.body if isinstance(f, ast.FunctionDef)
+           and any(isinstance(n, ast.AugAssign) for n in ast.walk(f))]
+    assert [(c, f) for c, f, _ in bumpers] == [("CudaKernel", "launch")]
+    assert not top, top
+    assert any(isinstance(n, ast.Global) and "launches" in n.names
+               for n in ast.walk(bumpers[0][2]))
+
+
+def test_importing_the_rtc_slice_loads_no_cuda_library():
+    """NVRTC and the driver are loaded at the first CudaModule, never when
+    a module is imported."""
+    code = ("import mxnet_tpu_torch, mxnet_tpu_torch.rtc, "
+            "mxnet_tpu_torch.tools.rtc_examples\n"
+            "from mxnet_tpu_torch.ops import _nvrtc\n"
+            "assert not _nvrtc._libs, _nvrtc._libs\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "assert 'libnvrtc' not in maps and 'libcuda.so' not in maps\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "csrc" / "rtc").glob("*.cu")),
+                         ids=lambda p: p.name)
+def test_rtc_sources_include_no_library(path):
+    """The runtime-compiled kernels include only the bf16 type header and
+    stdint.h: no library of finished kernels."""
+    includes = {ln.split()[1] for ln in path.read_text().splitlines()
+                if ln.startswith("#include")}
+    assert includes <= {"<cuda_bf16.h>", "<stdint.h>"}, includes
 
 
 @pytest.mark.parametrize("path", sorted((PKG / "csrc").glob("*.cu")),
