@@ -13,13 +13,20 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    the build times and ptxas reports.
 2. K1 against its plain version: ``flash_attention_fwd`` (O and LSE)
    against ``flash_attention_fwd_reference`` on the card at every listed
-   shape, f32 within 1e-4 (sum order only) and bf16 within 2e-2 (P is
-   rounded to bf16; one bf16 ulp near 1 is 7.8e-3). At the BERT-base shape
-   it times the kernel, the plain version and
-   ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only;
-   the port never calls it) with CUDA events around 10 back-to-back calls,
-   median of 30 such windows after warm-up, and prints the bound (bytes over 3.35 TB/s against operations over the
-   peak for the type).
+   shape (the serving and training shapes among them), f32 within 1e-4
+   (sum order only) and bf16 within 2e-2 (P is rounded to bf16; one bf16
+   ulp near 1 is 7.8e-3), each on q, k, v taken as the split (B, H, S, D)
+   views of one seeded (B, S, 3 H D) QKV buffer and on contiguous copies
+   of them: both within tolerance, and bitwise equal to each other. At the
+   serving and the training shape it times the kernel on both layouts,
+   the plain version and ``torch.nn.functional.
+   scaled_dot_product_attention``'s forward (a yardstick only; the port
+   never calls it) with CUDA events around 10 back-to-back calls, median
+   of 30 such windows after warm-up, and the device time of the kernel and
+   of SDPA replayed from a CUDA graph of 10 calls (no host work in the
+   window); it prints the bound (bytes over 3.35 TB/s against operations
+   over the peak for the type). Then the host microseconds of one K1 call
+   (four tensor maps encoded) beside one SDPA call.
 2b. K2 and K3 against the plain backward: ``flash_attention_bwd_dq`` and
    ``flash_attention_bwd_dkv`` (given K1's out and lse) against
    ``flash_attention_bwd_reference`` at every listed shape (the training
@@ -28,8 +35,8 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    (outputs rounded to bf16, and P and dS are rounded to bf16 on both
    sides, where an f32 sum order can flip an ulp). At the training shape it
    times K2, K3, K2 + K3 with delta, the plain backward, the backward of
-   ``scaled_dot_product_attention`` (a yardstick only) and K1, with their
-   bounds.
+   ``scaled_dot_product_attention`` (a yardstick only), K1 and SDPA's
+   forward, with their bounds.
 2c. K4 against its plain version: ``conv1x1_bn_act`` against
    ``conv1x1_bn_act_reference`` at ResNet-50's nine batch-128 1x1 shapes
    (bf16 x) and at a ragged M, K = 8, no ReLU and an f32 x: y within
@@ -167,15 +174,20 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,       # dense tensor cores
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 TIMED_CALLS = 10          # calls between two CUDA events (see median_ms)
 BERT_SHAPE = (32, 12, 512, 64)
+TRAIN_SHAPE = (64, 12, 128, 64)             # BERT-base pretraining, B x H
 CHECK_SHAPES = [  # (B, H, S, D), causal
     (BERT_SHAPE, False), ((2, 2, 256, 64), False), ((2, 2, 256, 64), True),
     ((1, 1, 192, 64), False), ((1, 2, 640, 64), True),
     ((2, 4, 128, 32), False), ((1, 2, 256, 128), False),
-    ((1, 2, 256, 128), True)]
+    ((1, 2, 256, 128), True), (TRAIN_SHAPE, False)]
+TIMED_SHAPES = {BERT_SHAPE: "serving", TRAIN_SHAPE: "training"}
+# K1's bf16 time before its Hopper redesign (the mma.sync kernel), at the
+# serving and training shapes, as PERF.md's kernel table records it
+K1_BEFORE_MS = {"serving": 0.1768, "training": 0.0429}
+K1_HOST_CALLS = 200
 SEQ_LEN = 512
 N_CLIENTS = 8
 REQS_PER_CLIENT = 12
-TRAIN_SHAPE = (64, 12, 128, 64)             # BERT-base pretraining, B x H
 BWD_SHAPES = [  # (B, H, S, D), causal
     (TRAIN_SHAPE, False), (BERT_SHAPE, False), ((2, 2, 300, 64), False),
     ((1, 2, 640, 64), True), ((2, 4, 128, 32), False),
@@ -264,55 +276,128 @@ def phase_environment(smi: str):
                 print("  ptxas:", line.strip())
 
 
+def _randn(shape, gen, dtype):
+    return torch.randn(shape, generator=gen, device="cuda",
+                       dtype=torch.float32).to(dtype)
+
+
+def split_qkv(shape, gen, dtype):
+    """q, k, v as the QKV projection hands them to K1: the (B, H, S, D)
+    views of one seeded (B, S, 3 * H * D) buffer."""
+    B, H, S, D = shape
+    qkv = _randn((B, S, 3 * H * D), gen, dtype)
+    return [x.view(B, S, H, D).transpose(1, 2)
+            for x in qkv.split(H * D, dim=-1)]
+
+
+def graph_ms(fn, calls: int = TIMED_CALLS) -> float:
+    """Device ms of one ``fn()``: ``calls`` calls captured in a CUDA graph,
+    the graph's replay timed by :func:`median_ms`, so no host work (checks,
+    tensor maps, launches) lands in the window."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return median_ms(graph.replay) / calls
+
+
+def k1_host_us(gen, calls: int = K1_HOST_CALLS):
+    """Host microseconds of one K1 call (checks, four tensor maps encoded,
+    the launch) and of one SDPA call, on split views at (1, 1, 128, 64)
+    bf16: ``calls`` back-to-back calls on the host clock, the device
+    drained before and after."""
+    q, k, v = split_qkv((1, 1, 128, 64), gen, torch.bfloat16)
+    out = {}
+    for name, fn in (
+            ("k1", lambda: fa.flash_attention_fwd(q, k, v, 0.125, False)),
+            ("sdpa", lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, scale=0.125))):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
 def phase_kernel(seed: int, smi: str):
+    """K1 against its plain version at every listed shape, on the split
+    views of one QKV buffer and on contiguous copies of them (the two
+    results bitwise equal); times at the serving and training shapes."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     record = {}
     for shape, causal in CHECK_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = (torch.randn(shape, generator=gen, device="cuda",
-                                   dtype=torch.float32).to(dtype)
-                       for _ in range(3))
+            q, k, v = split_qkv(shape, gen, dtype)
+            qc, kc, vc = (x.contiguous() for x in (q, k, v))
             scale = shape[-1] ** -0.5
-            out, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
+            out, lse = fa.flash_attention_fwd(qc, kc, vc, scale, causal)
+            out_s, lse_s = fa.flash_attention_fwd(q, k, v, scale, causal)
             torch.cuda.synchronize()
-            ref, ref_lse = fa.flash_attention_fwd_reference(q, k, v, scale,
+            ref, ref_lse = fa.flash_attention_fwd_reference(qc, kc, vc, scale,
                                                             causal)
             err_o = (out.float() - ref.float()).abs().max().item()
             err_l = (lse - ref_lse).abs().max().item()
-            ok = err_o <= TOL[dtype] and err_l <= TOL[dtype]
+            err_os = (out_s.float() - ref.float()).abs().max().item()
+            err_ls = (lse_s - ref_lse).abs().max().item()
+            same = torch.equal(out_s, out) and torch.equal(lse_s, lse)
+            ok = max(err_o, err_l, err_os, err_ls) <= TOL[dtype] and same
             line = (f"kernel {shape} {str(dtype)[6:]} causal={causal}: "
-                    f"max|dO|={err_o:.3g} max|dLSE|={err_l:.3g} "
+                    f"max|dO|={err_o:.3g} max|dLSE|={err_l:.3g}, split "
+                    f"views max|dO|={err_os:.3g} max|dLSE|={err_ls:.3g}, "
+                    f"bitwise equal to contiguous: {same}; "
                     f"tol={TOL[dtype]:g}")
-            if shape == BERT_SHAPE:
-                ms = median_ms(lambda: fa.flash_attention_fwd(q, k, v, scale,
-                                                              causal),
-                               calls=TIMED_CALLS)
+            where = TIMED_SHAPES.get(shape)
+            if where and not causal:
+                ms = median_ms(lambda: fa.flash_attention_fwd(
+                    qc, kc, vc, scale, causal), calls=TIMED_CALLS)
+                ms_s = median_ms(lambda: fa.flash_attention_fwd(
+                    q, k, v, scale, causal), calls=TIMED_CALLS)
                 plain = median_ms(lambda: fa.flash_attention_fwd_reference(
-                    q, k, v, scale, causal), reps=20, warmup=2,
+                    qc, kc, vc, scale, causal), reps=20, warmup=2,
                     calls=TIMED_CALLS)
-                lib = median_ms(lambda: torch.nn.functional
-                                .scaled_dot_product_attention(
-                                    q, k, v, is_causal=causal, scale=scale),
-                                calls=TIMED_CALLS)
+                def sdpa():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        qc, kc, vc, is_causal=causal, scale=scale)
+
+                lib = median_ms(sdpa, calls=TIMED_CALLS)
+                dev = graph_ms(lambda: fa.flash_attention_fwd(
+                    q, k, v, scale, causal))
+                lib_dev = graph_ms(sdpa)
                 bms, by, nbytes, flops = bound_ms(shape, dtype, causal)
-                line += (f" | kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                         f"sdpa {lib:.4f} ms, bound {bms * 1e3:.1f} us "
-                         f"({by}: {nbytes / 1e6:.1f} MB, "
-                         f"{flops / 1e9:.2f} GFLOP) on {smi}")
-                record[dtype] = {"max_abs_err": max(err_o, err_l), "ms": ms,
-                                 "plain_ms": plain, "library_ms": lib,
-                                 "bound_ms": bms, "bound_by": by}
+                line += (f" | {where}: kernel {ms:.4f} ms, on split views "
+                         f"{ms_s:.4f} ms ({dev:.4f} ms from a CUDA graph), "
+                         f"plain {plain:.4f} ms, sdpa {lib:.4f} ms "
+                         f"({lib_dev:.4f} ms from a CUDA graph), bound "
+                         f"{bms * 1e3:.1f} us ({by}: {nbytes / 1e6:.1f} MB, "
+                         f"{flops / 1e9:.2f} GFLOP), {bms / ms:.1%} of bound "
+                         f"on {smi}")
+                record[where, dtype] = {
+                    "max_abs_err": max(err_o, err_l, err_os, err_ls),
+                    "ms": ms, "ms_strided": ms_s, "device_ms": dev,
+                    "plain_ms": plain, "library_ms": lib,
+                    "library_device_ms": lib_dev, "bound_ms": bms,
+                    "bound_by": by}
             print(line)
             if not ok:
                 raise SystemExit(f"FAIL: kernel disagrees with its plain "
-                                 f"version at {shape} {dtype} causal={causal}")
-            del q, k, v, out, lse, ref, ref_lse
+                                 f"version, or the split views with the "
+                                 f"contiguous copies, at {shape} {dtype} "
+                                 f"causal={causal}")
+            del q, k, v, qc, kc, vc, out, lse, out_s, lse_s, ref, ref_lse
+    record["host_us"] = k1_host_us(gen)
+    print(f"host cost of one K1 call (split views, 4 tensor maps encoded): "
+          f"{record['host_us']['k1']:.2f} us; one SDPA call "
+          f"{record['host_us']['sdpa']:.2f} us (mean of {K1_HOST_CALLS})")
     return record
-
-
-def _randn(shape, gen, dtype):
-    return torch.randn(shape, generator=gen, device="cuda",
-                       dtype=torch.float32).to(dtype)
 
 
 def phase_backward(seed: int, smi: str):
@@ -365,8 +450,13 @@ def phase_backward(seed: int, smi: str):
                 lib = median_ms(lambda: torch.autograd.grad(
                     o_lib, (qs, ks, vs), do, retain_graph=True),
                     calls=TIMED_CALLS)
+                lib_fwd = median_ms(lambda: torch.nn.functional
+                                    .scaled_dot_product_attention(
+                                        q, k, v, is_causal=causal,
+                                        scale=scale), calls=TIMED_CALLS)
                 line += (f" | plain backward {plain:.4f} ms, sdpa backward "
-                         f"{lib:.4f} ms (dq, dk, dv together) on {smi}")
+                         f"{lib:.4f} ms (dq, dk, dv together), sdpa forward "
+                         f"{lib_fwd:.4f} ms (beside fwd below) on {smi}")
                 for kern in ("fwd", "dq", "dkv", "bwd"):
                     bms, by, nbytes, flops = bound_ms(shape, dtype, causal,
                                                       kern)
@@ -378,6 +468,7 @@ def phase_backward(seed: int, smi: str):
                 record["dq"]["max_abs_err"] = errs[0]
                 record["dkv"]["max_abs_err"] = max(errs[1], errs[2])
                 record["plain_ms"], record["library_ms"] = plain, lib
+                record["library_fwd_ms"] = lib_fwd
                 del qs, ks, vs, o_lib
             print(line)
             if not all(oks):
@@ -1212,7 +1303,7 @@ def main(argv=None) -> int:
     train_launches = phase_train(args.seed, smi)
     resnet = phase_resnet(args.seed, smi)
     k5 = phase_rtc(args.seed, smi)
-    r = record[torch.bfloat16]
+    r, tr = record["serving", torch.bfloat16], record["training", torch.bfloat16]
     src = "mxnet_tpu_torch/csrc/flash_attention_bwd.cu"
     pallas = "mxnet_tpu/ops/pallas/flash_attention.py"
     common = {"route": "cuda", "source": src,
@@ -1229,12 +1320,24 @@ def main(argv=None) -> int:
          "launches_by_path": {
              "serving": serve_launches,
              "training": train_launches["flash_attention_fwd"]},
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"]),
+         "ms": r["ms"], "ms_strided": r["ms_strided"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "library": "scaled_dot_product_attention forward",
          "shape": list(BERT_SHAPE), "dtype": "bfloat16",
-         "ms_training_shape": bwd["fwd"]["ms"],
-         "bound_ms_training_shape": bwd["fwd"]["bound_ms"]},
+         "ms_training_shape": tr["ms"],
+         "ms_strided_training_shape": tr["ms_strided"],
+         "plain_ms_training_shape": tr["plain_ms"],
+         "bound_ms_training_shape": tr["bound_ms"],
+         "library_ms_training_shape": tr["library_ms"],
+         "device_ms": r["device_ms"],
+         "library_device_ms": r["library_device_ms"],
+         "device_ms_training_shape": tr["device_ms"],
+         "library_device_ms_training_shape": tr["library_device_ms"],
+         "ms_before": K1_BEFORE_MS,
+         "host_us": record["host_us"]["k1"],
+         "library_host_us": record["host_us"]["sdpa"]},
         {"name": "flash_attention_bwd_dq", "replaces": f"{pallas}:403",
          "launches": train_launches["flash_attention_bwd_dq"],
          "max_abs_err": bwd["dq"]["max_abs_err"], "ms": bwd["dq"]["ms"],

@@ -2,38 +2,76 @@
 // kernel `_attention_fwd_kernel` / `_flash_fwd` in
 // mxnet_tpu/ops/pallas/flash_attention.py.
 //
-// out = softmax(q k^T * sm_scale) v over (B*H, S, D) tensors, with an online
-// softmax (running max m, running sum l, f32 accumulator) so the (S x S)
-// score matrix never reaches device memory; also writes the per-row
-// log-sum-exp lse = m + log(l) as (B*H, S) f32 (the TPU kernel's 128-lane
-// broadcast of lse is a TPU tiling rule and is dropped).
+// out = softmax(q k^T * sm_scale) v over (B, H, S, D) tensors, with an
+// online softmax (running max m, running sum l, f32 accumulator) so the
+// (S x S) score matrix never reaches device memory; also writes the
+// per-row log-sum-exp lse = m + log(l) as (B*H, S) f32 (the TPU kernel's
+// 128-lane broadcast of lse is a TPU tiling rule and is dropped).
 //
-// Structure. One thread block per (b*h, q-tile). The TPU kernel carries
-// (m, l, acc) in VMEM scratch across a sequential k grid axis; blocks on the
-// card run in no order, so a loop inside the block walks the K/V tiles
-// instead, with K/V staged in shared memory and (m, l, acc) in f32
-// registers. Causal mode stops the loop at the diagonal tile; the ragged
-// tail (S not a tile multiple) is masked here rather than padded.
+// Layout. q, k, v and o are (B, H, S, D) views with unit stride on D and
+// every other stride a multiple of 16 bytes, at 16-byte-aligned addresses:
+// the split views of a (B, S, 3*H*D) QKV projection are read in place,
+// and o is written as (B, S, H, D) memory, so no layout copy surrounds
+// the kernel. The C entry takes each tensor's address and (S, H, B) byte
+// strides.
 //
-// Numerics (the port of `_dot_precision`). bf16: bf16 x bf16 products with
-// f32 accumulation on the tensor cores (mma.sync m16n8k16), P rounded to
-// bf16 before P.V as the TPU kernel does. f32: scalar FMA in true fp32,
-// never TF32. Masked scores take -1e30 (`_NEG_INF`) and l is clamped at
-// 1e-30 before the division, as in the Pallas kernel. Scores are kept in
-// the base-2 domain (scale * log2(e)) so exp is one ex2 instruction.
+// bf16 (the serving and training path). A work tile is one 128-row
+// q-tile of one (b, h); a persistent grid of one 384-thread block per SM
+// walks them with the q-tile index fastest, so the q-tiles of one head run
+// together and share its K/V tiles in L2.
+// - Warpgroup 0 is the producer: one thread issues TMA loads, Q into two
+//   buffers (the next work tile's Q arrives during this one) and K and V
+//   tiles of 128 keys through a ring of STAGES buffers, each with full and
+//   empty mbarriers. TMA reads the strided views through 4-D tensor maps
+//   (D, then S, H, B ordered by stride), writes the tiles swizzled as
+//   wgmma reads them, and fills rows past S with zeros, so the ragged tail
+//   needs no padding code. setmaxnreg gives it 24 registers and the
+//   consumers 240.
+// - Warpgroups 1 and 2 each own 64 query rows. S = Q K^T is one chain of
+//   wgmma.mma_async m64n128k16 with both operands in shared memory
+//   (K-major), accumulated in f32 registers. The online softmax runs in
+//   the accumulator layout (row maxima and sums across the 4 lanes of a
+//   row by shuffles). P, rounded to bf16, is repacked in registers as the
+//   A operand of O += P V (wgmma with A from registers; V from shared
+//   memory, N-major, so the transpose-B immediate is set). Each tile's S
+//   product is issued with the previous tile's P V, and the softmax runs
+//   while that P V is on the tensor cores; the two warpgroups take turns
+//   issuing (named barriers), so one's softmax overlaps the other's
+//   products.
+// - Epilogue: O / l rounded to bf16, written swizzled into the
+//   warpgroup's staging rows and stored by TMA (rows past S are not
+//   written); lse is written directly.
+// Tiles: W = min(D, 64) columns per swizzle panel (128-byte rows, 128B
+// swizzle; D = 32 is one 64-byte panel with 64B swizzle; D = 128 two
+// panels, one descriptor each).
 //
-// Bound. At the BERT serving shape (B*H=384, S=512, D=64, bf16) the kernel
-// moves ~101.5 MB (q, k, v, o once each plus lse) and does 4*B*H*S^2*D =
-// 25.8 GFLOP: ~30 us at 3.35 TB/s against ~26 us at 989 TFLOP/s, so it is
-// bound by bytes. This first version does not reach that bound: each
-// q-tile re-reads K/V through L2, and tile loads are not overlapped with
-// the products (no cp.async/TMA pipeline, no wgmma). Measured times are in
-// PERF.md.
+// Numerics (the port of `_dot_precision`), as the plain version: bf16 x
+// bf16 products summed in f32, P rounded to bf16 before P.V as the TPU
+// kernel does, scores in the base-2 domain (scale * log2 e) so exp is one
+// ex2 (an eighth of them, at D <= 64, a polynomial of the same accuracy on
+// the FMA pipes), masked scores at -1e30 (`_NEG_INF`), l clamped at 1e-30.
+// Masks are applied only on tiles that cross the diagonal or hold the
+// tail. Causal is `tril` (Lq == Lk). The result does not depend on the
+// strides: the same tiles are summed in the same order.
+//
+// f32 (off the serving path): one thread per query row, true fp32 FMA
+// (never TF32), K/V tiles staged in shared memory; the same strides.
+//
+// Bound. At the BERT serving shape (B*H = 384, S = 512, D = 64, bf16) the
+// kernel moves ~101.5 MB (q, k, v, o once each plus lse) and does 4 B H
+// S^2 D = 25.8 GFLOP: ~30 us at 3.35 TB/s against ~26 us at 989 TFLOP/s,
+// with ~100 M exponentials (~25 us at 16 a clock per SM) beside them.
+// Measured times, and what holds the kernel above its bound
+// (tools/k1_ablation.py), are in PERF.md.
 //
 // Plain C interface, loaded with ctypes by mxnet_tpu_torch/ops/cuda/
-// flash_attention.py. The launch goes to the caller's stream, allocates
-// nothing, and returns cudaGetLastError().
+// flash_attention.py. The tensor maps are encoded on the host at every
+// call with cuTensorMapEncodeTiled, taken from the driver through
+// cudaGetDriverEntryPoint (the library links cudart only). The launch goes
+// to the caller's stream, allocates nothing, and returns
+// cudaGetLastError(), or minus the encode's CUresult.
 
+#include <cuda.h>  // CUtensorMap and the encode's signature; no libcuda link
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,15 +84,99 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMinL = 1e-30f;
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernel. 4 warps; each warp owns 16 query rows of a
-// 64-row q-tile and walks 64-key K/V tiles.
+// PTX wrappers: shared-memory addresses, mbarriers, TMA, wgmma
 // ---------------------------------------------------------------------------
-constexpr int kMmaThreads = 128;
-constexpr int kMmaBQ = 64;
-constexpr int kMmaBK = 64;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory; completion (its bytes)
+// is reported to the mbarrier `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins register operands of an async wgmma in program order: values are
+// written before the fence that precedes it, and read after its wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle mode in bits 62-63 (1 = 128B,
+// 2 = 64B). Every tile starts 1024-byte aligned, so the base offset is 0.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t swizzle) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (swizzle << 62);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -62,198 +184,535 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// c += a * b for one 16x8x16 tile: a is 16x16 row-major, b 16x8 col-major.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// d (64 x 128, f32) = or += A (64 x 16, K-major) B^T (128 x 16, K-major),
+// both read from shared memory through descriptors
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                          uint64_t db, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// Four transposed 8x8 b16 matrices; lanes 8i..8i+7 address matrix i's rows.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* p) {
-  uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// d (64 x 32, f32) += A (64 x 16, bf16 in registers) B (16 x 32),
+// B read from shared memory N-major (transposed) through a descriptor
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// Copy rows [r0, r0 + 64) of a (S, D) bf16 matrix into shared memory with
-// row stride LD, zero-filling rows at or past S (so masked P.V terms are
-// 0 * 0, never 0 * garbage).
-template <int D, int LD>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int r0, int S) {
-  constexpr int kChunksPerRow = D / 8;  // 16-byte chunks
-  for (int c = threadIdx.x; c < kMmaBK * kChunksPerRow; c += kMmaThreads) {
-    const int r = c / kChunksPerRow;
-    const int col = (c % kChunksPerRow) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + col);
-    *reinterpret_cast<uint4*>(dst + r * LD + col) = val;
+// d (64 x 64, f32) += A (64 x 16, bf16 in registers) B (16 x 64),
+// B read from shared memory N-major (transposed) through a descriptor
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// ---------------------------------------------------------------------------
+// bf16: persistent, warp-specialized TMA + wgmma kernel
+// ---------------------------------------------------------------------------
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kBQ = 128;       // query rows per work tile
+constexpr int kWQ = 64;        // query rows per consumer warpgroup
+
+template <int D>
+struct Tile {
+  static constexpr int BK = 128;              // keys per K/V tile
+  static constexpr int W = D < 64 ? D : 64;   // columns per swizzle panel
+  static constexpr int NP = D / W;            // panels per row
+  static constexpr uint32_t ROW = W * 2;      // bytes per panel row
+  static constexpr uint32_t SBO = 8 * ROW;    // stride of 8-row groups
+  static constexpr uint64_t SWIZZLE = W == 64 ? 1 : 2;  // 128B : 64B
+  static constexpr uint32_t SWIZZLE_MASK = W == 64 ? 7 : 3;
+  static constexpr int STAGES = D == 128 ? 2 : 3;
+  // every EX2_FMA_EVERY-th 8-key block's exponentials run on the FMA pipes
+  // (0: none); at D = 128 the products alone outweigh the exponentials
+  static constexpr int EX2_FMA_EVERY = D == 128 ? 0 : 8;
+  static constexpr uint32_t Q_PANEL = kWQ * ROW;
+  static constexpr uint32_t Q_HALF = kWQ * D * 2;  // one warpgroup's rows
+  static constexpr uint32_t KV_PANEL = BK * ROW;
+  static constexpr uint32_t KV_BYTES = BK * D * 2;  // one K or V tile
+  // two Q buffers (the next work tile's Q loads during this one), the O
+  // staging rows (laid out as Q), the K/V ring
+  static constexpr uint32_t Q_BYTES = 2 * Q_HALF;
+  static constexpr uint32_t O_OFF = 2 * Q_BYTES;
+  static constexpr uint32_t K_OFF = O_OFF + Q_BYTES;
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * KV_BYTES;
+  // mbarriers: q_full[2], q_empty[2], k_full[STAGES], v_full[STAGES],
+  // kv_empty[STAGES]
+  static constexpr uint32_t BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // + 1024: the dynamic shared memory is realigned to 1024 bytes
+  static constexpr uint32_t SMEM = BAR_OFF + 8 * (4 + 3 * STAGES) + 1024;
+};
+
+// The coordinates of (s, h, b) in a tensor map whose dimensions 1-3 hold
+// S, H and B in the order `slots` gives (two bits each: S, H, B).
+__device__ __forceinline__ void tma_coords(int slots, int s, int h, int b,
+                                           int& c1, int& c2, int& c3) {
+  const int ds = slots & 3, dh = (slots >> 2) & 3;
+  c1 = ds == 1 ? s : dh == 1 ? h : b;
+  c2 = ds == 2 ? s : dh == 2 ? h : b;
+  c3 = ds == 3 ? s : dh == 3 ? h : b;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 2^x for x <= 0 on the FMA pipes: x = n + f with n an integer and f in
+// [-1/2, 1/2], 2^f by a degree-5 polynomial (relative error 1.1e-7, as
+// ex2.approx's), 2^n added to the exponent; below 2^-126 it returns
+// 2^-126, not 0 (a weight of 1e-38 beside l >= 1). At D <= 64 the
+// exponentials load the multi-function unit as much as the products load
+// the tensor cores, so a fraction of them runs here instead.
+__device__ __forceinline__ float ex2_fma(float x) {
+  x = fmaxf(x, -126.f);
+  const float t = x + 12582912.f;  // 1.5 * 2^23: x rounded into the mantissa
+  const float f = x - (t - 12582912.f);
+  float p = fmaf(1.3218672e-3f, f, 9.6716983e-3f);
+  p = fmaf(p, f, 5.5508930e-2f);
+  p = fmaf(p, f, 2.4022238e-1f);
+  p = fmaf(p, f, 6.9314688e-1f);
+  p = fmaf(p, f, 1.f);
+  return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
+}
+
+// One consumer warpgroup's online softmax over a 64 x BK score tile in the
+// accumulator layout (raw q.k, masked entries set here to -1e30): updates
+// the running max m (base-2 domain, scaled) and this lane's partial row sum
+// l, leaves P = exp2(s * scale_log2 - m) in s, and returns the factors
+// that rescale the rows' earlier sums.
+template <int BK, int FMA_EVERY>
+__device__ __forceinline__ float2 online_softmax(
+    float (&s)[BK / 2], float& m0, float& m1, float& l0, float& l1,
+    float scale_log2, bool need_mask, int k0, int t, int row0, int row1,
+    int S, int causal) {
+  if (need_mask) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = k0 + j * 8 + 2 * t + (i & 1);
+        const int row = (i < 2) ? row0 : row1;
+        if (col >= S || (causal && col > row)) s[4 * j + i] = kNegInf;
+      }
+    }
+  }
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  // the 4 lanes of a row hold its columns; scale > 0, so the maximum of
+  // the scaled scores is the scaled maximum
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0 * scale_log2);
+  const float mn1 = fmaxf(m1, mx1 * scale_log2);
+  const float2 alpha = make_float2(ex2(m0 - mn0), ex2(m1 - mn1));
+  m0 = mn0;
+  m1 = mn1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    // every FMA_EVERY-th 8-key block's exponentials on the FMA pipes
+    const bool on_fma =
+        FMA_EVERY > 0 && j % (FMA_EVERY + !FMA_EVERY) == FMA_EVERY - 1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = fmaf(s[4 * j + i], scale_log2, i < 2 ? -mn0 : -mn1);
+      s[4 * j + i] = on_fma ? ex2_fma(x) : ex2(x);
+    }
+    ps0 += s[4 * j] + s[4 * j + 1];
+    ps1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  // the 4 lanes of a row share alpha, so the partial sums are reduced once
+  // at the end
+  l0 = l0 * alpha.x + ps0;
+  l1 = l1 * alpha.y + ps1;
+  return alpha;
+}
+
+// P in bf16 as the register A operand of P V: the accumulators of two
+// adjacent 8-key blocks are one 64 x 16 A fragment.
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4],
+                                       const float (&s)[BK / 2]) {
+#pragma unroll
+  for (int kc = 0; kc < BK / 16; ++kc) {
+    pa[kc][0] = pack_bf16(s[8 * kc], s[8 * kc + 1]);
+    pa[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+    pa[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+    pa[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                      int S, float scale_log2, int causal) {
-  // +8 elements of row padding: the 32-bit fragment loads of 8 rows x 4
-  // lanes and the ldmatrix row reads then hit 32 distinct banks
-  constexpr int LD = D + 8;
-  __shared__ __align__(16) __nv_bfloat16 Ks[kMmaBK * LD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kMmaBK * LD];
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap omap,
+                          int slots, float* __restrict__ lse, int H, int S,
+                          int q_tiles, int n_work, float scale_log2,
+                          int causal) {
+  using T = Tile<D>;
+  constexpr int BK = T::BK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const smem = smem_raw + (base - raw);  // generic view of `base`
+  const uint32_t bars = base + T::BAR_OFF;
+  auto q_full = [&](int qb) { return bars + 8u * qb; };
+  auto q_empty = [&](int qb) { return bars + 8u * (2 + qb); };
+  auto k_full = [&](int st) { return bars + 8u * (4 + st); };
+  auto v_full = [&](int st) { return bars + 8u * (4 + T::STAGES + st); };
+  auto kv_empty = [&](int st) {
+    return bars + 8u * (4 + 2 * T::STAGES + st);
+  };
+  // work tile w: q-tile w % q_tiles of head w / q_tiles. Blocks take w =
+  // blockIdx.x, + gridDim.x, ...: the q-tiles of one head run together and
+  // share its K/V tiles in L2.
+  auto kv_tiles = [&](int qt) {
+    const int end = causal ? min(S, (qt + 1) * kBQ) : S;
+    return (end + BK - 1) / BK;
+  };
+  const int wg = threadIdx.x / 128;
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;   // fragment row group
-  const int t = lane & 3;    // thread in group
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kMmaBQ;
-  const size_t base = (size_t)bh * S * D;
-
-  // Q tile through the K buffer into A fragments held for the whole sweep
-  load_tile_bf16<D, LD>(Ks, q + base, q0, S);
-  __syncthreads();
-  const int rl = warp * 16 + g;  // local rows rl and rl + 8
-  uint32_t qa[D / 16][4];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const __nv_bfloat16* p = Ks + rl * LD + ks * 16 + 2 * t;
-    qa[ks][0] = lds32(p);
-    qa[ks][1] = lds32(p + 8 * LD);
-    qa[ks][2] = lds32(p + 8);
-    qa[ks][3] = lds32(p + 8 * LD + 8);
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(q_full(qb), 1);
+      mbar_init(q_empty(qb), 8);  // one arrival per consumer warp
+    }
+#pragma unroll
+    for (int st = 0; st < T::STAGES; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(kv_empty(st), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  const int row0 = q0 + rl;
-  const int row1 = row0 + 8;
-  float oacc[D / 8][4];
+  if (wg == 0) {
+    // ---- producer: one thread keeps Q and the K/V ring loaded ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int kv_it = 0, c1, c2, c3;
+      for (int w = blockIdx.x, i = 0; w < n_work; w += gridDim.x, ++i) {
+        const int qt = w % q_tiles, bh = w / q_tiles;
+        const int b = bh / H, h = bh - b * H;
+        // Q buffer i % 2, once work tile i - 2's last S product has read it
+        const int qb = i & 1;
+        mbar_wait(q_empty(qb), ((i >> 1) & 1) ^ 1);
+        mbar_expect_tx(q_full(qb), T::Q_BYTES);
+        for (int half = 0; half < 2; ++half) {
+          tma_coords(slots, qt * kBQ + half * kWQ, h, b, c1, c2, c3);
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    oacc[dt][0] = oacc[dt][1] = oacc[dt][2] = oacc[dt][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  const int kend = causal ? min(S, q0 + kMmaBQ) : S;
-  for (int k0 = 0; k0 < kend; k0 += kMmaBK) {
-    __syncthreads();  // previous tile (or the Q stage) fully read
-    load_tile_bf16<D, LD>(Ks, k + base, k0, S);
-    load_tile_bf16<D, LD>(Vs, v + base, k0, S);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[kMmaBK / 8][4];
+          for (int p = 0; p < T::NP; ++p)
+            tma_load(base + qb * T::Q_BYTES + half * T::Q_HALF +
+                         p * T::Q_PANEL,
+                     &qmap, q_full(qb), p * T::W, c1, c2, c3);
+        }
+        const int n = kv_tiles(qt);
+        for (int it = 0; it < n; ++it, ++kv_it) {
+          const int st = kv_it % T::STAGES;
+          // the first round finds every buffer free
+          mbar_wait(kv_empty(st), ((kv_it / T::STAGES) & 1) ^ 1);
+          tma_coords(slots >> 6, it * BK, h, b, c1, c2, c3);
+          mbar_expect_tx(k_full(st), T::KV_BYTES);
 #pragma unroll
-    for (int nt = 0; nt < kMmaBK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+          for (int p = 0; p < T::NP; ++p)
+            tma_load(base + T::K_OFF + st * T::KV_BYTES + p * T::KV_PANEL,
+                     &kmap, k_full(st), p * T::W, c1, c2, c3);
+          tma_coords(slots >> 12, it * BK, h, b, c1, c2, c3);
+          mbar_expect_tx(v_full(st), T::KV_BYTES);
+#pragma unroll
+          for (int p = 0; p < T::NP; ++p)
+            tma_load(base + T::V_OFF + st * T::KV_BYTES + p * T::KV_PANEL,
+                     &vmap, v_full(st), p * T::W, c1, c2, c3);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int tid = threadIdx.x - wg * 128;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2;  // accumulator row group
+    const int t = lane & 3;   // thread in group
+    const int lr0 = warp * 16 + g;  // local rows lr0 and lr0 + 8
+    const uint32_t o_smem = base + T::O_OFF + c * T::Q_HALF;
+    uint8_t* const o_stage = smem + T::O_OFF + c * T::Q_HALF;
+
+    // wgmma accumulator layout (per 8-column block j): [4j], [4j+1] are
+    // row lr0, columns 8j + 2t and + 1; [4j+2], [4j+3] row lr0 + 8
+    float s[BK / 2];
+    float o[T::NP][T::W / 2];
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+
+    // S = Q K^T for one 64 x BK tile: k-steps of 16 along D, within panels
+    auto issue_s = [&](float(&s)[BK / 2], uint32_t q_smem, int st) {
+      const uint32_t k_smem = base + T::K_OFF + st * T::KV_BYTES;
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
-        const __nv_bfloat16* p = Ks + (nt * 8 + g) * LD + ks * 16 + 2 * t;
-        mma_bf16(s[nt], qa[ks], lds32(p), lds32(p + 8));
+        const uint32_t off = (ks * 16 % T::W) * 2;  // bytes into the row
+        const int p = ks * 16 / T::W;
+        wgmma_ss_n128(
+            s,
+            smem_desc(q_smem + p * T::Q_PANEL + off, 0, T::SBO, T::SWIZZLE),
+            smem_desc(k_smem + p * T::KV_PANEL + off, 0, T::SBO, T::SWIZZLE),
+            ks > 0);
       }
-    }
-
-    // scale, mask (only tiles that hold the tail or cross the diagonal),
-    // and the row maxima across the 4 lanes that share a row
-    const bool need_mask =
-        (k0 + kMmaBK > S) || (causal && k0 + kMmaBK - 1 > q0);
-    float mx0 = kNegInf, mx1 = kNegInf;
+    };
+    // O += P V: V (BK x D) is N-major in shared memory, 16 keys a step
+    auto issue_pv = [&](float(&o)[T::NP][T::W / 2],
+                        const uint32_t(&pa)[BK / 16][4], int st) {
+      const uint32_t v_smem = base + T::V_OFF + st * T::KV_BYTES;
 #pragma unroll
-    for (int nt = 0; nt < kMmaBK / 8; ++nt) {
+      for (int kc = 0; kc < BK / 16; ++kc) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = s[nt][i] * scale_log2;
-        if (need_mask) {
-          const int col = k0 + nt * 8 + 2 * t + (i & 1);
-          const int row = (i < 2) ? row0 : row1;
-          if (col >= S || (causal && col > row)) x = kNegInf;
+        for (int p = 0; p < T::NP; ++p) {
+          const uint64_t db =
+              smem_desc(v_smem + p * T::KV_PANEL + kc * 16 * T::ROW, T::SBO,
+                        T::SBO, T::SWIZZLE);
+          if constexpr (T::W == 64)
+            wgmma_rs_n64(o[p], pa[kc], db);
+          else
+            wgmma_rs_n32(o[p], pa[kc], db);
         }
-        s[nt][i] = x;
       }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    };
+    // O and P are written before the fence that precedes their P V product
+    // and read after its wait
+    auto fence_o_p = [&] {
+#pragma unroll
+      for (int p = 0; p < T::NP; ++p) fence_regs(o[p]);
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) fence_regs(pa[kc]);
+    };
+    // this warp is done with a stage's K and V, or a tile's Q
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // The two warpgroups take turns issuing their products (named barriers
+    // 3 and 4), so one's softmax runs while the other's products use the
+    // tensor cores. Warpgroup 1 opens warpgroup 0's first turn and skips
+    // its own last hand-over, so every barrier phase completes.
+    auto turn_begin = [&] {
+      asm volatile("bar.sync %0, 256;\n" ::"r"(3 + c) : "memory");
+    };
+    auto turn_end = [&](bool last) {
+      if (!(last && c == 1))
+        asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - c) : "memory");
+    };
+    if (c == 1) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
 
-    const float mn0 = fmaxf(m0, mx0);
-    const float mn1 = fmaxf(m1, mx1);
-    const float alpha0 = exp2f(m0 - mn0);
-    const float alpha1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
+    int kv_it = 0;
+    for (int w = blockIdx.x, i = 0; w < n_work; w += gridDim.x, ++i) {
+      const int qt = w % q_tiles, bh = w / q_tiles;
+      const int b = bh / H, h = bh - b * H;
+      const int qb = i & 1;
+      const uint32_t q_smem = base + qb * T::Q_BYTES + c * T::Q_HALF;
+      const int r0 = qt * kBQ + c * kWQ;  // the warpgroup's first row
+      const int row0 = r0 + lr0, row1 = row0 + 8;
+      const int n = kv_tiles(qt);
+      const bool last_work = w + gridDim.x >= n_work;
 #pragma unroll
-    for (int nt = 0; nt < kMmaBK / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mn0);
-      s[nt][1] = exp2f(s[nt][1] - mn0);
-      s[nt][2] = exp2f(s[nt][2] - mn1);
-      s[nt][3] = exp2f(s[nt][3] - mn1);
-      ps0 += s[nt][0] + s[nt][1];
-      ps1 += s[nt][2] + s[nt][3];
-    }
-    // l is this lane's partial row sum; the 4 lanes of a row share alpha,
-    // so the partials are summed once at the end
-    l0 = l0 * alpha0 + ps0;
-    l1 = l1 * alpha1 + ps1;
+      for (int p = 0; p < T::NP; ++p)
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      oacc[dt][0] *= alpha0;
-      oacc[dt][1] *= alpha0;
-      oacc[dt][2] *= alpha1;
-      oacc[dt][3] *= alpha1;
-    }
+        for (int j = 0; j < T::W / 2; ++j) o[p][j] = 0.f;
+      float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+      // masks only on tiles that hold the tail or cross the diagonal
+      auto need_mask = [&](int k0) {
+        return (k0 + BK > S) || (causal && k0 + BK - 1 > r0);
+      };
 
-    // O += P V: the score accumulators of two adjacent 8-key tiles are
-    // exactly one 16x16 A fragment once rounded to bf16
+      // tile 0: S, softmax, P
+      mbar_wait(q_full(qb), (i >> 1) & 1);
+      int st = kv_it % T::STAGES;
+      mbar_wait(k_full(st), (kv_it / T::STAGES) & 1);
+      fence_regs(s);
+      turn_begin();
+      wgmma_fence();
+      issue_s(s, q_smem, st);
+      wgmma_commit();
+      turn_end(false);
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (n == 1) release(q_empty(qb));
+      online_softmax<BK, T::EX2_FMA_EVERY>(s, m0, m1, l0, l1, scale_log2,
+                                           need_mask(0), 0, t, row0, row1, S,
+                                           causal);
+      pack_p<BK>(pa, s);
+      // O *= alpha, the factors of the last softmax: applied while the next
+      // S product runs, just before the P V that adds to O
+      float2 alpha = make_float2(1.f, 1.f);
+      auto rescale = [&] {
 #pragma unroll
-    for (int kc = 0; kc < kMmaBK / 16; ++kc) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-          pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-          pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-          pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-      const int vrow = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        for (int p = 0; p < T::NP; ++p)
 #pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, Vs + vrow * LD + (dt + (lane >> 4)) * 8);
-        mma_bf16(oacc[dt], pa, b[0], b[1]);
-        mma_bf16(oacc[dt + 1], pa, b[2], b[3]);
+          for (int j = 0; j < T::W / 2; ++j)
+            o[p][j] *= (j & 2) ? alpha.y : alpha.x;
+      };
+
+      // tile it: its S product is issued with the previous tile's P V, and
+      // its softmax runs while that P V is still on the tensor cores
+      for (int it = 1; it < n; ++it) {
+        const int prev = st;
+        const uint32_t prev_ph = (kv_it / T::STAGES) & 1;
+        ++kv_it;
+        st = kv_it % T::STAGES;
+        mbar_wait(k_full(st), (kv_it / T::STAGES) & 1);
+        mbar_wait(v_full(prev), prev_ph);
+        fence_regs(s);
+        turn_begin();
+        wgmma_fence();
+        issue_s(s, q_smem, st);
+        wgmma_commit();
+        rescale();
+        fence_o_p();
+        wgmma_fence();
+        issue_pv(o, pa, prev);
+        wgmma_commit();
+        turn_end(false);
+        wgmma_wait<1>();  // S done, P V may still run
+        fence_regs(s);
+        if (it == n - 1) release(q_empty(qb));
+        alpha = online_softmax<BK, T::EX2_FMA_EVERY>(
+            s, m0, m1, l0, l1, scale_log2, need_mask(it * BK), it * BK, t,
+            row0, row1, S, causal);
+        wgmma_wait<0>();
+        fence_o_p();
+        release(kv_empty(prev));
+        pack_p<BK>(pa, s);
+      }
+
+      // the last tile's P V
+      mbar_wait(v_full(st), (kv_it / T::STAGES) & 1);
+      rescale();
+      fence_o_p();
+      turn_begin();
+      wgmma_fence();
+      issue_pv(o, pa, st);
+      wgmma_commit();
+      turn_end(last_work);
+      wgmma_wait<0>();
+      fence_o_p();
+      release(kv_empty(st));
+      ++kv_it;
+
+      // ---- epilogue: O / l in bf16 through shared memory to TMA ----
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float ls0 = fmaxf(l0, kMinL);
+      const float ls1 = fmaxf(l1, kMinL);
+      const float inv0 = 1.f / ls0, inv1 = 1.f / ls1;
+      // the previous tile's store has finished reading the staging rows
+      if (tid == 0)
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+#pragma unroll
+      for (int p = 0; p < T::NP; ++p) {
+#pragma unroll
+        for (int j = 0; j < T::W / 8; ++j) {
+          // swizzled as TMA reads it: 16-byte chunk ^= row bits
+          const uint32_t col = (8 * j + 2 * t) * 2;
+          uint32_t a0 = lr0 * T::ROW + col, a1 = (lr0 + 8) * T::ROW + col;
+          a0 ^= ((a0 >> 7) & T::SWIZZLE_MASK) << 4;
+          a1 ^= ((a1 >> 7) & T::SWIZZLE_MASK) << 4;
+          *reinterpret_cast<uint32_t*>(o_stage + p * T::Q_PANEL + a0) =
+              pack_bf16(o[p][4 * j] * inv0, o[p][4 * j + 1] * inv0);
+          *reinterpret_cast<uint32_t*>(o_stage + p * T::Q_PANEL + a1) =
+              pack_bf16(o[p][4 * j + 2] * inv1, o[p][4 * j + 3] * inv1);
+        }
+      }
+      // make the generic-proxy writes visible to TMA; one thread stores
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+      if (tid == 0) {
+        int c1, c2, c3;
+        tma_coords(slots >> 18, r0, h, b, c1, c2, c3);
+#pragma unroll
+        for (int p = 0; p < T::NP; ++p)
+          tma_store(&omap, o_smem + p * T::Q_PANEL, p * T::W, c1, c2, c3);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+      if (t == 0) {
+        if (row0 < S) lse[(size_t)bh * S + row0] = m0 * kLn2 + logf(ls0);
+        if (row1 < S) lse[(size_t)bh * S + row1] = m1 * kLn2 + logf(ls1);
       }
     }
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float ls0 = fmaxf(l0, kMinL);
-  const float ls1 = fmaxf(l1, kMinL);
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)row0 * D + col) =
-          __floats2bfloat162_rn(oacc[dt][0] / ls0, oacc[dt][1] / ls0);
-    if (row1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)row1 * D + col) =
-          __floats2bfloat162_rn(oacc[dt][2] / ls1, oacc[dt][3] / ls1);
-  }
-  if (t == 0) {
-    if (row0 < S) lse[(size_t)bh * S + row0] = m0 * kLn2 + logf(ls0);
-    if (row1 < S) lse[(size_t)bh * S + row1] = m1 * kLn2 + logf(ls1);
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
 }
 
@@ -264,27 +723,36 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 constexpr int kF32Threads = 128;  // = query rows per block
 constexpr int kF32BK = 32;
 
+// Row strides and (b, h) offsets of q, k, v and o, in elements.
+struct F32Strides {
+  long long s[4][3];  // [tensor][S, H, B]
+};
+
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int S, float scale_log2,
-                     int causal) {
+    flash_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         F32Strides st, float* __restrict__ lse, int H,
+                         int S, float scale_log2, int causal) {
   __shared__ __align__(16) float Ks[kF32BK][D];
   __shared__ __align__(16) float Vs[kF32BK][D];
 
   const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
   const int q0 = blockIdx.y * kF32Threads;
   const int row = q0 + threadIdx.x;
   const bool live = row < S;
-  const size_t base = (size_t)bh * S * D;
+  q += b * st.s[0][2] + h * st.s[0][1];
+  k += b * st.s[1][2] + h * st.s[1][1];
+  v += b * st.s[2][2] + h * st.s[2][1];
+  o += b * st.s[3][2] + h * st.s[3][1];
 
   float qr[D], acc[D];
 #pragma unroll
   for (int d = 0; d < D; d += 4) {
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (live)
-      x = *reinterpret_cast<const float4*>(q + base + (size_t)row * D + d);
+    if (live) x = *reinterpret_cast<const float4*>(q + row * st.s[0][0] + d);
     qr[d] = x.x;
     qr[d + 1] = x.y;
     qr[d + 2] = x.z;
@@ -301,9 +769,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int col = (c % (D / 4)) * 4;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
       if (k0 + r < S) {
-        const size_t off = base + (size_t)(k0 + r) * D + col;
-        kx = *reinterpret_cast<const float4*>(k + off);
-        vx = *reinterpret_cast<const float4*>(v + off);
+        kx = *reinterpret_cast<const float4*>(k + (k0 + r) * st.s[1][0] + col);
+        vx = *reinterpret_cast<const float4*>(v + (k0 + r) * st.s[2][0] + col);
       }
       *reinterpret_cast<float4*>(&Ks[r][col]) = kx;
       *reinterpret_cast<float4*>(&Vs[r][col]) = vx;
@@ -354,57 +821,157 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float ls = fmaxf(l, kMinL);
 #pragma unroll
   for (int d = 0; d < D; d += 4) {
-    *reinterpret_cast<float4*>(o + base + (size_t)row * D + d) = make_float4(
+    *reinterpret_cast<float4*>(o + row * st.s[3][0] + d) = make_float4(
         acc[d] / ls, acc[d + 1] / ls, acc[d + 2] / ls, acc[d + 3] / ls);
   }
   lse[(size_t)bh * S + row] = m * kLn2 + logf(ls);
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int bh, int S, int is_bf16, float scale_log2,
-                   int causal, cudaStream_t stream) {
-  if (is_bf16) {
-    const dim3 grid(bh, (S + kMmaBQ - 1) / kMmaBQ);
-    flash_fwd_bf16_kernel<D><<<grid, kMmaThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(o), lse, S, scale_log2, causal);
-  } else {
-    const dim3 grid(bh, (S + kF32Threads - 1) / kF32Threads);
-    flash_fwd_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, S,
-        scale_log2, causal);
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled from the driver, looked up once; `err` is the
+// lookup's cudaError_t.
+struct Encoder {
+  EncodeTiled fn;
+  int err;
+};
+
+const Encoder& encoder() {
+  static const Encoder e = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err == cudaSuccess &&
+        (found != cudaDriverEntryPointSuccess || fn == nullptr))
+      err = cudaErrorSymbolNotFound;
+    return Encoder{reinterpret_cast<EncodeTiled>(fn), static_cast<int>(err)};
+  }();
+  return e;
+}
+
+// The 4-D tensor map of one (B, H, S, D) bf16 view `t` = {address, S, H and
+// B strides in bytes}: dimension 0 is D, dimensions 1-3 are S, H and B in
+// increasing order of stride, the box `cols` x `rows` rows of S. *slots gets
+// the map dimension of S, H and B (two bits each).
+CUresult encode_map(CUtensorMap* map, int* slots, const long long* t, int B,
+                    int H, int S, int D, int cols, int rows,
+                    CUtensorMapSwizzle swizzle) {
+  const cuuint64_t size[3] = {(cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t stride[3] = {(cuuint64_t)t[1], (cuuint64_t)t[2],
+                                (cuuint64_t)t[3]};
+  int order[3] = {0, 1, 2};
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
+      const int x = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = x;
+    }
+  cuuint64_t gdim[4] = {(cuuint64_t)D, 0, 0, 0};
+  cuuint64_t gstride[3];
+  cuuint32_t box[4] = {(cuuint32_t)cols, 1, 1, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  *slots = 0;
+  for (int i = 0; i < 3; ++i) {
+    gdim[i + 1] = size[order[i]];
+    gstride[i] = stride[order[i]];
+    if (order[i] == 0) box[i + 1] = rows;
+    *slots |= (i + 1) << (2 * order[i]);
   }
+  return encoder().fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                      reinterpret_cast<void*>(t[0]), gdim, gstride, box,
+                      estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int D>
+int launch_bf16(const long long* views, float* lse, int B, int H, int S,
+                float scale_log2, int causal, cudaStream_t stream) {
+  using T = Tile<D>;
+  if (encoder().err) return encoder().err;
+  const CUtensorMapSwizzle swizzle =
+      T::W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const int rows[4] = {kWQ, T::BK, T::BK, kWQ};  // q, k, v, o boxes
+  CUtensorMap maps[4];
+  int slots = 0;
+  for (int i = 0; i < 4; ++i) {
+    int sl;
+    const CUresult r = encode_map(&maps[i], &sl, views + 4 * i, B, H, S, D,
+                                  T::W, rows[i], swizzle);
+    if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+    slots |= sl << (6 * i);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::SMEM);
+  if (err != cudaSuccess) return err;
+  int dev, sms;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const int q_tiles = (S + kBQ - 1) / kBQ;
+  const int n_work = q_tiles * B * H;  // one block per SM walks them
+  flash_fwd_bf16_kernel<D><<<min(n_work, sms), kThreads, T::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], slots, lse, H, S, q_tiles, n_work,
+      scale_log2, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_f32(const long long* views, float* lse, int B, int H, int S,
+               float scale_log2, int causal, cudaStream_t stream) {
+  F32Strides st;
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 3; ++j)
+      st.s[i][j] = views[4 * i + 1 + j] / (long long)sizeof(float);
+  const dim3 grid(B * H, (S + kF32Threads - 1) / kF32Threads);
+  flash_fwd_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(
+      reinterpret_cast<const float*>(views[0]),
+      reinterpret_cast<const float*>(views[4]),
+      reinterpret_cast<const float*>(views[8]),
+      reinterpret_cast<float*>(views[12]), st, lse, H, S, scale_log2, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o: contiguous (bh, seq, head_dim) in bf16 (is_bf16=1) or f32;
-// lse: contiguous (bh, seq) f32. Returns a cudaError_t (0 on success).
-extern "C" int mxt_flash_attention_fwd(const void* q, const void* k,
-                                       const void* v, void* o, void* lse,
-                                       int bh, int seq, int head_dim,
-                                       int is_bf16, float sm_scale,
-                                       int causal, void* stream) {
-  if (bh <= 0 || seq <= 0 || seq > 65535 * kMmaBQ)
+// views: for q, k, v and o in turn {address, S stride, H stride, B stride},
+// strides in bytes, of (B, H, S, D) tensors with unit stride on D, bf16
+// (is_bf16 = 1) or f32; every address 16-byte aligned and every stride a
+// positive multiple of 16 bytes (the wrapper checks both). lse: contiguous
+// (B*H, S) f32. Returns 0, a cudaError_t, or minus the CUresult of a failed
+// tensor-map encode.
+extern "C" int mxt_flash_attention_fwd(const long long* views, void* lse,
+                                       int batch, int heads, int seq,
+                                       int head_dim, int is_bf16,
+                                       float sm_scale, int causal,
+                                       void* stream) {
+  if (batch <= 0 || heads <= 0 || seq <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long bh = static_cast<long long>(batch) * heads;
+  const long long blocks =
+      is_bf16 ? bh * ((seq + kBQ - 1) / kBQ) : bh;
+  if (blocks > INT32_MAX ||
+      (!is_bf16 && (seq + kF32Threads - 1) / kF32Threads > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
   const float scale_log2 = sm_scale * kLog2e;
   float* lse_f = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto launch) {
+    return launch(views, lse_f, batch, heads, seq, scale_log2, causal, st);
+  };
   switch (head_dim) {
     case 32:
-      return launch<32>(q, k, v, o, lse_f, bh, seq, is_bf16, scale_log2,
-                        causal, st);
+      return is_bf16 ? run(launch_bf16<32>) : run(launch_f32<32>);
     case 64:
-      return launch<64>(q, k, v, o, lse_f, bh, seq, is_bf16, scale_log2,
-                        causal, st);
+      return is_bf16 ? run(launch_bf16<64>) : run(launch_f32<64>);
     case 128:
-      return launch<128>(q, k, v, o, lse_f, bh, seq, is_bf16, scale_log2,
-                         causal, st);
+      return is_bf16 ? run(launch_bf16<128>) : run(launch_f32<128>);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

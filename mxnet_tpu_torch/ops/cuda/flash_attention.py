@@ -5,23 +5,27 @@ Three hand-written CUDA kernels replace the Pallas kernels:
 
 - K1, ``_attention_fwd_kernel`` reached through ``pl.pallas_call`` in
   ``_flash_fwd`` (``flash_attention.py:213``), is
-  ``mxnet_tpu_torch/csrc/flash_attention_fwd.cu``: one thread block per
-  (batch*head, q-tile) walking the K/V tiles through shared memory with an
-  online softmax in f32 registers.
+  ``mxnet_tpu_torch/csrc/flash_attention_fwd.cu``: a persistent block per
+  SM walks 128-row q-tiles, a producer thread keeping a TMA ring of K/V
+  tiles full and two consumer warpgroups running both products on
+  ``wgmma`` with an online softmax in f32 registers. It reads q, k and v as
+  strided views (the QKV projection's split output, in place) and writes
+  ``out`` as (B, S, H, D) memory, returned as its (B, H, S, D) view.
 - K2, ``_bwd_dq_kernel`` (``:403``), and K3, ``_bwd_dkv_kernel`` (``:421``),
   both launched by ``_pallas_bwd``, are
   ``mxnet_tpu_torch/csrc/flash_attention_bwd.cu``: one block per
   (batch*head, q-tile) for dq and one per (batch*head, k-tile) for dk/dv,
   each recomputing P from the forward's lse.
 
-bf16 runs on the tensor cores (``mma.sync``), f32 as true-fp32 scalar FMA.
+bf16 runs on the tensor cores (K1 ``wgmma``, K2 and K3 ``mma.sync``), f32
+as true-fp32 scalar FMA.
 
 Bounds on an H100: K1 at the BERT-base serving shape (32, 12, 512, 64) bf16
 moves ~101.5 MB (~30 us at 3.35 TB/s) against 25.8 GFLOP (~26 us at 989
 TFLOP/s); K2 and K3 at the training shape (64, 12, 128, 64) bf16 move ~64
 and ~76 MB (~19 and ~23 us) against 4.8 and 6.4 GFLOP. All three are bound
-by bytes. None yet overlaps tile loads with the products or uses
-wgmma/TMA. Times are in PERF.md.
+by bytes. K1 overlaps its TMA loads with the products; K2 and K3 do not
+yet. Times are in PERF.md.
 
 Routing: :class:`FlashAttention` is the autograd function. On CPU tensors
 both directions take the plain PyTorch versions
@@ -29,11 +33,14 @@ both directions take the plain PyTorch versions
 :func:`flash_attention_bwd_reference`); on CUDA tensors the forward is K1
 and the backward K2 + K3 at every sequence length (the JAX package's
 S <= 1024 dense backward is a TPU routing choice and is not copied), or
-they raise. Nothing falls back. ``launches``, ``launches_dq`` and
-``launches_dkv`` count the three kernels' launches.
+they raise. Nothing falls back, and nothing is copied quietly: K1 takes
+any layout :func:`tma_strides` accepts and raises on others; the backward
+makes its saved tensors contiguous, as K2 and K3 require. ``launches``,
+``launches_dq`` and ``launches_dkv`` count the three kernels' launches.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import math
 import threading
@@ -44,7 +51,8 @@ from ...base import MXNetError
 from .. import _build
 
 __all__ = ["FlashAttention", "flash_attention", "flash_attention_fwd",
-           "flash_attention_fwd_reference", "flash_attention_bwd",
+           "flash_attention_fwd_reference", "tma_strides",
+           "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_bwd_reference", "launches", "launches_dq",
            "launches_dkv"]
@@ -75,7 +83,7 @@ def _kernel():
     with _lib_lock:
         if _lib_fn is None:
             fn = _build.load(_LIB_NAME, _SOURCES).mxt_flash_attention_fwd
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _lib_fn = fn
@@ -144,7 +152,38 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, sm_scale: float,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check(what, q, k, v, dout=None, lse=None, delta=None):
+def tma_strides(x):
+    """The (S, H, B) strides in bytes of a (B, H, S, D) view that K1 reads
+    or writes in place: unit stride on D, every other stride a positive
+    multiple of 16 bytes and a 16-byte-aligned address, which is what a TMA
+    tensor map can address. A dimension of size 1 has no stride that
+    matters and gets one past the view's extent (so it sorts last). Raises
+    MXNetError on any other layout: the wrapper never copies."""
+    shape, stride = tuple(x.shape), x.stride()
+    if len(shape) != 4:
+        raise MXNetError(f"flash_attention_fwd: expected a (B, H, S, D) view, "
+                         f"got shape {shape}")
+    if stride[3] != 1:
+        raise MXNetError(f"flash_attention_fwd: the head dim must have unit "
+                         f"stride, got strides {stride}")
+    if x.data_ptr() % 16:
+        raise MXNetError(f"flash_attention_fwd: the address must be 16-byte "
+                         f"aligned, got {x.data_ptr():#x}")
+    elt = x.element_size()
+    out = [stride[2] * elt, stride[1] * elt, stride[0] * elt]   # S, H, B
+    for i, n in enumerate((shape[2], shape[1], shape[0])):
+        if n == 1:
+            extent = elt * (1 + sum((m - 1) * st for m, st in
+                                    zip(shape, stride)))
+            out[i] = -(-extent // 16) * 16
+        elif out[i] <= 0 or out[i] % 16:
+            raise MXNetError(f"flash_attention_fwd: every stride but the head "
+                             f"dim's must be a positive multiple of 16 bytes, "
+                             f"got {stride} x {elt} bytes")
+    return tuple(out)
+
+
+def _check(what, q, k, v, dout=None, lse=None, delta=None, strided=False):
     mats = [("q", q), ("k", k), ("v", v)]
     if dout is not None:
         mats.append(("dout", dout))
@@ -163,7 +202,7 @@ def _check(what, q, k, v, dout=None, lse=None, delta=None):
             raise MXNetError(f"{what}: q, k, v must be "
                              f"(B, H, S, D) of one shape, got {tuple(x.shape)} "
                              f"vs {tuple(q.shape)}")
-        if not x.is_contiguous() or x.data_ptr() % 16:
+        if not strided and (not x.is_contiguous() or x.data_ptr() % 16):
             raise MXNetError(f"{what}: {name} must be contiguous "
                              "and 16-byte aligned")
     for name, x in (("lse", lse), ("delta", delta)):
@@ -185,27 +224,38 @@ def _stream(q):
 
 
 def _raise_on(rc, what, q):
+    if rc < 0:
+        raise MXNetError(f"{what}: tensor-map encode failed with CUresult "
+                         f"{-rc} at shape {tuple(q.shape)}, {q.dtype}")
     if rc != 0:
         raise MXNetError(f"{what}: kernel launch failed with CUDA error {rc} "
                          f"at shape {tuple(q.shape)}, {q.dtype}")
 
 
 def flash_attention_fwd(q, k, v, sm_scale: float, causal: bool):
-    """K1: ``(out, lse)`` for contiguous CUDA (B, H, S, D) tensors
-    in bf16 or f32 with D in (32, 64, 128); lse is (B, H, S) f32. Raises
-    MXNetError on anything else, or when the launch is refused."""
+    """K1: ``(out, lse)`` for CUDA (B, H, S, D) views in bf16 or f32 with D
+    in (32, 64, 128), each in a layout :func:`tma_strides` accepts (the
+    split views of a QKV projection are read in place). ``out`` is a
+    (B, H, S, D) view of (B, S, H, D) memory, so ``out.transpose(1, 2)``
+    is contiguous; lse is (B, H, S) f32. Raises MXNetError on anything
+    else, or when the tensor-map encode or the launch fails."""
     global launches
-    _check("flash_attention_fwd", q, k, v)
+    _check("flash_attention_fwd", q, k, v, strided=True)
     B, H, S, D = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty_strided((B, H, S, D), (S * H * D, D, H * D, 1),
+                              dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if B * H * S == 0:
         return out, lse
+    views = array.array("q")      # per tensor: address, S, H, B strides
+    for x in (q, k, v, out):
+        views.append(x.data_ptr())
+        views.extend(tma_strides(x))
     fn = _kernel()
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), B * H, S, D, _DTYPES[q.dtype],
-                float(sm_scale), int(bool(causal)), _stream(q))
+        rc = fn(views.buffer_info()[0], lse.data_ptr(), B, H, S, D,
+                _DTYPES[q.dtype], float(sm_scale), int(bool(causal)),
+                _stream(q))
     _raise_on(rc, "flash_attention_fwd", q)
     with _count_lock:
         launches += 1
@@ -277,8 +327,9 @@ def _on_cpu(*xs) -> bool:
 class FlashAttention(torch.autograd.Function):
     """``FlashAttention.apply(q, k, v, sm_scale, causal)`` over (B, H, S, D)
     with Lq == Lk: the counterpart of the JAX package's ``_flash`` custom
-    VJP (``flash_attention.py:511``). Forward K1, saving (q, k, v, out,
-    lse); backward K2 + K3. CPU tensors take the plain versions in both
+    VJP (``flash_attention.py:511``). Forward K1 on the views as given,
+    saving (q, k, v, out, lse); backward K2 + K3 on contiguous copies of
+    the saved views. CPU tensors take the plain versions in both
     directions; CUDA tensors take the kernels or raise."""
 
     @staticmethod
@@ -295,8 +346,11 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
-        bwd = flash_attention_bwd_reference if _on_cpu(q, k, v) \
-            else flash_attention_bwd
+        if _on_cpu(q, k, v):
+            bwd = flash_attention_bwd_reference
+        else:   # K2 and K3 take contiguous tensors
+            bwd = flash_attention_bwd
+            q, k, v, out = (x.contiguous() for x in (q, k, v, out))
         dq, dk, dv = bwd(q, k, v, out, lse, dout, ctx.sm_scale, ctx.causal)
         return dq, dk, dv, None, None
 

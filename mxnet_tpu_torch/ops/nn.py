@@ -210,7 +210,9 @@ def multi_head_attention(q, k, v, mask=None, *, heads: int = 1,
 
     An unmasked call with Lq == Lk goes to :func:`flash_attention` (the
     hand-written kernels, K1 forward and K2 + K3 backward, on a CUDA tensor;
-    their plain versions on a CPU one);
+    their plain versions on a CPU one) with the (N, H, L, D) views of q, k
+    and v as they are (the split QKV projection, read in place by K1), and
+    K1's output is (N, L, H, D) memory, so the result is a view too;
     unmasked Lq != Lk takes the dense path; a ``mask`` (broadcastable to
     (N, H, Lq, Lk), nonzero = attend) takes the masked composite.
 
@@ -224,8 +226,7 @@ def multi_head_attention(q, k, v, mask=None, *, heads: int = 1,
     vh = v.reshape(N, -1, heads, D).transpose(1, 2)
     Lk = kh.shape[2]
     if mask is None and Lq == Lk:
-        out = flash_attention(qh.contiguous(), kh.contiguous(),
-                              vh.contiguous(), causal=causal)
+        out = flash_attention(qh, kh, vh, causal=causal)
     elif mask is None:
         out = _dense_attention(qh, kh, vh, 1.0 / math.sqrt(D), causal)
     else:

@@ -33,8 +33,9 @@ Reports:
   training), matrix products (cuBLAS/CUTLASS kernels), the optimizer
   (kernels under the train step's ``mxt.optimizer`` range) and everything
   else (elementwise, reductions, dropout masks, dtype and layout copies),
-  the top kernels by time, and the device busy share (kernel time over wall
-  time).
+  the top kernels by time, the layout copies (kernels launched under
+  ``aten::contiguous`` or a copying ``aten::reshape``), and the device busy
+  share (kernel time over wall time).
 
 Prints the result as one JSON line at the end. Needs one CUDA card.
 """
@@ -57,6 +58,7 @@ _KERNELS = (("flash_bwd_dq", "K2 flash_attention_bwd_dq"),
             ("flash_bwd_dkv", "K3 flash_attention_bwd_dkv"),
             ("flash_fwd", "K1 flash_attention_fwd"))
 _OPTIMIZER_RANGE = "mxt.optimizer"
+_LAYOUT_OPS = ("aten::contiguous", "aten::reshape")
 
 
 # ResNet-50's classes, by the host op that launched each kernel: (class,
@@ -82,10 +84,10 @@ def _category(name: str) -> str:
     return "other"
 
 
-def _kernel_ms_under(events, match, skip: str = ""):
-    """Device ms of the kernels launched inside any host op whose name
-    passes ``match`` (or inside its children), each kernel counted once;
-    kernels named ``skip`` (a range's own annotation) are left out."""
+def _kernels_under(events, match, skip: str = ""):
+    """(count, device ms) of the kernels launched inside any host op whose
+    name passes ``match`` (or inside its children), each kernel counted
+    once; kernels named ``skip`` (a range's own annotation) are left out."""
     from torch.autograd import DeviceType
 
     seen = {}
@@ -97,7 +99,8 @@ def _kernel_ms_under(events, match, skip: str = ""):
             if k.name != skip:
                 seen[id(k)] = k.duration
         stack.extend(e.cpu_children)
-    return sum(seen.values()) / 1e3
+    return len(seen), sum(seen.values()) / 1e3
+
 
 
 def _range_ms(events, name):
@@ -108,7 +111,7 @@ def _range_ms(events, name):
 
     window_us = sum(e.device_time_total for e in events
                     if e.name == name and e.device_type == DeviceType.CUDA)
-    return _kernel_ms_under(events, lambda n: n == name, skip=name), \
+    return _kernels_under(events, lambda n: n == name, skip=name)[1], \
         window_us / 1e3
 
 
@@ -235,7 +238,7 @@ def main(argv=None) -> int:
                and e.key != _OPTIMIZER_RANGE]
     events = prof.events()
     if args.resnet:
-        by_cat = {c: _kernel_ms_under(events, match)
+        by_cat = {c: _kernels_under(events, match)[1]
                   for c, match in _RESNET_OPS}
         other = _RESNET_OTHER
         by_cat[other] = sum(e.self_device_time_total for e in kernels) \
@@ -252,6 +255,9 @@ def main(argv=None) -> int:
         by_cat[f"optimizer ({name}, under mxt.optimizer)"] = opt_ms
         by_cat[other] = by_cat.get(other, 0.0) - opt_ms
     per_step = {c: ms / n_steps for c, ms in by_cat.items()}
+    # layout copies: what .contiguous() and a copying reshape launch (the
+    # attention's q, k, v and output went through them before K1 took views)
+    n_copies, copies_ms = _kernels_under(events, _LAYOUT_OPS.__contains__)
     device_ms = sum(per_step.values())
     if training:
         per_step["device idle"] = max(0.0, step_ms - device_ms)
@@ -264,6 +270,9 @@ def main(argv=None) -> int:
           f", K2 {launches[1]:.0f}, K3 {launches[2]:.0f}")
     for c, ms in sorted(per_step.items(), key=lambda kv: -kv[1]):
         print(f"  {c:40s} {ms:8.3f} ms/step  {ms / step_ms:6.1%} of step")
+    print(f"  layout copies (kernels under {' / '.join(_LAYOUT_OPS)}): "
+          f"{n_copies / n_steps:.0f} per step, {copies_ms / n_steps:.3f} "
+          f"ms/step (inside the classes above)")
     if opt_window_ms:
         print(f"  optimizer window on the device {opt_window_ms / n_steps:.3f}"
               f" ms/step for {opt_ms / n_steps:.3f} ms of kernels (the rest "
@@ -278,6 +287,8 @@ def main(argv=None) -> int:
               "ms_per_step": per_step,
               "optimizer_window_ms": opt_window_ms / n_steps,
               "launches_per_step": dict(zip(("K1", "K2", "K3"), launches)),
+              "layout_copies_per_step": n_copies / n_steps,
+              "layout_copies_ms_per_step": copies_ms / n_steps,
               "top": [{"kernel": e.key,
                        "ms_per_step": e.self_device_time_total / 1e3 / n_steps,
                        "calls_per_step": e.count / n_steps} for e in top]}

@@ -215,14 +215,51 @@ def test_rtc_sources_include_no_library(path):
 @pytest.mark.parametrize("path", sorted((PKG / "csrc").glob("*.cu")),
                          ids=lambda p: p.name)
 def test_kernel_sources_do_their_own_products(path):
-    """Each kernel multiplies with mma.sync in its own body and includes no
-    library of finished kernels (cuBLAS, CUTLASS, cuDNN, PyTorch)."""
+    """Each kernel multiplies on the tensor cores in its own body (K1 with
+    wgmma, the others with mma.sync) and includes no library of finished
+    kernels (cuBLAS, CUTLASS, cuDNN, PyTorch); K1 alone includes the
+    driver API's header, for the tensor-map type and its encode's
+    signature."""
     src = path.read_text()
-    assert "mma.sync.aligned.m16n8k16" in src
+    allowed = {"<cuda_bf16.h>", "<cuda_runtime.h>", "<stdint.h>"}
+    if path.name == "flash_attention_fwd.cu":
+        assert "wgmma.mma_async.sync.aligned" in src
+        allowed.add("<cuda.h>")
+    else:
+        assert "mma.sync.aligned.m16n8k16" in src
     includes = {ln.split()[1] for ln in src.splitlines()
                 if ln.startswith("#include")}
-    assert includes <= {"<cuda_bf16.h>", "<cuda_runtime.h>", "<stdint.h>"}, \
-        includes
+    assert includes <= allowed, includes
+
+
+def _code(path):
+    """A CUDA source without its comments."""
+    import re
+    src = re.sub(r"/\*.*?\*/", "", path.read_text(), flags=re.S)
+    return re.sub(r"//[^\n]*", "", src)
+
+
+def test_k1_bf16_is_the_hopper_design():
+    """K1's bf16 forward loads through TMA into an mbarrier ring, runs both
+    products on wgmma (P V with P from registers and V transposed), takes
+    128-row q-tiles, and no longer uses mma.sync; its tensor maps are
+    encoded through the driver's entry point, not a libcuda link."""
+    code = _code(PKG / "csrc" / "flash_attention_fwd.cu")
+    for needle in ("cp.async.bulk.tensor.4d.shared::cluster.global."
+                   "mbarrier::complete_tx",
+                   "cp.async.bulk.tensor.4d.global.shared::cta",
+                   "mbarrier.try_wait.parity", "mbarrier.arrive.expect_tx",
+                   "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+                   "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
+                   "setmaxnreg.inc", "setmaxnreg.dec",
+                   "constexpr int kBQ = 128;",
+                   "cudaGetDriverEntryPoint", "cuTensorMapEncodeTiled",
+                   "__grid_constant__ CUtensorMap"):
+        assert needle in code, needle
+    assert "mma.sync" not in code
+    # the register-A form: {a0..a3} then the B descriptor, transpose-B set
+    assert "\"{%32, %33, %34, %35}, %36, p, 1, 1, 1;" in code
+    assert "-lcuda" not in (PKG / "ops" / "_build.py").read_text()
 
 
 def test_gitignore_lists_the_build_directory():
