@@ -25,8 +25,9 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    of 30 such windows after warm-up, and the device time of the kernel and
    of SDPA replayed from a CUDA graph of 10 calls (no host work in the
    window); it prints the bound (bytes over 3.35 TB/s against operations
-   over the peak for the type). Then the host microseconds of one K1 call
-   (four tensor maps encoded) beside one SDPA call.
+   over the peak for the type). Then the host microseconds of one K1 call,
+   of its C entry alone (four tensor maps encoded, the launch) and of one
+   SDPA call, timed in turns.
 2b. K2 and K3 against the plain backward: ``flash_attention_bwd_dq`` and
    ``flash_attention_bwd_dkv`` (given K1's out and lse) against
    ``flash_attention_bwd_reference`` at every listed shape (the training
@@ -142,6 +143,7 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -181,10 +183,7 @@ CHECK_SHAPES = [  # (B, H, S, D), causal
     ((2, 4, 128, 32), False), ((1, 2, 256, 128), False),
     ((1, 2, 256, 128), True), (TRAIN_SHAPE, False)]
 TIMED_SHAPES = {BERT_SHAPE: "serving", TRAIN_SHAPE: "training"}
-# K1's bf16 time before its Hopper redesign (the mma.sync kernel), at the
-# serving and training shapes, as PERF.md's kernel table records it
-K1_BEFORE_MS = {"serving": 0.1768, "training": 0.0429}
-K1_HOST_CALLS = 200
+K1_HOST_ROUNDS, K1_HOST_CALLS = 25, 20
 SEQ_LEN = 512
 N_CLIENTS = 8
 REQS_PER_CLIENT = 12
@@ -306,26 +305,40 @@ def graph_ms(fn, calls: int = TIMED_CALLS) -> float:
     return median_ms(graph.replay) / calls
 
 
-def k1_host_us(gen, calls: int = K1_HOST_CALLS):
-    """Host microseconds of one K1 call (checks, four tensor maps encoded,
-    the launch) and of one SDPA call, on split views at (1, 1, 128, 64)
-    bf16: ``calls`` back-to-back calls on the host clock, the device
-    drained before and after."""
+def k1_host_us(gen, rounds: int = K1_HOST_ROUNDS,
+               calls: int = K1_HOST_CALLS):
+    """Host microseconds of one K1 call through its wrapper (checks, two
+    allocations, the launch), of its C entry alone (four tensor maps
+    encoded, the launch) and of one SDPA call, on split views at
+    (1, 1, 128, 64) bf16: ``rounds`` rounds, each timing ``calls``
+    back-to-back calls of the three in turn on the host clock (the device
+    drained before each), the median round of each. Taking turns within a
+    round keeps the three comparable on a host whose speed drifts."""
     q, k, v = split_qkv((1, 1, 128, 64), gen, torch.bfloat16)
-    out = {}
-    for name, fn in (
-            ("k1", lambda: fa.flash_attention_fwd(q, k, v, 0.125, False)),
-            ("sdpa", lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, scale=0.125))):
+    out, lse = fa.flash_attention_fwd(q, k, v, 0.125, False)
+    entry = fa._kernel()
+    views = (ctypes.c_longlong * 16)(*(
+        n for x in (q, k, v, out) for n in (x.data_ptr(), *fa.tma_strides(x))))
+    stream = torch.cuda.current_stream().cuda_stream
+    fns = {
+        "k1": lambda: fa.flash_attention_fwd(q, k, v, 0.125, False),
+        "entry": lambda: entry(views, lse.data_ptr(), 1, 1, 128, 64, 1,
+                               0.125, 0, stream),
+        "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, scale=0.125)}
+    times = {name: [] for name in fns}
+    for fn in fns.values():
         for _ in range(10):
             fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        out[name] = (time.perf_counter() - t0) / calls * 1e6
-        torch.cuda.synchronize()
-    return out
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times[name].append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return {name: float(np.median(t)) for name, t in times.items()}
 
 
 def phase_kernel(seed: int, smi: str):
@@ -395,8 +408,10 @@ def phase_kernel(seed: int, smi: str):
             del q, k, v, qc, kc, vc, out, lse, out_s, lse_s, ref, ref_lse
     record["host_us"] = k1_host_us(gen)
     print(f"host cost of one K1 call (split views, 4 tensor maps encoded): "
-          f"{record['host_us']['k1']:.2f} us; one SDPA call "
-          f"{record['host_us']['sdpa']:.2f} us (mean of {K1_HOST_CALLS})")
+          f"{record['host_us']['k1']:.2f} us, of which its C entry "
+          f"{record['host_us']['entry']:.2f} us; one SDPA call "
+          f"{record['host_us']['sdpa']:.2f} us (median of {K1_HOST_ROUNDS} "
+          f"rounds of {K1_HOST_CALLS} calls each, in turns)")
     return record
 
 
@@ -1335,8 +1350,8 @@ def main(argv=None) -> int:
          "library_device_ms": r["library_device_ms"],
          "device_ms_training_shape": tr["device_ms"],
          "library_device_ms_training_shape": tr["library_device_ms"],
-         "ms_before": K1_BEFORE_MS,
          "host_us": record["host_us"]["k1"],
+         "entry_host_us": record["host_us"]["entry"],
          "library_host_us": record["host_us"]["sdpa"]},
         {"name": "flash_attention_bwd_dq", "replaces": f"{pallas}:403",
          "launches": train_launches["flash_attention_bwd_dq"],

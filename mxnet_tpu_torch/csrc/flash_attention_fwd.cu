@@ -23,9 +23,9 @@
 //   buffers (the next work tile's Q arrives during this one) and K and V
 //   tiles of 128 keys through a ring of STAGES buffers, each with full and
 //   empty mbarriers. TMA reads the strided views through 4-D tensor maps
-//   (D, then S, H, B ordered by stride), writes the tiles swizzled as
-//   wgmma reads them, and fills rows past S with zeros, so the ragged tail
-//   needs no padding code. setmaxnreg gives it 24 registers and the
+//   of dimensions (D, S, H, B) whatever the order of their strides, writes
+//   the tiles swizzled as wgmma reads them, and fills rows past S with
+//   zeros, so the ragged tail needs no padding code. setmaxnreg gives it 24 registers and the
 //   consumers 240.
 // - Warpgroups 1 and 2 each own 64 query rows. S = Q K^T is one chain of
 //   wgmma.mma_async m64n128k16 with both operands in shared memory
@@ -302,16 +302,6 @@ struct Tile {
   static constexpr uint32_t SMEM = BAR_OFF + 8 * (4 + 3 * STAGES) + 1024;
 };
 
-// The coordinates of (s, h, b) in a tensor map whose dimensions 1-3 hold
-// S, H and B in the order `slots` gives (two bits each: S, H, B).
-__device__ __forceinline__ void tma_coords(int slots, int s, int h, int b,
-                                           int& c1, int& c2, int& c3) {
-  const int ds = slots & 3, dh = (slots >> 2) & 3;
-  c1 = ds == 1 ? s : dh == 1 ? h : b;
-  c2 = ds == 2 ? s : dh == 2 ? h : b;
-  c3 = ds == 3 ? s : dh == 3 ? h : b;
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -415,7 +405,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap,
                           const __grid_constant__ CUtensorMap omap,
-                          int slots, float* __restrict__ lse, int H, int S,
+                          float* __restrict__ lse, int H, int S,
                           int q_tiles, int n_work, float scale_log2,
                           int causal) {
   using T = Tile<D>;
@@ -461,7 +451,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---- producer: one thread keeps Q and the K/V ring loaded ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      int kv_it = 0, c1, c2, c3;
+      int kv_it = 0;
       for (int w = blockIdx.x, i = 0; w < n_work; w += gridDim.x, ++i) {
         const int qt = w % q_tiles, bh = w / q_tiles;
         const int b = bh / H, h = bh - b * H;
@@ -470,30 +460,28 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(q_empty(qb), ((i >> 1) & 1) ^ 1);
         mbar_expect_tx(q_full(qb), T::Q_BYTES);
         for (int half = 0; half < 2; ++half) {
-          tma_coords(slots, qt * kBQ + half * kWQ, h, b, c1, c2, c3);
 #pragma unroll
           for (int p = 0; p < T::NP; ++p)
             tma_load(base + qb * T::Q_BYTES + half * T::Q_HALF +
                          p * T::Q_PANEL,
-                     &qmap, q_full(qb), p * T::W, c1, c2, c3);
+                     &qmap, q_full(qb), p * T::W, qt * kBQ + half * kWQ, h,
+                     b);
         }
         const int n = kv_tiles(qt);
         for (int it = 0; it < n; ++it, ++kv_it) {
           const int st = kv_it % T::STAGES;
           // the first round finds every buffer free
           mbar_wait(kv_empty(st), ((kv_it / T::STAGES) & 1) ^ 1);
-          tma_coords(slots >> 6, it * BK, h, b, c1, c2, c3);
           mbar_expect_tx(k_full(st), T::KV_BYTES);
 #pragma unroll
           for (int p = 0; p < T::NP; ++p)
             tma_load(base + T::K_OFF + st * T::KV_BYTES + p * T::KV_PANEL,
-                     &kmap, k_full(st), p * T::W, c1, c2, c3);
-          tma_coords(slots >> 12, it * BK, h, b, c1, c2, c3);
+                     &kmap, k_full(st), p * T::W, it * BK, h, b);
           mbar_expect_tx(v_full(st), T::KV_BYTES);
 #pragma unroll
           for (int p = 0; p < T::NP; ++p)
             tma_load(base + T::V_OFF + st * T::KV_BYTES + p * T::KV_PANEL,
-                     &vmap, v_full(st), p * T::W, c1, c2, c3);
+                     &vmap, v_full(st), p * T::W, it * BK, h, b);
         }
       }
     }
@@ -700,11 +688,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
       if (tid == 0) {
-        int c1, c2, c3;
-        tma_coords(slots >> 18, r0, h, b, c1, c2, c3);
 #pragma unroll
         for (int p = 0; p < T::NP; ++p)
-          tma_store(&omap, o_smem + p * T::Q_PANEL, p * T::W, c1, c2, c3);
+          tma_store(&omap, o_smem + p * T::Q_PANEL, p * T::W, r0, h, b);
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       }
       if (t == 0) {
@@ -854,33 +840,18 @@ const Encoder& encoder() {
 }
 
 // The 4-D tensor map of one (B, H, S, D) bf16 view `t` = {address, S, H and
-// B strides in bytes}: dimension 0 is D, dimensions 1-3 are S, H and B in
-// increasing order of stride, the box `cols` x `rows` rows of S. *slots gets
-// the map dimension of S, H and B (two bits each).
-CUresult encode_map(CUtensorMap* map, int* slots, const long long* t, int B,
-                    int H, int S, int D, int cols, int rows,
+// B strides in bytes}: dimensions (D, S, H, B), box `cols` x `rows` rows of
+// S. The strides need not increase with the dimension (a split QKV view's
+// S stride is larger than its H stride).
+CUresult encode_map(CUtensorMap* map, const long long* t, int B, int H,
+                    int S, int D, int cols, int rows,
                     CUtensorMapSwizzle swizzle) {
-  const cuuint64_t size[3] = {(cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t stride[3] = {(cuuint64_t)t[1], (cuuint64_t)t[2],
-                                (cuuint64_t)t[3]};
-  int order[3] = {0, 1, 2};
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
-      const int x = order[j];
-      order[j] = order[j - 1];
-      order[j - 1] = x;
-    }
-  cuuint64_t gdim[4] = {(cuuint64_t)D, 0, 0, 0};
-  cuuint64_t gstride[3];
-  cuuint32_t box[4] = {(cuuint32_t)cols, 1, 1, 1};
+  const cuuint64_t gdim[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t gstride[3] = {(cuuint64_t)t[1], (cuuint64_t)t[2],
+                                 (cuuint64_t)t[3]};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
-  *slots = 0;
-  for (int i = 0; i < 3; ++i) {
-    gdim[i + 1] = size[order[i]];
-    gstride[i] = stride[order[i]];
-    if (order[i] == 0) box[i + 1] = rows;
-    *slots |= (i + 1) << (2 * order[i]);
-  }
   return encoder().fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                       reinterpret_cast<void*>(t[0]), gdim, gstride, box,
                       estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
@@ -888,36 +859,44 @@ CUresult encode_map(CUtensorMap* map, int* slots, const long long* t, int B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+constexpr int kMaxDevices = 64;
+
 template <int D>
 int launch_bf16(const long long* views, float* lse, int B, int H, int S,
                 float scale_log2, int causal, cudaStream_t stream) {
   using T = Tile<D>;
   if (encoder().err) return encoder().err;
+  // per device: its SM count, read once the kernel's shared-memory limit
+  // is raised there (0 until then)
+  static int sm_count[kMaxDevices];  // read and written atomically
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int sms = __atomic_load_n(&sm_count[dev], __ATOMIC_RELAXED);
+  if (sms == 0) {
+    if ((err = cudaFuncSetAttribute(
+             flash_fwd_bf16_kernel<D>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM)) !=
+            cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+      return err;
+    __atomic_store_n(&sm_count[dev], sms, __ATOMIC_RELAXED);
+  }
   const CUtensorMapSwizzle swizzle =
       T::W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   const int rows[4] = {kWQ, T::BK, T::BK, kWQ};  // q, k, v, o boxes
   CUtensorMap maps[4];
-  int slots = 0;
   for (int i = 0; i < 4; ++i) {
-    int sl;
-    const CUresult r = encode_map(&maps[i], &sl, views + 4 * i, B, H, S, D,
-                                  T::W, rows[i], swizzle);
+    const CUresult r = encode_map(&maps[i], views + 4 * i, B, H, S, D, T::W,
+                                  rows[i], swizzle);
     if (r != CUDA_SUCCESS) return -static_cast<int>(r);
-    slots |= sl << (6 * i);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::SMEM);
-  if (err != cudaSuccess) return err;
-  int dev, sms;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
   const int q_tiles = (S + kBQ - 1) / kBQ;
   const int n_work = q_tiles * B * H;  // one block per SM walks them
   flash_fwd_bf16_kernel<D><<<min(n_work, sms), kThreads, T::SMEM, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], slots, lse, H, S, q_tiles, n_work,
+      maps[0], maps[1], maps[2], maps[3], lse, H, S, q_tiles, n_work,
       scale_log2, causal);
   return cudaGetLastError();
 }

@@ -53,7 +53,7 @@ def _nvcc() -> str:
 
 
 def build(name: str, sources: Sequence[str]) -> Path:
-    """Compile ``sources`` (file names under csrc/) into
+    """Compile ``sources`` (file names under csrc/, or absolute paths) into
     ``build/mxnet_tpu_torch/lib<name>-<hash>.so`` unless that file exists;
     returns its path. ``-Xptxas -v`` reports (registers, shared memory,
     spills per kernel) are kept for :func:`build_log`."""

@@ -40,8 +40,8 @@ makes its saved tensors contiguous, as K2 and K3 require. ``launches``,
 """
 from __future__ import annotations
 
-import array
 import ctypes
+import functools
 import math
 import threading
 
@@ -50,8 +50,9 @@ import torch
 from ...base import MXNetError
 from .. import _build
 
-__all__ = ["FlashAttention", "flash_attention", "flash_attention_fwd",
-           "flash_attention_fwd_reference", "tma_strides",
+__all__ = ["FlashAttention", "bind_fwd", "flash_attention",
+           "flash_attention_fwd", "flash_attention_fwd_reference",
+           "tma_strides",
            "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_bwd_reference", "launches", "launches_dq",
@@ -78,15 +79,23 @@ _bwd_lock = threading.Lock()
 _bwd_fns = None
 
 
+def bind_fwd(lib):
+    """K1's C entry ``mxt_flash_attention_fwd`` in the loaded ``lib``, with
+    its argument types: (views: 16 int64 = address and S, H, B byte strides
+    of q, k, v and out; lse, B, H, S, D, is_bf16, sm_scale, causal,
+    stream)."""
+    fn = lib.mxt_flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _kernel():
     global _lib_fn
     with _lib_lock:
         if _lib_fn is None:
-            fn = _build.load(_LIB_NAME, _SOURCES).mxt_flash_attention_fwd
-            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib_fn = fn
+            _lib_fn = bind_fwd(_build.load(_LIB_NAME, _SOURCES))
         return _lib_fn
 
 
@@ -156,30 +165,33 @@ def tma_strides(x):
     """The (S, H, B) strides in bytes of a (B, H, S, D) view that K1 reads
     or writes in place: unit stride on D, every other stride a positive
     multiple of 16 bytes and a 16-byte-aligned address, which is what a TMA
-    tensor map can address. A dimension of size 1 has no stride that
-    matters and gets one past the view's extent (so it sorts last). Raises
-    MXNetError on any other layout: the wrapper never copies."""
-    shape, stride = tuple(x.shape), x.stride()
+    tensor map can address. A dimension of size 1 is never stepped along,
+    so its stride is not checked and is given as 16. Raises MXNetError on
+    any other layout: the wrapper never copies."""
+    if x.data_ptr() % 16:
+        raise MXNetError(f"flash_attention_fwd: the address must be 16-byte "
+                         f"aligned, got {x.data_ptr():#x}")
+    return _byte_strides(tuple(x.shape), x.stride(), x.element_size())
+
+
+@functools.lru_cache(maxsize=256)
+def _byte_strides(shape, stride, elt):
+    """:func:`tma_strides` for one shape, strides and element size (a pure
+    function, cached: a model hands K1 a few layouts over and over)."""
     if len(shape) != 4:
         raise MXNetError(f"flash_attention_fwd: expected a (B, H, S, D) view, "
                          f"got shape {shape}")
     if stride[3] != 1:
         raise MXNetError(f"flash_attention_fwd: the head dim must have unit "
                          f"stride, got strides {stride}")
-    if x.data_ptr() % 16:
-        raise MXNetError(f"flash_attention_fwd: the address must be 16-byte "
-                         f"aligned, got {x.data_ptr():#x}")
-    elt = x.element_size()
-    out = [stride[2] * elt, stride[1] * elt, stride[0] * elt]   # S, H, B
-    for i, n in enumerate((shape[2], shape[1], shape[0])):
-        if n == 1:
-            extent = elt * (1 + sum((m - 1) * st for m, st in
-                                    zip(shape, stride)))
-            out[i] = -(-extent // 16) * 16
-        elif out[i] <= 0 or out[i] % 16:
+    out = []
+    for dim in (2, 1, 0):   # S, H, B
+        nbytes = stride[dim] * elt
+        if shape[dim] != 1 and (nbytes <= 0 or nbytes % 16):
             raise MXNetError(f"flash_attention_fwd: every stride but the head "
                              f"dim's must be a positive multiple of 16 bytes, "
                              f"got {stride} x {elt} bytes")
+        out.append(nbytes if shape[dim] != 1 else 16)
     return tuple(out)
 
 
@@ -187,11 +199,11 @@ def _check(what, q, k, v, dout=None, lse=None, delta=None, strided=False):
     mats = [("q", q), ("k", k), ("v", v)]
     if dout is not None:
         mats.append(("dout", dout))
-    for name, x in mats:
-        if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+    for name, x in mats:   # is_cuda and get_device(): no device objects
+        if not isinstance(x, torch.Tensor) or not x.is_cuda:
             raise MXNetError(f"{what}: {name} must be a CUDA "
                              f"tensor, got {getattr(x, 'device', type(x))}")
-        if x.device != q.device:
+        if x.get_device() != q.get_device():
             raise MXNetError(f"{what}: q, k, v on different "
                              f"devices ({q.device}, {x.device})")
         if x.dtype != q.dtype or x.dtype not in _DTYPES:
@@ -247,13 +259,12 @@ def flash_attention_fwd(q, k, v, sm_scale: float, causal: bool):
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if B * H * S == 0:
         return out, lse
-    views = array.array("q")      # per tensor: address, S, H, B strides
-    for x in (q, k, v, out):
-        views.append(x.data_ptr())
-        views.extend(tma_strides(x))
     fn = _kernel()
+    views = (ctypes.c_longlong * 16)(   # per tensor: address, S, H, B strides
+        q.data_ptr(), *tma_strides(q), k.data_ptr(), *tma_strides(k),
+        v.data_ptr(), *tma_strides(v), out.data_ptr(), *tma_strides(out))
     with torch.cuda.device(q.device):
-        rc = fn(views.buffer_info()[0], lse.data_ptr(), B, H, S, D,
+        rc = fn(views, lse.data_ptr(), B, H, S, D,
                 _DTYPES[q.dtype], float(sm_scale), int(bool(causal)),
                 _stream(q))
     _raise_on(rc, "flash_attention_fwd", q)

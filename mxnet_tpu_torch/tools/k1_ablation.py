@@ -34,7 +34,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
@@ -91,19 +90,13 @@ def _source(subs):
 
 
 def _build_variant(name):
+    """The variant's C entry, its source written under the build directory
+    and built and loaded as the port builds its kernels."""
     out_dir = _build.BUILD_DIR / "k1_ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu, so = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
+    cu = out_dir / f"{name}.cu"
     cu.write_text(_source(VARIANTS[name][0]))
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                           str(cu)], capture_output=True, text=True)
-    if proc.returncode:
-        raise SystemExit(f"k1_ablation: {name} failed to build:\n"
-                         f"{proc.stderr[-2000:]}")
-    fn = ctypes.CDLL(str(so)).mxt_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    return fn
+    return fa.bind_fwd(_build.load(f"k1_ablation_{name}", [cu]))
 
 
 def main(argv=None) -> int:

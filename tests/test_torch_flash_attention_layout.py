@@ -84,10 +84,14 @@ def test_stride_rule_takes_split_views_and_the_output_layout(dtype, elt, D):
                                                  H * S * D * elt)
 
 
-def test_stride_rule_places_size_one_dims_past_the_extent():
-    x = _buffer((1, 1, 5, 32))
-    s, h, b = fa.tma_strides(x)
-    assert s == 64 and h == b and h % 16 == 0 and h >= 5 * 64
+@pytest.mark.parametrize("shape,stride,want", [
+    ((1, 1, 5, 32), (7, 3, 32, 1), (64, 16, 16)),        # B = H = 1
+    ((2, 1, 5, 32), (160, 0, 32, 1), (64, 16, 320)),     # H = 1, stride 0
+    ((2, 3, 1, 32), (96, 32, 5, 1), (16, 64, 192))])     # S = 1
+def test_stride_rule_ignores_the_strides_of_size_one_dims(shape, stride,
+                                                          want):
+    x = _buffer((2 * 3 * 5 * 32,)).as_strided(shape, stride)
+    assert fa.tma_strides(x) == want
 
 
 @pytest.mark.parametrize("case", ["d_stride", "stride_not_16B", "misaligned",
