@@ -367,7 +367,8 @@ class FlashAttention(torch.autograd.Function):
 
 
 def _dense_attention(q, k, v, sm_scale: float, causal: bool):
-    """Dense SDPA for Lq != Lk: a copy of the JAX package's
+    """Dense SDPA for Lq != Lk and for head dims the kernels do not take: a
+    copy of the JAX package's
     ``_dense_attention``, with its bottom-right causal convention (query
     row i sees keys j <= i + (Lk - Lq); the last query row sees every
     key)."""
@@ -381,12 +382,13 @@ def _dense_attention(q, k, v, sm_scale: float, causal: bool):
 
 
 def flash_attention(q, k, v, *, causal: bool = False, sm_scale=None):
-    """Fused attention over (B, H, S, D), differentiable. Lq != Lk goes to
-    the dense path; otherwise :class:`FlashAttention` (the plain versions
-    for CPU tensors, the kernels for CUDA tensors, which raise on what they
-    do not take)."""
+    """Fused attention over (B, H, S, D), differentiable. Lq != Lk, and a
+    head dim outside (32, 64, 128), go to the dense path on every device
+    (its gradient is torch autograd's); otherwise :class:`FlashAttention`
+    (the plain versions for CPU tensors, the kernels for CUDA tensors,
+    which raise on what they do not take)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.shape[2] != k.shape[2]:
+    if q.shape[2] != k.shape[2] or q.shape[-1] not in _HEAD_DIMS:
         return _dense_attention(q, k, v, float(sm_scale), bool(causal))
     return FlashAttention.apply(q, k, v, float(sm_scale), bool(causal))
