@@ -13,29 +13,36 @@ Three hand-written CUDA kernels replace the Pallas kernels:
   ``out`` as (B, S, H, D) memory, returned as its (B, H, S, D) view.
 - K2, ``_bwd_dq_kernel`` (``:403``), and K3, ``_bwd_dkv_kernel`` (``:421``),
   both launched by ``_pallas_bwd``, are
-  ``mxnet_tpu_torch/csrc/flash_attention_bwd.cu``: one block per
-  (batch*head, q-tile) for dq and one per (batch*head, k-tile) for dk/dv,
-  each recomputing P from the forward's lse.
+  ``mxnet_tpu_torch/csrc/flash_attention_bwd.cu``, K1's design turned
+  around: persistent blocks walk 128-row work units (q-tiles for dq,
+  k-tiles for dk/dv), a producer thread keeps TMA loads in flight and two
+  consumer warpgroups recompute P from the forward's lse and run every
+  product on ``wgmma``. K2 also computes delta = rowsum(dO * O) and writes
+  it for K3, which runs after it on the same stream.
 
-bf16 runs on the tensor cores (K1 ``wgmma``, K2 and K3 ``mma.sync``), f32
-as true-fp32 scalar FMA.
+bf16 runs on the tensor cores, f32 as true-fp32 scalar FMA. Every kernel
+reads its (B, H, S, D) inputs in place as strided views and writes its
+outputs as (B, S, H, D) memory, returned as (B, H, S, D) views.
 
 Bounds on an H100: K1 at the BERT-base serving shape (32, 12, 512, 64) bf16
 moves ~101.5 MB (~30 us at 3.35 TB/s) against 25.8 GFLOP (~26 us at 989
-TFLOP/s); K2 and K3 at the training shape (64, 12, 128, 64) bf16 move ~64
-and ~76 MB (~19 and ~23 us) against 4.8 and 6.4 GFLOP. All three are bound
-by bytes. K1 overlaps its TMA loads with the products; K2 and K3 do not
-yet. Times are in PERF.md.
+TFLOP/s); K2 and K3 at the training shape (64, 12, 128, 64) bf16 move ~76
+MB each (~23 us) against 4.8 and 6.4 GFLOP. All three are bound by bytes.
+Times are in PERF.md.
 
-Routing: :class:`FlashAttention` is the autograd function. On CPU tensors
-both directions take the plain PyTorch versions
+Routing: :func:`flash_attention` sends Lq != Lk, and a head dim outside
+(32, 64, 128), to the dense path on every device, with torch autograd's
+gradient (the reference's ``multi_head_attention`` runs any head dim);
+everything else goes to :class:`FlashAttention`, the autograd function. On
+CPU tensors both its directions take the plain PyTorch versions
 (:func:`flash_attention_fwd_reference`,
 :func:`flash_attention_bwd_reference`); on CUDA tensors the forward is K1
 and the backward K2 + K3 at every sequence length (the JAX package's
 S <= 1024 dense backward is a TPU routing choice and is not copied), or
-they raise. Nothing falls back, and nothing is copied quietly: K1 takes
-any layout :func:`tma_strides` accepts and raises on others; the backward
-makes its saved tensors contiguous, as K2 and K3 require. ``launches``,
+they raise. Nothing falls back, and nothing is copied quietly: every kernel
+takes any layout :func:`tma_strides` accepts and raises on others; the one
+copy is of an output gradient TMA cannot address (an expanded one, with
+zero strides), which the backward makes contiguous first. ``launches``,
 ``launches_dq`` and ``launches_dkv`` count the three kernels' launches.
 """
 from __future__ import annotations
@@ -52,9 +59,11 @@ from .. import _build
 
 __all__ = ["FlashAttention", "bind_fwd", "flash_attention",
            "flash_attention_fwd", "flash_attention_fwd_reference",
-           "tma_strides",
+           "tma_strides", "tma_addressable",
            "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dq_reference",
+           "flash_attention_bwd_dkv_reference",
            "flash_attention_bwd_reference", "launches", "launches_dq",
            "launches_dkv"]
 
@@ -99,21 +108,26 @@ def _kernel():
         return _lib_fn
 
 
+def bind_bwd(lib):
+    """``(dq_fn, dkv_fn)``: K2's and K3's C entries in the loaded ``lib``,
+    with their argument types: (views: 24 int64 = address and S, H, B byte
+    strides of six tensors; lse, delta, B, H, S, D, is_bf16, sm_scale,
+    causal, stream)."""
+    fns = (lib.mxt_flash_attention_bwd_dq, lib.mxt_flash_attention_bwd_dkv)
+    for fn in fns:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fns
+
+
 def _bwd_kernels():
     """``(dq_fn, dkv_fn)``: the K2 and K3 entry points, built on first use
-    (a library of its own, so K1's build is untouched)."""
+    (a library of its own)."""
     global _bwd_fns
     with _bwd_lock:
         if _bwd_fns is None:
-            lib = _build.load(_BWD_LIB_NAME, _BWD_SOURCES)
-            dq, dkv = (lib.mxt_flash_attention_bwd_dq,
-                       lib.mxt_flash_attention_bwd_dkv)
-            ints = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
-                                         ctypes.c_void_p]
-            dq.argtypes = [ctypes.c_void_p] * 7 + ints
-            dkv.argtypes = [ctypes.c_void_p] * 8 + ints
-            dq.restype = dkv.restype = ctypes.c_int
-            _bwd_fns = (dq, dkv)
+            _bwd_fns = bind_bwd(_build.load(_BWD_LIB_NAME, _BWD_SOURCES))
         return _bwd_fns
 
 
@@ -136,92 +150,126 @@ def flash_attention_fwd_reference(q, k, v, sm_scale: float, causal: bool):
     return out.to(q.dtype), lse
 
 
-def flash_attention_bwd_reference(q, k, v, out, lse, dout, sm_scale: float,
-                                  causal: bool):
-    """Plain PyTorch backward: ``(dq, dk, dv)`` for (B, H, S, D) inputs, the
-    forward's ``out`` and (B, H, S) ``lse``, and the output gradient
-    ``dout``, with the kernels' arithmetic (that of ``_bwd_dq_kernel`` and
-    ``_bwd_dkv_kernel``): delta = rowsum(dO * O) in f32, P = exp(S - lse)
-    with masked scores at -1e30, P rounded to dO's dtype before P^T dO and
-    dS = P (dP - delta) scale rounded to the input dtype before dS K and
-    dS^T Q; every product summed in f32."""
+def _probs_and_ds(q, k, v, dout, lse, delta, sm_scale, causal):
+    """P = exp(S - lse) with masked scores at -1e30, and dS = P (dP -
+    delta) scale rounded to the input dtype (as a float32 tensor), for the
+    plain backward versions; every product summed in f32."""
     S = q.shape[2]
-    qf, kf, vf, gf = (x.float() for x in (q, k, v, dout))
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
     if causal:
         keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~keep, _NEG_INF)
     p = torch.exp(s - lse.unsqueeze(-1))
-    delta = (gf * out.float()).sum(dim=-1, keepdim=True)
-    dv = torch.matmul(p.to(dout.dtype).float().transpose(-1, -2), gf)
-    dp = torch.matmul(gf, vf.transpose(-1, -2))
-    ds = (p * (dp - delta) * sm_scale).to(q.dtype).float()
-    dq = torch.matmul(ds, kf)
-    dk = torch.matmul(ds.transpose(-1, -2), qf)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    ds = (p * (dp - delta.unsqueeze(-1)) * sm_scale).to(q.dtype).float()
+    return p, ds
+
+
+def flash_attention_bwd_dq_reference(q, k, v, out, dout, lse,
+                                     sm_scale: float, causal: bool):
+    """Plain PyTorch K2: ``(dq, delta)`` for (B, H, S, D) inputs, the
+    forward's ``out`` and (B, H, S) ``lse``, and the output gradient
+    ``dout``, with the kernel's arithmetic (that of ``_bwd_dq_kernel``,
+    with delta = rowsum(dO * O) in f32 as ``_pallas_bwd`` computes it):
+    dq = dS K."""
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    _, ds = _probs_and_ds(q, k, v, dout, lse, delta, sm_scale, causal)
+    return torch.matmul(ds, k.float()).to(q.dtype), delta
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
+                                      sm_scale: float, causal: bool):
+    """Plain PyTorch K3: ``(dk, dv)`` for (B, H, S, D) inputs, the
+    forward's (B, H, S) ``lse`` and K2's ``delta``, with the kernel's
+    arithmetic (that of ``_bwd_dkv_kernel``): dv = P^T dO with P rounded
+    to dO's dtype, dk = dS^T Q."""
+    p, ds = _probs_and_ds(q, k, v, dout, lse, delta, sm_scale, causal)
+    dv = torch.matmul(p.to(dout.dtype).float().transpose(-1, -2),
+                      dout.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, dout, sm_scale: float,
+                                  causal: bool):
+    """Plain PyTorch backward: ``(dq, dk, dv)``, the two plain kernel
+    versions composed as the card composes K2 and K3."""
+    dq, delta = flash_attention_bwd_dq_reference(q, k, v, out, dout, lse,
+                                                 sm_scale, causal)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
+                                               sm_scale, causal)
+    return dq, dk, dv
 
 
 def tma_strides(x):
-    """The (S, H, B) strides in bytes of a (B, H, S, D) view that K1 reads
-    or writes in place: unit stride on D, every other stride a positive
-    multiple of 16 bytes and a 16-byte-aligned address, which is what a TMA
-    tensor map can address. A dimension of size 1 is never stepped along,
-    so its stride is not checked and is given as 16. Raises MXNetError on
-    any other layout: the wrapper never copies."""
+    """The (S, H, B) strides in bytes of a (B, H, S, D) view that a kernel
+    reads or writes in place: unit stride on D, every other stride a
+    positive multiple of 16 bytes and a 16-byte-aligned address, which is
+    what a TMA tensor map can address. A dimension of size 1 is never
+    stepped along, so its stride is not checked and is given as 16. Raises
+    MXNetError on any other layout: the wrappers never copy."""
     if x.data_ptr() % 16:
-        raise MXNetError(f"flash_attention_fwd: the address must be 16-byte "
+        raise MXNetError(f"flash attention: the address must be 16-byte "
                          f"aligned, got {x.data_ptr():#x}")
-    return _byte_strides(tuple(x.shape), x.stride(), x.element_size())
+    strides, fault = _byte_strides(tuple(x.shape), x.stride(),
+                                   x.element_size())
+    if fault:
+        raise MXNetError(f"flash attention: {fault}")
+    return strides
+
+
+def tma_addressable(x) -> bool:
+    """Whether :func:`tma_strides` takes ``x`` (no exception raised)."""
+    return x.data_ptr() % 16 == 0 and _byte_strides(
+        tuple(x.shape), x.stride(), x.element_size())[1] is None
 
 
 @functools.lru_cache(maxsize=256)
 def _byte_strides(shape, stride, elt):
-    """:func:`tma_strides` for one shape, strides and element size (a pure
-    function, cached: a model hands K1 a few layouts over and over)."""
+    """``(strides, None)`` as :func:`tma_strides` returns them for one
+    shape, strides and element size, or ``(None, fault)`` (a pure function,
+    cached: a model hands the kernels a few layouts over and over)."""
     if len(shape) != 4:
-        raise MXNetError(f"flash_attention_fwd: expected a (B, H, S, D) view, "
-                         f"got shape {shape}")
+        return None, f"expected a (B, H, S, D) view, got shape {shape}"
     if stride[3] != 1:
-        raise MXNetError(f"flash_attention_fwd: the head dim must have unit "
-                         f"stride, got strides {stride}")
+        return None, f"the head dim must have unit stride, got strides {stride}"
     out = []
     for dim in (2, 1, 0):   # S, H, B
         nbytes = stride[dim] * elt
         if shape[dim] != 1 and (nbytes <= 0 or nbytes % 16):
-            raise MXNetError(f"flash_attention_fwd: every stride but the head "
-                             f"dim's must be a positive multiple of 16 bytes, "
-                             f"got {stride} x {elt} bytes")
+            return None, (f"every stride but the head dim's must be a "
+                          f"positive multiple of 16 bytes, got {stride} x "
+                          f"{elt} bytes")
         out.append(nbytes if shape[dim] != 1 else 16)
-    return tuple(out)
+    return tuple(out), None
 
 
-def _check(what, q, k, v, dout=None, lse=None, delta=None, strided=False):
-    mats = [("q", q), ("k", k), ("v", v)]
-    if dout is not None:
-        mats.append(("dout", dout))
+def _check(what, mats, rows=()):
+    """``mats``: (name, tensor) pairs of (B, H, S, D) views, q first, that
+    must lie on one CUDA device with one shape and one dtype in _DTYPES and
+    a head dim in _HEAD_DIMS; ``rows``: (name, tensor) pairs of contiguous
+    float32 (B, H, S) tensors on that device. Layouts are checked by
+    :func:`tma_strides` when the views are read."""
+    q = mats[0][1]
     for name, x in mats:   # is_cuda and get_device(): no device objects
         if not isinstance(x, torch.Tensor) or not x.is_cuda:
             raise MXNetError(f"{what}: {name} must be a CUDA "
                              f"tensor, got {getattr(x, 'device', type(x))}")
         if x.get_device() != q.get_device():
-            raise MXNetError(f"{what}: q, k, v on different "
+            raise MXNetError(f"{what}: q and {name} on different "
                              f"devices ({q.device}, {x.device})")
         if x.dtype != q.dtype or x.dtype not in _DTYPES:
-            raise MXNetError(f"{what}: q, k, v must share one "
+            raise MXNetError(f"{what}: q and {name} must share one "
                              f"dtype in {sorted(map(str, _DTYPES))}, got "
                              f"{q.dtype}/{x.dtype}")
         if x.dim() != 4 or x.shape != q.shape:
-            raise MXNetError(f"{what}: q, k, v must be "
+            raise MXNetError(f"{what}: q and {name} must be "
                              f"(B, H, S, D) of one shape, got {tuple(x.shape)} "
                              f"vs {tuple(q.shape)}")
-        if not strided and (not x.is_contiguous() or x.data_ptr() % 16):
-            raise MXNetError(f"{what}: {name} must be contiguous "
-                             "and 16-byte aligned")
-    for name, x in (("lse", lse), ("delta", delta)):
-        if x is not None and (
-                not isinstance(x, torch.Tensor) or x.device != q.device
-                or x.dtype != torch.float32 or x.shape != q.shape[:3]
-                or not x.is_contiguous()):
+    for name, x in rows:
+        if not isinstance(x, torch.Tensor) or x.device != q.device \
+                or x.dtype != torch.float32 or x.shape != q.shape[:3] \
+                or not x.is_contiguous():
             raise MXNetError(f"{what}: {name} must be a contiguous float32 "
                              f"(B, H, S) = {tuple(q.shape[:3])} tensor on "
                              f"{q.device}, got {getattr(x, 'dtype', type(x))} "
@@ -244,6 +292,22 @@ def _raise_on(rc, what, q):
                          f"at shape {tuple(q.shape)}, {q.dtype}")
 
 
+def _bshd_like(q):
+    """An empty (B, H, S, D) view of new (B, S, H, D) memory, q's dtype
+    and device: the layout every kernel writes."""
+    B, H, S, D = q.shape
+    return torch.empty_strided((B, H, S, D), (S * H * D, D, H * D, 1),
+                               dtype=q.dtype, device=q.device)
+
+
+def _views(*xs):
+    """The C entries' view array: per tensor its address and (S, H, B)
+    byte strides (:func:`tma_strides`, which raises on what TMA cannot
+    address)."""
+    return (ctypes.c_longlong * (4 * len(xs)))(*(
+        n for x in xs for n in (x.data_ptr(), *tma_strides(x))))
+
+
 def flash_attention_fwd(q, k, v, sm_scale: float, causal: bool):
     """K1: ``(out, lse)`` for CUDA (B, H, S, D) views in bf16 or f32 with D
     in (32, 64, 128), each in a layout :func:`tma_strides` accepts (the
@@ -252,17 +316,14 @@ def flash_attention_fwd(q, k, v, sm_scale: float, causal: bool):
     is contiguous; lse is (B, H, S) f32. Raises MXNetError on anything
     else, or when the tensor-map encode or the launch fails."""
     global launches
-    _check("flash_attention_fwd", q, k, v, strided=True)
+    _check("flash_attention_fwd", [("q", q), ("k", k), ("v", v)])
     B, H, S, D = q.shape
-    out = torch.empty_strided((B, H, S, D), (S * H * D, D, H * D, 1),
-                              dtype=q.dtype, device=q.device)
+    out = _bshd_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if B * H * S == 0:
         return out, lse
     fn = _kernel()
-    views = (ctypes.c_longlong * 16)(   # per tensor: address, S, H, B strides
-        q.data_ptr(), *tma_strides(q), k.data_ptr(), *tma_strides(k),
-        v.data_ptr(), *tma_strides(v), out.data_ptr(), *tma_strides(out))
+    views = _views(q, k, v, out)
     with torch.cuda.device(q.device):
         rc = fn(views, lse.data_ptr(), B, H, S, D,
                 _DTYPES[q.dtype], float(sm_scale), int(bool(causal)),
@@ -273,46 +334,59 @@ def flash_attention_fwd(q, k, v, sm_scale: float, causal: bool):
     return out, lse
 
 
-def flash_attention_bwd_dq(q, k, v, dout, lse, delta, sm_scale: float,
+def flash_attention_bwd_dq(q, k, v, out, dout, lse, sm_scale: float,
                            causal: bool):
-    """K2: dq for contiguous CUDA (B, H, S, D) q, k, v, dout (bf16 or f32,
-    D in (32, 64, 128)) and (B, H, S) f32 ``lse`` (the forward's) and
-    ``delta`` = rowsum(dout * out). Raises MXNetError on anything else, or
-    when the launch is refused."""
+    """K2: ``(dq, delta)`` for CUDA (B, H, S, D) views q, k, v, the
+    forward's ``out`` and the output gradient ``dout`` (bf16 or f32, D in
+    (32, 64, 128), each in a layout :func:`tma_strides` accepts, read in
+    place) and the forward's contiguous (B, H, S) f32 ``lse``. ``dq`` is a
+    (B, H, S, D) view of (B, S, H, D) memory; ``delta`` = rowsum(dout *
+    out), (B, H, S) f32, is what :func:`flash_attention_bwd_dkv` takes.
+    Raises MXNetError on anything else, or when the tensor-map encode or
+    the launch fails."""
     global launches_dq
-    _check("flash_attention_bwd_dq", q, k, v, dout, lse, delta)
+    _check("flash_attention_bwd_dq", [("q", q), ("k", k), ("v", v),
+                                      ("out", out), ("dout", dout)],
+           [("lse", lse)])
     B, H, S, D = q.shape
-    dq = torch.empty_like(q)
+    dq = _bshd_like(q)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if B * H * S == 0:
-        return dq
+        return dq, delta
     fn = _bwd_kernels()[0]
+    views = _views(q, k, v, out, dout, dq)
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B * H, S, D,
+        rc = fn(views, lse.data_ptr(), delta.data_ptr(), B, H, S, D,
                 _DTYPES[q.dtype], float(sm_scale), int(bool(causal)),
                 _stream(q))
     _raise_on(rc, "flash_attention_bwd_dq", q)
     with _count_lock:
         launches_dq += 1
-    return dq
+    return dq, delta
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, sm_scale: float,
                             causal: bool):
-    """K3: ``(dk, dv)``, with the arguments and checks of
-    :func:`flash_attention_bwd_dq`."""
+    """K3: ``(dk, dv)`` for CUDA (B, H, S, D) views q, k, v and ``dout``
+    (as :func:`flash_attention_bwd_dq` takes them), the forward's ``lse``
+    and K2's ``delta`` (contiguous (B, H, S) f32; launch K3 on the stream
+    K2 ran on, as the wrappers do). ``dk`` and ``dv`` are (B, H, S, D)
+    views of (B, S, H, D) memory. Raises MXNetError on anything else, or
+    when the tensor-map encode or the launch fails."""
     global launches_dkv
-    _check("flash_attention_bwd_dkv", q, k, v, dout, lse, delta)
+    _check("flash_attention_bwd_dkv", [("q", q), ("k", k), ("v", v),
+                                       ("dout", dout)],
+           [("lse", lse), ("delta", delta)])
     B, H, S, D = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk, dv = _bshd_like(k), _bshd_like(v)
     if B * H * S == 0:
         return dk, dv
     fn = _bwd_kernels()[1]
+    views = _views(q, k, v, dout, dk, dv)
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                B * H, S, D, _DTYPES[q.dtype], float(sm_scale),
-                int(bool(causal)), _stream(q))
+        rc = fn(views, lse.data_ptr(), delta.data_ptr(), B, H, S, D,
+                _DTYPES[q.dtype], float(sm_scale), int(bool(causal)),
+                _stream(q))
     _raise_on(rc, "flash_attention_bwd_dkv", q)
     with _count_lock:
         launches_dkv += 1
@@ -321,11 +395,10 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, sm_scale: float,
 
 def flash_attention_bwd(q, k, v, out, lse, dout, sm_scale: float,
                         causal: bool):
-    """The backward on the card: ``(dq, dk, dv)`` from delta (a plain f32
-    reduction, as the reference computes it outside its kernels), K2 and
-    K3."""
-    delta = (dout.float() * out.float()).sum(dim=-1)
-    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, sm_scale, causal)
+    """The backward on the card: ``(dq, dk, dv)`` from K2 (which also
+    computes delta) and K3, on the views as given."""
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, dout, lse, sm_scale,
+                                       causal)
     dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, sm_scale,
                                      causal)
     return dq, dk, dv
@@ -339,8 +412,12 @@ class FlashAttention(torch.autograd.Function):
     """``FlashAttention.apply(q, k, v, sm_scale, causal)`` over (B, H, S, D)
     with Lq == Lk: the counterpart of the JAX package's ``_flash`` custom
     VJP (``flash_attention.py:511``). Forward K1 on the views as given,
-    saving (q, k, v, out, lse); backward K2 + K3 on contiguous copies of
-    the saved views. CPU tensors take the plain versions in both
+    saving (q, k, v, out, lse); backward K2 + K3 on the saved views and the
+    output gradient as they are (a split QKV projection's views, K1's
+    output and the transposed gradient a model hands back are all read in
+    place). The one copy: an output gradient TMA cannot address (an
+    expanded one, with zero strides, as ``out.sum().backward()`` gives) is
+    made contiguous first. CPU tensors take the plain versions in both
     directions; CUDA tensors take the kernels or raise."""
 
     @staticmethod
@@ -356,12 +433,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
         if _on_cpu(q, k, v):
             bwd = flash_attention_bwd_reference
-        else:   # K2 and K3 take contiguous tensors
+        else:
             bwd = flash_attention_bwd
-            q, k, v, out = (x.contiguous() for x in (q, k, v, out))
+            if not tma_addressable(dout):
+                dout = dout.contiguous()
         dq, dk, dv = bwd(q, k, v, out, lse, dout, ctx.sm_scale, ctx.causal)
         return dq, dk, dv, None, None
 

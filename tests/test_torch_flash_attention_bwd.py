@@ -110,10 +110,73 @@ def test_backward_wrappers_refuse_cpu_tensors_without_counting(wrapper):
     with pytest.raises(MXNetError, match="CUDA tensor"):
         if wrapper == "bwd":
             fa.flash_attention_bwd(q, k, v, q, lse, g, 0.125, False)
+        elif wrapper == "bwd_dq":
+            fa.flash_attention_bwd_dq(q, k, v, q, g, lse, 0.125, False)
         else:
-            getattr(fa, f"flash_attention_{wrapper}")(q, k, v, g, lse, lse,
-                                                     0.125, False)
+            fa.flash_attention_bwd_dkv(q, k, v, g, lse, lse, 0.125, False)
     assert (fa.launches_dq, fa.launches_dkv) == before
+
+
+def _pallas_and_kernel_plains(shape, causal, jdt, tdt, seed):
+    """The Pallas backward's (dq, dk, dv) and the reference's delta (the
+    ``jnp.sum`` in ``_pallas_bwd``), beside the two plain kernel versions'
+    (dq, delta) and (dk, dv), K3's given K2's delta, on the same inputs and
+    the Pallas forward's out and lse."""
+    q, k, v, g = _inputs(seed, shape)
+    scale = 1.0 / onp.sqrt(shape[-1])
+    jq, jk, jv, jg = (jnp.asarray(x, dtype=jdt) for x in (q, k, v, g))
+    out, lse = jax_flash_fwd(jq, jk, jv, scale, causal, 128, 128, True)
+    want = jax_pallas_bwd(jq, jk, jv, out, lse, jg, scale, causal, 128, 128,
+                          True)
+    want_delta = jnp.sum(jg.astype(jnp.float32) * out.astype(jnp.float32),
+                         axis=-1)
+    tq, tk, tv, tg = (torch.from_numpy(x).to(tdt) for x in (q, k, v, g))
+    t_out = torch.from_numpy(onp.array(out.astype(jnp.float32))).to(tdt)
+    t_lse = torch.from_numpy(onp.array(lse))
+    dq, delta = fa.flash_attention_bwd_dq_reference(tq, tk, tv, t_out, tg,
+                                                    t_lse, scale, causal)
+    dk, dv = fa.flash_attention_bwd_dkv_reference(tq, tk, tv, tg, t_lse,
+                                                  delta, scale, causal)
+    want = [onp.asarray(w.astype(jnp.float32)) for w in want]
+    return want + [onp.asarray(want_delta)], [dq, dk, dv, delta]
+
+
+# each plain kernel version against Pallas in interpret mode: f32 within
+# 1e-4 (sum order only), bf16 within 2e-2 (P and dS rounded to bf16 on both
+# sides); delta is f32 on both sides, within 1e-4 (f32) or 1e-3 (sums of up
+# to 64 bf16 products of unit-variance values: sum order only)
+@pytest.mark.parametrize("S", [256, 300])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_kernel_versions_match_pallas_interpret(S, D, causal, dtype):
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+    want, got = _pallas_and_kernel_plains((1, 2, S, D), causal, jdt, tdt,
+                                          seed=S + D + causal)
+    for w, t, name in zip(want, got, ("dq", "dk", "dv", "delta")):
+        out_dtype = torch.float32 if name == "delta" else tdt
+        assert t.dtype == out_dtype and tuple(t.shape) == w.shape, name
+        atol = (1e-4 if dtype == "float32" else 1e-3) if name == "delta" \
+            else tol
+        onp.testing.assert_allclose(t.float().numpy(), w, rtol=0, atol=atol,
+                                    err_msg=name)
+
+
+def test_composed_plain_backward_is_the_two_kernel_versions():
+    """flash_attention_bwd_reference is K2's plain version then K3's, on
+    K2's delta: bitwise the same tensors."""
+    q, k, v, g, o = (torch.from_numpy(x).to(torch.bfloat16)
+                     for x in _inputs(6, (1, 2, 96, 32), n=5))
+    lse = torch.from_numpy(_inputs(7, (1, 2, 96), n=1)[0]).abs() + 3.0
+    dq, dk, dv = fa.flash_attention_bwd_reference(q, k, v, o, lse, g, 0.2,
+                                                  True)
+    dq2, delta = fa.flash_attention_bwd_dq_reference(q, k, v, o, g, lse, 0.2,
+                                                     True)
+    dk2, dv2 = fa.flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta,
+                                                    0.2, True)
+    for a, b in ((dq, dq2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -176,3 +176,87 @@ def test_gradients_through_the_qkv_views_match_jax(causal):
     (want,) = vjp(jnp.asarray(g))
     onp.testing.assert_allclose(got.numpy(), onp.asarray(want), rtol=0,
                                 atol=1e-5)
+
+
+def _kernel_route_on_cpu(monkeypatch):
+    """FlashAttention's CUDA route run on CPU tensors: the three kernel
+    wrappers replaced by their plain versions, writing the kernels' output
+    layout ((B, S, H, D) memory) and recording what they were handed."""
+    seen = {}
+
+    def bshd(x):
+        return fa._bshd_like(x).copy_(x)
+
+    def fwd(q, k, v, scale, causal):
+        seen["fwd"] = (q, k, v)
+        out, lse = fa.flash_attention_fwd_reference(q, k, v, scale, causal)
+        return bshd(out), lse
+
+    def dq(q, k, v, out, dout, lse, scale, causal):
+        seen["dq"] = (q, k, v, out, dout)
+        g, delta = fa.flash_attention_bwd_dq_reference(q, k, v, out, dout,
+                                                       lse, scale, causal)
+        return bshd(g), delta
+
+    def dkv(q, k, v, dout, lse, delta, scale, causal):
+        seen["dkv"] = (q, k, v, dout)
+        return tuple(bshd(g) for g in fa.flash_attention_bwd_dkv_reference(
+            q, k, v, dout, lse, delta, scale, causal))
+
+    monkeypatch.setattr(fa, "_on_cpu", lambda *xs: False)
+    monkeypatch.setattr(fa, "flash_attention_fwd", fwd)
+    monkeypatch.setattr(fa, "flash_attention_bwd_dq", dq)
+    monkeypatch.setattr(fa, "flash_attention_bwd_dkv", dkv)
+    return seen
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_reads_every_view_in_place(causal, monkeypatch):
+    """On the kernel route the backward hands K2 and K3 the QKV
+    projection's views, the forward's (B, S, H, D) output and the model's
+    transposed output gradient as they are: no copy, and every one is a
+    layout the stride rule takes. The gradient still matches jax.vjp of
+    the JAX package's multi_head_attention within 1e-5 (f32)."""
+    seen = _kernel_route_on_cpu(monkeypatch)
+    rng = onp.random.RandomState(13)
+    N, L, H, D = 2, 40, 4, 32
+    qkv = rng.randn(N, L, 3 * H * D).astype(onp.float32)
+    g = rng.randn(N, L, H * D).astype(onp.float32)
+    t_qkv = torch.from_numpy(qkv).requires_grad_()
+    out = ops.multi_head_attention(*t_qkv.split(H * D, dim=-1), None,
+                                   heads=H, causal=causal)
+    (got,) = torch.autograd.grad(out, (t_qkv,), torch.from_numpy(g))
+    storage = t_qkv.untyped_storage().data_ptr()
+    for name in ("dq", "dkv"):
+        for x in seen[name][:3]:
+            assert x.untyped_storage().data_ptr() == storage, name
+            assert not x.is_contiguous()
+    fwd_out = seen["dq"][3]
+    assert fwd_out.transpose(1, 2).is_contiguous()
+    for dout in (seen["dq"][4], seen["dkv"][3]):
+        assert dout.shape == (N, H, L, D) and not dout.is_contiguous()
+        assert dout.transpose(1, 2).is_contiguous()
+    for x in seen["dq"] + seen["dkv"]:
+        assert fa.tma_addressable(x)
+    _, vjp = jax.vjp(
+        lambda x: jax_mha(*jnp.split(x, 3, axis=-1), None, heads=H,
+                          causal=causal), jnp.asarray(qkv))
+    (want,) = vjp(jnp.asarray(g))
+    onp.testing.assert_allclose(got.numpy(), onp.asarray(want), rtol=0,
+                                atol=1e-5)
+
+
+def test_an_expanded_gradient_is_made_contiguous_first(monkeypatch):
+    """The one copy on the kernel route: an output gradient TMA cannot
+    address (``out.sum().backward()`` hands back an expanded one, all
+    strides 0) is made contiguous before K2 and K3 read it."""
+    seen = _kernel_route_on_cpu(monkeypatch)
+    q, k, v = (torch.randn(1, 2, 24, 32, generator=torch.Generator()
+                           .manual_seed(i)).requires_grad_()
+               for i in range(3))
+    fa.FlashAttention.apply(q, k, v, 0.25, False).sum().backward()
+    dout = seen["dq"][4]
+    assert dout.is_contiguous() and fa.tma_addressable(dout)
+    assert torch.equal(dout, torch.ones_like(dout))
+    assert not fa.tma_addressable(torch.ones(1, 2, 24, 32).expand(
+        1, 2, 24, 32)[..., :1].expand(1, 2, 24, 32))

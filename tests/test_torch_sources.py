@@ -212,19 +212,26 @@ def test_rtc_sources_include_no_library(path):
     assert includes <= {"<cuda_bf16.h>", "<stdint.h>"}, includes
 
 
-@pytest.mark.parametrize("path", sorted((PKG / "csrc").glob("*.cu")),
-                         ids=lambda p: p.name)
+CSRC_FILES = sorted((PKG / "csrc").glob("*.cu")) + \
+    sorted((PKG / "csrc").glob("*.cuh"))
+
+
+@pytest.mark.parametrize("path", CSRC_FILES, ids=lambda p: p.name)
 def test_kernel_sources_do_their_own_products(path):
-    """Each kernel multiplies on the tensor cores in its own body (K1 with
-    wgmma, the others with mma.sync) and includes no library of finished
-    kernels (cuBLAS, CUTLASS, cuDNN, PyTorch); K1 alone includes the
-    driver API's header, for the tensor-map type and its encode's
-    signature."""
+    """Each kernel multiplies on the tensor cores in code of the repo: the
+    flash-attention kernels (K1, K2, K3) with wgmma, through the PTX
+    wrappers of hopper.cuh, which only they include; K4 with mma.sync. No
+    source includes a library of finished kernels (cuBLAS, CUTLASS, cuDNN,
+    PyTorch); the shared header alone includes the driver API's header,
+    for the tensor-map type and its encode's signature."""
     src = path.read_text()
     allowed = {"<cuda_bf16.h>", "<cuda_runtime.h>", "<stdint.h>"}
-    if path.name == "flash_attention_fwd.cu":
+    if path.name == "hopper.cuh":
         assert "wgmma.mma_async.sync.aligned" in src
         allowed.add("<cuda.h>")
+    elif path.name.startswith("flash_attention"):
+        assert "wgmma_" in _code(path)
+        allowed = {'"hopper.cuh"'}
     else:
         assert "mma.sync.aligned.m16n8k16" in src
     includes = {ln.split()[1] for ln in src.splitlines()
@@ -243,8 +250,10 @@ def test_k1_bf16_is_the_hopper_design():
     """K1's bf16 forward loads through TMA into an mbarrier ring, runs both
     products on wgmma (P V with P from registers and V transposed), takes
     128-row q-tiles, and no longer uses mma.sync; its tensor maps are
-    encoded through the driver's entry point, not a libcuda link."""
-    code = _code(PKG / "csrc" / "flash_attention_fwd.cu")
+    encoded through the driver's entry point, not a libcuda link. The PTX
+    wrappers and the encoder are in the header K1 includes."""
+    code = _code(PKG / "csrc" / "flash_attention_fwd.cu") + \
+        _code(PKG / "csrc" / "hopper.cuh")
     for needle in ("cp.async.bulk.tensor.4d.shared::cluster.global."
                    "mbarrier::complete_tx",
                    "cp.async.bulk.tensor.4d.global.shared::cta",
@@ -260,6 +269,100 @@ def test_k1_bf16_is_the_hopper_design():
     # the register-A form: {a0..a3} then the B descriptor, transpose-B set
     assert "\"{%32, %33, %34, %35}, %36, p, 1, 1, 1;" in code
     assert "-lcuda" not in (PKG / "ops" / "_build.py").read_text()
+
+
+def _body(code, name):
+    """The brace-balanced body of the function ``name`` defined in
+    ``code``."""
+    i = code.index("{", code.index(f" {name}("))
+    depth = 0
+    for j in range(i, len(code)):
+        depth += {"{": 1, "}": -1}.get(code[j], 0)
+        if depth == 0:
+            return code[i:j + 1]
+    raise AssertionError(f"unbalanced body of {name}")
+
+
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq_bf16_kernel",
+                                    "flash_bwd_dkv_bf16_kernel"])
+def test_k2_k3_bf16_are_the_hopper_design(kernel):
+    """K2's and K3's bf16 kernels are persistent and warp-specialised:
+    TMA loads (cp.async.bulk.tensor) through mbarriers into shared memory,
+    every product on wgmma (the score products from shared memory, the
+    accumulating ones with A from registers), TMA stores; no mma.sync. K2
+    computes delta itself and writes it for K3."""
+    code = _code(PKG / "csrc" / "flash_attention_bwd.cu")
+    header = _code(PKG / "csrc" / "hopper.cuh")
+    body = _body(code, kernel)
+    for needle in ("tma_load(", "mbar_wait(", "mbar_expect_tx(",
+                   "issue_scores<", "issue_accumulate<", "store_staged<",
+                   "setmaxnreg.dec", "setmaxnreg.inc",
+                   "__grid_constant__ CUtensorMap"):
+        assert needle in body or needle in code[:code.index(body)][-2000:], \
+            needle
+    assert "wgmma_ss<" in _body(code, "issue_scores")
+    assert "wgmma_rs<" in _body(code, "issue_accumulate")
+    for helper, ptx in (("tma_load", "cp.async.bulk.tensor.4d.shared::cluster"
+                                     ".global.mbarrier::complete_tx"),
+                        ("tma_store", "cp.async.bulk.tensor.4d.global"
+                                      ".shared::cta"),
+                        ("wgmma_ss_n128", "wgmma.mma_async.sync.aligned."
+                                          "m64n128k16.f32.bf16.bf16"),
+                        ("wgmma_ss_n64", "wgmma.mma_async.sync.aligned."
+                                         "m64n64k16.f32.bf16.bf16"),
+                        ("wgmma_rs_n64", "wgmma.mma_async.sync.aligned."
+                                         "m64n64k16.f32.bf16.bf16")):
+        assert ptx in _body(header, helper), helper
+    assert "mma.sync" not in code
+    if kernel == "flash_bwd_dq_bf16_kernel":
+        assert "delta[(size_t)bh * S + r0 + r] = acc;" in body
+
+
+def _function(module, name):
+    tree = _tree(PKG / "ops" / "cuda" / module)
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and \
+                node.name == name:
+            return node
+    raise AssertionError(name)
+
+
+def _calls(node, attr):
+    return [c for c in ast.walk(node) if isinstance(c, ast.Call)
+            and isinstance(c.func, ast.Attribute) and c.func.attr == attr]
+
+
+def test_cuda_backward_computes_no_delta_and_copies_nothing_unconditionally():
+    """The CUDA branch of FlashAttention.backward (and the composed
+    backward it calls) computes no delta in Python and makes no
+    unconditional .contiguous(): the one copy is of an output gradient TMA
+    cannot address."""
+    cls = _function("flash_attention.py", "FlashAttention")
+    backward = next(f for f in cls.body if isinstance(f, ast.FunctionDef)
+                    and f.name == "backward")
+    branch = next(n for n in ast.walk(backward) if isinstance(n, ast.If)
+                  and "_on_cpu" in ast.unparse(n.test))
+    cuda = ast.Module(body=branch.orelse, type_ignores=[])
+    guarded = [n for n in ast.walk(cuda) if isinstance(n, ast.If)
+               and ast.unparse(n.test) == "not tma_addressable(dout)"]
+    assert len(guarded) == 1 and \
+        ast.unparse(guarded[0].body[0]) == "dout = dout.contiguous()"
+    assert len(_calls(cuda, "contiguous")) == 1
+    composed = _function("flash_attention.py", "flash_attention_bwd")
+    for node in (cuda, composed):
+        assert not _calls(node, "contiguous") or node is cuda
+        assert not _calls(node, "sum") and not _calls(node, "float")
+        assert not any(isinstance(n, ast.BinOp) for n in ast.walk(node))
+
+
+@pytest.mark.parametrize("counter,wrapper", [
+    ("launches", "flash_attention_fwd"),
+    ("launches_dq", "flash_attention_bwd_dq"),
+    ("launches_dkv", "flash_attention_bwd_dkv")])
+def test_each_flash_attention_wrapper_keeps_its_counter(counter, wrapper):
+    """Each kernel's counter is bumped in its own wrapper, the one that
+    launches it, and nowhere else."""
+    assert _counted_in_one_wrapper("flash_attention.py", counter) == wrapper
 
 
 def test_gitignore_lists_the_build_directory():
