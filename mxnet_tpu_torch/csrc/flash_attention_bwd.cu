@@ -45,15 +45,20 @@
 //   of the rows this warpgroup owns. P and dS, rounded to bf16, are
 //   repacked in registers as the A operand of the accumulating products
 //   (wgmma with A from registers, B read N-major from the streamed tile):
-//   K2 dq += dS K; K3 dv += P^T dO and dk += dS^T Q.
+//   K2 dq += dS K; K3 dv += P^T dO and dk += dS^T Q. A tile's accumulating
+//   products are issued together with the next tile's score products, and
+//   the two warpgroups take turns issuing (named barriers), so that one's
+//   elementwise work (P, dS) runs while the other's products are on the
+//   tensor cores.
 // - K2 computes delta for its rows from the O and dO tiles in shared
 //   memory while the first score products run, and writes it to a (B, H,
 //   S) f32 buffer; K3 stages each Q tile's lse and delta in shared memory.
 // - Epilogue: the accumulators rounded to bf16, written swizzled into the
 //   warpgroup's rows of a buffer the unit has finished with (K2: O; K3: K
 //   and V) and stored by TMA (rows past S are not written).
-// Tiles: W = min(D, 64) columns per swizzle panel (as K1). At D = 128 the
-// streamed tiles hold 64 rows (registers and shared memory), else 128.
+// Tiles: W = min(D, 64) columns per swizzle panel (as K1). The streamed
+// tiles hold K2 128 keys (64 at D = 128) and K3 64 queries (32 at D =
+// 128): what the registers hold with two tiles' products in flight.
 //
 // Numerics (the port of `_dot_precision`). bf16: bf16 x bf16 products with
 // f32 accumulation on the tensor cores; P is rounded to bf16 before P^T dO
@@ -111,10 +116,6 @@ struct Geo {
   static constexpr uint32_t HALF_PANEL = kWRows * ROW;
   static constexpr uint32_t HALF = kWRows * D * 2;   // one warpgroup's rows
   static constexpr uint32_t UNIT = kRows * D * 2;    // a unit's 128 rows
-  // the streamed tile: keys per K/V tile (K2), queries per Q/dO tile (K3)
-  static constexpr int BN = D == 128 ? 64 : 128;
-  static constexpr uint32_t STREAM = BN * D * 2;
-  static constexpr uint32_t STREAM_PANEL = BN * ROW;
 };
 
 // d (64 x N, f32) = or += A (64 x 16, K-major) B^T (N x 16, K-major)
@@ -123,8 +124,10 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate) {
   if constexpr (N == 128)
     wgmma_ss_n128(d, da, db, accumulate);
-  else
+  else if constexpr (N == 64)
     wgmma_ss_n64(d, da, db, accumulate);
+  else
+    wgmma_ss_n32(d, da, db, accumulate);
 }
 
 // d (64 x W, f32) += A (64 x 16, bf16 in registers) B (16 x W), B N-major
@@ -245,14 +248,39 @@ __device__ __forceinline__ void store_staged(const CUtensorMap* map,
     tma_store(map, stage + p * G::HALF_PANEL, p * G::W, r0, h, b);
 }
 
+// The two consumer warpgroups take turns issuing their products (named
+// barriers 3 and 4), so one's elementwise work runs while the other's
+// products use the tensor cores. Warpgroup 1 opens warpgroup 0's first turn
+// (turns_open) and skips its own last hand-over, so every barrier phase
+// completes; both take the same number of turns.
+__device__ __forceinline__ void turns_open(int c) {
+  if (c == 1) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+}
+__device__ __forceinline__ void turn_begin(int c) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(3 + c) : "memory");
+}
+__device__ __forceinline__ void turn_end(int c, bool last) {
+  if (!(last && c == 1))
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - c) : "memory");
+}
+
+// A consumer warp is done with a buffer: one arrival per warp.
+__device__ __forceinline__ void warp_release(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
 template <int D>
 struct DqSmem {  // K2's shared memory
   using G = Geo<D>;
+  static constexpr int BK = D == 128 ? 64 : 128;  // keys per K/V tile
+  static constexpr uint32_t STREAM = BK * D * 2;  // one K or V tile
+  static constexpr uint32_t STREAM_PANEL = BK * G::ROW;
   static constexpr int SETS = D == 128 ? 1 : 2;  // Q, dO, O of a unit
   static constexpr int STAGES = 2;               // K and V tiles
   static constexpr uint32_t SET = 3 * G::UNIT;
   static constexpr uint32_t KV_OFF = SETS * SET;
-  static constexpr uint32_t DL_OFF = KV_OFF + STAGES * 2 * G::STREAM;
+  static constexpr uint32_t DL_OFF = KV_OFF + STAGES * 2 * STREAM;
   // mbarriers: set_full[SETS], set_empty[SETS], kv_full[STAGES],
   // kv_empty[STAGES]
   static constexpr uint32_t BAR_OFF = DL_OFF + 2 * kWRows * 4;
@@ -276,7 +304,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                              int causal) {
   using G = Geo<D>;
   using M = DqSmem<D>;
-  constexpr int BK = G::BN;
+  constexpr int BK = M::BK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -289,7 +317,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     return bars + 8u * (2 * M::SETS + M::STAGES + st);
   };
   auto set_base = [&](int s) { return base + s * M::SET; };  // Q, dO, O
-  auto k_tile = [&](int st) { return base + M::KV_OFF + st * 2 * G::STREAM; };
+  auto k_tile = [&](int st) { return base + M::KV_OFF + st * 2 * M::STREAM; };
   // work unit w: q-tile w % q_tiles of head w / q_tiles
   auto kv_tiles = [&](int qt) {
     const int end = causal ? min(S, (qt + 1) * kRows) : S;
@@ -339,12 +367,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int st = kv_it % M::STAGES;
           // the first round finds every buffer free
           mbar_wait(kv_empty(st), ((kv_it / M::STAGES) & 1) ^ 1);
-          mbar_expect_tx(kv_full(st), 2 * G::STREAM);
+          mbar_expect_tx(kv_full(st), 2 * M::STREAM);
 #pragma unroll
           for (int p = 0; p < G::NP; ++p) {
-            tma_load(k_tile(st) + p * G::STREAM_PANEL, &kmap, kv_full(st),
+            tma_load(k_tile(st) + p * M::STREAM_PANEL, &kmap, kv_full(st),
                      p * G::W, it * BK, h, b);
-            tma_load(k_tile(st) + G::STREAM + p * G::STREAM_PANEL, &vmap,
+            tma_load(k_tile(st) + M::STREAM + p * M::STREAM_PANEL, &vmap,
                      kv_full(st), p * G::W, it * BK, h, b);
           }
         }
@@ -367,10 +395,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     float s[BK / 2], dp[BK / 2];
     float dq[G::NP][G::W / 2];
     uint32_t sa[BK / 16][4];
-    auto release = [&](uint32_t bar) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar);
+    // registers read or written by the products in flight: written before
+    // the fence that precedes them, read after their wait
+    auto fence_all = [&] {
+      fence_regs(s);
+      fence_regs(dp);
+      fence_acc<D>(dq);
+      fence_a<BK>(sa);
     };
+    turns_open(c);
 
     int kv_it = 0;
     for (int w = blockIdx.x, i = 0; w < n_work; w += gridDim.x, ++i) {
@@ -383,62 +416,68 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int r0 = qt * kRows + c * kWRows;  // the warpgroup's first row
       const int row0 = r0 + lr0, row1 = row0 + 8;
       const int n = kv_tiles(qt);
+      const bool last_work = w + gridDim.x >= n_work;
       // rows past S see zero Q and dO: P = 1, dP = delta = 0, so dS = 0
       const float lse0 = row0 < S ? lse[(size_t)bh * S + row0] * kLog2e : 0.f;
       const float lse1 = row1 < S ? lse[(size_t)bh * S + row1] * kLog2e : 0.f;
-      float dl0 = 0.f, dl1 = 0.f;
       zero<D>(dq);
       mbar_wait(set_full(set), (i / M::SETS) & 1);
 
-      for (int it = 0; it < n; ++it, ++kv_it) {
-        const int st = kv_it % M::STAGES;
-        const uint32_t kt = k_tile(st), vt = kt + G::STREAM;
-        mbar_wait(kv_full(st), (kv_it / M::STAGES) & 1);
-        fence_regs(s);
-        fence_regs(dp);
-        wgmma_fence();
-        issue_scores<D, BK>(s, q_half, kt);
-        issue_scores<D, BK>(dp, g_half, vt);
-        wgmma_commit();
-        if (it == 0) {
-          // delta = rowsum(dO * O) for the warpgroup's 64 rows while the
-          // products run: two threads a row, each over half its 16-byte
-          // chunks. The swizzle permutes a row's chunks within the row,
-          // alike in dO and O, so the sum needs no unswizzling.
-          const int r = tid >> 1, part = tid & 1;
-          float acc = 0.f;
+      // tile 0's score products: S = Q K^T, dP = dO V^T
+      int st = kv_it % M::STAGES;
+      mbar_wait(kv_full(st), (kv_it / M::STAGES) & 1);
+      fence_all();
+      turn_begin(c);
+      wgmma_fence();
+      issue_scores<D, BK>(s, q_half, k_tile(st));
+      issue_scores<D, BK>(dp, g_half, k_tile(st) + M::STREAM);
+      wgmma_commit();
+      turn_end(c, false);
+
+      // delta = rowsum(dO * O) for the warpgroup's 64 rows while they run:
+      // two threads a row, each over half its 16-byte chunks. The swizzle
+      // permutes a row's chunks within the row, alike in dO and O, so the
+      // sum needs no unswizzling.
+      {
+        const int r = tid >> 1, part = tid & 1;
+        float acc = 0.f;
 #pragma unroll
-          for (int j = part * (D / 16); j < (part + 1) * (D / 16); ++j) {
-            const uint32_t off = (j / (G::W / 8)) * G::HALF_PANEL +
-                                 r * G::ROW + (j % (G::W / 8)) * 16;
-            const uint4 x = *reinterpret_cast<const uint4*>(
-                smem + (g_half - base) + off);
-            const uint4 y = *reinterpret_cast<const uint4*>(
-                smem + (o_half - base) + off);
-            const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
-            const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+        for (int j = part * (D / 16); j < (part + 1) * (D / 16); ++j) {
+          const uint32_t off = (j / (G::W / 8)) * G::HALF_PANEL + r * G::ROW +
+                               (j % (G::W / 8)) * 16;
+          const uint4 x =
+              *reinterpret_cast<const uint4*>(smem + (g_half - base) + off);
+          const uint4 y =
+              *reinterpret_cast<const uint4*>(smem + (o_half - base) + off);
+          const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+          const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float2 a = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(&xs[e]));
-              const float2 bb = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(&ys[e]));
-              acc = fmaf(a.x, bb.x, acc);
-              acc = fmaf(a.y, bb.y, acc);
-            }
+          for (int e = 0; e < 4; ++e) {
+            const float2 a = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&xs[e]));
+            const float2 bb = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&ys[e]));
+            acc = fmaf(a.x, bb.x, acc);
+            acc = fmaf(a.y, bb.y, acc);
           }
-          acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-          if (part == 0) {
-            dl[r] = acc;
-            if (r0 + r < S) delta[(size_t)bh * S + r0 + r] = acc;
-          }
-          asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
-          dl0 = row0 < S ? dl[lr0] : 0.f;
-          dl1 = row1 < S ? dl[lr0 + 8] : 0.f;
         }
-        wgmma_wait<0>();
-        fence_regs(s);
-        fence_regs(dp);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        if (part == 0) {
+          dl[r] = acc;
+          if (r0 + r < S) delta[(size_t)bh * S + r0 + r] = acc;
+        }
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+      }
+      const float dl0 = row0 < S ? dl[lr0] : 0.f;
+      const float dl1 = row1 < S ? dl[lr0 + 8] : 0.f;
+
+      // tile it: dS from its scores; dq += dS K is issued with the next
+      // tile's score products, and the elementwise work of one warpgroup
+      // runs while the other's products are on the tensor cores
+      for (int it = 0; it < n; ++it) {
+        wgmma_wait<0>();  // tile it's scores, and tile it - 1's dq product
+        fence_all();
+        if (it > 0) warp_release(kv_empty((kv_it - 1) % M::STAGES), lane);
 
         // dS = P (dP - delta) scale, P = exp(S scale - lse) with the masks
         // (only on tiles that hold the tail or cross the diagonal)
@@ -448,29 +487,40 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            float x = s[4 * j + e] * scale_log2;
+            float x = fmaf(s[4 * j + e], scale_log2, e < 2 ? -lse0 : -lse1);
             if (need_mask) {
               const int col = k0 + j * 8 + 2 * t + (e & 1);
               const int row = e < 2 ? row0 : row1;
               if (col >= S || (causal && col > row)) x = kNegInf;
             }
-            const float p = ex2(x - (e < 2 ? lse0 : lse1));
-            s[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1)) * scale;
+            const float p = ex2(x) * scale;
+            s[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
           }
         }
         pack_a<BK>(sa, s);
 
-        // dq += dS K
-        fence_acc<D>(dq);
-        fence_a<BK>(sa);
+        const uint32_t kt = k_tile(st);
+        const bool more = it + 1 < n;
+        if (more) {
+          ++kv_it;
+          st = kv_it % M::STAGES;
+          mbar_wait(kv_full(st), (kv_it / M::STAGES) & 1);
+        }
+        fence_all();
+        turn_begin(c);
         wgmma_fence();
-        issue_accumulate<D, BK>(dq, sa, kt);
+        issue_accumulate<D, BK>(dq, sa, kt);  // dq += dS K
+        if (more) {
+          issue_scores<D, BK>(s, q_half, k_tile(st));
+          issue_scores<D, BK>(dp, g_half, k_tile(st) + M::STREAM);
+        }
         wgmma_commit();
-        wgmma_wait<0>();
-        fence_acc<D>(dq);
-        fence_a<BK>(sa);
-        release(kv_empty(st));
+        turn_end(c, !more && last_work);
       }
+      wgmma_wait<0>();
+      fence_all();
+      warp_release(kv_empty(st), lane);
+      ++kv_it;
 
       // ---- epilogue: dq in bf16 through O's rows (read by now) to TMA ----
       stage_rows<D>(smem + (o_half - base), dq, lr0, t);
@@ -492,13 +542,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int D>
 struct DkvSmem {  // K3's shared memory
   using G = Geo<D>;
+  // queries per Q/dO tile: with the next tile's S^T and dP^T in flight
+  // beside this tile's P^T and dS^T and the dk, dv accumulators, the
+  // registers hold 64 of them (32 at D = 128)
+  static constexpr int BQ = D == 128 ? 32 : 64;
+  static constexpr uint32_t STREAM = BQ * D * 2;  // one Q or dO tile
+  static constexpr uint32_t STREAM_PANEL = BQ * G::ROW;
   static constexpr int SETS = D == 128 ? 1 : 2;  // K and V of a unit
-  static constexpr int STAGES = 3;               // Q and dO tiles
+  static constexpr int STAGES = 4;               // Q and dO tiles
   static constexpr uint32_t SET = 2 * G::UNIT;
   static constexpr uint32_t QD_OFF = SETS * SET;
   // per warpgroup, two slots of a Q tile's lse (base 2) and delta
-  static constexpr uint32_t LD_OFF = QD_OFF + STAGES * 2 * G::STREAM;
-  static constexpr uint32_t LD_WG = 2 * 2 * G::BN * 4;
+  static constexpr uint32_t LD_OFF = QD_OFF + STAGES * 2 * STREAM;
+  static constexpr uint32_t LD_WG = 2 * 2 * BQ * 4;
   // mbarriers: set_full[SETS], set_empty[SETS], qd_full[STAGES],
   // qd_empty[STAGES]
   static constexpr uint32_t BAR_OFF = LD_OFF + 2 * LD_WG;
@@ -521,7 +577,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                               int causal) {
   using G = Geo<D>;
   using M = DkvSmem<D>;
-  constexpr int BQ = G::BN;
+  constexpr int BQ = M::BQ;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -534,7 +590,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     return bars + 8u * (2 * M::SETS + M::STAGES + st);
   };
   auto set_base = [&](int s) { return base + s * M::SET; };  // K, V
-  auto q_tile = [&](int st) { return base + M::QD_OFF + st * 2 * G::STREAM; };
+  auto q_tile = [&](int st) { return base + M::QD_OFF + st * 2 * M::STREAM; };
   // work unit w: k-tile w % k_tiles of head w / k_tiles; causal, queries
   // before the unit's first key see none of its keys
   const int q_count = (S + BQ - 1) / BQ;
@@ -579,12 +635,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int qi = q_first(kt); qi < q_count; ++qi, ++qd_it) {
           const int st = qd_it % M::STAGES;
           mbar_wait(qd_empty(st), ((qd_it / M::STAGES) & 1) ^ 1);
-          mbar_expect_tx(qd_full(st), 2 * G::STREAM);
+          mbar_expect_tx(qd_full(st), 2 * M::STREAM);
 #pragma unroll
           for (int p = 0; p < G::NP; ++p) {
-            tma_load(q_tile(st) + p * G::STREAM_PANEL, &qmap, qd_full(st),
+            tma_load(q_tile(st) + p * M::STREAM_PANEL, &qmap, qd_full(st),
                      p * G::W, qi * BQ, h, b);
-            tma_load(q_tile(st) + G::STREAM + p * G::STREAM_PANEL, &gmap,
+            tma_load(q_tile(st) + M::STREAM + p * M::STREAM_PANEL, &gmap,
                      qd_full(st), p * G::W, qi * BQ, h, b);
           }
         }
@@ -607,10 +663,34 @@ __global__ void __launch_bounds__(kThreads, 1)
     float s[BQ / 2], dp[BQ / 2];
     float dk[G::NP][G::W / 2], dv[G::NP][G::W / 2];
     uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
-    auto release = [&](uint32_t bar) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar);
+    auto fence_all = [&] {
+      fence_regs(s);
+      fence_regs(dp);
+      fence_acc<D>(dk);
+      fence_acc<D>(dv);
+      fence_a<BQ>(pa);
+      fence_a<BQ>(sa);
     };
+    // a Q tile's lse (base 2) and delta, one value of each per thread
+    // (threads past BQ load nothing); global loads issued early, staged in
+    // the warpgroup's slot qd_it & 1 after the products are issued
+    float lse_r = 0.f, dl_r = 0.f;
+    auto load_rows = [&](int bh, int q0) {
+      const bool live = tid < BQ && q0 + tid < S;
+      lse_r = live ? lse[(size_t)bh * S + q0 + tid] * kLog2e : 0.f;
+      dl_r = live ? delta[(size_t)bh * S + q0 + tid] : 0.f;
+    };
+    // every thread of the warpgroup has left the slot's last tile: it
+    // passed the barrier here on the tile since
+    auto stage_slot = [&](int qd_it) {
+      float* const slot = ld + (qd_it & 1) * 2 * BQ;
+      if (tid < BQ) {
+        slot[tid] = lse_r;
+        slot[BQ + tid] = dl_r;
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+    };
+    turns_open(c);
 
     int qd_it = 0;
     for (int w = blockIdx.x, i = 0; w < n_work; w += gridDim.x, ++i) {
@@ -621,37 +701,38 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t v_half = k_half + G::UNIT;              // then dv's
       const int r0 = kt * kRows + c * kWRows;  // the warpgroup's first key
       const int key0 = r0 + lr0, key1 = key0 + 8;
+      const int q_begin = q_first(kt);
+      const bool last_work = w + gridDim.x >= n_work;
       zero<D>(dk);
       zero<D>(dv);
+      load_rows(bh, q_begin * BQ);
       mbar_wait(set_full(set), (i / M::SETS) & 1);
 
-      for (int qi = q_first(kt); qi < q_count; ++qi, ++qd_it) {
-        const int st = qd_it % M::STAGES;
-        const uint32_t qt = q_tile(st), gt = qt + G::STREAM;
-        const int q0 = qi * BQ;
-        // the tile's lse (base 2) and delta into this warpgroup's slot
-        // qd_it & 1 (every thread of it has left the slot's last tile:
-        // it passed the barrier below on the tile since)
-        float* const slot = ld + (qd_it & 1) * 2 * BQ;
-        for (int j = tid; j < BQ; j += 128) {
-          const bool live = q0 + j < S;
-          slot[j] = live ? lse[(size_t)bh * S + q0 + j] * kLog2e : 0.f;
-          slot[BQ + j] = live ? delta[(size_t)bh * S + q0 + j] : 0.f;
-        }
-        mbar_wait(qd_full(st), (qd_it / M::STAGES) & 1);
-        fence_regs(s);
-        fence_regs(dp);
-        wgmma_fence();
-        issue_scores<D, BQ>(s, k_half, qt);   // S^T = K Q^T
-        issue_scores<D, BQ>(dp, v_half, gt);  // dP^T = V dO^T
-        wgmma_commit();
-        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
-        wgmma_wait<0>();
-        fence_regs(s);
-        fence_regs(dp);
+      // the first Q tile's score products: S^T = K Q^T, dP^T = V dO^T
+      int st = qd_it % M::STAGES;
+      mbar_wait(qd_full(st), (qd_it / M::STAGES) & 1);
+      fence_all();
+      turn_begin(c);
+      wgmma_fence();
+      issue_scores<D, BQ>(s, k_half, q_tile(st));
+      issue_scores<D, BQ>(dp, v_half, q_tile(st) + M::STREAM);
+      wgmma_commit();
+      turn_end(c, false);
+      stage_slot(qd_it);
 
-        // P^T and dS^T; a query sees a key iff both are < S and, causal,
-        // key <= query
+      // Q tile qi: P^T and dS^T from its scores; dv += P^T dO and dk +=
+      // dS^T Q are issued with the next tile's score products
+      for (int qi = q_begin; qi < q_count; ++qi) {
+        const int q0 = qi * BQ;
+        const float* const slot = ld + (qd_it & 1) * 2 * BQ;
+        wgmma_wait<0>();  // tile qi's scores, tile qi - 1's accumulation
+        fence_all();
+        if (qi > q_begin)
+          warp_release(qd_empty((qd_it - 1) % M::STAGES), lane);
+        const bool more = qi + 1 < q_count;
+        if (more) load_rows(bh, q0 + BQ);
+
+        // a query sees a key iff both are < S and, causal, key <= query
         const bool need_mask = (q0 + BQ > S) || (r0 + kWRows > S) ||
                                (causal && q0 < r0 + kWRows - 1);
 #pragma unroll
@@ -661,37 +742,45 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float2 d2 = *reinterpret_cast<const float2*>(slot + BQ + ql);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            float x = s[4 * j + e] * scale_log2;
+            float x = fmaf(s[4 * j + e], scale_log2,
+                           (e & 1) ? -l2.y : -l2.x);
             if (need_mask) {
               const int qg = q0 + ql + (e & 1);
               const int key = e < 2 ? key0 : key1;
               if (qg >= S || key >= S || (causal && key > qg)) x = kNegInf;
             }
-            const float p = ex2(x - ((e & 1) ? l2.y : l2.x));
+            const float p = ex2(x);
             s[4 * j + e] = p;
-            dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x)) *
-                            scale;
+            dp[4 * j + e] =
+                p * scale * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x));
           }
         }
         pack_a<BQ>(pa, s);
         pack_a<BQ>(sa, dp);
 
-        // dv += P^T dO and dk += dS^T Q
-        fence_acc<D>(dv);
-        fence_acc<D>(dk);
-        fence_a<BQ>(pa);
-        fence_a<BQ>(sa);
+        const uint32_t qt = q_tile(st);
+        if (more) {
+          ++qd_it;
+          st = qd_it % M::STAGES;
+          mbar_wait(qd_full(st), (qd_it / M::STAGES) & 1);
+        }
+        fence_all();
+        turn_begin(c);
         wgmma_fence();
-        issue_accumulate<D, BQ>(dv, pa, gt);
-        issue_accumulate<D, BQ>(dk, sa, qt);
+        issue_accumulate<D, BQ>(dv, pa, qt + M::STREAM);  // dv += P^T dO
+        issue_accumulate<D, BQ>(dk, sa, qt);              // dk += dS^T Q
+        if (more) {
+          issue_scores<D, BQ>(s, k_half, q_tile(st));
+          issue_scores<D, BQ>(dp, v_half, q_tile(st) + M::STREAM);
+        }
         wgmma_commit();
-        wgmma_wait<0>();
-        fence_acc<D>(dv);
-        fence_acc<D>(dk);
-        fence_a<BQ>(pa);
-        fence_a<BQ>(sa);
-        release(qd_empty(st));
+        turn_end(c, !more && last_work);
+        if (more) stage_slot(qd_it);
       }
+      wgmma_wait<0>();
+      fence_all();
+      warp_release(qd_empty(st), lane);
+      ++qd_it;
 
       // ---- epilogue: dk and dv in bf16 through K's and V's rows to TMA ----
       stage_rows<D>(smem + (k_half - base), dk, lr0, t);
@@ -968,14 +1057,13 @@ int encode_maps(CUtensorMap (&maps)[6], const Args& a, const int (&rows)[6]) {
 
 template <int D>
 int launch_dq_bf16(const Args& a) {
-  using G = Geo<D>;
   using M = DqSmem<D>;
   static int cache[kMaxDevices];  // read and written atomically
   int sms, rc;
   if ((rc = sm_count_for(flash_bwd_dq_bf16_kernel<D>, M::SMEM, cache, &sms)))
     return rc;
   CUtensorMap maps[6];  // q, k, v, O, dO, dq
-  const int rows[6] = {kWRows, G::BN, G::BN, kWRows, kWRows, kWRows};
+  const int rows[6] = {kWRows, M::BK, M::BK, kWRows, kWRows, kWRows};
   if ((rc = encode_maps<D>(maps, a, rows))) return rc;
   const int q_tiles = (a.S + kRows - 1) / kRows;
   const int n_work = q_tiles * a.B * a.H;
@@ -988,7 +1076,6 @@ int launch_dq_bf16(const Args& a) {
 
 template <int D>
 int launch_dkv_bf16(const Args& a) {
-  using G = Geo<D>;
   using M = DkvSmem<D>;
   static int cache[kMaxDevices];
   int sms, rc;
@@ -996,7 +1083,7 @@ int launch_dkv_bf16(const Args& a) {
                          &sms)))
     return rc;
   CUtensorMap maps[6];  // q, k, v, dO, dk, dv
-  const int rows[6] = {G::BN, kWRows, kWRows, G::BN, kWRows, kWRows};
+  const int rows[6] = {M::BQ, kWRows, kWRows, M::BQ, kWRows, kWRows};
   if ((rc = encode_maps<D>(maps, a, rows))) return rc;
   const int k_tiles = (a.S + kRows - 1) / kRows;
   const int n_work = k_tiles * a.B * a.H;
