@@ -28,16 +28,27 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    over the peak for the type). Then the host microseconds of one K1 call,
    of its C entry alone (four tensor maps encoded, the launch) and of one
    SDPA call, timed in turns.
-2b. K2 and K3 against the plain backward: ``flash_attention_bwd_dq`` and
-   ``flash_attention_bwd_dkv`` (given K1's out and lse) against
-   ``flash_attention_bwd_reference`` at every listed shape (the training
-   and serving shapes, ragged tails, causal, D = 32/64/128), each of dq, dk,
-   dv within tol * max(1, max|plain|): f32 1e-4 (sum order only), bf16 2e-2
-   (outputs rounded to bf16, and P and dS are rounded to bf16 on both
-   sides, where an f32 sum order can flip an ulp). At the training shape it
-   times K2, K3, K2 + K3 with delta, the plain backward, the backward of
-   ``scaled_dot_product_attention`` (a yardstick only), K1 and SDPA's
-   forward, with their bounds.
+2b. K2 and K3, each against its own plain version, at every listed shape
+   (the training and serving shapes, ragged tails, causal, D = 32/64/128)
+   in bf16 and f32: ``flash_attention_bwd_dq`` (dq and delta, given K1's
+   out and lse) against ``flash_attention_bwd_dq_reference``, and
+   ``flash_attention_bwd_dkv`` (dk and dv, given K2's delta) against
+   ``flash_attention_bwd_dkv_reference``, each output within tol *
+   max(1, max|plain|): f32 1e-4 (sum order only), bf16 2e-2 (outputs
+   rounded to bf16, and P and dS are rounded to bf16 on both sides, where
+   an f32 sum order can flip an ulp). Inputs as the training path hands
+   them over: q, k, v the split views of one QKV buffer, out K1's (B, S,
+   H, D) memory, dout the transposed view of a (B, S, H, D) gradient; the
+   same on contiguous copies must be bitwise equal. Then one head dim the
+   kernels do not take (D = 16): ``multi_head_attention`` forward and QKV
+   gradients on the card in f32 against the same on the CPU within 1e-4,
+   launching no kernel, and in bf16 without raising. At the training and
+   the serving shape it times K2, K3 and the whole backward
+   (``flash_attention_bwd``) through the wrappers (10-call windows) and
+   replayed from CUDA graphs, each kernel's plain version, and
+   ``scaled_dot_product_attention``'s backward (a yardstick only: through
+   autograd, and from a graph as the forward plus backward less the
+   forward), with the bounds.
 2c. K4 against its plain version: ``conv1x1_bn_act`` against
    ``conv1x1_bn_act_reference`` at ResNet-50's nine batch-128 1x1 shapes
    (bf16 x) and at a ragged M, K = 8, no ReLU and an f32 x: y within
@@ -164,8 +175,8 @@ from mxnet_tpu_torch.ops.cuda import flash_attention as fa
 from mxnet_tpu_torch.ops.cuda import fused_conv1x1 as fc
 from mxnet_tpu_torch.optimizer import Adam
 from mxnet_tpu_torch.parallel import ParallelTrainStep, make_mesh
-from mxnet_tpu_torch.tools import (PretrainStep, card, f32_drift, median_ms,
-                                   pretrain_batch, resnet_batch,
+from mxnet_tpu_torch.tools import (PretrainStep, card, f32_drift, graph_ms,
+                                   median_ms, pretrain_batch, resnet_batch,
                                    resnet_train_step, seeded_bert_weights,
                                    seeded_resnet_weights)
 from mxnet_tpu_torch.tools import rtc_examples as rx
@@ -238,13 +249,14 @@ def bound_ms(shape, dtype, causal: bool, kernel: str = "fwd"):
     """Least time on an H100 for one call of ``kernel``: each input read
     once, each output written once, against the products this input needs
     (causal: the lower triangle only). fwd (K1): q, k, v -> o, lse; dq (K2):
-    q, k, v, dO, lse, delta -> dq; dkv (K3): the same -> dk, dv; bwd: q, k,
-    v, o, dO, lse -> dq, dk, dv with delta computed (K2 + K3 + delta)."""
+    q, k, v, o, dO, lse -> dq, delta; dkv (K3): q, k, v, dO, lse, delta ->
+    dk, dv; bwd (K2 + K3): q, k, v, o, dO, lse -> dq, dk, dv, with delta's
+    products."""
     B, H, S, D = shape
     elt = torch.finfo(dtype).bits // 8
     mat, row = B * H * S * D * elt, B * H * S * 4
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-    mats, rows, mults = {"fwd": (4, 1, 4), "dq": (5, 2, 6),
+    mats, rows, mults = {"fwd": (4, 1, 4), "dq": (6, 2, 6),
                          "dkv": (6, 2, 8), "bwd": (8, 1, 14)}[kernel]
     flops = mults * pairs * D + (2 * B * H * S * D if kernel == "bwd" else 0)
     return _bound(mats * mat + rows * row, flops, dtype)
@@ -287,22 +299,6 @@ def split_qkv(shape, gen, dtype):
     qkv = _randn((B, S, 3 * H * D), gen, dtype)
     return [x.view(B, S, H, D).transpose(1, 2)
             for x in qkv.split(H * D, dim=-1)]
-
-
-def graph_ms(fn, calls: int = TIMED_CALLS) -> float:
-    """Device ms of one ``fn()``: ``calls`` calls captured in a CUDA graph,
-    the graph's replay timed by :func:`median_ms`, so no host work (checks,
-    tensor maps, launches) lands in the window."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return median_ms(graph.replay) / calls
 
 
 def k1_host_us(gen, rounds: int = K1_HOST_ROUNDS,
@@ -415,82 +411,160 @@ def phase_kernel(seed: int, smi: str):
     return record
 
 
+def _bwd_errors(got, want, dtype):
+    """max |kernel - plain| of each output, and whether every one is finite
+    and within TOL[dtype] x max(1, max|plain|)."""
+    errs, ok = [], True
+    for a, b in zip(got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        ok &= err <= TOL[dtype] * max(1.0, b.float().abs().max().item()) \
+            and bool(torch.isfinite(a).all())
+        errs.append(err)
+    return errs, ok
+
+
+def _sdpa_bwd_graph_ms(q, k, v, do, scale, causal):
+    """Device ms of SDPA's backward alone: a CUDA graph of its forward plus
+    backward (autograd captured with the forward, on one stream) less a
+    graph of its forward."""
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def fwd():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal, scale=scale)
+
+    both = graph_ms(lambda: torch.autograd.grad(fwd(), (qs, ks, vs), do))
+    return both - graph_ms(fwd)
+
+
+def time_backward(q, k, v, out, lse, do, scale, causal, smi, shape):
+    """K2, K3 and the whole backward through the wrappers and from CUDA
+    graphs, each kernel's plain version and SDPA's backward, beside the
+    bounds, at one shape (bf16); prints them and returns the record."""
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, do, lse, scale, causal)
+    calls = {
+        "dq": lambda: fa.flash_attention_bwd_dq(q, k, v, out, do, lse, scale,
+                                                causal),
+        "dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                  scale, causal),
+        "bwd": lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, scale,
+                                              causal)}
+    plains = {
+        "dq": lambda: fa.flash_attention_bwd_dq_reference(
+            q, k, v, out, do, lse, scale, causal),
+        "dkv": lambda: fa.flash_attention_bwd_dkv_reference(
+            q, k, v, do, lse, delta, scale, causal),
+        "bwd": lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, scale, causal)}
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    o_lib = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=causal, scale=scale)
+    lib = median_ms(lambda: torch.autograd.grad(
+        o_lib, (qs, ks, vs), do, retain_graph=True), calls=TIMED_CALLS)
+    lib_dev = _sdpa_bwd_graph_ms(q, k, v, do, scale, causal)
+    record = {"library_ms": lib, "library_device_ms": lib_dev}
+    line = (f"backward times at {shape} bf16 on {smi}: sdpa backward {lib:.4f}"
+            f" ms through autograd, {lib_dev:.4f} ms from a CUDA graph "
+            f"(dq, dk, dv together)")
+    for name, fn in calls.items():
+        ms = median_ms(fn, calls=TIMED_CALLS)
+        dev = graph_ms(fn)
+        plain = median_ms(plains[name], reps=20, warmup=2, calls=TIMED_CALLS)
+        bms, by, nbytes, flops = bound_ms(shape, torch.bfloat16, causal, name)
+        record[name] = {"ms": ms, "device_ms": dev, "plain_ms": plain,
+                        "bound_ms": bms, "bound_by": by}
+        line += (f"\n  {name}: {ms:.4f} ms ({dev:.4f} ms from a CUDA graph), "
+                 f"plain {plain:.4f} ms, bound {bms * 1e3:.1f} us ({by}: "
+                 f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+                 f"{bms / dev:.1%} of bound from the graph")
+    print(line)
+    return record
+
+
+def check_other_head_dim(gen):
+    """A head dim the kernels do not take (D = 16, the generative test
+    model's) through ``multi_head_attention`` on the card: forward and the
+    QKV gradient in f32 against the same calls on the CPU within 1e-4 (the
+    dense path on both, sum order only), no kernel launched; bf16 runs
+    without raising."""
+    N, L, H, D = 2, 64, 2, 16
+    x = _randn((N, L, 3 * H * D), gen, torch.float32)
+    g = _randn((N, L, H * D), gen, torch.float32)
+    before = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    results = []
+    for dev_x, dev_g in ((x, g), (x.cpu(), g.cpu())):
+        xr = dev_x.detach().requires_grad_()
+        out = ops.multi_head_attention(*xr.split(H * D, dim=-1), None,
+                                       heads=H, causal=True)
+        (gx,) = torch.autograd.grad(out, (xr,), dev_g)
+        results.append((out.detach().cpu(), gx.cpu()))
+    xb = x.to(torch.bfloat16).requires_grad_()
+    out = ops.multi_head_attention(*xb.split(H * D, dim=-1), None, heads=H)
+    (gb,) = torch.autograd.grad(out, (xb,), g.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    launched = (fa.launches, fa.launches_dq, fa.launches_dkv) != before
+    (o_gpu, g_gpu), (o_cpu, g_cpu) = results
+    err = max((o_gpu - o_cpu).abs().max().item(),
+              (g_gpu - g_cpu).abs().max().item())
+    finite = bool(torch.isfinite(gb.float()).all())
+    print(f"head dim {D} (dense route) on the card: f32 forward and QKV "
+          f"gradient vs the CPU max|d|={err:.3g} (tol 1e-4), kernels "
+          f"launched: {launched}; bf16 gradient finite: {finite}")
+    if err > 1e-4 or launched or not finite:
+        raise SystemExit(f"FAIL: head dim {D} on the card")
+
+
 def phase_backward(seed: int, smi: str):
-    """K2 and K3 against the plain backward at every listed shape; timings
-    and bounds at the training shape."""
+    """K2 and K3 each against its own plain version at every listed shape,
+    on the training path's layouts and on contiguous copies (bitwise
+    equal); a head dim the kernels do not take; times and bounds at the
+    training and serving shapes."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     record = {}
     for shape, causal in BWD_SHAPES:
+        B, H, S, D = shape
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, do = (_randn(shape, gen, dtype) for _ in range(4))
-            scale = shape[-1] ** -0.5
+            q, k, v = split_qkv(shape, gen, dtype)
+            do = _randn((B, S, H, D), gen, dtype).transpose(1, 2)
+            scale = D ** -0.5
             out, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
-            delta = (do.float() * out.float()).sum(dim=-1)
-            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale,
-                                           causal)
+            dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, do, lse,
+                                                  scale, causal)
             dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                                 scale, causal)
+            c = [x.contiguous() for x in (q, k, v, out, do)]
+            cdq, cdelta = fa.flash_attention_bwd_dq(*c, lse, scale, causal)
+            cdk, cdv = fa.flash_attention_bwd_dkv(*c[:3], c[4], lse, cdelta,
+                                                  scale, causal)
             torch.cuda.synchronize()
-            ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
-                                                   scale, causal)
-            errs, oks = [], []
-            for got, want in zip((dq, dk, dv), ref):
-                err = (got.float() - want.float()).abs().max().item()
-                lim = TOL[dtype] * max(1.0, want.float().abs().max().item())
-                errs.append(err)
-                oks.append(err <= lim and bool(torch.isfinite(got).all()))
-            line = (f"backward {shape} {str(dtype)[6:]} causal={causal}: "
-                    f"max|d dq|={errs[0]:.3g} max|d dk|={errs[1]:.3g} "
-                    f"max|d dv|={errs[2]:.3g} tol={TOL[dtype]:g} x "
-                    f"max(1, max|plain|)")
-            if shape == TRAIN_SHAPE and dtype == torch.bfloat16:
-                t = {
-                    "dq": median_ms(lambda: fa.flash_attention_bwd_dq(
-                        q, k, v, do, lse, delta, scale, causal),
-                        calls=TIMED_CALLS),
-                    "dkv": median_ms(lambda: fa.flash_attention_bwd_dkv(
-                        q, k, v, do, lse, delta, scale, causal),
-                        calls=TIMED_CALLS),
-                    "bwd": median_ms(lambda: fa.flash_attention_bwd(
-                        q, k, v, out, lse, do, scale, causal),
-                        calls=TIMED_CALLS),
-                    "fwd": median_ms(lambda: fa.flash_attention_fwd(
-                        q, k, v, scale, causal), calls=TIMED_CALLS),
-                }
-                plain = median_ms(lambda: fa.flash_attention_bwd_reference(
-                    q, k, v, out, lse, do, scale, causal), calls=TIMED_CALLS)
-                qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-                o_lib = torch.nn.functional.scaled_dot_product_attention(
-                    qs, ks, vs, is_causal=causal, scale=scale)
-                lib = median_ms(lambda: torch.autograd.grad(
-                    o_lib, (qs, ks, vs), do, retain_graph=True),
-                    calls=TIMED_CALLS)
-                lib_fwd = median_ms(lambda: torch.nn.functional
-                                    .scaled_dot_product_attention(
-                                        q, k, v, is_causal=causal,
-                                        scale=scale), calls=TIMED_CALLS)
-                line += (f" | plain backward {plain:.4f} ms, sdpa backward "
-                         f"{lib:.4f} ms (dq, dk, dv together), sdpa forward "
-                         f"{lib_fwd:.4f} ms (beside fwd below) on {smi}")
-                for kern in ("fwd", "dq", "dkv", "bwd"):
-                    bms, by, nbytes, flops = bound_ms(shape, dtype, causal,
-                                                      kern)
-                    line += (f"\n  {kern}: {t[kern]:.4f} ms, bound "
-                             f"{bms * 1e3:.1f} us ({by}: {nbytes / 1e6:.1f} "
-                             f"MB, {flops / 1e9:.2f} GFLOP)")
-                    record[kern] = {"ms": t[kern], "bound_ms": bms,
-                                    "bound_by": by}
-                record["dq"]["max_abs_err"] = errs[0]
-                record["dkv"]["max_abs_err"] = max(errs[1], errs[2])
-                record["plain_ms"], record["library_ms"] = plain, lib
-                record["library_fwd_ms"] = lib_fwd
-                del qs, ks, vs, o_lib
-            print(line)
-            if not all(oks):
-                raise SystemExit(f"FAIL: K2/K3 disagree with the plain "
-                                 f"backward at {shape} {dtype} "
-                                 f"causal={causal}")
-            del q, k, v, do, out, lse, delta, dq, dk, dv, ref
+            want_dq = fa.flash_attention_bwd_dq_reference(
+                q, k, v, out, do, lse, scale, causal)
+            want_dkv = fa.flash_attention_bwd_dkv_reference(
+                q, k, v, do, lse, delta, scale, causal)
+            errs_dq, ok_dq = _bwd_errors((dq, delta), want_dq, dtype)
+            errs_dkv, ok_dkv = _bwd_errors((dk, dv), want_dkv, dtype)
+            same = all(torch.equal(a, b) for a, b in (
+                (dq, cdq), (delta, cdelta), (dk, cdk), (dv, cdv)))
+            print(f"backward {shape} {str(dtype)[6:]} causal={causal}: K2 "
+                  f"max|d dq|={errs_dq[0]:.3g} max|d delta|={errs_dq[1]:.3g}"
+                  f"; K3 max|d dk|={errs_dkv[0]:.3g} max|d dv|="
+                  f"{errs_dkv[1]:.3g}; tol={TOL[dtype]:g} x max(1, "
+                  f"max|plain|); split views bitwise equal to contiguous: "
+                  f"{same}")
+            if not (ok_dq and ok_dkv and same):
+                raise SystemExit(f"FAIL: K2/K3 disagree with their plain "
+                                 f"versions, or the views with contiguous "
+                                 f"copies, at {shape} {dtype} causal={causal}")
+            for name, errs in (("dq", errs_dq), ("dkv", errs_dkv)):
+                record.setdefault(f"{name}_err", 0.0)
+                record[f"{name}_err"] = max(record[f"{name}_err"], *errs)
+            where = TIMED_SHAPES.get(shape)
+            if where and not causal and dtype == torch.bfloat16:
+                record[where] = time_backward(q, k, v, out, lse, do, scale,
+                                              causal, smi, shape)
+            del q, k, v, do, out, lse, delta, dq, dk, dv, c, cdq, cdelta, \
+                cdk, cdv, want_dq, want_dkv
+    check_other_head_dim(gen)
     return record
 
 
@@ -1319,14 +1393,7 @@ def main(argv=None) -> int:
     resnet = phase_resnet(args.seed, smi)
     k5 = phase_rtc(args.seed, smi)
     r, tr = record["serving", torch.bfloat16], record["training", torch.bfloat16]
-    src = "mxnet_tpu_torch/csrc/flash_attention_bwd.cu"
     pallas = "mxnet_tpu/ops/pallas/flash_attention.py"
-    common = {"route": "cuda", "source": src,
-              "plain_ms": bwd["plain_ms"], "library_ms": bwd["library_ms"],
-              "plain": "flash_attention_bwd_reference (dq, dk, dv together)",
-              "library": "scaled_dot_product_attention backward (dq, dk, dv "
-                         "together)",
-              "shape": list(TRAIN_SHAPE), "dtype": "bfloat16"}
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -1352,17 +1419,34 @@ def main(argv=None) -> int:
          "library_device_ms_training_shape": tr["library_device_ms"],
          "host_us": record["host_us"]["k1"],
          "entry_host_us": record["host_us"]["entry"],
-         "library_host_us": record["host_us"]["sdpa"]},
-        {"name": "flash_attention_bwd_dq", "replaces": f"{pallas}:403",
-         "launches": train_launches["flash_attention_bwd_dq"],
-         "max_abs_err": bwd["dq"]["max_abs_err"], "ms": bwd["dq"]["ms"],
-         "bound_ms": bwd["dq"]["bound_ms"],
-         "bound_by": bwd["dq"]["bound_by"], **common},
-        {"name": "flash_attention_bwd_dkv", "replaces": f"{pallas}:421",
-         "launches": train_launches["flash_attention_bwd_dkv"],
-         "max_abs_err": bwd["dkv"]["max_abs_err"], "ms": bwd["dkv"]["ms"],
-         "bound_ms": bwd["dkv"]["bound_ms"],
-         "bound_by": bwd["dkv"]["bound_by"], **common}]
+         "library_host_us": record["host_us"]["sdpa"]}]
+    for name, wrapper, line in (("dq", "flash_attention_bwd_dq", 403),
+                                ("dkv", "flash_attention_bwd_dkv", 421)):
+        t, sv = bwd["training"], bwd["serving"]
+        kernels.append({
+            "name": wrapper, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"{pallas}:{line}",
+            "launches": train_launches[wrapper],
+            "max_abs_err": bwd[f"{name}_err"], "ms": t[name]["ms"],
+            "device_ms": t[name]["device_ms"],
+            "plain_ms": t[name]["plain_ms"],
+            "plain": f"{wrapper}_reference",
+            "bound_ms": t[name]["bound_ms"], "bound_by": t[name]["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "library": "scaled_dot_product_attention backward (dq, dk, dv "
+                       "together)",
+            "shape": list(TRAIN_SHAPE), "dtype": "bfloat16",
+            "backward_ms": t["bwd"]["ms"],
+            "backward_device_ms": t["bwd"]["device_ms"],
+            "backward_bound_ms": t["bwd"]["bound_ms"],
+            "ms_serving_shape": sv[name]["ms"],
+            "device_ms_serving_shape": sv[name]["device_ms"],
+            "plain_ms_serving_shape": sv[name]["plain_ms"],
+            "bound_ms_serving_shape": sv[name]["bound_ms"],
+            "library_ms_serving_shape": sv["library_ms"],
+            "library_device_ms_serving_shape": sv["library_device_ms"]})
     s2 = k4["shapes"]["s2_reduce"]
     kernels.append({
         "name": "conv1x1_bn_act", "route": "cuda",

@@ -45,11 +45,13 @@
 //   of the rows this warpgroup owns. P and dS, rounded to bf16, are
 //   repacked in registers as the A operand of the accumulating products
 //   (wgmma with A from registers, B read N-major from the streamed tile):
-//   K2 dq += dS K; K3 dv += P^T dO and dk += dS^T Q. A tile's accumulating
-//   products are issued together with the next tile's score products, and
+//   K2 dq += dS K; K3 dv += P^T dO and dk += dS^T Q. In K2 a tile's dq
+//   product is issued together with the next tile's score products, and
 //   the two warpgroups take turns issuing (named barriers), so that one's
 //   elementwise work (P, dS) runs while the other's products are on the
-//   tensor cores.
+//   tensor cores. K3 runs each tile's products in turn: with 64-query
+//   tiles, which its registers would need for the same scheme, it was
+//   slower (PERF.md, PR 6).
 // - K2 computes delta for its rows from the O and dO tiles in shared
 //   memory while the first score products run, and writes it to a (B, H,
 //   S) f32 buffer; K3 stages each Q tile's lse and delta in shared memory.
@@ -57,8 +59,7 @@
 //   warpgroup's rows of a buffer the unit has finished with (K2: O; K3: K
 //   and V) and stored by TMA (rows past S are not written).
 // Tiles: W = min(D, 64) columns per swizzle panel (as K1). The streamed
-// tiles hold K2 128 keys (64 at D = 128) and K3 64 queries (32 at D =
-// 128): what the registers hold with two tiles' products in flight.
+// tiles hold 128 rows (64 at D = 128, for the registers).
 //
 // Numerics (the port of `_dot_precision`). bf16: bf16 x bf16 products with
 // f32 accumulation on the tensor cores; P is rounded to bf16 before P^T dO
@@ -124,10 +125,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate) {
   if constexpr (N == 128)
     wgmma_ss_n128(d, da, db, accumulate);
-  else if constexpr (N == 64)
-    wgmma_ss_n64(d, da, db, accumulate);
   else
-    wgmma_ss_n32(d, da, db, accumulate);
+    wgmma_ss_n64(d, da, db, accumulate);
 }
 
 // d (64 x W, f32) += A (64 x 16, bf16 in registers) B (16 x W), B N-major
@@ -277,7 +276,7 @@ struct DqSmem {  // K2's shared memory
   static constexpr uint32_t STREAM = BK * D * 2;  // one K or V tile
   static constexpr uint32_t STREAM_PANEL = BK * G::ROW;
   static constexpr int SETS = D == 128 ? 1 : 2;  // Q, dO, O of a unit
-  static constexpr int STAGES = 2;               // K and V tiles
+  static constexpr int STAGES = 3;               // K and V tiles
   static constexpr uint32_t SET = 3 * G::UNIT;
   static constexpr uint32_t KV_OFF = SETS * SET;
   static constexpr uint32_t DL_OFF = KV_OFF + STAGES * 2 * STREAM;
@@ -542,14 +541,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int D>
 struct DkvSmem {  // K3's shared memory
   using G = Geo<D>;
-  // queries per Q/dO tile: with the next tile's S^T and dP^T in flight
-  // beside this tile's P^T and dS^T and the dk, dv accumulators, the
-  // registers hold 64 of them (32 at D = 128)
-  static constexpr int BQ = D == 128 ? 32 : 64;
+  static constexpr int BQ = D == 128 ? 64 : 128;  // queries per Q/dO tile
   static constexpr uint32_t STREAM = BQ * D * 2;  // one Q or dO tile
   static constexpr uint32_t STREAM_PANEL = BQ * G::ROW;
   static constexpr int SETS = D == 128 ? 1 : 2;  // K and V of a unit
-  static constexpr int STAGES = 4;               // Q and dO tiles
+  static constexpr int STAGES = 3;               // Q and dO tiles
   static constexpr uint32_t SET = 2 * G::UNIT;
   static constexpr uint32_t QD_OFF = SETS * SET;
   // per warpgroup, two slots of a Q tile's lse (base 2) and delta
@@ -663,34 +659,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     float s[BQ / 2], dp[BQ / 2];
     float dk[G::NP][G::W / 2], dv[G::NP][G::W / 2];
     uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
-    auto fence_all = [&] {
-      fence_regs(s);
-      fence_regs(dp);
-      fence_acc<D>(dk);
-      fence_acc<D>(dv);
-      fence_a<BQ>(pa);
-      fence_a<BQ>(sa);
-    };
-    // a Q tile's lse (base 2) and delta, one value of each per thread
-    // (threads past BQ load nothing); global loads issued early, staged in
-    // the warpgroup's slot qd_it & 1 after the products are issued
-    float lse_r = 0.f, dl_r = 0.f;
-    auto load_rows = [&](int bh, int q0) {
-      const bool live = tid < BQ && q0 + tid < S;
-      lse_r = live ? lse[(size_t)bh * S + q0 + tid] * kLog2e : 0.f;
-      dl_r = live ? delta[(size_t)bh * S + q0 + tid] : 0.f;
-    };
-    // every thread of the warpgroup has left the slot's last tile: it
-    // passed the barrier here on the tile since
-    auto stage_slot = [&](int qd_it) {
-      float* const slot = ld + (qd_it & 1) * 2 * BQ;
-      if (tid < BQ) {
-        slot[tid] = lse_r;
-        slot[BQ + tid] = dl_r;
-      }
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
-    };
-    turns_open(c);
 
     int qd_it = 0;
     for (int w = blockIdx.x, i = 0; w < n_work; w += gridDim.x, ++i) {
@@ -701,38 +669,37 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t v_half = k_half + G::UNIT;              // then dv's
       const int r0 = kt * kRows + c * kWRows;  // the warpgroup's first key
       const int key0 = r0 + lr0, key1 = key0 + 8;
-      const int q_begin = q_first(kt);
-      const bool last_work = w + gridDim.x >= n_work;
       zero<D>(dk);
       zero<D>(dv);
-      load_rows(bh, q_begin * BQ);
       mbar_wait(set_full(set), (i / M::SETS) & 1);
 
-      // the first Q tile's score products: S^T = K Q^T, dP^T = V dO^T
-      int st = qd_it % M::STAGES;
-      mbar_wait(qd_full(st), (qd_it / M::STAGES) & 1);
-      fence_all();
-      turn_begin(c);
-      wgmma_fence();
-      issue_scores<D, BQ>(s, k_half, q_tile(st));
-      issue_scores<D, BQ>(dp, v_half, q_tile(st) + M::STREAM);
-      wgmma_commit();
-      turn_end(c, false);
-      stage_slot(qd_it);
-
-      // Q tile qi: P^T and dS^T from its scores; dv += P^T dO and dk +=
-      // dS^T Q are issued with the next tile's score products
-      for (int qi = q_begin; qi < q_count; ++qi) {
+      for (int qi = q_first(kt); qi < q_count; ++qi, ++qd_it) {
+        const int st = qd_it % M::STAGES;
+        const uint32_t qt = q_tile(st), gt = qt + M::STREAM;
         const int q0 = qi * BQ;
-        const float* const slot = ld + (qd_it & 1) * 2 * BQ;
-        wgmma_wait<0>();  // tile qi's scores, tile qi - 1's accumulation
-        fence_all();
-        if (qi > q_begin)
-          warp_release(qd_empty((qd_it - 1) % M::STAGES), lane);
-        const bool more = qi + 1 < q_count;
-        if (more) load_rows(bh, q0 + BQ);
+        // the tile's lse (base 2) and delta into this warpgroup's slot
+        // qd_it & 1 (every thread of it has left the slot's last tile:
+        // it passed the barrier below on the tile since)
+        float* const slot = ld + (qd_it & 1) * 2 * BQ;
+        for (int j = tid; j < BQ; j += 128) {
+          const bool live = q0 + j < S;
+          slot[j] = live ? lse[(size_t)bh * S + q0 + j] * kLog2e : 0.f;
+          slot[BQ + j] = live ? delta[(size_t)bh * S + q0 + j] : 0.f;
+        }
+        mbar_wait(qd_full(st), (qd_it / M::STAGES) & 1);
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+        issue_scores<D, BQ>(s, k_half, qt);   // S^T = K Q^T
+        issue_scores<D, BQ>(dp, v_half, gt);  // dP^T = V dO^T
+        wgmma_commit();
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
 
-        // a query sees a key iff both are < S and, causal, key <= query
+        // P^T and dS^T; a query sees a key iff both are < S and, causal,
+        // key <= query
         const bool need_mask = (q0 + BQ > S) || (r0 + kWRows > S) ||
                                (causal && q0 < r0 + kWRows - 1);
 #pragma unroll
@@ -742,45 +709,37 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float2 d2 = *reinterpret_cast<const float2*>(slot + BQ + ql);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            float x = fmaf(s[4 * j + e], scale_log2,
-                           (e & 1) ? -l2.y : -l2.x);
+            float x = s[4 * j + e] * scale_log2;
             if (need_mask) {
               const int qg = q0 + ql + (e & 1);
               const int key = e < 2 ? key0 : key1;
               if (qg >= S || key >= S || (causal && key > qg)) x = kNegInf;
             }
-            const float p = ex2(x);
+            const float p = ex2(x - ((e & 1) ? l2.y : l2.x));
             s[4 * j + e] = p;
-            dp[4 * j + e] =
-                p * scale * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+            dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x)) *
+                            scale;
           }
         }
         pack_a<BQ>(pa, s);
         pack_a<BQ>(sa, dp);
 
-        const uint32_t qt = q_tile(st);
-        if (more) {
-          ++qd_it;
-          st = qd_it % M::STAGES;
-          mbar_wait(qd_full(st), (qd_it / M::STAGES) & 1);
-        }
-        fence_all();
-        turn_begin(c);
+        // dv += P^T dO and dk += dS^T Q
+        fence_acc<D>(dv);
+        fence_acc<D>(dk);
+        fence_a<BQ>(pa);
+        fence_a<BQ>(sa);
         wgmma_fence();
-        issue_accumulate<D, BQ>(dv, pa, qt + M::STREAM);  // dv += P^T dO
-        issue_accumulate<D, BQ>(dk, sa, qt);              // dk += dS^T Q
-        if (more) {
-          issue_scores<D, BQ>(s, k_half, q_tile(st));
-          issue_scores<D, BQ>(dp, v_half, q_tile(st) + M::STREAM);
-        }
+        issue_accumulate<D, BQ>(dv, pa, gt);
+        issue_accumulate<D, BQ>(dk, sa, qt);
         wgmma_commit();
-        turn_end(c, !more && last_work);
-        if (more) stage_slot(qd_it);
+        wgmma_wait<0>();
+        fence_acc<D>(dv);
+        fence_acc<D>(dk);
+        fence_a<BQ>(pa);
+        fence_a<BQ>(sa);
+        warp_release(qd_empty(st), lane);
       }
-      wgmma_wait<0>();
-      fence_all();
-      warp_release(qd_empty(st), lane);
-      ++qd_it;
 
       // ---- epilogue: dk and dv in bf16 through K's and V's rows to TMA ----
       stage_rows<D>(smem + (k_half - base), dk, lr0, t);

@@ -13,7 +13,7 @@ from ..gluon.model_zoo.vision import resnet50_v1
 from ..optimizer import SGD
 from ..parallel import ParallelTrainStep, make_mesh
 
-__all__ = ["card", "median_ms", "seeded_bert_weights",
+__all__ = ["card", "median_ms", "graph_ms", "seeded_bert_weights",
            "seeded_resnet_weights", "PretrainStep", "pretrain_batch",
            "resnet_train_step", "resnet_batch"]
 
@@ -45,6 +45,22 @@ def median_ms(fn, reps: int = 30, warmup: int = 5, calls: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / calls)
     return float(np.median(times))
+
+
+def graph_ms(fn, calls: int = 10) -> float:
+    """Device ms of one ``fn()``: ``calls`` calls captured in a CUDA graph,
+    the graph's replay timed by :func:`median_ms`, so no host work (checks,
+    tensor maps, launches) lands in the window."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return median_ms(graph.replay) / calls
 
 
 def seeded_bert_weights(net, seed: int):

@@ -35,7 +35,10 @@ Reports:
   else (elementwise, reductions, dropout masks, dtype and layout copies),
   the top kernels by time, the layout copies (kernels launched under
   ``aten::contiguous`` or a copying ``aten::reshape``), and the device busy
-  share (kernel time over wall time).
+  share (kernel time over wall time);
+- ``--train`` also: the device time and kernel count of attention's
+  backward, every kernel launched inside the ``FlashAttentionBackward``
+  autograd node (K2, K3, and whatever the backward runs around them).
 
 Prints the result as one JSON line at the end. Needs one CUDA card.
 """
@@ -59,6 +62,7 @@ _KERNELS = (("flash_bwd_dq", "K2 flash_attention_bwd_dq"),
             ("flash_fwd", "K1 flash_attention_fwd"))
 _OPTIMIZER_RANGE = "mxt.optimizer"
 _LAYOUT_OPS = ("aten::contiguous", "aten::reshape")
+_ATTENTION_BACKWARD = "FlashAttentionBackward"
 
 
 # ResNet-50's classes, by the host op that launched each kernel: (class,
@@ -258,6 +262,8 @@ def main(argv=None) -> int:
     # layout copies: what .contiguous() and a copying reshape launch (the
     # attention's q, k, v and output went through them before K1 took views)
     n_copies, copies_ms = _kernels_under(events, _LAYOUT_OPS.__contains__)
+    n_attn_bwd, attn_bwd_ms = _kernels_under(
+        events, lambda n: _ATTENTION_BACKWARD in n)
     device_ms = sum(per_step.values())
     if training:
         per_step["device idle"] = max(0.0, step_ms - device_ms)
@@ -273,6 +279,10 @@ def main(argv=None) -> int:
     print(f"  layout copies (kernels under {' / '.join(_LAYOUT_OPS)}): "
           f"{n_copies / n_steps:.0f} per step, {copies_ms / n_steps:.3f} "
           f"ms/step (inside the classes above)")
+    if args.train:
+        print(f"  attention backward (kernels under {_ATTENTION_BACKWARD}): "
+              f"{n_attn_bwd / n_steps:.0f} kernels, "
+              f"{attn_bwd_ms / n_steps:.3f} ms/step")
     if opt_window_ms:
         print(f"  optimizer window on the device {opt_window_ms / n_steps:.3f}"
               f" ms/step for {opt_ms / n_steps:.3f} ms of kernels (the rest "
@@ -289,6 +299,8 @@ def main(argv=None) -> int:
               "launches_per_step": dict(zip(("K1", "K2", "K3"), launches)),
               "layout_copies_per_step": n_copies / n_steps,
               "layout_copies_ms_per_step": copies_ms / n_steps,
+              "attention_backward_kernels_per_step": n_attn_bwd / n_steps,
+              "attention_backward_ms_per_step": attn_bwd_ms / n_steps,
               "top": [{"kernel": e.key,
                        "ms_per_step": e.self_device_time_total / 1e3 / n_steps,
                        "calls_per_step": e.count / n_steps} for e in top]}

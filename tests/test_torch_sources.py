@@ -389,3 +389,16 @@ def test_chip_smoke_fails_without_a_card_or_the_package(where, tmp_path):
     proc = _run_smoke(cwd)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("tool,variant", [
+    (tool, name) for tool in ("k1_ablation", "bwd_ablation")
+    for name in __import__(f"mxnet_tpu_torch.tools.{tool}",
+                           fromlist=["VARIANTS"]).VARIANTS])
+def test_ablation_variants_still_match_the_kernel_sources(tool, variant):
+    """Each ablation variant's text substitutions still find their anchors
+    in the kernel source (the tools stop on the card otherwise)."""
+    mod = __import__(f"mxnet_tpu_torch.tools.{tool}", fromlist=["_source"])
+    subs = mod.VARIANTS[variant][0]
+    src = mod._source(subs)   # SystemExit if an anchor is missing
+    assert all(new in src for _, new in subs)
