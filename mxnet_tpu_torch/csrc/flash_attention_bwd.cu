@@ -51,7 +51,7 @@
 //   elementwise work (P, dS) runs while the other's products are on the
 //   tensor cores. K3 runs each tile's products in turn: with 64-query
 //   tiles, which its registers would need for the same scheme, it was
-//   slower (PERF.md, PR 6).
+//   slower (commit a700608; times in PERF.md).
 // - K2 computes delta for its rows from the O and dO tiles in shared
 //   memory while the first score products run, and writes it to a (B, H,
 //   S) f32 buffer; K3 stages each Q tile's lse and delta in shared memory.

@@ -6,8 +6,8 @@ the card, in turns, each replayed from CUDA graphs.
     python3 -m mxnet_tpu_torch.tools.bwd_compare \\
         --parent-source build/parent_bwd.cu [--seed 0]
 
-The earlier source is the one of PRs 2-5, whose C entries take contiguous
-(B*H, S, D) tensors and a delta computed outside the kernels:
+The earlier source is one from before commit ead8616, whose C entries
+take contiguous (B*H, S, D) tensors and a delta computed outside them:
 ``mxt_flash_attention_bwd_dq(q, k, v, dout, lse, delta, dq, bh, seq,
 head_dim, is_bf16, sm_scale, causal, stream)`` and ``..._dkv`` with dk and
 dv. It is built as the port builds its kernels (``_build.load``, its own
