@@ -55,11 +55,16 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    2e-2 x max(1, max|plain|) (bf16 output, sum order), each moment within
    1e-3 x max(1, max|plain|) of itself (f32 sums over up to 401,408 rows in
    another order); each of the nine twice, bitwise equal (the moments are
-   reduced in a fixed order). At each of the nine it times the kernel, the
-   plain version and ``torch.matmul`` of the pre-activated bf16 x with w
-   (the product alone, a yardstick the port never calls) and prints the
-   bound (bytes over 3.35 TB/s against 2 M K N operations over 989
-   TFLOP/s).
+   reduced in a fixed order). At each of the nine it prints the schedule
+   (tile width, split of K, blocks) and times the kernel, the plain
+   version, ``torch.matmul`` of the pre-activated bf16 x with w (the
+   product alone) and the library composition of the same function
+   (``tools/k4_compare.py``: the prologue, ``torch.mm`` with an f32
+   result, the rounding and the column sums; held to the plain version
+   too), yardsticks the port never calls, each through its calls (10-call
+   windows) and replayed from a CUDA graph of 10 calls, and the bound
+   (bytes over 3.35 TB/s against 2 M K N operations over 989 TFLOP/s) with
+   the graph time's share of it.
 3. The serving slice: ``bert_base()`` at full width with seeded random
    weights, cast to bf16, served by ``ModelEndpoint`` + ``InferenceServer``
    to 8 client threads sending 96 requests of 1-8 rows of 512 tokens.
@@ -143,7 +148,8 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    one bf16 ulp of its plain version, the launch counts. Then each kernel
    is timed beside its bound, its plain version and one PyTorch call
    computing the same function (``torch.add(y, x, alpha=2)``, ``F.gelu``
-   and its backward, ``torch.log_softmax``), the host cost of one
+   and its backward, ``torch.log_softmax``), the kernel and that call also
+   replayed from CUDA graphs of 10 (device time), the host cost of one
    ``CudaKernel.launch`` at 8 elements beside one ``torch.add``, and
    NDArray/autograd cases run on the card against the same calls on
    ``cpu()``. ``rtc.launches`` at the end equals every launch the phase
@@ -180,6 +186,7 @@ from mxnet_tpu_torch.tools import (PretrainStep, card, f32_drift, graph_ms,
                                    resnet_train_step, seeded_bert_weights,
                                    seeded_resnet_weights)
 from mxnet_tpu_torch.tools import rtc_examples as rx
+from mxnet_tpu_torch.tools.k4_compare import composition as k4_composition
 
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,       # dense tensor cores
@@ -615,28 +622,42 @@ def phase_fused_conv(seed: int, smi: str):
         want = fc.conv1x1_bn_act_reference(x, w, scale, shift)
         errs, ratios = _k4_errors(got, want)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        del got, again, want
+        del got, again
         xh = torch.relu(x.float() * scale + shift).to(torch.bfloat16)
-        ms = median_ms(lambda: fc.conv1x1_bn_act(x, w, scale, shift),
-                       reps=10, warmup=3, calls=TIMED_CALLS)
+        comp_ratio = max(_k4_errors(k4_composition(x, w, scale, shift)[0],
+                                    want)[1])
+        del want
+        kernel = lambda: fc.conv1x1_bn_act(x, w, scale, shift)  # noqa: E731
+        matmul = lambda: torch.matmul(xh, w)  # noqa: E731
+        comp = lambda: k4_composition(x, w, scale, shift)  # noqa: E731
+        ms = median_ms(kernel, reps=10, warmup=3, calls=TIMED_CALLS)
         plain = median_ms(lambda: fc.conv1x1_bn_act_reference(
             x, w, scale, shift), reps=5, warmup=1, calls=TIMED_CALLS)
-        lib = median_ms(lambda: torch.matmul(xh, w), reps=10, warmup=3,
-                        calls=TIMED_CALLS)
+        lib = median_ms(matmul, reps=10, warmup=3, calls=TIMED_CALLS)
+        comp_ms = median_ms(comp, reps=10, warmup=3, calls=TIMED_CALLS)
+        # device times: CUDA graphs of TIMED_CALLS calls, no host work
+        dev, lib_dev, comp_dev = graph_ms(kernel), graph_ms(matmul), \
+            graph_ms(comp)
         bms, by, nbytes, flops = k4_bound_ms(M, K, N)
-        print(f"K4 {label} (M={M}, K={K}, N={N}) bf16: max|dy|={errs[0]:.3g}"
-              f" max|dsum|={errs[1]:.3g} max|dsumsq|={errs[2]:.3g} "
-              f"(worst {max(ratios):.3g} of tolerance), repeatable={same} | "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, matmul of the "
-              f"product alone {lib:.4f} ms, bound {bms * 1e3:.1f} us ({by}:"
-              f" {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
-              f"{bms / ms:.1%} of bound on {smi}")
+        print(f"K4 {label} (M={M}, K={K}, N={N}) bf16, schedule "
+              f"{fc._schedule(M, K, N, fc._sm_count(x.device))}: "
+              f"max|dy|={errs[0]:.3g} max|dsum|={errs[1]:.3g} "
+              f"max|dsumsq|={errs[2]:.3g} (worst {max(ratios):.3g} of "
+              f"tolerance), repeatable={same} | kernel {ms:.4f} ms (graph "
+              f"{dev:.4f}), plain {plain:.4f} ms, matmul of the product "
+              f"alone {lib:.4f} ms (graph {lib_dev:.4f}), library "
+              f"composition {comp_ms:.4f} ms (graph {comp_dev:.4f}, within "
+              f"{comp_ratio:.3g} of tolerance), bound {bms * 1e3:.1f} us "
+              f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+              f"{bms / dev:.1%} of bound from the graph on {smi}")
         if max(ratios) > 1 or not same:
             raise SystemExit(f"FAIL: K4 disagrees with its plain version "
                              f"(or with itself) at {label}")
-        record["shapes"][label] = {"M": M, "K": K, "N": N, "ms": ms,
-                                   "plain_ms": plain, "library_ms": lib,
-                                   "bound_ms": bms, "bound_by": by}
+        record["shapes"][label] = {
+            "M": M, "K": K, "N": N, "ms": ms, "device_ms": dev,
+            "plain_ms": plain, "library_ms": lib, "library_device_ms": lib_dev,
+            "composition_ms": comp_ms, "composition_device_ms": comp_dev,
+            "bound_ms": bms, "bound_by": by, "bound_share": bms / dev}
         record["max_abs_err"] = max(record["max_abs_err"], *errs)
         del x, w, scale, shift, xh
     for M, K, N, relu, x_dtype in K4_EDGES:
@@ -1320,13 +1341,19 @@ def phase_rtc(seed: int, smi: str):
                              calls=TIMED_CALLS)
         lib_ms = median_ms(lib, reps=RTC_REPS, warmup=RTC_WARMUP,
                            calls=TIMED_CALLS)
+        # device times: the launches replayed from a CUDA graph of
+        # TIMED_CALLS (no host work in the window)
+        dev_ms, lib_dev_ms = graph_ms(kern), graph_ms(lib)
         bms, by, nbytes, _ = bound
-        print(f"  {name} {shape} {dt}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, bound "
+        print(f"  {name} {shape} {dt}: kernel {ms:.4f} ms (graph "
+              f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, {lib_name} "
+              f"{lib_ms:.4f} ms (graph {lib_dev_ms:.4f}), bound "
               f"{bms * 1e3:.1f} us ({by}: {nbytes / 1e6:.1f} MB), "
-              f"{bms / ms:.1%} of bound on {smi}")
+              f"{bms / dev_ms:.1%} of bound from the graph on {smi}")
         by_kernel[name] = {"launches": by_launches[name], "ms": ms,
-                           "plain_ms": plain_ms, "library_ms": lib_ms,
+                           "device_ms": dev_ms, "plain_ms": plain_ms,
+                           "library_ms": lib_ms,
+                           "library_device_ms": lib_dev_ms,
                            "library": lib_name, "bound_ms": bms,
                            "bound_by": by, "max_abs_err": abs_err[name],
                            "shape": shape, "dtype": dt}
@@ -1364,7 +1391,9 @@ def phase_rtc(seed: int, smi: str):
     if worst > 1e-6:
         raise SystemExit("FAIL: NDArray on the card differs from the CPU")
 
-    per_timing = RTC_WARMUP + RTC_REPS * TIMED_CALLS    # as median_ms calls
+    # median_ms's calls, then graph_ms's: one warm-up and the captured
+    # calls (replays launch nothing from Python)
+    per_timing = RTC_WARMUP + RTC_REPS * TIMED_CALLS + 1 + TIMED_CALLS
     expect_all = before_main + main_launches + len(timed) * per_timing + \
         10 + RTC_LAUNCH_CALLS
     made = before_main + rtc.launches       # the counter restarted at 0
@@ -1458,10 +1487,17 @@ def main(argv=None) -> int:
                              "resnet50_bottleneck_sites":
                              resnet["k4_launches"]},
         "max_abs_err": k4["max_abs_err"], "ms": s2["ms"],
-        "plain_ms": s2["plain_ms"], "bound_ms": s2["bound_ms"],
-        "bound_by": s2["bound_by"], "library_ms": s2["library_ms"],
+        "device_ms": s2["device_ms"], "plain_ms": s2["plain_ms"],
+        "bound_ms": s2["bound_ms"], "bound_by": s2["bound_by"],
+        "library_ms": s2["library_ms"],
+        "library_device_ms": s2["library_device_ms"],
         "library": "torch.matmul of the pre-activated bf16 x with w (the "
                    "product alone)",
+        "composition_ms": s2["composition_ms"],
+        "composition_device_ms": s2["composition_device_ms"],
+        "composition": "relu(addcmul(shift, x, scale)) to bf16, torch.mm "
+                       "with an f32 result, y to bf16, column sums of y "
+                       "and y^2 (tools/k4_compare.py)",
         "shape": [s2["M"], s2["K"], s2["N"]], "dtype": "bfloat16",
         "by_shape": k4["shapes"]})
     head = k5["by_kernel"]["gelu_tanh_fwd"]   # the differentiable path's
@@ -1472,9 +1508,12 @@ def main(argv=None) -> int:
         "replaces": "mxnet_tpu/rtc.py:64", "launches": k5["launches"],
         "max_abs_err": max(v["max_abs_err"]
                            for v in k5["by_kernel"].values()),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "ms": head["ms"], "device_ms": head["device_ms"],
+        "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"], "headline": "gelu_tanh_fwd",
+        "library_ms": head["library_ms"],
+        "library_device_ms": head["library_device_ms"],
+        "headline": "gelu_tanh_fwd",
         "compile_seconds": k5["compile_seconds"],
         "launch_host_us": k5["rtc_launch_us"],
         "torch_add_host_us": k5["torch_add_us"],

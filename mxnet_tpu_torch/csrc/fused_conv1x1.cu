@@ -4,452 +4,680 @@
 //
 // For x (M, K) (N*H*W rows of an NHWC activation, bf16 or f32), w (K, N)
 // bf16 and the previous BatchNorm folded into scale, shift (K,) f32:
-//   x_hat = relu(x * scale + shift)      f32, then rounded to bf16
+//   x_hat = relu(x * scale + shift)      f32 (one FMA), then rounded to bf16
 //   y     = x_hat @ w                    bf16 x bf16, f32 accumulation
 //   out   = bf16(y), col_sum = sum_rows y, col_sumsq = sum_rows y^2
 // with the moments taken of the f32 y, as `conv1x1_bn_act_reference`.
 //
 // The TPU kernel keeps all of K x N resident and walks M tiles in order,
-// carrying the moments in VMEM scratch across the grid. Here a 128-row x
-// BN-column output tile (BN = 64 or 128) is one block's unit of work and K is
-// walked in 32-wide chunks: each chunk of x is loaded, passed through the
-// affine and the ReLU in f32, rounded to bf16 and stored to shared memory
-// (the prologue), the w chunk beside it, and the products run on the tensor
-// cores (ldmatrix, ldmatrix.trans for w, mma.sync m16n8k16). The next chunk's
-// global loads are issued before the current chunk's products.
+// carrying the moments in VMEM scratch across the grid. Here a persistent
+// grid (at most one 384-thread block per SM) walks work units: a unit is a
+// 128-row x BN-column output tile (BN = 64, 128 or 256) and, where M is
+// too small to fill the card, a range of K (split K: `split` units a tile,
+// split index fastest, then the column tile, then the row tile).
+// - Warpgroup 0 is the producer: one thread keeps a ring of `stages`
+//   buffers full by TMA through full/empty mbarriers. A buffer holds a
+//   64-wide K chunk: x as 128 rows x 64 bf16 (or two panels of 128 x 32
+//   f32), 128-byte swizzled; w as BN/64 panels of 64 K-rows x 64 columns,
+//   128-byte swizzled; and the chunk's 64 values of scale and of shift.
+//   Boxes past M or K read zeros, so x, w, scale and shift past K are all
+//   zero there and add nothing. Where one column tile covers N and there is
+//   no split (ResNet-50's stage 2), w is loaded once and stays resident in
+//   shared memory for the kernel's life, as the Pallas kernel keeps it.
+// - Warpgroups 1 and 2 each own 64 of the tile's rows. For each 16-wide
+//   step of a chunk a consumer reads its x fragment from the swizzled tile
+//   (ldmatrix; f32: 8-byte loads), applies the affine and the ReLU in f32
+//   registers and packs the result to bf16 in the register A layout of
+//   wgmma (the prologue); the products run as wgmma with A from registers
+//   and B = w read N-major from shared memory (m64nNk16, N = BN), one
+//   group a step, so a step's prologue overlaps the products of the three
+//   steps before it. The two consumer warpgroups interleave on the tensor
+//   cores.
+// - Split K: each unit but the tile's last writes its f32 accumulators to
+//   a workspace and raises the tile's flag; the last (the tile's owner)
+//   waits for the flags and adds the partials in split order, so y and its
+//   moments do not depend on timing. Units are handed out in order and a
+//   tile's owner has its highest index, so it only waits for units that
+//   are already running (the grid never exceeds the SMs).
+// - Epilogue (the owner): y rounded to bf16, staged swizzled in shared
+//   memory and stored by TMA (rows past M are not written). The moments of
+//   the f32 y over the rows below M: a lane adds its two rows, the eight
+//   lanes of a column group reduce-scatter by shuffles, the eight warps
+//   meet in shared memory in a fixed order, and each column's running sum
+//   stays in a register while the block's units stay in one column strip.
+//   When the strip changes the sums are added into the block's own row of
+//   a (blocks, 2, N) workspace and the strip's ticket counts the tiles;
+//   the block that completes a strip sums the blocks' rows in a fixed
+//   order into col_sum / col_sumsq and zeroes the rows and the ticket, so
+//   the workspace is zero again for the next call. No float
+//   atomics: two calls are bitwise equal. Rows at or past M (the ragged
+//   last tile, where x_hat = relu(shift) is not zero) stay out of the
+//   moments. (The Pallas kernel sums every row of its last tile, so its
+//   moments are wrong when block_m does not divide M; this kernel is not.)
 //
-// Moments without float atomics, deterministic: a block owns one column strip
-// and a fixed set of M tiles (blockIdx.x, + gridDim.x, ...), keeps its column
-// sums in registers over its tiles and writes one partial row to a
-// (grid_m, N) f32 workspace per moment. The last block of each column strip
-// to finish (an integer ticket) sums the grid_m partials of its columns in a
-// fixed order. Rows at or past M (the ragged last tile) contribute nothing:
-// their x_hat is zero-filled and they are masked out of the moments and of
-// the y store. (The Pallas kernel sums every row of its last tile, so its
-// moments are wrong when block_m does not divide M; this kernel is not.)
-//
-// Bound. At ResNet-50's batch-128 1x1 shapes the kernel reads x and w once
-// and writes y once: 103 to 257 MB at stages 2-4 (31-77 us at 3.35 TB/s,
-// bound by bytes) and 13.15 GFLOP at stage 5 (13.3 us at 989 TFLOP/s, bound
-// by operations). This first version uses mma.sync and a register prefetch
-// of one chunk, not TMA or wgmma, and no split over K. Measured times:
-// PERF.md.
+// Bound. At ResNet-50's batch-128 1x1 shapes the kernel must read x and w
+// once and write y once: 103 to 257 MB at stages 2-4 (31-77 us at 3.35
+// TB/s, bound by bytes) and 13.15 GFLOP at stage 5 (13.3 us at 989
+// TFLOP/s, bound by operations). Measured times: PERF.md.
 //
 // Plain C interface, loaded with ctypes by mxnet_tpu_torch/ops/cuda/
-// fused_conv1x1.py. The launch goes to the caller's stream, allocates
-// nothing, and returns cudaGetLastError().
+// fused_conv1x1.py. The five tensor maps are encoded on the host at every
+// call (hopper.cuh). The launch goes to the caller's stream, allocates
+// nothing, and returns cudaGetLastError(), or minus the encode's CUresult.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;           // 8 warps
-constexpr int kBM = 128;                // rows of an output tile
-constexpr int kBK = 32;                 // K chunk
-constexpr int kLDA = kBK + 8;           // padded smem row (80 bytes)
-constexpr int kAChunks = kBM * kBK / 8 / kThreads;  // 16-byte x chunks/thread
+constexpr int kThreads = 384;      // producer warpgroup + two consumers
+constexpr int kBM = 128;           // rows of an output tile
+constexpr int kKC = 64;            // K columns of a ring buffer (a chunk)
+constexpr uint32_t kPanel = 8192;  // 64 rows of 128 bytes, 128B-swizzled
+constexpr uint32_t kSS = 512;      // a chunk's scale and shift (2 x 64 f32)
+constexpr int kMaxStages = 6;
+constexpr int kSmemMax = 232448;   // dynamic shared memory a block may use
+constexpr uint32_t kResidentMax = 64 * 1024;  // resident w, at most
+constexpr int kMaxDevices = 64;
 
-template <int BN>
+template <typename XT, int BN>
 struct Cfg {
-  static constexpr int WARPS_N = BN == 128 ? 4 : 2;
-  static constexpr int WARPS_M = 8 / WARPS_N;
-  static constexpr int WM = kBM / WARPS_M;      // warp tile rows: 64 or 32
-  static constexpr int WN = BN / WARPS_N;       // warp tile cols: 32
-  static constexpr int MT = WM / 16;            // m16 tiles per warp
-  static constexpr int NT = WN / 8;             // n8 tiles per warp
-  static constexpr int LDB = BN + 8;            // padded smem row of w
-  static constexpr int B_CHUNKS = kBK * BN / 8 / kThreads;
+  static constexpr int XP = sizeof(XT) == 2 ? 1 : 2;    // x panels a chunk
+  static constexpr int XW = 128 / sizeof(XT);           // columns a panel
+  static constexpr uint32_t X_STAGE = XP * kBM * 128;
+  static constexpr int WP = BN / 64;                    // w panels a chunk
+  static constexpr uint32_t W_STAGE = WP * kPanel;
+  static constexpr uint32_t STAGING = 2 * WP * kPanel;  // y, both halves
+  static constexpr uint32_t RED = 8 * 2 * BN * 4;       // warps x moments
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Byte offsets into the (1024-aligned) dynamic shared memory.
+struct Layout {
+  uint32_t stage, w_res, staging, red, ss, bars, total;
+  int stages;
+};
+
+template <typename XT, int BN>
+__host__ __device__ Layout layout(int stages, int resident_chunks) {
+  using C = Cfg<XT, BN>;
+  Layout l;
+  l.stages = stages;
+  l.stage = C::X_STAGE + (resident_chunks ? 0u : C::W_STAGE);
+  l.w_res = stages * l.stage;
+  l.staging = l.w_res + resident_chunks * C::W_STAGE;
+  l.red = l.staging + C::STAGING;
+  l.ss = l.red + C::RED;
+  l.bars = l.ss + stages * kSS;
+  // full[stages], empty[stages], w_full, the completion flag; + 1024: the
+  // dynamic shared memory is realigned to 1024 bytes
+  l.total = l.bars + 8 * (2 * stages + 2) + 1024;
+  return l;
 }
 
-// c += a * b for one 16x8x16 tile: a is 16x16 row-major, b 16x8 col-major.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices; lanes 8i..8i+7 address matrix i's rows.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const __nv_bfloat16* p) {
-  uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* p) {
-  uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
-// Eight consecutive x values as loaded from device memory (16 or 32 bytes).
-template <typename XT>
-struct Raw8;
-template <>
-struct Raw8<__nv_bfloat16> {
-  uint4 u;
-};
-template <>
-struct Raw8<float> {
-  float4 lo, hi;
-};
-
-__device__ __forceinline__ void ld8(Raw8<__nv_bfloat16>& r,
-                                    const __nv_bfloat16* p) {
-  r.u = __ldg(reinterpret_cast<const uint4*>(p));
+__device__ __forceinline__ void consumers_sync() {  // both consumer groups
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
 }
-__device__ __forceinline__ void ld8(Raw8<float>& r, const float* p) {
-  r.lo = __ldg(reinterpret_cast<const float4*>(p));
-  r.hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
-}
-__device__ __forceinline__ void to_f32(float (&v)[8],
-                                       const Raw8<__nv_bfloat16>& r) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void to_f32(float (&v)[8], const Raw8<float>& r) {
-  v[0] = r.lo.x; v[1] = r.lo.y; v[2] = r.lo.z; v[3] = r.lo.w;
-  v[4] = r.hi.x; v[5] = r.hi.y; v[6] = r.hi.z; v[7] = r.hi.w;
+__device__ __forceinline__ void group_sync(int c) {  // one consumer group
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
 }
 
-// Global loads of the x chunk [m0, m0 + 128) x [k0, k0 + 32): thread chunk c
-// is row c / 4, columns (c % 4) * 8 .. + 7. Rows >= M and columns >= K are
-// flagged invalid (K is a multiple of 8, so a chunk is all in or all out).
-template <typename XT>
-__device__ __forceinline__ void load_a(Raw8<XT> (&ra)[kAChunks],
-                                       bool (&va)[kAChunks],
-                                       const XT* __restrict__ x, int m0,
-                                       int k0, int M, int K) {
-#pragma unroll
-  for (int i = 0; i < kAChunks; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int row = m0 + (c >> 2);
-    const int k = k0 + (c & 3) * 8;
-    va[i] = row < M && k < K;
-    if (va[i]) ld8(ra[i], x + (size_t)row * K + k);
-  }
-}
+// The accumulator slot of entry i of a lane's columns: entry i is column
+// 8 (i / 2) + 2t + i % 2, and its row-g value sits at 4 (i / 2) + i % 2.
+__host__ __device__ constexpr int sum_at(int i) { return 4 * (i >> 1) + (i & 1); }
 
-// The prologue: x_hat = relu(x * scale + shift) in f32 (multiply and add each
-// rounded, as the plain version computes them), rounded to bf16 into As.
-// Invalid chunks store zeros, so padded rows and columns add nothing.
-template <typename XT>
-__device__ __forceinline__ void store_a(__nv_bfloat16* As,
-                                        const Raw8<XT> (&ra)[kAChunks],
-                                        const bool (&va)[kAChunks],
-                                        const float* __restrict__ scale,
-                                        const float* __restrict__ shift,
-                                        int k0, int relu) {
+// One halving of a reduce-scatter across the lanes `mask` apart: entries
+// [0, HALF) and [HALF, 2 HALF) (sums and, two slots on, sums of squares)
+// are split, the lane with `mask` set keeping the upper half, added to its
+// partner's, in entries [0, HALF).
+template <int N2, int HALF, int MASK>
+__device__ __forceinline__ void halve(float (&acc)[N2], int lane) {
+  const bool hi = lane & MASK;
 #pragma unroll
-  for (int i = 0; i < kAChunks; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int cc = (c & 3) * 8;
-    uint4 out = make_uint4(0u, 0u, 0u, 0u);
-    if (va[i]) {
-      float v[8];
-      to_f32(v, ra[i]);
-      const float4 s0 = __ldg(reinterpret_cast<const float4*>(scale + k0 + cc));
-      const float4 s1 = __ldg(reinterpret_cast<const float4*>(scale + k0 + cc) + 1);
-      const float4 t0 = __ldg(reinterpret_cast<const float4*>(shift + k0 + cc));
-      const float4 t1 = __ldg(reinterpret_cast<const float4*>(shift + k0 + cc) + 1);
-      const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-      const float t[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
-      uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+  for (int i = 0; i < HALF; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float a = __fadd_rn(__fmul_rn(v[2 * j], s[2 * j]), t[2 * j]);
-        float b = __fadd_rn(__fmul_rn(v[2 * j + 1], s[2 * j + 1]),
-                            t[2 * j + 1]);
-        if (relu) {  // NaN passes through, as max(x, 0) in the reference
-          a = a < 0.f ? 0.f : a;
-          b = b < 0.f ? 0.f : b;
-        }
-        o[j] = pack_bf16(a, b);
-      }
-    }
-    *reinterpret_cast<uint4*>(As + (c >> 2) * kLDA + cc) = out;
-  }
-}
-
-// Global loads of the w chunk [k0, k0 + 32) x [n0, n0 + BN), zero past K or N.
-template <int BN>
-__device__ __forceinline__ void load_b(uint4 (&rb)[Cfg<BN>::B_CHUNKS],
-                                       const __nv_bfloat16* __restrict__ w,
-                                       int n0, int k0, int K, int N) {
-  constexpr int kPerRow = BN / 8;
-#pragma unroll
-  for (int i = 0; i < Cfg<BN>::B_CHUNKS; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int k = k0 + c / kPerRow;
-    const int n = n0 + (c % kPerRow) * 8;
-    rb[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (k < K && n < N)
-      rb[i] = __ldg(reinterpret_cast<const uint4*>(w + (size_t)k * N + n));
-  }
-}
-
-template <int BN>
-__device__ __forceinline__ void store_b(__nv_bfloat16* Bs,
-                                        const uint4 (&rb)[Cfg<BN>::B_CHUNKS]) {
-  constexpr int kPerRow = BN / 8;
-#pragma unroll
-  for (int i = 0; i < Cfg<BN>::B_CHUNKS; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    *reinterpret_cast<uint4*>(Bs + (c / kPerRow) * Cfg<BN>::LDB +
-                              (c % kPerRow) * 8) = rb[i];
-  }
-}
-
-// acc += As[warp rows] @ Bs[:, warp cols] over one 32-wide K chunk.
-template <int BN>
-__device__ __forceinline__ void mma_chunk(
-    float (&acc)[Cfg<BN>::MT][Cfg<BN>::NT][4], const __nv_bfloat16* As,
-    const __nv_bfloat16* Bs, int wm, int wn, int lane) {
-  using C = Cfg<BN>;
-#pragma unroll
-  for (int ks = 0; ks < kBK; ks += 16) {
-    uint32_t a[C::MT][4];
-#pragma unroll
-    for (int mt = 0; mt < C::MT; ++mt)
-      ldmatrix_x4(a[mt], As + (wm * C::WM + mt * 16 + (lane & 15)) * kLDA +
-                             ks + (lane >> 4) * 8);
-#pragma unroll
-    for (int nt = 0; nt < C::NT; nt += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(
-          b, Bs + (ks + (lane & 7) + ((lane >> 3) & 1) * 8) * C::LDB +
-                 wn * C::WN + (nt + (lane >> 4)) * 8);
-#pragma unroll
-      for (int mt = 0; mt < C::MT; ++mt) {
-        mma_bf16(acc[mt][nt], a[mt], b[0], b[1]);
-        mma_bf16(acc[mt][nt + 1], a[mt], b[2], b[3]);
-      }
+    for (int k = 0; k < 3; k += 2) {  // the sum, then the sum of squares
+      const float lo_v = acc[sum_at(i) + k], hi_v = acc[sum_at(i + HALF) + k];
+      const float got =
+          __shfl_xor_sync(0xffffffffu, hi ? lo_v : hi_v, MASK);
+      acc[sum_at(i) + k] = (hi ? hi_v : lo_v) + got;
     }
   }
 }
 
-template <typename XT, int BN>
-__global__ void __launch_bounds__(kThreads)
-conv1x1_bn_act_kernel(const XT* __restrict__ x,
-                      const __nv_bfloat16* __restrict__ w,
-                      const float* __restrict__ scale,
-                      const float* __restrict__ shift,
-                      __nv_bfloat16* __restrict__ y,
-                      float* __restrict__ col_sum,
-                      float* __restrict__ col_sumsq,
-                      float* __restrict__ partial, int* __restrict__ counter,
-                      int M, int K, int N, int relu) {
-  using C = Cfg<BN>;
-  __shared__ __align__(16) __nv_bfloat16 As[kBM * kLDA];
-  __shared__ __align__(16) __nv_bfloat16 Bs[kBK * C::LDB];
-  __shared__ float red[2][C::WARPS_M][BN];
-  __shared__ int is_last;
+__device__ __forceinline__ void warp_release(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp / C::WARPS_N;
-  const int wn = warp % C::WARPS_N;
-  const int g = lane >> 2;
+// d (64 x BN) += A (64 x 16, registers) B (16 x BN, N-major in shared
+// memory)
+template <int BN>
+__device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (BN == 256)
+    wgmma_rs_n256(d, a, db);
+  else if constexpr (BN == 128)
+    wgmma_rs_n128(d, a, db);
+  else
+    wgmma_rs_n64(d, a, db);
+}
+
+// x*scale + shift and the ReLU for the two values of one register,
+// columns col, col + 1 of the chunk; packed to bf16
+__device__ __forceinline__ uint32_t affine2(float2 v, const float* ss,
+                                            int col, int relu) {
+  const float2 s = *reinterpret_cast<const float2*>(ss + col);
+  const float2 t = *reinterpret_cast<const float2*>(ss + kKC + col);
+  float a = fmaf(v.x, s.x, t.x), b = fmaf(v.y, s.y, t.y);
+  if (relu) {  // NaN passes through, as max(x, 0) in the reference
+    a = a < 0.f ? 0.f : a;
+    b = b < 0.f ? 0.f : b;
+  }
+  return pack_bf16(a, b);
+}
+
+// The prologue of one 16-wide step `ks` of a chunk: the consumer's 64
+// rows of x, through the affine and the ReLU, as the A fragment of the
+// step. `xs` is the chunk's x tile (shared address), `xg` the same as a
+// generic pointer, `r0` the warp's first row in the tile.
+template <typename XT>
+__device__ __forceinline__ void prologue(uint32_t (&fr)[4], int ks,
+                                         uint32_t xs, const uint8_t* xg,
+                                         const float* ss, int r0, int lane,
+                                         int relu) {
   const int t = lane & 3;
-  const int n0 = blockIdx.y * BN;
-  const int n_m_tiles = (M + kBM - 1) / kBM;
-
-  // this thread's partial moments of columns wn*WN + nt*8 + 2t + {0, 1}
-  float csum[C::NT][2], csq[C::NT][2];
+  if constexpr (sizeof(XT) == 2) {
+    const int r = r0 + (lane & 15);
+    const int chunk = ks * 2 + (lane >> 4);
+    uint32_t raw[4];
+    ldmatrix_x4(raw, xs + r * 128 + ((chunk ^ (r & 7)) << 4));
 #pragma unroll
-  for (int nt = 0; nt < C::NT; ++nt)
-    csum[nt][0] = csum[nt][1] = csq[nt][0] = csq[nt][1] = 0.f;
-
-  for (int mi = blockIdx.x; mi < n_m_tiles; mi += gridDim.x) {
-    const int m0 = mi * kBM;
-    float acc[C::MT][C::NT][4];
-#pragma unroll
-    for (int mt = 0; mt < C::MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < C::NT; ++nt)
-        acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-    Raw8<XT> ra[kAChunks];
-    bool va[kAChunks];
-    uint4 rb[C::B_CHUNKS];
-    load_a<XT>(ra, va, x, m0, 0, M, K);
-    load_b<BN>(rb, w, n0, 0, K, N);
-    // the previous tile ended on a barrier after its last products
-    store_a<XT>(As, ra, va, scale, shift, 0, relu);
-    store_b<BN>(Bs, rb);
-    __syncthreads();
-    for (int k0 = 0; k0 < K; k0 += kBK) {
-      const bool more = k0 + kBK < K;
-      if (more) {  // in flight while this chunk's products run
-        load_a<XT>(ra, va, x, m0, k0 + kBK, M, K);
-        load_b<BN>(rb, w, n0, k0 + kBK, K, N);
-      }
-      mma_chunk<BN>(acc, As, Bs, wm, wn, lane);
-      __syncthreads();
-      if (more) {
-        store_a<XT>(As, ra, va, scale, shift, k0 + kBK, relu);
-        store_b<BN>(Bs, rb);
-        __syncthreads();
-      }
+    for (int q = 0; q < 4; ++q) {
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&raw[q]));
+      fr[q] = affine2(v, ss, ks * 16 + (q >> 1) * 8 + 2 * t, relu);
     }
-
-    // epilogue: y in bf16 and the moments of the f32 y, valid rows only
+  } else {
 #pragma unroll
-    for (int mt = 0; mt < C::MT; ++mt) {
-      const int r0 = m0 + wm * C::WM + mt * 16 + g;
-      const int r1 = r0 + 8;
-#pragma unroll
-      for (int nt = 0; nt < C::NT; ++nt) {
-        const int col = n0 + wn * C::WN + nt * 8 + 2 * t;
-        if (col >= N) continue;
-        const float v0 = acc[mt][nt][0], v1 = acc[mt][nt][1];
-        const float v2 = acc[mt][nt][2], v3 = acc[mt][nt][3];
-        if (r0 < M) {
-          *reinterpret_cast<__nv_bfloat162*>(y + (size_t)r0 * N + col) =
-              __floats2bfloat162_rn(v0, v1);
-          csum[nt][0] += v0;
-          csum[nt][1] += v1;
-          csq[nt][0] += v0 * v0;
-          csq[nt][1] += v1 * v1;
-        }
-        if (r1 < M) {
-          *reinterpret_cast<__nv_bfloat162*>(y + (size_t)r1 * N + col) =
-              __floats2bfloat162_rn(v2, v3);
-          csum[nt][0] += v2;
-          csum[nt][1] += v3;
-          csq[nt][0] += v2 * v2;
-          csq[nt][1] += v3 * v3;
-        }
-      }
+    for (int q = 0; q < 4; ++q) {
+      const int r = r0 + (lane >> 2) + (q & 1) * 8;
+      const int col = ks * 16 + (q >> 1) * 8 + 2 * t;
+      const int kk = col & 31;
+      const uint32_t off = (col >> 5) * (kBM * 128) + r * 128 +
+                           (((kk >> 2) ^ (r & 7)) << 4) + (kk & 3) * 4;
+      const float2 v = *reinterpret_cast<const float2*>(xg + off);
+      fr[q] = affine2(v, ss, col, relu);
     }
-  }
-
-  // the block's column partials: over the 8 row-groups of a warp (shuffles),
-  // then over the WARPS_M warps of a column (shared memory), in fixed order
-#pragma unroll
-  for (int nt = 0; nt < C::NT; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        csum[nt][j] += __shfl_xor_sync(0xffffffffu, csum[nt][j], off);
-        csq[nt][j] += __shfl_xor_sync(0xffffffffu, csq[nt][j], off);
-      }
-  if (g == 0) {
-#pragma unroll
-    for (int nt = 0; nt < C::NT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = wn * C::WN + nt * 8 + 2 * t + j;
-        red[0][wm][c] = csum[nt][j];
-        red[1][wm][c] = csq[nt][j];
-      }
-  }
-  __syncthreads();
-  const int stat = tid / BN;  // 0: sum, 1: sum of squares (tid < 2 * BN)
-  const int c = tid % BN;
-  const int col = n0 + c;
-  const int grid_m = gridDim.x;
-  if (tid < 2 * BN && col < N) {
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < C::WARPS_M; ++i) s += red[stat][i][c];
-    partial[((size_t)stat * grid_m + blockIdx.x) * N + col] = s;
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0)
-    is_last = atomicAdd(counter + blockIdx.y, 1) == grid_m - 1;
-  __syncthreads();
-  if (!is_last) return;
-
-  // the last block of this column strip: sum the grid_m partials in order
-  __threadfence();
-  if (tid < 2 * BN && col < N) {
-    const float* p = partial + (size_t)stat * grid_m * N + col;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    int i = 0;
-    for (; i + 4 <= grid_m; i += 4) {
-      a0 += __ldcg(p + (size_t)i * N);
-      a1 += __ldcg(p + (size_t)(i + 1) * N);
-      a2 += __ldcg(p + (size_t)(i + 2) * N);
-      a3 += __ldcg(p + (size_t)(i + 3) * N);
-    }
-    for (; i < grid_m; ++i) a0 += __ldcg(p + (size_t)i * N);
-    (stat ? col_sumsq : col_sum)[col] = (a0 + a1) + (a2 + a3);
   }
 }
 
 template <typename XT, int BN>
-cudaError_t launch(const void* x, const void* w, const float* scale,
-                   const float* shift, void* y, float* col_sum,
-                   float* col_sumsq, float* partial, int* counter, int M,
-                   int K, int N, int relu, int grid_m, cudaStream_t stream) {
-  const dim3 grid(grid_m, (N + BN - 1) / BN);
-  conv1x1_bn_act_kernel<XT, BN><<<grid, kThreads, 0, stream>>>(
-      static_cast<const XT*>(x), static_cast<const __nv_bfloat16*>(w), scale,
-      shift, static_cast<__nv_bfloat16*>(y), col_sum, col_sumsq, partial,
-      counter, M, K, N, relu);
+__global__ void __launch_bounds__(kThreads, 1)
+    conv1x1_bn_act_kernel(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap wmap,
+                          const __grid_constant__ CUtensorMap smap,
+                          const __grid_constant__ CUtensorMap tmap,
+                          const __grid_constant__ CUtensorMap ymap,
+                          float* __restrict__ col_sum,
+                          float* __restrict__ col_sumsq,
+                          float* __restrict__ slots,
+                          float* __restrict__ partial,
+                          int* __restrict__ tickets, int* __restrict__ flags,
+                          int M, int K, int N, int relu, int split,
+                          int stages, int resident) {
+  using C = Cfg<XT, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const smem = smem_raw + (base - raw);
+  const int kchunks = (K + kKC - 1) / kKC;
+  const Layout L = layout<XT, BN>(stages, resident ? kchunks : 0);
+  const uint32_t bars = base + L.bars;
+  auto full = [&](int st) { return bars + 8u * st; };
+  auto empty = [&](int st) { return bars + 8u * (stages + st); };
+  const uint32_t w_full = bars + 16u * stages;
+  int* const last_flag = reinterpret_cast<int*>(smem + L.bars +
+                                                16 * stages + 8);
+  const int n_tiles = (N + BN - 1) / BN;
+  const int m_tiles = (M + kBM - 1) / kBM;
+  const int per = (kchunks + split - 1) / split;  // chunks a split
+  const int units = m_tiles * n_tiles * split;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 8);
+    }
+    mbar_init(w_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      if (resident) {
+        mbar_expect_tx(w_full, kchunks * C::W_STAGE);
+        for (int kc = 0; kc < kchunks; ++kc)
+#pragma unroll
+          for (int p = 0; p < C::WP; ++p)
+            tma_load_2d(base + L.w_res + kc * C::W_STAGE + p * kPanel,
+                        &wmap, w_full, p * 64, kc * kKC);
+      }
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int s = u % split, tile = u / split;
+        const int n0 = (tile % n_tiles) * BN, m0 = (tile / n_tiles) * kBM;
+        const int kc1 = min(kchunks, (s + 1) * per);
+        for (int kc = s * per; kc < kc1; ++kc, ++it) {
+          const int st = it % stages;
+          mbar_wait(empty(st), ((it / stages) & 1) ^ 1);
+          mbar_expect_tx(full(st), L.stage + kSS);
+          const uint32_t buf = base + st * L.stage;
+#pragma unroll
+          for (int p = 0; p < C::XP; ++p)
+            tma_load_2d(buf + p * kBM * 128, &xmap, full(st),
+                        kc * kKC + p * C::XW, m0);
+          if (!resident)
+#pragma unroll
+            for (int p = 0; p < C::WP; ++p)
+              tma_load_2d(buf + C::X_STAGE + p * kPanel, &wmap, full(st),
+                          n0 + p * 64, kc * kKC);
+          const uint32_t ss = base + L.ss + st * kSS;
+          tma_load_1d(ss, &smap, full(st), kc * kKC);
+          tma_load_1d(ss + kSS / 2, &tmap, full(st), kc * kKC);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 rows per warpgroup ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1;
+  const int tid = threadIdx.x - wg * 128;
+  const int ctid = threadIdx.x - 128;  // 0..255 over both groups
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* const red = reinterpret_cast<float*>(smem + L.red);
+  float* const slot = slots + (size_t)blockIdx.x * 2 * N;
+  const uint32_t staging = base + L.staging + c * C::WP * kPanel;
+
+  if (resident) mbar_wait(w_full, 0);
+
+  // The lane's running moments over the tiles of the current strip: after
+  // the reduce-scatter below, lane (g, t) of a warp holds CN / 8 columns of
+  // the warp's rows, entries first .. first + CN / 8 of its CN = BN / 4
+  constexpr int CN = BN / 4;
+  const int first = ((g >> 2) & 1) * (CN / 2) + ((g >> 1) & 1) * (CN / 4) +
+                    (g & 1) * (CN / 8);
+  float run[CN / 8][2];
+#pragma unroll
+  for (int i = 0; i < CN / 8; ++i) run[i][0] = run[i][1] = 0.f;
+  int pending = 0, strip = -1;  // tiles in the running sums, their strip
+
+  // the eight warps' running sums meet in shared memory in a fixed order
+  // and are added into the block's row; the block that completes the
+  // strip's tiles reduces every block's row into the outputs
+  auto flush = [&]() {
+    const int n0 = strip * BN;
+    float* const rw = red + (c * 4 + warp) * 2 * BN;
+#pragma unroll
+    for (int i = 0; i < CN / 8; ++i) {
+      const int idx = first + i;
+      const int col = 8 * (idx >> 1) + 2 * t + (idx & 1);
+      rw[col] = run[i][0];
+      rw[BN + col] = run[i][1];
+      run[i][0] = run[i][1] = 0.f;
+    }
+    consumers_sync();
+    if (ctid < BN && n0 + ctid < N) {
+      float ts = 0.f, tq = 0.f;
+#pragma unroll
+      for (int w8 = 0; w8 < 8; ++w8) {
+        ts += red[w8 * 2 * BN + ctid];
+        tq += red[w8 * 2 * BN + BN + ctid];
+      }
+      slot[n0 + ctid] = __ldcg(slot + n0 + ctid) + ts;
+      slot[N + n0 + ctid] = __ldcg(slot + N + n0 + ctid) + tq;
+    }
+    __threadfence();
+    consumers_sync();
+    if (ctid == 0)
+      *last_flag = atomicAdd(tickets + strip, pending) + pending == m_tiles;
+    pending = 0;
+    consumers_sync();
+    if (!*last_flag) return;
+    __threadfence();
+    // BN / 2 float4 columns (sums, then squares), R threads each, the
+    // blocks' rows split among them in a fixed order
+    constexpr int V = BN / 2, R = 256 / V;
+    const int v = ctid % V, r = ctid / V;
+    const int stat = v / (BN / 4), col = n0 + (v % (BN / 4)) * 4;
+    float4 a[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (col < N) {  // each row read, then zeroed for the next call
+      float* const p = slots + (size_t)stat * N + col;
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      int b = r;
+      for (; b + 3 * R < (int)gridDim.x; b += 4 * R) {
+        float4 x[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          x[j] = __ldcg(reinterpret_cast<const float4*>(
+              p + (size_t)(b + j * R) * 2 * N));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          a[j].x += x[j].x; a[j].y += x[j].y;
+          a[j].z += x[j].z; a[j].w += x[j].w;
+          __stcg(reinterpret_cast<float4*>(p + (size_t)(b + j * R) * 2 * N),
+                 z);
+        }
+      }
+      for (; b < (int)gridDim.x; b += R) {
+        float4* const q = reinterpret_cast<float4*>(p + (size_t)b * 2 * N);
+        const float4 x = __ldcg(q);
+        a[0].x += x.x; a[0].y += x.y; a[0].z += x.z; a[0].w += x.w;
+        __stcg(q, z);
+      }
+    }
+    float4* part = reinterpret_cast<float4*>(red);
+    part[r * V + v] = make_float4((a[0].x + a[1].x) + (a[2].x + a[3].x),
+                                  (a[0].y + a[1].y) + (a[2].y + a[3].y),
+                                  (a[0].z + a[1].z) + (a[2].z + a[3].z),
+                                  (a[0].w + a[1].w) + (a[2].w + a[3].w));
+    consumers_sync();
+    if (ctid < V && col < N) {
+      float4 sum = part[v];
+      for (int i = 1; i < R; ++i) {
+        const float4 x = part[i * V + v];
+        sum.x += x.x; sum.y += x.y; sum.z += x.z; sum.w += x.w;
+      }
+      *reinterpret_cast<float4*>((stat ? col_sumsq : col_sum) + col) = sum;
+    }
+    if (ctid == 0) tickets[strip] = 0;
+    consumers_sync();
+  };
+
+  // the warp's 16 rows x BN: acc[4j + e] is row g, column 8j + 2t + e;
+  // acc[4j + 2 + e] row g + 8
+  float acc[BN / 2];
+  uint32_t fr[4][4];  // A fragments of the four 16-wide steps of a chunk
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int s = u % split, tile = u / split;
+    const int nt = tile % n_tiles;
+    const int n0 = nt * BN, m0 = (tile / n_tiles) * kBM;
+    const int kc0 = s * per, kc1 = min(kchunks, (s + 1) * per);
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+
+    // Each 16-wide step is one wgmma group: its fragment is rebuilt once
+    // the group four steps back (the same step of the chunk before) is
+    // complete, so a step's prologue overlaps the three groups before it.
+    // The chunk before's buffer goes back to the producer at its last
+    // step's completion.
+    int prev = -1;
+    for (int kc = kc0; kc < kc1; ++kc, ++it) {
+      const int st = it % stages;
+      mbar_wait(full(st), (it / stages) & 1);
+      const uint32_t xs = base + st * L.stage;
+      const uint32_t wb =
+          resident ? base + L.w_res + kc * C::W_STAGE : xs + C::X_STAGE;
+      const float* ss = reinterpret_cast<const float*>(smem + L.ss + st * kSS);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        wgmma_wait<3>();
+        fence_regs(fr[ks]);
+        if (ks == 3 && prev >= 0) warp_release(empty(prev), lane);
+        prologue<XT>(fr[ks], ks, xs, smem + st * L.stage, ss,
+                     c * 64 + warp * 16, lane, relu);
+        fence_regs(fr[ks]);
+        fence_regs(acc);
+        wgmma_fence();
+        wgmma_rs<BN>(acc, fr[ks],
+                     smem_desc(wb + ks * 16 * 128, kPanel, 1024, 1));
+        wgmma_commit();
+      }
+      prev = st;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) fence_regs(fr[ks]);
+    warp_release(empty(prev), lane);
+
+    // ---- split K: partials to the workspace, or the owner sums them ----
+    if (split > 1) {
+      float4* const ws = reinterpret_cast<float4*>(partial) +
+                         (size_t)tile * (split - 1) * 256 * (BN / 8);
+      if (s < split - 1) {
+        float4* const dst = ws + (size_t)s * 256 * (BN / 8);
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i)
+          __stcg(dst + i * 256 + ctid,
+                 make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
+                             acc[4 * i + 3]));
+        __threadfence();
+        consumers_sync();
+        if (ctid == 0) atomicAdd(flags + tile, 1);
+        continue;
+      }
+      if (ctid == 0) {
+        while (load_acquire(flags + tile) < split - 1) {
+        }
+        flags[tile] = 0;
+      }
+      consumers_sync();
+      __threadfence();
+      // own + p_0 + p_1 + ...: a fixed order, eight loads in flight at once
+      for (int j = 0; j < split - 1; ++j) {
+        const float4* const src = ws + (size_t)j * 256 * (BN / 8) + ctid;
+#pragma unroll
+        for (int i0 = 0; i0 < BN / 8; i0 += 8) {
+          float4 p[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) p[i] = __ldcg(src + (i0 + i) * 256);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc[4 * (i0 + i)] += p[i].x;
+            acc[4 * (i0 + i) + 1] += p[i].y;
+            acc[4 * (i0 + i) + 2] += p[i].z;
+            acc[4 * (i0 + i) + 3] += p[i].w;
+          }
+        }
+      }
+    }
+
+    // ---- y: bf16, staged swizzled, stored by TMA ----
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    group_sync(c);
+    {
+      const int lr = warp * 16 + g;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        const uint32_t pb = (col >> 6) * kPanel + (col & 63) * 2;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t off = pb + (lr + 8 * h) * 128;
+          off ^= ((off >> 7) & 7) << 4;
+          *reinterpret_cast<uint32_t*>(smem + (staging - base) + off) =
+              pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    group_sync(c);
+    if (tid == 0 && m0 + c * 64 < M) {
+#pragma unroll
+      for (int p = 0; p < C::WP; ++p)
+        if (n0 + p * 64 < N)
+          tma_store_2d(&ymap, staging + p * kPanel, n0 + p * 64,
+                       m0 + c * 64);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+
+    // ---- moments of the f32 y over rows below M ----
+    // entry i of the lane's CN columns: its sum in acc[sum_at(i)], its sum
+    // of squares two places on
+    const int row = m0 + c * 64 + warp * 16 + g;
+    if (row + 8 >= M) {  // the ragged tile: rows at or past M add nothing
+      const bool v0 = row < M;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        acc[4 * j + 2] = acc[4 * j + 3] = 0.f;  // row + 8
+        if (!v0) acc[4 * j] = acc[4 * j + 1] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < CN; ++i) {
+      const float a = acc[sum_at(i)], b = acc[sum_at(i) + 2];
+      acc[sum_at(i)] = a + b;
+      acc[sum_at(i) + 2] = fmaf(a, a, b * b);
+    }
+    // reduce-scatter over the eight lanes of a column group (g): lane g
+    // keeps entries first .. first + CN / 8, in entries 0 .. CN / 8
+    halve<BN / 2, CN / 2, 16>(acc, lane);
+    halve<BN / 2, CN / 4, 8>(acc, lane);
+    halve<BN / 2, CN / 8, 4>(acc, lane);
+    if (strip != nt && pending > 0) flush();
+    strip = nt;
+#pragma unroll
+    for (int i = 0; i < CN / 8; ++i) {
+      run[i][0] += acc[sum_at(i)];
+      run[i][1] += acc[sum_at(i) + 2];
+    }
+    ++pending;
+    const int next = u + gridDim.x;
+    if (next >= units || (next / split) % n_tiles != nt) flush();
+  }
+  if (pending > 0) flush();
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+template <typename XT, int BN>
+int launch(const void* x, const void* w, const void* scale,
+           const void* shift, void* y, float* col_sum, float* col_sumsq,
+           float* slots, float* partial, int* tickets, int* flags, int M,
+           int K, int N, int relu, int split, int blocks,
+           cudaStream_t stream) {
+  using C = Cfg<XT, BN>;
+  const int kchunks = (K + kKC - 1) / kKC;
+  const bool resident = (N + BN - 1) / BN == 1 && split == 1 &&
+                        kchunks * C::W_STAGE <= kResidentMax;
+  const uint32_t fixed = layout<XT, BN>(0, resident ? kchunks : 0).total;
+  const uint32_t per_stage = C::X_STAGE + (resident ? 0 : C::W_STAGE) + kSS +
+                             16;
+  const long long fit = ((long long)kSmemMax - fixed) / per_stage;
+  const int stages = fit < kMaxStages ? (int)fit : kMaxStages;
+  if (stages < 2) return cudaErrorInvalidValue;
+  const Layout l = layout<XT, BN>(stages, resident ? kchunks : 0);
+
+  static int ready[kMaxDevices];  // shared-memory limit raised, per device
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!__atomic_load_n(&ready[dev], __ATOMIC_RELAXED)) {
+    if ((err = cudaFuncSetAttribute(
+             conv1x1_bn_act_kernel<XT, BN>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax)) !=
+        cudaSuccess)
+      return err;
+    __atomic_store_n(&ready[dev], 1, __ATOMIC_RELAXED);
+  }
+
+  if (encoder().err) return encoder().err;
+  CUtensorMap maps[5];  // x, w, scale, shift, y
+  const CUtensorMapDataType xt = sizeof(XT) == 2
+                                     ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUresult r;
+  if ((r = encode_matrix(&maps[0], xt, const_cast<void*>(x), K, M,
+                         (long long)K * sizeof(XT), C::XW, kBM,
+                         CU_TENSOR_MAP_SWIZZLE_128B)) ||
+      (r = encode_matrix(&maps[1], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         const_cast<void*>(w), N, K, (long long)N * 2, 64,
+                         kKC, CU_TENSOR_MAP_SWIZZLE_128B)) ||
+      (r = encode_vector(&maps[2], const_cast<void*>(scale), K, kKC)) ||
+      (r = encode_vector(&maps[3], const_cast<void*>(shift), K, kKC)) ||
+      (r = encode_matrix(&maps[4], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, y, N, M,
+                         (long long)N * 2, 64, 64,
+                         CU_TENSOR_MAP_SWIZZLE_128B)))
+    return -static_cast<int>(r);
+  conv1x1_bn_act_kernel<XT, BN><<<blocks, kThreads, l.total, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], col_sum, col_sumsq, slots,
+      partial, tickets, flags, M, K, N, relu, split, stages, resident);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x: contiguous (M, K), bf16 (x_is_bf16=1) or f32; w: contiguous (K, N) bf16;
-// scale, shift: (K,) f32; y: (M, N) bf16; col_sum, col_sumsq: (N,) f32;
-// partial: (2, grid_m, N) f32 scratch; counter: ceil(N / block_n) int32,
-// zeroed. K and N multiples of 8, every pointer 16-byte aligned, block_n 64
-// or 128, 1 <= grid_m <= ceil(M / 128). Returns a cudaError_t (0 on
-// success).
+// x: contiguous (M, K), bf16 (x_is_bf16 = 1) or f32; w: contiguous (K, N)
+// bf16; scale, shift: (K,) f32; y: (M, N) bf16; col_sum, col_sumsq: (N,)
+// f32. Workspaces: slots (blocks, 2, N) f32, zero (and left zero); partial
+// ceil(M / 128) * ceil(N / block_n) * (split - 1) * 128 * block_n f32
+// (split > 1 only); tickets ceil(N / block_n) and flags ceil(M / 128) *
+// ceil(N / block_n) int32, zero (the kernel leaves them zero). K and N
+// multiples of 8, every pointer 16-byte aligned, block_n 64, 128 or 256,
+// 1 <= split <= ceil(K / 64) with no split empty, 1 <= blocks <= the
+// number of units (ceil(M / 128) * ceil(N / block_n) * split) and, with
+// split > 1, at most the number of SMs. Returns 0, a cudaError_t, or minus
+// the CUresult of a failed tensor-map encode.
 extern "C" int mxt_conv1x1_bn_act(const void* x, const void* w,
                                   const void* scale, const void* shift,
                                   void* y, void* col_sum, void* col_sumsq,
-                                  void* partial, void* counter, int M, int K,
-                                  int N, int x_is_bf16, int relu, int block_n,
-                                  int grid_m, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8 || grid_m < 1 ||
-      grid_m > (M + kBM - 1) / kBM || (block_n != 64 && block_n != 128))
+                                  void* slots, void* partial, void* tickets,
+                                  void* flags, int M, int K, int N,
+                                  int x_is_bf16, int relu, int block_n,
+                                  int split, int blocks, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8 ||
+      (block_n != 64 && block_n != 128 && block_n != 256))
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* s = static_cast<const float*>(scale);
-  const float* t = static_cast<const float*>(shift);
+  const int kchunks = (K + kKC - 1) / kKC;
+  const long long units = (long long)((M + kBM - 1) / kBM) *
+                          ((N + block_n - 1) / block_n) * split;
+  if (split < 1 || split > kchunks ||
+      (split - 1) * ((kchunks + split - 1) / split) >= kchunks ||
+      blocks < 1 || blocks > units || units > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   float* cs = static_cast<float*>(col_sum);
   float* cq = static_cast<float*>(col_sumsq);
-  float* p = static_cast<float*>(partial);
-  int* ctr = static_cast<int*>(counter);
+  float* sl = static_cast<float*>(slots);
+  float* pa = static_cast<float*>(partial);
+  int* tk = static_cast<int*>(tickets);
+  int* fl = static_cast<int*>(flags);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t rc;
-  if (x_is_bf16)
-    rc = block_n == 128
-             ? launch<__nv_bfloat16, 128>(x, w, s, t, y, cs, cq, p, ctr, M, K,
-                                          N, relu, grid_m, st)
-             : launch<__nv_bfloat16, 64>(x, w, s, t, y, cs, cq, p, ctr, M, K,
-                                         N, relu, grid_m, st);
-  else
-    rc = block_n == 128
-             ? launch<float, 128>(x, w, s, t, y, cs, cq, p, ctr, M, K, N,
-                                  relu, grid_m, st)
-             : launch<float, 64>(x, w, s, t, y, cs, cq, p, ctr, M, K, N, relu,
-                                 grid_m, st);
-  return static_cast<int>(rc);
+#define MXT_ARGS \
+  x, w, scale, shift, y, cs, cq, sl, pa, tk, fl, M, K, N, relu, split, \
+      blocks, st
+  if (x_is_bf16) {
+    if (block_n == 256) return launch<__nv_bfloat16, 256>(MXT_ARGS);
+    if (block_n == 128) return launch<__nv_bfloat16, 128>(MXT_ARGS);
+    return launch<__nv_bfloat16, 64>(MXT_ARGS);
+  }
+  if (block_n == 256) return launch<float, 256>(MXT_ARGS);
+  if (block_n == 128) return launch<float, 128>(MXT_ARGS);
+  return launch<float, 64>(MXT_ARGS);
+#undef MXT_ARGS
 }

@@ -5,12 +5,19 @@ K4, ``_fused_kernel`` reached through ``pl.pallas_call`` in
 ``conv1x1_bn_act`` (``fused_conv1x1.py:84``), is
 ``mxnet_tpu_torch/csrc/fused_conv1x1.cu``: for x (M, K) and w (K, N) it
 computes y = relu(x * scale + shift) @ w with the affine and the ReLU in
-f32 on the way into shared memory, the product in bf16 on the tensor cores
-with f32 accumulation, y written in bf16, and the per-column sum and sum of
-squares of the f32 y (the next BatchNorm's moments) reduced without float
-atomics in a fixed order. It takes any M: the ragged last tile is masked
-out of the moments, which the Pallas kernel does not do (it sums every row
-of its last tile, so its moments are wrong unless ``block_m`` divides M).
+f32 registers (the prologue, applied to each x fragment on its way into
+the tensor cores), the product in bf16 on wgmma with f32 accumulation, y
+written in bf16 by TMA, and the per-column sum and sum of squares of the
+f32 y (the next BatchNorm's moments) reduced without float atomics in a
+fixed order. It takes any M: the ragged last tile is masked out of the
+moments, which the Pallas kernel does not do (it sums every row of its
+last tile, so its moments are wrong unless ``block_m`` divides M).
+
+The kernel is persistent: at most one block per SM walks 128-row x
+``block_n``-column output tiles and, where there are too few tiles to fill
+the card (ResNet-50's stages 4-5), ranges of K (split K, reduced in a fixed
+order before the moments are taken). :func:`_schedule` picks the tile
+width, the split and the grid from the shape and the SM count.
 
 Bound on an H100: bytes at ResNet-50's stage 2-4 shapes (x read and y
 written once), operations at stage 5. Times are in PERF.md.
@@ -20,11 +27,16 @@ Routing: CPU tensors take the plain version
 Nothing falls back. ``launches`` counts the kernel's launches. The reference
 has no backward for this op (a bare ``pallas_call``), so neither has the
 port.
+
+The kernel's moment workspace and its tickets live in one zeroed int32
+buffer per device (:func:`_workspace`), which the kernel leaves zeroed:
+calls on one device must not run concurrently on two streams.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Dict
 
 import torch
 
@@ -37,23 +49,34 @@ _LIB_NAME = "fused_conv1x1"
 _SOURCES = ("fused_conv1x1.cu",)
 _X_DTYPES = {torch.bfloat16: 1, torch.float32: 0}   # -> x_is_bf16 flag
 _BLOCK_M = 128                                     # rows of an output tile
+_CHUNK = 64                                        # K columns a ring buffer
+_MAX_SPLIT = 8
 
 #: kernel launches by :func:`conv1x1_bn_act` on CUDA tensors in this process
 launches = 0
 _count_lock = threading.Lock()
 _lib_lock = threading.Lock()
 _lib_fn = None
+_ws_lock = threading.Lock()
+_ws: Dict[torch.device, torch.Tensor] = {}
+_sm_counts: Dict[torch.device, int] = {}
+
+
+def bind(lib: ctypes.CDLL):
+    """The C entry ``mxt_conv1x1_bn_act`` of a loaded library, typed (the
+    port's own, or a variant of its source that a tool builds)."""
+    fn = lib.mxt_conv1x1_bn_act
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _kernel():
     global _lib_fn
     with _lib_lock:
         if _lib_fn is None:
-            fn = _build.load(_LIB_NAME, _SOURCES).mxt_conv1x1_bn_act
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib_fn = fn
+            _lib_fn = bind(_build.load(_LIB_NAME, _SOURCES))
         return _lib_fn
 
 
@@ -70,15 +93,63 @@ def conv1x1_bn_act_reference(x, w, scale, shift, *, relu: bool = True):
     return y.to(torch.bfloat16), y.sum(dim=0), (y * y).sum(dim=0)
 
 
-def _grid(M: int, N: int, sms: int):
-    """``(block_n, grid_m)``: 64-column tiles for N <= 64, else 128; and
-    the number of blocks along M, each walking every grid_m-th 128-row
-    tile, chosen so that about two blocks per SM are in flight (fewer
-    partial rows to reduce than one block per tile)."""
-    block_n = 64 if N <= 64 else 128
+def _fill(units: int, sms: int) -> float:
+    """The share of the SMs busy over the waves of ``units`` equal units."""
+    return units / (-(-units // sms) * sms)
+
+
+def _schedule(M: int, K: int, N: int, sms: int, x_is_bf16: bool = True):
+    """``(block_n, split, blocks)`` for one call: 64-column tiles for N <=
+    64, 128 for N <= 128 (and for f32 x, whose ring buffers are twice as
+    large), else 256. Where the tiles number fewer than two waves, K is
+    split in up to 8 ranges of at least four 64-column chunks each (the
+    f32 partials of a split tile are written and read back once), none
+    empty, if that fills the card's waves better by more than 5 points;
+    otherwise no split. ``blocks``, the persistent grid, is at most one
+    per SM."""
+    block_n = 64 if N <= 64 else 128 if N <= 128 or not x_is_bf16 else 256
+    tiles = -(-M // _BLOCK_M) * -(-N // block_n)
+    chunks = -(-K // _CHUNK)
+    split, best = 1, _fill(tiles, sms)
+    if tiles < 2 * sms:
+        for s in range(2, min(_MAX_SPLIT, chunks // 4) + 1):
+            if (s - 1) * -(-chunks // s) < chunks and \
+                    _fill(tiles * s, sms) > best + 0.05:
+                split, best = s, _fill(tiles * s, sms)
+    return block_n, split, min(tiles * split, sms)
+
+
+def _workspace_sizes(M: int, N: int, block_n: int, split: int,
+                     blocks: int):
+    """Sizes, in 4-byte words, of the zeroed workspace's three parts: the
+    blocks' moment rows (blocks, 2, N) f32, one ticket per column strip
+    and one flag per output tile (split K), int32; and of the split
+    partials, f32 (0 without a split)."""
     n_tiles = -(-N // block_n)
-    m_tiles = -(-M // _BLOCK_M)
-    return block_n, max(1, min(m_tiles, -(-2 * sms // n_tiles)))
+    tiles = -(-M // _BLOCK_M) * n_tiles
+    partial = tiles * (split - 1) * _BLOCK_M * block_n
+    return blocks * 2 * N, n_tiles, tiles, partial
+
+
+def _workspace(device: torch.device, words: int) -> torch.Tensor:
+    """The device's zeroed int32 workspace, at least ``words`` long. The
+    kernel leaves it zeroed, so it is allocated (and filled) only when it
+    grows."""
+    with _ws_lock:
+        buf = _ws.get(device)
+        if buf is None or buf.numel() < words:
+            buf = torch.zeros(max(words, 1 << 16), dtype=torch.int32,
+                              device=device)
+            _ws[device] = buf
+        return buf
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _sm_counts.get(device)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_counts[device] = n
+    return n
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -86,19 +157,43 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def conv1x1_bn_act(x, w, scale, shift, *, relu: bool = True):
-    """``(y, col_sum, col_sumsq)`` for y = relu(x * scale + shift) @ w:
-    x (M, K) bf16 or f32, w (K, N) (cast to bf16), scale and shift (K,)
-    (cast to f32). y is (M, N) bf16; the moments are the column sums of y
-    and y^2 taken in f32 before rounding. CPU tensors take
-    :func:`conv1x1_bn_act_reference`; CUDA tensors take K4, which needs K
-    and N to be multiples of 8, and raise MXNetError on anything else or
-    when the launch is refused."""
-    global launches
-    xs = (x, w, scale, shift)
-    if all(isinstance(a, torch.Tensor) and a.device.type == "cpu"
-           for a in xs):
-        return conv1x1_bn_act_reference(x, w, scale, shift, relu=relu)
+def _run(x, w, scale, shift, relu, block_n, split, blocks, fn=None):
+    """One launch on checked, aligned CUDA inputs with the given schedule
+    (and C entry ``fn``, default the port's); returns ``(y, col_sum,
+    col_sumsq)``. Uncounted: :func:`conv1x1_bn_act` counts its launches,
+    and tools call this to time other schedules and builds."""
+    M, K = x.shape
+    N = w.shape[1]
+    dev = x.device
+    y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    col_sum = torch.empty(N, dtype=torch.float32, device=dev)
+    col_sumsq = torch.empty(N, dtype=torch.float32, device=dev)
+    slots, tickets, flags, n_partial = _workspace_sizes(M, N, block_n, split,
+                                                        blocks)
+    ws = _workspace(dev, slots + tickets + flags)
+    base = ws.data_ptr()
+    partial = torch.empty(max(n_partial, 4), dtype=torch.float32, device=dev)
+    fn = fn or _kernel()
+    with torch.cuda.device(dev):
+        rc = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                shift.data_ptr(), y.data_ptr(), col_sum.data_ptr(),
+                col_sumsq.data_ptr(), base, partial.data_ptr(),
+                base + 4 * slots, base + 4 * (slots + tickets), M, K, N,
+                _X_DTYPES[x.dtype], int(bool(relu)), block_n, split, blocks,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        what = (f"tensor-map encode failed with CUresult {-rc}" if rc < 0
+                else f"kernel launch failed with CUDA error {rc}")
+        raise MXNetError(f"conv1x1_bn_act: {what} at M={M}, K={K}, N={N}, "
+                         f"{x.dtype}, block_n={block_n}, split={split}, "
+                         f"blocks={blocks}")
+    return y, col_sum, col_sumsq
+
+
+def _checked(x, w, scale, shift):
+    """The kernel's inputs, checked and made contiguous and 16-byte
+    aligned (w as bf16, scale and shift as f32); raises MXNetError on
+    anything the kernel does not take."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise MXNetError(f"conv1x1_bn_act: x (M, K) and w (K, N) expected, "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
@@ -113,34 +208,37 @@ def conv1x1_bn_act(x, w, scale, shift, *, relu: bool = True):
     if K % 8 or N % 8:
         raise MXNetError(f"conv1x1_bn_act: K = {K} and N = {N} must be "
                          "multiples of 8 (16-byte rows)")
-    for name, a in zip(("x", "w", "scale", "shift"), xs):
+    for name, a in zip(("x", "w", "scale", "shift"), (x, w, scale, shift)):
         if a.device.type != "cuda" or a.device != x.device:
             raise MXNetError(f"conv1x1_bn_act: {name} must be a CUDA tensor "
                              f"on {x.device}, got {a.device}")
-    dev = x.device
-    y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    return (_aligned(x), _aligned(w.to(torch.bfloat16)),
+            _aligned(scale.to(torch.float32)),
+            _aligned(shift.to(torch.float32)))
+
+
+def conv1x1_bn_act(x, w, scale, shift, *, relu: bool = True):
+    """``(y, col_sum, col_sumsq)`` for y = relu(x * scale + shift) @ w:
+    x (M, K) bf16 or f32, w (K, N) (cast to bf16), scale and shift (K,)
+    (cast to f32). y is (M, N) bf16; the moments are the column sums of y
+    and y^2 taken in f32 before rounding. CPU tensors take
+    :func:`conv1x1_bn_act_reference`; CUDA tensors take K4, which needs K
+    and N to be multiples of 8, and raise MXNetError on anything else or
+    when the launch is refused."""
+    global launches
+    if all(isinstance(a, torch.Tensor) and a.device.type == "cpu"
+           for a in (x, w, scale, shift)):
+        return conv1x1_bn_act_reference(x, w, scale, shift, relu=relu)
+    x, w, scale, shift = _checked(x, w, scale, shift)
+    M, K = x.shape
+    N = w.shape[1]
     if M == 0:
-        return (y, torch.zeros(N, device=dev), torch.zeros(N, device=dev))
-    col_sum = torch.empty(N, dtype=torch.float32, device=dev)
-    col_sumsq = torch.empty(N, dtype=torch.float32, device=dev)
-    x = _aligned(x)
-    w = _aligned(w.to(torch.bfloat16))
-    scale = _aligned(scale.to(torch.float32))
-    shift = _aligned(shift.to(torch.float32))
-    block_n, grid_m = _grid(
-        M, N, torch.cuda.get_device_properties(dev).multi_processor_count)
-    partial = torch.empty((2, grid_m, N), dtype=torch.float32, device=dev)
-    counter = torch.zeros(-(-N // block_n), dtype=torch.int32, device=dev)
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        rc = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                shift.data_ptr(), y.data_ptr(), col_sum.data_ptr(),
-                col_sumsq.data_ptr(), partial.data_ptr(), counter.data_ptr(),
-                M, K, N, _X_DTYPES[x.dtype], int(bool(relu)), block_n,
-                grid_m, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise MXNetError(f"conv1x1_bn_act: kernel launch failed with CUDA "
-                         f"error {rc} at M={M}, K={K}, N={N}, {x.dtype}")
+        dev = x.device
+        return (torch.empty((0, N), dtype=torch.bfloat16, device=dev),
+                torch.zeros(N, device=dev), torch.zeros(N, device=dev))
+    out = _run(x, w, scale, shift, relu,
+               *_schedule(M, K, N, _sm_count(x.device),
+                          x.dtype == torch.bfloat16))
     with _count_lock:
         launches += 1
-    return y, col_sum, col_sumsq
+    return out

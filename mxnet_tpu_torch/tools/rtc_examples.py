@@ -46,7 +46,7 @@ SIGNATURES = {
 }
 _THREADS = 256           # elementwise kernels: threads a block
 _BLOCKS_PER_SM = 8       # ... and at most this many blocks an SM
-_ROW_THREADS = 1024      # log_softmax: threads a block, one block a row
+_ROW_THREADS = 128       # log_softmax: threads a block, one block a row
 
 _lock = threading.Lock()
 _modules: Dict[str, CudaModule] = {}
@@ -82,8 +82,8 @@ def _grid(x: NDArray, per_thread: int = 1) -> tuple:
 
 
 def axpy(x: NDArray, y: NDArray) -> NDArray:
-    """o = 2x + y (f32) on the card."""
-    return kernel("axpy").launch([x, y, x.size], grid_dims=_grid(x),
+    """o = 2x + y (f32) on the card, 4 values a thread."""
+    return kernel("axpy").launch([x, y, x.size], grid_dims=_grid(x, 4),
                                  block_dims=(_THREADS, 1, 1),
                                  out_shapes=[x.shape])
 
@@ -119,13 +119,12 @@ def gelu_tanh_bwd(x: NDArray, dy: NDArray) -> NDArray:
 
 def log_softmax(x: NDArray) -> NDArray:
     """Log-softmax over the last axis of a 2-D bf16 array on the card, one
-    block a row, the row staged as f32 in ``cols * 4`` bytes of dynamic
-    shared memory."""
+    128-thread block a row, two passes over the row (online max and sum,
+    then the output), no dynamic shared memory."""
     rows, cols = x.shape
     return kernel("log_softmax").launch(
-        [x, rows, cols], grid_dims=(rows, 1, 1),
-        block_dims=(_ROW_THREADS, 1, 1), shared_mem=cols * 4,
-        out_shapes=[x.shape])
+        [x, rows, cols], grid_dims=(max(1, rows), 1, 1),
+        block_dims=(_ROW_THREADS, 1, 1), out_shapes=[x.shape])
 
 
 # ---------------------------------------------------------------------------

@@ -219,21 +219,23 @@ CSRC_FILES = sorted((PKG / "csrc").glob("*.cu")) + \
 @pytest.mark.parametrize("path", CSRC_FILES, ids=lambda p: p.name)
 def test_kernel_sources_do_their_own_products(path):
     """Each kernel multiplies on the tensor cores in code of the repo: the
-    flash-attention kernels (K1, K2, K3) with wgmma, through the PTX
-    wrappers of hopper.cuh, which only they include; K4 with mma.sync. No
-    source includes a library of finished kernels (cuBLAS, CUTLASS, cuDNN,
-    PyTorch); the shared header alone includes the driver API's header,
-    for the tensor-map type and its encode's signature."""
+    flash-attention kernels (K1, K2, K3) and the fused 1x1 convolution (K4)
+    with wgmma, through the PTX wrappers of hopper.cuh, the one header they
+    include; none with mma.sync. No source includes a library of finished
+    kernels (cuBLAS, CUTLASS, cuDNN, PyTorch); the shared header alone
+    includes the driver API's header, for the tensor-map type and its
+    encode's signature."""
     src = path.read_text()
     allowed = {"<cuda_bf16.h>", "<cuda_runtime.h>", "<stdint.h>"}
     if path.name == "hopper.cuh":
         assert "wgmma.mma_async.sync.aligned" in src
         allowed.add("<cuda.h>")
-    elif path.name.startswith("flash_attention"):
-        assert "wgmma_" in _code(path)
-        allowed = {'"hopper.cuh"'}
     else:
-        assert "mma.sync.aligned.m16n8k16" in src
+        assert path.name.startswith("flash_attention") or \
+            path.name == "fused_conv1x1.cu", path.name
+        assert "wgmma_" in _code(path)
+        assert "mma.sync" not in _code(path)
+        allowed = {'"hopper.cuh"'}
     includes = {ln.split()[1] for ln in src.splitlines()
                 if ln.startswith("#include")}
     assert includes <= allowed, includes
@@ -269,6 +271,44 @@ def test_k1_bf16_is_the_hopper_design():
     # the register-A form: {a0..a3} then the B descriptor, transpose-B set
     assert "\"{%32, %33, %34, %35}, %36, p, 1, 1, 1;" in code
     assert "-lcuda" not in (PKG / "ops" / "_build.py").read_text()
+
+
+def test_k4_bf16_is_the_hopper_design():
+    """K4 is persistent and warp-specialised: a producer loads x, w, scale
+    and shift by TMA (2-D and 1-D tensor maps, encoded through the driver's
+    entry point) into an mbarrier ring; the consumers apply the BatchNorm
+    prologue in registers to fragments read with ldmatrix and multiply
+    with wgmma, A from registers and w transposed (N-major) from shared
+    memory; y leaves by TMA store; split K and the moments meet without
+    float atomics; no mma.sync route is left."""
+    code = _code(PKG / "csrc" / "fused_conv1x1.cu")
+    header = _code(PKG / "csrc" / "hopper.cuh")
+    kernel = _body(code, "conv1x1_bn_act_kernel")
+    for needle in ("tma_load_2d(", "tma_load_1d(", "tma_store_2d(",
+                   "mbar_wait(", "mbar_expect_tx(", "wgmma_rs<BN>(",
+                   "prologue<XT>(", "setmaxnreg.dec", "setmaxnreg.inc",
+                   "load_acquire(flags + tile)", "atomicAdd(tickets + strip",
+                   "__grid_constant__ CUtensorMap"):
+        assert needle in kernel or needle in code[:code.index(kernel)][-1500:], \
+            needle
+    assert "ldmatrix.sync.aligned.m8n8.x4.shared.b16" in code
+    assert "affine2(" in _body(code, "prologue")
+    assert "fmaf(" in _body(code, "affine2")
+    for n in (64, 128, 256):
+        assert f"wgmma_rs_n{n}(" in _body(code, "wgmma_rs")
+        ptx = f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16"
+        body = _body(header, f"wgmma_rs_n{n}")
+        assert ptx in body and "p, 1, 1, 1;" in body, n
+    for helper, ptx in (("tma_load_2d", "cp.async.bulk.tensor.2d.shared::"
+                                        "cluster.global.mbarrier::complete_tx"),
+                        ("tma_load_1d", "cp.async.bulk.tensor.1d.shared::"
+                                        "cluster.global.mbarrier::complete_tx"),
+                        ("tma_store_2d", "cp.async.bulk.tensor.2d.global."
+                                         "shared::cta")):
+        assert ptx in _body(header, helper), helper
+    assert "encode_matrix(" in code and "encode_vector(" in code
+    assert "atomicAdd(float" not in code and "red.global.add.f32" not in code
+    assert "mma.sync" not in code
 
 
 def _body(code, name):
@@ -392,7 +432,7 @@ def test_chip_smoke_fails_without_a_card_or_the_package(where, tmp_path):
 
 
 @pytest.mark.parametrize("tool,variant", [
-    (tool, name) for tool in ("k1_ablation", "bwd_ablation")
+    (tool, name) for tool in ("k1_ablation", "bwd_ablation", "k4_compare")
     for name in __import__(f"mxnet_tpu_torch.tools.{tool}",
                            fromlist=["VARIANTS"]).VARIANTS])
 def test_ablation_variants_still_match_the_kernel_sources(tool, variant):
