@@ -56,7 +56,7 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    1e-3 x max(1, max|plain|) of itself (f32 sums over up to 401,408 rows in
    another order); each of the nine twice, bitwise equal (the moments are
    reduced in a fixed order). At each of the nine it prints the schedule
-   (tile width, split of K, blocks) and times the kernel, the plain
+   (tile width, blocks) and times the kernel, the plain
    version, ``torch.matmul`` of the pre-activated bf16 x with w (the
    product alone) and the library composition of the same function
    (``tools/k4_compare.py``: the prologue, ``torch.mm`` with an f32

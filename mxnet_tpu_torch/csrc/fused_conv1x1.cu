@@ -11,54 +11,53 @@
 //
 // The TPU kernel keeps all of K x N resident and walks M tiles in order,
 // carrying the moments in VMEM scratch across the grid. Here a persistent
-// grid (at most one 384-thread block per SM) walks work units: a unit is a
-// 128-row x BN-column output tile (BN = 64, 128 or 256) and, where M is
-// too small to fill the card, a range of K (split K: `split` units a tile,
-// split index fastest, then the column tile, then the row tile).
+// grid (at most one 384-thread block per SM) walks the 128-row x
+// BN-column output tiles (BN = 64, 128 or 256), column tile fastest, so
+// the tiles that read one x tile run together and find it in L2. (Split K
+// for the small-M stages was built and measured slower at every shape:
+// PERF.md, PR 7.)
 // - Warpgroup 0 is the producer: one thread keeps a ring of `stages`
 //   buffers full by TMA through full/empty mbarriers. A buffer holds a
 //   64-wide K chunk: x as 128 rows x 64 bf16 (or two panels of 128 x 32
 //   f32), 128-byte swizzled; w as BN/64 panels of 64 K-rows x 64 columns,
 //   128-byte swizzled; and the chunk's 64 values of scale and of shift.
 //   Boxes past M or K read zeros, so x, w, scale and shift past K are all
-//   zero there and add nothing. Where one column tile covers N and there is
-//   no split (ResNet-50's stage 2), w is loaded once and stays resident in
-//   shared memory for the kernel's life, as the Pallas kernel keeps it.
+//   zero there and add nothing. Where one column tile covers N (ResNet-50's
+//   stage 2), w is loaded once and stays resident in shared memory for the
+//   kernel's life, as the Pallas kernel keeps it.
 // - Warpgroups 1 and 2 each own 64 of the tile's rows. For each 16-wide
 //   step of a chunk a consumer reads its x fragment from the swizzled tile
 //   (ldmatrix; f32: 8-byte loads), applies the affine and the ReLU in f32
 //   registers and packs the result to bf16 in the register A layout of
 //   wgmma (the prologue); the products run as wgmma with A from registers
 //   and B = w read N-major from shared memory (m64nNk16, N = BN), one
-//   group a step, so a step's prologue overlaps the products of the three
-//   steps before it. The two consumer warpgroups interleave on the tensor
-//   cores.
-// - Split K: each unit but the tile's last writes its f32 accumulators to
-//   a workspace and raises the tile's flag; the last (the tile's owner)
-//   waits for the flags and adds the partials in split order, so y and its
-//   moments do not depend on timing. Units are handed out in order and a
-//   tile's owner has its highest index, so it only waits for units that
-//   are already running (the grid never exceeds the SMs).
-// - Epilogue (the owner): y rounded to bf16, staged swizzled in shared
-//   memory and stored by TMA (rows past M are not written). The moments of
-//   the f32 y over the rows below M: a lane adds its two rows, the eight
-//   lanes of a column group reduce-scatter by shuffles, the eight warps
-//   meet in shared memory in a fixed order, and each column's running sum
-//   stays in a register while the block's units stay in one column strip.
-//   When the strip changes the sums are added into the block's own row of
-//   a (blocks, 2, N) workspace and the strip's ticket counts the tiles;
-//   the block that completes a strip sums the blocks' rows in a fixed
-//   order into col_sum / col_sumsq and zeroes the rows and the ticket, so
-//   the workspace is zero again for the next call. No float
-//   atomics: two calls are bitwise equal. Rows at or past M (the ragged
-//   last tile, where x_hat = relu(shift) is not zero) stay out of the
-//   moments. (The Pallas kernel sums every row of its last tile, so its
-//   moments are wrong when block_m does not divide M; this kernel is not.)
+//   group a step, so a step's prologue overlaps the products of
+//   the steps before it (three; one at BN = 256, for the registers). The
+//   two consumer warpgroups interleave on the tensor cores.
+// - Epilogue: y rounded to bf16, staged swizzled in shared memory and
+//   stored by TMA (rows past M are not written). The moments of the f32 y
+//   over the rows below M: a lane adds its two rows, the eight lanes of a
+//   column group reduce-scatter by shuffles, and each warp adds its
+//   columns into its own rows of running sums in shared memory, which hold
+//   while the block's tiles stay in one column strip. When the strip
+//   changes the eight warps' rows meet in a fixed order and are added into
+//   the block's own row of a (blocks, 2, N) workspace, and the strip's
+//   ticket counts the tiles; the block that completes a strip sums the
+//   blocks' rows in a fixed order into col_sum / col_sumsq and zeroes the
+//   rows and the ticket, so the workspace is zero again for the next call.
+//   No float atomics: two calls are bitwise equal. Rows at or past M (the
+//   ragged last tile, where x_hat = relu(shift) is not zero) stay out of
+//   the moments. (The Pallas kernel sums every row of its last tile, so
+//   its moments are wrong when block_m does not divide M; this kernel is
+//   not.)
 //
 // Bound. At ResNet-50's batch-128 1x1 shapes the kernel must read x and w
 // once and write y once: 103 to 257 MB at stages 2-4 (31-77 us at 3.35
 // TB/s, bound by bytes) and 13.15 GFLOP at stage 5 (13.3 us at 989
-// TFLOP/s, bound by operations). Measured times: PERF.md.
+// TFLOP/s, bound by operations). At stages 4-5 the 128 x 256 tiles read
+// w again for every row tile and x for every column tile, from L2: 65-154
+// MB, which bounds those shapes on the card before the products do.
+// Measured times: PERF.md.
 //
 // Plain C interface, loaded with ctypes by mxnet_tpu_torch/ops/cuda/
 // fused_conv1x1.py. The five tensor maps are encoded on the host at every
@@ -120,15 +119,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
       : "r"(a));
 }
 
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.b32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
 __device__ __forceinline__ void consumers_sync() {  // both consumer groups
   asm volatile("bar.sync 3, 256;\n" ::: "memory");
 }
@@ -157,6 +147,16 @@ __device__ __forceinline__ void halve(float (&acc)[N2], int lane) {
       acc[sum_at(i) + k] = (hi ? hi_v : lo_v) + got;
     }
   }
+}
+
+// The place of column c in a warp's row of running moments: the lane that
+// holds c after the reduce-scatter is 4 g + t, g = the entry's index / (CN
+// / 8), and keeps its entry i at i * 32 + lane.
+template <int BN>
+__device__ __forceinline__ int red_slot(int c) {
+  constexpr int CN8 = BN / 32;  // entries a lane keeps
+  const int idx = 2 * (c >> 3) + (c & 1);  // c's entry among the CN
+  return (idx % CN8) * 32 + (idx / CN8) * 4 + ((c >> 1) & 3);
 }
 
 __device__ __forceinline__ void warp_release(uint32_t bar, int lane) {
@@ -237,10 +237,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                           float* __restrict__ col_sum,
                           float* __restrict__ col_sumsq,
                           float* __restrict__ slots,
-                          float* __restrict__ partial,
-                          int* __restrict__ tickets, int* __restrict__ flags,
-                          int M, int K, int N, int relu, int split,
-                          int stages, int resident) {
+                          int* __restrict__ tickets, int M, int K, int N,
+                          int relu, int stages, int resident) {
   using C = Cfg<XT, BN>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -256,9 +254,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                                 16 * stages + 8);
   const int n_tiles = (N + BN - 1) / BN;
   const int m_tiles = (M + kBM - 1) / kBM;
-  const int per = (kchunks + split - 1) / split;  // chunks a split
-  const int units = m_tiles * n_tiles * split;
-  const int wg = threadIdx.x / 128;
+  const int units = m_tiles * n_tiles;
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < stages; ++st) {
@@ -270,6 +266,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
+  const int wg = threadIdx.x / 128;
   if (wg == 0) {
     // ---- producer ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
@@ -284,10 +281,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       int it = 0;
       for (int u = blockIdx.x; u < units; u += gridDim.x) {
-        const int s = u % split, tile = u / split;
-        const int n0 = (tile % n_tiles) * BN, m0 = (tile / n_tiles) * kBM;
-        const int kc1 = min(kchunks, (s + 1) * per);
-        for (int kc = s * per; kc < kc1; ++kc, ++it) {
+        const int n0 = (u % n_tiles) * BN, m0 = (u / n_tiles) * kBM;
+        for (int kc = 0; kc < kchunks; ++kc, ++it) {
           const int st = it % stages;
           mbar_wait(empty(st), ((it / stages) & 1) ^ 1);
           mbar_expect_tx(full(st), L.stage + kSS);
@@ -323,44 +318,37 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (resident) mbar_wait(w_full, 0);
 
-  // The lane's running moments over the tiles of the current strip: after
-  // the reduce-scatter below, lane (g, t) of a warp holds CN / 8 columns of
-  // the warp's rows, entries first .. first + CN / 8 of its CN = BN / 4
+  // The running moments over the tiles of the current strip, one row of
+  // sums and one of squares a warp, in shared memory (`red`): after the
+  // reduce-scatter below, each lane holds CN / 8 of the warp's columns and
+  // adds them into its own places, place i * 32 + lane for its entry i (no
+  // bank conflicts); red_slot() finds a column's place.
   constexpr int CN = BN / 4;
-  const int first = ((g >> 2) & 1) * (CN / 2) + ((g >> 1) & 1) * (CN / 4) +
-                    (g & 1) * (CN / 8);
-  float run[CN / 8][2];
+  float* const rw = red + (c * 4 + warp) * 2 * BN;
 #pragma unroll
-  for (int i = 0; i < CN / 8; ++i) run[i][0] = run[i][1] = 0.f;
+  for (int i = 0; i < CN / 8; ++i) rw[i * 32 + lane] = rw[BN + i * 32 + lane] = 0.f;
   int pending = 0, strip = -1;  // tiles in the running sums, their strip
 
-  // the eight warps' running sums meet in shared memory in a fixed order
-  // and are added into the block's row; the block that completes the
-  // strip's tiles reduces every block's row into the outputs
+  // the eight warps' running sums meet in a fixed order and are added into
+  // the block's row; the block that completes the strip's tiles reduces
+  // every block's row into the outputs
   auto flush = [&]() {
     const int n0 = strip * BN;
-    float* const rw = red + (c * 4 + warp) * 2 * BN;
-#pragma unroll
-    for (int i = 0; i < CN / 8; ++i) {
-      const int idx = first + i;
-      const int col = 8 * (idx >> 1) + 2 * t + (idx & 1);
-      rw[col] = run[i][0];
-      rw[BN + col] = run[i][1];
-      run[i][0] = run[i][1] = 0.f;
-    }
     consumers_sync();
     if (ctid < BN && n0 + ctid < N) {
       float ts = 0.f, tq = 0.f;
 #pragma unroll
       for (int w8 = 0; w8 < 8; ++w8) {
-        ts += red[w8 * 2 * BN + ctid];
-        tq += red[w8 * 2 * BN + BN + ctid];
+        ts += red[w8 * 2 * BN + red_slot<BN>(ctid)];
+        tq += red[w8 * 2 * BN + BN + red_slot<BN>(ctid)];
       }
       slot[n0 + ctid] = __ldcg(slot + n0 + ctid) + ts;
       slot[N + n0 + ctid] = __ldcg(slot + N + n0 + ctid) + tq;
     }
     __threadfence();
     consumers_sync();
+#pragma unroll
+    for (int i = 0; i < CN / 8; ++i) rw[i * 32 + lane] = rw[BN + i * 32 + lane] = 0.f;
     if (ctid == 0)
       *last_flag = atomicAdd(tickets + strip, pending) + pending == m_tiles;
     pending = 0;
@@ -372,39 +360,33 @@ __global__ void __launch_bounds__(kThreads, 1)
     constexpr int V = BN / 2, R = 256 / V;
     const int v = ctid % V, r = ctid / V;
     const int stat = v / (BN / 4), col = n0 + (v % (BN / 4)) * 4;
-    float4 a[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    constexpr int U = 8;  // rows in flight a thread
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
     if (col < N) {  // each row read, then zeroed for the next call
       float* const p = slots + (size_t)stat * N + col;
       const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      int b = r;
-      for (; b + 3 * R < (int)gridDim.x; b += 4 * R) {
-        float4 x[4];
+      for (int b0 = r; b0 < (int)gridDim.x; b0 += U * R) {
+        float4 x[U];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          x[j] = __ldcg(reinterpret_cast<const float4*>(
-              p + (size_t)(b + j * R) * 2 * N));
+        for (int j = 0; j < U; ++j)
+          if (b0 + j * R < (int)gridDim.x)
+            x[j] = __ldcg(reinterpret_cast<const float4*>(
+                p + (size_t)(b0 + j * R) * 2 * N));
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          a[j].x += x[j].x; a[j].y += x[j].y;
-          a[j].z += x[j].z; a[j].w += x[j].w;
-          __stcg(reinterpret_cast<float4*>(p + (size_t)(b + j * R) * 2 * N),
-                 z);
-        }
-      }
-      for (; b < (int)gridDim.x; b += R) {
-        float4* const q = reinterpret_cast<float4*>(p + (size_t)b * 2 * N);
-        const float4 x = __ldcg(q);
-        a[0].x += x.x; a[0].y += x.y; a[0].z += x.z; a[0].w += x.w;
-        __stcg(q, z);
+        for (int j = 0; j < U; ++j)
+          if (b0 + j * R < (int)gridDim.x) {  // rows in order
+            a.x += x[j].x; a.y += x[j].y; a.z += x[j].z; a.w += x[j].w;
+            __stcg(reinterpret_cast<float4*>(p + (size_t)(b0 + j * R) * 2 * N),
+                   z);
+          }
       }
     }
-    float4* part = reinterpret_cast<float4*>(red);
-    part[r * V + v] = make_float4((a[0].x + a[1].x) + (a[2].x + a[3].x),
-                                  (a[0].y + a[1].y) + (a[2].y + a[3].y),
-                                  (a[0].z + a[1].z) + (a[2].z + a[3].z),
-                                  (a[0].w + a[1].w) + (a[2].w + a[3].w));
+    // the parts meet in the first group's y staging buffer, once its last
+    // store has read it
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    consumers_sync();
+    float4* const part = reinterpret_cast<float4*>(smem + L.staging);
+    part[r * V + v] = a;
     consumers_sync();
     if (ctid < V && col < N) {
       float4 sum = part[v];
@@ -421,23 +403,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the warp's 16 rows x BN: acc[4j + e] is row g, column 8j + 2t + e;
   // acc[4j + 2 + e] row g + 8
   float acc[BN / 2];
-  uint32_t fr[4][4];  // A fragments of the four 16-wide steps of a chunk
+  // A fragments of the last FR 16-wide steps (FR groups in flight; two at
+  // BN = 256, whose 128 accumulators leave fewer registers)
+  constexpr int FR = BN == 256 ? 2 : 4;
+  uint32_t fr[FR][4];
   int it = 0;
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
-    const int s = u % split, tile = u / split;
-    const int nt = tile % n_tiles;
-    const int n0 = nt * BN, m0 = (tile / n_tiles) * kBM;
-    const int kc0 = s * per, kc1 = min(kchunks, (s + 1) * per);
+    const int nt = u % n_tiles;
+    const int n0 = nt * BN, m0 = (u / n_tiles) * kBM;
+    if (strip != nt && pending > 0) flush();
+    strip = nt;
 #pragma unroll
     for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
 
     // Each 16-wide step is one wgmma group: its fragment is rebuilt once
-    // the group four steps back (the same step of the chunk before) is
-    // complete, so a step's prologue overlaps the three groups before it.
-    // The chunk before's buffer goes back to the producer at its last
-    // step's completion.
+    // the group FR steps back is complete, so a step's prologue overlaps
+    // the FR - 1 groups before it. The chunk before's buffer goes back to
+    // the producer once its last step is complete.
     int prev = -1;
-    for (int kc = kc0; kc < kc1; ++kc, ++it) {
+    for (int kc = 0; kc < kchunks; ++kc, ++it) {
       const int st = it % stages;
       mbar_wait(full(st), (it / stages) & 1);
       const uint32_t xs = base + st * L.stage;
@@ -446,16 +430,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float* ss = reinterpret_cast<const float*>(smem + L.ss + st * kSS);
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
-        wgmma_wait<3>();
-        fence_regs(fr[ks]);
-        if (ks == 3 && prev >= 0) warp_release(empty(prev), lane);
-        prologue<XT>(fr[ks], ks, xs, smem + st * L.stage, ss,
-                     c * 64 + warp * 16, lane, relu);
-        fence_regs(fr[ks]);
+        uint32_t(&f)[4] = fr[ks % FR];
+        wgmma_wait<FR - 1>();
+        fence_regs(f);
+        // the chunk before's last group is complete once FR - 1 of this
+        // chunk's are pending
+        if (ks == FR - 1 && prev >= 0) warp_release(empty(prev), lane);
+        prologue<XT>(f, ks, xs, smem + st * L.stage, ss, c * 64 + warp * 16,
+                     lane, relu);
+        fence_regs(f);
         fence_regs(acc);
         wgmma_fence();
-        wgmma_rs<BN>(acc, fr[ks],
-                     smem_desc(wb + ks * 16 * 128, kPanel, 1024, 1));
+        wgmma_rs<BN>(acc, f, smem_desc(wb + ks * 16 * 128, kPanel, 1024, 1));
         wgmma_commit();
       }
       prev = st;
@@ -463,50 +449,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_wait<0>();
     fence_regs(acc);
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) fence_regs(fr[ks]);
+    for (int i = 0; i < FR; ++i) fence_regs(fr[i]);
     warp_release(empty(prev), lane);
-
-    // ---- split K: partials to the workspace, or the owner sums them ----
-    if (split > 1) {
-      float4* const ws = reinterpret_cast<float4*>(partial) +
-                         (size_t)tile * (split - 1) * 256 * (BN / 8);
-      if (s < split - 1) {
-        float4* const dst = ws + (size_t)s * 256 * (BN / 8);
-#pragma unroll
-        for (int i = 0; i < BN / 8; ++i)
-          __stcg(dst + i * 256 + ctid,
-                 make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
-                             acc[4 * i + 3]));
-        __threadfence();
-        consumers_sync();
-        if (ctid == 0) atomicAdd(flags + tile, 1);
-        continue;
-      }
-      if (ctid == 0) {
-        while (load_acquire(flags + tile) < split - 1) {
-        }
-        flags[tile] = 0;
-      }
-      consumers_sync();
-      __threadfence();
-      // own + p_0 + p_1 + ...: a fixed order, eight loads in flight at once
-      for (int j = 0; j < split - 1; ++j) {
-        const float4* const src = ws + (size_t)j * 256 * (BN / 8) + ctid;
-#pragma unroll
-        for (int i0 = 0; i0 < BN / 8; i0 += 8) {
-          float4 p[8];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) p[i] = __ldcg(src + (i0 + i) * 256);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            acc[4 * (i0 + i)] += p[i].x;
-            acc[4 * (i0 + i) + 1] += p[i].y;
-            acc[4 * (i0 + i) + 2] += p[i].z;
-            acc[4 * (i0 + i) + 3] += p[i].w;
-          }
-        }
-      }
-    }
 
     // ---- y: bf16, staged swizzled, stored by TMA ----
     if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -556,20 +500,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       acc[sum_at(i) + 2] = fmaf(a, a, b * b);
     }
     // reduce-scatter over the eight lanes of a column group (g): lane g
-    // keeps entries first .. first + CN / 8, in entries 0 .. CN / 8
+    // keeps entries g * CN / 8 .. + CN / 8 (g's bits from the first halving
+    // down), in entries 0 .. CN / 8
     halve<BN / 2, CN / 2, 16>(acc, lane);
     halve<BN / 2, CN / 4, 8>(acc, lane);
     halve<BN / 2, CN / 8, 4>(acc, lane);
-    if (strip != nt && pending > 0) flush();
-    strip = nt;
 #pragma unroll
     for (int i = 0; i < CN / 8; ++i) {
-      run[i][0] += acc[sum_at(i)];
-      run[i][1] += acc[sum_at(i) + 2];
+      rw[i * 32 + lane] += acc[sum_at(i)];
+      rw[BN + i * 32 + lane] += acc[sum_at(i) + 2];
     }
     ++pending;
     const int next = u + gridDim.x;
-    if (next >= units || (next / split) % n_tiles != nt) flush();
+    if (next >= units || next % n_tiles != nt) flush();
   }
   if (pending > 0) flush();
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
@@ -578,13 +521,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <typename XT, int BN>
 int launch(const void* x, const void* w, const void* scale,
            const void* shift, void* y, float* col_sum, float* col_sumsq,
-           float* slots, float* partial, int* tickets, int* flags, int M,
-           int K, int N, int relu, int split, int blocks,
-           cudaStream_t stream) {
+           float* slots, int* tickets, int M, int K, int N, int relu,
+           int blocks, cudaStream_t stream) {
   using C = Cfg<XT, BN>;
   const int kchunks = (K + kKC - 1) / kKC;
-  const bool resident = (N + BN - 1) / BN == 1 && split == 1 &&
-                        kchunks * C::W_STAGE <= kResidentMax;
+  const bool resident =
+      (N + BN - 1) / BN == 1 && kchunks * C::W_STAGE <= kResidentMax;
   const uint32_t fixed = layout<XT, BN>(0, resident ? kchunks : 0).total;
   const uint32_t per_stage = C::X_STAGE + (resident ? 0 : C::W_STAGE) + kSS +
                              16;
@@ -627,7 +569,7 @@ int launch(const void* x, const void* w, const void* scale,
     return -static_cast<int>(r);
   conv1x1_bn_act_kernel<XT, BN><<<blocks, kThreads, l.total, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], col_sum, col_sumsq, slots,
-      partial, tickets, flags, M, K, N, relu, split, stages, resident);
+      tickets, M, K, N, relu, stages, resident);
   return cudaGetLastError();
 }
 
@@ -635,42 +577,31 @@ int launch(const void* x, const void* w, const void* scale,
 
 // x: contiguous (M, K), bf16 (x_is_bf16 = 1) or f32; w: contiguous (K, N)
 // bf16; scale, shift: (K,) f32; y: (M, N) bf16; col_sum, col_sumsq: (N,)
-// f32. Workspaces: slots (blocks, 2, N) f32, zero (and left zero); partial
-// ceil(M / 128) * ceil(N / block_n) * (split - 1) * 128 * block_n f32
-// (split > 1 only); tickets ceil(N / block_n) and flags ceil(M / 128) *
-// ceil(N / block_n) int32, zero (the kernel leaves them zero). K and N
-// multiples of 8, every pointer 16-byte aligned, block_n 64, 128 or 256,
-// 1 <= split <= ceil(K / 64) with no split empty, 1 <= blocks <= the
-// number of units (ceil(M / 128) * ceil(N / block_n) * split) and, with
-// split > 1, at most the number of SMs. Returns 0, a cudaError_t, or minus
-// the CUresult of a failed tensor-map encode.
+// f32. Workspaces, zero (the kernel leaves them zero): slots (blocks, 2, N)
+// f32 and tickets ceil(N / block_n) int32. K and N multiples of 8, every
+// pointer 16-byte aligned, block_n 64, 128 or 256, 1 <= blocks <= the
+// number of tiles (ceil(M / 128) * ceil(N / block_n)). Returns 0, a
+// cudaError_t, or minus the CUresult of a failed tensor-map encode.
 extern "C" int mxt_conv1x1_bn_act(const void* x, const void* w,
                                   const void* scale, const void* shift,
                                   void* y, void* col_sum, void* col_sumsq,
-                                  void* slots, void* partial, void* tickets,
-                                  void* flags, int M, int K, int N,
-                                  int x_is_bf16, int relu, int block_n,
-                                  int split, int blocks, void* stream) {
+                                  void* slots, void* tickets, int M, int K,
+                                  int N, int x_is_bf16, int relu, int block_n,
+                                  int blocks, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8 ||
       (block_n != 64 && block_n != 128 && block_n != 256))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int kchunks = (K + kKC - 1) / kKC;
-  const long long units = (long long)((M + kBM - 1) / kBM) *
-                          ((N + block_n - 1) / block_n) * split;
-  if (split < 1 || split > kchunks ||
-      (split - 1) * ((kchunks + split - 1) / split) >= kchunks ||
-      blocks < 1 || blocks > units || units > INT32_MAX)
+  const long long tiles =
+      (long long)((M + kBM - 1) / kBM) * ((N + block_n - 1) / block_n);
+  if (blocks < 1 || blocks > tiles || tiles > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   float* cs = static_cast<float*>(col_sum);
   float* cq = static_cast<float*>(col_sumsq);
   float* sl = static_cast<float*>(slots);
-  float* pa = static_cast<float*>(partial);
   int* tk = static_cast<int*>(tickets);
-  int* fl = static_cast<int*>(flags);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MXT_ARGS \
-  x, w, scale, shift, y, cs, cq, sl, pa, tk, fl, M, K, N, relu, split, \
-      blocks, st
+  x, w, scale, shift, y, cs, cq, sl, tk, M, K, N, relu, blocks, st
   if (x_is_bf16) {
     if (block_n == 256) return launch<__nv_bfloat16, 256>(MXT_ARGS);
     if (block_n == 128) return launch<__nv_bfloat16, 128>(MXT_ARGS);

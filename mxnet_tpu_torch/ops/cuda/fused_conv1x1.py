@@ -14,10 +14,8 @@ moments, which the Pallas kernel does not do (it sums every row of its
 last tile, so its moments are wrong unless ``block_m`` divides M).
 
 The kernel is persistent: at most one block per SM walks 128-row x
-``block_n``-column output tiles and, where there are too few tiles to fill
-the card (ResNet-50's stages 4-5), ranges of K (split K, reduced in a fixed
-order before the moments are taken). :func:`_schedule` picks the tile
-width, the split and the grid from the shape and the SM count.
+``block_n``-column output tiles. :func:`_schedule` picks the tile width
+and the grid from the shape and the SM count.
 
 Bound on an H100: bytes at ResNet-50's stage 2-4 shapes (x read and y
 written once), operations at stage 5. Times are in PERF.md.
@@ -49,8 +47,6 @@ _LIB_NAME = "fused_conv1x1"
 _SOURCES = ("fused_conv1x1.cu",)
 _X_DTYPES = {torch.bfloat16: 1, torch.float32: 0}   # -> x_is_bf16 flag
 _BLOCK_M = 128                                     # rows of an output tile
-_CHUNK = 64                                        # K columns a ring buffer
-_MAX_SPLIT = 8
 
 #: kernel launches by :func:`conv1x1_bn_act` on CUDA tensors in this process
 launches = 0
@@ -66,7 +62,7 @@ def bind(lib: ctypes.CDLL):
     """The C entry ``mxt_conv1x1_bn_act`` of a loaded library, typed (the
     port's own, or a variant of its source that a tool builds)."""
     fn = lib.mxt_conv1x1_bn_act
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -93,42 +89,23 @@ def conv1x1_bn_act_reference(x, w, scale, shift, *, relu: bool = True):
     return y.to(torch.bfloat16), y.sum(dim=0), (y * y).sum(dim=0)
 
 
-def _fill(units: int, sms: int) -> float:
-    """The share of the SMs busy over the waves of ``units`` equal units."""
-    return units / (-(-units // sms) * sms)
-
-
 def _schedule(M: int, K: int, N: int, sms: int, x_is_bf16: bool = True):
-    """``(block_n, split, blocks)`` for one call: 64-column tiles for N <=
-    64, 128 for N <= 128 (and for f32 x, whose ring buffers are twice as
-    large), else 256. Where the tiles number fewer than two waves, K is
-    split in up to 8 ranges of at least four 64-column chunks each (the
-    f32 partials of a split tile are written and read back once), none
-    empty, if that fills the card's waves better by more than 5 points;
-    otherwise no split. ``blocks``, the persistent grid, is at most one
-    per SM."""
+    """``(block_n, blocks)`` for one call: 64-column tiles for N <= 64, 128
+    for N <= 128 (and for f32 x, whose ring buffers are twice as large),
+    else 256; ``blocks``, the persistent grid, one per SM at most. Where the
+    tiles are fewer than the SMs (ResNet-50's stage 5) the card is not
+    filled: narrower tiles or a split of K filled it and measured slower
+    on an H100 (PERF.md, PR 7). K does not enter the choice."""
     block_n = 64 if N <= 64 else 128 if N <= 128 or not x_is_bf16 else 256
     tiles = -(-M // _BLOCK_M) * -(-N // block_n)
-    chunks = -(-K // _CHUNK)
-    split, best = 1, _fill(tiles, sms)
-    if tiles < 2 * sms:
-        for s in range(2, min(_MAX_SPLIT, chunks // 4) + 1):
-            if (s - 1) * -(-chunks // s) < chunks and \
-                    _fill(tiles * s, sms) > best + 0.05:
-                split, best = s, _fill(tiles * s, sms)
-    return block_n, split, min(tiles * split, sms)
+    return block_n, min(tiles, sms)
 
 
-def _workspace_sizes(M: int, N: int, block_n: int, split: int,
-                     blocks: int):
-    """Sizes, in 4-byte words, of the zeroed workspace's three parts: the
-    blocks' moment rows (blocks, 2, N) f32, one ticket per column strip
-    and one flag per output tile (split K), int32; and of the split
-    partials, f32 (0 without a split)."""
-    n_tiles = -(-N // block_n)
-    tiles = -(-M // _BLOCK_M) * n_tiles
-    partial = tiles * (split - 1) * _BLOCK_M * block_n
-    return blocks * 2 * N, n_tiles, tiles, partial
+def _workspace_sizes(N: int, block_n: int, blocks: int):
+    """Sizes, in 4-byte words, of the zeroed workspace's two parts: the
+    blocks' moment rows (blocks, 2, N) f32 and one ticket per column strip,
+    int32."""
+    return blocks * 2 * N, -(-N // block_n)
 
 
 def _workspace(device: torch.device, words: int) -> torch.Tensor:
@@ -157,7 +134,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _run(x, w, scale, shift, relu, block_n, split, blocks, fn=None):
+def _run(x, w, scale, shift, relu, block_n, blocks, fn=None):
     """One launch on checked, aligned CUDA inputs with the given schedule
     (and C entry ``fn``, default the port's); returns ``(y, col_sum,
     col_sumsq)``. Uncounted: :func:`conv1x1_bn_act` counts its launches,
@@ -168,25 +145,20 @@ def _run(x, w, scale, shift, relu, block_n, split, blocks, fn=None):
     y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     col_sum = torch.empty(N, dtype=torch.float32, device=dev)
     col_sumsq = torch.empty(N, dtype=torch.float32, device=dev)
-    slots, tickets, flags, n_partial = _workspace_sizes(M, N, block_n, split,
-                                                        blocks)
-    ws = _workspace(dev, slots + tickets + flags)
-    base = ws.data_ptr()
-    partial = torch.empty(max(n_partial, 4), dtype=torch.float32, device=dev)
+    slots, tickets = _workspace_sizes(N, block_n, blocks)
+    base = _workspace(dev, slots + tickets).data_ptr()
     fn = fn or _kernel()
     with torch.cuda.device(dev):
         rc = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                 shift.data_ptr(), y.data_ptr(), col_sum.data_ptr(),
-                col_sumsq.data_ptr(), base, partial.data_ptr(),
-                base + 4 * slots, base + 4 * (slots + tickets), M, K, N,
-                _X_DTYPES[x.dtype], int(bool(relu)), block_n, split, blocks,
+                col_sumsq.data_ptr(), base, base + 4 * slots, M, K, N,
+                _X_DTYPES[x.dtype], int(bool(relu)), block_n, blocks,
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         what = (f"tensor-map encode failed with CUresult {-rc}" if rc < 0
                 else f"kernel launch failed with CUDA error {rc}")
         raise MXNetError(f"conv1x1_bn_act: {what} at M={M}, K={K}, N={N}, "
-                         f"{x.dtype}, block_n={block_n}, split={split}, "
-                         f"blocks={blocks}")
+                         f"{x.dtype}, block_n={block_n}, blocks={blocks}")
     return y, col_sum, col_sumsq
 
 

@@ -30,16 +30,16 @@ from a CUDA graph of 10 calls (``tools.graph_ms``: no host work inside):
 
 and the bound (bytes over 3.35 TB/s against operations over 989
 TFLOP/s). ``--schedules`` also times this tree's kernel under every other
-tile width (64, 128, 256 columns, up to N) and split of K (1, 2, 4, 8,
-none empty), each held to the plain version first. ``--variants`` builds
-the source with parts of the kernel taken out, each a text substitution
-(the tool stops if one no longer matches), timed under the chosen
-schedule (wrong results, timed only): ``no_affine`` (x goes to the
+tile width (64, 128, 256 columns, up to N), each held to the plain
+version first. ``--variants`` builds the source with parts of the kernel
+taken out, each a text substitution (the tool stops if one no longer
+matches), timed under the chosen schedule (wrong results, timed only): ``no_affine`` (x goes to the
 products as it is), ``no_products`` (no wgmma), ``no_moments`` (y stored,
 no moments), ``no_epilogue`` (neither y nor moments), ``loads_only`` (the
-three together: the TMA ring and its barriers). It prints the kernels'
-ptxas warnings, and one JSON line at the end. Needs one CUDA card and
-nvcc.
+three together: the TMA ring and its barriers), ``no_store_wait`` (y's
+staging does not wait for the last store to have read it). It prints the
+kernels' ptxas notes (registers, spills, warnings), and one JSON line at
+the end. Needs one CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -70,17 +70,21 @@ HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
 _AFFINE = ("  const float2 s = *reinterpret_cast<const float2*>(ss + col);\n"
            "  const float2 t = *reinterpret_cast<const float2*>(ss + kKC + "
            "col);\n  float a = fmaf(v.x, s.x, t.x), b = fmaf(v.y, s.y, t.y);")
-_PRODUCTS = "        wgmma_rs<BN>(acc, fr[ks],"
+_PRODUCTS = "        wgmma_rs<BN>(acc, f, smem_desc("
 _Y = "    // ---- y: bf16, staged swizzled, stored by TMA ----"
 _MOMENTS = "    // ---- moments of the f32 y over rows below M ----"
 _NO_AFFINE = [(_AFFINE, "  float a = v.x, b = v.y;")]
 _NO_PRODUCTS = [(_PRODUCTS, "        if (relu < 0) " + _PRODUCTS.lstrip())]
 _NO_MOMENTS = [(_MOMENTS, "    if (kchunks > 0) continue;\n" + _MOMENTS)]
 _NO_EPILOGUE = [(_Y, "    if (kchunks > 0) continue;\n" + _Y)]
+_STORE_WAIT = ('    if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\\n" ::: '
+               '"memory");\n    group_sync(c);')
+_NO_STORE_WAIT = [(_STORE_WAIT, "    group_sync(c);")]
 VARIANTS = {  # name: (substitutions, keeps the arithmetic)
     "no_affine": (_NO_AFFINE, False), "no_products": (_NO_PRODUCTS, False),
     "no_moments": (_NO_MOMENTS, False), "no_epilogue": (_NO_EPILOGUE, False),
-    "loads_only": (_NO_AFFINE + _NO_PRODUCTS + _NO_EPILOGUE, False)}
+    "loads_only": (_NO_AFFINE + _NO_PRODUCTS + _NO_EPILOGUE, False),
+    "no_store_wait": (_NO_STORE_WAIT, False)}
 
 
 def _source(subs, path=None):
@@ -166,20 +170,11 @@ def _errors(got, want):
     return max(out)
 
 
-def _schedules(M, K, N, sms):
-    """Every (block_n, split, blocks) the C entry takes at this shape, tile
-    widths up to N, splits 1, 2, 4, 8 with none empty."""
-    chunks = -(-K // 64)
-    out = []
-    for block_n in (64, 128, 256):
-        if block_n > max(64, N):
-            continue
-        tiles = -(-M // 128) * -(-N // block_n)
-        for split in (1, 2, 4, 8):
-            if split > chunks or (split - 1) * -(-chunks // split) >= chunks:
-                continue
-            out.append((block_n, split, min(tiles * split, sms)))
-    return out
+def _schedules(M, N, sms):
+    """Every (block_n, blocks) the C entry takes at this shape, tile widths
+    up to N, one block per SM at most."""
+    return [(bn, min(-(-M // 128) * -(-N // bn), sms))
+            for bn in (64, 128, 256) if bn <= max(64, N)]
 
 
 def compare(label, shape, gen, sms, parent, variants, schedules):
@@ -221,7 +216,7 @@ def compare(label, shape, gen, sms, parent, variants, schedules):
     xs, ws, ss, ts = fc._checked(x, w, scale, shift)
     if schedules:
         res["schedules"] = {}
-        for sch in _schedules(M, K, N, sms):
+        for sch in _schedules(M, N, sms):
             got = fc._run(xs, ws, ss, ts, True, *sch)
             if _errors(got, plain) > 1:
                 raise SystemExit(f"k4_compare: schedule {sch} disagrees at "

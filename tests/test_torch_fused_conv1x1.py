@@ -150,54 +150,47 @@ def test_kernel_call_refuses_what_the_kernel_does_not_take(fault):
 
 
 @pytest.mark.parametrize("M,K,N,sms,want", [
-    (401408, 64, 64, 132, (64, 1, 132)),     # stage 2, batch 128: 3136 tiles
-    (1568, 512, 2048, 132, (256, 1, 104)),   # stage 5, batch 32: 104 tiles
-    (1000, 64, 64, 132, (64, 1, 8)),         # ragged M
-    (100, 64, 8, 132, (64, 1, 1)),           # N = 8
-    (6272, 2048, 512, 132, (256, 4, 132)),   # s5_in: 98 tiles, split 4
-    (6272, 512, 2048, 132, (256, 1, 132)),   # s5_expand: 392 tiles
-    (25088, 1024, 256, 132, (256, 2, 132)),  # s4_in: 196 tiles, split 2
-    (1568, 2048, 512, 132, (256, 5, 130)),   # 26 tiles: split 5, 7 chunks
-    (100352, 512, 128, 132, (128, 1, 132))])
+    (401408, 64, 64, 132, (64, 132)),      # stage 2, batch 128: 3136 tiles
+    (1568, 512, 2048, 132, (256, 104)),    # stage 5, batch 32: 104 tiles
+    (1000, 64, 64, 132, (64, 8)),          # ragged M
+    (100, 64, 8, 132, (64, 1)),            # N = 8
+    (6272, 2048, 512, 132, (256, 98)),     # s5_in: 98 tiles, not split
+    (6272, 512, 2048, 132, (256, 132)),    # s5_expand: 392 tiles
+    (25088, 1024, 256, 132, (256, 132)),   # s4_in: 196 tiles
+    (100352, 512, 128, 132, (128, 132))])
 def test_grid_choice(M, K, N, sms, want):
-    """Tiles of 64 columns for N <= 64, 128 for N <= 128, else 256; K split
-    only where the tiles fill fewer than two waves and a split fills them
-    better (at least four 64-column chunks a split, none empty); one block
-    per SM at most, never more blocks than units."""
+    """Tiles of 64 columns for N <= 64, 128 for N <= 128, else 256; one
+    block per SM at most, never more blocks than tiles. K is not split at
+    stage 5 (s5_in fills 98 of 132 SMs): a split measured slower."""
     assert fc._schedule(M, K, N, sms) == want
 
 
 @pytest.mark.parametrize("M,K,N,want", [
-    (401408, 64, 256, (128, 1, 132)), (6272, 2048, 512, (128, 2, 132))])
+    (401408, 64, 256, (128, 132)), (6272, 2048, 512, (128, 132))])
 def test_grid_choice_for_f32_x(M, K, N, want):
     """f32 x (twice the bytes a ring buffer) keeps tiles of 128 columns."""
     assert fc._schedule(M, K, N, 132, x_is_bf16=False) == want
 
 
 def test_schedule_obeys_the_kernels_rules():
-    """Every schedule is one the C entry takes: no split empty, at least
-    four chunks a split, blocks between 1 and the units and at most the
-    SMs (a split tile's owner waits only for units already running)."""
-    for M, K, N, sms in itertools.product(
-            (1, 127, 129, 1000, 6272, 25088), (8, 64, 200, 512, 2048),
-            (8, 64, 136, 512, 2048), (1, 7, 132)):
-        block_n, split, blocks = fc._schedule(M, K, N, sms)
-        chunks = -(-K // 64)
-        per = -(-chunks // split)
-        assert block_n in (64, 128, 256)
-        assert block_n >= N or block_n == 256
-        assert split == 1 or (per >= 4 and (split - 1) * per < chunks)
-        units = -(-M // 128) * -(-N // block_n) * split
-        assert 1 <= blocks <= min(units, sms), (M, K, N, sms)
+    """Every schedule is one the C entry takes: a tile width of 64, 128 or
+    256 columns and between 1 and min(tiles, SMs) blocks."""
+    for M, K, N, sms, bf16 in itertools.product(
+            (1, 127, 129, 1000, 6272, 25088), (8, 64, 2048),
+            (8, 64, 136, 512, 2048), (1, 7, 132), (True, False)):
+        block_n, blocks = fc._schedule(M, K, N, sms, bf16)
+        assert block_n in ((64, 128, 256) if bf16 else (64, 128))
+        assert block_n >= min(N, 256 if bf16 else 128)
+        tiles = -(-M // 128) * -(-N // block_n)
+        assert 1 <= blocks <= min(tiles, sms), (M, K, N, sms)
 
 
 def test_workspace_sizes():
-    """The zeroed workspace holds (blocks, 2, N) f32 moment rows, one
-    ticket per column strip and one flag per tile; the split partials hold
-    (split - 1) f32 tiles per output tile."""
-    assert fc._workspace_sizes(6272, 512, 256, 4, 132) == (
-        132 * 2 * 512, 2, 49 * 2, 49 * 2 * 3 * 128 * 256)
-    assert fc._workspace_sizes(1000, 64, 64, 1, 8) == (8 * 2 * 64, 1, 8, 0)
+    """The zeroed workspace holds (blocks, 2, N) f32 moment rows and one
+    ticket per column strip."""
+    assert fc._workspace_sizes(512, 256, 132) == (132 * 2 * 512, 2)
+    assert fc._workspace_sizes(64, 64, 8) == (8 * 2 * 64, 1)
+    assert fc._workspace_sizes(24, 64, 1) == (2 * 24, 1)
 
 
 def test_workspace_is_cached_zeroed_and_grows():

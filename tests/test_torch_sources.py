@@ -279,15 +279,15 @@ def test_k4_bf16_is_the_hopper_design():
     entry point) into an mbarrier ring; the consumers apply the BatchNorm
     prologue in registers to fragments read with ldmatrix and multiply
     with wgmma, A from registers and w transposed (N-major) from shared
-    memory; y leaves by TMA store; split K and the moments meet without
-    float atomics; no mma.sync route is left."""
+    memory; y leaves by TMA store; the moments meet without float atomics
+    (a ticket per column strip); no mma.sync route is left."""
     code = _code(PKG / "csrc" / "fused_conv1x1.cu")
     header = _code(PKG / "csrc" / "hopper.cuh")
     kernel = _body(code, "conv1x1_bn_act_kernel")
     for needle in ("tma_load_2d(", "tma_load_1d(", "tma_store_2d(",
                    "mbar_wait(", "mbar_expect_tx(", "wgmma_rs<BN>(",
                    "prologue<XT>(", "setmaxnreg.dec", "setmaxnreg.inc",
-                   "load_acquire(flags + tile)", "atomicAdd(tickets + strip",
+                   "atomicAdd(tickets + strip",
                    "__grid_constant__ CUtensorMap"):
         assert needle in kernel or needle in code[:code.index(kernel)][-1500:], \
             needle
