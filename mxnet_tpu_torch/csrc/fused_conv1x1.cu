@@ -360,24 +360,33 @@ __global__ void __launch_bounds__(kThreads, 1)
     constexpr int V = BN / 2, R = 256 / V;
     const int v = ctid % V, r = ctid / V;
     const int stat = v / (BN / 4), col = n0 + (v % (BN / 4)) * 4;
+    // Block b's tiles are b, b + G, ... (G blocks), so only blocks b = strip
+    // (mod gcd(G, n_tiles)) can have a row for this strip: the others'
+    // rows are zero and are not read.
+    int d = gridDim.x, e = n_tiles;
+    while (e) {
+      const int q = d % e;
+      d = e;
+      e = q;
+    }
+    const int rows = ((int)gridDim.x - strip % d + d - 1) / d;
     constexpr int U = 8;  // rows in flight a thread
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
     if (col < N) {  // each row read, then zeroed for the next call
-      float* const p = slots + (size_t)stat * N + col;
+      float* const p = slots + (size_t)stat * N + col + (size_t)(strip % d) * 2 * N;
+      const size_t step = (size_t)d * 2 * N;
       const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int b0 = r; b0 < (int)gridDim.x; b0 += U * R) {
+      for (int k0 = r; k0 < rows; k0 += U * R) {
         float4 x[U];
 #pragma unroll
         for (int j = 0; j < U; ++j)
-          if (b0 + j * R < (int)gridDim.x)
-            x[j] = __ldcg(reinterpret_cast<const float4*>(
-                p + (size_t)(b0 + j * R) * 2 * N));
+          if (k0 + j * R < rows)
+            x[j] = __ldcg(reinterpret_cast<const float4*>(p + (k0 + j * R) * step));
 #pragma unroll
         for (int j = 0; j < U; ++j)
-          if (b0 + j * R < (int)gridDim.x) {  // rows in order
+          if (k0 + j * R < rows) {  // rows in order
             a.x += x[j].x; a.y += x[j].y; a.z += x[j].z; a.w += x[j].w;
-            __stcg(reinterpret_cast<float4*>(p + (size_t)(b0 + j * R) * 2 * N),
-                   z);
+            __stcg(reinterpret_cast<float4*>(p + (k0 + j * R) * step), z);
           }
       }
     }
