@@ -640,7 +640,7 @@ def phase_fused_conv(seed: int, smi: str):
             graph_ms(comp)
         bms, by, nbytes, flops = k4_bound_ms(M, K, N)
         print(f"K4 {label} (M={M}, K={K}, N={N}) bf16, schedule "
-              f"{fc._schedule(M, K, N, fc._sm_count(x.device))}: "
+              f"{fc._schedule(M, N, fc._sm_count(x.device))}: "
               f"max|dy|={errs[0]:.3g} max|dsum|={errs[1]:.3g} "
               f"max|dsumsq|={errs[2]:.3g} (worst {max(ratios):.3g} of "
               f"tolerance), repeatable={same} | kernel {ms:.4f} ms (graph "

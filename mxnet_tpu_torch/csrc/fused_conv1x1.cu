@@ -14,8 +14,8 @@
 // grid (at most one 384-thread block per SM) walks the 128-row x
 // BN-column output tiles (BN = 64, 128 or 256), column tile fastest, so
 // the tiles that read one x tile run together and find it in L2. (Split K
-// for the small-M stages was built and measured slower at every shape:
-// PERF.md, PR 7.)
+// for the small-M stages was built and measured slower at every shape;
+// PERF.md has the times.)
 // - Warpgroup 0 is the producer: one thread keeps a ring of `stages`
 //   buffers full by TMA through full/empty mbarriers. A buffer holds a
 //   64-wide K chunk: x as 128 rows x 64 bf16 (or two panels of 128 x 32

@@ -89,13 +89,13 @@ def conv1x1_bn_act_reference(x, w, scale, shift, *, relu: bool = True):
     return y.to(torch.bfloat16), y.sum(dim=0), (y * y).sum(dim=0)
 
 
-def _schedule(M: int, K: int, N: int, sms: int, x_is_bf16: bool = True):
+def _schedule(M: int, N: int, sms: int, x_is_bf16: bool = True):
     """``(block_n, blocks)`` for one call: 64-column tiles for N <= 64, 128
     for N <= 128 (and for f32 x, whose ring buffers are twice as large),
     else 256; ``blocks``, the persistent grid, one per SM at most. Where the
     tiles are fewer than the SMs (ResNet-50's stage 5) the card is not
     filled: narrower tiles or a split of K filled it and measured slower
-    on an H100 (PERF.md, PR 7). K does not enter the choice."""
+    on an H100 (PERF.md)."""
     block_n = 64 if N <= 64 else 128 if N <= 128 or not x_is_bf16 else 256
     tiles = -(-M // _BLOCK_M) * -(-N // block_n)
     return block_n, min(tiles, sms)
@@ -209,7 +209,7 @@ def conv1x1_bn_act(x, w, scale, shift, *, relu: bool = True):
         return (torch.empty((0, N), dtype=torch.bfloat16, device=dev),
                 torch.zeros(N, device=dev), torch.zeros(N, device=dev))
     out = _run(x, w, scale, shift, relu,
-               *_schedule(M, K, N, _sm_count(x.device),
+               *_schedule(M, N, _sm_count(x.device),
                           x.dtype == torch.bfloat16))
     with _count_lock:
         launches += 1

@@ -11,11 +11,11 @@ At ResNet-50's nine batch-128 1x1 shapes (bf16 x), it times, each replayed
 from a CUDA graph of 10 calls (``tools.graph_ms``: no host work inside):
 
 - ``change``: this tree's ``conv1x1_bn_act`` with its own schedule;
-- ``parent``: the earlier kernel, whose C entry is the PR 3-6 one
-  (``mxt_conv1x1_bn_act(x, w, scale, shift, y, col_sum, col_sumsq,
-  partial, counter, M, K, N, x_is_bf16, relu, block_n, grid_m, stream)``,
-  128-row tiles, its ticket counter zeroed by a fill every call, as its
-  wrapper did), built as the port builds its kernels under its own name;
+- ``parent``: the earlier kernel (the ``mma.sync`` design, up to commit
+  0f3769a), whose C entry is ``mxt_conv1x1_bn_act(x, w, scale, shift, y,
+  col_sum, col_sumsq, partial, counter, M, K, N, x_is_bf16, relu,
+  block_n, grid_m, stream)`` (128-row tiles, its ticket counter zeroed by
+  a fill every call, as its wrapper did), built as the port builds its kernels under its own name;
   parent and change run in turns (parent, change, change, parent), and the
   parent's outputs are held to this tree's within 2e-2 (y) and 1e-3 (the
   moments) x max(1, max|plain|) first;
@@ -185,7 +185,7 @@ def compare(label, shape, gen, sms, parent, variants, schedules):
     scale = torch.rand(K, generator=gen, device="cuda") + 0.5
     shift = 0.1 * torch.randn(K, generator=gen, device="cuda")
     plain = fc.conv1x1_bn_act_reference(x, w, scale, shift)
-    chosen = fc._schedule(M, K, N, sms)
+    chosen = fc._schedule(M, N, sms)
     res = {"M": M, "K": K, "N": N, "schedule": list(chosen)}
     if _errors(fc.conv1x1_bn_act(x, w, scale, shift), plain) > 1:
         raise SystemExit(f"k4_compare: K4 disagrees with its plain version "

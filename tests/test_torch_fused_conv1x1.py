@@ -162,27 +162,27 @@ def test_grid_choice(M, K, N, sms, want):
     """Tiles of 64 columns for N <= 64, 128 for N <= 128, else 256; one
     block per SM at most, never more blocks than tiles. K is not split at
     stage 5 (s5_in fills 98 of 132 SMs): a split measured slower."""
-    assert fc._schedule(M, K, N, sms) == want
+    assert fc._schedule(M, N, sms) == want
 
 
 @pytest.mark.parametrize("M,K,N,want", [
     (401408, 64, 256, (128, 132)), (6272, 2048, 512, (128, 132))])
 def test_grid_choice_for_f32_x(M, K, N, want):
     """f32 x (twice the bytes a ring buffer) keeps tiles of 128 columns."""
-    assert fc._schedule(M, K, N, 132, x_is_bf16=False) == want
+    assert fc._schedule(M, N, 132, x_is_bf16=False) == want
 
 
 def test_schedule_obeys_the_kernels_rules():
     """Every schedule is one the C entry takes: a tile width of 64, 128 or
     256 columns and between 1 and min(tiles, SMs) blocks."""
-    for M, K, N, sms, bf16 in itertools.product(
-            (1, 127, 129, 1000, 6272, 25088), (8, 64, 2048),
-            (8, 64, 136, 512, 2048), (1, 7, 132), (True, False)):
-        block_n, blocks = fc._schedule(M, K, N, sms, bf16)
+    for M, N, sms, bf16 in itertools.product(
+            (1, 127, 129, 1000, 6272, 25088), (8, 64, 136, 512, 2048),
+            (1, 7, 132), (True, False)):
+        block_n, blocks = fc._schedule(M, N, sms, bf16)
         assert block_n in ((64, 128, 256) if bf16 else (64, 128))
         assert block_n >= min(N, 256 if bf16 else 128)
         tiles = -(-M // 128) * -(-N // block_n)
-        assert 1 <= blocks <= min(tiles, sms), (M, K, N, sms)
+        assert 1 <= blocks <= min(tiles, sms), (M, N, sms)
 
 
 def test_workspace_sizes():
