@@ -140,7 +140,7 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    ``autograd.record()`` at BERT-base's FFN width, (64 * 128, 3072) bf16
    from ``nd.random.normal``, with ``loss = (y * w).sum()`` and
    ``loss.backward()`` (2 launches a step), and ``log_softmax`` at the MLM
-   logits' (64 * 19, 30522) bf16 with 122 KB of dynamic shared memory.
+   logits' (64 * 19, 30522) bf16, one 128-thread block a row.
    Checks: axpy, scale and k bitwise equal to their plain versions (2x is
    exact, so an FMA cannot change the sum), y and x.grad within one bf16
    ulp of each value of the plain versions and of
