@@ -11,9 +11,9 @@
 // (12 bytes; 25.6 M elements = 307 MB = 92 us at 3.35 TB/s); scale and k
 // 8 bytes an element. Design: a grid-stride loop, neighbouring threads on
 // neighbouring addresses. axpy moves 16 bytes (4 values) a thread per load
-// and store where x, y and o are 16-byte aligned (one float a thread
-// trailed torch.add on the device), the last n % 4 values (or every
-// value, unaligned) one at a time; scale and k one value a thread. 2x is exact, so axpy equals the plain 2 * x + y bitwise whether
+// and store where x, y and o are 16-byte aligned, the last n % 4 values
+// (or every value, unaligned) one at a time; scale and k one value a
+// thread. 2x is exact, so axpy equals the plain 2 * x + y bitwise whether
 // or not the compiler contracts it into an FMA.
 
 typedef unsigned long long u64;  // NVRTC has no <stddef.h>

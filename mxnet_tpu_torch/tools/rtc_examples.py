@@ -45,7 +45,6 @@ SIGNATURES = {
                    "__nv_bfloat16 *y",
 }
 _THREADS = 256           # elementwise kernels: threads a block
-_BLOCKS_PER_SM = 8       # ... and at most this many blocks an SM
 _ROW_THREADS = 128       # log_softmax: threads a block, one block a row
 
 _lock = threading.Lock()
@@ -73,12 +72,11 @@ def kernel(name: str) -> CudaKernel:
 
 
 def _grid(x: NDArray, per_thread: int = 1) -> tuple:
-    if not x.data.is_cuda:
-        return (1, 1, 1)             # the launch refuses a CPU array
-    sms = torch.cuda.get_device_properties(
-        x.data.device).multi_processor_count
-    want = math.ceil(max(1, x.size // per_thread) / _THREADS)
-    return (max(1, min(want, _BLOCKS_PER_SM * sms)), 1, 1)
+    """One thread for every ``per_thread`` values (the kernels' grid-stride
+    loops then run once): a grid capped at 8 blocks an SM left each thread
+    one load in flight at a time and trailed PyTorch's elementwise kernels
+    on the device."""
+    return (max(1, math.ceil(x.size / per_thread / _THREADS)), 1, 1)
 
 
 def axpy(x: NDArray, y: NDArray) -> NDArray:
