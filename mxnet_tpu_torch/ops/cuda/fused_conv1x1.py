@@ -27,8 +27,8 @@ has no backward for this op (a bare ``pallas_call``), so neither has the
 port.
 
 The kernel's moment workspace and its tickets live in one zeroed int32
-buffer per device (:func:`_workspace`), which the kernel leaves zeroed:
-calls on one device must not run concurrently on two streams.
+buffer per device and stream (:func:`_workspace`), which the kernel leaves
+zeroed, so no fill runs per call and calls on two streams never share it.
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ _count_lock = threading.Lock()
 _lib_lock = threading.Lock()
 _lib_fn = None
 _ws_lock = threading.Lock()
-_ws: Dict[torch.device, torch.Tensor] = {}
+_ws: Dict[tuple, torch.Tensor] = {}
 _sm_counts: Dict[torch.device, int] = {}
 
 
@@ -108,16 +108,17 @@ def _workspace_sizes(N: int, block_n: int, blocks: int):
     return blocks * 2 * N, -(-N // block_n)
 
 
-def _workspace(device: torch.device, words: int) -> torch.Tensor:
-    """The device's zeroed int32 workspace, at least ``words`` long. The
-    kernel leaves it zeroed, so it is allocated (and filled) only when it
-    grows."""
+def _workspace(device: torch.device, stream: int,
+               words: int) -> torch.Tensor:
+    """The zeroed int32 workspace of ``device`` and ``stream`` (a stream
+    handle), at least ``words`` long. The kernel leaves it zeroed, so it is
+    allocated (and filled) only when it grows."""
     with _ws_lock:
-        buf = _ws.get(device)
+        buf = _ws.get((device, stream))
         if buf is None or buf.numel() < words:
             buf = torch.zeros(max(words, 1 << 16), dtype=torch.int32,
                               device=device)
-            _ws[device] = buf
+            _ws[(device, stream)] = buf
         return buf
 
 
@@ -146,14 +147,15 @@ def _run(x, w, scale, shift, relu, block_n, blocks, fn=None):
     col_sum = torch.empty(N, dtype=torch.float32, device=dev)
     col_sumsq = torch.empty(N, dtype=torch.float32, device=dev)
     slots, tickets = _workspace_sizes(N, block_n, blocks)
-    base = _workspace(dev, slots + tickets).data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    base = _workspace(dev, stream, slots + tickets).data_ptr()
     fn = fn or _kernel()
     with torch.cuda.device(dev):
         rc = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                 shift.data_ptr(), y.data_ptr(), col_sum.data_ptr(),
                 col_sumsq.data_ptr(), base, base + 4 * slots, M, K, N,
                 _X_DTYPES[x.dtype], int(bool(relu)), block_n, blocks,
-                torch.cuda.current_stream(dev).cuda_stream)
+                stream)
     if rc != 0:
         what = (f"tensor-map encode failed with CUresult {-rc}" if rc < 0
                 else f"kernel launch failed with CUDA error {rc}")

@@ -194,17 +194,22 @@ def test_workspace_sizes():
 
 
 def test_workspace_is_cached_zeroed_and_grows():
-    """One zeroed int32 buffer per device, reused while large enough and
-    replaced by a larger zeroed one (the kernel leaves it zeroed)."""
+    """One zeroed int32 buffer per device and stream, reused while large
+    enough and replaced by a larger zeroed one (the kernel leaves it
+    zeroed); another stream gets its own."""
     dev = torch.device("cpu")
-    fc._ws.pop(dev, None)
+    keys = [(dev, 1), (dev, 2)]
     try:
-        a = fc._workspace(dev, 100)
+        a = fc._workspace(dev, 1, 100)
         assert a.dtype == torch.int32 and a.numel() >= 100
         assert not a.any()
-        assert fc._workspace(dev, 50) is a
-        b = fc._workspace(dev, a.numel() + 1)
+        assert fc._workspace(dev, 1, 50) is a
+        other = fc._workspace(dev, 2, 50)
+        assert other is not a and not other.any()
+        b = fc._workspace(dev, 1, a.numel() + 1)
         assert b is not a and b.numel() > a.numel() and not b.any()
-        assert fc._workspace(dev, 10) is b
+        assert fc._workspace(dev, 1, 10) is b
+        assert fc._workspace(dev, 2, 10) is other
     finally:
-        fc._ws.pop(dev, None)
+        for k in keys:
+            fc._ws.pop(k, None)
