@@ -154,7 +154,33 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    NDArray/autograd cases run on the card against the same calls on
    ``cpu()``. ``rtc.launches`` at the end equals every launch the phase
    made.
-7. A JSON line with the kernels' numbers, then the last line
+7. The generate slice: ``TransformerLM`` at BERT-base width (12 layers, 768
+   units, 12 heads, FFN 3072, vocab 30522, 512 positions; the causal
+   encoder with a tied LM head), seeded weights through the weight carrier
+   (the JAX test's Normal(0.5) recipe), bf16, in a ``DecodeEndpoint``
+   (max_seq_len 512, max batch 8, pages of 16, 257 pages) registered with
+   warm-up on an ``InferenceServer``: 4 client threads submit 24 sequences
+   through ``server.generate`` (prompt lengths from the seed in [8, 448],
+   four from each prefill bucket; 32 new tokens each; tenants "default"
+   and one at 50 ms/token). Checks: every stream yields exactly 32 tokens;
+   K1 launched 12 times per prefill (the 6 warm-up prefills included) and
+   0 times per decode step; the same prompts decoded serially through the
+   same engine give bitwise the same token lists, and 8 rows' first-step
+   logits stepped together (bucket 8) equal each row's stepped alone
+   (bucket 1) bitwise; greedy tokens depend on the context; K1 against its
+   plain version at (1, 12, S, 64) causal for every prefill bucket S in
+   bf16 and f32 at phase 2's tolerances; one sequence in f32 on the card
+   against the CPU (prefill logits within 1e-3 x max(1, |logit|), first 8
+   greedy tokens equal), with the repo's BERT weight recipe (under the wide
+   init f32 rounding alone moves the logits by more than that: the CPU's
+   f32 prefill against its f64 one is printed).
+   Prints tokens/s, time to first token and inter-token gaps per tenant
+   (p50, p99; client-side clocks), peak device memory, each prefill and
+   decode bucket's ms (host clock and CUDA events), the decode step's
+   device busy share (torch.profiler), and K1's causal times at
+   (1, 12, 512, 64) and (1, 12, 128, 64) on split views, from CUDA graphs,
+   beside the bound and SDPA's causal forward.
+8. A JSON line with the kernels' numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -173,7 +199,8 @@ import torch
 
 from mxnet_tpu_torch import MXNetError, autograd, cpu, gpu, nd, rtc, serving
 from mxnet_tpu_torch.gluon.model_zoo.bert import (
-    BERTForPretraining, BERTPretrainingLoss, bert_base, load_jax_params)
+    BERTForPretraining, BERTPretrainingLoss, TransformerLM, bert_base,
+    load_jax_params)
 from mxnet_tpu_torch.gluon.model_zoo.vision import BottleneckV1, resnet50_v1
 from mxnet_tpu_torch.ops import _build, _nvrtc
 from mxnet_tpu_torch.ops import nn as ops
@@ -181,6 +208,7 @@ from mxnet_tpu_torch.ops.cuda import flash_attention as fa
 from mxnet_tpu_torch.ops.cuda import fused_conv1x1 as fc
 from mxnet_tpu_torch.optimizer import Adam
 from mxnet_tpu_torch.parallel import ParallelTrainStep, make_mesh
+from mxnet_tpu_torch.serving.generate import DecodeEndpoint
 from mxnet_tpu_torch.tools import (PretrainStep, card, f32_drift, graph_ms,
                                    median_ms, pretrain_batch, resnet_batch,
                                    resnet_train_step, seeded_bert_weights,
@@ -238,6 +266,18 @@ RTC_MLM = (TRAIN_BATCH * TRAIN_P, 30522)      # masked-LM logits
 RTC_STEPS = 3
 RTC_REPS, RTC_WARMUP = 30, 5                  # median_ms defaults
 RTC_LAUNCH_CALLS = 100      # host cost of one launch, averaged over these
+# the generate slice: BERT-base's encoder with the causal mask and a tied LM
+# head (GPT-2-small's width), built with explicit arguments
+LM_CONFIG = dict(num_layers=12, units=768, hidden_size=3072, num_heads=12,
+                 vocab_size=30522, max_length=512)
+GEN_ENGINE = dict(max_seq_len=512, max_batch_size=8, page_size=16,
+                  num_pages=257)
+GEN_CLIENTS, GEN_SEQS, GEN_NEW_TOKENS = 4, 24, 32
+GEN_PROMPT_RANGE = (8, 448)
+GEN_TENANT, GEN_TENANT_SLO_MS = "slo50", 50.0
+GEN_F32_PROMPT, GEN_F32_TOKENS, GEN_F32_PAGES = 40, 8, 33
+GEN_TIMED_REPS, GEN_TIMED_POS, GEN_PROFILE_STEPS = 10, 300, 10
+PREFILL_TIMED_SHAPES = [(1, 12, 512, 64), (1, 12, 128, 64)]
 TEMPLATED_SOURCE = r"""
 template <typename T> __global__ void twice(const T *x, int n, T *o) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -1404,6 +1444,385 @@ def phase_rtc(seed: int, smi: str):
             "by_kernel": by_kernel, **host}
 
 
+# ---------------------------------------------------------------------------
+def lm_weights(seed: int):
+    """Seeded weights for the generate slice's TransformerLM, named as the
+    JAX package names them, drawn as the JAX package's generate test draws
+    its (``mx.init.Normal(0.5)``): weights and embeddings N(0, 0.5^2),
+    biases and LayerNorm beta 0, gamma 1. At 768 units every layer's
+    attention is then nearly one-hot, so greedy tokens depend on the
+    context, and any difference in rounding grows from layer to layer, so
+    batched and serial decode agree only if they compute alike."""
+    rng = np.random.default_rng(seed)
+    named = {}
+    for k, p in TransformerLM(**LM_CONFIG, device="meta").state_dict().items():
+        if k.endswith("gamma"):
+            named[k] = np.ones(p.shape, np.float32)
+        elif k.endswith(("beta", "bias")):
+            named[k] = np.zeros(p.shape, np.float32)
+        else:
+            named[k] = rng.standard_normal(p.shape, dtype=np.float32) \
+                * np.float32(0.5)
+    return named
+
+
+def _lm(named, dtype=torch.float32):
+    lm = TransformerLM(**LM_CONFIG)
+    load_jax_params(lm, named)
+    return lm.to(dtype)
+
+
+def gen_prompts(seed: int, buckets):
+    """GEN_SEQS prompts with lengths drawn from the seed in
+    GEN_PROMPT_RANGE, in turn from each prefill bucket's share of it (so
+    every bucket is exercised), tokens uniform over the vocabulary."""
+    rng = np.random.default_rng(seed + 8)
+    lo, hi = GEN_PROMPT_RANGE
+    edges = [0] + list(buckets)
+    ranges = [(max(lo, a + 1), min(hi, b)) for a, b in zip(edges, edges[1:])
+              if max(lo, a + 1) <= min(hi, b)]
+    lengths = [int(rng.integers(r[0], r[1] + 1)) for r in
+               (ranges[i % len(ranges)] for i in range(GEN_SEQS))]
+    return [rng.integers(0, LM_CONFIG["vocab_size"], n).tolist()
+            for n in lengths]
+
+
+def serial_decode(eng, prompt, max_new: int, sid: int):
+    """One sequence at a time through ``eng`` (the JAX package's test
+    oracle), returning its tokens and K1's launches during its prefill and
+    during its decode steps."""
+    eng.pool.reserve(sid, len(prompt) + max_new)
+    n0 = fa.launches
+    toks = [eng.prefill(prompt, eng.pool.table(sid))]
+    n1 = fa.launches
+    pos = len(prompt)
+    for _ in range(max_new - 1):
+        (t,) = eng.decode_step([(toks[-1], pos, eng.pool.table(sid))])
+        toks.append(t)
+        pos += 1
+    eng.pool.free(sid)
+    return toks, n1 - n0, fa.launches - n1
+
+
+def first_step_logits(eng, rows):
+    """The logits of one decode step of ``rows`` ((id, position, table)
+    each) stepped together, as the engine's decode step computes them,
+    without its scatter and argmax."""
+    B = serving.bucketing.bucket_for(len(rows), eng.decode_buckets)
+    with torch.inference_mode():
+        dev = torch.from_numpy(eng._decode_host(rows)).to(eng.device)
+        return eng._step_outputs(dev, B)[0][:len(rows)].float().cpu()
+
+
+def k1_prefill_shapes(gen, buckets, smi: str):
+    """K1 against its plain version at each prefill bucket's causal shape
+    (1, 12, S, 64), bf16 and f32, on the split views of one QKV buffer;
+    times at PREFILL_TIMED_SHAPES beside the plain version, SDPA's causal
+    forward (a yardstick) and the causal bound."""
+    H, D = LM_CONFIG["num_heads"], LM_CONFIG["units"] // LM_CONFIG["num_heads"]
+    worst = 0.0
+    for S in buckets:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = split_qkv((1, H, S, D), gen, dtype)
+            out, lse = fa.flash_attention_fwd(q, k, v, D ** -0.5, True)
+            ref, ref_lse = fa.flash_attention_fwd_reference(
+                q, k, v, D ** -0.5, True)
+            err = max((out.float() - ref.float()).abs().max().item(),
+                      (lse - ref_lse).abs().max().item())
+            print(f"kernel (1, {H}, {S}, {D}) {str(dtype)[6:]} causal "
+                  f"(prefill bucket): max|d| {err:.3g} (tol {TOL[dtype]:g})")
+            if err > TOL[dtype]:
+                raise SystemExit(f"FAIL: K1 disagrees with its plain version "
+                                 f"at the prefill shape S={S} {dtype}")
+            worst = max(worst, err)
+    timed = {}
+    for shape in PREFILL_TIMED_SHAPES:
+        q, k, v = split_qkv(shape, gen, torch.bfloat16)
+        scale = shape[-1] ** -0.5
+
+        def k1():
+            return fa.flash_attention_fwd(q, k, v, scale, True)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=scale)
+
+        ms = median_ms(k1, calls=TIMED_CALLS)
+        dev = graph_ms(k1)
+        plain = median_ms(lambda: fa.flash_attention_fwd_reference(
+            q, k, v, scale, True), reps=20, warmup=2, calls=TIMED_CALLS)
+        lib, lib_dev = median_ms(sdpa, calls=TIMED_CALLS), graph_ms(sdpa)
+        bms, by, nbytes, flops = bound_ms(shape, torch.bfloat16, True)
+        print(f"K1 causal {shape} bf16 on split views: {ms:.4f} ms through "
+              f"the wrapper, {dev:.4f} ms from a CUDA graph of 10 calls; "
+              f"plain {plain:.4f} ms; sdpa causal {lib:.4f} ms ({lib_dev:.4f}"
+              f" ms from a graph); bound {bms * 1e3:.2f} us ({by}: "
+              f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), graph time "
+              f"{bms / dev:.1%} of bound on {smi}")
+        timed["x".join(map(str, shape))] = {
+            "ms": ms, "device_ms": dev, "plain_ms": plain, "library_ms": lib,
+            "library_device_ms": lib_dev, "bound_ms": bms, "bound_by": by}
+    return worst, timed
+
+
+def time_buckets(eng, smi: str):
+    """Each prefill bucket (a prompt of exactly its length) and each decode
+    bucket (rows at position GEN_TIMED_POS) run GEN_TIMED_REPS times: the
+    median host-clock ms of one call (each ends in a sync for its tokens)
+    and the median CUDA-event ms around it."""
+    def timed(fn):
+        host, ev = [], []
+        for _ in range(GEN_TIMED_REPS + 2):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            ev.append(a.elapsed_time(b))
+        return {"host_ms": float(np.median(host[2:])),
+                "event_ms": float(np.median(ev[2:]))}
+
+    sids = range(60_000, 60_000 + eng.max_batch_size)
+    for sid in sids:
+        eng.pool.reserve(sid, eng.max_seq_len)
+    tables = [eng.pool.table(sid) for sid in sids]
+    prefill = {S: timed(lambda: eng.prefill(list(range(1, S + 1)), tables[0]))
+               for S in eng.prefill_buckets}
+    rows = [(7, GEN_TIMED_POS, t) for t in tables]
+    decode = {B: timed(lambda: eng.decode_step(rows[:B]))
+              for B in eng.decode_buckets}
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    B = eng.decode_buckets[-1]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(GEN_PROFILE_STEPS):
+            eng.decode_step(rows[:B])
+        torch.cuda.synchronize()
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3 \
+        / GEN_PROFILE_STEPS
+    for sid in sids:
+        eng.pool.free(sid)
+    for S, t in prefill.items():
+        print(f"prefill bucket S={S}: {t['host_ms']:.3f} ms host clock, "
+              f"{t['event_ms']:.3f} ms CUDA events (median of "
+              f"{GEN_TIMED_REPS}) on {smi}")
+    for b, t in decode.items():
+        print(f"decode step bucket B={b} (products at {B} rows, context "
+              f"{eng.max_seq_len} lanes): {t['host_ms']:.3f} ms host clock, "
+              f"{t['event_ms']:.3f} ms CUDA events (median of "
+              f"{GEN_TIMED_REPS}) on {smi}")
+    busy = device_ms / decode[B]["host_ms"]
+    print(f"decode step B={B}: {device_ms:.3f} ms of kernels per step "
+          f"(torch.profiler, {GEN_PROFILE_STEPS} steps) in a "
+          f"{decode[B]['host_ms']:.3f} ms step: device busy share "
+          f"{busy:.3f} on {smi}")
+    return {"prefill": prefill, "decode": decode,
+            "decode_device_ms": device_ms, "decode_busy_share": busy}
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / max(1, |want|) over the values."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+
+
+def f32_card_vs_cpu(seed: int, wide, prompt, smi: str):
+    """One sequence in f32: prefill logits on the card (K1's f32 path)
+    against the CPU (plain versions) within 1e-3 x max(1, |logit|), and the
+    first GEN_F32_TOKENS greedy tokens of both engines equal. The weights
+    are the repo's BERT recipe (``seeded_bert_weights``: matrices
+    N(0, 1/fan_in), embeddings N(0, 1)): under the generate phase's wide
+    init (``wide``) the 12 layers' sharp attention amplifies f32 rounding
+    without bound, so that no two f32 orders of summation agree to 1e-3;
+    the CPU's own f32 prefill against its f64 one shows it (printed)."""
+    named = seeded_bert_weights(TransformerLM(**LM_CONFIG, device="meta"),
+                                seed)
+    cpu_lm, gpu_lm = _lm(named), _lm(named).cuda()
+    wide32, wide64 = _lm(wide), _lm(wide, torch.float64)
+    tok = torch.tensor([prompt])
+    with torch.inference_mode():
+        err = _rel_err(gpu_lm.prefill_collect(tok.cuda())[0],
+                       cpu_lm.prefill_collect(tok)[0])
+        chaos = _rel_err(wide32.prefill_collect(tok)[0],
+                         wide64.prefill_collect(tok)[0])
+    del wide32, wide64
+    kw = dict(max_seq_len=GEN_ENGINE["max_seq_len"],
+              max_batch_size=GEN_ENGINE["max_batch_size"],
+              page_size=GEN_ENGINE["page_size"], num_pages=GEN_F32_PAGES)
+    cpu_toks = serial_decode(DecodeEndpoint("lm_cpu", cpu_lm, ctx=cpu(), **kw),
+                             prompt, GEN_F32_TOKENS, 1)[0]
+    gpu_toks = serial_decode(DecodeEndpoint("lm_f32", gpu_lm, **kw),
+                             prompt, GEN_F32_TOKENS, 1)[0]
+    print(f"f32 card vs CPU plain, prompt of {len(prompt)}: prefill logits "
+          f"max |d| / max(1, |logit|) = {err:.3g} (tol 1e-3); first "
+          f"{GEN_F32_TOKENS} greedy tokens card {gpu_toks}, CPU {cpu_toks} "
+          f"on {smi}. Under the wide init the CPU's f32 prefill logits lie "
+          f"{chaos:.3g} x max(1, |logit|) from its f64 ones")
+    if err > 1e-3 or gpu_toks != cpu_toks:
+        raise SystemExit("FAIL: the f32 generate path on the card disagrees "
+                         "with the CPU")
+    return err
+
+
+def phase_generate(seed: int, smi: str):
+    """The generate slice (phase 7): TransformerLM at BERT-base width in
+    bf16 behind an InferenceServer's generator, 4 clients, 24 sequences."""
+    named = lm_weights(seed)
+    lm = _lm(named, torch.bfloat16)
+    layers = LM_CONFIG["num_layers"]
+
+    # ---- the main path: counts from 0 just before, read just after ----
+    fa.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # by earlier phases
+    eng = DecodeEndpoint("lm", lm, **GEN_ENGINE)
+    server = serving.InferenceServer()
+    t0 = time.perf_counter()
+    server.register_generator(eng, warmup=True,
+                              tenants={GEN_TENANT: GEN_TENANT_SLO_MS})
+    warm_s = time.perf_counter() - t0
+    warm_launches = fa.launches
+    server.start()
+    prompts = gen_prompts(seed, eng.prefill_buckets)
+    results, errors = {}, []
+
+    def client(c):
+        rng = np.random.default_rng(seed * 100 + c)
+        mine = []
+        try:
+            for i in range(c, GEN_SEQS, GEN_CLIENTS):
+                tenant = GEN_TENANT if i % 2 else "default"
+                stamps = []
+                t_sub = time.perf_counter()
+                s = server.generate(
+                    "lm", prompts[i], max_new_tokens=GEN_NEW_TOKENS,
+                    tenant=tenant,
+                    on_token=lambda _, st=stamps: st.append(
+                        time.perf_counter()))
+                mine.append((i, tenant, t_sub, stamps, s))
+                time.sleep(float(rng.uniform(0.0, 0.02)))
+            for i, tenant, t_sub, stamps, s in mine:
+                results[i] = (tenant, t_sub, stamps, s.result(timeout=600))
+        except Exception as e:        # surfaced below; the phase fails
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(GEN_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    server.stop(drain=True)
+    gen_launches = fa.launches
+    peak = torch.cuda.max_memory_allocated()
+    # ---- end of the main path ----
+
+    if errors or any(t.is_alive() for t in threads) or \
+            len(results) != GEN_SEQS:
+        raise SystemExit(f"FAIL: generate clients: {errors[:3]}")
+    snap = eng.snapshot()
+    c = snap["stats"]["counters"]
+    n_warm = len(eng.prefill_buckets)
+    print(f"generate: {len(eng.prefill_buckets)} prefill + "
+          f"{len(eng.decode_buckets)} decode buckets warmed in {warm_s:.1f} s "
+          f"(K1 launches {warm_launches} = {layers} x {n_warm}); "
+          f"{GEN_SEQS} sequences, {c['tokens']} tokens, {c['steps']} decode "
+          f"steps; K1 launches {gen_launches} (expected {layers} x "
+          f"({n_warm} + {GEN_SEQS}) = {layers * (n_warm + GEN_SEQS)})")
+    short = [i for i, r in results.items() if len(r[3]) != GEN_NEW_TOKENS]
+    if short:
+        raise SystemExit(f"FAIL: streams {short} did not yield exactly "
+                         f"{GEN_NEW_TOKENS} tokens")
+    if warm_launches != layers * n_warm or \
+            gen_launches != layers * (n_warm + GEN_SEQS):
+        raise SystemExit("FAIL: K1 launches do not match one per layer per "
+                         "prefill")
+
+    # the same prompts, serially through the same engine
+    serial, d_prefill, d_decode = [], set(), set()
+    for i, p in enumerate(prompts):
+        toks, dp, dd = serial_decode(eng, p, GEN_NEW_TOKENS, 20_000 + i)
+        serial.append(toks)
+        d_prefill.add(dp)
+        d_decode.add(dd)
+    print(f"serial decode: K1 launches per prefill {sorted(d_prefill)}, per "
+          f"sequence's {GEN_NEW_TOKENS - 1} decode steps {sorted(d_decode)}")
+    if d_prefill != {layers} or d_decode != {0}:
+        raise SystemExit("FAIL: K1 launched other than 12 times per prefill "
+                         "and 0 times per decode step")
+    batched = [results[i][3] for i in range(GEN_SEQS)]
+    diverge = [(i, next(j for j, (a, b) in enumerate(zip(x, y)) if a != b))
+               for i, (x, y) in enumerate(zip(batched, serial)) if x != y]
+    bitwise = not diverge
+    print(f"batched continuous decode == serial decode, token lists bitwise "
+          f"equal: {bitwise} ({len(diverge)} of {GEN_SEQS} differ; first "
+          f"diverging token (sequence, index): {diverge[:6]}); distinct "
+          f"tokens per sequence {sorted(len(set(t)) for t in serial)}")
+    if max(len(set(t)) for t in serial) <= 2:
+        raise SystemExit("FAIL: greedy tokens do not depend on the context")
+
+    # each row's first-step logits: alone (bucket 1) and stepped with the
+    # others (the top bucket)
+    sids = range(30_000, 30_000 + eng.max_batch_size)
+    rows = []
+    for sid, p in zip(sids, prompts):
+        eng.pool.reserve(sid, len(p) + GEN_NEW_TOKENS)
+        rows.append((eng.prefill(p, eng.pool.table(sid)), len(p),
+                     eng.pool.table(sid)))
+    together = first_step_logits(eng, rows)
+    alone = torch.cat([first_step_logits(eng, [r]) for r in rows])
+    for sid in sids:
+        eng.pool.free(sid)
+    d_logit = (together - alone).abs().max().item()
+    same = torch.equal(together, alone)
+    print(f"first-step logits of {len(rows)} rows, bucket {len(rows)} vs "
+          f"bucket 1: bitwise equal {same}, max |dlogit| {d_logit:.4g}")
+    if not (bitwise and same):
+        raise SystemExit("FAIL: batched decode is not bitwise equal to "
+                         "serial decode")
+
+    ttft = [(r[2][0] - r[1]) * 1e3 for r in results.values()]
+    gaps = {}
+    for tenant, _, stamps, _ in results.values():
+        gaps.setdefault(tenant, []).extend(np.diff(stamps) * 1e3)
+    tokens = sum(len(r[3]) for r in results.values())
+    print(f"generate {LM_CONFIG['num_layers']} x {LM_CONFIG['units']} bf16, "
+          f"{GEN_CLIENTS} clients x {GEN_SEQS // GEN_CLIENTS} sequences, "
+          f"prompts {min(map(len, prompts))}-{max(map(len, prompts))} "
+          f"tokens, {GEN_NEW_TOKENS} new each: {tokens / wall:.1f} tokens/s "
+          f"(wall {wall:.2f} s); time to first token p50 "
+          f"{np.percentile(ttft, 50):.1f} ms, p99 "
+          f"{np.percentile(ttft, 99):.1f} ms; peak device memory "
+          f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB of it held "
+          f"before the phase) on {smi}")
+    for tenant, g in sorted(gaps.items()):
+        print(f"  inter-token, tenant {tenant!r}: p50 "
+              f"{np.percentile(g, 50):.2f} ms, p99 {np.percentile(g, 99):.2f}"
+              f" ms over {len(g)} gaps")
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k1_err, k1_timed = k1_prefill_shapes(gen, eng.prefill_buckets, smi)
+    buckets = time_buckets(eng, smi)
+    f32_err = f32_card_vs_cpu(seed, named, prompts[2][:GEN_F32_PROMPT], smi)
+    return {"launches": gen_launches, "k1_max_abs_err": k1_err,
+            "k1_timed": k1_timed, "bitwise": bitwise, "diverge": diverge,
+            "max_dlogit": d_logit, "tokens_per_s": tokens / wall,
+            "ttft_ms": {"p50": float(np.percentile(ttft, 50)),
+                        "p99": float(np.percentile(ttft, 99))},
+            "intertoken_ms": {t: {"p50": float(np.percentile(g, 50)),
+                                  "p99": float(np.percentile(g, 99))}
+                              for t, g in gaps.items()},
+            "peak_bytes": peak, "held_bytes": held, "f32_err": f32_err,
+            **buckets}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1421,17 +1840,21 @@ def main(argv=None) -> int:
     train_launches = phase_train(args.seed, smi)
     resnet = phase_resnet(args.seed, smi)
     k5 = phase_rtc(args.seed, smi)
+    gen = phase_generate(args.seed, smi)
     r, tr = record["serving", torch.bfloat16], record["training", torch.bfloat16]
     pallas = "mxnet_tpu/ops/pallas/flash_attention.py"
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": f"{pallas}:213",
-         "launches": serve_launches + train_launches["flash_attention_fwd"],
+         "launches": serve_launches + train_launches["flash_attention_fwd"]
+         + gen["launches"],
          "launches_by_path": {
              "serving": serve_launches,
-             "training": train_launches["flash_attention_fwd"]},
-         "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"]),
+             "training": train_launches["flash_attention_fwd"],
+             "generate": gen["launches"]},
+         "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"],
+                            gen["k1_max_abs_err"]),
          "ms": r["ms"], "ms_strided": r["ms_strided"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1446,6 +1869,7 @@ def main(argv=None) -> int:
          "library_device_ms": r["library_device_ms"],
          "device_ms_training_shape": tr["device_ms"],
          "library_device_ms_training_shape": tr["library_device_ms"],
+         "causal_prefill": gen["k1_timed"],
          "host_us": record["host_us"]["k1"],
          "entry_host_us": record["host_us"]["entry"],
          "library_host_us": record["host_us"]["sdpa"]}]

@@ -1,6 +1,7 @@
 """BERT of the port: the counterpart of ``mxnet_tpu/gluon/model_zoo/bert.py``
 from ``SelfAttention`` through ``BERTModel`` and ``bert_base`` to the
-pretraining heads ``BERTForPretraining`` and ``BERTPretrainingLoss``.
+pretraining heads ``BERTForPretraining`` and ``BERTPretrainingLoss``, and the
+decoder-only ``TransformerLM`` that the generative serving path serves.
 
 The module tree mirrors the JAX block tree, so ``state_dict()`` keys equal
 the JAX package's ``_collect_params_with_prefix()`` names (for example
@@ -14,7 +15,9 @@ extra keys and shape mismatches; ``BERTModel.load_parameters`` reads a
 
 Attention runs through ``ops.nn.multi_head_attention``: with no padding mask
 every layer's attention is one call of the hand-written flash-attention
-kernels on the card (K1 forward; K2 + K3 in the backward).
+kernels on the card (K1 forward; K2 + K3 in the backward), causal for
+``TransformerLM`` (its forward and its prefill). A decode step attends one
+token against cached context with ``ops.nn.single_query_attention``.
 """
 from __future__ import annotations
 
@@ -33,17 +36,24 @@ from .carrier import check_against, load_jax_params, params_from_jax, \
 
 __all__ = ["SelfAttention", "PositionwiseFFN", "TransformerEncoderLayer",
            "BERTEncoder", "BERTModel", "BERTForPretraining",
-           "BERTPretrainingLoss", "bert_base", "params_from_jax",
-           "load_jax_params"]
+           "BERTPretrainingLoss", "TransformerLM", "bert_base",
+           "params_from_jax", "load_jax_params"]
 
 
 class SelfAttention(nn.Module):
-    """Multi-head self-attention with one fused QKV projection."""
+    """Multi-head self-attention with one fused QKV projection.
 
-    def __init__(self, units, num_heads, dropout=0.0, device=None):
+    ``causal=True`` bakes the causal mask into attention (TransformerLM);
+    the block then also offers the two incremental-decode views the
+    generative serving engine runs: ``forward_collect`` (the prefill) and
+    ``attend_step`` (one token against cached context)."""
+
+    def __init__(self, units, num_heads, dropout=0.0, causal=False,
+                 device=None):
         super().__init__()
         self._units = units
         self._heads = num_heads
+        self._causal = causal
         self.qkv = Dense(3 * units, flatten=False, in_units=units,
                          device=device)
         self.proj = Dense(units, flatten=False, in_units=units, device=device)
@@ -51,8 +61,33 @@ class SelfAttention(nn.Module):
 
     def forward(self, x, mask=None):
         q, k, v = self.qkv(x).split(self._units, dim=-1)
-        out = ops.multi_head_attention(q, k, v, mask, heads=self._heads)
+        out = ops.multi_head_attention(q, k, v, mask, heads=self._heads,
+                                       causal=self._causal)
         return self.drop(self.proj(out))
+
+    def forward_collect(self, x, mask=None):
+        """The forward, also returning the (B, S, H*D) key and value
+        projections (views of the QKV output) for the KV cache."""
+        q, k, v = self.qkv(x).split(self._units, dim=-1)
+        out = ops.multi_head_attention(q, k, v, mask, heads=self._heads,
+                                       causal=self._causal)
+        return self.drop(self.proj(out)), k, v
+
+    def attend_step(self, x, k_ctx, v_ctx, lengths):
+        """One decode step: ``x`` (R, H*D) is the current token's hidden
+        state, ``k_ctx``/``v_ctx`` (B, L, H*D) the cached context of the
+        first B <= R rows and ``lengths`` (R,) each row's cached positions
+        (== its token's position). Rows past B only pad the projections to
+        R rows: they attend nothing (a zero attention output). Returns
+        (out, k_new, v_new), R rows each."""
+        q, k, v = self.qkv(x).split(self._units, dim=-1)
+        B = k_ctx.shape[0]
+        out = ops.single_query_attention(q[:B], k_ctx, v_ctx, k[:B], v[:B],
+                                         lengths[:B], heads=self._heads)
+        if B < x.shape[0]:
+            out = torch.cat([out, out.new_zeros(x.shape[0] - B,
+                                                out.shape[1])])
+        return self.drop(self.proj(out)), k, v
 
 
 class PositionwiseFFN(nn.Module):
@@ -74,10 +109,10 @@ class TransformerEncoderLayer(nn.Module):
     """Post-LN transformer encoder layer (BERT convention)."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
-                 device=None):
+                 causal=False, device=None):
         super().__init__()
         self.attention = SelfAttention(units, num_heads, dropout,
-                                       device=device)
+                                       causal=causal, device=device)
         self.ln1 = LayerNorm(units, device=device)
         self.ffn = PositionwiseFFN(units, hidden_size, dropout, device=device)
         self.ln2 = LayerNorm(units, device=device)
@@ -86,15 +121,30 @@ class TransformerEncoderLayer(nn.Module):
         x = self.ln1(x + self.attention(x, mask))
         return self.ln2(x + self.ffn(x))
 
+    def forward_collect(self, x, mask=None):
+        """The layer's forward, plus its (B, S, H*D) K/V for the cache."""
+        a, k, v = self.attention.forward_collect(x, mask)
+        x = self.ln1(x + a)
+        return self.ln2(x + self.ffn(x)), k, v
+
+    def decode_step(self, x, k_ctx, v_ctx, lengths):
+        """One token per row, (R, H*D), against cached context (see
+        ``SelfAttention.attend_step``); the residual and post-LN structure
+        of ``forward``, every op per row."""
+        a, k, v = self.attention.attend_step(x, k_ctx, v_ctx, lengths)
+        x = self.ln1(x + a)
+        return self.ln2(x + self.ffn(x)), k, v
+
 
 class BERTEncoder(nn.Module):
     def __init__(self, num_layers, units, hidden_size, num_heads, dropout=0.0,
-                 device=None):
+                 causal=False, device=None):
         super().__init__()
         self._layers = []
         for i in range(num_layers):
             layer = TransformerEncoderLayer(units, hidden_size, num_heads,
-                                            dropout, device=device)
+                                            dropout, causal=causal,
+                                            device=device)
             self.add_module(f"layer{i}", layer)
             self._layers.append(layer)
 
@@ -200,6 +250,75 @@ class BERTPretrainingLoss(nn.Module):
         return mlm_loss + nsp_loss
 
 
+class TransformerLM(nn.Module):
+    """Decoder-only causal language model over the BERT encoder stack: the
+    post-LN layers with the causal mask, word + position embeddings and an
+    LM head tied to the word embedding (``word_embed.weight``, no bias).
+    Three entry points share one parameter set:
+
+    - ``forward(tokens)``: full causal pass, (B, S) -> (B, S, V) logits;
+    - ``prefill_collect(tokens)``: the same pass, also returning every
+      layer's (B, S, H*D) K/V (the generative engine's prefill);
+    - ``decode_step(ids, positions, *kv_ctx)``: one token per row against
+      cached context (the engine's decode step); ``positions`` is both the
+      position-embedding index and the cached length.
+
+    ``num_layers``, ``units`` and ``max_length`` are the attributes the
+    decode engine reads."""
+
+    def __init__(self, num_layers=2, units=64, hidden_size=128, num_heads=2,
+                 vocab_size=256, max_length=128, dropout=0.0, device=None):
+        super().__init__()
+        self.num_layers = num_layers
+        self.units = units
+        self.num_heads = num_heads
+        self.vocab_size = vocab_size
+        self.max_length = max_length
+        self.word_embed = Embedding(vocab_size, units, device=device)
+        self.position_embed = Embedding(max_length, units, device=device)
+        self.embed_ln = LayerNorm(units, device=device)
+        self.embed_drop = Dropout(dropout)
+        self.encoder = BERTEncoder(num_layers, units, hidden_size, num_heads,
+                                   dropout, causal=True, device=device)
+
+    def _embed(self, ids, positions):
+        h = self.word_embed(ids) + self.position_embed(positions)
+        return self.embed_drop(self.embed_ln(h))
+
+    def _head(self, h):
+        return torch.matmul(h, self.word_embed.weight.t())
+
+    def forward(self, tokens):
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        return self._head(self.encoder(self._embed(tokens, positions)))
+
+    def prefill_collect(self, tokens):
+        """(B, S) tokens -> (logits (B, S, V), k_0, v_0, ..., k_{n-1},
+        v_{n-1}), each k/v (B, S, H*D)."""
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        h = self._embed(tokens, positions)
+        kvs = []
+        for layer in self.encoder._layers:
+            h, k, v = layer.forward_collect(h)
+            kvs.extend((k, v))
+        return (self._head(h),) + tuple(kvs)
+
+    def decode_step(self, ids, positions, *kv_ctx):
+        """One decode step. ``ids``/``positions`` (R,) integers; ``kv_ctx``
+        is ``(k_ctx_0, v_ctx_0, ...)``, one pair per layer, each (B, L, H*D)
+        gathered from the KV pool for the first B <= R rows. Rows past B
+        pad the matrix products to R rows and attend nothing (see
+        ``SelfAttention.attend_step``). Returns (logits (R, V), k_new_0,
+        v_new_0, ...), each new k/v (R, H*D)."""
+        h = self._embed(ids, positions)
+        kvs = []
+        for i, layer in enumerate(self.encoder._layers):
+            h, k, v = layer.decode_step(h, kv_ctx[2 * i], kv_ctx[2 * i + 1],
+                                        positions)
+            kvs.extend((k, v))
+        return (self._head(h),) + tuple(kvs)
+
+
 def bert_base(vocab_size=30522, max_length=512, dropout=0.1, **kwargs):
     return BERTModel(num_layers=12, units=768, hidden_size=3072, num_heads=12,
                      vocab_size=vocab_size, max_length=max_length,
@@ -209,36 +328,55 @@ def bert_base(vocab_size=30522, max_length=512, dropout=0.1, **kwargs):
 # ---------------------------------------------------------------------------
 # weight carrier: the BERT shapes a JAX-package parameter dict implies
 # ---------------------------------------------------------------------------
+def _kind(named) -> str:
+    """Which model a parameter dict names: "BERTForPretraining" (names under
+    ``backbone.``), "TransformerLM" (no token-type embedding, no pooler) or
+    "BERTModel"."""
+    if any(k.startswith("backbone.") for k in named):
+        return "BERTForPretraining"
+    if "token_type_embed.weight" not in named and \
+            not any(k.startswith("pooler.") for k in named):
+        return "TransformerLM"
+    return "BERTModel"
+
+
 def _bert_shapes(named: Dict[str, tuple]) -> Dict[str, tuple]:
-    """The full key -> shape set of the BERTModel (or, for ``backbone.``
-    names, the BERTForPretraining) whose sizes ``named`` implies (vocab,
-    units, max length, type vocab, layers, FFN width)."""
-    pre = "backbone." if any(k.startswith("backbone.") for k in named) else ""
+    """The full key -> shape set of the model :func:`_kind` names whose
+    sizes ``named`` implies (vocab, units, max length, type vocab, layers,
+    FFN width)."""
+    kind = _kind(named)
+    pre = "backbone." if kind == "BERTForPretraining" else ""
     try:
         vocab, units = named[pre + "word_embed.weight"]
         max_length = named[pre + "position_embed.weight"][0]
-        type_vocab = named[pre + "token_type_embed.weight"][0]
         hidden = named[pre + "encoder.layer0.ffn.ffn1.weight"][0]
+        if kind != "TransformerLM":
+            type_vocab = named[pre + "token_type_embed.weight"][0]
     except (KeyError, ValueError, IndexError) as e:
-        raise MXNetError(f"not a BERTModel parameter set: {e!r}") from None
+        raise MXNetError(f"not a {kind} parameter set: {e!r}") from None
     layers = 1 + max(int(m.group(1)) for m in
                      (re.match(re.escape(pre) + r"encoder\.layer(\d+)\.", k)
                       for k in named)
                      if m)   # layer0 exists: its FFN was read above
-    ref = BERTModel(num_layers=layers, units=units, hidden_size=hidden,
-                    num_heads=1, vocab_size=vocab, max_length=max_length,
-                    type_vocab_size=type_vocab, device="meta")
+    if kind == "TransformerLM":
+        ref = TransformerLM(num_layers=layers, units=units, hidden_size=hidden,
+                            num_heads=1, vocab_size=vocab,
+                            max_length=max_length, device="meta")
+    else:
+        ref = BERTModel(num_layers=layers, units=units, hidden_size=hidden,
+                        num_heads=1, vocab_size=vocab, max_length=max_length,
+                        type_vocab_size=type_vocab, device="meta")
     if pre:
         ref = BERTForPretraining(ref, vocab_size=vocab, device="meta")
     return {k: tuple(v.shape) for k, v in ref.state_dict().items()}
 
 
 def state_from_jax(named: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """:func:`params_from_jax` for BERT names: raises MXNetError unless the
-    names and shapes are exactly those of one BERTModel, or of one
-    BERTForPretraining (names under ``backbone.``)."""
+    """:func:`params_from_jax` for BERT-family names: raises MXNetError
+    unless the names and shapes are exactly those of one BERTModel, one
+    BERTForPretraining (names under ``backbone.``) or one TransformerLM
+    (``word_embed``, ``position_embed``, ``embed_ln``, ``encoder.layerN``;
+    no token-type embedding, no pooler)."""
     shapes = {k: tuple(np.shape(v)) for k, v in named.items()}
-    what = "a BERTForPretraining" if any(
-        k.startswith("backbone.") for k in shapes) else "a BERTModel"
-    check_against(_bert_shapes(shapes), shapes, what)
+    check_against(_bert_shapes(shapes), shapes, "a " + _kind(shapes))
     return {k: to_tensor(v) for k, v in named.items()}

@@ -13,9 +13,9 @@ Two naming schemes are taken:
 
 :func:`params_from_jax` turns such a dict into a state dict after checking
 it against the model its names and shapes imply (a BERTModel, a
-BERTForPretraining or a ResNetV1); :func:`load_jax_params` loads it into a
-given model. Both refuse missing keys, extra keys and shape mismatches before
-anything is copied.
+BERTForPretraining, a TransformerLM or a ResNetV1); :func:`load_jax_params`
+loads it into a given model. Both refuse missing keys, extra keys and shape
+mismatches before anything is copied.
 """
 from __future__ import annotations
 
@@ -82,7 +82,7 @@ def rename_from_jax(jax_names: Dict[str, str], named: Dict[str, object],
 
 def params_from_jax(named: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """State dict (CPU tensors, the arrays' own dtypes) from a JAX-package
-    parameter dict: a BERTModel's or BERTForPretraining's
+    parameter dict: a BERTModel's, BERTForPretraining's or TransformerLM's
     ``_collect_params_with_prefix()`` names, or a ResNetV1's
     ``collect_params()`` names. Raises MXNetError unless the names and
     shapes are exactly those of one such model."""

@@ -44,6 +44,10 @@ takes any layout :func:`tma_strides` accepts and raises on others; the one
 copy is of an output gradient TMA cannot address (an expanded one, with
 zero strides), which the backward makes contiguous first. ``launches``,
 ``launches_dq`` and ``launches_dkv`` count the three kernels' launches.
+
+:func:`single_query_attention`, one decode step's query row against a KV
+cache, is plain torch ops on every device, as the reference's is plain jnp
+(it has no Pallas kernel).
 """
 from __future__ import annotations
 
@@ -64,8 +68,8 @@ __all__ = ["FlashAttention", "bind_fwd", "flash_attention",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_dkv_reference",
-           "flash_attention_bwd_reference", "launches", "launches_dq",
-           "launches_dkv"]
+           "flash_attention_bwd_reference", "single_query_attention",
+           "launches", "launches_dq", "launches_dkv"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
@@ -456,6 +460,52 @@ def _dense_attention(q, k, v, sm_scale: float, causal: bool):
         s = s.masked_fill(~keep, _NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def single_query_attention(q, k_ctx, v_ctx, k_new, v_new, lengths, *,
+                           heads: int = 1, sm_scale=None):
+    """One autoregressive decode step of attention against a KV cache (the
+    reference's ``single_query_attention``, ``flash_attention.py:578``).
+
+    ``q``/``k_new``/``v_new`` are the step's projections, (B, heads*D);
+    ``k_ctx``/``v_ctx`` the cached context, (B, L, heads*D), lane j holding
+    position j (lanes at and past ``lengths[b]`` hold stale pool contents,
+    which must be finite). The new key/value pair is selected in at lane
+    ``lengths[b]`` and lanes past it are scored ``_NEG_INF``, which
+    underflows to an exactly-zero softmax weight in f32, so stale lanes
+    never touch a real row. Numerics as :func:`_dense_attention`: f32
+    scores, softmax, P cast to q's dtype, f32-accumulated output, cast
+    back.
+
+    Both products are written as an exact f32 elementwise product and a
+    sum over the innermost axis of a contiguous tensor (D for the scores,
+    L for P V), not as batched matrix products: a row's result must not
+    depend on how many rows the call has (the decode engine's batched
+    step equals its serial one), and cuBLAS's batched products choose
+    their kernel, and so their summation order, by the batch count and
+    the operands' strides, where PyTorch's inner-axis sum takes its order
+    from the reduced length (``tools/decode_rows.py`` checks both on the
+    card)."""
+    B, units = q.shape
+    L = k_ctx.shape[1]
+    D = units // heads
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    lane = torch.arange(L, device=q.device)
+    lengths = lengths.to(device=q.device, dtype=torch.long)
+    sel = (lane[None, :] == lengths[:, None])[..., None]        # (B, L, 1)
+    k = torch.where(sel, k_new[:, None, :], k_ctx)
+    v = torch.where(sel, v_new[:, None, :], v_ctx)
+    f32 = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
+    qh = q.reshape(B, heads, 1, D).to(**f32)
+    kh = k.reshape(B, L, heads, D).transpose(1, 2).to(**f32)   # (B, H, L, D)
+    vt = v.reshape(B, L, heads, D).permute(0, 2, 3, 1).to(**f32)  # (B,H,D,L)
+    s = (qh * kh).sum(-1) * float(sm_scale)                     # (B, H, L)
+    valid = lane[None, :] <= lengths[:, None]                   # (B, L)
+    s = s.masked_fill(~valid[:, None, :], _NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    out = (p.float()[:, :, None, :] * vt).sum(-1)               # (B, H, D)
+    return out.to(q.dtype).reshape(B, units)
 
 
 def flash_attention(q, k, v, *, causal: bool = False, sm_scale=None):

@@ -1,7 +1,9 @@
 """Neural-network operators of the port: the counterparts of the functions
 in ``mxnet_tpu/ops/nn.py`` (and ``gelu``/``gelu_tanh`` of
 ``ops/elemwise.py``, ``pick`` of ``ops/tensor.py``) that the BERT serving and
-pretraining paths and the ResNet-50 training path run. Same layouts (NCHW
+pretraining paths, the ResNet-50 training path and the generative serving
+path run (``single_query_attention``, the decode step's attention, from
+``ops/pallas/flash_attention.py``). Same layouts (NCHW
 activations, OIHW convolution weights), conventions and dtype rules as the
 JAX package, plain functions on tensors.
 """
@@ -14,11 +16,13 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
-from .cuda.flash_attention import _dense_attention, flash_attention
+from .cuda.flash_attention import (_dense_attention, flash_attention,
+                                   single_query_attention)
 
 __all__ = ["fully_connected", "convolution", "pooling", "activation",
            "batch_norm", "bn_scale_shift", "layer_norm", "embedding", "gelu",
-           "gelu_tanh", "log_softmax", "pick", "multi_head_attention"]
+           "gelu_tanh", "log_softmax", "pick", "multi_head_attention",
+           "single_query_attention"]
 
 
 def fully_connected(x, weight, bias=None, *, flatten: bool = True):

@@ -14,15 +14,22 @@ port of ``mxnet_tpu.serving``'s serial path).
 A served output equals the direct forward of the same rows up to the
 rounding of the bucket's batch size (padding rows never mix into real
 rows). ``ep.stats.snapshot()`` reports counters and latency quantiles.
+
+Generative serving (``serving.generate``) rides beside it:
+
+    eng = serving.generate.DecodeEndpoint("lm", lm, max_seq_len=512)
+    server.register_generator(eng, tenants={"gold": 50.0})  # ms per token
+    server.start()
+    tokens = server.generate("lm", prompt, max_new_tokens=32).result()
 """
 from __future__ import annotations
 
-from . import bucketing
+from . import bucketing, generate
 from .endpoint import ModelEndpoint
-from .errors import (DeadlineExceeded, RequestTimeoutError, ServerClosedError,
-                     ServerOverloadError, ServingError)
+from .errors import (DeadlineExceeded, KVPoolExhausted, RequestTimeoutError,
+                     ServerClosedError, ServerOverloadError, ServingError)
 from .server import InferenceServer
 
-__all__ = ["ModelEndpoint", "InferenceServer", "bucketing", "ServingError",
-           "ServerOverloadError", "DeadlineExceeded", "RequestTimeoutError",
-           "ServerClosedError"]
+__all__ = ["ModelEndpoint", "InferenceServer", "bucketing", "generate",
+           "ServingError", "ServerOverloadError", "DeadlineExceeded",
+           "RequestTimeoutError", "ServerClosedError", "KVPoolExhausted"]

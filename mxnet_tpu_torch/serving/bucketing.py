@@ -3,6 +3,8 @@
 Batch sizes round up to a small fixed ladder (powers of two by default): on
 the card this bounds the distinct shapes the kernels and the matrix-product
 heuristics see, while padding waste per step stays below 2x.
+:func:`seq_buckets` is the sequence-length ladder of the decode path's
+prefill.
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ import numpy as np
 
 from ..base import MXNetError
 
-__all__ = ["pow2_buckets", "validate_buckets", "bucket_for", "pad_rows"]
+__all__ = ["pow2_buckets", "seq_buckets", "validate_buckets", "bucket_for",
+           "pad_rows"]
 
 
 def validate_buckets(buckets: Sequence[int], max_batch_size: int
@@ -52,6 +55,27 @@ def pow2_buckets(max_batch_size: int) -> Tuple[int, ...]:
         b *= 2
     out.append(max_batch_size)
     return tuple(out)
+
+
+def seq_buckets(max_seq_len: int, min_bucket: int = 16,
+                ladder: Sequence[int] = None) -> Tuple[int, ...]:
+    """Sequence-length ladder for prefill bucketing: doubles from
+    ``min_bucket`` (a one-token prefill is what a decode step does already)
+    and is capped at (and always includes) ``max_seq_len``. An explicit
+    ``ladder`` skips generation and gets :func:`validate_buckets`' checks."""
+    if max_seq_len < 1:
+        raise MXNetError(f"max_seq_len must be >= 1, got {max_seq_len}")
+    if ladder is not None:
+        return validate_buckets(ladder, max_seq_len)
+    if min_bucket < 1:
+        raise MXNetError(f"min_bucket must be >= 1, got {min_bucket}")
+    out = []
+    b = min(min_bucket, max_seq_len)
+    while b < max_seq_len:
+        out.append(b)
+        b *= 2
+    out.append(max_seq_len)
+    return validate_buckets(out, max_seq_len)
 
 
 def bucket_for(rows: int, buckets: Sequence[int]) -> int:

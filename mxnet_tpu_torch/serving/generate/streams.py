@@ -1,0 +1,143 @@
+"""TokenStream: the client half of a streaming generation (a copy of
+``mxnet_tpu/serving/generate/streams.py``).
+
+The scheduler emits tokens into a bounded buffer; the client consumes them
+with a blocking iterator (or a per-token callback). Backpressure is
+cooperative and lossless: ``put`` never drops a token — it appends and then
+reports whether the buffer is now full, and the scheduler reacts by pausing
+the sequence (it keeps its KV pages, it just stops being stepped). When the
+consumer drains the buffer below half, the stream fires its resume callback
+and the scheduler puts the sequence back in the running set.
+
+Lock ordering: the scheduler calls ``put``/``close`` while holding its own
+condition lock, taking the stream lock second; the consumer holds the stream
+lock first and may then need the scheduler lock (resume). To keep the order
+acyclic, the resume callback is always invoked *after* the stream lock is
+released — the decision is made under the lock, the call is not.
+"""
+from __future__ import annotations
+
+import threading
+from collections import deque
+from typing import Callable, Iterator, Optional
+
+from ...base import MXNetError
+
+__all__ = ["TokenStream"]
+
+#: sentinel get() timeout meaning "block forever"
+_FOREVER = None
+
+
+class TokenStream:
+    """Bounded, closable token queue for one generation request.
+
+    Clients iterate it (``for tok in stream``) or call ``result()`` for the
+    full token list; either blocks until the scheduler emits. ``cancel()``
+    asks the scheduler to retire the sequence at the next step boundary —
+    already-buffered tokens remain readable.
+    """
+
+    def __init__(self, sid: int, maxsize: int,
+                 on_token: Optional[Callable[[int], None]] = None,
+                 resume_cb: Optional[Callable[[int], None]] = None):
+        if maxsize < 2:
+            raise MXNetError(f"stream buffer must be >= 2, got {maxsize}")
+        self.sid = sid
+        self._maxsize = int(maxsize)
+        self._dq: deque = deque()
+        self._cv = threading.Condition(threading.Lock())
+        self._closed = False
+        self._error: Optional[BaseException] = None
+        self._cancelled = False
+        self._on_token = on_token
+        self._resume_cb = resume_cb
+        self.tokens_delivered = 0
+
+    # ------------------------------------------------------------------
+    # scheduler side
+    # ------------------------------------------------------------------
+    def put(self, tok: int) -> bool:
+        """Append one token. Returns False when the buffer is now full —
+        the token is NOT lost; the scheduler should pause the sequence
+        until the resume callback fires."""
+        cb = self._on_token
+        with self._cv:
+            self._dq.append(tok)
+            full = len(self._dq) >= self._maxsize
+            self._cv.notify_all()
+        if cb is not None:
+            try:
+                cb(tok)
+            except Exception:
+                pass        # a client callback must not take down the loop
+        return not full
+
+    def close(self, error: Optional[BaseException] = None):
+        """End of stream. With ``error``, the consumer sees it raised after
+        draining whatever was already buffered."""
+        with self._cv:
+            self._closed = True
+            if error is not None and self._error is None:
+                self._error = error
+            self._cv.notify_all()
+
+    # ------------------------------------------------------------------
+    # client side
+    # ------------------------------------------------------------------
+    def cancel(self):
+        """Request cancellation; the scheduler retires the sequence (and
+        frees its pages) at the next step boundary."""
+        with self._cv:
+            self._cancelled = True
+            self._cv.notify_all()
+
+    @property
+    def cancelled(self) -> bool:
+        return self._cancelled
+
+    @property
+    def closed(self) -> bool:
+        with self._cv:
+            return self._closed and not self._dq
+
+    def get(self, timeout: Optional[float] = _FOREVER) -> Optional[int]:
+        """Next token, or None when the stream is finished. Raises the
+        scheduler-reported error (failed sequence, abandoned drain) once the
+        buffer is drained. Raises TimeoutError if ``timeout`` seconds pass
+        without a token."""
+        resume = False
+        try:
+            with self._cv:
+                while not self._dq and not self._closed:
+                    if not self._cv.wait(timeout):
+                        raise TimeoutError(
+                            f"no token within {timeout}s on stream "
+                            f"{self.sid}")
+                if self._dq:
+                    tok = self._dq.popleft()
+                    self.tokens_delivered += 1
+                    resume = len(self._dq) <= self._maxsize // 2
+                    return tok
+                if self._error is not None:
+                    raise self._error
+                return None
+        finally:
+            if resume and self._resume_cb is not None:
+                self._resume_cb(self.sid)
+
+    def __iter__(self) -> Iterator[int]:
+        while True:
+            tok = self.get()
+            if tok is None:
+                return
+            yield tok
+
+    def result(self, timeout: Optional[float] = _FOREVER):
+        """Drain the stream to completion; returns the full token list."""
+        return [tok for tok in iter(lambda: self.get(timeout), None)]
+
+    def __repr__(self):
+        with self._cv:
+            return (f"TokenStream(sid={self.sid}, buffered={len(self._dq)}, "
+                    f"closed={self._closed}, cancelled={self._cancelled})")

@@ -10,6 +10,12 @@ Admission is bounded per endpoint (ServerOverloadError), per-request
 deadlines drop expired work before it takes device rows
 (RequestTimeoutError), and ``stop(drain=True)`` serves every admitted
 request first, for a bounded time.
+
+Generative models ride beside it: ``register_generator`` puts a
+``generate.DecodeEndpoint`` behind its own continuous-batching
+``DecodeScheduler`` (the decode loop owns its device work; it does not ride
+the request-batching worker), which starts and stops with the server, and
+``generate`` streams tokens from it.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from ..base import MXNetError
 from .batcher import EndpointQueue, Request, concat_inputs, fail, now_us, resolve
 from .endpoint import ModelEndpoint
 from .errors import RequestTimeoutError, ServerClosedError, ServerOverloadError
+from .generate import DecodeScheduler
 
 __all__ = ["InferenceServer"]
 
@@ -52,6 +59,7 @@ class InferenceServer:
         self._state = _STOPPED
         self._thread: Optional[threading.Thread] = None
         self._inflight: list = []          # requests of the executing batch
+        self._generators: Dict[str, DecodeScheduler] = {}
 
     # ------------------------------------------------------------------
     def register(self, endpoint: ModelEndpoint, warmup: bool = True,
@@ -67,6 +75,59 @@ class InferenceServer:
         if warmup:
             endpoint.warmup()
         return endpoint
+
+    def register_generator(self, engine, warmup: bool = True,
+                           tenants: Optional[Dict[str, float]] = None,
+                           default_slo_ms: Optional[float] = None
+                           ) -> DecodeScheduler:
+        """Attach a generative ``DecodeEndpoint`` behind its own
+        ``DecodeScheduler``; returns the scheduler.
+
+        ``tenants`` maps tenant name -> inter-token SLO in ms per token (a
+        ``default`` tenant always exists). With ``warmup`` every prefill and
+        decode bucket runs once now, seeding the step-cost EWMAs. The
+        scheduler starts with the server (at once if it is running)."""
+        with self._cond:
+            if engine.name in self._generators:
+                raise MXNetError(
+                    f"generator {engine.name!r} already registered")
+        sched = DecodeScheduler(engine, default_slo_ms=default_slo_ms)
+        for tname, slo_ms in (tenants or {}).items():
+            sched.add_tenant(tname, slo_ms)
+        if warmup:
+            engine.warmup()
+        with self._cond:
+            self._generators[engine.name] = sched
+            running = self._state == _RUNNING
+        if running:
+            sched.start()
+        return sched
+
+    def generate(self, name: str, prompt,
+                 max_new_tokens: Optional[int] = None,
+                 tenant: str = "default", eos_id: Optional[int] = None,
+                 on_token=None):
+        """Queue one sequence on the generator ``name``; returns its
+        ``TokenStream``."""
+        with self._cond:
+            sched = self._generators.get(name)
+            names = sorted(self._generators)
+        if sched is None:
+            raise MXNetError(f"unknown generator {name!r}; registered: "
+                             f"{names}")
+        return sched.submit(prompt, max_new_tokens=max_new_tokens,
+                            tenant=tenant, eos_id=eos_id, on_token=on_token)
+
+    def health(self) -> dict:
+        """Lifecycle state, each endpoint's queue depth and each
+        generator's scheduler snapshot (its ``state`` among them)."""
+        with self._cond:
+            return {"state": self._state,
+                    "endpoints": {n: {"pending_requests": len(q),
+                                      "pending_rows": q.pending_rows}
+                                  for n, q in self._queues.items()},
+                    "generators": {n: g.snapshot()
+                                   for n, g in self._generators.items()}}
 
     def endpoints(self):
         with self._cond:
@@ -85,6 +146,9 @@ class InferenceServer:
                                             name="mxt-serving-worker",
                                             daemon=True)
             self._thread.start()
+            gens = list(self._generators.values())
+        for g in gens:
+            g.start()
         return self
 
     def stop(self, drain: bool = True, timeout: float = 60.0):
@@ -92,7 +156,12 @@ class InferenceServer:
         for at most ``timeout`` seconds; past it the remaining requests fail
         (queued ones with ServerClosedError, the in-flight batch's with
         RequestTimeoutError) instead of hanging their clients.
-        ``drain=False`` fails everything queued with ServerClosedError."""
+        ``drain=False`` fails everything queued with ServerClosedError.
+        The generators stop first, each draining (or not) on its own."""
+        with self._cond:
+            gens = list(self._generators.values())
+        for g in gens:
+            g.stop(drain=drain, timeout=timeout)
         with self._cond:
             worker = self._thread
             if worker is None:

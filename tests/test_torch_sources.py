@@ -164,6 +164,29 @@ def test_rtc_slice_modules_are_guarded(module):
     test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
 
 
+GENERATE_MODULES = ["config.py", "serving/errors.py", "serving/stats.py",
+                    "serving/bucketing.py", "serving/router.py",
+                    "serving/server.py", "serving/__init__.py",
+                    "serving/generate/__init__.py",
+                    "serving/generate/kv_cache.py",
+                    "serving/generate/stats.py",
+                    "serving/generate/streams.py",
+                    "serving/generate/engine.py",
+                    "serving/generate/scheduler.py",
+                    "gluon/model_zoo/bert.py", "gluon/model_zoo/carrier.py",
+                    "ops/cuda/flash_attention.py"]
+
+
+@pytest.mark.parametrize("module", GENERATE_MODULES)
+def test_generate_slice_modules_are_guarded(module):
+    """The generative serving path's modules (the decode engine, scheduler,
+    paged KV pool and streams, TransformerLM, the flags they read and
+    single_query_attention's module) are among the files the import guards
+    read."""
+    assert PKG / module in PORT_FILES
+    test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
+
+
 def test_rtc_counts_launches_in_cuda_kernel_launch_alone():
     """``rtc.launches`` starts at 0 at module level and is bumped in
     ``CudaKernel.launch`` and nowhere else."""
