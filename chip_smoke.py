@@ -180,7 +180,33 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    device busy share (torch.profiler), and K1's causal times at
    (1, 12, 512, 64) and (1, 12, 128, 64) on split views, from CUDA graphs,
    beside the bound and SDPA's causal forward.
-8. A JSON line with the kernels' numbers, then the last line
+8. The Gluon training surface, on ``gpu(0)``: (a) the LeNet drive of
+   ``.claude/skills/verify/SKILL.md`` (``Conv2D(6, 5, padding=2,
+   activation="relu")``, ``MaxPool2D(2)``, ``Flatten``, ``Dense(10)``,
+   deferred shapes) at batch 64 from Xavier weights, ``Trainer("sgd",
+   0.1)``, three eager then three hybridized ``record`` / ``backward`` /
+   ``step`` iterations on the card and the same on the CPU: losses and
+   parameters within 1e-4 x max(1, max|value|) (f32 both, TF32 off; sums
+   in another order over six steps). (b) The main path, as a Gluon user
+   writes it: ``BERTForPretraining(bert_base(max_length=128))``,
+   ``initialize(Normal(0.02))``, ``cast("bfloat16")``, ``hybridize()``,
+   ``Trainer("adam", lr 1e-4, multi_precision)``, dropout 0.1, batch
+   64 x 128 with P = 19 and a per-sample loss (the two cross-entropies,
+   ``PretrainLoss``): 2 warm-up steps, 10 steps closed by one fetch
+   (tokens/s), 10 steps each closed by a fetch (median ms). Checks: every
+   loss finite; K1, K2 and K3 each launched 12 times per step. Prints
+   tokens/s, the step's median ms, the device ms per step and busy share
+   over three profiled steps (as ``tools/step_profile.py`` reads them;
+   phase 4 prints the same for ``ParallelTrainStep``), peak memory. (c) At
+   dropout 0, three such steps against three ``ParallelTrainStep``
+   (bf16 compute) steps from the same bf16-exact weights: the f32 masters
+   within 2 lr everywhere, and no more than 1e-4 of them beyond 0.01 lr.
+   The two differ in mean-then-backward against backward-then-rescale (a
+   power of 2, exact in bf16), the Adam count as an f32 scalar, and the
+   order of the card's atomic sums (the gather's and the embedding's
+   backward), which can flip a near-zero gradient and move its weight by
+   up to lr a step.
+9. A JSON line with the kernels' numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -188,6 +214,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -197,7 +224,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from mxnet_tpu_torch import MXNetError, autograd, cpu, gpu, nd, rtc, serving
+from mxnet_tpu_torch import (MXNetError, autograd, cpu, gluon, gpu, init, nd,
+                             rtc, serving)
+from mxnet_tpu_torch.gluon import nn
 from mxnet_tpu_torch.gluon.model_zoo.bert import (
     BERTForPretraining, BERTPretrainingLoss, TransformerLM, bert_base,
     load_jax_params)
@@ -240,6 +269,11 @@ BWD_SHAPES = [  # (B, H, S, D), causal
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_P = 64, 128, 19   # bench.py's BERT cell
 TRAIN_K, TRAIN_CALLS, TRAIN_WARMUP, TRAIN_FIXED = 10, 3, 2, 10
 TRAIN_LR = 1e-4
+PROFILED_STEPS = 3         # steps under torch.profiler for the busy share
+LENET_BATCH, LENET_STEPS, LENET_TOL = 64, 6, 1e-4
+GLUON_TIMED = 10           # timed Gluon steps: a window, then one by one
+GLUON_CHECK_STEPS = 3
+GLUON_TOL_LR, GLUON_SHARE_LR, GLUON_SHARE = 2.0, 0.01, 1e-4
 # ResNet-50 v1's distinct 1x1 convolutions at batch 128, as the reference's
 # K4 benchmark lists them: (label, M = 128 * H * W, K = Cin, N = Cout)
 K4_SHAPES = [("s2_reduce", 128 * 56 * 56, 64, 64),
@@ -805,7 +839,7 @@ def phase_slice(seed: int, smi: str):
     # one row in f32: the card (kernel f32 path) against the plain CPU path
     tok, typ = reqs[0][0][:1], reqs[0][1][:1]
     ref = bert_base()
-    load_jax_params(ref, named)
+    load_jax_params(ref, named, ctx=cpu())
     ref.eval()
     with torch.inference_mode():
         cpu_seq, cpu_pooled = ref(torch.from_numpy(tok), torch.from_numpy(typ))
@@ -832,13 +866,15 @@ def phase_slice(seed: int, smi: str):
     return launches
 
 
-def _train_step(named, dropout, compute_dtype, ctx=None, seed=0):
+def _train_step(named, dropout, compute_dtype, ctx=None, seed=0,
+                loss=None):
     model = BERTForPretraining(bert_base(max_length=TRAIN_SEQ,
                                          dropout=dropout))
-    load_jax_params(model, named)
+    load_jax_params(model, named, ctx=ctx)
     mesh = make_mesh({"dp": 1}) if ctx is None else make_mesh({"dp": 1},
                                                                ctx=ctx)
-    return ParallelTrainStep(PretrainStep(model), BERTPretrainingLoss(),
+    return ParallelTrainStep(PretrainStep(model),
+                             loss or BERTPretrainingLoss(),
                              Adam(learning_rate=TRAIN_LR), mesh,
                              compute_dtype=compute_dtype,
                              extra_specs=("dp", "dp"), seed=seed)
@@ -847,7 +883,7 @@ def _train_step(named, dropout, compute_dtype, ctx=None, seed=0):
 def phase_train(seed: int, smi: str):
     rng = np.random.default_rng(seed + 2)
     named = seeded_bert_weights(BERTForPretraining(
-        bert_base(max_length=TRAIN_SEQ, device="meta"), device="meta"), seed)
+        bert_base(max_length=TRAIN_SEQ)), seed)
     step = _train_step(named, 0.1, "bfloat16", seed=seed)
     warm = pretrain_batch(rng, TRAIN_WARMUP, TRAIN_BATCH, TRAIN_SEQ,
                           TRAIN_P)
@@ -899,11 +935,14 @@ def phase_train(seed: int, smi: str):
         raise SystemExit("FAIL: kernel launches do not match one per layer "
                          "per step")
     tokens = TRAIN_BATCH * TRAIN_SEQ * TRAIN_K * TRAIN_CALLS
+    median = float(np.median(step_ms))
+    device_ms, busy = busy_share(lambda: step(*fixed), median)
     print(f"training bert_base S={TRAIN_SEQ} bf16: {tokens / wall:.0f} "
           f"tokens/s over {TRAIN_CALLS} step_n calls of K={TRAIN_K} (wall "
-          f"{wall:.3f} s), step median {float(np.median(step_ms)):.2f} ms "
-          f"(host clock to a fetched loss), peak device memory "
-          f"{peak / 2**30:.2f} GiB on {smi}")
+          f"{wall:.3f} s), step median {median:.2f} ms (host clock to a "
+          f"fetched loss), device {device_ms:.2f} ms/step, busy share "
+          f"{busy:.3f}, peak device memory {peak / 2**30:.2f} GiB on "
+          f"{smi}")
     del step, bench, fixed, losses
 
     # one f32 step at batch 2 on the card against the plain versions on
@@ -943,8 +982,9 @@ def _k4_sites(net, cast, x):
     sites, handles = [], []
 
     def bn_stats(bn, inp):
-        return ops.bn_scale_shift(inp, bn.gamma, bn.beta, bn.running_mean,
-                                  bn.running_var, training=True,
+        return ops.bn_scale_shift(inp, bn._t("gamma"), bn._t("beta"),
+                                  bn._t("running_mean"),
+                                  bn._t("running_var"), training=True,
                                   **{k: v for k, v in bn._kwargs.items()
                                      if k != "use_global_stats"})
 
@@ -958,7 +998,8 @@ def _k4_sites(net, cast, x):
             site["a"], site["b"] = bn_stats(mod, args[0])[:2]
 
         def post_conv(mod, args, out, site=site):
-            site["w"], site["bias"], site["out"] = mod.weight, mod.bias, out
+            site["w"], site["bias"] = mod._t("weight"), mod._t("bias")
+            site["out"] = out
 
         def pre_bn3(mod, args, site=site):
             site["mean"], site["var"] = bn_stats(mod, args[0])[2:4]
@@ -984,7 +1025,7 @@ def resnet_f32_step(named, seed: int):
     the same stage, in its largest element; each plus one f32 ulp of the
     leaf's weights. Returns the per-leaf distances."""
     runs = f32_drift.step_runs(named, seed)
-    probe = resnet50_v1(classes=1000, device="meta")
+    probe = resnet50_v1(classes=1000)
     leaves = f32_drift.leaf_distances(runs, probe.jax_names())
     stage_max = {}
     for v in leaves.values():
@@ -1032,7 +1073,7 @@ def resnet_f32_step(named, seed: int):
 def phase_resnet(seed: int, smi: str):
     """ResNet-50 v1 training as bench.py runs it, K4 on the model's own
     activations, and one f32 step on the card against the CPU."""
-    probe = resnet50_v1(classes=1000, device="meta")
+    probe = resnet50_v1(classes=1000)
     named = seeded_resnet_weights(probe, seed)
     step = resnet_train_step(named, "bfloat16")
     rng = np.random.default_rng(seed + 4)
@@ -1251,8 +1292,8 @@ def phase_rtc(seed: int, smi: str):
     if not ok:
         raise SystemExit("FAIL: the exported template kernel")
 
-    n_params = sum(p.numel() for p in resnet50_v1(
-        classes=1000, device="meta").parameters() if p.requires_grad)
+    n_params = sum(math.prod(p.shape) for p in resnet50_v1(
+        classes=1000).collect_params().values() if p.grad_req != "null")
     nd.random.seed(seed, ctx=ctx)
     xp = nd.random.normal(shape=(n_params,), ctx=ctx)
     yp = nd.random.normal(shape=(n_params,), ctx=ctx)
@@ -1455,7 +1496,8 @@ def lm_weights(seed: int):
     batched and serial decode agree only if they compute alike."""
     rng = np.random.default_rng(seed)
     named = {}
-    for k, p in TransformerLM(**LM_CONFIG, device="meta").state_dict().items():
+    for k, p in TransformerLM(**LM_CONFIG)._collect_params_with_prefix() \
+            .items():
         if k.endswith("gamma"):
             named[k] = np.ones(p.shape, np.float32)
         elif k.endswith(("beta", "bias")):
@@ -1468,7 +1510,7 @@ def lm_weights(seed: int):
 
 def _lm(named, dtype=torch.float32):
     lm = TransformerLM(**LM_CONFIG)
-    load_jax_params(lm, named)
+    load_jax_params(lm, named, ctx=cpu())
     return lm.to(dtype)
 
 
@@ -1640,8 +1682,7 @@ def f32_card_vs_cpu(seed: int, wide, prompt, smi: str):
     init (``wide``) the 12 layers' sharp attention amplifies f32 rounding
     without bound, so that no two f32 orders of summation agree to 1e-3;
     the CPU's own f32 prefill against its f64 one shows it (printed)."""
-    named = seeded_bert_weights(TransformerLM(**LM_CONFIG, device="meta"),
-                                seed)
+    named = seeded_bert_weights(TransformerLM(**LM_CONFIG), seed)
     cpu_lm, gpu_lm = _lm(named), _lm(named).cuda()
     wide32, wide64 = _lm(wide), _lm(wide, torch.float64)
     tok = torch.tensor([prompt])
@@ -1823,6 +1864,272 @@ def phase_generate(seed: int, smi: str):
             **buckets}
 
 
+# ---------------------------------------------------------------------------
+def busy_share(step, step_ms: float):
+    """Device kernel ms per step over PROFILED_STEPS calls of ``step``
+    under torch.profiler, and that over the host-clock ``step_ms`` (as
+    ``tools/step_profile.py`` reads it; the optimizer's range annotation
+    is not a kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_STEPS):
+            step()
+        torch.cuda.synchronize()
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0
+                    and e.key != "mxt.optimizer")
+    device_ms = device_us / 1e3 / PROFILED_STEPS
+    return device_ms, device_ms / step_ms
+
+
+class PretrainLoss(gluon.HybridBlock):
+    """BERT's pretraining loss per sample, as a Gluon user writes it: the
+    masked-LM cross-entropy (mean over the P positions) plus the NSP
+    cross-entropy, (B,). Its batch mean is ``BERTPretrainingLoss`` when
+    every masked position is labelled."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def hybrid_forward(self, F, mlm, nsp, mlm_labels, nsp_labels):
+        return self.ce(mlm, mlm_labels) + self.ce(nsp, nsp_labels)
+
+
+def lenet():
+    """The LeNet of ``.claude/skills/verify/SKILL.md`` (BASELINE config
+    1): deferred input shapes."""
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(6, 5, padding=2, activation="relu"), nn.MaxPool2D(2),
+            nn.Flatten(), nn.Dense(10))
+    return net
+
+
+def lenet_drive(ctx, weights, x, y):
+    """Xavier-shaped ``weights``, SGD(0.1), LENET_STEPS steps of
+    ``record`` / ``backward`` / ``Trainer.step``, hybridized half way, on
+    ``ctx``; returns the per-sample losses and the parameters."""
+    with ctx:
+        net = lenet()
+        net.initialize(init.Xavier())
+        for k, p in net._collect_params_with_prefix().items():
+            p.set_data(nd.array(weights[k]))
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 0.1})
+        ce = gluon.loss.SoftmaxCrossEntropyLoss()
+        xs, ys = nd.array(x), nd.array(y)
+        losses = []
+        for i in range(LENET_STEPS):
+            if i == LENET_STEPS // 2:
+                net.hybridize()
+            with autograd.record():
+                loss = ce(net(xs), ys)
+            loss.backward()
+            trainer.step(x.shape[0])
+            losses.append(loss.asnumpy())
+        return np.stack(losses), {k: p.data().asnumpy() for k, p in
+                                  net._collect_params_with_prefix().items()}
+
+
+def _gluon_batches(rng, n):
+    """``n`` pretraining batches as int32 NDArrays on the card."""
+    toks, (mlm, nsp), tt, pos = pretrain_batch(rng, n, TRAIN_BATCH,
+                                               TRAIN_SEQ, TRAIN_P)
+    to = lambda a: nd.array(a, ctx=gpu(0), dtype="int32")  # noqa: E731
+    return [tuple(to(a[i]) for a in (toks, tt, pos, mlm, nsp))
+            for i in range(n)]
+
+
+def gluon_bert(dropout):
+    """``BERTForPretraining(bert_base(max_length=128))`` as a Gluon user
+    sets it up, without weights yet."""
+    return BERTForPretraining(bert_base(max_length=TRAIN_SEQ,
+                                        dropout=dropout))
+
+
+def gluon_step(net, trainer, loss_fn, batch):
+    """One Gluon training step: ``record``, the loss, ``backward``,
+    ``trainer.step(batch size)``; returns the (B,) losses."""
+    tok, tt, pos, mlm, nsp = batch
+    with autograd.record():
+        loss = loss_fn(*net(tok, tt, None, pos), mlm, nsp)
+    loss.backward()
+    trainer.step(TRAIN_BATCH)
+    return loss
+
+
+class StepCountAdam(Adam):
+    """Adam handing its rule the update count as ParallelTrainStep does
+    (an int) instead of the f32 scalar the reference's ``update`` hands:
+    phase 8(c) compares the Gluon path with that one difference removed."""
+
+    def _count(self, index):
+        return self._index_update_count[index]
+
+
+def gluon_masters(named, batches, optimizer):
+    """GLUON_CHECK_STEPS Gluon steps (bf16 weights, ``optimizer`` with
+    multi_precision, dropout 0) from ``named``: the mean losses and the
+    f32 masters by structural name."""
+    net = gluon_bert(0.0)
+    load_jax_params(net, named, ctx=gpu(0))
+    net.cast("bfloat16")
+    trainer = gluon.Trainer(net.collect_params(), optimizer)
+    loss_fn = PretrainLoss()
+    losses = [float(gluon_step(net, trainer, loss_fn, b).asnumpy().mean())
+              for b in batches]
+    keys = {id(p): k for k, p in net._collect_params_with_prefix().items()}
+    return losses, {keys[id(p)]: trainer._updaters.states[i][0].cpu()
+                    for i, p in enumerate(trainer._params)
+                    if i in trainer._updaters.states}
+
+
+def gluon_vs_train_step(named, rng):
+    """GLUON_CHECK_STEPS steps of the Gluon path against as many
+    ParallelTrainStep(bf16 compute) steps from the same bf16-representable
+    weights, dropout 0: the f32 masters' absolute differences, for the
+    Gluon path with the count as ParallelTrainStep hands it and with the
+    reference's f32 count; and each run's mean losses."""
+    batches = _gluon_batches(rng, GLUON_CHECK_STEPS)
+    runs = {tag: gluon_masters(named, batches, opt(
+        learning_rate=TRAIN_LR, multi_precision=True))
+        for tag, opt in (("int count", StepCountAdam),
+                         ("f32 count", Adam))}
+    step = _train_step(named, 0.0, "bfloat16", loss=PretrainLoss())
+    p_losses = [step(b[0].data, (b[3].data, b[4].data), b[1].data,
+                     b[2].data).item() for b in batches]
+    p_masters = {k[len("inner."):]: v.detach().cpu()
+                 for k, v in step.params.items()}
+    del step
+    out = {}
+    for tag, (losses, masters) in runs.items():
+        if set(masters) != set(p_masters):
+            raise SystemExit("FAIL: the Gluon path and ParallelTrainStep "
+                             "train different parameters")
+        out[tag] = (losses, torch.cat([
+            (masters[k] - p_masters[k]).abs().reshape(-1)
+            for k in p_masters]))
+    return out, p_losses
+
+
+def phase_gluon(seed: int, smi: str):
+    """The Gluon training surface (phase 8): the LeNet drive on the card
+    against the CPU, BERT-base trained through gluon.Trainer (the main
+    path), and that path against ParallelTrainStep."""
+    # (a) the LeNet drive, batch 64, on the card and on the CPU
+    rng = np.random.default_rng(seed + 9)
+    x = rng.standard_normal((LENET_BATCH, 1, 28, 28), dtype=np.float32)
+    y = rng.integers(0, 10, LENET_BATCH).astype(np.float32)
+    with cpu():
+        probe = lenet()
+        probe.initialize(init.Xavier())
+        probe(nd.array(x[:1]))                  # the deferred shapes
+        weights = {k: p.data().asnumpy() for k, p in
+                   probe._collect_params_with_prefix().items()}
+    got = lenet_drive(gpu(0), weights, x, y)
+    want = lenet_drive(cpu(), weights, x, y)
+    loss_err = float(np.abs(got[0] - want[0]).max() /
+                     max(1.0, np.abs(want[0]).max()))
+    w_err = max(float(np.abs(got[1][k] - want[1][k]).max() /
+                      max(1.0, np.abs(want[1][k]).max())) for k in want[1])
+    print(f"LeNet drive (SKILL.md), batch {LENET_BATCH}, {LENET_STEPS} SGD "
+          f"steps ({LENET_STEPS // 2} eager, {LENET_STEPS // 2} hybridized),"
+          f" card vs CPU: losses {want[0].mean(1)[0]:.5f} -> "
+          f"{want[0].mean(1)[-1]:.5f}, max relative difference {loss_err:.3g}"
+          f"; parameters {w_err:.3g} (tol {LENET_TOL})")
+    if not (loss_err <= LENET_TOL and w_err <= LENET_TOL):
+        raise SystemExit("FAIL: the LeNet drive on the card disagrees with "
+                         "the CPU")
+
+    # (b) BERT-base through gluon.Trainer
+    rng = np.random.default_rng(seed + 10)
+    batches = _gluon_batches(rng, 1 + TRAIN_WARMUP + 2 * GLUON_TIMED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts from 0 just before, read just after ----
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    net = gluon_bert(0.1)
+    net.initialize(init.Normal(0.02))
+    net.cast("bfloat16")
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": TRAIN_LR,
+                             "multi_precision": True})
+    loss_fn = PretrainLoss()
+    losses = [gluon_step(net, trainer, loss_fn, b)
+              for b in batches[:TRAIN_WARMUP]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[TRAIN_WARMUP:TRAIN_WARMUP + GLUON_TIMED]:
+        losses.append(gluon_step(net, trainer, loss_fn, b))
+    losses[-1].asnumpy()                   # the window closes on a fetch
+    wall = time.perf_counter() - t0
+    step_ms = []
+    for b in batches[TRAIN_WARMUP + GLUON_TIMED:-1]:
+        t1 = time.perf_counter()
+        losses.append(gluon_step(net, trainer, loss_fn, b))
+        losses[-1].asnumpy()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    counts = {"flash_attention_fwd": fa.launches,
+              "flash_attention_bwd_dq": fa.launches_dq,
+              "flash_attention_bwd_dkv": fa.launches_dkv}
+    # ---- end of the main path ----
+    peak = torch.cuda.max_memory_allocated()
+    steps = TRAIN_WARMUP + 2 * GLUON_TIMED
+    layers = len(net.backbone.encoder._layers)
+    all_losses = np.array([l.asnumpy().mean() for l in losses])
+    median = float(np.median(step_ms))
+    device_ms, busy = busy_share(
+        lambda: gluon_step(net, trainer, loss_fn, batches[-1]), median)
+    tokens = TRAIN_BATCH * TRAIN_SEQ * GLUON_TIMED
+    print(f"Gluon: BERTForPretraining(bert_base) initialize(Normal(0.02)), "
+          f"cast bf16, hybridize, Trainer adam multi_precision, dropout 0.1,"
+          f" batch {TRAIN_BATCH} x {TRAIN_SEQ}, P={TRAIN_P}: {steps} steps, "
+          f"losses {all_losses[0]:.4f} -> {all_losses[-1]:.4f}; launches "
+          f"{counts} (expected {layers} x {steps} = {layers * steps} each)")
+    print(f"training bert_base through gluon.Trainer S={TRAIN_SEQ} bf16: "
+          f"{tokens / wall:.0f} tokens/s over {GLUON_TIMED} steps (wall "
+          f"{wall:.3f} s), step median {median:.2f} ms (host clock to a "
+          f"fetched loss), device {device_ms:.2f} ms/step, busy share "
+          f"{busy:.3f}, peak device memory {peak / 2**30:.2f} GiB on {smi}")
+    if not np.isfinite(all_losses).all():
+        raise SystemExit("FAIL: a Gluon training loss is not finite")
+    if any(n != layers * steps for n in counts.values()):
+        raise SystemExit("FAIL: kernel launches do not match one per layer "
+                         "per step on the Gluon path")
+    del net, trainer, losses, batches
+
+    # (c) against ParallelTrainStep from the same bf16-exact weights
+    named = {k: torch.from_numpy(v).to(torch.bfloat16).float().numpy()
+             for k, v in seeded_bert_weights(gluon_bert(0.0), seed).items()}
+    runs, p_losses = gluon_vs_train_step(named,
+                                         np.random.default_rng(seed + 11))
+    check = {}
+    for tag, (g_losses, diff) in runs.items():
+        check[tag] = (diff.max().item() / TRAIN_LR,
+                      (diff > GLUON_SHARE_LR * TRAIN_LR).float().mean()
+                      .item())
+        print(f"Gluon Trainer ({tag}) vs ParallelTrainStep, "
+              f"{GLUON_CHECK_STEPS} bf16 steps, dropout 0: losses "
+              f"{[f'{v:.5f}' for v in g_losses]} vs "
+              f"{[f'{v:.5f}' for v in p_losses]}; f32 masters max|d| "
+              f"{check[tag][0]:.3g} lr, share beyond {GLUON_SHARE_LR} lr "
+              f"{check[tag][1]:.3g}, bitwise equal "
+              f"{(diff == 0).float().mean().item():.6f}")
+    worst, share = check["int count"]
+    print(f"  held (int count): max|d| <= {GLUON_TOL_LR} lr, share beyond "
+          f"{GLUON_SHARE_LR} lr <= {GLUON_SHARE}")
+    if not (worst <= GLUON_TOL_LR and share <= GLUON_SHARE):
+        raise SystemExit("FAIL: the Gluon Trainer's masters disagree with "
+                         "ParallelTrainStep's")
+    return {"launches": counts, "tokens_per_s": tokens / wall,
+            "step_ms": median, "busy_share": busy}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1841,6 +2148,7 @@ def main(argv=None) -> int:
     resnet = phase_resnet(args.seed, smi)
     k5 = phase_rtc(args.seed, smi)
     gen = phase_generate(args.seed, smi)
+    glu = phase_gluon(args.seed, smi)
     r, tr = record["serving", torch.bfloat16], record["training", torch.bfloat16]
     pallas = "mxnet_tpu/ops/pallas/flash_attention.py"
     kernels = [
@@ -1848,11 +2156,12 @@ def main(argv=None) -> int:
          "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": f"{pallas}:213",
          "launches": serve_launches + train_launches["flash_attention_fwd"]
-         + gen["launches"],
+         + gen["launches"] + glu["launches"]["flash_attention_fwd"],
          "launches_by_path": {
              "serving": serve_launches,
              "training": train_launches["flash_attention_fwd"],
-             "generate": gen["launches"]},
+             "generate": gen["launches"],
+             "gluon_training": glu["launches"]["flash_attention_fwd"]},
          "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"],
                             gen["k1_max_abs_err"]),
          "ms": r["ms"], "ms_strided": r["ms_strided"],
@@ -1880,7 +2189,10 @@ def main(argv=None) -> int:
             "name": wrapper, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"{pallas}:{line}",
-            "launches": train_launches[wrapper],
+            "launches": train_launches[wrapper] + glu["launches"][wrapper],
+            "launches_by_path": {
+                "training": train_launches[wrapper],
+                "gluon_training": glu["launches"][wrapper]},
             "max_abs_err": bwd[f"{name}_err"], "ms": t[name]["ms"],
             "device_ms": t[name]["device_ms"],
             "plain_ms": t[name]["plain_ms"],

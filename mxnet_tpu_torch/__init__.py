@@ -20,10 +20,12 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from .base import Context, MXNetError, cpu, current_context, gpu
-from . import (autograd, base, gluon, ndarray, ops, optimizer, parallel,
-               random, rtc, serving)
+from . import (autograd, base, gluon, init, initializer, ndarray, ops,
+               optimizer, parallel, random, rtc, serving)
 from . import ndarray as nd
+from .optimizer import lr_scheduler
 
 __all__ = ["Context", "MXNetError", "cpu", "gpu", "current_context",
-           "autograd", "base", "gluon", "nd", "ndarray", "ops", "optimizer",
-           "parallel", "random", "rtc", "serving"]
+           "autograd", "base", "gluon", "init", "initializer",
+           "lr_scheduler", "nd", "ndarray", "ops", "optimizer", "parallel",
+           "random", "rtc", "serving"]

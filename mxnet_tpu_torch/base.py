@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "DTypes"]
+           "DTypes", "Registry"]
 
 
 class MXNetError(RuntimeError):
@@ -131,3 +131,32 @@ class DTypes:
             raise MXNetError("bfloat16 has no numpy dtype; serve float32 "
                              "inputs to a bf16 model instead")
         return np.dtype(name)
+
+
+class Registry:
+    """Name -> class table (the reference's ``Registry``): keys are lower
+    case, so ``get("SGD")`` and ``get("sgd")`` find the same entry."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._entries = {}
+
+    def register(self, name=None, override: bool = False):
+        def deco(obj):
+            key = (name or obj.__name__).lower()
+            if key in self._entries and not override:
+                raise MXNetError(f"{self.name} registry: duplicate entry "
+                                 f"{key!r}")
+            self._entries[key] = obj
+            return obj
+        return deco
+
+    def get(self, name: str):
+        key = name.lower()
+        if key not in self._entries:
+            raise MXNetError(f"{self.name} registry: unknown entry {name!r}; "
+                             f"known: {sorted(self._entries)}")
+        return self._entries[key]
+
+    def __contains__(self, name):
+        return name.lower() in self._entries

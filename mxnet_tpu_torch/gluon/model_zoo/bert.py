@@ -3,15 +3,16 @@ from ``SelfAttention`` through ``BERTModel`` and ``bert_base`` to the
 pretraining heads ``BERTForPretraining`` and ``BERTPretrainingLoss``, and the
 decoder-only ``TransformerLM`` that the generative serving path serves.
 
-The module tree mirrors the JAX block tree, so ``state_dict()`` keys equal
-the JAX package's ``_collect_params_with_prefix()`` names (for example
-``encoder.layer0.attention.qkv.weight``, ``backbone.word_embed.weight`` or
-``mlm_ln.gamma``). Weights cross over as numpy
-arrays through the weight carrier (``carrier.py``, re-exported here):
-:func:`params_from_jax` turns such a dict into a state dict and
-:func:`load_jax_params` loads it into a model, both refusing missing keys,
-extra keys and shape mismatches; ``BERTModel.load_parameters`` reads a
-``.params`` file the JAX package wrote.
+The blocks are Gluon ``HybridBlock``s built under the reference's name
+scopes, so ``_collect_params_with_prefix()`` names (the ``state_dict()``
+keys, for example ``encoder.layer0.attention.qkv.weight``,
+``backbone.word_embed.weight`` or ``mlm_ln.gamma``) and ``collect_params()``
+names equal the JAX package's. Construction allocates nothing: call
+``initialize(...)``, ``load_parameters`` (a ``.params`` file of either
+package) or the weight carrier (``carrier.py``, re-exported here:
+:func:`load_jax_params` loads a JAX-package parameter dict, refusing
+missing keys, extra keys and shape mismatches). The forwards compute on
+tensors; called with NDArrays they follow Gluon's autograd rules.
 
 Attention runs through ``ops.nn.multi_head_attention``: with no padding mask
 every layer's attention is one call of the hand-written flash-attention
@@ -26,10 +27,10 @@ from typing import Dict
 
 import numpy as np
 import torch
-from torch import nn
 
 from ...base import MXNetError
 from ...ops import nn as ops
+from ..block import HybridBlock
 from ..nn import Dense, Dropout, Embedding, LayerNorm
 from .carrier import check_against, load_jax_params, params_from_jax, \
     to_tensor
@@ -40,7 +41,13 @@ __all__ = ["SelfAttention", "PositionwiseFFN", "TransformerEncoderLayer",
            "params_from_jax", "load_jax_params"]
 
 
-class SelfAttention(nn.Module):
+class _TensorBlock(HybridBlock):
+    """A block of this zoo: forwards on tensors."""
+
+    _io = "tensor"
+
+
+class SelfAttention(_TensorBlock):
     """Multi-head self-attention with one fused QKV projection.
 
     ``causal=True`` bakes the causal mask into attention (TransformerLM);
@@ -49,15 +56,15 @@ class SelfAttention(nn.Module):
     ``attend_step`` (one token against cached context)."""
 
     def __init__(self, units, num_heads, dropout=0.0, causal=False,
-                 device=None):
-        super().__init__()
+                 **kwargs):
+        super().__init__(**kwargs)
         self._units = units
         self._heads = num_heads
         self._causal = causal
-        self.qkv = Dense(3 * units, flatten=False, in_units=units,
-                         device=device)
-        self.proj = Dense(units, flatten=False, in_units=units, device=device)
-        self.drop = Dropout(dropout)
+        with self.name_scope():
+            self.qkv = Dense(3 * units, flatten=False, in_units=units)
+            self.proj = Dense(units, flatten=False, in_units=units)
+            self.drop = Dropout(dropout)
 
     def forward(self, x, mask=None):
         q, k, v = self.qkv(x).split(self._units, dim=-1)
@@ -90,32 +97,32 @@ class SelfAttention(nn.Module):
         return self.drop(self.proj(out)), k, v
 
 
-class PositionwiseFFN(nn.Module):
+class PositionwiseFFN(_TensorBlock):
     """FFN with the original-BERT tanh GELU."""
 
-    def __init__(self, units, hidden_size, dropout=0.0, device=None):
-        super().__init__()
-        self.ffn1 = Dense(hidden_size, flatten=False, in_units=units,
-                          device=device)
-        self.ffn2 = Dense(units, flatten=False, in_units=hidden_size,
-                          device=device)
-        self.drop = Dropout(dropout)
+    def __init__(self, units, hidden_size, dropout=0.0, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.ffn1 = Dense(hidden_size, flatten=False, in_units=units)
+            self.ffn2 = Dense(units, flatten=False, in_units=hidden_size)
+            self.drop = Dropout(dropout)
 
     def forward(self, x):
         return self.drop(self.ffn2(ops.gelu_tanh(self.ffn1(x))))
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(_TensorBlock):
     """Post-LN transformer encoder layer (BERT convention)."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
-                 causal=False, device=None):
-        super().__init__()
-        self.attention = SelfAttention(units, num_heads, dropout,
-                                       causal=causal, device=device)
-        self.ln1 = LayerNorm(units, device=device)
-        self.ffn = PositionwiseFFN(units, hidden_size, dropout, device=device)
-        self.ln2 = LayerNorm(units, device=device)
+                 causal=False, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.attention = SelfAttention(units, num_heads, dropout,
+                                           causal=causal)
+            self.ln1 = LayerNorm(in_channels=units)
+            self.ffn = PositionwiseFFN(units, hidden_size, dropout)
+            self.ln2 = LayerNorm(in_channels=units)
 
     def forward(self, x, mask=None):
         x = self.ln1(x + self.attention(x, mask))
@@ -136,17 +143,17 @@ class TransformerEncoderLayer(nn.Module):
         return self.ln2(x + self.ffn(x)), k, v
 
 
-class BERTEncoder(nn.Module):
+class BERTEncoder(_TensorBlock):
     def __init__(self, num_layers, units, hidden_size, num_heads, dropout=0.0,
-                 causal=False, device=None):
-        super().__init__()
+                 causal=False, **kwargs):
+        super().__init__(**kwargs)
         self._layers = []
-        for i in range(num_layers):
-            layer = TransformerEncoderLayer(units, hidden_size, num_heads,
-                                            dropout, causal=causal,
-                                            device=device)
-            self.add_module(f"layer{i}", layer)
-            self._layers.append(layer)
+        with self.name_scope():
+            for i in range(num_layers):
+                layer = TransformerEncoderLayer(units, hidden_size, num_heads,
+                                                dropout, causal=causal)
+                self._layers.append(layer)
+                self.register_child(layer, f"layer{i}")
 
     def forward(self, x, mask=None):
         for layer in self._layers:
@@ -154,25 +161,25 @@ class BERTEncoder(nn.Module):
         return x
 
 
-class BERTModel(nn.Module):
+class BERTModel(_TensorBlock):
     """Embeddings + encoder + pooler. ``forward(tokens, token_types=None,
     valid_mask=None)`` returns ``(sequence_output, pooled_output)``."""
 
     def __init__(self, num_layers=12, units=768, hidden_size=3072,
                  num_heads=12, vocab_size=30522, max_length=512,
-                 type_vocab_size=2, dropout=0.1, device=None):
-        super().__init__()
+                 type_vocab_size=2, dropout=0.1, **kwargs):
+        super().__init__(**kwargs)
         self._units = units
-        self.word_embed = Embedding(vocab_size, units, device=device)
-        self.token_type_embed = Embedding(type_vocab_size, units,
-                                          device=device)
-        self.position_embed = Embedding(max_length, units, device=device)
-        self.embed_ln = LayerNorm(units, device=device)
-        self.embed_drop = Dropout(dropout)
-        self.encoder = BERTEncoder(num_layers, units, hidden_size, num_heads,
-                                   dropout, device=device)
-        self.pooler = Dense(units, activation="tanh", flatten=False,
-                            in_units=units, device=device)
+        with self.name_scope():
+            self.word_embed = Embedding(vocab_size, units)
+            self.token_type_embed = Embedding(type_vocab_size, units)
+            self.position_embed = Embedding(max_length, units)
+            self.embed_ln = LayerNorm(in_channels=units)
+            self.embed_drop = Dropout(dropout)
+            self.encoder = BERTEncoder(num_layers, units, hidden_size,
+                                       num_heads, dropout)
+            self.pooler = Dense(units, activation="tanh", flatten=False,
+                                in_units=units)
 
     def forward(self, tokens, token_types=None, valid_mask=None):
         B, S = tokens.shape[0], tokens.shape[1]
@@ -188,18 +195,8 @@ class BERTModel(nn.Module):
         seq = self.encoder(h, attn_mask)
         return seq, self.pooler(seq[:, 0])
 
-    def load_parameters(self, filename: str):
-        """Load a ``.params`` file written by the JAX package's
-        ``save_parameters`` (dense records only)."""
-        from ...ndarray.utils import load
-        named = load(filename)
-        if not isinstance(named, dict):
-            raise MXNetError(f"{filename} holds an unnamed array list, not "
-                             "model parameters")
-        load_jax_params(self, named)
 
-
-class BERTForPretraining(nn.Module):
+class BERTForPretraining(_TensorBlock):
     """MLM + NSP heads over a :class:`BERTModel`.
 
     ``forward(tokens, token_types=None, valid_mask=None,
@@ -210,15 +207,15 @@ class BERTForPretraining(nn.Module):
     a TPU choice; both pick the same rows exactly). The decoder is tied to
     ``backbone.word_embed.weight`` and has no bias."""
 
-    def __init__(self, backbone: BERTModel, vocab_size=30522, device=None):
-        super().__init__()
+    def __init__(self, backbone: BERTModel, vocab_size=30522, **kwargs):
+        super().__init__(**kwargs)
         self._vocab = vocab_size
         units = backbone._units
-        self.backbone = backbone
-        self.mlm_transform = Dense(units, flatten=False, in_units=units,
-                                   device=device)
-        self.mlm_ln = LayerNorm(units, device=device)
-        self.nsp = Dense(2, flatten=False, in_units=units, device=device)
+        with self.name_scope():
+            self.backbone = backbone
+            self.mlm_transform = Dense(units, flatten=False, in_units=units)
+            self.mlm_ln = LayerNorm(in_channels=units)
+            self.nsp = Dense(2, flatten=False, in_units=units)
 
     def forward(self, tokens, token_types=None, valid_mask=None,
                 masked_positions=None):
@@ -228,11 +225,11 @@ class BERTForPretraining(nn.Module):
                 -1, -1, seq.shape[-1])
             seq = torch.gather(seq, 1, idx)                 # (B, P, U)
         h = self.mlm_ln(ops.gelu(self.mlm_transform(seq)))
-        mlm = torch.matmul(h, self.backbone.word_embed.weight.t())
+        mlm = torch.matmul(h, self.backbone.word_embed._t("weight").t())
         return mlm, self.nsp(pooled)
 
 
-class BERTPretrainingLoss(nn.Module):
+class BERTPretrainingLoss(_TensorBlock):
     """Masked-LM + NSP loss. ``mlm_labels`` uses -1 for unmasked (ignored)
     positions; the MLM term is the mean over labelled positions (at least
     one), the NSP term the mean over the batch. Each term keeps the
@@ -250,7 +247,7 @@ class BERTPretrainingLoss(nn.Module):
         return mlm_loss + nsp_loss
 
 
-class TransformerLM(nn.Module):
+class TransformerLM(_TensorBlock):
     """Decoder-only causal language model over the BERT encoder stack: the
     post-LN layers with the causal mask, word + position embeddings and an
     LM head tied to the word embedding (``word_embed.weight``, no bias).
@@ -267,26 +264,27 @@ class TransformerLM(nn.Module):
     decode engine reads."""
 
     def __init__(self, num_layers=2, units=64, hidden_size=128, num_heads=2,
-                 vocab_size=256, max_length=128, dropout=0.0, device=None):
-        super().__init__()
+                 vocab_size=256, max_length=128, dropout=0.0, **kwargs):
+        super().__init__(**kwargs)
         self.num_layers = num_layers
         self.units = units
         self.num_heads = num_heads
         self.vocab_size = vocab_size
         self.max_length = max_length
-        self.word_embed = Embedding(vocab_size, units, device=device)
-        self.position_embed = Embedding(max_length, units, device=device)
-        self.embed_ln = LayerNorm(units, device=device)
-        self.embed_drop = Dropout(dropout)
-        self.encoder = BERTEncoder(num_layers, units, hidden_size, num_heads,
-                                   dropout, causal=True, device=device)
+        with self.name_scope():
+            self.word_embed = Embedding(vocab_size, units)
+            self.position_embed = Embedding(max_length, units)
+            self.embed_ln = LayerNorm(in_channels=units)
+            self.embed_drop = Dropout(dropout)
+            self.encoder = BERTEncoder(num_layers, units, hidden_size,
+                                       num_heads, dropout, causal=True)
 
     def _embed(self, ids, positions):
         h = self.word_embed(ids) + self.position_embed(positions)
         return self.embed_drop(self.embed_ln(h))
 
     def _head(self, h):
-        return torch.matmul(h, self.word_embed.weight.t())
+        return torch.matmul(h, self.word_embed._t("weight").t())
 
     def forward(self, tokens):
         positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -320,6 +318,7 @@ class TransformerLM(nn.Module):
 
 
 def bert_base(vocab_size=30522, max_length=512, dropout=0.1, **kwargs):
+    """BERT-base: 12 layers, 768 units, 12 heads, FFN 3072."""
     return BERTModel(num_layers=12, units=768, hidden_size=3072, num_heads=12,
                      vocab_size=vocab_size, max_length=max_length,
                      dropout=dropout, **kwargs)
@@ -361,14 +360,14 @@ def _bert_shapes(named: Dict[str, tuple]) -> Dict[str, tuple]:
     if kind == "TransformerLM":
         ref = TransformerLM(num_layers=layers, units=units, hidden_size=hidden,
                             num_heads=1, vocab_size=vocab,
-                            max_length=max_length, device="meta")
+                            max_length=max_length)
     else:
         ref = BERTModel(num_layers=layers, units=units, hidden_size=hidden,
                         num_heads=1, vocab_size=vocab, max_length=max_length,
-                        type_vocab_size=type_vocab, device="meta")
+                        type_vocab_size=type_vocab)
     if pre:
-        ref = BERTForPretraining(ref, vocab_size=vocab, device="meta")
-    return {k: tuple(v.shape) for k, v in ref.state_dict().items()}
+        ref = BERTForPretraining(ref, vocab_size=vocab)
+    return {k: p.shape for k, p in ref._collect_params_with_prefix().items()}
 
 
 def state_from_jax(named: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -5,8 +5,8 @@ Two naming schemes are taken:
 
 - the JAX package's ``_collect_params_with_prefix()`` names (for example
   ``encoder.layer0.attention.qkv.weight`` or ``features.4.0.body.0.weight``),
-  which are the port's ``state_dict()`` keys, since its module trees mirror
-  the JAX block trees;
+  which are the port's too (and its ``state_dict()`` keys), since its block
+  trees are the JAX block trees;
 - a ResNet's ``collect_params()`` names (``resnetv10_stage1_conv2d0_weight``,
   running stats included), which a ResNet of the port maps to its keys with
   ``jax_names()``.
@@ -14,8 +14,11 @@ Two naming schemes are taken:
 :func:`params_from_jax` turns such a dict into a state dict after checking
 it against the model its names and shapes imply (a BERTModel, a
 BERTForPretraining, a TransformerLM or a ResNetV1); :func:`load_jax_params`
-loads it into a given model. Both refuse missing keys, extra keys and shape
-mismatches before anything is copied.
+loads it into a given model through its Gluon ``Parameter``s, as the JAX
+package's ``load_parameters`` does: a parameter not yet initialized is
+initialized from the array, an initialized one is overwritten in place.
+Both refuse missing keys, extra keys and shape mismatches before anything
+is copied.
 """
 from __future__ import annotations
 
@@ -24,7 +27,6 @@ from typing import Dict
 
 import numpy as np
 import torch
-from torch import nn
 
 from ...base import MXNetError
 
@@ -48,14 +50,22 @@ def to_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def _fits(want, got) -> bool:
+    """``got`` is ``want``, an unknown (0) dimension of ``want`` taking any
+    size."""
+    return len(want) == len(got) and all(w in (0, g)
+                                         for w, g in zip(want, got))
+
+
 def check_against(expected: Dict[str, tuple], got: Dict[str, tuple],
                   what: str):
     """Raise MXNetError unless ``got`` has exactly ``expected``'s keys and
-    shapes."""
+    shapes (a deferred, 0, dimension of ``expected`` takes any size)."""
     missing = sorted(set(expected) - set(got))
     extra = sorted(set(got) - set(expected))
     bad = sorted(f"{k}: {got[k]} != {expected[k]}"
-                 for k in set(expected) & set(got) if got[k] != expected[k])
+                 for k in set(expected) & set(got)
+                 if not _fits(tuple(expected[k]), tuple(got[k])))
     if missing or extra or bad:
         raise MXNetError(f"parameters do not match {what}: missing {missing}, "
                          f"extra {extra}, shape mismatches {bad}")
@@ -93,17 +103,20 @@ def params_from_jax(named: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return bert.state_from_jax(named)
 
 
-def load_jax_params(model: nn.Module, named: Dict[str, np.ndarray]):
-    """Copy a JAX-package parameter dict into ``model`` (cast to each
-    tensor's dtype and device; a ResNet's running stats included). The
-    names are state-dict keys, or, for a model with ``jax_names()``, its
-    ``collect_params()`` names. Raises MXNetError on any missing key, extra
-    key or shape mismatch, before anything is copied."""
+def load_jax_params(model, named: Dict[str, np.ndarray], ctx=None):
+    """Copy a JAX-package parameter dict into the Gluon block ``model``,
+    each array cast to its parameter's dtype (a ResNet's running stats
+    included): in place into parameters already initialized, else
+    initializing them on ``ctx`` (default :func:`current_context`). The
+    names are ``_collect_params_with_prefix()`` names, or, for a model with
+    ``jax_names()``, its ``collect_params()`` names. Raises MXNetError on
+    any missing key, extra key or shape mismatch, before anything is
+    copied."""
     what = type(model).__name__
     if _is_resnet_names(named) and hasattr(model, "jax_names"):
         named = rename_from_jax(model.jax_names(), named, what)
-    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    got = {k: tuple(np.shape(v)) for k, v in named.items()}
-    check_against(want, got, what)
-    model.load_state_dict({k: to_tensor(v) for k, v in named.items()},
-                          strict=True)
+    params = model._collect_params_with_prefix()
+    check_against({k: p.shape for k, p in params.items()},
+                  {k: tuple(np.shape(v)) for k, v in named.items()}, what)
+    for k, v in named.items():
+        params[k]._load(to_tensor(v), ctx)

@@ -2,18 +2,21 @@
 ``BottleneckV1``, ``ResNetV1``, ``get_resnet`` and ``resnet50_v1`` in
 ``mxnet_tpu/gluon/model_zoo/vision/resnet.py``.
 
-The module tree mirrors the JAX block tree, so ``state_dict()`` keys equal
-the JAX package's ``_collect_params_with_prefix()`` names (for example
-``features.4.0.body.0.weight``), and :meth:`ResNetV1.jax_names` gives each
-key's ``collect_params()`` name (``resnetv10_stage1_conv2d0_weight`` without
-the net's prefix): 299 parameters and running stats for ``resnet50_v1``.
-The bottleneck's 1x1 convolutions carry a bias, as the reference's.
+The blocks are Gluon ``HybridBlock``s built under the reference's name
+scopes, so ``_collect_params_with_prefix()`` names (the ``state_dict()``
+keys, for example ``features.4.0.body.0.weight``) and ``collect_params()``
+names (``resnetv10_stage1_conv2d0_weight``) equal the JAX package's, and
+:meth:`ResNetV1.jax_names` maps the one to the other: 299 parameters and
+running stats for ``resnet50_v1``. The bottleneck's 1x1 convolutions carry
+a bias, as the reference's.
 
 The convolutions are library convolutions (cuDNN), as they are XLA's in the
 JAX package; the net is not fused. ``ops.cuda.fused_conv1x1`` (K4) computes
 its conv -> BatchNorm -> ReLU chain at a bottleneck's last 1x1 conv as a
-separate op. Images have 3 channels (the reference infers the first conv's
-input channels from the data). V2 is not ported yet.
+separate op. Images have 3 channels: the port gives every layer its input
+channels (the reference infers the stem's and the bottleneck's first
+convolution's from the data), so all shapes are known at construction. V2
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,10 +25,10 @@ from typing import Dict
 
 import numpy as np
 import torch
-from torch import nn
 
 from ....base import MXNetError
 from ....ops import nn as ops
+from ...block import HybridBlock
 from ...nn import (Activation, BatchNorm, Conv2D, Dense, GlobalAvgPool2D,
                    HybridSequential, MaxPool2D)
 from ..carrier import check_against, rename_from_jax, to_tensor
@@ -37,32 +40,34 @@ __all__ = ["BasicBlockV1", "BottleneckV1", "ResNetV1", "get_resnet",
 _IMAGE_CHANNELS = 3
 
 
-def _conv3x3(channels, stride, in_channels, device):
+def _conv3x3(channels, stride, in_channels):
     return Conv2D(channels, kernel_size=3, strides=stride, padding=1,
-                  use_bias=False, in_channels=in_channels, device=device)
+                  use_bias=False, in_channels=in_channels)
 
 
-def _downsample(channels, stride, in_channels, device):
-    ds = HybridSequential()
+def _downsample(channels, stride, in_channels):
+    ds = HybridSequential(prefix="")
     ds.add(Conv2D(channels, kernel_size=1, strides=stride, use_bias=False,
-                  in_channels=in_channels, device=device),
-           BatchNorm(in_channels=channels, device=device))
+                  in_channels=in_channels),
+           BatchNorm(in_channels=channels))
     return ds
 
 
-class BasicBlockV1(nn.Module):
+class BasicBlockV1(HybridBlock):
     """Two 3x3 convolutions with BatchNorm and a residual (ResNet-18/34)."""
 
+    _io = "tensor"
+
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 device=None):
-        super().__init__()
-        self.body = HybridSequential()
-        self.body.add(_conv3x3(channels, stride, in_channels, device),
-                      BatchNorm(in_channels=channels, device=device),
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.body = HybridSequential(prefix="")
+        self.body.add(_conv3x3(channels, stride, in_channels),
+                      BatchNorm(in_channels=channels),
                       Activation("relu"),
-                      _conv3x3(channels, 1, channels, device),
-                      BatchNorm(in_channels=channels, device=device))
-        self.downsample = _downsample(channels, stride, in_channels, device) \
+                      _conv3x3(channels, 1, channels),
+                      BatchNorm(in_channels=channels))
+        self.downsample = _downsample(channels, stride, in_channels) \
             if downsample else None
 
     def forward(self, x):
@@ -70,28 +75,30 @@ class BasicBlockV1(nn.Module):
         return ops.activation(residual + self.body(x), act_type="relu")
 
 
-class BottleneckV1(nn.Module):
+class BottleneckV1(HybridBlock):
     """1x1 (stride here, as v1) -> 3x3 -> 1x1 with BatchNorms and ReLUs,
     plus a residual: ResNet-50/101/152's block. ``body[3]`` is the 3x3
     convolution, ``body[4]`` its BatchNorm, ``body[6]`` the last 1x1
     convolution and ``body[7]`` its BatchNorm."""
 
+    _io = "tensor"
+
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 device=None):
-        super().__init__()
+                 **kwargs):
+        super().__init__(**kwargs)
         mid = channels // 4
-        self.body = HybridSequential()
+        self.body = HybridSequential(prefix="")
         self.body.add(Conv2D(mid, kernel_size=1, strides=stride,
-                             in_channels=in_channels, device=device),
-                      BatchNorm(in_channels=mid, device=device),
+                             in_channels=in_channels),
+                      BatchNorm(in_channels=mid),
                       Activation("relu"),
-                      _conv3x3(mid, 1, mid, device),
-                      BatchNorm(in_channels=mid, device=device),
+                      _conv3x3(mid, 1, mid),
+                      BatchNorm(in_channels=mid),
                       Activation("relu"),
                       Conv2D(channels, kernel_size=1, strides=1,
-                             in_channels=mid, device=device),
-                      BatchNorm(in_channels=channels, device=device))
-        self.downsample = _downsample(channels, stride, in_channels, device) \
+                             in_channels=mid),
+                      BatchNorm(in_channels=channels))
+        self.downsample = _downsample(channels, stride, in_channels) \
             if downsample else None
 
     def forward(self, x):
@@ -99,70 +106,53 @@ class BottleneckV1(nn.Module):
         return ops.activation(self.body(x) + residual, act_type="relu")
 
 
-class ResNetV1(nn.Module):
+class ResNetV1(HybridBlock):
     """``features`` (stem, four stages, global average pool) then the
     ``output`` Dense layer over the flattened pool."""
 
+    _io = "tensor"
+
     def __init__(self, block, layers, channels, classes=1000,
-                 thumbnail=False, device=None):
-        super().__init__()
+                 thumbnail=False, **kwargs):
+        super().__init__(**kwargs)
         if len(layers) != len(channels) - 1:
             raise MXNetError(f"ResNetV1: {len(layers)} stages need "
                              f"{len(layers) + 1} channel counts, got "
                              f"{channels}")
-        self.features = HybridSequential()
-        if thumbnail:
-            self.features.add(_conv3x3(channels[0], 1, _IMAGE_CHANNELS,
-                                       device))
-        else:
-            self.features.add(
-                Conv2D(channels[0], 7, 2, 3, use_bias=False,
-                       in_channels=_IMAGE_CHANNELS, device=device),
-                BatchNorm(in_channels=channels[0], device=device),
-                Activation("relu"), MaxPool2D(3, 2, 1))
-        for i, num_layer in enumerate(layers):
-            stage = HybridSequential(prefix=f"stage{i + 1}_")
-            stride = 1 if i == 0 else 2
-            stage.add(block(channels[i + 1], stride,
-                            channels[i + 1] != channels[i],
-                            in_channels=channels[i], device=device))
-            for _ in range(num_layer - 1):
-                stage.add(block(channels[i + 1], 1, False,
-                                in_channels=channels[i + 1], device=device))
-            self.features.add(stage)
-        self.features.add(GlobalAvgPool2D())
-        self.output = Dense(classes, in_units=channels[-1], device=device)
+        with self.name_scope():
+            self.features = HybridSequential(prefix="")
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, _IMAGE_CHANNELS))
+            else:
+                self.features.add(
+                    Conv2D(channels[0], 7, 2, 3, use_bias=False,
+                           in_channels=_IMAGE_CHANNELS),
+                    BatchNorm(in_channels=channels[0]),
+                    Activation("relu"), MaxPool2D(3, 2, 1))
+            for i, num_layer in enumerate(layers):
+                stage = HybridSequential(prefix=f"stage{i + 1}_")
+                stride = 1 if i == 0 else 2
+                with stage.name_scope():
+                    stage.add(block(channels[i + 1], stride,
+                                    channels[i + 1] != channels[i],
+                                    in_channels=channels[i], prefix=""))
+                    for _ in range(num_layer - 1):
+                        stage.add(block(channels[i + 1], 1, False,
+                                        in_channels=channels[i + 1],
+                                        prefix=""))
+                self.features.add(stage)
+            self.features.add(GlobalAvgPool2D())
+            self.output = Dense(classes, in_units=channels[-1])
 
     def forward(self, x):
         return self.output(self.features(x))
 
     def jax_names(self) -> Dict[str, str]:
-        """{state-dict key: the JAX package's ``collect_params()`` name
-        without the net's ``resnetv1N_`` prefix}. Names follow the
-        reference's name scopes: one counter per layer kind (conv2d,
-        batchnorm, dense) at the top and one per stage (``stage1_``...),
-        counted in the order the layers were created."""
-        kinds = ((Conv2D, "conv2d"), (BatchNorm, "batchnorm"),
-                 (Dense, "dense"))
-        names = {}
-
-        def visit(mod, path, scope, counts):
-            for name, child in mod.named_children():
-                key = f"{path}{name}"
-                kind = next((k for t, k in kinds if isinstance(child, t)),
-                            None)
-                if kind is not None:
-                    i = counts.get(kind, 0)
-                    counts[kind] = i + 1
-                    for p in child.state_dict():
-                        names[f"{key}.{p}"] = f"{scope}{kind}{i}_{p}"
-                elif isinstance(child, HybridSequential) and child.prefix:
-                    visit(child, key + ".", scope + child.prefix, {})
-                else:
-                    visit(child, key + ".", scope, counts)
-
-        visit(self, "", "", {})
-        return names
+        """{state-dict key: the ``collect_params()`` name without the net's
+        prefix (``resnetv10_``)}, running stats included."""
+        n = len(self.prefix)
+        return {k: p.name[n:]
+                for k, p in self._collect_params_with_prefix().items()}
 
 
 _SPEC = {18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
@@ -251,9 +241,10 @@ def state_from_jax(named: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
               for k, v in named.items()}
     block, layers, channels, classes, thumbnail = _spec_from_names(shapes)
     ref = ResNetV1(block, layers, channels, classes=classes,
-                   thumbnail=thumbnail, device="meta")
+                   thumbnail=thumbnail)
     keyed = rename_from_jax(ref.jax_names(), named, "a ResNetV1")
-    check_against({k: tuple(v.shape) for k, v in ref.state_dict().items()},
+    check_against({k: p.shape for k, p in
+                   ref._collect_params_with_prefix().items()},
                   {k: tuple(np.shape(v)) for k, v in keyed.items()},
                   "a ResNetV1")
     return {k: to_tensor(v) for k, v in keyed.items()}

@@ -1,76 +1,138 @@
-"""Basic layers of the port as ``torch.nn.Module``s: the counterparts of
-``HybridSequential``, ``Dense``, ``Dropout``, ``BatchNorm``, ``LayerNorm``,
-``Embedding``, ``Flatten`` and ``Activation`` in
-``mxnet_tpu/gluon/nn/basic_layers.py``, with the JAX package's parameter
-names and layouts (Dense weight is (out, in); LayerNorm has gamma/beta;
-BatchNorm gamma/beta/running_mean/running_var), so ``state_dict()`` keys
-match its ``_collect_params_with_prefix()`` names.
+"""Basic layers of the port as Gluon blocks over ``torch.nn.Module``: the
+counterparts of ``Sequential``, ``HybridSequential``, ``Dense``,
+``Dropout``, ``BatchNorm``, ``LayerNorm``, ``Embedding``, ``Flatten``,
+``Activation``, ``Lambda`` and ``HybridLambda`` in
+``mxnet_tpu/gluon/nn/basic_layers.py``, with its constructor arguments,
+parameter names and layouts (Dense weight (out, in); BatchNorm gamma, beta,
+running_mean, running_var) and deferred shapes (``in_units=0``,
+``in_channels=0``: known at the first forward).
 
-Shapes are given at construction (no deferred initialization). Initial
-weights are random; served models load theirs (see
-``model_zoo.bert.load_jax_params``).
+The layers compute on tensors (``_io = "tensor"``); called with NDArrays
+they follow Gluon's autograd rules (``block.py``). BatchNorm's running
+statistics are float32 buffers, written in place in training mode.
 """
 from __future__ import annotations
 
+import math
+
 import torch
-from torch import nn
 
+from ... import random as _random
 from ...base import MXNetError
+from ...ndarray.ndarray import _context_of
 from ...ops import nn as ops
+from ..block import Block, HybridBlock, gluon_context
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm", "LayerNorm",
-           "Embedding", "Flatten", "Activation"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "LayerNorm", "Embedding", "Flatten", "Lambda", "HybridLambda",
+           "Activation"]
 
 
-class HybridSequential(nn.Sequential):
-    """Blocks run in order; children are named "0", "1", ... as the
-    reference's. ``prefix`` is the reference's name scope (``"stage1_"``),
-    kept for the names of the weight carrier."""
+def _init_by_name(init):
+    from ... import initializer
+    return initializer.create(init) if isinstance(init, str) else init
 
-    def __init__(self, prefix: str = ""):
-        super().__init__()
-        self.prefix = prefix
+
+class _Sequence:
+    """What the two sequential containers share: ``add``, the forward
+    through every child in order, indexing and iteration."""
+
+    _io = None
 
     def add(self, *blocks):
-        for b in blocks:
-            self.append(b)
+        for block in blocks:
+            self.register_child(block)
+
+    def forward(self, x, *args):
+        for block in self._modules.values():
+            x = block(x)
+        return x
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, key):
+        layers = list(self._modules.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
+
+    def __iter__(self):
+        return iter(self._modules.values())
 
 
-class Dense(nn.Module):
-    """Fully-connected layer: y = act(x W^T + b), weight (units, in_units);
-    ``activation`` is a name ``ops.nn.activation`` takes."""
+class Sequential(_Sequence, Block):
+    """Blocks run in order; children named "0", "1", ..."""
 
-    def __init__(self, units: int, activation=None, flatten: bool = True,
-                 in_units: int = 0, device=None):
-        super().__init__()
-        if in_units <= 0:
-            raise MXNetError("Dense needs in_units > 0 (the port has no "
-                             "deferred shape inference)")
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+
+class HybridSequential(_Sequence, HybridBlock):
+    """Hybrid blocks run in order; children named "0", "1", ..."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+
+class Dense(HybridBlock):
+    """Fully-connected layer: y = act(x W^T + b), weight (units,
+    in_units); ``in_units=0`` is inferred from the first input
+    (``flatten``: everything after the batch axis, else the last axis)."""
+
+    _io = "tensor"
+
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, **kwargs):
+        super().__init__(**kwargs)
+        self._units = units
         self._flatten = flatten
-        self._act = activation
-        self.weight = nn.Parameter(torch.empty(units, in_units, device=device))
-        with torch.no_grad():
-            self.weight.normal_(0.0, in_units ** -0.5)
-        self.bias = nn.Parameter(torch.zeros(units, device=device))
+        self._act_type = activation
+        with self.name_scope():
+            self.weight = self.params.get("weight", shape=(units, in_units),
+                                          init=weight_initializer,
+                                          dtype=dtype,
+                                          allow_deferred_init=True)
+            if use_bias:
+                self.bias = self.params.get(
+                    "bias", shape=(units,),
+                    init=_init_by_name(bias_initializer), dtype=dtype,
+                    allow_deferred_init=True)
+            else:
+                self.bias = None
+
+    def infer_shape(self, x, *args):
+        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        self.weight.shape = (self._units, in_units)
 
     def forward(self, x):
-        out = ops.fully_connected(x, self.weight, self.bias,
+        out = ops.fully_connected(x, self._t("weight"), self._t("bias"),
                                   flatten=self._flatten)
-        return ops.activation(out, act_type=self._act) if self._act else out
+        return ops.activation(out, act_type=self._act_type) \
+            if self._act_type else out
 
 
-class Dropout(nn.Module):
+class Dropout(HybridBlock):
     """Dropout with rate ``rate``: in training mode each element is kept
     with probability 1 - rate and divided by 1 - rate; the identity in
     eval mode (serving) and at rate 0.
 
-    The mask is drawn from ``self.generator``, a ``torch.Generator`` on the
-    input's device that the caller sets (``ParallelTrainStep`` gives every
-    Dropout of its block the one it owns), never from PyTorch's global RNG;
-    training mode at a nonzero rate without one raises."""
+    The mask is drawn from ``self.generator`` when a caller set one
+    (``ParallelTrainStep`` gives every Dropout of its block the one it
+    owns), else, in a Gluon (NDArray) call, from ``random.generator`` of
+    the input's context; never from PyTorch's global RNG. Training mode on
+    tensors without a generator raises."""
 
-    def __init__(self, rate: float):
-        super().__init__()
+    _io = "tensor"
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        if axes:
+            raise MXNetError("Dropout: axes (shared masks) are not ported")
         self._rate = float(rate)
         #: the ``torch.Generator`` masks are drawn from (set by the caller)
         self.generator = None
@@ -78,108 +140,199 @@ class Dropout(nn.Module):
     def forward(self, x):
         if not self.training or self._rate <= 0:
             return x
-        if self.generator is None:
-            raise MXNetError("Dropout in training mode needs a torch.Generator "
-                             "(set .generator); it never draws from the "
-                             "global RNG")
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self._rate
+        gen = self.generator
+        if gen is None:
+            if gluon_context() is None:
+                raise MXNetError("Dropout in training mode needs a "
+                                 "torch.Generator (set .generator); it never "
+                                 "draws from the global RNG")
+            gen = _random.generator(_context_of(x))
+        keep = torch.rand(x.shape, generator=gen, device=x.device) >= \
+            self._rate
         # the reference's mask: bernoulli in x's dtype, divided by 1 - rate
         return x * (keep.to(x.dtype) / (1.0 - self._rate))
 
 
-class BatchNorm(nn.Module):
+class BatchNorm(HybridBlock):
     """Batch normalization over ``axis`` (channels of NCHW by default).
 
     ``gamma`` and ``beta`` are parameters (``scale=False`` means fix_gamma:
     gamma is taken as 1 and not trained; ``center=False`` leaves beta
-    untrained). ``running_mean`` and ``running_var`` are float32 buffers:
-    in training mode every forward writes the updated moving stats back into
-    them, in place and without gradient (the reference's aux states). As
-    ``BatchNorm.cast`` in the reference, a cast of the model to a half type
-    leaves all four in float32."""
+    untrained). ``running_mean`` and ``running_var`` are float32 buffers
+    (``grad_req="null"`` parameters): in training mode every forward writes
+    the updated moving stats back into them, in place and without gradient
+    (the reference's aux states). ``cast`` and a module cast to a half type
+    leave all four in float32, as ``BatchNorm.cast`` in the reference."""
 
-    def __init__(self, axis: int = 1, momentum: float = 0.9,
-                 epsilon: float = 1e-5, center: bool = True,
-                 scale: bool = True, use_global_stats: bool = False,
-                 in_channels: int = 0, device=None):
-        super().__init__()
-        if in_channels <= 0:
-            raise MXNetError("BatchNorm needs in_channels > 0 (the port has "
-                             "no deferred shape inference)")
+    _io = "tensor"
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
         self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
                         "fix_gamma": not scale,
                         "use_global_stats": use_global_stats}
-        self.gamma = nn.Parameter(torch.ones(in_channels, device=device),
-                                  requires_grad=scale)
-        self.beta = nn.Parameter(torch.zeros(in_channels, device=device),
-                                 requires_grad=center)
-        self.register_buffer("running_mean",
-                             torch.zeros(in_channels, device=device))
-        self.register_buffer("running_var",
-                             torch.ones(in_channels, device=device))
+        self._axis = axis
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=_init_by_name(gamma_initializer),
+                allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=_init_by_name(beta_initializer),
+                allow_deferred_init=True, differentiable=center)
+            for name, init in (("running_mean", running_mean_initializer),
+                               ("running_var", running_variance_initializer)):
+                p = self.params.get(name, grad_req="null",
+                                    shape=(in_channels,),
+                                    init=_init_by_name(init),
+                                    allow_deferred_init=True,
+                                    differentiable=False)
+                p._buffer = True
+                setattr(self, name, p)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            p.shape = (c,)
+
+    def cast(self, dtype):
+        if str(dtype) in ("float16", "bfloat16"):
+            dtype = "float32"
+        super().cast(dtype)
 
     def _apply(self, fn, recurse=True):
-        super()._apply(fn, recurse)
-        for t in list(self._parameters.values()):
-            if t.dtype in (torch.bfloat16, torch.float16):
-                t.data = t.data.float()
-        for k, t in list(self._buffers.items()):
-            if t.dtype in (torch.bfloat16, torch.float16):
-                self._buffers[k] = t.float()
-        return self
+        def keep_f32(t):
+            out = fn(t)
+            return out.float() if out.dtype in (torch.bfloat16,
+                                                torch.float16) else out
+        return super()._apply(keep_f32, recurse)
 
     def forward(self, x):
+        running_mean, running_var = self._t("running_mean"), \
+            self._t("running_var")
         out, new_mean, new_var = ops.batch_norm(
-            x, self.gamma, self.beta, self.running_mean, self.running_var,
+            x, self._t("gamma"), self._t("beta"), running_mean, running_var,
             training=self.training, **self._kwargs)
         if self.training and not self._kwargs["use_global_stats"]:
             with torch.no_grad():
-                self.running_mean.copy_(new_mean)
-                self.running_var.copy_(new_var)
+                running_mean.copy_(new_mean)
+                running_var.copy_(new_var)
         return out
 
 
-class LayerNorm(nn.Module):
-    """LayerNorm over the last axis with parameters ``gamma`` (ones) and
-    ``beta`` (zeros), eps 1e-5."""
+class LayerNorm(HybridBlock):
+    """LayerNorm over ``axis`` with ``gamma`` (ones) and ``beta`` (zeros),
+    statistics in f32."""
 
-    def __init__(self, in_channels: int, device=None):
-        super().__init__()
-        self.gamma = nn.Parameter(torch.ones(in_channels, device=device))
-        self.beta = nn.Parameter(torch.zeros(in_channels, device=device))
+    _io = "tensor"
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=_init_by_name(gamma_initializer),
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=_init_by_name(beta_initializer),
+                allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
 
     def forward(self, x):
-        return ops.layer_norm(x, self.gamma, self.beta)
+        return ops.layer_norm(x, self._t("gamma"), self._t("beta"),
+                              axis=self._axis, eps=self._epsilon)
 
 
-class Embedding(nn.Module):
+class Embedding(HybridBlock):
     """Lookup table with weight (input_dim, output_dim)."""
 
-    def __init__(self, input_dim: int, output_dim: int, device=None):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(input_dim, output_dim,
-                                               device=device))
-        with torch.no_grad():
-            self.weight.normal_(0.0, 0.02)
+    _io = "tensor"
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        super().__init__(**kwargs)
+        if sparse_grad:
+            raise MXNetError("Embedding: sparse_grad (row-sparse gradients) "
+                             "is not ported")
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim),
+                init=weight_initializer, dtype=dtype)
 
     def forward(self, x):
-        return ops.embedding(x, self.weight)
+        return ops.embedding(x, self._t("weight"))
 
 
-class Flatten(nn.Module):
+class Flatten(HybridBlock):
     """(N, ...) -> (N, prod(...))."""
+
+    _io = "tensor"
 
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
 
 
-class Activation(nn.Module):
+class Activation(HybridBlock):
     """Elementwise activation by name (``ops.nn.activation``)."""
 
-    def __init__(self, activation: str):
-        super().__init__()
+    _io = "tensor"
+
+    def __init__(self, activation, **kwargs):
+        super().__init__(**kwargs)
         self._act_type = activation
+
+    def _alias(self):
+        # called before _act_type is set, as in the reference
+        return self._act_type if hasattr(self, "_act_type") else "activation"
 
     def forward(self, x):
         return ops.activation(x, act_type=self._act_type)
+
+
+class Lambda(Block):
+    """A function of NDArrays as a block: a callable, or the name of one
+    in ``nd``."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd_mod
+            function = getattr(nd_mod, function)
+        self._func = function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """``function(F, *args)`` as a hybrid block, or the name of a function
+    in ``nd``."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd_mod
+            fn = getattr(nd_mod, function)
+            self._func = lambda F, *args: fn(*args)
+        else:
+            self._func = function
+
+    def hybrid_forward(self, F, *args):
+        return self._func(F, *args)

@@ -1,55 +1,79 @@
-"""Convolution and pooling layers of the port as ``torch.nn.Module``s: the
+"""Convolution and pooling layers of the port as Gluon blocks: the
 counterparts of ``Conv2D``, ``MaxPool2D`` and ``GlobalAvgPool2D`` in
 ``mxnet_tpu/gluon/nn/conv_layers.py``, NCHW activations and OIHW weights as
-the JAX package stores them (the only layout ported), so ``state_dict()``
-keys and shapes match its ``_collect_params_with_prefix()``. Shapes are
-given at construction (no deferred initialization).
+the JAX package stores them (the only layout ported), with its constructor
+arguments and parameter names. ``in_channels=0`` is inferred from the first
+input.
 """
 from __future__ import annotations
-
-import torch
-from torch import nn
 
 from ...base import MXNetError
 from ...ops import nn as ops
 from ...ops.nn import _pair
+from ..block import HybridBlock
+from .basic_layers import _init_by_name
 
 __all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
 
 
-class Conv2D(nn.Module):
-    """2-D convolution: weight (channels, in_channels // groups, kh, kw)
-    drawn N(0, 1/fan_in), bias (channels,) zeros when ``use_bias`` (the
-    default, as the reference)."""
+class Conv2D(HybridBlock):
+    """2-D convolution: weight (channels, in_channels // groups, kh, kw),
+    bias (channels,) when ``use_bias`` (the default), then ``activation``
+    if given."""
 
-    def __init__(self, channels: int, kernel_size, strides=1, padding=0,
-                 dilation=1, groups: int = 1, use_bias: bool = True,
-                 in_channels: int = 0, device=None):
-        super().__init__()
-        if in_channels <= 0:
-            raise MXNetError("Conv2D needs in_channels > 0 (the port has no "
-                             "deferred shape inference)")
-        kernel = _pair(kernel_size)
+    _io = "tensor"
+
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 dilation=(1, 1), groups=1, layout="NCHW", activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        if layout != "NCHW":
+            raise MXNetError(f"Conv2D: layout {layout!r} is not ported; "
+                             "NCHW only")
+        self._channels = channels
+        self._kernel = _pair(kernel_size)
         self._kwargs = {"stride": _pair(strides), "pad": _pair(padding),
                         "dilate": _pair(dilation), "num_group": groups}
-        fan_in = in_channels // groups * kernel[0] * kernel[1]
-        self.weight = nn.Parameter(torch.empty(
-            (channels, in_channels // groups) + kernel, device=device))
-        with torch.no_grad():
-            self.weight.normal_(0.0, fan_in ** -0.5)
-        self.bias = nn.Parameter(torch.zeros(channels, device=device)) \
-            if use_bias else None
+        self._act_type = activation
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(channels, in_channels // groups
+                                 if in_channels else 0) + self._kernel,
+                init=weight_initializer, allow_deferred_init=True)
+            if use_bias:
+                self.bias = self.params.get(
+                    "bias", shape=(channels,),
+                    init=_init_by_name(bias_initializer),
+                    allow_deferred_init=True)
+            else:
+                self.bias = None
+
+    def infer_shape(self, x, *args):
+        self.weight.shape = (self._channels,
+                             x.shape[1] // self._kwargs["num_group"]) + \
+            self._kernel
 
     def forward(self, x):
-        return ops.convolution(x, self.weight, self.bias, **self._kwargs)
+        out = ops.convolution(x, self._t("weight"), self._t("bias"),
+                              **self._kwargs)
+        return ops.activation(out, act_type=self._act_type) \
+            if self._act_type else out
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(HybridBlock):
     """Max pooling with ``pool_size`` windows at ``strides`` (default the
-    pool size) and ``padding``."""
+    pool size) and ``padding``; the output size rounds down
+    (``ceil_mode=True`` is not ported)."""
 
-    def __init__(self, pool_size=(2, 2), strides=None, padding=0):
-        super().__init__()
+    _io = "tensor"
+
+    def __init__(self, pool_size=(2, 2), strides=None, padding=0,
+                 layout="NCHW", ceil_mode=False, **kwargs):
+        super().__init__(**kwargs)
+        if ceil_mode or layout != "NCHW":
+            raise MXNetError("MaxPool2D: only ceil_mode=False over NCHW is "
+                             "ported")
         self._kwargs = {"kernel": _pair(pool_size),
                         "stride": None if strides is None else _pair(strides),
                         "pad": _pair(padding)}
@@ -58,8 +82,15 @@ class MaxPool2D(nn.Module):
         return ops.pooling(x, pool_type="max", **self._kwargs)
 
 
-class GlobalAvgPool2D(nn.Module):
+class GlobalAvgPool2D(HybridBlock):
     """Average over H and W, keeping them: (N, C, H, W) -> (N, C, 1, 1)."""
+
+    _io = "tensor"
+
+    def __init__(self, layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        if layout != "NCHW":
+            raise MXNetError("GlobalAvgPool2D: NCHW only")
 
     def forward(self, x):
         return ops.pooling(x, pool_type="avg", global_pool=True)

@@ -1,6 +1,7 @@
 """The ``nd`` imperative frontend of the port: NDArray, its factories and the
 functions the imperative and runtime-kernel paths use (the counterpart of
-``mxnet_tpu/ndarray/__init__.py``), plus the ``.params`` reader ``utils``.
+``mxnet_tpu/ndarray/__init__.py``), and ``save``/``load`` of the
+``.params`` format (``utils``).
 
 Arrays are made on ``ctx`` when given, else on :func:`current_context`,
 which is ``gpu(0)`` unless the caller enters ``cpu()``.
@@ -12,11 +13,12 @@ import torch
 from ..base import DTypes, current_context
 from . import utils
 from .ndarray import NDArray, _apply, _wrap, array
+from .utils import load, save
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "zeros_like", "ones_like", "dot", "waitall", "sigmoid", "exp",
            "log", "tanh", "relu", "sqrt", "square", "abs", "clip", "where",
-           "random", "utils"]
+           "random", "utils", "save", "load"]
 
 
 def _make(maker, ctx, dtype):

@@ -34,6 +34,7 @@ from typing import Dict, Sequence
 import torch
 
 from ..base import DTypes, MXNetError
+from ..gluon import Block
 from ..gluon.nn import Dropout
 from .mesh import DeviceMesh
 
@@ -47,6 +48,8 @@ def _tree_map(fn, y):
 
 class ParallelTrainStep:
     """Forward + backward + update of ``block`` on a one-device ``mesh``.
+    The block's Gluon parameters must be initialized (or loaded); it is
+    called with tensors, in the module's training mode.
 
     ``step(x, y, *extras)`` calls ``block(x, *extras)``, then
     ``loss(*outputs, *labels)`` with ``y`` a label array or a tuple/list of
@@ -59,6 +62,12 @@ class ParallelTrainStep:
     def __init__(self, block: torch.nn.Module, loss, optimizer,
                  mesh: DeviceMesh, *, extra_specs: Sequence = (),
                  compute_dtype=None, seed: int = 0):
+        missing = [p.name for m in block.modules() if isinstance(m, Block)
+                   for p in m._reg_params.values() if p._var is None]
+        if missing:
+            raise MXNetError(f"ParallelTrainStep: parameters not initialized "
+                             f"{missing[:5]} (of {len(missing)}); call "
+                             "initialize() or load the weights first")
         self._device = mesh.device
         self._block = block.to(self._device)
         self._loss = loss

@@ -69,11 +69,11 @@ def seeded_bert_weights(net, seed: int):
     LayerNorm gamma 1 + N(0, 0.1^2), biases and beta N(0, 0.02^2)."""
     rng = np.random.default_rng(seed)
     named = {}
-    for k, p in net.state_dict().items():
+    for k, p in net._collect_params_with_prefix().items():
         a = rng.standard_normal(p.shape, dtype=np.float32)
         if k.endswith(".gamma"):
             a = 1.0 + 0.1 * a
-        elif p.dim() == 1:
+        elif len(p.shape) == 1:
             a = 0.02 * a
         elif "embed" not in k:
             a = a * np.float32(p.shape[1] ** -0.5)
@@ -89,10 +89,10 @@ def seeded_resnet_weights(net, seed: int):
     N(0, 0.02^2), running mean 0 and running variance 1 (the reference's
     initial stats)."""
     rng = np.random.default_rng(seed)
-    state = net.state_dict()
+    params = net._collect_params_with_prefix()
     named = {}
     for key, name in net.jax_names().items():
-        shape = tuple(state[key].shape)
+        shape = params[key].shape
         if key.endswith("running_mean"):
             a = np.zeros(shape, np.float32)
         elif key.endswith("running_var"):
@@ -145,7 +145,7 @@ def resnet_train_step(named, compute_dtype, ctx=None):
     ``ParallelTrainStep`` on ``ctx`` (default the card), ``compute_dtype``
     over f32 masters."""
     net = resnet50_v1(classes=1000)
-    load_jax_params(net, named)
+    load_jax_params(net, named, ctx=ctx)
     return ParallelTrainStep(net, SoftmaxCrossEntropyLoss(),
                              SGD(learning_rate=0.05, momentum=0.9),
                              make_mesh({"dp": 1}, ctx=ctx),

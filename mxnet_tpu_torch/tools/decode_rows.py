@@ -31,7 +31,9 @@ import sys
 import torch
 import torch.nn.functional as F
 
+from ..base import gpu
 from ..gluon.model_zoo.bert import TransformerLM
+from ..initializer import Normal
 from ..ops import nn as ops
 from . import card, graph_ms
 
@@ -156,7 +158,9 @@ def main(argv=None) -> int:
 
     # the whole step from a CUDA graph: device ms
     lm = TransformerLM(num_layers=12, units=U, hidden_size=FFN, num_heads=H,
-                       vocab_size=V, max_length=L).to("cuda", bf).eval()
+                       vocab_size=V, max_length=L)
+    lm.initialize(Normal(0.02), ctx=gpu(0))
+    lm = lm.to(bf).eval()
     ids = torch.randint(0, V, (R,), generator=gen, device="cuda")
     pos = torch.full((R,), L - 1, device="cuda")
     ctx = [randn(R, L, U) for _ in range(24)]

@@ -102,7 +102,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("f32_drift: no CUDA device", file=sys.stderr)
         return 1
-    probe = resnet50_v1(classes=1000, device="meta")
+    probe = resnet50_v1(classes=1000)
     runs = step_runs(seeded_resnet_weights(probe, args.seed), args.seed,
                      layers=True)
     print(f"card: {card()}")

@@ -172,8 +172,7 @@ def _resnet_step(args):
     from ..gluon.model_zoo.vision import resnet50_v1
 
     batch = 32
-    named = seeded_resnet_weights(resnet50_v1(classes=1000, device="meta"),
-                                  args.seed)
+    named = seeded_resnet_weights(resnet50_v1(classes=1000), args.seed)
     ts = resnet_train_step(named, "bfloat16")
     xs, ys = ts.place_batch_n(*resnet_batch(
         np.random.default_rng(args.seed), 1, batch))

@@ -18,6 +18,7 @@ from mxnet_tpu.ops.nn import multi_head_attention as jax_mha
 from mxnet_tpu.ops.registry import get_op
 
 from mxnet_tpu_torch import MXNetError
+from mxnet_tpu_torch import cpu as mx_cpu
 from mxnet_tpu_torch.gluon.model_zoo.bert import (
     BERTModel, load_jax_params, params_from_jax)
 from mxnet_tpu_torch.ops import nn as ops
@@ -126,7 +127,9 @@ def test_small_bert_matches_jax():
 def test_state_dict_keys_are_the_jax_names():
     _, named = _jax_bert()
     tnet = BERTModel(**SMALL)
+    tnet.initialize(ctx=mx_cpu())
     assert set(tnet.state_dict()) == set(named)
+    assert set(tnet._collect_params_with_prefix()) == set(named)
     assert "encoder.layer0.attention.qkv.weight" in named
 
 
@@ -143,6 +146,7 @@ def test_weight_carrier_refuses_mismatch(fault):
     with pytest.raises(MXNetError, match=fault if fault != "shape" else "shape"):
         params_from_jax(bad)
     tnet = BERTModel(**SMALL)
+    tnet.initialize(ctx=mx_cpu())
     before = {k: v.clone() for k, v in tnet.state_dict().items()}
     with pytest.raises(MXNetError):
         load_jax_params(tnet, bad)
@@ -161,7 +165,7 @@ def test_load_parameters_from_jax_checkpoint(tmp_path):
     path = str(tmp_path / "bert.params")
     jnet.save_parameters(path)
     tnet = BERTModel(**SMALL)
-    tnet.load_parameters(path)
+    tnet.load_parameters(path, ctx=mx_cpu())
     want = params_from_jax(named)
     got = tnet.state_dict()
     assert set(got) == set(want)
@@ -172,24 +176,24 @@ def test_load_parameters_from_jax_checkpoint(tmp_path):
 def test_params_reader_refuses_sparse_records(tmp_path):
     from mxnet_tpu.ndarray.utils import save as jax_save
     from mxnet_tpu.sparse import RowSparseNDArray
-    from mxnet_tpu_torch.ndarray.utils import load
+    from mxnet_tpu_torch.ndarray.utils import read
     path = str(tmp_path / "sparse.params")
     dense = mx.nd.array(onp.ones((2, 3), onp.float32))
     rs = RowSparseNDArray(onp.ones((1, 3), onp.float32),
                           onp.array([1], onp.int32), (4, 3), ctx=mx.cpu())
     jax_save(path, {"dense": dense, "sparse": rs})
     with pytest.raises(MXNetError, match="sparse"):
-        load(path)
+        read(path)
 
 
 def test_params_reader_reads_bf16_and_ints(tmp_path):
     from mxnet_tpu.ndarray.utils import save as jax_save
-    from mxnet_tpu_torch.ndarray.utils import load
+    from mxnet_tpu_torch.ndarray.utils import read
     path = str(tmp_path / "mixed.params")
     x = onp.arange(6, dtype=onp.float32).reshape(2, 3) / 7
     jax_save(path, {"w": mx.nd.array(x).astype("bfloat16"),
                     "i": mx.nd.array(onp.arange(5), dtype="int32")})
-    got = load(path)
+    got = read(path)
     assert got["w"].dtype == torch.bfloat16
     assert torch.equal(got["w"], torch.from_numpy(x).to(torch.bfloat16))
     onp.testing.assert_array_equal(got["i"], onp.arange(5, dtype=onp.int32))

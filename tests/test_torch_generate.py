@@ -55,7 +55,7 @@ def _weights(seed=0):
     weights N(0, 0.5^2), biases and beta 0, gamma 1."""
     rng = onp.random.RandomState(seed)
     named = {}
-    for k, v in TransformerLM(**CFG).state_dict().items():
+    for k, v in TransformerLM(**CFG)._collect_params_with_prefix().items():
         if k.endswith("gamma"):
             named[k] = onp.ones(v.shape, onp.float32)
         elif k.endswith(("beta", "bias")):
@@ -67,7 +67,7 @@ def _weights(seed=0):
 
 def _lm(named):
     lm = TransformerLM(**CFG)
-    load_jax_params(lm, named)
+    load_jax_params(lm, named, ctx=mt.cpu())
     return lm
 
 

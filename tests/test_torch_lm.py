@@ -22,7 +22,7 @@ from mxnet_tpu.gluon.model_zoo.bert import TransformerLM as JaxLM
 from mxnet_tpu.ops.pallas.flash_attention import (
     flash_attention as jax_flash, single_query_attention as jax_sqa)
 
-from mxnet_tpu_torch import MXNetError
+from mxnet_tpu_torch import MXNetError, cpu
 from mxnet_tpu_torch.gluon.model_zoo.bert import (
     TransformerLM, load_jax_params, params_from_jax)
 from mxnet_tpu_torch.ops import nn as ops
@@ -56,7 +56,7 @@ def _pair(cfg, seed=0):
         p.set_data(mx.nd.array(a))
         named[name] = a
     tlm = TransformerLM(**cfg)
-    load_jax_params(tlm, named)
+    load_jax_params(tlm, named, ctx=cpu())
     return jlm, tlm.eval(), named
 
 

@@ -184,17 +184,19 @@ def test_batch_norm_matches_jax(form, fix_gamma, training, monkeypatch):
 
 def test_batch_norm_layer_writes_back_moving_stats_in_f32():
     bn = BatchNorm(in_channels=3)
+    bn.initialize(ctx=mt.cpu())
     x = torch.randn(8, 3, 4, 4) * 2 + 1
-    mean0 = bn.running_mean
+    mean0 = bn.running_mean.data().data        # the registered f32 buffer
     bn.train()
     bn(x.to(torch.bfloat16))
-    assert bn.running_mean is mean0 and mean0.dtype == torch.float32
+    assert bn._buffers["running_mean"] is mean0 and \
+        mean0.dtype == torch.float32
     want = 0.1 * x.mean(dim=(0, 2, 3))
-    _close(bn.running_mean, want, 2e-2)
+    _close(mean0, want, 2e-2)
     bn.eval()
-    before = bn.running_var.clone()
+    before = bn.running_var.data().data.clone()
     bn(x)
-    assert torch.equal(bn.running_var, before)     # eval: no write-back
+    assert torch.equal(bn.running_var.data().data, before)  # eval: no write
     net = torch.nn.Sequential(bn).to(torch.bfloat16)   # a half cast
     assert all(t.dtype == torch.float32 for t in
                list(bn.parameters()) + list(bn.buffers()))
@@ -271,7 +273,7 @@ def _jax_model(named, dtype=None):
 
 def _port_model(named, dtype=None):
     net = _port_net()
-    carrier.load_jax_params(net, named)
+    carrier.load_jax_params(net, named, ctx=mt.cpu())
     return net if dtype is None else net.to(dtype)
 
 
@@ -322,7 +324,7 @@ def _jax_train(named, batches, compute_dtype=None):
 def _port_train(named, batches, compute_dtype=None, use_step_n=False):
     xs, ys = batches
     net = _port_net()
-    carrier.load_jax_params(net, named)
+    carrier.load_jax_params(net, named, ctx=mt.cpu())
     step = parallel.ParallelTrainStep(
         net, port_loss.SoftmaxCrossEntropyLoss(),
         optimizer.SGD(learning_rate=LR, momentum=MOMENTUM, wd=WD),
@@ -417,11 +419,12 @@ def r50_names():
 
 def test_resnet50_names_map_one_to_one(r50_names):
     net = vision.get_model("resnet50_v1", classes=1000)
-    assert len(r50_names) == 299 == len(net.state_dict())
+    params = net._collect_params_with_prefix()
+    assert len(r50_names) == 299 == len(params)
     pre = next(iter(r50_names)).split("_")[0] + "_"
     got = {pre + v: k for k, v in net.jax_names().items()}
     assert got == {c: key for c, (key, _) in r50_names.items()}
-    shapes = {k: tuple(v.shape) for k, v in net.state_dict().items()}
+    shapes = {k: p.shape for k, p in params.items()}
     assert shapes == {key: s for key, s in r50_names.values()}
 
 
@@ -438,7 +441,7 @@ def test_weight_carrier_takes_resnet50_collect_params(r50_names):
     for c, (key, _) in r50_names.items():
         assert torch.equal(sd[key], torch.from_numpy(named[c])), c
     net = resnet.resnet50_v1(classes=1000)
-    carrier.load_jax_params(net, named)
+    carrier.load_jax_params(net, named, ctx=mt.cpu())
     state = net.state_dict()
     for c, (key, _) in r50_names.items():            # running stats too
         assert torch.equal(state[key], torch.from_numpy(named[c])), c
@@ -457,6 +460,7 @@ def test_weight_carrier_refuses_resnet_mismatch(r50_names, fault):
     with pytest.raises(MXNetError, match=fault):
         carrier.params_from_jax(bad)
     net = resnet.resnet50_v1(classes=1000)
+    net.initialize(ctx=mt.cpu())
     before = {k: v.clone() for k, v in net.state_dict().items()}
     with pytest.raises(MXNetError):
         carrier.load_jax_params(net, bad)

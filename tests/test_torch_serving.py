@@ -32,7 +32,8 @@ SEQ = 32
 
 def _weights(seed=0):
     rng = onp.random.RandomState(seed)
-    shapes = {k: tuple(v.shape) for k, v in BERTModel(**SMALL).state_dict().items()}
+    shapes = {k: p.shape for k, p in
+              BERTModel(**SMALL)._collect_params_with_prefix().items()}
     named = {}
     for k, shp in shapes.items():
         a = (0.1 * rng.randn(*shp)).astype(onp.float32)

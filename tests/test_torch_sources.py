@@ -187,6 +187,24 @@ def test_generate_slice_modules_are_guarded(module):
     test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
 
 
+GLUON_MODULES = ["base.py", "initializer.py", "init.py",
+                 "optimizer/__init__.py", "optimizer/optimizer.py",
+                 "optimizer/lr_scheduler.py", "ndarray/utils.py",
+                 "gluon/__init__.py", "gluon/parameter.py", "gluon/block.py",
+                 "gluon/trainer.py", "gluon/utils.py", "gluon/nn/__init__.py",
+                 "gluon/nn/basic_layers.py", "gluon/nn/conv_layers.py",
+                 "gluon/loss.py"]
+
+
+@pytest.mark.parametrize("module", GLUON_MODULES)
+def test_gluon_slice_modules_are_guarded(module):
+    """The Gluon training surface's modules (Block, Parameter, Trainer, the
+    initializers, optimizers and schedulers, the .params writer) are among
+    the files the import guards read."""
+    assert PKG / module in PORT_FILES
+    test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
+
+
 def test_rtc_counts_launches_in_cuda_kernel_launch_alone():
     """``rtc.launches`` starts at 0 at module level and is bumped in
     ``CudaKernel.launch`` and nowhere else."""

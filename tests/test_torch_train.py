@@ -74,7 +74,7 @@ def _port_model(named, dropout=0.0):
     m = bert.BERTForPretraining(bert.BERTModel(**{**SMALL,
                                                   "dropout": dropout}),
                                 vocab_size=SMALL["vocab_size"])
-    bert.load_jax_params(m, named)
+    bert.load_jax_params(m, named, ctx=mt.cpu())
     return m
 
 
@@ -420,11 +420,12 @@ def test_multi_device_mesh_is_refused(axes):
 
 def test_weight_carrier_round_trips_pretraining_params(named):
     model = bert.BERTForPretraining(bert.BERTModel(**SMALL), 128)
-    assert set(model.state_dict()) == set(named)
+    assert set(model._collect_params_with_prefix()) == set(named)
     assert {"backbone.word_embed.weight", "mlm_transform.weight",
             "mlm_ln.gamma", "nsp.bias"} <= set(named)
     sd = bert.params_from_jax(named)
     model.load_state_dict(sd)
+    assert set(model.state_dict()) == set(named)
     for k, v in model.state_dict().items():
         assert torch.equal(v, torch.from_numpy(named[k])), k
 
@@ -445,6 +446,7 @@ def test_weight_carrier_refuses_pretraining_mismatch(named, fault):
         with pytest.raises(MXNetError, match=fault):
             bert.params_from_jax(bad)
     model = bert.BERTForPretraining(bert.BERTModel(**SMALL), 128)
+    model.initialize(ctx=mt.cpu())
     before = {k: v.clone() for k, v in model.state_dict().items()}
     with pytest.raises(MXNetError):
         bert.load_jax_params(model, bad)
