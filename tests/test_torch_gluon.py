@@ -186,6 +186,24 @@ def test_same_seed_same_draws():
     assert not onp.array_equal(draws[0], other)
 
 
+@pytest.mark.parametrize("mode,layers,bi", [("lstm", 2, True),
+                                             ("gru", 1, False)])
+def test_fused_rnn_equals_jax(mode, layers, bi):
+    """A fused RNN's flat vector: the inner initializer per sub-matrix
+    (a constant here, so the layout is compared exactly), biases 0 and an
+    LSTM's forget gates forget_bias / 2."""
+    g, h, n_in, d = {"lstm": 4, "gru": 3}[mode], 5, 3, 2 if bi else 1
+    size = sum(d * (g * h * (n_in if i == 0 else h * d) + g * h * h)
+               for i in range(layers)) + layers * d * 2 * g * h
+    want = mx.nd.zeros((size,))
+    mx.init.FusedRNN(mx.init.Constant(0.25), h, layers, mode, bi, 1.5)(
+        "rnn_parameters", want)
+    got = nd.zeros((size,))
+    mt.init.FusedRNN(mt.init.Constant(0.25), h, layers, mode, bi, 1.5)(
+        "rnn_parameters", got)
+    onp.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
+
+
 def test_initializer_create_and_dumps():
     x = mt.init.Xavier("gaussian", "in", 2.5)
     again = mt.init.create(x.dumps())
@@ -359,6 +377,47 @@ def test_trainer_save_load_states(tmp_path):
     assert tr3.optimizer.num_update == 1
     for a, b in zip(tr._updaters.states[0], tr3._updaters.states[0]):
         assert torch.equal(a, b)
+
+
+def test_parameter_dict_get_shared_setattr_save_load(tmp_path):
+    pd = gluon.ParameterDict("net_")
+    w = pd.get("w", shape=(2, 3))
+    assert w.name == "net_w" and pd.get("w") is w
+    shared = gluon.ParameterDict("net_", shared=pd)
+    assert shared.get("w") is w
+    c = pd.get_constant("c", onp.arange(3, dtype="f"))
+    pd.initialize(mt.init.Constant(0.5))
+    pd.setattr("lr_mult", 0.0)
+    assert w.lr_mult == 0.0 and c.lr_mult == 0.0
+    fname = str(tmp_path / "pd.params")
+    pd.save(fname, strip_prefix="net_")
+    other = gluon.ParameterDict("net_")
+    other.get("w", shape=(2, 3))
+    other.get_constant("c", onp.zeros(3, "f"))
+    other.load(fname, restore_prefix="net_")
+    onp.testing.assert_array_equal(other["net_w"].data().asnumpy(),
+                                   onp.full((2, 3), 0.5, "f"))
+    onp.testing.assert_array_equal(other["net_c"].data().asnumpy(),
+                                   onp.arange(3, dtype="f"))
+    with pytest.raises(MXNetError, match="same name"):
+        pd.update({"net_w": gluon.Parameter("net_w", shape=(2, 3))})
+    w.reset_ctx(CPU)
+    assert w.data().context == CPU
+
+
+def test_trainer_takes_lr_mult_and_learning_rate():
+    frozen, moving = (gluon.Parameter(n, shape=(3,)) for n in ("f", "m"))
+    for p in (frozen, moving):
+        p.initialize(mt.init.One())
+        p.grad()._set_data(nd.ones((3,)).data)
+    frozen.lr_mult = 0.0
+    trainer = gluon.Trainer([frozen, moving], "sgd", {"learning_rate": 0.5})
+    assert trainer.learning_rate == 0.5
+    trainer.step(1)
+    trainer.set_learning_rate(0.25)
+    trainer.step(1)
+    onp.testing.assert_array_equal(frozen.data().asnumpy(), onp.ones(3))
+    onp.testing.assert_allclose(moving.data().asnumpy(), onp.full(3, 0.25))
 
 
 @pytest.mark.parametrize("kv", ["dist_sync", "dist_device_sync"])
