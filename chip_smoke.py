@@ -206,7 +206,38 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    order of the card's atomic sums (the gather's and the embedding's
    backward), which can flip a near-zero gradient and move its weight by
    up to lr a step.
-9. A JSON line with the kernels' numbers, then the last line
+9. The op surface and the LSTM word LM, on ``gpu(0)``: (a) every case of
+   ``mxnet_tpu_torch/tools/op_cases.py`` (one per registered op but the
+   samplers; small f32 shapes, bf16/f16 and integer variants, seeded
+   inputs; the table tests/test_torch_ops.py holds to the JAX package) on
+   the card against the same case on ``cpu()``: data movement, indexing
+   and ordering exact, sums and products within 1e-5 relative, f32
+   transcendental functions within 1e-6, bf16/f16 results within 2^-7
+   (each also absolute near zero), every result on the card; sorts,
+   argsort and topk run on tie-free inputs (a permutation of distinct
+   values). Each of the 20 samplers then draws 200,000 values on the card
+   from the context's generator, held to its first two moments (five
+   standard errors, and 2% of the variance) or its property (rows sum to
+   1, frequencies, a permutation, the Zipfian mass at 0). Prints the names
+   of any op that differs, and fails; prints K1's launches in the
+   ``nd.multi_head_attention`` case (2: the unmasked and the causal call
+   at D = 32). (b) The main path: ``LSTMLanguageModel`` at the PTB
+   "medium" width of Zaremba et al. 2014 (2 layers of 650, vocabulary
+   10,000, dropout 0.5 on the embedding's and the LSTM's outputs),
+   ``initialize(Uniform(0.05))``, ``Trainer("sgd", lr 1)``, batch 20 x
+   BPTT 35 of seeded synthetic tokens, the states carried and detached,
+   ``clip_global_norm`` at 5 per sample, f32: 2 warm-up steps, 10 steps
+   closed by one fetch (tokens/s), 10 steps each closed by a fetch
+   (median ms). Checks: losses finite; no hand-written kernel launched
+   (none lies on this path). Prints tokens/s, the step's median ms, device
+   ms and busy share and device operations a step (torch.profiler, three
+   steps), peak memory; then the port's RNN op and ``torch.nn.LSTM``
+   (cuDNN, a yardstick the port never calls), forward + backward at the
+   same shape, through CUDA events and from CUDA graphs. (c) Three steps
+   at batch 2 and dropout 0 from the same seeded weights on the card and
+   on the CPU: losses and parameters within 1e-4 x max(1, max|value|)
+   (f32 both, TF32 off; sums in another order).
+10. A JSON line with the kernels' numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -225,16 +256,18 @@ import numpy as np
 import torch
 
 from mxnet_tpu_torch import (MXNetError, autograd, cpu, gluon, gpu, init, nd,
-                             rtc, serving)
+                             random, rtc, serving)
 from mxnet_tpu_torch.gluon import nn
 from mxnet_tpu_torch.gluon.model_zoo.bert import (
     BERTForPretraining, BERTPretrainingLoss, TransformerLM, bert_base,
     load_jax_params)
+from mxnet_tpu_torch.gluon.model_zoo.lstm_lm import PTB_MEDIUM, ptb_medium
 from mxnet_tpu_torch.gluon.model_zoo.vision import BottleneckV1, resnet50_v1
 from mxnet_tpu_torch.ops import _build, _nvrtc
 from mxnet_tpu_torch.ops import nn as ops
 from mxnet_tpu_torch.ops.cuda import flash_attention as fa
 from mxnet_tpu_torch.ops.cuda import fused_conv1x1 as fc
+from mxnet_tpu_torch.ops.nn import rnn_param_size
 from mxnet_tpu_torch.optimizer import Adam
 from mxnet_tpu_torch.parallel import ParallelTrainStep, make_mesh
 from mxnet_tpu_torch.serving.generate import DecodeEndpoint
@@ -242,6 +275,7 @@ from mxnet_tpu_torch.tools import (PretrainStep, card, f32_drift, graph_ms,
                                    median_ms, pretrain_batch, resnet_batch,
                                    resnet_train_step, seeded_bert_weights,
                                    seeded_resnet_weights)
+from mxnet_tpu_torch.tools import op_cases
 from mxnet_tpu_torch.tools import rtc_examples as rx
 from mxnet_tpu_torch.tools.k4_compare import composition as k4_composition
 
@@ -274,6 +308,12 @@ LENET_BATCH, LENET_STEPS, LENET_TOL = 64, 6, 1e-4
 GLUON_TIMED = 10           # timed Gluon steps: a window, then one by one
 GLUON_CHECK_STEPS = 3
 GLUON_TOL_LR, GLUON_SHARE_LR, GLUON_SHARE = 2.0, 0.01, 1e-4
+OPS_SAMPLES = 200_000      # draws per sampler on the card
+# the PTB word LM (Zaremba et al. 2014, "medium"): BPTT 35, batch 20,
+# SGD at lr 1, gradient norm clipped at 5
+LSTM_BPTT, LSTM_BATCH, LSTM_LR, LSTM_CLIP = 35, 20, 1.0, 5.0
+LSTM_WARMUP, LSTM_TIMED = 2, 10
+LSTM_CHECK_BATCH, LSTM_CHECK_STEPS, LSTM_TOL = 2, 3, 1e-4
 # ResNet-50 v1's distinct 1x1 convolutions at batch 128, as the reference's
 # K4 benchmark lists them: (label, M = 128 * H * W, K = Cin, N = Cout)
 K4_SHAPES = [("s2_reduce", 128 * 56 * 56, 64, 64),
@@ -1865,10 +1905,10 @@ def phase_generate(seed: int, smi: str):
 
 
 # ---------------------------------------------------------------------------
-def busy_share(step, step_ms: float):
-    """Device kernel ms per step over PROFILED_STEPS calls of ``step``
-    under torch.profiler, and that over the host-clock ``step_ms`` (as
-    ``tools/step_profile.py`` reads it; the optimizer's range annotation
+def profiled(step):
+    """Device ms and device operations (kernels and copies) per step over
+    PROFILED_STEPS calls of ``step`` under torch.profiler (as
+    ``tools/step_profile.py`` reads them; the optimizer's range annotation
     is not a kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1877,11 +1917,18 @@ def busy_share(step, step_ms: float):
         for _ in range(PROFILED_STEPS):
             step()
         torch.cuda.synchronize()
-    device_us = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and e.self_device_time_total > 0
-                    and e.key != "mxt.optimizer")
-    device_ms = device_us / 1e3 / PROFILED_STEPS
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0 and e.key != "mxt.optimizer"]
+    device_us = sum(e.self_device_time_total for e in events)
+    return (device_us / 1e3 / PROFILED_STEPS,
+            sum(e.count for e in events) / PROFILED_STEPS)
+
+
+def busy_share(step, step_ms: float):
+    """Device kernel ms per step (``profiled``) and that over the
+    host-clock ``step_ms``."""
+    device_ms, _ = profiled(step)
     return device_ms, device_ms / step_ms
 
 
@@ -2130,6 +2177,256 @@ def phase_gluon(seed: int, smi: str):
             "step_ms": median, "busy_share": busy}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the op surface on the card; the LSTM LM through gluon.Trainer
+# ---------------------------------------------------------------------------
+def _on_card(results, ctx):
+    """Names of the NDArray results that do not lie on ``ctx``."""
+    flat = []
+    for k, v in results.items():
+        flat += [(f"{k}[{i}]", x) for i, x in enumerate(v)] \
+            if isinstance(v, (list, tuple)) else [(k, v)]
+    return [f"{k}: on {x.context}" for k, x in flat
+            if hasattr(x, "context") and x.context != ctx]
+
+
+def op_surface(seed: int, smi: str):
+    """Phase 9(a): every case of ``tools/op_cases.py`` (one per registered
+    op but the samplers, small f32 shapes, seeded inputs) on gpu(0)
+    against cpu(), at the case's tolerance (data movement and indexing
+    exact, sums and products 1e-5 relative, f32 transcendental functions
+    1e-6, bf16/f16 results 2^-7; sorts, argsort and topk on tie-free
+    inputs: a permutation of distinct values), every result on the card;
+    then each sampler's draws on the card against its first two moments
+    (``op_cases.moment_errors``). Returns K1's launches in the
+    ``multi_head_attention`` case."""
+    bad, k1 = {}, 0
+    for name, (case, tol) in sorted(op_cases.CASES.items()):
+        with cpu():
+            want = case(nd, cpu())
+        before = fa.launches
+        with gpu(0):
+            got = case(nd, gpu(0))
+        if name == "multi_head_attention":
+            k1 = fa.launches - before
+        diff = op_cases.differences(want, got, tol) + _on_card(got, gpu(0))
+        if diff:
+            bad[name] = diff
+    sampler_bad = {}
+    for name, draw in sorted(op_cases.SAMPLER_CALLS(nd, gpu(0)).items()):
+        random.seed(seed)
+        with gpu(0):
+            out = draw(OPS_SAMPLES)
+        out = out[0] if isinstance(out, (list, tuple)) else out
+        errs = op_cases.moment_errors(name, out.asnumpy())
+        if out.context != gpu(0):
+            errs.append(f"drawn on {out.context}")
+        if errs:
+            sampler_bad[name] = errs
+    n_ops = len(op_cases.CASES)
+    print(f"op surface: {n_ops} ops of the registry on gpu(0) vs cpu(), "
+          f"{n_ops - len(bad)} agree (exact / 1e-5 sums / 1e-6 "
+          f"transcendental / 2^-7 bf16); {len(op_cases.SAMPLER_CALLS(nd, cpu()))}"
+          f" samplers on the card, {OPS_SAMPLES} draws each: "
+          f"{len(sampler_bad)} outside their moments; K1 launches in the "
+          f"nd.multi_head_attention case: {k1} on {smi}")
+    for name, diff in sorted({**bad, **sampler_bad}.items()):
+        print(f"  DIFFERS {name}: {'; '.join(diff[:4])}")
+    if bad or sampler_bad:
+        raise SystemExit(f"FAIL: ops differ on the card: "
+                         f"{sorted(bad) + sorted(sampler_bad)}")
+    if k1 != 2:
+        raise SystemExit(f"FAIL: nd.multi_head_attention launched K1 {k1} "
+                         "times (expected 2: the unmasked and the causal "
+                         "call at D = 32)")
+    return k1
+
+
+def lstm_batches(rng, n, batch):
+    """``n`` truncated-BPTT batches (tokens, next tokens) of a seeded
+    synthetic token stream at PTB's vocabulary, as int32 numpy arrays."""
+    stream = rng.integers(0, PTB_MEDIUM["vocab"],
+                          (batch, n * LSTM_BPTT + 1)).astype(np.int32)
+    return [(stream[:, i * LSTM_BPTT:(i + 1) * LSTM_BPTT],
+             stream[:, i * LSTM_BPTT + 1:(i + 1) * LSTM_BPTT + 1])
+            for i in range(n)]
+
+
+class LSTMTrainer:
+    """The truncated-BPTT loop of the PTB word LM as a Gluon user writes
+    it: ``record``, the model with the carried states, the per-sample
+    cross-entropy, ``backward``, ``clip_global_norm`` of the gradients at
+    LSTM_CLIP (per sample: the gradients sum over the batch), SGD through
+    ``Trainer.step(batch)``, the states detached."""
+
+    def __init__(self, net, batch, ctx):
+        self.net, self.batch, self.ctx = net, batch, ctx
+        self.trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                     {"learning_rate": LSTM_LR})
+        self.loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        self.states = net.begin_state(batch, ctx=ctx)
+
+    def step(self, x, y):
+        with autograd.record():
+            out, self.states = self.net(x, self.states)
+            loss = self.loss_fn(out, y)
+        loss.backward()
+        grads = [p.grad() for p in self.net.collect_params().values()
+                 if p.grad_req != "null"]
+        gluon.utils.clip_global_norm(grads, LSTM_CLIP * self.batch)
+        self.trainer.step(self.batch)
+        self.states = [s.detach() for s in self.states]
+        return loss
+
+
+def lstm_weights(seed: int):
+    """Seeded PTB-medium weights, uniform in [-0.05, 0.05] (Zaremba et
+    al.'s init), by structural name."""
+    rng = np.random.default_rng(seed)
+    c = PTB_MEDIUM
+    shapes = {"embedding.weight": (c["vocab"], c["embed"]),
+              "lstm.parameters": (rnn_param_size(
+                  "lstm", c["layers"], c["embed"], c["hidden"], False),),
+              "decoder.weight": (c["vocab"], c["hidden"]),
+              "decoder.bias": (c["vocab"],)}
+    return {k: rng.uniform(-0.05, 0.05, s).astype(np.float32)
+            for k, s in shapes.items()}
+
+
+def lstm_check(named, batches, ctx):
+    """LSTM_CHECK_STEPS steps at dropout 0 on ``ctx`` from ``named``: the
+    per-sample losses and the parameters."""
+    with ctx:
+        net = ptb_medium(dropout=0.0)
+        load_jax_params(net, named, ctx=ctx)
+        loop = LSTMTrainer(net, LSTM_CHECK_BATCH, ctx)
+        losses = [loop.step(nd.array(x, dtype="int32"),
+                            nd.array(y, dtype="int32")).asnumpy()
+                  for x, y in batches]
+        return np.stack(losses), {k: p.data().asnumpy() for k, p in
+                                  net._collect_params_with_prefix().items()}
+
+
+def lstm_yardsticks(smi: str):
+    """The port's RNN op against ``torch.nn.LSTM`` (cuDNN; a yardstick the
+    port never calls) at the main path's shape, forward + backward of the
+    two layers over one BPTT window, f32: CUDA events around the calls and
+    the device time replayed from a CUDA graph of 10 calls."""
+    c = PTB_MEDIUM
+    dev = gpu(0).torch_device()
+    g = torch.Generator(device=dev).manual_seed(0)
+    T, N, H = LSTM_BPTT, LSTM_BATCH, c["hidden"]
+    x = torch.randn(T, N, c["embed"], device=dev, generator=g)
+    h0 = torch.zeros(c["layers"], N, H, device=dev)
+    size = rnn_param_size("lstm", c["layers"], c["embed"], H, False)
+    params = ((torch.rand(size, device=dev, generator=g) - 0.5) * 0.1) \
+        .requires_grad_(True)
+
+    def port():
+        out, hT, cT = ops.rnn(x, params, h0, h0, state_size=H,
+                              num_layers=c["layers"])
+        out.sum().backward()
+    lstm = torch.nn.LSTM(c["embed"], H, c["layers"]).to(dev)
+
+    def cudnn():
+        out, _ = lstm(x, (h0, h0))
+        out.sum().backward()
+    times = {"port_ms": median_ms(port), "port_graph_ms": graph_ms(port),
+             "cudnn_ms": median_ms(cudnn), "cudnn_graph_ms": graph_ms(cudnn)}
+    print(f"LSTM 2 x 650 forward + backward over ({T}, {N}, {H}) f32: the "
+          f"port's RNN op {times['port_ms']:.3f} ms (graph "
+          f"{times['port_graph_ms']:.3f}); torch.nn.LSTM (cuDNN, a "
+          f"yardstick) {times['cudnn_ms']:.3f} ms (graph "
+          f"{times['cudnn_graph_ms']:.3f}) on {smi}")
+    return times
+
+
+def phase_ops_rnn(seed: int, smi: str):
+    """Phase 9: (a) the op surface on the card; (b) the LSTM word LM at
+    PTB-medium width trained through gluon.Trainer (the main path); (c)
+    three steps of it on the card against the CPU."""
+    k1 = op_surface(seed, smi)
+
+    # (b) the main path: counts from 0 just before, read just after
+    rng = np.random.default_rng(seed + 12)
+    n = LSTM_WARMUP + 2 * LSTM_TIMED
+    batches = [(nd.array(x, ctx=gpu(0), dtype="int32"),
+                nd.array(y, ctx=gpu(0), dtype="int32"))
+               for x, y in lstm_batches(rng, n + 1, LSTM_BATCH)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fa.launches = fa.launches_dq = fa.launches_dkv = fc.launches = 0
+    rtc.launches = 0
+    with gpu(0):
+        net = ptb_medium()
+        net.initialize(init.Uniform(0.05))
+        loop = LSTMTrainer(net, LSTM_BATCH, gpu(0))
+    losses = [loop.step(*b) for b in batches[:LSTM_WARMUP]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[LSTM_WARMUP:LSTM_WARMUP + LSTM_TIMED]:
+        losses.append(loop.step(*b))
+    losses[-1].asnumpy()                   # the window closes on a fetch
+    wall = time.perf_counter() - t0
+    step_ms = []
+    for b in batches[LSTM_WARMUP + LSTM_TIMED:n]:
+        t1 = time.perf_counter()
+        losses.append(loop.step(*b))
+        losses[-1].asnumpy()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    hand = {"K1": fa.launches, "K2": fa.launches_dq, "K3": fa.launches_dkv,
+            "K4": fc.launches, "K5": rtc.launches}
+    # ---- end of the main path ----
+    peak = torch.cuda.max_memory_allocated()
+    median = float(np.median(step_ms))
+    device_ms, device_ops = profiled(lambda: loop.step(*batches[n]))
+    all_losses = np.array([l.asnumpy().mean() for l in losses])
+    tokens = LSTM_BATCH * LSTM_BPTT * LSTM_TIMED
+    print(f"LSTM LM (PTB medium: 2 x 650, vocab 10000, dropout 0.5) through "
+          f"gluon.Trainer, SGD lr {LSTM_LR}, clip {LSTM_CLIP}, batch "
+          f"{LSTM_BATCH} x BPTT {LSTM_BPTT}, f32: {n} steps, losses "
+          f"{all_losses[0]:.4f} -> {all_losses[-1]:.4f} (ln 10000 = "
+          f"{math.log(PTB_MEDIUM['vocab']):.4f}); hand-written kernel "
+          f"launches on the path {hand} (none lies on it)")
+    print(f"training the LSTM LM through gluon.Trainer: {tokens / wall:.0f} "
+          f"tokens/s over {LSTM_TIMED} steps (wall {wall:.3f} s), step "
+          f"median {median:.2f} ms (host clock to a fetched loss), device "
+          f"{device_ms:.2f} ms/step, busy share {device_ms / median:.3f}, "
+          f"{device_ops:.0f} device operations a step, peak device memory "
+          f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB of it held before "
+          f"the phase) on {smi}")
+    if not np.isfinite(all_losses).all():
+        raise SystemExit("FAIL: an LSTM LM loss is not finite")
+    if any(hand.values()):
+        raise SystemExit(f"FAIL: a hand-written kernel ran on the LSTM path: "
+                         f"{hand}")
+    del net, loop, losses, batches
+    yard = lstm_yardsticks(smi)
+
+    # (c) card against CPU from the same weights, dropout 0
+    named = lstm_weights(seed + 13)
+    check = lstm_batches(np.random.default_rng(seed + 14), LSTM_CHECK_STEPS,
+                         LSTM_CHECK_BATCH)
+    got = lstm_check(named, check, gpu(0))
+    want = lstm_check(named, check, cpu())
+    loss_err = float(np.abs(got[0] - want[0]).max() /
+                     max(1.0, np.abs(want[0]).max()))
+    w_err = max(float(np.abs(got[1][k] - want[1][k]).max() /
+                      max(1.0, np.abs(want[1][k]).max())) for k in want[1])
+    print(f"LSTM LM card vs CPU, {LSTM_CHECK_STEPS} steps at batch "
+          f"{LSTM_CHECK_BATCH}, dropout 0, f32: losses {want[0].mean(1)} "
+          f"max relative difference {loss_err:.3g}; parameters {w_err:.3g} "
+          f"(tol {LSTM_TOL} of max(1, |value|))")
+    if not (loss_err <= LSTM_TOL and w_err <= LSTM_TOL):
+        raise SystemExit("FAIL: the LSTM LM on the card disagrees with the "
+                         "CPU")
+    return {"k1_op_surface": k1, "hand": hand, "tokens_per_s": tokens / wall,
+            "step_ms": median, "device_ms": device_ms,
+            "busy_share": device_ms / median, "device_ops": device_ops,
+            "peak_bytes": peak, "held_bytes": held, **yard}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2149,6 +2446,7 @@ def main(argv=None) -> int:
     k5 = phase_rtc(args.seed, smi)
     gen = phase_generate(args.seed, smi)
     glu = phase_gluon(args.seed, smi)
+    lm = phase_ops_rnn(args.seed, smi)
     r, tr = record["serving", torch.bfloat16], record["training", torch.bfloat16]
     pallas = "mxnet_tpu/ops/pallas/flash_attention.py"
     kernels = [
@@ -2156,12 +2454,15 @@ def main(argv=None) -> int:
          "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": f"{pallas}:213",
          "launches": serve_launches + train_launches["flash_attention_fwd"]
-         + gen["launches"] + glu["launches"]["flash_attention_fwd"],
+         + gen["launches"] + glu["launches"]["flash_attention_fwd"]
+         + lm["k1_op_surface"] + lm["hand"]["K1"],
          "launches_by_path": {
              "serving": serve_launches,
              "training": train_launches["flash_attention_fwd"],
              "generate": gen["launches"],
-             "gluon_training": glu["launches"]["flash_attention_fwd"]},
+             "gluon_training": glu["launches"]["flash_attention_fwd"],
+             "nd_op_surface": lm["k1_op_surface"],
+             "lstm_lm": lm["hand"]["K1"]},
          "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"],
                             gen["k1_max_abs_err"]),
          "ms": r["ms"], "ms_strided": r["ms_strided"],
@@ -2182,17 +2483,20 @@ def main(argv=None) -> int:
          "host_us": record["host_us"]["k1"],
          "entry_host_us": record["host_us"]["entry"],
          "library_host_us": record["host_us"]["sdpa"]}]
-    for name, wrapper, line in (("dq", "flash_attention_bwd_dq", 403),
-                                ("dkv", "flash_attention_bwd_dkv", 421)):
+    for name, wrapper, line, k in (
+            ("dq", "flash_attention_bwd_dq", 403, "K2"),
+            ("dkv", "flash_attention_bwd_dkv", 421, "K3")):
         t, sv = bwd["training"], bwd["serving"]
         kernels.append({
             "name": wrapper, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"{pallas}:{line}",
-            "launches": train_launches[wrapper] + glu["launches"][wrapper],
+            "launches": train_launches[wrapper] + glu["launches"][wrapper]
+            + lm["hand"][k],
             "launches_by_path": {
                 "training": train_launches[wrapper],
-                "gluon_training": glu["launches"][wrapper]},
+                "gluon_training": glu["launches"][wrapper],
+                "lstm_lm": lm["hand"][k]},
             "max_abs_err": bwd[f"{name}_err"], "ms": t[name]["ms"],
             "device_ms": t[name]["device_ms"],
             "plain_ms": t[name]["plain_ms"],
@@ -2217,11 +2521,13 @@ def main(argv=None) -> int:
         "name": "conv1x1_bn_act", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/fused_conv1x1.cu",
         "replaces": "mxnet_tpu/ops/pallas/fused_conv1x1.py:84",
-        "launches": resnet["k4_launches"] + resnet["train_launches"],
+        "launches": resnet["k4_launches"] + resnet["train_launches"]
+        + lm["hand"]["K4"],
         "launches_by_path": {"resnet50_training":
                              resnet["train_launches"],
                              "resnet50_bottleneck_sites":
-                             resnet["k4_launches"]},
+                             resnet["k4_launches"],
+                             "lstm_lm": lm["hand"]["K4"]},
         "max_abs_err": k4["max_abs_err"], "ms": s2["ms"],
         "device_ms": s2["device_ms"], "plain_ms": s2["plain_ms"],
         "bound_ms": s2["bound_ms"], "bound_by": s2["bound_by"],
@@ -2241,7 +2547,10 @@ def main(argv=None) -> int:
         "name": "rtc", "route": "cuda", "source": "mxnet_tpu_torch/rtc.py",
         "kernel_sources": sorted(f"mxnet_tpu_torch/csrc/rtc/{f}"
                                  for f in set(rx.SOURCES.values())),
-        "replaces": "mxnet_tpu/rtc.py:64", "launches": k5["launches"],
+        "replaces": "mxnet_tpu/rtc.py:64",
+        "launches": k5["launches"] + lm["hand"]["K5"],
+        "launches_by_path": {"rtc": k5["launches"],
+                             "lstm_lm": lm["hand"]["K5"]},
         "max_abs_err": max(v["max_abs_err"]
                            for v in k5["by_kernel"].values()),
         "ms": head["ms"], "device_ms": head["device_ms"],

@@ -124,8 +124,8 @@ def _call_with_tensors(block, args, kwargs):
     a graph only while recording, NDArrays back on the inputs' context."""
     ctx = next(a.context for a in args if isinstance(a, NDArray))
 
-    def unwrap(a):
-        return a._data if isinstance(a, NDArray) else a
+    def unwrap(a):   # lists of states too
+        return _map(lambda v: v._data if isinstance(v, NDArray) else v, a)
     block.train(autograd.is_training())
     prev = getattr(_GLUON, "ctx", None)
     _GLUON.ctx = ctx
@@ -143,7 +143,8 @@ def _call_with_arrays(block, args, kwargs):
     """An NDArray block called with tensors: recording follows torch's
     grad mode, training the module's mode; tensors back."""
     def wrap(a):
-        return _wrap(a, _context_of(a)) if isinstance(a, torch.Tensor) else a
+        return _map(lambda v: _wrap(v, _context_of(v))
+                    if isinstance(v, torch.Tensor) else v, a)
     with autograd._RecordingStateScope(torch.is_grad_enabled(),
                                        block.training):
         out = block(*[wrap(a) for a in args],
@@ -185,11 +186,17 @@ class Block(torch.nn.Module):
                              f"{type(existing)} to {type(value)} is not "
                              "allowed")
         if isinstance(value, Parameter):
-            self._reg_params[name] = value
-            value._attach(self, name)
-            object.__setattr__(self, name, value)
+            self._register_param(name, value)
             return
         super().__setattr__(name, value)
+
+    def _register_param(self, name, param, attr=None):
+        """Register ``param`` under ``name`` (its structural and
+        ``collect_params`` name) and hold it as the attribute ``attr``
+        (default ``name``)."""
+        self._reg_params[name] = param
+        param._attach(self, name)
+        object.__setattr__(self, attr or name, param)
 
     def register_child(self, block, name=None):
         if name is None:

@@ -3,11 +3,12 @@
 (``weight``, ``sample_weight``, ``batch_axis``), ``L2Loss``, ``L1Loss``,
 ``SigmoidBinaryCrossEntropyLoss``, ``SoftmaxCrossEntropyLoss``,
 ``KLDivLoss``, ``HuberLoss``, ``HingeLoss``, ``SquaredHingeLoss``,
-``LogisticLoss``, ``TripletLoss``, ``PoissonNLLLoss`` and
-``CosineEmbeddingLoss``. Each returns one loss per sample (the mean over
-every axis but ``batch_axis``), as the reference; ``PoissonNLLLoss``
+``LogisticLoss``, ``TripletLoss``, ``PoissonNLLLoss``,
+``CosineEmbeddingLoss``, ``CTCLoss`` and ``SDMLLoss``. Each returns one
+loss per sample (the mean over every axis but ``batch_axis``, or the
+sequence's or the pair's loss), as the reference; ``PoissonNLLLoss``
 returns the mean. They compute on tensors and take NDArrays as every
-block does. ``CTCLoss`` and ``SDMLLoss`` are not ported yet (ROADMAP P2).
+block does.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
            "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
            "LogisticLoss", "TripletLoss", "PoissonNLLLoss",
-           "CosineEmbeddingLoss"]
+           "CosineEmbeddingLoss", "CTCLoss", "SDMLLoss"]
 
 
 def _apply_weighting(loss, weight=None, sample_weight=None):
@@ -282,3 +283,53 @@ class CosineEmbeddingLoss(Loss):
         label = label.reshape(-1)
         loss = torch.where(label == 1, 1.0 - cos, (cos - self._margin).relu())
         return _apply_weighting(loss, self._weight, sample_weight)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification loss per sequence
+    (``ops.nn.ctc_loss`` with the blank the last class): pred (N, T, C)
+    unnormalised (``layout="TNC"``: (T, N, C)), label (N, L) classes
+    padded with -1 (``label_layout="TN"``: (L, N)); ``pred_lengths`` and
+    ``label_lengths`` give each sequence's lengths when passed."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+        self._layout = layout
+
+    def forward(self, pred, label, pred_lengths=None, label_lengths=None,
+                sample_weight=None):
+        if self._layout == "NTC":
+            pred = pred.transpose(0, 1)
+        if self._batch_axis == 1:
+            label = label.transpose(0, 1)
+        loss = ops.ctc_loss(pred, label, pred_lengths, label_lengths,
+                            use_data_lengths=pred_lengths is not None,
+                            use_label_lengths=label_lengths is not None,
+                            blank_label="last")
+        return _apply_weighting(loss, self._weight, sample_weight)
+
+
+class SDMLLoss(Loss):
+    """Smoothed deep metric learning loss: paired batches (x1[i] matches
+    x2[i]) scored by a softmax over negative squared euclidean distances,
+    against smoothed identity targets (``smoothing_parameter`` spread over
+    the in-batch negatives)."""
+
+    def __init__(self, smoothing_parameter=0.3, weight=1.0, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._smoothing = smoothing_parameter
+
+    def forward(self, x1, x2):
+        n = x1.shape[0]
+        x1 = x1.reshape(n, -1)
+        x2 = x2.reshape(n, -1)
+        sq1 = (x1 * x1).sum(1).reshape(n, 1)
+        sq2 = (x2 * x2).sum(1).reshape(1, n)
+        dist = sq1 + sq2 - 2.0 * torch.matmul(x1, x2.t())
+        eye = torch.eye(n, dtype=x1.dtype, device=x1.device)
+        labels = (1 - self._smoothing) * eye + \
+            self._smoothing / max(n - 1, 1) * (1.0 - eye)
+        logp = ops.log_softmax(-dist, axis=1)
+        return _apply_weighting(-(labels * logp).sum(1), self._weight)

@@ -4,16 +4,18 @@ models, as numpy arrays.
 Two naming schemes are taken:
 
 - the JAX package's ``_collect_params_with_prefix()`` names (for example
-  ``encoder.layer0.attention.qkv.weight`` or ``features.4.0.body.0.weight``),
-  which are the port's too (and its ``state_dict()`` keys), since its block
-  trees are the JAX block trees;
+  ``encoder.layer0.attention.qkv.weight``, ``features.4.0.body.0.weight``
+  or an RNN layer's flat ``lstm.parameters`` vector, in the reference's
+  layout), which are the port's too (and its ``state_dict()`` keys), since
+  its block trees are the JAX block trees;
 - a ResNet's ``collect_params()`` names (``resnetv10_stage1_conv2d0_weight``,
   running stats included), which a ResNet of the port maps to its keys with
   ``jax_names()``.
 
 :func:`params_from_jax` turns such a dict into a state dict after checking
 it against the model its names and shapes imply (a BERTModel, a
-BERTForPretraining, a TransformerLM or a ResNetV1); :func:`load_jax_params`
+BERTForPretraining, a TransformerLM, a ResNetV1 or an
+LSTMLanguageModel); :func:`load_jax_params`
 loads it into a given model through its Gluon ``Parameter``s, as the JAX
 package's ``load_parameters`` does: a parameter not yet initialized is
 initialized from the array, an initialized one is overwritten in place.
@@ -92,13 +94,17 @@ def rename_from_jax(jax_names: Dict[str, str], named: Dict[str, object],
 
 def params_from_jax(named: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """State dict (CPU tensors, the arrays' own dtypes) from a JAX-package
-    parameter dict: a BERTModel's, BERTForPretraining's or TransformerLM's
-    ``_collect_params_with_prefix()`` names, or a ResNetV1's
+    parameter dict: a BERTModel's, BERTForPretraining's, TransformerLM's or
+    LSTMLanguageModel's ``_collect_params_with_prefix()`` names, or a
+    ResNetV1's
     ``collect_params()`` names. Raises MXNetError unless the names and
     shapes are exactly those of one such model."""
     if _is_resnet_names(named):
         from .vision import resnet
         return resnet.state_from_jax(named)
+    if "lstm.parameters" in named:
+        from . import lstm_lm
+        return lstm_lm.state_from_jax(named)
     from . import bert
     return bert.state_from_jax(named)
 

@@ -1,15 +1,19 @@
 """Basic layers of the port as Gluon blocks over ``torch.nn.Module``: the
 counterparts of ``Sequential``, ``HybridSequential``, ``Dense``,
 ``Dropout``, ``BatchNorm``, ``LayerNorm``, ``Embedding``, ``Flatten``,
-``Activation``, ``Lambda`` and ``HybridLambda`` in
+``Activation``, ``Lambda``, ``HybridLambda`` and the rest in
 ``mxnet_tpu/gluon/nn/basic_layers.py``, with its constructor arguments,
 parameter names and layouts (Dense weight (out, in); BatchNorm gamma, beta,
 running_mean, running_var) and deferred shapes (``in_units=0``,
 ``in_channels=0``: known at the first forward).
 
-The layers compute on tensors (``_io = "tensor"``); called with NDArrays
-they follow Gluon's autograd rules (``block.py``). BatchNorm's running
-statistics are float32 buffers, written in place in training mode.
+The layers compute on tensors (``_io = "tensor"``) with the registered ops
+of ``ops/nn.py``; called with NDArrays they follow Gluon's autograd rules
+(``block.py``). BatchNorm's running statistics are float32 buffers,
+written in place in training mode. ``RMSNorm``, ``GroupNorm``,
+``InstanceNorm``, ``LeakyReLU``, ``PReLU``, ``ELU``, ``SELU``, ``GELU`` and
+``Swish`` are the reference's too. ``SyncBatchNorm`` waits for the
+multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -20,12 +24,14 @@ import torch
 from ... import random as _random
 from ...base import MXNetError
 from ...ndarray.ndarray import _context_of
+from ...ops import elemwise
 from ...ops import nn as ops
 from ..block import Block, HybridBlock, gluon_context
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
-           "LayerNorm", "Embedding", "Flatten", "Lambda", "HybridLambda",
-           "Activation"]
+           "LayerNorm", "RMSNorm", "GroupNorm", "InstanceNorm", "Embedding",
+           "Flatten", "Lambda", "HybridLambda", "Activation", "LeakyReLU",
+           "PReLU", "ELU", "SELU", "GELU", "Swish"]
 
 
 def _init_by_name(init):
@@ -116,9 +122,23 @@ class Dense(HybridBlock):
             if self._act_type else out
 
 
+def mask_generator(gen, x):
+    """The generator a mask over ``x`` is drawn from: ``gen`` when the
+    caller set one, else, in a Gluon (NDArray) call, ``random.generator``
+    of x's context; never PyTorch's global one."""
+    if gen is not None:
+        return gen
+    if gluon_context() is None:
+        raise MXNetError("a random mask in training mode needs a "
+                         "torch.Generator (set .generator); it never draws "
+                         "from the global RNG")
+    return _random.generator(_context_of(x))
+
+
 class Dropout(HybridBlock):
-    """Dropout with rate ``rate``: in training mode each element is kept
-    with probability 1 - rate and divided by 1 - rate; the identity in
+    """Dropout with rate ``rate``: in training mode each element (each
+    slice along ``axes``, which share a mask) is kept with probability
+    1 - rate and divided by 1 - rate (``ops.nn.dropout``); the identity in
     eval mode (serving) and at rate 0.
 
     The mask is drawn from ``self.generator`` when a caller set one
@@ -131,26 +151,16 @@ class Dropout(HybridBlock):
 
     def __init__(self, rate, axes=(), **kwargs):
         super().__init__(**kwargs)
-        if axes:
-            raise MXNetError("Dropout: axes (shared masks) are not ported")
         self._rate = float(rate)
+        self._axes = tuple(axes)
         #: the ``torch.Generator`` masks are drawn from (set by the caller)
         self.generator = None
 
     def forward(self, x):
         if not self.training or self._rate <= 0:
             return x
-        gen = self.generator
-        if gen is None:
-            if gluon_context() is None:
-                raise MXNetError("Dropout in training mode needs a "
-                                 "torch.Generator (set .generator); it never "
-                                 "draws from the global RNG")
-            gen = _random.generator(_context_of(x))
-        keep = torch.rand(x.shape, generator=gen, device=x.device) >= \
-            self._rate
-        # the reference's mask: bernoulli in x's dtype, divided by 1 - rate
-        return x * (keep.to(x.dtype) / (1.0 - self._rate))
+        return ops.dropout(x, p=self._rate, axes=self._axes, training=True,
+                           generator=mask_generator(self.generator, x))
 
 
 class BatchNorm(HybridBlock):
@@ -258,6 +268,78 @@ class LayerNorm(HybridBlock):
                               axis=self._axis, eps=self._epsilon)
 
 
+class _AffineNorm(HybridBlock):
+    """A normalization with a per-channel ``gamma`` (and ``beta``) whose
+    size is the input's ``axis`` dimension (deferred until the first
+    forward)."""
+
+    _io = "tensor"
+
+    def __init__(self, axis, epsilon, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, use_beta=True, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=_init_by_name(gamma_initializer),
+                allow_deferred_init=True)
+            if use_beta:
+                self.beta = self.params.get(
+                    "beta", grad_req="write" if center else "null",
+                    shape=(in_channels,),
+                    init=_init_by_name(beta_initializer),
+                    allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        for p in self._reg_params.values():
+            p.shape = (x.shape[self._axis],)
+
+
+class RMSNorm(_AffineNorm):
+    """x / sqrt(mean(x^2) + eps) * gamma over ``axis``, f32 statistics."""
+
+    def __init__(self, axis=-1, epsilon=1e-6, in_channels=0, **kwargs):
+        super().__init__(axis, epsilon, True, True, "zeros", "ones",
+                         in_channels, use_beta=False, **kwargs)
+
+    def forward(self, x):
+        return ops.rms_norm(x, self._t("gamma"), axis=self._axis,
+                            eps=self._epsilon)
+
+
+class GroupNorm(_AffineNorm):
+    """Normalization over each group of ``num_groups`` channel groups
+    (and the spatial axes), then gamma and beta per channel."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(1, epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, **kwargs)
+        self._num_groups = num_groups
+
+    def forward(self, x):
+        return ops.group_norm(x, self._t("gamma"), self._t("beta"),
+                              num_groups=self._num_groups, eps=self._epsilon)
+
+
+class InstanceNorm(_AffineNorm):
+    """Normalization of each sample's channel over the spatial axes;
+    gamma is not trained by default (``scale=False``), as the reference."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(1, epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, **kwargs)
+
+    def forward(self, x):
+        return ops.instance_norm(x, self._t("gamma"), self._t("beta"),
+                                 eps=self._epsilon)
+
+
 class Embedding(HybridBlock):
     """Lookup table with weight (input_dim, output_dim)."""
 
@@ -304,6 +386,85 @@ class Activation(HybridBlock):
 
     def forward(self, x):
         return ops.activation(x, act_type=self._act_type)
+
+
+class LeakyReLU(HybridBlock):
+    """x for x >= 0, alpha * x below."""
+
+    _io = "tensor"
+
+    def __init__(self, alpha, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def forward(self, x):
+        return elemwise.leaky_relu(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """Leaky ReLU with a learned slope ``alpha`` per channel (0.25
+    initially)."""
+
+    _io = "tensor"
+
+    def __init__(self, alpha_initializer=None, in_channels=1, **kwargs):
+        super().__init__(**kwargs)
+        from ... import initializer
+        with self.name_scope():
+            self.alpha = self.params.get(
+                "alpha", shape=(in_channels,),
+                init=alpha_initializer or initializer.Constant(0.25))
+
+    def forward(self, x):
+        return elemwise.prelu(x, self._t("alpha"))
+
+
+class ELU(HybridBlock):
+    """x for x >= 0, alpha * (exp(x) - 1) below."""
+
+    _io = "tensor"
+
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def forward(self, x):
+        return elemwise.leaky_relu(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    """Scaled ELU with the self-normalizing constants."""
+
+    _io = "tensor"
+
+    def forward(self, x):
+        return elemwise.leaky_relu(x, act_type="selu")
+
+
+class GELU(HybridBlock):
+    """GELU, erf-exact or (``approximation="tanh"``) the tanh form."""
+
+    _io = "tensor"
+
+    def __init__(self, approximation="erf", **kwargs):
+        super().__init__(**kwargs)
+        self._approx = approximation
+
+    def forward(self, x):
+        return ops.gelu_tanh(x) if self._approx == "tanh" else ops.gelu(x)
+
+
+class Swish(HybridBlock):
+    """x * sigmoid(beta * x)."""
+
+    _io = "tensor"
+
+    def __init__(self, beta=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._beta = beta
+
+    def forward(self, x):
+        return x * torch.sigmoid(self._beta * x)
 
 
 class Lambda(Block):

@@ -173,8 +173,12 @@ class Parameter:
         nd._data, nd._ctx, nd._grad = var, ctx, None
         nd._grad_req, nd._is_predicate = "null", False
         if isinstance(var, torch.nn.Parameter) and t.is_floating_point():
+            # the hook stays when grad_req later turns gradients on
+            needs_grad = var.requires_grad
+            var.requires_grad_(True)
             var.register_post_accumulate_grad_hook(
                 _grad_hook(weakref.ref(nd)))
+            var.requires_grad_(needs_grad)
         self._var, self._nd, self._ctx = var, nd, ctx
         self.dtype = DTypes.canonical(var.dtype)
         for block, attr in self._owners:

@@ -10,7 +10,8 @@ import warnings
 import torch
 
 from ..base import MXNetError
-from ..ndarray.ndarray import NDArray, _apply
+from ..ndarray.ndarray import NDArray
+from ..ops.registry import apply_op
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm"]
 
@@ -28,8 +29,8 @@ def split_data(data, num_slice, batch_axis=0, even_split=True):
     for i in range(num_slice):
         begin = i * step
         end = (i + 1) * step if i < num_slice - 1 else size
-        slices.append(_apply(lambda t, b=begin, e=end: t.narrow(
-            batch_axis, b, e - b), data))
+        slices.append(apply_op("slice_axis", data, axis=batch_axis,
+                               begin=begin, end=end))
     return slices
 
 

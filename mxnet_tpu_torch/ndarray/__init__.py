@@ -1,26 +1,36 @@
-"""The ``nd`` imperative frontend of the port: NDArray, its factories and the
-functions the imperative and runtime-kernel paths use (the counterpart of
-``mxnet_tpu/ndarray/__init__.py``), and ``save``/``load`` of the
-``.params`` format (``utils``).
+"""The ``nd`` imperative frontend of the port (the counterpart of
+``mxnet_tpu/ndarray/__init__.py``): NDArray, its factories, and one
+function per registered op, generated from the registry
+(``ops/registry.py``: arrays positionally, attributes by keyword) as the
+JAX package generates its own, beside the same hand-written wrappers
+(variadic ops, BatchNorm's moving-stat write-back, Dropout's training
+flag, the sequence ops' optional lengths, RNN's optional cell state) and
+CamelCase legacy aliases. ``random`` holds the samplers, ``utils``
+``save``/``load`` of the ``.params`` format.
 
 Arrays are made on ``ctx`` when given, else on :func:`current_context`,
 which is ``gpu(0)`` unless the caller enters ``cpu()``.
 """
 from __future__ import annotations
 
+import sys as _sys
+
+import numpy as _np
 import torch
 
 from ..base import DTypes, current_context
+from ..ops import registry as _registry
+from ..ops.registry import apply_op as _apply_op
 from . import utils
-from .ndarray import NDArray, _apply, _wrap, array
+from .ndarray import NDArray, _wrap, array
 from .utils import load, save
 
-__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "zeros_like", "ones_like", "dot", "waitall", "sigmoid", "exp",
-           "log", "tanh", "relu", "sqrt", "square", "abs", "clip", "where",
-           "random", "utils", "save", "load"]
+_this = _sys.modules[__name__]
 
 
+# ---------------------------------------------------------------------------
+# creation
+# ---------------------------------------------------------------------------
 def _make(maker, ctx, dtype):
     ctx = ctx or current_context()
     return _wrap(maker(ctx.torch_device(), DTypes.torch(dtype)), ctx)
@@ -62,26 +72,31 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
     return _make(mk, ctx, dtype)
 
 
-def zeros_like(a: NDArray) -> NDArray:
-    return _apply(torch.zeros_like, a)
+def _from_host(a, ctx, dtype):
+    return _make(lambda dev, dt: torch.from_numpy(a).to(device=dev,
+                                                        dtype=dt), ctx, dtype)
 
 
-def ones_like(a: NDArray) -> NDArray:
-    return _apply(torch.ones_like, a)
+def linspace(start, stop, num, endpoint=True, ctx=None,
+             dtype="float32") -> NDArray:
+    return _from_host(_np.linspace(start, stop, num, endpoint=endpoint),
+                      ctx, dtype)
 
 
-def dot(lhs: NDArray, rhs: NDArray, transpose_a=False,
-        transpose_b=False) -> NDArray:
-    """The product over lhs's last and rhs's first axis (``dot-inl.h``)."""
-    def f(a, b):
-        if transpose_a and a.dim() >= 2:
-            a = a.transpose(-1, -2)
-        if transpose_b and b.dim() >= 2:
-            b = b.transpose(-1, -2)
-        if a.dim() == 1 and b.dim() == 1:
-            return torch.dot(a, b)
-        return torch.tensordot(a, b, dims=([a.dim() - 1], [0]))
-    return _apply(f, lhs, rhs)
+def eye(N, M=0, k=0, ctx=None, dtype="float32") -> NDArray:
+    return _from_host(_np.eye(N, M if M else None, k), ctx, dtype)
+
+
+def zeros_like(a) -> NDArray:
+    return _apply_op("zeros_like", a)
+
+
+def ones_like(a) -> NDArray:
+    return _apply_op("ones_like", a)
+
+
+def full_like(a, fill_value) -> NDArray:
+    return zeros_like(a) + fill_value
 
 
 def waitall():
@@ -91,36 +106,178 @@ def waitall():
             torch.cuda.synchronize(i)
 
 
-def _unary(fn):
-    def op(data: NDArray) -> NDArray:
-        return _apply(fn, data)
-    op.__name__ = fn.__name__
-    return op
+# ---------------------------------------------------------------------------
+# hand-written wrappers (state write-back, training flags, variadic calls,
+# optional array inputs)
+# ---------------------------------------------------------------------------
+def _bn_writeback(op_name, data, gamma, beta, moving_mean, moving_var,
+                  use_global_stats, **attrs):
+    """BatchNorm's training-mode detection and the moving-stat write-back
+    into ``moving_mean`` and ``moving_var`` (in-op mutation in the
+    reference)."""
+    from .. import autograd
+    training = autograd.is_training() and not use_global_stats
+    out, new_mean, new_var = _apply_op(
+        op_name, data, gamma, beta, moving_mean, moving_var,
+        use_global_stats=use_global_stats, training=training, **attrs)
+    if training:
+        moving_mean._set_data(new_mean._data.detach())
+        moving_var._set_data(new_var._data.detach())
+    return out
 
 
-sigmoid = _unary(torch.sigmoid)
-exp = _unary(torch.exp)
-log = _unary(torch.log)
-tanh = _unary(torch.tanh)
-relu = _unary(torch.relu)
-sqrt = _unary(torch.sqrt)
-square = _unary(torch.square)
-abs = _unary(torch.abs)   # noqa: A001  (the reference's name)
+def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
+              momentum=0.9, fix_gamma=True, use_global_stats=False,
+              output_mean_var=False, axis=1, **kwargs):
+    return _bn_writeback("BatchNorm", data, gamma, beta, moving_mean,
+                         moving_var, use_global_stats, eps=eps,
+                         momentum=momentum, fix_gamma=fix_gamma, axis=axis)
 
 
-def clip(data: NDArray, a_min=None, a_max=None) -> NDArray:
-    """Clamp to [a_min, a_max], the bounds cast to the array's dtype first
-    (the reference keeps the operand dtype)."""
-    dt = data._data.dtype
-
-    def bound(v):
-        return None if v is None else torch.tensor(v).to(dt).item()
-    return _apply(lambda t: torch.clamp(t, bound(a_min), bound(a_max)), data)
+def BatchNorm_v1(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                 momentum=0.9, fix_gamma=True, use_global_stats=False,
+                 output_mean_var=False, axis=1, **kwargs):
+    return _bn_writeback("BatchNorm_v1", data, gamma, beta, moving_mean,
+                         moving_var, use_global_stats, eps=eps,
+                         momentum=momentum, fix_gamma=fix_gamma, axis=axis)
 
 
-def where(condition: NDArray, x: NDArray, y: NDArray) -> NDArray:
-    return _apply(lambda c, a, b: torch.where(c.bool(), a, b),
-                  condition, x, y)
+def Dropout(data, p=0.5, mode="training", axes=(), **kwargs):
+    """Dropout while ``autograd.is_training()`` (or ``mode="always"``),
+    drawing from the data's context's generator; else the identity."""
+    from .. import autograd
+    training = autograd.is_training() or mode == "always"
+    if not training or p <= 0:
+        return _apply_op("Dropout", data, p=p, training=False)
+    return _apply_op("Dropout", data, p=p, axes=tuple(axes), training=True)
 
+
+def _arrays(args):
+    if len(args) == 1 and isinstance(args[0], (list, tuple)):
+        return tuple(args[0])
+    return args
+
+
+def concat(*args, dim=1, **kwargs):
+    return _apply_op("concat", *_arrays(args), dim=dim)
+
+
+def stack(*args, axis=0, **kwargs):
+    return _apply_op("stack", *_arrays(args), axis=axis)
+
+
+def add_n(*args):
+    return _apply_op("add_n", *_arrays(args))
+
+
+ElementWiseSum = add_n
+
+
+def split(data, num_outputs, axis=1, squeeze_axis=False):
+    out = _apply_op("split", data, num_outputs=num_outputs, axis=axis,
+                    squeeze_axis=squeeze_axis)
+    return list(out) if isinstance(out, tuple) else out
+
+
+def _with_length(data, sequence_length):
+    return (data,) if sequence_length is None else (data, sequence_length)
+
+
+def SequenceMask(data, sequence_length=None, use_sequence_length=False,
+                 value=0.0, axis=0):
+    return _apply_op("sequence_mask", *_with_length(data, sequence_length),
+                     use_sequence_length=use_sequence_length, value=value,
+                     axis=axis)
+
+
+def SequenceLast(data, sequence_length=None, use_sequence_length=False,
+                 axis=0):
+    return _apply_op("sequence_last", *_with_length(data, sequence_length),
+                     use_sequence_length=use_sequence_length, axis=axis)
+
+
+def SequenceReverse(data, sequence_length=None, use_sequence_length=False,
+                    axis=0):
+    return _apply_op("sequence_reverse",
+                     *_with_length(data, sequence_length),
+                     use_sequence_length=use_sequence_length, axis=axis)
+
+
+def RNN(data, parameters, state, state_cell=None, state_size=0, num_layers=1,
+        bidirectional=False, mode="lstm", p=0.0, state_outputs=True,
+        **kwargs):
+    args = (data, parameters, state) if state_cell is None \
+        else (data, parameters, state, state_cell)
+    return _apply_op("RNN", *args, state_size=state_size,
+                     num_layers=num_layers, bidirectional=bidirectional,
+                     mode=mode, p=p, state_outputs=state_outputs)
+
+
+def cast(data, dtype):
+    return _apply_op("cast", data, dtype=DTypes.canonical(dtype))
+
+
+def Cast(data, dtype):
+    return cast(data, dtype)
+
+
+def where(condition, x, y):
+    return _apply_op("where", condition, x, y)
+
+
+def dot(lhs, rhs, transpose_a=False, transpose_b=False, **kwargs):
+    """The product over lhs's last and rhs's first axis (``dot-inl.h``)."""
+    return _apply_op("dot", lhs, rhs, transpose_a=transpose_a,
+                     transpose_b=transpose_b)
+
+
+def multi_sum_sq(*arrays, num_arrays=0):
+    """The sum of squares of each array (the AMP and LAMB helper)."""
+    return tuple(_apply_op("sum", _apply_op("square", a))
+                 for a in _arrays(arrays))
+
+
+def all_finite(*arrays, init_output=True):
+    """True if every entry of every array is finite (``all_finite.cc``)."""
+    ok = None
+    for a in _arrays(arrays):
+        s = _apply_op("min", _apply_op("isfinite", a))
+        ok = s if ok is None else ok * s
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# a generated function for every registered op not written above, and the
+# legacy CamelCase names
+# ---------------------------------------------------------------------------
+_MANUAL = set(dir(_this))
+
+
+def _install_wrappers():
+    for name in _registry.list_ops():
+        if name in _MANUAL or name.startswith("_random") or \
+                name == "_shuffle":
+            continue
+        setattr(_this, name, _registry.make_nd_wrapper(
+            _registry.get_op(name)))
+    for legacy, new in [("Flatten", "flatten"), ("Concat", "concat"),
+                        ("Reshape", "reshape"), ("LeakyReLU", "leaky_relu"),
+                        ("SliceChannel", "split"), ("SwapAxis", "swapaxes"),
+                        ("Pad", "pad"), ("stop_gradient", "BlockGrad")]:
+        if not hasattr(_this, legacy):
+            setattr(_this, legacy, getattr(_this, new))
+
+
+_install_wrappers()
 
 from . import random  # noqa: E402  (nd.random namespace)
+
+# the array-parameter samplers at nd level too, as in the reference
+sample_uniform = random.sample_uniform
+sample_normal = random.sample_normal
+sample_gamma = random.sample_gamma
+sample_exponential = random.sample_exponential
+sample_poisson = random.sample_poisson
+sample_negative_binomial = random.sample_negative_binomial
+sample_generalized_negative_binomial = \
+    random.sample_generalized_negative_binomial

@@ -11,7 +11,9 @@ operation builds a graph only inside ``autograd.record()``, and
 ``attach_grad`` keeps the gradient in an NDArray of its own that
 ``grad_req="write"`` overwrites and ``"add"`` accumulates.
 
-dtype rules kept from the reference where torch's differ: a Python list
+Operations and methods run the registered ops (``ops/registry.py``), one
+implementation per op. dtype rules kept from the reference where torch's
+differ: a Python list
 becomes float32 (int lists included), a float64 ndarray float32 and an
 int64 ndarray int32; an operation with a Python scalar computes in the
 array's dtype when it is floating (the scalar rounded to it first) and in
@@ -30,6 +32,7 @@ import torch
 
 from .. import autograd as _ag
 from ..base import Context, DTypes, MXNetError, current_context
+from ..ops.registry import apply_op
 
 __all__ = ["NDArray", "array"]
 
@@ -215,13 +218,12 @@ class NDArray:
     # copies
     # ------------------------------------------------------------------
     def astype(self, dtype, copy=True) -> "NDArray":
-        dt = DTypes.torch(dtype)
-        if dt == self._data.dtype:
+        if DTypes.torch(dtype) == self._data.dtype:
             return self.copy() if copy else self
-        return _apply(lambda t: t.to(dt), self)
+        return apply_op("cast", self, dtype=DTypes.canonical(dtype))
 
     def copy(self) -> "NDArray":
-        return _apply(torch.clone, self)
+        return apply_op("identity", self)
 
     def copyto(self, other) -> "NDArray":
         if isinstance(other, Context):
@@ -281,7 +283,7 @@ class NDArray:
     def __getitem__(self, key) -> "NDArray":
         mask = self._mask(key)
         k = mask if mask is not None else self._key(key)
-        return _apply(lambda t: t[k], self)
+        return apply_op("_getitem", self, key=k)
 
     def __setitem__(self, key, value):
         mask = self._mask(key)
@@ -300,65 +302,62 @@ class NDArray:
         self._set_data(t)
 
     # ------------------------------------------------------------------
-    # arithmetic
+    # arithmetic, through the registry: an array operand takes the
+    # broadcast op, a Python scalar the scalar op (``_plus_scalar``, ...)
     # ------------------------------------------------------------------
-    def _binary(self, other, fn, reverse=False) -> "NDArray":
+    def _binary(self, other, op, scalar_op, reverse=False) -> "NDArray":
         if isinstance(other, (np.ndarray, list, tuple)):
             other = NDArray(other, ctx=self._ctx)
         if isinstance(other, NDArray):
             a, b = (other, self) if reverse else (self, other)
-            return _apply(fn, a, b)
-        # a Python scalar: in the array's dtype if floating, else float32,
-        # rounded to that dtype before the operation (``_scalar_op``)
-        dt = self._data.dtype if self._data.is_floating_point() \
-            else torch.float32
-        s = torch.tensor(float(other), dtype=dt)
-        if reverse:
-            return _apply(lambda t: fn(s, t.to(dt)), self)
-        return _apply(lambda t: fn(t.to(dt), s), self)
+            return apply_op(op, a, b)
+        return apply_op(scalar_op, self, scalar=float(other),
+                        reverse=reverse)
 
     def __add__(self, o):
-        return self._binary(o, torch.add)
+        return self._binary(o, "broadcast_add", "_plus_scalar")
 
     __radd__ = __add__
 
     def __sub__(self, o):
-        return self._binary(o, torch.sub)
+        return self._binary(o, "broadcast_sub", "_minus_scalar")
 
     def __rsub__(self, o):
-        return self._binary(o, torch.sub, reverse=True)
+        return self._binary(o, "broadcast_sub", "_minus_scalar",
+                            reverse=True)
 
     def __mul__(self, o):
-        return self._binary(o, torch.mul)
+        return self._binary(o, "broadcast_mul", "_mul_scalar")
 
     __rmul__ = __mul__
 
     def __truediv__(self, o):
-        return self._binary(o, torch.true_divide)
+        return self._binary(o, "broadcast_div", "_div_scalar")
 
     def __rtruediv__(self, o):
-        return self._binary(o, torch.true_divide, reverse=True)
+        return self._binary(o, "broadcast_div", "_div_scalar", reverse=True)
 
     def __mod__(self, o):
-        return self._binary(o, torch.remainder)
+        return self._binary(o, "broadcast_mod", "_mod_scalar")
 
     def __rmod__(self, o):
-        return self._binary(o, torch.remainder, reverse=True)
+        return self._binary(o, "broadcast_mod", "_mod_scalar", reverse=True)
 
     def __pow__(self, o):
-        return self._binary(o, torch.pow)
+        return self._binary(o, "broadcast_power", "_power_scalar")
 
     def __rpow__(self, o):
-        return self._binary(o, torch.pow, reverse=True)
+        return self._binary(o, "broadcast_power", "_power_scalar",
+                            reverse=True)
 
     def __matmul__(self, o):
-        return _apply(torch.matmul, self, o)
+        return apply_op("matmul", self, o)
 
     def __neg__(self):
-        return _apply(torch.neg, self)
+        return apply_op("negative", self)
 
     def __abs__(self):
-        return _apply(torch.abs, self)
+        return apply_op("abs", self)
 
     def __iadd__(self, o):
         self._set_data(self.__add__(o)._data)
@@ -376,181 +375,182 @@ class NDArray:
         self._set_data(self.__truediv__(o)._data)
         return self
 
-    def _compare(self, other, fn) -> "NDArray":
+    def _compare(self, other, op) -> "NDArray":
         if not isinstance(other, NDArray):
             # the reference casts the other side to this array's dtype
             other = NDArray(np.asarray(other), ctx=self._ctx, dtype=self.dtype)
-        out = _apply(lambda a, b: fn(a, b).to(a.dtype), self, other)
-        out._is_predicate = True
-        return out
+        return apply_op(op, self, other)       # tagged as a predicate
 
     def __eq__(self, o):
-        return self._compare(o, torch.eq)
+        return self._compare(o, "broadcast_equal")
 
     def __ne__(self, o):
-        return self._compare(o, torch.ne)
+        return self._compare(o, "broadcast_not_equal")
 
     def __gt__(self, o):
-        return self._compare(o, torch.gt)
+        return self._compare(o, "broadcast_greater")
 
     def __ge__(self, o):
-        return self._compare(o, torch.ge)
+        return self._compare(o, "broadcast_greater_equal")
 
     def __lt__(self, o):
-        return self._compare(o, torch.lt)
+        return self._compare(o, "broadcast_lesser")
 
     def __le__(self, o):
-        return self._compare(o, torch.le)
+        return self._compare(o, "broadcast_lesser_equal")
 
     def __and__(self, o):
-        return self._compare(o, torch.logical_and)
+        return self._compare(o, "broadcast_logical_and")
 
     def __or__(self, o):
-        return self._compare(o, torch.logical_or)
+        return self._compare(o, "broadcast_logical_or")
 
     def __xor__(self, o):
-        return self._compare(o, torch.logical_xor)
+        return self._compare(o, "broadcast_logical_xor")
 
     def __invert__(self):
-        out = _apply(torch.logical_not, self)
-        out._is_predicate = True
-        return out
+        return apply_op("logical_not", self)
 
     # ------------------------------------------------------------------
-    # shapes
+    # method mirrors of registered ops
     # ------------------------------------------------------------------
+    def _op(self, name, **kw) -> "NDArray":
+        return apply_op(name, self, **kw)
+
     def reshape(self, *shape, **kwargs) -> "NDArray":
         """Reshape with the reference's codes: 0 copies a dimension, -1
         infers one, -2 copies the rest, -3 merges two, -4 splits one into
         the next two values (``matrix_op.cc`` Reshape)."""
         if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
             shape = tuple(shape[0])
-        shape = _reshape_codes(self.shape, tuple(kwargs.get("shape", shape)))
-        return _apply(lambda t: t.reshape(shape), self)
+        return self._op("reshape", shape=tuple(kwargs.get("shape", shape)))
+
+    def reshape_like(self, other) -> "NDArray":
+        return self._op("reshape", shape=other.shape)
 
     def transpose(self, *axes) -> "NDArray":
         if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
             axes = tuple(axes[0])
-        axes = axes or tuple(reversed(range(self.ndim)))
-        return _apply(lambda t: t.permute(*axes), self)
+        return self._op("transpose", axes=tuple(axes) if axes else None)
 
     def swapaxes(self, dim1, dim2) -> "NDArray":
-        return _apply(lambda t: t.transpose(dim1, dim2), self)
+        return self._op("swapaxes", dim1=dim1, dim2=dim2)
 
     def flatten(self) -> "NDArray":
-        return _apply(lambda t: t.reshape(t.shape[0], -1), self)
+        return self._op("flatten")
 
     def expand_dims(self, axis) -> "NDArray":
-        return _apply(lambda t: t.unsqueeze(axis), self)
+        return self._op("expand_dims", axis=axis)
 
     def squeeze(self, axis=None) -> "NDArray":
-        if axis is None:
-            return _apply(torch.squeeze, self)
-        return _apply(lambda t: t.squeeze(_axes(axis)), self)
+        return self._op("squeeze", axis=_axes(axis))
 
     def broadcast_to(self, shape) -> "NDArray":
-        shape = tuple(shape)
-        if len(shape) == self.ndim:    # 0 keeps the dimension
-            shape = tuple(d if s == 0 else s for s, d in zip(shape, self.shape))
-        return _apply(lambda t: t.expand(shape), self)
+        return self._op("broadcast_to", shape=tuple(shape))
 
-    # ------------------------------------------------------------------
-    # reductions
-    # ------------------------------------------------------------------
-    def _reduce(self, fn, axis, keepdims, out_dtype):
-        ax = _axes(axis)
-
-        def run(t):
-            x = t if out_dtype is None else t.to(out_dtype)
-            if ax is None:
-                r = fn(x)
-                return r.reshape((1,) * t.dim()) if keepdims else r
-            return fn(x, dim=ax, keepdim=keepdims)
-        return _apply(run, self)
-
-    def _int_acc(self):
-        # integer and bool sums/products stay int32 (x64 is off in the
-        # reference); torch would widen them to int64
-        return None if self._data.is_floating_point() else torch.int32
+    def broadcast_like(self, other) -> "NDArray":
+        return self._op("broadcast_to", shape=other.shape)
 
     def sum(self, axis=None, keepdims=False) -> "NDArray":
-        out = self._reduce(torch.sum, axis, keepdims, None)
-        acc = self._int_acc()
-        return out if acc is None else out.astype(acc, copy=False)
+        return self._op("sum", axis=_axes(axis), keepdims=keepdims)
 
     def mean(self, axis=None, keepdims=False) -> "NDArray":
-        dt = None if self._data.is_floating_point() else torch.float32
-        return self._reduce(torch.mean, axis, keepdims, dt)
+        return self._op("mean", axis=_axes(axis), keepdims=keepdims)
 
     def max(self, axis=None, keepdims=False) -> "NDArray":
-        return self._reduce(torch.amax, axis, keepdims, None)
+        return self._op("max", axis=_axes(axis), keepdims=keepdims)
 
     def min(self, axis=None, keepdims=False) -> "NDArray":
-        return self._reduce(torch.amin, axis, keepdims, None)
+        return self._op("min", axis=_axes(axis), keepdims=keepdims)
 
     def prod(self, axis=None, keepdims=False) -> "NDArray":
-        out = self._reduce(_prod, axis, keepdims, None)
-        acc = self._int_acc()
-        return out if acc is None else out.astype(acc, copy=False)
+        return self._op("prod", axis=_axes(axis), keepdims=keepdims)
 
     def argmax(self, axis=None, keepdims=False) -> "NDArray":
         """Index of the largest value, as float32 (the reference's)."""
-        return _apply(lambda t: torch.argmax(
-            t, dim=axis, keepdim=keepdims and axis is not None).float(), self)
+        return self._op("argmax", axis=axis, keepdims=keepdims)
+
+    def argmin(self, axis=None, keepdims=False) -> "NDArray":
+        return self._op("argmin", axis=axis, keepdims=keepdims)
+
+    def norm(self, ord=2, axis=None, keepdims=False) -> "NDArray":
+        return self._op("norm", ord=ord, axis=_axes(axis), keepdims=keepdims)
+
+    def clip(self, a_min=None, a_max=None) -> "NDArray":
+        return self._op("clip", a_min=a_min, a_max=a_max)
+
+    def abs(self) -> "NDArray":
+        return self._op("abs")
+
+    def sqrt(self) -> "NDArray":
+        return self._op("sqrt")
+
+    def square(self) -> "NDArray":
+        return self._op("square")
+
+    def exp(self) -> "NDArray":
+        return self._op("exp")
+
+    def log(self) -> "NDArray":
+        return self._op("log")
+
+    def relu(self) -> "NDArray":
+        return self._op("relu")
+
+    def sigmoid(self) -> "NDArray":
+        return self._op("sigmoid")
+
+    def tanh(self) -> "NDArray":
+        return self._op("tanh")
+
+    def softmax(self, axis=-1) -> "NDArray":
+        return self._op("softmax", axis=axis)
+
+    def log_softmax(self, axis=-1) -> "NDArray":
+        return self._op("log_softmax", axis=axis)
+
+    def slice(self, begin, end, step=None) -> "NDArray":
+        return self._op("slice", begin=tuple(begin), end=tuple(end),
+                        step=tuple(step) if step else None)
+
+    def slice_axis(self, axis, begin, end) -> "NDArray":
+        return self._op("slice_axis", axis=axis, begin=begin, end=end)
+
+    def take(self, indices, axis=0, mode="clip") -> "NDArray":
+        return apply_op("take", self, indices, axis=axis, mode=mode)
+
+    def one_hot(self, depth, on_value=1.0, off_value=0.0) -> "NDArray":
+        return self._op("one_hot", depth=depth, on_value=on_value,
+                        off_value=off_value)
+
+    def tile(self, reps) -> "NDArray":
+        return self._op("tile", reps=tuple(reps) if isinstance(
+            reps, (list, tuple)) else (reps,))
+
+    def repeat(self, repeats, axis=None) -> "NDArray":
+        return self._op("repeat", repeats=repeats, axis=axis)
+
+    def flip(self, axis) -> "NDArray":
+        return self._op("reverse", axis=axis)
+
+    def zeros_like(self) -> "NDArray":
+        return self._op("zeros_like")
+
+    def ones_like(self) -> "NDArray":
+        return self._op("ones_like")
+
+    def split(self, num_outputs, axis=1, squeeze_axis=False):
+        return self._op("split", num_outputs=num_outputs, axis=axis,
+                        squeeze_axis=squeeze_axis)
+
+    def dot(self, other) -> "NDArray":
+        return apply_op("dot", self, other)
 
 
 def _axes(axis):
     if axis is None or isinstance(axis, int):
         return axis
     return tuple(axis)
-
-
-def _prod(t, dim=None, keepdim=False):
-    """torch.prod over several dimensions (it takes one at a time)."""
-    if dim is None:
-        return t.prod()
-    for d in sorted(((dim,) if isinstance(dim, int) else dim),
-                    key=lambda d: d % t.dim(), reverse=True):
-        t = t.prod(dim=d, keepdim=keepdim)
-    return t
-
-
-def _reshape_codes(src, shape):
-    if not any(s in (0, -2, -3, -4) for s in shape):
-        return shape
-    out, i, j = [], 0, 0
-    while j < len(shape):
-        s = shape[j]
-        if s == 0:
-            out.append(src[i])
-            i += 1
-        elif s == -2:
-            out.extend(src[i:])
-            i = len(src)
-        elif s == -3:
-            out.append(src[i] * src[i + 1])
-            i += 2
-        elif s == -4:
-            a, b = shape[j + 1], shape[j + 2]
-            a = src[i] // b if a == -1 else a
-            b = src[i] // a if b == -1 else b
-            out.extend([a, b])
-            i += 1
-            j += 2
-        else:                      # a size, or -1 (inferred)
-            out.append(s)
-            i += 1
-        j += 1
-    return tuple(out)
-
-
-def _apply(fn, *arrays) -> NDArray:
-    """``fn`` over the arrays' tensors, building an autograd graph only
-    while recording; the result lives on the first array's context."""
-    ts = [a._data if isinstance(a, NDArray) else a for a in arrays]
-    with torch.set_grad_enabled(_ag.is_recording()):
-        out = fn(*ts)
-    return _wrap(out, arrays[0]._ctx)
 
 
 def _wrap(t: torch.Tensor, ctx: Context) -> NDArray:

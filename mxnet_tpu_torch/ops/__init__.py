@@ -1,5 +1,11 @@
-"""Operators of the port: plain PyTorch functions (``nn``) and the
-hand-written CUDA kernels with their wrappers (``cuda``)."""
-from . import cuda, nn
+"""Operators of the port: the registry (``registry``), the op families
+registered in it (``elemwise``, ``tensor``, ``nn``, ``random_ops``) as
+plain PyTorch functions, and the hand-written CUDA kernels with their
+wrappers (``cuda``). Importing the package registers every op."""
+from . import registry
+from . import elemwise, tensor, nn, random_ops  # noqa: E402  (register)
+from . import cuda
+from .registry import apply_op, get_op, list_ops, register
 
-__all__ = ["cuda", "nn"]
+__all__ = ["cuda", "elemwise", "nn", "random_ops", "registry", "tensor",
+           "apply_op", "get_op", "list_ops", "register"]

@@ -19,13 +19,13 @@ the weight's device.
 from __future__ import annotations
 
 import math
-import os
 import pickle
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from .. import config
 from .. import random as _random
 from ..base import MXNetError, Registry
 from ..ndarray.ndarray import NDArray, _context_of
@@ -52,8 +52,7 @@ def create(name, **kwargs):
 def _bf16_moments() -> bool:
     """``MXNET_OPT_BF16_MOMENTS`` as the JAX package reads it (default
     off)."""
-    raw = os.environ.get("MXNET_OPT_BF16_MOMENTS")
-    return raw is not None and raw.lower() in ("1", "true", "yes", "on")
+    return bool(config.get("MXNET_OPT_BF16_MOMENTS"))
 
 
 def _tensor(a) -> torch.Tensor:

@@ -205,6 +205,48 @@ def test_gluon_slice_modules_are_guarded(module):
     test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
 
 
+OPS_SLICE_MODULES = ["config.py", "ops/__init__.py", "ops/registry.py",
+                     "ops/elemwise.py", "ops/tensor.py", "ops/nn.py",
+                     "ops/random_ops.py", "ndarray/__init__.py",
+                     "ndarray/ndarray.py", "ndarray/random.py",
+                     "gluon/nn/__init__.py", "gluon/nn/basic_layers.py",
+                     "gluon/nn/conv_layers.py", "gluon/loss.py",
+                     "gluon/rnn/__init__.py", "gluon/rnn/rnn_layer.py",
+                     "gluon/rnn/rnn_cell.py", "gluon/model_zoo/__init__.py",
+                     "gluon/model_zoo/lstm_lm.py",
+                     "gluon/model_zoo/carrier.py"]
+
+
+@pytest.mark.parametrize("module", OPS_SLICE_MODULES)
+def test_ops_slice_modules_are_guarded(module):
+    """The op registry, the four op families, the generated ``nd``, the
+    recurrent layers and cells and the LSTM language model are among the
+    files the import guards read."""
+    assert PKG / module in PORT_FILES
+    test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
+
+
+_SAMPLING_CALLS = {"rand", "randn", "randint", "randperm", "multinomial",
+                   "poisson", "_standard_gamma", "exponential_",
+                   "bernoulli", "normal_", "uniform_"}
+
+
+@pytest.mark.parametrize("module", ["ops/random_ops.py", "ops/nn.py",
+                                    "ops/tensor.py", "ops/elemwise.py",
+                                    "gluon/nn/basic_layers.py",
+                                    "gluon/rnn/rnn_cell.py"])
+def test_every_draw_names_its_generator(module):
+    """Every sampling call in the op and layer modules passes
+    ``generator=``: draws come from ``random.generator(ctx)``, never from
+    PyTorch's global generator."""
+    for node in ast.walk(_tree(PKG / module)):
+        if isinstance(node, ast.Call) and isinstance(node.func,
+                                                     ast.Attribute) \
+                and node.func.attr in _SAMPLING_CALLS:
+            assert any(k.arg == "generator" for k in node.keywords), \
+                f"{module}:{node.lineno}: {node.func.attr} without generator"
+
+
 def test_rtc_counts_launches_in_cuda_kernel_launch_alone():
     """``rtc.launches`` starts at 0 at module level and is bumped in
     ``CudaKernel.launch`` and nowhere else."""
