@@ -199,13 +199,10 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    over three profiled steps (as ``tools/step_profile.py`` reads them;
    phase 4 prints the same for ``ParallelTrainStep``), peak memory. (c) At
    dropout 0, three such steps against three ``ParallelTrainStep``
-   (bf16 compute) steps from the same bf16-exact weights: the f32 masters
-   within 2 lr everywhere, and no more than 1e-4 of them beyond 0.01 lr.
-   The two differ in mean-then-backward against backward-then-rescale (a
-   power of 2, exact in bf16), the Adam count as an f32 scalar, and the
-   order of the card's atomic sums (the gather's and the embedding's
-   backward), which can flip a near-zero gradient and move its weight by
-   up to lr a step.
+   (bf16 compute) steps from the same bf16-exact weights, both handing
+   Adam the update count as an f32 scalar, as the reference does: the f32
+   masters bitwise equal (the two differ only in mean-then-backward against
+   backward-then-rescale, a power of 2, exact in bf16).
 9. The op surface and the LSTM word LM, on ``gpu(0)``: (a) every case of
    ``mxnet_tpu_torch/tools/op_cases.py`` (one per registered op but the
    samplers; small f32 shapes, bf16/f16 and integer variants, seeded
@@ -220,8 +217,11 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    standard errors, and 2% of the variance) or its property (rows sum to
    1, frequencies, a permutation, the Zipfian mass at 0). Prints the names
    of any op that differs, and fails; prints K1's launches in the
-   ``nd.multi_head_attention`` case (2: the unmasked and the causal call
-   at D = 32). (b) The main path: ``LSTMLanguageModel`` at the PTB
+   ``nd.flash_attention`` and ``nd.multi_head_attention`` cases (2 each:
+   the unmasked and the causal call at D = 32). The contrib ops' cases
+   (boxes, NMS and the MultiBox family, ROI ops, the graph ops, ...) run
+   on inputs for which NMS and matching are well posed (no IoU within
+   1e-3 of a threshold, distinct scores). (b) The main path: ``LSTMLanguageModel`` at the PTB
    "medium" width of Zaremba et al. 2014 (2 layers of 650, vocabulary
    10,000, dropout 0.5 on the embedding's and the LSTM's outputs),
    ``initialize(Uniform(0.05))``, ``Trainer("sgd", lr 1)``, batch 20 x
@@ -237,7 +237,34 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    at batch 2 and dropout 0 from the same seeded weights on the card and
    on the CPU: losses and parameters within 1e-4 x max(1, max|value|)
    (f32 both, TF32 off; sums in another order).
-10. A JSON line with the kernels' numbers, then the last line
+10. SSD, on ``gpu(0)``: (a) ``ssd_96_tiny(classes=3)`` at f32 from seeded
+   Xavier-uniform weights, three ``gluon.Trainer`` steps (SGD lr 1e-3,
+   momentum 0.9) on 4 ``get_shapes_detection`` images, then ``detect()``
+   (threshold 0.2, NMS 0.3, top 16), on the card and on the CPU: losses,
+   parameters and rows within phase 9's 1e-4 of max(1, |value|), the rows'
+   classes equal, on inputs the CPU's predictions show to be well posed
+   (no score within 1e-6 of the threshold or of another candidate's, no
+   same-class IoU within 1e-4 of the NMS threshold). (b) The main path:
+   ``ssd_300_vgg16(classes=3)`` (VGG16-reduced, four extra scales, 8732
+   anchors) from ``initialize(Xavier())``, ``SSDMultiBoxLoss``,
+   ``Adam(1e-3)``, bf16 compute over f32 masters, through
+   ``ParallelTrainStep`` at batch 32 of 300 x 300 images gathered on the
+   card from 128 ``get_shapes_detection`` images placed there once
+   (``examples/ssd/train_shapes.py``'s recipe): 2 warm-up steps, 10 steps
+   closed by one fetch (img/s), 10 steps each closed by a fetch (median
+   ms). Checks: losses finite and falling; K1–K5 launched 0 times (none
+   lies on this path). Prints img/s, the step's median ms, device ms,
+   busy share and device operations a step (torch.profiler, three steps),
+   peak memory. (c) ``detect()`` on 32 of those images with the trained
+   weights (f32; threshold 0.01, NMS 0.45, top 400): its ms (host clock
+   to the synchronized rows) and ``MultiBoxDetection``'s alone, the K
+   rows NMS's loop ran over (``contrib.nms_rows``) and the rows kept;
+   launches 0. (d) tests/test_ssd.py's accuracy drive: ``ssd_96_tiny``
+   from ``initialize(Xavier())``, 251 Adam steps (lr 2e-3, batch 16)
+   through ``gluon.Trainer`` on 96 images at 96 x 96 (seed 0), VOC07
+   mAP@0.5 on 32 held-out images (seed 99) at least 0.6, the last loss
+   under a quarter of the first.
+11. A JSON line with the kernels' numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -263,7 +290,8 @@ from mxnet_tpu_torch.gluon.model_zoo.bert import (
     load_jax_params)
 from mxnet_tpu_torch.gluon.model_zoo.lstm_lm import PTB_MEDIUM, ptb_medium
 from mxnet_tpu_torch.gluon.model_zoo.vision import BottleneckV1, resnet50_v1
-from mxnet_tpu_torch.ops import _build, _nvrtc
+from mxnet_tpu_torch.gluon.model_zoo.vision import ssd as ssd_zoo
+from mxnet_tpu_torch.ops import _build, _nvrtc, contrib
 from mxnet_tpu_torch.ops import nn as ops
 from mxnet_tpu_torch.ops.cuda import flash_attention as fa
 from mxnet_tpu_torch.ops.cuda import fused_conv1x1 as fc
@@ -271,6 +299,7 @@ from mxnet_tpu_torch.ops.nn import rnn_param_size
 from mxnet_tpu_torch.optimizer import Adam
 from mxnet_tpu_torch.parallel import ParallelTrainStep, make_mesh
 from mxnet_tpu_torch.serving.generate import DecodeEndpoint
+from mxnet_tpu_torch.test_utils import get_shapes_detection
 from mxnet_tpu_torch.tools import (PretrainStep, card, f32_drift, graph_ms,
                                    median_ms, pretrain_batch, resnet_batch,
                                    resnet_train_step, seeded_bert_weights,
@@ -307,13 +336,20 @@ PROFILED_STEPS = 3         # steps under torch.profiler for the busy share
 LENET_BATCH, LENET_STEPS, LENET_TOL = 64, 6, 1e-4
 GLUON_TIMED = 10           # timed Gluon steps: a window, then one by one
 GLUON_CHECK_STEPS = 3
-GLUON_TOL_LR, GLUON_SHARE_LR, GLUON_SHARE = 2.0, 0.01, 1e-4
 OPS_SAMPLES = 200_000      # draws per sampler on the card
+K1_CASES = {"flash_attention": 2, "multi_head_attention": 2}
 # the PTB word LM (Zaremba et al. 2014, "medium"): BPTT 35, batch 20,
 # SGD at lr 1, gradient norm clipped at 5
 LSTM_BPTT, LSTM_BATCH, LSTM_LR, LSTM_CLIP = 35, 20, 1.0, 5.0
 LSTM_WARMUP, LSTM_TIMED = 2, 10
 LSTM_CHECK_BATCH, LSTM_CHECK_STEPS, LSTM_TOL = 2, 3, 1e-4
+SSD_BATCH, SSD_IMAGES, SSD_LR = 32, 128, 1e-3  # examples/ssd/train_shapes.py
+SSD_WARMUP, SSD_TIMED = 2, 10
+SSD_ANCHORS = 8732
+SSD_DETECT = dict(threshold=0.01, nms_threshold=0.45, nms_topk=400)
+SSD_CHECK_BATCH, SSD_CHECK_STEPS = 4, 3
+SSD_CHECK_DETECT = dict(threshold=0.2, nms_threshold=0.3, nms_topk=16)
+MAP_STEPS, MAP_BATCH, MAP_LR, MAP_FLOOR = 251, 16, 2e-3, 0.6
 # ResNet-50 v1's distinct 1x1 convolutions at batch 128, as the reference's
 # K4 benchmark lists them: (label, M = 128 * H * W, K = Cin, N = Cout)
 K4_SHAPES = [("s2_reduce", 128 * 56 * 56, 64, 64),
@@ -1908,8 +1944,8 @@ def phase_generate(seed: int, smi: str):
 def profiled(step):
     """Device ms and device operations (kernels and copies) per step over
     PROFILED_STEPS calls of ``step`` under torch.profiler (as
-    ``tools/step_profile.py`` reads them; the optimizer's range annotation
-    is not a kernel)."""
+    ``tools/step_profile.py`` reads them; the optimizer's and the loss's
+    range annotations are not kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1919,7 +1955,8 @@ def profiled(step):
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0 and e.key != "mxt.optimizer"]
+              and e.self_device_time_total > 0
+              and e.key not in ("mxt.optimizer", "mxt.loss")]
     device_us = sum(e.self_device_time_total for e in events)
     return (device_us / 1e3 / PROFILED_STEPS,
             sum(e.count for e in events) / PROFILED_STEPS)
@@ -2009,15 +2046,6 @@ def gluon_step(net, trainer, loss_fn, batch):
     return loss
 
 
-class StepCountAdam(Adam):
-    """Adam handing its rule the update count as ParallelTrainStep does
-    (an int) instead of the f32 scalar the reference's ``update`` hands:
-    phase 8(c) compares the Gluon path with that one difference removed."""
-
-    def _count(self, index):
-        return self._index_update_count[index]
-
-
 def gluon_masters(named, batches, optimizer):
     """GLUON_CHECK_STEPS Gluon steps (bf16 weights, ``optimizer`` with
     multi_precision, dropout 0) from ``named``: the mean losses and the
@@ -2038,29 +2066,23 @@ def gluon_masters(named, batches, optimizer):
 def gluon_vs_train_step(named, rng):
     """GLUON_CHECK_STEPS steps of the Gluon path against as many
     ParallelTrainStep(bf16 compute) steps from the same bf16-representable
-    weights, dropout 0: the f32 masters' absolute differences, for the
-    Gluon path with the count as ParallelTrainStep hands it and with the
-    reference's f32 count; and each run's mean losses."""
+    weights, dropout 0, both handing Adam the reference's f32 update count:
+    the f32 masters' absolute differences and each run's mean losses."""
     batches = _gluon_batches(rng, GLUON_CHECK_STEPS)
-    runs = {tag: gluon_masters(named, batches, opt(
+    g_losses, masters = gluon_masters(named, batches, Adam(
         learning_rate=TRAIN_LR, multi_precision=True))
-        for tag, opt in (("int count", StepCountAdam),
-                         ("f32 count", Adam))}
     step = _train_step(named, 0.0, "bfloat16", loss=PretrainLoss())
     p_losses = [step(b[0].data, (b[3].data, b[4].data), b[1].data,
                      b[2].data).item() for b in batches]
     p_masters = {k[len("inner."):]: v.detach().cpu()
                  for k, v in step.params.items()}
     del step
-    out = {}
-    for tag, (losses, masters) in runs.items():
-        if set(masters) != set(p_masters):
-            raise SystemExit("FAIL: the Gluon path and ParallelTrainStep "
-                             "train different parameters")
-        out[tag] = (losses, torch.cat([
-            (masters[k] - p_masters[k]).abs().reshape(-1)
-            for k in p_masters]))
-    return out, p_losses
+    if set(masters) != set(p_masters):
+        raise SystemExit("FAIL: the Gluon path and ParallelTrainStep "
+                         "train different parameters")
+    diff = torch.cat([(masters[k] - p_masters[k]).abs().reshape(-1)
+                      for k in p_masters])
+    return diff, g_losses, p_losses
 
 
 def phase_gluon(seed: int, smi: str):
@@ -2153,25 +2175,17 @@ def phase_gluon(seed: int, smi: str):
     # (c) against ParallelTrainStep from the same bf16-exact weights
     named = {k: torch.from_numpy(v).to(torch.bfloat16).float().numpy()
              for k, v in seeded_bert_weights(gluon_bert(0.0), seed).items()}
-    runs, p_losses = gluon_vs_train_step(named,
-                                         np.random.default_rng(seed + 11))
-    check = {}
-    for tag, (g_losses, diff) in runs.items():
-        check[tag] = (diff.max().item() / TRAIN_LR,
-                      (diff > GLUON_SHARE_LR * TRAIN_LR).float().mean()
-                      .item())
-        print(f"Gluon Trainer ({tag}) vs ParallelTrainStep, "
-              f"{GLUON_CHECK_STEPS} bf16 steps, dropout 0: losses "
-              f"{[f'{v:.5f}' for v in g_losses]} vs "
-              f"{[f'{v:.5f}' for v in p_losses]}; f32 masters max|d| "
-              f"{check[tag][0]:.3g} lr, share beyond {GLUON_SHARE_LR} lr "
-              f"{check[tag][1]:.3g}, bitwise equal "
-              f"{(diff == 0).float().mean().item():.6f}")
-    worst, share = check["int count"]
-    print(f"  held (int count): max|d| <= {GLUON_TOL_LR} lr, share beyond "
-          f"{GLUON_SHARE_LR} lr <= {GLUON_SHARE}")
-    if not (worst <= GLUON_TOL_LR and share <= GLUON_SHARE):
-        raise SystemExit("FAIL: the Gluon Trainer's masters disagree with "
+    diff, g_losses, p_losses = gluon_vs_train_step(
+        named, np.random.default_rng(seed + 11))
+    bitwise = (diff == 0).float().mean().item()
+    print(f"Gluon Trainer vs ParallelTrainStep, {GLUON_CHECK_STEPS} bf16 "
+          f"steps, dropout 0, Adam's count an f32 scalar on both: losses "
+          f"{[f'{v:.5f}' for v in g_losses]} vs "
+          f"{[f'{v:.5f}' for v in p_losses]}; f32 masters max|d| "
+          f"{diff.max().item() / TRAIN_LR:.3g} lr, bitwise equal {bitwise:.6f}"
+          f" (held: 1)")
+    if bitwise != 1.0:
+        raise SystemExit("FAIL: the Gluon Trainer's masters are not bitwise "
                          "ParallelTrainStep's")
     return {"launches": counts, "tokens_per_s": tokens / wall,
             "step_ms": median, "busy_share": busy}
@@ -2199,16 +2213,16 @@ def op_surface(seed: int, smi: str):
     inputs: a permutation of distinct values), every result on the card;
     then each sampler's draws on the card against its first two moments
     (``op_cases.moment_errors``). Returns K1's launches in the
-    ``multi_head_attention`` case."""
-    bad, k1 = {}, 0
+    ``flash_attention`` and ``multi_head_attention`` cases."""
+    bad, k1 = {}, {}
     for name, (case, tol) in sorted(op_cases.CASES.items()):
         with cpu():
             want = case(nd, cpu())
         before = fa.launches
         with gpu(0):
             got = case(nd, gpu(0))
-        if name == "multi_head_attention":
-            k1 = fa.launches - before
+        if name in K1_CASES:
+            k1[name] = fa.launches - before
         diff = op_cases.differences(want, got, tol) + _on_card(got, gpu(0))
         if diff:
             bad[name] = diff
@@ -2228,18 +2242,18 @@ def op_surface(seed: int, smi: str):
           f"{n_ops - len(bad)} agree (exact / 1e-5 sums / 1e-6 "
           f"transcendental / 2^-7 bf16); {len(op_cases.SAMPLER_CALLS(nd, cpu()))}"
           f" samplers on the card, {OPS_SAMPLES} draws each: "
-          f"{len(sampler_bad)} outside their moments; K1 launches in the "
-          f"nd.multi_head_attention case: {k1} on {smi}")
+          f"{len(sampler_bad)} outside their moments; K1 launches by case "
+          f"{k1} on {smi}")
     for name, diff in sorted({**bad, **sampler_bad}.items()):
         print(f"  DIFFERS {name}: {'; '.join(diff[:4])}")
     if bad or sampler_bad:
         raise SystemExit(f"FAIL: ops differ on the card: "
                          f"{sorted(bad) + sorted(sampler_bad)}")
-    if k1 != 2:
-        raise SystemExit(f"FAIL: nd.multi_head_attention launched K1 {k1} "
-                         "times (expected 2: the unmasked and the causal "
-                         "call at D = 32)")
-    return k1
+    if k1 != K1_CASES:
+        raise SystemExit(f"FAIL: K1 launches by case {k1}, expected "
+                         f"{K1_CASES} (the unmasked and the causal call at "
+                         "D = 32 in each)")
+    return sum(k1.values())
 
 
 def lstm_batches(rng, n, batch):
@@ -2427,6 +2441,250 @@ def phase_ops_rnn(seed: int, smi: str):
             "peak_bytes": peak, "held_bytes": held, **yard}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: SSD
+# ---------------------------------------------------------------------------
+def ssd_tiny_weights(seed: int):
+    """Seeded Xavier-uniform weights of ``ssd_96_tiny(classes=3)`` by
+    structural name (biases uniform in +-0.05)."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for k, p in ssd_zoo.ssd_96_tiny(classes=3) \
+            ._collect_params_with_prefix().items():
+        if len(p.shape) < 2:
+            out[k] = rng.uniform(-0.05, 0.05, p.shape).astype(np.float32)
+            continue
+        fan_in = int(np.prod(p.shape[1:]))
+        fan_out = p.shape[0] * int(np.prod(p.shape[2:]))
+        a = math.sqrt(6.0 / (fan_in + fan_out))
+        out[k] = rng.uniform(-a, a, p.shape).astype(np.float32)
+    return out
+
+
+def ssd_tiny_check(named, x, y, ctx):
+    """SSD_CHECK_STEPS SGD-momentum steps (lr 1e-3, tests/test_ssd.py's)
+    of ssd_96_tiny at f32 through gluon.Trainer on ``ctx``: the losses, the
+    parameters, the forward's outputs and ``detect()``'s rows after them,
+    as numpy."""
+    with ctx:
+        net = ssd_zoo.ssd_96_tiny(classes=3)
+        load_jax_params(net, named, ctx=ctx)
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 1e-3, "momentum": 0.9})
+        loss_fn = ssd_zoo.SSDMultiBoxLoss()
+        xs, ys = nd.array(x, ctx=ctx), nd.array(y, ctx=ctx)
+        losses = []
+        for _ in range(SSD_CHECK_STEPS):
+            with autograd.record():
+                loss = loss_fn(*net(xs), ys)
+            loss.backward()
+            trainer.step(len(x))
+            losses.append(loss.asnumpy())
+        outs = [a.asnumpy() for a in net(xs)]
+        det = net.detect(xs, **SSD_CHECK_DETECT)
+        if det.context != ctx:
+            raise SystemExit(f"FAIL: detect() returned rows on {det.context}")
+        return (np.stack(losses), {k: p.data().asnumpy() for k, p in
+                                   net._collect_params_with_prefix().items()},
+                outs, det.asnumpy())
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host ms of ``fn()`` closed by a synchronize, after one
+    untimed call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def ssd_accuracy(seed: int, smi: str):
+    """Phase 10(d): tests/test_ssd.py's accuracy drive on the card:
+    ssd_96_tiny, MAP_STEPS Adam steps (lr 2e-3, batch 16) through
+    gluon.Trainer on 96 shapes images, VOC07 mAP@0.5 on 32 held-out
+    images (seed 99) at least MAP_FLOOR."""
+    imgs, labels = get_shapes_detection(96, size=96, seed=0)
+    val_imgs, val_labels = get_shapes_detection(32, size=96, seed=99)
+    random.seed(seed)
+    t0 = time.perf_counter()
+    with gpu(0):
+        net = ssd_zoo.ssd_96_tiny(classes=3)
+        net.initialize(init.Xavier())
+        net.hybridize()
+        trainer = gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": MAP_LR})
+        loss_fn = ssd_zoo.SSDMultiBoxLoss()
+        imgs_d, labels_d = nd.array(imgs), nd.array(labels)
+        rng = np.random.RandomState(7)
+        losses = []
+        for _ in range(MAP_STEPS):
+            idx = nd.array(rng.randint(0, len(imgs), MAP_BATCH),
+                           dtype="int32")
+            with autograd.record():
+                loss = loss_fn(*net(nd.take(imgs_d, idx)),
+                               nd.take(labels_d, idx))
+            loss.backward()
+            trainer.step(MAP_BATCH)
+            losses.append(loss)
+        first = float(losses[0].asnumpy().mean())
+        last = float(losses[-1].asnumpy().mean())
+        metric = ssd_zoo.MApMetric(ovp_thresh=0.5)
+        metric.update(net.detect(nd.array(val_imgs), threshold=0.01),
+                      val_labels)
+    mean_ap = metric.get()[1]
+    print(f"SSD accuracy (tests/test_ssd.py's drive): ssd_96_tiny, "
+          f"{MAP_STEPS} Adam steps lr {MAP_LR} batch {MAP_BATCH} through "
+          f"gluon.Trainer, losses {first:.4f} -> {last:.4f}; VOC07 mAP@0.5 "
+          f"on 32 held-out images {mean_ap:.4f} (floor {MAP_FLOOR}), "
+          f"{time.perf_counter() - t0:.1f} s on {smi}")
+    if not (mean_ap >= MAP_FLOOR and last < first / 4):
+        raise SystemExit(f"FAIL: SSD mAP {mean_ap:.4f} < {MAP_FLOOR} or the "
+                         f"loss did not fall to a quarter ({first} -> {last})")
+    return mean_ap
+
+
+def phase_ssd(seed: int, smi: str):
+    """Phase 10: SSD. (a) ssd_96_tiny at f32, card against CPU; (b) the
+    main path: ssd_300_vgg16 trained at batch 32, bf16, through
+    ParallelTrainStep; (c) detect() at full width; (d) the accuracy
+    drive."""
+    # (a) card against CPU, same weights and batch
+    named = ssd_tiny_weights(seed + 15)
+    x, y = get_shapes_detection(SSD_CHECK_BATCH, size=96, seed=seed + 16)
+    got = ssd_tiny_check(named, x, y, gpu(0))
+    want = ssd_tiny_check(named, x, y, cpu())
+    problems = op_cases.detection_problems(
+        want[2][1], want[2][2], want[2][0], SSD_CHECK_DETECT["threshold"],
+        SSD_CHECK_DETECT["nms_threshold"], SSD_CHECK_DETECT["nms_topk"])
+    if problems:
+        raise SystemExit(f"FAIL: the SSD check's NMS is ill posed: {problems}")
+    rel = lambda a, b: float(np.abs(a - b).max() /  # noqa: E731
+                             max(1.0, np.abs(b).max()))
+    loss_err = rel(got[0], want[0])
+    w_err = max(rel(got[1][k], want[1][k]) for k in want[1])
+    det_err = rel(got[3], want[3])
+    same_rows = bool((got[3][..., 0] == want[3][..., 0]).all())
+    kept = int((want[3][..., 0] >= 0).sum())
+    print(f"SSD ssd_96_tiny card vs CPU, {SSD_CHECK_STEPS} SGD-momentum "
+          f"steps at batch {SSD_CHECK_BATCH}, f32: losses "
+          f"{want[0].mean(1)} max relative difference {loss_err:.3g}; "
+          f"parameters {w_err:.3g}; detect() {kept} rows kept, classes "
+          f"equal {same_rows}, rows {det_err:.3g} (tol {LSTM_TOL} of "
+          f"max(1, |value|))")
+    if not (loss_err <= LSTM_TOL and w_err <= LSTM_TOL and same_rows
+            and det_err <= LSTM_TOL and kept):
+        raise SystemExit("FAIL: SSD on the card disagrees with the CPU")
+
+    # (b) the main path: counts from 0 just before, read just after
+    imgs, labels = get_shapes_detection(SSD_IMAGES, size=300, seed=seed)
+    imgs_d = torch.from_numpy(imgs).to(gpu(0).torch_device())
+    labels_d = torch.from_numpy(labels).to(gpu(0).torch_device())
+    rng = np.random.RandomState(7)
+    n = SSD_WARMUP + 2 * SSD_TIMED
+    idx = torch.from_numpy(rng.randint(0, SSD_IMAGES, (n + 1, SSD_BATCH))) \
+        .to(imgs_d.device)
+    batches = [(imgs_d[i], labels_d[i]) for i in idx]
+    del imgs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fa.launches = fa.launches_dq = fa.launches_dkv = fc.launches = 0
+    rtc.launches = 0
+    random.seed(seed)
+    with gpu(0):
+        net = ssd_zoo.ssd_300_vgg16(classes=3)
+        net.initialize(init.Xavier())
+    step = ParallelTrainStep(net, ssd_zoo.SSDMultiBoxLoss(),
+                             Adam(learning_rate=SSD_LR),
+                             make_mesh({"dp": 1}), compute_dtype="bfloat16")
+    losses = [step(*b) for b in batches[:SSD_WARMUP]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[SSD_WARMUP:SSD_WARMUP + SSD_TIMED]:
+        losses.append(step(*b))
+    losses[-1].item()                      # the window closes on a fetch
+    wall = time.perf_counter() - t0
+    step_ms = []
+    for b in batches[SSD_WARMUP + SSD_TIMED:n]:
+        t1 = time.perf_counter()
+        losses.append(step(*b))
+        losses[-1].item()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    train_hand = {"K1": fa.launches, "K2": fa.launches_dq,
+                  "K3": fa.launches_dkv, "K4": fc.launches,
+                  "K5": rtc.launches}
+    # ---- end of the main path ----
+    peak = torch.cuda.max_memory_allocated()
+    median = float(np.median(step_ms))
+    device_ms, device_ops = profiled(lambda: step(*batches[n]))
+    all_losses = np.array([v.item() for v in losses])
+    imgs_per_s = SSD_BATCH * SSD_TIMED / wall
+    n_params = sum(p.numel() for p in step.params.values())
+    print(f"SSD-300 VGG16 (ssd_300_vgg16(classes=3), {SSD_ANCHORS} anchors, "
+          f"{n_params} parameters) through ParallelTrainStep, Adam lr "
+          f"{SSD_LR}, bf16 over f32 masters, batch {SSD_BATCH} x 3 x 300 x "
+          f"300 of get_shapes_detection on the card: {n} steps, losses "
+          f"{all_losses[0]:.4f} -> {all_losses[-1]:.4f}; hand-written "
+          f"kernel launches on the path {train_hand} (none lies on it)")
+    print(f"training SSD-300 through ParallelTrainStep: {imgs_per_s:.1f} "
+          f"img/s over {SSD_TIMED} steps (wall {wall:.3f} s), step median "
+          f"{median:.2f} ms (host clock to a fetched loss), device "
+          f"{device_ms:.2f} ms/step, busy share {device_ms / median:.3f}, "
+          f"{device_ops:.0f} device operations a step, peak device memory "
+          f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB of it held before "
+          f"the phase) on {smi}")
+    if not np.isfinite(all_losses).all() or \
+            all_losses[-5:].mean() >= all_losses[:2].mean():
+        raise SystemExit(f"FAIL: SSD-300 losses not finite or not falling: "
+                         f"{all_losses}")
+    if any(train_hand.values()):
+        raise SystemExit(f"FAIL: a hand-written kernel ran on the SSD path: "
+                         f"{train_hand}")
+
+    # (c) detect() at full width, 32 images, from the trained weights
+    fa.launches = fa.launches_dq = fa.launches_dkv = fc.launches = 0
+    rtc.launches = 0
+    net = step._block.eval()
+    x32 = batches[0][0]
+    rows = net.detect(x32, **SSD_DETECT)
+    k_rows, kept = contrib.nms_rows, int((rows[..., 0] >= 0).sum().item())
+    n_anchors = rows.shape[1]
+    detect_ms = host_ms(lambda: net.detect(x32, **SSD_DETECT))
+    with torch.no_grad():
+        anchors, cls_preds, loc_preds = net(x32)
+        prob = ops.softmax(cls_preds, axis=1)
+    nms_ms = host_ms(lambda: contrib.multibox_detection(
+        prob, loc_preds, anchors, **SSD_DETECT))
+    detect_hand = {"K1": fa.launches, "K2": fa.launches_dq,
+                   "K3": fa.launches_dkv, "K4": fc.launches,
+                   "K5": rtc.launches}
+    print(f"SSD-300 detect() on {SSD_BATCH} images at 300 x 300 (f32, "
+          f"threshold 0.01, NMS 0.45, top 400): {detect_ms:.2f} ms (host "
+          f"clock to the synchronized rows), MultiBoxDetection alone "
+          f"{nms_ms:.2f} ms = {nms_ms / detect_ms:.3f} of it; the NMS loop "
+          f"ran over K = {k_rows} of {n_anchors} sorted rows (one host sync), "
+          f"{kept} rows kept; hand-written kernel launches {detect_hand} on "
+          f"{smi}")
+    if not (rows.shape == (SSD_BATCH, SSD_ANCHORS, 6) and kept
+            and torch.isfinite(rows).all()) or any(detect_hand.values()):
+        raise SystemExit("FAIL: SSD-300 detect() rows")
+    del step, net, batches, imgs_d, labels_d, rows
+
+    # (d) accuracy
+    mean_ap = ssd_accuracy(seed, smi)
+    hand = {k: train_hand[k] + detect_hand[k] for k in train_hand}
+    return {"hand": hand, "img_per_s": imgs_per_s, "step_ms": median,
+            "device_ms": device_ms, "busy_share": device_ms / median,
+            "device_ops": device_ops, "peak_bytes": peak, "held_bytes": held,
+            "detect_ms": detect_ms, "nms_ms": nms_ms, "nms_rows": k_rows,
+            "kept": kept, "map": mean_ap}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2447,6 +2705,7 @@ def main(argv=None) -> int:
     gen = phase_generate(args.seed, smi)
     glu = phase_gluon(args.seed, smi)
     lm = phase_ops_rnn(args.seed, smi)
+    det = phase_ssd(args.seed, smi)
     r, tr = record["serving", torch.bfloat16], record["training", torch.bfloat16]
     pallas = "mxnet_tpu/ops/pallas/flash_attention.py"
     kernels = [
@@ -2455,14 +2714,14 @@ def main(argv=None) -> int:
          "replaces": f"{pallas}:213",
          "launches": serve_launches + train_launches["flash_attention_fwd"]
          + gen["launches"] + glu["launches"]["flash_attention_fwd"]
-         + lm["k1_op_surface"] + lm["hand"]["K1"],
+         + lm["k1_op_surface"] + lm["hand"]["K1"] + det["hand"]["K1"],
          "launches_by_path": {
              "serving": serve_launches,
              "training": train_launches["flash_attention_fwd"],
              "generate": gen["launches"],
              "gluon_training": glu["launches"]["flash_attention_fwd"],
              "nd_op_surface": lm["k1_op_surface"],
-             "lstm_lm": lm["hand"]["K1"]},
+             "lstm_lm": lm["hand"]["K1"], "ssd": det["hand"]["K1"]},
          "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"],
                             gen["k1_max_abs_err"]),
          "ms": r["ms"], "ms_strided": r["ms_strided"],
@@ -2492,11 +2751,11 @@ def main(argv=None) -> int:
             "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"{pallas}:{line}",
             "launches": train_launches[wrapper] + glu["launches"][wrapper]
-            + lm["hand"][k],
+            + lm["hand"][k] + det["hand"][k],
             "launches_by_path": {
                 "training": train_launches[wrapper],
                 "gluon_training": glu["launches"][wrapper],
-                "lstm_lm": lm["hand"][k]},
+                "lstm_lm": lm["hand"][k], "ssd": det["hand"][k]},
             "max_abs_err": bwd[f"{name}_err"], "ms": t[name]["ms"],
             "device_ms": t[name]["device_ms"],
             "plain_ms": t[name]["plain_ms"],
@@ -2522,12 +2781,13 @@ def main(argv=None) -> int:
         "source": "mxnet_tpu_torch/csrc/fused_conv1x1.cu",
         "replaces": "mxnet_tpu/ops/pallas/fused_conv1x1.py:84",
         "launches": resnet["k4_launches"] + resnet["train_launches"]
-        + lm["hand"]["K4"],
+        + lm["hand"]["K4"] + det["hand"]["K4"],
         "launches_by_path": {"resnet50_training":
                              resnet["train_launches"],
                              "resnet50_bottleneck_sites":
                              resnet["k4_launches"],
-                             "lstm_lm": lm["hand"]["K4"]},
+                             "lstm_lm": lm["hand"]["K4"],
+                             "ssd": det["hand"]["K4"]},
         "max_abs_err": k4["max_abs_err"], "ms": s2["ms"],
         "device_ms": s2["device_ms"], "plain_ms": s2["plain_ms"],
         "bound_ms": s2["bound_ms"], "bound_by": s2["bound_by"],
@@ -2548,9 +2808,10 @@ def main(argv=None) -> int:
         "kernel_sources": sorted(f"mxnet_tpu_torch/csrc/rtc/{f}"
                                  for f in set(rx.SOURCES.values())),
         "replaces": "mxnet_tpu/rtc.py:64",
-        "launches": k5["launches"] + lm["hand"]["K5"],
+        "launches": k5["launches"] + lm["hand"]["K5"] + det["hand"]["K5"],
         "launches_by_path": {"rtc": k5["launches"],
-                             "lstm_lm": lm["hand"]["K5"]},
+                             "lstm_lm": lm["hand"]["K5"],
+                             "ssd": det["hand"]["K5"]},
         "max_abs_err": max(v["max_abs_err"]
                            for v in k5["by_kernel"].values()),
         "ms": head["ms"], "device_ms": head["device_ms"],

@@ -96,12 +96,15 @@ def params_from_jax(named: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """State dict (CPU tensors, the arrays' own dtypes) from a JAX-package
     parameter dict: a BERTModel's, BERTForPretraining's, TransformerLM's or
     LSTMLanguageModel's ``_collect_params_with_prefix()`` names, or a
-    ResNetV1's
+    ResNetV1's or an SSD's (``ssd_300_vgg16``, ``ssd_96_tiny``)
     ``collect_params()`` names. Raises MXNetError unless the names and
     shapes are exactly those of one such model."""
     if _is_resnet_names(named):
         from .vision import resnet
         return resnet.state_from_jax(named)
+    from .vision import ssd
+    if named and all(ssd._SCOPE.match(k) for k in named):
+        return ssd.state_from_jax(named)
     if "lstm.parameters" in named:
         from . import lstm_lm
         return lstm_lm.state_from_jax(named)

@@ -3,10 +3,11 @@
 function per registered op, generated from the registry
 (``ops/registry.py``: arrays positionally, attributes by keyword) as the
 JAX package generates its own, beside the same hand-written wrappers
-(variadic ops, BatchNorm's moving-stat write-back, Dropout's training
+(variadic ops, the BatchNorms' moving-stat write-back, Dropout's training
 flag, the sequence ops' optional lengths, RNN's optional cell state) and
-CamelCase legacy aliases. ``random`` holds the samplers, ``utils``
-``save``/``load`` of the ``.params`` format.
+CamelCase legacy aliases. ``random`` holds the samplers, ``contrib`` the
+control flow and the contrib ops without their ``_contrib_`` prefix,
+``utils`` ``save``/``load`` of the ``.params`` format.
 
 Arrays are made on ``ctx`` when given, else on :func:`current_context`,
 which is ``gpu(0)`` unless the caller enters ``cpu()``.
@@ -142,6 +143,14 @@ def BatchNorm_v1(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                          momentum=momentum, fix_gamma=fix_gamma, axis=axis)
 
 
+def BatchNormWithReLU(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
+                      momentum=0.9, fix_gamma=True, use_global_stats=False,
+                      axis=1, **kwargs):
+    return _bn_writeback("BatchNormWithReLU", data, gamma, beta, moving_mean,
+                         moving_var, use_global_stats, eps=eps,
+                         momentum=momentum, fix_gamma=fix_gamma, axis=axis)
+
+
 def Dropout(data, p=0.5, mode="training", axes=(), **kwargs):
     """Dropout while ``autograd.is_training()`` (or ``mode="always"``),
     drawing from the data's context's generator; else the identity."""
@@ -271,6 +280,7 @@ def _install_wrappers():
 _install_wrappers()
 
 from . import random  # noqa: E402  (nd.random namespace)
+from . import contrib  # noqa: E402  (nd.contrib namespace)
 
 # the array-parameter samplers at nd level too, as in the reference
 sample_uniform = random.sample_uniform

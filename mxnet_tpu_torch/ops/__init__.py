@@ -1,11 +1,12 @@
 """Operators of the port: the registry (``registry``), the op families
-registered in it (``elemwise``, ``tensor``, ``nn``, ``random_ops``) as
+registered in it (``elemwise``, ``tensor``, ``nn``, ``random_ops``,
+``contrib``) as
 plain PyTorch functions, and the hand-written CUDA kernels with their
 wrappers (``cuda``). Importing the package registers every op."""
 from . import registry
-from . import elemwise, tensor, nn, random_ops  # noqa: E402  (register)
+from . import elemwise, tensor, nn, random_ops, contrib  # noqa: E402
 from . import cuda
 from .registry import apply_op, get_op, list_ops, register
 
-__all__ = ["cuda", "elemwise", "nn", "random_ops", "registry", "tensor",
+__all__ = ["contrib", "cuda", "elemwise", "nn", "random_ops", "registry", "tensor",
            "apply_op", "get_op", "list_ops", "register"]

@@ -759,6 +759,109 @@ def multi_head_attention(q, k, v, mask=None, *, heads: int = 1,
     return out.transpose(1, 2).reshape(N, Lq, heads * D)
 
 
+@register("flash_attention")
+def flash_attention_op(q, k, v, *, causal=False, sm_scale=None, block_q=None,
+                       block_k=None, interpret=None):
+    """The registry op over (B, H, S, D): :func:`flash_attention`, which
+    runs the hand-written K1 forward (K2 + K3 backward) on a CUDA tensor
+    and their plain versions on a CPU one; Lq != Lk and head dims other than
+    32, 64 and 128 take the dense path on every device. The reference's
+    Pallas tiling (``block_q``, ``block_k``) and its ``interpret`` switch
+    are accepted and ignored: the kernels choose their own tiles."""
+    return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+
+
+register("single_query_attention")(single_query_attention)
+
+
+# ---------------------------------------------------------------------------
+# spatial transformer family (spatial_transformer.cc, grid_generator.cc,
+# bilinear_sampler.cc) and the correlation layer (correlation.cc)
+# ---------------------------------------------------------------------------
+@register("GridGenerator")
+def grid_generator(data, *, transform_type="affine", target_shape=(0, 0)):
+    """A sampling grid (N, 2, H, W) of (x, y) in [-1, 1]: "affine" maps the
+    identity grid of ``target_shape`` by data's (N, 6) matrices; "warp"
+    adds data's (N, 2, H, W) pixel flow, normalized, to the identity."""
+    h, w = target_shape
+    if transform_type == "affine":
+        if h <= 0 or w <= 0:
+            raise ValueError("GridGenerator(affine) requires a positive "
+                             f"target_shape, got {target_shape}")
+        n = data.shape[0]
+        theta = data.reshape(n, 2, 3).float()
+        gy, gx = torch.meshgrid(
+            torch.linspace(-1.0, 1.0, h, device=data.device),
+            torch.linspace(-1.0, 1.0, w, device=data.device), indexing="ij")
+        base = torch.stack([gx.reshape(-1), gy.reshape(-1),
+                            torch.ones_like(gx).reshape(-1)])   # (3, H*W)
+        out = torch.einsum("nij,jp->nip", theta, base)
+        return out.reshape(n, 2, h, w).to(data.dtype)
+    if transform_type == "warp":
+        _, _, fh, fw = data.shape
+        gy, gx = torch.meshgrid(
+            torch.linspace(-1.0, 1.0, fh, device=data.device),
+            torch.linspace(-1.0, 1.0, fw, device=data.device), indexing="ij")
+        norm = torch.stack([data[:, 0] * 2.0 / max(fw - 1, 1),
+                            data[:, 1] * 2.0 / max(fh - 1, 1)], dim=1)
+        return (torch.stack([gx, gy])[None] + norm).to(data.dtype)
+    raise ValueError(f"GridGenerator: unknown transform_type "
+                     f"{transform_type!r}")
+
+
+@register("BilinearSampler")
+def bilinear_sampler(data, grid, *, cudnn_off=False):
+    """data (N, C, H, W) sampled at grid (N, 2, OH, OW) of normalized
+    (x, y) in [-1, 1], each corner zero outside the image."""
+    from .contrib import bilinear_sample_nchw
+    n, c, h, w = data.shape
+    oh, ow = grid.shape[2], grid.shape[3]
+    px = (grid[:, 0] + 1.0) * (w - 1) / 2.0
+    py = (grid[:, 1] + 1.0) * (h - 1) / 2.0
+    got = bilinear_sample_nchw(data.float(), py.reshape(n, -1).float(),
+                               px.reshape(n, -1).float())
+    return got.reshape(n, oh, ow, c).permute(0, 3, 1, 2).to(data.dtype)
+
+
+@register("SpatialTransformer")
+def spatial_transformer(data, loc, *, target_shape=(0, 0),
+                        transform_type="affine", sampler_type="bilinear",
+                        cudnn_off=False):
+    """The spatial transformer head: a grid from the localization output,
+    then bilinear sampling."""
+    if sampler_type != "bilinear":
+        raise ValueError("SpatialTransformer: only sampler_type='bilinear' "
+                         f"is supported (got {sampler_type!r})")
+    grid = grid_generator(loc, transform_type=transform_type,
+                          target_shape=tuple(target_shape))
+    return bilinear_sampler(data, grid)
+
+
+@register("Correlation")
+def correlation(data1, data2, *, kernel_size=1, max_displacement=1,
+                stride1=1, stride2=1, pad_size=0, is_multiply=True):
+    """FlowNet's correlation: for each displacement (dy, dx) of a
+    (2 max_displacement / stride2 + 1)^2 grid, the product (or absolute
+    difference) of the padded maps summed over channels and a
+    kernel_size^2 window (stride1), over kernel_size^2 C."""
+    b, c, h, w = data1.shape
+    md = max_displacement
+    p = pad_size
+    f1 = F.pad(data1.float(), (p, p, p, p))
+    f2 = F.pad(data2.float(), (p + md,) * 4)
+    hp, wp = h + 2 * p, w + 2 * p
+    maps = []
+    for dy in range(-md, md + 1, stride2):
+        for dx in range(-md, md + 1, stride2):
+            shifted = f2[:, :, md + dy:md + dy + hp, md + dx:md + dx + wp]
+            m = f1 * shifted if is_multiply else (f1 - shifted).abs()
+            maps.append(m.sum(dim=1))
+    core = torch.stack(maps, dim=1)[:, :, md:hp - md, md:wp - md]
+    k = kernel_size
+    summed = core.unfold(2, k, stride1).unfold(3, k, stride1).sum((-1, -2))
+    return (summed / float(k * k * c)).to(data1.dtype)
+
+
 # ---------------------------------------------------------------------------
 # CTC loss (nn/ctc_loss.cc)
 # ---------------------------------------------------------------------------

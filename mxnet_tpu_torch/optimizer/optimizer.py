@@ -154,7 +154,7 @@ class Optimizer:
     def _count(self, index):
         """The update count handed to the rule: an f32 scalar, as the
         reference's ``update`` hands it (so ``beta ** t`` rounds as it
-        does there; ``ParallelTrainStep`` hands the int)."""
+        does there; ``ParallelTrainStep`` hands the same)."""
         return np.float32(self._index_update_count[index])
 
     def _preprocess_grad(self, g):

@@ -4,7 +4,10 @@
 One ``step()`` does one iteration of the training loop: forward of the
 block, the loss (mean of the loss block's output, in f32), its gradient,
 then ``rescale_grad``, gradient clipping and the optimizer's rule for every
-parameter, with the update count ``t`` advanced once per step. The JAX
+parameter, with the update count ``t`` advanced once per step and handed
+to the rule as an f32 scalar, as the reference hands it (so Adam's bias
+correction ``beta ** t`` rounds in f32 there and here, as in the port's
+``Trainer``). The JAX
 package compiles this into one XLA program per step (and a ``lax.scan`` of
 it for ``step_n``); PyTorch runs it eagerly, so ``step_n`` is a loop of the
 same step and equals K ``step()`` calls exactly.
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
 from ..base import DTypes, MXNetError
@@ -116,7 +120,9 @@ class ParallelTrainStep:
                                               (x,) + tuple(extras))
         outs = outs if isinstance(outs, (tuple, list)) else (outs,)
         labels = y if isinstance(y, (tuple, list)) else (y,)
-        return self._loss(*outs, *labels).float().mean()
+        # the range lets tools/step_profile.py attribute the loss's kernels
+        with torch.profiler.record_function("mxt.loss"):
+            return self._loss(*outs, *labels).float().mean()
 
     def _step_impl(self, x, y, extras):
         if len(extras) != self._n_extras:
@@ -137,7 +143,8 @@ class ParallelTrainStep:
                 g = g * opt.rescale_grad
                 if opt.clip_gradient is not None:
                     g = g.clamp(-opt.clip_gradient, opt.clip_gradient)
-                opt._rule(w, g, s, opt._get_lr(i), opt._get_wd(i), self._t)
+                opt._rule(w, g, s, opt._get_lr(i), opt._get_wd(i),
+                          np.float32(self._t))
         return loss.detach()
 
     def step(self, x, y, *extras):

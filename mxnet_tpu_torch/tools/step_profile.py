@@ -1,8 +1,10 @@
-"""Where the time of one BERT-base or ResNet-50 step goes on the card.
+"""Where the time of one BERT-base, ResNet-50 or SSD-300 step goes on the
+card.
 
     python3 -m mxnet_tpu_torch.tools.step_profile [--bucket 32] [--seed 0]
     python3 -m mxnet_tpu_torch.tools.step_profile --train [--seed 0]
     python3 -m mxnet_tpu_torch.tools.step_profile --resnet [--seed 0]
+    python3 -m mxnet_tpu_torch.tools.step_profile --ssd [--seed 0]
 
 Serving (default): builds ``bert_base()`` in bf16 with seeded random weights
 on ``gpu(0)`` and runs the endpoint's forward at one batch bucket of
@@ -12,6 +14,14 @@ on ``gpu(0)`` and runs the endpoint's forward at one batch bucket of
 max_length=128))`` through ``ParallelTrainStep`` (bf16 compute over f32
 masters, Adam, dropout 0.1) at batch 64 x 128 with 19 masked positions, the
 step ``chip_smoke.py`` phase 4 runs.
+
+``--ssd``: one training step of ``ssd_300_vgg16(classes=3)`` through
+``ParallelTrainStep`` (bf16 compute over f32 masters, Adam lr 1e-3,
+``SSDMultiBoxLoss``) at batch 32 x 3 x 300 x 300 of
+``get_shapes_detection`` images, the step ``chip_smoke.py`` phase 10
+runs, grouped as ``--resnet``'s, with the loss's forward (the kernels
+under the train step's ``mxt.loss`` range: MultiBoxTarget, the mined
+cross-entropy, smooth L1) a class of its own.
 
 ``--resnet``: one training step of ``resnet50_v1(classes=1000)`` through
 ``ParallelTrainStep`` (bf16 compute over f32 masters, SGD with momentum 0.9,
@@ -61,6 +71,7 @@ _KERNELS = (("flash_bwd_dq", "K2 flash_attention_bwd_dq"),
             ("flash_bwd_dkv", "K3 flash_attention_bwd_dkv"),
             ("flash_fwd", "K1 flash_attention_fwd"))
 _OPTIMIZER_RANGE = "mxt.optimizer"
+_LOSS_RANGE = "mxt.loss"
 _LAYOUT_OPS = ("aten::contiguous", "aten::reshape")
 _ATTENTION_BACKWARD = "FlashAttentionBackward"
 
@@ -76,6 +87,10 @@ _RESNET_OPS = (
     ("pooling and loss", lambda n: any(
         m in n for m in ("max_pool2d", "log_softmax", "gather"))))
 _RESNET_OTHER = "other: BatchNorm/ReLU elementwise, reductions, casts"
+_SSD_OPS = _RESNET_OPS[:2] + (
+    ("max pooling", lambda n: "max_pool2d" in n),)
+_SSD_OTHER = ("other: ReLU, L2Normalization, the heads' reorders, casts, "
+              "the loss's backward")
 
 
 def _category(name: str) -> str:
@@ -187,6 +202,34 @@ def _resnet_step(args):
     return step, float(np.median(times)), desc, {"batch": batch}
 
 
+def _ssd_step(args):
+    from .. import gpu, init, random
+    from ..gluon.model_zoo.vision import ssd
+    from ..optimizer import Adam
+    from ..parallel import ParallelTrainStep, make_mesh
+    from ..test_utils import get_shapes_detection
+
+    batch = 32
+    x, y = get_shapes_detection(batch, size=300, seed=args.seed)
+    random.seed(args.seed)
+    with gpu(0):
+        net = ssd.ssd_300_vgg16(classes=3)
+        net.initialize(init.Xavier())
+    ts = ParallelTrainStep(net, ssd.SSDMultiBoxLoss(),
+                           Adam(learning_rate=1e-3), make_mesh({"dp": 1}),
+                           compute_dtype="bfloat16")
+    xs, ys = ts.place_batch_n(x[None], y[None])
+    x, y = xs[0], ys[0]
+
+    def step():
+        return ts(x, y)
+
+    times = _host_times(step)
+    desc = (f"ssd_300_vgg16 bf16 training step, batch {batch} x 3 x 300 x "
+            f"300, Adam")
+    return step, float(np.median(times)), desc, {"batch": batch}
+
+
 def _host_times(step, warmup: int = 3, reps: int = 10):
     """Host-clock ms of ``reps`` steps, each closed by fetching its loss,
     after ``warmup`` untimed ones."""
@@ -209,6 +252,8 @@ def main(argv=None) -> int:
                       help="profile one BERT pretraining step")
     mode.add_argument("--resnet", action="store_true",
                       help="profile one ResNet-50 training step")
+    mode.add_argument("--ssd", action="store_true",
+                      help="profile one SSD-300 training step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("step_profile: no CUDA device", file=sys.stderr)
@@ -219,8 +264,9 @@ def main(argv=None) -> int:
     from ..ops.cuda import flash_attention as fa
 
     smi = card()
-    training = args.train or args.resnet
+    training = args.train or args.resnet or args.ssd
     step, step_ms, desc, shape = (_resnet_step if args.resnet else
+                                  _ssd_step if args.ssd else
                                   _train_step if args.train
                                   else _serving_step)(args)
 
@@ -233,17 +279,21 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     launches = [(b - a) / n_steps for a, b in
                 zip(counts0, (fa.launches, fa.launches_dq, fa.launches_dkv))]
-    # the optimizer's range also appears on the device timeline, as an
-    # annotation spanning its kernels: keep it out of the kernel sums
+    # the optimizer's and the loss's ranges also appear on the device
+    # timeline, as annotations spanning their kernels: keep them out of the
+    # kernel sums
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0
-               and e.key != _OPTIMIZER_RANGE]
+               and e.key not in (_OPTIMIZER_RANGE, _LOSS_RANGE)]
     events = prof.events()
-    if args.resnet:
+    if args.resnet or args.ssd:
         by_cat = {c: _kernels_under(events, match)[1]
-                  for c, match in _RESNET_OPS}
-        other = _RESNET_OTHER
+                  for c, match in (_SSD_OPS if args.ssd else _RESNET_OPS)}
+        other = _SSD_OTHER if args.ssd else _RESNET_OTHER
+        if args.ssd:
+            by_cat["loss forward (under mxt.loss)"] = _range_ms(
+                events, _LOSS_RANGE)[0]
         by_cat[other] = sum(e.self_device_time_total for e in kernels) \
             / 1e3 - sum(by_cat.values())
     else:
@@ -267,7 +317,7 @@ def main(argv=None) -> int:
     if training:
         per_step["device idle"] = max(0.0, step_ms - device_ms)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[
-        :25 if args.resnet else 12]
+        :25 if args.resnet or args.ssd else 12]
     print(f"card: {smi}")
     print(f"{desc}: step {step_ms:.3f} ms (median of 10); profiled device "
           f"time {device_ms:.3f} ms/step, busy share "
@@ -290,7 +340,7 @@ def main(argv=None) -> int:
         print(f"  top: {e.self_device_time_total / 1e3 / n_steps:8.3f} "
               f"ms/step  x{e.count // n_steps:<4d} {e.key[:90]}")
     result = {"card": smi, "mode": "resnet" if args.resnet else
-              "train" if args.train else "serve",
+              "ssd" if args.ssd else "train" if args.train else "serve",
               **shape, "step_ms": step_ms, "device_ms": device_ms,
               "busy_share": device_ms / step_ms,
               "ms_per_step": per_step,

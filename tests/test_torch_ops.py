@@ -1,6 +1,7 @@
 """The port's operator registry and ``nd`` surface (mxnet_tpu_torch) against
 the JAX package's (mxnet_tpu), both on the CPU: one case per registered op
-of ``mxnet_tpu/ops/{elemwise,tensor,nn}.py`` (the samplers of
+of ``mxnet_tpu/ops/{elemwise,tensor,nn,contrib}.py`` and the two registry
+ops of ``mxnet_tpu/ops/pallas/flash_attention.py`` (the samplers of
 ``random_ops.py`` are held to their moments in test_torch_random_ops.py)
 and a coverage test over the reference's registry; the edge matrices of
 tests/test_operator_edges.py are in test_torch_ops_edges.py.
@@ -34,10 +35,9 @@ torch.set_num_threads(2)
 # runs at reduced precision; one parallel op primes the pool first.
 torch.exp(torch.zeros(1 << 18))
 
-# not ported in this slice (ROADMAP Queue 1): the spatial transformer and
-# correlation family, and SparseEmbedding with the sparse slice
-DEFERRED = {"GridGenerator", "BilinearSampler", "SpatialTransformer",
-            "Correlation", "_contrib_SparseEmbedding"}
+# not ported yet (ROADMAP Queue 1): SyncBatchNorm with the multi-GPU
+# slice, SparseEmbedding with the sparse slice
+DEFERRED = {"SyncBatchNorm", "_contrib_SparseEmbedding"}
 # held to their moments and determinism in test_torch_random_ops.py
 SAMPLERS = {
     "_random_uniform", "_random_normal", "_random_gamma",
@@ -58,7 +58,8 @@ _ND_RANDOM = {"_random_uniform": "uniform", "_random_normal": "normal",
               "_random_randint": "randint", "_random_bernoulli": "bernoulli",
               "_random_dirichlet": "dirichlet", "_shuffle": "shuffle"}
 FAMILIES = ("mxnet_tpu.ops.elemwise", "mxnet_tpu.ops.tensor",
-            "mxnet_tpu.ops.nn", "mxnet_tpu.ops.random_ops")
+            "mxnet_tpu.ops.nn", "mxnet_tpu.ops.random_ops",
+            "mxnet_tpu.ops.contrib", "mxnet_tpu.ops.pallas.flash_attention")
 
 def _run(case, tol, ref_nd=None):
     ref = case(ref_nd or mx.nd, mx.cpu())
@@ -153,7 +154,7 @@ def _reference_ops():
 
 
 def test_every_reference_op_is_ported_or_named_deferred():
-    """Every op of the reference's four families is in the port's registry
+    """Every op of the reference's six families is in the port's registry
     and reachable from ``mt.nd`` (the samplers through ``nd.random``), and
     has a parity case here or a sampler test, except the named deferred
     list."""

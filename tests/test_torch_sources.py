@@ -228,23 +228,53 @@ def test_ops_slice_modules_are_guarded(module):
 
 _SAMPLING_CALLS = {"rand", "randn", "randint", "randperm", "multinomial",
                    "poisson", "_standard_gamma", "exponential_",
-                   "bernoulli", "normal_", "uniform_"}
+                   "bernoulli", "normal_", "uniform_",
+                   # numpy's
+                   "choice", "uniform", "normal", "permutation", "shuffle",
+                   "random_sample"}
+
+
+def _random_states(tree):
+    """Names bound to a ``RandomState(seed)`` in a module."""
+    return {t.id for node in ast.walk(tree) if isinstance(node, ast.Assign)
+            and isinstance(node.value, ast.Call)
+            and getattr(node.value.func, "attr", None) == "RandomState"
+            for t in node.targets if isinstance(t, ast.Name)}
+
+
+CONTRIB_SLICE_MODULES = ["ops/contrib.py", "ndarray/contrib.py",
+                         "gluon/model_zoo/vision/ssd.py", "test_utils.py"]
 
 
 @pytest.mark.parametrize("module", ["ops/random_ops.py", "ops/nn.py",
                                     "ops/tensor.py", "ops/elemwise.py",
                                     "gluon/nn/basic_layers.py",
-                                    "gluon/rnn/rnn_cell.py"])
+                                    "gluon/rnn/rnn_cell.py"]
+                         + CONTRIB_SLICE_MODULES)
 def test_every_draw_names_its_generator(module):
-    """Every sampling call in the op and layer modules passes
-    ``generator=``: draws come from ``random.generator(ctx)``, never from
-    PyTorch's global generator."""
-    for node in ast.walk(_tree(PKG / module)):
+    """Every sampling call in the op, layer and data modules names its
+    generator: a torch draw passes ``generator=`` (draws come from
+    ``random.generator(ctx)``, never from PyTorch's global generator), a
+    numpy draw is a method of a ``RandomState(seed)`` the module made
+    (never numpy's global state)."""
+    tree = _tree(PKG / module)
+    states = _random_states(tree)
+    for node in ast.walk(tree):
         if isinstance(node, ast.Call) and isinstance(node.func,
                                                      ast.Attribute) \
                 and node.func.attr in _SAMPLING_CALLS:
-            assert any(k.arg == "generator" for k in node.keywords), \
+            recv = node.func.value
+            assert any(k.arg == "generator" for k in node.keywords) or (
+                isinstance(recv, ast.Name) and recv.id in states), \
                 f"{module}:{node.lineno}: {node.func.attr} without generator"
+
+
+@pytest.mark.parametrize("module", CONTRIB_SLICE_MODULES)
+def test_contrib_slice_modules_are_guarded(module):
+    """The contrib ops, ``nd.contrib``, the SSD model and the detection
+    data are among the files the import guards read."""
+    assert PKG / module in PORT_FILES
+    test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
 
 
 def test_rtc_counts_launches_in_cuda_kernel_launch_alone():

@@ -218,6 +218,54 @@ def test_pretraining_steps_bf16_within_band(named, batches):
         onp.percentile(diff, 99) / LR
 
 
+def test_train_step_adam_equals_the_trainer_bitwise_in_bf16(named, batches):
+    """ParallelTrainStep hands Adam its update count as an f32 scalar, as
+    the reference's step and the port's Trainer do (ROADMAP F3: with the
+    int count the bias correction rounds in f64, and three bf16 steps
+    drift lr apart). Three bf16 steps through ParallelTrainStep
+    (compute_dtype) and through gluon.Trainer (a bf16 net with
+    multi_precision), from the same bf16-exact weights and batches, give
+    bitwise-equal f32 masters."""
+    from mxnet_tpu_torch import autograd, gluon
+    toks, tt, pos, mlm, nsp = batches
+    exact = {k: torch.from_numpy(v).bfloat16().float().numpy()
+             for k, v in named.items()}
+    step = parallel.ParallelTrainStep(
+        PretrainStep(_port_model(exact)), bert.BERTPretrainingLoss(),
+        optimizer.Adam(learning_rate=LR, wd=WD),
+        parallel.make_mesh({"dp": 1}, ctx=mt.cpu()),
+        compute_dtype="bfloat16", extra_specs=("dp", "dp"))
+    p_losses = [step(toks[i], (mlm[i], nsp[i]), tt[i], pos[i]).item()
+                for i in range(K)]
+    p_masters = {k[len("inner."):]: v for k, v in step.params.items()}
+
+    net = _port_model(exact)
+    net.cast("bfloat16")
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": LR, "wd": WD,
+                             "multi_precision": True})
+    loss_fn = bert.BERTPretrainingLoss()
+    g_losses = []
+    for i in range(K):
+        a = [mt.nd.array(v[i], ctx=mt.cpu(), dtype="int32")
+             for v in (toks, tt, pos, mlm, nsp)]
+        with autograd.record():
+            loss = loss_fn(*net(a[0], a[1], None, a[2]), a[3], a[4])
+        loss.backward()
+        trainer.step(1)
+        g_losses.append(float(loss.asscalar()))
+    keys = {id(p): k for k, p in net._collect_params_with_prefix().items()}
+    g_masters = {keys[id(p)]: trainer._updaters.states[i][0]
+                 for i, p in enumerate(trainer._params)}
+    assert g_losses == p_losses
+    assert set(g_masters) == set(p_masters) == set(named)
+    for k, v in p_masters.items():
+        assert g_masters[k].dtype == v.dtype == torch.float32, k
+        assert torch.equal(g_masters[k], v), k
+    assert all(not torch.equal(v, torch.from_numpy(exact[k]))
+               for k, v in p_masters.items())
+
+
 def test_pretraining_forward_and_loss_match_jax(named, batches):
     toks, tt, pos, mlm, nsp = (a[0] for a in batches)
     jm = _jax_model(named)
