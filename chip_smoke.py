@@ -264,7 +264,49 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    through ``gluon.Trainer`` on 96 images at 96 x 96 (seed 0), VOC07
    mAP@0.5 on 32 held-out images (seed 99) at least 0.6, the last loss
    under a quarter of the first.
-11. A JSON line with the kernels' numbers, then the last line
+11. AMP, on ``gpu(0)``: (a) F4's fp16 instances of K1, K2 and K3, each
+   against its plain version (outputs within 2.5e-3 x max(1, max|plain|):
+   bf16's 2e-2 times 2^-11 / 2^-8) at the serving and training shapes and
+   at causal, D = 32 and D = 128 cases, on split QKV views; at the two
+   timed shapes each from CUDA graphs beside its plain version, its bound
+   and SDPA's fp16 forward and backward. (b) The main path under
+   ``amp.init("bfloat16")``: ``BERTForPretraining(bert_base(max_length=
+   128))``, ``initialize(Normal(0.02))`` (f32 parameters),
+   ``Trainer("adam", lr 1e-4)``, dropout 0.1, one fixed batch 64 x 128,
+   P = 19, ``PretrainLoss``: 2 warm-up steps, 10 in a window closed by
+   one fetch (tokens/s), 10 each closed by a fetch (median ms). Checks:
+   losses finite and falling; K1, K2 and K3 each launched 12 times a
+   step, K4 and K5 never. Prints tokens/s, the step's median ms, device ms
+   and busy share, peak memory. (c) The same under
+   ``amp.init("float16")`` with ``amp.init_trainer``: each step
+   ``scale_loss``, ``backward``, ``unscale``, ``launch_check_overflow``
+   and ``wait_and_update``, then ``step`` unless skipped; prints the
+   final scale and the skipped steps; then one step with a gradient set
+   to inf must be skipped, the weights untouched and the scale halved.
+   AMP is turned off after each. (d) Three AMP-fp16 Adam steps (lr 1e-3,
+   the loss scaler from 2^10) of a small BERT (2 layers, units 64, D = 32: K1-K3 on the
+   card) on the card and on the CPU from the same seeded weights and
+   batches: the same skipped steps (not all), losses within 5e-3
+   relative, f32 masters within 0.1 lr on average and 0.5 lr at the 99th
+   percentile (the bf16 band of tests/test_torch_train.py: rounding flips
+   the sign of near-zero gradients, and one Adam step moves a weight by
+   about lr). (e) The 35 optimizer ops are op cases of phase 9(a).
+12. Row-sparse gradients, on ``gpu(0)``: (a) the main path: the LM of the
+   reference's sparse-embedding test at PTB-medium width (``SparseLM``:
+   ``Embedding(10000, 650, sparse_grad=True)``, a 2 x 650 LSTM, a Dense
+   decoder), seeded uniform(0.05) weights, batch 20 x BPTT 35 of seeded
+   tokens, lazy Adam (lr 1e-3) through ``gluon.Trainer``: 22 steps as in
+   (b) of phase 11. Checks: the embedding's gradient a
+   ``RowSparseNDArray``; losses finite and within rtol 0.08 (the
+   reference test's bar) of the dense-embedding twin's from the same
+   weights; no hand-written kernel launched. Prints tokens/s, the step's
+   median ms, device ms and busy share, the touched rows per step, peak
+   memory. (b) Five SGD steps (lr 1, no momentum, wd or clipping: lazy ==
+   dense) of both twins: weights within 1e-6 of max(1, |value|) (the card
+   sums the gradient's rows in another order). (c) The sparse functions
+   (storage casts, the three dots, retain, add_n, the row-sparse sum of
+   squares) on the card against the CPU within 1e-5.
+13. A JSON line with the kernels' numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -282,12 +324,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from mxnet_tpu_torch import (MXNetError, autograd, cpu, gluon, gpu, init, nd,
-                             random, rtc, serving)
+from mxnet_tpu_torch import (MXNetError, amp, autograd, cpu, gluon, gpu, init,
+                             nd, random, rtc, serving, sparse)
 from mxnet_tpu_torch.gluon import nn
 from mxnet_tpu_torch.gluon.model_zoo.bert import (
-    BERTForPretraining, BERTPretrainingLoss, TransformerLM, bert_base,
-    load_jax_params)
+    BERTForPretraining, BERTModel, BERTPretrainingLoss, TransformerLM,
+    bert_base, load_jax_params)
 from mxnet_tpu_torch.gluon.model_zoo.lstm_lm import PTB_MEDIUM, ptb_medium
 from mxnet_tpu_torch.gluon.model_zoo.vision import BottleneckV1, resnet50_v1
 from mxnet_tpu_torch.gluon.model_zoo.vision import ssd as ssd_zoo
@@ -310,8 +352,10 @@ from mxnet_tpu_torch.tools.k4_compare import composition as k4_composition
 
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,       # dense tensor cores
+              torch.float16: 989e12,
               torch.float32: 67e12}         # fp32 without the tensor cores
-TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# fp16: bf16's tolerance times 2^-11 / 2^-8 (the two unit roundoffs)
+TOL = {torch.bfloat16: 2e-2, torch.float16: 2.5e-3, torch.float32: 1e-4}
 TIMED_CALLS = 10          # calls between two CUDA events (see median_ms)
 BERT_SHAPE = (32, 12, 512, 64)
 TRAIN_SHAPE = (64, 12, 128, 64)             # BERT-base pretraining, B x H
@@ -350,6 +394,18 @@ SSD_DETECT = dict(threshold=0.01, nms_threshold=0.45, nms_topk=400)
 SSD_CHECK_BATCH, SSD_CHECK_STEPS = 4, 3
 SSD_CHECK_DETECT = dict(threshold=0.2, nms_threshold=0.3, nms_topk=16)
 MAP_STEPS, MAP_BATCH, MAP_LR, MAP_FLOOR = 251, 16, 2e-3, 0.6
+AMP_WARMUP, AMP_TIMED = 2, 10          # 22 steps: warm-up, window, one by one
+# the small BERT of the AMP card-vs-CPU check (D = 32: K1-K3 on the card)
+AMP_SMALL = dict(num_layers=2, units=64, hidden_size=128, num_heads=2,
+                 vocab_size=30522, max_length=TRAIN_SEQ, dropout=0.0)
+AMP_CHECK_BATCH, AMP_CHECK_STEPS, AMP_CHECK_LR = 4, 3, 1e-3
+AMP_LOSS_RTOL = 5e-3       # fp16 compute: sum order in fp16-rounded layers
+# the check's first loss scale: at 2^16 (init_trainer's) this net's fp16
+# backward overflows until the scaler has halved the scale six times
+AMP_CHECK_SCALE = 2.0 ** 10
+SPARSE_WARMUP, SPARSE_TIMED, SPARSE_LR = 2, 10, 1e-3   # lazy Adam
+SPARSE_LOSS_RTOL = 0.08    # tests/test_sparse.py's sparse-vs-dense bar
+SPARSE_SGD_STEPS, SPARSE_SGD_LR, SPARSE_SGD_TOL = 5, 1.0, 1e-6
 # ResNet-50 v1's distinct 1x1 convolutions at batch 128, as the reference's
 # K4 benchmark lists them: (label, M = 128 * H * W, K = Cin, N = Cout)
 K4_SHAPES = [("s2_reduce", 128 * 56 * 56, 64, 64),
@@ -722,6 +778,90 @@ def phase_backward(seed: int, smi: str):
             del q, k, v, do, out, lse, delta, dq, dk, dv, c, cdq, cdelta, \
                 cdk, cdv, want_dq, want_dkv
     check_other_head_dim(gen)
+    return record
+
+
+FP16_SHAPES = [(BERT_SHAPE, False), (TRAIN_SHAPE, False),
+               ((1, 2, 640, 64), True), ((2, 4, 128, 32), False),
+               ((1, 2, 256, 128), True)]
+
+
+def phase_fp16(seed: int, smi: str):
+    """F4: K1, K2 and K3's fp16 instances, each against its plain version
+    (outputs within TOL[fp16] x max(1, max|plain|)) at the serving and
+    training shapes and at causal, D = 32 and D = 128 cases, on the split
+    views of one QKV buffer; at the two timed shapes each kernel from CUDA
+    graphs beside its plain version, its bound and SDPA's fp16 forward and
+    backward."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    dtype = torch.float16
+    record = {"fwd_err": 0.0, "dq_err": 0.0, "dkv_err": 0.0}
+    for shape, causal in FP16_SHAPES:
+        B, H, S, D = shape
+        q, k, v = split_qkv(shape, gen, dtype)
+        do = _randn((B, S, H, D), gen, dtype).transpose(1, 2)
+        scale = D ** -0.5
+        out, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, do, lse, scale,
+                                              causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                            causal)
+        torch.cuda.synchronize()
+        errs = {
+            "fwd": _bwd_errors((out, lse), fa.flash_attention_fwd_reference(
+                q, k, v, scale, causal), dtype),
+            "dq": _bwd_errors((dq, delta), fa.flash_attention_bwd_dq_reference(
+                q, k, v, out, do, lse, scale, causal), dtype),
+            "dkv": _bwd_errors((dk, dv), fa.flash_attention_bwd_dkv_reference(
+                q, k, v, do, lse, delta, scale, causal), dtype)}
+        print(f"fp16 {shape} causal={causal}: " + "; ".join(
+            f"{n} max|d|={max(e):.3g}" for n, (e, _) in errs.items())
+            + f" (tol {TOL[dtype]:g} x max(1, max|plain|))")
+        if not all(ok for _, ok in errs.values()):
+            raise SystemExit(f"FAIL: an fp16 kernel disagrees with its plain "
+                             f"version at {shape} causal={causal}")
+        for n, (e, _) in errs.items():
+            record[f"{n}_err"] = max(record[f"{n}_err"], *e)
+        where = TIMED_SHAPES.get(shape)
+        if where:
+            record[where] = time_fp16(q, k, v, out, lse, delta, do, scale,
+                                      shape, smi)
+        del q, k, v, do, out, lse, dq, delta, dk, dv
+    return record
+
+
+def time_fp16(q, k, v, out, lse, delta, do, scale, shape, smi):
+    """Device ms from CUDA graphs of each fp16 kernel and of SDPA's fp16
+    forward and backward (yardsticks only), the plain versions through
+    CUDA events, and the bounds, at one shape."""
+    calls = {
+        "fwd": (lambda: fa.flash_attention_fwd(q, k, v, scale, False),
+                lambda: fa.flash_attention_fwd_reference(q, k, v, scale,
+                                                         False)),
+        "dq": (lambda: fa.flash_attention_bwd_dq(q, k, v, out, do, lse, scale,
+                                                 False),
+               lambda: fa.flash_attention_bwd_dq_reference(
+                   q, k, v, out, do, lse, scale, False)),
+        "dkv": (lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                   scale, False),
+                lambda: fa.flash_attention_bwd_dkv_reference(
+                    q, k, v, do, lse, delta, scale, False))}
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    lib_fwd = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qc, kc, vc, scale=scale))
+    lib_bwd = _sdpa_bwd_graph_ms(qc, kc, vc, do, scale, False)
+    record = {"library_ms_fwd": lib_fwd, "library_ms_bwd": lib_bwd}
+    line = (f"fp16 times at {shape} on {smi}, ms from CUDA graphs: sdpa "
+            f"forward {lib_fwd:.4f}, backward {lib_bwd:.4f}")
+    for name, (fn, plain_fn) in calls.items():
+        dev = graph_ms(fn)
+        plain = median_ms(plain_fn, reps=10, warmup=2, calls=TIMED_CALLS)
+        bms, by, _, _ = bound_ms(shape, torch.float16, False, name)
+        record[name] = {"device_ms": dev, "plain_ms": plain,
+                        "bound_ms": bms, "bound_by": by}
+        line += (f"\n  {name}: {dev:.4f} ms, plain {plain:.4f} ms, bound "
+                 f"{bms * 1e3:.1f} us ({by}), {bms / dev:.1%} of bound")
+    print(line)
     return record
 
 
@@ -2192,6 +2332,382 @@ def phase_gluon(seed: int, smi: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: AMP on BERT-base through gluon.Trainer
+# ---------------------------------------------------------------------------
+def _grad_params(trainer):
+    return [p for p in trainer._params if p.grad_req != "null"]
+
+
+def amp_step(net, trainer, loss_fn, batch, poison=False):
+    """One AMP step as the reference's API has it: the loss, scaled by
+    the trainer's loss scale (1 without a scaler), ``backward``,
+    ``unscale``, the overflow check launched and read, then
+    ``trainer.step`` unless the step is skipped. ``poison`` sets one
+    gradient to inf first. Returns (per-sample losses, skipped)."""
+    tok, tt, pos, mlm, nsp = batch
+    with autograd.record():
+        loss = loss_fn(*net(tok, tt, None, pos), mlm, nsp)
+        with amp.scale_loss(loss, trainer) as scaled:
+            pass
+    scaled.backward()
+    scaler = getattr(trainer, "_amp_loss_scaler", None)
+    if scaler is None:
+        trainer.step(tok.shape[0])
+        return loss, False
+    amp.unscale(trainer)
+    if poison:
+        g = _grad_params(trainer)[0].grad()
+        g._data = torch.full_like(g._data, float("inf"))
+    scaler.launch_check_overflow(_grad_params(trainer))
+    skipped = scaler.wait_and_update()
+    if not skipped:
+        trainer.step(tok.shape[0])
+    return loss, skipped
+
+
+def amp_main_path(target, batch, smi):
+    """BERT-base (f32 parameters, Normal(0.02), dropout 0.1) trained
+    through gluon.Trainer (Adam) under ``amp.init(target)``, fp16 with the
+    dynamic loss scaler, for AMP_WARMUP + 2 * AMP_TIMED steps on one fixed
+    batch; the kernels' counts from 0 just before, read just after."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts from 0 just before, read just after ----
+    fa.launches = fa.launches_dq = fa.launches_dkv = fc.launches = 0
+    rtc.launches = 0
+    amp.init(target)
+    net = gluon_bert(0.1)
+    net.initialize(init.Normal(0.02))
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": TRAIN_LR})
+    if target == "float16":
+        amp.init_trainer(trainer)
+    loss_fn = PretrainLoss()
+    scaler = getattr(trainer, "_amp_loss_scaler", None)
+    scales = []        # the loss scale after each step
+
+    def step():
+        out.append(amp_step(net, trainer, loss_fn, batch))
+        if scaler is not None:
+            scales.append(scaler.loss_scale)
+
+    out = []
+    for _ in range(AMP_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(AMP_TIMED):
+        step()
+    out[-1][0].asnumpy()                   # the window closes on a fetch
+    wall = time.perf_counter() - t0
+    step_ms = []
+    for _ in range(AMP_TIMED):
+        t1 = time.perf_counter()
+        step()
+        out[-1][0].asnumpy()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    counts = {"flash_attention_fwd": fa.launches,
+              "flash_attention_bwd_dq": fa.launches_dq,
+              "flash_attention_bwd_dkv": fa.launches_dkv}
+    others = {"K4": fc.launches, "K5": rtc.launches}
+    # ---- end of the main path ----
+    peak = torch.cuda.max_memory_allocated()
+    steps = AMP_WARMUP + 2 * AMP_TIMED
+    layers = len(net.backbone.encoder._layers)
+    losses = np.array([l.asnumpy().mean() for l, _ in out])
+    skipped = [i for i, (_, s) in enumerate(out) if s]
+    median = float(np.median(step_ms))
+    device_ms, busy = busy_share(
+        lambda: amp_step(net, trainer, loss_fn, batch), median)
+    tokens = TRAIN_BATCH * TRAIN_SEQ * AMP_TIMED
+    print(f"AMP {target}: BERTForPretraining(bert_base) f32 parameters, "
+          f"Trainer adam, dropout 0.1, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"P={TRAIN_P}, one fixed batch: {steps} steps, losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches {counts} "
+          f"(expected {layers} x {steps} = {layers * steps} each)"
+          + (f"; loss scale after each step {[f'{v:g}' for v in scales]}, "
+             f"skipped steps {skipped}" if scaler else ""))
+    print(f"training bert_base under amp.init({target!r}) S={TRAIN_SEQ}: "
+          f"{tokens / wall:.0f} tokens/s over {AMP_TIMED} steps (wall "
+          f"{wall:.3f} s), step median {median:.2f} ms (host clock to a "
+          f"fetched loss), device {device_ms:.2f} ms/step, busy share "
+          f"{busy:.3f}, peak device memory {peak / 2**30:.2f} GiB on {smi}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise SystemExit(f"FAIL: AMP {target} losses not finite or not "
+                         f"falling: {losses}")
+    if any(n != layers * steps for n in counts.values()) or \
+            any(others.values()):
+        raise SystemExit(f"FAIL: AMP {target}: kernel launches do not match "
+                         f"one per layer per step ({counts}, {others})")
+    record = {"launches": counts, "others": others,
+              "tokens_per_s": tokens / wall,
+              "step_ms": median, "device_ms": device_ms, "busy_share": busy,
+              "peak_gib": peak / 2**30, "losses": losses.tolist(),
+              "skipped": skipped}
+    if scaler is not None:
+        # one forced overflow: the step is skipped, the scale halved
+        before = scaler.loss_scale
+        w = _grad_params(trainer)[0].data().asnumpy()
+        _, forced = amp_step(net, trainer, loss_fn, batch, poison=True)
+        unchanged = np.array_equal(w, _grad_params(trainer)[0].data()
+                                   .asnumpy())
+        print(f"forced overflow (one gradient set to inf): skipped {forced}, "
+              f"loss scale {before:g} -> {scaler.loss_scale:g}, weights "
+              f"unchanged {unchanged}")
+        if not (forced and unchanged and scaler.loss_scale == before / 2):
+            raise SystemExit("FAIL: the forced overflow was not skipped with "
+                             "the scale halved")
+        record.update(scales=scales, forced_skip=forced)
+    amp._AMP_STATE["on"] = False
+    del net, trainer
+    return record
+
+
+def amp_small_steps(named, batches, ctx):
+    """AMP_CHECK_STEPS AMP-fp16 steps (loss scaler from AMP_CHECK_SCALE,
+    Adam) of the small BERT on ``ctx`` from ``named``: the mean losses,
+    the f32 weights and which steps the scaler skipped."""
+    with ctx:
+        amp.init("float16")
+        net = BERTForPretraining(BERTModel(**AMP_SMALL),
+                                 vocab_size=AMP_SMALL["vocab_size"])
+        load_jax_params(net, named, ctx=ctx)
+        trainer = amp.init_trainer(gluon.Trainer(
+            net.collect_params(), "adam", {"learning_rate": AMP_CHECK_LR}))
+        trainer._amp_loss_scaler.loss_scale = AMP_CHECK_SCALE
+        loss_fn = PretrainLoss()
+        losses, skips = [], []
+        for b in batches:
+            loss, skipped = amp_step(
+                net, trainer, loss_fn,
+                [nd.array(a, dtype="int32") for a in b])
+            losses.append(float(loss.asnumpy().mean()))
+            skips.append(skipped)
+        amp._AMP_STATE["on"] = False
+        return np.array(losses), {k: p.data().asnumpy() for k, p in
+                                  net._collect_params_with_prefix().items()
+                                  }, skips
+
+
+def phase_amp(seed: int, smi: str, fp16_record=None):
+    """Phase 11: (a) F4's fp16 kernels (``phase_fp16``, or its record when
+    given); (b) BERT-base under
+    amp.init("bfloat16"); (c) under amp.init("float16") with the loss
+    scaler and one forced overflow; (d) a small BERT's AMP-fp16 steps on
+    the card against the CPU."""
+    if fp16_record is None:
+        fp16_record = phase_fp16(seed, smi)
+    rng = np.random.default_rng(seed + 12)
+    batch = _gluon_batches(rng, 1)[0]
+    bf16 = amp_main_path("bfloat16", batch, smi)
+    fp16 = amp_main_path("float16", batch, smi)
+    # (d) card vs CPU from the same weights and batches
+    probe = BERTForPretraining(BERTModel(**AMP_SMALL),
+                               vocab_size=AMP_SMALL["vocab_size"])
+    # the repo's seeded recipe with BERT's N(0, 0.02^2) embeddings (N(0, 1)
+    # rows make the tied decoder's fp16 gradient overflow at every scale
+    # the scaler starts from)
+    named = {k: v * np.float32(0.02) if "embed" in k else v
+             for k, v in seeded_bert_weights(probe, seed).items()}
+    toks, (mlm, nsp), tt, pos = pretrain_batch(
+        np.random.default_rng(seed + 13), AMP_CHECK_STEPS, AMP_CHECK_BATCH,
+        TRAIN_SEQ, TRAIN_P)
+    batches = [(toks[i], tt[i], pos[i], mlm[i], nsp[i])
+               for i in range(AMP_CHECK_STEPS)]
+    got = amp_small_steps(named, batches, gpu(0))
+    want = amp_small_steps(named, batches, cpu())
+    loss_err = float(np.abs(got[0] - want[0]).max() / np.abs(want[0]).max())
+    keys = sorted(want[1])
+    diff = np.abs(np.concatenate([got[1][k].ravel() for k in keys])
+                  - np.concatenate([want[1][k].ravel() for k in keys]))
+    mean_lr, p99_lr = diff.mean() / AMP_CHECK_LR, \
+        np.percentile(diff, 99) / AMP_CHECK_LR
+    print(f"AMP fp16, small BERT ({AMP_SMALL['num_layers']} layers, units "
+          f"{AMP_SMALL['units']}), {AMP_CHECK_STEPS} Adam steps (lr "
+          f"{AMP_CHECK_LR}, loss scaler) card vs CPU: losses {got[0]} vs "
+          f"{want[0]}, max relative {loss_err:.3g} (tol {AMP_LOSS_RTOL}); "
+          f"skipped steps {got[2]} vs {want[2]}; f32 masters mean |d| "
+          f"{mean_lr:.3g} lr, p99 {p99_lr:.3g} lr (tol 0.1, 0.5)")
+    if not (loss_err <= AMP_LOSS_RTOL and mean_lr <= 0.1 and p99_lr <= 0.5
+            and got[2] == want[2] and not all(got[2])):
+        raise SystemExit("FAIL: AMP fp16 steps on the card disagree with the "
+                         "CPU")
+    return {"fp16": fp16_record, "amp_bf16": bf16, "amp_fp16": fp16}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: row-sparse embedding gradients on the PTB-medium LSTM LM
+# ---------------------------------------------------------------------------
+class SparseLM(gluon.Block):
+    """The LM of the reference's sparse-embedding test at PTB-medium width:
+    Embedding (``sparse_grad``) -> 2-layer LSTM (NTC) -> Dense decoder."""
+
+    def __init__(self, sparse_grad):
+        super().__init__()
+        c = PTB_MEDIUM
+        with self.name_scope():
+            self.embed = nn.Embedding(c["vocab"], c["embed"],
+                                      sparse_grad=sparse_grad)
+            self.lstm = gluon.rnn.LSTM(c["hidden"], num_layers=c["layers"],
+                                       layout="NTC", input_size=c["embed"])
+            self.decoder = nn.Dense(c["vocab"], flatten=False,
+                                    in_units=c["hidden"])
+
+    def forward(self, x):
+        return self.decoder(self.lstm(self.embed(x)))
+
+
+def sparse_lm_weights(seed: int):
+    """Seeded uniform [-0.05, 0.05] weights of SparseLM, by structural
+    name (both twins load the same)."""
+    probe = SparseLM(False)
+    with cpu():
+        probe.initialize(init.Uniform(0.05))
+        return {k: p.data().asnumpy() for k, p in
+                probe._collect_params_with_prefix().items()}
+
+
+def sparse_lm_train(sparse_grad, named, batches, opt, timed=False):
+    """Steps of SparseLM (sparse or dense embedding gradient) on the card
+    through gluon.Trainer with ``opt`` (name, params), one per batch; with
+    ``timed``, the first SPARSE_WARMUP untimed, the next SPARSE_TIMED in a
+    window closed by a fetch and the rest one by one. Returns the mean
+    losses, the weights, the touched rows per step and the timings."""
+    net = SparseLM(sparse_grad)
+    with gpu(0):
+        net.initialize()
+        for k, p in net._collect_params_with_prefix().items():
+            p.set_data(nd.array(named[k]))
+    trainer = gluon.Trainer(net.collect_params(), *opt)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses, rows, step_ms, wall = [], [], [], None
+
+    def step(x, y):
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        g = net.embed.weight.grad()
+        rows.append(g.nnz if sparse_grad else None)
+        trainer.step(LSTM_BATCH)
+        return loss
+
+    for i, (x, y) in enumerate(batches):
+        x, y = (nd.array(a, ctx=gpu(0), dtype="int32") for a in (x, y))
+        if timed and i == SPARSE_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        t1 = time.perf_counter()
+        losses.append(step(x, y))
+        if timed and i == SPARSE_WARMUP + SPARSE_TIMED - 1:
+            losses[-1].asnumpy()
+            wall = time.perf_counter() - t0
+        elif timed and i >= SPARSE_WARMUP + SPARSE_TIMED:
+            losses[-1].asnumpy()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+    grad_type = type(net.embed.weight.grad()).__name__
+    weights = {k: p.data().asnumpy() for k, p in
+               net._collect_params_with_prefix().items()}
+    out = {"losses": np.array([l.asnumpy().mean() for l in losses]),
+           "weights": weights, "rows": rows, "grad_type": grad_type,
+           "wall": wall, "step_ms": step_ms}
+    if timed:
+        x, y = (nd.array(a, ctx=gpu(0), dtype="int32") for a in batches[-1])
+        out["device_ms"], out["busy"] = busy_share(
+            lambda: step(x, y), float(np.median(step_ms)))
+    return out
+
+
+def sparse_cases(ctx):
+    """The sparse module's functions at small shapes on ``ctx``, as dense
+    numpy results: storage casts, csr . dense (and transposed), row-sparse
+    . dense, retain, add_n and the row-sparse sum of squares."""
+    rng = np.random.default_rng(5)
+    d = (rng.standard_normal((8, 6)) *
+         (rng.random((8, 6)) < 0.3)).astype(np.float32)
+    rhs = rng.standard_normal((6, 4)).astype(np.float32)
+    rhs_t = rng.standard_normal((8, 4)).astype(np.float32)
+    with ctx:
+        a = nd.array(d)
+        rsp, csr = a.tostype("row_sparse"), a.tostype("csr")
+        two = sparse.row_sparse_array((np.ones((3, 6), np.float32),
+                                       [6, 1, 6]), shape=(8, 6))
+        out = {"rsp": rsp, "csr": csr, "csr_dot": sparse.dot(csr, nd.array(rhs)),
+               "csr_dot_t": sparse.dot(csr, nd.array(rhs_t),
+                                       transpose_a=True),
+               "rsp_dot": sparse.dot(rsp, nd.array(rhs)),
+               "retain": rsp.retain(nd.array([1, 3, 5])),
+               "add_n": sparse.add_n([rsp, two]),
+               "square_sum": nd._square_sum(rsp, axis=1)}
+        return {k: v.asnumpy() for k, v in out.items()}
+
+
+def phase_sparse(seed: int, smi: str):
+    """Phase 12: (a) the PTB-medium LM with a row-sparse embedding gradient
+    under lazy Adam against its dense twin; (b) under SGD, where lazy
+    equals dense; (c) the sparse functions card vs CPU."""
+    rng = np.random.default_rng(seed + 14)
+    named = sparse_lm_weights(seed)
+    steps = SPARSE_WARMUP + 2 * SPARSE_TIMED
+    batches = lstm_batches(rng, steps, LSTM_BATCH)
+    adam = ("adam", {"learning_rate": SPARSE_LR})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts from 0 just before, read just after ----
+    fa.launches = fa.launches_dq = fa.launches_dkv = fc.launches = 0
+    rtc.launches = 0
+    sp = sparse_lm_train(True, named, batches, adam, timed=True)
+    hand = {"K1": fa.launches, "K2": fa.launches_dq, "K3": fa.launches_dkv,
+            "K4": fc.launches, "K5": rtc.launches}
+    # ---- end of the main path ----
+    peak = torch.cuda.max_memory_allocated()
+    dense = sparse_lm_train(False, named, batches, adam)
+    rel = np.abs(sp["losses"] - dense["losses"]) / np.abs(dense["losses"])
+    median = float(np.median(sp["step_ms"]))
+    tokens = LSTM_BATCH * LSTM_BPTT * SPARSE_TIMED
+    print(f"sparse-embedding LM (PTB medium: vocab {PTB_MEDIUM['vocab']}, "
+          f"2 x {PTB_MEDIUM['hidden']}), batch {LSTM_BATCH} x {LSTM_BPTT}, "
+          f"lazy Adam lr {SPARSE_LR}, {steps} steps: losses "
+          f"{sp['losses'][0]:.4f} -> {sp['losses'][-1]:.4f}, dense twin "
+          f"{dense['losses'][0]:.4f} -> {dense['losses'][-1]:.4f}, max "
+          f"relative difference {rel.max():.3g} (tol {SPARSE_LOSS_RTOL}); "
+          f"embedding gradient {sp['grad_type']}, touched rows per step "
+          f"{sp['rows'][:steps]}; hand-written kernel launches {hand} (none "
+          f"lies on the path)")
+    print(f"training the sparse-embedding LM: {tokens / sp['wall']:.0f} "
+          f"tokens/s over {SPARSE_TIMED} steps (wall {sp['wall']:.3f} s), "
+          f"step median {median:.2f} ms (host clock to a fetched loss), "
+          f"device {sp['device_ms']:.2f} ms/step, busy share "
+          f"{sp['busy']:.3f}, peak device memory {peak / 2**30:.2f} GiB on "
+          f"{smi}")
+    if sp["grad_type"] != "RowSparseNDArray" or \
+            not np.isfinite(sp["losses"]).all() or \
+            rel.max() > SPARSE_LOSS_RTOL or any(hand.values()):
+        raise SystemExit("FAIL: the sparse-embedding LM")
+    # (b) SGD without momentum, wd or clipping: lazy == dense
+    sgd = ("sgd", {"learning_rate": SPARSE_SGD_LR})
+    a = sparse_lm_train(True, named, batches[:SPARSE_SGD_STEPS], sgd)
+    b = sparse_lm_train(False, named, batches[:SPARSE_SGD_STEPS], sgd)
+    w_err = max(float(np.abs(a["weights"][k] - b["weights"][k]).max() /
+                      max(1.0, np.abs(b["weights"][k]).max()))
+                for k in b["weights"])
+    print(f"lazy SGD (lr {SPARSE_SGD_LR}, no momentum, wd or clipping) vs "
+          f"the dense twin after {SPARSE_SGD_STEPS} steps: weights max |d| "
+          f"{w_err:.3g} of max(1, |value|) (tol {SPARSE_SGD_TOL}; the card "
+          f"sums the gradient's rows in another order)")
+    if w_err > SPARSE_SGD_TOL:
+        raise SystemExit("FAIL: lazy SGD differs from the dense update")
+    # (c) the sparse functions, card vs CPU
+    got, want = sparse_cases(gpu(0)), sparse_cases(cpu())
+    errs = {k: float(np.abs(got[k] - want[k]).max()) for k in want}
+    print(f"sparse functions card vs CPU: max |d| {errs} (tol 1e-5: the "
+          f"scatter-adds sum in another order)")
+    if max(errs.values()) > 1e-5:
+        raise SystemExit("FAIL: a sparse function differs on the card")
+    return {"hand": hand, "tokens_per_s": tokens / sp["wall"],
+            "step_ms": median, "busy_share": sp["busy"]}
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the op surface on the card; the LSTM LM through gluon.Trainer
 # ---------------------------------------------------------------------------
 def _on_card(results, ctx):
@@ -2706,6 +3222,11 @@ def main(argv=None) -> int:
     glu = phase_gluon(args.seed, smi)
     lm = phase_ops_rnn(args.seed, smi)
     det = phase_ssd(args.seed, smi)
+    amp_rec = phase_amp(args.seed, smi)
+    sp = phase_sparse(args.seed, smi)
+    f16 = amp_rec["fp16"]
+    amp_launches = {path: amp_rec[path]["launches"]
+                    for path in ("amp_bf16", "amp_fp16")}
     r, tr = record["serving", torch.bfloat16], record["training", torch.bfloat16]
     pallas = "mxnet_tpu/ops/pallas/flash_attention.py"
     kernels = [
@@ -2714,14 +3235,19 @@ def main(argv=None) -> int:
          "replaces": f"{pallas}:213",
          "launches": serve_launches + train_launches["flash_attention_fwd"]
          + gen["launches"] + glu["launches"]["flash_attention_fwd"]
-         + lm["k1_op_surface"] + lm["hand"]["K1"] + det["hand"]["K1"],
+         + lm["k1_op_surface"] + lm["hand"]["K1"] + det["hand"]["K1"]
+         + sum(c["flash_attention_fwd"] for c in amp_launches.values())
+         + sp["hand"]["K1"],
          "launches_by_path": {
              "serving": serve_launches,
              "training": train_launches["flash_attention_fwd"],
              "generate": gen["launches"],
              "gluon_training": glu["launches"]["flash_attention_fwd"],
              "nd_op_surface": lm["k1_op_surface"],
-             "lstm_lm": lm["hand"]["K1"], "ssd": det["hand"]["K1"]},
+             "lstm_lm": lm["hand"]["K1"], "ssd": det["hand"]["K1"],
+             "amp_bf16": amp_launches["amp_bf16"]["flash_attention_fwd"],
+             "amp_fp16": amp_launches["amp_fp16"]["flash_attention_fwd"],
+             "sparse_lm": sp["hand"]["K1"]},
          "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"],
                             gen["k1_max_abs_err"]),
          "ms": r["ms"], "ms_strided": r["ms_strided"],
@@ -2739,6 +3265,15 @@ def main(argv=None) -> int:
          "device_ms_training_shape": tr["device_ms"],
          "library_device_ms_training_shape": tr["library_device_ms"],
          "causal_prefill": gen["k1_timed"],
+         "max_abs_err_fp16": f16["fwd_err"],
+         "ms_fp16": f16["serving"]["fwd"]["device_ms"],
+         "plain_ms_fp16": f16["serving"]["fwd"]["plain_ms"],
+         "bound_ms_fp16": f16["serving"]["fwd"]["bound_ms"],
+         "library_ms_fp16": f16["serving"]["library_ms_fwd"],
+         "ms_fp16_training_shape": f16["training"]["fwd"]["device_ms"],
+         "bound_ms_fp16_training_shape": f16["training"]["fwd"]["bound_ms"],
+         "library_ms_fp16_training_shape":
+             f16["training"]["library_ms_fwd"],
          "host_us": record["host_us"]["k1"],
          "entry_host_us": record["host_us"]["entry"],
          "library_host_us": record["host_us"]["sdpa"]}]
@@ -2751,11 +3286,16 @@ def main(argv=None) -> int:
             "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"{pallas}:{line}",
             "launches": train_launches[wrapper] + glu["launches"][wrapper]
-            + lm["hand"][k] + det["hand"][k],
+            + lm["hand"][k] + det["hand"][k]
+            + sum(c[wrapper] for c in amp_launches.values())
+            + sp["hand"][k],
             "launches_by_path": {
                 "training": train_launches[wrapper],
                 "gluon_training": glu["launches"][wrapper],
-                "lstm_lm": lm["hand"][k], "ssd": det["hand"][k]},
+                "lstm_lm": lm["hand"][k], "ssd": det["hand"][k],
+                "amp_bf16": amp_launches["amp_bf16"][wrapper],
+                "amp_fp16": amp_launches["amp_fp16"][wrapper],
+                "sparse_lm": sp["hand"][k]},
             "max_abs_err": bwd[f"{name}_err"], "ms": t[name]["ms"],
             "device_ms": t[name]["device_ms"],
             "plain_ms": t[name]["plain_ms"],
@@ -2774,20 +3314,34 @@ def main(argv=None) -> int:
             "plain_ms_serving_shape": sv[name]["plain_ms"],
             "bound_ms_serving_shape": sv[name]["bound_ms"],
             "library_ms_serving_shape": sv["library_ms"],
-            "library_device_ms_serving_shape": sv["library_device_ms"]})
+            "library_device_ms_serving_shape": sv["library_device_ms"],
+            "max_abs_err_fp16": f16[f"{name}_err"],
+            "ms_fp16": f16["training"][name]["device_ms"],
+            "plain_ms_fp16": f16["training"][name]["plain_ms"],
+            "bound_ms_fp16": f16["training"][name]["bound_ms"],
+            "library_ms_fp16": f16["training"]["library_ms_bwd"],
+            "ms_fp16_serving_shape": f16["serving"][name]["device_ms"],
+            "bound_ms_fp16_serving_shape": f16["serving"][name]["bound_ms"],
+            "library_ms_fp16_serving_shape":
+                f16["serving"]["library_ms_bwd"]})
     s2 = k4["shapes"]["s2_reduce"]
     kernels.append({
         "name": "conv1x1_bn_act", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/fused_conv1x1.cu",
         "replaces": "mxnet_tpu/ops/pallas/fused_conv1x1.py:84",
         "launches": resnet["k4_launches"] + resnet["train_launches"]
-        + lm["hand"]["K4"] + det["hand"]["K4"],
+        + lm["hand"]["K4"] + det["hand"]["K4"]
+        + sum(amp_rec[p]["others"]["K4"] for p in amp_launches)
+        + sp["hand"]["K4"],
         "launches_by_path": {"resnet50_training":
                              resnet["train_launches"],
                              "resnet50_bottleneck_sites":
                              resnet["k4_launches"],
                              "lstm_lm": lm["hand"]["K4"],
-                             "ssd": det["hand"]["K4"]},
+                             "ssd": det["hand"]["K4"],
+                             "amp_bf16": amp_rec["amp_bf16"]["others"]["K4"],
+                             "amp_fp16": amp_rec["amp_fp16"]["others"]["K4"],
+                             "sparse_lm": sp["hand"]["K4"]},
         "max_abs_err": k4["max_abs_err"], "ms": s2["ms"],
         "device_ms": s2["device_ms"], "plain_ms": s2["plain_ms"],
         "bound_ms": s2["bound_ms"], "bound_by": s2["bound_by"],
@@ -2808,10 +3362,15 @@ def main(argv=None) -> int:
         "kernel_sources": sorted(f"mxnet_tpu_torch/csrc/rtc/{f}"
                                  for f in set(rx.SOURCES.values())),
         "replaces": "mxnet_tpu/rtc.py:64",
-        "launches": k5["launches"] + lm["hand"]["K5"] + det["hand"]["K5"],
+        "launches": k5["launches"] + lm["hand"]["K5"] + det["hand"]["K5"]
+        + sum(amp_rec[p]["others"]["K5"] for p in amp_launches)
+        + sp["hand"]["K5"],
         "launches_by_path": {"rtc": k5["launches"],
                              "lstm_lm": lm["hand"]["K5"],
-                             "ssd": det["hand"]["K5"]},
+                             "ssd": det["hand"]["K5"],
+                             "amp_bf16": amp_rec["amp_bf16"]["others"]["K5"],
+                             "amp_fp16": amp_rec["amp_fp16"]["others"]["K5"],
+                             "sparse_lm": sp["hand"]["K5"]},
         "max_abs_err": max(v["max_abs_err"]
                            for v in k5["by_kernel"].values()),
         "ms": head["ms"], "device_ms": head["device_ms"],

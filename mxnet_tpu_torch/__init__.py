@@ -18,14 +18,17 @@ import torch as _torch
 # float32 matrix products or cuDNN convolutions.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+# fp16 products sum in f32, as the JAX package's do: cuBLAS may not reduce
+# them in fp16. (The bf16 flag stays at PyTorch's default.)
+_torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 from .base import Context, MXNetError, cpu, current_context, gpu
-from . import (autograd, base, gluon, init, initializer, ndarray, ops,
-               optimizer, parallel, random, rtc, serving)
+from . import (amp, autograd, base, gluon, init, initializer, ndarray,
+               ops, optimizer, parallel, random, rtc, serving)
 from . import ndarray as nd
 from .optimizer import lr_scheduler
 
 __all__ = ["Context", "MXNetError", "cpu", "gpu", "current_context",
-           "autograd", "base", "gluon", "init", "initializer",
+           "amp", "autograd", "base", "gluon", "init", "initializer",
            "lr_scheduler", "nd", "ndarray", "ops", "optimizer", "parallel",
            "random", "rtc", "serving"]

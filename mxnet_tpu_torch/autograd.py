@@ -11,6 +11,10 @@ where they differ from PyTorch's defaults:
   accumulates into (PyTorch always accumulates into ``.grad``: a
   post-accumulate hook moves it over and clears the leaf's own ``.grad``);
 - a head that is not a scalar gets a head gradient of ones;
+- the weight of an Embedding with ``sparse_grad=True`` gets a row-sparse
+  gradient: PyTorch's sparse COO gradient, stored as a
+  ``RowSparseNDArray`` (rows summed by id) in a row-sparse buffer and
+  returned as one by :func:`grad`;
 - :class:`Function` runs the user's NDArray-level ``forward`` under
   :func:`pause` and their ``backward`` with NDArray gradients, through a
   ``torch.autograd.Function``.
@@ -160,8 +164,19 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                                   allow_unused=True)
     if any(g is None for g in got):
         raise MXNetError("one of the variables is unreachable from heads")
-    res = [NDArray(g, ctx=v.context) for g, v in zip(got, variables)]
+    res = [_grad_array(g, v) for g, v in zip(got, variables)]
     return res[0] if single else res
+
+
+def _grad_array(g, v):
+    """A gradient as :func:`grad` returns it: a ``RowSparseNDArray`` for
+    the sparse gradient of a ``sparse_grad`` Embedding's weight, else an
+    NDArray."""
+    from .ndarray.ndarray import NDArray
+    if g.is_sparse:
+        from .sparse import from_coo
+        return from_coo(g, v.shape, v.context)
+    return NDArray(g, ctx=v.context)
 
 
 class _Bridge(torch.autograd.Function):

@@ -27,9 +27,10 @@
 // memory, so no layout copy surrounds the kernels. The C entries take each
 // tensor's address and (S, H, B) byte strides.
 //
-// bf16 (the training path). A persistent grid of one 384-thread block per
-// SM walks the work units, tile index fastest (the tiles of one head run
-// together and share its other-side tiles in L2).
+// bf16 and fp16 (the training paths; one template on the element type E,
+// the same tiles and products in either). A persistent grid of one
+// 384-thread block per SM walks the work units, tile index fastest (the
+// tiles of one head run together and share its other-side tiles in L2).
 // - Warpgroup 0 is the producer: one thread issues TMA loads through 4-D
 //   tensor maps of dimensions (D, S, H, B) (hopper.cuh), which fill rows
 //   past S with zeros. A unit's own tiles (K2: Q, dO and O; K3: K and V)
@@ -42,7 +43,7 @@
 //   products run as wgmma from shared memory (K-major), accumulated in f32
 //   registers: K2 S = Q K^T and dP = dO V^T; K3 S^T = K Q^T and
 //   dP^T = V dO^T, so that P^T and dS^T come out in the accumulator layout
-//   of the rows this warpgroup owns. P and dS, rounded to bf16, are
+//   of the rows this warpgroup owns. P and dS, rounded to E, are
 //   repacked in registers as the A operand of the accumulating products
 //   (wgmma with A from registers, B read N-major from the streamed tile):
 //   K2 dq += dS K; K3 dv += P^T dO and dk += dS^T Q. In K2 a tile's dq
@@ -55,17 +56,17 @@
 // - K2 computes delta for its rows from the O and dO tiles in shared
 //   memory while the first score products run, and writes it to a (B, H,
 //   S) f32 buffer; K3 stages each Q tile's lse and delta in shared memory.
-// - Epilogue: the accumulators rounded to bf16, written swizzled into the
+// - Epilogue: the accumulators rounded to E, written swizzled into the
 //   warpgroup's rows of a buffer the unit has finished with (K2: O; K3: K
 //   and V) and stored by TMA (rows past S are not written).
 // Tiles: W = min(D, 64) columns per swizzle panel (as K1). The streamed
 // tiles hold 128 rows (64 at D = 128, for the registers).
 //
-// Numerics (the port of `_dot_precision`). bf16: bf16 x bf16 products with
-// f32 accumulation on the tensor cores; P is rounded to bf16 before P^T dO
+// Numerics (the port of `_dot_precision`). bf16 and fp16: E x E products
+// with f32 accumulation on the tensor cores; P is rounded to E before P^T dO
 // and dS before dS k and dS^T q, exactly where the Pallas kernels round
 // (`.astype` at flash_attention.py:301-302 and :347, :355); delta is an f32
-// sum of the bf16 products. Scores are taken in the base-2 domain
+// sum of the E products. Scores are taken in the base-2 domain
 // (scale * log2(e), lse * log2(e)) so exp is one ex2 instruction. f32:
 // scalar FMA in true fp32, never TF32, on the same strides.
 //
@@ -96,7 +97,7 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: persistent, warp-specialized TMA + wgmma kernels
+// bf16 and fp16: persistent, warp-specialized TMA + wgmma kernels
 // ---------------------------------------------------------------------------
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kRows = 128;     // a unit's rows: queries (K2), keys (K3)
@@ -119,30 +120,31 @@ struct Geo {
   static constexpr uint32_t UNIT = kRows * D * 2;    // a unit's 128 rows
 };
 
-// d (64 x N, f32) = or += A (64 x 16, K-major) B^T (N x 16, K-major)
-template <int N>
+// d (64 x N, f32) = or += A (64 x 16, K-major) B^T (N x 16, K-major), both
+// of element type E
+template <typename E, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate) {
   if constexpr (N == 128)
-    wgmma_ss_n128(d, da, db, accumulate);
+    wgmma_ss_n128<E>(d, da, db, accumulate);
   else
-    wgmma_ss_n64(d, da, db, accumulate);
+    wgmma_ss_n64<E>(d, da, db, accumulate);
 }
 
-// d (64 x W, f32) += A (64 x 16, bf16 in registers) B (16 x W), B N-major
-template <int W>
+// d (64 x W, f32) += A (64 x 16, E in registers) B (16 x W), B N-major
+template <typename E, int W>
 __device__ __forceinline__ void wgmma_rs(float (&d)[W / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (W == 64)
-    wgmma_rs_n64(d, a, db);
+    wgmma_rs_n64<E>(d, a, db);
   else
-    wgmma_rs_n32(d, a, db);
+    wgmma_rs_n32<E>(d, a, db);
 }
 
 // acc (64 x N) = A B^T over D: A the warpgroup's 64 rows of a split tile,
 // B a streamed tile of N rows, k-steps of 16 along D within the panels
-template <int D, int N>
+template <typename E, int D, int N>
 __device__ __forceinline__ void issue_scores(float (&acc)[N / 2],
                                              uint32_t a_half,
                                              uint32_t b_tile) {
@@ -151,16 +153,16 @@ __device__ __forceinline__ void issue_scores(float (&acc)[N / 2],
   for (int ks = 0; ks < D / 16; ++ks) {
     const uint32_t off = (ks * 16 % G::W) * 2;  // bytes into the row
     const int p = ks * 16 / G::W;
-    wgmma_ss<N>(
+    wgmma_ss<E, N>(
         acc, smem_desc(a_half + p * G::HALF_PANEL + off, 0, G::SBO, G::SWIZZLE),
         smem_desc(b_tile + p * N * G::ROW + off, 0, G::SBO, G::SWIZZLE),
         ks > 0);
   }
 }
 
-// acc (64 x D, one W-column block per panel) += A B: A (64 x N) bf16 in
+// acc (64 x D, one W-column block per panel) += A B: A (64 x N) E in
 // registers, B a streamed tile of N rows read N-major, 16 rows a step
-template <int D, int N>
+template <typename E, int D, int N>
 __device__ __forceinline__ void issue_accumulate(
     float (&acc)[Geo<D>::NP][Geo<D>::W / 2], const uint32_t (&a)[N / 16][4],
     uint32_t b_tile) {
@@ -169,24 +171,24 @@ __device__ __forceinline__ void issue_accumulate(
   for (int kc = 0; kc < N / 16; ++kc) {
 #pragma unroll
     for (int p = 0; p < G::NP; ++p)
-      wgmma_rs<G::W>(acc[p], a[kc],
+      wgmma_rs<E, G::W>(acc[p], a[kc],
                      smem_desc(b_tile + p * N * G::ROW + kc * 16 * G::ROW,
                                G::SBO, G::SBO, G::SWIZZLE));
   }
 }
 
-// An accumulator (64 x N) in bf16 as the register A operand of the next
+// An accumulator (64 x N) in E as the register A operand of the next
 // product: the accumulators of two adjacent 8-column blocks are one 64 x 16
 // A fragment.
-template <int N>
+template <typename E, int N>
 __device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4],
                                        const float (&s)[N / 2]) {
 #pragma unroll
   for (int kc = 0; kc < N / 16; ++kc) {
-    a[kc][0] = pack_bf16(s[8 * kc], s[8 * kc + 1]);
-    a[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
-    a[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
-    a[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+    a[kc][0] = pack2<E>(s[8 * kc], s[8 * kc + 1]);
+    a[kc][1] = pack2<E>(s[8 * kc + 2], s[8 * kc + 3]);
+    a[kc][2] = pack2<E>(s[8 * kc + 4], s[8 * kc + 5]);
+    a[kc][3] = pack2<E>(s[8 * kc + 6], s[8 * kc + 7]);
   }
 }
 
@@ -211,10 +213,10 @@ __device__ __forceinline__ void fence_a(uint32_t (&a)[N / 16][4]) {
   for (int kc = 0; kc < N / 16; ++kc) fence_regs(a[kc]);
 }
 
-// The warpgroup's 64 x D accumulator in bf16, written swizzled (as TMA
-// reads it: 16-byte chunk ^= row bits) into its staging rows `stage`
-// ([panel][64 rows][W]); lr0 is the lane's first accumulator row.
-template <int D>
+// The warpgroup's 64 x D accumulator in E, written swizzled (as TMA reads
+// it: 16-byte chunk ^= row bits) into its staging rows `stage` ([panel][64
+// rows][W]); lr0 is the lane's first accumulator row.
+template <typename E, int D>
 __device__ __forceinline__ void stage_rows(
     uint8_t* stage, const float (&acc)[Geo<D>::NP][Geo<D>::W / 2], int lr0,
     int t) {
@@ -228,9 +230,9 @@ __device__ __forceinline__ void stage_rows(
       a0 ^= ((a0 >> 7) & G::SWIZZLE_MASK) << 4;
       a1 ^= ((a1 >> 7) & G::SWIZZLE_MASK) << 4;
       *reinterpret_cast<uint32_t*>(stage + p * G::HALF_PANEL + a0) =
-          pack_bf16(acc[p][4 * j], acc[p][4 * j + 1]);
+          pack2<E>(acc[p][4 * j], acc[p][4 * j + 1]);
       *reinterpret_cast<uint32_t*>(stage + p * G::HALF_PANEL + a1) =
-          pack_bf16(acc[p][4 * j + 2], acc[p][4 * j + 3]);
+          pack2<E>(acc[p][4 * j + 2], acc[p][4 * j + 3]);
     }
   }
 }
@@ -289,18 +291,18 @@ struct DqSmem {  // K2's shared memory
 };
 
 // Maps: q, k, v, O, dO (loads) and dq (store).
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
-                             const __grid_constant__ CUtensorMap kmap,
-                             const __grid_constant__ CUtensorMap vmap,
-                             const __grid_constant__ CUtensorMap omap,
-                             const __grid_constant__ CUtensorMap gmap,
-                             const __grid_constant__ CUtensorMap dqmap,
-                             const float* __restrict__ lse,
-                             float* __restrict__ delta, int H, int S,
-                             int q_tiles, int n_work, float scale,
-                             int causal) {
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap omap,
+                        const __grid_constant__ CUtensorMap gmap,
+                        const __grid_constant__ CUtensorMap dqmap,
+                        const float* __restrict__ lse,
+                        float* __restrict__ delta, int H, int S,
+                        int q_tiles, int n_work, float scale,
+                        int causal) {
   using G = Geo<D>;
   using M = DqSmem<D>;
   constexpr int BK = M::BK;
@@ -428,8 +430,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_all();
       turn_begin(c);
       wgmma_fence();
-      issue_scores<D, BK>(s, q_half, k_tile(st));
-      issue_scores<D, BK>(dp, g_half, k_tile(st) + M::STREAM);
+      issue_scores<E, D, BK>(s, q_half, k_tile(st));
+      issue_scores<E, D, BK>(dp, g_half, k_tile(st) + M::STREAM);
       wgmma_commit();
       turn_end(c, false);
 
@@ -452,10 +454,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float2 a = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(&xs[e]));
-            const float2 bb = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(&ys[e]));
+            const float2 a = unpack2<E>(xs[e]);
+            const float2 bb = unpack2<E>(ys[e]);
             acc = fmaf(a.x, bb.x, acc);
             acc = fmaf(a.y, bb.y, acc);
           }
@@ -496,7 +496,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             s[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
           }
         }
-        pack_a<BK>(sa, s);
+        pack_a<E, BK>(sa, s);
 
         const uint32_t kt = k_tile(st);
         const bool more = it + 1 < n;
@@ -508,10 +508,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_all();
         turn_begin(c);
         wgmma_fence();
-        issue_accumulate<D, BK>(dq, sa, kt);  // dq += dS K
+        issue_accumulate<E, D, BK>(dq, sa, kt);  // dq += dS K
         if (more) {
-          issue_scores<D, BK>(s, q_half, k_tile(st));
-          issue_scores<D, BK>(dp, g_half, k_tile(st) + M::STREAM);
+          issue_scores<E, D, BK>(s, q_half, k_tile(st));
+          issue_scores<E, D, BK>(dp, g_half, k_tile(st) + M::STREAM);
         }
         wgmma_commit();
         turn_end(c, !more && last_work);
@@ -521,8 +521,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       warp_release(kv_empty(st), lane);
       ++kv_it;
 
-      // ---- epilogue: dq in bf16 through O's rows (read by now) to TMA ----
-      stage_rows<D>(smem + (o_half - base), dq, lr0, t);
+      // ---- epilogue: dq in E through O's rows (read by now) to TMA ----
+      stage_rows<E, D>(smem + (o_half - base), dq, lr0, t);
       // make the generic-proxy writes visible to TMA; one thread stores
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
@@ -559,18 +559,18 @@ struct DkvSmem {  // K3's shared memory
 };
 
 // Maps: q, k, v, dO (loads), dk and dv (stores).
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
-                              const __grid_constant__ CUtensorMap kmap,
-                              const __grid_constant__ CUtensorMap vmap,
-                              const __grid_constant__ CUtensorMap gmap,
-                              const __grid_constant__ CUtensorMap dkmap,
-                              const __grid_constant__ CUtensorMap dvmap,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta, int H, int S,
-                              int k_tiles, int n_work, float scale,
-                              int causal) {
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const __grid_constant__ CUtensorMap gmap,
+                         const __grid_constant__ CUtensorMap dkmap,
+                         const __grid_constant__ CUtensorMap dvmap,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, int H, int S,
+                         int k_tiles, int n_work, float scale,
+                         int causal) {
   using G = Geo<D>;
   using M = DkvSmem<D>;
   constexpr int BQ = M::BQ;
@@ -690,8 +690,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_regs(s);
         fence_regs(dp);
         wgmma_fence();
-        issue_scores<D, BQ>(s, k_half, qt);   // S^T = K Q^T
-        issue_scores<D, BQ>(dp, v_half, gt);  // dP^T = V dO^T
+        issue_scores<E, D, BQ>(s, k_half, qt);   // S^T = K Q^T
+        issue_scores<E, D, BQ>(dp, v_half, gt);  // dP^T = V dO^T
         wgmma_commit();
         asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
         wgmma_wait<0>();
@@ -721,8 +721,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                             scale;
           }
         }
-        pack_a<BQ>(pa, s);
-        pack_a<BQ>(sa, dp);
+        pack_a<E, BQ>(pa, s);
+        pack_a<E, BQ>(sa, dp);
 
         // dv += P^T dO and dk += dS^T Q
         fence_acc<D>(dv);
@@ -730,8 +730,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_a<BQ>(pa);
         fence_a<BQ>(sa);
         wgmma_fence();
-        issue_accumulate<D, BQ>(dv, pa, gt);
-        issue_accumulate<D, BQ>(dk, sa, qt);
+        issue_accumulate<E, D, BQ>(dv, pa, gt);
+        issue_accumulate<E, D, BQ>(dk, sa, qt);
         wgmma_commit();
         wgmma_wait<0>();
         fence_acc<D>(dv);
@@ -741,9 +741,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         warp_release(qd_empty(st), lane);
       }
 
-      // ---- epilogue: dk and dv in bf16 through K's and V's rows to TMA ----
-      stage_rows<D>(smem + (k_half - base), dk, lr0, t);
-      stage_rows<D>(smem + (v_half - base), dv, lr0, t);
+      // ---- epilogue: dk and dv in E through K's and V's rows to TMA ----
+      stage_rows<E, D>(smem + (k_half - base), dk, lr0, t);
+      stage_rows<E, D>(smem + (v_half - base), dv, lr0, t);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
       if (tid == 0) {
@@ -1000,54 +1000,53 @@ int sm_count_for(Kernel kern, uint32_t smem, int* cache, int* sms) {
 }
 
 // The six tensor maps of a launch: view i with boxes of W x rows[i] rows.
-template <int D>
+template <int D, typename E>
 int encode_maps(CUtensorMap (&maps)[6], const Args& a, const int (&rows)[6]) {
   using G = Geo<D>;
   if (encoder().err) return encoder().err;
   const CUtensorMapSwizzle swizzle =
       G::W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   for (int i = 0; i < 6; ++i) {
-    const CUresult r = encode_map(&maps[i], a.views + 4 * i, a.B, a.H, a.S,
-                                  D, G::W, rows[i], swizzle);
+    const CUresult r = encode_map(&maps[i], Elem<E>::kMap, a.views + 4 * i,
+                                  a.B, a.H, a.S, D, G::W, rows[i], swizzle);
     if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   }
   return 0;
 }
 
-template <int D>
-int launch_dq_bf16(const Args& a) {
+template <int D, typename E>
+int launch_dq_tc(const Args& a) {
   using M = DqSmem<D>;
   static int cache[kMaxDevices];  // read and written atomically
   int sms, rc;
-  if ((rc = sm_count_for(flash_bwd_dq_bf16_kernel<D>, M::SMEM, cache, &sms)))
+  if ((rc = sm_count_for(flash_bwd_dq_kernel<D, E>, M::SMEM, cache, &sms)))
     return rc;
   CUtensorMap maps[6];  // q, k, v, O, dO, dq
   const int rows[6] = {kWRows, M::BK, M::BK, kWRows, kWRows, kWRows};
-  if ((rc = encode_maps<D>(maps, a, rows))) return rc;
+  if ((rc = encode_maps<D, E>(maps, a, rows))) return rc;
   const int q_tiles = (a.S + kRows - 1) / kRows;
   const int n_work = q_tiles * a.B * a.H;
-  flash_bwd_dq_bf16_kernel<D><<<min(n_work, sms), kThreads, M::SMEM,
-                                a.stream>>>(
+  flash_bwd_dq_kernel<D, E><<<min(n_work, sms), kThreads, M::SMEM,
+                             a.stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], a.lse, a.delta,
       a.H, a.S, q_tiles, n_work, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <int D>
-int launch_dkv_bf16(const Args& a) {
+template <int D, typename E>
+int launch_dkv_tc(const Args& a) {
   using M = DkvSmem<D>;
   static int cache[kMaxDevices];
   int sms, rc;
-  if ((rc = sm_count_for(flash_bwd_dkv_bf16_kernel<D>, M::SMEM, cache,
-                         &sms)))
+  if ((rc = sm_count_for(flash_bwd_dkv_kernel<D, E>, M::SMEM, cache, &sms)))
     return rc;
   CUtensorMap maps[6];  // q, k, v, dO, dk, dv
   const int rows[6] = {M::BQ, kWRows, kWRows, M::BQ, kWRows, kWRows};
-  if ((rc = encode_maps<D>(maps, a, rows))) return rc;
+  if ((rc = encode_maps<D, E>(maps, a, rows))) return rc;
   const int k_tiles = (a.S + kRows - 1) / kRows;
   const int n_work = k_tiles * a.B * a.H;
-  flash_bwd_dkv_bf16_kernel<D><<<min(n_work, sms), kThreads, M::SMEM,
-                                 a.stream>>>(
+  flash_bwd_dkv_kernel<D, E><<<min(n_work, sms), kThreads, M::SMEM,
+                              a.stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], a.lse, a.delta,
       a.H, a.S, k_tiles, n_work, a.scale, a.causal);
   return cudaGetLastError();
@@ -1079,20 +1078,27 @@ int launch_dkv_f32(const Args& a) {
   return cudaGetLastError();
 }
 
+template <bool kDkv, typename E, int D>
+int launch_tc(const Args& a) {
+  return kDkv ? launch_dkv_tc<D, E>(a) : launch_dq_tc<D, E>(a);
+}
+
 template <bool kDkv>
-int dispatch(const Args& a, int head_dim, int is_bf16) {
-  if (a.B <= 0 || a.H <= 0 || a.S <= 0)
+int dispatch(const Args& a, int head_dim, int dtype) {
+  if (a.B <= 0 || a.H <= 0 || a.S <= 0 || dtype < kDtypeF32 ||
+      dtype > kDtypeF16)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long bh = static_cast<long long>(a.B) * a.H;
-  // the f32 grid is (B*H, S / kF32Rows); the bf16 one walks B*H*tiles units
+  // the f32 grid is (B*H, S / kF32Rows); the 16-bit one walks B*H*tiles
+  // units
   if (bh * ((a.S + kRows - 1) / kRows) > INT32_MAX ||
-      (!is_bf16 && (a.S + kF32Rows - 1) / kF32Rows > 65535))
+      (dtype == kDtypeF32 && (a.S + kF32Rows - 1) / kF32Rows > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
-#define MXT_CASE(DIM)                                                  \
-  case DIM:                                                            \
-    if (is_bf16) return kDkv ? launch_dkv_bf16<DIM>(a)                 \
-                             : launch_dq_bf16<DIM>(a);                 \
+#define MXT_CASE(DIM)                                                   \
+  case DIM:                                                             \
+    if (dtype == kDtypeBf16) return launch_tc<kDkv, __nv_bfloat16, DIM>(a); \
+    if (dtype == kDtypeF16) return launch_tc<kDkv, __half, DIM>(a);     \
     return kDkv ? launch_dkv_f32<DIM>(a) : launch_dq_f32<DIM>(a);
     MXT_CASE(32)
     MXT_CASE(64)
@@ -1106,22 +1112,23 @@ int dispatch(const Args& a, int head_dim, int is_bf16) {
 }  // namespace
 
 // views: for q, k, v, O, dO and dq in turn {address, S stride, H stride, B
-// stride}, strides in bytes, of (B, H, S, D) tensors with unit stride on D,
-// bf16 (is_bf16 = 1) or f32; every address 16-byte aligned and every stride
-// a positive multiple of 16 bytes (the wrapper checks both). lse: the
+// stride}, strides in bytes, of (B, H, S, D) tensors with unit stride on D;
+// dtype: 0 = f32, 1 = bf16, 2 = fp16 (kDtypeF32, kDtypeBf16, kDtypeF16);
+// every address 16-byte aligned and every stride a positive multiple of 16
+// bytes (the wrapper checks both). lse: the
 // forward's, contiguous (B*H, S) f32; delta: contiguous (B*H, S) f32,
 // written. Returns 0, a cudaError_t, or minus the CUresult of a failed
 // tensor-map encode.
 extern "C" int mxt_flash_attention_bwd_dq(const long long* views,
                                           const void* lse, void* delta,
                                           int batch, int heads, int seq,
-                                          int head_dim, int is_bf16,
+                                          int head_dim, int dtype,
                                           float sm_scale, int causal,
                                           void* stream) {
   const Args a{views, static_cast<const float*>(lse),
                static_cast<float*>(delta), batch, heads, seq, sm_scale,
                causal, static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(a, head_dim, is_bf16);
+  return dispatch<false>(a, head_dim, dtype);
 }
 
 // As above, with views q, k, v, dO, dk and dv; delta (K2's) is read.
@@ -1129,11 +1136,11 @@ extern "C" int mxt_flash_attention_bwd_dkv(const long long* views,
                                            const void* lse,
                                            const void* delta, int batch,
                                            int heads, int seq, int head_dim,
-                                           int is_bf16, float sm_scale,
+                                           int dtype, float sm_scale,
                                            int causal, void* stream) {
   const Args a{views, static_cast<const float*>(lse),
                const_cast<float*>(static_cast<const float*>(delta)), batch,
                heads, seq, sm_scale, causal,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(a, head_dim, is_bf16);
+  return dispatch<true>(a, head_dim, dtype);
 }

@@ -15,10 +15,11 @@
 // the kernel. The C entry takes each tensor's address and (S, H, B) byte
 // strides.
 //
-// bf16 (the serving and training path). A work tile is one 128-row
-// q-tile of one (b, h); a persistent grid of one 384-thread block per SM
-// walks them with the q-tile index fastest, so the q-tiles of one head run
-// together and share its K/V tiles in L2.
+// bf16 and fp16 (the serving and training paths; one template on the
+// element type E, the same tiles and products in either). A work tile is
+// one 128-row q-tile of one (b, h); a persistent grid of one 384-thread
+// block per SM walks them with the q-tile index fastest, so the q-tiles of
+// one head run together and share its K/V tiles in L2.
 // - Warpgroup 0 is the producer: one thread issues TMA loads, Q into two
 //   buffers (the next work tile's Q arrives during this one) and K and V
 //   tiles of 128 keys through a ring of STAGES buffers, each with full and
@@ -31,22 +32,22 @@
 //   wgmma.mma_async m64n128k16 with both operands in shared memory
 //   (K-major), accumulated in f32 registers. The online softmax runs in
 //   the accumulator layout (row maxima and sums across the 4 lanes of a
-//   row by shuffles). P, rounded to bf16, is repacked in registers as the
+//   row by shuffles). P, rounded to E, is repacked in registers as the
 //   A operand of O += P V (wgmma with A from registers; V from shared
 //   memory, N-major, so the transpose-B immediate is set). Each tile's S
 //   product is issued with the previous tile's P V, and the softmax runs
 //   while that P V is on the tensor cores; the two warpgroups take turns
 //   issuing (named barriers), so one's softmax overlaps the other's
 //   products.
-// - Epilogue: O / l rounded to bf16, written swizzled into the
+// - Epilogue: O / l rounded to E, written swizzled into the
 //   warpgroup's staging rows and stored by TMA (rows past S are not
 //   written); lse is written directly.
 // Tiles: W = min(D, 64) columns per swizzle panel (128-byte rows, 128B
 // swizzle; D = 32 is one 64-byte panel with 64B swizzle; D = 128 two
 // panels, one descriptor each).
 //
-// Numerics (the port of `_dot_precision`), as the plain version: bf16 x
-// bf16 products summed in f32, P rounded to bf16 before P.V as the TPU
+// Numerics (the port of `_dot_precision`), as the plain version: E x E
+// products summed in f32, P rounded to E before P.V as the TPU
 // kernel does, scores in the base-2 domain (scale * log2 e) so exp is one
 // ex2 (an eighth of them, at D <= 64, a polynomial of the same accuracy on
 // the FMA pipes), masked scores at -1e30 (`_NEG_INF`), l clamped at 1e-30.
@@ -82,7 +83,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMinL = 1e-30f;
 
 // ---------------------------------------------------------------------------
-// bf16: persistent, warp-specialized TMA + wgmma kernel
+// bf16 and fp16: persistent, warp-specialized TMA + wgmma kernel
 // ---------------------------------------------------------------------------
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kBQ = 128;       // query rows per work tile
@@ -201,29 +202,28 @@ __device__ __forceinline__ float2 online_softmax(
   return alpha;
 }
 
-// P in bf16 as the register A operand of P V: the accumulators of two
-// adjacent 8-key blocks are one 64 x 16 A fragment.
-template <int BK>
+// P in E (bf16 or fp16) as the register A operand of P V: the accumulators
+// of two adjacent 8-key blocks are one 64 x 16 A fragment.
+template <typename E, int BK>
 __device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4],
                                        const float (&s)[BK / 2]) {
 #pragma unroll
   for (int kc = 0; kc < BK / 16; ++kc) {
-    pa[kc][0] = pack_bf16(s[8 * kc], s[8 * kc + 1]);
-    pa[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
-    pa[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
-    pa[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+    pa[kc][0] = pack2<E>(s[8 * kc], s[8 * kc + 1]);
+    pa[kc][1] = pack2<E>(s[8 * kc + 2], s[8 * kc + 3]);
+    pa[kc][2] = pack2<E>(s[8 * kc + 4], s[8 * kc + 5]);
+    pa[kc][3] = pack2<E>(s[8 * kc + 6], s[8 * kc + 7]);
   }
 }
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
-                          const __grid_constant__ CUtensorMap kmap,
-                          const __grid_constant__ CUtensorMap vmap,
-                          const __grid_constant__ CUtensorMap omap,
-                          float* __restrict__ lse, int H, int S,
-                          int q_tiles, int n_work, float scale_log2,
-                          int causal) {
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap omap,
+                     float* __restrict__ lse, int H, int S, int q_tiles,
+                     int n_work, float scale_log2, int causal) {
   using T = Tile<D>;
   constexpr int BK = T::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -328,7 +328,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int ks = 0; ks < D / 16; ++ks) {
         const uint32_t off = (ks * 16 % T::W) * 2;  // bytes into the row
         const int p = ks * 16 / T::W;
-        wgmma_ss_n128(
+        wgmma_ss_n128<E>(
             s,
             smem_desc(q_smem + p * T::Q_PANEL + off, 0, T::SBO, T::SWIZZLE),
             smem_desc(k_smem + p * T::KV_PANEL + off, 0, T::SBO, T::SWIZZLE),
@@ -347,9 +347,9 @@ __global__ void __launch_bounds__(kThreads, 1)
               smem_desc(v_smem + p * T::KV_PANEL + kc * 16 * T::ROW, T::SBO,
                         T::SBO, T::SWIZZLE);
           if constexpr (T::W == 64)
-            wgmma_rs_n64(o[p], pa[kc], db);
+            wgmma_rs_n64<E>(o[p], pa[kc], db);
           else
-            wgmma_rs_n32(o[p], pa[kc], db);
+            wgmma_rs_n32<E>(o[p], pa[kc], db);
         }
       }
     };
@@ -415,7 +415,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       online_softmax<BK, T::EX2_FMA_EVERY>(s, m0, m1, l0, l1, scale_log2,
                                            need_mask(0), 0, t, row0, row1, S,
                                            causal);
-      pack_p<BK>(pa, s);
+      pack_p<E, BK>(pa, s);
       // O *= alpha, the factors of the last softmax: applied while the next
       // S product runs, just before the P V that adds to O
       float2 alpha = make_float2(1.f, 1.f);
@@ -456,7 +456,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_wait<0>();
         fence_o_p();
         release(kv_empty(prev));
-        pack_p<BK>(pa, s);
+        pack_p<E, BK>(pa, s);
       }
 
       // the last tile's P V
@@ -473,7 +473,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       release(kv_empty(st));
       ++kv_it;
 
-      // ---- epilogue: O / l in bf16 through shared memory to TMA ----
+      // ---- epilogue: O / l in E through shared memory to TMA ----
       l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
       l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -495,9 +495,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           a0 ^= ((a0 >> 7) & T::SWIZZLE_MASK) << 4;
           a1 ^= ((a1 >> 7) & T::SWIZZLE_MASK) << 4;
           *reinterpret_cast<uint32_t*>(o_stage + p * T::Q_PANEL + a0) =
-              pack_bf16(o[p][4 * j] * inv0, o[p][4 * j + 1] * inv0);
+              pack2<E>(o[p][4 * j] * inv0, o[p][4 * j + 1] * inv0);
           *reinterpret_cast<uint32_t*>(o_stage + p * T::Q_PANEL + a1) =
-              pack_bf16(o[p][4 * j + 2] * inv1, o[p][4 * j + 3] * inv1);
+              pack2<E>(o[p][4 * j + 2] * inv1, o[p][4 * j + 3] * inv1);
         }
       }
       // make the generic-proxy writes visible to TMA; one thread stores
@@ -634,9 +634,9 @@ __global__ void __launch_bounds__(kF32Threads)
 // ---------------------------------------------------------------------------
 constexpr int kMaxDevices = 64;
 
-template <int D>
-int launch_bf16(const long long* views, float* lse, int B, int H, int S,
-                float scale_log2, int causal, cudaStream_t stream) {
+template <int D, typename E>
+int launch_tc(const long long* views, float* lse, int B, int H, int S,
+              float scale_log2, int causal, cudaStream_t stream) {
   using T = Tile<D>;
   if (encoder().err) return encoder().err;
   // per device: its SM count, read once the kernel's shared-memory limit
@@ -649,7 +649,7 @@ int launch_bf16(const long long* views, float* lse, int B, int H, int S,
   int sms = __atomic_load_n(&sm_count[dev], __ATOMIC_RELAXED);
   if (sms == 0) {
     if ((err = cudaFuncSetAttribute(
-             flash_fwd_bf16_kernel<D>,
+             flash_fwd_kernel<D, E>,
              cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM)) !=
             cudaSuccess ||
         (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
@@ -662,13 +662,13 @@ int launch_bf16(const long long* views, float* lse, int B, int H, int S,
   const int rows[4] = {kWQ, T::BK, T::BK, kWQ};  // q, k, v, o boxes
   CUtensorMap maps[4];
   for (int i = 0; i < 4; ++i) {
-    const CUresult r = encode_map(&maps[i], views + 4 * i, B, H, S, D, T::W,
-                                  rows[i], swizzle);
+    const CUresult r = encode_map(&maps[i], Elem<E>::kMap, views + 4 * i, B,
+                                  H, S, D, T::W, rows[i], swizzle);
     if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   }
   const int q_tiles = (S + kBQ - 1) / kBQ;
   const int n_work = q_tiles * B * H;  // one block per SM walks them
-  flash_fwd_bf16_kernel<D><<<min(n_work, sms), kThreads, T::SMEM, stream>>>(
+  flash_fwd_kernel<D, E><<<min(n_work, sms), kThreads, T::SMEM, stream>>>(
       maps[0], maps[1], maps[2], maps[3], lse, H, S, q_tiles, n_work,
       scale_log2, causal);
   return cudaGetLastError();
@@ -693,23 +693,24 @@ int launch_f32(const long long* views, float* lse, int B, int H, int S,
 }  // namespace
 
 // views: for q, k, v and o in turn {address, S stride, H stride, B stride},
-// strides in bytes, of (B, H, S, D) tensors with unit stride on D, bf16
-// (is_bf16 = 1) or f32; every address 16-byte aligned and every stride a
-// positive multiple of 16 bytes (the wrapper checks both). lse: contiguous
-// (B*H, S) f32. Returns 0, a cudaError_t, or minus the CUresult of a failed
-// tensor-map encode.
+// strides in bytes, of (B, H, S, D) tensors with unit stride on D; dtype:
+// 0 = f32, 1 = bf16, 2 = fp16 (kDtypeF32, kDtypeBf16, kDtypeF16); every
+// address 16-byte aligned and every stride a positive multiple of 16 bytes
+// (the wrapper checks both). lse: contiguous (B*H, S) f32. Returns 0, a
+// cudaError_t, or minus the CUresult of a failed tensor-map encode.
 extern "C" int mxt_flash_attention_fwd(const long long* views, void* lse,
                                        int batch, int heads, int seq,
-                                       int head_dim, int is_bf16,
+                                       int head_dim, int dtype,
                                        float sm_scale, int causal,
                                        void* stream) {
-  if (batch <= 0 || heads <= 0 || seq <= 0)
+  if (batch <= 0 || heads <= 0 || seq <= 0 || dtype < kDtypeF32 ||
+      dtype > kDtypeF16)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool f32 = dtype == kDtypeF32;
   const long long bh = static_cast<long long>(batch) * heads;
-  const long long blocks =
-      is_bf16 ? bh * ((seq + kBQ - 1) / kBQ) : bh;
+  const long long blocks = f32 ? bh : bh * ((seq + kBQ - 1) / kBQ);
   if (blocks > INT32_MAX ||
-      (!is_bf16 && (seq + kF32Threads - 1) / kF32Threads > 65535))
+      (f32 && (seq + kF32Threads - 1) / kF32Threads > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
   const float scale_log2 = sm_scale * kLog2e;
   float* lse_f = static_cast<float*>(lse);
@@ -718,12 +719,15 @@ extern "C" int mxt_flash_attention_fwd(const long long* views, void* lse,
     return launch(views, lse_f, batch, heads, seq, scale_log2, causal, st);
   };
   switch (head_dim) {
-    case 32:
-      return is_bf16 ? run(launch_bf16<32>) : run(launch_f32<32>);
-    case 64:
-      return is_bf16 ? run(launch_bf16<64>) : run(launch_f32<64>);
-    case 128:
-      return is_bf16 ? run(launch_bf16<128>) : run(launch_f32<128>);
+#define MXT_CASE(DIM)                                                    \
+  case DIM:                                                              \
+    if (f32) return run(launch_f32<DIM>);                                \
+    return dtype == kDtypeBf16 ? run(launch_tc<DIM, __nv_bfloat16>)      \
+                               : run(launch_tc<DIM, __half>);
+    MXT_CASE(32)
+    MXT_CASE(64)
+    MXT_CASE(128)
+#undef MXT_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

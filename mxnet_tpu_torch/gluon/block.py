@@ -33,6 +33,7 @@ from typing import Dict
 
 import torch
 
+from .. import amp as _amp
 from .. import autograd
 from ..base import MXNetError, current_context
 from ..ndarray.ndarray import NDArray, _context_of, _wrap
@@ -161,6 +162,9 @@ class Block(torch.nn.Module):
 
     #: what ``forward`` computes on: "nd", "tensor" or None (either)
     _io = "nd"
+    #: the cast policy ``amp.convert_hybrid_block`` attached, active
+    #: around this block's forward
+    _amp_cfg = None
 
     def __init__(self, prefix=None, params=None):
         super().__init__()
@@ -360,7 +364,14 @@ class Block(torch.nn.Module):
                 return _call_with_arrays(self, args, kwargs)
         if self._reg_params:
             self._finish_deferred(args)
-        return super().__call__(*args, **kwargs)
+        cfg = self._amp_cfg
+        if cfg is None:
+            return super().__call__(*args, **kwargs)
+        _amp._push_cfg(cfg)   # amp.convert_hybrid_block's cast policy
+        try:
+            return super().__call__(*args, **kwargs)
+        finally:
+            _amp._pop_cfg()
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@ import math
 
 import torch
 
-from ..ops import nn as ops
+from .. import amp as _amp
 from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
@@ -136,9 +136,9 @@ class SoftmaxCrossEntropyLoss(Loss):
 
     def forward(self, pred, label, sample_weight=None):
         if not self._from_logits:
-            pred = ops.log_softmax(pred, axis=self._axis)
+            pred = _amp.call("log_softmax", pred, axis=self._axis)
         if self._sparse_label:
-            loss = -ops.pick(pred, label, axis=self._axis)
+            loss = -_amp.call("pick", pred, label, axis=self._axis)
         else:
             loss = -(pred * label.reshape(pred.shape)).sum(dim=self._axis)
         loss = _apply_weighting(loss, self._weight, sample_weight)
@@ -160,7 +160,7 @@ class KLDivLoss(Loss):
 
     def forward(self, pred, label, sample_weight=None):
         if not self._from_logits:
-            pred = ops.log_softmax(pred, axis=self._axis)
+            pred = _amp.call("log_softmax", pred, axis=self._axis)
         loss = label * ((label + 1e-12).log() - pred)
         loss = _apply_weighting(loss, self._weight, sample_weight)
         return _mean_but(loss, self._batch_axis)
@@ -303,10 +303,10 @@ class CTCLoss(Loss):
             pred = pred.transpose(0, 1)
         if self._batch_axis == 1:
             label = label.transpose(0, 1)
-        loss = ops.ctc_loss(pred, label, pred_lengths, label_lengths,
-                            use_data_lengths=pred_lengths is not None,
-                            use_label_lengths=label_lengths is not None,
-                            blank_label="last")
+        loss = _amp.call("CTCLoss", pred, label, pred_lengths, label_lengths,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None,
+                         blank_label="last")
         return _apply_weighting(loss, self._weight, sample_weight)
 
 
@@ -331,5 +331,5 @@ class SDMLLoss(Loss):
         eye = torch.eye(n, dtype=x1.dtype, device=x1.device)
         labels = (1 - self._smoothing) * eye + \
             self._smoothing / max(n - 1, 1) * (1.0 - eye)
-        logp = ops.log_softmax(-dist, axis=1)
+        logp = _amp.call("log_softmax", -dist, axis=1)
         return _apply_weighting(-(labels * logp).sum(1), self._weight)

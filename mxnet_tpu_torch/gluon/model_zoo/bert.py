@@ -28,8 +28,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ... import amp as _amp
 from ...base import MXNetError
-from ...ops import nn as ops
 from ..block import HybridBlock
 from ..nn import Dense, Dropout, Embedding, LayerNorm
 from .carrier import check_against, load_jax_params, params_from_jax, \
@@ -45,6 +45,13 @@ class _TensorBlock(HybridBlock):
     """A block of this zoo: forwards on tensors."""
 
     _io = "tensor"
+
+
+def _tied_head(h, embed):
+    """h (..., U) times the word embedding's weight (V, U) transposed: the
+    reference's ``F.dot`` of the tied decoder, cast as AMP casts ``dot``."""
+    return _amp.apply("dot", lambda a, w: torch.matmul(a, w.t()),
+                      (h, embed._t("weight")), {})
 
 
 class SelfAttention(_TensorBlock):
@@ -68,16 +75,16 @@ class SelfAttention(_TensorBlock):
 
     def forward(self, x, mask=None):
         q, k, v = self.qkv(x).split(self._units, dim=-1)
-        out = ops.multi_head_attention(q, k, v, mask, heads=self._heads,
-                                       causal=self._causal)
+        out = _amp.call("multi_head_attention", q, k, v, mask,
+                        heads=self._heads, causal=self._causal)
         return self.drop(self.proj(out))
 
     def forward_collect(self, x, mask=None):
         """The forward, also returning the (B, S, H*D) key and value
         projections (views of the QKV output) for the KV cache."""
         q, k, v = self.qkv(x).split(self._units, dim=-1)
-        out = ops.multi_head_attention(q, k, v, mask, heads=self._heads,
-                                       causal=self._causal)
+        out = _amp.call("multi_head_attention", q, k, v, mask,
+                        heads=self._heads, causal=self._causal)
         return self.drop(self.proj(out)), k, v
 
     def attend_step(self, x, k_ctx, v_ctx, lengths):
@@ -89,8 +96,8 @@ class SelfAttention(_TensorBlock):
         (out, k_new, v_new), R rows each."""
         q, k, v = self.qkv(x).split(self._units, dim=-1)
         B = k_ctx.shape[0]
-        out = ops.single_query_attention(q[:B], k_ctx, v_ctx, k[:B], v[:B],
-                                         lengths[:B], heads=self._heads)
+        out = _amp.call("single_query_attention", q[:B], k_ctx, v_ctx, k[:B],
+                        v[:B], lengths[:B], heads=self._heads)
         if B < x.shape[0]:
             out = torch.cat([out, out.new_zeros(x.shape[0] - B,
                                                 out.shape[1])])
@@ -108,7 +115,7 @@ class PositionwiseFFN(_TensorBlock):
             self.drop = Dropout(dropout)
 
     def forward(self, x):
-        return self.drop(self.ffn2(ops.gelu_tanh(self.ffn1(x))))
+        return self.drop(self.ffn2(_amp.call("gelu_tanh", self.ffn1(x))))
 
 
 class TransformerEncoderLayer(_TensorBlock):
@@ -224,9 +231,8 @@ class BERTForPretraining(_TensorBlock):
             idx = masked_positions.long().unsqueeze(-1).expand(
                 -1, -1, seq.shape[-1])
             seq = torch.gather(seq, 1, idx)                 # (B, P, U)
-        h = self.mlm_ln(ops.gelu(self.mlm_transform(seq)))
-        mlm = torch.matmul(h, self.backbone.word_embed._t("weight").t())
-        return mlm, self.nsp(pooled)
+        h = self.mlm_ln(_amp.call("gelu", self.mlm_transform(seq)))
+        return _tied_head(h, self.backbone.word_embed), self.nsp(pooled)
 
 
 class BERTPretrainingLoss(_TensorBlock):
@@ -237,13 +243,13 @@ class BERTPretrainingLoss(_TensorBlock):
     dtype."""
 
     def forward(self, mlm_logits, nsp_logits, mlm_labels, nsp_labels):
-        logp = ops.log_softmax(mlm_logits, axis=-1)
+        logp = _amp.call("log_softmax", mlm_logits, axis=-1)
         labels = mlm_labels.long()
-        picked = ops.pick(logp, labels.clamp_min(0), axis=-1)
+        picked = _amp.call("pick", logp, labels.clamp_min(0), axis=-1)
         valid = (labels >= 0).float()
         mlm_loss = -(picked * valid).sum() / valid.sum().clamp_min(1.0)
-        nsp_logp = ops.log_softmax(nsp_logits, axis=-1)
-        nsp_loss = -ops.pick(nsp_logp, nsp_labels, axis=-1).mean()
+        nsp_logp = _amp.call("log_softmax", nsp_logits, axis=-1)
+        nsp_loss = -_amp.call("pick", nsp_logp, nsp_labels, axis=-1).mean()
         return mlm_loss + nsp_loss
 
 
@@ -284,7 +290,7 @@ class TransformerLM(_TensorBlock):
         return self.embed_drop(self.embed_ln(h))
 
     def _head(self, h):
-        return torch.matmul(h, self.word_embed._t("weight").t())
+        return _tied_head(h, self.word_embed)
 
     def forward(self, tokens):
         positions = torch.arange(tokens.shape[1], device=tokens.device)

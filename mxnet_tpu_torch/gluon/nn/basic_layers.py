@@ -8,7 +8,9 @@ running_mean, running_var) and deferred shapes (``in_units=0``,
 ``in_channels=0``: known at the first forward).
 
 The layers compute on tensors (``_io = "tensor"``) with the registered ops
-of ``ops/nn.py``; called with NDArrays they follow Gluon's autograd rules
+of ``ops/nn.py``, each called by its registered name through AMP's
+cast-policy point (``amp.call``), as the reference's layers call
+``F.<op>``; called with NDArrays they follow Gluon's autograd rules
 (``block.py``). BatchNorm's running statistics are float32 buffers,
 written in place in training mode. ``RMSNorm``, ``GroupNorm``,
 ``InstanceNorm``, ``LeakyReLU``, ``PReLU``, ``ELU``, ``SELU``, ``GELU`` and
@@ -21,11 +23,10 @@ import math
 
 import torch
 
+from ... import amp as _amp
 from ... import random as _random
 from ...base import MXNetError
 from ...ndarray.ndarray import _context_of
-from ...ops import elemwise
-from ...ops import nn as ops
 from ..block import Block, HybridBlock, gluon_context
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
@@ -116,9 +117,9 @@ class Dense(HybridBlock):
         self.weight.shape = (self._units, in_units)
 
     def forward(self, x):
-        out = ops.fully_connected(x, self._t("weight"), self._t("bias"),
-                                  flatten=self._flatten)
-        return ops.activation(out, act_type=self._act_type) \
+        out = _amp.call("FullyConnected", x, self._t("weight"),
+                        self._t("bias"), flatten=self._flatten)
+        return _amp.call("Activation", out, act_type=self._act_type) \
             if self._act_type else out
 
 
@@ -159,8 +160,9 @@ class Dropout(HybridBlock):
     def forward(self, x):
         if not self.training or self._rate <= 0:
             return x
-        return ops.dropout(x, p=self._rate, axes=self._axes, training=True,
-                           generator=mask_generator(self.generator, x))
+        return _amp.call("Dropout", x, p=self._rate, axes=self._axes,
+                         training=True,
+                         generator=mask_generator(self.generator, x))
 
 
 class BatchNorm(HybridBlock):
@@ -226,9 +228,9 @@ class BatchNorm(HybridBlock):
     def forward(self, x):
         running_mean, running_var = self._t("running_mean"), \
             self._t("running_var")
-        out, new_mean, new_var = ops.batch_norm(
-            x, self._t("gamma"), self._t("beta"), running_mean, running_var,
-            training=self.training, **self._kwargs)
+        out, new_mean, new_var = _amp.call(
+            "BatchNorm", x, self._t("gamma"), self._t("beta"), running_mean,
+            running_var, training=self.training, **self._kwargs)
         if self.training and not self._kwargs["use_global_stats"]:
             with torch.no_grad():
                 running_mean.copy_(new_mean)
@@ -264,8 +266,8 @@ class LayerNorm(HybridBlock):
         self.beta.shape = (c,)
 
     def forward(self, x):
-        return ops.layer_norm(x, self._t("gamma"), self._t("beta"),
-                              axis=self._axis, eps=self._epsilon)
+        return _amp.call("LayerNorm", x, self._t("gamma"), self._t("beta"),
+                         axis=self._axis, eps=self._epsilon)
 
 
 class _AffineNorm(HybridBlock):
@@ -305,8 +307,8 @@ class RMSNorm(_AffineNorm):
                          in_channels, use_beta=False, **kwargs)
 
     def forward(self, x):
-        return ops.rms_norm(x, self._t("gamma"), axis=self._axis,
-                            eps=self._epsilon)
+        return _amp.call("RMSNorm", x, self._t("gamma"), axis=self._axis,
+                         eps=self._epsilon)
 
 
 class GroupNorm(_AffineNorm):
@@ -321,8 +323,8 @@ class GroupNorm(_AffineNorm):
         self._num_groups = num_groups
 
     def forward(self, x):
-        return ops.group_norm(x, self._t("gamma"), self._t("beta"),
-                              num_groups=self._num_groups, eps=self._epsilon)
+        return _amp.call("GroupNorm", x, self._t("gamma"), self._t("beta"),
+                         num_groups=self._num_groups, eps=self._epsilon)
 
 
 class InstanceNorm(_AffineNorm):
@@ -336,30 +338,35 @@ class InstanceNorm(_AffineNorm):
                          gamma_initializer, in_channels, **kwargs)
 
     def forward(self, x):
-        return ops.instance_norm(x, self._t("gamma"), self._t("beta"),
-                                 eps=self._epsilon)
+        return _amp.call("InstanceNorm", x, self._t("gamma"),
+                         self._t("beta"), eps=self._epsilon)
 
 
 class Embedding(HybridBlock):
-    """Lookup table with weight (input_dim, output_dim)."""
+    """Lookup table with weight (input_dim, output_dim). With
+    ``sparse_grad=True`` the weight's gradient is row-sparse
+    (``grad_stype="row_sparse"``: ``weight.grad()`` is a
+    ``RowSparseNDArray`` holding the looked-up rows only)."""
 
     _io = "tensor"
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, **kwargs):
         super().__init__(**kwargs)
-        if sparse_grad:
-            raise MXNetError("Embedding: sparse_grad (row-sparse gradients) "
-                             "is not ported")
         self._input_dim = input_dim
         self._output_dim = output_dim
+        self._sparse_grad = sparse_grad
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim),
-                init=weight_initializer, dtype=dtype)
+                init=weight_initializer, dtype=dtype,
+                grad_stype="row_sparse" if sparse_grad else "default")
 
     def forward(self, x):
-        return ops.embedding(x, self._t("weight"))
+        return _amp.call("Embedding", x, self._t("weight"),
+                         input_dim=self._input_dim,
+                         output_dim=self._output_dim,
+                         sparse_grad=self._sparse_grad)
 
 
 class Flatten(HybridBlock):
@@ -368,7 +375,7 @@ class Flatten(HybridBlock):
     _io = "tensor"
 
     def forward(self, x):
-        return x.reshape(x.shape[0], -1)
+        return _amp.call("flatten", x)
 
 
 class Activation(HybridBlock):
@@ -385,7 +392,7 @@ class Activation(HybridBlock):
         return self._act_type if hasattr(self, "_act_type") else "activation"
 
     def forward(self, x):
-        return ops.activation(x, act_type=self._act_type)
+        return _amp.call("Activation", x, act_type=self._act_type)
 
 
 class LeakyReLU(HybridBlock):
@@ -398,7 +405,7 @@ class LeakyReLU(HybridBlock):
         self._alpha = alpha
 
     def forward(self, x):
-        return elemwise.leaky_relu(x, act_type="leaky", slope=self._alpha)
+        return _amp.call("leaky_relu", x, act_type="leaky", slope=self._alpha)
 
 
 class PReLU(HybridBlock):
@@ -416,7 +423,7 @@ class PReLU(HybridBlock):
                 init=alpha_initializer or initializer.Constant(0.25))
 
     def forward(self, x):
-        return elemwise.prelu(x, self._t("alpha"))
+        return _amp.call("prelu", x, self._t("alpha"))
 
 
 class ELU(HybridBlock):
@@ -429,7 +436,7 @@ class ELU(HybridBlock):
         self._alpha = alpha
 
     def forward(self, x):
-        return elemwise.leaky_relu(x, act_type="elu", slope=self._alpha)
+        return _amp.call("leaky_relu", x, act_type="elu", slope=self._alpha)
 
 
 class SELU(HybridBlock):
@@ -438,7 +445,7 @@ class SELU(HybridBlock):
     _io = "tensor"
 
     def forward(self, x):
-        return elemwise.leaky_relu(x, act_type="selu")
+        return _amp.call("leaky_relu", x, act_type="selu")
 
 
 class GELU(HybridBlock):
@@ -451,7 +458,7 @@ class GELU(HybridBlock):
         self._approx = approximation
 
     def forward(self, x):
-        return ops.gelu_tanh(x) if self._approx == "tanh" else ops.gelu(x)
+        return _amp.call("gelu_tanh" if self._approx == "tanh" else "gelu", x)
 
 
 class Swish(HybridBlock):
@@ -464,7 +471,7 @@ class Swish(HybridBlock):
         self._beta = beta
 
     def forward(self, x):
-        return x * torch.sigmoid(self._beta * x)
+        return x * _amp.call("sigmoid", self._beta * x)
 
 
 class Lambda(Block):

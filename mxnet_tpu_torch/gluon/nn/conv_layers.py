@@ -10,9 +10,8 @@ inferred from the first input.
 """
 from __future__ import annotations
 
+from ... import amp as _amp
 from ...base import MXNetError
-from ...ops import nn as ops
-from ...ops import tensor
 from ..block import HybridBlock
 from .basic_layers import _init_by_name
 
@@ -84,9 +83,10 @@ class _Conv(HybridBlock):
                 self._kernel
 
     def forward(self, x):
-        f = ops.deconvolution if self._transpose else ops.convolution
-        out = f(x, self._t("weight"), self._t("bias"), **self._kwargs)
-        return ops.activation(out, act_type=self._act_type) \
+        out = _amp.call("Deconvolution" if self._transpose else
+                        "Convolution", x, self._t("weight"), self._t("bias"),
+                        **self._kwargs)
+        return _amp.call("Activation", out, act_type=self._act_type) \
             if self._act_type else out
 
 
@@ -188,7 +188,7 @@ class _Pooling(HybridBlock):
             self._kwargs["count_include_pad"] = count_include_pad
 
     def forward(self, x):
-        return ops.pooling(x, **self._kwargs)
+        return _amp.call("Pooling", x, **self._kwargs)
 
 
 def _pool_class(name, n, pool_type, avg):
@@ -243,4 +243,4 @@ class ReflectionPad2D(HybridBlock):
         self._padding = padding
 
     def forward(self, x):
-        return tensor.pad(x, mode="reflect", pad_width=self._padding)
+        return _amp.call("pad", x, mode="reflect", pad_width=self._padding)

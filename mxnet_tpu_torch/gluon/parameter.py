@@ -9,7 +9,9 @@ over that very tensor, so the module's forward, autograd, ``set_data``,
 the optimizer's in-place update and ``ParallelTrainStep`` all see one
 tensor. Gradients reach the gradient NDArray (``grad()``) through the
 tensor's post-accumulate hook, by ``grad_req``: "write" overwrites on each
-backward, "add" accumulates, "null" keeps none.
+backward, "add" accumulates, "null" keeps none. With
+``grad_stype="row_sparse"`` (an Embedding with ``sparse_grad=True``) the
+gradient is a ``RowSparseNDArray`` of the rows a backward touched.
 
 Nothing is allocated before ``initialize()`` (or a load): ``data()`` raises
 until then, and a shape with unknown (0) dimensions waits for the first
@@ -85,10 +87,14 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
-        if stype != "default" or grad_stype != "default":
-            raise MXNetError(f"{name}: sparse storage is not ported "
-                             "(ROADMAP P2)")
+        if stype != "default":
+            raise MXNetError(f"{name}: sparse weight storage is not ported; "
+                             "grad_stype='row_sparse' is")
+        if grad_stype not in ("default", "row_sparse"):
+            raise MXNetError(f"{name}: grad_stype {grad_stype!r} is not "
+                             "supported")
         self.name = name
+        self._grad_stype = grad_stype
         self._differentiable = differentiable
         self._grad_req = grad_req if differentiable else "null"
         if isinstance(shape, int):
@@ -242,6 +248,10 @@ class Parameter:
     def _init_grad(self):
         if self._grad_req == "null" or self._buffer:
             self._grad = None
+        elif self._grad_stype == "row_sparse":
+            from ..sparse import zeros as sparse_zeros
+            self._grad = sparse_zeros("row_sparse", tuple(self._var.shape),
+                                      ctx=self._ctx, dtype=self._var.dtype)
         else:
             self._grad = _wrap(torch.zeros_like(self._var.detach()),
                                self._ctx)
@@ -319,7 +329,11 @@ class Parameter:
             self._var.copy_(_host(data))
 
     def zero_grad(self):
-        if self._grad is not None:
+        if self._grad is None:
+            return
+        if self._grad_stype == "row_sparse":   # no rows
+            self._grad._assign(self._grad._indices[:0], self._grad._data[:0])
+        else:
             self._grad._data = torch.zeros_like(self._grad._data)
 
     def reset_ctx(self, ctx):

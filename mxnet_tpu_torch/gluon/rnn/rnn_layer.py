@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import amp as _amp
 from ...base import DTypes, MXNetError
 from ...ops import nn as ops
 from ..block import HybridBlock
@@ -80,12 +81,12 @@ class _RNNLayer(HybridBlock):
                       for info in self.state_info(batch)]
         if self._layout == "NTC":
             x = x.transpose(0, 1)
-        out = ops.rnn(x, self._t("parameters"), states[0],
-                      states[1] if self._mode == "lstm" else None,
-                      state_size=self._hidden_size,
-                      num_layers=self._num_layers,
-                      bidirectional=self._dir == 2, mode=self._mode,
-                      p=self._dropout, state_outputs=True)
+        out = _amp.call("RNN", x, self._t("parameters"), states[0],
+                        states[1] if self._mode == "lstm" else None,
+                        state_size=self._hidden_size,
+                        num_layers=self._num_layers,
+                        bidirectional=self._dir == 2, mode=self._mode,
+                        p=self._dropout, state_outputs=True)
         output, new_states = out[0], list(out[1:])
         if self._layout == "NTC":
             output = output.transpose(0, 1)

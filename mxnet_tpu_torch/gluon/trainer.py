@@ -49,6 +49,9 @@ class Trainer:
             if not isinstance(p, Parameter):
                 raise MXNetError("invalid parameter in Trainer")
             self._params.append(p)
+        #: a parameter has a row-sparse gradient (its update is lazy)
+        self._contains_sparse_grad = any(
+            p._grad_stype != "default" for p in self._params)
         optimizer_params = optimizer_params or {}
         self._scale = optimizer_params.get("rescale_grad", 1.0)
         param_dict = dict(enumerate(self._params))

@@ -47,7 +47,10 @@ def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
 
 def clip_global_norm(arrays, max_norm, check_isfinite=True):
     """Scale the arrays in place so that their joint 2-norm is at most
-    ``max_norm``; returns the norm before scaling (a float)."""
+    ``max_norm``; returns the norm before scaling (a float). A row-sparse
+    array (an Embedding's ``sparse_grad`` gradient) contributes its stored
+    rows, which are unique, so its dense norm, and has them scaled (the
+    JAX package's function raises TypeError on one: ROADMAP Queue 3)."""
     if not arrays:
         raise MXNetError("arrays must not be empty")
     total = sum(float(torch.sum(a._data.float().square())) for a in arrays)

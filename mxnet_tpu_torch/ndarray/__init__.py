@@ -235,7 +235,11 @@ def where(condition, x, y):
 
 
 def dot(lhs, rhs, transpose_a=False, transpose_b=False, **kwargs):
-    """The product over lhs's last and rhs's first axis (``dot-inl.h``)."""
+    """The product over lhs's last and rhs's first axis (``dot-inl.h``);
+    a CSR or row-sparse operand takes ``sparse.dot``."""
+    if lhs.stype != "default" or rhs.stype != "default":
+        return sparse.dot(lhs, rhs, transpose_a=transpose_a,
+                          transpose_b=transpose_b)
     return _apply_op("dot", lhs, rhs, transpose_a=transpose_a,
                      transpose_b=transpose_b)
 
@@ -281,6 +285,12 @@ _install_wrappers()
 
 from . import random  # noqa: E402  (nd.random namespace)
 from . import contrib  # noqa: E402  (nd.contrib namespace)
+from .. import sparse  # noqa: E402  (nd.sparse namespace)
+
+# storage-type conversion (``cast_storage-inl.h``) and the sum of squares
+# over a row-sparse array's stored rows
+cast_storage = sparse.cast_storage
+_square_sum = sparse.square_sum
 
 # the array-parameter samplers at nd level too, as in the reference
 sample_uniform = random.sample_uniform

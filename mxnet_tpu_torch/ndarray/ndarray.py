@@ -74,17 +74,56 @@ def _to_tensor(data, ctx: Optional[Context], dtype) -> torch.Tensor:
 def _grad_hook(ref):
     """Post-accumulate hook of an attached leaf: moves the gradient PyTorch
     accumulated into the NDArray's grad buffer by its ``grad_req`` (write
-    overwrites, add accumulates) and clears the leaf's own ``.grad``."""
+    overwrites, add accumulates) and clears the leaf's own ``.grad``. A
+    row-sparse buffer keeps a sparse gradient's rows, summed by id
+    (``grad_req="add"`` sums the earlier rows in, so nnz stays at most the
+    distinct rows touched); a dense gradient into it keeps its nonzero
+    rows; a sparse gradient into a dense buffer is scattered into it."""
     def hook(leaf):
         arr = ref()
         g, leaf.grad = leaf.grad, None
         if arr is None or arr._grad is None or g is None:
             return
-        g = g.detach().to(arr._grad._data.dtype)
+        g = g.detach()
+        buf = arr._grad
+        if buf.stype == "row_sparse":
+            _write_row_sparse(buf, g, arr._grad_req == "add")
+            return
+        if g.is_sparse:
+            g = _scatter_rows(g, buf._data.dtype)
+        g = g.to(buf._data.dtype)
         if arr._grad_req == "add":
-            g = arr._grad._data + g
-        arr._grad._data = g
+            g = buf._data + g
+        buf._data = g
     return hook
+
+
+def _scatter_rows(g, dtype):
+    """A sparse COO gradient as a dense tensor: each row's parts added in
+    their order (a dense scatter-add's order)."""
+    out = torch.zeros(g.shape, dtype=dtype, device=g.device)
+    return out.index_add_(0, g._indices()[0], g._values().to(dtype))
+
+
+def _write_row_sparse(buf, g, add):
+    """Store gradient ``g`` (sparse COO or dense) into the row-sparse
+    buffer ``buf``, adding its old rows when ``add``."""
+    from ..sparse import _dedup
+    n = buf.shape[0]
+    if g.is_sparse:
+        idx, vals = g._indices()[0], g._values()
+    else:
+        dense = g.to(buf._data.dtype)
+        idx = dense.reshape(n, -1).ne(0).any(dim=1).nonzero().reshape(-1)
+        vals = dense[idx]
+        if not add:   # nonzero rows are unique and sorted already
+            buf._assign(idx, vals)
+            return
+    vals = vals.to(buf._data.dtype)
+    if add and buf.nnz:
+        idx, vals = torch.cat([idx, buf._indices]), torch.cat(
+            [vals, buf._data])
+    buf._assign(*_dedup(idx, vals, n))
 
 
 class NDArray:
@@ -149,6 +188,19 @@ class NDArray:
     @property
     def context(self) -> Context:
         return self._ctx
+
+    @property
+    def stype(self) -> str:
+        """The storage type: "default" (dense); the sparse subclasses'
+        "row_sparse" and "csr"."""
+        return "default"
+
+    def tostype(self, stype):
+        """This array in storage type ``stype`` (``cast_storage``)."""
+        if stype == "default":
+            return self
+        from ..sparse import cast_storage
+        return cast_storage(self, stype)
 
     ctx = context
 
@@ -243,12 +295,16 @@ class NDArray:
     # ------------------------------------------------------------------
     def attach_grad(self, grad_req: str = "write", stype=None):
         """Allocate a zero gradient buffer; ``backward`` writes it
-        (``grad_req="write"``) or adds to it (``"add"``)."""
+        (``grad_req="write"``) or adds to it (``"add"``). With
+        ``stype="row_sparse"`` the buffer is a ``RowSparseNDArray`` (nnz 0
+        until a backward writes rows)."""
         if stype not in (None, "default"):
-            raise MXNetError(f"attach_grad: storage type {stype!r} is not "
-                             "supported")
-        _ag.mark_variables(self, NDArray(torch.zeros_like(self._data),
-                                         ctx=self._ctx), grad_req)
+            from ..sparse import zeros as sparse_zeros
+            buf = sparse_zeros(stype, self.shape, ctx=self._ctx,
+                               dtype=self._data.dtype)
+        else:
+            buf = NDArray(torch.zeros_like(self._data), ctx=self._ctx)
+        _ag.mark_variables(self, buf, grad_req)
 
     @property
     def grad(self) -> Optional["NDArray"]:

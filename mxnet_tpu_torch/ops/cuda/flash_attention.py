@@ -20,14 +20,16 @@ Three hand-written CUDA kernels replace the Pallas kernels:
   product on ``wgmma``. K2 also computes delta = rowsum(dO * O) and writes
   it for K3, which runs after it on the same stream.
 
-bf16 runs on the tensor cores, f32 as true-fp32 scalar FMA. Every kernel
+bf16 and fp16 run on the tensor cores (one kernel template, instantiated
+for each), f32 as true-fp32 scalar FMA. Every kernel
 reads its (B, H, S, D) inputs in place as strided views and writes its
 outputs as (B, S, H, D) memory, returned as (B, H, S, D) views.
 
 Bounds on an H100: K1 at the BERT-base serving shape (32, 12, 512, 64) bf16
 moves ~101.5 MB (~30 us at 3.35 TB/s) against 25.8 GFLOP (~26 us at 989
 TFLOP/s); K2 and K3 at the training shape (64, 12, 128, 64) bf16 move ~76
-MB each (~23 us) against 4.8 and 6.4 GFLOP. All three are bound by bytes.
+MB each (~23 us) against 4.8 and 6.4 GFLOP. All three are bound by bytes;
+fp16 moves the same bytes at the same peak rate.
 Times are in PERF.md.
 
 Routing: :func:`flash_attention` sends Lq != Lk, and a head dim outside
@@ -73,7 +75,9 @@ __all__ = ["FlashAttention", "bind_fwd", "flash_attention",
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
-_DTYPES = {torch.bfloat16: 1, torch.float32: 0}   # -> is_bf16 flag
+# -> the C entries' dtype code (kDtypeF32, kDtypeBf16, kDtypeF16 in
+# csrc/hopper.cuh)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _LIB_NAME = "flash_attention_fwd"
 _SOURCES = ("flash_attention_fwd.cu",)
 _BWD_LIB_NAME = "flash_attention_bwd"
@@ -95,7 +99,7 @@ _bwd_fns = None
 def bind_fwd(lib):
     """K1's C entry ``mxt_flash_attention_fwd`` in the loaded ``lib``, with
     its argument types: (views: 16 int64 = address and S, H, B byte strides
-    of q, k, v and out; lse, B, H, S, D, is_bf16, sm_scale, causal,
+    of q, k, v and out; lse, B, H, S, D, dtype code, sm_scale, causal,
     stream)."""
     fn = lib.mxt_flash_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
@@ -115,7 +119,7 @@ def _kernel():
 def bind_bwd(lib):
     """``(dq_fn, dkv_fn)``: K2's and K3's C entries in the loaded ``lib``,
     with their argument types: (views: 24 int64 = address and S, H, B byte
-    strides of six tensors; lse, delta, B, H, S, D, is_bf16, sm_scale,
+    strides of six tensors; lse, delta, B, H, S, D, dtype code, sm_scale,
     causal, stream)."""
     fns = (lib.mxt_flash_attention_bwd_dq, lib.mxt_flash_attention_bwd_dkv)
     for fn in fns:
@@ -313,8 +317,8 @@ def _views(*xs):
 
 
 def flash_attention_fwd(q, k, v, sm_scale: float, causal: bool):
-    """K1: ``(out, lse)`` for CUDA (B, H, S, D) views in bf16 or f32 with D
-    in (32, 64, 128), each in a layout :func:`tma_strides` accepts (the
+    """K1: ``(out, lse)`` for CUDA (B, H, S, D) views in bf16, fp16 or f32
+    with D in (32, 64, 128), each in a layout :func:`tma_strides` accepts (the
     split views of a QKV projection are read in place). ``out`` is a
     (B, H, S, D) view of (B, S, H, D) memory, so ``out.transpose(1, 2)``
     is contiguous; lse is (B, H, S) f32. Raises MXNetError on anything
@@ -341,8 +345,8 @@ def flash_attention_fwd(q, k, v, sm_scale: float, causal: bool):
 def flash_attention_bwd_dq(q, k, v, out, dout, lse, sm_scale: float,
                            causal: bool):
     """K2: ``(dq, delta)`` for CUDA (B, H, S, D) views q, k, v, the
-    forward's ``out`` and the output gradient ``dout`` (bf16 or f32, D in
-    (32, 64, 128), each in a layout :func:`tma_strides` accepts, read in
+    forward's ``out`` and the output gradient ``dout`` (bf16, fp16 or f32,
+    D in (32, 64, 128), each in a layout :func:`tma_strides` accepts, read in
     place) and the forward's contiguous (B, H, S) f32 ``lse``. ``dq`` is a
     (B, H, S, D) view of (B, S, H, D) memory; ``delta`` = rowsum(dout *
     out), (B, H, S) f32, is what :func:`flash_attention_bwd_dkv` takes.

@@ -540,11 +540,23 @@ def dropout(x, *, p=0.5, mode="training", axes=(), training=False,
 def embedding(indices, weight, *, input_dim=0, output_dim=0, dtype="float32",
               sparse_grad=False):
     """Rows of ``weight`` at ``indices`` (any numeric dtype; negative ones
-    count from the end)."""
+    count from the end). With ``sparse_grad`` the weight's gradient is
+    row-sparse: a sparse COO tensor holding one row per index, in the
+    indices' order (a ``RowSparseNDArray`` in a row-sparse buffer)."""
     idx = indices.to(torch.int32).long() if indices.is_floating_point() \
         else indices.long()
     idx = torch.where(idx < 0, idx + weight.shape[0], idx)
-    return F.embedding(idx, weight)
+    return F.embedding(idx, weight, sparse=bool(sparse_grad))
+
+
+@register("_contrib_SparseEmbedding")
+def sparse_embedding(indices, weight, *, input_dim=0, output_dim=0,
+                     dtype="float32", deterministic=False, **legacy_attrs):
+    """The deprecated contrib SparseEmbedding: Embedding with
+    ``sparse_grad=True`` (legacy attributes such as ``deterministic`` are
+    accepted and ignored)."""
+    return embedding(indices, weight, input_dim=input_dim,
+                     output_dim=output_dim, dtype=dtype, sparse_grad=True)
 
 
 # ---------------------------------------------------------------------------

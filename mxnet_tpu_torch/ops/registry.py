@@ -6,8 +6,9 @@ parameters, attributes its keyword-only ones, as in the JAX package, and
 the generated ``nd`` function of an op passes its arguments the same
 way. ``invoke`` unwraps
 NDArrays, runs the function on the context of the first array input (else
-on :func:`current_context`), and wraps the results on that context; every
-``NDArray`` operation goes through it. PyTorch's autograd
+on :func:`current_context`) through AMP's cast-policy point
+(:func:`mxnet_tpu_torch.amp.apply`: a no-op unless AMP is on), and wraps
+the results on that context; every ``NDArray`` operation goes through it. PyTorch's autograd
 builds the graph, and only while ``autograd.is_recording()``; an op marked
 ``differentiable=False`` runs without one, so its outputs carry no
 gradient. Predicate results (comparisons, ``isnan``, ...) are tagged so
@@ -27,6 +28,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
+from .. import amp as _amp
 from ..base import MXNetError
 
 __all__ = ["Op", "register", "get_op", "list_ops", "invoke", "apply_op",
@@ -107,7 +109,7 @@ def invoke(op: Op, inputs: Sequence, attrs: Dict[str, Any]):
                      device=ctx.torch_device())
     with torch.set_grad_enabled(op.differentiable
                                 and autograd.is_recording()):
-        out = op.fn(*tensors, **attrs)
+        out = _amp.apply(op.name, op.fn, tensors, attrs)
     if isinstance(out, (tuple, list)):
         return tuple(_wrap(t, ctx) for t in out)
     out = _wrap(out, ctx)

@@ -14,7 +14,9 @@ donation bought on the TPU (no second copy of the parameters or moments).
 Gluon ``Trainer`` and ``Updater`` call) adds the per-index update count,
 the gradient's rescale and clip and the f32 master of ``multi_precision``
 around it. States are tensors (``None``, a tensor or a tuple of them) on
-the weight's device.
+the weight's device. A row-sparse gradient (``RowSparseNDArray``) takes
+the lazy update (``_sparse_update``): only its rows of the weight, the
+state and the master are updated.
 """
 from __future__ import annotations
 
@@ -179,6 +181,9 @@ class Optimizer:
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         t = self._count(index)
+        if getattr(grad, "stype", "default") == "row_sparse":
+            self._sparse_update(weight, grad, state, lr, wd, t)
+            return
         w, g = _tensor(weight), _tensor(grad)
         if self.multi_precision and w.dtype in _HALF:
             master, inner = state
@@ -188,6 +193,48 @@ class Optimizer:
         else:
             self._rule(w, self._preprocess_grad(g.to(w.dtype)), state, lr,
                        wd, t)
+
+
+    def _sparse_update(self, weight, grad, state, lr, wd, t):
+        """The lazy update of a row-sparse gradient (the reference's
+        ``_sparse_update``): the touched rows of the weight, its state and
+        its master are gathered, updated by the same ``_rule`` and
+        scattered back; untouched rows see no weight or momentum decay.
+        Duplicate row ids are summed first."""
+        if grad.nnz == 0:
+            return
+        rsp = grad.dedup()
+        idx = rsp._indices
+        w = _tensor(weight)
+        half = self.multi_precision and w.dtype in _HALF
+        target, inner = state if half else (w, state)
+        g = self._preprocess_grad(rsp._data.to(w.dtype))
+        rows, st = target[idx], _gather(inner, idx)
+        self._rule(rows, g.to(target.dtype), st, lr, wd, t)
+        target.index_copy_(0, idx, rows)
+        _scatter(inner, idx, st)
+        if half:
+            w.index_copy_(0, idx, rows.to(w.dtype))
+
+
+def _gather(state, idx):
+    """The rows ``idx`` of every tensor of an optimizer state."""
+    if state is None:
+        return None
+    if isinstance(state, (tuple, list)):
+        return type(state)(_gather(s, idx) for s in state)
+    return state[idx]
+
+
+def _scatter(state, idx, rows):
+    """Write :func:`_gather`'s updated rows back into the state."""
+    if state is None:
+        return
+    if isinstance(state, (tuple, list)):
+        for s, r in zip(state, rows):
+            _scatter(s, idx, r)
+        return
+    state.index_copy_(0, idx, rows)
 
 
 @register

@@ -48,19 +48,22 @@ from ..ops.cuda import flash_attention as fa
 from . import card, graph_ms
 
 SHAPES = [(64, 12, 128, 64), (32, 12, 512, 64), (8, 12, 2048, 64)]
-_ONLY_D64 = [("    MXT_CASE(32)\n", ""), ("    MXT_CASE(128)\n", "")]
+# bf16 at D = 64 alone
+_ONLY_D64 = [("    MXT_CASE(32)\n", ""), ("    MXT_CASE(128)\n", ""),
+             ("    if (dtype == kDtypeF16) return launch_tc<kDkv, __half, "
+              "DIM>(a);     \\\n", "")]
 _K2_ELEMENTWISE = "for (int j = 0; j < BK / 8; ++j) {"
 _K3_ELEMENTWISE = "for (int j = 0; j < BQ / 8; ++j) {"
 # (each substitution replaces every occurrence)
 _NO_ACCUMULATE = [
-    ("issue_accumulate<D, BK>(dq, sa, kt);", "(void)kt;"),
-    ("issue_accumulate<D, BQ>(dv, pa, gt);", "(void)gt;"),
-    ("issue_accumulate<D, BQ>(dk, sa, qt);", "(void)qt;")]
+    ("issue_accumulate<E, D, BK>(dq, sa, kt);", "(void)kt;"),
+    ("issue_accumulate<E, D, BQ>(dv, pa, gt);", "(void)gt;"),
+    ("issue_accumulate<E, D, BQ>(dk, sa, qt);", "(void)qt;")]
 _NO_SCORES = [
-    ("issue_scores<D, BK>(s, q_half, k_tile(st));", "(void)0;"),
-    ("issue_scores<D, BK>(dp, g_half, k_tile(st) + M::STREAM);", "(void)0;"),
-    ("issue_scores<D, BQ>(s, k_half, qt);", "(void)0;"),
-    ("issue_scores<D, BQ>(dp, v_half, gt);", "(void)0;")]
+    ("issue_scores<E, D, BK>(s, q_half, k_tile(st));", "(void)0;"),
+    ("issue_scores<E, D, BK>(dp, g_half, k_tile(st) + M::STREAM);", "(void)0;"),
+    ("issue_scores<E, D, BQ>(s, k_half, qt);", "(void)0;"),
+    ("issue_scores<E, D, BQ>(dp, v_half, gt);", "(void)0;")]
 _NO_PINGPONG = [("turns_open(c);", ""), ("turn_begin(c);", ""),
                 ("turn_end(c, false);", ""),
                 ("turn_end(c, !more && last_work);", "")]

@@ -44,18 +44,18 @@ from ..ops.cuda import flash_attention as fa
 from . import card, median_ms
 
 SHAPES = [(32, 12, 512, 64), (64, 12, 128, 64), (8, 12, 2048, 64)]
+# bf16 at D = 64 alone (each substitution replaces every occurrence)
 _ONLY_D64 = [
-    ("return is_bf16 ? run(launch_bf16<32>) : run(launch_f32<32>);",
-     "return -1;"),
-    ("return is_bf16 ? run(launch_bf16<128>) : run(launch_f32<128>);",
-     "return -1;"),
-    ("return is_bf16 ? run(launch_bf16<64>) : run(launch_f32<64>);",
-     "return run(launch_bf16<64>);")]
+    ("    MXT_CASE(32)\n", ""), ("    MXT_CASE(128)\n", ""),
+    ("    if (f32) return run(launch_f32<DIM>);" + " " * 32 + "\\\n", ""),
+    ("    return dtype == kDtypeBf16 ? run(launch_tc<DIM, __nv_bfloat16>)"
+     "      \\\n" + " " * 31 + ": run(launch_tc<DIM, __half>);",
+     "    return run(launch_tc<DIM, __nv_bfloat16>);")]
 _SOFTMAX = """online_softmax<BK, T::EX2_FMA_EVERY>(
             s, m0, m1, l0, l1, scale_log2, need_mask(it * BK), it * BK, t,
             row0, row1, S, causal);"""
-_PV = "            wgmma_rs_n64(o[p], pa[kc], db);"
-_S = "        wgmma_ss_n128(\n"
+_PV = "            wgmma_rs_n64<E>(o[p], pa[kc], db);"
+_S = "        wgmma_ss_n128<E>(\n"
 _FMA = "static constexpr int EX2_FMA_EVERY = D == 128 ? 0 : 8;"
 _STAGES = "static constexpr int STAGES = D == 128 ? 2 : 3;"
 _PINGPONG = [("turn_begin();", ""), ("turn_end(false);", ""),
@@ -66,7 +66,7 @@ VARIANTS = {  # name: (substitutions, keeps the arithmetic)
     "as_built": ([], True),
     "no_softmax": ([(_SOFTMAX, "make_float2(1.f, 1.f);")], False),
     "no_pv": ([(_PV, "            (void)db;")], False),
-    "no_s": ([(_S, "        if (false) wgmma_ss_n128(\n")], False),
+    "no_s": ([(_S, "        if (false) wgmma_ss_n128<E>(\n")], False),
     "s_only": ([(_SOFTMAX, "make_float2(1.f, 1.f);"),
                 (_PV, "            (void)db;")], False),
     "no_pingpong": (_PINGPONG, True),

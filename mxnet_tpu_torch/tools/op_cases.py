@@ -1941,6 +1941,331 @@ def _(nd, ctx):
 
 
 # ---------------------------------------------------------------------------
+# the optimizer update ops (ops/optimizer_ops.py): (3, 4) weights, seeded
+# gradients and states (second moments positive), a clip that bites, the
+# multi-precision forms on fp16 weights over f32 masters
+# ---------------------------------------------------------------------------
+_OPT = dict(rescale_grad=0.5, clip_gradient=0.4)
+
+
+def _wg(nd, ctx, seed=40, n=2):
+    return [_m(nd, ctx, (3, 4), seed + i) for i in range(n)]
+
+
+def _pos(nd, ctx, seed):
+    return nd.array(_r(seed).uniform(0.1, 1.0, (3, 4)).astype(onp.float32),
+                    ctx=ctx)
+
+
+def _half(nd, ctx, w):
+    return nd.array(w.asnumpy(), ctx=ctx, dtype="float16")
+
+
+@case("sgd_update", SUMS)
+def _(nd, ctx):
+    w, g = _wg(nd, ctx)
+    return {"wd": nd.sgd_update(w, g, lr=0.1, wd=0.01, **_OPT),
+            "plain": nd.sgd_update(w, g, lr=0.1)}
+
+
+@case("sgd_mom_update", SUMS)
+def _(nd, ctx):
+    w, g, m = _wg(nd, ctx, n=3)
+    return {"mom": nd.sgd_mom_update(w, g, m, lr=0.1, momentum=0.9, wd=0.01,
+                                     **_OPT)}
+
+
+@case("mp_sgd_update", SUMS)
+def _(nd, ctx):
+    w, g = _wg(nd, ctx)
+    return {"mp": nd.mp_sgd_update(_half(nd, ctx, w), _half(nd, ctx, g), w,
+                                   lr=0.1, wd=0.01, **_OPT)}
+
+
+@case("mp_sgd_mom_update", SUMS)
+def _(nd, ctx):
+    w, g, m = _wg(nd, ctx, n=3)
+    return {"mp": nd.mp_sgd_mom_update(_half(nd, ctx, w), _half(nd, ctx, g),
+                                       m, w, lr=0.1, momentum=0.9, wd=0.01,
+                                       **_OPT)}
+
+
+@case("nag_mom_update", SUMS)
+def _(nd, ctx):
+    w, g, m = _wg(nd, ctx, n=3)
+    return {"nag": nd.nag_mom_update(w, g, m, lr=0.1, momentum=0.9, wd=0.01,
+                                     **_OPT)}
+
+
+@case("mp_nag_mom_update", SUMS)
+def _(nd, ctx):
+    w, g, m = _wg(nd, ctx, n=3)
+    return {"mp": nd.mp_nag_mom_update(_half(nd, ctx, w), _half(nd, ctx, g),
+                                       m, w, lr=0.1, momentum=0.9, wd=0.01,
+                                       **_OPT)}
+
+
+@case("signsgd_update", SUMS)
+def _(nd, ctx):
+    w, g = _wg(nd, ctx)
+    return {"sign": nd.signsgd_update(w, g, lr=0.1, wd=0.01, **_OPT)}
+
+
+@case("signum_update", SUMS)
+def _(nd, ctx):
+    w, g, m = _wg(nd, ctx, n=3)
+    return {"signum": nd.signum_update(w, g, m, lr=0.1, momentum=0.9,
+                                       wd=0.01, wd_lh=0.02, **_OPT)}
+
+
+@case("adam_update", SUMS)
+def _(nd, ctx):
+    w, g, m = _wg(nd, ctx, n=3)
+    return {"adam": nd.adam_update(w, g, m, _pos(nd, ctx, 50), lr=0.01,
+                                   wd=0.01, **_OPT)}
+
+
+@case("adamw_update", SUMS)
+def _(nd, ctx):
+    w, g, m = _wg(nd, ctx, n=3)
+    return {"adamw": nd.adamw_update(w, g, m, _pos(nd, ctx, 50), lr=0.01,
+                                     eta=0.5, wd=0.01, **_OPT)}
+
+
+@case("mp_adamw_update", SUMS)
+def _(nd, ctx):
+    w, g, m = _wg(nd, ctx, n=3)
+    return {"mp": nd.mp_adamw_update(_half(nd, ctx, w), _half(nd, ctx, g), m,
+                                     _pos(nd, ctx, 50), w, lr=0.01, eta=0.5,
+                                     wd=0.01, **_OPT)}
+
+
+@case("rmsprop_update", SUMS)
+def _(nd, ctx):
+    w, g = _wg(nd, ctx)
+    return {"rms": nd.rmsprop_update(w, g, _pos(nd, ctx, 50), lr=0.01,
+                                     wd=0.01, clip_weights=1.5, **_OPT)}
+
+
+@case("rmspropalex_update", SUMS)
+def _(nd, ctx):
+    w, g, ga, delta = _wg(nd, ctx, n=4)
+    n = nd.array(_r(51).uniform(2.0, 3.0, (3, 4)).astype(onp.float32),
+                 ctx=ctx)
+    return {"alex": nd.rmspropalex_update(w, g, n, ga * 0.1, delta, lr=0.01,
+                                          wd=0.01, clip_weights=1.5, **_OPT)}
+
+
+@case("ftrl_update", SUMS)
+def _(nd, ctx):
+    w, g, z = _wg(nd, ctx, n=3)
+    return {"ftrl": nd.ftrl_update(w, g, z, _pos(nd, ctx, 50), lr=0.1,
+                                   lamda1=0.05, wd=0.01, **_OPT)}
+
+
+@case("ftml_update", SUMS)
+def _(nd, ctx):
+    w, g, z = _wg(nd, ctx, n=3)
+    return {"ftml": nd.ftml_update(w, g, _pos(nd, ctx, 52),
+                                   _pos(nd, ctx, 50), z, lr=0.1, t=3,
+                                   wd=0.01, rescale_grad=0.5, clip_grad=0.4)}
+
+
+@case("lamb_update_phase1", SUMS)
+def _(nd, ctx):
+    w, g, m = _wg(nd, ctx, n=3)
+    return {"bc": nd.lamb_update_phase1(w, g, m, _pos(nd, ctx, 50), t=3,
+                                        wd=0.01, **_OPT),
+            "raw": nd.lamb_update_phase1(w, g, m, _pos(nd, ctx, 50), t=3,
+                                         bias_correction=False)}
+
+
+@case("lamb_update_phase2", SUMS)
+def _(nd, ctx):
+    w, g = _wg(nd, ctx)
+    r1, r2 = nd.array(f32([2.0]), ctx=ctx), nd.array(f32([0.5]), ctx=ctx)
+    return {"ratio": nd.lamb_update_phase2(w, g, r1, r2, lr=0.1),
+            "bounded": nd.lamb_update_phase2(w, g, r1, r2, lr=0.1,
+                                             lower_bound=2.5,
+                                             upper_bound=3.0)}
+
+
+@case("mp_lamb_update_phase1", SUMS)
+def _(nd, ctx):
+    w, g, m = _wg(nd, ctx, n=3)
+    return {"mp": nd.mp_lamb_update_phase1(
+        _half(nd, ctx, w), _half(nd, ctx, g), m, _pos(nd, ctx, 50), w, t=3,
+        wd=0.01, **_OPT)}
+
+
+@case("mp_lamb_update_phase2", SUMS)
+def _(nd, ctx):
+    w, g = _wg(nd, ctx)
+    r1, r2 = nd.array(f32([2.0]), ctx=ctx), nd.array(f32([0.5]), ctx=ctx)
+    return {"mp": nd.mp_lamb_update_phase2(_half(nd, ctx, w), g, r1, r2, w,
+                                           lr=0.1)}
+
+
+@case("group_adagrad_update", SUMS)
+def _(nd, ctx):
+    w, g = _wg(nd, ctx)
+    h = nd.array(_r(53).uniform(0.1, 1.0, (3, 1)).astype(onp.float32),
+                 ctx=ctx)
+    return {"group": nd.group_adagrad_update(w, g, h, lr=0.1,
+                                             rescale_grad=0.5,
+                                             clip_gradient=0.4)}
+
+
+@case("sparse_adagrad_update", SUMS)
+def _(nd, ctx):
+    w = _m(nd, ctx, (6, 4), 40)
+    rows = _m(nd, ctx, (2, 4), 41)
+    idx = nd.array(i32([1, 4]), ctx=ctx)
+    h = nd.array(_r(50).uniform(0.1, 1.0, (6, 4)).astype(onp.float32),
+                 ctx=ctx)
+    return {"lazy": nd.sparse_adagrad_update(w, rows, idx, h, lr=0.1,
+                                             **_OPT)}
+
+
+def _groups(nd, ctx, per, n=3, half=False):
+    """n interleaved groups of ``per`` (3, 4) tensors: (w, g, states...),
+    with the master last and the weight and gradient fp16 when ``half``."""
+    out = []
+    for i in range(n):
+        ts = _wg(nd, ctx, seed=60 + 10 * i, n=per)
+        if half:
+            ts = [_half(nd, ctx, ts[0]), _half(nd, ctx, ts[1])] + ts[2:-1] \
+                + [ts[0]]
+        out += ts
+    return out
+
+
+_LRS, _WDS = [0.1, 0.05, 0.2], [0.0, 0.01, 0.02]
+
+
+@case("multi_sgd_update", SUMS)
+def _(nd, ctx):
+    return {"multi": nd.multi_sgd_update(*_groups(nd, ctx, 2), lrs=_LRS,
+                                         wds=_WDS, num_weights=3, **_OPT)}
+
+
+@case("multi_sgd_mom_update", SUMS)
+def _(nd, ctx):
+    return {"multi": nd.multi_sgd_mom_update(
+        *_groups(nd, ctx, 3), lrs=_LRS, wds=_WDS, num_weights=3,
+        momentum=0.9, **_OPT)}
+
+
+@case("multi_mp_sgd_update", SUMS)
+def _(nd, ctx):
+    return {"multi": nd.multi_mp_sgd_update(
+        *_groups(nd, ctx, 3, half=True), lrs=_LRS, wds=_WDS, num_weights=3,
+        **_OPT)}
+
+
+@case("multi_mp_sgd_mom_update", SUMS)
+def _(nd, ctx):
+    return {"multi": nd.multi_mp_sgd_mom_update(
+        *_groups(nd, ctx, 4, half=True), lrs=_LRS, wds=_WDS, num_weights=3,
+        momentum=0.9, **_OPT)}
+
+
+def _lrs_wds(nd, ctx):
+    return nd.array(f32(_LRS), ctx=ctx), nd.array(f32(_WDS), ctx=ctx)
+
+
+@case("preloaded_multi_sgd_update", SUMS)
+def _(nd, ctx):
+    return {"multi": nd.preloaded_multi_sgd_update(
+        *_groups(nd, ctx, 2), *_lrs_wds(nd, ctx), num_weights=3, **_OPT)}
+
+
+@case("preloaded_multi_sgd_mom_update", SUMS)
+def _(nd, ctx):
+    return {"multi": nd.preloaded_multi_sgd_mom_update(
+        *_groups(nd, ctx, 3), *_lrs_wds(nd, ctx), num_weights=3,
+        momentum=0.9, **_OPT)}
+
+
+@case("preloaded_multi_mp_sgd_update", SUMS)
+def _(nd, ctx):
+    return {"multi": nd.preloaded_multi_mp_sgd_update(
+        *_groups(nd, ctx, 3, half=True), *_lrs_wds(nd, ctx), num_weights=3,
+        **_OPT)}
+
+
+@case("preloaded_multi_mp_sgd_mom_update", SUMS)
+def _(nd, ctx):
+    return {"multi": nd.preloaded_multi_mp_sgd_mom_update(
+        *_groups(nd, ctx, 4, half=True), *_lrs_wds(nd, ctx), num_weights=3,
+        momentum=0.9, **_OPT)}
+
+
+@case("multi_lars", SUMS)
+def _(nd, ctx):
+    lrs, wds = _lrs_wds(nd, ctx)
+    wsq = nd.array(f32([4.0, 0.0, 2.5]), ctx=ctx)
+    gsq = nd.array(f32([1.0, 3.0, 0.5]), ctx=ctx)
+    return {"rates": nd.multi_lars(lrs, wsq, gsq, wds, eta=0.01, eps=1e-8,
+                                   rescale_grad=0.5)}
+
+
+@case("multi_adamw_update", SUMS)
+def _(nd, ctx):
+    ts = _groups(nd, ctx, 4)
+    for i in range(3):   # the second moments positive
+        ts[4 * i + 3] = _pos(nd, ctx, 70 + i)
+    return {"multi": nd.multi_adamw_update(
+        *ts, lrs=_LRS, etas=[1.0, 0.5, 0.25], wds=_WDS, num_weights=3,
+        **_OPT)}
+
+
+@case("multi_lamb_update", SUMS)
+def _(nd, ctx):
+    ts = _groups(nd, ctx, 4)
+    for i in range(3):
+        ts[4 * i + 3] = _pos(nd, ctx, 70 + i)
+    return {"multi": nd.multi_lamb_update(
+        *ts, lrs=_LRS, wds=_WDS, num_weights=3, step_count=[1, 2, 3],
+        lower_bound=0.1, upper_bound=10.0, **_OPT)}
+
+
+@case("lars_update", SUMS)
+def _(nd, ctx):
+    w, g, m = _wg(nd, ctx, n=3)
+    return {"lars": nd.lars_update(w, g, m, lr=0.1, eta=0.01, momentum=0.9,
+                                   wd=0.01, **_OPT)}
+
+
+@case("multi_mp_adamw_update", SUMS)
+def _(nd, ctx):
+    ts = _groups(nd, ctx, 5, half=True)
+    for i in range(3):
+        ts[5 * i + 3] = _pos(nd, ctx, 70 + i)
+    return {"multi": nd.multi_mp_adamw_update(
+        *ts, lrs=_LRS, etas=[1.0, 0.5, 0.25], wds=_WDS, num_weights=3,
+        **_OPT)}
+
+
+@case("multi_mp_lamb_update", SUMS)
+def _(nd, ctx):
+    ts = _groups(nd, ctx, 5, half=True)
+    for i in range(3):
+        ts[5 * i + 3] = _pos(nd, ctx, 70 + i)
+    return {"multi": nd.multi_mp_lamb_update(
+        *ts, lrs=_LRS, wds=_WDS, num_weights=3, step_count=[1, 2, 3],
+        **_OPT)}
+
+
+@case("_contrib_SparseEmbedding")
+def _(nd, ctx):
+    w = _m(nd, ctx, (5, 3), 1)
+    return {"x": nd._contrib_SparseEmbedding(
+        nd.array(i32([[0, 4], [2, 4]]), ctx=ctx), w, input_dim=5,
+        output_dim=3, deterministic=True)}
+
+
+# ---------------------------------------------------------------------------
 # the samplers
 # ---------------------------------------------------------------------------
 def SAMPLER_CALLS(nd, ctx, key=()):

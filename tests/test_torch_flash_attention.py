@@ -4,7 +4,9 @@ JAX package's Pallas kernel run in interpret mode on the CPU.
 On the CPU the port's wrapper takes its plain PyTorch version; the CUDA
 kernel itself is checked on the card by chip_smoke.py. f32 compares within
 1e-5 (both sides are true fp32, only the order of sums differs); bf16
-within 2e-2 (P is rounded to bf16, and bf16 outputs differ by an ulp)."""
+within 2e-2 (P is rounded to bf16, and bf16 outputs differ by an ulp);
+fp16 within bf16's 2e-2 times 2^-11 / 2^-8, 2.5e-3 (fp16 keeps three more
+bits: the same roundings, eight times finer)."""
 import numpy as onp
 import pytest
 
@@ -107,3 +109,36 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(MXNetError, match="CUDA tensor"):
         fa.flash_attention_fwd(q, k, v, 0.125, False)
     assert fa.launches == before
+
+
+FP16_TOL = 2e-2 * 2.0 ** -11 / 2.0 ** -8
+
+
+@pytest.mark.parametrize("D,causal", [(32, False), (64, False), (64, True)])
+def test_reference_matches_pallas_interpret_fp16(D, causal):
+    """K1's plain version in fp16 (the arithmetic of the card's fp16
+    instance: products summed in f32, P rounded to fp16) against the
+    Pallas forward in interpret mode, which takes fp16 at HIGHEST
+    precision (``_dot_precision``)."""
+    shape = (1, 2, 128, D)
+    q, k, v = _inputs(2, shape)
+    scale = 1.0 / onp.sqrt(D)
+    jq, jk, jv = (jnp.asarray(x, dtype=jnp.float16) for x in (q, k, v))
+    j_out, j_lse = jax_flash_fwd(jq, jk, jv, scale, causal, 128, 128, True)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.float16) for x in (q, k, v))
+    t_out, t_lse = fa.flash_attention_fwd_reference(tq, tk, tv, scale, causal)
+    assert t_out.dtype == torch.float16 and t_lse.dtype == torch.float32
+    onp.testing.assert_allclose(t_out.float().numpy(),
+                                onp.asarray(j_out.astype(jnp.float32)),
+                                rtol=0, atol=FP16_TOL)
+    onp.testing.assert_allclose(t_lse.numpy(), onp.asarray(j_lse),
+                                rtol=0, atol=FP16_TOL)
+
+
+def test_fp16_is_a_kernel_dtype():
+    """The wrappers take fp16 (F4): dtype code 2 of the C entries."""
+    assert fa._DTYPES == {torch.float32: 0, torch.bfloat16: 1,
+                          torch.float16: 2}
+    q = torch.zeros((1, 1, 128, 64), dtype=torch.float16, device="meta")
+    with pytest.raises(MXNetError, match="CUDA tensor"):
+        fa.flash_attention_fwd(q, q, q, 0.125, False)

@@ -6,7 +6,8 @@ On the CPU the port takes the plain PyTorch versions; the CUDA kernels
 themselves are checked against them on the card by chip_smoke.py. f32
 compares within 1e-4 (both sides are true fp32, only the order of sums
 differs); bf16 within 2e-2 (P and dS are rounded to bf16 on both sides, so
-an ulp of bf16, 7.8e-3 near 1, can flip where the f32 sums differ)."""
+an ulp of bf16, 7.8e-3 near 1, can flip where the f32 sums differ); fp16
+within that times 2^-11 / 2^-8, 2.5e-3 (the same roundings in fp16)."""
 import jax
 import jax.numpy as jnp
 import numpy as onp
@@ -197,3 +198,49 @@ def test_multi_head_attention_gradients_match_jax(causal):
     for a, b in zip(got, want):
         onp.testing.assert_allclose(a.numpy(), onp.asarray(b), rtol=0,
                                     atol=1e-5)
+
+
+FP16_TOL = 2e-2 * 2.0 ** -11 / 2.0 ** -8
+
+
+@pytest.mark.parametrize("D,causal", [(32, False), (64, False), (64, True)])
+def test_plain_kernel_versions_match_pallas_interpret_fp16(D, causal):
+    """K2's and K3's plain versions in fp16 (P and dS rounded to fp16, as
+    the card's fp16 instances round them) against the Pallas backward
+    kernels in interpret mode; delta is f32 on both sides."""
+    want, got = _pallas_and_kernel_plains((1, 2, 128, D), causal,
+                                          jnp.float16, torch.float16,
+                                          seed=7 + D + causal)
+    for w, t, name in zip(want, got, ("dq", "dk", "dv", "delta")):
+        assert t.dtype == (torch.float32 if name == "delta"
+                           else torch.float16), name
+        onp.testing.assert_allclose(t.float().numpy(), w, rtol=0,
+                                    atol=FP16_TOL, err_msg=name)
+
+
+def test_fp16_function_matches_the_references_vjp():
+    """The autograd function in fp16 on the CPU (K1's, K2's and K3's plain
+    versions) against ``jax.vjp`` of the reference's ``flash_attention``
+    (its Pallas forward in interpret mode; at this length its backward is
+    the dense recompute), causal."""
+    from mxnet_tpu.ops.pallas.flash_attention import flash_attention
+    shape = (1, 2, 128, 64)
+    q, k, v, g = _inputs(11, shape)
+    jq, jk, jv, jg = (jnp.asarray(x, dtype=jnp.float16) for x in (q, k, v, g))
+    j_out, pullback = jax.vjp(
+        lambda a, b, c: flash_attention(a, b, c, causal=True, interpret=True),
+        jq, jk, jv)
+    j_grads = pullback(jg)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.float16).requires_grad_()
+                  for x in (q, k, v))
+    out = fa.FlashAttention.apply(tq, tk, tv, 0.125, True)
+    grads = torch.autograd.grad(out, (tq, tk, tv),
+                                torch.from_numpy(g).to(torch.float16))
+    onp.testing.assert_allclose(out.detach().float().numpy(),
+                                onp.asarray(j_out.astype(jnp.float32)),
+                                rtol=0, atol=FP16_TOL)
+    for t, w, name in zip(grads, j_grads, ("dq", "dk", "dv")):
+        assert t.dtype == torch.float16, name
+        onp.testing.assert_allclose(t.float().numpy(),
+                                    onp.asarray(w.astype(jnp.float32)),
+                                    rtol=0, atol=FP16_TOL, err_msg=name)

@@ -36,8 +36,8 @@ torch.set_num_threads(2)
 torch.exp(torch.zeros(1 << 18))
 
 # not ported yet (ROADMAP Queue 1): SyncBatchNorm with the multi-GPU
-# slice, SparseEmbedding with the sparse slice
-DEFERRED = {"SyncBatchNorm", "_contrib_SparseEmbedding"}
+# slice
+DEFERRED = {"SyncBatchNorm"}
 # held to their moments and determinism in test_torch_random_ops.py
 SAMPLERS = {
     "_random_uniform", "_random_normal", "_random_gamma",
@@ -59,7 +59,8 @@ _ND_RANDOM = {"_random_uniform": "uniform", "_random_normal": "normal",
               "_random_dirichlet": "dirichlet", "_shuffle": "shuffle"}
 FAMILIES = ("mxnet_tpu.ops.elemwise", "mxnet_tpu.ops.tensor",
             "mxnet_tpu.ops.nn", "mxnet_tpu.ops.random_ops",
-            "mxnet_tpu.ops.contrib", "mxnet_tpu.ops.pallas.flash_attention")
+            "mxnet_tpu.ops.contrib", "mxnet_tpu.ops.pallas.flash_attention",
+            "mxnet_tpu.ops.optimizer_ops")
 
 def _run(case, tol, ref_nd=None):
     ref = case(ref_nd or mx.nd, mx.cpu())

@@ -342,7 +342,7 @@ def test_kernel_sources_do_their_own_products(path):
     allowed = {"<cuda_bf16.h>", "<cuda_runtime.h>", "<stdint.h>"}
     if path.name == "hopper.cuh":
         assert "wgmma.mma_async.sync.aligned" in src
-        allowed.add("<cuda.h>")
+        allowed |= {"<cuda.h>", "<cuda_fp16.h>"}
     else:
         assert path.name.startswith("flash_attention") or \
             path.name == "fused_conv1x1.cu", path.name
@@ -361,20 +361,38 @@ def _code(path):
     return re.sub(r"//[^\n]*", "", src)
 
 
+def _instantiations(header, name):
+    """{element type: PTX text} of hopper.cuh's product wrapper ``name``:
+    its macro's text with the type put in, for each type its body
+    expands the macro with ("bf16", "f16")."""
+    import re
+    macro = f"MXT_{name.upper()}"
+    lines = []
+    for line in header[header.index(f"#define {macro}(TY)"):].splitlines():
+        lines.append(line.rstrip().rstrip("\\"))
+        if not line.rstrip().endswith("\\"):
+            break
+    text = "\n".join(lines)
+    assert '." TY "." TY " "' in text, name
+    return {ty: text.replace('" TY "." TY "', f"{ty}.{ty}")
+            for ty in re.findall(rf'{macro}\("(\w+)"\)', _body(header, name))}
+
+
 def test_k1_bf16_is_the_hopper_design():
     """K1's bf16 forward loads through TMA into an mbarrier ring, runs both
     products on wgmma (P V with P from registers and V transposed), takes
     128-row q-tiles, and no longer uses mma.sync; its tensor maps are
     encoded through the driver's entry point, not a libcuda link. The PTX
     wrappers and the encoder are in the header K1 includes."""
-    code = _code(PKG / "csrc" / "flash_attention_fwd.cu") + \
-        _code(PKG / "csrc" / "hopper.cuh")
+    header = _code(PKG / "csrc" / "hopper.cuh")
+    code = _code(PKG / "csrc" / "flash_attention_fwd.cu") + header
+    for name, n in (("wgmma_ss_n128", 128), ("wgmma_rs_n64", 64)):
+        assert (f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16"
+                in _instantiations(header, name)["bf16"])
     for needle in ("cp.async.bulk.tensor.4d.shared::cluster.global."
                    "mbarrier::complete_tx",
                    "cp.async.bulk.tensor.4d.global.shared::cta",
                    "mbarrier.try_wait.parity", "mbarrier.arrive.expect_tx",
-                   "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
-                   "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
                    "setmaxnreg.inc", "setmaxnreg.dec",
                    "constexpr int kBQ = 128;",
                    "cudaGetDriverEntryPoint", "cuTensorMapEncodeTiled",
@@ -410,7 +428,7 @@ def test_k4_bf16_is_the_hopper_design():
     for n in (64, 128, 256):
         assert f"wgmma_rs_n{n}(" in _body(code, "wgmma_rs")
         ptx = f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16"
-        body = _body(header, f"wgmma_rs_n{n}")
+        body = _instantiations(header, f"wgmma_rs_n{n}")["bf16"]
         assert ptx in body and "p, 1, 1, 1;" in body, n
     for helper, ptx in (("tma_load_2d", "cp.async.bulk.tensor.2d.shared::"
                                         "cluster.global.mbarrier::complete_tx"),
@@ -436,8 +454,11 @@ def _body(code, name):
     raise AssertionError(f"unbalanced body of {name}")
 
 
-@pytest.mark.parametrize("kernel", ["flash_bwd_dq_bf16_kernel",
-                                    "flash_bwd_dkv_bf16_kernel"])
+# the kernels are templated on the element type (bf16, fp16): the ids are
+# the names the bf16-only kernels had
+@pytest.mark.parametrize("kernel", [
+    pytest.param("flash_bwd_dq_kernel", id="flash_bwd_dq_bf16_kernel"),
+    pytest.param("flash_bwd_dkv_kernel", id="flash_bwd_dkv_bf16_kernel")])
 def test_k2_k3_bf16_are_the_hopper_design(kernel):
     """K2's and K3's bf16 kernels are persistent and warp-specialised:
     TMA loads (cp.async.bulk.tensor) through mbarriers into shared memory,
@@ -458,17 +479,87 @@ def test_k2_k3_bf16_are_the_hopper_design(kernel):
     for helper, ptx in (("tma_load", "cp.async.bulk.tensor.4d.shared::cluster"
                                      ".global.mbarrier::complete_tx"),
                         ("tma_store", "cp.async.bulk.tensor.4d.global"
-                                      ".shared::cta"),
-                        ("wgmma_ss_n128", "wgmma.mma_async.sync.aligned."
-                                          "m64n128k16.f32.bf16.bf16"),
-                        ("wgmma_ss_n64", "wgmma.mma_async.sync.aligned."
-                                         "m64n64k16.f32.bf16.bf16"),
-                        ("wgmma_rs_n64", "wgmma.mma_async.sync.aligned."
-                                         "m64n64k16.f32.bf16.bf16")):
+                                      ".shared::cta")):
         assert ptx in _body(header, helper), helper
+    for helper, n in (("wgmma_ss_n128", 128), ("wgmma_ss_n64", 64),
+                      ("wgmma_rs_n64", 64)):
+        assert (f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16"
+                in _instantiations(header, helper)["bf16"]), helper
     assert "mma.sync" not in code
-    if kernel == "flash_bwd_dq_bf16_kernel":
+    if kernel == "flash_bwd_dq_kernel":
         assert "delta[(size_t)bh * S + r0 + r] = acc;" in body
+
+
+@pytest.mark.parametrize("source", ["flash_attention_fwd.cu",
+                                    "flash_attention_bwd.cu"])
+def test_k1_k3_fp16_are_the_hopper_design(source):
+    """F4: K1, K2 and K3 have fp16 instances of the same kernels: each
+    kernel is a template on the element type E, instantiated for
+    __nv_bfloat16 and __half by the dtype dispatch; its tensor maps are
+    encoded with E's data type (FLOAT16 for __half); every product wrapper
+    it calls expands its wgmma PTX for both types (.f32.f16.f16 for fp16,
+    with the register-A and transposed-B operands of the bf16 form); P,
+    dS and the outputs are packed by pack2<E>; no mma.sync anywhere."""
+    header = _code(PKG / "csrc" / "hopper.cuh")
+    code = _code(PKG / "csrc" / source)
+    kernels = ["flash_fwd_kernel"] if "fwd" in source else \
+        ["flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"]
+    for k in kernels:
+        i = code.index(f" {k}(")
+        assert "template <int D, typename E>" in code[i - 120:i], k
+        assert "tma_load(" in _body(code, k) or "tma_load(" in code
+    for name in ("wgmma_ss_n128", "wgmma_ss_n64", "wgmma_rs_n32",
+                 "wgmma_rs_n64"):
+        inst = _instantiations(header, name)
+        assert set(inst) == {"bf16", "f16"}, name
+        assert ".f32.f16.f16 " in inst["f16"], name
+        assert inst["f16"].replace("f16.f16", "bf16.bf16") == inst["bf16"]
+    assert "__half" in code and "__nv_bfloat16" in code
+    assert "Elem<E>::kMap" in code and "pack2<E>(" in code
+    assert "struct Elem<__half> {\n  static constexpr bool kHalf = true;\n" \
+        "  static constexpr CUtensorMapDataType kMap = " \
+        "CU_TENSOR_MAP_DATA_TYPE_FLOAT16;" in header
+    assert "__floats2half2_rn" in _body(header, "pack2")
+    assert "mma.sync" not in code and "mma.sync" not in header
+    assert "pack_bf16(" not in code and "is_bf16" not in code
+
+
+def test_the_dtype_code_is_one_abi():
+    """The C entries' dtype code (0 = f32, 1 = bf16, 2 = fp16) is one
+    thing in the wrapper's _DTYPES, in hopper.cuh's constants and in both
+    sources' dispatch."""
+    import re
+    import torch
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    header = _code(PKG / "csrc" / "hopper.cuh")
+    consts = {name: int(v) for name, v in
+              re.findall(r"constexpr int (kDtype\w+) = (\d+);", header)}
+    assert consts == {"kDtypeF32": 0, "kDtypeBf16": 1, "kDtypeF16": 2}
+    assert fa._DTYPES == {torch.float32: consts["kDtypeF32"],
+                          torch.bfloat16: consts["kDtypeBf16"],
+                          torch.float16: consts["kDtypeF16"]}
+    for source in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
+        text = (PKG / "csrc" / source).read_text()
+        assert "0 = f32, 1 = bf16, 2 = fp16" in text, source
+        code = _code(PKG / "csrc" / source)
+        assert "int dtype" in code and "is_bf16" not in code, source
+        assert "kDtypeBf16" in code and "kDtypeF16" in code, source
+
+
+AMP_SPARSE_MODULES = ["amp/__init__.py", "amp/lists.py",
+                      "amp/loss_scaler.py", "sparse/__init__.py",
+                      "ops/optimizer_ops.py", "gluon/trainer.py",
+                      "gluon/parameter.py", "autograd.py",
+                      "ndarray/utils.py"]
+
+
+@pytest.mark.parametrize("module", AMP_SPARSE_MODULES)
+def test_amp_sparse_slice_modules_are_guarded(module):
+    """AMP, the loss scaler, sparse storage, the optimizer ops and the
+    modules the row-sparse gradient runs through are among the files the
+    import guards read."""
+    assert PKG / module in PORT_FILES
+    test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
 
 
 def _function(module, name):
