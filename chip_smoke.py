@@ -306,26 +306,63 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    sums the gradient's rows in another order). (c) The sparse functions
    (storage casts, the three dots, retain, add_n, the row-sparse sum of
    squares) on the card against the CPU within 1e-5.
-13. A JSON line with the kernels' numbers, then the last line
-   ``{"ok": true, "device": {...}}``.
+13. The data path, on ``gpu(0)``: the native library (engine and RecordIO,
+   built by g++; the OpenCV pipeline where the host has its headers) must
+   have built and loaded and the host engine be a ``NativeEngine``; the
+   decoders on the host are printed. (a) The main path: 1,024 seeded
+   256 x 256 x 3 uint8 images with labels in [0, 1000) written with
+   ``MXIndexedRecordIO`` as raw-pixel records (``recordio.pack`` of the
+   bytes) under ``build/phase_data/``; ``resnet50_v1(classes=1000)`` with
+   phase 5's recipe (seeded weights, SGD(0.05, momentum 0.9), bf16 over
+   f32 masters) trained one epoch of 32 steps at batch 32 from a
+   ``DataLoader`` (4 workers, shuffle, ``pin_memory``) over
+   ``RecordFileDataset`` with ``RandomResizedCrop(224)``,
+   ``RandomFlipLeftRight``, ``ToTensor`` and ``Normalize`` (ImageNet's
+   mean and std) on the first field, each batch moved with
+   ``as_in_context(gpu(0))``. Checks: 32 finite losses; no hand-written
+   kernel launched (none lies on the path). Prints img/s, the step's
+   median ms (batch on the card to fetched loss), the consumer's wait a
+   batch p50/p99, device ms and busy share (three profiled steps), peak
+   memory, beside phase 5's img/s and step in the same run. Where the host
+   has PIL or cv2, the same images as JPEG records (``pack_img``, quality
+   95) and the same epoch through ``ImageRecordDataset``. (b)
+   ``ImageRecordIter`` over the JPEG records (3 x 224 x 224, batch 32, 4
+   threads): which path ran (the native OpenCV pipeline, or ``ImageIter``
+   under ``PrefetchingIter``), its batches/s, all 32 batches; or a line
+   saying it did not run. ``NDArrayIter`` under ``PrefetchingIter`` on the
+   engine over raw-pixel batches keeps their order. (c) Under one seed the
+   first 4 batches with 0 and with 4 workers are bitwise equal, and a
+   loader restored from the ``state_dict`` taken after batch 10 yields the
+   other 22 bitwise. The files are removed. The 15 image ops are op cases
+   of phase 9(a).
+14. A JSON line with the kernels' numbers (``launches_by_path`` gains
+   ``data_resnet``), then the last line ``{"ok": true, "device":
+   {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from mxnet_tpu_torch import (MXNetError, amp, autograd, cpu, gluon, gpu, init,
-                             nd, random, rtc, serving, sparse)
+from mxnet_tpu_torch import (MXNetError, amp, autograd, cpu, engine, gluon,
+                             gpu, init, io, native, nd, random, recordio, rtc,
+                             serving, sparse)
+from mxnet_tpu_torch.gluon import data as gdata
+from mxnet_tpu_torch.gluon.data.vision import transforms as T
 from mxnet_tpu_torch.gluon import nn
 from mxnet_tpu_torch.gluon.model_zoo.bert import (
     BERTForPretraining, BERTModel, BERTPretrainingLoss, TransformerLM,
@@ -406,6 +443,13 @@ AMP_CHECK_SCALE = 2.0 ** 10
 SPARSE_WARMUP, SPARSE_TIMED, SPARSE_LR = 2, 10, 1e-3   # lazy Adam
 SPARSE_LOSS_RTOL = 0.08    # tests/test_sparse.py's sparse-vs-dense bar
 SPARSE_SGD_STEPS, SPARSE_SGD_LR, SPARSE_SGD_TOL = 5, 1.0, 1e-6
+# the data path: a RecordIO file of seeded 256 x 256 x 3 uint8 images with
+# labels in [0, 1000), read by a DataLoader of 4 workers into ResNet-50
+DATA_RECORDS, DATA_HW, DATA_WORKERS = 1024, 256, 4
+DATA_WARMUP = 2                  # synthetic steps before the timed epoch
+DATA_SAME_BATCHES, DATA_RESUME_AT = 4, 10
+DATA_MEAN, DATA_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+DATA_DIR = Path(__file__).resolve().parent / "build" / "phase_data"
 # ResNet-50 v1's distinct 1x1 convolutions at batch 128, as the reference's
 # K4 benchmark lists them: (label, M = 128 * H * W, K = Cin, N = Cout)
 K4_SHAPES = [("s2_reduce", 128 * 56 * 56, 64, 64),
@@ -1400,7 +1444,8 @@ def phase_resnet(seed: int, smi: str):
 
     resnet_f32_step(named, seed)
     return {"img_s": images / wall, "k4_launches": k4_launches,
-            "train_launches": train_launches}
+            "train_launches": train_launches,
+            "step_ms": float(np.median(step_ms))}
 
 
 # ---------------------------------------------------------------------------
@@ -3201,6 +3246,259 @@ def phase_ssd(seed: int, smi: str):
             "kept": kept, "map": mean_ap}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the data path
+# ---------------------------------------------------------------------------
+def decoders():
+    """The image decoders this host has, in the order imdecode tries."""
+    return [m for m in ("PIL", "cv2") if importlib.util.find_spec(m)]
+
+
+def write_data_records(seed: int, jpeg: bool):
+    """DATA_RECORDS seeded DATA_HW x DATA_HW x 3 uint8 images with labels in
+    [0, 1000) as raw-pixel records (``recordio.pack`` of the bytes) and,
+    when ``jpeg``, as JPEG records (``recordio.pack_img``, quality 95),
+    each file with its ``.idx``. Returns the paths, the images' bytes and
+    the seconds each file took."""
+    rng = np.random.default_rng(seed + 21)
+    imgs = rng.integers(0, 256, (DATA_RECORDS, DATA_HW, DATA_HW, 3),
+                        dtype=np.uint8)
+    labels = rng.integers(0, 1000, DATA_RECORDS)
+    DATA_DIR.mkdir(parents=True, exist_ok=True)
+    paths, seconds = {}, {}
+    for kind in ("raw", "jpeg") if jpeg else ("raw",):
+        path = DATA_DIR / f"{kind}.rec"
+        t0 = time.perf_counter()
+        w = recordio.MXIndexedRecordIO(str(path.with_suffix(".idx")),
+                                       str(path), "w")
+        for i in range(DATA_RECORDS):
+            header = recordio.IRHeader(0, float(labels[i]), i, 0)
+            if kind == "raw":
+                w.write_idx(i, recordio.pack(header, imgs[i].tobytes()))
+            else:      # cv2 encodes BGR; the decoder gives the RGB back
+                w.write_idx(i, recordio.pack_img(header, imgs[i][:, :, ::-1],
+                                                 quality=95))
+        w.close()
+        paths[kind], seconds[kind] = str(path), time.perf_counter() - t0
+    return paths, imgs, seconds
+
+
+def _decode_raw(record):
+    header, body = recordio.unpack(record)
+    img = np.frombuffer(body, np.uint8).reshape(DATA_HW, DATA_HW, 3)
+    return nd.array(img, ctx=cpu(), dtype="uint8"), header.label
+
+
+def data_pipeline():
+    return T.Compose([T.RandomResizedCrop(224), T.RandomFlipLeftRight(),
+                      T.ToTensor(), T.Normalize(DATA_MEAN, DATA_STD)])
+
+
+def data_loader(path, kind, num_workers=DATA_WORKERS):
+    """The DataLoader of the main path over ``path``: raw-pixel records
+    decoded by ``_decode_raw``, or JPEG records through
+    ``ImageRecordDataset``; the transforms on the first field."""
+    if kind == "raw":
+        ds = gdata.RecordFileDataset(path).transform(_decode_raw)
+    else:
+        ds = gdata.vision.ImageRecordDataset(path)
+    return gdata.DataLoader(ds.transform_first(data_pipeline()),
+                            batch_size=RESNET_BATCH, shuffle=True,
+                            num_workers=num_workers, pin_memory=True,
+                            last_batch="discard")
+
+
+def data_epoch(step, loader):
+    """One epoch of ResNet-50 steps from ``loader``: each batch moved with
+    ``as_in_context(gpu(0))``, the images cast to bf16, each loss fetched.
+    Returns the losses, the consumer's wait per batch (ms), each step's ms
+    (host clock, batch on the card to fetched loss) and the wall."""
+    losses, waits, steps = [], [], []
+    t0 = time.perf_counter()
+    it = iter(loader)
+    while True:
+        t1 = time.perf_counter()
+        batch = next(it, None)
+        t2 = time.perf_counter()
+        if batch is None:
+            break
+        waits.append((t2 - t1) * 1e3)
+        x, y = (b.as_in_context(gpu(0)).data for b in batch)
+        losses.append(step(x.to(torch.bfloat16), y).item())
+        steps.append((time.perf_counter() - t2) * 1e3)
+    return {"losses": np.asarray(losses), "waits": np.asarray(waits),
+            "step_ms": np.asarray(steps),
+            "wall": time.perf_counter() - t0}
+
+
+def _batch_arrays(batch):
+    return [b.data.clone() for b in batch]
+
+
+def _same_batches(a, b):
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(torch.equal(u, v) for u, v in zip(x, y))
+        for x, y in zip(a, b))
+
+
+def data_determinism(seed: int, path: str):
+    """(c): the first DATA_SAME_BATCHES batches with 0 workers and with
+    DATA_WORKERS under one seed, and a loader restored from the state after
+    DATA_RESUME_AT batches against the rest of the epoch; bitwise."""
+    heads = []
+    for workers in (0, DATA_WORKERS):
+        random.seed(seed)
+        it = iter(data_loader(path, "raw", workers))
+        heads.append([_batch_arrays(next(it))
+                      for _ in range(DATA_SAME_BATCHES)])
+        del it
+    random.seed(seed)
+    first = data_loader(path, "raw")
+    it = iter(first)
+    for _ in range(DATA_RESUME_AT):
+        next(it)
+    state = first.state_dict()
+    rest = [_batch_arrays(b) for b in it]
+    random.seed(seed + 1)        # the restored loader must not depend on it
+    second = data_loader(path, "raw")
+    second.load_state_dict(state)
+    resumed = [_batch_arrays(b) for b in second]
+    return {"workers_equal": _same_batches(heads[0], heads[1]),
+            "resume_equal": _same_batches(rest, resumed),
+            "resumed": len(resumed)}
+
+
+def data_iterators(paths, imgs):
+    """(b): ImageRecordIter over the JPEG records (where a decoder
+    exists), and NDArrayIter under PrefetchingIter on the engine over
+    raw-pixel batches, in order."""
+    out = {"image_record_iter": None}
+    if "jpeg" in paths:
+        it = io.ImageRecordIter(path_imgrec=paths["jpeg"],
+                                data_shape=(3, 224, 224),
+                                batch_size=RESNET_BATCH,
+                                preprocess_threads=DATA_WORKERS)
+        native_path = isinstance(it, io.NativeImageRecordIter)
+        t0 = time.perf_counter()
+        shapes = [batch.data[0].shape for batch in it]
+        out["image_record_iter"] = {
+            "path": "native OpenCV pipeline" if native_path
+            else "Python ImageIter + PrefetchingIter",
+            "batches": shapes.count((RESNET_BATCH, 3, 224, 224)),
+            "batches_per_s": len(shapes) / (time.perf_counter() - t0)}
+    x = imgs[:8 * RESNET_BATCH]
+    y = np.arange(len(x), dtype=np.float32)
+    want = [b.data[0].asnumpy() for b in io.NDArrayIter(
+        x, y, batch_size=RESNET_BATCH)]
+    got = [b.data[0].asnumpy() for b in io.PrefetchingIter(
+        io.NDArrayIter(x, y, batch_size=RESNET_BATCH), prefetch=4)]
+    out["prefetch_in_order"] = len(got) == len(want) == 8 and all(
+        np.array_equal(a, b) for a, b in zip(got, want))
+    return out
+
+
+def phase_data(seed: int, smi: str, resnet: dict):
+    """Phase 13: (a) ResNet-50 trained from a DataLoader over a RecordIO
+    file (raw pixels, and JPEG where the host has a decoder); (b) the
+    iterators; (c) determinism across workers and a resume; the image ops
+    are op cases of phase 9(a)."""
+    have = decoders()
+    lib = native.available()
+    print(f"data path: decoders on this host {have or 'none'}; native "
+          f"library (g++) {'built' if lib else 'FAILED'} at "
+          f"{native.lib_path()}; OpenCV image pipeline "
+          f"{'built' if native.has_image_pipeline() else 'not built (no OpenCV headers)'}"
+          f"; host engine {type(engine.get_engine()).__name__}")
+    if not lib or not isinstance(engine.get_engine(), native.NativeEngine):
+        raise SystemExit(f"FAIL: the native engine and recordio did not "
+                         f"build or load: {native.build_error()}")
+    paths, imgs, write_s = write_data_records(seed, jpeg=bool(have))
+    print(f"wrote {DATA_RECORDS} records of {DATA_HW} x {DATA_HW} x 3 uint8 "
+          f"({imgs.nbytes / 2**20:.0f} MiB raw) with MXIndexedRecordIO: "
+          + ", ".join(f"{k} {os.path.getsize(p) / 2**20:.1f} MiB in "
+                      f"{write_s[k]:.2f} s" for k, p in paths.items()))
+    probe = resnet50_v1(classes=1000)
+    step = resnet_train_step(seeded_resnet_weights(probe, seed), "bfloat16")
+    warm = step.place_batch_n(*resnet_batch(np.random.default_rng(seed + 22),
+                                            DATA_WARMUP, RESNET_BATCH))
+    for i in range(DATA_WARMUP):
+        step(warm[0][i].to(torch.bfloat16), warm[1][i]).item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    random.seed(seed)
+
+    # ---- the main path: counts from 0 just before, read just after ----
+    fa.launches = fa.launches_dq = fa.launches_dkv = fc.launches = 0
+    rtc.launches = 0
+    raw = data_epoch(step, data_loader(paths["raw"], "raw"))
+    hand = {"K1": fa.launches, "K2": fa.launches_dq, "K3": fa.launches_dkv,
+            "K4": fc.launches, "K5": rtc.launches}
+    # ---- end of the main path ----
+    peak = torch.cuda.max_memory_allocated()
+    prof_it = iter(data_loader(paths["raw"], "raw"))
+
+    def one_step():
+        x, y = (b.as_in_context(gpu(0)).data for b in next(prof_it))
+        return step(x.to(torch.bfloat16), y)
+    median = float(np.median(raw["step_ms"]))
+    device_ms, busy = busy_share(one_step, median)
+    del prof_it
+    runs = {"raw pixels": raw}
+    if "jpeg" in paths:
+        runs[f"JPEG ({have[0]})"] = data_epoch(
+            step, data_loader(paths["jpeg"], "jpeg"))
+    for name, r in runs.items():
+        n = len(r["losses"])
+        print(f"resnet50_v1 bf16 from a DataLoader ({name}; {DATA_WORKERS} "
+              f"workers, shuffle, pin_memory, RandomResizedCrop(224) -> "
+              f"RandomFlipLeftRight -> ToTensor -> Normalize): {n} steps, "
+              f"{RESNET_BATCH * n / r['wall']:.1f} img/s (wall "
+              f"{r['wall']:.3f} s), step median "
+              f"{float(np.median(r['step_ms'])):.2f} ms (host clock to a "
+              f"fetched loss), loader wait per batch p50 "
+              f"{np.percentile(r['waits'], 50):.3f} ms p99 "
+              f"{np.percentile(r['waits'], 99):.3f} ms; losses "
+              f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f} on {smi}")
+    if "jpeg" not in paths:
+        print("JPEG epoch did not run: no decoder (PIL or cv2) on this host")
+    print(f"  raw-pixel path: device {device_ms:.2f} ms/step, busy share "
+          f"{busy:.3f} ({PROFILED_STEPS} profiled steps), peak device memory "
+          f"{peak / 2**30:.2f} GiB; phase 5's synthetic input in this run: "
+          f"{resnet['img_s']:.1f} img/s, step median {resnet['step_ms']:.2f}"
+          f" ms; hand-written kernel launches {hand} (none lies on this "
+          f"path) on {smi}")
+    if not all(np.isfinite(r["losses"]).all() and len(r["losses"])
+               == DATA_RECORDS // RESNET_BATCH for r in runs.values()) \
+            or any(hand.values()):
+        raise SystemExit("FAIL: the DataLoader-fed ResNet-50 epoch")
+    iters = data_iterators(paths, imgs)
+    ir = iters["image_record_iter"]
+    if ir is None:
+        print("ImageRecordIter did not run: no decoder (PIL or cv2) on this "
+              "host")
+    else:
+        print(f"ImageRecordIter over the JPEG records (3 x 224 x 224, batch "
+              f"{RESNET_BATCH}, {DATA_WORKERS} threads): {ir['path']}, "
+              f"{ir['batches']} batches, {ir['batches_per_s']:.2f} batches/s "
+              f"on {smi}")
+    print(f"NDArrayIter under PrefetchingIter on the {type(engine.get_engine()).__name__}"
+          f" over raw-pixel batches: order kept {iters['prefetch_in_order']}")
+    det = data_determinism(seed, paths["raw"])
+    print(f"determinism: first {DATA_SAME_BATCHES} batches with 0 and "
+          f"{DATA_WORKERS} workers bitwise equal {det['workers_equal']}; "
+          f"restored after batch {DATA_RESUME_AT}, the {det['resumed']} "
+          f"batches left bitwise equal {det['resume_equal']}")
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    if not (iters["prefetch_in_order"] and det["workers_equal"]
+            and det["resume_equal"]) or (ir is not None
+                                         and ir["batches"] != DATA_RECORDS
+                                         // RESNET_BATCH):
+        raise SystemExit("FAIL: the data path's iterators or determinism")
+    return {"hand": hand, "img_s": RESNET_BATCH * len(raw["losses"])
+            / raw["wall"], "step_ms": median, "busy_share": busy,
+            "device_ms": device_ms}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3224,6 +3522,7 @@ def main(argv=None) -> int:
     det = phase_ssd(args.seed, smi)
     amp_rec = phase_amp(args.seed, smi)
     sp = phase_sparse(args.seed, smi)
+    data = phase_data(args.seed, smi, resnet)
     f16 = amp_rec["fp16"]
     amp_launches = {path: amp_rec[path]["launches"]
                     for path in ("amp_bf16", "amp_fp16")}
@@ -3237,7 +3536,7 @@ def main(argv=None) -> int:
          + gen["launches"] + glu["launches"]["flash_attention_fwd"]
          + lm["k1_op_surface"] + lm["hand"]["K1"] + det["hand"]["K1"]
          + sum(c["flash_attention_fwd"] for c in amp_launches.values())
-         + sp["hand"]["K1"],
+         + sp["hand"]["K1"] + data["hand"]["K1"],
          "launches_by_path": {
              "serving": serve_launches,
              "training": train_launches["flash_attention_fwd"],
@@ -3247,7 +3546,8 @@ def main(argv=None) -> int:
              "lstm_lm": lm["hand"]["K1"], "ssd": det["hand"]["K1"],
              "amp_bf16": amp_launches["amp_bf16"]["flash_attention_fwd"],
              "amp_fp16": amp_launches["amp_fp16"]["flash_attention_fwd"],
-             "sparse_lm": sp["hand"]["K1"]},
+             "sparse_lm": sp["hand"]["K1"],
+             "data_resnet": data["hand"]["K1"]},
          "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"],
                             gen["k1_max_abs_err"]),
          "ms": r["ms"], "ms_strided": r["ms_strided"],
@@ -3288,14 +3588,15 @@ def main(argv=None) -> int:
             "launches": train_launches[wrapper] + glu["launches"][wrapper]
             + lm["hand"][k] + det["hand"][k]
             + sum(c[wrapper] for c in amp_launches.values())
-            + sp["hand"][k],
+            + sp["hand"][k] + data["hand"][k],
             "launches_by_path": {
                 "training": train_launches[wrapper],
                 "gluon_training": glu["launches"][wrapper],
                 "lstm_lm": lm["hand"][k], "ssd": det["hand"][k],
                 "amp_bf16": amp_launches["amp_bf16"][wrapper],
                 "amp_fp16": amp_launches["amp_fp16"][wrapper],
-                "sparse_lm": sp["hand"][k]},
+                "sparse_lm": sp["hand"][k],
+                "data_resnet": data["hand"][k]},
             "max_abs_err": bwd[f"{name}_err"], "ms": t[name]["ms"],
             "device_ms": t[name]["device_ms"],
             "plain_ms": t[name]["plain_ms"],
@@ -3332,7 +3633,7 @@ def main(argv=None) -> int:
         "launches": resnet["k4_launches"] + resnet["train_launches"]
         + lm["hand"]["K4"] + det["hand"]["K4"]
         + sum(amp_rec[p]["others"]["K4"] for p in amp_launches)
-        + sp["hand"]["K4"],
+        + sp["hand"]["K4"] + data["hand"]["K4"],
         "launches_by_path": {"resnet50_training":
                              resnet["train_launches"],
                              "resnet50_bottleneck_sites":
@@ -3341,7 +3642,8 @@ def main(argv=None) -> int:
                              "ssd": det["hand"]["K4"],
                              "amp_bf16": amp_rec["amp_bf16"]["others"]["K4"],
                              "amp_fp16": amp_rec["amp_fp16"]["others"]["K4"],
-                             "sparse_lm": sp["hand"]["K4"]},
+                             "sparse_lm": sp["hand"]["K4"],
+                             "data_resnet": data["hand"]["K4"]},
         "max_abs_err": k4["max_abs_err"], "ms": s2["ms"],
         "device_ms": s2["device_ms"], "plain_ms": s2["plain_ms"],
         "bound_ms": s2["bound_ms"], "bound_by": s2["bound_by"],
@@ -3364,13 +3666,14 @@ def main(argv=None) -> int:
         "replaces": "mxnet_tpu/rtc.py:64",
         "launches": k5["launches"] + lm["hand"]["K5"] + det["hand"]["K5"]
         + sum(amp_rec[p]["others"]["K5"] for p in amp_launches)
-        + sp["hand"]["K5"],
+        + sp["hand"]["K5"] + data["hand"]["K5"],
         "launches_by_path": {"rtc": k5["launches"],
                              "lstm_lm": lm["hand"]["K5"],
                              "ssd": det["hand"]["K5"],
                              "amp_bf16": amp_rec["amp_bf16"]["others"]["K5"],
                              "amp_fp16": amp_rec["amp_fp16"]["others"]["K5"],
-                             "sparse_lm": sp["hand"]["K5"]},
+                             "sparse_lm": sp["hand"]["K5"],
+                             "data_resnet": data["hand"]["K5"]},
         "max_abs_err": max(v["max_abs_err"]
                            for v in k5["by_kernel"].values()),
         "ms": head["ms"], "device_ms": head["device_ms"],

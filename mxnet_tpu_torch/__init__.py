@@ -7,7 +7,10 @@ nvcc at first use. The imperative API (``nd``, ``autograd``, ``random``)
 and ``rtc.CudaModule``, which compiles a user's CUDA source at run time
 with NVRTC, sit beside them. Entry points (``serving.ModelEndpoint``,
 ``parallel.make_mesh`` for ``ParallelTrainStep``) run on the card
-(``gpu(0)``) unless the caller passes ``cpu()``.
+(``gpu(0)``) unless the caller passes ``cpu()``. The data path
+(``gluon.data``, ``io``, ``recordio``, ``image``) runs on the host and
+makes ``cpu()`` batches, which the training loop moves to the card; its
+host C++ (``native``) is built with g++ at first use.
 """
 __version__ = "2.0.0"
 
@@ -23,12 +26,13 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 from .base import Context, MXNetError, cpu, current_context, gpu
-from . import (amp, autograd, base, gluon, init, initializer, ndarray,
-               ops, optimizer, parallel, random, rtc, serving)
+from . import (amp, autograd, base, config, engine, gluon, image, init,
+               initializer, io, ndarray, ops, optimizer, parallel, random,
+               recordio, rtc, serving)
 from . import ndarray as nd
 from .optimizer import lr_scheduler
 
 __all__ = ["Context", "MXNetError", "cpu", "gpu", "current_context",
-           "amp", "autograd", "base", "gluon", "init", "initializer",
-           "lr_scheduler", "nd", "ndarray", "ops", "optimizer", "parallel",
-           "random", "rtc", "serving"]
+           "amp", "autograd", "base", "config", "engine", "gluon", "image",
+           "init", "initializer", "io", "lr_scheduler", "nd", "ndarray", "ops",
+           "optimizer", "parallel", "random", "recordio", "rtc", "serving"]

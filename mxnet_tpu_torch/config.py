@@ -135,6 +135,16 @@ register("MXNET_DECODE_SLO_MS", 100.0, float,
          "Decode scheduler: default inter-token SLO (ms) of a tenant, "
          "priced into EDF admission; 0 means FIFO admission.")
 
+register("MXNET_ENGINE_TYPE", "ThreadedEngine", str,
+         "Engine for host tasks: ThreadedEngine (the native C++ pool) or "
+         "NaiveEngine (synchronous, in Python).")
+register("MXNET_CPU_WORKER_NTHREADS", 4, int,
+         "Worker threads of the host-task dependency engine.")
+register("MXNET_CPU_PRIORITY_NTHREADS", 4, int,
+         "ImageRecordIter's default decode and augment threads.")
+register("MXNET_HOME", os.path.join("~", ".mxnet"), str,
+         "Root of the vision datasets' files (nothing is downloaded).")
+
 # ---------------------------------------------------------------------------
 # flags that tune XLA in the JAX package: listed, not applicable
 # ---------------------------------------------------------------------------

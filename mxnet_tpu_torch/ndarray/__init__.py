@@ -7,7 +7,8 @@ JAX package generates its own, beside the same hand-written wrappers
 flag, the sequence ops' optional lengths, RNN's optional cell state) and
 CamelCase legacy aliases. ``random`` holds the samplers, ``contrib`` the
 control flow and the contrib ops without their ``_contrib_`` prefix,
-``utils`` ``save``/``load`` of the ``.params`` format.
+``image`` the image ops, ``utils`` ``save``/``load`` of the ``.params``
+format.
 
 Arrays are made on ``ctx`` when given, else on :func:`current_context`,
 which is ``gpu(0)`` unless the caller enters ``cpu()``.
@@ -285,6 +286,7 @@ _install_wrappers()
 
 from . import random  # noqa: E402  (nd.random namespace)
 from . import contrib  # noqa: E402  (nd.contrib namespace)
+from . import image  # noqa: E402  (nd.image namespace)
 from .. import sparse  # noqa: E402  (nd.sparse namespace)
 
 # storage-type conversion (``cast_storage-inl.h``) and the sum of squares

@@ -278,9 +278,14 @@ class NDArray:
         return apply_op("identity", self)
 
     def copyto(self, other) -> "NDArray":
+        """A copy on a context, or into ``other``. From pinned host memory
+        (a DataLoader's ``pin_memory=True`` batch) to the card the copy is
+        asynchronous on the current stream."""
         if isinstance(other, Context):
-            return NDArray(self._data.detach().to(other.torch_device(),
-                                                  copy=True), ctx=other)
+            src = self._data.detach()
+            dev = other.torch_device()
+            return NDArray(src.to(dev, copy=True, non_blocking=(
+                dev.type == "cuda" and src.is_pinned())), ctx=other)
         other._set_data(self._data.detach().to(
             device=other._data.device, dtype=other._data.dtype, copy=True))
         return other

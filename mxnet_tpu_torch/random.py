@@ -7,32 +7,52 @@ global generator is never used. The bits are not those of the JAX
 package's threefry keys: the same seed gives the same numbers within the
 port, not across packages. ``normal``, ``uniform``, ``randn`` and
 ``randint`` are the samplers of ``nd.random``.
+
+The data path's host-side draws (the augmenters, the transforms, the
+samplers and iterators' shuffles) come from a ``random.Random`` and a
+``numpy.random.RandomState`` that this module owns, seeded by the same
+:func:`seed`: :func:`python_rng` and :func:`numpy_rng`. Where the JAX
+package draws from Python's and numpy's global generators, the port draws
+the same numbers from these, so ``seed(s)`` here and ``random.seed(s)`` and
+``numpy.random.seed(s)`` there give equal draws. Inside
+``with sample_stream(s):`` the calling thread draws from streams of its
+own seeded with ``s`` instead (the DataLoader seeds each batch this way, so
+its batches do not depend on which worker thread made them).
 """
 from __future__ import annotations
 
+import contextlib
+import random as _pyrandom
 import threading
 from typing import Dict
 
+import numpy as _np
 import torch
 
 from .base import Context
 
-__all__ = ["seed", "generator", "uniform", "normal", "randn", "randint"]
+__all__ = ["seed", "generator", "python_rng", "numpy_rng", "sample_stream",
+           "uniform", "normal", "randn", "randint"]
 
 _SAMPLERS = ("uniform", "normal", "randn", "randint")
 _lock = threading.Lock()
 _seed = 0
 _generators: Dict[Context, torch.Generator] = {}
+_python = _pyrandom.Random(0)
+_numpy = _np.random.RandomState(0)
+_streams = threading.local()
 
 
 def seed(seed_state: int, ctx="all"):
     """Seed every context's generator (``ctx="all"``, and those made
     later), or only the generator of ``ctx``."""
-    global _seed
+    global _seed, _python, _numpy
     with _lock:
         if ctx == "all":
             _seed = int(seed_state)
             _generators.clear()
+            _python = _pyrandom.Random(_seed)
+            _numpy = _np.random.RandomState(_seed)
         else:
             _generator(ctx).manual_seed(int(seed_state))
 
@@ -49,6 +69,35 @@ def generator(ctx: Context) -> torch.Generator:
     """The generator that samplers on ``ctx`` draw from."""
     with _lock:
         return _generator(ctx)
+
+
+def python_rng() -> _pyrandom.Random:
+    """The ``random.Random`` the data path draws from: the calling thread's
+    :func:`sample_stream`, else the one :func:`seed` seeds."""
+    own = getattr(_streams, "python", None)
+    return own if own is not None else _python
+
+
+def numpy_rng() -> _np.random.RandomState:
+    """The ``numpy.random.RandomState`` the data path draws from: the
+    calling thread's :func:`sample_stream`, else the one :func:`seed`
+    seeds."""
+    own = getattr(_streams, "numpy", None)
+    return own if own is not None else _numpy
+
+
+@contextlib.contextmanager
+def sample_stream(seed_state: int):
+    """Within the block, :func:`python_rng` and :func:`numpy_rng` of the
+    calling thread are fresh streams seeded with ``seed_state``."""
+    prev = (getattr(_streams, "python", None),
+            getattr(_streams, "numpy", None))
+    _streams.python = _pyrandom.Random(int(seed_state))
+    _streams.numpy = _np.random.RandomState(int(seed_state) % 2 ** 32)
+    try:
+        yield
+    finally:
+        _streams.python, _streams.numpy = prev
 
 
 def __getattr__(name):

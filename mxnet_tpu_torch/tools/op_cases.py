@@ -1406,6 +1406,153 @@ def _(nd, ctx):
 
 
 # ---------------------------------------------------------------------------
+# image ops (nd.image). A random form runs at a draw that fixes its result
+# (min_factor == max_factor, alpha_std 0) and, where it draws freely, is
+# checked by its outcome: a flip is the image or its mirror (the product
+# of the two distances is 0), a brightness factor is one ratio within its
+# range, lighting adds one constant per channel (each 1.0 when it holds).
+# ---------------------------------------------------------------------------
+def _img(nd, ctx, shape=(5, 6, 3), seed=1):
+    return nd.array(f32(_r(seed).uniform(1, 255, shape)), ctx=ctx)
+
+
+def _u8(nd, ctx, shape=(5, 6, 3), seed=2):
+    return nd.array(_r(seed).randint(0, 256, shape).astype(onp.uint8),
+                    ctx=ctx, dtype="uint8")
+
+
+def _holds(nd, *preds):
+    out = preds[0]
+    for p in preds[1:]:
+        out = out * p
+    return out
+
+
+@case("_image_to_tensor")
+def _(nd, ctx):
+    return {"hwc": nd.image.to_tensor(_u8(nd, ctx)),
+            "nhwc": nd.image.to_tensor(_u8(nd, ctx, (2, 5, 6, 3))),
+            "f32": nd.image.to_tensor(_img(nd, ctx))}
+
+
+@case("_image_normalize", SUMS)
+def _(nd, ctx):
+    chw = _img(nd, ctx, (3, 5, 6)) / 255.0
+    return {"chw": nd.image.normalize(chw, (0.4, 0.5, 0.6), (0.2, 0.3, 0.4)),
+            "nchw": nd.image.normalize(_img(nd, ctx, (2, 3, 4, 5)) / 255.0,
+                                       (0.4, 0.5, 0.6), (0.2, 0.3, 0.4)),
+            "scalar": nd.image.normalize(chw, 0.5, 0.25)}
+
+
+@case("_image_resize", SUMS)
+def _(nd, ctx):
+    x = _img(nd, ctx, (9, 7, 3))
+    return {"shrink": nd.image.imresize(x, 4, 5),
+            "grow": nd.image.resize(x, (11, 13)),
+            "nearest": nd.image.resize(x, (11, 4), interp=0),
+            "keep_ratio": nd.image.resize(x, 5, keep_ratio=True),
+            "u8_nearest": nd.image.resize(_u8(nd, ctx), (9, 3), interp=0),
+            "nhwc": nd.image.resize(_img(nd, ctx, (2, 6, 5, 3)), (3, 4))}
+
+
+@case("_image_crop")
+def _(nd, ctx):
+    return {"hwc": nd.image.crop(_u8(nd, ctx), 1, 2, 4, 3),
+            "nhwc": nd.image.fixed_crop(_img(nd, ctx, (2, 5, 6, 3)), 0, 1,
+                                        5, 2)}
+
+
+@case("_image_flip_left_right")
+def _(nd, ctx):
+    return {"hwc": nd.image.flip_left_right(_u8(nd, ctx)),
+            "nhwc": nd.image.flip_left_right(_img(nd, ctx, (2, 4, 5, 3)))}
+
+
+@case("_image_flip_top_bottom")
+def _(nd, ctx):
+    return {"hwc": nd.image.flip_top_bottom(_u8(nd, ctx)),
+            "nhwc": nd.image.flip_top_bottom(_img(nd, ctx, (2, 4, 5, 3)))}
+
+
+def _flip_outcome(nd, ctx, random_flip, flip):
+    out = {}
+    for k, shape in (("hwc", (5, 6, 3)), ("nhwc", (2, 4, 5, 3))):
+        x = _img(nd, ctx, shape)
+        y = random_flip(x)
+        out[k] = nd.sum(nd.abs(y - x)) * nd.sum(nd.abs(y - flip(x)))
+        out[k + "_shape"] = y.shape
+    return out
+
+
+@case("_image_random_flip_left_right")
+def _(nd, ctx):
+    return _flip_outcome(nd, ctx, nd.image.random_flip_left_right,
+                         nd.image.flip_left_right)
+
+
+@case("_image_random_flip_top_bottom")
+def _(nd, ctx):
+    return _flip_outcome(nd, ctx, nd.image.random_flip_top_bottom,
+                         nd.image.flip_top_bottom)
+
+
+@case("_image_random_brightness", SUMS)
+def _(nd, ctx):
+    x = _img(nd, ctx)
+    ratio = nd.image.random_brightness(x, 0.5, 1.5) / x
+    lo, hi = nd.min(ratio), nd.max(ratio)
+    return {"fixed": nd.image.random_brightness(_u8(nd, ctx), 1.3, 1.3),
+            "drawn": _holds(nd, hi - lo < 1e-5, lo >= 0.5, hi <= 1.5)}
+
+
+@case("_image_random_contrast", SUMS)
+def _(nd, ctx):
+    return {"hwc": nd.image.random_contrast(_img(nd, ctx), 0.7, 0.7),
+            "nhwc": nd.image.random_contrast(_img(nd, ctx, (2, 4, 5, 3)),
+                                             1.4, 1.4),
+            "one_channel": nd.image.random_contrast(_img(nd, ctx, (4, 5, 1)),
+                                                    0.6, 0.6)}
+
+
+@case("_image_random_saturation", SUMS)
+def _(nd, ctx):
+    return {"hwc": nd.image.random_saturation(_img(nd, ctx), 0.3, 0.3),
+            "nhwc": nd.image.random_saturation(_img(nd, ctx, (2, 4, 5, 3)),
+                                               1.6, 1.6)}
+
+
+@case("_image_random_hue", SUMS)
+def _(nd, ctx):
+    return {"hwc": nd.image.random_hue(_img(nd, ctx), 0.25, 0.25),
+            "nhwc": nd.image.random_hue(_img(nd, ctx, (2, 4, 5, 3)), -0.1,
+                                        -0.1)}
+
+
+@case("_image_random_color_jitter", SUMS)
+def _(nd, ctx):
+    x = _img(nd, ctx)
+    ratio = nd.image.random_color_jitter(x, brightness=0.3) / x
+    lo, hi = nd.min(ratio), nd.max(ratio)
+    return {"none": nd.image.random_color_jitter(_u8(nd, ctx)),
+            "drawn": _holds(nd, hi - lo < 1e-5, lo >= 0.7, hi <= 1.3)}
+
+
+@case("_image_adjust_lighting", SUMS)
+def _(nd, ctx):
+    return {"hwc": nd.image.adjust_lighting(_img(nd, ctx), (0.1, -0.2, 0.3)),
+            "u8": nd.image.adjust_lighting(_u8(nd, ctx), (-0.5, 0.0, 0.25))}
+
+
+@case("_image_random_lighting", SUMS)
+def _(nd, ctx):
+    x = _img(nd, ctx)
+    d = nd.image.random_lighting(x, 0.5) - x
+    spread = nd.max(d, axis=(0, 1)) - nd.min(d, axis=(0, 1))
+    return {"fixed": nd.image.random_lighting(x, 0.0),
+            "drawn": nd.max(spread) < 1e-3}
+
+
+# ---------------------------------------------------------------------------
 # contrib: boxes, NMS and the MultiBox family. Inputs are tie-free (scores
 # a permutation of distinct values) and away from the thresholds (every
 # candidate pair's IoU at least 1e-3 from the NMS threshold), which

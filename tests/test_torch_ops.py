@@ -60,7 +60,7 @@ _ND_RANDOM = {"_random_uniform": "uniform", "_random_normal": "normal",
 FAMILIES = ("mxnet_tpu.ops.elemwise", "mxnet_tpu.ops.tensor",
             "mxnet_tpu.ops.nn", "mxnet_tpu.ops.random_ops",
             "mxnet_tpu.ops.contrib", "mxnet_tpu.ops.pallas.flash_attention",
-            "mxnet_tpu.ops.optimizer_ops")
+            "mxnet_tpu.ops.optimizer_ops", "mxnet_tpu.ops.image_ops")
 
 def _run(case, tol, ref_nd=None):
     ref = case(ref_nd or mx.nd, mx.cpu())

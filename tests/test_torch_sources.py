@@ -7,6 +7,7 @@ its build output out of git; and ``chip_smoke.py`` fails without a card or
 without the package."""
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -646,3 +647,151 @@ def test_ablation_variants_still_match_the_kernel_sources(tool, variant):
     subs = mod.VARIANTS[variant][0]
     src = mod._source(subs)   # SystemExit if an anchor is missing
     assert all(new in src for _, new in subs)
+
+
+# ---------------------------------------------------------------------------
+# the data path
+# ---------------------------------------------------------------------------
+DATA_SLICE_MODULES = ["recordio.py", "engine.py", "native/__init__.py",
+                      "ops/image_ops.py", "ndarray/image.py", "image.py",
+                      "io.py", "random.py", "config.py",
+                      "gluon/data/__init__.py", "gluon/data/dataset.py",
+                      "gluon/data/sampler.py", "gluon/data/dataloader.py",
+                      "gluon/data/vision/__init__.py",
+                      "gluon/data/vision/datasets.py",
+                      "gluon/data/vision/transforms.py"]
+
+
+@pytest.mark.parametrize("module", DATA_SLICE_MODULES)
+def test_data_slice_modules_are_guarded(module):
+    """RecordIO, the native library's loader, the engine, the image ops,
+    ``nd.image``, ``image``, ``io`` and ``gluon.data`` are among the files
+    the import guards read."""
+    assert PKG / module in PORT_FILES
+    test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
+
+
+# the draws of Python's random.Random besides the numpy and torch ones
+_DATA_SAMPLING_CALLS = _SAMPLING_CALLS | {"random", "randint", "randrange",
+                                          "getrandbits", "gauss", "sample"}
+# calls that give a stream the port owns
+_OWNED = {"python_rng", "numpy_rng", "Random", "RandomState"}
+
+
+def _calls_owned(node):
+    return any(isinstance(c, ast.Call) and (
+        getattr(c.func, "attr", None) in _OWNED
+        or getattr(c.func, "id", None) in _OWNED) for c in ast.walk(node))
+
+
+def _owned_names(tree):
+    """Names and ``self`` attributes assigned a stream the port owns, and
+    functions that return one."""
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and _calls_owned(node.value):
+            for t in node.targets:
+                if isinstance(t, ast.Name):
+                    names.add(t.id)
+                elif isinstance(t, ast.Attribute):
+                    names.add(t.attr)
+        elif isinstance(node, ast.FunctionDef) and any(
+                isinstance(r, ast.Return) and r.value is not None
+                and _calls_owned(r.value) for r in ast.walk(node)):
+            names.add(node.name)
+    return names
+
+
+@pytest.mark.parametrize("module", DATA_SLICE_MODULES)
+def test_every_data_path_draw_names_its_stream(module):
+    """Every sampling call of the data path, Python's ``random.Random``
+    methods included, draws from a stream the port owns: a torch draw
+    passes ``generator=``; any other draws from ``random.python_rng()``,
+    ``random.numpy_rng()`` or a ``Random``/``RandomState`` the module made
+    (a name, an attribute or a function that returns one), never from
+    Python's or numpy's global generator."""
+    tree = _tree(PKG / module)
+    owned = _owned_names(tree)
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call) and isinstance(node.func,
+                                                          ast.Attribute)
+                and node.func.attr in _DATA_SAMPLING_CALLS):
+            continue
+        recv = node.func.value
+        ok = any(k.arg == "generator" for k in node.keywords) \
+            or _calls_owned(recv) \
+            or (isinstance(recv, ast.Name) and recv.id in owned) \
+            or (isinstance(recv, ast.Attribute) and recv.attr in owned) \
+            or (isinstance(recv, ast.Call)
+                and getattr(recv.func, "attr", getattr(recv.func, "id", None))
+                in owned)
+        assert ok, f"{module}:{node.lineno}: {node.func.attr} without a " \
+                   "stream of its own"
+
+
+def _module_scope_imports(tree):
+    """Import statements outside every function body."""
+    out, todo = [], list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            out.append(node)
+        todo.extend(ast.iter_child_nodes(node))
+    return out
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_decoder_is_imported_at_module_scope(path):
+    """PIL and OpenCV are optional: the port imports them inside the
+    functions that decode or encode, never when a module is imported."""
+    for node in _module_scope_imports(_tree(path)):
+        names = [a.name for a in node.names] if isinstance(node, ast.Import) \
+            else [node.module or ""]
+        for name in names:
+            assert name.split(".")[0] not in ("PIL", "cv2"), \
+                f"{path}:{node.lineno}: module-scope import of {name}"
+
+
+def _docstrings(tree):
+    return {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_library_is_loaded_from_the_jax_package(path):
+    """No code of the port names the JAX package's native directory or its
+    library file, and no ``CDLL`` is handed a path into the JAX package:
+    the port builds and loads its own (``tests/test_torch_native.py``
+    checks the process's mapped files too)."""
+    tree = _tree(path)
+    docs = _docstrings(tree)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            assert not re.search(r"mxnet_tpu/native|libmxtpu_native\.so\b",
+                                 node.value), f"{path}:{node.lineno}"
+        if isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", None)) in (
+                    "CDLL", "LoadLibrary", "PyDLL"):
+            for c in ast.walk(node):
+                assert not (isinstance(c, ast.Constant)
+                            and isinstance(c.value, str)
+                            and re.search(r"mxnet_tpu(?!_torch)", c.value)), \
+                    f"{path}:{node.lineno}"
+
+
+def test_the_native_library_builds_inside_the_port():
+    from mxnet_tpu_torch import native
+    assert native.BUILD_DIR == ROOT / "build" / "mxnet_tpu_torch"
+    for src in (*native.SOURCES, native.IMAGE_SOURCE):
+        assert (PKG / "native" / src).is_file()
+    consts = {n.value for n in ast.walk(_tree(PKG / "native" / "__init__.py"))
+              if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+    assert "g++" in consts and "-std=c++17" in consts
