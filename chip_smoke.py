@@ -335,8 +335,54 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    loader restored from the ``state_dict`` taken after batch 10 yields the
    other 22 bitwise. The files are removed. The 15 image ops are op cases
    of phase 9(a).
-14. A JSON line with the kernels' numbers (``launches_by_path`` gains
-   ``data_resnet``), then the last line ``{"ok": true, "device":
+14. The training utilities, custom ops and the rest of the zoo, on
+   ``gpu(0)``: (a) the main path: ``resnet50_v1(classes=1000)`` with phase
+   5's seeded weights, cast to bf16 (f32 masters: ``Trainer("sgd", lr
+   0.05, momentum 0.9, multi_precision)``), ``net.summary()`` once (its
+   total must be the JAX package's count, ``tools.RESNET50_V1_PARAM_COUNT``),
+   trained through ``Estimator(net, SoftmaxCrossEntropyLoss(),
+   train_metrics=[Accuracy(), TopKAccuracy(5)], context=gpu(0)).fit``
+   for 2 epochs from phase 13's DataLoader (the 1,024 records, the
+   training transforms then a cast to bf16) with validation on 256 more
+   records (resize 256, center crop 224), ``CheckpointHandler`` (monitor:
+   validation accuracy, ``save_best``), ``EarlyStoppingHandler``
+   (validation accuracy, patience 1) and ``LoggingHandler(log_interval=8)``.
+   Checks: parameters, predictions and every profiled convolution on the
+   card (no host convolution); each epoch's training Accuracy and
+   TopKAccuracy(5) equal to the same metrics recomputed from the epoch's
+   predictions fetched in one piece; ``model-epoch1.params`` and
+   ``model-best.params`` load into a fresh bf16 ``resnet50_v1``
+   bitwise equal to the parameters at that epoch's end; a second fit at
+   lr 0 over the validation records with ``EarlyStoppingHandler(loss,
+   patience 0, min_delta 1e-3)`` stops by patience before its 3 epochs;
+   finite losses; no hand-written kernel launched. Prints each epoch's
+   training and validation accuracy and top-5, which handler stopped
+   training, img/s, the step median, device ms and busy share over three
+   profiled steps, the device-to-host copies a step with the two metrics
+   and with the loss metric alone, peak memory, and phase 5's and phase
+   13's img/s and step from this run. (b) ``resnet50_v2``, ``alexnet``,
+   ``vgg16_bn``, ``squeezenet1_1``, ``densenet121``, ``inception_v3``
+   (299 x 299), ``mobilenet1_0`` and ``mobilenet_v2_1_0`` at full width
+   (1000 classes, Xavier weights): a batch-2 f32 forward on the card
+   against the CPU's from the same weights within 1e-3 relative to the
+   CPU's largest logit (TF32 off; cuDNN's and the CPU's sums differ in
+   order through up to 121 layers), then three SGD steps at batch 32 in
+   bf16 over f32 masters: finite losses, the step ms and img/s. (c) A
+   Python ``CustomOp`` (y = x * x) at (4096, 4096) f32 on the card: value
+   and gradient bitwise equal to ``x * x`` in ``nd`` (2 dy x is exact
+   either way), the host microseconds of one ``nd.Custom`` call beside one
+   ``x * x``; a Gluon block with the op between two Dense layers trained
+   three ``Trainer`` steps, bitwise equal to the block with ``x * x``; the
+   external library of ``tests/torch_ext_ops.cc`` built by g++ into
+   ``build/phase_custom/``, loaded with ``library.load``, its ops forward
+   and backward on card inputs bitwise equal to the same arithmetic in
+   torch. (d) ``DeformableConvolution`` (non-zero offsets),
+   ``PixelShuffle2D``, ``BatchNormReLU`` (training mode), ``LSTMPCell``
+   and ``VariationalDropoutCell`` (predict mode; and its locked mask on
+   the card) against their CPU forward within 1e-4 x max(1, |value|).
+   ``Custom`` is an op case of phase 9(a).
+15. A JSON line with the kernels' numbers (``launches_by_path`` gains
+   ``estimator_resnet``), then the last line ``{"ok": true, "device":
    {...}}``.
 """
 from __future__ import annotations
@@ -359,16 +405,23 @@ import numpy as np
 import torch
 
 from mxnet_tpu_torch import (MXNetError, amp, autograd, cpu, engine, gluon,
-                             gpu, init, io, native, nd, random, recordio, rtc,
-                             serving, sparse)
+                             gpu, init, io, library, metric, native, nd,
+                             operator, random, recordio, rtc, serving,
+                             sparse)
 from mxnet_tpu_torch.gluon import data as gdata
 from mxnet_tpu_torch.gluon.data.vision import transforms as T
-from mxnet_tpu_torch.gluon import nn
+from mxnet_tpu_torch.gluon import nn, rnn
+from mxnet_tpu_torch.gluon.contrib import cnn as ccnn
+from mxnet_tpu_torch.gluon.contrib import estimator as est_handlers
+from mxnet_tpu_torch.gluon.contrib import nn as cnn
+from mxnet_tpu_torch.gluon.contrib import rnn as crnn
+from mxnet_tpu_torch.gluon.contrib.estimator import Estimator
 from mxnet_tpu_torch.gluon.model_zoo.bert import (
     BERTForPretraining, BERTModel, BERTPretrainingLoss, TransformerLM,
     bert_base, load_jax_params)
 from mxnet_tpu_torch.gluon.model_zoo.lstm_lm import PTB_MEDIUM, ptb_medium
-from mxnet_tpu_torch.gluon.model_zoo.vision import BottleneckV1, resnet50_v1
+from mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1, get_model,
+                                                    resnet50_v1)
 from mxnet_tpu_torch.gluon.model_zoo.vision import ssd as ssd_zoo
 from mxnet_tpu_torch.ops import _build, _nvrtc, contrib
 from mxnet_tpu_torch.ops import nn as ops
@@ -379,7 +432,8 @@ from mxnet_tpu_torch.optimizer import Adam
 from mxnet_tpu_torch.parallel import ParallelTrainStep, make_mesh
 from mxnet_tpu_torch.serving.generate import DecodeEndpoint
 from mxnet_tpu_torch.test_utils import get_shapes_detection
-from mxnet_tpu_torch.tools import (PretrainStep, card, f32_drift, graph_ms,
+from mxnet_tpu_torch.tools import (RESNET50_V1_PARAM_COUNT, PretrainStep,
+                                   card, f32_drift, graph_ms,
                                    median_ms, pretrain_batch, resnet_batch,
                                    resnet_train_step, seeded_bert_weights,
                                    seeded_resnet_weights)
@@ -450,6 +504,25 @@ DATA_WARMUP = 2                  # synthetic steps before the timed epoch
 DATA_SAME_BATCHES, DATA_RESUME_AT = 4, 10
 DATA_MEAN, DATA_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 DATA_DIR = Path(__file__).resolve().parent / "build" / "phase_data"
+# phase 14: the Estimator path (phase 13's records, 256 more for validation)
+EST_VAL_RECORDS, EST_EPOCHS, EST_PATIENCE = 256, 2, 1
+EST_LR0_EPOCHS, EST_LR0_MIN_DELTA = 3, 1e-3
+# convolutions that ran on the host (a batch the Estimator left there)
+HOST_CONV_OPS = ("aten::mkldnn_convolution", "aten::_slow_conv2d_forward",
+                 "aten::thnn_conv2d", "aten::_nnpack_spatial_convolution",
+                 "aten::slow_conv_dilated2d")
+# the zoo at full width (name, image size), SGD steps at batch ZOO_BATCH
+ZOO_FULL = [("resnet50_v2", 224), ("alexnet", 224), ("vgg16_bn", 224),
+            ("squeezenet1_1", 224), ("densenet121", 224),
+            ("inception_v3", 299), ("mobilenet1_0", 224),
+            ("mobilenet_v2_1_0", 224)]
+ZOO_BATCH, ZOO_STEPS = 32, 3
+ZOO_RTOL = 1e-3     # f32 card vs CPU forward, relative to max |CPU|
+CUSTOM_SHAPE, CUSTOM_LIB_SHAPE, CUSTOM_HOST_CALLS = (4096, 4096), \
+    (1024, 1024), 50
+CUSTOM_DIR = Path(__file__).resolve().parent / "build" / "phase_custom"
+EXT_SOURCE = Path(__file__).resolve().parent / "tests" / "torch_ext_ops.cc"
+CONTRIB_TOL = 1e-4
 # ResNet-50 v1's distinct 1x1 convolutions at batch 128, as the reference's
 # K4 benchmark lists them: (label, M = 128 * H * W, K = Cin, N = Cout)
 K4_SHAPES = [("s2_reduce", 128 * 56 * 56, 64, 64),
@@ -1264,9 +1337,11 @@ def _k4_sites(net, cast, x):
         def pre_bn3(mod, args, site=site):
             site["mean"], site["var"] = bn_stats(mod, args[0])[2:4]
 
-        handles += [body[4].register_forward_pre_hook(pre_bn2),
-                    body[6].register_forward_hook(post_conv),
-                    body[7].register_forward_pre_hook(pre_bn3)]
+        # torch's hooks (removable), not the Gluon ones of Block
+        module = torch.nn.Module
+        handles += [module.register_forward_pre_hook(body[4], pre_bn2),
+                    module.register_forward_hook(body[6], post_conv),
+                    module.register_forward_pre_hook(body[7], pre_bn3)]
     try:
         with torch.no_grad():
             torch.func.functional_call(net, cast, (x,))
@@ -3254,24 +3329,25 @@ def decoders():
     return [m for m in ("PIL", "cv2") if importlib.util.find_spec(m)]
 
 
-def write_data_records(seed: int, jpeg: bool):
-    """DATA_RECORDS seeded DATA_HW x DATA_HW x 3 uint8 images with labels in
+def write_data_records(seed: int, jpeg: bool, count: int = DATA_RECORDS,
+                       stem: str = ""):
+    """``count`` seeded DATA_HW x DATA_HW x 3 uint8 images with labels in
     [0, 1000) as raw-pixel records (``recordio.pack`` of the bytes) and,
     when ``jpeg``, as JPEG records (``recordio.pack_img``, quality 95),
-    each file with its ``.idx``. Returns the paths, the images' bytes and
-    the seconds each file took."""
+    each file (``{stem}raw.rec``, ``{stem}jpeg.rec``) with its ``.idx``.
+    Returns the paths, the images' bytes and the seconds each file took."""
     rng = np.random.default_rng(seed + 21)
-    imgs = rng.integers(0, 256, (DATA_RECORDS, DATA_HW, DATA_HW, 3),
+    imgs = rng.integers(0, 256, (count, DATA_HW, DATA_HW, 3),
                         dtype=np.uint8)
-    labels = rng.integers(0, 1000, DATA_RECORDS)
+    labels = rng.integers(0, 1000, count)
     DATA_DIR.mkdir(parents=True, exist_ok=True)
     paths, seconds = {}, {}
     for kind in ("raw", "jpeg") if jpeg else ("raw",):
-        path = DATA_DIR / f"{kind}.rec"
+        path = DATA_DIR / f"{stem}{kind}.rec"
         t0 = time.perf_counter()
         w = recordio.MXIndexedRecordIO(str(path.with_suffix(".idx")),
                                        str(path), "w")
-        for i in range(DATA_RECORDS):
+        for i in range(count):
             header = recordio.IRHeader(0, float(labels[i]), i, 0)
             if kind == "raw":
                 w.write_idx(i, recordio.pack(header, imgs[i].tobytes()))
@@ -3499,6 +3575,586 @@ def phase_data(seed: int, smi: str, resnet: dict):
             "device_ms": device_ms}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the training utilities, custom ops and the rest of the zoo
+# ---------------------------------------------------------------------------
+def _est_loaders(paths):
+    """Phase 13's training DataLoader (the ImageNet training transforms,
+    then a cast to bf16) and the validation one (resize, center crop 224,
+    no shuffle) over the raw-pixel records."""
+    def loader(path, transforms, shuffle):
+        ds = gdata.RecordFileDataset(path).transform(_decode_raw)
+        return gdata.DataLoader(
+            ds.transform_first(T.Compose(transforms + [T.Cast("bfloat16")])),
+            batch_size=RESNET_BATCH, shuffle=shuffle,
+            num_workers=DATA_WORKERS, pin_memory=True, last_batch="discard")
+    train = [T.RandomResizedCrop(224), T.RandomFlipLeftRight(),
+             T.ToTensor(), T.Normalize(DATA_MEAN, DATA_STD)]
+    val = [T.Resize(256), T.CenterCrop(224), T.ToTensor(),
+           T.Normalize(DATA_MEAN, DATA_STD)]
+    return loader(paths["train"], train, True), \
+        loader(paths["val"], val, False)
+
+
+class _EpochRecorder(est_handlers.EpochBegin, est_handlers.BatchBegin,
+                     est_handlers.BatchEnd, est_handlers.EpochEnd):
+    """Keeps, per epoch, every batch's prediction and label on the card,
+    the training metrics' values and a copy of the parameters at the
+    epoch's end (before any other handler runs), and the seconds from the
+    epoch's start to its last batch's end."""
+
+    priority = -5000
+
+    def __init__(self, net):
+        self.net = net
+        self.preds, self.labels, self.metrics, self.params = [], [], [], []
+        self.train_s = []
+
+    def epoch_begin(self, estimator, *args, **kwargs):
+        self.preds.append([])
+        self.labels.append([])
+        self._epoch_t0 = time.perf_counter()
+
+    def batch_begin(self, estimator, *args, **kwargs):
+        self._t0 = time.perf_counter()
+
+    def batch_end(self, estimator, *args, **kwargs):
+        self.preds[-1].append(kwargs["pred"].data.detach())
+        self.labels[-1].append(kwargs["label"].data.detach())
+        self._t1 = time.perf_counter()
+
+    def epoch_end(self, estimator, *args, **kwargs):
+        self.train_s.append(self._t1 - self._epoch_t0)
+        self.metrics.append([m.get() for m in estimator.train_metrics])
+        self.params.append({k: p.data().data.detach().cpu().clone()
+                            for k, p in
+                            self.net._collect_params_with_prefix().items()})
+
+
+class _StepTimer(est_handlers.BatchBegin, est_handlers.BatchEnd):
+    """Each step's host ms, batch in to every metric updated (it runs
+    last at a batch's end)."""
+
+    priority = 10 ** 6
+
+    def __init__(self):
+        self.ms = []
+
+    def batch_begin(self, estimator, *args, **kwargs):
+        self._t0 = time.perf_counter()
+
+    def batch_end(self, estimator, *args, **kwargs):
+        self.ms.append((time.perf_counter() - self._t0) * 1e3)
+
+
+def _profile_fit(est, loader, handlers=()):
+    """``est.fit`` over PROFILED_STEPS batches under torch.profiler: device
+    ms per step, device-to-host copies per step, the convolutions that ran
+    on the card and those that ran on the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        est.fit(loader, batches=PROFILED_STEPS, event_handlers=list(handlers))
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0
+              and e.key not in ("mxt.optimizer", "mxt.loss")]
+    d2h = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
+    card_convs = sum(e.count for e in events
+                     if e.key == "aten::cudnn_convolution")
+    host_convs = sum(e.count for e in events if e.key in HOST_CONV_OPS)
+    return {"device_ms": sum(e.self_device_time_total for e in device)
+            / 1e3 / PROFILED_STEPS, "d2h": d2h / PROFILED_STEPS,
+            "card_convs": card_convs / PROFILED_STEPS,
+            "host_convs": host_convs}
+
+
+def _metric_values(preds, labels):
+    """Accuracy and TopKAccuracy(5) recomputed from one epoch's
+    predictions and labels (CPU tensors) in one update."""
+    acc, top5 = metric.Accuracy(), metric.TopKAccuracy(5)
+    p, y = nd.NDArray(preds, ctx=cpu()), nd.NDArray(labels, ctx=cpu())
+    acc.update(y, p)
+    top5.update(y, p)
+    return [acc.get(), top5.get()]
+
+
+def _loads_bitwise(path, want):
+    """A fresh bf16 ``resnet50_v1`` loads ``path``; every parameter equals
+    ``want``'s bitwise (dtype included)."""
+    fresh = resnet50_v1(classes=1000)
+    fresh.cast("bfloat16")
+    fresh.load_parameters(str(path), ctx=gpu(0))
+    got = {k: p.data().data for k, p in
+           fresh._collect_params_with_prefix().items()}
+    return set(got) == set(want) and all(
+        torch.equal(got[k].cpu(), want[k]) for k in want)
+
+
+def estimator_path(seed: int, smi: str, resnet: dict, data: dict):
+    """Phase 14(a): ResNet-50 v1 trained through ``Estimator.fit`` from
+    phase 13's DataLoader, with validation, checkpoints and early
+    stopping; then the early stop of an lr-0 fit and the profiled step."""
+    import contextlib
+    import io as _io
+    import logging
+    paths = {"train": write_data_records(seed, jpeg=False)[0]["raw"],
+             "val": write_data_records(seed + 6, jpeg=False,
+                                       count=EST_VAL_RECORDS,
+                                       stem="val_")[0]["raw"]}
+    ckpt_dir = DATA_DIR / "checkpoints"
+    train_loader, val_loader = _est_loaders(paths)
+    net = resnet50_v1(classes=1000)
+    load_jax_params(net, seeded_resnet_weights(net, seed), ctx=gpu(0))
+    net.cast("bfloat16")
+    out = _io.StringIO()
+    with contextlib.redirect_stdout(out):
+        net.summary()
+    summary = out.getvalue().strip().splitlines()
+    total = int(summary[-1].rpartition(" ")[2])
+    print(f"net.summary(): {len(summary) - 5} parameter rows, "
+          f"{summary[-1]} (the JAX package counts "
+          f"{RESNET50_V1_PARAM_COUNT})")
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.05, "momentum": 0.9,
+                             "multi_precision": True})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    est = Estimator(net, loss_fn, train_metrics=[metric.Accuracy(),
+                                                 metric.TopKAccuracy(5)],
+                    trainer=trainer, context=gpu(0))
+    val_metrics = [metric.Accuracy(), metric.TopKAccuracy(5)]
+    val_log = []
+
+    def validate(loader):
+        val_log.append(est.evaluate(loader, val_metrics))
+    recorder, timer = _EpochRecorder(net), _StepTimer()
+    ckpt = est_handlers.CheckpointHandler(str(ckpt_dir),
+                                          monitor=val_metrics[0],
+                                          save_best=True)
+    stopper = est_handlers.EarlyStoppingHandler(val_metrics[0],
+                                                patience=EST_PATIENCE)
+    log = logging.getLogger("mxnet_tpu_torch.estimator")
+    stream = logging.StreamHandler(sys.stdout)
+    stream.setFormatter(logging.Formatter("  estimator: %(message)s"))
+    log.addHandler(stream)
+    log.setLevel(logging.INFO)
+    handlers = [recorder, timer,
+                # validation before the checkpoint (-3000) reads its metric
+                est_handlers.ValidationHandler(val_loader, validate,
+                                               priority=-4000),
+                ckpt, stopper,
+                est_handlers.LoggingHandler(
+                    log_interval=8,
+                    metrics=[est.loss_metric] + est.train_metrics)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    random.seed(seed)
+
+    # ---- the main path: counts from 0 just before, read just after ----
+    fa.launches = fa.launches_dq = fa.launches_dkv = fc.launches = 0
+    rtc.launches = 0
+    t0 = time.perf_counter()
+    est.fit(train_loader, val_data=val_loader, epochs=EST_EPOCHS,
+            event_handlers=handlers)
+    wall = time.perf_counter() - t0
+    hand = {"K1": fa.launches, "K2": fa.launches_dq, "K3": fa.launches_dkv,
+            "K4": fc.launches, "K5": rtc.launches}
+    # ---- end of the main path ----
+    peak = torch.cuda.max_memory_allocated()
+    log.removeHandler(stream)
+    epochs = len(recorder.metrics)
+    steps = sum(len(p) for p in recorder.preds)
+    images = steps * RESNET_BATCH
+    train_s = sum(recorder.train_s)
+    step_ms = float(np.median(timer.ms))
+    stopped_by = "EarlyStoppingHandler" if stopper.stopped_epoch is not None \
+        else "StoppingHandler (epoch budget)"
+    for e in range(epochs):
+        (_, acc), (_, top5) = recorder.metrics[e]
+        (_, vacc), (_, vtop5) = val_log[e]
+        print(f"epoch {e + 1}: train accuracy {acc:.6f}, top-5 {top5:.6f}; "
+              f"validation ({EST_VAL_RECORDS} records) accuracy {vacc:.6f},"
+              f" top-5 {vtop5:.6f}")
+    print(f"resnet50_v1 bf16 through Estimator.fit ({DATA_WORKERS}-worker "
+          f"DataLoader, batch {RESNET_BATCH}, SGD(0.05, momentum 0.9), "
+          f"metrics Accuracy and TopKAccuracy(5), validation, checkpoints,"
+          f" early stopping): {epochs} epochs, {steps} steps, "
+          f"{images / train_s:.1f} img/s over the training batches "
+          f"({train_s:.3f} s; the whole fit {wall:.3f} s with validation "
+          f"and checkpoints), step median {step_ms:.2f} ms (batch in to "
+          f"metrics updated), peak device memory {peak / 2**30:.2f} GiB; "
+          f"stopped by {stopped_by}; phase 5 in this run "
+          f"{resnet['img_s']:.1f} img/s, step {resnet['step_ms']:.2f} ms; "
+          f"phase 13 {data['img_s']:.1f} img/s, step "
+          f"{data['step_ms']:.2f} ms; hand-written kernel launches {hand} "
+          f"(none lies on this path) on {smi}")
+
+    # ---- checks ----
+    on_card = all(p.data().data.is_cuda for p in
+                  net.collect_params().values()) and all(
+        t.is_cuda for ep in recorder.preds for t in ep)
+    flat = torch.cat([t for ep in recorder.preds for t in ep]).cpu()
+    flat_y = torch.cat([t for ep in recorder.labels for t in ep]).cpu()
+    metrics_equal, at = True, 0
+    for e in range(epochs):
+        n = sum(t.shape[0] for t in recorder.preds[e])
+        again = _metric_values(flat[at:at + n], flat_y[at:at + n])
+        metrics_equal &= again == recorder.metrics[e]
+        at += n
+    best_epoch, best = None, -float("inf")
+    for e, ((_, vacc), _) in enumerate(val_log):
+        if vacc > best:
+            best_epoch, best = e, vacc
+    files = {"model-epoch1.params": 0, "model-best.params": best_epoch}
+    ckpt_ok = {name: (ckpt_dir / name).exists() and e is not None
+               and _loads_bitwise(ckpt_dir / name, recorder.params[e])
+               for name, e in files.items()}
+    losses_finite = all(math.isfinite(v) for v in
+                        (est.loss_metric.get()[1],
+                         *(m[0][1] for m in recorder.metrics)))
+    print(f"checks: parameters and predictions on the card {on_card}; "
+          f"each epoch's training metrics equal those recomputed from its "
+          f"{steps // max(epochs, 1)} batches of predictions fetched in one "
+          f"piece {metrics_equal}; checkpoints load bitwise into a fresh "
+          f"resnet50_v1 {ckpt_ok} (best = epoch {None if best_epoch is None else best_epoch + 1}); loss finite "
+          f"{losses_finite}; summary total {total} == "
+          f"{RESNET50_V1_PARAM_COUNT}")
+
+    # the early stop: lr 0 over the validation records (fixed order), the
+    # epoch's training loss cannot improve by more than float noise
+    trainer0 = gluon.Trainer(net.collect_params(), "sgd",
+                             {"learning_rate": 0.0, "momentum": 0.9,
+                              "multi_precision": True})
+    est0 = Estimator(net, loss_fn, train_metrics=[metric.Accuracy()],
+                     trainer=trainer0, context=gpu(0))
+    stop0 = est_handlers.EarlyStoppingHandler(est0.loss_metric, patience=0,
+                                              min_delta=EST_LR0_MIN_DELTA)
+    est0.fit(val_loader, epochs=EST_LR0_EPOCHS, event_handlers=[stop0])
+    early = stop0.stopped_epoch is not None and \
+        stop0.stopped_epoch + 1 < EST_LR0_EPOCHS and stop0.wait > 0
+    print(f"lr-0 fit with EarlyStoppingHandler(loss, patience 0, min_delta "
+          f"{EST_LR0_MIN_DELTA}): stopped after epoch "
+          f"{None if stop0.stopped_epoch is None else stop0.stopped_epoch + 1}"
+          f" of {EST_LR0_EPOCHS} (wait {stop0.wait}) by patience {early}")
+
+    # the profiled step, with the metrics and with the loss metric alone
+    prof = _profile_fit(est, train_loader)
+    bare = Estimator(net, loss_fn, train_metrics=[], trainer=trainer,
+                     context=gpu(0))
+    prof_bare = _profile_fit(bare, train_loader)
+    print(f"profiled Estimator step ({PROFILED_STEPS} steps): device "
+          f"{prof['device_ms']:.2f} ms/step, busy share "
+          f"{prof['device_ms'] / step_ms:.3f}; device-to-host copies a step "
+          f"{prof['d2h']:.1f} with Accuracy and TopKAccuracy(5), "
+          f"{prof_bare['d2h']:.1f} with the loss metric alone (the metrics "
+          f"read predictions and labels on the host); cuDNN convolutions a "
+          f"step {prof['card_convs']:.0f}, host convolutions "
+          f"{prof['host_convs']}")
+    placed = prof["card_convs"] > 0 and prof["host_convs"] == 0 and \
+        prof_bare["host_convs"] == 0
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    if not (on_card and placed and metrics_equal and all(ckpt_ok.values())
+            and losses_finite and early and total == RESNET50_V1_PARAM_COUNT
+            and epochs >= 1 and not any(hand.values())):
+        raise SystemExit("FAIL: the Estimator path (placement, metrics, "
+                         "checkpoints, early stopping, loss or summary)")
+    return {"hand": hand, "img_s": images / train_s, "step_ms": step_ms,
+            "device_ms": prof["device_ms"],
+            "busy_share": prof["device_ms"] / step_ms,
+            "d2h_metrics": prof["d2h"], "d2h_bare": prof_bare["d2h"],
+            "peak_bytes": peak, "val": val_log, "stopped_by": stopped_by}
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / max(want.float().abs().max().item(), 1e-30))
+
+
+def zoo_full_width(seed: int, smi: str):
+    """Phase 14(b): each ZOO_FULL net at full width: a batch-2 f32 forward
+    on the card against the CPU's from the same weights, then three SGD
+    steps at batch ZOO_BATCH in bf16 over f32 masters."""
+    rows = []
+    for name, hw in ZOO_FULL:
+        random.seed(seed)
+        rng = np.random.default_rng(seed + 31)
+        x = rng.standard_normal((2, 3, hw, hw), dtype=np.float32)
+        with cpu():
+            ref = get_model(name, classes=1000)
+            ref.initialize(init.Xavier())
+            want = ref(nd.array(x)).data
+            weights = {k: p.data().data for k, p in
+                       ref._collect_params_with_prefix().items()}
+        net = get_model(name, classes=1000)
+        load_jax_params(net, weights, ctx=gpu(0))
+        got = net(nd.array(x, ctx=gpu(0))).data
+        rel = _rel(got.cpu(), want)
+        del ref, weights
+        net.cast("bfloat16")
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 0.01, "momentum": 0.9,
+                                 "multi_precision": True})
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        xb = nd.array(rng.standard_normal((ZOO_BATCH, 3, hw, hw),
+                                          dtype=np.float32), ctx=gpu(0),
+                      dtype="bfloat16")
+        yb = nd.array(rng.integers(0, 1000, ZOO_BATCH).astype(np.float32),
+                      ctx=gpu(0))
+        losses, ms = [], []
+        for _ in range(ZOO_STEPS):
+            t0 = time.perf_counter()
+            with autograd.record():
+                loss = loss_fn(net(xb), yb)
+            loss.backward()
+            trainer.step(ZOO_BATCH)
+            losses.append(float(loss.mean().asscalar()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        step = float(np.median(ms[1:]))
+        rows.append({"name": name, "hw": hw, "rel": rel, "losses": losses,
+                     "step_ms": step, "img_s": ZOO_BATCH / step * 1e3})
+        print(f"{name} ({hw} x {hw}): f32 forward at batch 2 card vs CPU "
+              f"{rel:.3g} relative (tol {ZOO_RTOL}); bf16 SGD at batch "
+              f"{ZOO_BATCH}: losses {', '.join(f'{v:.4f}' for v in losses)}"
+              f", step {step:.2f} ms (median of steps 2-{ZOO_STEPS}), "
+              f"{ZOO_BATCH / step * 1e3:.1f} img/s on {smi}")
+        del net, trainer, xb, got
+        torch.cuda.empty_cache()
+    bad = [r["name"] for r in rows if not (r["rel"] <= ZOO_RTOL and all(
+        math.isfinite(v) for v in r["losses"]))]
+    if bad:
+        raise SystemExit(f"FAIL: the zoo at full width: {bad}")
+    return rows
+
+
+class _SquareProp(operator.CustomOpProp):
+    """``phase_square``: y = x * x, dx = 2 x dy, through nd on the body's
+    context."""
+
+    def create_operator(self, ctx, shapes, dtypes):
+        class _Square(operator.CustomOp):
+            def forward(self, is_train, req, in_data, out_data, aux):
+                self.assign(out_data[0], req[0], in_data[0] * in_data[0])
+
+            def backward(self, req, out_grad, in_data, out_data, in_grad,
+                         aux):
+                self.assign(in_grad[0], req[0],
+                            2 * in_data[0] * out_grad[0])
+        return _Square()
+
+
+class _SquareNet(gluon.HybridBlock):
+    """Dense, then the square (``phase_square`` or ``x * x`` in nd), then
+    Dense."""
+
+    def __init__(self, custom, **kwargs):
+        super().__init__(**kwargs)
+        self.custom = custom
+        with self.name_scope():
+            self.fc1 = nn.Dense(64, in_units=256)
+            self.fc2 = nn.Dense(10, in_units=64)
+
+    def hybrid_forward(self, F, x):
+        h = self.fc1(x)
+        h = F.Custom(h, op_type="phase_square") if self.custom else h * h
+        return self.fc2(h)
+
+
+def _train_square_net(custom, named, x, y):
+    net = _SquareNet(custom)
+    load_jax_params(net, named, ctx=gpu(0))
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.01})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = []
+    for _ in range(3):
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(x.shape[0])
+        losses.append(loss.data.detach().clone())
+    return torch.stack(losses), {k: p.data().data.clone() for k, p in
+                                 net._collect_params_with_prefix().items()}
+
+
+def build_ext_library():
+    """The test's external op library (tests/torch_ext_ops.cc) built by
+    g++ into build/phase_custom/."""
+    CUSTOM_DIR.mkdir(parents=True, exist_ok=True)
+    so = CUSTOM_DIR / "libportextops.so"
+    r = subprocess.run(["g++", "-O2", "-fPIC", "-shared", "-o", str(so),
+                        str(EXT_SOURCE)], capture_output=True, text=True)
+    if r.returncode:
+        raise SystemExit(f"FAIL: g++ did not build {EXT_SOURCE}: "
+                         f"{r.stderr[-2000:]}")
+    return so
+
+
+def custom_ops(seed: int, smi: str):
+    """Phase 14(c): a Python CustomOp on card tensors against the same
+    arithmetic in nd, the op inside a Gluon block trained by Trainer, and
+    an external library's ops on card inputs."""
+    operator.register("phase_square")(_SquareProp)
+    rng = np.random.default_rng(seed + 41)
+    x0 = rng.standard_normal(CUSTOM_SHAPE, dtype=np.float32)
+    dy0 = rng.standard_normal(CUSTOM_SHAPE, dtype=np.float32)
+    grads, outs = [], []
+    for custom in (True, False):
+        x = nd.array(x0, ctx=gpu(0))
+        x.attach_grad()
+        with autograd.record():
+            y = nd.Custom(x, op_type="phase_square") if custom else x * x
+        y.backward(nd.array(dy0, ctx=gpu(0)))
+        outs.append(y.data)
+        grads.append(x.grad.data)
+    op_equal = torch.equal(outs[0], outs[1]) and \
+        torch.equal(grads[0], grads[1]) and outs[0].is_cuda
+    x = nd.array(x0, ctx=gpu(0))
+    host = {}
+    for name, fn in (("Custom", lambda: nd.Custom(x, op_type="phase_square")),
+                     ("nd", lambda: x * x)):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(CUSTOM_HOST_CALLS):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+        host[name] = float(np.median(times))
+    # the op in a Gluon block, three Trainer steps, against x * x in nd
+    with cpu():
+        probe = _SquareNet(True)
+        probe.initialize(init.Xavier())
+        named = {k: p.data().data for k, p in
+                 probe._collect_params_with_prefix().items()}
+    xb = nd.array(rng.standard_normal((64, 256), dtype=np.float32),
+                  ctx=gpu(0))
+    yb = nd.array(rng.integers(0, 10, 64).astype(np.float32), ctx=gpu(0))
+    l_custom, p_custom = _train_square_net(True, named, xb, yb)
+    l_plain, p_plain = _train_square_net(False, named, xb, yb)
+    block_equal = torch.equal(l_custom, l_plain) and all(
+        torch.equal(p_custom[k], p_plain[k]) for k in p_plain) and \
+        bool(torch.isfinite(l_custom).all())
+    # the external library
+    so = build_ext_library()
+    library.load(str(so), verbose=False)
+    a0 = rng.standard_normal(CUSTOM_LIB_SHAPE, dtype=np.float32)
+    b0 = rng.standard_normal(CUSTOM_LIB_SHAPE, dtype=np.float32)
+    a = nd.array(a0, ctx=gpu(0))
+    a.attach_grad()
+    with autograd.record():
+        sq = nd.Custom(a, op_type="port_ext_square")
+    sq.backward(nd.array(dy0[:CUSTOM_LIB_SHAPE[0], :CUSTOM_LIB_SHAPE[1]],
+                         ctx=gpu(0)))
+    am = nd.Custom(a, nd.array(b0, ctx=gpu(0)), op_type="port_ext_addmul")
+    dev = a.data.device
+    at = torch.from_numpy(a0).to(dev)
+    dyt = torch.from_numpy(dy0[:CUSTOM_LIB_SHAPE[0], :CUSTOM_LIB_SHAPE[1]]
+                           ).to(dev)
+    lib_equal = sq.data.is_cuda and a.grad.data.is_cuda and \
+        torch.equal(sq.data, at * at) and \
+        torch.equal(a.grad.data, 2 * at * dyt) and \
+        torch.equal(am.data, at + 2 * torch.from_numpy(b0).to(dev))
+    shutil.rmtree(CUSTOM_DIR, ignore_errors=True)
+    print(f"Custom op phase_square at {CUSTOM_SHAPE} f32 on the card: value"
+          f" and gradient bitwise equal to x * x in nd {op_equal}; host time"
+          f" a call {host['Custom']:.1f} us (its body runs in Python) vs "
+          f"{host['nd']:.1f} us for x * x; in a Gluon block, three Trainer "
+          f"steps equal to the nd block's bitwise {block_equal}; external "
+          f"library (g++ from {EXT_SOURCE.relative_to(EXT_SOURCE.parents[1])}"
+          f") ops port_ext_square (forward, backward) and port_ext_addmul at "
+          f"{CUSTOM_LIB_SHAPE} on card inputs bitwise equal to torch "
+          f"{lib_equal} on {smi}")
+    if not (op_equal and block_equal and lib_equal):
+        raise SystemExit("FAIL: the custom ops or the external library")
+    return {"custom_host_us": host["Custom"], "nd_host_us": host["nd"]}
+
+
+def contrib_layers(seed: int, smi: str):
+    """Phase 14(d): the contrib layers on the card against their CPU
+    forward from the same weights (f32, 1e-4 x max(1, |value|))."""
+    rng = np.random.default_rng(seed + 51)
+
+    def lstmp():
+        return crnn.LSTMPCell(256, 64, input_size=32)
+
+    def vdrop():
+        return crnn.VariationalDropoutCell(rnn.LSTMCell(128, input_size=32),
+                                           drop_inputs=0.3, drop_states=0.3,
+                                           drop_outputs=0.3)
+    cases = [
+        ("DeformableConvolution", lambda: ccnn.DeformableConvolution(
+            32, kernel_size=3, padding=1, in_channels=16), (8, 16, 28, 28),
+         False),
+        ("PixelShuffle2D", lambda: cnn.PixelShuffle2D(2), (8, 64, 32, 32),
+         False),
+        ("BatchNormReLU", lambda: cnn.BatchNormReLU(in_channels=64),
+         (8, 64, 32, 32), True),
+        ("LSTMPCell", lstmp, (16, 10, 32), False),
+        ("VariationalDropoutCell", vdrop, (16, 10, 32), False)]
+    worst, report = 0.0, []
+    for name, make, shape, train in cases:
+        x = rng.standard_normal(shape, dtype=np.float32)
+        outs = []
+        for ctx in (cpu(), gpu(0)):
+            random.seed(seed)
+            with ctx:
+                layer = make()
+                layer.initialize(init.Xavier())
+                if name == "DeformableConvolution":   # off the zero offset
+                    layer.offset_weight.set_data(nd.array(
+                        0.05 * np.random.default_rng(seed).standard_normal(
+                            layer.offset_weight.shape, dtype=np.float32)))
+                if ctx == cpu():
+                    named = {k: p.data().data for k, p in
+                             layer._collect_params_with_prefix().items()
+                             if p._var is not None}
+                else:
+                    load_jax_params(layer, named, ctx=gpu(0))
+                xs = nd.array(x)
+                if name in ("LSTMPCell", "VariationalDropoutCell"):
+                    out = layer.unroll(shape[1], xs, merge_outputs=True)[0]
+                elif train:
+                    with autograd.record():
+                        out = layer(xs)
+                else:
+                    out = layer(xs)
+                outs.append(out.data.detach().cpu())
+        err = float((outs[1] - outs[0]).abs().max()
+                    / max(1.0, outs[0].abs().max().item()))
+        worst = max(worst, err)
+        report.append(f"{name} {tuple(shape)} {err:.3g}")
+    # the locked mask on the card: one mask for all steps
+    with gpu(0):
+        cell = vdrop()
+        cell.initialize(init.Xavier())
+        with autograd.record():
+            cell.unroll(6, nd.ones((4, 6, 32)), merge_outputs=True)
+        mask = cell._input_mask
+    values = mask.unique()
+    locked = mask.is_cuda and len(values) == 2 and values[0] == 0 and \
+        abs(values[1].item() - 1 / 0.7) < 1e-6
+    print(f"contrib layers, card vs CPU (max |d| / max(1, |CPU|), tol "
+          f"{CONTRIB_TOL}): {'; '.join(report)}; VariationalDropoutCell's "
+          f"locked mask on the card {locked} on {smi}")
+    if not (worst <= CONTRIB_TOL and locked):
+        raise SystemExit("FAIL: a contrib layer on the card disagrees with "
+                         "the CPU")
+
+
+def phase_utilities(seed: int, smi: str, resnet: dict, data: dict):
+    """Phase 14: (a) the Estimator path, (b) the zoo at full width, (c)
+    custom ops and an external library, (d) the contrib layers; the
+    ``Custom`` op case runs in phase 9(a)."""
+    est = estimator_path(seed, smi, resnet, data)
+    zoo = zoo_full_width(seed, smi)
+    custom = custom_ops(seed, smi)
+    contrib_layers(seed, smi)
+    return dict(est, zoo=zoo, **custom)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3523,6 +4179,7 @@ def main(argv=None) -> int:
     amp_rec = phase_amp(args.seed, smi)
     sp = phase_sparse(args.seed, smi)
     data = phase_data(args.seed, smi, resnet)
+    util = phase_utilities(args.seed, smi, resnet, data)
     f16 = amp_rec["fp16"]
     amp_launches = {path: amp_rec[path]["launches"]
                     for path in ("amp_bf16", "amp_fp16")}
@@ -3536,7 +4193,7 @@ def main(argv=None) -> int:
          + gen["launches"] + glu["launches"]["flash_attention_fwd"]
          + lm["k1_op_surface"] + lm["hand"]["K1"] + det["hand"]["K1"]
          + sum(c["flash_attention_fwd"] for c in amp_launches.values())
-         + sp["hand"]["K1"] + data["hand"]["K1"],
+         + sp["hand"]["K1"] + data["hand"]["K1"] + util["hand"]["K1"],
          "launches_by_path": {
              "serving": serve_launches,
              "training": train_launches["flash_attention_fwd"],
@@ -3547,7 +4204,8 @@ def main(argv=None) -> int:
              "amp_bf16": amp_launches["amp_bf16"]["flash_attention_fwd"],
              "amp_fp16": amp_launches["amp_fp16"]["flash_attention_fwd"],
              "sparse_lm": sp["hand"]["K1"],
-             "data_resnet": data["hand"]["K1"]},
+             "data_resnet": data["hand"]["K1"],
+             "estimator_resnet": util["hand"]["K1"]},
          "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"],
                             gen["k1_max_abs_err"]),
          "ms": r["ms"], "ms_strided": r["ms_strided"],
@@ -3588,7 +4246,7 @@ def main(argv=None) -> int:
             "launches": train_launches[wrapper] + glu["launches"][wrapper]
             + lm["hand"][k] + det["hand"][k]
             + sum(c[wrapper] for c in amp_launches.values())
-            + sp["hand"][k] + data["hand"][k],
+            + sp["hand"][k] + data["hand"][k] + util["hand"][k],
             "launches_by_path": {
                 "training": train_launches[wrapper],
                 "gluon_training": glu["launches"][wrapper],
@@ -3596,7 +4254,8 @@ def main(argv=None) -> int:
                 "amp_bf16": amp_launches["amp_bf16"][wrapper],
                 "amp_fp16": amp_launches["amp_fp16"][wrapper],
                 "sparse_lm": sp["hand"][k],
-                "data_resnet": data["hand"][k]},
+                "data_resnet": data["hand"][k],
+                "estimator_resnet": util["hand"][k]},
             "max_abs_err": bwd[f"{name}_err"], "ms": t[name]["ms"],
             "device_ms": t[name]["device_ms"],
             "plain_ms": t[name]["plain_ms"],
@@ -3633,7 +4292,7 @@ def main(argv=None) -> int:
         "launches": resnet["k4_launches"] + resnet["train_launches"]
         + lm["hand"]["K4"] + det["hand"]["K4"]
         + sum(amp_rec[p]["others"]["K4"] for p in amp_launches)
-        + sp["hand"]["K4"] + data["hand"]["K4"],
+        + sp["hand"]["K4"] + data["hand"]["K4"] + util["hand"]["K4"],
         "launches_by_path": {"resnet50_training":
                              resnet["train_launches"],
                              "resnet50_bottleneck_sites":
@@ -3643,7 +4302,8 @@ def main(argv=None) -> int:
                              "amp_bf16": amp_rec["amp_bf16"]["others"]["K4"],
                              "amp_fp16": amp_rec["amp_fp16"]["others"]["K4"],
                              "sparse_lm": sp["hand"]["K4"],
-                             "data_resnet": data["hand"]["K4"]},
+                             "data_resnet": data["hand"]["K4"],
+                             "estimator_resnet": util["hand"]["K4"]},
         "max_abs_err": k4["max_abs_err"], "ms": s2["ms"],
         "device_ms": s2["device_ms"], "plain_ms": s2["plain_ms"],
         "bound_ms": s2["bound_ms"], "bound_by": s2["bound_by"],
@@ -3666,14 +4326,15 @@ def main(argv=None) -> int:
         "replaces": "mxnet_tpu/rtc.py:64",
         "launches": k5["launches"] + lm["hand"]["K5"] + det["hand"]["K5"]
         + sum(amp_rec[p]["others"]["K5"] for p in amp_launches)
-        + sp["hand"]["K5"] + data["hand"]["K5"],
+        + sp["hand"]["K5"] + data["hand"]["K5"] + util["hand"]["K5"],
         "launches_by_path": {"rtc": k5["launches"],
                              "lstm_lm": lm["hand"]["K5"],
                              "ssd": det["hand"]["K5"],
                              "amp_bf16": amp_rec["amp_bf16"]["others"]["K5"],
                              "amp_fp16": amp_rec["amp_fp16"]["others"]["K5"],
                              "sparse_lm": sp["hand"]["K5"],
-                             "data_resnet": data["hand"]["K5"]},
+                             "data_resnet": data["hand"]["K5"],
+                             "estimator_resnet": util["hand"]["K5"]},
         "max_abs_err": max(v["max_abs_err"]
                            for v in k5["by_kernel"].values()),
         "ms": head["ms"], "device_ms": head["device_ms"],

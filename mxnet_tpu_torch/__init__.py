@@ -10,7 +10,10 @@ with NVRTC, sit beside them. Entry points (``serving.ModelEndpoint``,
 (``gpu(0)``) unless the caller passes ``cpu()``. The data path
 (``gluon.data``, ``io``, ``recordio``, ``image``) runs on the host and
 makes ``cpu()`` batches, which the training loop moves to the card; its
-host C++ (``native``) is built with g++ at first use.
+host C++ (``native``) is built with g++ at first use. ``metric``,
+``callback``, ``visualization`` and ``gluon.contrib.estimator`` are the
+training utilities, ``operator`` (``nd.Custom``) and ``library`` the custom
+ops and external op libraries.
 """
 __version__ = "2.0.0"
 
@@ -31,8 +34,13 @@ from . import (amp, autograd, base, config, engine, gluon, image, init,
                recordio, rtc, serving)
 from . import ndarray as nd
 from .optimizer import lr_scheduler
+from . import callback, library, metric, operator, visualization
+
+library.initialize()   # fork handlers and the crash logger
 
 __all__ = ["Context", "MXNetError", "cpu", "gpu", "current_context",
-           "amp", "autograd", "base", "config", "engine", "gluon", "image",
-           "init", "initializer", "io", "lr_scheduler", "nd", "ndarray", "ops",
-           "optimizer", "parallel", "random", "recordio", "rtc", "serving"]
+           "amp", "autograd", "base", "callback", "config", "engine", "gluon",
+           "image", "init", "initializer", "io", "library", "lr_scheduler",
+           "metric", "nd", "ndarray", "operator", "ops", "optimizer",
+           "parallel", "random", "recordio", "rtc", "serving",
+           "visualization"]

@@ -99,6 +99,8 @@ def describe() -> str:
 # ---------------------------------------------------------------------------
 # flags the port reads
 # ---------------------------------------------------------------------------
+register("MXNET_USE_SIGNAL_HANDLER", True, bool,
+         "Install the crash backtrace logger (faulthandler) at import.")
 register("MXNET_SAFE_ACCUMULATION", True, bool,
          "Accumulate reductions over bf16/fp16 inputs in fp32.")
 register("MXNET_BN_ONEPASS", "auto", str,

@@ -24,12 +24,19 @@ mode and returns tensors (``ParallelTrainStep``, the serving endpoints).
 hybridized block computes bitwise what the eager one does; capturing the
 block (the reference's ``CachedOp``) is ROADMAP item C1, ``export`` and
 ``SymbolBlock`` item P17.
+
+``register_forward_pre_hook`` and ``register_forward_hook`` are Gluon's,
+not ``torch.nn.Module``'s: the hooks live in lists of their own, get
+``(block, args)`` before the forward and ``(block, args, out)`` after it
+(``args`` as the caller passed them), their return values are ignored,
+and registering returns the hook. Torch's own hooks stay reachable as
+``torch.nn.Module.register_forward_hook(block, ...)``.
 """
 from __future__ import annotations
 
 import re
 import threading
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -132,8 +139,8 @@ def _call_with_tensors(block, args, kwargs):
     _GLUON.ctx = ctx
     try:
         with torch.set_grad_enabled(autograd.is_recording()):
-            out = block(*[unwrap(a) for a in args],
-                        **{k: unwrap(v) for k, v in kwargs.items()})
+            out = block._dispatch([unwrap(a) for a in args],
+                                  {k: unwrap(v) for k, v in kwargs.items()})
     finally:
         _GLUON.ctx = prev
     return _map(lambda t: _wrap(t, ctx) if isinstance(t, torch.Tensor)
@@ -148,8 +155,8 @@ def _call_with_arrays(block, args, kwargs):
                     if isinstance(v, torch.Tensor) else v, a)
     with autograd._RecordingStateScope(torch.is_grad_enabled(),
                                        block.training):
-        out = block(*[wrap(a) for a in args],
-                    **{k: wrap(v) for k, v in kwargs.items()})
+        out = block._dispatch([wrap(a) for a in args],
+                              {k: wrap(v) for k, v in kwargs.items()})
     return _map(lambda a: a._data if isinstance(a, NDArray) else a, out)
 
 
@@ -175,6 +182,8 @@ class Block(torch.nn.Module):
             else self._prefix
         self._scope = _BlockScope(self)
         self._reg_params: Dict[str, Parameter] = {}
+        self._gluon_pre_hooks: List = []
+        self._gluon_hooks: List = []
 
     def _alias(self):
         return self.__class__.__name__.lower()
@@ -206,6 +215,18 @@ class Block(torch.nn.Module):
         if name is None:
             name = str(len(self._modules))
         self.add_module(name, block)
+
+    def register_forward_pre_hook(self, hook):
+        """Call ``hook(block, args)`` before each forward; its return value
+        is ignored. Returns ``hook``."""
+        self._gluon_pre_hooks.append(hook)
+        return hook
+
+    def register_forward_hook(self, hook):
+        """Call ``hook(block, args, out)`` after each forward; its return
+        value is ignored. Returns ``hook``."""
+        self._gluon_hooks.append(hook)
+        return hook
 
     # -- naming / params -------------------------------------------------
     @property
@@ -317,6 +338,12 @@ class Block(torch.nn.Module):
                 self._reg_params[name]._check_initialized()
         return t
 
+    def summary(self, *inputs):
+        """Print the parameter table of ``visualization.print_summary``
+        (the inputs are not run)."""
+        from ..visualization import print_summary
+        print_summary(self)
+
     def _apply(self, fn, recurse=True):
         super()._apply(fn, recurse)
         for name, p in self._reg_params.items():
@@ -354,6 +381,18 @@ class Block(torch.nn.Module):
                          "override infer_shape()")
 
     def __call__(self, *args, **kwargs):
+        for hook in self._gluon_pre_hooks:
+            hook(self, args)
+        out = self._dispatch(args, kwargs)
+        for hook in self._gluon_hooks:
+            hook(self, args, out)
+        return out
+
+    def _dispatch(self, args, kwargs):
+        """The call without the Gluon hooks: NDArrays into a tensor block
+        (or tensors into an NDArray block) and back, the deferred shapes,
+        the AMP policy of ``amp.convert_hybrid_block`` around the
+        forward."""
         io = self._io
         if io is not None:
             nd_in = any(isinstance(a, NDArray) for a in args)

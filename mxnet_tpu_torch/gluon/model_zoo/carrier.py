@@ -8,13 +8,16 @@ Two naming schemes are taken:
   or an RNN layer's flat ``lstm.parameters`` vector, in the reference's
   layout), which are the port's too (and its ``state_dict()`` keys), since
   its block trees are the JAX block trees;
-- a ResNet's ``collect_params()`` names (``resnetv10_stage1_conv2d0_weight``,
-  running stats included), which a ResNet of the port maps to its keys with
+- a vision zoo net's ``collect_params()`` names
+  (``resnetv10_stage1_conv2d0_weight``, ``densenet0_conv2d0_weight``,
+  ``mobilenetv20_batchnorm3_running_var``, ...: ResNet v1 and v2, AlexNet,
+  VGG, SqueezeNet, DenseNet, Inception-v3, MobileNet v1 and v2, running
+  stats included), which a zoo net of the port maps to its keys with
   ``jax_names()``.
 
 :func:`params_from_jax` turns such a dict into a state dict after checking
 it against the model its names and shapes imply (a BERTModel, a
-BERTForPretraining, a TransformerLM, a ResNetV1 or an
+BERTForPretraining, a TransformerLM, a zoo net, an SSD or an
 LSTMLanguageModel); :func:`load_jax_params`
 loads it into a given model through its Gluon ``Parameter``s, as the JAX
 package's ``load_parameters`` does: a parameter not yet initialized is
@@ -33,11 +36,12 @@ import torch
 from ...base import MXNetError
 
 __all__ = ["params_from_jax", "load_jax_params", "to_tensor",
-           "check_against", "rename_from_jax"]
+           "check_against", "rename_from_jax", "zoo_family"]
 
-# the name scope of a ResNet block tree, e.g. "resnetv10_" (the counter
-# after "resnetv1" numbers the nets a process created)
-_RESNET_PREFIX = re.compile(r"^resnetv1\d*_")
+# the name scope of a zoo net, e.g. "resnetv10_" or "mobilenetv20_" (the
+# class name, then the counter that numbers the nets a process created)
+_ZOO_PREFIX = re.compile(r"^(resnetv1|resnetv2|alexnet|vgg|squeezenet|"
+                         r"densenet|inception3|mobilenetv2|mobilenet)\d*_")
 
 
 def to_tensor(arr) -> torch.Tensor:
@@ -73,17 +77,22 @@ def check_against(expected: Dict[str, tuple], got: Dict[str, tuple],
                          f"extra {extra}, shape mismatches {bad}")
 
 
-def _is_resnet_names(named) -> bool:
-    return bool(named) and all(_RESNET_PREFIX.match(k) for k in named)
+def zoo_family(named):
+    """The zoo family (``"resnetv1"``, ``"densenet"``, ...) whose
+    ``collect_params()`` names these all are, else None."""
+    families = {m.group(1) if m else None
+                for m in (_ZOO_PREFIX.match(k) for k in named)}
+    return families.pop() if len(families) == 1 else None
 
 
 def rename_from_jax(jax_names: Dict[str, str], named: Dict[str, object],
                     what: str) -> Dict[str, object]:
-    """``named`` under ``collect_params()`` names (one ``resnetv1N_``
-    prefix) re-keyed by state-dict key, given ``jax_names`` = {state-dict
-    key: name without the prefix}. A name the model does not have stays
-    under its own name, so the check that follows reports it."""
-    prefixes = {_RESNET_PREFIX.match(k).group(0) for k in named}
+    """``named`` under ``collect_params()`` names (one zoo net's prefix,
+    ``resnetv10_``) re-keyed by state-dict key, given ``jax_names`` =
+    {state-dict key: name without the prefix}. A name the model does not
+    have stays under its own name, so the check that follows reports
+    it."""
+    prefixes = {_ZOO_PREFIX.match(k).group(0) for k in named}
     if len(prefixes) != 1:
         raise MXNetError(f"parameters do not match {what}: names of several "
                          f"nets {sorted(prefixes)}")
@@ -95,13 +104,17 @@ def rename_from_jax(jax_names: Dict[str, str], named: Dict[str, object],
 def params_from_jax(named: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """State dict (CPU tensors, the arrays' own dtypes) from a JAX-package
     parameter dict: a BERTModel's, BERTForPretraining's, TransformerLM's or
-    LSTMLanguageModel's ``_collect_params_with_prefix()`` names, or a
-    ResNetV1's or an SSD's (``ssd_300_vgg16``, ``ssd_96_tiny``)
+    LSTMLanguageModel's ``_collect_params_with_prefix()`` names, or a zoo
+    net's or an SSD's (``ssd_300_vgg16``, ``ssd_96_tiny``)
     ``collect_params()`` names. Raises MXNetError unless the names and
     shapes are exactly those of one such model."""
-    if _is_resnet_names(named):
+    family = zoo_family(named)
+    if family == "resnetv1":
         from .vision import resnet
         return resnet.state_from_jax(named)
+    if family is not None:
+        from . import vision
+        return vision.state_from_jax(named, family)
     from .vision import ssd
     if named and all(ssd._SCOPE.match(k) for k in named):
         return ssd.state_from_jax(named)
@@ -122,7 +135,7 @@ def load_jax_params(model, named: Dict[str, np.ndarray], ctx=None):
     any missing key, extra key or shape mismatch, before anything is
     copied."""
     what = type(model).__name__
-    if _is_resnet_names(named) and hasattr(model, "jax_names"):
+    if zoo_family(named) is not None and hasattr(model, "jax_names"):
         named = rename_from_jax(model.jax_names(), named, what)
     params = model._collect_params_with_prefix()
     check_against({k: p.shape for k, p in params.items()},

@@ -1,5 +1,6 @@
-"""ResNet v1 of the port: the counterpart of ``BasicBlockV1``,
-``BottleneckV1``, ``ResNetV1``, ``get_resnet`` and ``resnet50_v1`` in
+"""ResNet v1 and v2 of the port: the counterpart of ``BasicBlockV1``,
+``BottleneckV1``, ``ResNetV1``, their v2 forms, ``get_resnet`` and
+``resnet{18,34,50,101,152}_v{1,2}`` in
 ``mxnet_tpu/gluon/model_zoo/vision/resnet.py``.
 
 The blocks are Gluon ``HybridBlock``s built under the reference's name
@@ -29,13 +30,15 @@ import torch
 from ....base import MXNetError
 from ....ops import nn as ops
 from ...block import HybridBlock
-from ...nn import (Activation, BatchNorm, Conv2D, Dense, GlobalAvgPool2D,
-                   HybridSequential, MaxPool2D)
+from ...nn import (Activation, BatchNorm, Conv2D, Dense, Flatten,
+                   GlobalAvgPool2D, HybridSequential, MaxPool2D)
 from ..carrier import check_against, rename_from_jax, to_tensor
 
-__all__ = ["BasicBlockV1", "BottleneckV1", "ResNetV1", "get_resnet",
-           "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1",
-           "resnet152_v1", "state_from_jax"]
+__all__ = ["BasicBlockV1", "BottleneckV1", "ResNetV1", "BasicBlockV2",
+           "BottleneckV2", "ResNetV2", "get_resnet", "resnet18_v1",
+           "resnet34_v1", "resnet50_v1", "resnet101_v1", "resnet152_v1",
+           "resnet18_v2", "resnet34_v2", "resnet50_v2", "resnet101_v2",
+           "resnet152_v2", "state_from_jax"]
 
 _IMAGE_CHANNELS = 3
 
@@ -106,11 +109,130 @@ class BottleneckV1(HybridBlock):
         return ops.activation(self.body(x) + residual, act_type="relu")
 
 
-class ResNetV1(HybridBlock):
-    """``features`` (stem, four stages, global average pool) then the
-    ``output`` Dense layer over the flattened pool."""
+class BasicBlockV2(HybridBlock):
+    """Pre-activation basic block: BN, ReLU, 3x3 conv, BN, ReLU, 3x3 conv,
+    plus the residual (a 1x1 conv of the activated input when
+    downsampling)."""
 
     _io = "tensor"
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.bn1 = BatchNorm(in_channels=in_channels)
+        self.conv1 = _conv3x3(channels, stride, in_channels)
+        self.bn2 = BatchNorm(in_channels=channels)
+        self.conv2 = _conv3x3(channels, 1, channels)
+        self.downsample = Conv2D(channels, 1, stride, use_bias=False,
+                                 in_channels=in_channels) \
+            if downsample else None
+
+    def forward(self, x):
+        residual = x
+        x = ops.activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = ops.activation(self.bn2(self.conv1(x)), act_type="relu")
+        return self.conv2(x) + residual
+
+
+class BottleneckV2(HybridBlock):
+    """Pre-activation bottleneck: (BN, ReLU, conv) three times (1x1, 3x3
+    with the stride, 1x1), plus the residual."""
+
+    _io = "tensor"
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        mid = channels // 4
+        self.bn1 = BatchNorm(in_channels=in_channels)
+        self.conv1 = Conv2D(mid, kernel_size=1, strides=1, use_bias=False,
+                            in_channels=in_channels)
+        self.bn2 = BatchNorm(in_channels=mid)
+        self.conv2 = _conv3x3(mid, stride, mid)
+        self.bn3 = BatchNorm(in_channels=mid)
+        self.conv3 = Conv2D(channels, kernel_size=1, strides=1,
+                            use_bias=False, in_channels=mid)
+        self.downsample = Conv2D(channels, 1, stride, use_bias=False,
+                                 in_channels=in_channels) \
+            if downsample else None
+
+    def forward(self, x):
+        residual = x
+        x = ops.activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = ops.activation(self.bn2(self.conv1(x)), act_type="relu")
+        x = ops.activation(self.bn3(self.conv2(x)), act_type="relu")
+        return self.conv3(x) + residual
+
+
+def _stage(block, num_layer, channels, stride, index, in_channels):
+    stage = HybridSequential(prefix=f"stage{index}_")
+    with stage.name_scope():
+        stage.add(block(channels, stride, channels != in_channels,
+                        in_channels=in_channels, prefix=""))
+        for _ in range(num_layer - 1):
+            stage.add(block(channels, 1, False, in_channels=channels,
+                            prefix=""))
+    return stage
+
+
+class _ZooNet(HybridBlock):
+    """A zoo net: ``output(features(x))``, and its parameter names."""
+
+    _io = "tensor"
+
+    def forward(self, x):
+        return self.output(self.features(x))
+
+    def jax_names(self) -> Dict[str, str]:
+        """{state-dict key: the ``collect_params()`` name without the net's
+        prefix}, running stats included."""
+        n = len(self.prefix)
+        return {k: p.name[n:]
+                for k, p in self._collect_params_with_prefix().items()}
+
+
+class ResNetV2(_ZooNet):
+    """Input BatchNorm (no scale, no center), stem, four pre-activation
+    stages, BN, ReLU, global average pool and flatten, then ``output``."""
+
+    def __init__(self, block, layers, channels, classes=1000,
+                 thumbnail=False, **kwargs):
+        super().__init__(**kwargs)
+        if len(layers) != len(channels) - 1:
+            raise MXNetError(f"ResNetV2: {len(layers)} stages need "
+                             f"{len(layers) + 1} channel counts, got "
+                             f"{channels}")
+        with self.name_scope():
+            self.features = HybridSequential(prefix="")
+            self.features.add(BatchNorm(scale=False, center=False,
+                                        in_channels=_IMAGE_CHANNELS))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, _IMAGE_CHANNELS))
+            else:
+                self.features.add(
+                    Conv2D(channels[0], 7, 2, 3, use_bias=False,
+                           in_channels=_IMAGE_CHANNELS),
+                    BatchNorm(in_channels=channels[0]),
+                    Activation("relu"), MaxPool2D(3, 2, 1))
+            in_channels = channels[0]
+            for i, num_layer in enumerate(layers):
+                self.features.add(_stage(block, num_layer, channels[i + 1],
+                                         1 if i == 0 else 2, i + 1,
+                                         in_channels))
+                in_channels = channels[i + 1]
+            self.features.add(BatchNorm(in_channels=in_channels),
+                              Activation("relu"), GlobalAvgPool2D(),
+                              Flatten())
+            self.output = Dense(classes, in_units=in_channels)
+
+
+class ResNetV1(_ZooNet):
+    """``features`` (stem, four stages, global average pool) then the
+    ``output`` Dense layer over the flattened pool."""
 
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False, **kwargs):
@@ -130,29 +252,11 @@ class ResNetV1(HybridBlock):
                     BatchNorm(in_channels=channels[0]),
                     Activation("relu"), MaxPool2D(3, 2, 1))
             for i, num_layer in enumerate(layers):
-                stage = HybridSequential(prefix=f"stage{i + 1}_")
-                stride = 1 if i == 0 else 2
-                with stage.name_scope():
-                    stage.add(block(channels[i + 1], stride,
-                                    channels[i + 1] != channels[i],
-                                    in_channels=channels[i], prefix=""))
-                    for _ in range(num_layer - 1):
-                        stage.add(block(channels[i + 1], 1, False,
-                                        in_channels=channels[i + 1],
-                                        prefix=""))
-                self.features.add(stage)
+                self.features.add(_stage(block, num_layer, channels[i + 1],
+                                         1 if i == 0 else 2, i + 1,
+                                         channels[i]))
             self.features.add(GlobalAvgPool2D())
             self.output = Dense(classes, in_units=channels[-1])
-
-    def forward(self, x):
-        return self.output(self.features(x))
-
-    def jax_names(self) -> Dict[str, str]:
-        """{state-dict key: the ``collect_params()`` name without the net's
-        prefix (``resnetv10_``)}, running stats included."""
-        n = len(self.prefix)
-        return {k: p.name[n:]
-                for k, p in self._collect_params_with_prefix().items()}
 
 
 _SPEC = {18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
@@ -160,22 +264,25 @@ _SPEC = {18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
          50: ("bottle_neck", [3, 4, 6, 3], [64, 256, 512, 1024, 2048]),
          101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
          152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048])}
-_BLOCKS = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}
+_NETS = {1: ResNetV1, 2: ResNetV2}
+_BLOCKS = {1: {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
+           2: {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2}}
 
 
 def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
                **kwargs):
-    """A ResNet v1 of depth 18, 34, 50, 101 or 152 with random weights
-    (load yours with ``carrier.load_jax_params``)."""
+    """A ResNet v1 or v2 of depth 18, 34, 50, 101 or 152 with random
+    weights (load yours with ``carrier.load_jax_params``)."""
     if num_layers not in _SPEC:
         raise MXNetError(f"invalid resnet depth {num_layers}")
-    if version != 1:
-        raise MXNetError("ResNet v2 is not ported yet; version must be 1")
+    if version not in (1, 2):
+        raise MXNetError("version must be 1 or 2")
     if pretrained:
         raise MXNetError("pretrained weights are not bundled; load "
                          "parameters with load_jax_params()")
     block_type, layers, channels = _SPEC[num_layers]
-    return ResNetV1(_BLOCKS[block_type], layers, channels, **kwargs)
+    return _NETS[version](_BLOCKS[version][block_type], layers, channels,
+                          **kwargs)
 
 
 def resnet18_v1(**kwargs):
@@ -196,6 +303,26 @@ def resnet101_v1(**kwargs):
 
 def resnet152_v1(**kwargs):
     return get_resnet(1, 152, **kwargs)
+
+
+def resnet18_v2(**kwargs):
+    return get_resnet(2, 18, **kwargs)
+
+
+def resnet34_v2(**kwargs):
+    return get_resnet(2, 34, **kwargs)
+
+
+def resnet50_v2(**kwargs):
+    return get_resnet(2, 50, **kwargs)
+
+
+def resnet101_v2(**kwargs):
+    return get_resnet(2, 101, **kwargs)
+
+
+def resnet152_v2(**kwargs):
+    return get_resnet(2, 152, **kwargs)
 
 
 # ---------------------------------------------------------------------------

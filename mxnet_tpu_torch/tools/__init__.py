@@ -18,6 +18,12 @@ __all__ = ["card", "median_ms", "graph_ms", "seeded_bert_weights",
            "resnet_train_step", "resnet_batch"]
 
 
+#: resnet50_v1's (1000 classes) parameters and running stats, as the JAX
+#: package counts them after its first forward (tests/test_torch_zoo.py);
+#: ``Block.summary`` prints it
+RESNET50_V1_PARAM_COUNT = 25_629_032
+
+
 def card() -> str:
     """Card 0's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(

@@ -50,7 +50,8 @@ def step_runs(named, seed: int, layers: bool = False):
                 if isinstance(mod, Activation) or name.endswith("body"):
                     def pre(mod, args, name=name):
                         seen[name] = args[0].detach().double().cpu()
-                    handles.append(mod.register_forward_pre_hook(pre))
+                    handles.append(torch.nn.Module.register_forward_pre_hook(
+                        mod, pre))    # torch's removable hook
         w0 = {k: v.detach().cpu().clone() for k, v in st.params.items()}
         loss = st(xs[0], ys[0]).item()
         for h in handles:

@@ -2413,6 +2413,38 @@ def _(nd, ctx):
 
 
 # ---------------------------------------------------------------------------
+# Custom: a Python operator registered in the package ``nd`` belongs to
+# ---------------------------------------------------------------------------
+def _register_square_plus(nd):
+    """Register ``op_cases_square_plus`` (y = x * x + x, dy = (2 x + 1)
+    dout) with the ``operator`` module of the package ``nd`` comes from
+    (already imported: it is the caller's)."""
+    import sys
+    op = sys.modules[nd.__name__.partition(".")[0]].operator
+
+    @op.register("op_cases_square_plus")
+    class _Prop(op.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            class _Op(op.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    x = in_data[0]
+                    self.assign(out_data[0], req[0], x * x + x)
+
+                def backward(self, req, out_grad, in_data, out_data,
+                             in_grad, aux):
+                    self.assign(in_grad[0], req[0],
+                                (2 * in_data[0] + 1) * out_grad[0])
+            return _Op()
+
+
+@case("Custom", SUMS)
+def _custom(nd, ctx):
+    _register_square_plus(nd)
+    x = nd.array(_r(41).uniform(-2, 2, (6, 7)).astype(onp.float32), ctx=ctx)
+    return {"y": nd.Custom(x, op_type="op_cases_square_plus")}
+
+
+# ---------------------------------------------------------------------------
 # the samplers
 # ---------------------------------------------------------------------------
 def SAMPLER_CALLS(nd, ctx, key=()):

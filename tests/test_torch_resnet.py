@@ -475,5 +475,6 @@ def test_weight_carrier_refuses_resnet_mismatch(r50_names, fault):
 
 def test_get_model_names():
     assert isinstance(vision.get_model("resnet50_v1"), resnet.ResNetV1)
-    with pytest.raises(MXNetError, match="not ported"):
-        vision.get_model("resnet50_v2")
+    assert isinstance(vision.get_model("resnet50_v2"), resnet.ResNetV2)
+    with pytest.raises(MXNetError, match="not supported"):
+        vision.get_model("resnet50_v3")

@@ -795,3 +795,56 @@ def test_the_native_library_builds_inside_the_port():
     consts = {n.value for n in ast.walk(_tree(PKG / "native" / "__init__.py"))
               if isinstance(n, ast.Constant) and isinstance(n.value, str)}
     assert "g++" in consts and "-std=c++17" in consts
+
+
+TRAINING_UTILITY_MODULES = [
+    "metric.py", "callback.py", "visualization.py", "operator.py",
+    "library.py", "gluon/contrib/__init__.py", "gluon/contrib/nn.py",
+    "gluon/contrib/cnn.py", "gluon/contrib/rnn.py",
+    "gluon/contrib/estimator/__init__.py",
+    "gluon/contrib/estimator/estimator.py",
+    "gluon/contrib/estimator/event_handler.py",
+    "gluon/model_zoo/vision/simple_nets.py",
+    "gluon/model_zoo/vision/dense_nets.py"]
+
+
+@pytest.mark.parametrize("module", TRAINING_UTILITY_MODULES)
+def test_training_utility_modules_are_guarded(module):
+    """The metrics, callbacks, visualization, gluon.contrib with the
+    Estimator, the custom ops, the external libraries and the new zoo
+    families are among the files the import guards read."""
+    assert PKG / module in PORT_FILES
+    test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
+
+
+def test_library_loads_only_the_path_it_is_given():
+    """``library.load`` hands ``CDLL`` the caller's path, made absolute,
+    and nothing else: no constant and no path into the JAX package."""
+    tree = _tree(PKG / "library.py")
+    cdll = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+            and getattr(n.func, "attr", None) == "CDLL"]
+    assert len(cdll) == 1
+    arg = cdll[0].args[0]
+    assert isinstance(arg, ast.Call) and \
+        getattr(arg.func, "attr", None) == "abspath" and \
+        [a.id for a in arg.args] == ["path"]
+    test_no_library_is_loaded_from_the_jax_package(PKG / "library.py")
+
+
+def test_variational_dropout_draws_from_an_owned_generator():
+    """Every mask VariationalDropoutCell draws goes through the Dropout op
+    with ``generator=mask_generator(...)``: its own ``generator``, else
+    ``random.generator`` of the input's context, never PyTorch's global
+    one."""
+    tree = _tree(PKG / "gluon" / "contrib" / "rnn.py")
+    cls = next(n for n in tree.body if isinstance(n, ast.ClassDef)
+               and n.name == "VariationalDropoutCell")
+    draws = [n for n in ast.walk(cls) if isinstance(n, ast.Call)
+             and any(isinstance(a, ast.Constant) and a.value == "Dropout"
+                     for a in n.args)]
+    assert draws
+    for call in draws:
+        gen = [k.value for k in call.keywords if k.arg == "generator"]
+        assert gen and isinstance(gen[0], ast.Call) and \
+            getattr(gen[0].func, "id", None) == "mask_generator"
+    test_every_draw_names_its_generator("gluon/contrib/rnn.py")
