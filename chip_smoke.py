@@ -381,9 +381,55 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    and ``VariationalDropoutCell`` (predict mode; and its locked mask on
    the card) against their CPU forward within 1e-4 x max(1, |value|).
    ``Custom`` is an op case of phase 9(a).
-15. A JSON line with the kernels' numbers (``launches_by_path`` gains
-   ``estimator_resnet``), then the last line ``{"ok": true, "device":
-   {...}}``.
+15. int8 quantization and the kvstore, on ``gpu(0)``: (a) the main path:
+   ``resnet50_v1(classes=1000)`` f32 from phase 5's seeded weights,
+   ``contrib.quantization.quantize_net(calib_mode="naive")`` on 2 seeded
+   batches of 16 x 3 x 224 x 224 (53 Conv2D and the Dense converted), then
+   served through ``ModelEndpoint`` + ``InferenceServer`` (buckets 1-32) to
+   8 closed-loop clients sending 96 requests of 1-8 images, and the f32 net
+   served the same way. Checks: every int8 response equals the quantized
+   net's direct forward of the same rows within 1e-5 + 1e-5 |direct| (the
+   reference's bar); the int8 forward makes 54 ``aten::_int_mm`` calls with
+   kernels under them and no convolution op (the f32 forward's are
+   printed); the int32 accumulators of conv1, a stage-3 3x3 convolution and
+   the Dense, on the card, bitwise the CPU's from the same codes; on 2
+   images, the int8 net on the card against the CPU port's (the same
+   ranges, ``quantized_like``) layer by layer (``card_vs_cpu_int8``):
+   every quantized layer on the card's input to it within 2 ulps of the
+   card's output, the float path with the quantized outputs pinned to
+   the card's within 1e-5, and the free-running logits (where a rounding
+   difference flips a code and later layers carry the flip) within half
+   the int8 net's own error against f32. Prints requests/s, img/s,
+   p50/p99 of
+   both nets, each net's device ms for a bucket-32 forward by kernel class
+   with its top kernels, the calibration's seconds, and the top-1
+   agreement of the int8 and f32 nets on 256 seeded images (random
+   weights: a report). (b) The main path: ``bert_base()`` f32 from the
+   seeded weights, quantized (naive) on 2 batches of 8 x 128 (49 Dense),
+   served at S = 128, buckets 1-8, 32 requests. Checks: responses equal
+   the direct forward (1e-5); K1 launched 12 times per executed batch, in
+   f32 (a spy on its wrapper for one forward: 12 calls, all f32); the
+   int32 accumulators of layer 0's QKV, layer 11's second FFN product and
+   the pooler bitwise card vs CPU; one row of 32 tokens on the card
+   against the CPU port's, layer by layer as in (a). Prints the bucket-8 forward's device
+   ms by kernel class. (c)
+   ``resnet50_v1`` in bf16 (f32 masters) at batch 32 through
+   ``gluon.Trainer(kvstore="device", update_on_kvstore=True)``, SGD(0.05,
+   momentum 0.9): from one backward's gradients, the kvstore route's
+   weights, masters and momenta bitwise the local route's; the 2-bit and
+   1-bit packed bytes, scales and residuals of every gradient, two pushes,
+   bitwise card vs CPU; then 10 steps without and 10 with
+   ``{"type": "2bit", "threshold": 0.5}``: finite losses, no hand-written
+   kernel launched; prints the step median, img/s, device ms and busy
+   share beside phase 5's and phase 14's steps. (d) The int8 product from
+   CUDA graphs: ``int8_matmul`` (``torch._int_mm``) at (1024, 768, 3072)
+   beside bf16 ``torch.matmul``, and ``int8_conv`` at a stage-3 3x3 shape
+   (32, 256, 14, 14) -> 256 (and its im2col alone) beside cuDNN's bf16
+   convolution, each beside its bound (1,979 int8 TOP/s, 989 bf16
+   TFLOP/s, 3.35 TB/s); each first held to the CPU's int32 result.
+16. A JSON line with the kernels' numbers (``launches_by_path`` gains
+   ``int8_resnet``, ``int8_bert`` and ``kvstore_resnet``), then the last
+   line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -405,9 +451,10 @@ import numpy as np
 import torch
 
 from mxnet_tpu_torch import (MXNetError, amp, autograd, cpu, engine, gluon,
-                             gpu, init, io, library, metric, native, nd,
-                             operator, random, recordio, rtc, serving,
+                             gpu, init, io, kvstore, library, metric, native,
+                             nd, operator, random, recordio, rtc, serving,
                              sparse)
+from mxnet_tpu_torch.contrib import quantization as qz
 from mxnet_tpu_torch.gluon import data as gdata
 from mxnet_tpu_torch.gluon.data.vision import transforms as T
 from mxnet_tpu_torch.gluon import nn, rnn
@@ -425,6 +472,7 @@ from mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1, get_model,
 from mxnet_tpu_torch.gluon.model_zoo.vision import ssd as ssd_zoo
 from mxnet_tpu_torch.ops import _build, _nvrtc, contrib
 from mxnet_tpu_torch.ops import nn as ops
+from mxnet_tpu_torch.ops import quantization as qops
 from mxnet_tpu_torch.ops.cuda import flash_attention as fa
 from mxnet_tpu_torch.ops.cuda import fused_conv1x1 as fc
 from mxnet_tpu_torch.ops.nn import rnn_param_size
@@ -437,13 +485,14 @@ from mxnet_tpu_torch.tools import (RESNET50_V1_PARAM_COUNT, PretrainStep,
                                    median_ms, pretrain_batch, resnet_batch,
                                    resnet_train_step, seeded_bert_weights,
                                    seeded_resnet_weights)
-from mxnet_tpu_torch.tools import op_cases
+from mxnet_tpu_torch.tools import int8_drift, op_cases
 from mxnet_tpu_torch.tools import rtc_examples as rx
 from mxnet_tpu_torch.tools.k4_compare import composition as k4_composition
 
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,       # dense tensor cores
               torch.float16: 989e12,
+              torch.int8: 1979e12,          # dense int8 tensor-core ops
               torch.float32: 67e12}         # fp32 without the tensor cores
 # fp16: bf16's tolerance times 2^-11 / 2^-8 (the two unit roundoffs)
 TOL = {torch.bfloat16: 2e-2, torch.float16: 2.5e-3, torch.float32: 1e-4}
@@ -561,6 +610,25 @@ GEN_TENANT, GEN_TENANT_SLO_MS = "slo50", 50.0
 GEN_F32_PROMPT, GEN_F32_TOKENS, GEN_F32_PAGES = 40, 8, 33
 GEN_TIMED_REPS, GEN_TIMED_POS, GEN_PROFILE_STEPS = 10, 300, 10
 PREFILL_TIMED_SHAPES = [(1, 12, 512, 64), (1, 12, 128, 64)]
+RESNET_CONVS = 53                 # resnet50_v1's Conv2D layers
+QUANT_CALIB_BATCH = 16            # phase 15: calibration images a batch
+QUANT_CALIB_BATCHES = 2
+QUANT_BUCKET = 32                 # the ResNet endpoint's largest bucket
+QUANT_MAX_ROWS = 8                # images (rows) a request, 1..8
+QUANT_REQS = 96
+QUANT_SERVE_TOL = 1e-5            # served vs direct (the reference's bar)
+QUANT_CPU_ROWS = 2                # images of the card-vs-CPU logits check
+QUANT_OWN_ULPS = 2                # a quantized layer card vs CPU, same input
+QUANT_PINNED_TOL = 1e-5           # the float path card vs CPU, quantized
+                                  # outputs pinned (of max |CPU value|)
+QUANT_AGREE_IMAGES = 256
+QUANT_SEQ = 128                   # int8 BERT-base's served sequence
+QUANT_BERT_BUCKET = 8
+QUANT_BERT_REQS = 32
+QUANT_CPU_SEQ = 32                # the card-vs-CPU BERT row's length
+KV_STEPS = 10
+QUANT_MM_SHAPE = (1024, 768, 3072)          # BERT-base's FFN product
+QUANT_CONV_SHAPE = (32, 256, 14, 256)       # a stage-3 3x3 conv (B, C, H, O)
 TEMPLATED_SOURCE = r"""
 template <typename T> __global__ void twice(const T *x, int n, T *o) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -4155,6 +4223,647 @@ def phase_utilities(seed: int, smi: str, resnet: dict, data: dict):
     return dict(est, zoo=zoo, **custom)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: int8 serving (ResNet-50, BERT-base), the kvstore Trainer, the
+# int8 product alone
+# ---------------------------------------------------------------------------
+def _quantized_blocks(net):
+    return [b for b in net.modules()
+            if isinstance(b, (qz.QuantizedDense, qz.QuantizedConv2D))]
+
+
+def _zero_counters():
+    fa.launches = fa.launches_dq = fa.launches_dkv = fc.launches = 0
+    rtc.launches = 0
+
+
+def _read_counters():
+    return {"K1": fa.launches, "K2": fa.launches_dq, "K3": fa.launches_dkv,
+            "K4": fc.launches, "K5": rtc.launches}
+
+
+def serve_closed_loop(ep, make_request, clients, per_client, seed):
+    """``clients`` threads, each sending ``per_client`` requests from
+    ``make_request(rng)`` through an InferenceServer over ``ep``: returns
+    (responses as (inputs, outputs), wall s, the endpoint's snapshot)."""
+    server = serving.InferenceServer(batch_timeout_ms=2.0, max_queue=512)
+    server.register(ep)
+    server.start()
+    results = [[] for _ in range(clients)]
+    errors = []
+
+    def client(i):
+        rng = np.random.default_rng(seed * 1000 + i)
+        try:
+            for _ in range(per_client):
+                inputs = make_request(rng)
+                results[i].append((inputs, server.predict(
+                    ep.name, inputs, timeout=300)))
+        except Exception as e:        # surfaced below; the phase fails
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    server.stop(drain=True)
+    if errors or any(t.is_alive() for t in threads):
+        raise SystemExit(f"FAIL: client errors {errors[:3]}")
+    return [r for rs in results for r in rs], wall, ep.stats.snapshot()
+
+
+def _served_vs_direct(net, responses):
+    """max over the responses of |served - direct| - (1e-5 + 1e-5 |direct|)
+    (<= 0 passes), the direct forward on the same rows."""
+    worst = -1.0
+    with torch.inference_mode():
+        for inputs, outs in responses:
+            inputs = inputs if isinstance(inputs, tuple) else (inputs,)
+            direct = net(*(torch.from_numpy(a).cuda() for a in inputs))
+            direct = direct if isinstance(direct, (tuple, list)) \
+                else (direct,)
+            outs = outs if isinstance(outs, (tuple, list)) else (outs,)
+            for a, b in zip(outs, direct):
+                if a.device.type != "cuda" or not torch.isfinite(a).all():
+                    raise SystemExit("FAIL: a response is off the card or "
+                                     "not finite")
+                worst = max(worst, ((a - b).abs() - (QUANT_SERVE_TOL + (
+                    QUANT_SERVE_TOL * b.abs()))).max().item())
+    return worst
+
+
+def _kernel_class(name: str) -> str:
+    n = name.lower()
+    if "i8" in n or "s8" in n or "imma" in n or "int8" in n:
+        return "int8 GEMM"
+    if "conv" in n or "fprop" in n or "cudnn" in n or "winograd" in n:
+        return "cuDNN convolution"
+    if "gemm" in n or "cutlass" in n or "xmma" in n:
+        return "float GEMM"
+    if "copy" in n or "cat" in n or "fill" in n:
+        return "copy / fill"
+    if "reduce" in n:
+        return "reduction"
+    return "elementwise and other"
+
+
+def forward_profile(fn):
+    """One ``fn()`` under torch.profiler: (host op counts by name, device
+    ms, device ms by kernel class, the top kernels as (name, ms))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops, classes, kernels = {}, {}, []
+    int_mm_ms = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            if e.self_device_time_total > 0:
+                ms = e.self_device_time_total / 1e3
+                kernels.append((e.key, ms))
+                c = _kernel_class(e.key)
+                classes[c] = classes.get(c, 0.0) + ms
+        else:
+            ops[e.key] = ops.get(e.key, 0) + e.count
+            if e.key == "aten::_int_mm":
+                int_mm_ms += e.device_time_total / 1e3
+    kernels.sort(key=lambda k: -k[1])
+    return ops, sum(classes.values()), classes, kernels[:5], int_mm_ms
+
+
+def _print_profile(what, prof):
+    ops, device_ms, classes, top, _ = prof
+    print(f"  {what}: device {device_ms:.3f} ms a forward; by "
+          "class " + ", ".join(f"{c} {ms:.3f}" for c, ms in sorted(
+              classes.items(), key=lambda kv: -kv[1])) + "; top kernels "
+          + "; ".join(f"{n[:70]} {ms:.3f}" for n, ms in top))
+
+
+def _accumulators(layer, x):
+    """The int32 accumulators of the quantized ``layer`` on input ``x``
+    (its calibrated range, its weight's own), with the input codes."""
+    xq, xmn, xmx = qops.quantize_v2(x, min_calib_range=-layer._amax,
+                                    max_calib_range=layer._amax)
+    wq, wmn, wmx = qops.quantize_v2(layer._t("weight").detach())
+    return xq, wq, (xmn, xmx, wmn, wmx)
+
+
+def _layer_accumulators_card_vs_cpu(qnet, inputs, picks):
+    """For each (label, layer): capture the layer's input on the card,
+    quantize it there, and compute the int32 accumulators on the card and
+    on the CPU from the same codes: bitwise equal?"""
+    seen = {}
+    hooks = []
+    for label, layer in picks:
+        def grab(block, args, label=label):
+            seen[label] = args[0].detach()
+        hooks.append((layer, layer.register_forward_pre_hook(grab)))
+    with torch.inference_mode():
+        qnet(*inputs)
+    for layer, h in hooks:
+        layer._gluon_pre_hooks.remove(h)
+    out = {}
+    for label, layer in picks:
+        xq, wq, ranges = _accumulators(layer, seen[label])
+        if isinstance(layer, qz.QuantizedConv2D):
+            kw = layer._conv_kwargs
+            args = dict(kernel=kw["kernel"], stride=kw["stride"],
+                        dilate=kw["dilate"], pad=kw["pad"],
+                        num_group=kw["num_group"])
+            prod = qops.quantized_conv
+        else:
+            args = dict(flatten=layer._flatten)
+            prod = qops.quantized_fully_connected
+        card = prod(xq, wq, *ranges, **args)[0]
+        host = prod(xq.cpu(), wq.cpu(), *(r.cpu() for r in ranges),
+                    **args)[0]
+        out[label] = (tuple(card.shape), bool(torch.equal(card.cpu(), host)))
+    return out
+
+
+def card_vs_cpu_int8(qnet, host, host_f32, inputs, what):
+    """Hold an int8 net on the card to the CPU port's (``host``: the same
+    ranges, ``quantized_like``) on the same ``inputs``, layer by layer
+    (``tools/int8_drift.compare``):
+
+    1. each quantized layer, run on the CPU on the card's input to it,
+       gives the card layer's output within QUANT_OWN_ULPS ulps of its
+       largest output (bitwise but for a transcendental activation);
+    2. with every quantized layer's output pinned to the card's, the
+       CPU's float path (K1's plain version, LayerNorm, BatchNorm, GELU,
+       the residuals) gives every layer input and the outputs within
+       QUANT_PINNED_TOL of the card's, of the largest value;
+    3. run freely, the outputs differ where an f32 rounding difference
+       flipped an input code and later layers carried the flip on; that
+       distance stays below half the int8 net's own error (vs
+       ``host_f32`` on the CPU)."""
+    c = int8_drift.compare(qnet, host, host_f32, inputs,
+                           tuple(x.cpu() for x in inputs))
+    first = "none" if c["first_flip"] is None else (
+        f"{c['first_flip']} (its input {c['first_flip_input_rel']:.3g})")
+    print(f"  {what} card vs CPU port, layer by layer: {c['own_bitwise']} "
+          f"of {len(c['layers'])} quantized layers bitwise on the card's "
+          f"input, the largest own error {c['own_ulps']:.3g} ulps of the "
+          f"layer's largest output (tol {QUANT_OWN_ULPS}); quantized outputs"
+          f" pinned to the card's: layer inputs {c['pinned_inputs_rel']:.3g}"
+          f", outputs {c['pinned_outputs_rel']:.3g} of the largest value "
+          f"(tol {QUANT_PINNED_TOL:g}); free-running: first code flip "
+          f"{first}, {c['codes_differing']} of {c['codes']} codes differ, "
+          f"outputs {c['free_running_rel']:.3g} of the largest (tol half "
+          f"the int8 net's own error vs f32 on the CPU, "
+          f"{c['int8_vs_f32_rel']:.3g})")
+    if not (c["own_ulps"] <= QUANT_OWN_ULPS
+            and c["pinned_inputs_rel"] <= QUANT_PINNED_TOL
+            and c["pinned_outputs_rel"] <= QUANT_PINNED_TOL
+            and c["free_running_rel"] < c["int8_vs_f32_rel"] / 2):
+        raise SystemExit(f"FAIL: int8 {what} differs card vs CPU")
+    return {k: c[k] for k in ("own_ulps", "own_bitwise", "pinned_inputs_rel",
+                              "pinned_outputs_rel", "first_flip",
+                              "codes_differing", "codes", "free_running_rel",
+                              "int8_vs_f32_rel")}
+
+
+def int8_resnet(seed: int, smi: str):
+    """Phase 15(a): ResNet-50 v1 calibrated (naive) and served in int8
+    beside the f32 net."""
+    named = seeded_resnet_weights(resnet50_v1(classes=1000), seed)
+    nets = {}
+    for kind in ("f32", "int8"):
+        nets[kind] = resnet50_v1(classes=1000)
+        load_jax_params(nets[kind], named, ctx=gpu(0))
+    rng = np.random.default_rng(seed + 15)
+    calib = [nd.array(resnet_batch(rng, 1, QUANT_CALIB_BATCH)[0][0],
+                      ctx=gpu(0)) for _ in range(QUANT_CALIB_BATCHES)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qnet = qz.quantize_net(nets["int8"], calib_data=calib,
+                           calib_mode="naive")
+    calib_s = time.perf_counter() - t0
+    blocks = _quantized_blocks(qnet)
+    convs = sum(isinstance(b, qz.QuantizedConv2D) for b in blocks)
+    denses = len(blocks) - convs
+    print(f"15(a) resnet50_v1 f32 calibrated on {QUANT_CALIB_BATCHES} "
+          f"batches of {QUANT_CALIB_BATCH} x 3 x 224 x 224 (naive) in "
+          f"{calib_s:.2f} s: {convs} Conv2D and {denses} Dense converted")
+    if (convs, denses) != (RESNET_CONVS, 1):
+        raise SystemExit("FAIL: quantize_net did not convert ResNet-50's 53 "
+                         "convolutions and its Dense")
+
+    def request(rng):
+        rows = int(rng.integers(1, QUANT_MAX_ROWS + 1))
+        return rng.random((rows, 3, 224, 224), dtype=np.float32)
+
+    served = {}
+    for kind in ("f32", "int8"):
+        ep = serving.ModelEndpoint(f"resnet_{kind}", nets[kind],
+                                   [(3, 224, 224)], dtype="float32",
+                                   max_batch_size=QUANT_BUCKET)
+        # ---- the main path: counts from 0 just before, read just after
+        _zero_counters()
+        responses, wall, snap = serve_closed_loop(
+            ep, request, N_CLIENTS, QUANT_REQS // N_CLIENTS, seed + 16)
+        hand = _read_counters()
+        # ---- end of the main path ----
+        rows = sum(r[0].shape[0] for r in responses)
+        lat = snap["latency"]
+        served[kind] = {"ep": ep, "responses": responses, "hand": hand,
+                        "req_s": len(responses) / wall,
+                        "img_s": rows / wall, "p50_ms": lat["p50_us"] / 1e3,
+                        "p99_ms": lat["p99_us"] / 1e3,
+                        "batches": snap["counters"]["batches"]}
+        print(f"  served resnet50_v1 {kind}, {N_CLIENTS} closed-loop "
+              f"clients, {len(responses)} requests of 1-{QUANT_MAX_ROWS} "
+              f"images ({rows}) in {snap['counters']['batches']} batches: "
+              f"{len(responses) / wall:.2f} requests/s, {rows / wall:.1f} "
+              f"img/s, p50 {lat['p50_us'] / 1e3:.2f} ms, p99 "
+              f"{lat['p99_us'] / 1e3:.2f} ms on {smi}; hand-written kernel "
+              f"launches {hand}")
+        if len(responses) != QUANT_REQS or any(hand.values()):
+            raise SystemExit("FAIL: not every request was served, or a "
+                             "hand-written kernel ran on a ResNet path")
+    # check 1: served = direct forward
+    worst = _served_vs_direct(qnet, served["int8"]["responses"])
+    worst32 = _served_vs_direct(nets["f32"], served["f32"]["responses"])
+    print(f"  int8 served vs its direct forward: max(|d| - tol) {worst:.3g}"
+          f" (tol 1e-5 + 1e-5 |direct|; pass if <= 0); f32 served vs direct"
+          f" (reported): {worst32:.3g}")
+    if worst > 0:
+        raise SystemExit("FAIL: an int8 response differs from the direct "
+                         "forward")
+    # device ms of a bucket-32 forward, by kernel class; check 4
+    batch = torch.from_numpy(resnet_batch(rng, 1, QUANT_BUCKET)[0][0]).cuda()
+    profs = {}
+    for kind in ("f32", "int8"):
+        net = served[kind]["ep"].block
+        with torch.inference_mode():
+            net(batch)
+            profs[kind] = forward_profile(lambda: net(batch))
+        _print_profile(f"resnet50_v1 {kind} (bucket {QUANT_BUCKET})",
+                       profs[kind])
+    ops8 = profs["int8"][0]
+    conv_ops = {k: v for k, v in ops8.items() if "conv" in k.lower()}
+    int_mm = ops8.get("aten::_int_mm", 0)
+    int_mm_ms = profs["int8"][4]
+    print(f"  int8 forward's host ops: aten::_int_mm {int_mm} (expected "
+          f"{RESNET_CONVS + 1}) with {int_mm_ms:.3f} ms of kernels under "
+          f"them, convolution ops {conv_ops or 0}; f32 forward's "
+          f"convolution ops {profs['f32'][0].get('aten::convolution', 0)}")
+    if int_mm != RESNET_CONVS + 1 or conv_ops or not int_mm_ms > 0:
+        raise SystemExit("FAIL: the int8 forward ran a library convolution "
+                         "or missed an int8 GEMM")
+    # check 2: three layers' accumulators, card vs CPU, same codes
+    # features.6 is the third stage (stem conv, BatchNorm, ReLU, pool, ...)
+    stage3 = next(b for path, b in qnet.named_modules()
+                  if path.startswith("features.6.")
+                  and isinstance(b, qz.QuantizedConv2D)
+                  and b._conv_kwargs["kernel"] == (3, 3))
+    picks = [("conv1", blocks[0]), ("stage3 3x3", stage3),
+             ("dense", blocks[-1])]
+    acc = _layer_accumulators_card_vs_cpu(qnet, (batch[:2],), picks)
+    print("  int32 accumulators card vs CPU on the same codes (batch 2): "
+          + ", ".join(f"{k} {s} {'bitwise' if eq else 'DIFFER'}"
+                      for k, (s, eq) in acc.items()))
+    if not all(eq for _, eq in acc.values()):
+        raise SystemExit("FAIL: int8 accumulators differ card vs CPU")
+    # check 3: logits card vs the CPU port's, same images and ranges
+    host, host32 = resnet50_v1(classes=1000), resnet50_v1(classes=1000)
+    for h in (host, host32):
+        load_jax_params(h, named, ctx=cpu())
+    int8_drift.quantized_like(host, qnet).eval()
+    cmp = card_vs_cpu_int8(qnet, host, host32.eval(),
+                           (batch[:QUANT_CPU_ROWS],),
+                           f"logits of {QUANT_CPU_ROWS} images")
+    del host, host32
+    # top-1 agreement with f32 (a report: random weights)
+    agree = 0
+    with torch.inference_mode():
+        for _ in range(QUANT_AGREE_IMAGES // QUANT_BUCKET):
+            xb = torch.from_numpy(resnet_batch(rng, 1, QUANT_BUCKET)[0][0]
+                                  ).cuda()
+            agree += (nets["f32"](xb).argmax(1) == qnet(xb).argmax(1)
+                      ).sum().item()
+    print(f"  top-1 agreement int8 vs f32 on {QUANT_AGREE_IMAGES} seeded "
+          f"images: {agree / QUANT_AGREE_IMAGES:.3f} (random weights: a "
+          "report, not a gate)")
+    out = {k: {m: v[m] for m in ("req_s", "img_s", "p50_ms", "p99_ms",
+                                 "hand")} for k, v in served.items()}
+    for kind in out:
+        out[kind]["device_ms"] = profs[kind][1]
+    del nets, qnet, served, calib
+    torch.cuda.empty_cache()
+    return dict(out, calib_s=calib_s, agree=agree / QUANT_AGREE_IMAGES,
+                card_vs_cpu=cmp)
+
+
+def int8_bert(seed: int, smi: str):
+    """Phase 15(b): BERT-base calibrated (naive) and served in int8; K1 in
+    f32 in each of its 12 layers."""
+    net = bert_base()
+    named = seeded_bert_weights(net, seed)
+    load_jax_params(net, named)
+    layers = len(net.encoder._layers)
+    rng = np.random.default_rng(seed + 17)
+
+    def tokens(rows, seq=QUANT_SEQ):
+        return (rng.integers(0, 30522, (rows, seq), dtype=np.int32),
+                rng.integers(0, 2, (rows, seq), dtype=np.int32))
+    calib = [tuple(nd.array(a, ctx=gpu(0), dtype="int32")
+                   for a in tokens(QUANT_BERT_BUCKET))
+             for _ in range(QUANT_CALIB_BATCHES)]
+    qnet = qz.quantize_net(net, calib_data=calib, calib_mode="naive")
+    blocks = _quantized_blocks(qnet)
+    print(f"15(b) bert_base f32 calibrated on {QUANT_CALIB_BATCHES} batches "
+          f"of {QUANT_BERT_BUCKET} x {QUANT_SEQ} (naive): {len(blocks)} "
+          "Dense converted")
+    if len(blocks) != 4 * layers + 1 or not all(
+            isinstance(b, qz.QuantizedDense) for b in blocks):
+        raise SystemExit("FAIL: quantize_net did not convert BERT-base's 49 "
+                         "Dense layers")
+
+    def request(r):
+        rows = int(r.integers(1, QUANT_BERT_BUCKET + 1))
+        return (r.integers(0, 30522, (rows, QUANT_SEQ), dtype=np.int32),
+                r.integers(0, 2, (rows, QUANT_SEQ), dtype=np.int32))
+
+    # ---- the main path: counts from 0 just before, read just after ----
+    _zero_counters()
+    ep = serving.ModelEndpoint("bert_int8", qnet,
+                               [(QUANT_SEQ,), (QUANT_SEQ,)], dtype="int32",
+                               max_batch_size=QUANT_BERT_BUCKET)
+    responses, wall, snap = serve_closed_loop(
+        ep, request, N_CLIENTS, QUANT_BERT_REQS // N_CLIENTS, seed + 18)
+    hand = _read_counters()
+    # ---- end of the main path ----
+    c = snap["counters"]
+    executed = c["batches"] + c["warmup_batches"]
+    rows = sum(r[0][0].shape[0] for r in responses)
+    lat = snap["latency"]
+    print(f"  served {len(responses)} requests ({rows} rows of {QUANT_SEQ} "
+          f"tokens) in {c['batches']} batches + {c['warmup_batches']} "
+          f"probe/warm-up runs: {len(responses) / wall:.2f} requests/s, "
+          f"{rows * QUANT_SEQ / wall:.0f} tokens/s, p50 "
+          f"{lat['p50_us'] / 1e3:.2f} ms, p99 {lat['p99_us'] / 1e3:.2f} ms "
+          f"on {smi}; launches {hand} (K1 expected {layers} x {executed} = "
+          f"{layers * executed})")
+    if len(responses) != QUANT_BERT_REQS or hand["K1"] != layers * executed \
+            or any(v for k, v in hand.items() if k != "K1"):
+        raise SystemExit("FAIL: a request was lost, or K1 did not run in "
+                         "every layer of every forward")
+    worst = _served_vs_direct(qnet, responses)
+    print(f"  served vs direct forward: max(|d| - tol) {worst:.3g} (tol "
+          "1e-5 + 1e-5 |direct|; pass if <= 0)")
+    if worst > 0:
+        raise SystemExit("FAIL: an int8 BERT response differs from the "
+                         "direct forward")
+    # which dtype K1 gets: a spy around its wrapper for one forward
+    dtypes = []
+    kernel = fa.flash_attention_fwd
+
+    def spy(q, *args, **kw):
+        dtypes.append(q.dtype)
+        return kernel(q, *args, **kw)
+    tok = tokens(1, QUANT_CPU_SEQ)
+    fa.flash_attention_fwd = spy
+    try:
+        with torch.inference_mode():
+            qnet(*(torch.from_numpy(a).cuda() for a in tok))
+    finally:
+        fa.flash_attention_fwd = kernel
+    print(f"  K1 in one int8 forward: {len(dtypes)} calls, dtypes "
+          f"{sorted(set(str(d) for d in dtypes))}")
+    if len(dtypes) != layers or any(d != torch.float32 for d in dtypes):
+        raise SystemExit("FAIL: the int8 BERT's attention did not run K1 in "
+                         "f32 in every layer")
+    enc = qnet.encoder._layers
+    picks = [("layer0 qkv", enc[0].attention.qkv),
+             (f"layer{layers - 1} ffn2", enc[-1].ffn.ffn2),
+             ("pooler", qnet.pooler)]
+    acc = _layer_accumulators_card_vs_cpu(
+        qnet, tuple(torch.from_numpy(a).cuda() for a in tok), picks)
+    print(f"  int32 accumulators card vs CPU on the same codes (1 x "
+          f"{QUANT_CPU_SEQ}): " + ", ".join(
+              f"{k} {s} {'bitwise' if eq else 'DIFFER'}"
+              for k, (s, eq) in acc.items()))
+    if not all(eq for _, eq in acc.values()):
+        raise SystemExit("FAIL: int8 BERT accumulators differ card vs CPU")
+    host, host32 = bert_base(), bert_base()
+    for h in (host, host32):
+        load_jax_params(h, named, ctx=cpu())
+    int8_drift.quantized_like(host, qnet).eval()
+    cmp = card_vs_cpu_int8(
+        qnet, host, host32.eval(),
+        tuple(torch.from_numpy(a).cuda() for a in tok),
+        f"BERT-base (1 row of {QUANT_CPU_SEQ} tokens; K1 f32 on the card, "
+        "the plain attention on the CPU)")
+    with torch.inference_mode():
+        xb = tuple(torch.from_numpy(a).cuda() for a in tokens(
+            QUANT_BERT_BUCKET))
+        qnet(*xb)
+        prof = forward_profile(lambda: qnet(*xb))
+    _print_profile(f"bert_base int8 (bucket {QUANT_BERT_BUCKET} x "
+                   f"{QUANT_SEQ})", prof)
+    del net, qnet, host, host32, ep, responses
+    torch.cuda.empty_cache()
+    return {"launches": hand["K1"], "hand": hand, "card_vs_cpu": cmp,
+            "device_ms": prof[1],
+            "req_s": c["completed"] / wall,
+            "tokens_s": rows * QUANT_SEQ / wall,
+            "p50_ms": lat["p50_us"] / 1e3, "p99_ms": lat["p99_us"] / 1e3}
+
+
+def kvstore_resnet(seed: int, smi: str, resnet: dict, util: dict):
+    """Phase 15(c): ResNet-50 through ``gluon.Trainer(kvstore="device",
+    update_on_kvstore=True)``, without and with 2-bit compression; the
+    kvstore route bitwise the local one on the same gradients; 2-bit and
+    1-bit packing card vs CPU."""
+    named = seeded_resnet_weights(resnet50_v1(classes=1000), seed)
+    net = resnet50_v1(classes=1000)
+    load_jax_params(net, named, ctx=gpu(0))
+    net.cast("bfloat16")
+    rng = np.random.default_rng(seed + 19)
+    xs, ys = resnet_batch(rng, 1, RESNET_BATCH)
+    x = nd.array(xs[0], ctx=gpu(0)).astype("bfloat16")
+    y = nd.array(ys[0], ctx=gpu(0))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    opt = {"learning_rate": 0.05, "momentum": 0.9, "multi_precision": True}
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+
+    def backward():
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        return loss
+
+    # check 1: both update routes from the same gradients
+    backward()
+    start = [p.data()._data.clone() for p in params]
+    leaves = torch.utils._pytree.tree_leaves
+    routes = {}
+    for route, kw in (("local", {}), ("kvstore", {"update_on_kvstore":
+                                                  True})):
+        with torch.no_grad():
+            for p, w in zip(params, start):
+                p.data()._data.copy_(w)
+        tr = gluon.Trainer(net.collect_params(), "sgd", dict(opt),
+                           kvstore="device", **kw)
+        tr.step(RESNET_BATCH)
+        states = tr._kvstore._updater.states if kw else tr._updaters.states
+        routes[route] = ([p.data()._data.clone() for p in params],
+                         [t.clone() for i in sorted(states)
+                          for t in leaves(states[i])])
+    same_w = all(torch.equal(a, b) for a, b in zip(routes["local"][0],
+                                                   routes["kvstore"][0]))
+    same_s = len(routes["local"][1]) == len(routes["kvstore"][1]) and all(
+        torch.equal(a, b) for a, b in zip(routes["local"][1],
+                                          routes["kvstore"][1]))
+    print(f"15(c) one SGD step from the same gradients, local vs "
+          f"update_on_kvstore: {len(params)} weights "
+          f"{'bitwise' if same_w else 'DIFFER'}, "
+          f"{len(routes['local'][1])} f32 masters and momenta "
+          f"{'bitwise' if same_s else 'DIFFER'}")
+    # check 2: the packing, card vs CPU, two pushes each (residuals fed back)
+    packing = {}
+    for kind in ("2bit", "1bit"):
+        card_c = kvstore.GradientCompression(kind, 0.5)
+        host_c = kvstore.GradientCompression(kind, 0.5)
+        ok = True
+        for _ in range(2):
+            for i, p in enumerate(params):
+                g = p.grad()._data
+                pk, sc = card_c.quantize(i, g)
+                hpk, hsc = host_c.quantize(i, g.cpu())
+                ok &= bool(torch.equal(pk.cpu(), hpk)) and bool(
+                    torch.equal(sc.cpu(), hsc)) and bool(torch.equal(
+                        card_c._residuals[i].cpu(), host_c._residuals[i]))
+        packing[kind] = ok
+    print("  packed bytes, scales and residuals card vs CPU over "
+          f"{len(params)} gradients, two pushes: " + ", ".join(
+              f"{k} {'bitwise' if v else 'DIFFER'}"
+              for k, v in packing.items()))
+    del routes, start
+    if not (same_w and same_s and all(packing.values())):
+        raise SystemExit("FAIL: the kvstore route or the gradient packing "
+                         "differs")
+    out = {}
+    for label, comp in (("device", None),
+                        ("device_2bit", {"type": "2bit",
+                                         "threshold": 0.5})):
+        load_jax_params(net, named)        # each run from the seeded weights
+        tr = gluon.Trainer(net.collect_params(), "sgd", dict(opt),
+                           kvstore="device", update_on_kvstore=True,
+                           compression_params=comp)
+
+        def step():
+            loss = backward()
+            tr.step(RESNET_BATCH)
+            return loss
+        torch.cuda.synchronize()
+        # ---- the main path: counts from 0 just before, read just after
+        _zero_counters()
+        losses, step_ms = [], []
+        for _ in range(KV_STEPS):
+            t1 = time.perf_counter()
+            losses.append(step().mean().asscalar())
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        hand = _read_counters()
+        # ---- end of the main path ----
+        median = float(np.median(step_ms))
+        device_ms, busy = busy_share(step, median)
+        out[label] = {"step_ms": median, "device_ms": device_ms,
+                      "busy_share": busy, "hand": hand,
+                      "img_s": RESNET_BATCH / median * 1e3}
+        print(f"  {KV_STEPS} steps, kvstore 'device', update_on_kvstore, "
+              f"compression {comp}: losses {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, step median {median:.2f} ms "
+              f"({RESNET_BATCH / median * 1e3:.1f} img/s), device "
+              f"{device_ms:.2f} ms, busy {busy:.3f}; hand-written kernel "
+              f"launches {hand} on {smi}")
+        if not np.isfinite(losses).all() or any(hand.values()):
+            raise SystemExit("FAIL: a kvstore training loss is not finite, "
+                             "or a hand-written kernel ran")
+    print(f"  same run: phase 5's step {resnet['step_ms']:.2f} ms, phase "
+          f"14's (Estimator) {util['step_ms']:.2f} ms")
+    del net, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_product_times(seed: int, smi: str):
+    """Phase 15(d): the int8 product alone from CUDA graphs, beside bf16
+    and the bounds."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    i8 = lambda *s: torch.randint(-127, 128, s, generator=g,  # noqa: E731
+                                  device="cuda", dtype=torch.int8)
+    bf = lambda *s: torch.randn(*s, generator=g, device="cuda",  # noqa: E731
+                                dtype=torch.bfloat16)
+    out = {}
+    M, K, N = QUANT_MM_SHAPE
+    a, w = i8(M, K), i8(N, K)
+    ab, wb = bf(M, K), bf(K, N)
+    want = qops.int8_matmul(a.cpu(), w.cpu())
+    if not torch.equal(qops.int8_matmul(a, w).cpu(), want):
+        raise SystemExit("FAIL: _int_mm differs from the CPU's int32 product")
+    ops = 2 * M * K * N
+    out["mm"] = {
+        "shape": [M, K, N],
+        "int8_ms": graph_ms(lambda: qops.int8_matmul(a, w)),
+        "bf16_ms": graph_ms(lambda: torch.matmul(ab, wb)),
+        "int8_bound": _bound(M * K + N * K + 4 * M * N, ops, torch.int8)[:2],
+        "bf16_bound": _bound(2 * (M * K + K * N + M * N), ops,
+                             torch.bfloat16)[:2]}
+    B, C, H, O = QUANT_CONV_SHAPE
+    x, wc = i8(B, C, H, H), i8(O, C, 3, 3)
+    xb, wcb = bf(B, C, H, H), bf(O, C, 3, 3)
+    conv = lambda: qops.int8_conv(x, wc, (1, 1), (1, 1), (1, 1))  # noqa: E731
+    if not torch.equal(conv()[:2].cpu(), qops.int8_conv(
+            x[:2].cpu(), wc.cpu(), (1, 1), (1, 1), (1, 1))):
+        raise SystemExit("FAIL: the int8 convolution differs card vs CPU")
+    xcl = torch.nn.functional.pad(x, (1, 1, 1, 1)).permute(0, 2, 3, 1) \
+        .contiguous()
+    rows, k = B * H * H, C * 9
+    ops = 2 * rows * k * O
+    out["conv"] = {
+        "shape": [B, C, H, H, O, 3, 3],
+        "int8_ms": graph_ms(conv),
+        "im2col_ms": graph_ms(lambda: qops._im2col(xcl, (3, 3), (1, 1),
+                                                   (1, 1))),
+        "bf16_ms": graph_ms(lambda: torch.nn.functional.conv2d(
+            xb, wcb, padding=1)),
+        "int8_bound": _bound(x.numel() + wc.numel() + 4 * rows * O, ops,
+                             torch.int8)[:2],
+        "bf16_bound": _bound(2 * (xb.numel() + wcb.numel() + rows * O), ops,
+                             torch.bfloat16)[:2]}
+    for name, r in out.items():
+        print(f"15(d) int8 {name} {r['shape']}: int8 route "
+              f"{r['int8_ms']:.4f} ms (bound {r['int8_bound'][0]:.4f} ms by "
+              f"{r['int8_bound'][1]} at 1,979 TOP/s and 3.35 TB/s; "
+              f"{r['int8_bound'][0] / r['int8_ms']:.1%} of it), bf16 "
+              f"{'cuDNN convolution' if name == 'conv' else 'torch.matmul'} "
+              f"{r['bf16_ms']:.4f} ms (bound {r['bf16_bound'][0]:.4f} ms)"
+              + (f"; im2col alone {r['im2col_ms']:.4f} ms"
+                 if name == "conv" else "") + f", from CUDA graphs, on {smi}")
+    return out
+
+
+def phase_quantization(seed: int, smi: str, resnet: dict, util: dict):
+    """Phase 15: (a) int8 ResNet-50 served, (b) int8 BERT-base served, (c)
+    ResNet-50 through the kvstore Trainer, (d) the int8 product alone."""
+    t0 = time.perf_counter()
+    res = int8_resnet(seed, smi)
+    bert = int8_bert(seed, smi)
+    kv = kvstore_resnet(seed, smi, resnet, util)
+    times = int8_product_times(seed, smi)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return {"resnet": res, "bert": bert, "kvstore": kv, "times": times}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4180,6 +4889,14 @@ def main(argv=None) -> int:
     sp = phase_sparse(args.seed, smi)
     data = phase_data(args.seed, smi, resnet)
     util = phase_utilities(args.seed, smi, resnet, data)
+    quant = phase_quantization(args.seed, smi, resnet, util)
+    q_hand = {"int8_resnet": {k: quant["resnet"]["f32"]["hand"][k]
+                              + quant["resnet"]["int8"]["hand"][k]
+                              for k in ("K1", "K2", "K3", "K4", "K5")},
+              "int8_bert": quant["bert"]["hand"],
+              "kvstore_resnet": {k: sum(v["hand"][k] for v in
+                                        quant["kvstore"].values())
+                                 for k in ("K1", "K2", "K3", "K4", "K5")}}
     f16 = amp_rec["fp16"]
     amp_launches = {path: amp_rec[path]["launches"]
                     for path in ("amp_bf16", "amp_fp16")}
@@ -4193,7 +4910,8 @@ def main(argv=None) -> int:
          + gen["launches"] + glu["launches"]["flash_attention_fwd"]
          + lm["k1_op_surface"] + lm["hand"]["K1"] + det["hand"]["K1"]
          + sum(c["flash_attention_fwd"] for c in amp_launches.values())
-         + sp["hand"]["K1"] + data["hand"]["K1"] + util["hand"]["K1"],
+         + sp["hand"]["K1"] + data["hand"]["K1"] + util["hand"]["K1"]
+         + sum(h["K1"] for h in q_hand.values()),
          "launches_by_path": {
              "serving": serve_launches,
              "training": train_launches["flash_attention_fwd"],
@@ -4205,7 +4923,8 @@ def main(argv=None) -> int:
              "amp_fp16": amp_launches["amp_fp16"]["flash_attention_fwd"],
              "sparse_lm": sp["hand"]["K1"],
              "data_resnet": data["hand"]["K1"],
-             "estimator_resnet": util["hand"]["K1"]},
+             "estimator_resnet": util["hand"]["K1"],
+             **{path: h["K1"] for path, h in q_hand.items()}},
          "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"],
                             gen["k1_max_abs_err"]),
          "ms": r["ms"], "ms_strided": r["ms_strided"],
@@ -4246,7 +4965,8 @@ def main(argv=None) -> int:
             "launches": train_launches[wrapper] + glu["launches"][wrapper]
             + lm["hand"][k] + det["hand"][k]
             + sum(c[wrapper] for c in amp_launches.values())
-            + sp["hand"][k] + data["hand"][k] + util["hand"][k],
+            + sp["hand"][k] + data["hand"][k] + util["hand"][k]
+            + sum(h[k] for h in q_hand.values()),
             "launches_by_path": {
                 "training": train_launches[wrapper],
                 "gluon_training": glu["launches"][wrapper],
@@ -4255,7 +4975,8 @@ def main(argv=None) -> int:
                 "amp_fp16": amp_launches["amp_fp16"][wrapper],
                 "sparse_lm": sp["hand"][k],
                 "data_resnet": data["hand"][k],
-                "estimator_resnet": util["hand"][k]},
+                "estimator_resnet": util["hand"][k],
+                **{path: h[k] for path, h in q_hand.items()}},
             "max_abs_err": bwd[f"{name}_err"], "ms": t[name]["ms"],
             "device_ms": t[name]["device_ms"],
             "plain_ms": t[name]["plain_ms"],
@@ -4292,7 +5013,8 @@ def main(argv=None) -> int:
         "launches": resnet["k4_launches"] + resnet["train_launches"]
         + lm["hand"]["K4"] + det["hand"]["K4"]
         + sum(amp_rec[p]["others"]["K4"] for p in amp_launches)
-        + sp["hand"]["K4"] + data["hand"]["K4"] + util["hand"]["K4"],
+        + sp["hand"]["K4"] + data["hand"]["K4"] + util["hand"]["K4"]
+        + sum(h["K4"] for h in q_hand.values()),
         "launches_by_path": {"resnet50_training":
                              resnet["train_launches"],
                              "resnet50_bottleneck_sites":
@@ -4303,7 +5025,9 @@ def main(argv=None) -> int:
                              "amp_fp16": amp_rec["amp_fp16"]["others"]["K4"],
                              "sparse_lm": sp["hand"]["K4"],
                              "data_resnet": data["hand"]["K4"],
-                             "estimator_resnet": util["hand"]["K4"]},
+                             "estimator_resnet": util["hand"]["K4"],
+                             **{path: h["K4"] for path, h in
+                                q_hand.items()}},
         "max_abs_err": k4["max_abs_err"], "ms": s2["ms"],
         "device_ms": s2["device_ms"], "plain_ms": s2["plain_ms"],
         "bound_ms": s2["bound_ms"], "bound_by": s2["bound_by"],
@@ -4326,7 +5050,8 @@ def main(argv=None) -> int:
         "replaces": "mxnet_tpu/rtc.py:64",
         "launches": k5["launches"] + lm["hand"]["K5"] + det["hand"]["K5"]
         + sum(amp_rec[p]["others"]["K5"] for p in amp_launches)
-        + sp["hand"]["K5"] + data["hand"]["K5"] + util["hand"]["K5"],
+        + sp["hand"]["K5"] + data["hand"]["K5"] + util["hand"]["K5"]
+        + sum(h["K5"] for h in q_hand.values()),
         "launches_by_path": {"rtc": k5["launches"],
                              "lstm_lm": lm["hand"]["K5"],
                              "ssd": det["hand"]["K5"],
@@ -4334,7 +5059,9 @@ def main(argv=None) -> int:
                              "amp_fp16": amp_rec["amp_fp16"]["others"]["K5"],
                              "sparse_lm": sp["hand"]["K5"],
                              "data_resnet": data["hand"]["K5"],
-                             "estimator_resnet": util["hand"]["K5"]},
+                             "estimator_resnet": util["hand"]["K5"],
+                             **{path: h["K5"] for path, h in
+                                q_hand.items()}},
         "max_abs_err": max(v["max_abs_err"]
                            for v in k5["by_kernel"].values()),
         "ms": head["ms"], "device_ms": head["device_ms"],

@@ -13,7 +13,9 @@ makes ``cpu()`` batches, which the training loop moves to the card; its
 host C++ (``native``) is built with g++ at first use. ``metric``,
 ``callback``, ``visualization`` and ``gluon.contrib.estimator`` are the
 training utilities, ``operator`` (``nd.Custom``) and ``library`` the custom
-ops and external op libraries.
+ops and external op libraries. ``contrib.quantization.quantize_net``
+converts a Gluon net to int8 inference; ``kvstore`` (``kv``) is the
+single-process KVStore with gradient compression.
 """
 __version__ = "2.0.0"
 
@@ -35,12 +37,15 @@ from . import (amp, autograd, base, config, engine, gluon, image, init,
 from . import ndarray as nd
 from .optimizer import lr_scheduler
 from . import callback, library, metric, operator, visualization
+from . import contrib, kvstore
+from . import kvstore as kv
 
 library.initialize()   # fork handlers and the crash logger
 
 __all__ = ["Context", "MXNetError", "cpu", "gpu", "current_context",
-           "amp", "autograd", "base", "callback", "config", "engine", "gluon",
-           "image", "init", "initializer", "io", "library", "lr_scheduler",
+           "amp", "autograd", "base", "callback", "config", "contrib",
+           "engine", "gluon", "image", "init", "initializer", "io", "kv",
+           "kvstore", "library", "lr_scheduler",
            "metric", "nd", "ndarray", "operator", "ops", "optimizer",
            "parallel", "random", "recordio", "rtc", "serving",
            "visualization"]

@@ -4,24 +4,26 @@
 
 ``step(batch_size)`` sets ``rescale_grad = scale / batch_size`` and updates
 every parameter with a gradient in place (the optimizer's ``_rule`` through
-an ``Updater``, the f32 master of ``multi_precision`` included). On one
-device with one context there is nothing to reduce: ``kvstore`` "device",
-"local" or None do no communication. A ``dist_*`` kvstore,
-``update_on_kvstore=True`` and gradient compression are ROADMAP item P9 and
-raise.
+an ``Updater``, the f32 master of ``multi_precision`` included). The
+kvstore (a type name or a ``KVStore``) is made at the first step, as the
+reference's ``_init_kvstore`` does. With one context a parameter and one
+worker there is nothing to reduce, so by default (``update_on_kvstore``
+None or False) a step is the local update alone. With ``update_on_kvstore=True`` the store owns the
+optimizer: each step pushes every gradient (through ``compression_params``'
+2-bit or 1-bit roundtrip when given) and pulls every weight. A ``dist_*``
+kvstore is ROADMAP item Q1.9 (P9) and raises.
 """
 from __future__ import annotations
 
 from typing import List
 
+from .. import kvstore as kvstore_mod
 from .. import optimizer as opt_mod
 from ..base import MXNetError
 from ..optimizer.optimizer import state_from_host, state_to, state_to_host
 from .parameter import Parameter
 
 __all__ = ["Trainer"]
-
-_LOCAL_KVSTORES = (None, "device", "local")
 
 
 class Trainer:
@@ -37,13 +39,7 @@ class Trainer:
         if not isinstance(params, (list, tuple)):
             raise MXNetError("params must be a ParameterDict or list of "
                              "Parameters")
-        if kvstore not in _LOCAL_KVSTORES or update_on_kvstore or \
-                compression_params:
-            raise MXNetError(
-                f"Trainer: kvstore={kvstore!r}, update_on_kvstore="
-                f"{update_on_kvstore!r}, compression {compression_params!r}:"
-                " distributed and kvstore-side updates are ROADMAP item P9; "
-                "one device takes kvstore 'device', 'local' or None")
+        kvstore_mod.refuse_distributed(kvstore)
         self._params: List[Parameter] = []
         for p in params:
             if not isinstance(p, Parameter):
@@ -65,6 +61,32 @@ class Trainer:
             self._optimizer = opt_mod.create(optimizer, param_dict=param_dict,
                                              **optimizer_params)
         self._updaters = opt_mod.get_updater(self._optimizer)
+        self._compression_params = compression_params
+        self._kvstore_params = {"kvstore": kvstore,
+                                "update_on_kvstore": update_on_kvstore}
+        self._kv_initialized = False
+        self._kvstore = None
+        self._update_on_kvstore = False
+
+    def _init_kvstore(self):
+        """Make the kvstore once, at the first step or state call
+        (``trainer.py`` ``_init_kvstore``): under ``update_on_kvstore`` it
+        gets the optimizer and every initialized weight."""
+        kv = self._kvstore_params["kvstore"]
+        if kv is not None:
+            self._kvstore = kv if isinstance(kv, kvstore_mod.KVStoreBase) \
+                else kvstore_mod.create(kv)
+            if self._compression_params:
+                self._kvstore.set_gradient_compression(
+                    self._compression_params)
+            self._update_on_kvstore = bool(
+                self._kvstore_params["update_on_kvstore"])
+            if self._update_on_kvstore:
+                self._kvstore.set_optimizer(self._optimizer)
+                for i, p in enumerate(self._params):
+                    if p._var is not None:
+                        self._kvstore.init(i, p.data())
+        self._kv_initialized = True
 
     @property
     def learning_rate(self):
@@ -78,29 +100,53 @@ class Trainer:
         self._optimizer.set_learning_rate(lr)
 
     def step(self, batch_size, ignore_stale_grad=False):
-        """Reduce the gradients (nothing to do on one device), then update
-        every parameter with gradients scaled by 1 / ``batch_size``."""
+        """Update every parameter with gradients scaled by 1 /
+        ``batch_size``. There is nothing to reduce first: a parameter has
+        one context and every store here one worker (the reference's
+        pushpull of several contexts or workers is ROADMAP Q1.9)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
-        self.allreduce_grads()
         self._update()
 
     def allreduce_grads(self):
-        """One context per parameter: no reduction."""
+        """Make the kvstore; with one context and one worker there is
+        nothing to reduce."""
+        if not self._kv_initialized:
+            self._init_kvstore()
 
     def update(self, batch_size, ignore_stale_grad=False):
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update()
 
     def _update(self):
+        if self._update_on_kvstore:
+            for i, param in enumerate(self._params):
+                if param.grad_req == "null" or param._var is None:
+                    continue
+                self._kvstore.push(i, param.list_grad(), priority=-i)
+                self._kvstore.pull(i, out=param.list_data(), priority=-i)
+            return
         for i, param in enumerate(self._params):
             if param.grad_req == "null" or param._var is None:
                 continue
             self._updaters(i, param.grad(), param.data())
 
+    def _refuse_kvstore_states(self, what):
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            raise MXNetError(f"{what} requires local updates "
+                             "(update_on_kvstore=False); use save_states() "
+                             "for kvstore-owned optimizer state")
+
     # ------------------------------------------------------------------
     def state_dict(self):
         """The optimizer side of training as host arrays: every state slot,
         the update count and the per-index counts."""
+        self._refuse_kvstore_states("state_dict()")
         opt = self._optimizer
         return {"kind": "Trainer", "version": 1,
                 "num_update": int(opt.num_update),
@@ -114,6 +160,7 @@ class Trainer:
         each slot on its parameter's device."""
         if state.get("kind") != "Trainer":
             raise MXNetError(f"not a Trainer state: {state.get('kind')!r}")
+        self._refuse_kvstore_states("load_state_dict()")
         opt = self._optimizer
         opt.num_update = int(state["num_update"])
         opt._index_update_count = {int(k): int(v) for k, v in
@@ -124,10 +171,20 @@ class Trainer:
             for i, st in state.get("slots", {}).items()}
 
     def save_states(self, fname):
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
+            return
         with open(fname, "wb") as f:
             f.write(self._updaters.get_states(dump_optimizer=True))
 
     def load_states(self, fname):
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as f:
             self._updaters.set_states(f.read())
         for i, st in self._updaters.states.items():

@@ -8,7 +8,11 @@ its inputs from seeded numpy arrays on ``ctx`` and returns named results
 (one op per case, several calls of it); ``tol`` is its class: EXACT for
 data movement, indexing and ordering (sorts get tie-free inputs: a
 permutation of distinct values), SUMS (1e-5 relative) for sums and
-products, TRANSCENDENTAL (1e-6 relative) for f32 transcendental functions;
+products, TRANSCENDENTAL (1e-6 relative) for f32 transcendental functions,
+F32_ULPS (2^-21: four float32 ulps near 1, relative and absolute) where
+the reference's jitted op divides by a constant as a product with its
+reciprocal fused into a multiply-add, and the port rounds each operation
+as the reference's function does;
 bf16/f16 results of a non-exact case take BF16 (2^-7, one bf16 ulp near
 1). Each tolerance is also the absolute bound near zero.
 :func:`differences` compares two runs' results by those rules.
@@ -23,10 +27,11 @@ import numpy as onp
 
 from ..ops.nn import rnn_param_size
 
-__all__ = ["EXACT", "SUMS", "TRANSCENDENTAL", "BF16", "CASES",
+__all__ = ["EXACT", "SUMS", "TRANSCENDENTAL", "BF16", "F32_ULPS", "CASES",
            "differences", "well_posed", "detection_problems", "SAMPLER_CALLS", "MOMENTS", "moment_errors"]
 
 EXACT, SUMS, TRANSCENDENTAL, BF16 = 0.0, 1e-5, 1e-6, 2.0 ** -7
+F32_ULPS = 2.0 ** -21
 
 
 def _values(a):
@@ -2442,6 +2447,201 @@ def _custom(nd, ctx):
     _register_square_plus(nd)
     x = nd.array(_r(41).uniform(-2, 2, (6, 7)).astype(onp.float32), ctx=ctx)
     return {"y": nd.Custom(x, op_type="op_cases_square_plus")}
+
+
+# ---------------------------------------------------------------------------
+# quantization (ops/quantization.py): seeded float32 inputs quantized by the
+# op under test or by quantize_v2; codes, int32 accumulators and ranges
+# exact. The products take K past 1,040 (127 * 127 * K > 2^24), a grouped
+# dilated strided convolution and rows fewer than 17.
+# ---------------------------------------------------------------------------
+def _q8(nd, ctx, a, **kw):
+    return nd.contrib.quantize_v2(nd.array(f32(a), ctx=ctx), **kw)
+
+
+@case("_contrib_quantize_v2")
+def _(nd, ctx):
+    r = _r(60)
+    x = r.randn(6, 7).astype(onp.float32) * 3
+    ties = f32([-1.5, -0.5, 0.5, 1.5, 2.5, 127.0, 300.0, -300.0])
+    return {"int8": _q8(nd, ctx, x), "uint8": _q8(nd, ctx, x + 4,
+                                                 out_type="uint8"),
+            "calib": _q8(nd, ctx, x, min_calib_range=-2.0,
+                         max_calib_range=1.5),
+            "ties": _q8(nd, ctx, ties, min_calib_range=-127.0,
+                        max_calib_range=127.0),
+            "zero": _q8(nd, ctx, onp.zeros((3,), onp.float32))}
+
+
+@case("_contrib_dequantize", F32_ULPS)
+def _(nd, ctx):
+    r = _r(61)
+    x = r.randn(5, 6).astype(onp.float32)
+    q, mn, mx = _q8(nd, ctx, x)
+    u, umn, umx = _q8(nd, ctx, x, out_type="uint8")
+    acc = nd.array(r.randint(-2 ** 30, 2 ** 30, (4, 3)).astype(onp.int32),
+                   ctx=ctx, dtype="int32")
+    return {"int8": nd.contrib.dequantize(q, mn, mx),
+            "uint8": nd.contrib.dequantize(u, umn, umx),
+            "int32": nd.contrib.dequantize(acc, mn * 1000, mx * 1000)}
+
+
+@case("_contrib_requantize")
+def _(nd, ctx):
+    r = _r(62)
+    acc = nd.array(r.randint(-2 ** 24, 2 ** 24, (6, 5)).astype(onp.int32),
+                   ctx=ctx, dtype="int32")
+    mn = nd.array(f32(-1.7e5), ctx=ctx)
+    mx = nd.array(f32(1.7e5), ctx=ctx)
+    return {"own": nd.contrib.requantize(acc, mn, mx),
+            "calib": nd.contrib.requantize(acc, mn, mx,
+                                           min_calib_range=-0.5,
+                                           max_calib_range=0.75)}
+
+
+@case("_contrib_quantized_fully_connected")
+def _(nd, ctx):
+    r = _r(63)
+    out = {}
+    for name, xs, ws, flat in (("small", (5, 20), (9, 20), True),
+                               ("k1500", (19, 1500), (12, 1500), True),
+                               ("flatten", (3, 4, 5), (6, 20), True),
+                               ("last_axis", (2, 3, 5), (7, 5), False)):
+        q, qmn, qmx = _q8(nd, ctx, r.randn(*xs))
+        w, wmn, wmx = _q8(nd, ctx, r.randn(*ws) * 0.1)
+        out[name] = nd.contrib.quantized_fully_connected(
+            q, w, qmn, qmx, wmn, wmx, num_hidden=ws[0], flatten=flat)
+    return out
+
+
+@case("_contrib_quantized_conv")
+def _(nd, ctx):
+    r = _r(64)
+    out = {}
+    for name, xs, ws, kw in (
+            ("pad", (2, 3, 8, 8), (4, 3, 3, 3), dict(pad=(1, 1))),
+            ("group_dilate_stride", (2, 4, 11, 9), (6, 2, 3, 3),
+             dict(num_group=2, dilate=(2, 2), stride=(2, 1), pad=(2, 1))),
+            ("k1152", (1, 128, 5, 5), (8, 128, 3, 3), dict(pad=(1, 1))),
+            ("conv1d", (2, 3, 10), (5, 3, 3), dict(stride=(2,))),
+            ("pointwise", (2, 16, 4, 4), (24, 16, 1, 1), {})):
+        q, qmn, qmx = _q8(nd, ctx, r.randn(*xs))
+        w, wmn, wmx = _q8(nd, ctx, r.randn(*ws) * 0.1)
+        out[name] = nd.contrib.quantized_conv(
+            q, w, qmn, qmx, wmn, wmx, kernel=ws[2:], num_filter=ws[0], **kw)
+    return out
+
+
+@case("_contrib_calibrate_entropy", TRANSCENDENTAL)
+def _(nd, ctx):
+    r = _r(65)
+    a = r.randn(20000).astype(onp.float32)
+    a[:20] *= 12
+    hist, edges = onp.histogram(a, bins=401, range=(-40, 40))
+    th, div = nd.contrib.calibrate_entropy(
+        nd.array(hist.astype(onp.float32), ctx=ctx),
+        nd.array(edges.astype(onp.float32), ctx=ctx), num_quantized_bins=63)
+    return {"threshold": th, "divergence": div}
+
+
+@case("_contrib_quantized_pooling")
+def _(nd, ctx):
+    r = _r(66)
+    q, mn, mx = _q8(nd, ctx, r.uniform(-1, 1, (2, 3, 7, 7)))
+    u, umn, umx = _q8(nd, ctx, r.uniform(0, 2, (1, 2, 6, 6)),
+                      out_type="uint8")
+    pool = nd.contrib.quantized_pooling
+    return {"max": pool(q, mn, mx, kernel=(3, 3), stride=(2, 2),
+                        pad=(1, 1), pool_type="max"),
+            "avg": pool(q, mn, mx, kernel=(2, 2), stride=(2, 2),
+                        pool_type="avg"),
+            "avg3": pool(q, mn, mx, kernel=(3, 3), stride=(1, 1),
+                         pool_type="avg"),
+            "global": pool(q, mn, mx, global_pool=True, pool_type="avg"),
+            "uint8_max": pool(u, umn, umx, kernel=(2, 2), pool_type="max")}
+
+
+@case("_contrib_quantized_act")
+def _(nd, ctx):
+    r = _r(67)
+    q, mn, mx = _q8(nd, ctx, r.uniform(-1, 1, (4, 6)))
+    x = r.uniform(-2, 3, (32,)).astype(onp.float32)
+    arr = lambda v: nd.array(f32([v]), ctx=ctx)  # noqa: E731
+    u, umn, umx = nd.contrib.quantize(nd.array(x, ctx=ctx), arr(-2.0),
+                                      arr(3.0))
+    p, pmn, pmx = nd.contrib.quantize(
+        nd.array(onp.linspace(1.0, 3.0, 16).astype(onp.float32), ctx=ctx),
+        arr(1.0), arr(3.0))
+    act = nd.contrib.quantized_act
+    return {"int8": act(q, mn, mx, act_type="relu"),
+            "uint8": act(u, umn, umx), "uint8_positive_min": act(p, pmn, pmx)}
+
+
+@case("_contrib_quantized_flatten")
+def _(nd, ctx):
+    q, mn, mx = _q8(nd, ctx, _r(68).randn(2, 3, 4, 5))
+    return {"flat": nd.contrib.quantized_flatten(q, mn, mx)}
+
+
+@case("_contrib_quantized_concat")
+def _(nd, ctx):
+    r = _r(69)
+    parts = [_q8(nd, ctx, r.randn(2, c, 3) * s)
+             for c, s in ((3, 0.5), (2, 2.0), (4, 1.0))]
+    xs, mins, maxs = zip(*parts)
+    return {"dim1": nd.contrib.quantized_concat(*xs, *mins, *maxs, dim=1,
+                                                num_args=3)}
+
+
+@case("_contrib_quantized_elemwise_add")
+def _(nd, ctx):
+    r = _r(70)
+    a, amn, amx = _q8(nd, ctx, r.randn(5, 6) * 0.7)
+    b, bmn, bmx = _q8(nd, ctx, r.randn(5, 6) * 2.3)
+    return {"sum": nd.contrib.quantized_elemwise_add(a, b, amn, amx,
+                                                     bmn, bmx)}
+
+
+@case("_contrib_quantize")
+def _(nd, ctx):
+    r = _r(71)
+    x = nd.array(r.uniform(-2, 3, (4, 5)).astype(onp.float32), ctx=ctx)
+    mn, mx = nd.array(f32([-2.0]), ctx=ctx), nd.array(f32([3.0]), ctx=ctx)
+    return {"uint8": nd.contrib.quantize(x, mn, mx),
+            "int8": nd.contrib.quantize(x, mn, mx, out_type="int8")}
+
+
+@case("_contrib_quantized_batch_norm")
+def _(nd, ctx):
+    r = _r(72)
+    q, mn, mx = _q8(nd, ctx, r.uniform(-1, 1, (2, 3, 4, 4)))
+    arr = lambda v: nd.array(f32(v), ctx=ctx)  # noqa: E731
+    return {"bn": nd.contrib.quantized_batch_norm(
+        q, arr(r.rand(3) + 0.5), arr(r.randn(3) * 0.1),
+        arr(r.randn(3) * 0.1), arr(r.rand(3) + 0.5), mn, mx,
+        min_calib_range=-1.9, max_calib_range=2.3)}
+
+
+@case("_contrib_quantized_elemwise_mul")
+def _(nd, ctx):
+    r = _r(73)
+    a, amn, amx = _q8(nd, ctx, r.uniform(-1, 1, (16,)))
+    b, bmn, bmx = _q8(nd, ctx, r.uniform(-2, 2, (16,)))
+    mul = nd.contrib.quantized_elemwise_mul
+    return {"int32": mul(a, b, amn, amx, bmn, bmx),
+            "float": mul(a, b, amn, amx, bmn, bmx, enable_float_output=True),
+            "calib": mul(a, b, amn, amx, bmn, bmx, min_calib_range=-1.5,
+                         max_calib_range=1.25)}
+
+
+@case("_contrib_quantized_embedding")
+def _(nd, ctx):
+    r = _r(74)
+    w, wmn, wmx = _q8(nd, ctx, r.uniform(-1, 1, (10, 4)))
+    idx = nd.array(f32([1, 3, 7, 3, 0]), ctx=ctx)
+    return {"rows": nd.contrib.quantized_embedding(idx, w, wmn, wmx,
+                                                   input_dim=10,
+                                                   output_dim=4)}
 
 
 # ---------------------------------------------------------------------------

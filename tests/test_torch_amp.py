@@ -166,16 +166,8 @@ LIST_NAMES = ("TARGET_DTYPE_OPS", "FP32_OPS", "CONDITIONAL_FP32_OPS",
               "WIDEST_TYPE_CASTS", "DTYPE_NEUTRAL_OPS")
 
 # names the lists hold that the port does not register yet (ROADMAP Queue
-# 1): SyncBatchNorm (Q1.9), the quantization ops (Q1.8) and the
-# reference-only names beside them. Shrinks as slices land.
-NOT_YET_PORTED = {
-    "SyncBatchNorm", "_contrib_calibrate_entropy", "_contrib_quantize_v2",
-    "_contrib_dequantize", "_contrib_requantize", "_contrib_quantized_conv",
-    "_contrib_quantized_fully_connected", "_contrib_quantized_pooling",
-    "_contrib_quantized_act", "_contrib_quantized_flatten",
-    "_contrib_quantized_concat", "_contrib_quantized_elemwise_add",
-    "_contrib_quantize", "_contrib_quantized_batch_norm",
-    "_contrib_quantized_elemwise_mul", "_contrib_quantized_embedding"}
+# 1): SyncBatchNorm (Q1.9). Shrinks as slices land.
+NOT_YET_PORTED = {"SyncBatchNorm"}
 
 
 def test_lists_are_the_references_verbatim():

@@ -324,9 +324,8 @@ def test_hawkes_ll_adds_lda_whole_as_the_reference():
 # ---------------------------------------------------------------------------
 def test_nd_contrib_names_equal_the_reference():
     """Every op alias of the reference's nd.contrib (the _contrib_ ops
-    without their prefix and the seven unprefixed contrib ops) whose op the
-    port registers is in the port's nd.contrib; those left out are the
-    quantization ops (ROADMAP Q1.8) and SparseEmbedding (Q1.3)."""
+    without their prefix and the seven unprefixed contrib ops) is in the
+    port's nd.contrib: the port registers each of their ops."""
     from mxnet_tpu.ops import registry as jax_registry
     ref_ops = set(jax_registry.list_ops())
     port_ops = set(mt.ops.list_ops())
@@ -339,9 +338,7 @@ def test_nd_contrib_names_equal_the_reference():
             assert callable(getattr(mt.nd.contrib, n, None)), n
         else:
             left.append(op)
-    assert left and all(
-        jax_registry.get_op(op).fn.__module__ == "mxnet_tpu.ops.quantization"
-        or op == "_contrib_SparseEmbedding" for op in left), left
+    assert not left, left
     for n in ("foreach", "while_loop", "cond", "boolean_mask"):
         assert callable(getattr(mt.nd.contrib, n)), n
 

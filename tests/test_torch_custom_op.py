@@ -250,7 +250,7 @@ def test_custom_is_a_registered_op():
     from mxnet_tpu.ops import registry as jax_registry
     from mxnet_tpu_torch.ops import registry
     assert "Custom" in registry.list_ops() and callable(mt.nd.Custom)
-    assert len(registry.list_ops()) == 352
+    assert len(registry.list_ops()) == 367
     assert set(registry.list_ops()) <= set(jax_registry.list_ops())
 
 

@@ -426,8 +426,16 @@ def test_trainer_refuses_distributed_kvstores(kv):
     p.initialize()
     with pytest.raises(MXNetError, match="P9"):
         gluon.Trainer([p], "sgd", kvstore=kv)
-    with pytest.raises(MXNetError, match="P9"):
-        gluon.Trainer([p], "sgd", update_on_kvstore=True)
+    # a kvstore-side update works in one process (the reference's SGD
+    # step: w - lr * g)
+    w0 = p.data().asnumpy().copy()
+    p.grad()._set_data(nd.ones((2,)).data)
+    trainer = gluon.Trainer([p], "sgd", {"learning_rate": 0.5},
+                            update_on_kvstore=True)
+    trainer.step(1)
+    assert trainer._update_on_kvstore
+    onp.testing.assert_array_equal(p.data().asnumpy(),
+                                   w0 - onp.float32(0.5))
 
 
 # (loss, constructor keywords, the inputs' kind)

@@ -848,3 +848,43 @@ def test_variational_dropout_draws_from_an_owned_generator():
         assert gen and isinstance(gen[0], ast.Call) and \
             getattr(gen[0].func, "id", None) == "mask_generator"
     test_every_draw_names_its_generator("gluon/contrib/rnn.py")
+
+
+QUANT_KVSTORE_MODULES = ["ops/quantization.py", "contrib/__init__.py",
+                         "contrib/quantization.py", "kvstore/__init__.py",
+                         "kvstore/base.py",
+                         "kvstore/gradient_compression.py",
+                         "gluon/trainer.py"]
+
+
+@pytest.mark.parametrize("module", QUANT_KVSTORE_MODULES)
+def test_quantization_kvstore_slice_modules_are_guarded(module):
+    """The quantization ops, ``quantize_net``, the kvstore and gradient
+    compression import neither JAX nor the JAX package, and no handler
+    catches a failed int8 product (or anything else they call) to take
+    another route."""
+    assert PKG / module in PORT_FILES
+    test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
+    test_no_except_around_a_launch_or_build(PKG / module)
+
+
+_FLOAT_ROUTES = {"float", "half", "bfloat16", "float16", "float32",
+                 "float64", "double", "matmul", "mm_", "linear", "conv1d",
+                 "conv2d", "conv3d", "unfold", "einsum", "bmm", "addmm"}
+
+
+@pytest.mark.parametrize("name", ["int8_matmul", "int8_conv", "_im2col"])
+def test_the_int8_products_take_no_float_route(name):
+    """The int8 products and their im2col move and multiply integer codes
+    only: the card's route is ``torch._int_mm``, the CPU's an int32
+    ``torch.mm``; no float type or float product appears in them."""
+    tree = _tree(PKG / "ops" / "quantization.py")
+    fn = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
+              and n.name == name)
+    used = {n.attr for n in ast.walk(fn) if isinstance(n, ast.Attribute)}
+    used |= {n.id for n in ast.walk(fn) if isinstance(n, ast.Name)}
+    assert not used & _FLOAT_ROUTES, sorted(used & _FLOAT_ROUTES)
+    if name == "int8_matmul":
+        assert {"_int_mm", "int32"} <= used
+    if name == "int8_conv":
+        assert "int8_matmul" in used
