@@ -427,13 +427,59 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    (32, 256, 14, 14) -> 256 (and its im2col alone) beside cuDNN's bf16
    convolution, each beside its bound (1,979 int8 TOP/s, 989 bf16
    TFLOP/s, 3.35 TB/s); each first held to the CPU's int32 result.
-16. A JSON line with the kernels' numbers (``launches_by_path`` gains
-   ``int8_resnet``, ``int8_bert`` and ``kvstore_resnet``), then the last
-   line ``{"ok": true, "device": {...}}``.
+16. Multi-process training, two (or four) ranks sharing card 0 over gloo,
+   each job started by ``mxnet_tpu_torch/tools/launch.py`` (fresh
+   interpreters; K1-K3 were built by this process first). (a) The stores
+   on card tensors: ``tests/torch_dist_kvstore_worker.py`` on 2 ranks (the
+   reference worker's checks: dense push/pull and pushpull, row-sparse
+   pushes of unequal nnz and ``row_sparse_pull``, 2-bit compression with
+   the packed wire at 1/16 of the f32 bytes and error feedback 0 -> 1.0,
+   1-bit, ``dist_async`` converging to -9, the ``collective`` store, ``p3``
+   slices, the heartbeat) and on 4 (dense sums), a one-rank job that must
+   take NCCL, and probes of gloo's own all_gather, reduce_scatter,
+   all_to_all and point-to-point on card tensors (the phase fails where
+   one that the port leaves to gloo does not run or is wrong); prints each
+   job's backend, the collectives staged through host memory and each
+   operation's ms (the 2-rank job runs alone first, so its ms are its
+   own). (b)-(e) one two-rank job (``chip_smoke.py
+   --dist-worker``), held against one-process runs on the card made
+   first, each with a limit of 4x a control's distance set before the
+   ranks run: (b) ``BERTForPretraining(bert_base(max_length=128))`` bf16
+   over f32 masters, Adam(1e-4), dropout 0.1, on {"dp": 2}: 5 steps of a
+   64 x 128 global batch (P = 19), 32 rows a rank, against the
+   one-process 64 x 128 run; the control is that run with each step's
+   gradient summed from its two 32-row halves (the global batch's dropout
+   masks); the ranks' parameters bitwise equal after every step; K1-K3 12
+   launches a layer-step a rank; an f32 2-layer run (SGD 0.01, momentum
+   0.9, 3 steps) within 2e-5 of its one-process run. (c) The same on
+   {"tp": 2} with ``shard_for_tensor_parallel`` (6 heads a rank: K1 at
+   (64, 6, 128, 64)), the gathered parameters against the same run; the
+   control splits every row-parallel product in two bf16 halves. (d)
+   ``resnet50_v1`` bf16, SGD(0.05, 0.9), on {"dp": 2}, 16 images a rank,
+   BatchNorm's moments over all 32, 3 steps: parameters and moving
+   statistics after the first step against the one-process batch-32 run,
+   relative to that run's own update; the control is that run with each
+   step computed as the two ranks compute it, in one process (the halves'
+   forwards in two threads, BatchNorm's moment sums added across them at
+   every layer, the gradient the halves' mean), printed after every step
+   (the runs diverge, so only the first step's limit can bind); and one
+   f32 step (cuDNN's TF32 off) on {"dp": 2} against its one-process run,
+   the control that run with the batch's halves swapped. (e) BERT-base through
+   ``gluon.Trainer(kvstore="dist_sync")`` (phase 8's recipe, 32 x 128 a
+   rank), 3 steps without and 3 with 2-bit compression: the ranks'
+   weights bitwise equal after each step, the 2-bit wire exactly the
+   packed codes (1/16 of the f32 bytes). Prints tokens/s or img/s, the
+   step median, the gradient all-reduce in the step and a step's
+   communication alone.
+17. A JSON line with the kernels' numbers (``launches_by_path`` gains
+   ``int8_resnet``, ``int8_bert`` and ``kvstore_resnet`` (phase 15) and
+   ``dp_bert``, ``tp_bert`` and ``dist_trainer_bert``, counted on rank 0
+   (phase 16)), then the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import ctypes
 import importlib.util
 import json
@@ -666,7 +712,7 @@ def phase_environment(smi: str):
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     nvcc = subprocess.run([_build._nvcc(), "--version"], check=True,
-                          capture_output=True, text=True).stdout
+                          capture_output=True, text=True, timeout=60).stdout
     print(f"nvcc: {nvcc.strip().splitlines()[-1]}")
     # one nvcc per library, started together
     t0 = time.perf_counter()
@@ -4052,7 +4098,8 @@ def build_ext_library():
     CUSTOM_DIR.mkdir(parents=True, exist_ok=True)
     so = CUSTOM_DIR / "libportextops.so"
     r = subprocess.run(["g++", "-O2", "-fPIC", "-shared", "-o", str(so),
-                        str(EXT_SOURCE)], capture_output=True, text=True)
+                        str(EXT_SOURCE)], capture_output=True, text=True,
+                       timeout=300)
     if r.returncode:
         raise SystemExit(f"FAIL: g++ did not build {EXT_SOURCE}: "
                          f"{r.stderr[-2000:]}")
@@ -4864,14 +4911,799 @@ def phase_quantization(seed: int, smi: str, resnet: dict, util: dict):
     return {"resnet": res, "bert": bert, "kvstore": kv, "times": times}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: multi-process training (two ranks on the card, gloo)
+# ---------------------------------------------------------------------------
+DIST_DIR = Path(__file__).resolve().parent / "build" / "phase_dist"
+KV_WORKER = Path(__file__).resolve().parent / "tests" / \
+    "torch_dist_kvstore_worker.py"
+DIST_STEPS = 5             # bf16 BERT-base steps of 16(b), (c)
+DIST_F32 = dict(num_layers=2, steps=3, lr=0.01, tol=2e-5)
+DIST_RESNET_STEPS = 3
+DIST_TRAINER_STEPS = 3
+DIST_LIMIT_FACTOR = 4.0    # a reading's limit: this times its control
+DIST_JOB_TIMEOUT = 900     # the two-rank training job's launcher timeout
+#: the training job's rank command, and where the stores' jobs keep values
+DIST_WORKER = [sys.executable, str(Path(__file__).resolve()), "--dist-worker"]
+DIST_STORE_DEVICE = "cuda"
+#: collectives whose unstaged gloo form on card tensors 16(a) probes
+PROBED = ("all_gather", "reduce_scatter", "all_to_all", "ppermute")
+
+
+def _fingerprint(tensors):
+    """An exact fingerprint of float32 tensors: each one's bits summed as
+    int64 (two tensors that differ in any bit almost surely differ)."""
+    return torch.stack([t.detach().float().contiguous().view(torch.int32)
+                        .sum(dtype=torch.int64) for t in tensors])
+
+
+def _same_on_ranks(tensors, what):
+    """Fail unless every rank holds bitwise the same ``tensors``."""
+    from mxnet_tpu_torch.parallel import collectives
+    fp = collectives.world_all_gather(_fingerprint(tensors))
+    bad = (fp != fp[0]).any(0).nonzero().flatten().tolist()
+    if bad:
+        raise SystemExit(f"FAIL: the ranks' {what} differ: {len(bad)} of "
+                         f"{len(tensors)} tensors, first {bad[:5]}")
+
+
+def _bert_model(dropout, layers=None):
+    """BERTForPretraining over bert_base(max_length=128), or over the same
+    width with ``layers`` layers."""
+    if layers is None:
+        return BERTForPretraining(bert_base(max_length=TRAIN_SEQ,
+                                            dropout=dropout))
+    return BERTForPretraining(BERTModel(
+        num_layers=layers, units=768, hidden_size=3072, num_heads=12,
+        max_length=TRAIN_SEQ, dropout=dropout))
+
+
+def _bert_step(named, mesh, dropout, dtype, tp=False, layers=None,
+               sgd=False, seed=0):
+    model = _bert_model(dropout, layers)
+    load_jax_params(model, named, ctx=mesh.ctx)
+    if tp:
+        from mxnet_tpu_torch.gluon.model_zoo.bert import \
+            shard_for_tensor_parallel
+        shard_for_tensor_parallel(model)
+    from mxnet_tpu_torch.optimizer import SGD
+    opt = SGD(learning_rate=DIST_F32["lr"], momentum=0.9) if sgd else \
+        Adam(learning_rate=TRAIN_LR)
+    return ParallelTrainStep(PretrainStep(model), BERTPretrainingLoss(), opt,
+                             mesh, compute_dtype=dtype,
+                             extra_specs=("dp", "dp"), seed=seed)
+
+
+def _bert_batches(seed, n=DIST_STEPS):
+    return pretrain_batch(np.random.default_rng(seed + 16), n, TRAIN_BATCH,
+                          TRAIN_SEQ, TRAIN_P)
+
+
+def _at(batches, i):
+    toks, (mlm, nsp), tt, pos = batches
+    return toks[i], (mlm[i], nsp[i]), tt[i], pos[i]
+
+
+class _rows:
+    """One rank's rows of a data-parallel split, emulated in one process
+    (the control): Dropout draws the global batch's mask and keeps rows
+    ``index`` of ``size``."""
+
+    def __init__(self, index, size):
+        from mxnet_tpu_torch.parallel import collectives
+        self.inner = collectives.sharded_batch.__new__(
+            collectives.sharded_batch)
+        self.inner.state = (None, (), index, size)
+
+    def __enter__(self):
+        return self.inner.__enter__()
+
+    def __exit__(self, *exc):
+        return self.inner.__exit__(*exc)
+
+
+def _halves_step(step, batch):
+    """The control of 16(b): one step of the one-process ``step`` whose
+    gradient is the mean of its two half batches' (each half's dropout
+    mask the global batch's rows), as two ranks sum them; the loss the
+    halves' mean."""
+    x, mlm, nsp, tt, pos = (step._place(a) for a in (
+        batch[0], batch[1][0], batch[1][1], batch[2], batch[3]))
+    n = x.shape[0] // 2
+    gen = step.generator
+    state = gen.get_state()
+    grads, losses = None, []
+    opt = step._optimizer
+    step._t += 1
+    step._block.train()
+    for i in range(2):
+        gen.set_state(state)
+        rows = slice(i * n, (i + 1) * n)
+        with _rows(i, 2):
+            loss = step._forward_loss(x[rows], (mlm[rows], nsp[rows]),
+                                      (tt[rows], pos[rows]))
+        g = torch.autograd.grad(loss, step._plist, allow_unused=True)
+        g = [torch.zeros_like(w) if a is None else a.to(w.dtype)
+             for w, a in zip(step._plist, g)]
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        losses.append(loss.detach())
+    with torch.no_grad():
+        for i, (w, g, s) in enumerate(zip(step._plist, grads, step._states)):
+            opt._rule(w, g / 2 * opt.rescale_grad, s, opt._get_lr(i),
+                      opt._get_wd(i), np.float32(step._t))
+    return (losses[0] + losses[1]) / 2
+
+
+class _no_tf32:
+    """cuDNN's convolutions in f32 within (PyTorch lets them round their
+    inputs to TF32 by default; the port's own switch covers matmuls)."""
+
+    def __enter__(self):
+        self.own = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32 = self.own
+
+
+def _lockstep_step(step, twin, x, y):
+    """The control of 16(d): one step of the one-process ResNet-50
+    ``step`` computed as two ranks compute it. Each half of the batch runs
+    its forward in a thread of its own (the second on ``twin``, a copy of
+    the block with running statistics of its own), and BatchNorm's moment
+    sums are added across the halves at every layer, as the ranks'
+    all-reduce adds them, on the tape; the gradient is that of the halves'
+    mean loss, the update the step's optimizer's."""
+    from mxnet_tpu_torch.parallel import collectives
+    x, y = step._place(x), step._place(y)
+    n, cd = x.shape[0] // 2, step._compute_dtype
+    barrier = threading.Barrier(2, timeout=300)
+    slot, losses, errors = [None, None], [None, None], []
+
+    def batch_sum(t):
+        i = collectives.batch_shard()[2]
+        slot[i] = t
+        barrier.wait()
+        out = slot[0] + slot[1]
+        barrier.wait()
+        return out
+
+    def half(i):
+        block = step._block if i == 0 else twin
+        block.train()
+        use = {k: p.to(cd) for k, p in zip(step._names, step._plist)}
+        try:
+            with _rows(i, 2):
+                out = torch.func.functional_call(
+                    block, use, (x[i * n:(i + 1) * n].to(cd),))
+                losses[i] = step._loss(out, y[i * n:(i + 1) * n]) \
+                    .float().mean()
+        except BaseException as e:     # the other half must not wait
+            errors.append(e)
+            barrier.abort()
+
+    own = collectives.batch_sum
+    collectives.batch_sum = batch_sum
+    threads = [threading.Thread(target=half, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    collectives.batch_sum = own
+    if errors:
+        raise errors[0]
+    step._t += 1
+    grads = torch.autograd.grad((losses[0] + losses[1]) / 2, step._plist)
+    opt = step._optimizer
+    with torch.no_grad():
+        for i, (w, g, s) in enumerate(zip(step._plist, grads, step._states)):
+            opt._rule(w, g * opt.rescale_grad, s, opt._get_lr(i),
+                      opt._get_wd(i), np.float32(step._t))
+
+
+def _row_split_hooks(model):
+    """The control of 16(c): the output projection and the second FFN
+    product of every layer computed as two bf16 half products over their
+    input columns, summed, then the bias (what tp=2 computes), by forward
+    hooks on the one-process model; returns the hooks' handles."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import (PositionwiseFFN,
+                                                      SelfAttention)
+
+    def hook(dense, inputs, out):
+        x, w, b = inputs[0], dense._t("weight"), dense._t("bias")
+        h = x.shape[-1] // 2
+        y = torch.nn.functional.linear(x[..., :h], w[:, :h]) + \
+            torch.nn.functional.linear(x[..., h:], w[:, h:])
+        return y + b.to(y.dtype)
+
+    handles = []
+    for m in model.modules():
+        if isinstance(m, SelfAttention):
+            handles.append(torch.nn.Module.register_forward_hook(m.proj,
+                                                                 hook))
+        elif isinstance(m, PositionwiseFFN):
+            handles.append(torch.nn.Module.register_forward_hook(m.ffn2,
+                                                                 hook))
+    return handles
+
+
+def _bert_distance(got_losses, got, want_losses, want, lr):
+    """How far one run is from another: the largest relative loss
+    difference over the steps, and the parameters' mean absolute
+    difference in units of lr (Adam moves each element about lr a
+    step)."""
+    diff = torch.cat([(got[k].float() - want[k].float()).abs().reshape(-1)
+                      for k in want])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got_losses, want_losses))
+    return {"loss_rel": float(rel), "mean_lr": diff.mean().item() / lr}
+
+
+def _resnet_distance(got, want, start):
+    """How far one ResNet-50 state is from another, relative to how far
+    ``want`` moved from ``start``: the L2 distance of the parameters over
+    that of their update, and the same of the running statistics."""
+    sums = {"param_update_rel": [0.0, 0.0], "stat_update_rel": [0.0, 0.0]}
+    for k in want:
+        acc = sums["stat_update_rel" if "running" in k else
+                   "param_update_rel"]
+        acc[0] += (got[k] - want[k]).square().sum().item()
+        acc[1] += (want[k] - start[k]).square().sum().item()
+    return {k: math.sqrt(a / b) for k, (a, b) in sums.items()}
+
+
+def _resnet_state(step):
+    """A copy of a ResNet-50 step's parameters and running statistics on
+    the host, in float32."""
+    return {k: v.detach().float().cpu().clone()
+            for k, v in {**step.params, **step.buffers}.items()}
+
+
+def _limits(control, floor=1e-7):
+    return {k: max(DIST_LIMIT_FACTOR * v, floor) for k, v in control.items()}
+
+
+def _within(reading, limit):
+    return all(reading[k] <= limit[k] for k in limit)
+
+
+def _host_params(step, gathered=False):
+    src = step.global_params() if gathered else step.params
+    return {k: v.detach().float().cpu() for k, v in src.items()}
+
+
+def _run_steps(step, batches, n, hook=None):
+    """``n`` steps on the stacked ``batches`` (``hook(step, batch)`` in
+    place of a step where given); the losses."""
+    losses = []
+    for i in range(n):
+        b = _at(batches, i)
+        losses.append((hook(step, b) if hook else step(*b)).item())
+    return losses
+
+
+def dist_references(seed: int):
+    """The one-process runs on the card that 16(b)-(d) are held against,
+    and their controls, computed before any rank's reading: BERT-base bf16
+    (dp=1 at 64 x 128; the control sums the gradient from the batch's two
+    halves; the tp control splits the row-parallel products in two), the
+    f32 2-layer BERT (SGD), and ResNet-50 at batch 32, held after its
+    first step (the control computes each step as two ranks do,
+    :func:`_lockstep_step`; its distance after each step is kept) and in
+    f32 after one step (the control takes the batch's halves in the other
+    order)."""
+    named = seeded_bert_weights(BERTForPretraining(
+        bert_base(max_length=TRAIN_SEQ)), seed)
+    batches = _bert_batches(seed)
+    one = make_mesh({"dp": 1})
+    ref = {}
+    st = _bert_step(named, one, 0.1, "bfloat16", seed=seed)
+    ref["bert_losses"] = _run_steps(st, batches, DIST_STEPS)
+    ref["bert"] = _host_params(st)
+    del st
+    st = _bert_step(named, one, 0.1, "bfloat16", seed=seed)
+    c_losses = _run_steps(st, batches, DIST_STEPS, hook=_halves_step)
+    ref["dp_control"] = _bert_distance(c_losses, _host_params(st),
+                                       ref["bert_losses"], ref["bert"],
+                                       TRAIN_LR)
+    del st
+    st = _bert_step(named, one, 0.1, "bfloat16", seed=seed)
+    handles = _row_split_hooks(st._block)
+    c_losses = _run_steps(st, batches, DIST_STEPS)
+    for h in handles:
+        h.remove()
+    ref["tp_control"] = _bert_distance(c_losses, _host_params(st),
+                                       ref["bert_losses"], ref["bert"],
+                                       TRAIN_LR)
+    del st
+    f32 = {k: v for k, v in named.items()
+           if not k.startswith("backbone.encoder.layer")
+           or int(k.split(".")[2][len("layer"):]) < DIST_F32["num_layers"]}
+    st = _bert_step(f32, one, 0.0, None, layers=DIST_F32["num_layers"],
+                    sgd=True, seed=seed)
+    ref["f32_losses"] = _run_steps(st, batches, DIST_F32["steps"])
+    ref["f32"] = _host_params(st)
+    del st
+    torch.cuda.empty_cache()
+
+    rnamed = seeded_resnet_weights(resnet50_v1(classes=1000), seed)
+    xs, ys = resnet_batch(np.random.default_rng(seed + 17),
+                          DIST_RESNET_STEPS, RESNET_BATCH)
+    runs = []
+    for control in (False, True):
+        st = resnet_train_step(rnamed, "bfloat16")
+        twin = copy.deepcopy(st._block) if control else None
+        states = [_resnet_state(st)]
+        for i in range(DIST_RESNET_STEPS):
+            if control:
+                _lockstep_step(st, twin, xs[i], ys[i])
+            else:
+                st(xs[i], ys[i]).item()
+            states.append(_resnet_state(st))
+        runs.append(states)
+        del st, twin
+    ref["resnet_start"], ref["resnet"] = runs[0][0], runs[0][1]
+    ref["resnet_control_steps"] = [
+        _resnet_distance(b, a, runs[0][0])
+        for a, b in zip(runs[0][1:], runs[1][1:])]
+    ref["resnet_control"] = ref["resnet_control_steps"][0]
+    swap = np.r_[RESNET_BATCH // 2:RESNET_BATCH, 0:RESNET_BATCH // 2]
+    f32 = []
+    with _no_tf32():
+        for order in (slice(None), swap):
+            st = resnet_train_step(rnamed, None)
+            st(xs[0][order], ys[0][order]).item()
+            f32.append(_resnet_state(st))
+            del st
+    ref["resnet_f32"] = f32[0]
+    ref["resnet_f32_control"] = _resnet_distance(f32[1], f32[0],
+                                                 ref["resnet_start"])
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _timed_steps(step, args_of, n, what, after=None):
+    """``n`` steps on ``args_of(i)``, the host-clock ms of each to its
+    fetched loss; after each the ranks' parameters (but a rank's own
+    shards) and buffers checked bitwise equal, then ``after(i)`` where
+    given."""
+    whole = [p for i, p in enumerate(step._plist) if i not in step._shards]
+    losses, ms = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(*args_of(i)).item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        _same_on_ranks(whole + list(step.buffers.values()),
+                       f"{what} parameters (step {i})")
+        if after is not None:
+            after(i)
+    return losses, ms
+
+
+def _record_k1_shapes():
+    """Record the (B, H, S, D) of every K1 launch; returns the set."""
+    shapes = set()
+    orig = fa.flash_attention_fwd
+
+    def recording(q, *args, **kwargs):
+        shapes.add(tuple(q.shape))
+        return orig(q, *args, **kwargs)
+    fa.flash_attention_fwd = recording
+    return shapes, orig
+
+
+def _collective_ms(fn, reps=3):
+    """Median host ms of ``fn()`` (a collective) between two
+    synchronizes: the communication alone."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _comm_alone(step, tp):
+    """What one step's communication costs alone: dp, one all-reduce of
+    a buffer the size of the gradients (f32); tp, per layer two forward
+    and two backward all-reduces of a (B, S, 768) bf16 activation, and the
+    word embedding's all-gather."""
+    from mxnet_tpu_torch.parallel import collectives
+    dev = step._device
+    if not tp:
+        n = sum(p.numel() for p in step._plist)
+        buf = torch.ones(n, device=dev)
+        return _collective_ms(lambda: collectives.world_all_reduce(buf))
+    layers = len(step._block.inner.backbone.encoder._layers)
+    act = torch.ones(TRAIN_BATCH, TRAIN_SEQ, 768, device=dev,
+                     dtype=torch.bfloat16)
+    emb = step.params["inner.backbone.word_embed.weight"].to(torch.bfloat16)
+    mesh = step._mesh
+    return 4 * layers * _collective_ms(
+        lambda: collectives.all_reduce(act, "tp", mesh=mesh)) + \
+        _collective_ms(lambda: collectives.all_gather(emb, "tp", axis=1,
+                                                      mesh=mesh))
+
+
+def _dist_bert(seed, named, batches, tp, save):
+    """16(b) or (c) on this rank: 2 ranks, bf16 BERT-base, 5 steps."""
+    from mxnet_tpu_torch.parallel import collectives
+    mesh = make_mesh({"tp": 2} if tp else {"dp": 2})
+    step = _bert_step(named, mesh, 0.1, "bfloat16", tp=tp, seed=seed)
+    placed = step.place_batch_n(*batches)
+    shapes, orig = _record_k1_shapes()
+    torch.cuda.synchronize()
+    comm0 = step.comm_seconds
+    # ---- the main path: counts from 0 just before, read just after ----
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    t0 = time.perf_counter()
+    losses, ms = _timed_steps(step, lambda i: _at(placed, i), DIST_STEPS,
+                              "tp" if tp else "dp")
+    wall = time.perf_counter() - t0
+    counts = {"K1": fa.launches, "K2": fa.launches_dq, "K3": fa.launches_dkv}
+    # ---- end of the main path ----
+    fa.flash_attention_fwd = orig
+    alone = _comm_alone(step, tp)
+    full = _host_params(step, gathered=True)
+    _same_on_ranks(list(full.values()),
+                   f"{'tp' if tp else 'dp'} gathered parameters")
+    if collectives.rank() == 0:
+        torch.save(full, save)
+    enc = step._block.inner.backbone.encoder._layers
+    heads, units = enc[0].attention._heads, enc[0].attention._units
+    shape = [TRAIN_BATCH // (1 if tp else 2), heads // (2 if tp else 1),
+             TRAIN_SEQ, units // heads]
+    layers = len(enc)
+    out = {"losses": losses, "expected_k1_shape": shape, "step_ms": float(np.median(ms)),
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * DIST_STEPS / wall,
+           "comm_ms": (step.comm_seconds - comm0) * 1e3 / DIST_STEPS,
+           "comm_alone_ms": alone, "launches": counts, "k1_shapes": sorted(shapes),
+           "expected_launches": layers * DIST_STEPS}
+    del step, placed
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_f32(seed, named, batches, tp):
+    """The f32 2-layer run of 16(b)/(c) on this rank."""
+    mesh = make_mesh({"tp": 2} if tp else {"dp": 2})
+    f32 = {k: v for k, v in named.items()
+           if not k.startswith("backbone.encoder.layer")
+           or int(k.split(".")[2][len("layer"):]) < DIST_F32["num_layers"]}
+    step = _bert_step(f32, mesh, 0.0, None, tp=tp,
+                      layers=DIST_F32["num_layers"], sgd=True, seed=seed)
+    losses = _run_steps(step, step.place_batch_n(*batches), DIST_F32["steps"])
+    params = _host_params(step, gathered=True)
+    del step
+    return losses, params
+
+
+def _dist_trainer(seed, named, batches, compression):
+    """16(e) on this rank: BERT-base bf16 through gluon.Trainer over a
+    dist_sync store (phase 8's recipe: cast bf16, Adam multi_precision,
+    dropout 0.1), this rank's 32 rows of each global batch of 64."""
+    from mxnet_tpu_torch.parallel import collectives
+    random.seed(seed)
+    net = gluon_bert(0.1)
+    load_jax_params(net, named, ctx=gpu(0))
+    net.cast("bfloat16")
+    net.hybridize()
+    params = {"learning_rate": TRAIN_LR, "multi_precision": True}
+    trainer = gluon.Trainer(
+        net.collect_params(), "adam", params, kvstore="dist_sync",
+        compression_params=({"type": "2bit", "threshold": 0.5}
+                            if compression else None))
+    loss_fn = PretrainLoss()
+    r, n = collectives.rank(), TRAIN_BATCH // 2
+    toks, (mlm, nsp), tt, pos = batches
+    to = lambda a: nd.array(a[r * n:(r + 1) * n], ctx=gpu(0),  # noqa: E731
+                            dtype="int32")
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    ms, losses = [], []
+    for i in range(DIST_TRAINER_STEPS):
+        tok, ttype, p, ml, ns = (to(a[i]) for a in (toks, tt, pos, mlm, nsp))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = loss_fn(*net(tok, ttype, None, p), ml, ns)
+        loss.backward()
+        trainer.step(TRAIN_BATCH)
+        losses.append(float(loss.asnumpy().mean()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        _same_on_ranks([q._data for p_ in trainer._params
+                        for q in p_.list_data()], f"Trainer weights (step {i})")
+    counts = {"K1": fa.launches, "K2": fa.launches_dq, "K3": fa.launches_dkv}
+    kv = trainer._kvstore
+    out = {"losses": losses, "step_ms": float(np.median(ms[1:])),
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (np.median(ms[1:]) / 1e3),
+           "launches": counts, "wire_bytes": kv.wire_bytes,
+           "payload_bytes": kv.payload_bytes,
+           "packed_bytes": sum(math.ceil(p_.data()._data.numel() / 4)
+                               for p_ in trainer._params
+                               if p_.grad_req != "null")
+           * DIST_TRAINER_STEPS}
+    del net, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_resnet(seed, save):
+    """16(d) on this rank: ResNet-50 v1 bf16, SGD(0.05, 0.9), a global
+    batch of 32 split 16 a rank, BatchNorm's moments over all 32; rank 0
+    saves the state after the first step, and after one f32 step (as
+    ``resnet_f32.pt`` beside ``save``)."""
+    from mxnet_tpu_torch.optimizer import SGD
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import collectives
+    named = seeded_resnet_weights(resnet50_v1(classes=1000), seed)
+
+    def dp_step(dtype):
+        net = resnet50_v1(classes=1000)
+        load_jax_params(net, named)
+        return ParallelTrainStep(net, SoftmaxCrossEntropyLoss(),
+                                 SGD(learning_rate=0.05, momentum=0.9),
+                                 make_mesh({"dp": 2}), compute_dtype=dtype)
+    step = dp_step("bfloat16")
+    xs, ys = resnet_batch(np.random.default_rng(seed + 17),
+                          DIST_RESNET_STEPS, RESNET_BATCH)
+    placed = step.place_batch_n(xs, ys)
+
+    def first(i):
+        if i == 0 and collectives.rank() == 0:
+            torch.save(_resnet_state(step), save)
+    losses, ms = _timed_steps(step, lambda i: (placed[0][i], placed[1][i]),
+                              DIST_RESNET_STEPS, "ResNet-50", after=first)
+    out = {"losses": losses, "step_ms": float(np.median(ms)),
+           "img_per_s": RESNET_BATCH * DIST_RESNET_STEPS / (sum(ms) / 1e3),
+           "comm_ms": step.comm_seconds * 1e3 / DIST_RESNET_STEPS}
+    del step
+    step = dp_step(None)
+    with _no_tf32():
+        _timed_steps(step, lambda i: (placed[0][i], placed[1][i]), 1,
+                     "f32 ResNet-50")
+    if collectives.rank() == 0:
+        torch.save(_resnet_state(step), save.with_name("resnet_f32.pt"))
+    del step, placed
+    return out
+
+
+def dist_worker(seed: int) -> int:
+    """One rank of 16(b)-(e), started by ``mxnet_tpu_torch/tools/launch.py``
+    (``chip_smoke.py --dist-worker``): prints one JSON line of its
+    readings; rank 0 writes its final parameters under build/phase_dist/."""
+    from mxnet_tpu_torch.parallel import collectives
+    make_mesh({"dp": 2})                      # joins the job
+    named = seeded_bert_weights(BERTForPretraining(
+        bert_base(max_length=TRAIN_SEQ)), seed)
+    batches = _bert_batches(seed)
+    res = {"rank": collectives.rank(), "backend": collectives.backend()}
+    for part, tp in (("dp", False), ("tp", True)):
+        res[part] = _dist_bert(seed, named, batches, tp,
+                               DIST_DIR / f"{part}.pt")
+        losses, params = _dist_f32(seed, named, batches, tp)
+        res[f"{part}_f32_losses"] = losses
+        if collectives.rank() == 0:
+            torch.save(params, DIST_DIR / f"{part}_f32.pt")
+    res["trainer"] = _dist_trainer(seed, named, batches, False)
+    res["trainer_2bit"] = _dist_trainer(seed, named, batches, True)
+    res["resnet"] = _dist_resnet(seed, DIST_DIR / "resnet.pt")
+    res["host_staged"] = collectives.host_staged()
+    os.write(1, (json.dumps(res) + "\n").encode())  # one write: shared pipe
+    collectives.barrier()
+    return 0
+
+
+def _job_lines(proc, n, what):
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:])
+        print(proc.stderr[-6000:])
+        raise SystemExit(f"FAIL: {what} exited {proc.returncode}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    if sorted(ln["rank"] for ln in lines) != list(range(n)):
+        raise SystemExit(f"FAIL: {what}: not every rank reported")
+    return sorted(lines, key=lambda ln: ln["rank"])
+
+
+def _store_job(mode, n, env):
+    from mxnet_tpu_torch.tools import launch
+    return launch.run(n, [sys.executable, str(KV_WORKER), mode,
+                          DIST_STORE_DEVICE], 300, env)
+
+
+def _stores(env):
+    """16(a): the 2-rank stores' job alone on the card (its ms are its
+    own), then the 4-rank and one-rank jobs and the probes of the
+    backend's own collectives started together in the background."""
+    two = _store_job("two", 2, env)
+    jobs = {"four": (4, "four"), "nccl": (1, "one"),
+            **{op: (2, f"probe_{op}") for op in PROBED}}
+    pool = ThreadPoolExecutor(len(jobs))
+    futures = {k: pool.submit(_store_job, mode, n, env)
+               for k, (n, mode) in jobs.items()}
+    pool.shutdown(wait=False)
+    return two, futures
+
+
+def _report_stores(two, futures):
+    out = {}
+    for key in ("two", "four", "nccl"):
+        n = {"two": 2, "four": 4, "nccl": 1}[key]
+        proc = two if key == "two" else futures[key].result()
+        lines = _job_lines(proc, n, f"16(a) {key}")
+        first = lines[0]
+        print(f"16(a) {key}: {n} rank(s), backend {first['backend']}, "
+              f"staged through host memory {first['host_staged']}, rank 0 "
+              f"ms {json.dumps({k: round(v, 3) for k, v in first['ms'].items()})}"
+              + (f", 2-bit wire {first['wire_bytes']} B for "
+                 f"{first['payload_bytes']} B of f32 (alone on the card)"
+                 if key == "two" else " (beside the other jobs and the "
+                 "one-process references)"))
+        out[key] = lines
+    if out["nccl"][0]["backend"] != "nccl":
+        raise SystemExit("FAIL: a one-rank job on the card did not take NCCL")
+    if out["two"][0]["backend"] != "gloo":
+        raise SystemExit("FAIL: two ranks on one card did not take gloo")
+    from mxnet_tpu_torch.parallel import collectives
+    native = {op: futures[op].result().returncode == 0 for op in PROBED}
+    staged = list(collectives.GLOO_CUDA_STAGED)
+    print(f"16(a) gloo on card tensors, unstaged, 20 checked calls each "
+          f"(True: ran and right): {native}; the port stages {staged} "
+          f"through pinned host memory (parallel/collectives.py _staged) "
+          f"and leaves the others to gloo")
+    wrong = [op for op in PROBED if op not in staged and not native[op]]
+    if wrong:
+        raise SystemExit(f"FAIL: gloo does not run {wrong} right on card "
+                         "tensors, and the port leaves them to it")
+    return native
+
+
+def phase_distributed(seed: int, smi: str):
+    """Phase 16: the stores on 1, 2 and 4 ranks; BERT-base on dp=2 and
+    tp=2, ResNet-50 on dp=2 and BERT-base through a dist_sync Trainer on 2
+    ranks of the one card, each held against the one-process run on the
+    card with a limit set from a control."""
+    DIST_DIR.mkdir(parents=True, exist_ok=True)
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, MXNET_DIST_TIMEOUT="300",
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    t_phase = time.perf_counter()
+    two, futures = _stores(env)
+    ref = dist_references(seed)
+    native = _report_stores(two, futures)
+    limits = {"dp": _limits(ref["dp_control"]),
+              "tp": _limits(ref["tp_control"]),
+              "resnet": _limits(ref["resnet_control"]),
+              "resnet_f32": _limits(ref["resnet_f32_control"])}
+    for k in limits:
+        print(f"16 control {k}: {json.dumps(ref[k + '_control'])} -> limit "
+              f"{json.dumps(limits[k])} ({DIST_LIMIT_FACTOR}x the control)")
+    print(f"16 control resnet after each of the {DIST_RESNET_STEPS} steps "
+          f"(the first is held): {json.dumps(ref['resnet_control_steps'])}")
+
+    from mxnet_tpu_torch.tools import launch
+    proc = launch.run(2, DIST_WORKER + ["--seed", str(seed)],
+                      DIST_JOB_TIMEOUT, env)
+    ranks = _job_lines(proc, 2, "the two-rank training job")
+    r0 = ranks[0]
+    print(f"16 training job: backend {r0['backend']}, staged through host "
+          f"memory (rank 0) {r0['host_staged']}")
+    ok = True
+    tol = DIST_F32["tol"]
+    for part, what in (("dp", "16(b) BERT-base {\"dp\": 2}"),
+                       ("tp", "16(c) BERT-base {\"tp\": 2}")):
+        got = torch.load(DIST_DIR / f"{part}.pt")
+        reading = _bert_distance(r0[part]["losses"], got, ref["bert_losses"],
+                                 ref["bert"], TRAIN_LR)
+        f32 = torch.load(DIST_DIR / f"{part}_f32.pt")
+        f32_loss = max(abs(a - b) / abs(b) for a, b in
+                       zip(r0[f"{part}_f32_losses"], ref["f32_losses"]))
+        f32_par = max(((f32[k] - ref["f32"][k]).abs() /
+                       (1 + ref["f32"][k].abs())).max().item()
+                      for k in ref["f32"])
+        launches = [rk[part]["launches"] for rk in ranks]
+        exp = r0[part]["expected_launches"]
+        print(f"{what}: losses {[round(v, 5) for v in r0[part]['losses']]} "
+              f"vs one process {[round(v, 5) for v in ref['bert_losses']]}; "
+              f"reading {json.dumps(reading)} vs control "
+              f"{json.dumps(ref[part + '_control'])}, limit "
+              f"{json.dumps(limits[part])}; f32 {DIST_F32['num_layers']}-layer"
+              f" SGD: loss rel {f32_loss:.3g}, params {f32_par:.3g} (tol "
+              f"{tol}); launches a rank {launches} (expected {exp} each); "
+              f"K1 shapes a rank {[rk[part]['k1_shapes'] for rk in ranks]}; "
+              f"{r0[part]['tokens_per_s']:.0f}"
+              f" tokens/s, step median {r0[part]['step_ms']:.1f} ms, "
+              f"gradient all-reduce in the step {r0[part]['comm_ms']:.1f} ms "
+              f"(host clock, waiting for the backward included), a step's "
+              f"communication alone {r0[part]['comm_alone_ms']:.1f} ms (gloo "
+              f"through host memory) on {smi}")
+        if not _within(reading, limits[part]):
+            ok = False
+            print(f"FAIL: {what} is beyond its control's limit")
+        if not (f32_loss <= tol and f32_par <= tol):
+            ok = False
+            print(f"FAIL: {what}'s f32 run is not within {tol}")
+        if any(n != exp for c in launches for n in c.values()):
+            ok = False
+            print(f"FAIL: {what}: K1-K3 launches do not match 12 a step")
+    for part in ("dp", "tp"):
+        want = r0[part]["expected_k1_shape"]
+        if any([want] != [list(s) for s in rk[part]["k1_shapes"]]
+               for rk in ranks):
+            ok = False
+            print(f"FAIL: {part}=2's K1 shapes are not {want}")
+
+    got = torch.load(DIST_DIR / "resnet.pt")
+    reading = _resnet_distance(got, ref["resnet"], ref["resnet_start"])
+    rr = r0["resnet"]
+    print(f"16(d) ResNet-50 {{\"dp\": 2}}, 16 images a rank, BatchNorm over "
+          f"32, after the first step: reading {json.dumps(reading)} vs "
+          f"control "
+          f"{json.dumps(ref['resnet_control'])}, limit "
+          f"{json.dumps(limits['resnet'])}; losses "
+          f"{[round(v, 4) for v in rr['losses']]}; {rr['img_per_s']:.1f} "
+          f"img/s over the steps' ms, step median {rr['step_ms']:.1f} ms, gradient all-reduce "
+          f"{rr['comm_ms']:.1f} ms a step on {smi}")
+    if not _within(reading, limits["resnet"]):
+        ok = False
+        print("FAIL: 16(d) is beyond its control's limit")
+    reading = _resnet_distance(torch.load(DIST_DIR / "resnet_f32.pt"),
+                               ref["resnet_f32"], ref["resnet_start"])
+    print(f"16(d) ResNet-50 f32 (no TF32), one step on {{\"dp\": 2}}: "
+          f"reading {json.dumps(reading)} vs control (the batch's halves "
+          f"swapped) {json.dumps(ref['resnet_f32_control'])}, limit "
+          f"{json.dumps(limits['resnet_f32'])}")
+    if not _within(reading, limits["resnet_f32"]):
+        ok = False
+        print("FAIL: 16(d)'s f32 step is beyond its control's limit")
+
+    for key in ("trainer", "trainer_2bit"):
+        t = r0[key]
+        ratio = t["wire_bytes"] / t["payload_bytes"]
+        print(f"16(e) BERT-base gluon.Trainer(kvstore=\"dist_sync\""
+              f"{', 2-bit' if key == 'trainer_2bit' else ''}), "
+              f"{TRAIN_BATCH // 2} x {TRAIN_SEQ} a rank: losses "
+              f"{[round(v, 5) for v in t['losses']]}; wire {t['wire_bytes']}"
+              f" B for {t['payload_bytes']} B of f32 (ratio {ratio:.5f}); "
+              f"launches a rank {[rk[key]['launches'] for rk in ranks]}; "
+              f"{t['tokens_per_s']:.0f} tokens/s, step median "
+              f"{t['step_ms']:.1f} ms on {smi}")
+        if not np.isfinite(t["losses"]).all():
+            ok = False
+            print(f"FAIL: 16(e) {key}: a loss is not finite")
+        if key == "trainer_2bit" and t["wire_bytes"] != t["packed_bytes"]:
+            ok = False
+            print("FAIL: 16(e): the 2-bit wire is not the packed codes")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    if not ok:
+        raise SystemExit("FAIL: phase 16")
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+
+    def per_rank(part):
+        return {k: r0[part]["launches"][k] for k in ("K1", "K2", "K3")}
+    trainer = {k: r0["trainer"]["launches"][k] +
+               r0["trainer_2bit"]["launches"][k] for k in ("K1", "K2", "K3")}
+    return {"hand": {"dp_bert": per_rank("dp"), "tp_bert": per_rank("tp"),
+                     "dist_trainer_bert": trainer},
+            "native": native}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dist-worker", action="store_true",
+                    help="run as one rank of phase 16's training job")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 1
+    if args.dist_worker:
+        return dist_worker(args.seed)
     smi = card()
     phase_environment(smi)
     record = phase_kernel(args.seed, smi)
@@ -4890,6 +5722,7 @@ def main(argv=None) -> int:
     data = phase_data(args.seed, smi, resnet)
     util = phase_utilities(args.seed, smi, resnet, data)
     quant = phase_quantization(args.seed, smi, resnet, util)
+    dist = phase_distributed(args.seed, smi)
     q_hand = {"int8_resnet": {k: quant["resnet"]["f32"]["hand"][k]
                               + quant["resnet"]["int8"]["hand"][k]
                               for k in ("K1", "K2", "K3", "K4", "K5")},
@@ -4897,6 +5730,7 @@ def main(argv=None) -> int:
               "kvstore_resnet": {k: sum(v["hand"][k] for v in
                                         quant["kvstore"].values())
                                  for k in ("K1", "K2", "K3", "K4", "K5")}}
+    d_hand = dist["hand"]          # per rank: K1-K3 on the paths of phase 16
     f16 = amp_rec["fp16"]
     amp_launches = {path: amp_rec[path]["launches"]
                     for path in ("amp_bf16", "amp_fp16")}
@@ -4911,7 +5745,8 @@ def main(argv=None) -> int:
          + lm["k1_op_surface"] + lm["hand"]["K1"] + det["hand"]["K1"]
          + sum(c["flash_attention_fwd"] for c in amp_launches.values())
          + sp["hand"]["K1"] + data["hand"]["K1"] + util["hand"]["K1"]
-         + sum(h["K1"] for h in q_hand.values()),
+         + sum(h["K1"] for h in q_hand.values())
+         + sum(h["K1"] for h in d_hand.values()),
          "launches_by_path": {
              "serving": serve_launches,
              "training": train_launches["flash_attention_fwd"],
@@ -4924,7 +5759,8 @@ def main(argv=None) -> int:
              "sparse_lm": sp["hand"]["K1"],
              "data_resnet": data["hand"]["K1"],
              "estimator_resnet": util["hand"]["K1"],
-             **{path: h["K1"] for path, h in q_hand.items()}},
+             **{path: h["K1"] for path, h in q_hand.items()},
+             **{path: h["K1"] for path, h in d_hand.items()}},
          "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"],
                             gen["k1_max_abs_err"]),
          "ms": r["ms"], "ms_strided": r["ms_strided"],
@@ -4966,7 +5802,8 @@ def main(argv=None) -> int:
             + lm["hand"][k] + det["hand"][k]
             + sum(c[wrapper] for c in amp_launches.values())
             + sp["hand"][k] + data["hand"][k] + util["hand"][k]
-            + sum(h[k] for h in q_hand.values()),
+            + sum(h[k] for h in q_hand.values())
+            + sum(h[k] for h in d_hand.values()),
             "launches_by_path": {
                 "training": train_launches[wrapper],
                 "gluon_training": glu["launches"][wrapper],
@@ -4976,7 +5813,8 @@ def main(argv=None) -> int:
                 "sparse_lm": sp["hand"][k],
                 "data_resnet": data["hand"][k],
                 "estimator_resnet": util["hand"][k],
-                **{path: h[k] for path, h in q_hand.items()}},
+                **{path: h[k] for path, h in q_hand.items()},
+                **{path: h[k] for path, h in d_hand.items()}},
             "max_abs_err": bwd[f"{name}_err"], "ms": t[name]["ms"],
             "device_ms": t[name]["device_ms"],
             "plain_ms": t[name]["plain_ms"],

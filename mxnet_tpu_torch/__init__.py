@@ -14,8 +14,10 @@ host C++ (``native``) is built with g++ at first use. ``metric``,
 ``callback``, ``visualization`` and ``gluon.contrib.estimator`` are the
 training utilities, ``operator`` (``nd.Custom``) and ``library`` the custom
 ops and external op libraries. ``contrib.quantization.quantize_net``
-converts a Gluon net to int8 inference; ``kvstore`` (``kv``) is the
-single-process KVStore with gradient compression.
+converts a Gluon net to int8 inference; ``kvstore`` (``kv``) holds the
+KVStores, one-process and distributed, with gradient compression, and
+``parallel`` the meshes, collectives and ``ParallelTrainStep`` of jobs
+that ``tools/launch.py`` starts, one process a rank.
 """
 __version__ = "2.0.0"
 

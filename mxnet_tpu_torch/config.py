@@ -146,6 +146,19 @@ register("MXNET_CPU_PRIORITY_NTHREADS", 4, int,
          "ImageRecordIter's default decode and augment threads.")
 register("MXNET_HOME", os.path.join("~", ".mxnet"), str,
          "Root of the vision datasets' files (nothing is downloaded).")
+register("MXNET_P3_SLICE_SIZE", 1 << 20, int,
+         "p3 kvstore: elements per wire slice of a cross-worker reduce.")
+register("MXNET_KVSTORE_ASYNC_MAX_STALENESS", -1, int,
+         "dist_async: most whole-model push rounds a worker may run ahead "
+         "of the slowest (SSP bound); -1 = unbounded, pure async apply.")
+register("MXNET_KVSTORE_HEARTBEAT_DIR", "", str,
+         "Shared directory of the workers' heartbeat files; empty disables "
+         "failure detection (num_dead_node is 0).")
+register("MXNET_KVSTORE_HEARTBEAT_INTERVAL", 5, int,
+         "Seconds between a worker's heartbeat file writes.")
+register("MXNET_DIST_TIMEOUT", 300.0, float,
+         "Seconds a collective of a multi-process job may wait for its "
+         "peers before it fails (the process group's timeout).")
 
 # ---------------------------------------------------------------------------
 # flags that tune XLA in the JAX package: listed, not applicable

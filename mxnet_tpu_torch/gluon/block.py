@@ -127,9 +127,35 @@ def _map(fn, obj):
     return fn(obj)
 
 
+class _params_on:
+    """Within it, every parameter of ``block``'s tree that has a copy on
+    ``ctx`` (other than its first context) computes with that copy: the
+    copy's tensor swapped into each owning block's table."""
+
+    def __init__(self, block, ctx):
+        self._swapped = []
+        for m in block.modules():
+            if not isinstance(m, Block):
+                continue
+            for name, p in m._reg_params.items():
+                t = p._tensor_on(ctx)
+                if t is not None:
+                    table = m._buffers if p._buffer else m._parameters
+                    self._swapped.append((table, name, table[name]))
+                    table[name] = t
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for table, name, t in reversed(self._swapped):
+            table[name] = t
+
+
 def _call_with_tensors(block, args, kwargs):
     """A tensor block called with NDArrays: the mode from ``autograd``,
-    a graph only while recording, NDArrays back on the inputs' context."""
+    a graph only while recording, the parameters' copies of the inputs'
+    context, NDArrays back on that context."""
     ctx = next(a.context for a in args if isinstance(a, NDArray))
 
     def unwrap(a):   # lists of states too
@@ -138,7 +164,8 @@ def _call_with_tensors(block, args, kwargs):
     prev = getattr(_GLUON, "ctx", None)
     _GLUON.ctx = ctx
     try:
-        with torch.set_grad_enabled(autograd.is_recording()):
+        with torch.set_grad_enabled(autograd.is_recording()), \
+                _params_on(block, ctx):
             out = block._dispatch([unwrap(a) for a in args],
                                   {k: unwrap(v) for k, v in kwargs.items()})
     finally:
@@ -149,9 +176,17 @@ def _call_with_tensors(block, args, kwargs):
 
 def _call_with_arrays(block, args, kwargs):
     """An NDArray block called with tensors: recording follows torch's
-    grad mode, training the module's mode; tensors back."""
+    grad mode, training the module's mode; tensors back. Inside a Gluon
+    call the tensors keep that call's context."""
+    outer = gluon_context()
+
+    def ctx_of(v):
+        ctx = _context_of(v)
+        return outer if outer is not None and outer.device_type == \
+            ctx.device_type else ctx
+
     def wrap(a):
-        return _map(lambda v: _wrap(v, _context_of(v))
+        return _map(lambda v: _wrap(v, ctx_of(v))
                     if isinstance(v, torch.Tensor) else v, a)
     with autograd._RecordingStateScope(torch.is_grad_enabled(),
                                        block.training):

@@ -30,6 +30,7 @@ import torch
 
 from ... import amp as _amp
 from ...base import MXNetError
+from ...parallel import collectives
 from ..block import HybridBlock
 from ..nn import Dense, Dropout, Embedding, LayerNorm
 from .carrier import check_against, load_jax_params, params_from_jax, \
@@ -38,13 +39,34 @@ from .carrier import check_against, load_jax_params, params_from_jax, \
 __all__ = ["SelfAttention", "PositionwiseFFN", "TransformerEncoderLayer",
            "BERTEncoder", "BERTModel", "BERTForPretraining",
            "BERTPretrainingLoss", "TransformerLM", "bert_base",
-           "params_from_jax", "load_jax_params"]
+           "shard_for_tensor_parallel", "params_from_jax", "load_jax_params"]
 
 
 class _TensorBlock(HybridBlock):
     """A block of this zoo: forwards on tensors."""
 
     _io = "tensor"
+
+
+def _tp_region(*params):
+    """(mesh, axis) when a tensor-parallel step is active and ``params``
+    are sharded over its axis (the block then holds shards), else None."""
+    tp = collectives.tensor_parallel_axis()
+    if tp is None or any(p._sharding is None for p in params):
+        return None
+    return tp
+
+
+def _row_parallel(x, dense, tp):
+    """``dense`` (weight split over its input columns) applied to the
+    rank's columns of x: the partial products summed over the axis, then
+    the bias."""
+    mesh, axis = tp
+    y = _amp.call("FullyConnected", x, dense._t("weight"), None,
+                  no_bias=True, flatten=False)
+    y = collectives.reduce_from_axis(y, axis, mesh)
+    b = dense._t("bias")
+    return y if b is None else y + b.to(y.dtype)
 
 
 def _tied_head(h, embed):
@@ -73,7 +95,21 @@ class SelfAttention(_TensorBlock):
             self.proj = Dense(units, flatten=False, in_units=units)
             self.drop = Dropout(dropout)
 
+    def tp_local_params(self):
+        """The parameters a tensor-parallel step hands over as shards: the
+        QKV projection (the rank's heads' rows) and the output projection
+        (their columns)."""
+        return (self.qkv.weight, self.qkv.bias, self.proj.weight)
+
     def forward(self, x, mask=None):
+        tp = _tp_region(*self.tp_local_params())
+        if tp is not None:
+            n = tp[0].axis_size(tp[1])
+            x = collectives.copy_to_axis(x, tp[1], tp[0])
+            q, k, v = self.qkv(x).split(self._units // n, dim=-1)
+            out = _amp.call("multi_head_attention", q, k, v, mask,
+                            heads=self._heads // n, causal=self._causal)
+            return self.drop(_row_parallel(out, self.proj, tp))
         q, k, v = self.qkv(x).split(self._units, dim=-1)
         out = _amp.call("multi_head_attention", q, k, v, mask,
                         heads=self._heads, causal=self._causal)
@@ -114,7 +150,17 @@ class PositionwiseFFN(_TensorBlock):
             self.ffn2 = Dense(units, flatten=False, in_units=hidden_size)
             self.drop = Dropout(dropout)
 
+    def tp_local_params(self):
+        """The parameters a tensor-parallel step hands over as shards: the
+        first product's rows and the second's columns."""
+        return (self.ffn1.weight, self.ffn1.bias, self.ffn2.weight)
+
     def forward(self, x):
+        tp = _tp_region(*self.tp_local_params())
+        if tp is not None:
+            x = collectives.copy_to_axis(x, tp[1], tp[0])
+            h = _amp.call("gelu_tanh", self.ffn1(x))
+            return self.drop(_row_parallel(h, self.ffn2, tp))
         return self.drop(self.ffn2(_amp.call("gelu_tanh", self.ffn1(x))))
 
 
@@ -328,6 +374,36 @@ def bert_base(vocab_size=30522, max_length=512, dropout=0.1, **kwargs):
     return BERTModel(num_layers=12, units=768, hidden_size=3072, num_heads=12,
                      vocab_size=vocab_size, max_length=max_length,
                      dropout=dropout, **kwargs)
+
+
+def shard_for_tensor_parallel(model, tp_axis: str = "tp") -> int:
+    """Megatron's tensor-parallel specs on a model of these blocks (the
+    reference's function, the same specs and count): the QKV and first FFN
+    products split their output rows (QKV per Q, K and V block, so that a
+    rank holds its heads), the output and second FFN products their input
+    columns, the word embedding its hidden columns. ``ParallelTrainStep``
+    reads the specs. Returns the number of parameters annotated."""
+    from ...parallel.mesh import shard_spec
+    count = [0]
+
+    def annotate(p, spec, blocks=1):
+        p.shard(spec, blocks=blocks)
+        count[0] += 1
+
+    def visit(block):
+        if isinstance(block, SelfAttention):
+            annotate(block.qkv.weight, shard_spec(tp_axis, None), 3)
+            annotate(block.qkv.bias, shard_spec(tp_axis), 3)
+            annotate(block.proj.weight, shard_spec(None, tp_axis))
+        elif isinstance(block, PositionwiseFFN):
+            annotate(block.ffn1.weight, shard_spec(tp_axis, None))
+            annotate(block.ffn1.bias, shard_spec(tp_axis))
+            annotate(block.ffn2.weight, shard_spec(None, tp_axis))
+        elif isinstance(block, BERTModel):
+            annotate(block.word_embed.weight, shard_spec(None, tp_axis))
+
+    model.apply(visit)
+    return count[0]
 
 
 # ---------------------------------------------------------------------------

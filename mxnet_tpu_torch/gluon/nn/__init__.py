@@ -4,7 +4,7 @@ from .basic_layers import (ELU, GELU, SELU, Activation, BatchNorm, Dense,
                            Dropout, Embedding, Flatten, GroupNorm,
                            HybridLambda, HybridSequential, InstanceNorm,
                            Lambda, LayerNorm, LeakyReLU, PReLU, RMSNorm,
-                           Sequential, Swish)
+                           Sequential, Swish, SyncBatchNorm)
 from .conv_layers import (AvgPool1D, AvgPool2D, AvgPool3D, Conv1D,
                           Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
                           Conv3DTranspose, GlobalAvgPool1D, GlobalAvgPool2D,
@@ -20,4 +20,4 @@ __all__ = ["Activation", "AvgPool1D", "AvgPool2D", "AvgPool3D", "BatchNorm",
            "GlobalMaxPool3D", "GroupNorm", "HybridLambda", "HybridSequential",
            "InstanceNorm", "Lambda", "LayerNorm", "LeakyReLU", "MaxPool1D",
            "MaxPool2D", "MaxPool3D", "PReLU", "RMSNorm", "ReflectionPad2D",
-           "SELU", "Sequential", "Swish"]
+           "SELU", "Sequential", "Swish", "SyncBatchNorm"]

@@ -14,8 +14,8 @@ cast-policy point (``amp.call``), as the reference's layers call
 (``block.py``). BatchNorm's running statistics are float32 buffers,
 written in place in training mode. ``RMSNorm``, ``GroupNorm``,
 ``InstanceNorm``, ``LeakyReLU``, ``PReLU``, ``ELU``, ``SELU``, ``GELU`` and
-``Swish`` are the reference's too. ``SyncBatchNorm`` waits for the
-multi-GPU slice.
+``Swish`` are the reference's too. ``SyncBatchNorm`` takes its moments
+over the current mesh's ``dp`` axis.
 """
 from __future__ import annotations
 
@@ -30,8 +30,8 @@ from ...ndarray.ndarray import _context_of
 from ..block import Block, HybridBlock, gluon_context
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
-           "LayerNorm", "RMSNorm", "GroupNorm", "InstanceNorm", "Embedding",
-           "Flatten", "Lambda", "HybridLambda", "Activation", "LeakyReLU",
+           "SyncBatchNorm", "LayerNorm", "RMSNorm", "GroupNorm",
+           "InstanceNorm", "Embedding", "Flatten", "Lambda", "HybridLambda", "Activation", "LeakyReLU",
            "PReLU", "ELU", "SELU", "GELU", "Swish"]
 
 
@@ -225,17 +225,49 @@ class BatchNorm(HybridBlock):
                                                 torch.float16) else out
         return super()._apply(keep_f32, recurse)
 
+    def _op(self):
+        """The registered op this layer calls, and its attributes."""
+        return "BatchNorm", self._kwargs
+
     def forward(self, x):
         running_mean, running_var = self._t("running_mean"), \
             self._t("running_var")
+        op, attrs = self._op()
         out, new_mean, new_var = _amp.call(
-            "BatchNorm", x, self._t("gamma"), self._t("beta"), running_mean,
-            running_var, training=self.training, **self._kwargs)
+            op, x, self._t("gamma"), self._t("beta"), running_mean,
+            running_var, training=self.training, **attrs)
         if self.training and not self._kwargs["use_global_stats"]:
             with torch.no_grad():
                 running_mean.copy_(new_mean)
                 running_var.copy_(new_var)
         return out
+
+
+class SyncBatchNorm(BatchNorm):
+    """Cross-device BatchNorm (``basic_layers.py`` ``SyncBatchNorm``,
+    ``contrib/sync_batch_norm.cc``): BatchNorm over axis 1 whose training
+    moments, while a mesh with a ``dp`` axis larger than 1 is current
+    (``with mesh:``, or inside ``ParallelTrainStep``), are averaged over
+    that axis's ranks (the ``SyncBatchNorm`` op's form); one rank's batch
+    otherwise. ``num_devices`` is kept for the reference's signature."""
+
+    def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
+                 epsilon=1e-5, center=True, scale=True,
+                 use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", **kwargs):
+        super().__init__(1, momentum, epsilon, center, scale,
+                         use_global_stats, beta_initializer,
+                         gamma_initializer, running_mean_initializer,
+                         running_variance_initializer, in_channels, **kwargs)
+
+    def _op(self):
+        from ...parallel.mesh import current_mesh
+        mesh = current_mesh()
+        if mesh is None or mesh.axis_size("dp") == 1:
+            return super()._op()
+        attrs = {k: v for k, v in self._kwargs.items() if k != "axis"}
+        return "SyncBatchNorm", dict(attrs, axis_name="dp")
 
 
 class LayerNorm(HybridBlock):

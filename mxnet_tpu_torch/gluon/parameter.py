@@ -15,8 +15,16 @@ gradient is a ``RowSparseNDArray`` of the rows a backward touched.
 
 Nothing is allocated before ``initialize()`` (or a load): ``data()`` raises
 until then, and a shape with unknown (0) dimensions waits for the first
-forward (deferred initialization). One context per parameter; several
-contexts are ROADMAP item P9.
+forward (deferred initialization).
+
+A parameter initialized on several contexts (``initialize(ctx=[cpu(0),
+cpu(1), ...])``) keeps one copy per context, each a leaf tensor with its own
+gradient, keyed by the ``Context`` (not by the tensor's device: every
+``cpu(i)`` is the one host device). The first context's copy is the one
+registered on the blocks; a Block called with an NDArray of another context
+computes with that context's copies (``Block._dispatch``), as the
+reference's ``p.data(ctx)``. ``shard(spec)`` records a partition spec that
+``ParallelTrainStep`` reads.
 """
 from __future__ import annotations
 
@@ -65,15 +73,22 @@ def _host(data) -> torch.Tensor:
     return torch.from_numpy(np.array(np.asarray(data), copy=True))
 
 
-def _one_context(ctx) -> Context:
+def _ctx_list(ctx) -> List[Context]:
     if ctx is None:
-        return current_context()
-    if isinstance(ctx, (list, tuple)):
-        if len(ctx) != 1:
-            raise MXNetError(f"a parameter lives on one context, got {ctx}; "
-                             "several contexts are ROADMAP item P9")
-        ctx = ctx[0]
+        return [current_context()]
+    if isinstance(ctx, Context):
+        return [ctx]
+    ctx = list(ctx)
+    if not ctx or len(set(ctx)) != len(ctx):
+        raise MXNetError(f"contexts must be distinct and not empty: {ctx}")
     return ctx
+
+
+class _Copy:
+    """A parameter's copy on a context other than its first: the leaf
+    tensor, its NDArray and its gradient NDArray."""
+
+    __slots__ = ("var", "nd", "grad")
 
 
 class Parameter:
@@ -114,6 +129,9 @@ class Parameter:
         self._grad = None           # gradient NDArray
         self._deferred_init = ()
         self._owners = []           # (block, attribute name)
+        self._copies = {}           # Context -> _Copy, after the first
+        self._sharding = None       # a partition spec (ParallelTrainStep)
+        self._shard_blocks = 1      # equal blocks the spec splits each of
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self._shape}, " \
@@ -151,8 +169,9 @@ class Parameter:
             return
         self._grad_req = req
         if self._var is not None:
-            if not self._buffer and self._var.is_floating_point():
-                self._var.requires_grad_(req != "null")
+            for var in [self._var] + [c.var for c in self._copies.values()]:
+                if not self._buffer and var.is_floating_point():
+                    var.requires_grad_(req != "null")
             self._init_grad()
 
     # ------------------------------------------------------------------
@@ -165,10 +184,10 @@ class Parameter:
         table = block._buffers if self._buffer else block._parameters
         table[attr] = self._var
 
-    def _bind(self, t: torch.Tensor, ctx: Context):
-        """Make ``t`` this parameter's tensor on ``ctx``: a new
-        ``nn.Parameter`` (or buffer) registered on every owning block, its
-        NDArray, the post-accumulate hook and a zero gradient buffer."""
+    def _leaf(self, t: torch.Tensor, ctx: Context):
+        """A tensor of this parameter on ``ctx``: an ``nn.Parameter`` (or a
+        buffer) and its NDArray, with the post-accumulate hook that moves
+        its gradient into the NDArray's gradient buffer."""
         t = t.detach()
         if self._buffer:
             var = t
@@ -185,11 +204,29 @@ class Parameter:
             var.register_post_accumulate_grad_hook(
                 _grad_hook(weakref.ref(nd)))
             var.requires_grad_(needs_grad)
+        return var, nd
+
+    def _bind(self, t: torch.Tensor, ctx: Context):
+        """Make ``t`` this parameter's tensor on ``ctx``: a new
+        ``nn.Parameter`` (or buffer) registered on every owning block, its
+        NDArray, the post-accumulate hook and a zero gradient buffer."""
+        var, nd = self._leaf(t, ctx)
         self._var, self._nd, self._ctx = var, nd, ctx
         self.dtype = DTypes.canonical(var.dtype)
         for block, attr in self._owners:
             table = block._buffers if self._buffer else block._parameters
             table[attr] = var
+        self._init_grad()
+
+    def _bind_copies(self, ctxs):
+        """One copy of the first context's value on each of ``ctxs``."""
+        self._copies = {}
+        for ctx in ctxs:
+            c = _Copy()
+            c.var, c.nd = self._leaf(
+                self._var.detach().to(ctx.torch_device(), copy=True), ctx)
+            c.grad = None
+            self._copies[ctx] = c
         self._init_grad()
 
     def _sync(self, t: torch.Tensor):
@@ -216,7 +253,7 @@ class Parameter:
         default_init = default_init or init_mod.Uniform()
         if self._var is not None and not force_reinit:
             return
-        ctx = _one_context(ctx)
+        ctx = _ctx_list(ctx)
         if init is None:
             init = default_init if self.init is None else self.init
         if not _shape_known(self._shape):
@@ -228,7 +265,10 @@ class Parameter:
         self._init_impl(init, ctx, default_init)
 
     def _init_impl(self, init, ctx, default_init, data=None):
-        ctx = _one_context(ctx)
+        """Fill the first context's tensor (from ``data``, else ``init``),
+        then copy it to every other context."""
+        ctxs = _ctx_list(ctx)
+        ctx = ctxs[0]
         dev, dt = ctx.torch_device(), DTypes.torch(self.dtype)
         self._deferred_init = ()
         if data is not None:
@@ -239,23 +279,30 @@ class Parameter:
                 init_mod.InitDesc(self.name), arr)
             t = arr._data
         if self._var is not None and self._var.shape == t.shape and \
-                self._var.dtype == t.dtype and self._var.device == t.device:
+                self._var.dtype == t.dtype and self._var.device == t.device \
+                and self._ctx == ctx:
             with torch.no_grad():        # re-initialization: same tensor
                 self._var.copy_(t)
-            return
-        self._bind(t, ctx)
+        else:
+            self._bind(t, ctx)
+        if ctxs[1:] or self._copies:
+            self._bind_copies(ctxs[1:])
+
+    def _new_grad(self, var, ctx):
+        if self._grad_req == "null" or self._buffer:
+            return None
+        if self._grad_stype == "row_sparse":
+            from ..sparse import zeros as sparse_zeros
+            return sparse_zeros("row_sparse", tuple(var.shape), ctx=ctx,
+                                dtype=var.dtype)
+        return _wrap(torch.zeros_like(var.detach()), ctx)
 
     def _init_grad(self):
-        if self._grad_req == "null" or self._buffer:
-            self._grad = None
-        elif self._grad_stype == "row_sparse":
-            from ..sparse import zeros as sparse_zeros
-            self._grad = sparse_zeros("row_sparse", tuple(self._var.shape),
-                                      ctx=self._ctx, dtype=self._var.dtype)
-        else:
-            self._grad = _wrap(torch.zeros_like(self._var.detach()),
-                               self._ctx)
+        self._grad = self._new_grad(self._var, self._ctx)
         self._nd._grad, self._nd._grad_req = self._grad, self._grad_req
+        for ctx, c in self._copies.items():
+            c.grad = self._new_grad(c.var, ctx)
+            c.nd._grad, c.nd._grad_req = c.grad, self._grad_req
 
     def _finish_deferred_init(self):
         if not self._deferred_init:
@@ -277,8 +324,14 @@ class Parameter:
                 ctx = self._deferred_init[1]
             self._init_impl(None, ctx, None, data=t)
         else:
-            with torch.no_grad():
-                self._var.copy_(t)
+            self._write(t)
+
+    def _write(self, t):
+        """``t`` copied into every context's tensor."""
+        with torch.no_grad():
+            self._var.copy_(t)
+            for c in self._copies.values():
+                c.var.copy_(t)
 
     # ------------------------------------------------------------------
     # access
@@ -291,31 +344,48 @@ class Parameter:
                     "because initialization was deferred (unknown shape)")
             raise MXNetError(f"Parameter {self.name} has not been "
                              "initialized. Call initialize()")
-        if ctx is not None and ctx != self._ctx:
+        if ctx is not None and ctx != self._ctx and ctx not in self._copies:
             raise MXNetError(f"Parameter {self.name} was not initialized on "
-                             f"{ctx}; it lives on {self._ctx}")
+                             f"{ctx}; it lives on {self.list_ctx()}")
+
+    def _tensor_on(self, ctx):
+        """The tensor of ``ctx``'s copy where it is not the first context,
+        else None."""
+        c = self._copies.get(ctx)
+        return None if c is None else c.var
 
     def data(self, ctx=None) -> NDArray:
-        """The NDArray over the parameter's tensor."""
+        """The NDArray over the tensor of ``ctx`` (default: the first
+        context)."""
         self._check_initialized(ctx)
-        return self._nd
+        if ctx is None or ctx == self._ctx:
+            return self._nd
+        return self._copies[ctx].nd
 
     def list_data(self) -> List[NDArray]:
         self._check_initialized()
-        return [self._nd]
+        return [self._nd] + [c.nd for c in self._copies.values()]
 
     def grad(self, ctx=None) -> NDArray:
         self._check_initialized(ctx)
         if self._grad is None:
             raise MXNetError(f"Parameter {self.name} has grad_req='null'")
-        return self._grad
+        if ctx is None or ctx == self._ctx:
+            return self._grad
+        return self._copies[ctx].grad
 
     def list_grad(self) -> List[NDArray]:
-        return [self.grad()]
+        return [self.grad()] + [c.grad for c in self._copies.values()]
+
+    def list_ctx(self) -> List[Context]:
+        if self._var is None and self._deferred_init:
+            return list(self._deferred_init[1])
+        self._check_initialized()
+        return [self._ctx] + list(self._copies)
 
     def set_data(self, data):
-        """Overwrite the value in place (or, before a deferred
-        initialization, keep it for then)."""
+        """Overwrite the value of every context's copy in place (or,
+        before a deferred initialization, keep it for then)."""
         self.shape = tuple(data.shape)
         if self._var is None:
             if self._deferred_init:
@@ -325,34 +395,49 @@ class Parameter:
                     self._finish_deferred_init()
                 return
             raise MXNetError(f"Parameter {self.name} not initialized")
-        with torch.no_grad():
-            self._var.copy_(_host(data))
+        self._write(_host(data))
 
     def zero_grad(self):
         if self._grad is None:
             return
-        if self._grad_stype == "row_sparse":   # no rows
-            self._grad._assign(self._grad._indices[:0], self._grad._data[:0])
-        else:
-            self._grad._data = torch.zeros_like(self._grad._data)
+        for g in [self._grad] + [c.grad for c in self._copies.values()]:
+            if self._grad_stype == "row_sparse":   # no rows
+                g._assign(g._indices[:0], g._data[:0])
+            else:
+                g._data = torch.zeros_like(g._data)
 
     def reset_ctx(self, ctx):
-        """Move the parameter to ``ctx`` (one context)."""
-        ctx = _one_context(ctx)
+        """Move the parameter to ``ctx`` (a context or a list)."""
+        ctxs = _ctx_list(ctx)
         if self._var is not None:
-            self._bind(self._var.detach().to(ctx.torch_device()), ctx)
+            self._bind(self._var.detach().to(ctxs[0].torch_device()),
+                       ctxs[0])
+            self._bind_copies(ctxs[1:])
         elif self._deferred_init:
             init, _, default_init, data = self._deferred_init
-            self._deferred_init = (init, ctx, default_init, data)
+            self._deferred_init = (init, ctxs, default_init, data)
 
     def cast(self, dtype):
         """Cast to ``dtype``: a new tensor, registered on every owner."""
         self.dtype = DTypes.canonical(dtype)
         if self._var is not None:
-            self._bind(self._var.detach().to(DTypes.torch(dtype)), self._ctx)
+            dt = DTypes.torch(dtype)
+            for ctx, c in self._copies.items():
+                c.var, c.nd = self._leaf(c.var.detach().to(dt), ctx)
+            self._bind(self._var.detach().to(dt), self._ctx)
 
     def var(self):
         """The reference's symbol accessor; the parameter itself."""
+        return self
+
+    def shard(self, spec, blocks: int = 1):
+        """Record a partition spec for ``ParallelTrainStep`` (a
+        ``shard_spec``, a tuple or an axis name; the reference's
+        ``Parameter.shard``). ``blocks`` > 1 says the split dimension holds
+        that many equal blocks, each split alike (a fused QKV weight: a
+        rank's shard holds the Q, K and V rows of its heads)."""
+        self._sharding = spec
+        self._shard_blocks = int(blocks)
         return self
 
 

@@ -6,21 +6,29 @@
 every parameter with a gradient in place (the optimizer's ``_rule`` through
 an ``Updater``, the f32 master of ``multi_precision`` included). The
 kvstore (a type name or a ``KVStore``) is made at the first step, as the
-reference's ``_init_kvstore`` does. With one context a parameter and one
-worker there is nothing to reduce, so by default (``update_on_kvstore``
-None or False) a step is the local update alone. With ``update_on_kvstore=True`` the store owns the
-optimizer: each step pushes every gradient (through ``compression_params``'
-2-bit or 1-bit roundtrip when given) and pulls every weight. A ``dist_*``
-kvstore is ROADMAP item Q1.9 (P9) and raises.
+reference's ``_init_kvstore`` does. When a parameter lives on several
+contexts or the store has several workers, a step first pushpulls every
+gradient through the store (``priority=-i``), so that each copy holds the
+sum over contexts and workers, then updates every context's copy, each
+context through an updater of its own (its states and update counts, as
+MXNet's Trainer keeps one updater a context), so that the copies take the
+same step. With one context a parameter and one worker there is nothing to
+reduce, and by default (``update_on_kvstore`` None or False) a step is the
+local update alone. With ``update_on_kvstore=True`` the store owns the
+optimizer: each step pushes every gradient (the store sums the contexts'
+and the workers' gradients, through ``compression_params``' 2-bit or 1-bit
+roundtrip when given, and updates its weight once) and pulls the weight
+into every copy.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Tuple
 
 from .. import kvstore as kvstore_mod
 from .. import optimizer as opt_mod
 from ..base import MXNetError
-from ..optimizer.optimizer import state_from_host, state_to, state_to_host
+from ..optimizer.optimizer import (Updater, state_from_host, state_to,
+                                   state_to_host)
 from .parameter import Parameter
 
 __all__ = ["Trainer"]
@@ -39,7 +47,6 @@ class Trainer:
         if not isinstance(params, (list, tuple)):
             raise MXNetError("params must be a ParameterDict or list of "
                              "Parameters")
-        kvstore_mod.refuse_distributed(kvstore)
         self._params: List[Parameter] = []
         for p in params:
             if not isinstance(p, Parameter):
@@ -61,12 +68,16 @@ class Trainer:
             self._optimizer = opt_mod.create(optimizer, param_dict=param_dict,
                                              **optimizer_params)
         self._updaters = opt_mod.get_updater(self._optimizer)
+        #: the updaters of context copies 1, 2, ... with their update counts
+        self._copy_updaters: List[Tuple[Updater, Dict]] = []
         self._compression_params = compression_params
         self._kvstore_params = {"kvstore": kvstore,
                                 "update_on_kvstore": update_on_kvstore}
         self._kv_initialized = False
         self._kvstore = None
         self._update_on_kvstore = False
+        #: some parameter has several contexts or the store several workers
+        self._reduce = False
 
     def _init_kvstore(self):
         """Make the kvstore once, at the first step or state call
@@ -86,6 +97,8 @@ class Trainer:
                 for i, p in enumerate(self._params):
                     if p._var is not None:
                         self._kvstore.init(i, p.data())
+            self._reduce = self._kvstore.num_workers > 1 or any(
+                len(p._copies) > 0 for p in self._params)
         self._kv_initialized = True
 
     @property
@@ -100,20 +113,38 @@ class Trainer:
         self._optimizer.set_learning_rate(lr)
 
     def step(self, batch_size, ignore_stale_grad=False):
-        """Update every parameter with gradients scaled by 1 /
-        ``batch_size``. There is nothing to reduce first: a parameter has
-        one context and every store here one worker (the reference's
-        pushpull of several contexts or workers is ROADMAP Q1.9)."""
+        """Reduce the gradients over contexts and workers (where there are
+        several), then update every parameter with gradients scaled by 1 /
+        ``batch_size``."""
         if not self._kv_initialized:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
+        if self._reduce and not self._update_on_kvstore:
+            self._allreduce_grads()
         self._update()
 
     def allreduce_grads(self):
-        """Make the kvstore; with one context and one worker there is
-        nothing to reduce."""
+        """Make the kvstore and reduce the gradients over contexts and
+        workers (nothing to do with one of each). Under
+        ``update_on_kvstore`` the store's push reduces them, and this
+        raises, as MXNet's does."""
         if not self._kv_initialized:
             self._init_kvstore()
+        if self._update_on_kvstore:
+            raise MXNetError("allreduce_grads() when parameters are updated "
+                             "on kvstore is not supported; create the "
+                             "Trainer with update_on_kvstore=False")
+        if self._reduce:
+            self._allreduce_grads()
+
+    def _allreduce_grads(self):
+        for i, param in enumerate(self._params):
+            if param.grad_req == "null" or param._var is None:
+                continue
+            grads = param.list_grad()
+            if len(grads) > 1 or self._kvstore.num_workers > 1:
+                # priority -i: the first-needed parameters go first
+                self._kvstore.pushpull(i, grads, out=grads, priority=-i)
 
     def update(self, batch_size, ignore_stale_grad=False):
         if not self._kv_initialized:
@@ -133,6 +164,41 @@ class Trainer:
             if param.grad_req == "null" or param._var is None:
                 continue
             self._updaters(i, param.grad(), param.data())
+            if param._copies:
+                for c, (w, g) in enumerate(zip(param.list_data()[1:],
+                                               param.list_grad()[1:]), 1):
+                    self._update_copy(c, i, g, w)
+
+    def _update_copy(self, c, i, grad, weight):
+        """Update the ``c``-th context copy (c >= 1) of parameter ``i``
+        through that context's updater and update counts, so that its
+        states and its step count move once a step, as context 0's do."""
+        while len(self._copy_updaters) < c:
+            self._copy_updaters.append(
+                (opt_mod.get_updater(self._optimizer), {}))
+        updater, counts = self._copy_updaters[c - 1]
+        opt = self._optimizer
+        own, opt._index_update_count = opt._index_update_count, counts
+        try:
+            updater(i, grad, weight)
+        finally:
+            opt._index_update_count = own
+
+    def _copies_from_first(self):
+        """After a load: every context copy's updater restarts from context
+        0's states and update counts (the copies are equal)."""
+        opt = self._optimizer
+        self._copy_updaters = []
+        n = max((len(p._copies) for p in self._params), default=0)
+        for c in range(1, n + 1):
+            updater = opt_mod.get_updater(opt)
+            updater.states = {
+                i: state_from_host(state_to_host(st), self._params[i]
+                                   .list_data()[c]._data.device)
+                for i, st in self._updaters.states.items()
+                if len(self._params[i]._copies) >= c}
+            self._copy_updaters.append(
+                (updater, dict(opt._index_update_count)))
 
     def _refuse_kvstore_states(self, what):
         if not self._kv_initialized:
@@ -169,6 +235,7 @@ class Trainer:
             int(i): state_from_host(st, self._params[int(i)].data()._data
                                     .device)
             for i, st in state.get("slots", {}).items()}
+        self._copies_from_first()
 
     def save_states(self, fname):
         if not self._kv_initialized:
@@ -190,3 +257,4 @@ class Trainer:
         for i, st in self._updaters.states.items():
             self._updaters.states[i] = state_to(
                 st, self._params[i].data()._data.device)
+        self._copies_from_first()

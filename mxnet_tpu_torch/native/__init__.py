@@ -53,7 +53,7 @@ def _pkg_config(*args) -> Optional[List[str]]:
     if exe is None:
         return None
     proc = subprocess.run([exe, *args, "opencv4"], capture_output=True,
-                          text=True)
+                          text=True, timeout=60)
     return proc.stdout.split() if proc.returncode == 0 else None
 
 

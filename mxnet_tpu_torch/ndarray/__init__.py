@@ -136,6 +136,18 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
                          momentum=momentum, fix_gamma=fix_gamma, axis=axis)
 
 
+def SyncBatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                  momentum=0.9, fix_gamma=True, use_global_stats=False,
+                  output_mean_var=False, ndev=1, key="", axis_name=None,
+                  **kwargs):
+    """Cross-device BatchNorm (``contrib/sync_batch_norm.cc``): moments
+    over the mesh axis ``axis_name`` when given."""
+    return _bn_writeback("SyncBatchNorm", data, gamma, beta, moving_mean,
+                         moving_var, use_global_stats, eps=eps,
+                         momentum=momentum, fix_gamma=fix_gamma, ndev=ndev,
+                         key=key, axis_name=axis_name)
+
+
 def BatchNorm_v1(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                  momentum=0.9, fix_gamma=True, use_global_stats=False,
                  output_mean_var=False, axis=1, **kwargs):

@@ -7,7 +7,9 @@ PyTorch headers, so a build takes seconds). The library lands in
 sources, the headers they include by quoted name (``#include "hopper.cuh"``,
 found beside the including file or in ``csrc/``, which is on nvcc's include
 path) and the flags: a changed source or header builds anew, an unchanged
-one is reused.
+one is reused. A file lock per library serializes its build across
+processes (the ranks of a job that start with nothing built), so the
+first builds it and the others find it.
 Nothing is built when a module is imported; the first call that launches a
 kernel builds it. Different libraries build in parallel when first used from
 different threads (one nvcc each).
@@ -15,6 +17,7 @@ different threads (one nvcc each).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -96,19 +99,26 @@ def build(name: str, sources: Sequence[str]) -> Path:
     ``build/mxnet_tpu_torch/lib<name>-<hash>.so`` unless that file exists;
     returns its path. ``-Xptxas -v`` reports (registers, shared memory,
     spills per kernel) are kept for :func:`build_log`."""
-    paths = [CSRC / s for s in sources]
     out = BUILD_DIR / f"lib{name}-{source_hash(sources)[:16]}.so"
-    if out.exists():
-        _LOGS.setdefault(name, {"path": str(out), "seconds": 0.0,
-                                "cached": True, "ptxas": ""})
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(out.with_suffix(".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)    # released when it closes
+            if not out.exists():                # no other process built it
+                return _compile(name, sources, out)
+    _LOGS.setdefault(name, {"path": str(out), "seconds": 0.0,
+                            "cached": True, "ptxas": ""})
+    return out
+
+
+def _compile(name: str, sources: Sequence[str], out: Path) -> Path:
+    paths = [CSRC / s for s in sources]
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-Xptxas", "-v",
            "-o", str(tmp),
            *[str(p) for p in paths]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=1200)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise MXNetError(f"nvcc failed for {name} (exit {proc.returncode}):\n"

@@ -541,6 +541,24 @@ def gradient_multiplier(data, *, scalar=1.0):
     return _GradientMultiplier.apply(data, scalar)
 
 
+@register("SyncBatchNorm")
+def sync_batch_norm(x, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
+                    momentum=0.9, fix_gamma=True, use_global_stats=False,
+                    output_mean_var=False, ndev=1, key="", axis_name=None,
+                    training=False):
+    """Cross-device BatchNorm (``contrib/sync_batch_norm.cc``): with
+    ``axis_name`` (a mesh axis) the batch moments are averaged over the
+    axis's ranks, pmean(E[x^2]) - pmean(E[x])^2, each through a tape-aware
+    all_reduce; ``ndev`` and ``key`` are kept for the reference's
+    signature. BatchNorm's (out, new moving mean, new moving var) over
+    axis 1."""
+    from .nn import batch_norm
+    return batch_norm(x, gamma, beta, moving_mean, moving_var, eps=eps,
+                      momentum=momentum, fix_gamma=fix_gamma,
+                      use_global_stats=use_global_stats, axis=1,
+                      training=training, axis_name=axis_name)
+
+
 @register("BatchNormWithReLU")
 def batch_norm_with_relu(x, gamma, beta, moving_mean, moving_var, **attrs):
     """BatchNorm then ReLU (``batch_norm_relu.cc``): (out, new moving

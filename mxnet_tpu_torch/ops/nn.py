@@ -357,29 +357,57 @@ def _bn_onepass_enabled(dtype) -> bool:
     return v in ("1", "true", "yes", "on")
 
 
+def _moments(x, xa, red, axis, onepass, axis_name):
+    """Batch mean and variance over ``red`` in f32. With ``axis_name`` the
+    reference's SyncBatchNorm form over that mesh axis: pmean(E[x^2]) -
+    pmean(E[x])^2. Inside a data-parallel step (``collectives.
+    sharded_batch``) the moments of the global batch: sums over the
+    ranks, two-pass or one-pass as on one device. Both reductions are on
+    the tape."""
+    from ..parallel import collectives
+    mean = xa.mean(dim=red)
+    if axis_name is not None:
+        sq = collectives.all_reduce(xa.square().mean(dim=red), axis_name,
+                                    "mean")
+        mean = collectives.all_reduce(mean, axis_name, "mean")
+        return mean, (sq - mean.square()).clamp_min(0.0)
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    shard = collectives.batch_shard()
+    if shard is not None:
+        n = (x.numel() // x.shape[axis]) * shard[3]
+        mean = collectives.batch_sum(xa.sum(dim=red)) / n
+        if onepass:
+            sq = collectives.batch_sum(xa.square().sum(dim=red)) / n
+            return mean, (sq - mean.square()).clamp_min(0.0)
+        return mean, collectives.batch_sum(
+            (xa - mean.reshape(shape)).square().sum(dim=red)) / n
+    if onepass:
+        return mean, (xa.square().mean(dim=red) - mean.square()).clamp_min(
+            0.0)
+    return mean, (xa - mean.reshape(shape)).square().mean(dim=red)
+
+
 def bn_scale_shift(x, gamma, beta, moving_mean, moving_var, *, eps=1e-5,
                    momentum=0.9, fix_gamma=True, use_global_stats=False,
-                   training=False, axis=1):
+                   training=False, axis=1, axis_name=None):
     """BatchNorm's statistics in f32: ``(a, b, mean, var, new_moving_mean,
     new_moving_var)`` with a = gamma / sqrt(var + eps) and b = beta - mean *
     a, so that out = x * a + b. In training mode (unless
     ``use_global_stats``) mean and var are the batch moments (one-pass
     E[x^2] - E[x]^2 for bf16 input while ``MXNET_BN_BF16_REDUCE`` is on,
-    else as ``MXNET_BN_ONEPASS`` says), otherwise the moving ones. The
-    moving-stat update takes no gradient."""
-    red = tuple(i for i in range(x.dim()) if i != axis % x.dim())
+    else as ``MXNET_BN_ONEPASS`` says; across ranks as :func:`_moments`
+    says), otherwise the moving ones. The moving-stat update takes no
+    gradient."""
+    axis = axis % x.dim()
+    red = tuple(i for i in range(x.dim()) if i != axis)
     xa = x.float()
     if fix_gamma:
         gamma = torch.ones_like(gamma)
     if training and not use_global_stats:
-        mean = xa.mean(dim=red)
-        if (x.dtype == torch.bfloat16 and _bf16_reduce()) or \
-                _bn_onepass_enabled(x.dtype):
-            var = (xa.square().mean(dim=red) - mean.square()).clamp_min(0.0)
-        else:
-            shape = [1] * x.dim()
-            shape[axis] = x.shape[axis]
-            var = (xa - mean.reshape(shape)).square().mean(dim=red)
+        onepass = (x.dtype == torch.bfloat16 and _bf16_reduce()) or \
+            _bn_onepass_enabled(x.dtype)
+        mean, var = _moments(x, xa, red, axis, onepass, axis_name)
         with torch.no_grad():
             new_mean = momentum * moving_mean.float() + (1 - momentum) * mean
             new_var = momentum * moving_var.float() + (1 - momentum) * var
@@ -400,15 +428,12 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, *, eps=1e-5,
     reference. bf16 input with ``MXNET_BN_BF16_REDUCE`` on (the default):
     out = x * a + b computed in f32 and rounded to bf16. Otherwise the f32
     form (x - mean) * a + beta. The new moving stats keep the moving
-    stats' dtype. ``axis_name`` (cross-device moments) waits for the
-    multi-GPU slice."""
-    if axis_name is not None:
-        raise MXNetError("BatchNorm: axis_name (SyncBatchNorm) is not "
-                         "ported")
+    stats' dtype. ``axis_name`` names a mesh axis to take the moments
+    across (the SyncBatchNorm hook, ``_moments``)."""
     a, b, mean, _, new_mean, new_var = bn_scale_shift(
         x, gamma, beta, moving_mean, moving_var, eps=eps, momentum=momentum,
         fix_gamma=fix_gamma, use_global_stats=use_global_stats,
-        training=training, axis=axis)
+        training=training, axis=axis, axis_name=axis_name)
     shape = [1] * x.dim()
     shape[axis] = x.shape[axis]
     if x.dtype == torch.bfloat16 and _bf16_reduce():
@@ -526,13 +551,23 @@ def dropout(x, *, p=0.5, mode="training", axes=(), training=False,
     ``axes``, which share a mask) is kept with probability 1 - p and
     divided by 1 - p; else the identity. The mask is drawn from
     ``generator`` in float32, as the reference's bernoulli is in x's
-    dtype: keep where u >= p."""
+    dtype: keep where u >= p. Inside a data-parallel step
+    (``collectives.sharded_batch``) the mask of the global batch is drawn
+    (every rank's generator is seeded alike) and this rank's rows kept."""
     if not training or p <= 0:
         return x
+    from ..parallel import collectives
     shape = list(x.shape)
     for a in axes:
         shape[a] = 1
-    keep = torch.rand(shape, generator=generator, device=x.device) >= p
+    shard = collectives.batch_shard()
+    if shard is not None and shape[0] > 1:
+        rows = shape[0]
+        shape[0] *= shard[3]
+        keep = torch.rand(shape, generator=generator, device=x.device)[
+            shard[2] * rows:(shard[2] + 1) * rows] >= p
+    else:
+        keep = torch.rand(shape, generator=generator, device=x.device) >= p
     return x * (keep.to(x.dtype) / (1.0 - p))
 
 

@@ -1,6 +1,15 @@
-"""Training over device meshes (one device so far): ``make_mesh`` and
-``ParallelTrainStep``."""
-from .mesh import DeviceMesh, make_mesh
+"""Training over device meshes: ``make_mesh``, ``ParallelTrainStep`` and
+the collectives over the ranks of a multi-process job."""
+from .collectives import (all_gather, all_reduce, all_to_all, axis_index,
+                          axis_size, barrier, broadcast_from_root,
+                          initialize_distributed, num_workers, ppermute,
+                          rank, reduce_scatter)
+from .mesh import (DeviceMesh, carve_slices, current_mesh, make_mesh,
+                   replicated, shard_spec)
 from .train_step import ParallelTrainStep
 
-__all__ = ["DeviceMesh", "ParallelTrainStep", "make_mesh"]
+__all__ = ["DeviceMesh", "ParallelTrainStep", "make_mesh", "current_mesh",
+           "replicated", "shard_spec", "carve_slices", "all_reduce",
+           "all_gather", "reduce_scatter", "ppermute", "all_to_all",
+           "axis_index", "axis_size", "barrier", "broadcast_from_root",
+           "initialize_distributed", "rank", "num_workers"]

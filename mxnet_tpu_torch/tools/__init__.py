@@ -29,7 +29,8 @@ def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", "-i", "0"],
-        check=True, capture_output=True, text=True).stdout.strip()
+        check=True, capture_output=True, text=True, timeout=60
+    ).stdout.strip()
 
 
 def median_ms(fn, reps: int = 30, warmup: int = 5, calls: int = 1) -> float:

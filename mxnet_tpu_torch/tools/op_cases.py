@@ -1982,6 +1982,12 @@ def _(nd, ctx):
                 bad, msg="lengths must be positive"))}
 
 
+@case("SyncBatchNorm", SUMS)
+def _(nd, ctx):
+    x, g, b, mm, mv = _bn_args(nd, ctx)
+    return {"eval": nd.SyncBatchNorm(x, g, b, mm, mv, fix_gamma=False)}
+
+
 @case("BatchNormWithReLU", SUMS)
 def _(nd, ctx):
     x, g, b, mm, mv = _bn_args(nd, ctx)

@@ -35,7 +35,8 @@ def main(argv=None) -> int:
     for i, tree in enumerate(args.trees):
         print(f"=== run {i + 1} of {len(args.trees)}: {tree}, phases "
               f"{phases}", flush=True)
-        r = subprocess.run([sys.executable, "-u", "-c", code], cwd=tree)
+        r = subprocess.run([sys.executable, "-u", "-c", code], cwd=tree,
+                           timeout=3000)
         print(f"=== run {i + 1} exit {r.returncode}", flush=True)
         rc = rc or r.returncode
     return rc

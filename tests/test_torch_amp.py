@@ -166,8 +166,8 @@ LIST_NAMES = ("TARGET_DTYPE_OPS", "FP32_OPS", "CONDITIONAL_FP32_OPS",
               "WIDEST_TYPE_CASTS", "DTYPE_NEUTRAL_OPS")
 
 # names the lists hold that the port does not register yet (ROADMAP Queue
-# 1): SyncBatchNorm (Q1.9). Shrinks as slices land.
-NOT_YET_PORTED = {"SyncBatchNorm"}
+# 1): none since SyncBatchNorm landed with the multi-process slice (Q1.9b).
+NOT_YET_PORTED = set()
 
 
 def test_lists_are_the_references_verbatim():

@@ -1,10 +1,16 @@
 """The port's kernel build key (``mxnet_tpu_torch.ops._build``) covers the
 headers a source includes, so a changed header builds the libraries that
-include it anew. Runs without nvcc: nothing here compiles."""
+include it anew. Runs without nvcc: nothing here compiles; a library built by two
+processes at once is compiled once."""
+import os
+import sys
+from pathlib import Path
+
 import pytest
 
 from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.ops import _build
+from mxnet_tpu_torch.tools import launch
 
 
 @pytest.fixture
@@ -64,3 +70,35 @@ def test_the_library_name_carries_the_key(csrc):
     (csrc / "shared.cuh").write_text("int one() { return 3; }\n")
     with pytest.raises(AssertionError, match="nvcc was run"):
         _build.build("kern", ["kern.cu"])
+
+
+_COLD_START = """
+import sys
+from pathlib import Path
+from mxnet_tpu_torch.ops import _build
+_build.BUILD_DIR = Path(sys.argv[1])
+_build._nvcc = lambda: sys.argv[2]
+print(_build.build("kern", [sys.argv[3]]))
+"""
+
+
+def test_ranks_that_start_cold_build_a_library_once(tmp_path):
+    """Two processes building the same library at once (two ranks of a job
+    with nothing built, started by the port's launcher): the file lock
+    lets one run the compiler and the other find its library."""
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\necho run >> "%s"\nsleep 1\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n'
+                    'touch "$2"\n' % calls)
+    nvcc.chmod(0o755)
+    src = tmp_path / "kern.cu"
+    src.write_text("int k() { return 1; }\n")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1]))
+    proc = launch.run(2, [sys.executable, "-c", _COLD_START,
+                          str(tmp_path / "build"), str(nvcc), str(src)],
+                      timeout=120, env=env)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    outs = proc.stdout.split()
+    assert len(outs) == 2 and outs[0] == outs[1] and os.path.exists(outs[0])
+    assert calls.read_text().split() == ["run"]

@@ -225,8 +225,13 @@ def test_parameter():
     assert p.var() is p
     p.zero_grad()
     assert (p.grad().asnumpy() == 0).all()
-    with pytest.raises(MXNetError, match="P9"):
-        gluon.Parameter("w2", shape=(2,)).initialize(ctx=[CPU, mt.cpu(1)])
+    # several contexts: one copy each, keyed by the context
+    p2 = gluon.Parameter("w2", shape=(2,))
+    p2.initialize(ctx=[CPU, mt.cpu(1)])
+    assert p2.list_ctx() == [CPU, mt.cpu(1)]
+    assert p2.data(mt.cpu(1)).context == mt.cpu(1)
+    with pytest.raises(MXNetError, match="not initialized on"):
+        p2.data(mt.cpu(2))
 
 
 def test_constant():
@@ -422,10 +427,18 @@ def test_trainer_takes_lr_mult_and_learning_rate():
 
 @pytest.mark.parametrize("kv", ["dist_sync", "dist_device_sync"])
 def test_trainer_refuses_distributed_kvstores(kv):
+    """Outside a launched job a distributed store is a one-worker store
+    (the reference's; the port refused it before the multi-process
+    slice): the Trainer's step over it is the local SGD step."""
     p = gluon.Parameter("w", shape=(2,))
     p.initialize()
-    with pytest.raises(MXNetError, match="P9"):
-        gluon.Trainer([p], "sgd", kvstore=kv)
+    w0 = p.data().asnumpy().copy()
+    p.grad()._set_data(nd.ones((2,)).data)
+    trainer = gluon.Trainer([p], "sgd", {"learning_rate": 0.5}, kvstore=kv)
+    trainer.step(1)
+    assert trainer._kvstore.type == kv and trainer._kvstore.num_workers == 1
+    onp.testing.assert_array_equal(p.data().asnumpy(),
+                                   w0 - onp.float32(0.5))
     # a kvstore-side update works in one process (the reference's SGD
     # step: w - lr * g)
     w0 = p.data().asnumpy().copy()

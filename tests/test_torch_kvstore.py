@@ -7,7 +7,8 @@ bitwise; the 1-bit scale, a mean, within 4 f32 ulps of XLA's, whose
 summation order is its own), the Trainer with ``update_on_kvstore=True``
 bitwise equal to the local update and, with 2-bit compression, bitwise
 equal to the reference's Trainer over three steps, its state under the
-kvstore, the plugin registry and the distributed types refused."""
+kvstore and the plugin registry. The distributed types are held against
+the reference in tests/test_torch_dist_kvstore.py."""
 import numpy as onp
 import pytest
 import torch
@@ -382,14 +383,3 @@ def test_create_types_and_the_plugin_registry():
     assert mt.kvstore.KVStoreBase.get("portteststore") is PortTestStore
     with pytest.raises(MXNetError, match="unknown"):
         kv.create("nosuchstore")
-
-
-@pytest.mark.parametrize("name", ["dist_sync", "dist_device_sync",
-                                  "dist_async", "p3", "horovod"])
-def test_distributed_types_are_refused(name):
-    with pytest.raises(MXNetError, match="Q1.9"):
-        kv.create(name)
-    p = gluon.Parameter("w", shape=(2,))
-    p.initialize()
-    with pytest.raises(MXNetError, match="P9"):
-        gluon.Trainer([p], "sgd", kvstore=name)

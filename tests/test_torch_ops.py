@@ -35,9 +35,9 @@ torch.set_num_threads(2)
 # runs at reduced precision; one parallel op primes the pool first.
 torch.exp(torch.zeros(1 << 18))
 
-# not ported yet (ROADMAP Queue 1): SyncBatchNorm with the multi-GPU
-# slice
-DEFERRED = {"SyncBatchNorm"}
+# not ported yet (ROADMAP Queue 1): none since SyncBatchNorm landed with
+# the multi-process slice
+DEFERRED = set()
 # held to their moments and determinism in test_torch_random_ops.py
 SAMPLERS = {
     "_random_uniform", "_random_normal", "_random_gamma",

@@ -6,6 +6,7 @@ counts every kernel's launches, loads no CUDA library at import, and keeps
 its build output out of git; and ``chip_smoke.py`` fails without a card or
 without the package."""
 import ast
+import functools
 import os
 import re
 import subprocess
@@ -21,6 +22,7 @@ KERNEL_WRAPPERS = sorted(p for p in (PKG / "ops" / "cuda").glob("*.py")
                          if p.name != "__init__.py")
 
 
+@functools.lru_cache(maxsize=None)
 def _tree(path):
     return ast.parse(path.read_text(), filename=str(path))
 
@@ -888,3 +890,150 @@ def test_the_int8_products_take_no_float_route(name):
         assert {"_int_mm", "int32"} <= used
     if name == "int8_conv":
         assert "int8_matmul" in used
+
+
+# ---------------------------------------------------------------------------
+# the multi-process slice: collectives, meshes, kvstores, the launcher
+# ---------------------------------------------------------------------------
+COLLECTIVES = PKG / "parallel" / "collectives.py"
+MESH = PKG / "parallel" / "mesh.py"
+PORT_TESTS = sorted((ROOT / "tests").glob("test_torch_*.py")) + \
+    sorted((ROOT / "tests").glob("torch_*.py"))
+#: the tape-aware collectives: each returns through its autograd Function
+TAPE_AWARE = ("all_reduce", "all_gather", "reduce_scatter", "ppermute",
+              "all_to_all", "copy_to_axis", "reduce_from_axis",
+              "gather_from_axis")
+
+
+def _dist_uses(path):
+    """(line, what) of every use of ``torch.distributed`` in ``path``:
+    imports of it, and ``torch.distributed.X`` attribute chains."""
+    out = []
+    for node in ast.walk(_tree(path)):
+        if isinstance(node, ast.Import):
+            out += [(node.lineno, a.name) for a in node.names
+                    if a.name.startswith("torch.distributed")]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                (node.module or "").startswith("torch.distributed"):
+            out.append((node.lineno, node.module))
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                node.module == "torch" and \
+                any(a.name == "distributed" for a in node.names):
+            out.append((node.lineno, "torch.distributed"))
+        elif isinstance(node, ast.Attribute) and node.attr == "distributed" \
+                and isinstance(node.value, ast.Name) and \
+                node.value.id == "torch":
+            out.append((node.lineno, "torch.distributed"))
+    return out
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_torch_distributed_only_in_collectives(path):
+    """collectives.py is the one module that calls torch.distributed;
+    mesh.py imports it for new_group alone."""
+    uses = _dist_uses(path)
+    if path == COLLECTIVES:
+        return
+    if path == MESH:
+        called = {n.attr for n in ast.walk(_tree(path))
+                  if isinstance(n, ast.Attribute) and
+                  isinstance(n.value, ast.Name) and n.value.id == "dist"}
+        assert called == {"new_group"}, called
+        return
+    assert not uses, f"{path}: torch.distributed at {uses}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_new_group_only_in_mesh(path):
+    calls = [n.lineno for n in ast.walk(_tree(path))
+             if isinstance(n, ast.Call) and
+             isinstance(n.func, ast.Attribute) and n.func.attr == "new_group"]
+    assert not calls or path == MESH, f"{path}: new_group at {calls}"
+
+
+def _collective_call(call):
+    f = call.func
+    if isinstance(f, ast.Attribute) and isinstance(f.value, ast.Name):
+        return f.value.id in ("dist", "collectives") or \
+            f.attr == "init_process_group"
+    return isinstance(f, ast.Name) and f.id.startswith(("_raw_", "world_"))
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_except_around_a_collective(path):
+    """No handler catches a failed init_process_group or collective (to
+    switch the backend or carry on alone)."""
+    for node in ast.walk(_tree(path)):
+        if isinstance(node, ast.Try) and node.handlers:
+            calls = [c for stmt in node.body for c in ast.walk(stmt)
+                     if isinstance(c, ast.Call) and _collective_call(c)]
+            assert not calls, f"{path}:{node.lineno}: except around a " \
+                "collective"
+
+
+def test_collectives_and_mesh_have_no_handlers():
+    for path in (COLLECTIVES, MESH):
+        assert not [n for n in ast.walk(_tree(path))
+                    if isinstance(n, ast.Try) and n.handlers], path
+
+
+def test_every_process_group_has_a_timeout():
+    calls = [n for path in PORT_FILES for n in ast.walk(_tree(path))
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+             and n.func.attr == "init_process_group"]
+    assert calls and all(any(k.arg == "timeout" for k in c.keywords)
+                         for c in calls)
+
+
+@pytest.mark.parametrize("name", TAPE_AWARE)
+def test_collectives_needing_a_gradient_are_tape_aware(name):
+    """Each in-program collective returns through an autograd Function's
+    ``apply``, and no module outside collectives.py calls a raw one."""
+    fn = next(n for n in _tree(COLLECTIVES).body
+              if isinstance(n, ast.FunctionDef) and n.name == name)
+    applies = [c for c in ast.walk(fn) if isinstance(c, ast.Call) and
+               isinstance(c.func, ast.Attribute) and c.func.attr == "apply"]
+    assert applies, name
+    for path in PORT_FILES:
+        if path == COLLECTIVES:
+            continue
+        raw = [n.attr for n in ast.walk(_tree(path))
+               if isinstance(n, ast.Attribute) and
+               isinstance(n.value, ast.Name) and n.value.id == "collectives"
+               and n.attr.startswith("_")]
+        assert not raw, f"{path}: {raw}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES + PORT_TESTS,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_never_imports_the_repos_launcher(path):
+    for node in ast.walk(_tree(path)):
+        if isinstance(node, ast.Import):
+            assert not [a.name for a in node.names
+                        if a.name.split(".")[0] == "tools"], path
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            assert (node.module or "").split(".")[0] != "tools", path
+
+
+@pytest.mark.parametrize("path", PORT_FILES + PORT_TESTS,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_every_subprocess_has_a_timeout(path):
+    """A port test or chip_smoke.py cannot hang on a child: every
+    subprocess.run/call/check_* has a timeout, and only the launcher (which
+    kills its workers at its deadline) starts a Popen."""
+    for node in ast.walk(_tree(path)):
+        if not (isinstance(node, ast.Call) and
+                isinstance(node.func, ast.Attribute) and
+                isinstance(node.func.value, ast.Name) and
+                node.func.value.id == "subprocess"):
+            continue
+        if node.func.attr == "Popen":
+            assert path == PKG / "tools" / "launch.py", \
+                f"{path}:{node.lineno}: Popen"
+        elif node.func.attr in ("run", "call", "check_call", "check_output"):
+            assert any(k.arg == "timeout" for k in node.keywords), \
+                f"{path}:{node.lineno}: subprocess.{node.func.attr} " \
+                "without a timeout"
