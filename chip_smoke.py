@@ -471,10 +471,42 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    packed codes (1/16 of the f32 bytes). Prints tokens/s or img/s, the
    step median, the gradient all-reduce in the step and a step's
    communication alone.
-17. A JSON line with the kernels' numbers (``launches_by_path`` gains
-   ``int8_resnet``, ``int8_bert`` and ``kvstore_resnet`` (phase 15) and
+17. Ring attention, DLRM on the vocab-sharded table, the thin modules.
+   (a) K1, K2 and K3 at one rank's block (1, 12, 4096, 64) bf16, causal
+   and not, through the wrappers and from CUDA graphs, beside the plain
+   versions, SDPA and the bounds; with one rank ``ring_self_attention`` at
+   (1, 12, 8192, 64) bf16 is one K1, K2 and K3 call, bitwise. (b) A
+   two-rank job (``chip_smoke.py --slice17-worker``, both ranks on the one
+   card over gloo) on {"sp": 2}: ``ring_self_attention`` at (1, 12, 8192,
+   64) bf16 (S_local = 4096), causal and not, forward and the q, k, v
+   gradients for a seeded output gradient, against one process's K1-K3
+   over the whole sequence within TOL[bf16] (2e-2) x max(1, max |ref|)
+   (each block's output is rounded to bf16 before the f32 merge), and at
+   (1, 12, 1024, 64) f32 within 1e-4; K1/K2/K3 launches a call 2 each
+   without ``causal`` and r + 1 on rank r with it (the counts set to 0
+   just before each call and read just after); rank 0's ms a call
+   (forward, forward + backward) and of one staged ``ppermute`` of a K/V
+   block. (c) DLRM at MLPerf Training's widths (dense 13, 26 fields,
+   dim 128, bottom 512, top 1024; batch 2048; one table of 8,388,608
+   rows, 4.29 GB f32, filled on the card from a seeded generator; SGD
+   0.05) on one process: four steps kept for (d), then steps/s,
+   lookups/s, the step's median ms (host clock to a fetched loss),
+   device ms and busy share (torch.profiler), peak memory, and eight
+   steps through ``DeviceFeed`` (wait p50/p99, lead); four steps at
+   vocab 65,536 on the card against the port on the CPU, losses, table
+   and MLP within 1e-4 x max(1, max |CPU|). (d) In the same job, DLRM on
+   {"tp": 2} with the table vocab-sharded (block): ``replicated`` mode's
+   four steps bitwise (c)'s (losses, MLP, 4,096 touched rows and each
+   rank's shard's fingerprint), ``sharded`` mode within 1e-4; the step
+   ms and the exchange counters against ``exchange_cost_bytes``. (e)
+   ``runtime.Features()`` lists CUDA and the card; ``TensorInspector`` on
+   a card tensor.
+18. A JSON line with the kernels' numbers (``launches_by_path`` gains
+   ``int8_resnet``, ``int8_bert`` and ``kvstore_resnet`` (phase 15),
    ``dp_bert``, ``tp_bert`` and ``dist_trainer_bert``, counted on rank 0
-   (phase 16)), then the last line ``{"ok": true, "device": {...}}``.
+   (phase 16), and ``ring_attention`` (phase 17(b), rank 0), and K1-K3
+   gain their times at the ring's block), then the last line ``{"ok":
+   true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -498,9 +530,12 @@ import torch
 
 from mxnet_tpu_torch import (MXNetError, amp, autograd, cpu, engine, gluon,
                              gpu, init, io, kvstore, library, metric, native,
-                             nd, operator, random, recordio, rtc, serving,
-                             sparse)
+                             nd, operator, random, recordio, rtc, runtime,
+                             serving, sparse)
 from mxnet_tpu_torch.contrib import quantization as qz
+from mxnet_tpu_torch.embedding import (DeviceFeed, DLRMTrainStep,
+                                       ShardedEmbedding,
+                                       synthetic_dlrm_batches)
 from mxnet_tpu_torch.gluon import data as gdata
 from mxnet_tpu_torch.gluon.data.vision import transforms as T
 from mxnet_tpu_torch.gluon import nn, rnn
@@ -525,6 +560,7 @@ from mxnet_tpu_torch.ops.nn import rnn_param_size
 from mxnet_tpu_torch.optimizer import Adam
 from mxnet_tpu_torch.parallel import ParallelTrainStep, make_mesh
 from mxnet_tpu_torch.serving.generate import DecodeEndpoint
+from mxnet_tpu_torch.tensor_inspector import TensorInspector
 from mxnet_tpu_torch.test_utils import get_shapes_detection
 from mxnet_tpu_torch.tools import (RESNET50_V1_PARAM_COUNT, PretrainStep,
                                    card, f32_drift, graph_ms,
@@ -5692,11 +5728,621 @@ def phase_distributed(seed: int, smi: str):
             "native": native}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: ring attention, DLRM over the vocab-sharded table, thin modules
+# ---------------------------------------------------------------------------
+SLICE17_DIR = Path(__file__).resolve().parent / "build" / "phase_slice17"
+RING_SHAPE = (1, 12, 8192, 64)     # BERT-base's heads and head dim, S = 8192
+RING_RANKS = 2                     # {"sp": 2}: blocks of S_local = 4096
+RING_BLOCK = (1, 12, 4096, 64)
+RING_F32_SHAPE = (1, 12, 1024, 64)
+RING_TIMED = 5                     # calls timed a mode, the median kept
+#: MLPerf Training's DLRM on Criteo 1TB (facebookresearch/dlrm:
+#: --arch-sparse-feature-size=128, bottom MLP 13-512-256-128, top MLP
+#: 1024-1024-512-256-1) in the reference's factorization (two layers a
+#: tower, one shared table), the table cut from 40M rows to 2^23
+DLRM_CFG = dict(dense_in=13, n_fields=26, bot_hidden=512, top_hidden=1024)
+DLRM_DIM = 128
+DLRM_VOCAB = 8_388_608
+DLRM_BATCH = 2048
+DLRM_LR = 0.05
+DLRM_INIT_STD = 0.1                # the reference tests' N(0, 0.1^2) rows
+DLRM_CHECK_STEPS = 4               # steps held bitwise / within tolerance
+DLRM_WARMUP = 2
+DLRM_TIMED = 10
+DLRM_FEED_STEPS = 8
+DLRM_DIST_TIMED = 4
+DLRM_CHECK_ROWS = 4096             # touched rows compared (batch 0's ids)
+DLRM_CPU_VOCAB = 65_536
+SLICE17_JOB_TIMEOUT = 600
+SLICE17_WORKER = [sys.executable, str(Path(__file__).resolve()),
+                  "--slice17-worker"]
+
+
+def _dev():
+    return gpu(0).torch_device()
+
+
+def ring_inputs(shape, dtype, seed):
+    """q, k, v and the output gradient, (B, H, S, D), from one seeded
+    generator on the card (every process draws the same)."""
+    gen = torch.Generator(device=_dev()).manual_seed(seed + 17)
+    return [torch.randn(shape, generator=gen, device=_dev()).to(dtype)
+            for _ in range(4)]
+
+
+def _leaves(*ts):
+    return [t.detach().clone().requires_grad_() for t in ts]
+
+
+def ring_one_process(q, k, v, dout, causal):
+    """One process's K1-K3 over the whole sequence: the output and the
+    gradients of q, k and v for the output gradient ``dout``."""
+    q_, k_, v_ = _leaves(q, k, v)
+    out = fa.flash_attention(q_, k_, v_, causal=causal)
+    out.backward(dout)
+    return [out.detach(), q_.grad, k_.grad, v_.grad]
+
+
+def _dist(got, want):
+    """max |got - want| over the four tensors, and the worst tensor's
+    error relative to its own rows: for each row (the last axis), max
+    |got - want| over max(max |want| of the row, RMS of the tensor), the
+    RMS a floor for rows near 0 (the causal dq's first row is exactly
+    0). A ring that rounds each block's bf16 output before its f32 merge
+    stays within about one bf16 ulp of a row's largest entry (2^-7);
+    a wrong row of a small output, or a wrong gradient, does not."""
+    err, rel = 0.0, 0.0
+    for a, b in zip(got, want):
+        a, b = a.float().cpu(), b.float().cpu()
+        d = (a - b).abs()
+        floor = b.pow(2).mean().sqrt()
+        row = torch.maximum(b.abs().amax(-1, keepdim=True), floor)
+        err = max(err, d.max().item())
+        rel = max(rel, (d / row).max().item())
+    return err, rel
+
+
+def ring_block_times(seed: int, smi: str):
+    """K1, K2 and K3 at one rank's block (1, 12, 4096, 64) bf16, causal and
+    not: each against its plain version (within TOL[bf16] x max(1,
+    max|plain|), as phase 3 holds them), then through the wrappers and
+    from CUDA graphs, beside the plain versions, SDPA and the bounds."""
+    q, k, v, do = ring_inputs(RING_BLOCK, torch.bfloat16, seed + 1)
+    scale = RING_BLOCK[-1] ** -0.5
+    out = {}
+    for causal in (False, True):
+        o, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, scale,
+                                              causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                            causal)
+        torch.cuda.synchronize()
+        errs, ok = [], True
+        for got, want in (
+                ((o, lse), fa.flash_attention_fwd_reference(
+                    q, k, v, scale, causal)),
+                ((dq, delta), fa.flash_attention_bwd_dq_reference(
+                    q, k, v, o, do, lse, scale, causal)),
+                ((dk, dv), fa.flash_attention_bwd_dkv_reference(
+                    q, k, v, do, lse, delta, scale, causal))):
+            e, good = _bwd_errors(got, want, torch.bfloat16)
+            errs += e
+            ok &= good
+        print(f"17(a) K1/K2/K3 at {RING_BLOCK} bf16, causal={causal}, vs "
+              f"their plain versions: max|d out|={errs[0]:.3g} max|d lse|="
+              f"{errs[1]:.3g}; max|d dq|={errs[2]:.3g} max|d delta|="
+              f"{errs[3]:.3g}; max|d dk|={errs[4]:.3g} max|d dv|="
+              f"{errs[5]:.3g}; tol={TOL[torch.bfloat16]:g} x max(1, "
+              f"max|plain|)")
+        if not ok:
+            raise SystemExit(f"FAIL: K1-K3 disagree with their plain "
+                             f"versions at the ring's block {RING_BLOCK} "
+                             f"causal={causal}")
+        del dq, delta, dk, dv
+        fwd = lambda: fa.flash_attention_fwd(q, k, v, scale, causal)  # noqa
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+            q, k, v, is_causal=causal, scale=scale)
+        bms, by, nbytes, flops = bound_ms(RING_BLOCK, torch.bfloat16,
+                                          causal, "fwd")
+        rec = {"fwd": {
+            "ms": median_ms(fwd, calls=TIMED_CALLS), "device_ms": graph_ms(fwd),
+            "plain_ms": median_ms(lambda: fa.flash_attention_fwd_reference(
+                q, k, v, scale, causal), reps=5, warmup=1),
+            "bound_ms": bms, "bound_by": by, "library_ms": graph_ms(sdpa),
+            "max_abs_err": max(errs[:2])},
+            "max_abs_err_dq": max(errs[2:4]),
+            "max_abs_err_dkv": max(errs[4:])}
+        f = rec["fwd"]
+        print(f"17(a) K1 at {RING_BLOCK} bf16, causal={causal}: {f['ms']:.4f}"
+              f" ms ({f['device_ms']:.4f} from a CUDA graph), plain "
+              f"{f['plain_ms']:.4f}, SDPA {f['library_ms']:.4f} (graph), "
+              f"bound {bms * 1e3:.1f} us ({by}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP) on {smi}")
+        rec.update(time_backward(q, k, v, o, lse, do, scale, causal, smi,
+                                 RING_BLOCK))
+        out[causal] = rec
+    return out
+
+
+def ring_single(seed: int, smi: str):
+    """17(a): with one rank ``ring_self_attention`` is one K1 call (and one
+    K2 and K3) over the whole sequence, bitwise, at (1, 12, 8192, 64)
+    bf16; the one-process runs (b) is held against, bf16 and f32."""
+    from mxnet_tpu_torch import parallel
+    mesh = make_mesh({"sp": 1})
+    ok, refs = True, {}
+    for dtype, shape in ((torch.bfloat16, RING_SHAPE),
+                         (torch.float32, RING_F32_SHAPE)):
+        q, k, v, do = ring_inputs(shape, dtype, seed)
+        for causal in (False, True):
+            want = ring_one_process(q, k, v, do, causal)
+            refs[dtype, causal] = [t.float().cpu() for t in want]
+            if dtype != torch.bfloat16:
+                continue
+            q_, k_, v_ = _leaves(q, k, v)
+            _zero_counters()
+            got = parallel.ring_self_attention(q_, k_, v_, mesh,
+                                               causal=causal)
+            got.backward(do)
+            counts = _read_counters()
+            same = all(torch.equal(a, b) for a, b in zip(
+                [got.detach(), q_.grad, k_.grad, v_.grad], want))
+            print(f"17(a) {{\"sp\": 1}} ring_self_attention at {shape} bf16,"
+                  f" causal={causal}: output and q, k, v gradients bitwise "
+                  f"one flash_attention call's: {same}; K1/K2/K3 launches "
+                  f"{counts['K1']}/{counts['K2']}/{counts['K3']} (1 each)")
+            if not same or [counts[k] for k in ("K1", "K2", "K3")] != \
+                    [1, 1, 1]:
+                ok = False
+    return refs, ok
+
+
+def ring_worker(seed: int):
+    """17(b) on one rank of {"sp": 2}: the main path (both ``causal``
+    settings, forward and backward, the counts set to 0 just before each
+    and read just after), the times, and the f32 run; rank 0 saves the
+    outputs and gradients."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.parallel import collectives
+    mesh = make_mesh({"sp": RING_RANKS})
+    rank = collectives.rank()
+    res, saved = {"launches": {}, "ms": {}}, {}
+    for dtype, shape in ((torch.bfloat16, RING_SHAPE),
+                         (torch.float32, RING_F32_SHAPE)):
+        q, k, v, do = ring_inputs(shape, dtype, seed)
+        for causal in (False, True):
+            q_, k_, v_ = _leaves(q, k, v)
+            _zero_counters()
+            out = parallel.ring_self_attention(q_, k_, v_, mesh,
+                                               causal=causal)
+            out.backward(do)
+            torch.cuda.synchronize()
+            counts = _read_counters()
+            if dtype == torch.bfloat16:
+                res["launches"][str(causal)] = counts
+            saved[str(dtype), causal] = [t.float().cpu() for t in (
+                out.detach(), q_.grad, k_.grad, v_.grad)]
+    q, k, v, do = (collectives.scatter_to_axis(t, "sp", dim=2, mesh=mesh)
+                   for t in ring_inputs(RING_SHAPE, torch.bfloat16, seed))
+    for causal in (False, True):
+        def fwd():
+            return parallel.ring_attention(q, k, v, causal=causal, mesh=mesh)
+
+        def both():
+            q_, k_, v_ = _leaves(q, k, v)
+            parallel.ring_attention(q_, k_, v_, causal=causal,
+                                    mesh=mesh).backward(do)
+        collectives.barrier()
+        res["ms"][f"fwd_{causal}"] = host_ms(fwd, RING_TIMED)
+        res["ms"][f"fwd_bwd_{causal}"] = host_ms(both, RING_TIMED)
+    kv = torch.stack((k, v))
+    perm = [(i, (i + 1) % RING_RANKS) for i in range(RING_RANKS)]
+    collectives.barrier()
+    res["ms"]["ppermute"] = host_ms(
+        lambda: collectives.ppermute(kv, "sp", perm, mesh=mesh), RING_TIMED)
+    res["ppermute_bytes"] = kv.numel() * kv.element_size()
+    res["host_staged"] = collectives.host_staged()
+    if rank == 0:
+        torch.save(saved, SLICE17_DIR / "ring.pt")
+    return res
+
+
+def dlrm_batches(seed: int, n: int, vocab: int = DLRM_VOCAB):
+    return synthetic_dlrm_batches(n, DLRM_BATCH, DLRM_CFG["dense_in"],
+                                  DLRM_CFG["n_fields"], vocab, seed=seed)
+
+
+def dlrm_check_ids(batches):
+    """The touched rows compared: the first DLRM_CHECK_ROWS sorted unique
+    ids of the first batch."""
+    return torch.from_numpy(np.unique(batches[0][1])[:DLRM_CHECK_ROWS])
+
+
+def dlrm_step(mesh, seed: int, mode: str):
+    """The full-width table, filled on the card from a seeded generator
+    (every process draws the same 8,388,608 x 128 rows), and its step."""
+    gen = torch.Generator(device=_dev()).manual_seed(seed + 170)
+    full = torch.randn((DLRM_VOCAB, DLRM_DIM), generator=gen,
+                       device=_dev()).mul_(DLRM_INIT_STD)
+    table = ShardedEmbedding(DLRM_VOCAB, DLRM_DIM, mesh, axis="tp",
+                             weight=full)
+    del full
+    torch.cuda.empty_cache()
+    return table, DLRMTrainStep(table, **DLRM_CFG, lr=DLRM_LR, seed=seed,
+                                mode=mode)
+
+
+def _mlp_host(step):
+    """A host copy of the MLP (the step updates it in place)."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in step.mlp.items()}
+
+
+def _halves_fp(weight):
+    """Fingerprints of the table's two halves (the 2-rank block shards)."""
+    half = DLRM_VOCAB // 2
+    return [_fingerprint([weight[:half]]).item(),
+            _fingerprint([weight[half:]]).item()]
+
+
+def _update_error(got, want, start):
+    """How far ``got``'s update from ``start`` is from ``want``'s, both
+    after DLRM_CHECK_STEPS SGD steps: max |got - want| beyond
+    DLRM_CHECK_STEPS ulps of ``want`` (the weight is rounded once a step,
+    on either side), over max |want - start|. The table's rows move by
+    about 1e-5 a step from values of about 0.1, so the weights themselves,
+    compared absolutely, cannot show the update; a dropped, doubled or
+    halved update reads here as 0.5-1."""
+    got, want, start = (np.asarray(x, dtype=np.float32) for x in (
+        got, want, start))
+    excess = np.maximum(np.abs(got - want) -
+                        DLRM_CHECK_STEPS * np.spacing(np.abs(want)), 0.0)
+    return float(excess.max() / np.abs(want - start).max())
+
+
+def _moved_rows(table, start):
+    """Indices of the rows of a (rows, dim) table that differ from
+    ``start``."""
+    diff = np.asarray(table, dtype=np.float32) != np.asarray(
+        start, dtype=np.float32)
+    return np.flatnonzero(diff.any(axis=1))
+
+
+def _timed_steps_ms(step, staged):
+    """Host ms of each step, closed by the fetched loss."""
+    times = []
+    for s in staged:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(s)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def dlrm_one_process(seed: int, smi: str):
+    """17(c): DLRM at MLPerf's widths on one process: four steps kept for
+    (d), the timed steps, the profile, and the same steps through
+    DeviceFeed."""
+    mesh = make_mesh({"tp": 1})
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    table, step = dlrm_step(mesh, seed, "replicated")
+    setup_s = time.perf_counter() - t0
+    batches = dlrm_batches(seed, DLRM_CHECK_STEPS + DLRM_WARMUP + DLRM_TIMED
+                           + DLRM_FEED_STEPS)
+    ids = dlrm_check_ids(batches)
+    start = {"rows0": table.gather(ids).cpu(), "mlp0": _mlp_host(step)}
+    losses = [step(b) for b in batches[:DLRM_CHECK_STEPS]]
+    ref = {"losses": losses, "mlp": _mlp_host(step),
+           "rows": table.gather(ids).cpu(), "fp": _halves_fp(table.weight),
+           **start}
+    rest = batches[DLRM_CHECK_STEPS:DLRM_CHECK_STEPS + DLRM_WARMUP
+                   + DLRM_TIMED]
+    staged = [step.stage(b) for b in rest]
+    torch.cuda.synchronize()
+    times = _timed_steps_ms(step, staged)[DLRM_WARMUP:]
+    step_ms = float(np.median(times))
+    device_ms, busy = busy_share(lambda: step(staged[-1]), step_ms)
+    lookups = DLRM_BATCH * DLRM_CFG["n_fields"]
+    feed_data = batches[-DLRM_FEED_STEPS:]
+    loader = gdata.DataLoader(gdata.ArrayDataset(*(
+        np.stack([b[i] for b in feed_data]) for i in range(3))),
+        batch_size=1, shuffle=False)
+    def stage(b):
+        return step.stage(tuple(a.asnumpy()[0] for a in b))
+    # the feed's two parts alone, in this thread: the loader's batches,
+    # then staging them (closed by a synchronize)
+    t0 = time.perf_counter()
+    raw = list(loader)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / len(raw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in raw:
+        stage(b)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) * 1e3 / len(raw)
+    feed = DeviceFeed(loader, stage=stage)
+    leads, feed_losses, feed_times = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in feed:
+        leads.append(feed.lead)
+        feed_losses.append(step(s))
+        feed_times.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+    feed_ms = float(np.median(feed_times))
+    waits = np.asarray(feed.wait_us[:DLRM_FEED_STEPS]) / 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"17(c) DLRM one process, dense 13, 26 fields, dim 128, bottom "
+          f"512, top 1024, batch {DLRM_BATCH}, table {DLRM_VOCAB:,} x "
+          f"{DLRM_DIM} f32 ({DLRM_VOCAB * DLRM_DIM * 4 / 1e9:.2f} GB, filled "
+          f"on the card in {setup_s:.2f} s), SGD {DLRM_LR}: losses "
+          f"{[round(v, 5) for v in losses]}; {1e3 / step_ms:.1f} steps/s, "
+          f"{lookups * 1e3 / step_ms:,.0f} lookups/s, step median "
+          f"{step_ms:.3f} ms (host clock to a fetched loss; "
+          f"{DLRM_TIMED} steps after {DLRM_WARMUP}), device {device_ms:.3f} "
+          f"ms a step (torch.profiler), busy {busy:.3f}, peak memory "
+          f"{peak:.2f} GiB ({held:.2f} GiB of it held by earlier phases) on "
+          f"{smi}")
+    print(f"17(c) through DeviceFeed (depth {feed.depth}, stage = the copy "
+          f"to the card and the dedup there): {feed_ms:.3f} ms a step "
+          f"(median; each {[round(t, 2) for t in feed_times]}), wait "
+          f"p50 {np.percentile(waits, 50):.3f} ms, p99 "
+          f"{np.percentile(waits, 99):.3f} ms, lead {leads}; alone in one "
+          f"thread: the loader {loader_ms:.3f} ms a batch, staging "
+          f"{stage_ms:.3f} ms a batch; losses "
+          f"{[round(v, 5) for v in feed_losses]}")
+    ok = bool(np.isfinite(losses + feed_losses).all()) and \
+        len(feed_losses) == DLRM_FEED_STEPS
+    if not ok:
+        print("FAIL: 17(c): a loss is not finite or the feed fell short")
+    rec = {"step_ms": step_ms, "device_ms": device_ms, "busy": busy,
+           "peak_gib": peak, "held_gib": held, "feed_ms": feed_ms,
+           "loader_ms": loader_ms,
+           "stage_ms": stage_ms}
+    del table, step, staged, feed
+    torch.cuda.empty_cache()
+    return ref, rec, ok
+
+
+def dlrm_card_vs_cpu(seed: int, smi: str):
+    """17(c): the card against the port on the CPU at vocab 65,536, the
+    same widths and batch, four steps from the same host weights (TF32 is
+    off for products in the port): losses within TOL[f32] relative; the
+    table's and the MLP's updates within TOL[f32] of the CPU's
+    (:func:`_update_error`); the rows that moved are the rows the batches
+    touch, on both."""
+    rng = np.random.RandomState(seed + 171)
+    w0 = (rng.standard_normal((DLRM_CPU_VOCAB, DLRM_DIM)) *
+          DLRM_INIT_STD).astype(np.float32)
+    batches = dlrm_batches(seed, DLRM_CHECK_STEPS, DLRM_CPU_VOCAB)
+    touched = np.unique(np.concatenate([b[1].ravel() for b in batches]))
+    runs = []
+    for ctx in (gpu(0), cpu()):
+        table = ShardedEmbedding(DLRM_CPU_VOCAB, DLRM_DIM,
+                                 make_mesh({"tp": 1}, ctx=ctx), axis="tp",
+                                 weight=w0)
+        step = DLRMTrainStep(table, **DLRM_CFG, lr=DLRM_LR, seed=seed)
+        m0 = _mlp_host(step)
+        runs.append(([step(b) for b in batches], table.dense_weight(),
+                     _mlp_host(step), m0))
+    (lc, tc, mc, _), (lh, th, mh, m0) = runs
+    tol = TOL[torch.float32]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    table_err = _update_error(tc, th, w0)
+    mlp_err = max(_update_error(mc[k], mh[k], m0[k]) for k in mh)
+    moved = [np.array_equal(_moved_rows(t, w0), touched) for t in (tc, th)]
+    ok = loss_rel <= tol and table_err <= tol and mlp_err <= tol and \
+        all(moved)
+    print(f"17(c) card vs the port on the CPU, vocab {DLRM_CPU_VOCAB:,}, "
+          f"{DLRM_CHECK_STEPS} steps f32: losses rel {loss_rel:.3g}; "
+          f"updates (beyond {DLRM_CHECK_STEPS} ulps of the weight, of the "
+          f"largest update) table {table_err:.3g}, MLP {mlp_err:.3g} (tol "
+          f"{tol}); rows moved = the {touched.size:,} rows touched: card "
+          f"{moved[0]}, CPU {moved[1]} on {smi}")
+    if not ok:
+        print("FAIL: 17(c): the card's DLRM is not within tolerance of the "
+              "CPU's")
+    return ok
+
+
+def dlrm_worker(seed: int):
+    """17(d) on one rank of {"tp": 2}: each mode's four checked steps from
+    the seeded full-width table, its touched rows and its shard's
+    fingerprint, the exchange bytes, then timed steps; rank 0 saves."""
+    from mxnet_tpu_torch.parallel import collectives
+    mesh = make_mesh({"tp": RING_RANKS})
+    rank = collectives.rank()
+    batches = dlrm_batches(seed, DLRM_CHECK_STEPS + DLRM_DIST_TIMED)
+    ids = dlrm_check_ids(batches)
+    res, saved = {}, {}
+    for mode in ("replicated", "sharded"):
+        table, step = dlrm_step(mesh, seed, mode)
+        losses = [step(b) for b in batches[:DLRM_CHECK_STEPS]]
+        n_ids = DLRM_BATCH * DLRM_CFG["n_fields"]
+        want = [DLRM_CHECK_STEPS * v for v in table.exchange_cost_bytes(
+            n_ids, dispatch=(mode == "sharded"))]
+        saved[mode] = {"losses": losses, "mlp": _mlp_host(step),
+                       "rows": table.gather(ids).cpu()}
+        rec = {"mode": step.mode, "losses": losses,
+               "fp": _fingerprint([table.weight]).item(),
+               "exchange": dict(table.exchange_bytes),
+               "exchange_cost": {"dispatch": want[0], "return": want[1]}}
+        staged = [step.stage(b) for b in batches[DLRM_CHECK_STEPS:]]
+        collectives.barrier()
+        rec["step_ms"] = float(np.median(_timed_steps_ms(step, staged)[1:]))
+        res[mode] = rec
+        del table, step, staged
+        torch.cuda.empty_cache()
+    if rank == 0:
+        torch.save(saved, SLICE17_DIR / "dlrm.pt")
+    return res
+
+
+def slice17_worker(seed: int) -> int:
+    """One rank of phase 17's two-rank job (``chip_smoke.py
+    --slice17-worker``, started by ``mxnet_tpu_torch/tools/launch.py``):
+    17(b) and 17(d); prints one JSON line of its readings."""
+    from mxnet_tpu_torch.parallel import collectives
+    res = {"ring": ring_worker(seed), "dlrm": dlrm_worker(seed)}
+    res.update(rank=collectives.rank(), backend=collectives.backend())
+    os.write(1, (json.dumps(res) + "\n").encode())  # one write: shared pipe
+    collectives.barrier()
+    return 0
+
+
+def _ring_report(ranks, refs, smi):
+    ok = True
+    saved = torch.load(SLICE17_DIR / "ring.pt")
+    for dtype, shape in ((torch.bfloat16, RING_SHAPE),
+                         (torch.float32, RING_F32_SHAPE)):
+        tol = TOL[dtype]
+        for causal in (False, True):
+            err, rel = _dist(saved[str(dtype), causal], refs[dtype, causal])
+            print(f"17(b) {{\"sp\": {RING_RANKS}}} ring_self_attention at "
+                  f"{shape} {str(dtype).split('.')[-1]}, causal={causal}: "
+                  f"output and q, k, v gradients vs one process's K1-K3 "
+                  f"over the whole sequence: max |d| {err:.4g}; worst "
+                  f"tensor {rel:.3g} of its rows' max(max|ref|, RMS) "
+                  f"(tol {tol})")
+            if not rel <= tol:
+                ok = False
+                print("FAIL: 17(b): the ring is not within tolerance")
+    for rk in ranks:
+        r = rk["rank"]
+        for causal in (False, True):
+            c = rk["ring"]["launches"][str(causal)]
+            want = r + 1 if causal else RING_RANKS
+            got = [c["K1"], c["K2"], c["K3"]]
+            print(f"17(b) rank {r}, causal={causal}: K1/K2/K3 launches "
+                  f"{got} (expected {want} each)")
+            if got != [want] * 3:
+                ok = False
+                print("FAIL: 17(b): launches are not the ring's blocks")
+    ms = ranks[0]["ring"]["ms"]
+    print(f"17(b) rank 0 host ms a call at {RING_SHAPE} bf16 (S_local "
+          f"{RING_BLOCK[2]}): forward {ms['fwd_False']:.2f}, causal "
+          f"{ms['fwd_True']:.2f}; forward+backward {ms['fwd_bwd_False']:.2f},"
+          f" causal {ms['fwd_bwd_True']:.2f}; one staged ppermute of K/V "
+          f"({ranks[0]['ring']['ppermute_bytes'] / 1e6:.1f} MB) "
+          f"{ms['ppermute']:.2f}; staged {ranks[0]['ring']['host_staged']} "
+          f"(gloo, both ranks on one card) on {smi}")
+    return ok
+
+
+def _dlrm_report(ranks, ref, smi):
+    ok = True
+    saved = torch.load(SLICE17_DIR / "dlrm.pt")
+    tol = TOL[torch.float32]
+    rep = saved["replicated"]
+    same = rep["losses"] == ref["losses"] and all(
+        torch.equal(rep["mlp"][k], ref["mlp"][k]) for k in ref["mlp"]) and \
+        torch.equal(rep["rows"], ref["rows"]) and \
+        [rk["dlrm"]["replicated"]["fp"] for rk in ranks] == ref["fp"]
+    r0 = ranks[0]["dlrm"]
+    print(f"17(d) DLRM on {{\"tp\": {RING_RANKS}}}, the table vocab-sharded "
+          f"(block, {DLRM_VOCAB // RING_RANKS:,} rows a rank), replicated "
+          f"mode, {DLRM_CHECK_STEPS} steps: losses, MLP, {DLRM_CHECK_ROWS} "
+          f"touched rows and each shard's fingerprint bitwise the one-process"
+          f" run's: {same}; losses {[round(v, 5) for v in rep['losses']]}; "
+          f"step median {r0['replicated']['step_ms']:.2f} ms; exchange bytes "
+          f"{r0['replicated']['exchange']} vs exchange_cost_bytes "
+          f"{r0['replicated']['exchange_cost']} on {smi}")
+    if not same:
+        ok = False
+        print("FAIL: 17(d): the replicated mode is not bitwise one process")
+    sh = saved["sharded"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(sh["losses"],
+                                                       ref["losses"]))
+    par = max([_update_error(sh["mlp"][k], ref["mlp"][k], ref["mlp0"][k])
+               for k in ref["mlp"]] +
+              [_update_error(sh["rows"], ref["rows"], ref["rows0"])])
+    moved = [_moved_rows(r, ref["rows0"]).size == ref["rows0"].shape[0]
+             for r in (ref["rows"], sh["rows"])]
+    print(f"17(d) sharded mode (batch split, all_to_all dispatch): losses "
+          f"rel {loss_rel:.3g}, MLP and touched rows' updates {par:.3g} of "
+          f"the one-process run's (tol {tol}); every checked row moved: one "
+          f"process {moved[0]}, sharded {moved[1]}; "
+          f"step median {r0['sharded']['step_ms']:.2f} ms; exchange bytes "
+          f"{r0['sharded']['exchange']} vs exchange_cost_bytes "
+          f"{r0['sharded']['exchange_cost']}")
+    if not (loss_rel <= tol and par <= tol and all(moved) and
+            r0["sharded"]["mode"] == "sharded"):
+        ok = False
+        print("FAIL: 17(d): the sharded mode is not within tolerance")
+    for rk in ranks:
+        for mode in ("replicated", "sharded"):
+            d = rk["dlrm"][mode]
+            if d["exchange"] != d["exchange_cost"]:
+                ok = False
+                print(f"FAIL: 17(d): rank {rk['rank']} {mode}: the exchange "
+                      "counter is not exchange_cost_bytes")
+    return ok
+
+
+def thin_modules(smi: str):
+    """17(e): ``Features`` on the card and ``TensorInspector`` over a card
+    tensor."""
+    feats = runtime.Features()
+    x = torch.tensor([[1.0, -2.0], [float("nan"), float("inf")]],
+                     device=_dev())
+    ti = TensorInspector(x, tag="card")
+    checks = (ti.check_value("nan"), ti.check_value("abnormal"),
+              ti.check_value("negative"))
+    ok = feats.is_enabled("CUDA") and not feats.is_enabled("TPU") and \
+        feats.card == torch.cuda.get_device_name(0) and \
+        checks == ([(1, 0)], [(1, 0), (1, 1)], [(0, 1)])
+    print(f"17(e) Features: CUDA {feats.is_enabled('CUDA')}, CUDNN "
+          f"{feats.is_enabled('CUDNN')}, NCCL {feats.is_enabled('NCCL')}, "
+          f"TPU {feats.is_enabled('TPU')}, card {feats.card!r}; "
+          f"TensorInspector on a card tensor: nan {checks[0]}, abnormal "
+          f"{checks[1]}, negative {checks[2]} on {smi}")
+    if not ok:
+        print("FAIL: 17(e)")
+    return ok
+
+
+def phase_slice17(seed: int, smi: str):
+    """Phase 17: ring attention on K1-K3 over {"sp": 2}, DLRM at MLPerf's
+    widths on one process and vocab-sharded over two ranks, the thin
+    top-level modules."""
+    SLICE17_DIR.mkdir(parents=True, exist_ok=True)
+    t_phase = time.perf_counter()
+    blocks = ring_block_times(seed, smi)
+    refs, ok = ring_single(seed, smi)
+    ref, rec, ok_c = dlrm_one_process(seed, smi)
+    ok = ok_c and ok
+    ok = dlrm_card_vs_cpu(seed, smi) and ok
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, MXNET_DIST_TIMEOUT="300",
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    from mxnet_tpu_torch.tools import launch
+    proc = launch.run(RING_RANKS, SLICE17_WORKER + ["--seed", str(seed)],
+                      SLICE17_JOB_TIMEOUT, env)
+    ranks = _job_lines(proc, RING_RANKS, "phase 17's two-rank job")
+    print(f"17 job: backend {ranks[0]['backend']}")
+    ok = _ring_report(ranks, refs, smi) and ok
+    ok = _dlrm_report(ranks, ref, smi) and ok
+    ok = thin_modules(smi) and ok
+    shutil.rmtree(SLICE17_DIR, ignore_errors=True)
+    if not ok:
+        raise SystemExit("FAIL: phase 17")
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    per_rank = {k: sum(ranks[0]["ring"]["launches"][c][k]
+                       for c in ("False", "True")) for k in ("K1", "K2", "K3")}
+    return {"hand": per_rank, "blocks": blocks, "dlrm": rec}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dist-worker", action="store_true",
                     help="run as one rank of phase 16's training job")
+    ap.add_argument("--slice17-worker", action="store_true",
+                    help="run as one rank of phase 17's two-rank job")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -5704,6 +6350,8 @@ def main(argv=None) -> int:
         return 1
     if args.dist_worker:
         return dist_worker(args.seed)
+    if args.slice17_worker:
+        return slice17_worker(args.seed)
     smi = card()
     phase_environment(smi)
     record = phase_kernel(args.seed, smi)
@@ -5723,6 +6371,7 @@ def main(argv=None) -> int:
     util = phase_utilities(args.seed, smi, resnet, data)
     quant = phase_quantization(args.seed, smi, resnet, util)
     dist = phase_distributed(args.seed, smi)
+    s17 = phase_slice17(args.seed, smi)
     q_hand = {"int8_resnet": {k: quant["resnet"]["f32"]["hand"][k]
                               + quant["resnet"]["int8"]["hand"][k]
                               for k in ("K1", "K2", "K3", "K4", "K5")},
@@ -5730,7 +6379,9 @@ def main(argv=None) -> int:
               "kvstore_resnet": {k: sum(v["hand"][k] for v in
                                         quant["kvstore"].values())
                                  for k in ("K1", "K2", "K3", "K4", "K5")}}
-    d_hand = dist["hand"]          # per rank: K1-K3 on the paths of phase 16
+    # per rank: K1-K3 on the paths of phases 16 and 17 (rank 0)
+    d_hand = {**dist["hand"], "ring_attention": s17["hand"]}
+    ring = {c: s17["blocks"][c] for c in (False, True)}
     f16 = amp_rec["fp16"]
     amp_launches = {path: amp_rec[path]["launches"]
                     for path in ("amp_bf16", "amp_fp16")}
@@ -5762,7 +6413,9 @@ def main(argv=None) -> int:
              **{path: h["K1"] for path, h in q_hand.items()},
              **{path: h["K1"] for path, h in d_hand.items()}},
          "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"],
-                            gen["k1_max_abs_err"]),
+                            gen["k1_max_abs_err"],
+                            *(ring[c]["fwd"]["max_abs_err"]
+                              for c in (False, True))),
          "ms": r["ms"], "ms_strided": r["ms_strided"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -5787,6 +6440,11 @@ def main(argv=None) -> int:
          "bound_ms_fp16_training_shape": f16["training"]["fwd"]["bound_ms"],
          "library_ms_fp16_training_shape":
              f16["training"]["library_ms_fwd"],
+         "ring_block_shape": list(RING_BLOCK),
+         **{f"{key}_ring_block{'_causal' if c else ''}": ring[c]["fwd"][key]
+            for c in (False, True)
+            for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                        "library_ms", "max_abs_err")},
          "host_us": record["host_us"]["k1"],
          "entry_host_us": record["host_us"]["entry"],
          "library_host_us": record["host_us"]["sdpa"]}]
@@ -5815,7 +6473,9 @@ def main(argv=None) -> int:
                 "estimator_resnet": util["hand"][k],
                 **{path: h[k] for path, h in q_hand.items()},
                 **{path: h[k] for path, h in d_hand.items()}},
-            "max_abs_err": bwd[f"{name}_err"], "ms": t[name]["ms"],
+            "max_abs_err": max(bwd[f"{name}_err"], *(
+                ring[c][f"max_abs_err_{name}"] for c in (False, True))),
+            "ms": t[name]["ms"],
             "device_ms": t[name]["device_ms"],
             "plain_ms": t[name]["plain_ms"],
             "plain": f"{wrapper}_reference",
@@ -5834,6 +6494,14 @@ def main(argv=None) -> int:
             "bound_ms_serving_shape": sv[name]["bound_ms"],
             "library_ms_serving_shape": sv["library_ms"],
             "library_device_ms_serving_shape": sv["library_device_ms"],
+            "ring_block_shape": list(RING_BLOCK),
+            **{f"{key}_ring_block{'_causal' if c else ''}":
+               ring[c][name][key] for c in (False, True)
+               for key in ("ms", "device_ms", "plain_ms", "bound_ms")},
+            **{f"library_ms_ring_block{'_causal' if c else ''}":
+               ring[c]["library_device_ms"] for c in (False, True)},
+            **{f"max_abs_err_ring_block{'_causal' if c else ''}":
+               ring[c][f"max_abs_err_{name}"] for c in (False, True)},
             "max_abs_err_fp16": f16[f"{name}_err"],
             "ms_fp16": f16["training"][name]["device_ms"],
             "plain_ms_fp16": f16["training"][name]["plain_ms"],

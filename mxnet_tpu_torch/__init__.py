@@ -16,8 +16,12 @@ training utilities, ``operator`` (``nd.Custom``) and ``library`` the custom
 ops and external op libraries. ``contrib.quantization.quantize_net``
 converts a Gluon net to int8 inference; ``kvstore`` (``kv``) holds the
 KVStores, one-process and distributed, with gradient compression, and
-``parallel`` the meshes, collectives and ``ParallelTrainStep`` of jobs
-that ``tools/launch.py`` starts, one process a rank.
+``parallel`` the meshes, collectives, ``ParallelTrainStep`` and ring
+attention of jobs that ``tools/launch.py`` starts, one process a rank;
+``embedding`` the vocab-sharded tables and the DLRM step over them.
+``runtime``, ``error``, ``libinfo``, ``log``, ``registry``, ``resource``,
+``context``, ``tensor_inspector`` and ``util`` are the reference's thin
+top-level modules.
 """
 __version__ = "2.0.0"
 
@@ -41,13 +45,18 @@ from .optimizer import lr_scheduler
 from . import callback, library, metric, operator, visualization
 from . import contrib, kvstore
 from . import kvstore as kv
+from . import embedding
+from . import (context, error, libinfo, log, registry, resource, runtime,
+               tensor_inspector, util)
+from .tensor_inspector import TensorInspector
 
 library.initialize()   # fork handlers and the crash logger
 
 __all__ = ["Context", "MXNetError", "cpu", "gpu", "current_context",
-           "amp", "autograd", "base", "callback", "config", "contrib",
-           "engine", "gluon", "image", "init", "initializer", "io", "kv",
-           "kvstore", "library", "lr_scheduler",
-           "metric", "nd", "ndarray", "operator", "ops", "optimizer",
-           "parallel", "random", "recordio", "rtc", "serving",
-           "visualization"]
+           "amp", "autograd", "base", "callback", "config", "context",
+           "contrib", "embedding", "engine", "error", "gluon", "image",
+           "init", "initializer", "io", "kv", "kvstore", "libinfo",
+           "library", "log", "lr_scheduler", "metric", "nd", "ndarray",
+           "operator", "ops", "optimizer", "parallel", "random", "recordio",
+           "registry", "resource", "rtc", "runtime", "serving",
+           "tensor_inspector", "TensorInspector", "util", "visualization"]

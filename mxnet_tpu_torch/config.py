@@ -159,6 +159,25 @@ register("MXNET_KVSTORE_HEARTBEAT_INTERVAL", 5, int,
 register("MXNET_DIST_TIMEOUT", 300.0, float,
          "Seconds a collective of a multi-process job may wait for its "
          "peers before it fails (the process group's timeout).")
+register("MXNET_EMB_REPLICATE_MAX_BYTES", 1 << 20, int,
+         "Embedding planner: tables at or under this footprint are "
+         "replicated per shard instead of vocab-partitioned (a full copy "
+         "is cheaper than any exchange for small tables).")
+register("MXNET_EMB_ROWWISE_HOT_FRACTION", 0.25, float,
+         "Embedding planner: when a table's observed top-K hot rows take "
+         "at least this share of lookups, partition it row-wise (cyclic "
+         "layout), so a frequency-sorted vocab's hot head spreads across "
+         "shards.")
+register("MXNET_EMB_HOT_TOPK", 64, int,
+         "Embedding planner: K of the hot-row hit rate the row-wise "
+         "decision reads.")
+register("MXNET_EMB_HOTNESS_CAP", 1 << 16, int,
+         "Embedding planner: rows of the (frequency-sorted) vocab head the "
+         "HotnessTracker counts exactly; hits past it count toward the "
+         "total only.")
+register("MXNET_EMB_FEED_DEPTH", 2, int,
+         "DeviceFeed: staged-batch buffer depth (2 = double-buffered; the "
+         "stager runs at most this many batches ahead of the consumer).")
 
 # ---------------------------------------------------------------------------
 # flags that tune XLA in the JAX package: listed, not applicable

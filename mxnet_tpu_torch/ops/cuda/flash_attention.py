@@ -63,7 +63,7 @@ import torch
 from ...base import MXNetError
 from .. import _build
 
-__all__ = ["FlashAttention", "bind_fwd", "flash_attention",
+__all__ = ["FlashAttention", "bind_fwd", "block_ops", "flash_attention",
            "flash_attention_fwd", "flash_attention_fwd_reference",
            "tma_strides", "tma_addressable",
            "flash_attention_bwd",
@@ -416,6 +416,40 @@ def _on_cpu(*xs) -> bool:
     return all(x.device.type == "cpu" for x in xs)
 
 
+def _in_place(dout):
+    """The output gradient as K2 and K3 read it: as it is, unless TMA
+    cannot address it (an expanded one, with zero strides, as
+    ``out.sum().backward()`` gives), which is made contiguous first."""
+    return dout if tma_addressable(dout) else dout.contiguous()
+
+
+def _bwd_dq_in_place(q, k, v, out, dout, lse, sm_scale, causal):
+    return flash_attention_bwd_dq(q, k, v, out, _in_place(dout), lse,
+                                  sm_scale, causal)
+
+
+def _bwd_dkv_in_place(q, k, v, dout, lse, delta, sm_scale, causal):
+    return flash_attention_bwd_dkv(q, k, v, _in_place(dout), lse, delta,
+                                   sm_scale, causal)
+
+
+def block_ops(q):
+    """``(fwd, bwd_dq, bwd_dkv)`` for attention blocks of ``q``'s device
+    and head dim, with the signatures of K1's, K2's and K3's wrappers: the
+    kernels for CUDA tensors (which raise on what they do not take), the
+    plain versions for CPU tensors and for head dims outside (32, 64, 128),
+    which the kernels do not take (dense attention's arithmetic on every
+    device). On the kernel route the backward pair reads every operand in
+    place but an output gradient TMA cannot address, which it copies
+    contiguous first. :class:`FlashAttention` and the ring
+    (``parallel/ring_attention.py``) both dispatch through this."""
+    if _on_cpu(q) or q.shape[-1] not in _HEAD_DIMS:
+        return (flash_attention_fwd_reference,
+                flash_attention_bwd_dq_reference,
+                flash_attention_bwd_dkv_reference)
+    return flash_attention_fwd, _bwd_dq_in_place, _bwd_dkv_in_place
+
+
 class FlashAttention(torch.autograd.Function):
     """``FlashAttention.apply(q, k, v, sm_scale, causal)`` over (B, H, S, D)
     with Lq == Lk: the counterpart of the JAX package's ``_flash`` custom
@@ -423,17 +457,13 @@ class FlashAttention(torch.autograd.Function):
     saving (q, k, v, out, lse); backward K2 + K3 on the saved views and the
     output gradient as they are (a split QKV projection's views, K1's
     output and the transposed gradient a model hands back are all read in
-    place). The one copy: an output gradient TMA cannot address (an
-    expanded one, with zero strides, as ``out.sum().backward()`` gives) is
-    made contiguous first. CPU tensors take the plain versions in both
+    place; an output gradient TMA cannot address is copied, as
+    :func:`block_ops` says). CPU tensors take the plain versions in both
     directions; CUDA tensors take the kernels or raise."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale, causal):
-        if _on_cpu(q, k, v):
-            out, lse = flash_attention_fwd_reference(q, k, v, sm_scale, causal)
-        else:
-            out, lse = flash_attention_fwd(q, k, v, sm_scale, causal)
+        out, lse = block_ops(q)[0](q, k, v, sm_scale, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.sm_scale, ctx.causal = sm_scale, causal
         return out
@@ -441,13 +471,9 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if _on_cpu(q, k, v):
-            bwd = flash_attention_bwd_reference
-        else:
-            bwd = flash_attention_bwd
-            if not tma_addressable(dout):
-                dout = dout.contiguous()
-        dq, dk, dv = bwd(q, k, v, out, lse, dout, ctx.sm_scale, ctx.causal)
+        _, bwd_dq, bwd_dkv = block_ops(q)
+        dq, delta = bwd_dq(q, k, v, out, dout, lse, ctx.sm_scale, ctx.causal)
+        dk, dv = bwd_dkv(q, k, v, dout, lse, delta, ctx.sm_scale, ctx.causal)
         return dq, dk, dv, None, None
 
 

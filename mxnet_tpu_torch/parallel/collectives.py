@@ -58,7 +58,8 @@ __all__ = ["initialize_distributed", "backend", "device", "rank",
            "world_all_reduce", "world_all_gather", "world_broadcast",
            "all_reduce", "all_gather", "reduce_scatter", "ppermute",
            "all_to_all", "axis_index", "axis_size", "copy_to_axis",
-           "reduce_from_axis", "gather_from_axis", "host_staged",
+           "reduce_from_axis", "gather_from_axis", "scatter_to_axis",
+           "host_staged", "nccl_available",
            "batch_shard", "sharded_batch", "batch_sum", "tensor_parallel",
            "tensor_parallel_axis"]
 
@@ -142,6 +143,11 @@ def barrier():
     """Every rank waits for the others (the ps-lite Barrier)."""
     if num_workers() > 1:
         dist.barrier()
+
+
+def nccl_available() -> bool:
+    """Whether this PyTorch build has the NCCL backend."""
+    return dist.is_available() and dist.is_nccl_available()
 
 
 def host_staged() -> Dict[str, int]:
@@ -415,6 +421,19 @@ class _GatherFromAxis(torch.autograd.Function):
         return g.narrow(dim, index * n, n), None, None, None, None
 
 
+class _ScatterToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, index, n):
+        ctx.args = (group, dim)
+        return x.narrow(dim, index * (x.shape[dim] // n),
+                        x.shape[dim] // n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.args
+        return _gather(g, group, dim), None, None, None, None
+
+
 def all_reduce(x, axis_name, op: str = "sum", mesh=None):
     """All-reduce over a mesh axis: "sum", "mean", "max" or "min"."""
     _reduce_op(op)
@@ -495,6 +514,21 @@ def gather_from_axis(x, axis_name, dim: int = 0, batch_split: bool = False,
         return x
     return _GatherFromAxis.apply(x, group, dim % x.dim(), index,
                                  batch_split)
+
+
+def scatter_to_axis(x, axis_name, dim: int = 0, mesh=None):
+    """A tensor every rank of the axis holds whole, split for use: this
+    rank's 1/n along ``dim`` forward, the all_gather of the slices'
+    gradients backward (the transpose of :func:`gather_from_axis` when the
+    axis's ranks compute on the same data: every rank gets the whole
+    gradient)."""
+    group, n, index = _axis(axis_name, mesh)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise MXNetError(f"scatter_to_axis: dim {dim} ({x.shape[dim]}) is "
+                         f"not a multiple of the axis size {n}")
+    return _ScatterToAxis.apply(x, group, dim % x.dim(), index, n)
 
 
 # ---------------------------------------------------------------------------

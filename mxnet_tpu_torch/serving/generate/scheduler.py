@@ -411,6 +411,9 @@ class DecodeScheduler:
             t = self._thread
             if t is None or t.is_alive():
                 return
+            if self._state == _DRAINING and not self._waiting \
+                    and not self._active:
+                return      # drained: the worker left as stop() asked
             requeued = [s for s in self._active if s.state == _S_RUNNING]
             for seq in requeued:
                 self._active.remove(seq)

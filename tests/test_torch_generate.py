@@ -457,6 +457,30 @@ class _WorkerKilled(BaseException):
     not absorb it as a failed step)."""
 
 
+def test_drained_worker_exit_is_not_a_failover(engine, monkeypatch):
+    """A graceful stop drains the queue and the worker leaves; a monitor
+    poll that lands after the worker left and before the monitor is
+    stopped sees a dead worker while draining. It must not count a
+    failover or start a new worker (the poll is made at that moment)."""
+    sched = DecodeScheduler(engine, poll_s=60.0).start()
+    stream = sched.submit(PROMPTS[0], max_new_tokens=BUDGETS[0])
+    want = _serial_decode(engine, PROMPTS[0], BUDGETS[0], 96000)
+    assert stream.result(timeout=60) == want
+    stop_monitor = sched._monitor_stop.set
+    seen = {}
+
+    def poll_then_stop():
+        seen["alive"] = sched._thread.is_alive()
+        sched._check_worker()
+        stop_monitor()
+
+    monkeypatch.setattr(sched._monitor_stop, "set", poll_then_stop)
+    sched.stop()
+    assert seen == {"alive": False}
+    assert sched.failovers == 0 and sched.reports == []
+    assert sched.snapshot()["epoch"] == 1
+
+
 def test_decode_failover_requeues_without_dup_or_drop(engine, monkeypatch):
     """The worker dies once mid-run, inside a decode step; the monitor
     requeues its running sequences with pages, position and tokens intact

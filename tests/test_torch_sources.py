@@ -73,7 +73,8 @@ def test_build_targets_sm90a():
 
 @pytest.mark.parametrize(
     "path", KERNEL_WRAPPERS + [PKG / "ops" / "_build.py", PKG / "rtc.py",
-                               PKG / "ops" / "_nvrtc.py"],
+                               PKG / "ops" / "_nvrtc.py",
+                               PKG / "parallel" / "ring_attention.py"],
     ids=lambda p: p.name)
 def test_no_except_around_a_launch_or_build(path):
     """A CUDA tensor reaches its kernel or raises: no handler may catch a
@@ -252,7 +253,11 @@ CONTRIB_SLICE_MODULES = ["ops/contrib.py", "ndarray/contrib.py",
 @pytest.mark.parametrize("module", ["ops/random_ops.py", "ops/nn.py",
                                     "ops/tensor.py", "ops/elemwise.py",
                                     "gluon/nn/basic_layers.py",
-                                    "gluon/rnn/rnn_cell.py"]
+                                    "gluon/rnn/rnn_cell.py",
+                                    "embedding/table.py",
+                                    "embedding/planner.py",
+                                    "embedding/feed.py",
+                                    "embedding/workload.py", "resource.py"]
                          + CONTRIB_SLICE_MODULES)
 def test_every_draw_names_its_generator(module):
     """Every sampling call in the op, layer and data modules names its
@@ -580,24 +585,23 @@ def _calls(node, attr):
 
 
 def test_cuda_backward_computes_no_delta_and_copies_nothing_unconditionally():
-    """The CUDA branch of FlashAttention.backward (and the composed
-    backward it calls) computes no delta in Python and makes no
-    unconditional .contiguous(): the one copy is of an output gradient TMA
-    cannot address."""
+    """The CUDA route of FlashAttention.backward (the backward pair that
+    ``block_ops`` hands it, and the composed backward) computes no delta in
+    Python and makes no unconditional .contiguous(): the one copy is of an
+    output gradient TMA cannot address."""
     cls = _function("flash_attention.py", "FlashAttention")
     backward = next(f for f in cls.body if isinstance(f, ast.FunctionDef)
                     and f.name == "backward")
-    branch = next(n for n in ast.walk(backward) if isinstance(n, ast.If)
-                  and "_on_cpu" in ast.unparse(n.test))
-    cuda = ast.Module(body=branch.orelse, type_ignores=[])
-    guarded = [n for n in ast.walk(cuda) if isinstance(n, ast.If)
-               and ast.unparse(n.test) == "not tma_addressable(dout)"]
-    assert len(guarded) == 1 and \
-        ast.unparse(guarded[0].body[0]) == "dout = dout.contiguous()"
-    assert len(_calls(cuda, "contiguous")) == 1
-    composed = _function("flash_attention.py", "flash_attention_bwd")
-    for node in (cuda, composed):
-        assert not _calls(node, "contiguous") or node is cuda
+    assert "block_ops(q)" in ast.unparse(backward)
+    in_place = _function("flash_attention.py", "_in_place")
+    copy = next(n for n in ast.walk(in_place) if isinstance(n, ast.IfExp))
+    assert ast.unparse(copy) == \
+        "dout if tma_addressable(dout) else dout.contiguous()"
+    assert len(_calls(in_place, "contiguous")) == 1
+    route = [backward] + [_function("flash_attention.py", name) for name in (
+        "_bwd_dq_in_place", "_bwd_dkv_in_place", "flash_attention_bwd")]
+    for node in route:
+        assert not _calls(node, "contiguous")
         assert not _calls(node, "sum") and not _calls(node, "float")
         assert not any(isinstance(n, ast.BinOp) for n in ast.walk(node))
 
@@ -902,7 +906,7 @@ PORT_TESTS = sorted((ROOT / "tests").glob("test_torch_*.py")) + \
 #: the tape-aware collectives: each returns through its autograd Function
 TAPE_AWARE = ("all_reduce", "all_gather", "reduce_scatter", "ppermute",
               "all_to_all", "copy_to_axis", "reduce_from_axis",
-              "gather_from_axis")
+              "gather_from_axis", "scatter_to_axis")
 
 
 def _dist_uses(path):
@@ -1037,3 +1041,55 @@ def test_every_subprocess_has_a_timeout(path):
             assert any(k.arg == "timeout" for k in node.keywords), \
                 f"{path}:{node.lineno}: subprocess.{node.func.attr} " \
                 "without a timeout"
+
+
+# ---------------------------------------------------------------------------
+# ring attention, the embedding subsystem, the thin top-level modules
+# ---------------------------------------------------------------------------
+SLICE17_MODULES = ["parallel/ring_attention.py", "parallel/__init__.py",
+                   "embedding/__init__.py", "embedding/table.py",
+                   "embedding/planner.py", "embedding/feed.py",
+                   "embedding/workload.py", "gluon/model_zoo/dlrm.py",
+                   "runtime.py", "error.py", "libinfo.py", "log.py",
+                   "registry.py", "resource.py", "context.py",
+                   "tensor_inspector.py", "util.py", "contrib/autograd.py",
+                   "contrib/io.py", "contrib/ndarray.py"]
+
+
+@pytest.mark.parametrize("module", SLICE17_MODULES)
+def test_slice17_modules_are_guarded(module):
+    """Ring attention's, the embedding subsystem's, DLRM's and the thin
+    top-level modules are among the files the import guards read."""
+    assert PKG / module in PORT_FILES
+    test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
+
+
+def test_the_ring_runs_k1_to_k3_through_the_wrappers():
+    """Every block of the ring calls K1, K2 and K3 through
+    ``flash_attention.block_ops`` (the wrappers' module attributes, so
+    their launch counters move), the one place that picks the plain
+    versions by device and head dim for the ring and for FlashAttention,
+    with no handler anywhere in the ring's module."""
+    tree = _tree(PKG / "parallel" / "ring_attention.py")
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    named = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+             and isinstance(n.value, ast.Name) and n.value.id == "fa"}
+    assert "block_ops" in named
+    assert not {a for a in named if a.startswith("flash_attention_")
+                or a.startswith("_")}
+    fa_tree = _tree(PKG / "ops" / "cuda" / "flash_attention.py")
+    fn = next(n for n in fa_tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "block_ops")
+    called = {n.id for n in ast.walk(fn) if isinstance(n, ast.Name)}
+    assert {"flash_attention_fwd", "_bwd_dq_in_place", "_bwd_dkv_in_place",
+            "_on_cpu"} <= called
+    for name, kernel in (("_bwd_dq_in_place", "flash_attention_bwd_dq"),
+                         ("_bwd_dkv_in_place", "flash_attention_bwd_dkv")):
+        fn = next(n for n in fa_tree.body if isinstance(n, ast.FunctionDef)
+                  and n.name == name)
+        assert kernel in {n.id for n in ast.walk(fn)
+                          if isinstance(n, ast.Name)}
+    cls = next(n for n in fa_tree.body if isinstance(n, ast.ClassDef)
+               and n.name == "FlashAttention")
+    assert "block_ops" in {n.id for n in ast.walk(cls)
+                           if isinstance(n, ast.Name)}
