@@ -501,12 +501,46 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    ms and the exchange counters against ``exchange_cost_bytes``. (e)
    ``runtime.Features()`` lists CUDA and the card; ``TensorInspector`` on
    a card tensor.
-18. A JSON line with the kernels' numbers (``launches_by_path`` gains
+18. Training resilience (``mxnet_tpu_torch.resilience``) on BERT-base
+   through K1-K3. (a)-(d) and (f) run in one process started with
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` under
+   ``torch.use_deterministic_algorithms(True)`` (``chip_smoke.py
+   --slice18-worker det``), phase 4's step (bf16 over f32 masters, Adam,
+   dropout 0.1, 64 x 128, P = 19) under a ``RetryPolicy`` without backoff
+   sleeps, batches from a seeded shuffling DataLoader: (a) 8 steps, the
+   losses and a sha256 of every parameter and optimizer state; (b)
+   ``device_oom`` every 3rd attempt, a ``CheckpointManager`` (async, keep
+   2) saving the step, the random state and the DataLoader's position
+   every 2 steps, a simulated crash after step 5, a new step from other
+   weights, ``restore_latest`` (step 4) and on to step 8: losses and
+   digest bitwise (a)'s; (c) a ``NumericsGuard(check_every_n=4)`` with
+   ``nan_grad`` at step 3 (token batches: the loss is poisoned): bitwise
+   the run without that batch, one host read a verified window, the step
+   ms with and without the guard, the snapshots' bytes; (d) an injected
+   preemption notice after step 4: the flush within the deadline, the
+   marker, ``resume_info`` and a restore into a step of other weights,
+   on to step 8 bitwise (a)'s; (f) the checkpoint's bytes, a synchronous
+   save's ms and MB/s, the loop's blocked ms under async saves,
+   ``restore_latest``'s ms and the retry overhead a fault. K1-K3 launched
+   12 times a computed step. Then (a)'s first 3 steps twice in this
+   process without deterministic algorithms (bitwise or not, reported).
+   (e) a two-rank job (``--slice18-worker tp``, both ranks on the card
+   over gloo): BERT at full width with 2 layers on {"tp": 2}, a sharded
+   checkpoint after 3 steps (one shard file a rank), restored on one
+   process bitwise the job's gathered state, its next 2 steps held to the
+   job's within 4x a control (the row-parallel products split in two);
+   DLRM at MLPerf widths vocab-sharded (``sharded`` mode, 4 steps) under
+   ``retry=`` with ``emb_exchange`` every 2nd dispatch bitwise the run
+   without faults, its sharded checkpoint restored on one process bitwise
+   (each half's fingerprint, the MLP).
+19. A JSON line with the kernels' numbers (``launches_by_path`` gains
    ``int8_resnet``, ``int8_bert`` and ``kvstore_resnet`` (phase 15),
    ``dp_bert``, ``tp_bert`` and ``dist_trainer_bert``, counted on rank 0
-   (phase 16), and ``ring_attention`` (phase 17(b), rank 0), and K1-K3
-   gain their times at the ring's block), then the last line ``{"ok":
-   true, "device": {...}}``.
+   (phase 16), ``ring_attention`` (phase 17(b), rank 0) and
+   ``resilience_bert``, ``resilience_nondeterministic_check`` and
+   ``resilience_tp_bert`` (phase 18, the last on rank 0), and K1-K3 gain
+   their times at the ring's block), then the last line ``{"ok": true,
+   "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -6336,6 +6370,598 @@ def phase_slice17(seed: int, smi: str):
     return {"hand": per_rank, "blocks": blocks, "dlrm": rec}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training resilience on BERT-base
+# ---------------------------------------------------------------------------
+SLICE18_DIR = Path(__file__).resolve().parent / "build" / "phase_resilience"
+RES_STEPS = 8                  # (a)-(d): steps of the BERT-base run
+RES_CRASH_AFTER = 5            # (b): the process dies after this step
+RES_SAVE_EVERY = 2             # (b): a checkpoint every this many steps
+RES_NAN_AT = 3                 # (c): nan_grad injected at this step
+RES_CHECK_EVERY = 4            # (c): the guard's window
+RES_PREEMPT_AT = 4             # (d): the notice polled after this step
+RES_NONDET_STEPS = 3           # the check without deterministic algorithms
+RES_RETRY_TURNS = 3            # (f): clean and faulted steps, in turns
+RES_TP_LAYERS = 2              # (e): BERT at full width, 2 layers, tp=2
+RES_TP_STEPS, RES_TP_MORE = 3, 2
+RES_DLRM_STEPS = 4
+SLICE18_WORKER = [sys.executable, str(Path(__file__).resolve()),
+                  "--slice18-worker"]
+SLICE18_TIMEOUT = 600
+# cuBLAS keeps its reductions' order only with a fixed workspace; set
+# before the process's first cuBLAS handle
+RES_DET_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+
+def _res_step(named, seed, layers=None, mesh=None, tp=False):
+    """Phase 4's BERT-base step (bf16 over f32 masters, Adam, dropout 0.1)
+    under a RetryPolicy without backoff sleeps."""
+    from mxnet_tpu_torch.resilience import RetryPolicy
+    step = _bert_step(named, mesh or make_mesh({"dp": 1}), 0.1, "bfloat16",
+                      tp=tp, layers=layers, seed=seed)
+    step._retry = RetryPolicy(max_attempts=4, base_ms=0.0, seed=seed)
+    return step
+
+
+def _res_loader(host):
+    """A seeded shuffling DataLoader over the run's rows: each batch is
+    (tokens, token types, positions, MLM labels, NSP labels)."""
+    toks, (mlm, nsp), tt, pos = (a.reshape((-1,) + a.shape[2:])
+                                 if isinstance(a, np.ndarray) else
+                                 tuple(b.reshape((-1,) + b.shape[2:])
+                                       for b in a) for a in host)
+    return gdata.DataLoader(gdata.ArrayDataset(toks, tt, pos, mlm, nsp),
+                            batch_size=TRAIN_BATCH, shuffle=True)
+
+
+def _res_args(batch):
+    toks, tt, pos, mlm, nsp = (a._data for a in batch)
+    return toks, (mlm, nsp), tt, pos
+
+
+def _res_digest(step):
+    """sha256 over every parameter, aux state and optimizer state leaf of
+    ``step`` (its state_dict's arrays, in order)."""
+    import hashlib
+    st = step.state_dict()
+    h = hashlib.sha256()
+    for k in sorted(st["params"], key=lambda k: int(k[1:])):
+        h.update(st["params"][k].tobytes())
+    for j in sorted(st["opt"], key=lambda k: int(k[1:])):
+        for k in sorted(st["opt"][j], key=lambda k: int(k[1:])):
+            h.update(st["opt"][j][k].tobytes())
+    return h.hexdigest()
+
+
+def _res_other(named):
+    """Weights other than the run's (a restore must overwrite them)."""
+    return {k: v * np.float32(0.5) for k, v in named.items()}
+
+
+def _res_run(step, loader, n, start=0, after=None):
+    """Steps ``start + 1`` .. ``n`` from ``loader`` (``after(i)`` after
+    step i; True stops); the losses and each step's host ms."""
+    losses, ms = [], []
+    i = start
+    for b in loader:
+        i += 1
+        t0 = time.perf_counter()
+        losses.append(step(*_res_args(b)).item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if (after and after(i)) or i >= n:
+            break
+    return losses, ms
+
+
+def resilience_det(seed: int):
+    """18(a)-(d) and (f) in this process, which runs under
+    ``torch.use_deterministic_algorithms(True)`` with cuBLAS's workspace
+    fixed (``chip_smoke.py --slice18-worker det``); one JSON dict."""
+    from mxnet_tpu_torch.resilience import (CheckpointManager, NumericsGuard,
+                                            PreemptionGuard, faults)
+    torch.use_deterministic_algorithms(True)
+    named = seeded_bert_weights(BERTForPretraining(
+        bert_base(max_length=TRAIN_SEQ)), seed)
+    host = pretrain_batch(np.random.default_rng(seed + 18), RES_STEPS,
+                          TRAIN_BATCH, TRAIN_SEQ, TRAIN_P)
+    out, t_phase = {}, time.perf_counter()
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    computed = 0                        # steps whose compute ran
+
+    # (a) the uninterrupted control
+    random.seed(seed)
+    step = _res_step(named, seed)
+    want, ms_a = _res_run(step, _res_loader(host), RES_STEPS)
+    want_digest = _res_digest(step)
+    computed += RES_STEPS
+    out["layers"] = len(step._block.inner.backbone.encoder._layers)
+    out["a"] = {"losses": want, "digest": want_digest,
+                "step_ms": float(np.median(ms_a[1:]))}
+    del step
+    torch.cuda.empty_cache()
+
+    # (b) OOM every 3rd attempt, async checkpoints every 2 steps, a crash
+    # after step 5, a new step from other weights, restore_latest
+    d_b = SLICE18_DIR / "b"
+    random.seed(seed)
+    loader = _res_loader(host)
+    step = _res_step(named, seed)
+    cm = CheckpointManager(str(d_b), keep=2, async_save=True)
+    blocked, fault_ms, clean_ms = [], [], []
+
+    def save_every(i):
+        if i % RES_SAVE_EVERY == 0:
+            t0 = time.perf_counter()
+            cm.save(i, train_step=step, dataloader=loader)
+            blocked.append((time.perf_counter() - t0) * 1e3)
+        return False
+
+    got = []
+    with faults.inject("device_oom", every_n=3) as oom:
+        i = 0
+        for b in loader:
+            i += 1
+            fires = oom.fires
+            t0 = time.perf_counter()
+            got.append(step(*_res_args(b)).item())
+            (fault_ms if oom.fires > fires else clean_ms).append(
+                (time.perf_counter() - t0) * 1e3)
+            save_every(i)
+            if i == RES_CRASH_AFTER:
+                break
+        computed += RES_CRASH_AFTER
+        cm.wait()                 # the step-4 checkpoint has landed
+        crashed = False
+        try:
+            with faults.inject("crash", site="train_step", every_n=1,
+                               times=1):
+                step(*_res_args(next(iter(loader))))
+        except faults.SimulatedCrash:
+            crashed = True
+        del step, loader, cm
+        torch.cuda.empty_cache()
+        random.seed(seed + 99)            # the new process's own seed
+        loader = _res_loader(host)
+        step = _res_step(_res_other(named), seed + 99)
+        cm = CheckpointManager(str(d_b), keep=2, async_save=True)
+        t0 = time.perf_counter()
+        restored = cm.restore_latest(train_step=step, dataloader=loader)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        resumed_at = restored[0]
+        got = got[:resumed_at]
+        more, _ = _res_run(step, loader, RES_STEPS, start=resumed_at,
+                           after=save_every)
+        got += more
+        computed += RES_STEPS - resumed_at
+        cm.wait()
+    out["b"] = {"losses": got, "bitwise": got == want
+                and _res_digest(step) == want_digest, "crashed": crashed,
+                "resumed_at": resumed_at, "oom_fires": oom.fires,
+                "restore_ms": restore_ms, "ckpt_bytes": cm.last_save_bytes,
+                "async_blocked_ms": blocked,
+                "faulted_step_ms": fault_ms, "clean_step_ms": clean_ms}
+    # (f) one synchronous save of the same state; then a fault's retry
+    # cost with no writer running: steps in turns clean and with one
+    # device_oom, each synchronized
+    cm_sync = CheckpointManager(str(SLICE18_DIR / "f"), keep=1)
+    t0 = time.perf_counter()
+    cm_sync.save(RES_STEPS, train_step=step, dataloader=loader)
+    sync_s = time.perf_counter() - t0
+    turns = {False: [], True: []}
+    for k in range(2 * RES_RETRY_TURNS):
+        faulty = bool(k % 2)
+        with faults.inject("device_oom", every_n=1,
+                           times=1 if faulty else 0):
+            t0 = time.perf_counter()
+            step(*_at(host, 0))
+            torch.cuda.synchronize()
+            turns[faulty].append((time.perf_counter() - t0) * 1e3)
+    computed += 2 * RES_RETRY_TURNS
+    out["f"] = {"sync_save_ms": sync_s * 1e3,
+                "sync_mb_s": cm_sync.last_save_bytes / 1e6 / sync_s,
+                "ckpt_bytes": cm_sync.last_save_bytes,
+                "retry_overhead_ms": float(np.median(turns[True])
+                                           - np.median(turns[False])),
+                "step_ms_turns": turns[False], "faulted_ms_turns":
+                turns[True]}
+    del step, loader, cm, cm_sync
+    shutil.rmtree(d_b, ignore_errors=True)
+    shutil.rmtree(SLICE18_DIR / "f", ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) NumericsGuard, nan_grad at step 3: bitwise the run without it
+    placed = [_at(host, i) for i in range(RES_STEPS)]
+    step = _res_step(named, seed)
+    guard = NumericsGuard(check_every_n=RES_CHECK_EVERY, policy="skip")
+    guard.attach(step)
+    ms_c = []
+    with faults.inject("nan_grad", at=(RES_NAN_AT,)):
+        for i in range(RES_STEPS):
+            t0 = time.perf_counter()
+            step(*placed[i])
+            torch.cuda.synchronize()
+            ms_c.append((time.perf_counter() - t0) * 1e3)
+    guard.finalize()
+    snap_bytes = guard.snapshot_bytes()
+    digest_c = _res_digest(step)
+    computed += RES_STEPS + RES_STEPS - guard.skipped_steps
+    boundaries = guard.checks["clean"] + guard.checks["anomaly"]
+    out["c"] = {"skipped": guard.skipped_steps,
+                "anomaly": guard.last_anomaly, "host_reads": guard.host_reads,
+                "boundaries": boundaries, "recoveries": guard.recoveries,
+                "snapshot_bytes": snap_bytes,
+                "guarded_step_ms": float(np.median(
+                    [m for i, m in enumerate(ms_c)
+                     if (i + 1) % RES_CHECK_EVERY])),
+                "boundary_ms": [m for i, m in enumerate(ms_c)
+                                if (i + 1) % RES_CHECK_EVERY == 0]}
+    del step, guard
+    torch.cuda.empty_cache()
+    step = _res_step(named, seed)
+    ms_o = []
+    for i in range(RES_STEPS):
+        if i == RES_NAN_AT - 1:
+            continue
+        t0 = time.perf_counter()
+        step(*placed[i])
+        torch.cuda.synchronize()
+        ms_o.append((time.perf_counter() - t0) * 1e3)
+    computed += RES_STEPS - 1
+    out["c"]["bitwise"] = _res_digest(step) == digest_c
+    out["c"]["unguarded_step_ms"] = float(np.median(ms_o[1:]))
+    del step, placed
+    torch.cuda.empty_cache()
+
+    # (d) an injected preemption notice at step 4, the flush, the marker,
+    # then a new step from other weights resumes
+    d_d = SLICE18_DIR / "d"
+    random.seed(seed)
+    loader = _res_loader(host)
+    step = _res_step(named, seed)
+    cm = CheckpointManager(str(d_d), keep=2, async_save=True)
+    pg = PreemptionGuard(cm, capture=dict(train_step=step,
+                                          dataloader=loader))
+    with pg, faults.inject("preempt", at=(RES_PREEMPT_AT,)):
+        got, _ = _res_run(step, loader, RES_STEPS,
+                          after=lambda i: pg.should_stop(i))
+    computed += len(got)
+    flush = dict(pg.last_flush)
+    del step, loader, cm, pg
+    torch.cuda.empty_cache()
+    cm = CheckpointManager(str(d_d), keep=2)
+    info = PreemptionGuard.resume_info(cm)
+    random.seed(seed + 7)
+    loader = _res_loader(host)
+    step = _res_step(_res_other(named), seed + 7)
+    restored = cm.restore_latest(train_step=step, dataloader=loader)
+    more, _ = _res_run(step, loader, RES_STEPS, start=restored[0])
+    computed += len(more)
+    got += more
+    out["d"] = {"losses": got, "bitwise": got == want
+                and _res_digest(step) == want_digest, "flush": flush,
+                "marker": info, "resumed_at": restored[0]}
+    del step, loader, cm
+    shutil.rmtree(d_d, ignore_errors=True)
+    torch.cuda.synchronize()
+    out["launches"] = {"K1": fa.launches, "K2": fa.launches_dq,
+                       "K3": fa.launches_dkv}
+    out["computed_steps"] = computed
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def resilience_tp(seed: int):
+    """18(e) on one rank of {"tp": 2} (``chip_smoke.py --slice18-worker
+    tp``): the 2-layer BERT's sharded checkpoint after 3 steps and 2 more
+    steps; DLRM at MLPerf widths vocab-sharded, without and with
+    ``emb_exchange`` every 2nd dispatch under ``retry=``, and its sharded
+    checkpoint. Rank 0 writes the gathered states."""
+    from mxnet_tpu_torch.parallel import collectives
+    from mxnet_tpu_torch.resilience import (CheckpointManager, RetryPolicy,
+                                            faults)
+    mesh = make_mesh({"tp": 2})
+    rank = collectives.rank()
+    named = _res_layers(seeded_bert_weights(BERTForPretraining(
+        bert_base(max_length=TRAIN_SEQ)), seed))
+    batches = _bert_batches(seed, RES_TP_STEPS + RES_TP_MORE)
+    step = _res_step(named, seed, layers=RES_TP_LAYERS, mesh=mesh, tp=True)
+    placed = step.place_batch_n(*batches)
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    losses = _run_steps(step, placed, RES_TP_STEPS)
+    cm = CheckpointManager(str(SLICE18_DIR / "tp"), keep=1)
+    t0 = time.perf_counter()
+    cm.save(RES_TP_STEPS, train_step=step, sharded=True)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    state = step.state_dict()
+    if rank == 0:
+        np.savez(SLICE18_DIR / "tp_state.npz", **_res_flat(state))
+    for i in range(RES_TP_STEPS, RES_TP_STEPS + RES_TP_MORE):
+        losses.append(step(*_at(placed, i)).item())
+    counts = {"K1": fa.launches, "K2": fa.launches_dq, "K3": fa.launches_dkv}
+    full = _host_params(step, gathered=True)
+    if rank == 0:
+        torch.save(full, SLICE18_DIR / "tp_after.pt")
+    res = {"bert": {"losses": losses, "launches": counts,
+                    "steps": RES_TP_STEPS + RES_TP_MORE,
+                    "shard_save_ms": save_ms,
+                    "ckpt_bytes": cm.last_save_bytes}}
+    del step, placed, state, full
+    torch.cuda.empty_cache()
+
+    dl = dlrm_batches(seed, RES_DLRM_STEPS)
+    runs = []
+    for faulty in (False, True):
+        table, st = dlrm_step(mesh, seed, "sharded")
+        st._retry = RetryPolicy(max_attempts=3, base_ms=0.0, seed=seed)
+        with faults.inject("emb_exchange", every_n=2 if faulty else 10 ** 9
+                           ) as inj:
+            dl_losses = [st(b) for b in dl]
+        runs.append({"losses": dl_losses, "fires": inj.fires,
+                     "fp": _fingerprint([table.weight]).item(),
+                     "mlp": _mlp_host(st)})
+        if faulty:
+            cm = CheckpointManager(str(SLICE18_DIR / "dlrm"), keep=1,
+                                   fsync=False)
+            t0 = time.perf_counter()
+            cm.save(RES_DLRM_STEPS, train_step=st, sharded=True)
+            dl_save_ms = (time.perf_counter() - t0) * 1e3
+            if rank == 0:
+                torch.save(runs[-1]["mlp"], SLICE18_DIR / "dlrm_mlp.pt")
+        del table, st
+        torch.cuda.empty_cache()
+    plain, faulty = runs
+    res["dlrm"] = {"losses": faulty["losses"], "fires": faulty["fires"],
+                   "fp": faulty["fp"],
+                   "retry_bitwise": plain["losses"] == faulty["losses"]
+                   and plain["fp"] == faulty["fp"]
+                   and all(torch.equal(plain["mlp"][k], faulty["mlp"][k])
+                           for k in plain["mlp"]),
+                   "shard_save_ms": dl_save_ms,
+                   "ckpt_bytes": cm.last_save_bytes}
+    return res
+
+
+def _res_layers(named):
+    """The weights of a RES_TP_LAYERS-layer BERT at full width."""
+    return {k: v for k, v in named.items()
+            if not k.startswith("backbone.encoder.layer")
+            or int(k.split(".")[2][len("layer"):]) < RES_TP_LAYERS}
+
+
+def _res_flat(state):
+    out = {f"params_{k}": v for k, v in state["params"].items()}
+    for j, leaves in state["opt"].items():
+        out.update({f"opt_{j}_{k}": v for k, v in leaves.items()})
+    return out
+
+
+def slice18_worker(mode: str, seed: int) -> int:
+    """Phase 18's subprocesses: ``det`` (18(a)-(d), (f)) alone, ``tp`` one
+    rank of 18(e)'s two-rank job; one JSON line."""
+    if mode == "det":
+        res = resilience_det(seed)
+        os.write(1, (json.dumps(res) + "\n").encode())
+        return 0
+    from mxnet_tpu_torch.parallel import collectives
+    res = resilience_tp(seed)
+    res.update(rank=collectives.rank(), backend=collectives.backend())
+    os.write(1, (json.dumps(res) + "\n").encode())  # one write: shared pipe
+    collectives.barrier()
+    return 0
+
+
+def _res_nondeterministic(seed: int):
+    """(a)'s control twice for RES_NONDET_STEPS steps in this process,
+    without deterministic algorithms: bitwise or not (reported)."""
+    named = seeded_bert_weights(BERTForPretraining(
+        bert_base(max_length=TRAIN_SEQ)), seed)
+    host = pretrain_batch(np.random.default_rng(seed + 18), RES_STEPS,
+                          TRAIN_BATCH, TRAIN_SEQ, TRAIN_P)
+    runs = []
+    for _ in range(2):
+        random.seed(seed)
+        step = _res_step(named, seed)
+        losses, _ = _res_run(step, _res_loader(host), RES_NONDET_STEPS)
+        runs.append((losses, _res_digest(step)))
+        del step
+        torch.cuda.empty_cache()
+    return runs[0] == runs[1]
+
+
+def _res_tp_report(ranks, seed, smi):
+    """18(e) in this process: the two-rank checkpoints restored on one
+    process against the job's states."""
+    from mxnet_tpu_torch.resilience import CheckpointManager
+    ok = True
+    r0 = ranks[0]
+    d = SLICE18_DIR / "tp" / f"ckpt-{RES_TP_STEPS:08d}"
+    shards = sorted(f for f in os.listdir(d) if f.startswith("shard-"))
+    named = _res_layers(seeded_bert_weights(BERTForPretraining(
+        bert_base(max_length=TRAIN_SEQ)), seed))
+    batches = _bert_batches(seed, RES_TP_STEPS + RES_TP_MORE)
+    want = dict(np.load(SLICE18_DIR / "tp_state.npz"))
+    cm = CheckpointManager(str(SLICE18_DIR / "tp"))
+    conts = []
+    for control in (False, True):
+        step = _res_step(_res_other(named), seed + 3, layers=RES_TP_LAYERS)
+        t0 = time.perf_counter()
+        cm.restore_latest(train_step=step)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if not control:
+            got = _res_flat(step.state_dict())
+            same = sorted(got) == sorted(want) and all(
+                np.array_equal(got[k], want[k]) for k in want)
+        handles = _row_split_hooks(step._block) if control else []
+        placed = step.place_batch_n(*batches)
+        losses = [step(*_at(placed, i)).item() for i in
+                  range(RES_TP_STEPS, RES_TP_STEPS + RES_TP_MORE)]
+        for h in handles:
+            h.remove()
+        conts.append((losses, _host_params(step)))
+        del step, placed
+        torch.cuda.empty_cache()
+    job = torch.load(SLICE18_DIR / "tp_after.pt")
+    job_losses = r0["bert"]["losses"][RES_TP_STEPS:]
+    control = _bert_distance(conts[1][0], conts[1][1], conts[0][0],
+                             conts[0][1], TRAIN_LR)
+    limit = _limits(control)
+    reading = _bert_distance(job_losses, job, conts[0][0], conts[0][1],
+                             TRAIN_LR)
+    b = r0["bert"]
+    exp = RES_TP_LAYERS * b["steps"]
+    print(f"18(e) BERT full width, {RES_TP_LAYERS} layers, {{\"tp\": 2}} "
+          f"(two ranks on one card over {r0['backend']}): sharded save after "
+          f"{RES_TP_STEPS} steps {shards} ({b['ckpt_bytes']} B, "
+          f"{b['shard_save_ms']:.1f} ms on rank 0); restored on one process "
+          f"in {restore_ms:.1f} ms, bitwise the job's gathered state: "
+          f"{same}; the next {RES_TP_MORE} steps vs the job's: reading "
+          f"{json.dumps(reading)}, control (row-parallel products split in "
+          f"two) {json.dumps(control)}, limit {json.dumps(limit)}; K1-K3 "
+          f"launches a rank {[rk['bert']['launches'] for rk in ranks]} "
+          f"(expected {exp} each) on {smi}")
+    if shards != ["shard-00000.npz", "shard-00001.npz"] or not same:
+        ok = False
+        print("FAIL: 18(e) the sharded BERT checkpoint")
+    if not _within(reading, limit):
+        ok = False
+        print("FAIL: 18(e) the restored run is beyond its control's limit")
+    if any(n != exp for rk in ranks for n in rk["bert"]["launches"].values()):
+        ok = False
+        print("FAIL: 18(e) K1-K3 launches do not match one a layer-step")
+
+    dl = [rk["dlrm"] for rk in ranks]
+    d = SLICE18_DIR / "dlrm" / f"ckpt-{RES_DLRM_STEPS:08d}"
+    shards = sorted(f for f in os.listdir(d) if f.startswith("shard-"))
+    one = make_mesh({"tp": 1})
+    table = ShardedEmbedding(DLRM_VOCAB, DLRM_DIM, one, axis="tp")
+    step = DLRMTrainStep(table, **DLRM_CFG, lr=DLRM_LR, seed=seed + 1)
+    t0 = time.perf_counter()
+    CheckpointManager(str(SLICE18_DIR / "dlrm")).restore_latest(
+        train_step=step)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    halves = _halves_fp(table.weight)
+    mlp = torch.load(SLICE18_DIR / "dlrm_mlp.pt")
+    same = halves == [x["fp"] for x in dl] and all(
+        torch.equal(v.cpu(), mlp[k]) for k, v in step.mlp.items())
+    print(f"18(e) DLRM at MLPerf widths vocab-sharded over 2 ranks "
+          f"(sharded mode, {RES_DLRM_STEPS} steps): emb_exchange every 2nd "
+          f"dispatch under retry= ({[x['fires'] for x in dl]} fires) bitwise "
+          f"the run without faults: {[x['retry_bitwise'] for x in dl]}; "
+          f"sharded save {shards} ({dl[0]['ckpt_bytes']} B, "
+          f"{dl[0]['shard_save_ms']:.1f} ms on rank 0, no fsync), restored "
+          f"on one process in {restore_ms:.1f} ms, bitwise (each half's "
+          f"fingerprint, the MLP): {same} on {smi}")
+    if shards != ["shard-00000.npz", "shard-00001.npz"] or not same \
+            or not all(x["retry_bitwise"] for x in dl):
+        ok = False
+        print("FAIL: 18(e) DLRM")
+    del table, step
+    torch.cuda.empty_cache()
+    return ok
+
+
+def phase_resilience(seed: int, smi: str):
+    """Phase 18: training resilience on BERT-base through K1-K3."""
+    shutil.rmtree(SLICE18_DIR, ignore_errors=True)
+    SLICE18_DIR.mkdir(parents=True, exist_ok=True)
+    t_phase = time.perf_counter()
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, **RES_DET_ENV, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    proc = subprocess.run(SLICE18_WORKER + ["det", "--seed", str(seed)],
+                          env=env, capture_output=True, text=True,
+                          timeout=SLICE18_TIMEOUT)
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:])
+        print(proc.stderr[-6000:])
+        raise SystemExit(f"FAIL: 18(a)-(d) exited {proc.returncode}")
+    det = json.loads([ln for ln in proc.stdout.splitlines()
+                      if ln.startswith("{")][-1])
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    nondet = _res_nondeterministic(seed)
+    nondet_counts = {"K1": fa.launches, "K2": fa.launches_dq,
+                     "K3": fa.launches_dkv}
+    env = dict(env, MXNET_DIST_TIMEOUT="300")
+    from mxnet_tpu_torch.tools import launch
+    job = launch.run(2, SLICE18_WORKER + ["tp", "--seed", str(seed)],
+                     SLICE18_TIMEOUT, env)
+    ranks = _job_lines(job, 2, "phase 18's two-rank job")
+    ok = True
+    a, b, c, d, f = (det[k] for k in "abcdf")
+    exp = det["layers"] * det["computed_steps"]
+    print(f"18 in a process under torch.use_deterministic_algorithms(True) "
+          f"and CUBLAS_WORKSPACE_CONFIG={RES_DET_ENV['CUBLAS_WORKSPACE_CONFIG']}"
+          f" ({det['seconds']:.1f} s): BERT-base bf16 over f32 masters, "
+          f"Adam, dropout 0.1, {TRAIN_BATCH} x {TRAIN_SEQ} (P = {TRAIN_P}) "
+          f"from a seeded shuffling DataLoader; K1-K3 launches "
+          f"{det['launches']} (expected {det['layers']} x "
+          f"{det['computed_steps']} computed steps = {exp} each)")
+    print(f"18(a) control: {RES_STEPS} steps, losses "
+          f"{[round(v, 5) for v in a['losses']]}, step median "
+          f"{a['step_ms']:.1f} ms (host clock to a fetched loss) on {smi}")
+    print(f"18(b) device_oom every 3rd attempt ({b['oom_fires']} fires), "
+          f"async checkpoints every {RES_SAVE_EVERY} steps (keep 2), a crash "
+          f"after step {RES_CRASH_AFTER} (raised: {b['crashed']}), a new "
+          f"step from other weights restored at step {b['resumed_at']} and "
+          f"run to {RES_STEPS}: losses and every parameter and state "
+          f"bitwise (a)'s: {b['bitwise']}")
+    print(f"18(c) NumericsGuard(check_every_n={RES_CHECK_EVERY}), nan_grad "
+          f"at step {RES_NAN_AT}: {c['skipped']} step skipped "
+          f"({c['anomaly']['kind']} at t={c['anomaly']['t']}, "
+          f"{c['anomaly']['action']}), bitwise the run without that batch: "
+          f"{c['bitwise']}; {c['host_reads']} host reads of the health "
+          f"scalars over {c['boundaries']} verified window(s) and "
+          f"{c['recoveries']} recovery (one a verified window, one a "
+          f"replay); step median {c['guarded_step_ms']:.1f}"
+          f" ms guarded vs {c['unguarded_step_ms']:.1f} ms without "
+          f"(synchronized each step), boundary steps "
+          f"{[round(x, 1) for x in c['boundary_ms']]} ms (the last replays "
+          f"{RES_STEPS - 1} steps); snapshots on the card "
+          f"{c['snapshot_bytes']} B on {smi}")
+    fl = d["flush"]
+    print(f"18(d) preemption notice after step {RES_PREEMPT_AT}: flush "
+          f"{fl['flush_elapsed_s']:.3f} s of a {fl['deadline_s']} s deadline "
+          f"(saved {fl['saved']}, within {fl['within_deadline']}), marker "
+          f"step {d['marker'] and d['marker']['step']}; resumed at step "
+          f"{d['resumed_at']} from other weights, bitwise (a)'s: "
+          f"{d['bitwise']} on {smi}")
+    blocked = b["async_blocked_ms"]
+    print(f"18(f) checkpoint {f['ckpt_bytes']} B; sync save "
+          f"{f['sync_save_ms']:.1f} ms ({f['sync_mb_s']:.0f} MB/s, fsync, "
+          f"sha256 manifest); the loop blocked under an async save "
+          f"{[round(x, 1) for x in blocked]} ms; restore_latest "
+          f"{b['restore_ms']:.1f} ms; retry overhead a fault "
+          f"{f['retry_overhead_ms']:.2f} ms (median of {RES_RETRY_TURNS} "
+          f"steps with one device_oom less {RES_RETRY_TURNS} without, "
+          f"synchronized, no writer running, no backoff sleep; clean "
+          f"{[round(x, 1) for x in f['step_ms_turns']]} ms, faulted "
+          f"{[round(x, 1) for x in f['faulted_ms_turns']]}); guard "
+          f"snapshots {c['snapshot_bytes']} B on {smi}")
+    print(f"18 without deterministic algorithms (this process): "
+          f"{RES_NONDET_STEPS} steps of (a) twice bitwise: {nondet}")
+    for what, good in (("(b)", b["bitwise"] and b["crashed"]
+                        and b["resumed_at"] == 4),
+                       ("(c)", c["bitwise"] and c["skipped"] == 1
+                        and c["host_reads"] <= c["boundaries"]
+                        + c["recoveries"]),
+                       ("(d)", d["bitwise"] and fl["saved"]
+                        and fl["within_deadline"] and d["marker"]
+                        and d["marker"]["step"] == RES_PREEMPT_AT),
+                       ("launches", all(n == exp for n in
+                                        det["launches"].values()))):
+        if not good:
+            ok = False
+            print(f"FAIL: 18{what}")
+    ok = _res_tp_report(ranks, seed, smi) and ok
+    shutil.rmtree(SLICE18_DIR, ignore_errors=True)
+    if not ok:
+        raise SystemExit("FAIL: phase 18")
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return {"det": det["launches"], "nondet": nondet_counts,
+            "tp": ranks[0]["bert"]["launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6343,6 +6969,9 @@ def main(argv=None) -> int:
                     help="run as one rank of phase 16's training job")
     ap.add_argument("--slice17-worker", action="store_true",
                     help="run as one rank of phase 17's two-rank job")
+    ap.add_argument("--slice18-worker", choices=("det", "tp"),
+                    help="run as phase 18's deterministic process (det) or "
+                         "one rank of its two-rank job (tp)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -6352,6 +6981,8 @@ def main(argv=None) -> int:
         return dist_worker(args.seed)
     if args.slice17_worker:
         return slice17_worker(args.seed)
+    if args.slice18_worker:
+        return slice18_worker(args.slice18_worker, args.seed)
     smi = card()
     phase_environment(smi)
     record = phase_kernel(args.seed, smi)
@@ -6372,6 +7003,7 @@ def main(argv=None) -> int:
     quant = phase_quantization(args.seed, smi, resnet, util)
     dist = phase_distributed(args.seed, smi)
     s17 = phase_slice17(args.seed, smi)
+    s18 = phase_resilience(args.seed, smi)
     q_hand = {"int8_resnet": {k: quant["resnet"]["f32"]["hand"][k]
                               + quant["resnet"]["int8"]["hand"][k]
                               for k in ("K1", "K2", "K3", "K4", "K5")},
@@ -6379,8 +7011,12 @@ def main(argv=None) -> int:
               "kvstore_resnet": {k: sum(v["hand"][k] for v in
                                         quant["kvstore"].values())
                                  for k in ("K1", "K2", "K3", "K4", "K5")}}
-    # per rank: K1-K3 on the paths of phases 16 and 17 (rank 0)
-    d_hand = {**dist["hand"], "ring_attention": s17["hand"]}
+    # per rank: K1-K3 on the paths of phases 16, 17 and 18 (rank 0), and
+    # phase 18's one-process paths
+    d_hand = {**dist["hand"], "ring_attention": s17["hand"],
+              "resilience_bert": s18["det"],
+              "resilience_nondeterministic_check": s18["nondet"],
+              "resilience_tp_bert": s18["tp"]}
     ring = {c: s17["blocks"][c] for c in (False, True)}
     f16 = amp_rec["fp16"]
     amp_launches = {path: amp_rec[path]["launches"]

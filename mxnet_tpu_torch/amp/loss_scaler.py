@@ -8,9 +8,12 @@ The overflow check is one on-device finite flag over every gradient:
 multi-tensor call (a NaN or an inf anywhere makes its norm non-finite) and
 reduces them to one boolean on the device, without reading it;
 ``wait_and_update`` reads it, the one host synchronisation of the check.
-``observe_finite_flag`` adopts a flag the caller computed itself.
+``observe_finite_flag`` adopts a flag the caller computed itself: a
+``resilience.NumericsGuard`` given ``loss_scaler=`` hands it the finite
+flag its train step computes anyway, so no second reduction runs.
 ``state_dict``/``load_state_dict`` carry the scale and the good-step
-counter, so a resumed run keeps its place in the scale window.
+counter, so a resumed run keeps its place in the scale window
+(``resilience.CheckpointManager.save(step, loss_scaler=...)``).
 """
 from __future__ import annotations
 

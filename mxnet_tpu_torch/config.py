@@ -179,6 +179,105 @@ register("MXNET_EMB_FEED_DEPTH", 2, int,
          "DeviceFeed: staged-batch buffer depth (2 = double-buffered; the "
          "stager runs at most this many batches ahead of the consumer).")
 
+# resilience (CheckpointManager, PreemptionGuard, RetryPolicy, Watchdog,
+# CircuitBreaker, NumericsGuard): the reference's names, defaults and types
+register("MXNET_CKPT_KEEP", 3, int,
+         "CheckpointManager: newest checkpoints retained after each save "
+         "(the corrupt-fallback chain depth); 0 disables rotation.")
+register("MXNET_CKPT_ASYNC", False, bool,
+         "CheckpointManager default: snapshot synchronously but write/fsync "
+         "in a background thread, overlapping checkpoint IO with compute "
+         "(wait() joins and surfaces write errors).")
+register("MXNET_CKPT_WAIT_TIMEOUT_S", 120.0, float,
+         "CheckpointManager.wait()/save() bound on joining an outstanding "
+         "async checkpoint write; past it wait() raises instead of hanging "
+         "shutdown behind a wedged writer (<= 0 = unbounded).")
+register("MXNET_PREEMPT_DEADLINE_S", 30.0, float,
+         "PreemptionGuard grace budget: the preemption force-flush (join "
+         "async checkpoint writes + final save + marker) is measured "
+         "against this; a flush that cannot beat it is recorded as "
+         "deadline_exceeded in PREEMPTED.json and "
+         "mxtpu_preemptions_total.")
+register("MXNET_CKPT_FSYNC", True, bool,
+         "CheckpointManager: fsync every checkpoint file and directory "
+         "rename (the crash-consistency barrier). Disable only for "
+         "throwaway test directories.")
+register("MXNET_RETRY_MAX_ATTEMPTS", 3, int,
+         "RetryPolicy: total attempts (1 = no retries) for retryable "
+         "failures (device OOM, UNAVAILABLE, transient compile errors); "
+         "fatal errors (shape/dtype mismatch) never retry.")
+register("MXNET_RETRY_BASE_MS", 50.0, float,
+         "RetryPolicy: backoff before the first retry, milliseconds.")
+register("MXNET_RETRY_MAX_MS", 2000.0, float,
+         "RetryPolicy: backoff cap, milliseconds.")
+register("MXNET_RETRY_MULTIPLIER", 2.0, float,
+         "RetryPolicy: exponential backoff multiplier per attempt.")
+register("MXNET_RETRY_JITTER", 0.1, float,
+         "RetryPolicy: relative jitter (+/- fraction) on each backoff, drawn "
+         "from a seeded generator so chaos runs replay exactly.")
+register("MXNET_WATCHDOG_STALL_S", 30.0, float,
+         "Watchdog: a watched region (device step, serving batch) alive "
+         "longer than this counts as a stall — mxtpu_watchdog_stalls_total "
+         "fires and the owner's stall callback runs (the serving server "
+         "degrades its circuit breaker).")
+register("MXNET_WATCHDOG_POLL_S", 0.0, float,
+         "Watchdog monitor poll interval; 0 = auto (stall_s/4, clamped to "
+         "[0.01, 0.25]s).")
+register("MXNET_CIRCUIT_DEGRADED_AFTER", 3, int,
+         "CircuitBreaker: consecutive failures before HEALTHY -> DEGRADED "
+         "(admission tightens to half the queue bound).")
+register("MXNET_CIRCUIT_OPEN_AFTER", 6, int,
+         "CircuitBreaker: consecutive failures before -> OPEN (all "
+         "admissions shed with ServerOverloadError until cooldown).")
+register("MXNET_CIRCUIT_COOLDOWN_S", 5.0, float,
+         "CircuitBreaker: seconds OPEN before HALF_OPEN probing begins.")
+register("MXNET_NUMERICS_CHECK_EVERY_N", 10, int,
+         "NumericsGuard: steps between boundary reads of the retained "
+         "on-device health scalars (loss / global grad norm / all-finite "
+         "flag). Detection lags by up to twice this many steps; the read "
+         "is one host copy of scalars a window old.")
+register("MXNET_NUMERICS_POLICY", "auto", str,
+         "NumericsGuard recovery policy: skip (rewind to the last clean "
+         "boundary snapshot and replay the window minus the offending "
+         "batch — bitwise-equal to never having trained on it) | "
+         "quarantine (skip + fingerprint/dump the batch and positionally "
+         "exclude it from the DataLoader forever) | rewind (restore the "
+         "last good checkpoint and fast-forward the loader past the "
+         "poisoned window) | auto (skip first offenders, quarantine a "
+         "fingerprint's second offense, rewind when exclusion cannot "
+         "repair the window).")
+register("MXNET_NUMERICS_SPIKE_ZSCORE", 8.0, float,
+         "NumericsGuard: EWMA z-score above which a loss/grad-norm reading "
+         "counts as a spike (one-sided; falling loss never flags).")
+register("MXNET_NUMERICS_WARMUP_STEPS", 20, int,
+         "NumericsGuard: accepted readings before the spike detector arms "
+         "(early-training loss is legitimately wild).")
+register("MXNET_NUMERICS_EWMA_ALPHA", 0.05, float,
+         "NumericsGuard: EWMA smoothing factor for the loss/grad-norm "
+         "mean/variance band.")
+register("MXNET_NUMERICS_MAX_RECOVERIES", 4, int,
+         "NumericsGuard: exclusion-replay attempts per window before the "
+         "guard gives up (raises NumericsError, or rewinds under "
+         "policy=auto with a CheckpointManager attached).")
+register("MXNET_NUMERICS_QUARANTINE_DIR", "", str,
+         "NumericsGuard: directory where quarantined batches are dumped "
+         "(npz + json fingerprint/position metadata) for postmortem; empty "
+         "disables the dump (positional exclusion still happens).")
+register("MXNET_SDC_CHECK_EVERY_N", 0, int,
+         "NumericsGuard SDC screening: steps between window re-executions "
+         "(restore snapshot, replay retained batches with their exact "
+         "generator states, compare parameter digests: a deterministic "
+         "step makes any mismatch a silent-data-corruption suspect). 0 "
+         "disables; the "
+         "effective cadence rounds up to a multiple of "
+         "MXNET_NUMERICS_CHECK_EVERY_N. Screening cost is one extra "
+         "window of compute per cadence.")
+register("MXNET_SDC_BUNDLE_DIR", "", str,
+         "NumericsGuard: directory where SDC repro bundles land (pre-state "
+         "+ batches + generator states + both digests; "
+         "mxnet_tpu_torch/tools/replay_step.py re-executes them). Empty "
+         "skips bundle writing.")
+
 # ---------------------------------------------------------------------------
 # flags that tune XLA in the JAX package: listed, not applicable
 # ---------------------------------------------------------------------------

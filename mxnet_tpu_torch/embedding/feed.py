@@ -18,7 +18,10 @@ took, anchored to the loader's epoch and RNG accounting (its epoch-start
 state, captured from the stager thread the moment the epoch starts), and
 :meth:`DeviceFeed.load_state_dict` hands the loader exactly that position
 through the DataLoader's positional resume: staged but unconsumed batches
-replay instead of being dropped.
+replay instead of being dropped. A checkpoint carries it as the reference's
+does, beside the train step: ``CheckpointManager.save(step,
+train_step=ts, extra={"feed": feed.state_dict()})``, then
+``feed.load_state_dict(state["extra"]["feed"])`` after the restore.
 
 The reference's gauges and its wait histogram are plain attributes until
 the port has its telemetry (ROADMAP Q1.12): :attr:`DeviceFeed.lead` (the

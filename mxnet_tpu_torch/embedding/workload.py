@@ -26,9 +26,12 @@ table's ``exchange_bytes`` move. The gradient is taken with respect to the
 *gathered rows* (``torch.autograd.grad`` of the loss over the MLP's
 parameters and the rows), never a dense (V, D) gradient.
 
-The reference runs each attempt under its resilience stack (the
-``emb_dispatch`` fault site, ``retry=``, ``shard_state_dict``); those wait
-for the port's resilience (ROADMAP Q1.10): ``retry`` must be None.
+Each attempt runs at the ``emb_dispatch`` fault site (kind
+``emb_exchange``), under ``retry=`` (a ``resilience.RetryPolicy``) when
+given. The update is in place, so once the step's first write (the table's
+``index_add_``) has begun a retry is refused: restore from the latest
+checkpoint. ``shard_state_dict`` captures each rank's table shard as a
+``resilience.sharding.ShardedLeaf``, written by that rank.
 """
 from __future__ import annotations
 
@@ -39,6 +42,9 @@ import torch
 
 from ..base import MXNetError
 from ..parallel import collectives
+from ..resilience import faults as _faults
+from ..resilience.checkpoint import host_array
+from ..resilience.sharding import ShardedLeaf
 from .table import ShardedEmbedding, dedup_ids
 
 __all__ = ["DLRMTrainStep", "init_mlp_params", "dlrm_forward", "bce_loss",
@@ -137,9 +143,8 @@ class DLRMTrainStep:
         ``replicated``).
     seed : int
         Seed of the MLP's initial draws (:func:`init_mlp_params`).
-    retry : None
-        The reference's retry policy waits for the port's resilience
-        (ROADMAP Q1.10); anything but None raises.
+    retry : resilience.RetryPolicy, optional
+        Attempts run under this policy at the ``emb_dispatch`` fault site.
     """
 
     def __init__(self, table: ShardedEmbedding, dense_in: int, n_fields: int,
@@ -147,9 +152,6 @@ class DLRMTrainStep:
                  mode: str = "replicated", seed: int = 0, retry=None):
         if mode not in ("replicated", "sharded"):
             raise MXNetError(f"unknown DLRM step mode {mode!r}")
-        if retry is not None:
-            raise MXNetError("DLRMTrainStep(retry=...) waits for the port's "
-                             "resilience stack; pass retry=None")
         if mode == "sharded" and (table.placement != "partition"
                                   or table.n_shards <= 1):
             mode = "replicated"   # degenerate mesh: the paths coincide
@@ -158,6 +160,8 @@ class DLRMTrainStep:
         self.n_fields = int(n_fields)
         self.lr = float(lr)
         self.mode = mode
+        self._retry = retry
+        self._writing = False       # the step's in-place update began
         self._t = 0
         self._device = table.mesh.device
         host = init_mlp_params(dense_in, n_fields, table.embed_dim,
@@ -210,6 +214,7 @@ class DLRMTrainStep:
         uniq = batch["uniq"]
         loss, g_mlp, g_rows = self._loss_and_grads(
             batch, self.table.gather(uniq), batch["inv"])
+        self._writing = True
         self.table.scatter_add(uniq, g_rows * (-self.lr))
         return loss, g_mlp
 
@@ -227,6 +232,7 @@ class DLRMTrainStep:
             flat, [g.numel() for g in g_mlp.values()])))
         g_mlp = {k: g.view(self._mlp[k].shape) for k, g in g_mlp.items()}
         # reverse dispatch: each rank's 1/n-scaled row gradients go home
+        self._writing = True
         t.dispatch_scatter_add(uniq, g_rows * (-self.lr / t.n_shards))
         loss = collectives.all_reduce(loss, t.axis, "mean", mesh=t.mesh)
         return loss, g_mlp
@@ -240,13 +246,32 @@ class DLRMTrainStep:
             batch = (batch, idx, y)
         if not isinstance(batch, dict):
             batch = self.stage(batch)
-        with torch.no_grad():
-            if self.mode == "replicated":
-                loss, g_mlp = self._replicated(batch)
-            else:
-                loss, g_mlp = self._sharded(batch)
-            for k, g in g_mlp.items():
-                self._mlp[k].sub_(g * self.lr)
+
+        def attempt():
+            _faults.check("emb_dispatch")
+            with torch.no_grad():
+                if self.mode == "replicated":
+                    loss, g_mlp = self._replicated(batch)
+                else:
+                    loss, g_mlp = self._sharded(batch)
+                for k, g in g_mlp.items():
+                    self._mlp[k].sub_(g * self.lr)
+            return loss
+
+        def pre_retry(exc, attempt, delay_s):
+            if self._writing:
+                raise MXNetError(
+                    "cannot retry DLRM step: its in-place table update had "
+                    "begun when it failed; restore from the latest "
+                    "checkpoint (resilience.CheckpointManager) "
+                    "instead") from exc
+
+        self._writing = False
+        if self._retry is not None:
+            loss = self._retry.run(attempt, site="emb_dispatch",
+                                   on_retry=pre_retry)
+        else:
+            loss = attempt()
         self._t += 1
         self.table.record_exchange(batch["n_ids"],
                                    dispatch=(self.mode == "sharded"))
@@ -266,8 +291,30 @@ class DLRMTrainStep:
                 "table_vocab": t.vocab_size, "table_dim": t.embed_dim,
                 "table_shards": t.n_shards, "table_rps": t.rows_per_shard,
                 "table_layout": t.layout,
-                "table": t.stored_weight().detach().cpu().numpy(),
-                "mlp": {k: v.detach().cpu().numpy()
+                "table": host_array(t.stored_weight()),
+                "mlp": {k: host_array(v) for k, v in self._mlp.items()}}
+
+    def shard_state_dict(self) -> Dict:
+        """:meth:`state_dict` with the stored table as each rank's shard (a
+        ``ShardedLeaf`` written by the rank holding it) and the MLP whole,
+        written by the rank at coordinate 0 of every axis: no rank gathers
+        the table."""
+        t = self.table
+        mesh = t.mesh
+        origin = {a: 0 for a in mesh.axis_names}
+        if t.n_shards > 1:
+            writers = [mesh._rank_of({**origin, t.axis: k})
+                       for k in range(t.n_shards)]
+            mine = mesh.rank == writers[t.shard_index]
+            table = ShardedLeaf.split(host_array(t.weight), 0, writers,
+                                      t.shard_index if mine else -1)
+        else:
+            table = ShardedLeaf.whole(host_array(t.weight), 0, mesh.rank)
+        return {"kind": "DLRMTrainStep", "version": 1, "t": int(self._t),
+                "table_vocab": t.vocab_size, "table_dim": t.embed_dim,
+                "table_shards": t.n_shards, "table_rps": t.rows_per_shard,
+                "table_layout": t.layout, "table": table,
+                "mlp": {k: ShardedLeaf.whole(host_array(v), 0, mesh.rank)
                         for k, v in self._mlp.items()}}
 
     def load_state_dict(self, state: Dict):
@@ -282,10 +329,12 @@ class DLRMTrainStep:
             raise MXNetError(f"table vocab {vocab} != {self.table.vocab_size}")
         stored = onp.asarray(state["table"])
         rps, n = int(state["table_rps"]), int(state["table_shards"])
-        ids = onp.arange(vocab)
-        sidx = ids if state["table_layout"] == "block" \
-            else (ids % n) * rps + ids // n
-        self.table.set_weight(stored[sidx])
+        if state["table_layout"] == "block":
+            logical = stored[:vocab]          # a view: the rows in order
+        else:
+            ids = onp.arange(vocab)
+            logical = stored[(ids % n) * rps + ids // n]
+        self.table.set_weight(logical)
         self._mlp = {k: torch.from_numpy(onp.array(v, onp.float32)).to(
             self._device) for k, v in dict(state["mlp"]).items()}
         self._t = int(state["t"])

@@ -56,8 +56,26 @@ written out per rank:
   Parameters. A fused QKV weight (``shard(spec, blocks=3)``) is split per
   block: a rank's shard holds the Q, K and V rows of its heads.
 
-Retry, the numerics guard, telemetry and rematerialization (P14/P16) are
-not ported yet.
+**Resilience** (``mxnet_tpu_torch.resilience``). Each step runs under a
+``RetryPolicy`` (``retry_policy=``; ``MXNET_RETRY_*`` by default) at the
+``train_step`` fault site (and ``compile`` at the first step). The JAX
+package retries a functional step whose state is written only once the
+call succeeded; this step updates in place, so the step generator's state
+and ``t`` are taken before the first attempt and put back before a retry,
+and once the first in-place write of the step has begun (BatchNorm's moving
+statistics in the forward, else the optimizer's first update) a retry is
+refused with the reference's message: restore from the latest checkpoint.
+``state_dict``/``shard_state_dict``/``load_state_dict`` keep the
+reference's keys: ``p{i}`` over the block's ``collect_params()`` in order
+(trainable and the aux states such as BatchNorm's moving statistics),
+``s{j}/l{k}`` over the trainable ones' optimizer state leaves (Adam's mean,
+var), ``t``, ``n_params``, ``param_names``, and the port's ``generator``
+(the dropout generator's state), which the reference ignores. A
+``NumericsGuard`` attached makes every step compute the global gradient
+norm and a finite flag on the device and report its retained batch;
+``step_n`` is refused while one is attached.
+
+Telemetry and rematerialization (P14/P16) are not ported yet.
 """
 from __future__ import annotations
 
@@ -70,6 +88,11 @@ import torch
 from ..base import DTypes, MXNetError
 from ..gluon import Block
 from ..gluon.nn import Dropout
+from ..resilience import faults as _faults
+from ..resilience.checkpoint import host_array
+from ..resilience.numerics import _leaves as _state_leaves
+from ..resilience.retry import RetryPolicy
+from ..resilience.sharding import ShardedLeaf
 from . import collectives
 from .mesh import DeviceMesh
 
@@ -115,6 +138,21 @@ def _split_dim(spec, mesh):
     return found[0] if found else None
 
 
+def _gluon_params(module) -> list:
+    """The Gluon Parameters of ``module`` in ``collect_params()`` order;
+    a plain ``torch.nn.Module`` wrapper (``tools.PretrainStep``) is walked
+    through to the Blocks it holds."""
+    if isinstance(module, Block):
+        return list(module.collect_params().values())
+    out, seen = [], set()
+    for child in module.children():
+        for p in _gluon_params(child):
+            if id(p) not in seen:
+                seen.add(id(p))
+                out.append(p)
+    return out
+
+
 def shard_of(t: torch.Tensor, dim: int, n: int, index: int,
              blocks: int = 1) -> torch.Tensor:
     """Rank ``index``'s shard of ``t`` split n ways along ``dim``; with
@@ -154,12 +192,15 @@ class ParallelTrainStep:
     ``data_spec``, ``label_spec`` and ``extra_specs`` (one per extra input)
     are the reference's placements: an input whose spec's first entry
     names the batch axes is split over them (each rank keeps its rows),
-    any other is whole on every rank."""
+    any other is whole on every rank. ``retry_policy`` (a
+    ``resilience.RetryPolicy``, default from the ``MXNET_RETRY_*`` flags)
+    retries a step that fails transiently before its first in-place
+    write."""
 
     def __init__(self, block: torch.nn.Module, loss, optimizer,
                  mesh: DeviceMesh, *, data_spec=None, label_spec=None,
                  extra_specs: Sequence = (), compute_dtype=None,
-                 seed: int = 0):
+                 seed: int = 0, retry_policy=None):
         missing = [p.name for m in block.modules() if isinstance(m, Block)
                    for p in m._reg_params.values() if p._var is None]
         if missing:
@@ -191,6 +232,7 @@ class ParallelTrainStep:
                  if p.requires_grad]
         self._names = [n for n, _ in named]
         self._plist = [p for _, p in named]
+        self._order = self._reference_order()
         self._shards: Dict[int, _Shard] = {}
         self._shard_params(mesh)
         self._states = [optimizer.create_state(i, p)
@@ -203,6 +245,45 @@ class ParallelTrainStep:
         for m in self._block.modules():
             if isinstance(m, Dropout):
                 m.generator = self.generator
+        self._retry = retry_policy if retry_policy is not None \
+            else RetryPolicy.from_config()
+        self._built = False         # the "compile" fault site's first run
+        self._writing = False       # an in-place write of this step began
+        # the forward writes state in place (BatchNorm's moving statistics)
+        self._forward_writes = any(kind == "aux" for kind, _ in self._order)
+        self._guard = None
+
+    def _reference_order(self):
+        """The reference's positional order of the step's state: the
+        block's ``collect_params()``, each ``("p", i)`` for the trainable
+        ``_plist[i]`` or ``("aux", get)`` for an aux state (``get()`` reads
+        it through its Parameter, which follows module conversions); then,
+        for a plain ``torch.nn.Module``, the trained tensors and buffers
+        no Gluon Parameter holds, in module order."""
+        index = {id(p): i for i, p in enumerate(self._plist)}
+        order, seen, held = [], set(), set()
+        self._order_names = []
+        for gp in _gluon_params(self._block):
+            if gp._var is None:
+                continue
+            self._order_names.append(gp.name)
+            held.add(id(gp._var))
+            i = index.get(id(gp._var))
+            if i is None:
+                order.append(("aux", lambda gp=gp: gp._var))
+            else:
+                order.append(("p", i))
+                seen.add(i)
+        for i, name in enumerate(self._names):
+            if i not in seen:
+                order.append(("p", i))
+                self._order_names.append(name)
+        for name, b in self._block.named_buffers():
+            if id(b) not in held:
+                order.append(("aux", lambda n=name:
+                              self._block.get_buffer(n)))
+                self._order_names.append(name)
+        return order
 
     def _shard_params(self, mesh):
         """Replace each parameter with a partition spec over an axis of
@@ -364,14 +445,21 @@ class ParallelTrainStep:
         self.comm_seconds += time.perf_counter() - start
         return grads
 
-    def _step_impl(self, x, y, extras):
+    def _compute(self, x, y, extras, poison=None, lrs=None, wds=None):
+        """Forward, backward and update with ``t`` already advanced; the
+        loss and, with a guard attached, the (gradient norm, finite)
+        device scalars. ``poison`` multiplies the loss before the backward
+        (the guard's corruption of an integer batch); ``lrs``/``wds``
+        replace the schedule's rows (an exact replay)."""
         opt = self._optimizer
-        self._t += 1
         if opt.lr_scheduler is not None:
             opt.num_update = self._t
         self._block.train()
+        self._writing = self._forward_writes
         with self._mesh, self._rows, self._tp:
             loss = self._forward_loss(x, y, extras)
+            if poison is not None:
+                loss = loss * poison
             grads = list(torch.autograd.grad(loss, self._plist,
                                              allow_unused=True))
         grads = [torch.zeros_like(w) if g is None else g.to(w.dtype)
@@ -383,6 +471,13 @@ class ParallelTrainStep:
             for a in self._batch_axes:
                 loss = collectives.all_reduce(loss, a, "mean",
                                               mesh=self._mesh)
+        health = None
+        if self._guard is not None:
+            norms = torch._foreach_norm(grads)
+            gnorm = torch.linalg.vector_norm(torch.stack(norms))
+            health = (gnorm, torch.isfinite(loss.detach())
+                      & torch.isfinite(gnorm))
+        self._writing = True
         # the range lets tools/step_profile.py attribute the update's kernels
         with torch.no_grad(), torch.profiler.record_function("mxt.optimizer"):
             for i, (w, g, s) in enumerate(zip(self._plist, grads,
@@ -390,9 +485,57 @@ class ParallelTrainStep:
                 g = g * opt.rescale_grad
                 if opt.clip_gradient is not None:
                     g = g.clamp(-opt.clip_gradient, opt.clip_gradient)
-                opt._rule(w, g, s, opt._get_lr(i), opt._get_wd(i),
-                          np.float32(self._t))
-        return loss.detach()
+                lr = opt._get_lr(i) if lrs is None else lrs[i]
+                wd = opt._get_wd(i) if wds is None else wds[i]
+                opt._rule(w, g, s, lr, wd, np.float32(self._t))
+        return loss.detach(), health
+
+    def _step_impl(self, x, y, extras, poison=None):
+        """One step under the retry policy: the guard's input shim, then
+        the attempts, each at the ``train_step`` fault site."""
+        injected = None
+        if self._guard is not None:
+            x, y, injected, shim = self._guard.intercept(x, y)
+            poison = shim if shim is not None else poison
+        t0 = self._t
+        key = self.generator.get_state()
+
+        def attempt():
+            _faults.check("train_step")
+            if not self._built:
+                _faults.check("compile")
+                self._built = True
+            self._t = t0 + 1
+            return self._compute(x, y, extras, poison)
+
+        def pre_retry(exc, attempt, delay_s):
+            if self._writing:
+                raise MXNetError(
+                    "cannot retry train step: its in-place update of the "
+                    "parameters or the optimizer state had begun when it "
+                    "failed; restore from the latest checkpoint "
+                    "(resilience.CheckpointManager) instead") from exc
+            self.generator.set_state(key)
+            self._t = t0
+
+        self._writing = False
+        try:
+            loss, health = self._retry.run(attempt, site="train_step",
+                                           on_retry=pre_retry)
+        except BaseException:
+            if not self._writing:
+                self._t = t0
+                self.generator.set_state(key)
+            raise
+        if self._guard is not None:
+            opt = self._optimizer
+            self._guard.observe(
+                x=x, y=y, extras=extras, key=key,
+                lrs=[opt._get_lr(i) for i in range(len(self._plist))],
+                wds=[opt._get_wd(i) for i in range(len(self._plist))],
+                t=self._t, loss=loss, health=health, poison=poison,
+                injected=injected)
+        return loss
 
     def step(self, x, y, *extras):
         """One training step on the global batch ``x``, ``y`` (each rank
@@ -406,7 +549,15 @@ class ParallelTrainStep:
     def step_n(self, xs, ys, *extras_s):
         """K training steps over inputs stacked on a leading K axis; returns
         the (K,) losses. Equal to K :meth:`step` calls on the same slices,
-        dropout included (one generator, drawn in the same order)."""
+        dropout included (one generator, drawn in the same order). Refused
+        while a NumericsGuard is attached (drive the loop with
+        :meth:`step`)."""
+        if self._guard is not None:
+            raise MXNetError(
+                "step_n() is not supported with a NumericsGuard attached: "
+                "the guard's skip/rewind recovery needs per-step batch "
+                "retention and generator accounting — drive the loop with "
+                "step()")
         xs, ys, *extras_s = self.place_batch_n(xs, ys, *extras_s)
         xs, ys, extras_s = self._local_inputs(xs, ys, extras_s, dim=1)
         losses = [self._step_impl(xs[i], _tree_map(lambda a: a[i], ys),
@@ -419,3 +570,182 @@ class ParallelTrainStep:
         for loops that call :meth:`step_n` on the same arrays."""
         return (self._place(xs), _tree_map(self._place, ys)) + \
             tuple(self._place(e) for e in extras_s)
+
+    # ------------------------------------------------------------------
+    # resilience: the numerics guard, exact replay, the checkpoint surface
+    # ------------------------------------------------------------------
+    def _attach_numerics_guard(self, guard):
+        """Bind a ``resilience.NumericsGuard`` (use ``guard.attach``)."""
+        self._guard = guard
+
+    def replay_exact(self, x, y, extras, key, lrs, wds, t, poison=None):
+        """Re-execute one step with the inputs it consumed: the placed
+        batch, the generator state ``key`` it started from, its lr and wd
+        rows and its ``t``; the SDC-screening and repro-bundle path. Takes
+        nothing from the schedules and reports to no guard."""
+        self.generator.set_state(key.cpu() if isinstance(key, torch.Tensor)
+                                 else torch.as_tensor(key, dtype=torch.uint8))
+        self._t = int(t)
+        loss, _ = self._compute(x, y, tuple(extras), poison,
+                                [float(v) for v in lrs],
+                                [float(v) for v in wds])
+        return loss
+
+    def _ordered_tensors(self):
+        """The state's tensors in the reference's positional order (the
+        ``p{i}``): trained masters (this rank's shards) and aux states."""
+        return [self._plist[ref] if kind == "p" else ref()
+                for kind, ref in self._order]
+
+    def _trainable_order(self):
+        """``_plist`` indices of the reference's trainable parameters, in
+        its order (the ``s{j}``)."""
+        return [ref for kind, ref in self._order if kind == "p"]
+
+    def _snapshot(self) -> Dict:
+        """On-device copies of the state (the guard's anchor): parameters
+        and aux states, optimizer states, the generator and ``t``."""
+        with torch.no_grad():
+            return {"params": [t.detach().clone()
+                               for t in self._ordered_tensors()],
+                    "opt": [tuple(leaf.detach().clone() for leaf in
+                                  _state_leaves(self._states[i]))
+                            for i in self._trainable_order()],
+                    "generator": self.generator.get_state(),
+                    "t": int(self._t)}
+
+    def _restore_snapshot(self, snap: Dict):
+        """Copy a :meth:`_snapshot` back into the live tensors (the
+        snapshot stays intact for another attempt)."""
+        with torch.no_grad():
+            for t, s in zip(self._ordered_tensors(), snap["params"]):
+                t.copy_(s)
+            for i, saved in zip(self._trainable_order(), snap["opt"]):
+                for leaf, s in zip(_state_leaves(self._states[i]), saved):
+                    leaf.copy_(s)
+        self.generator.set_state(snap["generator"])
+        self._t = int(snap["t"])
+
+    @staticmethod
+    def _snapshot_bytes(snap: Dict) -> int:
+        return sum(t.numel() * t.element_size() for t in
+                   list(snap["params"]) + [leaf for st in snap["opt"]
+                                           for leaf in st])
+
+    def _header(self) -> Dict:
+        return {"kind": "ParallelTrainStep", "version": 1,
+                "t": int(self._t), "n_params": len(self._order),
+                "param_names": ",".join(self._order_names)}
+
+    def _gathered(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (parameter ``i``'s tensor or a state leaf of its shape)
+        gathered whole when ``i`` is sharded (a collective)."""
+        sh = self._shards.get(i)
+        if sh is None:
+            return t.detach()
+        g = collectives.all_gather(t.detach(), sh.axis, axis=sh.dim,
+                                   mesh=self._mesh)
+        return unshard(g.chunk(sh.n, dim=sh.dim), sh.dim, sh.blocks)
+
+    def state_dict(self) -> Dict:
+        """Host copy of the training state in the reference's keys
+        (sharded parameters and their states gathered: every rank of the
+        job must call it)."""
+        st = self._header()
+        st["params"] = {}
+        for k, (kind, ref) in enumerate(self._order):
+            t = self._gathered(ref, self._plist[ref]) if kind == "p" \
+                else ref()
+            st["params"][f"p{k}"] = host_array(t)
+        st["opt"] = {f"s{j}": {f"l{k}": host_array(self._gathered(i, leaf))
+                               for k, leaf in enumerate(
+                                   _state_leaves(self._states[i]))}
+                     for j, i in enumerate(self._trainable_order())}
+        st["generator"] = host_array(self.generator.get_state())
+        return st
+
+    def shard_state_dict(self) -> Dict:
+        """:meth:`state_dict` with every leaf a ``ShardedLeaf``: a sharded
+        parameter and its states as each rank's shard (written by the rank
+        holding it), a whole one written by the rank at coordinate 0 of
+        every axis. A parameter split in blocks (a fused QKV) is gathered
+        and written whole: its shard is not one slice of it."""
+        mesh = self._mesh
+        origin = {a: 0 for a in mesh.axis_names}
+
+        def leaf(i, t):
+            sh = self._shards.get(i) if i is not None else None
+            if sh is None or sh.blocks > 1:
+                full = t.detach() if sh is None else self._gathered(i, t)
+                return ShardedLeaf.whole(host_array(full), writer=0,
+                                         rank=mesh.rank)
+            writers = [mesh._rank_of({**origin, sh.axis: k})
+                       for k in range(sh.n)]
+            mine = mesh.rank == writers[sh.index]
+            return ShardedLeaf.split(host_array(t), sh.dim, writers,
+                                     sh.index if mine else -1)
+
+        st = self._header()
+        st["mesh_devices"] = int(mesh.size)
+        st["params"] = {f"p{k}": leaf(ref, self._plist[ref]) if kind == "p"
+                        else leaf(None, ref())
+                        for k, (kind, ref) in enumerate(self._order)}
+        st["opt"] = {f"s{j}": {f"l{k}": leaf(i, x) for k, x in enumerate(
+            _state_leaves(self._states[i]))}
+            for j, i in enumerate(self._trainable_order())}
+        st["generator"] = host_array(self.generator.get_state())
+        return st
+
+    def load_state_dict(self, state: Dict):
+        """Restore a state (this step's :meth:`state_dict`, an assembled
+        sharded one, or the JAX package's ``ParallelTrainStep`` state) into
+        this step, each rank taking its own shard of a sharded parameter;
+        the next step continues as the run that saved it would have."""
+        if state.get("kind") != "ParallelTrainStep":
+            raise MXNetError(f"not a ParallelTrainStep state: "
+                             f"{state.get('kind')!r}")
+        if int(state["n_params"]) != len(self._order):
+            raise MXNetError(
+                "checkpoint does not match this model: expected "
+                f"{len(self._order)} params, got {state['n_params']} "
+                f"({state.get('param_names')})")
+
+        def local(i, arr, like):
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            sh = self._shards.get(i) if i is not None else None
+            if sh is not None:
+                t = shard_of(t, sh.dim, sh.n, sh.index, sh.blocks)
+            if tuple(t.shape) != tuple(like.shape):
+                raise MXNetError(f"checkpoint leaf shape {tuple(t.shape)} "
+                                 f"vs {tuple(like.shape)}")
+            return t
+
+        saved_opt = state.get("opt", {})
+        with torch.no_grad():
+            for k, (kind, ref) in enumerate(self._order):
+                arr = np.asarray(state["params"][f"p{k}"])
+                live = self._plist[ref] if kind == "p" else ref()
+                full = list(live.shape)
+                sh = self._shards.get(ref) if kind == "p" else None
+                if sh is not None:
+                    full[sh.dim] *= sh.n
+                if tuple(arr.shape) != tuple(full):
+                    raise MXNetError(
+                        f"checkpoint param {k} ({self._order_names[k]}) "
+                        f"shape mismatch: {arr.shape} vs {tuple(full)}")
+                live.copy_(local(ref if kind == "p" else None, arr, live))
+            for j, i in enumerate(self._trainable_order()):
+                leaves = _state_leaves(self._states[i])
+                saved = saved_opt.get(f"s{j}", {})
+                if len(saved) != len(leaves):
+                    raise MXNetError(f"optimizer state {j} arity mismatch: "
+                                     f"{len(saved)} vs {len(leaves)}")
+                for k, leaf in enumerate(leaves):
+                    leaf.copy_(local(i, np.asarray(saved[f"l{k}"]), leaf))
+        self._t = int(state["t"])
+        if "generator" in state:
+            self.generator.set_state(torch.from_numpy(
+                np.array(state["generator"], np.uint8)))
+        if self._guard is not None:
+            # retained records predate the restored state: re-anchor
+            self._guard.reset()

@@ -18,10 +18,18 @@ the same numbers from these, so ``seed(s)`` here and ``random.seed(s)`` and
 ``with sample_stream(s):`` the calling thread draws from streams of its
 own seeded with ``s`` instead (the DataLoader seeds each batch this way, so
 its batches do not depend on which worker thread made them).
+
+:func:`get_state` and :func:`set_state` are the checkpoint surface: the
+seed, every context's generator, :func:`python_rng` and :func:`numpy_rng`
+as ``{"impl": "torch", "typed": 0, "data": uint8 array}``. The JAX
+package's state is a threefry key chain, which no torch generator can take
+on: :func:`set_state` refuses it.
 """
 from __future__ import annotations
 
+import base64
 import contextlib
+import json
 import random as _pyrandom
 import threading
 from typing import Dict
@@ -29,10 +37,11 @@ from typing import Dict
 import numpy as _np
 import torch
 
-from .base import Context
+from .base import Context, MXNetError
 
 __all__ = ["seed", "generator", "python_rng", "numpy_rng", "sample_stream",
-           "uniform", "normal", "randn", "randint"]
+           "get_state", "set_state", "uniform", "normal", "randn",
+           "randint"]
 
 _SAMPLERS = ("uniform", "normal", "randn", "randint")
 _lock = threading.Lock()
@@ -98,6 +107,52 @@ def sample_stream(seed_state: int):
         yield
     finally:
         _streams.python, _streams.numpy = prev
+
+
+def get_state():
+    """A serializable snapshot of the module's random state: restoring it
+    with :func:`set_state` makes every later draw (every context's
+    generator, the data path's streams) what it would have been."""
+    with _lock:
+        gens = [[ctx.device_type, ctx.device_id,
+                 base64.b64encode(g.get_state().numpy().tobytes()).decode()]
+                for ctx, g in _generators.items()]
+        name, keys, pos, has_gauss, cached = _numpy.get_state()
+        payload = {"seed": _seed, "generators": gens,
+                   "python": _python.getstate(),
+                   "numpy": [name, keys.tolist(), int(pos), int(has_gauss),
+                             float(cached)]}
+    data = _np.frombuffer(json.dumps(payload).encode(), _np.uint8).copy()
+    return {"impl": "torch", "typed": 0, "data": data}
+
+
+def set_state(state):
+    """Restore a :func:`get_state` snapshot. A state of another
+    implementation (the JAX package's threefry key chain) raises."""
+    impl = str(state.get("impl"))
+    if impl != "torch":
+        raise MXNetError(
+            f"random state of implementation {impl!r} (the JAX package's "
+            "key chain) cannot seed torch generators; restore with "
+            "restore_rng=False and seed the port's random module instead")
+    global _seed, _python, _numpy
+    payload = json.loads(_np.asarray(state["data"], _np.uint8).tobytes())
+    with _lock:
+        _seed = int(payload["seed"])
+        _generators.clear()
+        for dev_type, dev_id, blob in payload["generators"]:
+            ctx = Context(dev_type, int(dev_id))
+            g = torch.Generator(device=ctx.torch_device())
+            g.set_state(torch.frombuffer(bytearray(base64.b64decode(blob)),
+                                         dtype=torch.uint8))
+            _generators[ctx] = g
+        version, keys, gauss = payload["python"]
+        _python = _pyrandom.Random()
+        _python.setstate((version, tuple(keys), gauss))
+        name, keys, pos, has_gauss, cached = payload["numpy"]
+        _numpy = _np.random.RandomState()
+        _numpy.set_state((name, _np.asarray(keys, _np.uint32), pos,
+                          has_gauss, cached))
 
 
 def __getattr__(name):

@@ -40,6 +40,7 @@ import torch
 
 from ... import config as _config
 from ...base import Context, MXNetError, current_context
+from ...resilience import faults as _faults
 from .. import bucketing
 from ..router import StepCostEWMA
 from .kv_cache import PagedKVPool, gather_ctx, write_prefill, write_step
@@ -117,8 +118,11 @@ class DecodeEndpoint:
                 f"position-embedding table ({max_len})")
 
     def _first_run(self, warm: set, bucket: int) -> bool:
+        """Record a bucket's first run (its "compile"): the ``compile``
+        fault site, then the count."""
         if bucket in warm:
             return False
+        _faults.check("compile")
         warm.add(bucket)
         self.stats.record_compile()
         return True

@@ -31,6 +31,7 @@ import torch
 
 from ... import config as _config
 from ...base import Context, DTypes, MXNetError, current_context
+from ...resilience import faults as _faults
 from ..errors import KVPoolExhausted
 
 __all__ = ["PagedKVPool", "KVPoolExhausted", "write_prefill", "write_step",
@@ -132,13 +133,20 @@ class PagedKVPool:
         max_new_tokens) at admission, so exhaustion can only happen here,
         never mid-decode, and a refused sequence stays queued with nothing
         to unwind. Raises :class:`KVPoolExhausted` when the free list is
-        short."""
+        short, and when the ``decode`` fault site injects
+        ``kv_exhausted``, which simulates exactly that."""
         if total_tokens > self.max_seq_len:
             raise MXNetError(
                 f"sequence {sid} wants {total_tokens} tokens, pool "
                 f"{self.name!r} is laid out for max_seq_len="
                 f"{self.max_seq_len}")
         need = int(math.ceil(total_tokens / self.page_size))
+        try:
+            _faults.check("decode")
+        except _faults.FaultInjected as e:
+            if e.kind == "kv_exhausted":
+                raise KVPoolExhausted(str(e)) from e
+            raise
         with self._lock:
             table = self._tables.setdefault(sid, [])
             delta = need - len(table)

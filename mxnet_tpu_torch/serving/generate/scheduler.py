@@ -25,11 +25,17 @@ Invariants:
 Backpressure is lossless: a full client stream pauses the sequence (state
 PAUSED, pages kept, not stepped); the stream's resume callback re-runs it.
 
-Not ported: the reference's fault-injection points, propagated deadlines
-and the brownout clamp on ``max_new_tokens``, its telemetry and flight
-recorder, and the decode retry budget that bounds failover requeues.
-Without that budget a worker that dies on every step is replaced, and its
-sequences requeued, without bound.
+Fault points (``resilience.faults``, site ``decode``): an injected fault at
+the step boundary is absorbed and the batch re-formed next iteration;
+``decode_stall`` is a ``WorkerKilled`` that takes the worker down, and the
+failover above requeues its sequences; ``kv_exhausted`` fires in
+``PagedKVPool.reserve`` and leaves the sequence queued.
+
+Not ported: propagated deadlines and the brownout clamp on
+``max_new_tokens``, the telemetry and flight recorder, and the decode retry
+budget that bounds failover requeues (ROADMAP Q1.11). Without that budget
+a worker that dies on every step is replaced, and its sequences requeued,
+without bound.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from typing import Dict, List, Optional, Sequence
 
 from ... import config as _config
 from ...base import MXNetError
+from ...resilience import faults as _faults
 from ..errors import KVPoolExhausted, ServerClosedError
 from .streams import TokenStream
 
@@ -298,8 +305,11 @@ class DecodeScheduler:
                 batch = [(s, s.emitted[-1], s.pos,
                           self.engine.pool.table(s.sid)) for s in rows]
             try:
+                _faults.check("decode")
                 toks = self.engine.decode_step(
                     [(tok, pos, table) for _, tok, pos, table in batch])
+            except _faults.FaultInjected:
+                continue                # transient: re-form and retry
             except Exception as e:
                 with self._cond:
                     for s, _, _, _ in batch:

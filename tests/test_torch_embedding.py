@@ -253,10 +253,25 @@ def test_stored_layout_round_trips_on_one_rank():
 
 
 def test_retry_waits_for_resilience():
+    """``retry=`` takes the port's RetryPolicy (it waited for the
+    resilience slice): with ``emb_exchange`` injected at every 2nd
+    dispatch, the steps' losses and table equal the run without faults,
+    bit for bit."""
+    from mxnet_tpu_torch.resilience import RetryPolicy, faults
     mesh = parallel.make_mesh({"tp": 1}, ctx=CPU)
-    table = ShardedEmbedding(VOCAB, DIM, mesh)
-    with pytest.raises(mt.MXNetError, match="retry"):
-        DLRMTrainStep(table, DENSE_IN, FIELDS, retry=object())
+
+    def run(retry):
+        table = ShardedEmbedding(VOCAB, DIM, mesh,
+                                 weight=torch.from_numpy(_w0()))
+        step = DLRMTrainStep(table, DENSE_IN, FIELDS, bot_hidden=HIDDEN,
+                             top_hidden=HIDDEN, lr=LR, retry=retry)
+        return [step(b) for b in _batches(4, 3)], table.dense_weight()
+
+    want, want_table = run(None)
+    with faults.inject("emb_exchange", every_n=2) as inj:
+        got, got_table = run(RetryPolicy(max_attempts=3, base_ms=0.0))
+    assert inj.fires == 3 and got == want
+    onp.testing.assert_array_equal(got_table, want_table)
 
 
 def test_init_mlp_params_equals_the_references():

@@ -33,6 +33,50 @@ def _on_cpu():
         yield
 
 
+@pytest.fixture(autouse=True)
+def _process_state():
+    """The process-wide state these comparisons read, set for each test
+    and restored after it: the files an xdist worker runs share one
+    process, and under ``--dist loadfile`` any of them may have run
+    before this one. PyTorch's intra-op thread count (a change rebuilds
+    the pool, whose fresh threads are primed as at import), gradient
+    mode, default dtype, denormal flushing and deterministic-algorithm
+    flag; AMP off in both packages (the reference's cast policy also rides
+    a thread-local stack); the reference's f32 matmul precision and x64
+    flag."""
+    import jax
+    from mxnet_tpu import amp as jamp
+    saved = (torch.get_num_threads(), torch.is_grad_enabled(),
+             torch.get_default_dtype(),
+             torch.are_deterministic_algorithms_enabled(),
+             jax.config.jax_default_matmul_precision,
+             jax.config.jax_enable_x64, mt.amp._AMP_STATE["on"],
+             jamp._AMP_STATE["on"], getattr(jamp._CFG_TLS, "stack", None))
+    if saved[0] != 2:
+        torch.set_num_threads(2)
+        torch.exp(torch.zeros(1 << 18))
+    torch.set_grad_enabled(True)
+    torch.set_default_dtype(torch.float32)
+    torch.set_flush_denormal(False)
+    torch.use_deterministic_algorithms(False)
+    jax.config.update("jax_default_matmul_precision", "highest")
+    jax.config.update("jax_enable_x64", False)
+    mt.amp._AMP_STATE["on"] = jamp._AMP_STATE["on"] = False
+    jamp._CFG_TLS.stack = []
+    try:
+        yield
+    finally:
+        if saved[0] != 2:
+            torch.set_num_threads(saved[0])
+        torch.set_grad_enabled(saved[1])
+        torch.set_default_dtype(saved[2])
+        torch.use_deterministic_algorithms(saved[3])
+        jax.config.update("jax_default_matmul_precision", saved[4])
+        jax.config.update("jax_enable_x64", saved[5])
+        mt.amp._AMP_STATE["on"], jamp._AMP_STATE["on"] = saved[6:8]
+        jamp._CFG_TLS.stack = saved[8] if saved[8] is not None else []
+
+
 def test_parameter_on_four_contexts():
     p = gluon.Parameter("w", shape=(3, 2))
     p.initialize(init=mt.init.Constant(0.5), ctx=CTXS)

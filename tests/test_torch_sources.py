@@ -1093,3 +1093,75 @@ def test_the_ring_runs_k1_to_k3_through_the_wrappers():
                and n.name == "FlashAttention")
     assert "block_ops" in {n.id for n in ast.walk(cls)
                            if isinstance(n, ast.Name)}
+
+
+# ---------------------------------------------------------------------------
+# resilience
+# ---------------------------------------------------------------------------
+RESILIENCE_MODULES = sorted(
+    str(p.relative_to(PKG)) for p in (PKG / "resilience").glob("*.py")) + \
+    ["tools/replay_step.py"]
+
+
+@pytest.mark.parametrize("module", RESILIENCE_MODULES)
+def test_resilience_modules_are_guarded(module):
+    """Every module under ``resilience/`` and the replay tool import
+    neither jax nor the JAX package."""
+    assert PKG / module in PORT_FILES
+    test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
+
+
+def _fault_sites():
+    """(path, line, site) of every ``faults.check(...)`` call in the port
+    and chip_smoke.py."""
+    out = []
+    for path in PORT_FILES:
+        for n in ast.walk(_tree(path)):
+            if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute) \
+                    and n.func.attr == "check" \
+                    and isinstance(n.func.value, ast.Name) \
+                    and n.func.value.id in ("faults", "_faults"):
+                arg = n.args[0] if n.args else None
+                out.append((path, n.lineno,
+                            arg.value if isinstance(arg, ast.Constant)
+                            else None))
+    return out
+
+
+def test_every_fault_site_is_a_known_site():
+    """Each ``faults.check`` names its site with a literal from ``SITES``,
+    and the training, checkpoint, numerics, embedding and decode paths each
+    have theirs."""
+    tree = _tree(PKG / "resilience" / "faults.py")
+    sites = next(ast.literal_eval(n.value) for n in tree.body
+                 if isinstance(n, ast.Assign)
+                 and getattr(n.targets[0], "id", None) == "SITES")
+    found = _fault_sites()
+    for path, line, site in found:
+        assert site in sites, f"{path}:{line}: fault site {site!r}"
+    named = {site for _, _, site in found}
+    assert {"train_step", "compile", "checkpoint_write", "preemption",
+            "numerics", "sdc", "decode", "emb_dispatch"} <= named
+
+
+# the functions a guarded training step runs every step: nothing in them
+# may read the device (the guard reads once a window, in ``_read``)
+GUARDED_PATH = {"parallel/train_step.py": ("_compute", "_step_impl"),
+                "resilience/numerics.py": ("intercept", "observe",
+                                           "_current_batch_pos")}
+
+
+@pytest.mark.parametrize("module", sorted(GUARDED_PATH))
+def test_guarded_step_reads_nothing_from_the_device(module):
+    tree = _tree(PKG / module)
+    fns = {n.name: n for n in ast.walk(tree)
+           if isinstance(n, ast.FunctionDef)}
+    for name in GUARDED_PATH[module]:
+        for n in ast.walk(fns[name]):
+            if isinstance(n, ast.Attribute):
+                assert n.attr not in ("item", "cpu", "synchronize",
+                                      "tolist", "numpy"), \
+                    f"{module}:{n.lineno}: {name} calls .{n.attr}"
+    if "_read" in fns:
+        assert "cpu" in {n.attr for n in ast.walk(fns["_read"])
+                         if isinstance(n, ast.Attribute)}
