@@ -533,14 +533,43 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    ``retry=`` with ``emb_exchange`` every 2nd dispatch bitwise the run
    without faults, its sharded checkpoint restored on one process bitwise
    (each half's fingerprint, the MLP).
-19. A JSON line with the kernels' numbers (``launches_by_path`` gains
+19. The pipelined multi-tenant server (``serving``) on ``bert_base()`` in
+   bf16 with seeded weights, every attention call on K1. (a) Two tenants
+   on one server: ``bert512`` (S = 512, buckets 1-32, SLO 1000 ms) and
+   ``bert128`` (S = 128, buckets 1-8, SLO 50 ms), closed-loop clients
+   (4 a tenant; 24 requests of 1-8 rows and 48 of 1-2 rows a client); per
+   tenant requests/s, p50/p99, the share within the SLO, queue wait, prep
+   us and the prep overlap ratio, then the same traffic with
+   ``pipeline=False``; K1 launches per tenant (forward hooks) equal 12 x
+   its executed forwards (batches, construction probe, warm-up); then
+   phase 3's traffic on ``bert512`` alone, pipelined and serial. (b)
+   Every response of (a) within 2e-2 + 2e-2 |direct| of the direct
+   forward and on the card; a scripted stream, one request at a time,
+   pipelined byte for byte the serial path. (c) Three hot swaps of
+   ``bert512`` (w1, w2, w1: other seeds' weights in ``CheckpointManager``
+   directories with recorded probes) under load on both tenants: zero
+   errors, each response within tolerance of the base, w1 or w2 weights'
+   direct forward, ``weights_epoch`` 3; then a corrupt checkpoint and a
+   probe mismatch are refused and the old weights keep serving bitwise.
+   (d) ``worker_kill`` and a ``hang`` (watchdog 0.25 s) at
+   ``serving_dispatch`` under a ``PoolSupervisor``: every request
+   completes once, within tolerance; the requeued count and the time from
+   the fault to the last response. (e) A ``ServingPool`` of ``bert128``
+   replicas (each its own server, streams and weights) under an
+   ``Autoscaler`` over the SLO monitor: a burst scales 1 -> 2 replicas,
+   hedged requests (zero delay) bitwise a replica's unhedged response,
+   quiet scales back to 1 with requests in flight and none dropped; the
+   peak device memory.
+20. A JSON line with the kernels' numbers (``launches_by_path`` gains
    ``int8_resnet``, ``int8_bert`` and ``kvstore_resnet`` (phase 15),
    ``dp_bert``, ``tp_bert`` and ``dist_trainer_bert``, counted on rank 0
-   (phase 16), ``ring_attention`` (phase 17(b), rank 0) and
+   (phase 16), ``ring_attention`` (phase 17(b), rank 0),
    ``resilience_bert``, ``resilience_nondeterministic_check`` and
-   ``resilience_tp_bert`` (phase 18, the last on rank 0), and K1-K3 gain
-   their times at the ring's block), then the last line ``{"ok": true,
-   "device": {...}}``.
+   ``resilience_tp_bert`` (phase 18, the last on rank 0) and
+   ``serving_pipelined``, ``serving_serial``, ``serving_bitwise``,
+   ``serving_hot_swap``, ``serving_failover`` and ``serving_pool`` (phase
+   19), and K1-K3 gain their times at the ring's block), then the last
+   line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -591,9 +620,14 @@ from mxnet_tpu_torch.ops import quantization as qops
 from mxnet_tpu_torch.ops.cuda import flash_attention as fa
 from mxnet_tpu_torch.ops.cuda import fused_conv1x1 as fc
 from mxnet_tpu_torch.ops.nn import rnn_param_size
+from mxnet_tpu_torch import config as mt_config
 from mxnet_tpu_torch.optimizer import Adam
 from mxnet_tpu_torch.parallel import ParallelTrainStep, make_mesh
+from mxnet_tpu_torch.resilience import (CheckpointManager, faults,
+                                        verify_checkpoint_dir)
+from mxnet_tpu_torch.serving import tailguard
 from mxnet_tpu_torch.serving.generate import DecodeEndpoint
+from mxnet_tpu_torch.telemetry import slo
 from mxnet_tpu_torch.tensor_inspector import TensorInspector
 from mxnet_tpu_torch.test_utils import get_shapes_detection
 from mxnet_tpu_torch.tools import (RESNET50_V1_PARAM_COUNT, PretrainStep,
@@ -6962,6 +6996,618 @@ def phase_resilience(seed: int, smi: str):
             "tp": ranks[0]["bert"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the pipelined multi-tenant server, hot swap, failover, the pool
+# ---------------------------------------------------------------------------
+SERVE19_DIR = Path(__file__).resolve().parent / "build" / "phase_serving19"
+SERVE_DEVICE = "cuda"          # where every served response must lie
+# tenant: (sequence length, largest bucket, SLO ms, clients, requests a
+# client, most rows a request)
+S19_TENANTS = {"bert512": (512, 32, 1000.0, 4, 24, 8),
+               "bert128": (128, 8, 50.0, 4, 48, 2)}
+S19_SCRIPT = {"bert512": (1, 3, 8, 2, 5, 7, 4, 6),   # (b): rows a request
+              "bert128": (1, 2, 1, 2, 2, 1)}
+S19_SWAP_CLIENTS = 2           # (c): clients a tenant while swapping
+S19_FAILOVER_REQS = 12         # (d): requests of bert128 a drill
+S19_WEDGE_S = 1.5              # (d): the hung step's length
+S19_STALL_S = 0.25             # (d): the watchdog's stall threshold
+S19_POOL_QUEUE = 32            # (e): rows a replica admits
+S19_POOL_CLIENTS = 16          # (e): burst clients, 1-4 rows a request
+S19_POOL_HEDGED = 8            # (e): hedged requests, one row each
+
+
+def _s19_request(rng, seq, max_rows):
+    r = int(rng.integers(1, max_rows + 1))
+    return (rng.integers(0, 30522, (r, seq), dtype=np.int32),
+            rng.integers(0, 2, (r, seq), dtype=np.int32))
+
+
+def _s19_net(named):
+    net = bert_base()
+    load_jax_params(net, named, ctx=gpu())
+    return net.to(torch.bfloat16).eval()
+
+
+def _s19_endpoint(name, net, tenant):
+    seq, top = S19_TENANTS[tenant][:2]
+    return serving.ModelEndpoint(name, net, [(seq,), (seq,)], dtype="int32",
+                                 max_batch_size=top, ctx=gpu())
+
+
+def _s19_executed(ep):
+    c = ep.stats.snapshot()["counters"]
+    return c["batches"] + c["warmup_batches"] + c["swap_probes"]
+
+
+def _s19_drive(submit, plan, seed, until=None):
+    """Closed-loop clients: ``plan`` maps tenant -> (clients, requests a
+    client or None to run until ``until`` is set, request maker); returns
+    {tenant: [(inputs, outputs, latency s)]}, the wall s and the errors."""
+    results = {n: [] for n in plan}
+    errors = []
+    lock = threading.Lock()
+
+    def client(name, i, per, make):
+        rng = np.random.default_rng(seed * 1000 + i)
+        k = 0
+        while (k < per) if per is not None else not until.is_set():
+            x = make(rng)
+            t0 = time.perf_counter()
+            try:
+                out = submit(name, x).result(timeout=300)
+            except Exception as e:    # surfaced by the caller; phase fails
+                errors.append(f"{name}: {e!r}")
+                break
+            with lock:
+                results[name].append((x, out, time.perf_counter() - t0))
+            k += 1
+
+    threads = [threading.Thread(target=client, args=(n, 97 * j + i, per, mk))
+               for j, (n, (clients, per, mk)) in enumerate(plan.items())
+               for i in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    return results, threads, errors, t0
+
+
+def _s19_join(threads, t0):
+    for t in threads:
+        t.join(600)
+    if any(t.is_alive() for t in threads):
+        raise SystemExit("FAIL: phase 19 clients did not finish")
+    return time.perf_counter() - t0
+
+
+def _s19_excess(net, responses):
+    """Worst |served - direct| - (2e-2 + 2e-2 |direct|) (<= 0 passes) over
+    ``responses``, per response; each response must lie on the card and be
+    finite."""
+    out = []
+    with torch.inference_mode():
+        for x, outs, _ in responses:
+            want = net(*(torch.from_numpy(a).to(SERVE_DEVICE) for a in x))
+            worst = -1.0
+            for a, b in zip(outs, want):
+                if a.device.type != SERVE_DEVICE or \
+                        not torch.isfinite(a.float()).all():
+                    raise SystemExit("FAIL: a response is off the card or "
+                                     "not finite")
+                a, b = a.float(), b.float()
+                worst = max(worst, ((a - b).abs() - (2e-2 + 2e-2 * b.abs()))
+                            .max().item())
+            out.append(worst)
+    return out
+
+
+def _s19_quantiles(lat_s):
+    a = np.asarray(lat_s) * 1e3
+    return float(np.percentile(a, 50)), float(np.percentile(a, 99))
+
+
+def _s19_k1_tally(nets):
+    """K1 launches by model: the change of ``fa.launches`` over each of its
+    forwards (one worker runs one forward at a time)."""
+    tally = {n: 0 for n in nets}
+    start = {}
+
+    def pre(name):
+        def hook(module, args):
+            start[name] = fa.launches
+        return hook
+
+    def post(name):
+        def hook(module, args, out):
+            tally[name] += fa.launches - start[name]
+        return hook
+
+    handles = []
+    for name, net in nets.items():
+        handles.append(torch.nn.Module.register_forward_pre_hook(
+            net, pre(name)))
+        handles.append(torch.nn.Module.register_forward_hook(
+            net, post(name)))
+    return tally, handles
+
+
+def _s19_multitenant(seed, smi, nets, layers):
+    """(a) two tenants on one server, pipelined and serial; (b) bitwise."""
+    ok = True
+    served = {}
+    runs = {}
+    tally, handles = _s19_k1_tally(nets)
+    for pipe in (True, False):
+        tag = "pipelined" if pipe else "serial"
+        for n in tally:
+            tally[n] = 0
+        fa.launches = 0
+        eps = {n: _s19_endpoint(f"{n}_{tag}", nets[n], n) for n in nets}
+        server = serving.InferenceServer(batch_timeout_ms=2.0, max_queue=512,
+                                         pipeline=pipe)
+        for n, ep in eps.items():
+            server.register(ep, slo_ms=S19_TENANTS[n][2])
+        server.start()
+        plan = {}
+        for n in eps:
+            seq, _, _, clients, per, rows = S19_TENANTS[n]
+            plan[eps[n].name] = (clients, per, lambda rng, s=seq, r=rows:
+                                 _s19_request(rng, s, r))
+        results, threads, errors, t0 = _s19_drive(server.submit, plan, seed)
+        wall = _s19_join(threads, t0)
+        overlap = server.health()["prep_overlap_ratio"]
+        server.stop(drain=True)
+        launches = fa.launches
+        if errors:
+            raise SystemExit(f"FAIL: 19(a) client errors {errors[:3]}")
+        runs[tag] = {"launches": launches, "overlap": overlap}
+        for n, ep in eps.items():
+            snap = ep.stats.snapshot()
+            res = results[ep.name]
+            served[(tag, n)] = res
+            exp = layers * _s19_executed(ep)
+            lat = [r[2] for r in res]
+            p50, p99 = _s19_quantiles(lat)
+            slo_ms = S19_TENANTS[n][2]
+            met = sum(v * 1e3 <= slo_ms for v in lat) / len(lat)
+            qw, pr = snap["queue_wait"], snap["prep"]
+            print(f"19(a) {tag} {n} (S={S19_TENANTS[n][0]}, buckets "
+                  f"{ep.buckets[0]}-{ep.buckets[-1]}, SLO {slo_ms:g} ms): "
+                  f"{len(res)} requests in {snap['counters']['batches']} "
+                  f"batches, {len(res) / wall:.2f} requests/s, p50 "
+                  f"{p50:.2f} ms, p99 {p99:.2f} ms, SLO met {met:.3f}, queue "
+                  f"wait p50 {qw['p50_us'] / 1e3:.2f} ms p99 "
+                  f"{qw['p99_us'] / 1e3:.2f} ms, prep p50 {pr['p50_us']:.0f} "
+                  f"us p99 {pr['p99_us']:.0f} us, step p50 "
+                  f"{snap['step']['p50_us'] / 1e3:.2f} ms; K1 launches "
+                  f"{tally[n]} (expected {layers} x {_s19_executed(ep)} = "
+                  f"{exp}) on {smi}")
+            if tally[n] != exp:
+                ok = False
+                print(f"FAIL: 19(a) {tag} {n}: K1 launches")
+            if snap["counters"]["completed"] != len(res):
+                ok = False
+                print(f"FAIL: 19(a) {tag} {n}: completed "
+                      f"{snap['counters']['completed']} of {len(res)}")
+        print(f"19(a) {tag}: wall {wall:.2f} s, prep overlap ratio "
+              f"{overlap:.3f}, K1 launches {launches} (both tenants)")
+        if launches != sum(tally.values()):
+            ok = False
+            print("FAIL: 19(a) K1 launches outside the tenants' forwards")
+    for h in handles:
+        h.remove()
+    # phase 3's traffic (one tenant, 8 closed-loop clients) on both paths
+    for pipe in (True, False):
+        tag = "pipelined" if pipe else "serial"
+        fa.launches = 0
+        ep = _s19_endpoint(f"bert512_alone_{tag}", nets["bert512"], "bert512")
+        server = serving.InferenceServer(batch_timeout_ms=2.0, max_queue=512,
+                                         pipeline=pipe)
+        server.register(ep)
+        server.start()
+        results, threads, errors, t0 = _s19_drive(
+            server.submit, {ep.name: (N_CLIENTS, REQS_PER_CLIENT, lambda rng:
+                                      _s19_request(rng, SEQ_LEN, 8))}, seed)
+        wall = _s19_join(threads, t0)
+        server.stop(drain=True)
+        launches = fa.launches
+        runs[tag]["launches"] += launches
+        snap = ep.stats.snapshot()
+        p50, p99 = _s19_quantiles([r[2] for r in results[ep.name]])
+        print(f"19(a) {tag} bert512 alone, phase 3's traffic ({N_CLIENTS} "
+              f"clients x {REQS_PER_CLIENT} requests of 1-8 rows): "
+              f"{len(results[ep.name]) / wall:.2f} requests/s in "
+              f"{snap['counters']['batches']} batches, occupancy "
+              f"{snap['batch_occupancy']:.3f}, p50 {p50:.2f} ms, p99 "
+              f"{p99:.2f} ms, step p50 {snap['step']['p50_us'] / 1e3:.2f} "
+              f"ms, prep overlap {server.health()['prep_overlap_ratio']:.3f}; "
+              f"K1 launches {launches} (expected {layers} x "
+              f"{_s19_executed(ep)})")
+        if errors or launches != layers * _s19_executed(ep):
+            ok = False
+            print(f"FAIL: 19(a) {tag} bert512 alone: errors {errors[:2]} or "
+                  "K1 launches")
+
+    # (b) every response of (a) against the direct forward, on the card
+    worst = max(max(_s19_excess(nets[n], res))
+                for (tag, n), res in served.items())
+    print(f"19(b) {sum(len(r) for r in served.values())} responses of (a) "
+          f"vs the direct forward: max(|d| - tol) = {worst:.4g} (pass if "
+          f"<= 0, tol 2e-2 + 2e-2 |direct|), every one on the card")
+    ok = ok and worst <= 0
+    # a scripted stream, one request at a time: pipelined and serial
+    # assemble the same rows into the same buckets
+    fa.launches = 0
+    outs, executed = {}, 0
+    rng = np.random.default_rng(seed + 19)
+    script = [(n, _s19_request_rows(rng, S19_TENANTS[n][0], r))
+              for n in nets for r in S19_SCRIPT[n]]
+    for pipe in (True, False):
+        tag = "pipelined" if pipe else "serial"
+        eps = {n: _s19_endpoint(f"{n}_script_{tag}", nets[n], n)
+               for n in nets}
+        server = serving.InferenceServer(batch_timeout_ms=1.0, pipeline=pipe)
+        for ep in eps.values():
+            server.register(ep, warmup=False)
+        server.start()
+        outs[tag] = [server.predict(eps[n].name, x, timeout=300)
+                     for n, x in script]
+        server.stop(drain=True)
+        executed += sum(_s19_executed(ep) for ep in eps.values())
+    same = all(torch.equal(a, b) for pa, pb in zip(outs["pipelined"],
+                                                   outs["serial"])
+               for a, b in zip(pa, pb))
+    script_launches = fa.launches
+    print(f"19(b) scripted stream ({len(script)} requests, "
+          f"{[n for n, _ in script].count('bert512')} of bert512): "
+          f"pipelined byte for byte the serial path: {same}; K1 launches "
+          f"{script_launches} (expected {layers} x {executed} = "
+          f"{layers * executed})")
+    ok = ok and same and script_launches == layers * executed
+    return ok, runs, script_launches
+
+
+def _s19_request_rows(rng, seq, rows):
+    return (rng.integers(0, 30522, (rows, seq), dtype=np.int32),
+            rng.integers(0, 2, (rows, seq), dtype=np.int32))
+
+
+def _s19_hot_swap(seed, smi, nets, named, layers):
+    """(c) three hot-swap cycles under load, then two refused swaps."""
+    ok = True
+    shutil.rmtree(SERVE19_DIR, ignore_errors=True)
+    SERVE19_DIR.mkdir(parents=True, exist_ok=True)
+    base = named["bert512"]
+    sets = {"base": base,
+            "w1": seeded_bert_weights(bert_base(), seed + 101),
+            "w2": seeded_bert_weights(bert_base(), seed + 102)}
+    dirs = {}
+    t0 = time.perf_counter()
+    for tag in ("w1", "w2"):
+        src = _s19_endpoint(f"bert512_src_{tag}", _s19_net(sets[tag]),
+                            "bert512")
+        dirs[tag] = str(SERVE19_DIR / tag)
+        src.save_checkpoint(CheckpointManager(dirs[tag], fsync=False), 1,
+                            probe_seed=seed + 7)
+        serving.unregister(src.name)
+        del src
+    save_s = time.perf_counter() - t0
+    fa.launches = 0
+    eps = {n: _s19_endpoint(f"{n}_swap", nets[n], n) for n in nets}
+    server = serving.InferenceServer(batch_timeout_ms=2.0, max_queue=512,
+                                     pipeline=True)
+    for n, ep in eps.items():
+        server.register(ep, slo_ms=S19_TENANTS[n][2])
+    server.start()
+    stop = threading.Event()
+    plan = {eps[n].name: (S19_SWAP_CLIENTS, None,
+                          lambda rng, s=S19_TENANTS[n][0],
+                          r=S19_TENANTS[n][5]: _s19_request(rng, s, r))
+            for n in nets}
+    results, threads, errors, t_load = _s19_drive(server.submit, plan,
+                                                  seed + 3, until=stop)
+    swap_s, reports = [], []
+    try:
+        time.sleep(0.5)
+        for tag in ("w1", "w2", "w1"):
+            t1 = time.perf_counter()
+            reports.append(server.hot_swap("bert512_swap", dirs[tag],
+                                           timeout=300))
+            swap_s.append(time.perf_counter() - t1)
+            time.sleep(0.3)
+    finally:
+        stop.set()
+        _s19_join(threads, t_load)
+    ep = eps["bert512"]
+    epochs = [r["weights_epoch"] for r in reports]
+    # two refused swaps: a corrupt checkpoint and a probe mismatch
+    probe_x = _s19_request_rows(np.random.default_rng(seed + 5), 512, 2)
+    before = server.predict("bert512_swap", probe_x, timeout=300)
+    wrong = verify_checkpoint_dir(os.path.join(dirs["w2"], "ckpt-00000001"))
+    wrong["model"]["params"]["p0"] = wrong["model"]["params"]["p0"] + 1.0
+    npz = os.path.join(dirs["w2"], "ckpt-00000001", "state.npz")
+    raw = bytearray(Path(npz).read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    Path(npz).write_bytes(bytes(raw))
+    refused = {}
+    for what, source in (("corrupt", dirs["w2"]), ("probe mismatch", wrong)):
+        try:
+            server.hot_swap("bert512_swap", source, timeout=300)
+            refused[what] = "swapped"
+        except serving.HotSwapError as e:
+            refused[what] = str(e)
+    after = server.predict("bert512_swap", probe_x, timeout=300)
+    server.stop(drain=True)
+    launches = fa.launches
+    executed = sum(_s19_executed(e) for e in eps.values())
+    kept = all(torch.equal(a, b) for a, b in zip(before, after))
+    errs = len(errors)
+    # every response within tolerance of the old or the new weights
+    chk = {tag: _s19_net(w) for tag, w in sets.items()}
+    res512 = results["bert512_swap"]
+    matches = np.min([_s19_excess(chk[t], res512) for t in chk], axis=0)
+    worst512 = float(matches.max()) if len(res512) else 0.0
+    worst128 = max(_s19_excess(nets["bert128"], results["bert128_swap"]))
+    lat = [r[2] for r in res512]
+    p50, p99 = _s19_quantiles(lat)
+    print(f"19(c) hot swap under load: 2 checkpoints saved in {save_s:.1f} s "
+          f"(BERT-base f32 in CheckpointManager's format, recorded probes); "
+          f"3 cycles w1, w2, w1 in {[round(s, 2) for s in swap_s]} s "
+          f"(verify + stage + probe + cutover), weights_epoch "
+          f"{ep.weights_epoch} (reports {epochs}); "
+          f"{len(res512)} + {len(results['bert128_swap'])} requests "
+          f"served during the swaps, {errs} errors, bert512 p50 {p50:.2f} "
+          f"ms p99 {p99:.2f} ms; each bert512 response within tolerance of "
+          f"the base, w1 or w2 weights' direct forward: max(|d| - tol) "
+          f"{worst512:.4g}, bert128 {worst128:.4g}; refused: "
+          f"{ {k: v[:60] for k, v in refused.items()} }; the "
+          f"old weights kept serving bitwise: {kept}; K1 launches {launches} "
+          f"(expected {layers} x {executed} = {layers * executed}) on {smi}")
+    ok = (ok and errs == 0 and epochs == [1, 2, 3] and ep.weights_epoch == 3
+          and worst512 <= 0 and worst128 <= 0 and kept
+          and "checksum" in refused["corrupt"]
+          and "rolled back" in refused["probe mismatch"]
+          and launches == layers * executed)
+    shutil.rmtree(SERVE19_DIR, ignore_errors=True)
+    return ok, launches
+
+
+def _s19_failover(seed, smi, nets, layers):
+    """(d) a worker death and a wedge under a PoolSupervisor."""
+    ok = True
+    launches = 0
+    old_hook = threading.excepthook
+
+    def quiet(args):                  # the drill's killed worker
+        if not isinstance(args.exc_value, faults.WorkerKilled):
+            old_hook(args)
+
+    threading.excepthook = quiet
+    try:
+        for drill in ("worker_kill", "wedge"):
+            fa.launches = 0
+            ep = _s19_endpoint(f"bert128_{drill}", nets["bert128"],
+                               "bert128")
+            server = serving.InferenceServer(
+                batch_timeout_ms=2.0, max_queue=512, pipeline=True,
+                watchdog_stall_s=S19_STALL_S if drill == "wedge" else None)
+            server.register(ep)
+            server.start()
+            sup = serving.PoolSupervisor(server, poll_s=0.02).start()
+            marks = []
+            server.add_stall_listener(
+                lambda name, dt: marks.append(time.perf_counter() - dt))
+            rng = np.random.default_rng(seed + 23)
+            xs = [_s19_request(rng, 128, 2) for _ in range(S19_FAILOVER_REQS)]
+            done = [None] * len(xs)
+
+            def stamp(i):
+                return lambda f: done.__setitem__(i, time.perf_counter())
+
+            def killed(kind, site, count):
+                marks.append(time.perf_counter())
+                return faults.WorkerKilled(kind, site, count, False,
+                                           "drill: worker killed")
+
+            rule = (faults.inject("worker_kill", site="serving_dispatch",
+                                  at=(2,), exc=killed)
+                    if drill == "worker_kill" else
+                    faults.inject("hang", site="serving_dispatch",
+                                  seconds=S19_WEDGE_S, at=(2,)))
+            with rule as inj:
+                futs = []
+                for i, x in enumerate(xs):
+                    f = server.submit(ep.name, x)
+                    f.add_done_callback(stamp(i))
+                    futs.append(f)
+                outs = [f.result(timeout=300) for f in futs]
+                fires = inj.fires
+            time.sleep(S19_WEDGE_S + 0.2 if drill == "wedge" else 0.0)
+            sup.stop()
+            server.stop(drain=True)
+            drill_launches = fa.launches
+            launches += drill_launches
+            snap = ep.stats.snapshot()["counters"]
+            executed = _s19_executed(ep)
+            excess = max(_s19_excess(nets["bert128"],
+                                     [(x, o, 0) for x, o in zip(xs, outs)]))
+            rep = sup.reports[0] if sup.reports else {}
+            recover = (max(done) - marks[0]) * 1e3 if marks else float("nan")
+            print(f"19(d) {drill}: {fires} fault(s), failover "
+                  f"{rep.get('reason')} (epoch {rep.get('epoch')}), "
+                  f"{rep.get('requeued')} requests requeued, "
+                  f"{snap['completed']} of {len(xs)} completed once "
+                  f"(submitted {snap['submitted']}), max(|d| - tol) "
+                  f"{excess:.4g}; recovered {recover:.1f} ms after the "
+                  f"fault; K1 launches {drill_launches} (expected {layers} x "
+                  f"{executed} = {layers * executed}) on {smi}")
+            want = "worker_dead" if drill == "worker_kill" else \
+                "worker_wedged"
+            if not (fires == 1 and rep.get("reason") == want
+                    and rep.get("requeued", 0) >= 1
+                    and snap["completed"] == len(xs) == snap["submitted"]
+                    and excess <= 0
+                    and drill_launches == layers * executed):
+                ok = False
+                print(f"FAIL: 19(d) {drill}")
+    finally:
+        threading.excepthook = old_hook
+    return ok, launches
+
+
+def _s19_pool(seed, smi, named, layers):
+    """(e) a ServingPool of up to two replicas under an Autoscaler."""
+    ok = True
+    for obj in slo.MONITOR.objectives():  # (a)-(d)'s objectives are done
+        slo.MONITOR.unregister(obj.name)
+    built = []
+
+    def factory(rid):
+        net = _s19_net(named["bert128"])
+        ep = _s19_endpoint("bert128_pool", net, "bert128")
+        built.append((net, ep))
+        srv = serving.InferenceServer(batch_timeout_ms=2.0,
+                                      max_queue=S19_POOL_QUEUE,
+                                      pipeline=True)
+        srv.register(ep, slo_ms=1000.0)
+        return srv
+
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    pool = serving.ServingPool(factory, initial_replicas=1)
+    scaler = serving.Autoscaler(pool, min_replicas=1, max_replicas=2,
+                                poll_s=0.1, up_n=2, down_n=5,
+                                cooldown_s=0.5, queue_high=0.5,
+                                queue_low=0.05).start()
+    shed = [0]
+
+    def submit(name, x):
+        while True:
+            try:
+                return pool.submit(name, x)
+            except serving.ServerOverloadError:
+                shed[0] += 1          # backpressure: back off and resubmit
+                time.sleep(0.005)
+
+    # a burst: queue pressure scales the pool up
+    stop = threading.Event()
+    burst, threads, errors, tb = _s19_drive(
+        submit, {"bert128_pool": (S19_POOL_CLIENTS, None, lambda rng:
+                                  _s19_request(rng, 128, 4))},
+        seed + 29, until=stop)
+    limit = time.perf_counter() + 60
+    while pool.size() < 2 and time.perf_counter() < limit:
+        time.sleep(0.05)
+    up_s = time.perf_counter() - tb
+    time.sleep(0.5)                   # both replicas serve the burst
+    stop.set()
+    _s19_join(threads, tb)
+    scaler.stop()
+    peak = torch.cuda.max_memory_allocated()
+    replicas = [r.server for r in pool._rotation()]
+    # hedged responses bitwise the unhedged ones of a replica
+    rng = np.random.default_rng(seed + 31)
+    xs = [_s19_request_rows(rng, 128, 1) for _ in range(S19_POOL_HEDGED)]
+    alone = [[srv.predict("bert128_pool", x, timeout=300) for x in xs]
+             for srv in replicas]
+    knobs = {"MXNET_HEDGE_ENABLE": True, "MXNET_HEDGE_BUDGET_RATIO": 1.0,
+             "MXNET_HEDGE_DELAY_MIN_MS": 0.0, "MXNET_HEDGE_DELAY_FACTOR": 0.0}
+    saved = {k: mt_config.get(k) for k in knobs}
+    for k, v in knobs.items():
+        mt_config.set(k, v)
+    tailguard.hedge_reset()
+    before = dict(tailguard.hedge_counts)
+    hedged = []
+    try:
+        for x in xs:
+            # an empty latency ring: the hedge delay is 0 for each request
+            tailguard.HEDGER.reset()
+            hedged.append(pool.submit("bert128_pool", x).result(timeout=300))
+    finally:
+        for k, v in saved.items():
+            mt_config.set(k, v)
+        tailguard.hedge_reset()
+    hedges = {k: tailguard.hedge_counts[k] - before[k] for k in before}
+    bitwise = all(any(all(torch.equal(a, b) for a, b in zip(h, ref[i]))
+                      for ref in alone) for i, h in enumerate(hedged))
+    replicas_agree = all(torch.equal(a, b) for i in range(len(xs))
+                         for a, b in zip(alone[0][i], alone[-1][i]))
+    # quiet: the pool drains back to one replica, dropping nothing
+    quiet_stop = threading.Event()
+    trickle, threads, q_errors, tq = _s19_drive(
+        pool.submit, {"bert128_pool": (2, None, lambda rng:
+                                       _s19_request(rng, 128, 1))},
+        seed + 37, until=quiet_stop)
+    scaler.start()
+    limit = time.perf_counter() + 30
+    while pool.size() > 1 and time.perf_counter() < limit:
+        time.sleep(0.05)
+    time.sleep(0.3)
+    quiet_stop.set()
+    _s19_join(threads, tq)
+    scaler.stop()
+    after_quiet = pool.size()
+    pool.stop(drain=True)
+    wall = time.perf_counter() - t0
+    launches = fa.launches
+    executed = sum(_s19_executed(ep) for _, ep in built)
+    responses = burst["bert128_pool"] + trickle["bert128_pool"]
+    excess = max(_s19_excess(built[0][0], responses))
+    actions = [(a["action"], a["replicas"], a["queue_pressure"])
+               for a in scaler.actions]
+    weights_b = sum(t.numel() * t.element_size()
+                    for t in built[0][0].state_dict().values())
+    print(f"19(e) pool of {len(built)} replicas built (its own server, "
+          f"streams and weights each): burst of {S19_POOL_CLIENTS} "
+          f"clients ({len(burst['bert128_pool'])} requests, {shed[0]} "
+          f"overload resubmits) scaled up in {up_s:.2f} s; actions "
+          f"{actions}; quiet: back to {after_quiet} replica(s) with "
+          f"{len(trickle['bert128_pool'])} requests served during the "
+          f"drain, errors {len(errors) + len(q_errors)}; hedged "
+          f"{len(xs)}: bitwise a replica's unhedged response {bitwise} "
+          f"(replicas agree bitwise: {replicas_agree}), hedges {hedges}; "
+          f"every response within tolerance (max(|d| - tol) {excess:.4g}); "
+          f"peak memory {peak / 2**30:.2f} GiB, {(peak - base_bytes) / 2**30:.2f} "
+          f"GiB above the {base_bytes / 2**30:.2f} GiB held before the pool "
+          f"({weights_b / 2**20:.0f} MiB of weights a replica); K1 "
+          f"launches {launches} (expected "
+          f"{layers} x {executed} = {layers * executed}); {wall:.1f} s on "
+          f"{smi}")
+    ups = [a for a in actions if a[0] == "up"]
+    downs = [a for a in actions if a[0] == "down"]
+    ok = (ok and ups and downs and not errors and not q_errors
+          and bitwise and hedges["requests"] >= len(xs) // 2
+          and excess <= 0
+          and launches == layers * executed and after_quiet == 1)
+    tailguard.BROWNOUT.reset()
+    return ok, launches, peak
+
+
+def phase_multitenant(seed: int, smi: str):
+    """Phase 19: the pipelined multi-tenant server on BERT-base."""
+    t_phase = time.perf_counter()
+    named = {"bert512": seeded_bert_weights(bert_base(), seed),
+             "bert128": seeded_bert_weights(bert_base(), seed + 1)}
+    nets = {n: _s19_net(w) for n, w in named.items()}
+    layers = len(nets["bert512"].encoder._layers)
+    ok_a, runs, script = _s19_multitenant(seed, smi, nets, layers)
+    ok_c, swap = _s19_hot_swap(seed, smi, nets, named, layers)
+    ok_d, failover = _s19_failover(seed, smi, nets, layers)
+    ok_e, pool, peak = _s19_pool(seed, smi, named, layers)
+    for part, good in (("(a)-(b)", ok_a), ("(c)", ok_c), ("(d)", ok_d),
+                       ("(e)", ok_e)):
+        if not good:
+            print(f"FAIL: 19{part}")
+    if not (ok_a and ok_c and ok_d and ok_e):
+        raise SystemExit("FAIL: phase 19")
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return {"serving_pipelined": runs["pipelined"]["launches"],
+            "serving_serial": runs["serial"]["launches"],
+            "serving_bitwise": script, "serving_hot_swap": swap,
+            "serving_failover": failover, "serving_pool": pool}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7004,6 +7650,7 @@ def main(argv=None) -> int:
     dist = phase_distributed(args.seed, smi)
     s17 = phase_slice17(args.seed, smi)
     s18 = phase_resilience(args.seed, smi)
+    s19 = phase_multitenant(args.seed, smi)
     q_hand = {"int8_resnet": {k: quant["resnet"]["f32"]["hand"][k]
                               + quant["resnet"]["int8"]["hand"][k]
                               for k in ("K1", "K2", "K3", "K4", "K5")},
@@ -7033,7 +7680,7 @@ def main(argv=None) -> int:
          + sum(c["flash_attention_fwd"] for c in amp_launches.values())
          + sp["hand"]["K1"] + data["hand"]["K1"] + util["hand"]["K1"]
          + sum(h["K1"] for h in q_hand.values())
-         + sum(h["K1"] for h in d_hand.values()),
+         + sum(h["K1"] for h in d_hand.values()) + sum(s19.values()),
          "launches_by_path": {
              "serving": serve_launches,
              "training": train_launches["flash_attention_fwd"],
@@ -7047,7 +7694,7 @@ def main(argv=None) -> int:
              "data_resnet": data["hand"]["K1"],
              "estimator_resnet": util["hand"]["K1"],
              **{path: h["K1"] for path, h in q_hand.items()},
-             **{path: h["K1"] for path, h in d_hand.items()}},
+             **{path: h["K1"] for path, h in d_hand.items()}, **s19},
          "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"],
                             gen["k1_max_abs_err"],
                             *(ring[c]["fwd"]["max_abs_err"]

@@ -113,11 +113,85 @@ register("MXNET_BN_BF16_REDUCE", True, bool,
 register("MXNET_OPT_BF16_MOMENTS", False, bool,
          "Adam/AdamW: store the moments in bfloat16 (f32 arithmetic).")
 register("MXNET_SUPERVISOR_POLL_S", 0.05, float,
-         "Decode scheduler: how often the monitor thread checks that the "
-         "decode worker thread is alive (failover on its death).")
+         "PoolSupervisor and the decode scheduler's monitor: how often the "
+         "serving worker/prep threads (or the decode worker) are checked "
+         "for death or a wedged in-flight batch (stall detection itself "
+         "rides the Watchdog).")
 register("MXNET_SERVING_DRAIN_TIMEOUT_S", 30.0, float,
-         "DecodeScheduler.stop(drain=True): longest wait for the drain; "
-         "past it the remaining sequences fail with ServerClosedError.")
+         "InferenceServer.stop(drain=True) and DecodeScheduler.stop: "
+         "longest wait for the drain; past it the remaining requests fail "
+         "(ServerClosedError queued, RequestTimeoutError inside a batch).")
+register("MXNET_SERVING_PIPELINE_DEPTH", 1, int,
+         "InferenceServer: prepared batches the prep thread may run ahead "
+         "of the worker. Depth d cycles d+1 staging slots (pinned host "
+         "buffers and device inputs); 1 is double buffering. "
+         "pipeline=False ignores it.")
+register("MXNET_SLO_TARGET", 0.999, float,
+         "SLO monitor: default objective target (fraction of requests "
+         "under the endpoint's slo_ms) when register() passes none.")
+register("MXNET_SLO_FAST_WINDOW_S", 300.0, float,
+         "SLO monitor: fast burn-rate window (seconds).")
+register("MXNET_SLO_SLOW_WINDOW_S", 3600.0, float,
+         "SLO monitor: slow burn-rate window (seconds).")
+register("MXNET_SLO_BURN_THRESHOLD", 10.0, float,
+         "SLO monitor: burn-rate multiple (bad ratio / error budget) both "
+         "windows must exceed before the alert fires.")
+register("MXNET_SLO_MIN_EVENTS", 10, int,
+         "SLO monitor: fewest requests in the fast window before an alert "
+         "may fire.")
+register("MXNET_SLO_ESCALATE", False, bool,
+         "SLO monitor: a firing alert forces the tenant's circuit breaker "
+         "to DEGRADED (admission tightened to half its queue bound).")
+register("MXNET_AUTOSCALE_MIN_REPLICAS", 1, int,
+         "Autoscaler: floor on the replica count.")
+register("MXNET_AUTOSCALE_MAX_REPLICAS", 4, int,
+         "Autoscaler: ceiling on the replica count.")
+register("MXNET_AUTOSCALE_POLL_S", 1.0, float,
+         "Autoscaler: seconds between polls of its signals.")
+register("MXNET_AUTOSCALE_UP_N", 2, int,
+         "Autoscaler: consecutive over-pressure polls before a scale-up.")
+register("MXNET_AUTOSCALE_DOWN_N", 5, int,
+         "Autoscaler: consecutive idle polls before a scale-down.")
+register("MXNET_AUTOSCALE_COOLDOWN_S", 10.0, float,
+         "Autoscaler: least seconds between two scaling actions.")
+register("MXNET_AUTOSCALE_QUEUE_HIGH", 0.5, float,
+         "Autoscaler: queue pressure (worst endpoint's pending rows over "
+         "its bound, averaged over replicas) at which a poll is over "
+         "pressure.")
+register("MXNET_AUTOSCALE_QUEUE_LOW", 0.05, float,
+         "Autoscaler: queue pressure at or under which (no alert, burn "
+         "under 1) a poll is idle.")
+register("MXNET_HEDGE_ENABLE", True, bool,
+         "ServingPool: duplicate a still-pending request onto the next "
+         "replica after the adaptive hedge delay (first response wins, the "
+         "loser is cancelled at batch assembly).")
+register("MXNET_HEDGE_BUDGET_RATIO", 0.05, float,
+         "Hedging: token-bucket income per primary submit (the ceiling on "
+         "hedged traffic as a fraction of the total); <= 0 disables.")
+register("MXNET_HEDGE_DELAY_FACTOR", 2.0, float,
+         "Hedging: multiple of the predicted step cost in the hedge delay "
+         "(max of the observed p95 latency and predicted step x factor).")
+register("MXNET_HEDGE_DELAY_MIN_MS", 10.0, float,
+         "Hedging: floor on the hedge delay, milliseconds.")
+register("MXNET_RETRY_BUDGET_RATIO", 0.1, float,
+         "Retry budgets: tokens a tier earns a unit of work done (a batch "
+         "stepped, a decode step); a retry costs one; <= 0 disables "
+         "budgeting.")
+register("MXNET_RETRY_BUDGET_MIN", 50.0, float,
+         "Retry budgets: the tokens each tier's bucket starts with.")
+register("MXNET_RETRY_BUDGET_CAP", 500.0, float,
+         "Retry budgets: ceiling on each tier's bucket.")
+register("MXNET_BROWNOUT_ENABLE", True, bool,
+         "Brownout ladder: let the controller leave level 0 under "
+         "sustained SLO burn; 0 pins level 0.")
+register("MXNET_BROWNOUT_UP_N", 2, int,
+         "Brownout: consecutive burning ticks before one level down.")
+register("MXNET_BROWNOUT_DOWN_N", 3, int,
+         "Brownout: consecutive calm ticks before one level back up.")
+register("MXNET_BROWNOUT_MAX_NEW_TOKENS", 32, int,
+         "Brownout level >= 1: clamp on decode max_new_tokens.")
+register("MXNET_BROWNOUT_TIMEOUT_BOOST", 4.0, float,
+         "Brownout level >= 1: multiplier on batch timeouts.")
 register("MXNET_KV_PAGE_SIZE", 16, int,
          "Paged KV cache: token positions per page.")
 register("MXNET_KV_POOL_PAGES", 256, int,

@@ -26,10 +26,10 @@ The acceptance bar is the reference's: under an injected device OOM every
 equal to the uninterrupted run (``tests/test_torch_resilience.py`` on the
 CPU; ``chip_smoke.py`` phase 18 with BERT-base on the card).
 
-Not ported here: the serving half (dispatch retries, the breaker and the
-watchdog inside ``InferenceServer``, weight hot-swap, worker failover
-reports; ROADMAP Q1.11), the telemetry families (Q1.12, plain attributes
-until then) and ``tools/chaos_check.py``.
+The serving half (dispatch retries, the breaker and the watchdog inside
+``InferenceServer``, weight hot swap, worker failover) lives in
+``serving/``. Not ported: the telemetry families (ROADMAP Q1.12, plain
+attributes until then) and ``tools/chaos_check.py`` (Q1.11b).
 """
 from __future__ import annotations
 

@@ -12,8 +12,8 @@ The boundaries (``SITES``) are the reference's:
 
     ``train_step``        ParallelTrainStep, before each attempt's compute
     ``compile``           the first run of a train step or of a decode bucket
-    ``serving_dispatch``  InferenceServer's device batch step (Q1.11)
-    ``serving_prep``      the serving host pipeline (Q1.11)
+    ``serving_dispatch``  InferenceServer's device batch step
+    ``serving_prep``      the serving host pipeline
     ``checkpoint_write``  CheckpointManager, between file write and fsync
     ``preemption``        PreemptionGuard's poll point, once per step
     ``numerics``          NumericsGuard's input shim, once per guarded step
@@ -22,7 +22,8 @@ The boundaries (``SITES``) are the reference's:
                           PagedKVPool.reserve
     ``exec_cache``        the reference's executable cache (no port)
     ``emb_dispatch``      DLRMTrainStep, before the step's exchange
-    ``frontdoor``, ``pool_submit``  serving front door and pool (Q1.11)
+    ``pool_submit``       ServingPool.submit
+    ``frontdoor``         the serving front door (not ported: Q1.11b)
 
 ``check`` is one truthiness test when nothing is injected. ``every_n`` and
 ``at`` count matching calls exactly; ``p=`` draws from a private

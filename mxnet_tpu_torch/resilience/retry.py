@@ -13,10 +13,11 @@ so only a new process can go on, from the latest checkpoint.
 The jitter is drawn from ``random.Random(seed)`` as in the reference, so
 :meth:`RetryPolicy.delay_ms` gives the reference's numbers for a seed.
 
-Not ported yet: the serving tier's retry budget (``budget_tier``, the
-tailguard's buckets, ROADMAP Q1.11); the ``mxtpu_retries_total`` counter
-is the plain dict :data:`retries_total` (by (site, error)) until the
-port's telemetry (Q1.12), and the OOM flight bundle waits for it too.
+``run(budget_tier=)`` spends one token of the serving tail guard's
+per-tier retry budget (``serving/tailguard.py``) on every retry, so a
+retry storm ends in bounded shed. The ``mxtpu_retries_total`` counter is
+the plain dict :data:`retries_total` (by (site, error)) until the port's
+telemetry (ROADMAP Q1.12), and the OOM flight bundle waits for it too.
 """
 from __future__ import annotations
 
@@ -89,6 +90,13 @@ def _now_us() -> int:
     return time.perf_counter_ns() // 1000
 
 
+def _retry_budget_allowed(tier: str) -> bool:
+    """The tail guard's verdict for one retry at ``tier`` (imported here:
+    the serving package imports this module)."""
+    from ..serving import tailguard
+    return tailguard.retry_allowed(tier)
+
+
 class RetryPolicy:
     """``run(fn)`` calls ``fn`` up to ``max_attempts`` times, sleeping
     ``base_ms * multiplier**attempt`` (capped at ``max_ms``, jittered by
@@ -133,11 +141,15 @@ class RetryPolicy:
 
     def run(self, fn: Callable, site: str = "generic",
             deadline_us: Optional[int] = None,
-            on_retry: Optional[Callable] = None):
+            on_retry: Optional[Callable] = None,
+            budget_tier: Optional[str] = None):
         """Call ``fn()`` under this policy. ``deadline_us`` (absolute,
         ``time.perf_counter_ns() // 1000``) clamps each backoff to what is
         left and, when nothing is, raises the serving ``DeadlineExceeded``
-        over the last error. ``on_retry(exc, attempt, delay_s)`` runs
+        chained over the last error. ``budget_tier`` names a tail-guard
+        retry budget ("execute", "decode", ...): each retry must win a
+        token from it, and a dry bucket re-raises the last error. None
+        leaves retries unbudgeted. ``on_retry(exc, attempt, delay_s)`` runs
         before each sleep; raising from it aborts the retry (the train step
         refuses once its in-place update has begun)."""
         attempt = 0
@@ -157,6 +169,9 @@ class RetryPolicy:
                             f"after attempt {attempt + 1} "
                             f"({type(e).__name__}: {str(e)[:120]})") from e
                     delay_s = min(delay_s, remaining_s)
+                if budget_tier is not None and \
+                        not _retry_budget_allowed(budget_tier):
+                    raise
                 if on_retry is not None:
                     on_retry(e, attempt, delay_s)
                 key = (site, type(e).__name__)

@@ -16,9 +16,10 @@ The :class:`CircuitBreaker` state machine::
     any state --(success)-------------------> HEALTHY
 
 ``allow()`` is the admission gate (False while OPEN; a bounded number of
-probes while HALF_OPEN). Both are modules here: wiring them into the
-port's ``InferenceServer`` (``health()``, shedding, the stall hook) is
-ROADMAP Q1.11's, and the reference's ``mxtpu_watchdog_stalls_total`` and
+probes while HALF_OPEN). The serving ``InferenceServer`` keeps a breaker
+per tenant behind admission and ``health()``, and a Watchdog on each
+device step whose stall degrades the tenant. The reference's
+``mxtpu_watchdog_stalls_total`` and
 ``mxtpu_circuit_state`` are :data:`stalls_total` and
 :attr:`CircuitBreaker.code` until the port's telemetry (Q1.12).
 """

@@ -1,14 +1,21 @@
-"""Serving-layer errors a client can branch on (a copy of the part of
-``mxnet_tpu/serving/errors.py`` the port's serial server and its decode
-scheduler raise): overload is retryable with backoff, a missed deadline is
-not, a closed server is going away, an exhausted KV pool frees up as
-sequences finish. All derive from MXNetError."""
+"""Serving-layer errors a client can branch on (the port of
+``mxnet_tpu/serving/errors.py``): overload is retryable with backoff, a
+missed deadline is not, a closed server is going away, a refused hot swap
+left the old weights serving, an exhausted KV pool frees up as sequences
+finish. All derive from MXNetError.
+
+Every "the latency budget ran out" failure (queue expiry, a retry backoff
+that cannot fit, a decode token past its budget) derives from
+:class:`DeadlineExceeded`, so one ``except DeadlineExceeded`` catches the
+family while ``RequestTimeoutError`` keeps its meaning (expired while
+queued)."""
 from __future__ import annotations
 
 from ..base import MXNetError
 
 __all__ = ["ServingError", "ServerOverloadError", "DeadlineExceeded",
-           "RequestTimeoutError", "ServerClosedError", "KVPoolExhausted"]
+           "RequestTimeoutError", "ServerClosedError", "HotSwapError",
+           "KVPoolExhausted"]
 
 
 class ServingError(MXNetError):
@@ -21,7 +28,9 @@ class ServerOverloadError(ServingError):
 
 
 class DeadlineExceeded(ServingError):
-    """The request's deadline budget ran out. Not retryable."""
+    """The request's end-to-end deadline ran out at some tier (ingress,
+    queue, assembly, a retry backoff that could not fit, decode). Not
+    retryable: the client's budget is spent."""
 
 
 class RequestTimeoutError(DeadlineExceeded):
@@ -31,6 +40,12 @@ class RequestTimeoutError(DeadlineExceeded):
 
 class ServerClosedError(ServingError):
     """The server is stopped or draining and no longer admits new work."""
+
+
+class HotSwapError(ServingError):
+    """A weight hot swap was refused (corrupt or mismatched checkpoint) or
+    its probe failed. The endpoint rolled back and keeps serving the
+    previous weights."""
 
 
 class KVPoolExhausted(ServingError):

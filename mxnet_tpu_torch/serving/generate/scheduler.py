@@ -31,11 +31,16 @@ the step boundary is absorbed and the batch re-formed next iteration;
 failover above requeues its sequences; ``kv_exhausted`` fires in
 ``PagedKVPool.reserve`` and leaves the sequence queued.
 
-Not ported: propagated deadlines and the brownout clamp on
-``max_new_tokens``, the telemetry and flight recorder, and the decode retry
-budget that bounds failover requeues (ROADMAP Q1.11). Without that budget
-a worker that dies on every step is replaced, and its sequences requeued,
-without bound.
+Tail guard (``serving/tailguard.py``): a propagated ``Deadline`` bounds a
+whole generation (an expired one refuses admission, and the loop retires
+a sequence whose budget ran out before it costs another step, site
+``decode_token``); under brownout (level >= 1) ``max_new_tokens`` is
+clamped to ``MXNET_BROWNOUT_MAX_NEW_TOKENS``; every decode step deposits
+into the ``decode`` retry budget and every failover requeue spends a token
+from it, so a worker that dies on every step ends in bounded shed (its
+sequences fail with ServerClosedError) instead of requeueing forever.
+
+Not ported: the telemetry and flight recorder (ROADMAP Q1.12).
 """
 from __future__ import annotations
 
@@ -48,7 +53,8 @@ from typing import Dict, List, Optional, Sequence
 from ... import config as _config
 from ...base import MXNetError
 from ...resilience import faults as _faults
-from ..errors import KVPoolExhausted, ServerClosedError
+from .. import tailguard as _tailguard
+from ..errors import DeadlineExceeded, KVPoolExhausted, ServerClosedError
 from .streams import TokenStream
 
 __all__ = ["DecodeScheduler"]
@@ -75,10 +81,11 @@ class _Tenant:
 class _Seq:
     __slots__ = ("sid", "tenant", "prompt", "max_new", "eos_id", "stream",
                  "state", "emitted", "pos", "prefilled", "enqueue_us",
-                 "last_token_us")
+                 "last_token_us", "deadline")
 
     def __init__(self, sid: int, tenant: _Tenant, prompt: Sequence[int],
-                 max_new: int, eos_id: Optional[int], stream: TokenStream):
+                 max_new: int, eos_id: Optional[int], stream: TokenStream,
+                 deadline=None):
         self.sid = sid
         self.tenant = tenant
         self.prompt = list(prompt)
@@ -91,6 +98,7 @@ class _Seq:
         self.prefilled = False
         self.enqueue_us = _now_us()
         self.last_token_us = 0
+        self.deadline = deadline         # propagated tailguard.Deadline
 
 
 class DecodeScheduler:
@@ -210,15 +218,21 @@ class DecodeScheduler:
     def submit(self, prompt: Sequence[int],
                max_new_tokens: Optional[int] = None,
                tenant: str = "default", eos_id: Optional[int] = None,
-               on_token=None) -> TokenStream:
+               on_token=None, deadline=None) -> TokenStream:
         """Queue one generation; returns its :class:`TokenStream`.
 
         The prompt plus generation budget (``MXNET_DECODE_MAX_TOKENS`` by
         default) must fit the endpoint's ``max_seq_len``: the whole KV
         budget is reserved at admission, so a running sequence never meets
-        pool exhaustion mid-generation."""
+        pool exhaustion mid-generation. ``deadline`` (a propagated
+        ``tailguard.Deadline``) bounds the whole generation; under brownout
+        ``max_new_tokens`` is clamped."""
+        if deadline is not None:
+            deadline.check("ingress")
         if max_new_tokens is None:
             max_new_tokens = int(_config.get("MXNET_DECODE_MAX_TOKENS"))
+        max_new_tokens = _tailguard.BROWNOUT.clamp_max_new_tokens(
+            max_new_tokens)
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise MXNetError("prompt must contain at least one token")
@@ -243,7 +257,8 @@ class DecodeScheduler:
             sid = next(self._sids)
             stream = TokenStream(sid, self._stream_buffer,
                                  on_token=on_token, resume_cb=self._resume)
-            seq = _Seq(sid, ten, prompt, int(max_new_tokens), eos_id, stream)
+            seq = _Seq(sid, ten, prompt, int(max_new_tokens), eos_id, stream,
+                       deadline=deadline)
             self._waiting.append(seq)
             self._by_sid[sid] = seq
             self._stats.seq_event("submitted")
@@ -297,6 +312,15 @@ class DecodeScheduler:
             with self._cond:
                 if self._epoch != epoch:
                     return
+                # the per-token deadline hop: a sequence whose budget ran
+                # out is retired before it costs another step
+                for s in list(self._active):
+                    if s.state == _S_RUNNING and s.deadline is not None \
+                            and s.deadline.expired():
+                        _tailguard.deadline_expired("decode_token")
+                        self._fail_seq_locked(s, DeadlineExceeded(
+                            f"sequence {s.sid} overran its deadline after "
+                            f"{len(s.emitted)} of {s.max_new} tokens"))
                 rows = [s for s in self._active if s.state == _S_RUNNING]
                 if not rows:
                     if not admits:
@@ -315,6 +339,9 @@ class DecodeScheduler:
                     for s, _, _, _ in batch:
                         self._fail_seq_locked(s, e)
                 continue
+            # one decode step: a unit of work funding the decode tier's
+            # retry budget (failover requeues spend from it)
+            _tailguard.retry_deposit("decode")
             with self._cond:
                 if self._epoch != epoch:
                     return              # replaced mid-step: the new
@@ -424,16 +451,29 @@ class DecodeScheduler:
             if self._state == _DRAINING and not self._waiting \
                     and not self._active:
                 return      # drained: the worker left as stop() asked
-            requeued = [s for s in self._active if s.state == _S_RUNNING]
-            for seq in requeued:
+            requeued, shed = [], 0
+            for seq in [s for s in self._active if s.state == _S_RUNNING]:
+                # a requeue retries the sequence's remaining tokens: it
+                # must win a decode-budget token, so a crash-looping
+                # worker ends in bounded shed
+                if not _tailguard.retry_allowed("decode"):
+                    self._retire_locked(seq, _S_FAILED, "failed",
+                                        error=ServerClosedError(
+                                            f"sequence {seq.sid} shed: decode "
+                                            "retry budget exhausted during "
+                                            "worker failover"))
+                    shed += 1
+                    continue
                 self._active.remove(seq)
                 seq.state = _S_WAITING
                 self._waiting.appendleft(seq)
                 self._stats.seq_event("requeued")
+                requeued.append(seq)
             self.reports.append({
                 "endpoint": self.engine.name,
                 "reason": "worker_dead",
                 "requeued": len(requeued),
+                "shed": shed,
                 "paused_kept": len(self._active),
                 "epoch": self._epoch,
             })

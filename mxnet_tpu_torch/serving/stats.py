@@ -1,12 +1,23 @@
-"""Per-endpoint serving counters and latency quantiles (the minimal core of
+"""Per-endpoint serving counters and latency quantiles (the port of
 ``mxnet_tpu/serving/stats.py``).
 
 Counters: request lifecycle (submitted / completed / rejected /
 deadline_drops / cancelled), device steps (batches, and warmup_batches for
 the construction probe and warmup runs), rows (real_rows / padded_rows;
-occupancy = real / (real + padded)). Latencies (submit -> result, and the
-device step) keep the most recent samples in a bounded window and report
-exact quantiles over it.
+occupancy = real / (real + padded)), the first run of each bucket
+(``compiles``, its time in ``compile_ms_total``: the port compiles nothing,
+this is the first-use cost warmup pays), later runs of a warm bucket
+(``cache_hits``), ``hot_swaps`` and the forwards of hot-swap probes and
+recorded checkpoints (``swap_probes``). Sheds at admission are counted by
+reason (queue_full, degraded, circuit_open, circuit_half_open, brownout).
+Latency series (submit -> result, the device step, submit -> batch
+assembly as ``queue_wait``, the host prep of a batch as ``prep``) keep the
+most recent samples in a bounded window and report exact quantiles over
+it; ``prep_overlap_ratio`` is the share of the server's prep time hidden
+under a device step, as of this endpoint's last prepared batch.
+
+The reference's registry families (``mxtpu_serving_*``) are these plain
+attributes until the port's telemetry (ROADMAP Q1.12).
 
 :class:`LatencyHistogram` is the reference's log-spaced histogram, which the
 decode path's ``DecodeStats`` keeps (approximate quantiles, bounded memory
@@ -109,13 +120,27 @@ class EndpointStats:
         self.counters: Dict[str, int] = {
             "submitted": 0, "completed": 0, "rejected": 0,
             "deadline_drops": 0, "cancelled": 0, "batches": 0,
-            "warmup_batches": 0, "real_rows": 0, "padded_rows": 0}
+            "warmup_batches": 0, "real_rows": 0, "padded_rows": 0,
+            "compiles": 0, "cache_hits": 0, "hot_swaps": 0,
+            "swap_probes": 0}
+        self.queue_depth = 0          # rows admitted and waiting
+        self.queue_peak = 0
+        self.shed_reasons: Dict[str, int] = {}
+        self.compile_us = 0.0
+        self.prep_overlap_ratio = 0.0
         self._latency = deque(maxlen=_WINDOW)
         self._step = deque(maxlen=_WINDOW)
+        self._queue_wait = deque(maxlen=_WINDOW)
+        self._prep = deque(maxlen=_WINDOW)
 
     def bump(self, counter: str, delta: int = 1):
         with self._lock:
             self.counters[counter] += delta
+
+    def set_queue_depth(self, rows: int):
+        with self._lock:
+            self.queue_depth = rows
+            self.queue_peak = max(self.queue_peak, rows)
 
     def record_latency(self, dur_us: float):
         with self._lock:
@@ -125,11 +150,41 @@ class EndpointStats:
         with self._lock:
             self._step.append(float(dur_us))
 
+    def record_queue_wait(self, dur_us: float):
+        with self._lock:
+            self._queue_wait.append(float(dur_us))
+
+    def record_prep(self, dur_us: float):
+        with self._lock:
+            self._prep.append(float(dur_us))
+
+    def set_overlap_ratio(self, ratio: float):
+        with self._lock:
+            self.prep_overlap_ratio = float(ratio)
+
+    def record_shed(self, reason: str):
+        """One admission shed, by reason (the caller bumps ``rejected``)."""
+        with self._lock:
+            self.shed_reasons[reason] = self.shed_reasons.get(reason, 0) + 1
+
+    def record_compile(self, dur_us: float):
+        """The first run of one bucket (warmup)."""
+        with self._lock:
+            self.counters["compiles"] += 1
+            self.compile_us += dur_us
+
     def snapshot(self) -> Dict:
         with self._lock:
             c = dict(self.counters)
-            lat, step = list(self._latency), list(self._step)
+            series = {k: list(v) for k, v in (
+                ("latency", self._latency), ("step", self._step),
+                ("queue_wait", self._queue_wait), ("prep", self._prep))}
+            rest = {"queue_depth": self.queue_depth,
+                    "queue_peak": self.queue_peak,
+                    "shed": dict(self.shed_reasons),
+                    "compile_ms_total": self.compile_us / 1e3,
+                    "prep_overlap_ratio": self.prep_overlap_ratio}
         den = c["real_rows"] + c["padded_rows"]
         return {"counters": c,
                 "batch_occupancy": c["real_rows"] / den if den else 0.0,
-                "latency": _quantiles(lat), "step": _quantiles(step)}
+                **{k: _quantiles(v) for k, v in series.items()}, **rest}

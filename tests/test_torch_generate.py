@@ -540,3 +540,93 @@ def test_server_facade_generate(engine):
         server.stop()
     assert sched.snapshot()["state"] == "stopped"
     assert server.health()["generators"]["tlm"]["state"] == "stopped"
+
+
+# ---------------------------------------------------------------------------
+# the tail guard on the decode path
+# ---------------------------------------------------------------------------
+def test_decode_deadline_retires_a_sequence_mid_generation(engine,
+                                                           monkeypatch):
+    """A propagated Deadline bounds the whole generation: a spent one
+    refuses admission, and one that runs out mid-generation retires the
+    sequence with DeadlineExceeded before another step (site
+    decode_token); a sequence without one is untouched."""
+    from mxnet_tpu_torch.serving import DeadlineExceeded, tailguard
+    real = engine.decode_step
+
+    def slow_step(rows):
+        time.sleep(0.02)
+        return real(rows)
+
+    monkeypatch.setattr(engine, "decode_step", slow_step)
+    before = tailguard.deadline_exceeded_total.get("decode_token", 0)
+    sched = DecodeScheduler(engine, poll_s=60.0).start()
+    try:
+        with pytest.raises(DeadlineExceeded):
+            sched.submit([1, 2], max_new_tokens=4,
+                         deadline=tailguard.Deadline(0.0, now_us=0))
+        doomed = sched.submit(PROMPTS[0], max_new_tokens=30,
+                              deadline=tailguard.Deadline(60.0))
+        free = sched.submit(PROMPTS[1], max_new_tokens=6)
+        with pytest.raises(DeadlineExceeded, match="overran its deadline"):
+            doomed.result(timeout=60)
+        assert free.result(timeout=60) == \
+            _serial_decode(engine, PROMPTS[1], 6, 97000)
+    finally:
+        sched.stop()
+    assert tailguard.deadline_exceeded_total["decode_token"] == before + 1
+
+
+def test_brownout_clamps_max_new_tokens(engine):
+    from mxnet_tpu_torch.serving import tailguard
+    sched = DecodeScheduler(engine, poll_s=60.0).start()
+    old = config.get("MXNET_BROWNOUT_MAX_NEW_TOKENS")
+    config.set("MXNET_BROWNOUT_MAX_NEW_TOKENS", 3)
+    try:
+        tailguard.BROWNOUT.level = 1
+        clamped = sched.submit(PROMPTS[2], max_new_tokens=9)
+        tailguard.BROWNOUT.reset()
+        full = sched.submit(PROMPTS[2], max_new_tokens=9)
+        got_clamped = clamped.result(timeout=60)
+        got_full = full.result(timeout=60)
+    finally:
+        tailguard.BROWNOUT.reset()
+        config.set("MXNET_BROWNOUT_MAX_NEW_TOKENS", old)
+        sched.stop()
+    assert len(got_clamped) == 3 and got_clamped == got_full[:3]
+    assert got_full == _serial_decode(engine, PROMPTS[2], 9, 97100)
+
+
+def test_decode_retry_budget_stops_a_crash_looping_worker(engine,
+                                                          monkeypatch):
+    """A worker that dies on every step: each failover requeue spends a
+    decode-budget token, so after the budget the sequences fail with
+    ServerClosedError instead of being requeued without bound."""
+    from mxnet_tpu_torch.serving import tailguard
+
+    def dying_step(rows):
+        raise _WorkerKilled("decode worker killed")
+
+    monkeypatch.setattr(engine, "decode_step", dying_step)
+    monkeypatch.setattr(threading, "excepthook", lambda args: None)
+    saved = {k: config.get(k) for k in ("MXNET_RETRY_BUDGET_MIN",
+                                        "MXNET_RETRY_BUDGET_CAP")}
+    config.set("MXNET_RETRY_BUDGET_MIN", 3.0)
+    config.set("MXNET_RETRY_BUDGET_CAP", 3.0)
+    tailguard.RETRY_BUDGETS.reset()
+    sched = DecodeScheduler(engine, poll_s=0.01).start()
+    try:
+        stream = sched.submit(PROMPTS[0], max_new_tokens=8)
+        with pytest.raises(ServerClosedError, match="retry budget"):
+            stream.result(timeout=60)
+        deadline = time.monotonic() + 5
+        while sched.failovers < 4 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        reports = list(sched.reports)
+    finally:
+        sched.stop(drain=False)
+        tailguard.RETRY_BUDGETS.reset()
+        for k, v in saved.items():
+            config.set(k, v)
+    assert [r["requeued"] for r in reports[:4]] == [1, 1, 1, 0]
+    assert reports[3]["shed"] == 1

@@ -1165,3 +1165,65 @@ def test_guarded_step_reads_nothing_from_the_device(module):
     if "_read" in fns:
         assert "cpu" in {n.attr for n in ast.walk(fns["_read"])
                          if isinstance(n, ast.Attribute)}
+
+
+# ---------------------------------------------------------------------------
+# the pipelined multi-tenant server (S16): no fallback, no device-wide sync
+# ---------------------------------------------------------------------------
+SERVING_CORE = ["serving/server.py", "serving/pipeline.py",
+                "serving/autoscaler.py", "serving/supervisor.py",
+                "serving/endpoint.py", "serving/batcher.py",
+                "serving/router.py", "serving/tailguard.py",
+                "telemetry/slo.py"]
+#: the calls that run the model (and so launch K1)
+_MODEL_CALLS = {"execute", "_forward", "run_batch", "forward", "block",
+                "prepare", "prepare_batch"}
+
+
+@pytest.mark.parametrize("module", SERVING_CORE)
+def test_serving_core_modules_are_guarded(module):
+    assert PKG / module in PORT_FILES
+    test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
+
+
+def _called_names(node):
+    for c in ast.walk(node):
+        if isinstance(c, ast.Call):
+            f = c.func
+            yield f.attr if isinstance(f, ast.Attribute) else \
+                getattr(f, "id", None)
+
+
+@pytest.mark.parametrize("module", SERVING_CORE)
+def test_no_handler_runs_the_model_again(module):
+    """A failed step (K1 included) reaches the retry policy and the
+    breaker as an error: no except handler in the serving core calls the
+    model, so none can fall back to another forward."""
+    for node in ast.walk(_tree(PKG / module)):
+        if isinstance(node, ast.Try):
+            for h in node.handlers:
+                bad = _MODEL_CALLS & set(_called_names(h))
+                assert not bad, f"{module}:{h.lineno}: handler calls {bad}"
+
+
+def test_the_step_path_has_no_handler():
+    """prepare/execute and the forward they run catch nothing."""
+    tree = _tree(PKG / "serving" / "endpoint.py")
+    fns = {n.name: n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)}
+    for name in ("_forward", "staging_buffers", "prepare", "execute",
+                 "run_batch", "_slot"):
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(fns[name])), \
+            name
+
+
+@pytest.mark.parametrize("module", SERVING_CORE)
+def test_serving_never_synchronizes_the_device(module):
+    """The step waits on events behind its own work: a device-wide
+    ``torch.cuda.synchronize()`` would also wait for the next batch's copy
+    on the prep stream and remove the overlap."""
+    for n in ast.walk(_tree(PKG / module)):
+        if isinstance(n, ast.Attribute) and n.attr == "synchronize":
+            owner = n.value
+            assert not (isinstance(owner, ast.Attribute)
+                        and owner.attr == "cuda"), \
+                f"{module}:{n.lineno}: torch.cuda.synchronize"
