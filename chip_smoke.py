@@ -560,7 +560,38 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    hedged requests (zero delay) bitwise a replica's unhedged response,
    quiet scales back to 1 with requests in flight and none dropped; the
    peak device memory.
-20. A JSON line with the kernels' numbers (``launches_by_path`` gains
+20. The executable cache and the serving fabric. (a) Three processes
+   (``--slice20-worker A|B|C``) over one fresh ``MXNET_EXEC_CACHE_DIR``
+   store: A loads K1-K4's libraries (from ``build/`` or nvcc, printed)
+   and compiles four rtc modules' cubins with NVRTC, storing all seven;
+   B, with a build directory of its own, hits every entry with zero nvcc
+   and NVRTC compiles; C has the first cubin's entry poisoned
+   (``cache_poison``), catches the digest mismatch before loading, runs
+   NVRTC once and stores it again; K1 at (32, 12, 512, 64) bf16, K2, K3,
+   K4 and every rtc kernel's outputs are bitwise A's in B and C; NVRTC
+   compile ms against the cubins' load ms. (b) A ``ShardedEndpoint`` on
+   ``plan_slices([1], devices=[gpu(0)])`` serving ``bert_base()`` bf16 at
+   S = 512 (buckets 1-32) through the server: a scripted stream bitwise a
+   ``ModelEndpoint``'s, closed-loop requests/s beside it, 12 K1 launches
+   a forward, capacity 1; then on ``plan_slices([2], devices=[gpu(0),
+   gpu(0)])`` (two batch groups on the one card) with ``shard_params``:
+   every chunk it ran bitwise the direct forward of that chunk, two
+   chunks a batch, 12 K1 launches a chunk, capacity 2. (c) A
+   ``ShardedDecodeEndpoint`` on the one-card slice and on the two-group
+   slice: phase 7's ``TransformerLM`` in bf16, batch 8, tokens equal to
+   ``DecodeEndpoint``'s serial and batched and after a compaction
+   (``defrag``) of the pool, the KV replicas' sequence pages (all but
+   scratch page 0) bitwise equal.
+   (d) A ``FrontDoor`` over
+   three host planes on the card, each an ``InferenceServer`` with phase
+   19's two tenants (requests of a whole top bucket, so a response is one
+   forward of its own rows), agents on gpu(0), 4 closed-loop clients a
+   tenant: ``kill_host`` of ``fd_bert512``'s owner under load, then a
+   second host's agent SIGKILLed and declared down by ``check_hosts``;
+   zero client errors, only the dead hosts' tenants moved, every response
+   bitwise the direct forward; ms from each failure to its last
+   resubmitted response, requests/s before and after, heartbeat ages.
+21. A JSON line with the kernels' numbers (``launches_by_path`` gains
    ``int8_resnet``, ``int8_bert`` and ``kvstore_resnet`` (phase 15),
    ``dp_bert``, ``tp_bert`` and ``dist_trainer_bert``, counted on rank 0
    (phase 16), ``ring_attention`` (phase 17(b), rank 0),
@@ -568,12 +599,15 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    ``resilience_tp_bert`` (phase 18, the last on rank 0) and
    ``serving_pipelined``, ``serving_serial``, ``serving_bitwise``,
    ``serving_hot_swap``, ``serving_failover`` and ``serving_pool`` (phase
-   19), and K1-K3 gain their times at the ring's block), then the last
-   line ``{"ok": true, "device": {...}}``.
+   19) and ``sharded_serving``, ``sharded_serving_dp2``,
+   ``sharded_decode``, ``sharded_decode_dp2`` and ``frontdoor`` (phase
+   20), and K1-K3 gain their times at the ring's block), then the
+   last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import ctypes
 import importlib.util
@@ -581,6 +615,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -7608,6 +7643,542 @@ def phase_multitenant(seed: int, smi: str):
             "serving_failover": failover, "serving_pool": pool}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the executable cache and the serving fabric
+# ---------------------------------------------------------------------------
+SLICE20_DIR = Path(__file__).resolve().parent / "build" / "phase_fabric20"
+SLICE20_WORKER = [sys.executable, str(Path(__file__).resolve()),
+                  "--slice20-worker"]
+S20_WORKER_TIMEOUT = 300
+S20_BWD_SHAPE = (2, 12, 128, 64)     # (a): K2 and K3 through the cache
+S20_K4_SHAPE = (512, 256, 256)       # (a): K4 (M, K, N)
+S20_RTC_N = 1 << 20                  # (a): values a run-time kernel takes
+S20_SCRIPT = (1, 3, 8, 2, 5, 7, 4, 6, 16, 32, 11, 1)   # (b): rows a request
+S20_CLIENTS, S20_PER_CLIENT = 4, 8   # (b): closed-loop clients, requests
+S20_DECODE_SEQS, S20_DECODE_TOKENS = 8, 16             # (c)
+# (d): tenant -> (sequence length, rows a request = the top bucket, so a
+# batch is one request and a response one forward of its own rows)
+S20_FD_TENANTS = {"fd_bert512": (512, 4), "fd_bert128": (128, 2)}
+S20_FD_CLIENTS = 4                   # (d): closed-loop clients a tenant
+S20_FD_WINDOW_S = 2.0                # (d): load before, between, after
+S20_FD_HOSTS = ("h0", "h1", "h2")
+#: the libraries (in load order: the poison drill counts cache loads)
+S20_LIBS = (("K1", lambda: fa._kernel(), fa._LIB_NAME),
+            ("K2+K3", lambda: fa._bwd_kernels(), fa._BWD_LIB_NAME),
+            ("K4", lambda: fc._kernel(), fc._LIB_NAME))
+S20_POISONED = 4                     # (c)'s poisoned load: the first cubin
+
+
+def _s20_kernel_outputs(seed: int):
+    """K1 at the serving shape, K2 and K3, K4 and every rtc example kernel
+    on seeded inputs, on the card; returned on the host."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    q, k, v = (_randn(BERT_SHAPE, gen, torch.bfloat16) for _ in range(3))
+    scale = BERT_SHAPE[-1] ** -0.5
+    out["K1 out"], out["K1 lse"] = fa.flash_attention_fwd(q, k, v, scale,
+                                                          False)
+    q, k, v, do = (_randn(S20_BWD_SHAPE, gen, torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, False)
+    out["K2 dq"], delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse,
+                                                    scale, False)
+    out["K3 dk"], out["K3 dv"] = fa.flash_attention_bwd_dkv(
+        q, k, v, do, lse, delta, scale, False)
+    out["K4 y"], out["K4 sum"], out["K4 sumsq"] = fc.conv1x1_bn_act(
+        *_k4_inputs(gen, *S20_K4_SHAPE, torch.bfloat16))
+    x = nd.NDArray(torch.randn(S20_RTC_N, generator=gen, device="cuda"))
+    y = nd.NDArray(torch.randn(S20_RTC_N, generator=gen, device="cuda"))
+    xb = nd.NDArray(_randn((S20_RTC_N,), gen, torch.bfloat16))
+    dy = nd.NDArray(_randn((S20_RTC_N,), gen, torch.bfloat16))
+    rows = nd.NDArray(_randn((256, 4096), gen, torch.bfloat16))
+    out["axpy"] = rx.axpy(x, y)
+    out["scale"] = rx.scale(x)
+    out["k"] = rx.identity(x)
+    out["gelu_tanh_fwd"] = rx.gelu_tanh_fwd(xb)
+    out["gelu_tanh_bwd"] = rx.gelu_tanh_bwd(xb, dy)
+    out["log_softmax"] = rx.log_softmax(rows)
+    twice = _s20_twice().get_kernel("twice<float>",
+                                    "const float *x, int n, float *o")
+    out["twice<float>"] = twice.launch([x, x.size], grid_dims=(
+        S20_RTC_N // 256, 1, 1), block_dims=(256, 1, 1),
+        out_shapes=[x.shape])
+    return {n: (t.data if isinstance(t, nd.NDArray) else t).cpu()
+            for n, t in out.items()}
+
+
+_S20_TWICE = []
+
+
+def _s20_twice():
+    if not _S20_TWICE:
+        _S20_TWICE.append(rtc.CudaModule(TEMPLATED_SOURCE,
+                                          exports=("twice<float>",)))
+    return _S20_TWICE[0]
+
+
+def slice20_worker(mode: str, seed: int) -> int:
+    """Phase 20(a)'s process ``mode``: A fills the store from nothing, B
+    reads it (with a build directory of its own, so only the cache can
+    spare a compile), C reads it with the first cubin's entry poisoned.
+    Prints one JSON line; writes its kernels' outputs beside the store."""
+    from mxnet_tpu_torch.cache import executable_cache as xc
+    out_dir = Path(os.environ["S20_OUT"])
+    if mode != "A":
+        _build.BUILD_DIR = out_dir / f"build_{mode}"
+    xc.reset_stats()
+    rule = faults.inject("cache_poison", at=(S20_POISONED,)) \
+        if mode == "C" else contextlib.nullcontext()
+    libs, cubins = {}, {}
+    with rule:
+        for label, load, name in S20_LIBS:
+            t0 = time.perf_counter()
+            load()
+            log = _build.build_log(name)
+            libs[label] = {"ms": (time.perf_counter() - t0) * 1e3,
+                           "source": log["source"],
+                           "built_by": _build.built_by(Path(log["path"]))}
+        sources = sorted(set(rx.SOURCES.values()))
+        for src in sources + ["templated (exports twice<float>)"]:
+            t0 = time.perf_counter()
+            mod = rx.module(src) if src in sources else _s20_twice()
+            t1 = time.perf_counter()
+            lowered = next(iter(mod._lowered.values()), None) or next(
+                n for n, s in rx.SOURCES.items() if s == src)
+            mod._function(lowered, 0)         # cuModuleLoadData on the card
+            cubins[src] = {"hit": mod.cache_hit,
+                           "nvrtc_ms": mod.compile_seconds * 1e3,
+                           "construct_ms": (t1 - t0) * 1e3,
+                           "module_load_ms":
+                               (time.perf_counter() - t1) * 1e3}
+    outs = _s20_kernel_outputs(seed)
+    torch.cuda.synchronize()
+    torch.save(outs, out_dir / f"outputs_{mode}.pt")
+    print(json.dumps({"mode": mode, "libs": libs, "cubins": cubins,
+                      "toolkit": _build.nvcc_version(),
+                      "stats": xc.stats()}))
+    return 0
+
+
+def _s20_cache(seed: int, smi: str) -> bool:
+    """(a) the executable cache across three processes."""
+    shutil.rmtree(SLICE20_DIR, ignore_errors=True)
+    store = SLICE20_DIR / "store"
+    store.mkdir(parents=True)
+    env = dict(os.environ, MXNET_EXEC_CACHE_DIR=str(store),
+               S20_OUT=str(SLICE20_DIR))
+    rep = {}
+    for mode in "ABC":
+        t0 = time.perf_counter()
+        proc = subprocess.run(SLICE20_WORKER + [mode, "--seed", str(seed)],
+                              env=env, capture_output=True, text=True,
+                              timeout=S20_WORKER_TIMEOUT)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:])
+            raise SystemExit(f"FAIL: 20(a) worker {mode} exited "
+                             f"{proc.returncode}")
+        rep[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+        rep[mode]["wall_s"] = time.perf_counter() - t0
+    outs = {m: torch.load(SLICE20_DIR / f"outputs_{m}.pt") for m in "ABC"}
+    n_libs, n_cubins = len(S20_LIBS), len(rep["A"]["cubins"])
+    ok = True
+    for m in "ABC":
+        s = rep[m]["stats"]
+        same = all(torch.equal(outs[m][n], outs["A"][n]) for n in outs["A"])
+        print(f"20(a) process {m} ({rep[m]['wall_s']:.1f} s): hits "
+              f"{s['hits']}, misses {s['misses_by_reason']}, stores "
+              f"{s['stores']}, compiles {s['compiles']}, load "
+              f"{s['load_s'] * 1e3:.1f} ms, store {s['bytes']} bytes; "
+              f"outputs bitwise process A's: {same} "
+              f"({len(outs[m])} tensors: K1 at {BERT_SHAPE} bf16, K2, K3, "
+              f"K4, {n_cubins} modules' kernels)")
+        for label, lib in rep[m]["libs"].items():
+            note = "" if lib["source"] == "exec_cache" else (
+                f" (built by nvcc {lib['built_by']}, its note beside the "
+                f"file; the key's toolkit, from version.json: "
+                f"{rep[m]['toolkit']})")
+            print(f"20(a)   {m} {label} library: {lib['source']} in "
+                  f"{lib['ms']:.1f} ms{note}")
+        for src, c in rep[m]["cubins"].items():
+            print(f"20(a)   {m} cubin {src}: "
+                  f"{'cache hit' if c['hit'] else 'NVRTC'} "
+                  f"{c['nvrtc_ms']:.1f} ms compile, "
+                  f"{c['construct_ms']:.1f} ms to the module, "
+                  f"{c['module_load_ms']:.2f} ms cuModuleLoadData")
+        ok = ok and same
+    a, b, c = (rep[m]["stats"] for m in "ABC")
+    a_nvcc = sum(lib["source"] == "nvcc" for lib in rep["A"]["libs"].values())
+    ok = ok and all(lib["built_by"] == rep["A"]["toolkit"]
+                    for lib in rep["A"]["libs"].values())
+    ok = ok and a["stores"] == n_libs + n_cubins and \
+        a["compiles"] == {"nvcc": a_nvcc, "nvrtc": n_cubins}
+    ok = ok and b["hits"] == n_libs + n_cubins and b["misses"] == 0 and \
+        b["compiles"] == {"nvcc": 0, "nvrtc": 0} and \
+        all(lib["source"] == "exec_cache" for lib in rep["B"]["libs"].values())
+    ok = ok and c["misses_by_reason"]["corrupt"] == 1 and c["misses"] == 1 \
+        and c["hits"] == n_libs + n_cubins - 1 and c["stores"] == 1 and \
+        c["compiles"] == {"nvcc": 0, "nvrtc": 1}
+    nvrtc = [v["nvrtc_ms"] for v in rep["A"]["cubins"].values()]
+    loads = [v["construct_ms"] + v["module_load_ms"]
+             for v in rep["B"]["cubins"].values()]
+    print(f"20(a) cubins: NVRTC compile {sum(nvrtc):.1f} ms for "
+          f"{len(nvrtc)} modules (A) against {sum(loads):.1f} ms to load "
+          f"them from the cache (B); libraries: A "
+          f"{sum(v['ms'] for v in rep['A']['libs'].values()):.1f} ms "
+          f"({a_nvcc} built by nvcc, the rest reused from build/), B "
+          f"{sum(v['ms'] for v in rep['B']['libs'].values()):.1f} ms from "
+          f"the cache; C caught the poisoned entry before loading it "
+          f"(corrupt {c['misses_by_reason']['corrupt']}), ran NVRTC "
+          f"{c['compiles']['nvrtc']} time and nvcc "
+          f"{c['compiles']['nvcc']} times; on {smi}")
+    shutil.rmtree(SLICE20_DIR, ignore_errors=True)
+    return ok
+
+
+def _s20_sharded_serving(seed: int, smi: str, net, layers: int):
+    """(b) ShardedEndpoint on a one-card slice against ModelEndpoint."""
+    (sl,) = serving.plan_slices([1], devices=[gpu(0)])
+    rng = np.random.default_rng(seed + 20)
+    script = [_s19_request_rows(rng, SEQ_LEN, r) for r in S20_SCRIPT]
+    runs = {}
+    for kind in ("sharded", "plain"):
+        if kind == "sharded":
+            fa.launches = 0
+            ep = serving.ShardedEndpoint(
+                "s20_sharded", net, [(SEQ_LEN,), (SEQ_LEN,)], dtype="int32",
+                max_batch_size=32, slice_spec=sl)
+        else:
+            ep = serving.ModelEndpoint("s20_plain", net,
+                                       [(SEQ_LEN,), (SEQ_LEN,)],
+                                       dtype="int32", max_batch_size=32,
+                                       ctx=gpu())
+        server = serving.InferenceServer(batch_timeout_ms=1.0, max_queue=512)
+        server.register(ep)
+        server.start()
+        outs = [server.predict(ep.name, x, timeout=300) for x in script]
+        results, threads, errors, t0 = _s19_drive(
+            server.submit, {ep.name: (S20_CLIENTS, S20_PER_CLIENT,
+                                      lambda r: _s19_request(r, SEQ_LEN, 8))},
+            seed)
+        wall = _s19_join(threads, t0)
+        server.stop(drain=True)
+        if errors:
+            raise SystemExit(f"FAIL: 20(b) {kind} client errors {errors[:2]}")
+        runs[kind] = {"outs": outs, "ep": ep, "executed": _s19_executed(ep),
+                      "rps": len(results[ep.name]) / wall,
+                      "responses": results[ep.name]}
+        if kind == "sharded":
+            launches = fa.launches
+    sh = runs["sharded"]
+    same = all(torch.equal(a, b) for pa, pb in zip(sh["outs"],
+                                                   runs["plain"]["outs"])
+               for a, b in zip(pa, pb))
+    excess = max(_s19_excess(net, sh["responses"]))
+    ep = sh["ep"]
+    print(f"20(b) ShardedEndpoint {ep._device_label()} (capacity "
+          f"{ep.capacity}, buckets {ep.buckets[0]}-{ep.buckets[-1]}) serving "
+          f"bert_base bf16 at S = {SEQ_LEN}: scripted stream of "
+          f"{len(script)} requests bitwise ModelEndpoint's: {same}; "
+          f"{S20_CLIENTS} closed-loop clients {sh['rps']:.2f} requests/s "
+          f"(ModelEndpoint {runs['plain']['rps']:.2f}), max(|d| - tol) vs "
+          f"the direct forward {excess:.4g}; K1 launches {launches} "
+          f"(expected {layers} x {sh['executed']} = "
+          f"{layers * sh['executed']}) on {smi}")
+    ok = same and excess <= 0 and ep.capacity == 1 and \
+        launches == layers * sh["executed"]
+    ok2, launches2 = _s20_dp2_serving(smi, net, layers, script)
+    return ok and ok2, launches, launches2
+
+
+def _outputs(out):
+    return tuple(out) if isinstance(out, (list, tuple)) else (out,)
+
+
+def _s20_dp2_serving(smi: str, net, layers: int, script):
+    """(b) ShardedEndpoint on a two-group slice over the one card, with
+    shard_params: every chunk it ran bitwise the direct forward of that
+    chunk, 12 K1 launches a chunk, two chunks a batch."""
+    (sl,) = serving.plan_slices([2], devices=[gpu(0), gpu(0)])
+    ep = serving.ShardedEndpoint(
+        "s20_dp2", net, [(SEQ_LEN,), (SEQ_LEN,)], dtype="int32",
+        max_batch_size=32, slice_spec=sl, shard_params=True)
+    chunks, run = [], ep._placement.run
+
+    def recorded(g, method, args):          # each chunk's inputs, outputs
+        out = run(g, method, args)
+        chunks.append((g, tuple(a.clone() for a in args),
+                       tuple(o.clone() for o in _outputs(out))))
+        return out
+
+    ep._placement.run = recorded
+    executed0 = _s19_executed(ep)
+    fa.launches = 0
+    server = serving.InferenceServer(batch_timeout_ms=1.0, max_queue=512)
+    server.register(ep)
+    server.start()
+    t0 = time.perf_counter()
+    outs = [server.predict(ep.name, x, timeout=300) for x in script]
+    wall = time.perf_counter() - t0
+    server.stop(drain=True)
+    launches = fa.launches
+    batches = _s19_executed(ep) - executed0
+    with torch.inference_mode():
+        chunk_same = [all(torch.equal(a, b) for a, b in
+                          zip(o, _outputs(net(*ins))))
+                      for _, ins, o in chunks]
+    groups = [sum(g == i for g, *_ in chunks) for i in range(2)]
+    shards = [len(ep._placement.shards(g)) for g in range(2)]
+    excess = max(_s19_excess(net, [(x, o, 0.0)
+                                   for x, o in zip(script, outs)]))
+    print(f"20(b) ShardedEndpoint {ep._device_label()} over [gpu(0), "
+          f"gpu(0)] (capacity {ep.capacity}, buckets {ep.buckets[0]}-"
+          f"{ep.buckets[-1]}, shard_params: {shards} leading-axis shards "
+          f"a group, {ep._placement.gathers} gathers): {len(script)} "
+          f"scripted requests in {batches} batches, {wall:.2f} s; "
+          f"{len(chunks)} chunks ({groups} by group), each bitwise the "
+          f"direct forward of that chunk: {all(chunk_same)}; max(|d| - "
+          f"tol) of the responses vs the direct forward {excess:.4g}; K1 "
+          f"launches {launches} (expected {layers} x 2 x {batches} = "
+          f"{layers * 2 * batches}) on {smi}")
+    ok = (all(chunk_same) and excess <= 0 and ep.capacity == 2 and
+          groups == [batches, batches] and min(shards) > 0 and
+          ep._placement.gathers > 0 and launches == layers * 2 * batches)
+    return ok, launches
+
+
+def _s20_batched(eng, prompts, steps: int, base: int):
+    for i, p in enumerate(prompts):
+        eng.pool.reserve(base + i, len(p) + steps + 1)
+    toks = [[eng.prefill(p, eng.pool.table(base + i))]
+            for i, p in enumerate(prompts)]
+    for s in range(steps):
+        nxt = eng.decode_step([(toks[i][-1], len(p) + s,
+                                eng.pool.table(base + i))
+                               for i, p in enumerate(prompts)])
+        for i, t in enumerate(nxt):
+            toks[i].append(t)
+    for i in range(len(prompts)):
+        eng.pool.free(base + i)
+    return toks
+
+
+def _s20_defrag_drill(eng, prompts, steps: int):
+    """Two sequences prefilled, the first freed, the pool compacted, then
+    the second decoded: (pages moved, its tokens)."""
+    a, b = prompts[:2]
+    eng.pool.reserve(6000, len(a) + 1)
+    eng.prefill(a, eng.pool.table(6000))
+    eng.pool.reserve(6001, len(b) + steps + 1)
+    toks = [eng.prefill(b, eng.pool.table(6001))]
+    eng.pool.free(6000)
+    moved = eng.pool.defrag()
+    for s in range(steps - 1):
+        toks += list(eng.decode_step([(toks[-1], len(b) + s,
+                                       eng.pool.table(6001))]))
+    eng.pool.free(6001)
+    return moved, toks
+
+
+def _s20_sharded_decode(seed: int, smi: str):
+    """(c) ShardedDecodeEndpoint on the one-card slice and on a two-group
+    slice over the card, each against DecodeEndpoint, serial and
+    batched."""
+    lm = _lm(lm_weights(seed), torch.bfloat16)
+    slices = {"dp1": serving.plan_slices([1], devices=[gpu(0)])[0],
+              "dp2": serving.plan_slices([2], devices=[gpu(0), gpu(0)])[0]}
+    toks, launches, info = {}, {}, {}
+    for kind in ("plain", "dp1", "dp2"):
+        if kind == "plain":
+            eng = DecodeEndpoint("s20_dplain", lm, **GEN_ENGINE)
+        else:
+            fa.launches = 0
+            eng = serving.ShardedDecodeEndpoint(
+                f"s20_d{kind}", lm, slice_spec=slices[kind], **GEN_ENGINE)
+        eng.warmup()
+        prompts = gen_prompts(seed, eng.prefill_buckets)[:S20_DECODE_SEQS]
+        t0 = time.perf_counter()
+        serial = [serial_decode(eng, p, S20_DECODE_TOKENS, 4000 + i)[0]
+                  for i, p in enumerate(prompts)]
+        batched = _s20_batched(eng, prompts, S20_DECODE_TOKENS - 1, 5000)
+        toks[kind] = (serial, batched, time.perf_counter() - t0,
+                      _s20_defrag_drill(eng, prompts, S20_DECODE_TOKENS))
+        if kind != "plain":
+            launches[kind] = fa.launches
+            # pages 1.. only: padding rows write scratch page 0, where
+            # duplicate slots land in any order and nothing reads unmasked
+            k0, v0 = eng.pool.replicas[0]
+            info[kind] = (eng.capacity, eng._device_label(), all(
+                torch.equal(k[:, 1:], k0[:, 1:]) and
+                torch.equal(v[:, 1:], v0[:, 1:])
+                for k, v in eng.pool.replicas[1:]))
+        del eng
+    ps, pb, pt, (pm, pd) = toks["plain"]
+    ok = ps == pb and pm > 0
+    for kind in ("dp1", "dp2"):
+        ss, sb, st, (sm, sd) = toks[kind]
+        capacity, label, replicas_same = info[kind]
+        print(f"20(c) ShardedDecodeEndpoint {label} (capacity {capacity}, "
+              f"{capacity} KV replica(s), their sequences' pages bitwise "
+              f"equal after the run: {replicas_same}), TransformerLM at BERT-base width bf16, "
+              f"batch {GEN_ENGINE['max_batch_size']}: {len(ss)} sequences "
+              f"x {S20_DECODE_TOKENS} tokens serial and batched equal "
+              f"DecodeEndpoint's: serial {ss == ps}, batched {sb == pb}, "
+              f"batched = serial {ss == sb}; a compaction moved {sm} "
+              f"pages (plain {pm}), the tokens after it equal "
+              f"DecodeEndpoint's: {sd == pd}; {st:.2f} s against "
+              f"{pt:.2f} s; K1 launches {launches[kind]} (prefills, "
+              f"causal) on {smi}")
+        ok = ok and ss == ps and sb == pb and replicas_same and \
+            sm == pm and sd == pd and launches[kind] > 0
+    return ok, launches["dp1"], launches["dp2"]
+
+
+def _s20_frontdoor(seed: int, smi: str, nets, layers: int):
+    """(d) a FrontDoor over three hosts on the card: a kill and an agent
+    SIGKILL under closed-loop load."""
+    def factory(name):
+        server = serving.InferenceServer(batch_timeout_ms=2.0, max_queue=512)
+        for t, (seq, rows) in S20_FD_TENANTS.items():
+            server.register(serving.ModelEndpoint(
+                t, nets[t], [(seq,), (seq,)], dtype="int32",
+                max_batch_size=rows, ctx=gpu()))
+        server.start()
+        return server
+
+    fa.launches = 0
+    workdir = SLICE20_DIR / "frontdoor"
+    workdir.mkdir(parents=True, exist_ok=True)
+    fd = serving.FrontDoor(S20_FD_HOSTS, factory, workdir=str(workdir))
+    try:
+        t_wait = time.perf_counter()
+        while any(fd.heartbeat_age(h) is None for h in S20_FD_HOSTS):
+            if time.perf_counter() - t_wait > 120:
+                raise SystemExit("FAIL: 20(d) an agent never beat")
+            time.sleep(0.1)
+        ages0 = {h: fd.heartbeat_age(h) for h in S20_FD_HOSTS}
+        before = {t: fd.route(t) for t in S20_FD_TENANTS}
+        done, errors, stop = [], [], threading.Event()
+        lock = threading.Lock()
+
+        def client(t, i):
+            seq, rows = S20_FD_TENANTS[t]
+            rng = np.random.default_rng(seed * 1000 + 31 * i + seq)
+            while not stop.is_set():
+                x = _s19_request_rows(rng, seq, rows)
+                owner, t0 = fd.route(t), time.perf_counter()
+                try:
+                    out = fd.submit(t, x).result(timeout=300)
+                except Exception as e:    # surfaced below; the phase fails
+                    errors.append(f"{t}: {e!r}")
+                    return
+                with lock:
+                    done.append((t, x, out, owner, t0, time.perf_counter()))
+
+        threads = [threading.Thread(target=client, args=(t, i))
+                   for t in S20_FD_TENANTS for i in range(S20_FD_CLIENTS)]
+        t_start = time.perf_counter()
+        for th in threads:
+            th.start()
+        time.sleep(S20_FD_WINDOW_S)
+        victim1 = fd.route("fd_bert512")
+        t_k1 = time.perf_counter()
+        rep1 = fd.kill_host(victim1)
+        time.sleep(S20_FD_WINDOW_S)
+        victim2 = fd.route("fd_bert128")          # a survivor
+        t_k2 = time.perf_counter()
+        os.kill(fd.agent_pid(victim2), signal.SIGKILL)
+        reps2 = []
+        while not reps2 and time.perf_counter() - t_k2 < 30:
+            reps2 = fd.check_hosts()
+            time.sleep(0.02)
+        t_d2 = time.perf_counter()
+        time.sleep(S20_FD_WINDOW_S)
+        stop.set()
+        for th in threads:
+            th.join(300)
+        t_end = time.perf_counter()
+        launches = fa.launches
+        after = {t: fd.route(t) for t in S20_FD_TENANTS}
+        ages1 = {h: fd.heartbeat_age(h) for h in fd.alive_hosts()}
+        stats = (fd.moves, fd.resubmits, dict(fd.requests_by_host),
+                 dict(fd.failovers))
+    finally:
+        fd.stop()
+        for t in S20_FD_TENANTS:
+            serving.unregister(t)
+        shutil.rmtree(SLICE20_DIR, ignore_errors=True)
+    dead = {victim1, victim2}
+    moved_ok = all((after[t] != before[t]) == (before[t] in dead)
+                   and after[t] not in dead for t in S20_FD_TENANTS)
+    n_moved = sum(after[t] != before[t] for t in S20_FD_TENANTS)
+    if errors or any(th.is_alive() for th in threads):
+        raise SystemExit(f"FAIL: 20(d) client errors {errors[:3]}")
+    bitwise = True
+    with torch.inference_mode():
+        for t, x, out, *_ in done:
+            want = nets[t](*(torch.from_numpy(a).cuda() for a in x))
+            bitwise = bitwise and all(torch.equal(a, b)
+                                      for a, b in zip(out, want))
+
+    def resubmitted(victim, t_kill):
+        late = [d[5] - t_kill for d in done
+                if d[3] == victim and d[4] < t_kill < d[5]]
+        return (f"{len(late)} in flight, the last answered "
+                f"{max(late) * 1e3:.1f} ms after it" if late else
+                "none in flight")
+
+    n_before = sum(d[5] < t_k1 for d in done)
+    n_after = sum(d[4] >= t_d2 for d in done)
+    print(f"20(d) FrontDoor over {len(S20_FD_HOSTS)} hosts (each an "
+          f"InferenceServer of bert_base bf16 tenants "
+          f"{ {t: v[0] for t, v in S20_FD_TENANTS.items()} }, agents on "
+          f"gpu(0)), {S20_FD_CLIENTS} clients a tenant: {len(done)} "
+          f"responses, 0 client errors, every one bitwise the direct "
+          f"forward: {bitwise}; routes {before} -> {after}, {n_moved} "
+          f"moved (the dead hosts' tenants only: {moved_ok}); moves "
+          f"{stats[0]}, resubmits {stats[1]}, requests by host {stats[2]}, "
+          f"failovers {stats[3]}")
+    print(f"20(d) kill_host({victim1}, owner of fd_bert512): epoch "
+          f"{rep1['epoch']}, moved {rep1['moved']}, "
+          f"{resubmitted(victim1, t_k1)}; SIGKILL of {victim2}'s agent: "
+          f"check_hosts declared it down ({[r['reason'] for r in reps2]}) "
+          f"{(t_d2 - t_k2) * 1e3:.1f} ms later, {resubmitted(victim2, t_k2)}"
+          f"; requests/s {n_before / (t_k1 - t_start):.2f} on 3 hosts, "
+          f"{n_after / (t_end - t_d2):.2f} on 1; heartbeat ages at start "
+          f"{ {h: round(a, 3) for h, a in ages0.items()} } s, at the end "
+          f"{ {h: round(a, 3) for h, a in ages1.items()} } s; K1 launches "
+          f"{launches} on {smi}")
+    ok = (bitwise and moved_ok and len(reps2) == 1 and
+          reps2[0]["reason"] == "agent_exit" and victim1 != victim2 and
+          launches > 0 and n_after > 0)
+    return ok, launches
+
+
+def phase_fabric(seed: int, smi: str):
+    """Phase 20: the executable cache and the serving fabric."""
+    t_phase = time.perf_counter()
+    ok_a = _s20_cache(seed, smi)
+    named = {"fd_bert512": seeded_bert_weights(bert_base(), seed),
+             "fd_bert128": seeded_bert_weights(bert_base(), seed + 1)}
+    nets = {n: _s19_net(w) for n, w in named.items()}
+    layers = len(nets["fd_bert512"].encoder._layers)
+    ok_b, serving_launches, serving_dp2 = _s20_sharded_serving(
+        seed, smi, nets["fd_bert512"], layers)
+    ok_c, decode_launches, decode_dp2 = _s20_sharded_decode(seed, smi)
+    ok_d, fd_launches = _s20_frontdoor(seed, smi, nets, layers)
+    for part, good in (("(a)", ok_a), ("(b)", ok_b), ("(c)", ok_c),
+                       ("(d)", ok_d)):
+        if not good:
+            print(f"FAIL: 20{part}")
+    if not (ok_a and ok_b and ok_c and ok_d):
+        raise SystemExit("FAIL: phase 20")
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return {"sharded_serving": serving_launches,
+            "sharded_serving_dp2": serving_dp2,
+            "sharded_decode": decode_launches,
+            "sharded_decode_dp2": decode_dp2, "frontdoor": fd_launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7618,6 +8189,8 @@ def main(argv=None) -> int:
     ap.add_argument("--slice18-worker", choices=("det", "tp"),
                     help="run as phase 18's deterministic process (det) or "
                          "one rank of its two-rank job (tp)")
+    ap.add_argument("--slice20-worker", choices=("A", "B", "C"),
+                    help="run as one of phase 20(a)'s cache processes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -7629,6 +8202,8 @@ def main(argv=None) -> int:
         return slice17_worker(args.seed)
     if args.slice18_worker:
         return slice18_worker(args.slice18_worker, args.seed)
+    if args.slice20_worker:
+        return slice20_worker(args.slice20_worker, args.seed)
     smi = card()
     phase_environment(smi)
     record = phase_kernel(args.seed, smi)
@@ -7651,6 +8226,7 @@ def main(argv=None) -> int:
     s17 = phase_slice17(args.seed, smi)
     s18 = phase_resilience(args.seed, smi)
     s19 = phase_multitenant(args.seed, smi)
+    s20 = phase_fabric(args.seed, smi)
     q_hand = {"int8_resnet": {k: quant["resnet"]["f32"]["hand"][k]
                               + quant["resnet"]["int8"]["hand"][k]
                               for k in ("K1", "K2", "K3", "K4", "K5")},
@@ -7680,7 +8256,8 @@ def main(argv=None) -> int:
          + sum(c["flash_attention_fwd"] for c in amp_launches.values())
          + sp["hand"]["K1"] + data["hand"]["K1"] + util["hand"]["K1"]
          + sum(h["K1"] for h in q_hand.values())
-         + sum(h["K1"] for h in d_hand.values()) + sum(s19.values()),
+         + sum(h["K1"] for h in d_hand.values()) + sum(s19.values())
+         + sum(s20.values()),
          "launches_by_path": {
              "serving": serve_launches,
              "training": train_launches["flash_attention_fwd"],
@@ -7694,7 +8271,8 @@ def main(argv=None) -> int:
              "data_resnet": data["hand"]["K1"],
              "estimator_resnet": util["hand"]["K1"],
              **{path: h["K1"] for path, h in q_hand.items()},
-             **{path: h["K1"] for path, h in d_hand.items()}, **s19},
+             **{path: h["K1"] for path, h in d_hand.items()}, **s19,
+             **s20},
          "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"],
                             gen["k1_max_abs_err"],
                             *(ring[c]["fwd"]["max_abs_err"]

@@ -211,6 +211,29 @@ register("MXNET_DECODE_SLO_MS", 100.0, float,
          "Decode scheduler: default inter-token SLO (ms) of a tenant, "
          "priced into EDF admission; 0 means FIFO admission.")
 
+register("MXNET_FABRIC_VNODES", 64, int,
+         "Serving front door: virtual nodes per host on the consistent-"
+         "hash tenant routing ring. More vnodes spread tenants more "
+         "evenly; fewer make the ring cheaper to walk.")
+register("MXNET_FABRIC_HEARTBEAT_S", 0.2, float,
+         "Serving front door: host agent heartbeat cadence (seconds). Each "
+         "tick touches the host's heartbeat file.")
+register("MXNET_FABRIC_HOST_TIMEOUT_S", 2.0, float,
+         "Serving front door: FrontDoor.check_hosts() declares a host dead "
+         "when its agent heartbeat is older than this many seconds (or the "
+         "agent process exited).")
+register("MXNET_EXEC_CACHE_DIR", "", str,
+         "Executable cache: directory for the compiled kernel binaries "
+         "(nvcc libraries, NVRTC cubins), content-addressed by sources, "
+         "flags, toolchain, runtime versions and device; shareable across "
+         "processes. A build or CudaModule compile checks it first and "
+         "stores after a miss. Empty disables the cache.")
+register("MXNET_EXEC_CACHE_MAX_BYTES", 1 << 30, int,
+         "Executable cache: byte budget for the on-disk store. After "
+         "every write the least-recently-used entries (payload mtime, "
+         "touched on hit) are evicted until the store fits. 0 disables "
+         "eviction.")
+
 register("MXNET_ENGINE_TYPE", "ThreadedEngine", str,
          "Engine for host tasks: ThreadedEngine (the native C++ pool) or "
          "NaiveEngine (synchronous, in Python).")

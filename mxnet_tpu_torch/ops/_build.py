@@ -10,6 +10,17 @@ path) and the flags: a changed source or header builds anew, an unchanged
 one is reused. A file lock per library serializes its build across
 processes (the ranks of a job that start with nothing built), so the
 first builds it and the others find it.
+
+With the executable cache on (``MXNET_EXEC_CACHE_DIR``), :func:`load`
+first looks the library up there under a key that also covers the
+toolkit's nvcc release (read from its ``version.json``, so a hit runs no
+nvcc), the runtime versions and the card (``cache/executable_cache.py``):
+a hit loads the verified bytes, a miss builds as above (or finds
+``build/``'s file). The library is stored under the release of the nvcc
+that built it, which :func:`_compile` notes beside it
+(``lib<name>-<hash>.nvcc``); a file in ``build/`` without that note is
+loaded but not stored. A build that fails raises; the cache's only
+fallback is to build the library again.
 Nothing is built when a module is imported; the first call that launches a
 kernel builds it. Different libraries build in parallel when first used from
 different threads (one nvcc each).
@@ -26,12 +37,14 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from ..base import MXNetError
+from ..cache import executable_cache as _xcache
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load", "build_log",
-           "source_hash"]
+           "source_hash", "nvcc_version", "note_release", "built_by",
+           "cache_key"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -47,16 +60,28 @@ _LOCK = threading.Lock()              # guards _NAME_LOCKS
 _NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOGS: Dict[str, dict] = {}
+_TOOLKIT: List[Optional[str]] = []    # nvcc_version(), resolved once
 
 
-def _nvcc() -> str:
+def _cuda_home() -> Path:
+    return Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda")
+
+
+def _find_nvcc() -> Optional[str]:
     cands = []
     if os.environ.get("CUDA_HOME"):
-        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+        cands.append(str(_cuda_home() / "bin" / "nvcc"))
     cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
     for c in cands:
         if c and os.path.isfile(c) and os.access(c, os.X_OK):
             return c
+    return None
+
+
+def _nvcc() -> str:
+    nvcc = _find_nvcc()
+    if nvcc is not None:
+        return nvcc
     raise MXNetError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
                      "the port's CUDA kernels are built from source at first "
                      "use")
@@ -107,14 +132,16 @@ def build(name: str, sources: Sequence[str]) -> Path:
             if not out.exists():                # no other process built it
                 return _compile(name, sources, out)
     _LOGS.setdefault(name, {"path": str(out), "seconds": 0.0,
-                            "cached": True, "ptxas": ""})
+                            "cached": True, "source": "build_dir",
+                            "ptxas": ""})
     return out
 
 
 def _compile(name: str, sources: Sequence[str], out: Path) -> Path:
     paths = [CSRC / s for s in sources]
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-Xptxas", "-v",
+    nvcc = _nvcc()
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-Xptxas", "-v",
            "-o", str(tmp),
            *[str(p) for p in paths]]
     t0 = time.perf_counter()
@@ -123,10 +150,81 @@ def _compile(name: str, sources: Sequence[str], out: Path) -> Path:
     if proc.returncode != 0:
         raise MXNetError(f"nvcc failed for {name} (exit {proc.returncode}):\n"
                          f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    _xcache.note_compile("nvcc")
+    note_release(out, _nvcc_release(nvcc))      # before the library appears
     os.replace(tmp, out)
     _LOGS[name] = {"path": str(out), "seconds": seconds, "cached": False,
-                   "ptxas": proc.stdout + proc.stderr}
+                   "source": "nvcc", "ptxas": proc.stdout + proc.stderr}
     return out
+
+
+def _nvcc_release(nvcc: str) -> str:
+    """The release ``nvcc --version`` of the binary ``nvcc`` prints
+    (``12.9.86``)."""
+    proc = subprocess.run([nvcc, "--version"], capture_output=True,
+                          text=True, timeout=60)
+    m = re.search(r"\bV(\d+(?:\.\d+)+)", proc.stdout)
+    if proc.returncode != 0 or m is None:
+        raise MXNetError(f"{nvcc} --version gave no release (exit "
+                         f"{proc.returncode}): {proc.stdout}{proc.stderr}")
+    return m.group(1)
+
+
+def nvcc_version() -> Optional[str]:
+    """The toolkit's nvcc release (``12.9.86``), resolved once a process:
+    ``cuda_nvcc`` in the ``version.json`` of ``CUDA_HOME`` (else
+    ``/usr/local/cuda``), read without running nvcc; else ``nvcc
+    --version``; None with neither. A toolkit other than the nvcc that
+    builds only makes the cache miss: what is stored is keyed by the
+    release of the nvcc that built it (:func:`built_by`)."""
+    if not _TOOLKIT:
+        meta = _cuda_home() / "version.json"
+        m = re.search(r'"cuda_nvcc"\s*:\s*\{[^}]*"version"\s*:\s*"([^"]+)"',
+                      meta.read_text()) if meta.is_file() else None
+        nvcc = None if m else _find_nvcc()
+        _TOOLKIT.append(m.group(1) if m else
+                        _nvcc_release(nvcc) if nvcc else None)
+    return _TOOLKIT[0]
+
+
+def note_release(lib: Path, release: str):
+    """Write beside ``build/``'s ``lib`` the nvcc release that built it."""
+    _xcache._atomic_write(str(lib.with_suffix(".nvcc")), release.encode())
+
+
+def built_by(lib: Path) -> Optional[str]:
+    """The nvcc release noted beside ``lib`` by :func:`note_release`, or
+    None for a library without a note."""
+    note = lib.with_suffix(".nvcc")
+    return note.read_text().strip() or None if note.is_file() else None
+
+
+def cache_key(name: str, sources: Sequence[str],
+              release: Optional[str] = None) -> Optional[dict]:
+    """The executable-cache key of library ``name``: its sources' and
+    flags' digest, the nvcc ``release`` (default :func:`nvcc_version`),
+    the runtimes and the card; None where the release is unknown."""
+    release = release or nvcc_version()
+    if release is None:
+        return None
+    return _xcache.build_key(source_hash(sources), {"nvcc": release},
+                             {"library": name})
+
+
+def _from_cache(name: str, key: dict):
+    """The library stored under ``key`` in the executable cache, loaded
+    from its verified bytes (written beside the builds), or None."""
+    def dlopen(blob: bytes) -> ctypes.CDLL:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path = BUILD_DIR / f"lib{name}-x{_xcache.key_digest(key)[:16]}.so"
+        _xcache._atomic_write(str(path), blob)
+        t0 = time.perf_counter()
+        lib = ctypes.CDLL(str(path))
+        _LOGS[name] = {"path": str(path), "cached": True,
+                       "source": "exec_cache", "ptxas": "",
+                       "seconds": time.perf_counter() - t0}
+        return lib
+    return _xcache.load(key, loader=dlopen)
 
 
 def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
@@ -136,12 +234,23 @@ def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     with lock:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name, sources)))
+            cached = _xcache.enabled()
+            key = cache_key(name, sources) if cached else None
+            if key is not None:
+                lib = _from_cache(name, key)
+            if lib is None:
+                path = build(name, sources)
+                lib = ctypes.CDLL(str(path))
+                release = built_by(path) if cached else None
+                if release is not None:
+                    _xcache.store(cache_key(name, sources, release),
+                                  path.read_bytes())
             _LIBS[name] = lib
         return lib
 
 
 def build_log(name: str) -> dict:
-    """Path, build seconds and ptxas report of the library ``name`` built
-    (or found) in this process."""
+    """Path, build seconds, ptxas report and ``source`` (``nvcc``,
+    ``build_dir`` or ``exec_cache``) of the library ``name`` built (or
+    found) in this process."""
     return dict(_LOGS.get(name, {}))

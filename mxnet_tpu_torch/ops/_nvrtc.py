@@ -26,9 +26,10 @@ from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
 from ..base import MXNetError
+from ..cache import executable_cache as _xcache
 
-__all__ = ["ARCH_OPTIONS", "cuda_home", "compile_cubin", "load_module",
-           "get_function", "set_max_dynamic_shared", "launch"]
+__all__ = ["ARCH_OPTIONS", "cuda_home", "nvrtc_version", "compile_cubin",
+           "load_module", "get_function", "set_max_dynamic_shared", "launch"]
 
 # cubin for the H100 with the Hopper-only instructions (wgmma, setmaxnreg)
 ARCH_OPTIONS = ("--gpu-architecture=sm_90a", "-std=c++17")
@@ -180,6 +181,7 @@ def compile_cubin(source: str, name: str, options: Sequence[str] = (),
             raise MXNetError(f"CudaModule: kernel source failed to compile "
                              f"({lib.nvrtcGetErrorString(rc).decode()}):\n"
                              f"{buf.value.decode(errors='replace')}")
+        _xcache.note_compile("nvrtc")
         lowered = {}
         for expr in name_expressions:
             out = ctypes.c_char_p()

@@ -20,10 +20,12 @@ The boundaries (``SITES``) are the reference's:
     ``sdc``               NumericsGuard's SDC re-execution, once per verify
     ``decode``            the decode scheduler's step boundary and
                           PagedKVPool.reserve
-    ``exec_cache``        the reference's executable cache (no port)
+    ``exec_cache``        the executable cache's load (``cache_poison``
+                          becomes a real truncated payload on disk)
     ``emb_dispatch``      DLRMTrainStep, before the step's exchange
     ``pool_submit``       ServingPool.submit
-    ``frontdoor``         the serving front door (not ported: Q1.11b)
+    ``frontdoor``         FrontDoor.submit, the hop to a host (``net_delay``,
+                          ``net_drop``)
 
 ``check`` is one truthiness test when nothing is injected. ``every_n`` and
 ``at`` count matching calls exactly; ``p=`` draws from a private

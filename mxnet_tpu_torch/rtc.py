@@ -30,12 +30,20 @@ array raises: a CUDA source has nothing to run on the CPU, and nothing
 falls back. A launch the card refuses (too many threads, too much shared
 memory) raises at the call.
 
+With the executable cache on (``MXNET_EXEC_CACHE_DIR``) the cubin is
+looked up there first, under a key of the source, options and exports, the
+NVRTC version, the runtimes and the card: a hit skips NVRTC and loads the
+stored cubin (``compile_seconds`` is then 0.0 and ``cache_hit`` True); a
+miss compiles and stores it. A source that does not compile raises either
+way.
+
 ``launches`` counts the kernels launched through :meth:`CudaKernel.launch`
 in this process; each kernel also counts its own.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import numbers
 import re
 import threading
@@ -44,6 +52,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import torch
 
 from .base import DTypes, MXNetError
+from .cache import executable_cache as _xcache
 from .ndarray.ndarray import NDArray, _wrap
 from .ops import _nvrtc
 
@@ -220,6 +229,20 @@ class CudaKernel:
         return outs[0] if len(outs) == 1 else outs
 
 
+def cache_key(source: str, options: Sequence[str] = (),
+              exports: Sequence[str] = ()) -> dict:
+    """The executable-cache key of a module's cubin: the source, options and
+    exports' digest, the NVRTC version, the runtimes and the card."""
+    h = hashlib.sha256(" ".join(_nvrtc.ARCH_OPTIONS).encode())
+    for part in (source, *options, "\0", *exports):
+        h.update(part.encode())
+        h.update(b"\0")
+    major, minor = _nvrtc.nvrtc_version()
+    return _xcache.build_key(h.hexdigest(), {"nvrtc": f"{major}.{minor}"},
+                             {"module": "rtc.cu",
+                              "exports": ",".join(exports)})
+
+
 class CudaModule:
     """CUDA C++ source compiled at run time for sm_90a (upstream
     ``rtc.py:41``). ``options`` go to NVRTC after the architecture and the
@@ -232,9 +255,22 @@ class CudaModule:
                  exports: Sequence[str] = ()):
         self._exports = (exports,) if isinstance(exports, str) \
             else tuple(exports)
-        self._cubin, self._lowered, self.compile_seconds = \
-            _nvrtc.compile_cubin(source, "rtc.cu", tuple(options),
-                                 self._exports)
+        self.cache_hit = False
+        key = cache_key(source, options, self._exports) \
+            if _xcache.enabled() else None
+        got = _xcache.load(key, with_meta=True) if key is not None else None
+        if got is not None:
+            self._cubin, meta = got
+            self._lowered = dict(meta.get("lowered", {}))
+            self.compile_seconds = 0.0
+            self.cache_hit = True
+        else:
+            self._cubin, self._lowered, self.compile_seconds = \
+                _nvrtc.compile_cubin(source, "rtc.cu", tuple(options),
+                                     self._exports)
+            if key is not None:
+                _xcache.store(key, self._cubin,
+                              meta={"lowered": self._lowered})
         self._lock = threading.Lock()
         self._cu_modules: Dict[int, ctypes.c_void_p] = {}
         self._functions: Dict[tuple, Optional[ctypes.c_void_p]] = {}

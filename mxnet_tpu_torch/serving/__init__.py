@@ -40,8 +40,14 @@ Generative serving (``serving.generate``) rides beside it:
     server.start()
     tokens = server.generate("lm", prompt, max_new_tokens=32).result()
 
-Not ported yet (ROADMAP Q1.11b): the executable cache, ``serving/fabric``
-(sharded endpoints and the front door) and ``tools/chaos_check.py``.
+The serving fabric (``serving.fabric``) spans replicas over cards and
+hosts: ``plan_slices`` carves this process's cards into slices, a
+``ShardedEndpoint`` (``ShardedDecodeEndpoint``) serves one replica over a
+slice's cards, and a ``FrontDoor`` routes tenants over host serving planes
+and fails a dead host's work over to the survivors.
+
+Not ported yet: ``tools/chaos_check.py`` (after the telemetry, ROADMAP
+Q1.12).
 """
 from __future__ import annotations
 
@@ -56,6 +62,9 @@ from .generate import (DecodeEndpoint, DecodeScheduler, PagedKVPool,
 from .router import Router, StepCostEWMA, Tenant
 from .server import InferenceServer
 from .supervisor import PoolSupervisor
+from . import fabric
+from .fabric import (FrontDoor, ShardedDecodeEndpoint, ShardedEndpoint,
+                     SliceSpec, plan_slices)
 from .tailguard import (BROWNOUT, BrownoutController, Deadline, HEDGER,
                         HedgePolicy, RETRY_BUDGETS, RetryBudgets, TIER_RANKS,
                         TokenBucket)
@@ -66,9 +75,11 @@ __all__ = ["ModelEndpoint", "InferenceServer", "PoolSupervisor", "stats",
            "HotSwapError", "KVPoolExhausted", "DeadlineExceeded", "Router",
            "StepCostEWMA", "Tenant", "bucketing", "generate",
            "DecodeEndpoint", "DecodeScheduler", "PagedKVPool", "TokenStream",
-           "ServingPool", "Autoscaler", "tailguard", "Deadline",
-           "TokenBucket", "RetryBudgets", "RETRY_BUDGETS", "HedgePolicy",
-           "HEDGER", "BrownoutController", "BROWNOUT", "TIER_RANKS"]
+           "ServingPool", "Autoscaler", "fabric", "FrontDoor",
+           "ShardedEndpoint", "ShardedDecodeEndpoint", "SliceSpec",
+           "plan_slices", "tailguard", "Deadline", "TokenBucket",
+           "RetryBudgets", "RETRY_BUDGETS", "HedgePolicy", "HEDGER",
+           "BrownoutController", "BROWNOUT", "TIER_RANKS"]
 
 
 def stats():

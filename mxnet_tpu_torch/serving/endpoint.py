@@ -239,10 +239,30 @@ class ModelEndpoint:
                                          pin_memory=pin)
                              for s, dt in zip(self.input_shapes,
                                               self.np_dtypes))
-                device = tuple(torch.empty_like(h, device=self.device)
-                               for h in host)
-                slot = self._slots[key] = _Slot(host, device)
+                slot = self._slots[key] = _Slot(host,
+                                                self._device_buffers(host))
             return slot
+
+    def _device_buffers(self, host):
+        """The device input buffers of a slot whose host tensors are
+        ``host`` (a sharded endpoint keeps one set a context)."""
+        return tuple(torch.empty_like(h, device=self.device) for h in host)
+
+    def _upload(self, slot: _Slot):
+        """Copy a slot's host tensors to its device buffers on the current
+        stream; returns the event behind the copy (None on the CPU)."""
+        for d, h in zip(slot.device, slot.host_t):
+            d.copy_(h, non_blocking=True)
+        if not self._on_card():
+            return None
+        ready = torch.cuda.Event()
+        ready.record(self._stream())
+        return ready
+
+    def _wait_ready(self, staged: StagedBatch):
+        """Make the forward's stream wait for the batch's copy."""
+        if staged.ready is not None:
+            self._stream().wait_event(staged.ready)
 
     def staging_buffers(self, bucket: int, parity: int):
         """The host staging arrays of one (bucket, parity) slot, once the
@@ -266,12 +286,8 @@ class ModelEndpoint:
             for h, a in zip(slot.host, host_inputs):
                 h[:rows] = a[:rows]
                 h[rows:] = 0
-        ready = None
-        for d, h in zip(slot.device, slot.host_t):
-            d.copy_(h, non_blocking=True)
-        if self._on_card():
-            ready = torch.cuda.Event()
-            ready.record(self._stream())
+        ready = self._upload(slot)
+        if ready is not None:
             slot.fence = ready
         return StagedBatch(slot.device, bucket, ready, slot)
 
@@ -281,8 +297,7 @@ class ModelEndpoint:
         with ``bucket`` rows each."""
         stream = self._stream()
         t0 = now_us()
-        if staged.ready is not None:
-            stream.wait_event(staged.ready)
+        self._wait_ready(staged)
         outs = self._forward(staged.inputs)
         if stream is not None:
             done = torch.cuda.Event()

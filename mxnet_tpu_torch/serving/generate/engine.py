@@ -97,11 +97,15 @@ class DecodeEndpoint:
         self.prefill_cost = StepCostEWMA()    # per prefill seq bucket (us)
         self._warm_prefill = set()
         self._warm_decode = set()
-        self.pool = PagedKVPool(name, int(block.num_layers), int(block.units),
-                                self.max_seq_len, page_size=page_size,
-                                num_pages=num_pages,
-                                dtype=next(block.parameters()).dtype,
-                                ctx=self.ctx)
+        self.pool = self._make_pool(name, int(block.num_layers),
+                                    int(block.units), self.max_seq_len,
+                                    page_size=page_size, num_pages=num_pages,
+                                    dtype=next(block.parameters()).dtype,
+                                    ctx=self.ctx)
+
+    def _make_pool(self, *args, **kw) -> PagedKVPool:
+        """The endpoint's KV pool (the sharded twin keeps replicas)."""
+        return PagedKVPool(*args, **kw)
 
     def _probe(self):
         """Validate the block's decode protocol and position table."""
@@ -133,28 +137,35 @@ class DecodeEndpoint:
     def _prefill(self, host: np.ndarray, S: int, length: int) -> int:
         """One prefill at bucket ``S``. ``host`` holds the S padded tokens
         followed by the sequence's page table (one transfer)."""
-        ps = self.pool.page_size
         with torch.inference_mode():
             dev = torch.from_numpy(host).to(self.device)
             outs = self.block.prefill_collect(dev[:S].view(1, S))
-            table = dev[S:]
-            write_prefill(self.pool.k_pool, torch.stack(outs[1::2])[:, 0],
-                          table, length, ps)
-            write_prefill(self.pool.v_pool, torch.stack(outs[2::2])[:, 0],
-                          table, length, ps)
+            self._write_prefill(torch.stack(outs[1::2])[:, 0],
+                                torch.stack(outs[2::2])[:, 0], dev[S:],
+                                length)
             next_id = outs[0][0, length - 1].argmax()
         return int(next_id)                    # sync point
 
-    def _step_outputs(self, dev, B: int):
+    def _write_prefill(self, k, v, table, length: int):
+        """Scatter a prefill's K and V (num_layers, S, kv_dim) into the
+        sequence's pages (the sharded twin writes every replica)."""
+        ps = self.pool.page_size
+        write_prefill(self.pool.k_pool, k, table, length, ps)
+        write_prefill(self.pool.v_pool, v, table, length, ps)
+
+    def _step_outputs(self, dev, B: int, pools=None, run=None):
         """The model's decode step over ``dev``, the device copy of
-        :meth:`_decode_host`'s rows: gather the first ``B`` rows' context,
-        run ``decode_step`` on all R rows. Returns its outputs (logits and
-        each layer's new k, v; R rows each)."""
+        :meth:`_decode_host`'s rows: gather the first ``B`` rows' context
+        from ``pools`` (K and V; default this endpoint's pool), run ``run``
+        (default the block's ``decode_step``) on all R rows. Returns its
+        outputs (logits and each layer's new k, v; R rows each). The
+        sharded twin passes a group's replica and its copy of the block."""
+        k_pool, v_pool = pools or (self.pool.k_pool, self.pool.v_pool)
         tables = dev[:B, 3:]
-        gk = gather_ctx(self.pool.k_pool, tables)       # (layers, B, L, kv)
-        gv = gather_ctx(self.pool.v_pool, tables)
+        gk = gather_ctx(k_pool, tables)                 # (layers, B, L, kv)
+        gv = gather_ctx(v_pool, tables)
         ctx = [t for i in range(self.block.num_layers) for t in (gk[i], gv[i])]
-        return self.block.decode_step(dev[:, 0], dev[:, 1], *ctx)
+        return (run or self.block.decode_step)(dev[:, 0], dev[:, 1], *ctx)
 
     def _decode(self, host: np.ndarray, B: int) -> np.ndarray:
         """One decode step at batch bucket ``B``. ``host`` is (R, 3 + P):

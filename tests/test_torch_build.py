@@ -88,7 +88,9 @@ def test_ranks_that_start_cold_build_a_library_once(tmp_path):
     lets one run the compiler and the other find its library."""
     calls = tmp_path / "calls"
     nvcc = tmp_path / "nvcc"
-    nvcc.write_text('#!/bin/sh\necho run >> "%s"\nsleep 1\n'
+    nvcc.write_text('#!/bin/sh\n'
+                    'if [ "$1" = "--version" ]; then echo V0.0.1; exit 0; fi\n'
+                    'echo run >> "%s"\nsleep 1\n'
                     'while [ "$1" != "-o" ]; do shift; done\n'
                     'touch "$2"\n' % calls)
     nvcc.chmod(0o755)
@@ -102,3 +104,4 @@ def test_ranks_that_start_cold_build_a_library_once(tmp_path):
     outs = proc.stdout.split()
     assert len(outs) == 2 and outs[0] == outs[1] and os.path.exists(outs[0])
     assert calls.read_text().split() == ["run"]
+    assert _build.built_by(Path(outs[0])) == "0.0.1"

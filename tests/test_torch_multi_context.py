@@ -7,6 +7,8 @@ every ``cpu(i)`` is the host, so a Parameter keys its copies by the
 ``Context`` and a Block computes with the copies of its input's context.
 Weights and batches are made with numpy from a seed. Tolerance 1e-5.
 """
+import contextlib
+
 import numpy as onp
 import pytest
 import torch
@@ -33,25 +35,47 @@ def _on_cpu():
         yield
 
 
-@pytest.fixture(autouse=True)
-def _process_state():
-    """The process-wide state these comparisons read, set for each test
-    and restored after it: the files an xdist worker runs share one
-    process, and under ``--dist loadfile`` any of them may have run
-    before this one. PyTorch's intra-op thread count (a change rebuilds
-    the pool, whose fresh threads are primed as at import), gradient
-    mode, default dtype, denormal flushing and deterministic-algorithm
-    flag; AMP off in both packages (the reference's cast policy also rides
-    a thread-local stack); the reference's f32 matmul precision and x64
-    flag."""
+def _forget_ledger_executors():
+    """Drop the executors the reference's eager jit cache
+    (``mxnet_tpu/ops/registry.py`` ``_JIT_CACHE``) instrumented while a
+    compile ledger was on. Such an executor (``compile_ledger.
+    instrument_eager_jit``) AOT-compiles per (shape, dtype) with no device
+    in its key, and the cache keeps it after the ledger is turned off: a
+    Dense forward on ``cpu(0)`` compiles it for device 0, and the same
+    layer on ``cpu(1)`` is refused ("Computation was compiled for input
+    shardings that disagree", F8). ``tests/test_hlolint.py`` leaves such an
+    executor for FullyConnected(num_hidden=16) whenever it runs earlier in
+    the same xdist worker. The next dispatch makes a plain ``jax.jit``."""
+    from mxnet_tpu.ops import registry as jreg
+    with jreg._JIT_LOCK:
+        for key in [k for k, fn in jreg._JIT_CACHE.items()
+                    if getattr(fn, "_ledger_instrumented", False)]:
+            del jreg._JIT_CACHE[key]
+
+
+@contextlib.contextmanager
+def _process_state_scope():
+    """The process-wide state these comparisons read, set for a test and
+    restored after it: the files an xdist worker runs share one process,
+    and under ``--dist loadfile`` any of them may have run before this
+    one. PyTorch's intra-op thread count (a change rebuilds the pool,
+    whose fresh threads are primed as at import), gradient mode, default
+    dtype, denormal flushing and deterministic-algorithm flag; AMP off in
+    both packages (the reference's cast policy also rides a thread-local
+    stack); the reference's f32 matmul precision and x64 flag; the
+    reference's compile ledger off and its eager jit cache free of the
+    executors a ledger instrumented (F8)."""
     import jax
     from mxnet_tpu import amp as jamp
+    from mxnet_tpu import config as jcfg
     saved = (torch.get_num_threads(), torch.is_grad_enabled(),
              torch.get_default_dtype(),
              torch.are_deterministic_algorithms_enabled(),
              jax.config.jax_default_matmul_precision,
              jax.config.jax_enable_x64, mt.amp._AMP_STATE["on"],
-             jamp._AMP_STATE["on"], getattr(jamp._CFG_TLS, "stack", None))
+             jamp._AMP_STATE["on"], getattr(jamp._CFG_TLS, "stack", None),
+             jcfg.get("MXNET_COMPILE_LEDGER_DIR"),
+             jcfg.get("MXNET_COMPILE_LEDGER_EAGER"))
     if saved[0] != 2:
         torch.set_num_threads(2)
         torch.exp(torch.zeros(1 << 18))
@@ -63,6 +87,9 @@ def _process_state():
     jax.config.update("jax_enable_x64", False)
     mt.amp._AMP_STATE["on"] = jamp._AMP_STATE["on"] = False
     jamp._CFG_TLS.stack = []
+    jcfg.set("MXNET_COMPILE_LEDGER_DIR", "")
+    jcfg.set("MXNET_COMPILE_LEDGER_EAGER", "auto")
+    _forget_ledger_executors()
     try:
         yield
     finally:
@@ -75,6 +102,14 @@ def _process_state():
         jax.config.update("jax_enable_x64", saved[5])
         mt.amp._AMP_STATE["on"], jamp._AMP_STATE["on"] = saved[6:8]
         jamp._CFG_TLS.stack = saved[8] if saved[8] is not None else []
+        jcfg.set("MXNET_COMPILE_LEDGER_DIR", saved[9])
+        jcfg.set("MXNET_COMPILE_LEDGER_EAGER", saved[10])
+
+
+@pytest.fixture(autouse=True)
+def _process_state():
+    with _process_state_scope():
+        yield
 
 
 def test_parameter_on_four_contexts():
@@ -162,6 +197,48 @@ def test_trainer_over_four_contexts_matches_reference():
     ref = _train(mx, JCTXS, weights, data)
     for i, (ps, rs) in enumerate(zip(port, ref)):
         assert len(ps) == len(rs) == 4
+        for c, (a, b) in enumerate(zip(ps, rs)):
+            onp.testing.assert_allclose(a, b, **TOL,
+                                        err_msg=f"param {i} ctx {c}")
+
+
+def _reference_ledger_step(tmp_path):
+    """What ``tests/test_hlolint.py`` does before its serving check, in a
+    worker whose eager jit cache holds no Dense executor yet (as when it
+    runs first): the reference's compile ledger on, a Dense(16) net's
+    eager forward (its FullyConnected executor instrumented and cached),
+    the ledger off."""
+    from mxnet_tpu import config as jcfg
+    from mxnet_tpu.ops import registry as jreg
+    with jreg._JIT_LOCK:
+        jreg._JIT_CACHE.clear()
+    jcfg.set("MXNET_COMPILE_LEDGER_DIR", str(tmp_path / "ledger"))
+    try:
+        net = mx.gluon.nn.HybridSequential()
+        with net.name_scope():
+            net.add(mx.gluon.nn.Dense(16, activation="relu"),
+                    mx.gluon.nn.Dense(4))
+        net.initialize()
+        net(mx.nd.array(onp.zeros((2, 8), "float32")))
+    finally:
+        jcfg.set("MXNET_COMPILE_LEDGER_DIR", "")
+
+
+def test_f8_trainer_over_four_contexts_after_the_reference_ledger(tmp_path):
+    """F8: the four-context comparison after another file ran the
+    reference's compile ledger in the same process (pytest-xdist's
+    workers share one process across files). Without dropping the
+    executors the ledger instrumented, the reference's first Dense on
+    ``cpu(1)`` raises ("compiled for input shardings that disagree")."""
+    _reference_ledger_step(tmp_path)
+    from mxnet_tpu.ops import registry as jreg
+    assert any(getattr(fn, "_ledger_instrumented", False)
+               for fn in jreg._JIT_CACHE.values())
+    with _process_state_scope():
+        weights, data = _weights(), _data()
+        port = _train(mt, CTXS, weights, data)
+        ref = _train(mx, JCTXS, weights, data)
+    for i, (ps, rs) in enumerate(zip(port, ref)):
         for c, (a, b) in enumerate(zip(ps, rs)):
             onp.testing.assert_allclose(a, b, **TOL,
                                         err_msg=f"param {i} ctx {c}")

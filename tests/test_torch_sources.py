@@ -900,6 +900,7 @@ def test_the_int8_products_take_no_float_route(name):
 # the multi-process slice: collectives, meshes, kvstores, the launcher
 # ---------------------------------------------------------------------------
 COLLECTIVES = PKG / "parallel" / "collectives.py"
+FRONTDOOR = PKG / "serving" / "fabric" / "frontdoor.py"
 MESH = PKG / "parallel" / "mesh.py"
 PORT_TESTS = sorted((ROOT / "tests").glob("test_torch_*.py")) + \
     sorted((ROOT / "tests").glob("torch_*.py"))
@@ -1027,7 +1028,9 @@ def test_port_never_imports_the_repos_launcher(path):
 def test_every_subprocess_has_a_timeout(path):
     """A port test or chip_smoke.py cannot hang on a child: every
     subprocess.run/call/check_* has a timeout, and only the launcher (which
-    kills its workers at its deadline) starts a Popen."""
+    kills its workers at its deadline) and the front door (whose host
+    agents exit at their deadline, and are killed and reaped on stop)
+    start a Popen."""
     for node in ast.walk(_tree(path)):
         if not (isinstance(node, ast.Call) and
                 isinstance(node.func, ast.Attribute) and
@@ -1035,7 +1038,7 @@ def test_every_subprocess_has_a_timeout(path):
                 node.func.value.id == "subprocess"):
             continue
         if node.func.attr == "Popen":
-            assert path == PKG / "tools" / "launch.py", \
+            assert path in (PKG / "tools" / "launch.py", FRONTDOOR), \
                 f"{path}:{node.lineno}: Popen"
         elif node.func.attr in ("run", "call", "check_call", "check_output"):
             assert any(k.arg == "timeout" for k in node.keywords), \
@@ -1227,3 +1230,73 @@ def test_serving_never_synchronizes_the_device(module):
             assert not (isinstance(owner, ast.Attribute)
                         and owner.attr == "cuda"), \
                 f"{module}:{n.lineno}: torch.cuda.synchronize"
+
+
+# ---------------------------------------------------------------------------
+# the executable cache and the serving fabric (S17)
+# ---------------------------------------------------------------------------
+SLICE20_MODULES = ["cache/__init__.py", "cache/executable_cache.py",
+                   "serving/fabric/__init__.py", "serving/fabric/slices.py",
+                   "serving/fabric/sharded.py", "serving/fabric/frontdoor.py"]
+#: the calls that build a kernel binary (nvcc or NVRTC)
+_BUILD_CALLS = {"build", "_compile", "compile_cubin", "CudaModule",
+                "nvcc_version", "nvrtc_version"}
+
+
+@pytest.mark.parametrize("module", SLICE20_MODULES)
+def test_slice20_modules_are_guarded(module):
+    """The cache and the fabric import no JAX and every subprocess call in
+    them has a timeout."""
+    assert PKG / module in PORT_FILES
+    test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
+    test_every_subprocess_has_a_timeout(PKG / module)
+
+
+@pytest.mark.parametrize(
+    "module", SLICE20_MODULES + ["ops/_build.py", "ops/_nvrtc.py", "rtc.py"])
+def test_no_handler_carries_on_after_a_failed_build(module):
+    """A failed nvcc or NVRTC build raises through the cache: no try block
+    around a build has a handler (the cache's only fallback is to build
+    the same kernel again)."""
+    for node in ast.walk(_tree(PKG / module)):
+        if isinstance(node, ast.Try) and node.handlers:
+            bad = _BUILD_CALLS & {n for stmt in node.body
+                                  for n in _called_names(stmt)}
+            assert not bad, f"{module}:{node.lineno}: handler around {bad}"
+
+
+def _agent_source():
+    tree = _tree(FRONTDOOR)
+    (src,) = [n.value.value for n in tree.body if isinstance(n, ast.Assign)
+              and any(isinstance(t, ast.Name) and t.id == "_HOST_AGENT_SRC"
+                      for t in n.targets)]
+    return src
+
+
+def test_the_host_agent_runs_the_port_only():
+    """The front door's agent subprocess imports the port and names no
+    module of the JAX package and no jax."""
+    src = _agent_source()
+    assert not re.search(r"\bjax\b|\bmxnet_tpu\b(?!_torch)", src), src
+    names = set()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    assert not any(_forbidden(n) for n in names), names
+    assert "mxnet_tpu_torch" in names
+
+
+def test_every_host_agent_has_a_deadline():
+    """An agent exits at its deadline or when its parent is gone, and the
+    front door waits for a killed agent with a timeout."""
+    src = _agent_source()
+    assert "FABRIC_AGENT_MAX_S" in src and "getppid" in src
+    for node in ast.walk(_tree(FRONTDOOR)):
+        if isinstance(node, ast.Call) and isinstance(node.func,
+                                                     ast.Attribute) \
+                and node.func.attr in ("wait", "communicate"):
+            assert any(k.arg == "timeout" for k in node.keywords), \
+                f"frontdoor.py:{node.lineno}: {node.func.attr} without " \
+                "a timeout"
