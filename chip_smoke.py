@@ -591,7 +591,35 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    zero client errors, only the dead hosts' tenants moved, every response
    bitwise the direct forward; ms from each failure to its last
    resubmitted response, requests/s before and after, heartbeat ages.
-21. A JSON line with the kernels' numbers (``launches_by_path`` gains
+21. Telemetry and the profiler (``mxnet_tpu_torch.telemetry``,
+   ``profiler``), with the memstats holders of earlier phases dropped
+   first. (a) ``bert_base()`` bf16 at S = 512 (buckets 1-32) through the
+   serial ``InferenceServer``, 4 closed-loop clients each inside a
+   ``smoke.client`` span: every ``serving.batch`` and
+   ``serving.device_step`` span in the flight ring carries a client's
+   trace id, the ``completed`` delta of ``mxtpu_serving_requests_total``
+   equals the responses, the ``mxtpu_serving_batches_total`` delta x 12
+   equals K1's launches, every line of ``prometheus_text()`` parses.
+   (b) One request under ``profiler.start()``/``stop()``/``dump()`` with
+   ``profile_all``: the chrome dump holds the ``serving.batch`` span with
+   the client's trace id, and the torch session's trace a device event of
+   ``flash_fwd_kernel`` (printed with its duration). (c) A few
+   ``ParallelTrainStep`` steps of ``BERTForPretraining(bert_base(
+   max_length=128))`` at 64 x 128: ``train.step`` spans and the
+   ``mxtpu_train_steps_total`` delta equal the steps, K1-K3 launch 12
+   times a step, ``memstats.reconcile()`` attributes at most the bytes in
+   use on ``gpu:0`` (both printed, and the remainder), and
+   ``mxtpu_device_memory_bytes{device="gpu:0"}`` is set. (d) In a process
+   under deterministic algorithms (``--slice21-worker``) with
+   ``MXNET_FLIGHT_DIR`` set: one ``device_oom`` injected into a training
+   step under its ``RetryPolicy``; the state after it and one more step is
+   bitwise the uninterrupted run's, and exactly one ``oom`` bundle lands,
+   holding the metrics snapshot, the holder breakdown, thread stacks and
+   the last spans, which ``load_bundle`` reads. (e) On the card's host:
+   the host us of a span, a labelled counter ``inc`` and a histogram
+   ``observe`` (over 10^5 calls), and the registry calls of one served
+   batch with their share of its host time (printed, not gated).
+22. A JSON line with the kernels' numbers (``launches_by_path`` gains
    ``int8_resnet``, ``int8_bert`` and ``kvstore_resnet`` (phase 15),
    ``dp_bert``, ``tp_bert`` and ``dist_trainer_bert``, counted on rank 0
    (phase 16), ``ring_attention`` (phase 17(b), rank 0),
@@ -601,8 +629,10 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    ``serving_hot_swap``, ``serving_failover`` and ``serving_pool`` (phase
    19) and ``sharded_serving``, ``sharded_serving_dp2``,
    ``sharded_decode``, ``sharded_decode_dp2`` and ``frontdoor`` (phase
-   20), and K1-K3 gain their times at the ring's block), then the
-   last line ``{"ok": true, "device": {...}}``.
+   20), ``telemetry_serving``, ``telemetry_profiled_request``,
+   ``telemetry_cost_batch``, ``telemetry_training`` and
+   ``telemetry_oom_retry`` (phase 21), and K1-K3 gain their times at the
+   ring's block), then the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -610,10 +640,12 @@ import argparse
 import contextlib
 import copy
 import ctypes
+import gc
 import importlib.util
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -662,7 +694,8 @@ from mxnet_tpu_torch.resilience import (CheckpointManager, faults,
                                         verify_checkpoint_dir)
 from mxnet_tpu_torch.serving import tailguard
 from mxnet_tpu_torch.serving.generate import DecodeEndpoint
-from mxnet_tpu_torch.telemetry import slo
+from mxnet_tpu_torch import profiler, telemetry
+from mxnet_tpu_torch.telemetry import flight, memstats, slo
 from mxnet_tpu_torch.tensor_inspector import TensorInspector
 from mxnet_tpu_torch.test_utils import get_shapes_detection
 from mxnet_tpu_torch.tools import (RESNET50_V1_PARAM_COUNT, PretrainStep,
@@ -7586,7 +7619,11 @@ def _s19_pool(seed, smi, named, layers):
     pool.stop(drain=True)
     wall = time.perf_counter() - t0
     launches = fa.launches
-    executed = sum(_s19_executed(ep) for _, ep in built)
+    # the replicas share one endpoint name, so one batches child counts
+    # every replica's batches: the first replica's share covers the pool
+    executed = built[0][1].stats.counters["batches"] + sum(
+        ep.stats.counters["warmup_batches"] + ep.stats.counters["swap_probes"]
+        for _, ep in built)
     responses = burst["bert128_pool"] + trickle["bert128_pool"]
     excess = max(_s19_excess(built[0][0], responses))
     actions = [(a["action"], a["replicas"], a["queue_pressure"])
@@ -8179,6 +8216,439 @@ def phase_fabric(seed: int, smi: str):
             "sharded_decode_dp2": decode_dp2, "frontdoor": fd_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: telemetry and the profiler
+# ---------------------------------------------------------------------------
+SLICE21_DIR = Path(__file__).resolve().parent / "build" / "phase_telemetry21"
+SLICE21_WORKER = [sys.executable, str(Path(__file__).resolve()),
+                  "--slice21-worker"]
+SLICE21_TIMEOUT = 300
+TEL_CLIENTS = 4                # (a): closed-loop clients, 1-8 rows a request
+TEL_REQS = 6                   # (a): requests a client
+TEL_TRAIN_STEPS = 3            # (c): steps at 64 x 128
+TEL_OOM_STEPS = 2              # (d): steps of each run, the first faulted
+TEL_COST_CALLS = 100_000       # (e): calls a timed recording primitive
+K1_KERNEL = "flash_fwd_kernel"  # the bf16 forward's __global__ function
+_PROM_LINE = re.compile(
+    r"^(?:# HELP [a-zA-Z_:][a-zA-Z0-9_:]* .*"
+    r"|# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* (counter|gauge|histogram|untyped)"
+    r"|[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? -?[0-9.eE+-]+(?: [0-9]+)?)$")
+
+
+def _tel_child(family, *labels):
+    return telemetry.REGISTRY.get(family).labels(*labels)
+
+
+def _tel_spans(name):
+    return [s for s in flight.recent_spans() if s["name"] == name]
+
+
+def _s21_serving(seed: int, smi: str, server, ep, layers: int):
+    """(a) 4 closed-loop clients, each inside a smoke.client span."""
+    completed = _tel_child("mxtpu_serving_requests_total", ep.name,
+                           "completed")
+    batches = _tel_child("mxtpu_serving_batches_total", ep.name)
+    flight.RECORDER.clear()
+    results = [[] for _ in range(TEL_CLIENTS)]
+    traces, errors = [None] * TEL_CLIENTS, []
+
+    def client(i):
+        rng = np.random.default_rng(seed * 1000 + 210 + i)
+        try:
+            with telemetry.span("smoke.client", client=i) as sp:
+                traces[i] = sp.trace_id
+                for _ in range(TEL_REQS):
+                    x = _s19_request_rows(rng, SEQ_LEN,
+                                          int(rng.integers(1, 9)))
+                    results[i].append((x, server.predict(ep.name, x,
+                                                         timeout=300)))
+        except Exception as e:        # surfaced below; the phase fails
+            errors.append(repr(e))
+
+    c0, b0 = completed.value, batches.value
+    # ---- the main path: counts from 0 just before, read just after ----
+    fa.launches = 0
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(TEL_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    launches = fa.launches
+    # ---- end of the main path ----
+    if errors or any(t.is_alive() for t in threads):
+        raise SystemExit(f"FAIL: 21(a) client errors {errors[:3]}")
+    responses = [r for rs in results for r in rs]
+    d_completed, d_batches = completed.value - c0, batches.value - b0
+    batch_spans = _tel_spans("serving.batch")
+    step_spans = _tel_spans("serving.device_step")
+    by_id = {s["span_id"]: s for s in batch_spans}
+    ids = set(traces)
+    carried = all(s["trace_id"] in ids for s in batch_spans) and all(
+        s["parent_id"] in by_id and
+        s["trace_id"] == by_id[s["parent_id"]]["trace_id"]
+        for s in step_spans)
+    excess = max(_s19_excess(ep.block, [(x, o, 0) for x, o in responses]))
+    lines = telemetry.prometheus_text().splitlines()
+    bad = [ln for ln in lines if ln and not _PROM_LINE.match(ln)]
+    checks = {
+        "trace ids": carried and len(batch_spans) == d_batches
+        and len(step_spans) == d_batches,
+        "completed": d_completed == len(responses),
+        "batches x layers": d_batches * layers == launches,
+        "responses": excess <= 0,
+        "prometheus": not bad and len(lines) > 0}
+    print(f"21(a) bert_base S={SEQ_LEN} bf16, {TEL_CLIENTS} closed-loop "
+          f"clients in smoke.client spans: {len(responses)} responses in "
+          f"{wall:.2f} s on {smi}")
+    print(f"21(a) trace ids: {len(batch_spans)} serving.batch and "
+          f"{len(step_spans)} serving.device_step spans, each carrying a "
+          f"client's trace id ({len({s['trace_id'] for s in batch_spans})} "
+          f"of {TEL_CLIENTS} clients lead a batch): {checks['trace ids']}")
+    print(f"21(a) mxtpu_serving_requests_total{{event=completed}} delta "
+          f"{d_completed:g} = {len(responses)} responses: "
+          f"{checks['completed']}")
+    print(f"21(a) mxtpu_serving_batches_total delta {d_batches:g} x {layers}"
+          f" layers = {d_batches * layers:g} = K1 launches {launches}: "
+          f"{checks['batches x layers']}")
+    print(f"21(a) responses vs direct forward: max(|d| - tol) {excess:.4g}"
+          f": {checks['responses']}")
+    print(f"21(a) prometheus_text(): {len(lines)} lines, {len(bad)} "
+          f"unparseable: {checks['prometheus']}")
+    span_us = sorted(s["dur_us"] for s in batch_spans)
+    return checks, launches, {"batch_span_p50_us": span_us[len(span_us) // 2]
+                              if span_us else float("nan")}
+
+
+def _s21_profiler(seed: int, smi: str, server, ep, layers: int):
+    """(b) one request under a profile_all session."""
+    SLICE21_DIR.mkdir(parents=True, exist_ok=True)
+    dump = SLICE21_DIR / "profile.json"
+    x = _s19_request_rows(np.random.default_rng(seed + 211), SEQ_LEN, 4)
+    profiler.set_config(profile_all=True, filename=str(dump))
+    # ---- the main path: counts from 0 just before, read just after ----
+    fa.launches = 0
+    profiler.start()
+    try:
+        with telemetry.span("smoke.profiled") as sp:
+            server.predict(ep.name, x, timeout=300)
+    finally:
+        profiler.stop()
+    launches = fa.launches
+    # ---- end of the main path ----
+    profiler.dump()
+    profiler.set_config()
+    events = json.load(open(dump))["traceEvents"]
+    batch = [e for e in events if e["name"] == "serving.batch"]
+    torch_trace = json.load(open(profiler.torch_trace_path()))["traceEvents"]
+    k1 = [e for e in torch_trace if e.get("cat") == "kernel"
+          and K1_KERNEL in e.get("name", "")]
+    # CUPTI may drop a kernel record of a short session (one of 12 in a
+    # run of the whole script, PR 21): the trace must hold K1's kernel,
+    # and the counter counts every launch
+    checks = {"span in chrome dump": bool(batch) and all(
+                  e["args"]["trace_id"] == sp.trace_id for e in batch),
+              "K1 in the device trace": 0 < len(k1) <= launches,
+              "launches": launches == layers}
+    print(f"21(b) profiler chrome dump: {len(events)} events, "
+          f"serving.batch with the client's trace id: "
+          f"{checks['span in chrome dump']}")
+    durs = [e.get("dur", float("nan")) for e in k1]
+    print(f"21(b) torch session trace: {len(k1)} device events of "
+          f"{K1_KERNEL} (K1 launches {launches}, {layers} expected); the "
+          f"first {k1[0]['name'][:80] if k1 else '-'!r}, duration "
+          f"{durs[0] if durs else float('nan')} us, median "
+          f"{sorted(durs)[len(durs) // 2] if durs else float('nan')} us "
+          f"on {smi}: {checks['K1 in the device trace']}")
+    return checks, launches
+
+
+def _count_registry_calls():
+    """Swap the registry's child methods for counting ones; returns the
+    tally and the undo."""
+    from mxnet_tpu_torch.telemetry import metrics as tm
+    tally = {"inc": 0, "set": 0, "observe": 0, "span": 0}
+    saved = []
+
+    def wrap(cls, name, key):
+        orig = getattr(cls, name)
+
+        def counted(self, *a, **k):
+            tally[key] += 1
+            return orig(self, *a, **k)
+        saved.append((cls, name, orig))
+        setattr(cls, name, counted)
+
+    wrap(tm._CounterChild, "inc", "inc")
+    wrap(tm._GaugeChild, "inc", "inc")
+    wrap(tm._GaugeChild, "dec", "inc")
+    wrap(tm._GaugeChild, "set", "set")
+    wrap(tm._HistogramChild, "observe", "observe")
+    span = telemetry.span
+
+    def counted_span(*a, **k):
+        tally["span"] += 1
+        return span(*a, **k)
+    telemetry.span = counted_span
+
+    def undo():
+        telemetry.span = span
+        for cls, name, orig in saved:
+            setattr(cls, name, orig)
+    return tally, undo
+
+
+def _host_us(fn, n=TEL_COST_CALLS):
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def _s21_costs(seed: int, smi: str, server, ep, batch_us: float):
+    """(e) the recording primitives' host cost, and one batch's calls."""
+    from mxnet_tpu_torch.telemetry.metrics import MetricsRegistry
+    reg = MetricsRegistry()
+    fam = reg.counter("mxtpu_smoke_cost_total", labelnames=("endpoint",))
+    child = fam.labels("e")
+    hist = reg.histogram("mxtpu_smoke_cost_us")
+
+    def one_span():
+        with telemetry.span("smoke.cost"):
+            pass
+    cost = {"span_us": _host_us(one_span),
+            "counter_inc_us": _host_us(child.inc),
+            "counter_labels_inc_us": _host_us(lambda: fam.labels("e").inc()),
+            "histogram_observe_us": _host_us(lambda: hist.observe(3.0))}
+    x = _s19_request_rows(np.random.default_rng(seed + 212), SEQ_LEN, 1)
+    tally, undo = _count_registry_calls()
+    # ---- the main path: counts from 0 just before, read just after ----
+    fa.launches = 0
+    try:
+        server.predict(ep.name, x, timeout=300)
+    finally:
+        undo()
+    launches = fa.launches
+    # ---- end of the main path ----
+    spent = (tally["inc"] * cost["counter_inc_us"]
+             + tally["set"] * cost["counter_inc_us"]
+             + tally["observe"] * cost["histogram_observe_us"]
+             + tally["span"] * cost["span_us"])
+    print(f"21(e) host us a call over {TEL_COST_CALLS:,} calls: span "
+          f"enter/exit {cost['span_us']:.3f}, labelled counter inc "
+          f"{cost['counter_inc_us']:.3f} (with labels() lookup "
+          f"{cost['counter_labels_inc_us']:.3f}), histogram observe "
+          f"{cost['histogram_observe_us']:.3f} on {smi}")
+    print(f"21(e) one served batch (1 row): {tally['inc']} inc, "
+          f"{tally['set']} set, {tally['observe']} observe, "
+          f"{tally['span']} spans ~ {spent:.1f} us of a {batch_us:.0f} us "
+          f"serving.batch span (p50 of 21(a)): "
+          f"{spent / batch_us * 100 if batch_us else float('nan'):.2f}% "
+          f"(printed, not gated)")
+    cost.update(tally=tally, share=spent / batch_us if batch_us else None)
+    return cost, launches
+
+
+def _s21_training(seed: int, smi: str):
+    """(c) a few training steps, their spans, counts and memory."""
+    rng = np.random.default_rng(seed + 213)
+    named = seeded_bert_weights(BERTForPretraining(
+        bert_base(max_length=TRAIN_SEQ)), seed)
+    step = _train_step(named, 0.1, "bfloat16", seed=seed)
+    layers = len(step._block.inner.backbone.encoder._layers)
+    host = pretrain_batch(rng, TEL_TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                          TRAIN_P)
+    steps_fam = telemetry.REGISTRY.get("mxtpu_train_steps_total")
+    s0 = steps_fam.value
+    flight.RECORDER.clear()
+    # ---- the main path: counts from 0 just before, read just after ----
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    losses = [step(*_at(host, i)) for i in range(TEL_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    counts = {"K1": fa.launches, "K2": fa.launches_dq,
+              "K3": fa.launches_dkv}
+    # ---- end of the main path ----
+    losses = [float(v.item()) for v in losses]
+    spans = _tel_spans("train.step")
+    gc.collect()
+    rec = memstats.reconcile()
+    snap = telemetry.snapshot()
+    g0 = rec.get("gpu:0", {})
+    mem = snap["metrics"]["mxtpu_device_memory_bytes"]["series"]
+    in_use = [s["value"] for s in mem
+              if s["labels"] == {"device": "gpu:0", "stat": "bytes_in_use"}]
+    holders = memstats.holders()
+    checks = {
+        "train.step spans": len(spans) == TEL_TRAIN_STEPS,
+        "steps delta": steps_fam.value - s0 == TEL_TRAIN_STEPS,
+        "launches": all(v == layers * TEL_TRAIN_STEPS
+                        for v in counts.values()),
+        "losses": all(math.isfinite(v) for v in losses),
+        "attributed <= in use": bool(g0) and
+        0 < g0["attributed"] <= g0["bytes_in_use"],
+        "device memory gauge": bool(in_use) and in_use[0] > 0}
+    print(f"21(c) {TEL_TRAIN_STEPS} ParallelTrainStep steps of BERT-base "
+          f"bf16 at {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+          f"{[round(v, 4) for v in losses]}; {len(spans)} train.step spans "
+          f"(host us {[s['dur_us'] for s in spans]}), "
+          f"mxtpu_train_steps_total delta {steps_fam.value - s0:g}: "
+          f"{checks['train.step spans'] and checks['steps delta']}")
+    print(f"21(c) K1-K3 launches {counts} (expected {layers} x "
+          f"{TEL_TRAIN_STEPS} each): {checks['launches']}")
+    print(f"21(c) memstats.reconcile() on gpu:0: attributed "
+          f"{g0.get('attributed', 0):,} B of {g0.get('bytes_in_use', 0):,} B"
+          f" in use (peak {g0.get('peak_bytes_in_use', 0):,} B), "
+          f"unattributed {g0.get('unattributed', 0):,} B; holders "
+          f"{[(h['holder'], h['bytes']) for h in holders[:4]]}: "
+          f"{checks['attributed <= in use']}")
+    print(f"21(c) mxtpu_device_memory_bytes{{device=gpu:0,stat=bytes_in_use}}"
+          f" = {in_use[0] if in_use else None}: "
+          f"{checks['device memory gauge']} on {smi}")
+    del step
+    torch.cuda.empty_cache()
+    return checks, counts
+
+
+def telemetry_oom(seed: int):
+    """21(d) in a process under deterministic algorithms with
+    MXNET_FLIGHT_DIR set (``chip_smoke.py --slice21-worker``): the
+    uninterrupted run, then the same run with one device_oom injected into
+    its first step; one JSON dict."""
+    torch.use_deterministic_algorithms(True)
+    named = seeded_bert_weights(BERTForPretraining(
+        bert_base(max_length=TRAIN_SEQ)), seed)
+    host = pretrain_batch(np.random.default_rng(seed + 214), TEL_OOM_STEPS,
+                          TRAIN_BATCH, TRAIN_SEQ, TRAIN_P)
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    digests, fires = [], 0
+    for faulted in (False, True):
+        step = _res_step(named, seed)
+        rule = faults.inject("device_oom", site="train_step", every_n=1,
+                             times=1 if faulted else 0)
+        with rule as inj:
+            step(*_at(host, 0))
+            fires += inj.fires
+        for i in range(1, TEL_OOM_STEPS):
+            step(*_at(host, i))
+        torch.cuda.synchronize()
+        digests.append(_res_digest(step))
+        layers = len(step._block.inner.backbone.encoder._layers)
+        del step
+        torch.cuda.empty_cache()
+    counts = {"K1": fa.launches, "K2": fa.launches_dq,
+              "K3": fa.launches_dkv}
+    bundles = flight.list_bundles(str(mt_config.get("MXNET_FLIGHT_DIR")))
+    oom = []
+    for b in bundles:
+        bundle = flight.load_bundle(b)
+        if bundle["trigger"]["kind"] == "oom":
+            oom.append(bundle)
+    first = oom[0] if oom else {}
+    return {"bitwise": digests[0] == digests[1], "fires": fires,
+            "launches": counts, "layers": layers,
+            "computed_steps": 2 * TEL_OOM_STEPS,
+            "bundles": len(bundles), "oom_bundles": len(oom),
+            "trigger": first.get("trigger"),
+            "metrics": len(first.get("metrics", {}).get("metrics", {})),
+            "holders": [(h["holder"], h["bytes"]) for h in
+                        first.get("memstats", {}).get("holders", [])],
+            "threads": len(first.get("threads", {})),
+            "spans": [s["name"] for s in first.get("spans", [])][-4:]}
+
+
+def slice21_worker(seed: int) -> int:
+    os.write(1, (json.dumps(telemetry_oom(seed)) + "\n").encode())
+    return 0
+
+
+def _s21_oom(seed: int, smi: str):
+    """(d) run the worker and read its report."""
+    d = SLICE21_DIR / "flight"
+    shutil.rmtree(d, ignore_errors=True)
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, **RES_DET_ENV, MXNET_FLIGHT_DIR=str(d),
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    proc = subprocess.run(SLICE21_WORKER + ["--seed", str(seed)], env=env,
+                          capture_output=True, text=True,
+                          timeout=SLICE21_TIMEOUT)
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:])
+        print(proc.stderr[-6000:])
+        raise SystemExit(f"FAIL: 21(d) exited {proc.returncode}")
+    r = json.loads([ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("{")][-1])
+    exp = r["layers"] * r["computed_steps"]
+    checks = {
+        "bitwise": r["bitwise"] and r["fires"] == 1,
+        "one oom bundle": r["oom_bundles"] == 1 and r["bundles"] == 1,
+        "bundle contents": r["metrics"] > 0 and r["threads"] > 0
+        and bool(r["spans"]) and any(h.startswith("train_step.state")
+                                     for h, _ in r["holders"]),
+        "launches": all(v == exp for v in r["launches"].values())}
+    print(f"21(d) one device_oom in step 1 of {TEL_OOM_STEPS} under the "
+          f"step's RetryPolicy ({r['fires']} fire), deterministic "
+          f"algorithms: state bitwise the uninterrupted run's: "
+          f"{checks['bitwise']}")
+    print(f"21(d) MXNET_FLIGHT_DIR: {r['bundles']} bundle(s), "
+          f"{r['oom_bundles']} oom (trigger {r['trigger']}): "
+          f"{checks['one oom bundle']}")
+    print(f"21(d) load_bundle: {r['metrics']} metric families, holders "
+          f"{r['holders'][:3]}, {r['threads']} thread stacks, last spans "
+          f"{r['spans']}: {checks['bundle contents']}")
+    print(f"21(d) K1-K3 launches {r['launches']} (expected {r['layers']} x "
+          f"{r['computed_steps']} computed steps = {exp} each: the faulted "
+          f"attempt computes nothing): {checks['launches']} on {smi}")
+    return checks, r["launches"]
+
+
+def phase_telemetry(seed: int, smi: str):
+    """Phase 21: telemetry and the profiler, on K1-K3's paths."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(SLICE21_DIR, ignore_errors=True)
+    SLICE21_DIR.mkdir(parents=True, exist_ok=True)
+    # this phase's attribution: the holders of earlier phases' objects
+    # (some alive, some sharing weights) are dropped
+    memstats.reset()
+    named = seeded_bert_weights(bert_base(), seed + 21)
+    net = _s19_net(named)
+    layers = len(net.encoder._layers)
+    ep = serving.ModelEndpoint("s21_bert", net, [(SEQ_LEN,), (SEQ_LEN,)],
+                               dtype="int32", max_batch_size=32, ctx=gpu())
+    server = serving.InferenceServer(batch_timeout_ms=2.0, max_queue=512)
+    server.register(ep)
+    server.start()
+    try:
+        ok_a, k1_a, info = _s21_serving(seed, smi, server, ep, layers)
+        ok_b, k1_b = _s21_profiler(seed, smi, server, ep, layers)
+        cost, k1_e = _s21_costs(seed, smi, server, ep,
+                                info["batch_span_p50_us"])
+    finally:
+        server.stop(drain=True)
+        serving.unregister(ep.name)
+    del ep, server, net
+    torch.cuda.empty_cache()
+    ok_c, train_counts = _s21_training(seed, smi)
+    ok_d, oom_counts = _s21_oom(seed, smi)
+    failed = [f"21{part} {name}" for part, checks in
+              (("(a)", ok_a), ("(b)", ok_b), ("(c)", ok_c), ("(d)", ok_d))
+              for name, good in checks.items() if not good]
+    for f in failed:
+        print(f"FAIL: {f}")
+    if failed:
+        raise SystemExit("FAIL: phase 21")
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return {"k1": {"telemetry_serving": k1_a,
+                   "telemetry_profiled_request": k1_b,
+                   "telemetry_cost_batch": k1_e},
+            "hand": {"telemetry_training": dict(train_counts, K4=0, K5=0),
+                     "telemetry_oom_retry": dict(oom_counts, K4=0, K5=0)},
+            "cost": cost}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8191,6 +8661,8 @@ def main(argv=None) -> int:
                          "one rank of its two-rank job (tp)")
     ap.add_argument("--slice20-worker", choices=("A", "B", "C"),
                     help="run as one of phase 20(a)'s cache processes")
+    ap.add_argument("--slice21-worker", action="store_true",
+                    help="run as phase 21(d)'s deterministic process")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -8204,6 +8676,8 @@ def main(argv=None) -> int:
         return slice18_worker(args.slice18_worker, args.seed)
     if args.slice20_worker:
         return slice20_worker(args.slice20_worker, args.seed)
+    if args.slice21_worker:
+        return slice21_worker(args.seed)
     smi = card()
     phase_environment(smi)
     record = phase_kernel(args.seed, smi)
@@ -8227,6 +8701,7 @@ def main(argv=None) -> int:
     s18 = phase_resilience(args.seed, smi)
     s19 = phase_multitenant(args.seed, smi)
     s20 = phase_fabric(args.seed, smi)
+    s21 = phase_telemetry(args.seed, smi)
     q_hand = {"int8_resnet": {k: quant["resnet"]["f32"]["hand"][k]
                               + quant["resnet"]["int8"]["hand"][k]
                               for k in ("K1", "K2", "K3", "K4", "K5")},
@@ -8235,11 +8710,11 @@ def main(argv=None) -> int:
                                         quant["kvstore"].values())
                                  for k in ("K1", "K2", "K3", "K4", "K5")}}
     # per rank: K1-K3 on the paths of phases 16, 17 and 18 (rank 0), and
-    # phase 18's one-process paths
+    # phase 18's and phase 21's one-process paths
     d_hand = {**dist["hand"], "ring_attention": s17["hand"],
               "resilience_bert": s18["det"],
               "resilience_nondeterministic_check": s18["nondet"],
-              "resilience_tp_bert": s18["tp"]}
+              "resilience_tp_bert": s18["tp"], **s21["hand"]}
     ring = {c: s17["blocks"][c] for c in (False, True)}
     f16 = amp_rec["fp16"]
     amp_launches = {path: amp_rec[path]["launches"]
@@ -8257,7 +8732,7 @@ def main(argv=None) -> int:
          + sp["hand"]["K1"] + data["hand"]["K1"] + util["hand"]["K1"]
          + sum(h["K1"] for h in q_hand.values())
          + sum(h["K1"] for h in d_hand.values()) + sum(s19.values())
-         + sum(s20.values()),
+         + sum(s20.values()) + sum(s21["k1"].values()),
          "launches_by_path": {
              "serving": serve_launches,
              "training": train_launches["flash_attention_fwd"],
@@ -8272,7 +8747,7 @@ def main(argv=None) -> int:
              "estimator_resnet": util["hand"]["K1"],
              **{path: h["K1"] for path, h in q_hand.items()},
              **{path: h["K1"] for path, h in d_hand.items()}, **s19,
-             **s20},
+             **s20, **s21["k1"]},
          "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"],
                             gen["k1_max_abs_err"],
                             *(ring[c]["fwd"]["max_abs_err"]

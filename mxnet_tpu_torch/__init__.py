@@ -52,11 +52,21 @@ from .tensor_inspector import TensorInspector
 
 library.initialize()   # fork handlers and the crash logger
 
+from . import profiler, telemetry
+if config.get("MXNET_PROFILER_AUTOSTART"):
+    profiler.set_config(profile_all=True)
+    profiler.start()
+# MXNET_TELEMETRY_DUMP_PATH: start the background metrics reporter
+telemetry.reporter._autostart()
+# MXNET_FLIGHT_DIR: arm the flight recorder's unhandled-exception hooks
+telemetry.flight._autostart()
+
 __all__ = ["Context", "MXNetError", "cpu", "gpu", "current_context",
            "amp", "autograd", "base", "callback", "config", "context",
            "contrib", "embedding", "engine", "error", "gluon", "image",
            "init", "initializer", "io", "kv", "kvstore", "libinfo",
            "library", "log", "lr_scheduler", "metric", "nd", "ndarray",
-           "operator", "ops", "optimizer", "parallel", "random", "recordio",
-           "registry", "resource", "rtc", "runtime", "serving",
-           "tensor_inspector", "TensorInspector", "util", "visualization"]
+           "operator", "ops", "optimizer", "parallel", "profiler", "random",
+           "recordio", "registry", "resource", "rtc", "runtime", "serving",
+           "telemetry", "tensor_inspector", "TensorInspector", "util",
+           "visualization"]

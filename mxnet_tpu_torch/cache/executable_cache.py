@@ -37,9 +37,12 @@ The ``exec_cache`` fault site lets chaos drills poison an entry on disk
 (kind ``cache_poison``): the injected fault is consumed here and turned into
 real on-disk corruption, so the genuine digest check proves the fallback.
 
-The reference's ``mxtpu_exec_cache_*`` telemetry families are the plain
-counters of :func:`stats` until the port's telemetry (ROADMAP Q1.12); they
-add the compiles that actually ran in this process (``compiles``: nvcc and
+Telemetry: the reference's ``mxtpu_exec_cache_*`` families (hits, misses by
+reason, evictions, the store's bytes, and the seconds spent loading a hit,
+``deserialize_seconds``: ``dlopen`` of a library or ``cuModuleLoadData`` of
+a cubin here). :func:`stats` reads them since the last
+:func:`reset_stats`, and adds two counts without a family: the stores, and
+the compiles that actually ran in this process (``compiles``: nvcc and
 NVRTC), which a warm process keeps at zero.
 """
 from __future__ import annotations
@@ -55,6 +58,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..telemetry.metrics import REGISTRY, Baseline
+
 __all__ = ["enabled", "cache_dir", "max_bytes", "build_key", "key_digest",
            "load", "store", "stats", "entries", "clear", "reset_stats"]
 
@@ -62,17 +67,44 @@ log = logging.getLogger("mxnet_tpu_torch.cache")
 
 MISS_REASONS = ("absent", "corrupt", "key_mismatch", "error")
 
+_HITS = REGISTRY.counter(
+    "mxtpu_exec_cache_hits_total",
+    "Executable-cache hits: compiles answered by deserializing a stored "
+    "executable instead of running XLA.")
+_MISSES = REGISTRY.counter(
+    "mxtpu_exec_cache_misses_total",
+    "Executable-cache misses, by reason: absent (never stored) / corrupt "
+    "(payload digest mismatch — entry deleted) / key_mismatch (manifest "
+    "disagrees with the requested key) / error (load machinery failed).",
+    labelnames=("reason",))
+_EVICTIONS = REGISTRY.counter(
+    "mxtpu_exec_cache_evictions_total",
+    "Entries evicted to keep the store under MXNET_EXEC_CACHE_MAX_BYTES "
+    "(least-recently-used payload mtime first).")
+_BYTES = REGISTRY.gauge(
+    "mxtpu_exec_cache_bytes",
+    "Total payload bytes currently in the on-disk executable cache "
+    "(refreshed on every store/evict/load of this process).")
+_DESER_S = REGISTRY.counter(
+    "mxtpu_exec_cache_deserialize_seconds_total",
+    "Wall seconds spent deserializing cached executables — the price of a "
+    "hit (compare mxtpu_compile_wall_seconds_total, the price of a miss).")
+
 _LOCK = threading.Lock()
 _STATS: Dict[str, Any] = {}
+_SINCE: Optional[Baseline] = None
 
 
 def reset_stats():
-    """Zero the process-local counters (tests)."""
+    """Start :func:`stats` from zero (tests, drills); the families keep
+    counting."""
+    global _SINCE
     with _LOCK:
         _STATS.clear()
-        _STATS.update(hits=0, misses=0, stores=0, evictions=0, load_s=0.0,
-                      misses_by_reason={r: 0 for r in MISS_REASONS},
-                      compiles={"nvcc": 0, "nvrtc": 0})
+        _STATS.update(stores=0, compiles={"nvcc": 0, "nvrtc": 0})
+        _SINCE = Baseline({
+            "hits": _HITS, "evictions": _EVICTIONS, "load_s": _DESER_S,
+            **{f"miss_{r}": _MISSES.labels(r) for r in MISS_REASONS}})
 
 
 reset_stats()
@@ -227,8 +259,8 @@ def _evict(d: str, budget: int) -> int:
         total -= sz
         evicted += 1
     if evicted:
-        with _LOCK:
-            _STATS["evictions"] += evicted
+        _EVICTIONS.inc(evicted)
+        _BYTES.set(total)
     return evicted
 
 
@@ -256,6 +288,7 @@ def store(key: Dict[str, Any], payload: bytes,
         _atomic_write(man_path, (json.dumps(manifest, sort_keys=True)
                                  + "\n").encode("utf-8"))
         _evict(d, max_bytes())
+        _BYTES.set(_total_bytes(d))
         with _LOCK:
             _STATS["stores"] += 1
         return True
@@ -265,9 +298,7 @@ def store(key: Dict[str, Any], payload: bytes,
 
 
 def _miss(reason: str) -> None:
-    with _LOCK:
-        _STATS["misses"] += 1
-        _STATS["misses_by_reason"][reason] += 1
+    _MISSES.labels(reason).inc()
     return None
 
 
@@ -326,9 +357,9 @@ def load(key: Dict[str, Any], loader: Optional[Callable[[bytes], Any]] = None,
         os.utime(bin_path)          # LRU touch
     except OSError:
         pass
-    with _LOCK:
-        _STATS["hits"] += 1
-        _STATS["load_s"] += dt
+    _DESER_S.inc(dt)
+    _HITS.inc()
+    _BYTES.set(_total_bytes(d))
     return (out, manifest.get("meta", {})) if with_meta else out
 
 
@@ -385,9 +416,13 @@ def stats() -> Dict[str, Any]:
     misses (and by reason), stores, evictions, load seconds, the compiles
     that ran (nvcc, NVRTC) and the store's payload bytes."""
     with _LOCK:
-        snap = dict(_STATS)
-        snap["misses_by_reason"] = dict(_STATS["misses_by_reason"])
-        snap["compiles"] = dict(_STATS["compiles"])
+        since = _SINCE
+        snap = {"stores": _STATS["stores"],
+                "compiles": dict(_STATS["compiles"])}
+    by_reason = {r: int(since[f"miss_{r}"]) for r in MISS_REASONS}
+    snap.update(hits=int(since["hits"]), misses=sum(by_reason.values()),
+                misses_by_reason=by_reason,
+                evictions=int(since["evictions"]), load_s=since["load_s"])
     d = cache_dir()
     snap["enabled"] = bool(d)
     snap["dir"] = d
@@ -409,3 +444,4 @@ def clear():
                 os.unlink(os.path.join(d, n))
             except OSError:
                 pass
+    _BYTES.set(0)

@@ -375,6 +375,89 @@ register("MXNET_SDC_BUNDLE_DIR", "", str,
          "mxnet_tpu_torch/tools/replay_step.py re-executes them). Empty "
          "skips bundle writing.")
 
+# telemetry: the profiler, the reporter, the flight recorder, memory
+# attribution, the drift sentinel and the span spool
+register("MXNET_PROFILER_AUTOSTART", False, bool,
+         "Start the profiler at import (profiler.cc autostart parity).")
+register("MXNET_TELEMETRY_DUMP_PATH", "", str,
+         "When set, start a background telemetry reporter at import that "
+         "writes the full metrics snapshot to this path every "
+         "MXNET_TELEMETRY_DUMP_INTERVAL seconds (JSON; Prometheus text "
+         "exposition if the path ends in .prom). tools/metrics_dump.py "
+         "reads/watches the file while the run is live.")
+register("MXNET_TELEMETRY_DUMP_INTERVAL", 10.0, float,
+         "Seconds between background telemetry snapshot dumps/log lines.")
+register("MXNET_FLIGHT_DIR", "", str,
+         "FlightRecorder: directory where trigger-driven flight bundles "
+         "(ring contents + metrics snapshot + knob/env fingerprint + "
+         "thread stacks) are written, with rotation. Empty keeps the rings "
+         "recording but disables automatic bundle dumps; explicit "
+         "flight.dump() still works. Also arms the unhandled-exception "
+         "crash hooks at import when set.")
+register("MXNET_FLIGHT_SPANS", 512, int,
+         "FlightRecorder: capacity of the finished-span ring buffer.")
+register("MXNET_FLIGHT_EVENTS", 256, int,
+         "FlightRecorder: capacity of the structured-event ring buffer "
+         "(telemetry.event: breaker transitions, retries, failovers, "
+         "hot-swaps, numerics anomalies, preemptions, SLO alerts).")
+register("MXNET_FLIGHT_REQUESTS", 128, int,
+         "FlightRecorder: capacity of the completed-serving-request ring "
+         "(keyed by trace id).")
+register("MXNET_FLIGHT_KEEP", 8, int,
+         "FlightRecorder: newest bundles retained per directory; older "
+         "flight-*.json files are rotated away after each dump.")
+register("MXNET_FLIGHT_MIN_INTERVAL_S", 1.0, float,
+         "FlightRecorder: per-trigger-kind dump rate limit; a re-trigger "
+         "of the same kind inside the interval records the event but "
+         "skips the bundle (mxtpu_flight_dumps_suppressed_total).")
+register("MXNET_MEM_TRACK", True, bool,
+         "Memstats: maintain the device-memory holder registry (endpoint "
+         "params and staging slots / train state / KV pool) and reconcile "
+         "it against torch.cuda.memory_stats(). 0 turns register() into a "
+         "no-op.")
+register("MXNET_MEM_HOLDERS_KEEP", 32, int,
+         "Memstats: ranked holders shown in breakdown() (OOM flight "
+         "bundles); the rest fold into an omitted-bytes line.")
+register("MXNET_PERF_SENTINEL", True, bool,
+         "Perf sentinel: feed train-step and serving-step latencies into "
+         "per-stream EWMA drift detectors that fire a perf_regression "
+         "flight event on sustained regression. 0 disables.")
+register("MXNET_PERF_EWMA_ALPHA", 0.05, float,
+         "Perf sentinel: baseline EWMA smoothing factor (the fast 'now' "
+         "track uses 4x this).")
+register("MXNET_PERF_REGRESSION_RATIO", 1.5, float,
+         "Perf sentinel: fast-track / baseline ratio that counts as "
+         "regressed; must hold for MXNET_PERF_SUSTAIN_N consecutive "
+         "observations to fire.")
+register("MXNET_PERF_SUSTAIN_N", 8, int,
+         "Perf sentinel: consecutive over-ratio observations required "
+         "before the perf_regression trigger fires (one spike never "
+         "pages).")
+register("MXNET_PERF_WARMUP_N", 50, int,
+         "Perf sentinel: observations per stream before the detector "
+         "arms — compile-time outliers and cold caches train the "
+         "baseline instead of firing it.")
+register("MXNET_SPAN_SPOOL_DIR", "", str,
+         "Span spool: directory for per-pid append-only span JSONL files "
+         "(spool-<pid>.jsonl) — the cross-process raw material "
+         "tools/trace_journey.py assembles into one timeline per trace "
+         "id. Empty (the default) keeps the spool in-memory only: span "
+         "exits pay a bounded buffer append and no file I/O ever runs.")
+register("MXNET_SPAN_SPOOL_MAX_BYTES", 8 << 20, int,
+         "Span spool: size cap per spool file; exceeding it rotates the "
+         "file to spool-<pid>.jsonl.1 (one generation kept) before the "
+         "append. 0 disables rotation.")
+register("MXNET_SPAN_SPOOL_FLUSH_N", 32, int,
+         "Span spool: buffered spans per flush — the spool drains to disk "
+         "in one O_APPEND write every this-many spans (and at interpreter "
+         "exit), never per-span.")
+register("MXNET_TRACE_ID", "", str,
+         "Trace inheritance: a trace id handed to a child process at "
+         "spawn (ServingPool warm restarts, loadgen --restart phases, "
+         "chaos subprocesses). The child's first root span joins this "
+         "trace instead of minting a fresh id, so one logical request is "
+         "one journey across process boundaries. Read once per process.")
+
 # ---------------------------------------------------------------------------
 # flags that tune XLA in the JAX package: listed, not applicable
 # ---------------------------------------------------------------------------

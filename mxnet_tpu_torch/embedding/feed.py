@@ -23,13 +23,13 @@ does, beside the train step: ``CheckpointManager.save(step,
 train_step=ts, extra={"feed": feed.state_dict()})``, then
 ``feed.load_state_dict(state["extra"]["feed"])`` after the restore.
 
-The reference's gauges and its wait histogram are plain attributes until
-the port has its telemetry (ROADMAP Q1.12): :attr:`DeviceFeed.lead` (the
-staged batches waiting when the consumer last asked, the reference's
-``mxtpu_emb_stager_lead``), :attr:`DeviceFeed.staged` (batches staged,
-``mxtpu_emb_staged_batches_total``) and :attr:`DeviceFeed.wait_us` (the
-consumer's wait in each ``next()`` of the epoch, the loader's
-``mxtpu_dataloader_wait_us``).
+Telemetry: :attr:`DeviceFeed.lead` is the ``mxtpu_emb_stager_lead`` gauge
+(the staged batches waiting when the consumer last asked),
+:attr:`DeviceFeed.staged` the feed's share of
+``mxtpu_emb_staged_batches_total``, and the consumer's wait in each
+``next()`` lands in the bare loader's ``mxtpu_dataloader_wait_us``, so
+staged and unstaged pipelines read on one series; :attr:`DeviceFeed.wait_us`
+keeps the current (or last) epoch's waits as samples.
 """
 from __future__ import annotations
 
@@ -40,8 +40,18 @@ from typing import Callable, List, Optional
 
 from ..base import MXNetError
 from .. import config as _config
+from .. import telemetry as _telemetry
+from ..gluon.data.dataloader import _WAIT as _DL_WAIT
+from ..telemetry.metrics import Baseline
 
 __all__ = ["DeviceFeed"]
+
+_LEAD = _telemetry.gauge(
+    "mxtpu_emb_stager_lead",
+    "Staged batches resident on device when the consumer asked for the "
+    "next one (0 = the chip waited on the stager).")
+_STAGED = _telemetry.counter(
+    "mxtpu_emb_staged_batches_total", "Batches staged ahead by DeviceFeed.")
 
 
 class _StopStaging(Exception):
@@ -71,11 +81,7 @@ class DeviceFeed:
                          else _config.get("MXNET_EMB_FEED_DEPTH"))
         if self.depth < 1:
             raise MXNetError("DeviceFeed depth must be >= 1")
-        #: staged batches waiting when the consumer last asked for one
-        #: (0: the consumer waited on the stager)
-        self.lead = 0
-        #: batches staged ahead, over the feed's life
-        self.staged = 0
+        self._own = Baseline({"staged": _STAGED})
         #: microseconds the consumer waited in each next() of the current
         #: (or last) epoch
         self.wait_us: List[int] = []
@@ -90,6 +96,17 @@ class DeviceFeed:
 
     def __len__(self):
         return len(self.loader)
+
+    @property
+    def lead(self) -> int:
+        """Staged batches waiting when the consumer last asked for one (0:
+        the consumer waited on the stager)."""
+        return int(_LEAD.value)
+
+    @property
+    def staged(self) -> int:
+        """Batches this feed staged ahead, over its life."""
+        return int(self._own["staged"])
 
     def __iter__(self):
         self._entry_anchor = self.loader.state_dict()
@@ -120,7 +137,7 @@ class DeviceFeed:
                         self._live_anchor = self.loader.state_dict()
                         first = False
                     _put(("data", self._stage(batch)))
-                    self.staged += 1
+                    _STAGED.inc()
                     if stop.is_set():
                         return
                 _put(("end", None))
@@ -137,10 +154,12 @@ class DeviceFeed:
         t.start()
         try:
             while True:
-                self.lead = q.qsize()
+                _LEAD.set(q.qsize())
                 t0 = time.perf_counter_ns()
                 kind, item = q.get()
-                self.wait_us.append((time.perf_counter_ns() - t0) // 1000)
+                wait = (time.perf_counter_ns() - t0) // 1000
+                _DL_WAIT.observe(wait)
+                self.wait_us.append(wait)
                 if kind == "data":
                     self._consumed += 1
                     yield item

@@ -8,11 +8,10 @@ hotness** of its rows (a frequency-sorted vocabulary concentrates traffic
 in the low ids; block partitioning then makes rank 0 the hot spot, which
 cyclic "row-wise" placement spreads flat).
 
-Every decision carries its reason on the returned :class:`TablePlan`; the
-reference's ``emb_plan`` event and ``mxtpu_emb_table_placements_total``
-counter wait for the port's telemetry (ROADMAP Q1.12), as does the
-``mxtpu_emb_hot_row_hit_rate`` gauge (:meth:`HotnessTracker.hot_hit_rate`
-is its value).
+Every decision carries its reason on the returned :class:`TablePlan`,
+counts in ``mxtpu_emb_table_placements_total`` (by placement) and records
+an ``emb_plan`` flight event; each :class:`HotnessTracker` observation sets
+its table's ``mxtpu_emb_hot_row_hit_rate`` gauge.
 
     specs = [TableSpec("ads", vocab=1 << 20, dim=32),
              TableSpec("country", vocab=256, dim=32)]
@@ -29,8 +28,18 @@ from typing import Dict, Optional, Sequence
 import numpy as onp
 
 from .. import config as _config
+from .. import telemetry as _telemetry
 
 __all__ = ["TableSpec", "TablePlan", "HotnessTracker", "plan_tables"]
+
+_PLACEMENTS = _telemetry.counter(
+    "mxtpu_emb_table_placements_total",
+    "Embedding-table placement decisions made by the planner.",
+    labelnames=("placement",))
+_HOT_HIT_RATE = _telemetry.gauge(
+    "mxtpu_emb_hot_row_hit_rate",
+    "Share of observed lookups landing in the table's current top-K hot "
+    "row set (0..1).", labelnames=("table",))
 
 
 @dataclass(frozen=True)
@@ -87,6 +96,7 @@ class HotnessTracker:
         head = idx[idx < self.cap]
         if head.size:
             onp.add.at(self.counts, head.astype(onp.int64), 1)
+        _HOT_HIT_RATE.labels(self.name).set(self.hot_hit_rate())
 
     def hot_hit_rate(self) -> float:
         """Share of observed lookups in the current top-K counted rows."""
@@ -138,5 +148,10 @@ def plan_tables(specs: Sequence[TableSpec], mesh, axis: str = "tp",
                     s.name, "partition", "block",
                     f"footprint {s.nbytes}B over {n} '{axis}' shards, "
                     f"hot share {rate:.2f} < {hot_frac}")
+        _PLACEMENTS.labels(plan.placement if not plan.rowwise
+                           else "rowwise").inc()
+        _telemetry.event("emb_plan", table=s.name, vocab=s.vocab, dim=s.dim,
+                         placement=plan.placement, layout=plan.layout,
+                         reason=plan.reason)
         plans.append(plan)
     return plans

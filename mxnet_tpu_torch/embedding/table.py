@@ -37,24 +37,36 @@ frequency-sorted vocabulary's hot head over every rank).
 
 Each rank stores its shard with one scratch row after it, where the
 updates of rows it does not own (and of the sentinel) land and are never
-read: the masked update needs no host synchronisation. The reference's
-telemetry families (``mxtpu_emb_lookup_us``,
-``mxtpu_emb_exchange_bytes_total``) are plain counters on the table
-(:attr:`ShardedEmbedding.lookups`, ``lookup_us_total`` and
-``exchange_bytes``) until the port has its telemetry (ROADMAP Q1.12).
+read: the masked update needs no host synchronisation. A lookup's wall
+time lands in ``mxtpu_emb_lookup_us`` and the exchange's bytes in
+``mxtpu_emb_exchange_bytes_total`` (by table and direction);
+:attr:`ShardedEmbedding.lookups`, ``lookup_us_total`` and
+``exchange_bytes`` are the table's share of them.
 """
 from __future__ import annotations
 
 import time
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as onp
 import torch
 
+from .. import telemetry as _telemetry
 from ..base import DTypes, MXNetError
 from ..parallel import collectives
+from ..telemetry.metrics import Baseline
 
 __all__ = ["ShardedEmbedding", "dedup_ids"]
+
+_LOOKUP_US = _telemetry.histogram(
+    "mxtpu_emb_lookup_us",
+    "Eager embedding lookup wall time (dedup + exchange + gather), "
+    "microseconds.", labelnames=("table",))
+_EXCHANGE_BYTES = _telemetry.counter(
+    "mxtpu_emb_exchange_bytes_total",
+    "Estimated bytes moved by the on-mesh embedding exchange (all_to_all "
+    "index dispatch + row return, or psum assembly), by direction.",
+    labelnames=("table", "direction"))
 
 
 def dedup_ids(idx, vocab: int):
@@ -126,14 +138,11 @@ class ShardedEmbedding:
         self.shard_index = mesh.axis_index(axis) if self.n_shards > 1 else 0
         self._itemsize = onp.dtype(dtype).itemsize
         self._torch_dtype = DTypes.torch(dtype)
-        #: lookups made by :meth:`lookup` and their wall microseconds
-        #: (the reference's ``mxtpu_emb_lookup_us``)
-        self.lookups = 0
-        self.lookup_us_total = 0
-        #: bytes the exchange moved by direction, as
-        #: :meth:`exchange_cost_bytes` counts them (the reference's
-        #: ``mxtpu_emb_exchange_bytes_total``)
-        self.exchange_bytes = {"dispatch": 0, "return": 0}
+        self._m_lookup = _LOOKUP_US.labels(name)
+        self._lookup_base = (self._m_lookup.n, self._m_lookup.total)
+        self._m_exchange = Baseline({
+            d: _EXCHANGE_BYTES.labels(name, d) for d in ("dispatch",
+                                                         "return")})
         self._store = torch.zeros((self.rows_per_shard + 1, self.embed_dim),
                                   dtype=self._torch_dtype, device=mesh.device)
         if weight is not None:
@@ -295,10 +304,28 @@ class ShardedEmbedding:
         # all_reduce assembly: every shard contributes an (n, D) partial
         return 0, (self.n_shards - 1) * n_ids * row
 
+    @property
+    def lookups(self) -> int:
+        """Lookups made by :meth:`lookup` on this table."""
+        return self._m_lookup.n - self._lookup_base[0]
+
+    @property
+    def lookup_us_total(self) -> int:
+        """Their wall microseconds."""
+        return int(self._m_lookup.total - self._lookup_base[1])
+
+    @property
+    def exchange_bytes(self) -> Dict[str, int]:
+        """Bytes the exchange moved by direction, as
+        :meth:`exchange_cost_bytes` counts them."""
+        return self._m_exchange.as_dict()
+
     def record_exchange(self, n_ids: int, dispatch: bool):
         d, r = self.exchange_cost_bytes(int(n_ids), dispatch)
-        self.exchange_bytes["dispatch"] += d
-        self.exchange_bytes["return"] += r
+        if d:
+            _EXCHANGE_BYTES.labels(self.name, "dispatch").inc(d)
+        if r:
+            _EXCHANGE_BYTES.labels(self.name, "return").inc(r)
 
     def lookup(self, indices) -> torch.Tensor:
         """Rows of (replicated) ``indices`` (an array or tensor of ints):
@@ -310,8 +337,7 @@ class ShardedEmbedding:
         uniq, inv = dedup_ids(idx, self.padded_vocab)
         out = self.gather(uniq)[inv.long()]
         self.record_exchange(uniq.shape[0], dispatch=False)
-        self.lookups += 1
-        self.lookup_us_total += (time.perf_counter_ns() - t0) // 1000
+        self._m_lookup.observe((time.perf_counter_ns() - t0) // 1000)
         return out
 
     def __repr__(self):

@@ -34,6 +34,7 @@ and registering returns the hook. Torch's own hooks stay reachable as
 """
 from __future__ import annotations
 
+import contextvars
 import re
 import threading
 from typing import Dict, List
@@ -44,6 +45,7 @@ from .. import amp as _amp
 from .. import autograd
 from ..base import MXNetError, current_context
 from ..ndarray.ndarray import NDArray, _context_of, _wrap
+from ..ops.registry import _profiler_running
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "gluon_context"]
@@ -451,10 +453,30 @@ class Block(torch.nn.Module):
 # ---------------------------------------------------------------------------
 # HybridBlock
 # ---------------------------------------------------------------------------
+# set while a hybridized block's call is one profiler event, so its
+# hybridized children do not record events of their own
+_IN_CACHED_OP = contextvars.ContextVar("mxt_in_cached_op", default=False)
+
+
 class HybridBlock(Block):
     """A block with a ``hybrid_forward(F, x, **params)``
     (``block.py`` ``HybridBlock``). ``hybridize()`` records its flags; the
-    forward stays the eager one."""
+    forward stays the eager one. While a profiler session runs, the call of
+    the outermost hybridized block is one ``CachedOp[<class>]`` event, as
+    the reference's CachedOp dispatch is."""
+
+    def __call__(self, *args, **kwargs):
+        if self._active and not _IN_CACHED_OP.get() and _profiler_running():
+            from .. import profiler
+            token = _IN_CACHED_OP.set(True)
+            try:
+                return profiler._dispatch_profiled(
+                    f"CachedOp[{type(self).__name__}]",
+                    lambda: super(HybridBlock, self).__call__(*args,
+                                                              **kwargs))
+            finally:
+                _IN_CACHED_OP.reset(token)
+        return super().__call__(*args, **kwargs)
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)

@@ -18,26 +18,58 @@ random transforms of a batch (drawing from ``random.python_rng()`` and
 not depend on ``num_workers``. The shuffle draws from
 ``random.numpy_rng()`` at the epoch's start and the epoch's seed from
 ``random.python_rng()``; ``state_dict`` keeps both, so a loader restored
-mid-epoch yields bitwise the batches the first would have. The JAX
-package's telemetry families (``mxtpu_dataloader_wait_us``, ``_batches_total``)
-wait for the port's telemetry.
+mid-epoch yields bitwise the batches the first would have.
+
+Telemetry: the time the consumer blocks in ``next()`` for each batch is
+``mxtpu_dataloader_wait_us`` (the "is the card starving?" series), and
+every yielded batch counts in ``mxtpu_dataloader_batches_total``.
 """
 from __future__ import annotations
 
 import collections
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as onp
 import torch
 
 from ... import random as _random
+from ... import telemetry as _telemetry
 from ...base import MXNetError, cpu
 from ...ndarray.ndarray import NDArray, _wrap
 from .sampler import BatchSampler, RandomSampler, SequentialSampler
 
 __all__ = ["DataLoader", "default_batchify_fn", "default_mp_batchify_fn"]
+
+# the "is the card starving?" series: time the CONSUMER spends blocked in
+# next() waiting for the input pipeline. A healthy prefetched loader keeps
+# p95 near zero; wait times rivaling the train-step latency mean the input
+# pipeline, not the card, is the bottleneck.
+_WAIT = _telemetry.histogram(
+    "mxtpu_dataloader_wait_us",
+    "Time the training loop blocks waiting for the next batch "
+    "(microseconds).")
+_BATCHES = _telemetry.counter(
+    "mxtpu_dataloader_batches_total", "Batches yielded by DataLoader.")
+
+
+def _timed_iter(it):
+    """Yield from ``it``, recording the consumer-visible wait per batch;
+    closing this generator closes ``it`` (its prefetcher stops)."""
+    try:
+        while True:
+            t0 = time.perf_counter_ns()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            _WAIT.observe((time.perf_counter_ns() - t0) // 1000)
+            _BATCHES.inc()
+            yield item
+    finally:
+        it.close()
 
 
 def default_batchify_fn(data):
@@ -232,7 +264,7 @@ class DataLoader:
         self._epoch_seed = None
 
     def __iter__(self):
-        return self._epoch_iter()
+        return _timed_iter(self._epoch_iter())
 
     def __len__(self):
         return len(self._batch_sampler)

@@ -24,6 +24,14 @@ sends each push to the host parameter service on rank 0
 (``async_ps.py``), which applies it on arrival; pulls read the service.
 Each worker of a job writes a heartbeat file (``MXNET_KVSTORE_HEARTBEAT_DIR``)
 that ``num_dead_node`` reads.
+
+Telemetry: ``mxtpu_kvstore_ops_total`` counts push, pull, pushpull and
+broadcast; ``_push_bytes_total`` the aggregated payload entering push and
+pushpull; ``_wire_bytes_total`` what crossed between workers (a store's
+``wire_bytes`` is its share of it); gradient compression's quantize feeds
+``_compress_in_bytes_total``/``_compress_out_bytes_total`` and the
+cumulative ``_compression_ratio``. Byte counts come from shapes: nothing
+waits for the card.
 """
 from __future__ import annotations
 
@@ -37,9 +45,11 @@ import numpy as np
 import torch
 
 from .. import config
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray, _wrap
 from ..optimizer.optimizer import get_updater, state_to
+from ..telemetry.metrics import Baseline
 from .base import KVStoreBase
 from .gradient_compression import GradientCompression
 from . import collective as _collective  # registers the "collective" store
@@ -49,6 +59,46 @@ __all__ = ["create", "KVStore", "KVStoreBase", "GradientCompression"]
 _TYPES = ("local", "device", "nccl", "tpu", "dist", "dist_sync",
           "dist_async", "dist_device_sync", "dist_sync_device", "p3",
           "horovod")
+
+
+
+# fleet counters for the parameter-sync plane: ops, payload bytes, and what
+# actually crossed hosts (wire) — compression ratio = wire / payload
+_KV_OPS = _telemetry.counter(
+    "mxtpu_kvstore_ops_total",
+    "KVStore operations by kind (push/pull/pushpull/broadcast), per key.",
+    labelnames=("op",))
+_KV_PUSH_BYTES = _telemetry.counter(
+    "mxtpu_kvstore_push_bytes_total",
+    "Aggregated gradient payload bytes entering push/pushpull (pre-wire).")
+_KV_WIRE_BYTES = _telemetry.counter(
+    "mxtpu_kvstore_wire_bytes_total",
+    "Bytes that crossed hosts (packed bytes when gradient compression is "
+    "on, dense bytes otherwise); 0 in single-host runs.")
+_KV_COMP_IN = _telemetry.counter(
+    "mxtpu_kvstore_compress_in_bytes_total",
+    "Uncompressed f32 bytes entering gradient-compression quantize.")
+_KV_COMP_OUT = _telemetry.counter(
+    "mxtpu_kvstore_compress_out_bytes_total",
+    "Packed wire bytes leaving gradient-compression quantize.")
+_KV_COMP_RATIO = _telemetry.gauge(
+    "mxtpu_kvstore_compression_ratio",
+    "Cumulative compress_out/compress_in byte ratio (e.g. 2bit -> 0.0625).")
+
+
+def _count_compression(in_bytes: int, out_bytes: int):
+    _KV_COMP_IN.inc(in_bytes)
+    _KV_COMP_OUT.inc(out_bytes)
+    total_in = _KV_COMP_IN.value
+    if total_in:
+        _KV_COMP_RATIO.set(_KV_COMP_OUT.value / total_in)
+
+
+def _nbytes(x) -> int:
+    """The bytes of a dense NDArray's tensor (0 for anything else)."""
+    t = getattr(x, "_data", None)
+    return t.numel() * t.element_size() if isinstance(t, torch.Tensor) \
+        else 0
 
 
 def _listify(v):
@@ -73,10 +123,10 @@ class KVStore(KVStoreBase):
         self._updater = None
         self._optimizer = None
         self._compression: Optional[GradientCompression] = None
-        #: the values entering a cross-worker reduce, as f32 bytes, and the
-        #: bytes this worker put on the wire for them
+        #: the values entering a cross-worker reduce, as f32 bytes (the
+        #: bytes this store put on the wire for them: ``wire_bytes``)
         self.payload_bytes = 0
-        self.wire_bytes = 0
+        self._wire = Baseline({"wire": _KV_WIRE_BYTES})
         self._multi = False
         self._async = False
         self._has_updater = threading.Event()
@@ -95,6 +145,12 @@ class KVStore(KVStoreBase):
                             "MXNET_KVSTORE_ASYNC_MAX_STALENESS"))
                 self._ps_client = AsyncPSClient(collectives.rank())
             self._start_heartbeat()
+
+    @property
+    def wire_bytes(self) -> int:
+        """Bytes this store put on the wire (its share of
+        ``mxtpu_kvstore_wire_bytes_total``)."""
+        return int(self._wire["wire"])
 
     # -- identity -----------------------------------------------------------
     @property
@@ -148,7 +204,7 @@ class KVStore(KVStoreBase):
     def _allreduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over the workers of a dense tensor (a new tensor)."""
         from ..parallel import collectives
-        self.wire_bytes += t.numel() * t.element_size()
+        _KV_WIRE_BYTES.inc(t.numel() * t.element_size())
         return collectives.world_all_reduce(t.detach().clone())
 
     def _reduce(self, values: List[NDArray], key=None,
@@ -202,7 +258,7 @@ class KVStore(KVStoreBase):
         dequantized and summed in rank order."""
         from ..parallel import collectives
         packed, scale = comp.quantize((key, "wire"), total)
-        self.wire_bytes += packed.numel() * packed.element_size()
+        _KV_WIRE_BYTES.inc(packed.numel() * packed.element_size())
         packed_all = collectives.world_all_gather(packed)
         scale_all = collectives.world_all_gather(
             scale.reshape(()).to(torch.float32))
@@ -231,8 +287,8 @@ class KVStore(KVStoreBase):
             vals = torch.cat([vals, vals.new_zeros((pad,) +
                                                    tuple(vals.shape[1:]))])
         self.payload_bytes += vals.numel() * 4
-        self.wire_bytes += vals.numel() * vals.element_size() + \
-            idx.numel() * idx.element_size()
+        _KV_WIRE_BYTES.inc(vals.numel() * vals.element_size() +
+                           idx.numel() * idx.element_size())
         idx_all = collectives.world_all_gather(idx)
         vals_all = collectives.world_all_gather(vals)
         return add_n([RowSparseNDArray._of(v, i, agg.shape, agg.context)
@@ -265,6 +321,9 @@ class KVStore(KVStoreBase):
             local_only = self._async and self._updater is not None
             agg = self._reduce(_listify(vlist), key=k,
                                cross_host=not local_only)
+            _KV_OPS.labels("push").inc()
+            if not isinstance(agg, BaseSparseNDArray):
+                _KV_PUSH_BYTES.inc(_nbytes(agg))
             if self._ps_client is not None and self._updater is not None:
                 if isinstance(agg, BaseSparseNDArray):
                     agg = agg.todense()
@@ -285,6 +344,7 @@ class KVStore(KVStoreBase):
         for k, olist in zip(keys, outs):
             if k not in self._store:
                 raise MXNetError(f"key {k} not initialized")
+            _KV_OPS.labels("pull").inc()
             src = self._store[k]
             if self._ps_client is not None and self._updater is not None:
                 src = _wrap(torch.from_numpy(self._ps_client.pull(k)).to(
@@ -304,8 +364,12 @@ class KVStore(KVStoreBase):
         if len(keys) == 1 and len(outs) > 1 and \
                 not isinstance(outs[0], (list, tuple)):
             outs = [outs]
+        from ..sparse import BaseSparseNDArray
         for k, vlist, olist in zip(keys, values, outs):
             agg = self._reduce(_listify(vlist), key=k)
+            _KV_OPS.labels("pushpull").inc()
+            if not isinstance(agg, BaseSparseNDArray):
+                _KV_PUSH_BYTES.inc(_nbytes(agg))
             if self._updater is not None and k in self._store:
                 self._updater(_key_int(k), agg, self._store[k])
                 agg = self._store[k]
@@ -313,6 +377,7 @@ class KVStore(KVStoreBase):
                 agg.copyto(o)
 
     def broadcast(self, key, value, out, priority=0):
+        _KV_OPS.labels("broadcast").inc()
         self.init(key, value)
         self.pull(key, out=out, priority=priority)
 

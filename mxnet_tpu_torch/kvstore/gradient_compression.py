@@ -91,6 +91,8 @@ class GradientCompression:
             packed = _pack(codes, 8, 1)
         self._residuals[key] = (flat - self._levels(codes, scale)).reshape(
             g.shape)
+        from . import _count_compression
+        _count_compression(flat.numel() * 4, packed.numel())
         return packed, scale
 
     def dequantize(self, packed, scale, shape, dtype):

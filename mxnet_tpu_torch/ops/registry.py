@@ -14,9 +14,11 @@ builds the graph, and only while ``autograd.is_recording()``; an op marked
 gradient. Predicate results (comparisons, ``isnan``, ...) are tagged so
 that indexing with them masks.
 
-The JAX package's per-(op, attributes) ``jax.jit`` cache and its telemetry
-have no counterpart here: an op runs its PyTorch calls eagerly and nothing
-is compiled, so there is nothing to cache.
+The JAX package's per-(op, attributes) ``jax.jit`` cache and its
+``mxtpu_jit_cache_*`` families have no counterpart here: an op runs its
+PyTorch calls eagerly and nothing is compiled, so there is nothing to cache.
+While a profiler session runs, every dispatch is one profiler event
+(``profiler._dispatch_profiled``), the ProfileOperator-per-engine-op analog.
 
 Samplers (``random=True``) take ``generator`` and ``device`` keywords,
 which ``invoke`` fills with ``random.generator(ctx)`` and the context's
@@ -24,6 +26,7 @@ device: they never draw from PyTorch's global generator.
 """
 from __future__ import annotations
 
+import sys
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
@@ -35,6 +38,16 @@ __all__ = ["Op", "register", "get_op", "list_ops", "invoke", "apply_op",
            "make_nd_wrapper"]
 
 _OPS: Dict[str, "Op"] = {}
+
+# the port's profiler module, looked up by name so dispatch never imports it
+_PROFILER_MODULE = __name__.rpartition(".ops")[0] + ".profiler"
+
+
+def _profiler_running() -> bool:
+    """Cheap check for an active profiler session (the profiler module
+    never loads on the dispatch path unless the user started it)."""
+    prof = sys.modules.get(_PROFILER_MODULE)
+    return prof is not None and prof._STATE["running"]
 
 
 class Op:
@@ -109,7 +122,12 @@ def invoke(op: Op, inputs: Sequence, attrs: Dict[str, Any]):
                      device=ctx.torch_device())
     with torch.set_grad_enabled(op.differentiable
                                 and autograd.is_recording()):
-        out = _amp.apply(op.name, op.fn, tensors, attrs)
+        if _profiler_running():
+            from .. import profiler
+            out = profiler._dispatch_profiled(
+                op.name, lambda: _amp.apply(op.name, op.fn, tensors, attrs))
+        else:
+            out = _amp.apply(op.name, op.fn, tensors, attrs)
     if isinstance(out, (tuple, list)):
         return tuple(_wrap(t, ctx) for t in out)
     out = _wrap(out, ctx)

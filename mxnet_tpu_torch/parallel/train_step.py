@@ -75,7 +75,17 @@ var), ``t``, ``n_params``, ``param_names``, and the port's ``generator``
 norm and a finite flag on the device and report its retained batch;
 ``step_n`` is refused while one is attached.
 
-Telemetry and rematerialization (P14/P16) are not ported yet.
+**Telemetry.** ``step`` runs inside a ``train.step`` span (``step_n``
+inside one ``train.step_n``) whose host duration feeds
+``mxtpu_train_step_latency_us`` and the drift sentinel (``train_step``);
+``mxtpu_train_steps_total`` counts steps (``step_n`` its inner ones) and
+``mxtpu_train_examples_total`` the global batch's rows. The step's state
+(masters, aux states, optimizer state) is a memstats holder sized at every
+reconcile. Under a running profiler session a step is one profiler event.
+The reference's ``mxtpu_train_donated_replace_total`` has no counterpart:
+the port donates no buffers.
+
+Rematerialization (P14/P16) is not ported yet.
 """
 from __future__ import annotations
 
@@ -85,18 +95,52 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from .. import telemetry as _telemetry
 from ..base import DTypes, MXNetError
 from ..gluon import Block
+from ..ops.registry import _profiler_running
 from ..gluon.nn import Dropout
 from ..resilience import faults as _faults
 from ..resilience.checkpoint import host_array
 from ..resilience.numerics import _leaves as _state_leaves
 from ..resilience.retry import RetryPolicy
 from ..resilience.sharding import ShardedLeaf
+from ..telemetry import memstats as _memstats
+from ..telemetry import perf_sentinel as _perf_sentinel
 from . import collectives
 from .mesh import DeviceMesh
 
 __all__ = ["ParallelTrainStep", "shard_of", "unshard"]
+
+# fleet training counters: is the card stepping, and how fast
+_STEPS = _telemetry.counter(
+    "mxtpu_train_steps_total",
+    "Optimizer steps executed (step_n counts its inner steps).")
+_EXAMPLES = _telemetry.counter(
+    "mxtpu_train_examples_total",
+    "Training examples consumed (leading batch dim); rate = examples/s.")
+_STEP_LATENCY = _telemetry.histogram(
+    "mxtpu_train_step_latency_us",
+    "Host-observed latency of one step()/step_n() dispatch (microseconds).")
+
+
+def _leading_dim(x, axis: int = 0) -> int:
+    """The batch rows of an input (a tensor, an NDArray, an array, or the
+    first of a tuple of them); 0 when it has none."""
+    if isinstance(x, (tuple, list)):
+        x = x[0] if x else None
+    shape = getattr(x, "shape", None)
+    return int(shape[axis]) if shape is not None and len(shape) > axis \
+        else 0
+
+
+def _observe_steps(steps: int, examples: int, dur_us: int):
+    """One step()/step_n() dispatch into the training families and the
+    drift sentinel (host time; nothing waits for the card)."""
+    _STEPS.inc(steps)
+    _EXAMPLES.inc(examples)
+    _STEP_LATENCY.observe(dur_us)
+    _perf_sentinel.observe("train_step", dur_us)
 
 
 def _tree_map(fn, y):
@@ -252,6 +296,13 @@ class ParallelTrainStep:
         # the forward writes state in place (BatchNorm's moving statistics)
         self._forward_writes = any(kind == "aux" for kind, _ in self._order)
         self._guard = None
+        # device-memory attribution: masters, aux states and optimizer
+        # state, sized live at every reconcile
+        _memstats.register(
+            "train", f"train_step.state.{id(self):x}", owner=self,
+            device=_memstats.device_label(self._device),
+            sizer=lambda ts: _memstats.nbytes_of(
+                [ts._ordered_tensors(), ts._states]))
 
     def _reference_order(self):
         """The reference's positional order of the step's state: the
@@ -540,6 +591,18 @@ class ParallelTrainStep:
     def step(self, x, y, *extras):
         """One training step on the global batch ``x``, ``y`` (each rank
         keeps its rows); returns the global batch's loss (0-d f32)."""
+        examples = _leading_dim(x)
+        with _telemetry.span("train.step", examples=examples) as sp:
+            if _profiler_running():
+                from .. import profiler
+                out = profiler._dispatch_profiled(
+                    "ParallelTrainStep", lambda: self._step(x, y, extras))
+            else:
+                out = self._step(x, y, extras)
+        _observe_steps(1, examples, sp.dur_us)
+        return out
+
+    def _step(self, x, y, extras):
         x, y, extras = self._local_inputs(x, y, extras)
         return self._step_impl(self._place(x), _tree_map(self._place, y),
                                tuple(self._place(e) for e in extras))
@@ -558,6 +621,21 @@ class ParallelTrainStep:
                 "the guard's skip/rewind recovery needs per-step batch "
                 "retention and generator accounting — drive the loop with "
                 "step()")
+        k = _leading_dim(xs)
+        examples = _leading_dim(xs, axis=1) * k if k else 0
+        with _telemetry.span("train.step_n", steps=k,
+                             examples=examples) as sp:
+            if _profiler_running():
+                from .. import profiler
+                out = profiler._dispatch_profiled(
+                    "ParallelTrainStep.step_n",
+                    lambda: self._step_n(xs, ys, extras_s))
+            else:
+                out = self._step_n(xs, ys, extras_s)
+        _observe_steps(k, examples, sp.dur_us)
+        return out
+
+    def _step_n(self, xs, ys, extras_s):
         xs, ys, *extras_s = self.place_batch_n(xs, ys, *extras_s)
         xs, ys, extras_s = self._local_inputs(xs, ys, extras_s, dim=1)
         losses = [self._step_impl(xs[i], _tree_map(lambda a: a[i], ys),

@@ -28,8 +28,12 @@ CPU; ``chip_smoke.py`` phase 18 with BERT-base on the card).
 
 The serving half (dispatch retries, the breaker and the watchdog inside
 ``InferenceServer``, weight hot swap, worker failover) lives in
-``serving/``. Not ported: the telemetry families (ROADMAP Q1.12, plain
-attributes until then) and ``tools/chaos_check.py`` (Q1.11b).
+``serving/``. Each module reports into the port's telemetry registry
+(retries, faults, checkpoints, preemptions, stalls, circuit states and the
+numerics guard's families), with the ``oom``, ``watchdog_stall``,
+``circuit_open``, ``preemption``, ``numerics_anomaly`` and ``sdc_suspect``
+flight triggers. Not ported: ``tools/chaos_check.py`` (ROADMAP, after
+Q1.12b).
 """
 from __future__ import annotations
 

@@ -35,9 +35,12 @@ the temp directory. Such a save runs on the caller's thread whatever
 training loop's). Restore assembles the global arrays on every rank, which
 then takes its own shard: a job saved on two ranks resumes on one.
 
-The reference's telemetry counters (saves, restores, bytes, the save
-duration) are plain attributes until the port's telemetry (ROADMAP Q1.12):
-``saves``, ``restores``, ``bytes_written``, ``last_save_seconds``.
+Telemetry: a save runs inside a ``checkpoint.save`` span and counts in
+``mxtpu_checkpoint_saves_total`` (by outcome), ``_bytes_written_total``,
+``_save_duration_us`` and ``_last_step``; ``restore_latest`` runs inside a
+``checkpoint.restore`` span and counts in ``_restores_total`` (restored,
+corrupt_skipped, none). A manager's ``saves``, ``restores`` and
+``bytes_written`` are its share of those families.
 """
 from __future__ import annotations
 
@@ -56,11 +59,29 @@ import torch
 
 from ..base import MXNetError
 from .. import config as _config
+from .. import telemetry as _telemetry
+from ..telemetry.metrics import Baseline
 from . import faults as _faults
 from .sharding import ShardedLeaf, assemble as _assemble
 
 __all__ = ["CheckpointManager", "capture_state", "apply_state",
            "verify_checkpoint_dir"]
+
+_SAVES = _telemetry.counter(
+    "mxtpu_checkpoint_saves_total", "Checkpoint save attempts by outcome.",
+    labelnames=("outcome",))
+_RESTORES = _telemetry.counter(
+    "mxtpu_checkpoint_restores_total",
+    "Checkpoint restore attempts by outcome "
+    "(restored/corrupt_skipped/none).", labelnames=("outcome",))
+_BYTES = _telemetry.counter(
+    "mxtpu_checkpoint_bytes_written_total",
+    "Bytes durably written by checkpoint saves.")
+_SAVE_DUR = _telemetry.histogram(
+    "mxtpu_checkpoint_save_duration_us",
+    "Wall time of one checkpoint save (serialize + fsync + rename), us.")
+_LAST_STEP = _telemetry.gauge(
+    "mxtpu_checkpoint_last_step", "Step of the newest durable checkpoint.")
 
 log = logging.getLogger("mxnet_tpu_torch.resilience.checkpoint")
 
@@ -201,9 +222,25 @@ class CheckpointManager:
         self._writing: set = set()      # steps with a write in flight
         self.last_save_bytes = 0
         self.last_save_seconds = 0.0
-        self.saves = {"ok": 0, "failed": 0}
-        self.restores = {"restored": 0, "corrupt_skipped": 0, "none": 0}
-        self.bytes_written = 0
+        # this manager's share of the checkpoint families
+        self._own = Baseline({
+            **{f"save_{o}": _SAVES.labels(o) for o in ("ok", "failed")},
+            **{f"restore_{o}": _RESTORES.labels(o)
+               for o in ("restored", "corrupt_skipped", "none")},
+            "bytes": _BYTES})
+
+    @property
+    def saves(self) -> Dict[str, int]:
+        return {o: int(self._own[f"save_{o}"]) for o in ("ok", "failed")}
+
+    @property
+    def restores(self) -> Dict[str, int]:
+        return {o: int(self._own[f"restore_{o}"])
+                for o in ("restored", "corrupt_skipped", "none")}
+
+    @property
+    def bytes_written(self) -> int:
+        return int(self._own["bytes"])
 
     # -- paths -----------------------------------------------------------
     def _path(self, step: int) -> str:
@@ -324,18 +361,22 @@ class CheckpointManager:
             pass
 
     def _save_sync(self, step: int, state: Dict):
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         try:
-            nbytes = self._write_checkpoint(step, state)
+            with _telemetry.span("checkpoint.save", step=int(step)):
+                nbytes = self._write_checkpoint(step, state)
         except BaseException:
             with self._lock:
                 self._writing.discard(int(step))
-            self.saves["failed"] += 1
+            _SAVES.labels("failed").inc()
             raise
+        dur_ns = time.perf_counter_ns() - t0
         self.last_save_bytes = nbytes
-        self.last_save_seconds = time.perf_counter() - t0
-        self.saves["ok"] += 1
-        self.bytes_written += nbytes
+        self.last_save_seconds = dur_ns / 1e9
+        _SAVES.labels("ok").inc()
+        _BYTES.inc(nbytes)
+        _LAST_STEP.set(int(step))
+        _SAVE_DUR.observe(dur_ns // 1000)
         with self._lock:
             self._writing.discard(int(step))
         if _job()[0] == 0:
@@ -462,20 +503,22 @@ class CheckpointManager:
         """Restore the newest intact checkpoint: ``(step, state)`` after
         applying it, or None when none is intact. A checkpoint that fails
         verification is logged and skipped, never raised."""
-        for step in reversed(self.steps()):
-            path = self._path(step)
-            try:
-                state = verify_checkpoint_dir(path)
-            except Exception as e:
-                self.restores["corrupt_skipped"] += 1
-                log.warning("checkpoint %s failed verification (%s); falling "
-                            "back to the previous checkpoint", path, e)
-                continue
-            apply_state(state, **objs)
-            self.restores["restored"] += 1
-            return step, state
-        self.restores["none"] += 1
-        return None
+        with _telemetry.span("checkpoint.restore"):
+            for step in reversed(self.steps()):
+                path = self._path(step)
+                try:
+                    state = verify_checkpoint_dir(path)
+                except Exception as e:
+                    _RESTORES.labels("corrupt_skipped").inc()
+                    log.warning("checkpoint %s failed verification (%s); "
+                                "falling back to the previous checkpoint",
+                                path, e)
+                    continue
+                apply_state(state, **objs)
+                _RESTORES.labels("restored").inc()
+                return step, state
+            _RESTORES.labels("none").inc()
+            return None
 
     # -- the preemption marker (PreemptionGuard) ---------------------------
     def write_preemption_marker(self, info: Dict):

@@ -36,9 +36,8 @@ classifier sees a real OOM's picture. The ``numerics``/``sdc`` kinds are
 consumed by the NumericsGuard, which turns them into the corruption they
 simulate.
 
-The reference's telemetry counter ``mxtpu_faults_injected_total`` is the
-plain dict :data:`injected_total` (by (kind, site)) until the port's
-telemetry (ROADMAP Q1.12).
+Every fired fault counts in ``mxtpu_faults_injected_total`` (by kind and
+site).
 """
 from __future__ import annotations
 
@@ -46,8 +45,9 @@ import random as _pyrandom
 import threading
 import time
 from contextlib import contextmanager
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 
 __all__ = ["FaultInjected", "SimulatedCrash", "PreemptionNotice",
@@ -59,7 +59,10 @@ SITES = ("train_step", "compile", "serving_dispatch", "serving_prep",
          "exec_cache", "emb_dispatch", "frontdoor", "pool_submit")
 
 #: faults raised (or slept) so far, by (kind, site)
-injected_total: Dict[Tuple[str, str], int] = {}
+_INJECTED = _telemetry.counter(
+    "mxtpu_faults_injected_total",
+    "Faults raised by the injection harness, by kind and site.",
+    labelnames=("kind", "site"))
 
 
 class FaultInjected(MXNetError):
@@ -213,8 +216,7 @@ class _Injection:
                 return None
             self.fires += 1
             count = self.fires
-            key = (self.kind, site)
-            injected_total[key] = injected_total.get(key, 0) + 1
+        _INJECTED.labels(self.kind, site).inc()
         if self.kind in _SLEEP_KINDS:
             time.sleep(self.seconds)
             return None

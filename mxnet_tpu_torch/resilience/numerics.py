@@ -45,11 +45,17 @@ large) as a bad batch makes them. Replays of a retained record repeat its
 corruption.
 
 Snapshots live on the device: for BERT-base with Adam, the parameters and
-both moments, about 1.3 GB a snapshot, and up to two are held. The
-reference's counters and gauges are plain attributes here until the
-port's telemetry (ROADMAP Q1.12): ``checks``, ``anomalies``,
-``recoveries_by_action``, ``quarantined``, ``sdc_checks``,
-``sdc_suspects``, ``last_grad_norm``, ``last_loss``.
+both moments, about 1.3 GB a snapshot, and up to two are held.
+
+Telemetry: the reference's ``mxtpu_numerics_*`` and ``mxtpu_sdc_*``
+families. A guard's ``checks``, ``anomalies``, ``recoveries_by_action``,
+``quarantined``, ``sdc_checks`` and ``sdc_suspects`` are its share of
+them, ``last_grad_norm`` and ``last_loss`` the gauges as of its last
+boundary read; an anomaly fires the ``numerics_anomaly`` flight trigger
+and an SDC suspect the ``sdc_suspect`` one. ``recoveries`` and
+``skipped_steps`` are the guard's lifetime totals, part of its checkpointed
+state (a restarted job carries them on), as in the reference; this
+process's recoveries and skipped steps are also counted in their families.
 """
 from __future__ import annotations
 
@@ -65,11 +71,52 @@ import torch
 
 from ..base import MXNetError
 from .. import config as _config
+from .. import telemetry as _telemetry
+from ..telemetry import flight as _flight
+from ..telemetry.metrics import Baseline
 from . import faults as _faults
 from .checkpoint import host_array
 
 __all__ = ["NumericsGuard", "NumericsError", "BadBatchError",
            "SDCSuspectError", "EWMADetector", "batch_fingerprint"]
+
+_CHECKS = _telemetry.counter(
+    "mxtpu_numerics_checks_total",
+    "NumericsGuard boundary checks by result: clean / anomaly.",
+    labelnames=("result",))
+_ANOMALIES = _telemetry.counter(
+    "mxtpu_numerics_anomalies_total",
+    "Numerical anomalies detected, by kind: nan_grad (non-finite loss or "
+    "gradient), loss_spike / grad_spike (EWMA z-score outlier), bad_batch "
+    "(an anomaly attributed to a poisoned input batch).",
+    labelnames=("kind",))
+_RECOVERIES = _telemetry.counter(
+    "mxtpu_numerics_recoveries_total",
+    "Recovery actions executed by the policy engine: skip / quarantine / "
+    "rewind.", labelnames=("action",))
+_SKIPPED = _telemetry.counter(
+    "mxtpu_numerics_skipped_steps_total",
+    "Optimizer updates discarded by skip/quarantine recovery (the clean "
+    "run equivalent never trained on these batches).")
+_QUARANTINED = _telemetry.counter(
+    "mxtpu_numerics_quarantined_batches_total",
+    "Batches fingerprinted, dumped and positionally excluded from replays.")
+_GRAD_NORM = _telemetry.gauge(
+    "mxtpu_numerics_grad_norm",
+    "Global gradient norm at the last boundary read (lagged by up to "
+    "MXNET_NUMERICS_CHECK_EVERY_N steps; free — no extra sync).")
+_LOSS_LAST = _telemetry.gauge(
+    "mxtpu_numerics_loss",
+    "Loss at the last boundary read (lagged, free).")
+_SDC_CHECKS = _telemetry.counter(
+    "mxtpu_sdc_checks_total",
+    "SDC screening re-executions by result: match / mismatch.",
+    labelnames=("result",))
+_SDC_SUSPECT = _telemetry.counter(
+    "mxtpu_sdc_suspect_total",
+    "Window re-executions whose parameter digest diverged from the live "
+    "run — a silent-data-corruption suspect; each one writes a repro "
+    "bundle for tools/replay_step.py.")
 
 
 class NumericsError(MXNetError):
@@ -277,14 +324,15 @@ class NumericsGuard:
         self.recoveries = 0
         self.skipped_steps = 0
         self.host_reads = 0          # host copies of health scalars
-        self.checks = {"clean": 0, "anomaly": 0}
-        self.anomalies: Dict[str, int] = {}
-        self.recoveries_by_action: Dict[str, int] = {}
-        self.quarantined = 0
-        self.sdc_checks = {"match": 0, "mismatch": 0}
-        self.sdc_suspects = 0
-        self.last_grad_norm = None
-        self.last_loss = None
+        # this guard's share of the numerics families
+        self._own = Baseline({
+            **{f"check_{r}": _CHECKS.labels(r) for r in ("clean", "anomaly")},
+            **{f"sdc_{r}": _SDC_CHECKS.labels(r)
+               for r in ("match", "mismatch")},
+            "quarantined": _QUARANTINED, "sdc_suspects": _SDC_SUSPECT})
+        self._anomalies = Baseline()
+        self._recoveries = Baseline()
+        self._read_health = False     # a boundary read set the gauges
 
     # -- wiring ------------------------------------------------------------
     def attach(self, train_step) -> "NumericsGuard":
@@ -434,14 +482,16 @@ class NumericsGuard:
         self._read(self._prev)
         bad = self._scan(self._prev)
         if bad is not None:
-            self.checks["anomaly"] += 1
+            _CHECKS.labels("anomaly").inc()
             self._recover(self._snap_prev,
                           list(self._prev) + list(self._window), *bad)
             return True
-        self.checks["clean"] += 1
+        _CHECKS.labels("clean").inc()
         self._accept(self._prev)
         tail = self._prev[-1]
-        self.last_grad_norm, self.last_loss = tail.gnorm_v, tail.loss_v
+        _GRAD_NORM.set(tail.gnorm_v)
+        _LOSS_LAST.set(tail.loss_v)
+        self._read_health = True
         self._maybe_sdc_check(self._prev, self._snap_prev)
         self._steps_since_sdc += len(self._prev)
         self._prev = []
@@ -477,13 +527,16 @@ class NumericsGuard:
         rec = records[bad_idx]
         action = self._decide(kind, rec)
         label = "bad_batch" if action == "quarantine" else kind
-        self.anomalies[label] = self.anomalies.get(label, 0) + 1
+        self._anomalies.add(label, _ANOMALIES.labels(label)).inc()
         self.last_anomaly = {
             "kind": label, "action": action, "t": rec.t,
             "loss": rec.loss_v, "grad_norm": rec.gnorm_v,
             "finite": rec.finite_v, "batch_pos": rec.batch_pos,
             "window_index": bad_idx, "injected": rec.injected,
         }
+        _flight.trigger("numerics_anomaly", kind=label, action=action,
+                        step=rec.t, batch_pos=rec.batch_pos,
+                        loss=rec.loss_v, grad_norm=rec.gnorm_v)
         if action == "rewind":
             self._rewind(records)
             return
@@ -492,8 +545,43 @@ class NumericsGuard:
 
     def _count(self, action: str):
         self.recoveries += 1
-        self.recoveries_by_action[action] = \
-            self.recoveries_by_action.get(action, 0) + 1
+        self._recoveries.add(action, _RECOVERIES.labels(action)).inc()
+
+    def _skip(self, n: int):
+        self.skipped_steps += n
+        _SKIPPED.inc(n)
+
+    @property
+    def checks(self) -> Dict[str, int]:
+        return {r: int(self._own[f"check_{r}"]) for r in ("clean", "anomaly")}
+
+    @property
+    def anomalies(self) -> Dict[str, int]:
+        return self._anomalies.as_dict()
+
+    @property
+    def recoveries_by_action(self) -> Dict[str, int]:
+        return self._recoveries.as_dict()
+
+    @property
+    def quarantined(self) -> int:
+        return int(self._own["quarantined"])
+
+    @property
+    def sdc_checks(self) -> Dict[str, int]:
+        return {r: int(self._own[f"sdc_{r}"]) for r in ("match", "mismatch")}
+
+    @property
+    def sdc_suspects(self) -> int:
+        return int(self._own["sdc_suspects"])
+
+    @property
+    def last_grad_norm(self) -> Optional[float]:
+        return _GRAD_NORM.value if self._read_health else None
+
+    @property
+    def last_loss(self) -> Optional[float]:
+        return _LOSS_LAST.value if self._read_health else None
 
     def _skip_and_replay(self, snapshot: Dict, records: List[_StepRecord],
                          excluded: set, quarantine: bool):
@@ -536,7 +624,7 @@ class NumericsGuard:
         self._accept(replayed)
         for i in sorted(excluded):
             bad = records[i]
-            self.skipped_steps += 1
+            self._skip(1)
             if quarantine:
                 self._quarantine(bad)
             else:
@@ -549,7 +637,7 @@ class NumericsGuard:
     def _quarantine(self, rec: _StepRecord):
         fp = self._fingerprint(rec)
         self._offenders[fp] = self._offenders.get(fp, 0) + 1
-        self.quarantined += 1
+        _QUARANTINED.inc()
         if rec.batch_pos is not None and self.dataloader is not None:
             self.dataloader.quarantine_batch(*rec.batch_pos)
         if not self.quarantine_dir:
@@ -598,8 +686,8 @@ class NumericsGuard:
             for rec in window:
                 if rec.batch_pos is not None:
                     self.dataloader.quarantine_batch(*rec.batch_pos)
-                    self.quarantined += 1
-        self.skipped_steps += len(window)
+                    _QUARANTINED.inc()
+        self._skip(len(window))
         self._count("rewind")
         self._snapshot = self._take_snapshot()
         self._steps_since_sdc = 0
@@ -643,7 +731,7 @@ class NumericsGuard:
         digest_replay = _digest_arrays(replayed)
         ts._restore_snapshot(live)      # screening is invisible to training
         match = digest_replay == digest_live
-        self.sdc_checks["match" if match else "mismatch"] += 1
+        _SDC_CHECKS.labels("match" if match else "mismatch").inc()
         self.last_sdc = {"match": match, "digest_live": digest_live,
                          "digest_replay": digest_replay,
                          "pre_digest": pre_digest,
@@ -651,13 +739,17 @@ class NumericsGuard:
                          "t": int(self._snapshot["t"])}
         if match:
             return
-        self.sdc_suspects += 1
+        _SDC_SUSPECT.inc()
         bundle = None
         if self.sdc_bundle_dir:
             bundle = self._write_sdc_bundle(records, start_snap, digest_live,
                                             digest_replay, pre_digest)
             self.sdc_bundles.append(bundle)
             self.last_sdc["bundle"] = bundle
+        _flight.trigger("sdc_suspect", t=int(self._snapshot["t"]),
+                        digest_live=digest_live[:16],
+                        digest_replay=digest_replay[:16],
+                        window=len(records), sdc_bundle=bundle)
         if self.sdc_raise:
             raise SDCSuspectError(
                 f"SDC suspect at t={self._snapshot['t']}: re-executed "

@@ -26,8 +26,10 @@ Usage::
     info = PreemptionGuard.resume_info(cm)
     restored = cm.restore_latest(train_step=step)
 
-The reference's ``mxtpu_preemptions_total`` is :data:`preemptions_total`
-until the port's telemetry (ROADMAP Q1.12).
+Each handled notice counts in ``mxtpu_preemptions_total`` (by outcome:
+flushed, the checkpoint landed inside the deadline, or deadline_exceeded),
+its force-flush time lands in ``mxtpu_preempt_flush_duration_us``, and it
+fires the ``preemption`` flight trigger.
 """
 from __future__ import annotations
 
@@ -38,15 +40,23 @@ from typing import Dict, Optional
 
 from ..base import MXNetError
 from .. import config as _config
+from .. import telemetry as _telemetry
+from ..telemetry import flight as _flight
 from . import faults as _faults
 from .checkpoint import CheckpointManager, capture_state
 
 __all__ = ["PreemptionGuard"]
 
-#: notices handled, by outcome: flushed (the checkpoint landed inside the
-#: deadline) or deadline_exceeded (the reference's
-#: ``mxtpu_preemptions_total``)
-preemptions_total = {"flushed": 0, "deadline_exceeded": 0}
+_PREEMPTIONS = _telemetry.counter(
+    "mxtpu_preemptions_total",
+    "Preemption notices handled by PreemptionGuard, by outcome: flushed "
+    "(checkpoint landed inside the deadline) / deadline_exceeded (landed "
+    "late or not at all — the marker says which step to distrust).",
+    labelnames=("outcome",))
+_FLUSH_DUR = _telemetry.histogram(
+    "mxtpu_preempt_flush_duration_us",
+    "Wall time of the preemption force-flush (join async writes + final "
+    "checkpoint save), microseconds.")
 
 
 class PreemptionGuard:
@@ -209,7 +219,11 @@ class PreemptionGuard:
             errors.append(str(e))
         self._flushed_step = int(step)
         self.last_flush = info
-        preemptions_total[outcome] += 1
+        _PREEMPTIONS.labels(outcome).inc()
+        _FLUSH_DUR.observe(int(elapsed * 1e6))
+        _flight.trigger("preemption", outcome=outcome,
+                        **{k: v for k, v in info.items() if k != "errors"},
+                        errors="; ".join(errors)[:500])
 
     # ------------------------------------------------------------------
     # the resuming side

@@ -15,27 +15,33 @@ The jitter is drawn from ``random.Random(seed)`` as in the reference, so
 
 ``run(budget_tier=)`` spends one token of the serving tail guard's
 per-tier retry budget (``serving/tailguard.py``) on every retry, so a
-retry storm ends in bounded shed. The ``mxtpu_retries_total`` counter is
-the plain dict :data:`retries_total` (by (site, error)) until the port's
-telemetry (ROADMAP Q1.12), and the OOM flight bundle waits for it too.
+retry storm ends in bounded shed. Every retry counts in
+``mxtpu_retries_total`` (by site and error) and records a ``retry`` flight
+event; every out-of-memory error, retried or not, fires the ``oom`` flight
+trigger, whose bundle carries the memstats holder breakdown taken while
+the pins that exhausted the card are still live.
 """
 from __future__ import annotations
 
 import random as _pyrandom
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Optional
 
 import torch
 
 from ..base import MXNetError
 from .. import config as _config
+from .. import telemetry as _telemetry
 from .faults import FaultInjected
 
 __all__ = ["RetryPolicy", "classify_error", "is_oom_error",
            "RETRYABLE_MARKERS"]
 
-#: retries so far, by (site, exception type name)
-retries_total: Dict[Tuple[str, str], int] = {}
+_RETRIES = _telemetry.counter(
+    "mxtpu_retries_total",
+    "Retry attempts by call site and exception type; a steadily climbing "
+    "rate means the stack is surviving on retries.",
+    labelnames=("site", "error"))
 
 #: substrings that mark a transient, retry-worthy failure
 RETRYABLE_MARKERS = ("RESOURCE_EXHAUSTED", "Out of memory", "out of memory",
@@ -157,6 +163,14 @@ class RetryPolicy:
             try:
                 return fn()
             except Exception as e:
+                if is_oom_error(e):
+                    # OOM post-mortem: the bundle snapshots the holder table
+                    # while the pins that caused the exhaustion are live.
+                    # Fires for retried and fatal OOMs (rate-limited inside
+                    # the trigger, which never raises)
+                    _telemetry.flight.trigger(
+                        "oom", site=site, error=type(e).__name__,
+                        attempt=attempt, message=str(e)[:200])
                 if not self._classify(e) or attempt + 1 >= self.max_attempts:
                     raise
                 delay_s = self.delay_ms(attempt) / 1e3
@@ -174,8 +188,10 @@ class RetryPolicy:
                     raise
                 if on_retry is not None:
                     on_retry(e, attempt, delay_s)
-                key = (site, type(e).__name__)
-                retries_total[key] = retries_total.get(key, 0) + 1
+                _RETRIES.labels(site, type(e).__name__).inc()
+                _telemetry.event("retry", site=site,
+                                 error=type(e).__name__, attempt=attempt,
+                                 delay_ms=round(delay_s * 1e3, 3))
                 self._sleep(delay_s)
                 attempt += 1
 

@@ -18,10 +18,14 @@ The :class:`CircuitBreaker` state machine::
 ``allow()`` is the admission gate (False while OPEN; a bounded number of
 probes while HALF_OPEN). The serving ``InferenceServer`` keeps a breaker
 per tenant behind admission and ``health()``, and a Watchdog on each
-device step whose stall degrades the tenant. The reference's
-``mxtpu_watchdog_stalls_total`` and
-``mxtpu_circuit_state`` are :data:`stalls_total` and
-:attr:`CircuitBreaker.code` until the port's telemetry (Q1.12).
+device step whose stall degrades the tenant.
+
+Telemetry: a stall counts in ``mxtpu_watchdog_stalls_total`` (by watch
+name; a watchdog's ``stalls`` is its share) and fires the
+``watchdog_stall`` flight trigger while the hung thread is still hung; a
+breaker's state is its ``mxtpu_circuit_state`` gauge (by scope; ``code``
+reads it as of now), every transition a ``circuit_transition`` event and an
+opening the ``circuit_open`` trigger.
 """
 from __future__ import annotations
 
@@ -33,13 +37,22 @@ from typing import Callable, Optional
 
 from ..base import MXNetError
 from .. import config as _config
+from .. import telemetry as _telemetry
+from ..telemetry import flight as _flight
+from ..telemetry.metrics import Baseline
 
 __all__ = ["Watchdog", "CircuitBreaker",
            "HEALTHY", "DEGRADED", "OPEN", "HALF_OPEN"]
 
-#: watched regions that exceeded their threshold, by watch name (the
-#: reference's ``mxtpu_watchdog_stalls_total``)
-stalls_total: dict = {}
+_STALLS = _telemetry.counter(
+    "mxtpu_watchdog_stalls_total",
+    "Watched regions (device steps, serving batches) that exceeded the "
+    "hang threshold, by watch name.", labelnames=("name",))
+
+_CIRCUIT = _telemetry.gauge(
+    "mxtpu_circuit_state",
+    "Circuit-breaker state by scope: 0 healthy, 1 degraded, 2 open, "
+    "3 half_open.", labelnames=("scope",))
 
 HEALTHY, DEGRADED, OPEN, HALF_OPEN = ("healthy", "degraded", "open",
                                       "half_open")
@@ -79,7 +92,11 @@ class Watchdog:
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        self.stalls = 0
+        self._stalls = Baseline()     # this watchdog's share, by name
+
+    @property
+    def stalls(self) -> int:
+        return sum(self._stalls.as_dict().values())
 
     # -- the watched-region surface -----------------------------------------
     @contextmanager
@@ -118,10 +135,13 @@ class Watchdog:
                     name, start, already = rec
                     if not already and now - start >= self.stall_s:
                         rec[2] = True
-                        self.stalls += 1
                         fired.append((name, now - start))
             for name, elapsed in fired:
-                stalls_total[name] = stalls_total.get(name, 0) + 1
+                self._stalls.add(name, _STALLS.labels(name)).inc()
+                # a stall is a flight trigger: the bundle captures the hung
+                # thread's stack while it is still hung
+                _flight.trigger("watchdog_stall", watch=name,
+                                elapsed_s=round(elapsed, 3))
                 cb = self._on_stall
                 if cb is not None:
                     try:
@@ -175,6 +195,8 @@ class CircuitBreaker:
         self._failures = 0          # consecutive
         self._opened_at = 0.0
         self._probes = 0            # in flight while HALF_OPEN
+        self._gauge = _CIRCUIT.labels(scope)
+        self._gauge.set(0)
         self.transitions = []       # recent (old, new) pairs, bounded
 
     # -- internals (caller holds the lock) ----------------------------------
@@ -183,8 +205,16 @@ class CircuitBreaker:
         if old == new:
             return
         self._state = new
+        self._gauge.set(_STATE_CODE[new])
         self.transitions.append((old, new))
         del self.transitions[:-16]
+        _telemetry.event("circuit_transition", scope=self.scope,
+                         old=old, new=new)
+        if new == OPEN:
+            # a circuit opening means a tenant just lost admission: dump
+            # the last seconds of spans and events while they are in-ring
+            _flight.trigger("circuit_open", scope=self.scope,
+                            failures=self._failures)
         if self._on_transition is not None:
             try:
                 self._on_transition(old, new)
@@ -200,9 +230,11 @@ class CircuitBreaker:
     # -- public surface -----------------------------------------------------
     @property
     def code(self) -> int:
-        """The state as the reference's ``mxtpu_circuit_state`` gauge reads
-        it: 0 healthy, 1 degraded, 2 open, 3 half_open."""
-        return _STATE_CODE[self.state()]
+        """The ``mxtpu_circuit_state`` gauge of this scope, after the
+        cooldown's OPEN -> HALF_OPEN check: 0 healthy, 1 degraded, 2 open,
+        3 half_open."""
+        self.state()
+        return int(self._gauge.value)
 
     def state(self) -> str:
         with self._lock:

@@ -46,8 +46,9 @@ hosts: ``plan_slices`` carves this process's cards into slices, a
 slice's cards, and a ``FrontDoor`` routes tenants over host serving planes
 and fails a dead host's work over to the survivors.
 
-Not ported yet: ``tools/chaos_check.py`` (after the telemetry, ROADMAP
-Q1.12).
+Every tier reports into the port's telemetry registry
+(``mxnet_tpu_torch.telemetry``). Not ported yet: ``tools/chaos_check.py``
+(after the fleet pane and goodput, ROADMAP Q1.12b).
 """
 from __future__ import annotations
 

@@ -27,9 +27,13 @@ deterministic for tests; the brownout ladder ticks with it.
 
 The reference prices a fresh replica's warm-up with its learned compile
 cost model (StableHLO); the port has none, so ``predicted_warmup_s`` is 0
-and the scale-up hysteresis is the configured one. Its telemetry families
-(``mxtpu_autoscale_replicas``, ``_events_total``) are ``ServingPool.size()``
-and ``Autoscaler.actions`` until the port's telemetry (ROADMAP Q1.12).
+and the scale-up hysteresis is the configured one.
+
+Telemetry: ``mxtpu_autoscale_replicas`` is the rotation's size,
+``mxtpu_pool_replica_capacity`` each replica's devices (by replica id),
+and every action counts in ``mxtpu_autoscale_events_total`` (by
+direction) and records an ``autoscale_up``/``autoscale_down`` flight event
+naming its signals.
 """
 from __future__ import annotations
 
@@ -41,7 +45,9 @@ from typing import Callable, List, Optional, Tuple
 
 from ..base import MXNetError
 from .. import config as _config
+from .. import telemetry as _telemetry
 from ..resilience import faults as _faults
+from ..telemetry import flight as _flight
 from ..telemetry.slo import MONITOR as _SLO_MONITOR
 from . import tailguard as _tailguard
 from .batcher import fail as _fail_fut, now_us, resolve as _resolve_fut
@@ -49,6 +55,20 @@ from .errors import ServerClosedError, ServerOverloadError
 from .server import InferenceServer
 
 __all__ = ["ServingPool", "Autoscaler"]
+
+_REPLICAS_G = _telemetry.gauge(
+    "mxtpu_autoscale_replicas",
+    "Serving replicas currently in the pool's rotation.")
+_EVENTS = _telemetry.counter(
+    "mxtpu_autoscale_events_total",
+    "Autoscaler actions taken, by direction (up / down).",
+    labelnames=("direction",))
+_CAPACITY_G = _telemetry.gauge(
+    "mxtpu_pool_replica_capacity",
+    "Devices backing each pool replica (a mesh-sharded replica reports its "
+    "slice size; single-chip replicas report 1) — the weight submit() "
+    "divides queue load by.",
+    labelnames=("rid",))
 
 log = logging.getLogger("mxnet_tpu_torch.serving.autoscaler")
 
@@ -102,6 +122,9 @@ class ServingPool:
                             for t in server._router.tenants()), default=1)
         with self._lock:
             self._replicas.append(_Replica(rid, server, capacity))
+            n = len(self._replicas)
+        _REPLICAS_G.set(n)
+        _CAPACITY_G.labels(str(rid)).set(capacity)
         return rid
 
     def scale_down(self, drain_timeout_s: Optional[float] = None
@@ -113,6 +136,8 @@ class ServingPool:
             if len(self._replicas) <= 1:
                 return None
             victim = self._replicas.pop()
+            n = len(self._replicas)
+        _REPLICAS_G.set(n)
         victim.server.stop(drain=True, timeout=drain_timeout_s)
         return victim.rid
 
@@ -305,6 +330,7 @@ class ServingPool:
         """Stop every replica (drained by default)."""
         with self._lock:
             replicas, self._replicas = self._replicas, []
+        _REPLICAS_G.set(0)
         for rep in replicas:
             rep.server.stop(drain=drain, timeout=timeout)
 
@@ -461,6 +487,8 @@ class Autoscaler:
                 return None
         report = dict(sig, action=verdict, rid=rid,
                       replicas=self.pool.size())
+        _EVENTS.labels(verdict).inc()
+        _flight.event(f"autoscale_{verdict}", **report)
         with self._lock:
             self.actions.append(report)
         return report

@@ -21,6 +21,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import telemetry as _telemetry
 from . import tailguard as _tailguard
 from .errors import RequestTimeoutError
 
@@ -53,10 +54,14 @@ def now_us() -> int:
 class Request:
     """One admitted request: host input rows and the Future the worker
     resolves with sliced outputs (or an error). A propagated ``deadline``
-    (``tailguard.Deadline``, minted at ingress) wins over ``deadline_ms``."""
+    (``tailguard.Deadline``, minted at ingress) wins over ``deadline_ms``.
+    ``trace_id`` is stamped at submit (the submitter's telemetry span, if
+    any, else a new id) and adopted by the worker thread around batch
+    assembly and the device step: a context variable does not cross the
+    queue hop, the request carries the id across it."""
 
     __slots__ = ("inputs", "rows", "squeeze", "enqueue_us", "deadline_us",
-                 "deadline", "future", "assembled")
+                 "deadline", "future", "assembled", "trace_id")
 
     def __init__(self, inputs: Tuple[np.ndarray, ...], rows: int,
                  squeeze: bool, deadline_ms: Optional[float] = None,
@@ -73,6 +78,8 @@ class Request:
                                 if deadline_ms is not None else None)
         self.future: Future = Future()
         self.assembled = False      # queue wait is recorded once
+        self.trace_id = (_telemetry.current_trace_id()
+                         or _telemetry.new_trace_id())
 
     def expired(self, at_us: int) -> bool:
         return self.deadline_us is not None and at_us > self.deadline_us

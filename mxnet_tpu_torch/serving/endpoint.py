@@ -42,6 +42,8 @@ import numpy as np
 import torch
 
 from ..base import Context, DTypes, MXNetError, current_context
+from .. import telemetry as _telemetry
+from ..telemetry import memstats as _memstats
 from . import bucketing
 from .batcher import now_us
 from .errors import HotSwapError
@@ -51,11 +53,12 @@ from .stats import EndpointStats
 __all__ = ["ModelEndpoint", "StagedBatch", "get_endpoint", "list_endpoints",
            "unregister"]
 
-#: hot-swap attempts by outcome: ok, rolled_back (the probe failed),
-#: rejected (corrupt or mismatched checkpoint) — the reference's
-#: ``mxtpu_serving_hot_swaps_total`` until the port's telemetry (Q1.12)
-hot_swaps_total: Dict[str, int] = {"ok": 0, "rolled_back": 0,
-                                   "rejected": 0}
+_HOT_SWAPS = _telemetry.counter(
+    "mxtpu_serving_hot_swaps_total",
+    "Weight hot-swap attempts by outcome: ok (staged, probe-validated, "
+    "committed) / rolled_back (probe validation failed; old weights kept) / "
+    "rejected (corrupt or mismatched checkpoint, refused before staging).",
+    labelnames=("outcome",))
 
 # name -> endpoint: the registry behind serving.stats()
 _ENDPOINTS: Dict[str, "ModelEndpoint"] = {}
@@ -63,8 +66,7 @@ _REG_LOCK = threading.Lock()
 
 
 def _count_swap(outcome: str):
-    with _REG_LOCK:
-        hot_swaps_total[outcome] += 1
+    _HOT_SWAPS.labels(outcome).inc()
 
 
 def wait_stream(stream) -> None:
@@ -158,13 +160,24 @@ class ModelEndpoint:
         self.np_dtypes = tuple(DTypes.numpy(d) for d in dts)
         self.block = block.to(self.device).eval()
         self.stats = EndpointStats(name)
-        self.step_cost = StepCostEWMA()
+        self.step_cost = StepCostEWMA(name=name)
         self.prep_cost = StepCostEWMA()     # host prep per bucket (us)
         self._lock = threading.Lock()
         self._warm = set()
         self._slots: Dict[Tuple[int, int], _Slot] = {}
         self._weights_epoch = 0
         self._probe()
+        # device-memory attribution: the served weights and the staging
+        # slots' device buffers, sized live at every reconcile
+        label = _memstats.device_label(self.device)
+        _memstats.register(
+            "serving", f"{self.name}.params", owner=self, device=label,
+            sizer=lambda ep: _memstats.nbytes_of(
+                [t for _, t in ep._weights()]))
+        _memstats.register(
+            "serving", f"{self.name}.parity_bufs", owner=self, device=label,
+            sizer=lambda ep: _memstats.nbytes_of(
+                [slot.device for slot in list(ep._slots.values())]))
         with _REG_LOCK:
             _ENDPOINTS[name] = self
 
@@ -296,15 +309,20 @@ class ModelEndpoint:
         stream, waited for through an event behind it. Returns the outputs
         with ``bucket`` rows each."""
         stream = self._stream()
-        t0 = now_us()
-        self._wait_ready(staged)
-        outs = self._forward(staged.inputs)
-        if stream is not None:
-            done = torch.cuda.Event()
-            done.record(stream)
-            staged.slot.fence = done
-            done.synchronize()
-        dt = now_us() - t0
+        # child of the caller's serving.batch span (same thread): the trace
+        # id stamped at submit reaches the device step; its duration waits
+        # for the forward's event, as the step does
+        with _telemetry.span("serving.device_step", endpoint=self.name,
+                             bucket=staged.bucket, rows=rows):
+            t0 = now_us()
+            self._wait_ready(staged)
+            outs = self._forward(staged.inputs)
+            if stream is not None:
+                done = torch.cuda.Event()
+                done.record(stream)
+                staged.slot.fence = done
+                done.synchronize()
+            dt = now_us() - t0
         self.step_cost.observe(staged.bucket, dt)
         self.stats.record_step(dt)
         self.stats.bump("cache_hits")

@@ -27,11 +27,13 @@ wrapper future catches exactly that and resubmits on the rerouted survivor
 under the ``frontdoor`` retry budget — the client's future resolves
 normally.
 
-The reference's ``mxtpu_fabric_*`` families are plain attributes here until
-the port's telemetry (ROADMAP Q1.12): ``moves``, ``failovers`` (by host),
-``resubmits``, ``requests_by_host`` and :meth:`hosts_by_state`. Its fleet
-pane (``fleet_collect``, ``goodput_reconcile``), the agent's telemetry
-dumps and spans, and the ``host_down`` flight trigger wait for it too.
+Telemetry: ``moves``, ``failovers`` (by host), ``resubmits`` and
+``requests_by_host`` are this front door's share of the reference's
+``mxtpu_fabric_*`` counters, and ``mxtpu_fabric_hosts`` counts hosts by
+liveness; a host's failover fires the ``host_down`` flight trigger and
+records a ``fabric_host_down`` event. The fleet pane (``fleet_collect``,
+``goodput_reconcile``) and the agent's telemetry dumps and spans wait for
+ROADMAP Q1.12b.
 """
 from __future__ import annotations
 
@@ -49,14 +51,37 @@ from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
 
 from ... import config as _config
+from ... import telemetry as _telemetry
 from ...base import Context, MXNetError, current_context
 from ...resilience import faults as _faults
 from ...resilience.faults import FaultInjected
 from .. import tailguard as _tailguard
 from ..errors import ServerClosedError, ServerOverloadError
+from ...telemetry import flight as _flight
+from ...telemetry.metrics import Baseline
 from ..supervisor import PoolSupervisor
 
 __all__ = ["FrontDoor"]
+
+_HOSTS_G = _telemetry.gauge(
+    "mxtpu_fabric_hosts",
+    "Front-door hosts by liveness ('alive'/'down').",
+    labelnames=("state",))
+_MOVES_C = _telemetry.counter(
+    "mxtpu_fabric_tenant_moves_total",
+    "Tenants rehashed to a different host after a membership change — "
+    "bounded rebalancing means only a dead host's tenants ever move.")
+_FAILOVERS_C = _telemetry.counter(
+    "mxtpu_fabric_host_failovers_total",
+    "Host-down failovers the front door executed, by host.",
+    labelnames=("host",))
+_RESUBMITS_C = _telemetry.counter(
+    "mxtpu_fabric_resubmits_total",
+    "In-flight requests resubmitted on a survivor after their host died.")
+_REQS_C = _telemetry.counter(
+    "mxtpu_fabric_requests_total",
+    "Requests routed through the front door, by host.",
+    labelnames=("host",))
 
 # The process-group member: a real subprocess a host, importing only the
 # port. Startup serves a tiny real workload on FABRIC_CTX, then each tick
@@ -156,10 +181,10 @@ class FrontDoor:
         if len(set(names)) != len(names) or not names:
             raise MXNetError(f"need unique, non-empty host names: {names}")
         self.epoch = 0
-        self.moves = 0
-        self.resubmits = 0
-        self.failovers: Dict[str, int] = {}
-        self.requests_by_host: Dict[str, int] = {n: 0 for n in names}
+        # this front door's share of the fabric families
+        self._own = Baseline({"moves": _MOVES_C, "resubmits": _RESUBMITS_C})
+        self._requests = Baseline({n: _REQS_C.labels(n) for n in names})
+        self._failovers = Baseline()
         self._lock = threading.RLock()
         self._own_workdir = workdir is None
         self._workdir = workdir or tempfile.mkdtemp(prefix="mxtpu-fabric-")
@@ -181,6 +206,7 @@ class FrontDoor:
                 f"hosts must register identical tenant sets, got "
                 f"{ {n: sorted(s) for n, s in tenant_sets.items()} }")
         self._ring = self._build_ring()
+        self._set_hosts_gauge()
         if spawn_agents:
             for h in self._hosts.values():
                 self._spawn_agent(h)
@@ -224,9 +250,29 @@ class FrontDoor:
         return [n for n, h in self._hosts.items() if h.alive]
 
     def hosts_by_state(self) -> Dict[str, int]:
-        """Hosts alive and down (the reference's ``mxtpu_fabric_hosts``)."""
+        """Hosts alive and down (``mxtpu_fabric_hosts``)."""
         up = len(self.alive_hosts())
         return {"alive": up, "down": len(self._hosts) - up}
+
+    def _set_hosts_gauge(self):
+        for state, n in self.hosts_by_state().items():
+            _HOSTS_G.labels(state).set(n)
+
+    @property
+    def moves(self) -> int:
+        return int(self._own["moves"])
+
+    @property
+    def resubmits(self) -> int:
+        return int(self._own["resubmits"])
+
+    @property
+    def failovers(self) -> Dict[str, int]:
+        return self._failovers.as_dict()
+
+    @property
+    def requests_by_host(self) -> Dict[str, int]:
+        return self._requests.as_dict()
 
     def tenants(self) -> List[str]:
         h = next(iter(self._hosts.values()))
@@ -264,7 +310,7 @@ class FrontDoor:
                 if self._hosts[name].alive:
                     prev = self._owner.get(tenant)
                     if prev is not None and prev != name:
-                        self.moves += 1
+                        _MOVES_C.inc()
                     self._owner[tenant] = name
                     return name
             raise ServerClosedError("fabric: every host is down")
@@ -305,8 +351,7 @@ class FrontDoor:
                     deadline.check("ingress")
         host = self.route(tenant)
         h = self._hosts[host]
-        with self._lock:
-            self.requests_by_host[host] += 1
+        _REQS_C.labels(host).inc()
         # one routed request = one unit of real work funding the frontdoor
         # tier's retry budget
         _tailguard.retry_deposit("frontdoor")
@@ -319,8 +364,7 @@ class FrontDoor:
             if h.alive or tries <= 1 or not self.alive_hosts() \
                     or not _tailguard.retry_allowed("frontdoor"):
                 raise
-            with self._lock:
-                self.resubmits += 1
+            _RESUBMITS_C.inc()
             return self._submit_once(tenant, inputs, deadline_ms, out,
                                      tries - 1, deadline=deadline)
 
@@ -335,8 +379,7 @@ class FrontDoor:
             if isinstance(exc, ServerClosedError) and not h.alive \
                     and tries > 1 and self.alive_hosts() \
                     and _tailguard.retry_allowed("frontdoor"):
-                with self._lock:
-                    self.resubmits += 1
+                _RESUBMITS_C.inc()
                 try:
                     self._submit_once(tenant, inputs, deadline_ms, out,
                                       tries - 1, deadline=deadline)
@@ -364,6 +407,7 @@ class FrontDoor:
             h.alive = False              # routing excludes it from here on
             self.epoch += 1
             epoch = self.epoch
+        self._set_hosts_gauge()
         if h.agent is not None and h.agent.poll() is None:
             h.agent.send_signal(signal.SIGKILL)
         if h.supervisor is not None:
@@ -377,10 +421,12 @@ class FrontDoor:
             new = self.route(t)
             if before.get(t) == name and new != name:
                 moved += 1
-        with self._lock:
-            self.failovers[name] = self.failovers.get(name, 0) + 1
-        return {"host": name, "reason": reason, "epoch": epoch,
-                "moved": moved, "survivors": self.alive_hosts()}
+        self._failovers.add(name, _FAILOVERS_C.labels(name)).inc()
+        report = {"host": name, "reason": reason, "epoch": epoch,
+                  "moved": moved, "survivors": self.alive_hosts()}
+        _flight.trigger("host_down", **report)
+        _telemetry.event("fabric_host_down", **report)
+        return report
 
     def check_hosts(self) -> List[Dict]:
         """Heartbeat-age failure detector: a host whose agent has exited,

@@ -16,8 +16,8 @@ is therefore process-local — the reference's ``shape``, ``axis_names``,
 of ranks (``parallel.mesh.make_mesh``): nothing of a slice goes through
 ``torch.distributed``.
 
-The reference's ``mxtpu_fabric_slices`` gauge waits for the port's
-telemetry (ROADMAP Q1.12); :func:`plan_slices` returns the plan it counts.
+:func:`plan_slices` publishes its plan in ``mxtpu_fabric_slices`` (slices
+by size).
 """
 from __future__ import annotations
 
@@ -25,10 +25,17 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from ... import telemetry as _telemetry
 from ...base import Context, MXNetError
 from ...parallel import mesh as _mesh
 
 __all__ = ["SliceSpec", "SliceMesh", "plan_slices"]
+
+_SLICES_G = _telemetry.gauge(
+    "mxtpu_fabric_slices",
+    "Gang-scheduled device slices in the last plan, by slice size "
+    "(devices per slice).",
+    labelnames=("size",))
 
 
 class SliceMesh:
@@ -133,5 +140,11 @@ def plan_slices(sizes: Sequence[int], devices=None,
     if devices is None:
         devices = _visible_cards()
     carved = _mesh.carve_slices(sizes, devices=devices)
-    return [SliceSpec(i, devs, axes[i] if axes is not None else None)
-            for i, devs in enumerate(carved)]
+    specs = [SliceSpec(i, devs, axes[i] if axes is not None else None)
+             for i, devs in enumerate(carved)]
+    by_size: Dict[int, int] = {}
+    for sp in specs:
+        by_size[sp.capacity] = by_size.get(sp.capacity, 0) + 1
+    for size, count in by_size.items():
+        _SLICES_G.labels(str(size)).set(count)
+    return specs

@@ -93,8 +93,9 @@ class DecodeEndpoint:
         self._probe()
         block.to(self.device).eval()
         self.stats = DecodeStats(name)
-        self.step_cost = StepCostEWMA()       # per decode batch bucket (us)
-        self.prefill_cost = StepCostEWMA()    # per prefill seq bucket (us)
+        # per decode batch bucket and per prefill seq bucket (us)
+        self.step_cost = StepCostEWMA(name=f"{name}.decode")
+        self.prefill_cost = StepCostEWMA(name=f"{name}.prefill")
         self._warm_prefill = set()
         self._warm_decode = set()
         self.pool = self._make_pool(name, int(block.num_layers),
@@ -249,7 +250,7 @@ class DecodeEndpoint:
         out = self._decode(host, B)
         dt = _now_us() - t0
         self.step_cost.observe(B, dt)
-        self.stats.record_step(dt)
+        self.stats.record_step(dt, n, B)
         return tuple(int(x) for x in out[:n])
 
     def snapshot(self) -> Dict:

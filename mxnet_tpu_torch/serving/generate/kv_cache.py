@@ -18,7 +18,9 @@ a model's K/V), so a zero weight times a stale value stays zero.
 
 :func:`write_prefill`, :func:`write_step` and :func:`gather_ctx` are
 functions on tensors that the decode engine runs; :class:`PagedKVPool` holds
-the pools and the host-side allocator.
+the pools and the host-side allocator, which reports into the reference's
+``mxtpu_kv_*`` families (by pool) and registers the pools as a memstats
+holder.
 """
 from __future__ import annotations
 
@@ -30,12 +32,44 @@ import numpy as np
 import torch
 
 from ... import config as _config
+from ... import telemetry as _telemetry
 from ...base import Context, DTypes, MXNetError, current_context
 from ...resilience import faults as _faults
+from ...telemetry import memstats as _memstats
 from ..errors import KVPoolExhausted
 
 __all__ = ["PagedKVPool", "KVPoolExhausted", "write_prefill", "write_step",
            "gather_ctx"]
+
+_POOL_PAGES = _telemetry.gauge(
+    "mxtpu_kv_pool_pages",
+    "Usable pages preallocated in one paged KV pool (page 0, the scratch "
+    "page for masked writes, is excluded).",
+    labelnames=("pool",))
+_IN_USE = _telemetry.gauge(
+    "mxtpu_kv_pages_in_use",
+    "Pages currently owned by live sequence page tables.",
+    labelnames=("pool",))
+_ALLOCATED = _telemetry.counter(
+    "mxtpu_kv_pages_allocated_total",
+    "Pages handed out by reserve() over the pool's lifetime.",
+    labelnames=("pool",))
+_FREED = _telemetry.counter(
+    "mxtpu_kv_pages_freed_total",
+    "Pages returned by free() (sequence finished/cancelled/failed).",
+    labelnames=("pool",))
+_EXHAUSTED = _telemetry.counter(
+    "mxtpu_kv_pool_exhausted_total",
+    "reserve() calls refused for lack of free pages; the scheduler keeps "
+    "the sequence queued, so a climbing rate means the pool is sized below "
+    "the offered concurrency * sequence length.",
+    labelnames=("pool",))
+_DEFRAGS = _telemetry.counter(
+    "mxtpu_kv_defrags_total",
+    "Compaction passes run on the pool.", labelnames=("pool",))
+_DEFRAG_MOVED = _telemetry.counter(
+    "mxtpu_kv_defrag_pages_moved_total",
+    "Physical pages relocated by compaction passes.", labelnames=("pool",))
 
 
 def write_prefill(pool, vals, table_row, length, page_size: int):
@@ -124,6 +158,19 @@ class PagedKVPool:
         # LIFO free list, page 0 (scratch) excluded for the pool's lifetime
         self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
         self._tables: Dict[int, List[int]] = {}
+        self._m_pages = _POOL_PAGES.labels(name)
+        self._m_in_use = _IN_USE.labels(name)
+        self._m_alloc = _ALLOCATED.labels(name)
+        self._m_freed = _FREED.labels(name)
+        self._m_exhausted = _EXHAUSTED.labels(name)
+        self._m_defrags = _DEFRAGS.labels(name)
+        self._m_moved = _DEFRAG_MOVED.labels(name)
+        self._m_pages.set(self.num_pages - 1)
+        self._m_in_use.set(0)
+        _memstats.register(
+            "serving", f"{name}.kv_pool", owner=self,
+            device=_memstats.device_label(device),
+            sizer=lambda p: int(p.k_pool.nbytes) + int(p.v_pool.nbytes))
 
     # -- allocation ---------------------------------------------------------
     def reserve(self, sid: int, total_tokens: int):
@@ -145,6 +192,7 @@ class PagedKVPool:
             _faults.check("decode")
         except _faults.FaultInjected as e:
             if e.kind == "kv_exhausted":
+                self._m_exhausted.inc()
                 raise KVPoolExhausted(str(e)) from e
             raise
         with self._lock:
@@ -153,12 +201,16 @@ class PagedKVPool:
             if delta <= 0:
                 return
             if delta > len(self._free):
+                self._m_exhausted.inc()
                 raise KVPoolExhausted(
                     f"RESOURCE_EXHAUSTED: KV pool {self.name!r} has "
                     f"{len(self._free)} free pages, sequence {sid} needs "
                     f"{delta} more (of {need} for {total_tokens} tokens)")
             for _ in range(delta):
                 table.append(self._free.pop())
+            in_use = (self.num_pages - 1) - len(self._free)
+        self._m_alloc.inc(delta)
+        self._m_in_use.set(in_use)
 
     def free(self, sid: int) -> int:
         """Return ``sid``'s pages to the free list, where later reservations
@@ -169,6 +221,9 @@ class PagedKVPool:
             if not table:
                 return 0
             self._free.extend(reversed(table))
+            in_use = (self.num_pages - 1) - len(self._free)
+        self._m_freed.inc(len(table))
+        self._m_in_use.set(in_use)
         ratio = float(_config.get("MXNET_KV_DEFRAG_RATIO"))
         if ratio > 0 and self.spread() > ratio:
             self.defrag()
@@ -237,4 +292,6 @@ class PagedKVPool:
                 for old, new, sid, i in moves:
                     self._tables[sid][i] = new
             self._free = list(range(self.num_pages - 1, len(order), -1))
+        self._m_defrags.inc()
+        self._m_moved.inc(len(moves))
         return len(moves)

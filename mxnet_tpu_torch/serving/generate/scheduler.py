@@ -40,7 +40,11 @@ into the ``decode`` retry budget and every failover requeue spends a token
 from it, so a worker that dies on every step ends in bounded shed (its
 sequences fail with ServerClosedError) instead of requeueing forever.
 
-Not ported: the telemetry and flight recorder (ROADMAP Q1.12).
+Telemetry: the endpoint's ``DecodeStats`` feed the ``mxtpu_decode_*``
+families (sequence events, tokens, inter-token gaps by tenant, the waiting
+queue's depth, stream backpressure, failovers by reason); an injected
+decode fault that the loop absorbs records a ``decode_fault_absorbed``
+event, and a failover a ``decode_failover`` event and flight trigger.
 """
 from __future__ import annotations
 
@@ -51,8 +55,10 @@ from collections import deque
 from typing import Dict, List, Optional, Sequence
 
 from ... import config as _config
+from ... import telemetry as _telemetry
 from ...base import MXNetError
 from ...resilience import faults as _faults
+from ...telemetry import flight as _flight
 from .. import tailguard as _tailguard
 from ..errors import DeadlineExceeded, KVPoolExhausted, ServerClosedError
 from .streams import TokenStream
@@ -262,6 +268,7 @@ class DecodeScheduler:
             self._waiting.append(seq)
             self._by_sid[sid] = seq
             self._stats.seq_event("submitted")
+            self._stats.set_queue_depth(len(self._waiting))
             self._cond.notify_all()
         return stream
 
@@ -332,7 +339,9 @@ class DecodeScheduler:
                 _faults.check("decode")
                 toks = self.engine.decode_step(
                     [(tok, pos, table) for _, tok, pos, table in batch])
-            except _faults.FaultInjected:
+            except _faults.FaultInjected as e:
+                _telemetry.event("decode_fault_absorbed", kind=e.kind,
+                                 endpoint=self.engine.name)
                 continue                # transient: re-form and retry
             except Exception as e:
                 with self._cond:
@@ -385,6 +394,7 @@ class DecodeScheduler:
             self._active.append(seq)
             self._stats.seq_event("admitted")
             admits.append(seq)
+        self._stats.set_queue_depth(len(self._waiting))
         return admits
 
     @staticmethod
@@ -405,7 +415,8 @@ class DecodeScheduler:
         seq.emitted.append(tok)
         self._stats.tokens(1)
         if seq.last_token_us:
-            self._stats.record_intertoken(now - seq.last_token_us)
+            self._stats.record_intertoken(seq.tenant.name,
+                                          now - seq.last_token_us)
         seq.last_token_us = now
         delivered = seq.stream.put(tok)
         if seq.stream.cancelled:
@@ -418,6 +429,7 @@ class DecodeScheduler:
         if not delivered and seq.state == _S_RUNNING:
             seq.state = _S_PAUSED
             self._stats.seq_event("paused")
+            self._stats.backpressure()
 
     def _retire_locked(self, seq: _Seq, state: str, event: str,
                        error: Optional[BaseException] = None):
@@ -469,15 +481,19 @@ class DecodeScheduler:
                 self._waiting.appendleft(seq)
                 self._stats.seq_event("requeued")
                 requeued.append(seq)
-            self.reports.append({
+            report = {
                 "endpoint": self.engine.name,
                 "reason": "worker_dead",
                 "requeued": len(requeued),
                 "shed": shed,
                 "paused_kept": len(self._active),
                 "epoch": self._epoch,
-            })
+            }
+            self.reports.append(report)
+            self._stats.failover("worker_dead")
             self._spawn_worker_locked()
+        _telemetry.event("decode_failover", **report)
+        _flight.trigger("decode_failover", **report)
 
     @property
     def failovers(self) -> int:

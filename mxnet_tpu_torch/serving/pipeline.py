@@ -37,9 +37,11 @@ from __future__ import annotations
 import threading
 from typing import List, Optional, Sequence
 
+from .. import telemetry as _telemetry
 from ..resilience import faults as _faults
 from . import bucketing
 from .batcher import Request, now_us
+from .stats import set_prep_overlap_ratio
 
 __all__ = ["PreparedBatch", "OverlapTracker", "prepare_batch"]
 
@@ -134,11 +136,16 @@ def prepare_batch(tenant, requests: List[Request], parity: int,
         return ep.prepare(bufs, rows, parity=parity)
 
     t0 = now_us()
-    staged = retry.run(run_prep, site="serving_prep", deadline_us=deadline_us)
+    # adopt the oldest request's trace id: the prep span joins the trace
+    # the batch and device_step spans continue on the worker
+    with _telemetry.span("serving.prep", trace_id=requests[0].trace_id,
+                         endpoint=ep.name, rows=rows, parity=parity):
+        staged = retry.run(run_prep, site="serving_prep",
+                           deadline_us=deadline_us)
     t1 = now_us()
     tracker.prep_window(t0, t1)
     ep.prep_cost.observe(staged.bucket, t1 - t0)
     ep.stats.record_prep(t1 - t0)
-    ep.stats.set_overlap_ratio(tracker.ratio())
+    set_prep_overlap_ratio(tracker.ratio())
     return PreparedBatch(tenant, requests, rows, staged, parity, deadline_us,
                          t1 - t0)

@@ -27,17 +27,25 @@ fed from the worker outside the server lock.
 
 The reference's learned cost-model prior for cold buckets (its
 ``costmodel`` reads StableHLO) is not ported: a bucket never observed is
-priced by the nearest observed one, scaled by the row ratio.
+priced by the nearest observed one, scaled by the row ratio. A named
+estimator exports each bucket's estimate as ``mxtpu_step_cost_est_us``.
 """
 from __future__ import annotations
 
 import threading
 from typing import Dict, List, Optional, Tuple
 
+from .. import telemetry as _telemetry
 from . import bucketing, tailguard as _tailguard
 from .batcher import EndpointQueue
 
 __all__ = ["StepCostEWMA", "Tenant", "Router"]
+
+_EST_G = _telemetry.gauge(
+    "mxtpu_step_cost_est_us",
+    "Live per-(endpoint, bucket) step-cost estimate: the cost-model prior "
+    "while a bucket is cold, the measured EWMA once observed.",
+    labelnames=("endpoint", "bucket"))
 
 
 class StepCostEWMA:
@@ -47,18 +55,22 @@ class StepCostEWMA:
     one run per bucket, so estimates exist before the first request).
     ``estimate(bucket)`` falls back to the nearest observed bucket scaled by
     the row ratio (0.0 on an empty table) until the bucket itself has been
-    observed once."""
+    observed once. ``name`` labels the ``mxtpu_step_cost_est_us`` gauge;
+    anonymous instances export nothing."""
 
-    def __init__(self, alpha: float = 0.25):
+    def __init__(self, alpha: float = 0.25, name: Optional[str] = None):
         self.alpha = float(alpha)
+        self.name = name
         self._lock = threading.Lock()
         self._est: Dict[int, float] = {}
 
     def observe(self, bucket: int, step_us: float):
         with self._lock:
             prev = self._est.get(bucket)
-            self._est[bucket] = step_us if prev is None else \
+            est = self._est[bucket] = step_us if prev is None else \
                 prev + self.alpha * (step_us - prev)
+        if self.name is not None:
+            _EST_G.labels(self.name, str(bucket)).set(est)
 
     def estimate(self, bucket: int) -> float:
         with self._lock:

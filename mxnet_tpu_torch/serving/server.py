@@ -49,11 +49,18 @@ Generative models ride beside it: ``register_generator`` puts a
 ``generate.DecodeEndpoint`` behind its own ``DecodeScheduler``, which
 starts and stops with the server, and ``generate`` streams tokens from it.
 
-The reference's telemetry (spans, flight events, the debug server, the
-``mxtpu_serving_failovers_total``/``_failover_requeued_total``/
-``mxtpu_drain_abandoned_total`` families) waits for ROADMAP Q1.12; the
-counts are the plain attributes ``failovers``, ``failover_reasons``,
-``failover_requeued`` and ``drain_abandoned`` here.
+Telemetry: each batch runs inside a ``serving.batch`` span that adopts
+its oldest request's trace id (stamped at submit, so the id crosses the
+queue hop), with the endpoint's ``serving.device_step`` and the prep's
+``serving.prep`` under the same trace; a draining stop runs inside
+``serving.drain``. Every completed or failed request lands in the flight
+recorder's request ring, a failover fires the ``failover`` trigger and a
+routed hot swap records a ``hot_swap`` event. ``failovers``,
+``failover_reasons``, ``failover_requeued`` and ``drain_abandoned`` read
+this server's share of ``mxtpu_serving_failovers_total``,
+``mxtpu_serving_failover_requeued_total`` and
+``mxtpu_drain_abandoned_total``. While a profiler session runs, each batch
+step is also one profiler event and each request one duration.
 """
 from __future__ import annotations
 
@@ -68,10 +75,14 @@ import torch
 
 from ..base import MXNetError
 from .. import config as _config
+from .. import telemetry as _telemetry
+from ..ops.registry import _profiler_running
 from ..resilience import faults as _faults
 from ..resilience.retry import RetryPolicy
 from ..resilience.watchdog import (CircuitBreaker, Watchdog, DEGRADED,
                                    HALF_OPEN, HEALTHY, OPEN)
+from ..telemetry import flight as _flight
+from ..telemetry.metrics import Baseline
 from ..telemetry.slo import MONITOR as _SLO
 from . import bucketing, tailguard as _tailguard
 from .batcher import EndpointQueue, Request, fail, now_us, resolve
@@ -92,6 +103,24 @@ _SUPERSEDED = object()
 
 #: how bad a circuit state is, for the worst-of health aggregation
 _CIRCUIT_SEVERITY = {HEALTHY: 0, DEGRADED: 1, HALF_OPEN: 2, OPEN: 3}
+
+_DRAIN_ABANDONED = _telemetry.counter(
+    "mxtpu_drain_abandoned_total",
+    "Requests abandoned because stop(drain=True) hit its timeout with the "
+    "worker wedged: queued-never-batched ones failed with ServerClosedError, "
+    "ones already inside a prepared/in-flight batch with "
+    "RequestTimeoutError — never left to hang a waiting client.")
+
+_FAILOVERS = _telemetry.counter(
+    "mxtpu_serving_failovers_total",
+    "Worker failovers performed, by reason: worker_dead (thread crashed) / "
+    "worker_wedged (in-flight batch outlived the watchdog stall threshold) "
+    "/ prep_dead (prep thread crashed).", labelnames=("reason",))
+_FAILOVER_REQUEUED = _telemetry.counter(
+    "mxtpu_serving_failover_requeued_total",
+    "Requests returned to the front of their tenant queues by a failover "
+    "(from prepared / in-flight batches of the dead worker); deadlines are "
+    "re-checked at re-assembly.")
 
 
 class _SwapRequest:
@@ -172,10 +201,10 @@ class InferenceServer:
         self._preparing = None          # (tenant, [requests]) during prep
         self._swaps: "list[_SwapRequest]" = []
         self._stall_listeners: list = []
-        self.failovers = 0
-        self.failover_reasons: Dict[str, int] = {}
-        self.failover_requeued = 0
-        self.drain_abandoned = 0
+        # this server's share of the failover and drain families
+        self._own = Baseline({"requeued": _FAILOVER_REQUEUED,
+                              "abandoned": _DRAIN_ABANDONED})
+        self._failover_reasons = Baseline()
         self._overlap = OverlapTracker()
         self._retry = retry_policy if retry_policy is not None \
             else RetryPolicy.from_config()
@@ -341,8 +370,13 @@ class InferenceServer:
                 staged = ep.stage_weights(req.host_params)
                 report = ep.validate_and_commit(staged, req.probe)
             report["source"] = req.label
+            _telemetry.event("hot_swap", endpoint=ep.name, ok=True,
+                             source=str(req.label),
+                             weights_epoch=ep.weights_epoch)
             resolve(req.future, report)
         except Exception as e:      # the caller's future carries it
+            _telemetry.event("hot_swap", endpoint=ep.name, ok=False,
+                             source=str(req.label), error=str(e)[:200])
             fail(req.future, e if isinstance(e, HotSwapError) else
                  HotSwapError(f"hot swap of {ep.name!r} failed: {e}"))
 
@@ -415,9 +449,14 @@ class InferenceServer:
                 self._fail_swaps(exc)
             self._cond.notify_all()
         deadline = time.monotonic() + timeout
-        for t in (prep, worker):
-            if t is not None:
-                t.join(max(deadline - time.monotonic(), 0.0))
+        # a draining stop is one span: the wall time spent flushing
+        # admitted work
+        with (_telemetry.span("serving.drain", timeout_s=round(timeout, 3))
+              if drain and (prep is not None or worker is not None)
+              else contextlib.nullcontext()):
+            for t in (prep, worker):
+                if t is not None:
+                    t.join(max(deadline - time.monotonic(), 0.0))
         if any(t is not None and t.is_alive() for t in (prep, worker)):
             # the drain is wedged (a hung device step): abandon it. The
             # daemon threads find the state stopped when they return, and
@@ -433,7 +472,7 @@ class InferenceServer:
                 abandoned += self._fail_in_stage(timed_out)
                 self._fail_swaps(ServerClosedError(
                     "drain abandoned (worker wedged)"))
-                self.drain_abandoned += abandoned
+                _DRAIN_ABANDONED.inc(abandoned)
                 self._cond.notify_all()
             for t in (prep, worker):
                 if t is not None:
@@ -453,6 +492,22 @@ class InferenceServer:
     @property
     def state(self) -> str:
         return self._state
+
+    @property
+    def failovers(self) -> int:
+        return sum(self._failover_reasons.as_dict().values())
+
+    @property
+    def failover_reasons(self) -> Dict[str, int]:
+        return self._failover_reasons.as_dict()
+
+    @property
+    def failover_requeued(self) -> int:
+        return int(self._own["requeued"])
+
+    @property
+    def drain_abandoned(self) -> int:
+        return int(self._own["abandoned"])
 
     def health(self) -> dict:
         """Lifecycle state, the worst circuit across tenants (and each
@@ -767,15 +822,17 @@ class InferenceServer:
                 if tenant_name is not None else None
             if affected is not None:
                 affected.breaker.record_failure()
-            self.failovers += 1
-            self.failover_reasons[reason] = \
-                self.failover_reasons.get(reason, 0) + 1
-            self.failover_requeued += requeued
+            self._failover_reasons.add(
+                reason, _FAILOVERS.labels(reason)).inc()
+            if requeued:
+                _FAILOVER_REQUEUED.inc(requeued)
             epoch = self._epoch
             self._spawn_threads()
             self._cond.notify_all()
-        return {"reason": reason, "epoch": epoch, "requeued": requeued,
-                "tenant": tenant_name}
+        report = {"reason": reason, "epoch": epoch, "requeued": requeued,
+                  "tenant": tenant_name}
+        _flight.trigger("failover", **report)
+        return report
 
     def _parity_base(self, epoch: int) -> int:
         """First slot parity of a generation: a new generation never writes
@@ -931,9 +988,15 @@ class InferenceServer:
 
     def _execute(self, pb: PreparedBatch):
         ep = pb.tenant.endpoint
+        profiling = _profiler_running()
 
         def run_step():
             _faults.check("serving_dispatch")
+            if profiling:
+                from .. import profiler
+                return profiler._dispatch_profiled(
+                    f"serving[{ep.name}]b{pb.rows}",
+                    lambda: ep.execute(pb.staged, pb.rows), cat="serving")
             return ep.execute(pb.staged, pb.rows)
 
         # `killed` guards the in-flight record: a thread-killing
@@ -941,7 +1004,14 @@ class InferenceServer:
         killed = True
         self._overlap.step_begin()
         try:
-            with self._on_stream(ep, "worker"), \
+            # adopt the oldest request's trace id for the whole batch step:
+            # its trace (submit -> batch -> device) is the one closest to
+            # the latency budget
+            with _telemetry.span("serving.batch",
+                                 trace_id=pb.requests[0].trace_id,
+                                 endpoint=ep.name, rows=pb.rows,
+                                 requests=len(pb.requests)), \
+                    self._on_stream(ep, "worker"), \
                     self._watchdog.watch(f"serving[{ep.name}]"):
                 # retries never back off past the batch's earliest deadline
                 outs = self._retry.run(run_step, site="serving_dispatch",
@@ -954,6 +1024,10 @@ class InferenceServer:
             failed_at = now_us()
             for r in pb.requests:
                 fail(r.future, e)
+                _flight.record_request(r.trace_id, ep.name,
+                                       failed_at - r.enqueue_us,
+                                       rows=r.rows, ok=False,
+                                       error=type(e).__name__)
                 _SLO.record(ep.name, failed_at - r.enqueue_us, ok=False)
             return
         finally:
@@ -985,4 +1059,11 @@ class InferenceServer:
                        sliced[0] if ep.num_outputs == 1 else sliced):
                 ep.stats.record_latency(done - r.enqueue_us)
                 ep.stats.bump("completed")
+                _flight.record_request(r.trace_id, ep.name,
+                                       done - r.enqueue_us, rows=r.rows)
                 _SLO.record(ep.name, done - r.enqueue_us)
+                if profiling:
+                    from .. import profiler
+                    profiler.record_duration(
+                        f"serving[{ep.name}].request", r.enqueue_us,
+                        done - r.enqueue_us, cat="serving")

@@ -15,7 +15,9 @@ that ran long but finished is never failed over); on either verdict it
 calls ``InferenceServer.failover()``, which requeues the dead generation's
 batches at the front of their queues, trips only the affected tenant's
 breaker and starts a new generation. ``reports`` keeps each failover's
-report (the reference's ``supervisor_failover`` event).
+report, and each is also recorded as a ``supervisor_failover`` flight
+event (the server's failover counts it in
+``mxtpu_serving_failovers_total``).
 
 Drill: the ``worker_kill`` fault raises a BaseException that passes the
 retry and batch-failure handling and kills the thread::
@@ -32,6 +34,7 @@ from typing import Optional
 
 from ..base import MXNetError
 from .. import config as _config
+from .. import telemetry as _telemetry
 from .server import InferenceServer, _RUNNING
 
 __all__ = ["PoolSupervisor"]
@@ -141,6 +144,7 @@ class PoolSupervisor:
             with self._lock:
                 self._stalled = None
                 self.reports.append(report)
+            _telemetry.event("supervisor_failover", **report)
 
     @property
     def failovers(self) -> int:

@@ -30,16 +30,19 @@ calm ticks back up): level 1 widens batch timeouts by
 ``MXNET_BROWNOUT_MAX_NEW_TOKENS``; level 2 refuses ``tier="bulk"`` tenants
 at admission; level 3 refuses silver too. Gold is never refused.
 
-The knobs are registered in the port's ``config.py``. The reference's
-telemetry families are the plain dicts of this module until the port's
-telemetry (ROADMAP Q1.12): :data:`deadline_exceeded_total` (by site),
-:data:`hedge_counts` (requests, wins, cancelled, wasted,
-budget_exhausted), :data:`retry_budget_exhausted_total` (by tier),
+The knobs are registered in the port's ``config.py``. Every count is a
+reference family (``mxtpu_deadline_exceeded_total``, ``mxtpu_hedge_*``,
+``mxtpu_retry_budget_*``, ``mxtpu_brownout_*``); the module's tables read
+them: :data:`deadline_exceeded_total` (by site), :data:`hedge_counts`
+(requests, wins, cancelled, wasted, budget_exhausted),
+:data:`retry_budget_exhausted_total` (by tier),
 :data:`brownout_transitions_total` (by direction) and
-:data:`brownout_shed_total` (by tier); the live gauges are
-``RetryBudgets.balance`` and ``BrownoutController.level``. Its flight
-triggers (``retry_budget_exhausted``, ``hedge_budget_exhausted``,
-``brownout_shift``) wait for the flight recorder there too.
+:data:`brownout_shed_total` (by tier). The gauges are each tier's
+``mxtpu_retry_budget_tokens`` and ``mxtpu_brownout_level``. The first
+refusal of a dry retry budget or hedge bucket fires its flight trigger
+(``retry_budget_exhausted``, ``hedge_budget_exhausted``: one a dry
+episode), and every brownout level change the ``brownout_shift`` trigger
+and event.
 """
 from __future__ import annotations
 
@@ -48,6 +51,9 @@ import time
 from typing import Dict, Optional
 
 from .. import config as _config
+from .. import telemetry as _telemetry
+from ..telemetry import flight as _flight
+from ..telemetry.metrics import CountView
 from .errors import DeadlineExceeded
 
 __all__ = ["Deadline", "DeadlineExceeded", "TokenBucket", "RetryBudgets",
@@ -60,25 +66,73 @@ def _now_us() -> int:
     return time.perf_counter_ns() // 1000
 
 
-_COUNT_LOCK = threading.Lock()
+_DEADLINE_C = _telemetry.counter(
+    "mxtpu_deadline_exceeded_total",
+    "Requests failed fast because their propagated Deadline budget ran out, "
+    "by the site that detected it (ingress/pool_submit/queue/assembly/"
+    "retry_backoff/decode_token) — the earliest tier that could know, so "
+    "expired work stops consuming capacity immediately.",
+    labelnames=("site",))
+_HEDGES_C = _telemetry.counter(
+    "mxtpu_hedge_requests_total",
+    "Hedge duplicates launched onto a second replica after the adaptive "
+    "delay (the speculation volume; bounded by the hedge token bucket).")
+_HEDGE_WINS_C = _telemetry.counter(
+    "mxtpu_hedge_wins_total",
+    "Hedged requests where the duplicate finished first — tail latency the "
+    "hedge actually saved.")
+_HEDGE_CANCELLED_C = _telemetry.counter(
+    "mxtpu_hedge_cancelled_total",
+    "Hedge losers cancelled before occupying device rows (dropped at batch "
+    "assembly) — speculation that cost zero device work.")
+_HEDGE_WASTED_C = _telemetry.counter(
+    "mxtpu_hedge_wasted_total",
+    "Hedge losers that had already entered a device batch when the winner "
+    "resolved — the duplicate work hedging truly wasted.")
+_HEDGE_EXHAUSTED_C = _telemetry.counter(
+    "mxtpu_hedge_budget_exhausted_total",
+    "Hedges skipped because the hedge token bucket was dry — speculation "
+    "refusing to amplify an overload.")
+_RETRY_TOKENS_G = _telemetry.gauge(
+    "mxtpu_retry_budget_tokens",
+    "Live token balance of each tier's retry budget bucket (frontdoor / "
+    "execute / decode); zero means further retries are refused until real "
+    "work deposits more.",
+    labelnames=("tier",))
+_RETRY_EXHAUSTED_C = _telemetry.counter(
+    "mxtpu_retry_budget_exhausted_total",
+    "Retries refused because the tier's budget bucket was dry — a retry "
+    "storm converting into bounded shed instead of amplification.",
+    labelnames=("tier",))
+_BROWNOUT_LEVEL_G = _telemetry.gauge(
+    "mxtpu_brownout_level",
+    "Current brownout ladder level: 0 normal, 1 soften (timeout boost + "
+    "decode clamp), 2 shed bulk, 3 shed bulk+silver (gold always serves).")
+_BROWNOUT_TRANSITIONS_C = _telemetry.counter(
+    "mxtpu_brownout_transitions_total",
+    "Brownout ladder level changes, by direction (degrade / recover); one "
+    "brownout_shift flight event accompanies each.",
+    labelnames=("direction",))
+_BROWNOUT_SHED_C = _telemetry.counter(
+    "mxtpu_brownout_shed_total",
+    "Requests refused at admission by the brownout ladder, by tenant tier "
+    "(gold is never in this count by construction).",
+    labelnames=("tier",))
 
 #: requests failed fast because their Deadline ran out, by detecting site
-deadline_exceeded_total: Dict[str, int] = {}
+deadline_exceeded_total = CountView(_DEADLINE_C)
 #: hedge duplicates launched / won / cancelled before a batch / wasted
 #: inside one / skipped for a dry budget
-hedge_counts: Dict[str, int] = {"requests": 0, "wins": 0, "cancelled": 0,
-                                "wasted": 0, "budget_exhausted": 0}
+hedge_counts = CountView({"requests": _HEDGES_C, "wins": _HEDGE_WINS_C,
+                          "cancelled": _HEDGE_CANCELLED_C,
+                          "wasted": _HEDGE_WASTED_C,
+                          "budget_exhausted": _HEDGE_EXHAUSTED_C})
 #: retries refused because the tier's bucket was dry, by tier
-retry_budget_exhausted_total: Dict[str, int] = {}
+retry_budget_exhausted_total = CountView(_RETRY_EXHAUSTED_C)
 #: brownout level changes, by direction (degrade / recover)
-brownout_transitions_total: Dict[str, int] = {}
+brownout_transitions_total = CountView(_BROWNOUT_TRANSITIONS_C)
 #: requests refused at admission by the brownout ladder, by tenant tier
-brownout_shed_total: Dict[str, int] = {}
-
-
-def _bump(table: Dict[str, int], key: str, n: int = 1):
-    with _COUNT_LOCK:
-        table[key] = table.get(key, 0) + n
+brownout_shed_total = CountView(_BROWNOUT_SHED_C)
 
 
 # ---------------------------------------------------------------------------
@@ -119,7 +173,7 @@ class Deadline:
         """Fail fast: raise DeadlineExceeded when the budget is gone."""
         rem = self.remaining_us()
         if rem <= 0:
-            _bump(deadline_exceeded_total, site)
+            _DEADLINE_C.labels(site).inc()
             raise DeadlineExceeded(
                 f"deadline exceeded at {site}: budget of "
                 f"{(self.deadline_us - self.born_us) / 1e3:.1f} ms overran "
@@ -133,7 +187,7 @@ class Deadline:
 def deadline_expired(site: str, n: int = 1):
     """Count expiries found without a Deadline in hand (the batcher
     dropping expired heads at assembly)."""
-    _bump(deadline_exceeded_total, site, n)
+    _DEADLINE_C.labels(site).inc(n)
 
 
 # ---------------------------------------------------------------------------
@@ -199,18 +253,26 @@ class RetryBudgets:
         """Deposit for real work done at ``tier``."""
         if self._ratio() <= 0:
             return
-        self._bucket(tier).deposit(self._ratio() * units)
+        b = self._bucket(tier)
+        b.deposit(self._ratio() * units)
+        _RETRY_TOKENS_G.labels(tier).set(b.balance())
 
     def allow(self, tier: str) -> bool:
         """Spend one token for a retry at ``tier``. False: the budget is
         spent and the caller must not retry (it propagates its error)."""
         if self._ratio() <= 0:
             return True
-        ok = self._bucket(tier).take(1.0)
+        b = self._bucket(tier)
+        ok = b.take(1.0)
+        _RETRY_TOKENS_G.labels(tier).set(b.balance())
         with self._lock:
+            first = not ok and not self._latched[tier]
             self._latched[tier] = not ok
         if not ok:
-            _bump(retry_budget_exhausted_total, tier)
+            _RETRY_EXHAUSTED_C.labels(tier).inc()
+        if first:
+            _flight.trigger("retry_budget_exhausted", tier=tier,
+                            tokens=round(b.balance(), 3), cap=b.cap)
         return ok
 
     def exhausted(self, tier: str) -> bool:
@@ -293,6 +355,7 @@ class HedgePolicy:
 #: the process-wide hedging policy and its budget bucket
 HEDGER = HedgePolicy()
 _HEDGE_BUCKET = TokenBucket(1.0, 64.0)
+_HEDGE_LATCH = threading.Event()
 
 
 def hedge_deposit():
@@ -303,25 +366,30 @@ def hedge_deposit():
 def hedge_allowed() -> bool:
     """Spend one hedge token; False refuses the hedge (the budget is dry)."""
     if _HEDGE_BUCKET.take(1.0):
+        _HEDGE_LATCH.clear()
         return True
-    _bump(hedge_counts, "budget_exhausted")
+    _HEDGE_EXHAUSTED_C.inc()
+    if not _HEDGE_LATCH.is_set():
+        _HEDGE_LATCH.set()
+        _flight.trigger("hedge_budget_exhausted",
+                        tokens=round(_HEDGE_BUCKET.balance(), 3))
     return False
 
 
 def hedge_launched():
-    _bump(hedge_counts, "requests")
+    _HEDGES_C.inc()
 
 
 def hedge_won():
-    _bump(hedge_counts, "wins")
+    _HEDGE_WINS_C.inc()
 
 
 def hedge_cancelled():
-    _bump(hedge_counts, "cancelled")
+    _HEDGE_CANCELLED_C.inc()
 
 
 def hedge_wasted():
-    _bump(hedge_counts, "wasted")
+    _HEDGE_WASTED_C.inc()
 
 
 def hedge_reset():
@@ -329,6 +397,7 @@ def hedge_reset():
     drills)."""
     global _HEDGE_BUCKET
     _HEDGE_BUCKET = TokenBucket(1.0, 64.0)
+    _HEDGE_LATCH.clear()
     HEDGER.reset()
 
 
@@ -415,13 +484,16 @@ class BrownoutController:
     def _shift_locked(self, direction: int, reason: str) -> dict:
         old = self.level
         self.level = min(max(self.level + direction, 0), _MAX_LEVEL)
+        _BROWNOUT_LEVEL_G.set(self.level)
         word = "degrade" if direction > 0 else "recover"
-        _bump(brownout_transitions_total, word)
+        _BROWNOUT_TRANSITIONS_C.labels(word).inc()
         report = {"from_level": old, "to_level": self.level,
                   "direction": word, "reason": reason,
                   "shedding": self.shedding_tiers()}
         self.transitions.append(report)
         del self.transitions[:-64]
+        _flight.trigger("brownout_shift", **report)
+        _telemetry.event("brownout_shift", **report)
         return report
 
     def shed_tier(self, tier: str) -> bool:
@@ -431,7 +503,7 @@ class BrownoutController:
         if shed_from is None or rank == 0:
             return False
         if rank >= shed_from:
-            _bump(brownout_shed_total, tier)
+            _BROWNOUT_SHED_C.labels(tier).inc()
             return True
         return False
 
@@ -469,6 +541,7 @@ class BrownoutController:
             self.level = 0
             self._hot = 0
             self._calm = 0
+            _BROWNOUT_LEVEL_G.set(0)
 
 
 #: the process-wide ladder: Autoscaler.tick drives it, servers consult it

@@ -11,13 +11,12 @@ fast window, and latches until the fast window drops under the threshold.
 With ``MXNET_SLO_ESCALATE`` a firing alert forces the tenant's circuit
 breaker to DEGRADED.
 
-The reference's families (``mxtpu_slo_good_total``, ``_bad_total``,
-``_burn_rate``, ``_alert_active``, ``_alerts_total``,
-``_escalations_total``) are the plain attributes ``good``, ``bad``,
-``fast_burn``, ``slow_burn``, ``alert_active``, ``alerts`` and
-``escalations`` of each :class:`Objective` until the port's telemetry
-(ROADMAP Q1.12); its ``slo_burn_alert``/``slo_burn_clear`` flight events
-wait for the flight recorder there too.
+Each :class:`Objective` reports into the reference's families
+(``mxtpu_slo_good_total``, ``_bad_total``, ``_burn_rate`` by window,
+``_alert_active``, ``_alerts_total``, ``_escalations_total``, by endpoint):
+its ``good``, ``bad``, ``alerts`` and ``escalations`` are its share of the
+counters, ``fast_burn``/``slow_burn`` the gauges; an alert records the
+``slo_burn_alert`` flight event and its clearing ``slo_burn_clear``.
 
 Objectives are registered by ``InferenceServer.register(slo_ms=...)``; the
 process-wide monitor is :data:`MONITOR`.
@@ -30,8 +29,39 @@ from collections import deque
 from typing import Dict, List, Optional
 
 from .. import config as _config
+from . import flight as _flight
+from .metrics import REGISTRY, Baseline
 
 __all__ = ["Objective", "SLOMonitor", "MONITOR"]
+
+_GOOD = REGISTRY.counter(
+    "mxtpu_slo_good_total",
+    "Requests that met their endpoint's latency objective.",
+    labelnames=("endpoint",))
+_BAD = REGISTRY.counter(
+    "mxtpu_slo_bad_total",
+    "Requests that missed their endpoint's latency objective (too slow or "
+    "failed).",
+    labelnames=("endpoint",))
+_BURN = REGISTRY.gauge(
+    "mxtpu_slo_burn_rate",
+    "Error-budget burn rate (bad_ratio / (1 - target)) per window: 1.0 = "
+    "budget consumed exactly at the sustainable pace.",
+    labelnames=("endpoint", "window"))
+_ALERT_ACTIVE = REGISTRY.gauge(
+    "mxtpu_slo_alert_active",
+    "1 while an endpoint's multi-window burn alert is latched, else 0.",
+    labelnames=("endpoint",))
+_ALERTS = REGISTRY.counter(
+    "mxtpu_slo_alerts_total",
+    "Burn-rate alert episodes fired (both windows over threshold).",
+    labelnames=("endpoint",))
+_ESCALATIONS = REGISTRY.counter(
+    "mxtpu_slo_escalations_total",
+    "Burn alerts that escalated the offending tenant's breaker to DEGRADED "
+    "(MXNET_SLO_ESCALATE).",
+    labelnames=("endpoint",))
+
 
 
 class Objective:
@@ -39,8 +69,8 @@ class Objective:
     buckets (oldest first) and its counters."""
 
     __slots__ = ("name", "threshold_us", "target", "breaker", "buckets",
-                 "alert_active", "good", "bad", "fast_burn", "slow_burn",
-                 "alerts", "escalations")
+                 "alert_active", "_good", "_bad", "_burn_fast", "_burn_slow",
+                 "_active_g", "_alerts", "_escalations", "_own")
 
     def __init__(self, name: str, threshold_us: float, target: float,
                  breaker=None):
@@ -52,8 +82,24 @@ class Objective:
         self.breaker = breaker
         self.buckets: deque = deque()
         self.alert_active = False
-        self.good = self.bad = self.alerts = self.escalations = 0
-        self.fast_burn = self.slow_burn = 0.0
+        self._good = _GOOD.labels(name)
+        self._bad = _BAD.labels(name)
+        self._burn_fast = _BURN.labels(name, "fast")
+        self._burn_slow = _BURN.labels(name, "slow")
+        self._active_g = _ALERT_ACTIVE.labels(name)
+        self._active_g.set(0)
+        self._alerts = _ALERTS.labels(name)
+        self._escalations = _ESCALATIONS.labels(name)
+        self._own = Baseline({"good": self._good, "bad": self._bad,
+                              "alerts": self._alerts,
+                              "escalations": self._escalations})
+
+    good = property(lambda self: int(self._own["good"]))
+    bad = property(lambda self: int(self._own["bad"]))
+    alerts = property(lambda self: int(self._own["alerts"]))
+    escalations = property(lambda self: int(self._own["escalations"]))
+    fast_burn = property(lambda self: self._burn_fast.value)
+    slow_burn = property(lambda self: self._burn_slow.value)
 
     def window_totals(self, window_s: float, now: float):
         """(good, bad) over the trailing ``window_s`` seconds."""
@@ -158,10 +204,7 @@ class SLOMonitor:
                 lo = now - self.slow_window_s - 1
                 while obj.buckets and obj.buckets[0][0] < lo:
                     obj.buckets.popleft()
-            if good:
-                obj.good += 1
-            else:
-                obj.bad += 1
+        (obj._good if good else obj._bad).inc()
         self.check(obj, now)
 
     # -- burn check / alerting ----------------------------------------------
@@ -182,20 +225,31 @@ class SLOMonitor:
             sg, sb = obj.window_totals(self.slow_window_s, now)
         fast = self._burn(fg, fb, obj.target)
         slow = self._burn(sg, sb, obj.target)
-        obj.fast_burn, obj.slow_burn = fast, slow
+        obj._burn_fast.set(fast)
+        obj._burn_slow.set(slow)
         thr = self.burn_threshold
         breaching = (fg + fb >= self.min_events and fast >= thr
                      and slow >= thr)
         if breaching and not obj.alert_active:
             obj.alert_active = True
-            obj.alerts += 1
+            obj._active_g.set(1)
+            obj._alerts.inc()
+            escalated = False
             if self.escalate and obj.breaker is not None:
                 obj.breaker.force_degraded(
                     f"slo burn {fast:.1f}x fast / {slow:.1f}x slow "
                     f"(threshold {thr:g}x)")
-                obj.escalations += 1
+                escalated = True
+                obj._escalations.inc()
+            _flight.event("slo_burn_alert", endpoint=obj.name,
+                          fast_burn=round(fast, 3), slow_burn=round(slow, 3),
+                          threshold=thr, target=obj.target,
+                          escalated=escalated)
         elif obj.alert_active and fast < thr:
             obj.alert_active = False
+            obj._active_g.set(0)
+            _flight.event("slo_burn_clear", endpoint=obj.name,
+                          fast_burn=round(fast, 3))
         return {"endpoint": obj.name, "fast_burn": fast, "slow_burn": slow,
                 "alert_active": obj.alert_active,
                 "fast_events": fg + fb, "slow_events": sg + sb}

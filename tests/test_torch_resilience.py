@@ -681,7 +681,8 @@ def test_watchdog_fires_on_stall_once():
     finally:
         wd.stop()
     assert fired == ["slow"] and wd.stalls == 1
-    assert res.watchdog.stalls_total.get("slow", 0) >= 1
+    assert mt.telemetry.REGISTRY.get("mxtpu_watchdog_stalls_total").labels(
+        "slow").value >= 1
 
 
 def test_circuit_breaker_walks_the_reference_states():

@@ -1300,3 +1300,55 @@ def test_every_host_agent_has_a_deadline():
             assert any(k.arg == "timeout" for k in node.keywords), \
                 f"frontdoor.py:{node.lineno}: {node.func.attr} without " \
                 "a timeout"
+
+
+# ---------------------------------------------------------------------------
+# the telemetry core and the profiler (S18)
+# ---------------------------------------------------------------------------
+TELEMETRY_MODULES = sorted(
+    str(p.relative_to(PKG)) for p in (PKG / "telemetry").glob("*.py")) + \
+    ["profiler.py"]
+#: modules whose recording runs on the serving and training paths: they
+#: may not wait for the card
+RECORDING_MODULES = ["telemetry/metrics.py", "telemetry/tracing.py",
+                     "telemetry/flight.py", "telemetry/perf_sentinel.py",
+                     "serving/stats.py", "serving/generate/stats.py"]
+
+
+@pytest.mark.parametrize("module", TELEMETRY_MODULES)
+def test_telemetry_modules_are_guarded(module):
+    assert PKG / module in PORT_FILES
+    test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
+
+
+@pytest.mark.parametrize("module", RECORDING_MODULES)
+def test_recording_never_reads_the_device(module):
+    """No ``torch.cuda.synchronize()``, ``.item()``, ``.cpu()`` or
+    ``.tolist()``: a count, a span or an event never waits for the card."""
+    for n in ast.walk(_tree(PKG / module)):
+        if isinstance(n, ast.Attribute):
+            assert n.attr not in ("synchronize", "item", "cpu", "tolist"), \
+                f"{module}:{n.lineno}: .{n.attr}"
+
+
+def test_whole_port_registers_linted_families():
+    """After importing every module of the port, every registered family
+    matches ``METRIC_NAME_RE`` and ``lint_names()`` is empty."""
+    code = ("import pkgutil, importlib\n"
+            "import mxnet_tpu_torch\n"
+            "for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__, "
+            "'mxnet_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "from mxnet_tpu_torch import telemetry\n"
+            "from mxnet_tpu_torch.telemetry.metrics import METRIC_NAME_RE\n"
+            "names = telemetry.REGISTRY.names()\n"
+            "assert telemetry.lint_names() == [], telemetry.lint_names()\n"
+            "bad = [n for n in names if not METRIC_NAME_RE.match(n)]\n"
+            "assert not bad, bad\n"
+            "assert not set(names) & set(telemetry.NOT_REGISTERED)\n"
+            "print(len(names))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 118
