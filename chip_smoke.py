@@ -309,17 +309,17 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
 13. The data path, on ``gpu(0)``: the native library (engine and RecordIO,
    built by g++; the OpenCV pipeline where the host has its headers) must
    have built and loaded and the host engine be a ``NativeEngine``; the
-   decoders on the host are printed. (a) The main path: 1,024 seeded
+   decoders on the host are printed. (a) The main path: 512 seeded
    256 x 256 x 3 uint8 images with labels in [0, 1000) written with
    ``MXIndexedRecordIO`` as raw-pixel records (``recordio.pack`` of the
    bytes) under ``build/phase_data/``; ``resnet50_v1(classes=1000)`` with
    phase 5's recipe (seeded weights, SGD(0.05, momentum 0.9), bf16 over
-   f32 masters) trained one epoch of 32 steps at batch 32 from a
+   f32 masters) trained one epoch of 16 steps at batch 32 from a
    ``DataLoader`` (4 workers, shuffle, ``pin_memory``) over
    ``RecordFileDataset`` with ``RandomResizedCrop(224)``,
    ``RandomFlipLeftRight``, ``ToTensor`` and ``Normalize`` (ImageNet's
    mean and std) on the first field, each batch moved with
-   ``as_in_context(gpu(0))``. Checks: 32 finite losses; no hand-written
+   ``as_in_context(gpu(0))``. Checks: 16 finite losses; no hand-written
    kernel launched (none lies on the path). Prints img/s, the step's
    median ms (batch on the card to fetched loss), the consumer's wait a
    batch p50/p99, device ms and busy share (three profiled steps), peak
@@ -328,12 +328,12 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    95) and the same epoch through ``ImageRecordDataset``. (b)
    ``ImageRecordIter`` over the JPEG records (3 x 224 x 224, batch 32, 4
    threads): which path ran (the native OpenCV pipeline, or ``ImageIter``
-   under ``PrefetchingIter``), its batches/s, all 32 batches; or a line
+   under ``PrefetchingIter``), its batches/s, all 16 batches; or a line
    saying it did not run. ``NDArrayIter`` under ``PrefetchingIter`` on the
    engine over raw-pixel batches keeps their order. (c) Under one seed the
    first 4 batches with 0 and with 4 workers are bitwise equal, and a
    loader restored from the ``state_dict`` taken after batch 10 yields the
-   other 22 bitwise. The files are removed. The 15 image ops are op cases
+   other 6 bitwise. The files are removed. The 15 image ops are op cases
    of phase 9(a).
 14. The training utilities, custom ops and the rest of the zoo, on
    ``gpu(0)``: (a) the main path: ``resnet50_v1(classes=1000)`` with phase
@@ -342,7 +342,7 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    total must be the JAX package's count, ``tools.RESNET50_V1_PARAM_COUNT``),
    trained through ``Estimator(net, SoftmaxCrossEntropyLoss(),
    train_metrics=[Accuracy(), TopKAccuracy(5)], context=gpu(0)).fit``
-   for 2 epochs from phase 13's DataLoader (the 1,024 records, the
+   for 2 epochs from phase 13's DataLoader (the 512 records, the
    training transforms then a cast to bf16) with validation on 256 more
    records (resize 256, center crop 224), ``CheckpointHandler`` (monitor:
    validation accuracy, ``save_best``), ``EarlyStoppingHandler``
@@ -445,7 +445,7 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    --dist-worker``), held against one-process runs on the card made
    first, each with a limit of 4x a control's distance set before the
    ranks run: (b) ``BERTForPretraining(bert_base(max_length=128))`` bf16
-   over f32 masters, Adam(1e-4), dropout 0.1, on {"dp": 2}: 5 steps of a
+   over f32 masters, Adam(1e-4), dropout 0.1, on {"dp": 2}: 3 steps of a
    64 x 128 global batch (P = 19), 32 rows a rank, against the
    one-process 64 x 128 run; the control is that run with each step's
    gradient summed from its two 32-row halves (the global batch's dropout
@@ -511,7 +511,7 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    losses and a sha256 of every parameter and optimizer state; (b)
    ``device_oom`` every 3rd attempt, a ``CheckpointManager`` (async, keep
    2) saving the step, the random state and the DataLoader's position
-   every 2 steps, a simulated crash after step 5, a new step from other
+   every 4 steps, a simulated crash after step 5, a new step from other
    weights, ``restore_latest`` (step 4) and on to step 8: losses and
    digest bitwise (a)'s; (c) a ``NumericsGuard(check_every_n=4)`` with
    ``nan_grad`` at step 3 (token batches: the loss is poisoned): bitwise
@@ -529,7 +529,8 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    checkpoint after 3 steps (one shard file a rank), restored on one
    process bitwise the job's gathered state, its next 2 steps held to the
    job's within 4x a control (the row-parallel products split in two);
-   DLRM at MLPerf widths vocab-sharded (``sharded`` mode, 4 steps) under
+   DLRM at MLPerf widths with its table cut to 1,048,576 rows (17(c)
+   runs all 2^23), vocab-sharded (``sharded`` mode, 4 steps) under
    ``retry=`` with ``emb_exchange`` every 2nd dispatch bitwise the run
    without faults, its sharded checkpoint restored on one process bitwise
    (each half's fingerprint, the MLP).
@@ -619,7 +620,51 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    the host us of a span, a labelled counter ``inc`` and a histogram
    ``observe`` (over 10^5 calls), and the registry calls of one served
    batch with their share of its host time (printed, not gated).
-22. A JSON line with the kernels' numbers (``launches_by_path`` gains
+22. Goodput, the fleet pane and the debug server
+   (``telemetry.goodput``, ``.fleet``, ``.debug_server``), in a process of
+   their own (``--slice22-worker``, started with ``MXNET_TRACE_ID``,
+   ``MXNET_SPAN_SPOOL_DIR`` and ``MXNET_FLIGHT_DIR`` under ``build/``). (b)
+   First, while every source series is at zero: ``goodput.reset()``, 3
+   ``ParallelTrainStep`` steps of ``BERTForPretraining(bert_base(
+   max_length=128))`` at 64 x 128 from a ``gluon.data.DataLoader``, one
+   checkpoint save, ``goodput.account()``: the buckets sum to the wall
+   gauge within 1e-6 relative, ``step``, ``data_wait`` and
+   ``checkpoint_flush`` equal their source series (rescaled if the active
+   sum passes the wall), ``mxtpu_goodput_seconds_total`` equals the
+   attribution, K1-K3 launch 12 times a step; the table and the step share
+   beside the ``train.step`` spans' host times. (a) A ``DebugServer`` on
+   127.0.0.1 (port 0; every fetch through an opener without a proxy, with
+   a timeout) in front of ``bert_base()`` bf16 at S = 512 (buckets 1-32)
+   through the serial ``InferenceServer``: phase 21(a)'s 4 closed-loop
+   clients once alone, once with six scraper threads on ``/metricsz``,
+   ``/metricsz?json=1``, ``/statusz``, ``/tracez``, ``/memz`` and
+   ``/fleetz``, each pausing 200 ms between fetches; then one-row
+   requests under six scrapers that do not pause, at the interpreter's
+   default switch interval and at 0.5 ms: no scrape error and every
+   status 200, the
+   ``mxtpu_debug_requests_total`` deltas equal the fetches page by page,
+   responses within phase 3's tolerance of the direct forward, one row
+   bitwise the same with and without scrapers, the batches delta x 12
+   equals K1's launches, ``/tracez`` holds each client's trace id,
+   ``/memz``'s ``gpu:0`` reading within what the caching allocator
+   allocated and freed around the scrape, ``/flightz?dump=1`` writes one
+   bundle ``load_bundle`` reads, ``/healthz`` 200 running, 503 ``stopped``
+   after ``stop()``, 200 after ``detach``; the ms of one ``/metricsz`` and
+   one ``/fleetz`` scrape, the batch p50 with and without scrapers and
+   the one-row requests' median at each switch interval (printed). (c) A ``FrontDoor`` over two host planes on the card (a
+   ``bert128`` tenant each, agents on gpu(0) writing their dumps), 2
+   closed-loop clients for at least three agent ticks: ``fleet_collect``
+   has 3 sources, ``mxtpu_serving_requests_total`` merged equals the sum
+   over them, the ``serving.batch`` span histogram's ALL row the
+   element-wise sum of its 3 sources, ``goodput_reconcile`` ok for both
+   hosts, health ``ok`` with ``mxtpu_fleet_health`` 0, the agents' dumps
+   reconcile as ``tools/fleet_report.py --verify`` reads them, the
+   spool's journey of the trace holds both agents' ``fabric.host_agent``
+   spans (the reference's readers import the JAX package, so the port
+   computes what they read; the CPU tests run the readers themselves),
+   and K1's launches are 12 x (the tenant's ``mxtpu_serving_batches_total``
+   delta + both planes' probe and warm-up batches).
+23. A JSON line with the kernels' numbers (``launches_by_path`` gains
    ``int8_resnet``, ``int8_bert`` and ``kvstore_resnet`` (phase 15),
    ``dp_bert``, ``tp_bert`` and ``dist_trainer_bert``, counted on rank 0
    (phase 16), ``ring_attention`` (phase 17(b), rank 0),
@@ -631,8 +676,10 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    ``sharded_decode``, ``sharded_decode_dp2`` and ``frontdoor`` (phase
    20), ``telemetry_serving``, ``telemetry_profiled_request``,
    ``telemetry_cost_batch``, ``telemetry_training`` and
-   ``telemetry_oom_retry`` (phase 21), and K1-K3 gain their times at the
-   ring's block), then the last line ``{"ok": true, "device": {...}}``.
+   ``telemetry_oom_retry`` (phase 21), ``fleet_serving``,
+   ``fleet_training`` and ``fleet_frontdoor`` (phase 22), and K1-K3 gain
+   their times at the ring's block), then the last line ``{"ok": true,
+   "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -652,6 +699,8 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -765,8 +814,10 @@ SPARSE_WARMUP, SPARSE_TIMED, SPARSE_LR = 2, 10, 1e-3   # lazy Adam
 SPARSE_LOSS_RTOL = 0.08    # tests/test_sparse.py's sparse-vs-dense bar
 SPARSE_SGD_STEPS, SPARSE_SGD_LR, SPARSE_SGD_TOL = 5, 1.0, 1e-6
 # the data path: a RecordIO file of seeded 256 x 256 x 3 uint8 images with
-# labels in [0, 1000), read by a DataLoader of 4 workers into ResNet-50
-DATA_RECORDS, DATA_HW, DATA_WORKERS = 1024, 256, 4
+# labels in [0, 1000), read by a DataLoader of 4 workers into ResNet-50;
+# 512 records (16 steps an epoch, here and in phase 14's Estimator) keep
+# the whole script inside its time limit
+DATA_RECORDS, DATA_HW, DATA_WORKERS = 512, 256, 4
 DATA_WARMUP = 2                  # synthetic steps before the timed epoch
 DATA_SAME_BATCHES, DATA_RESUME_AT = 4, 10
 DATA_MEAN, DATA_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
@@ -6095,13 +6146,13 @@ def dlrm_check_ids(batches):
     return torch.from_numpy(np.unique(batches[0][1])[:DLRM_CHECK_ROWS])
 
 
-def dlrm_step(mesh, seed: int, mode: str):
+def dlrm_step(mesh, seed: int, mode: str, vocab: int = DLRM_VOCAB):
     """The full-width table, filled on the card from a seeded generator
-    (every process draws the same 8,388,608 x 128 rows), and its step."""
+    (every process draws the same ``vocab`` x 128 rows), and its step."""
     gen = torch.Generator(device=_dev()).manual_seed(seed + 170)
-    full = torch.randn((DLRM_VOCAB, DLRM_DIM), generator=gen,
+    full = torch.randn((vocab, DLRM_DIM), generator=gen,
                        device=_dev()).mul_(DLRM_INIT_STD)
-    table = ShardedEmbedding(DLRM_VOCAB, DLRM_DIM, mesh, axis="tp",
+    table = ShardedEmbedding(vocab, DLRM_DIM, mesh, axis="tp",
                              weight=full)
     del full
     torch.cuda.empty_cache()
@@ -6116,7 +6167,7 @@ def _mlp_host(step):
 
 def _halves_fp(weight):
     """Fingerprints of the table's two halves (the 2-rank block shards)."""
-    half = DLRM_VOCAB // 2
+    half = weight.shape[0] // 2
     return [_fingerprint([weight[:half]]).item(),
             _fingerprint([weight[half:]]).item()]
 
@@ -6487,6 +6538,9 @@ RES_RETRY_TURNS = 3            # (f): clean and faulted steps, in turns
 RES_TP_LAYERS = 2              # (e): BERT at full width, 2 layers, tp=2
 RES_TP_STEPS, RES_TP_MORE = 3, 2
 RES_DLRM_STEPS = 4
+# (e): DLRM's table cut to 1,048,576 rows (its widths kept) for the sharded
+# save and restore, which at 17(c)'s 2^23 rows took 22 s of the phase
+RES_DLRM_VOCAB = DLRM_VOCAB // 8
 SLICE18_WORKER = [sys.executable, str(Path(__file__).resolve()),
                   "--slice18-worker"]
 SLICE18_TIMEOUT = 600
@@ -6755,7 +6809,8 @@ def resilience_det(seed: int):
 def resilience_tp(seed: int):
     """18(e) on one rank of {"tp": 2} (``chip_smoke.py --slice18-worker
     tp``): the 2-layer BERT's sharded checkpoint after 3 steps and 2 more
-    steps; DLRM at MLPerf widths vocab-sharded, without and with
+    steps; DLRM at MLPerf widths (RES_DLRM_VOCAB rows) vocab-sharded,
+    without and with
     ``emb_exchange`` every 2nd dispatch under ``retry=``, and its sharded
     checkpoint. Rank 0 writes the gathered states."""
     from mxnet_tpu_torch.parallel import collectives
@@ -6790,10 +6845,10 @@ def resilience_tp(seed: int):
     del step, placed, state, full
     torch.cuda.empty_cache()
 
-    dl = dlrm_batches(seed, RES_DLRM_STEPS)
+    dl = dlrm_batches(seed, RES_DLRM_STEPS, RES_DLRM_VOCAB)
     runs = []
     for faulty in (False, True):
-        table, st = dlrm_step(mesh, seed, "sharded")
+        table, st = dlrm_step(mesh, seed, "sharded", RES_DLRM_VOCAB)
         st._retry = RetryPolicy(max_attempts=3, base_ms=0.0, seed=seed)
         with faults.inject("emb_exchange", every_n=2 if faulty else 10 ** 9
                            ) as inj:
@@ -6935,7 +6990,7 @@ def _res_tp_report(ranks, seed, smi):
     d = SLICE18_DIR / "dlrm" / f"ckpt-{RES_DLRM_STEPS:08d}"
     shards = sorted(f for f in os.listdir(d) if f.startswith("shard-"))
     one = make_mesh({"tp": 1})
-    table = ShardedEmbedding(DLRM_VOCAB, DLRM_DIM, one, axis="tp")
+    table = ShardedEmbedding(RES_DLRM_VOCAB, DLRM_DIM, one, axis="tp")
     step = DLRMTrainStep(table, **DLRM_CFG, lr=DLRM_LR, seed=seed + 1)
     t0 = time.perf_counter()
     CheckpointManager(str(SLICE18_DIR / "dlrm")).restore_latest(
@@ -6945,8 +7000,9 @@ def _res_tp_report(ranks, seed, smi):
     mlp = torch.load(SLICE18_DIR / "dlrm_mlp.pt")
     same = halves == [x["fp"] for x in dl] and all(
         torch.equal(v.cpu(), mlp[k]) for k, v in step.mlp.items())
-    print(f"18(e) DLRM at MLPerf widths vocab-sharded over 2 ranks "
-          f"(sharded mode, {RES_DLRM_STEPS} steps): emb_exchange every 2nd "
+    print(f"18(e) DLRM at MLPerf widths, a {RES_DLRM_VOCAB:,}-row table "
+          f"vocab-sharded over 2 ranks (sharded mode, {RES_DLRM_STEPS} "
+          f"steps): emb_exchange every 2nd "
           f"dispatch under retry= ({[x['fires'] for x in dl]} fires) bitwise "
           f"the run without faults: {[x['retry_bitwise'] for x in dl]}; "
           f"sharded save {shards} ({dl[0]['ckpt_bytes']} B, "
@@ -8649,6 +8705,563 @@ def phase_telemetry(seed: int, smi: str):
             "cost": cost}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: goodput, the fleet pane and the debug server, in a process of
+# their own
+# ---------------------------------------------------------------------------
+SLICE22_DIR = Path(__file__).resolve().parent / "build" / "phase_fleet22"
+SLICE22_WORKER = [sys.executable, str(Path(__file__).resolve()),
+                  "--slice22-worker"]
+SLICE22_TIMEOUT = 600          # the worker alone builds K1-K3 (nvcc)
+FLEET_SCRAPED = ("/metricsz", "/metricsz?json=1", "/statusz", "/tracez",
+                 "/memz", "/fleetz")
+FLEET_FETCH_S = 60             # a debug page's fetch timeout
+FLEET_SCRAPE_PAUSE_S = 0.2     # (a): a scraper's pause between fetches
+FLEET_CONVOY_REQS = 1          # (a): one-row requests a switch interval
+FLEET_SWITCH_S = 0.0005        # (a): the short interpreter switch interval
+FLEET_TENANT = ("fl_bert128", 128, 8, 2)   # (c): name, S, top bucket, rows
+FLEET_FD_CLIENTS = 2           # (c): closed-loop clients of the tenant
+FLEET_FD_TICKS = 3             # (c): agent ticks the load spans at least
+FLEET_FD_MIN_S = 1.0           # (c): and at least this long
+_OPENER = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def _http_get(url):
+    """(status, body, ms) of one GET, 4xx/5xx included; loopback, never
+    through a proxy (the card's host has no network)."""
+    t0 = time.perf_counter()
+    try:
+        with _OPENER.open(url, timeout=FLEET_FETCH_S) as r:
+            status, body = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read().decode()
+    return status, body, (time.perf_counter() - t0) * 1e3
+
+
+def _fam_total(snap, name, key="value", match=None):
+    fam = snap["metrics"].get(name)
+    return sum(float(s.get(key, 0.0)) for s in (fam or {}).get("series", [])
+               if match is None or all(s["labels"].get(k) == v
+                                       for k, v in match.items()))
+
+
+def _span_ms(name):
+    return [round(s["dur_us"] / 1e3, 3) for s in _tel_spans(name)]
+
+
+def _s22_goodput(seed: int):
+    """(b) goodput over a few BERT-base training steps and one checkpoint
+    save, the first work of a fresh process: every source series starts
+    at zero, so the buckets are the deltas of their series."""
+    from mxnet_tpu_torch.telemetry import goodput
+    goodput.reset()
+    s0 = telemetry.REGISTRY.snapshot()
+    named = seeded_bert_weights(BERTForPretraining(
+        bert_base(max_length=TRAIN_SEQ)), seed)
+    step = _train_step(named, 0.1, "bfloat16", seed=seed)
+    layers = len(step._block.inner.backbone.encoder._layers)
+    loader = _res_loader(pretrain_batch(np.random.default_rng(seed + 221),
+                                        TEL_TRAIN_STEPS, TRAIN_BATCH,
+                                        TRAIN_SEQ, TRAIN_P))
+    flight.RECORDER.clear()
+    # ---- the main path: counts from 0 just before, read just after ----
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    losses = [step(*_res_args(b)) for b in loader]
+    ckpt = SLICE22_DIR / "ckpt"
+    CheckpointManager(str(ckpt), keep=1, async_save=False).save(
+        len(losses), train_step=step)
+    counts = {"K1": fa.launches, "K2": fa.launches_dq, "K3": fa.launches_dkv}
+    # ---- end of the main path ----
+    buckets = goodput.account()
+    s1 = telemetry.REGISTRY.snapshot()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    losses = [float(v.item()) for v in losses]
+    wall = s1["metrics"]["mxtpu_goodput_wall_seconds"]["series"][0]["value"]
+    sources = {
+        "compile": [("mxtpu_serving_compile_seconds_total", "value", 1.0),
+                    ("mxtpu_exec_cache_deserialize_seconds_total", "value",
+                     1.0)],
+        "data_wait": [("mxtpu_dataloader_wait_us", "sum", 1e-6)],
+        "step": [(n, "sum", 1e-6) for n in (
+            "mxtpu_train_step_latency_us", "mxtpu_serving_step_latency_us",
+            "mxtpu_decode_step_us", "mxtpu_decode_prefill_us")],
+        "checkpoint_flush": [(n, "sum", 1e-6) for n in (
+            "mxtpu_checkpoint_save_duration_us",
+            "mxtpu_preempt_flush_duration_us")]}
+    spans = {"retry_recovery": goodput.RECOVERY_SPANS,
+             "drain": goodput.DRAIN_SPANS}
+    start = {b: sum(_fam_total(s0, n, k) * f for n, k, f in src)
+             for b, src in sources.items()}
+    delta = {b: sum((_fam_total(s1, n, k) - _fam_total(s0, n, k)) * f
+                    for n, k, f in src) for b, src in sources.items()}
+    for b, names in spans.items():
+        delta[b] = sum(
+            _fam_total(s1, "mxtpu_span_duration_us", "sum", {"name": n})
+            - _fam_total(s0, "mxtpu_span_duration_us", "sum", {"name": n})
+            for n in names) / 1e6
+    active = sum(delta.values())
+    scale = wall / active if active > wall else 1.0
+    published = {s["labels"]["bucket"]: s["value"] for s in
+                 s1["metrics"]["mxtpu_goodput_seconds_total"]["series"]}
+    checks = {
+        "buckets sum to wall": abs(sum(buckets.values()) - wall)
+        <= 1e-6 * wall,
+        "sources start at zero": not any(start.values()),
+        "step, data_wait, checkpoint_flush = source deltas": all(
+            math.isclose(buckets[b], delta[b] * scale, rel_tol=1e-9,
+                         abs_tol=1e-12)
+            for b in ("step", "data_wait", "checkpoint_flush"))
+        and delta["step"] > 0 and delta["data_wait"] > 0
+        and delta["checkpoint_flush"] > 0,
+        "mxtpu_goodput_seconds_total = attribution": all(
+            math.isclose(published.get(b, 0.0), v, rel_tol=1e-9,
+                         abs_tol=1e-12) for b, v in buckets.items()),
+        "K1-K3 12 a step": all(v == layers * len(losses)
+                               for v in counts.values()),
+        "losses": len(losses) == TEL_TRAIN_STEPS
+        and all(math.isfinite(v) for v in losses)}
+    print(f"22(b) goodput over {len(losses)} ParallelTrainStep steps of "
+          f"BERT-base bf16 at {TRAIN_BATCH} x {TRAIN_SEQ} (batches through "
+          f"gluon.data.DataLoader) and one checkpoint save, wall "
+          f"{wall:.6f} s (rescaled: {scale != 1.0}):")
+    for b in goodput.BUCKETS:
+        print(f"22(b)   {b:<17}{buckets[b]:12.6f} s {buckets[b] / wall:8.2%}"
+              f"   sources {delta.get(b, float('nan')):.6f} s")
+    print(f"22(b) step share {buckets['step'] / wall:.2%}: host time of the "
+          f"step calls ({_span_ms('train.step')} ms train.step spans), which "
+          f"return before the card finishes; the card's time the host did "
+          f"not wait for is in idle")
+    print(f"22(b) losses {[round(v, 4) for v in losses]}; K1-K3 launches "
+          f"{counts} (expected {layers} x {len(losses)})")
+    del step
+    torch.cuda.empty_cache()
+    return {"checks": checks, "launches": counts,
+            "buckets": buckets, "wall_s": wall}
+
+
+def _s22_serving(seed: int, net, layers: int):
+    """(a) the debug pages under serving: one round of closed-loop clients
+    without scrapers, one with six scraper threads that pause
+    FLEET_SCRAPE_PAUSE_S between fetches; then one-row requests under six
+    scrapers that do not pause, at the interpreter's default switch
+    interval and at FLEET_SWITCH_S (if handler threads starve the serving
+    thread by holding the interpreter, the requests' latency follows the
+    switch interval)."""
+    from mxnet_tpu_torch.telemetry import debug_server as dbg
+    ep = serving.ModelEndpoint("fl_bert512", net, [(SEQ_LEN,), (SEQ_LEN,)],
+                               dtype="int32", max_batch_size=32, ctx=gpu())
+    server = serving.InferenceServer(batch_timeout_ms=2.0, max_queue=512)
+    server.register(ep)
+    web = dbg.DebugServer(port=0).start()
+    scrapes = {p: 0 for p in FLEET_SCRAPED}
+    statuses, errors, sets = [], [], []
+    pages = ("metricsz", "statusz", "tracez", "memz", "fleetz")
+    req_fam = telemetry.REGISTRY.get("mxtpu_debug_requests_total")
+    batches = _tel_child("mxtpu_serving_batches_total", ep.name)
+
+    def scraper(page, pause, halt):
+        while not halt.is_set():
+            try:
+                st, _, _ = _http_get(web.url + page)
+            except Exception as e:        # surfaced below; the phase fails
+                errors.append(f"{page}: {e!r}")
+                return
+            statuses.append(st)
+            scrapes[page] += 1
+            halt.wait(pause)
+
+    def scraping(pause):
+        """Six scraper threads, one a page, until the set is halted."""
+        halt = threading.Event()
+        threads = [threading.Thread(target=scraper, args=(p, pause, halt),
+                                    daemon=True) for p in FLEET_SCRAPED]
+        sets.append((halt, threads))
+        for t in threads:
+            t.start()
+
+    def halt_scraping():
+        for halt, threads in sets:
+            halt.set()
+            for t in threads:
+                t.join(120)
+
+    def one_row_ms():
+        """Median host ms of FLEET_CONVOY_REQS one-row requests in turn."""
+        ms = []
+        for _ in range(FLEET_CONVOY_REQS):
+            t0 = time.perf_counter()
+            server.predict(ep.name, one, timeout=300)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms))
+
+    def round_(tag, n_seed):
+        results = [[] for _ in range(TEL_CLIENTS)]
+        traces, errs = [None] * TEL_CLIENTS, []
+
+        def client(i):
+            rng = np.random.default_rng(n_seed * 1000 + i)
+            try:
+                with telemetry.span("smoke.client", client=i,
+                                    trace_id=telemetry.new_trace_id()) as sp:
+                    traces[i] = sp.trace_id
+                    for _ in range(TEL_REQS):
+                        x = _s19_request_rows(rng, SEQ_LEN,
+                                              int(rng.integers(1, 9)))
+                        results[i].append((x, server.predict(
+                            ep.name, x, timeout=300), 0))
+            except Exception as e:        # surfaced below; the phase fails
+                errs.append(repr(e))
+
+        flight.RECORDER.clear()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(TEL_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        if errs or any(t.is_alive() for t in threads):
+            raise SystemExit(f"FAIL: 22(a) {tag} client errors {errs[:3]}")
+        batch_us = sorted(s["dur_us"] for s in _tel_spans("serving.batch"))
+        return ([r for rs in results for r in rs], traces,
+                batch_us[len(batch_us) // 2] / 1e3)
+
+    one = _s19_request_rows(np.random.default_rng(seed + 222), SEQ_LEN, 1)
+    req0 = {p: req_fam.labels(p).value for p in pages}
+    server.start()
+    try:
+        st_up, _, _ = _http_get(web.url + "/healthz")
+        # ---- the main path: counts from 0 just before, read just after --
+        b0 = batches.value
+        fa.launches = 0
+        quiet, _, p50_quiet = round_("quiet", seed + 223)
+        one_quiet_ms = one_row_ms()
+        scraping(FLEET_SCRAPE_PAUSE_S)
+        scraped, traces, p50_scraped = round_("scraped", seed + 224)
+        _, tracez, _ = _http_get(web.url + "/tracez")
+        under = server.predict(ep.name, one, timeout=300)
+        halt_scraping()
+        scraping(0.0)
+        switch = sys.getswitchinterval()
+        convoy = {switch: one_row_ms()}
+        sys.setswitchinterval(FLEET_SWITCH_S)
+        try:
+            convoy[FLEET_SWITCH_S] = one_row_ms()
+        finally:
+            sys.setswitchinterval(switch)
+        halt_scraping()
+        alone = server.predict(ep.name, one, timeout=300)
+        launches, d_batches = fa.launches, batches.value - b0
+        # ---- end of the main path ----
+        ms_metricsz = _http_get(web.url + "/metricsz")[2]
+        ms_fleetz = _http_get(web.url + "/fleetz")[2]
+        m0 = torch.cuda.memory_stats(0)
+        _, memz, _ = _http_get(web.url + "/memz")
+        m1 = torch.cuda.memory_stats(0)
+        gauge = _tel_child("mxtpu_device_memory_bytes", "gpu:0",
+                           "bytes_in_use").value
+        flight_dir = str(mt_config.get("MXNET_FLIGHT_DIR"))
+        n_bundles = len(flight.list_bundles(flight_dir))
+        st_dump, dump_body, _ = _http_get(web.url + "/flightz?dump=1")
+        bundles = flight.list_bundles(flight_dir)
+        kinds = [flight.load_bundle(b)["trigger"]["kind"] for b in bundles]
+        st_run, _, _ = _http_get(web.url + "/healthz")
+        server.stop(drain=True)
+        st_stop, stop_body, _ = _http_get(web.url + "/healthz")
+        dbg.detach(server)
+        st_gone, _, _ = _http_get(web.url + "/healthz")
+    finally:
+        halt_scraping()
+        web.stop()
+        server.stop(drain=False)
+        dbg.detach(server)
+        serving.unregister(ep.name)
+    made = dict(scrapes, metricsz=scrapes["/metricsz"]
+                + scrapes["/metricsz?json=1"])
+    served = {p: req_fam.labels(p).value - req0[p] for p in pages}
+    # beyond the scrapers: one /tracez, /metricsz, /fleetz and /memz fetch
+    extra = {"metricsz": 1, "statusz": 0, "tracez": 1, "memz": 1,
+             "fleetz": 1}
+    excess = max(_s19_excess(net, quiet + scraped))
+    mem_line = [ln.strip() for ln in memz.splitlines()
+                if ln.strip().startswith("gpu:0:")]
+    lo = m0["allocated_bytes.all.current"] - (
+        m1["allocated_bytes.all.freed"] - m0["allocated_bytes.all.freed"])
+    hi = m0["allocated_bytes.all.current"] + (
+        m1["allocated_bytes.all.allocated"]
+        - m0["allocated_bytes.all.allocated"])
+    stop_state = json.loads(stop_body)["servers"][0]["state"] \
+        if st_stop == 503 else None
+    checks = {
+        "no scrape error, every status 200": not errors and bool(statuses)
+        and all(s == 200 for s in statuses),
+        "mxtpu_debug_requests_total = scrapes": all(
+            served[p] == (made[p] if p == "metricsz" else made[f"/{p}"])
+            + extra[p] for p in pages),
+        "responses": excess <= 0,
+        "one row bitwise with and without scrapers": all(
+            torch.equal(a, b) for a, b in zip(_outputs(under),
+                                              _outputs(alone))),
+        "batches x layers = K1": d_batches * layers == launches > 0,
+        "tracez holds every client": all(t in tracez for t in traces),
+        "memz gpu:0": bool(mem_line) and lo <= gauge <= hi,
+        "flightz dump": st_dump == 200 and len(bundles) == n_bundles + 1
+        and kinds.count("flightz") == 1,
+        "healthz 200, 503 stopped, 200 detached": st_up == st_run == 200
+        and st_stop == 503 and stop_state == "stopped" and st_gone == 200}
+    print(f"22(a) bert_base S={SEQ_LEN} bf16 through the serial "
+          f"InferenceServer behind DebugServer {web.url}: "
+          f"{len(quiet)} responses without scrapers, {len(scraped)} with "
+          f"{len(FLEET_SCRAPED)} scraper threads pausing "
+          f"{FLEET_SCRAPE_PAUSE_S * 1e3:g} ms between fetches, then "
+          f"{len(FLEET_SCRAPED)} without pauses ({made} fetches in all, "
+          f"{len(errors)} errors, statuses {sorted(set(statuses))})")
+    print(f"22(a) mxtpu_debug_requests_total deltas {served} (scrapers "
+          f"plus {extra})")
+    print(f"22(a) responses vs direct forward: max(|d| - tol) {excess:.4g}; "
+          f"mxtpu_serving_batches_total delta {d_batches:g} x {layers} = "
+          f"{d_batches * layers:g}, K1 launches {launches}")
+    print(f"22(a) /memz: {mem_line[:1]}; its scrape set bytes_in_use "
+          f"{gauge:,.0f}, torch.cuda.memory_stats(0) {lo:,}..{hi:,} around "
+          f"it")
+    print(f"22(a) /flightz?dump=1: {json.loads(dump_body).get('dumped')}; "
+          f"bundle triggers {kinds}; /healthz {st_up} running, {st_stop} "
+          f"({stop_state}) after stop(), {st_gone} after detach")
+    print(f"22(a) one /metricsz scrape {ms_metricsz:.1f} ms, one /fleetz "
+          f"{ms_fleetz:.1f} ms; served batch p50 {p50_quiet:.2f} ms without "
+          f"scrapers, {p50_scraped:.2f} ms with scrapers pausing "
+          f"{FLEET_SCRAPE_PAUSE_S * 1e3:g} ms (printed, not gated)")
+    print(f"22(a) one-row requests, median of {FLEET_CONVOY_REQS}: "
+          f"{one_quiet_ms:.2f} ms without scrapers; under "
+          f"{len(FLEET_SCRAPED)} scrapers without pauses "
+          + ", ".join(f"{ms:.2f} ms at a switch interval of {si * 1e3:g} ms"
+                      for si, ms in convoy.items())
+          + " (printed, not gated)")
+    return {"checks": checks, "launches": launches,
+            "ms_metricsz": ms_metricsz, "ms_fleetz": ms_fleetz,
+            "p50_quiet_ms": p50_quiet, "p50_scraped_ms": p50_scraped,
+            "one_row_quiet_ms": one_quiet_ms,
+            "one_row_unpaced_ms": {str(k): v for k, v in convoy.items()}}
+
+
+def _s22_frontdoor(seed: int, net, layers: int):
+    """(c) the fleet pane over a two-host FrontDoor on the card."""
+    from mxnet_tpu_torch.telemetry import fleet
+    name, seq, top, rows = FLEET_TENANT
+    endpoints = []
+
+    def factory(host):
+        server = serving.InferenceServer(batch_timeout_ms=2.0, max_queue=512)
+        endpoints.append(serving.ModelEndpoint(
+            name, net, [(seq,), (seq,)], dtype="int32", max_batch_size=top,
+            ctx=gpu()))
+        server.register(endpoints[-1])
+        server.start()
+        return server
+
+    work = SLICE22_DIR / "frontdoor"
+    work.mkdir(parents=True, exist_ok=True)
+    dumps = {h: work / f"dump-{h}.json" for h in ("h0", "h1")}
+    ticks = {h: set() for h in dumps}
+
+    def tick_walls():
+        for h, p in dumps.items():
+            try:
+                snap = json.loads(p.read_text())
+                ticks[h].add(snap["metrics"]["mxtpu_goodput_wall_seconds"][
+                    "series"][0]["value"])
+            except (OSError, ValueError, KeyError):
+                pass
+        return min(len(v) for v in ticks.values())
+
+    # both planes' endpoints share the name, so one family child counts
+    # both planes' batches
+    batches = _tel_child("mxtpu_serving_batches_total", name)
+    # ---- the main path: counts from 0 just before, read just after ----
+    b0 = batches.value
+    fa.launches = 0
+    fd = serving.FrontDoor(list(dumps), factory, workdir=str(work))
+    try:
+        t_wait = time.perf_counter()
+        while tick_walls() < 1:
+            if time.perf_counter() - t_wait > 120:
+                raise SystemExit("FAIL: 22(c) an agent never dumped")
+            time.sleep(0.05)
+        for v in ticks.values():
+            v.clear()
+        done, errors, stop = [], [], threading.Event()
+
+        def client(i):
+            rng = np.random.default_rng(seed * 1000 + 225 + i)
+            while not stop.is_set():
+                x = _s19_request_rows(rng, seq, rows)
+                try:
+                    done.append(fd.submit(name, x).result(timeout=300))
+                except Exception as e:    # surfaced below; the phase fails
+                    errors.append(repr(e))
+                    return
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(FLEET_FD_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        while tick_walls() < FLEET_FD_TICKS or \
+                time.perf_counter() - t0 < FLEET_FD_MIN_S:
+            time.sleep(0.05)
+        stop.set()
+        for t in threads:
+            t.join(300)
+        window = time.perf_counter() - t0
+        launches, d_batches = fa.launches, batches.value - b0
+        # ---- end of the main path ----
+        # each endpoint's construction probe and bucket warm-ups
+        warm = sum(e.stats.counters["warmup_batches"] for e in endpoints)
+        if errors or any(t.is_alive() for t in threads):
+            raise SystemExit(f"FAIL: 22(c) client errors {errors[:3]}")
+        doc = fd.fleet_collect()
+        rec = fd.goodput_reconcile()
+        health = fleet.health_rollup()
+        fleet_health = telemetry.REGISTRY.get("mxtpu_fleet_health").value
+        agent_dumps = {h: json.loads(p.read_text()) for h, p in dumps.items()}
+        telemetry.spool_flush()
+    finally:
+        fd.stop()
+        serving.unregister(name)
+    merged = doc["merged"]["metrics"]
+
+    def split(fam):
+        per = [s for s in fam["series"] if s["labels"]["replica"] != "ALL"]
+        return per, [s for s in fam["series"]
+                     if s["labels"]["replica"] == "ALL"]
+
+    def key(s):
+        return tuple(sorted((k, v) for k, v in s["labels"].items()
+                            if k != "replica"))
+
+    req, req_all = split(merged["mxtpu_serving_requests_total"])
+    by_source = sum(_fam_total(snap, "mxtpu_serving_requests_total")
+                    for snap in [*agent_dumps.values()]) + sum(
+        s["value"] for s in req
+        if s["labels"]["replica"] == f"frontdoor-{os.getpid()}")
+    sums_ok = sum(s["value"] for s in req) == by_source and all(
+        a["value"] == sum(s["value"] for s in req if key(s) == key(a))
+        for a in req_all)
+    hist, hist_all = split(merged["mxtpu_span_duration_us"])
+    (batch_all,) = [a for a in hist_all
+                    if dict(key(a)).get("name") == "serving.batch"]
+    parts = [s for s in hist if key(s) == key(batch_all)]
+    hist_ok = len(parts) == 3 and batch_all["bucket_counts"] == [
+        sum(c) for c in zip(*(s["bucket_counts"] for s in parts))]
+    # what tools/fleet_report.py --verify and tools/trace_journey.py read,
+    # computed by the port (both tools import the JAX package)
+    report = fleet.merge_snapshots({f"dump-{h}.json": s
+                                    for h, s in agent_dumps.items()})
+    verify = {}
+    for h, snap in agent_dumps.items():
+        w = snap["metrics"]["mxtpu_goodput_wall_seconds"]["series"][0][
+            "value"]
+        total = _fam_total(snap, "mxtpu_goodput_seconds_total")
+        verify[h] = (round(total, 6), round(w, 6),
+                     abs(total - w) <= 0.01 * max(w, 1e-9))
+    hops = telemetry.journey(os.environ["MXNET_TRACE_ID"],
+                             os.environ["MXNET_SPAN_SPOOL_DIR"])
+    agents = [h for h in hops if h["name"] == "fabric.host_agent"]
+    sources = sorted(doc["sources"])
+    checks = {
+        "3 sources": doc["processes"] == 3 and sources == sorted(
+            [f"frontdoor-{os.getpid()}", "host-h0", "host-h1"]),
+        "requests merged = sum over sources": sums_ok,
+        "histogram merged = element-wise sum": hist_ok,
+        "goodput_reconcile ok": set(rec) == {"h0", "h1"}
+        and all(r["ok"] for r in rec.values()),
+        "health ok, mxtpu_fleet_health 0": health["status"] == "ok"
+        and fleet_health == 0 and len(health["servers"]) == 2,
+        "fleet report": bool(report["metrics"])
+        and all(v[2] for v in verify.values()),
+        "journey": sorted(h["attrs"].get("host") for h in agents)
+        == ["h0", "h1"] and len({h["pid"] for h in agents}) == 2
+        and os.getpid() not in {h["pid"] for h in agents},
+        "K1 = 12 x (batches + warm-ups)": len(endpoints) == 2
+        and launches == layers * (d_batches + warm) and d_batches > 0}
+    print(f"22(c) FrontDoor over 2 host planes on the card ({name}: S={seq}, "
+          f"buckets 1-{top}, agents on gpu(0)), {FLEET_FD_CLIENTS} "
+          f"closed-loop clients for {window:.2f} s ({len(done)} responses, "
+          f"agent ticks seen {[len(v) for v in ticks.values()]})")
+    print(f"22(c) fleet_collect: {doc['processes']} sources {sources}; "
+          f"mxtpu_serving_requests_total {sum(s['value'] for s in req):g} "
+          f"merged = {by_source:g} over the sources; serving.batch span "
+          f"histogram ALL = element-wise sum of {len(parts)}: {hist_ok}")
+    print(f"22(c) goodput_reconcile {rec}; health {health['status']}, "
+          f"mxtpu_fleet_health {fleet_health:g}")
+    print(f"22(c) the agents' dumps as tools/fleet_report.py --verify reads "
+          f"them (sum, wall, within 1%): {verify}; the spool's journey of "
+          f"trace {os.environ['MXNET_TRACE_ID']}: {len(hops)} hops, "
+          f"fabric.host_agent from pids {sorted(h['pid'] for h in agents)}")
+    print(f"22(c) K1 launches {launches} = {layers} x ({d_batches:g} "
+          f"batches of mxtpu_serving_batches_total + {warm} probe and "
+          f"warm-up batches of the two planes) for {len(done)} requests")
+    return {"checks": checks, "launches": launches}
+
+
+def slice22_worker(seed: int) -> int:
+    """Phase 22 in a process of its own (``chip_smoke.py --slice22-worker``,
+    with ``MXNET_TRACE_ID``, ``MXNET_SPAN_SPOOL_DIR`` and
+    ``MXNET_FLIGHT_DIR`` set): (b) first, while every source series is at
+    zero, then (a) and (c) on one BERT-base. The last line is one JSON
+    dict."""
+    out = {"b": _s22_goodput(seed)}
+    net = _s19_net(seeded_bert_weights(bert_base(), seed + 22))
+    layers = len(net.encoder._layers)
+    out["a"] = _s22_serving(seed, net, layers)
+    out["c"] = _s22_frontdoor(seed, net, layers)
+    sys.stdout.flush()
+    os.write(1, (json.dumps(out, default=float) + "\n").encode())
+    return 0
+
+
+def phase_fleet(seed: int, smi: str):
+    """Phase 22: goodput, the fleet pane and the debug server, in a worker
+    process (the main process's stopped servers, full registry and old
+    goodput clock would leak into its checks)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(SLICE22_DIR, ignore_errors=True)
+    SLICE22_DIR.mkdir(parents=True)
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, MXNET_TRACE_ID=telemetry.new_trace_id(),
+               MXNET_SPAN_SPOOL_DIR=str(SLICE22_DIR / "spool"),
+               MXNET_FLIGHT_DIR=str(SLICE22_DIR / "flight"),
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    env.pop("MXNET_DEBUG_PORT", None)      # the agents would share one port
+    proc = subprocess.run(SLICE22_WORKER + ["--seed", str(seed)], env=env,
+                          capture_output=True, text=True,
+                          timeout=SLICE22_TIMEOUT)
+    lines = proc.stdout.splitlines()
+    for ln in lines:
+        if not ln.startswith("{"):
+            print(ln)
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:])
+        raise SystemExit(f"FAIL: 22 worker exited {proc.returncode}")
+    r = json.loads([ln for ln in lines if ln.startswith("{")][-1])
+    failed = []
+    for part in ("a", "b", "c"):
+        for name, good in r[part]["checks"].items():
+            print(f"22({part}) {name}: {good} on {smi}")
+            if not good:
+                failed.append(f"22({part}) {name}")
+    if failed:
+        print(proc.stderr[-6000:])
+        raise SystemExit(f"FAIL: {failed[0]}" + (
+            f" (and {len(failed) - 1} more)" if len(failed) > 1 else ""))
+    shutil.rmtree(SLICE22_DIR, ignore_errors=True)
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return {"k1": {"fleet_serving": r["a"]["launches"],
+                   "fleet_frontdoor": r["c"]["launches"]},
+            "hand": {"fleet_training": dict(r["b"]["launches"], K4=0, K5=0)}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8663,6 +9276,9 @@ def main(argv=None) -> int:
                     help="run as one of phase 20(a)'s cache processes")
     ap.add_argument("--slice21-worker", action="store_true",
                     help="run as phase 21(d)'s deterministic process")
+    ap.add_argument("--slice22-worker", action="store_true",
+                    help="run as phase 22's process (goodput, the debug "
+                         "server and the fleet pane)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -8678,23 +9294,37 @@ def main(argv=None) -> int:
         return slice20_worker(args.slice20_worker, args.seed)
     if args.slice21_worker:
         return slice21_worker(args.seed)
+    if args.slice22_worker:
+        return slice22_worker(args.seed)
+    t_start = time.perf_counter()
+    marks = [t_start]
+
+    def timed(label, result=None):
+        """Print the seconds since the previous mark (phases 1-14 print no
+        time of their own; 15-22 do)."""
+        now = time.perf_counter()
+        print(f"phase {label}: {now - marks[-1]:.1f} s", flush=True)
+        marks.append(now)
+        return result
+
     smi = card()
-    phase_environment(smi)
-    record = phase_kernel(args.seed, smi)
-    bwd = phase_backward(args.seed, smi)
-    k4 = phase_fused_conv(args.seed, smi)
-    serve_launches = phase_slice(args.seed, smi)
-    train_launches = phase_train(args.seed, smi)
-    resnet = phase_resnet(args.seed, smi)
-    k5 = phase_rtc(args.seed, smi)
-    gen = phase_generate(args.seed, smi)
-    glu = phase_gluon(args.seed, smi)
-    lm = phase_ops_rnn(args.seed, smi)
-    det = phase_ssd(args.seed, smi)
-    amp_rec = phase_amp(args.seed, smi)
-    sp = phase_sparse(args.seed, smi)
-    data = phase_data(args.seed, smi, resnet)
-    util = phase_utilities(args.seed, smi, resnet, data)
+    timed("1 environment", phase_environment(smi))
+    record = timed("2 kernel", phase_kernel(args.seed, smi))
+    bwd = timed("2b backward", phase_backward(args.seed, smi))
+    k4 = timed("2c fused_conv", phase_fused_conv(args.seed, smi))
+    serve_launches = timed("3 slice", phase_slice(args.seed, smi))
+    train_launches = timed("4 train", phase_train(args.seed, smi))
+    resnet = timed("5 resnet", phase_resnet(args.seed, smi))
+    k5 = timed("6 rtc", phase_rtc(args.seed, smi))
+    gen = timed("7 generate", phase_generate(args.seed, smi))
+    glu = timed("8 gluon", phase_gluon(args.seed, smi))
+    lm = timed("9 ops_rnn", phase_ops_rnn(args.seed, smi))
+    det = timed("10 ssd", phase_ssd(args.seed, smi))
+    amp_rec = timed("11 amp", phase_amp(args.seed, smi))
+    sp = timed("12 sparse", phase_sparse(args.seed, smi))
+    data = timed("13 data", phase_data(args.seed, smi, resnet))
+    util = timed("14 utilities", phase_utilities(args.seed, smi, resnet,
+                                                 data))
     quant = phase_quantization(args.seed, smi, resnet, util)
     dist = phase_distributed(args.seed, smi)
     s17 = phase_slice17(args.seed, smi)
@@ -8702,6 +9332,7 @@ def main(argv=None) -> int:
     s19 = phase_multitenant(args.seed, smi)
     s20 = phase_fabric(args.seed, smi)
     s21 = phase_telemetry(args.seed, smi)
+    s22 = phase_fleet(args.seed, smi)
     q_hand = {"int8_resnet": {k: quant["resnet"]["f32"]["hand"][k]
                               + quant["resnet"]["int8"]["hand"][k]
                               for k in ("K1", "K2", "K3", "K4", "K5")},
@@ -8714,7 +9345,8 @@ def main(argv=None) -> int:
     d_hand = {**dist["hand"], "ring_attention": s17["hand"],
               "resilience_bert": s18["det"],
               "resilience_nondeterministic_check": s18["nondet"],
-              "resilience_tp_bert": s18["tp"], **s21["hand"]}
+              "resilience_tp_bert": s18["tp"], **s21["hand"],
+              **s22["hand"]}
     ring = {c: s17["blocks"][c] for c in (False, True)}
     f16 = amp_rec["fp16"]
     amp_launches = {path: amp_rec[path]["launches"]
@@ -8732,7 +9364,8 @@ def main(argv=None) -> int:
          + sp["hand"]["K1"] + data["hand"]["K1"] + util["hand"]["K1"]
          + sum(h["K1"] for h in q_hand.values())
          + sum(h["K1"] for h in d_hand.values()) + sum(s19.values())
-         + sum(s20.values()) + sum(s21["k1"].values()),
+         + sum(s20.values()) + sum(s21["k1"].values())
+         + sum(s22["k1"].values()),
          "launches_by_path": {
              "serving": serve_launches,
              "training": train_launches["flash_attention_fwd"],
@@ -8747,7 +9380,7 @@ def main(argv=None) -> int:
              "estimator_resnet": util["hand"]["K1"],
              **{path: h["K1"] for path, h in q_hand.items()},
              **{path: h["K1"] for path, h in d_hand.items()}, **s19,
-             **s20, **s21["k1"]},
+             **s20, **s21["k1"], **s22["k1"]},
          "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"],
                             gen["k1_max_abs_err"],
                             *(ring[c]["fwd"]["max_abs_err"]
@@ -8916,6 +9549,7 @@ def main(argv=None) -> int:
         "launch_host_us": k5["rtc_launch_us"],
         "torch_add_host_us": k5["torch_add_us"],
         "by_kernel": k5["by_kernel"]})
+    print(f"chip_smoke.py phases 1-22: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -60,6 +60,8 @@ if config.get("MXNET_PROFILER_AUTOSTART"):
 telemetry.reporter._autostart()
 # MXNET_FLIGHT_DIR: arm the flight recorder's unhandled-exception hooks
 telemetry.flight._autostart()
+# MXNET_DEBUG_PORT: start the localhost HTTP introspection server
+telemetry.debug_server._autostart()
 
 __all__ = ["Context", "MXNetError", "cpu", "gpu", "current_context",
            "amp", "autograd", "base", "callback", "config", "context",

@@ -457,6 +457,19 @@ register("MXNET_TRACE_ID", "", str,
          "chaos subprocesses). The child's first root span joins this "
          "trace instead of minting a fresh id, so one logical request is "
          "one journey across process boundaries. Read once per process.")
+register("MXNET_DEBUG_PORT", 0, int,
+         "Debug server: TCP port for the localhost HTTP introspection "
+         "pages (/metricsz /healthz /statusz /tracez /flightz). 0 (the "
+         "default) disables the server entirely.")
+register("MXNET_DEBUG_HOST", "127.0.0.1", str,
+         "Debug server: bind address. Keep it loopback unless a scrape "
+         "sidecar genuinely lives off-host — the pages expose knobs and "
+         "thread stacks.")
+register("MXNET_FLEET_DUMP_GLOB", "", str,
+         "Fleet collector: glob of telemetry snapshot JSON files "
+         "(telemetry.dump() / MXNET_TELEMETRY_DUMP_PATH outputs) from "
+         "sibling processes to merge into the fleet view alongside the "
+         "live in-process registry.")
 
 # ---------------------------------------------------------------------------
 # flags that tune XLA in the JAX package: listed, not applicable

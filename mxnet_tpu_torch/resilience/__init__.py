@@ -32,8 +32,8 @@ The serving half (dispatch retries, the breaker and the watchdog inside
 (retries, faults, checkpoints, preemptions, stalls, circuit states and the
 numerics guard's families), with the ``oom``, ``watchdog_stall``,
 ``circuit_open``, ``preemption``, ``numerics_anomaly`` and ``sdc_suspect``
-flight triggers. Not ported: ``tools/chaos_check.py`` (ROADMAP, after
-Q1.12b).
+flight triggers. Not ported: ``tools/chaos_check.py`` (next in ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 

@@ -47,8 +47,9 @@ slice's cards, and a ``FrontDoor`` routes tenants over host serving planes
 and fails a dead host's work over to the survivors.
 
 Every tier reports into the port's telemetry registry
-(``mxnet_tpu_torch.telemetry``). Not ported yet: ``tools/chaos_check.py``
-(after the fleet pane and goodput, ROADMAP Q1.12b).
+(``mxnet_tpu_torch.telemetry``); a started server, a pool and an
+autoscaler attach themselves to its debug pages. Not ported yet:
+``tools/chaos_check.py`` (next in ROADMAP Queue 1).
 """
 from __future__ import annotations
 

@@ -47,6 +47,7 @@ from ..base import MXNetError
 from .. import config as _config
 from .. import telemetry as _telemetry
 from ..resilience import faults as _faults
+from ..telemetry import debug_server as _debug
 from ..telemetry import flight as _flight
 from ..telemetry.slo import MONITOR as _SLO_MONITOR
 from . import tailguard as _tailguard
@@ -101,6 +102,7 @@ class ServingPool:
         self._lock = threading.Lock()
         self._replicas: List[_Replica] = []
         self._next_rid = 0
+        _debug.attach_pool(self)      # weak: /statusz + /fleetz render us
         for _ in range(max(int(initial_replicas), 0)):
             self.scale_up()
 
@@ -183,8 +185,13 @@ class ServingPool:
         last_exc: Optional[Exception] = None
         for rep in ranked:
             try:
-                return rep.server.submit(name, inputs, deadline_ms=deadline_ms,
-                                         deadline=deadline), rep
+                # the span stamps this attempt's replica into the journey
+                # and hands its trace id to the request submit() builds
+                with _telemetry.span("pool.submit", replica=rep.rid,
+                                     endpoint=name):
+                    return rep.server.submit(
+                        name, inputs, deadline_ms=deadline_ms,
+                        deadline=deadline), rep
             except (ServerOverloadError, ServerClosedError) as e:
                 last_exc = e
         raise last_exc
@@ -377,6 +384,7 @@ class Autoscaler:
         self._idle_polls = 0
         self._last_action_ts: Optional[float] = None
         self.actions: list = []      # action reports, newest last
+        _debug.attach_autoscaler(self)   # weak: /statusz + /fleetz
 
     @property
     def min_replicas(self) -> int:

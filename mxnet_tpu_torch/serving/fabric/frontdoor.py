@@ -7,8 +7,12 @@ A :class:`FrontDoor` fronts N *hosts*. Each host is one serving plane — an
 registered and started) plus a **host agent subprocess**, the stand-in for
 a process-group member. The agent runs a tiny real workload at startup (a
 two-layer net served through the port's ``InferenceServer`` on the context
-the front door names), then heartbeats: every tick it rewrites its
-heartbeat file. A silent host is detected by heartbeat age
+the front door names, inside a ``fabric.host_agent`` span that joins the
+parent's journey through the inherited ``MXNET_TRACE_ID``), then
+heartbeats: every tick it rewrites its heartbeat file, re-attributes
+goodput (``goodput.account()``: buckets reconcile to wall exactly) and
+rewrites its telemetry dump, so a SIGKILLed host leaves a recent dump for
+the post-mortem pane. A silent host is detected by heartbeat age
 (:meth:`check_hosts`), a dead agent by its exit, never by an RPC that would
 hang. An agent exits at its deadline (:data:`AGENT_TIMEOUT_S`) or when
 its parent process is gone, and :meth:`stop` kills and reaps every agent.
@@ -31,13 +35,15 @@ Telemetry: ``moves``, ``failovers`` (by host), ``resubmits`` and
 ``requests_by_host`` are this front door's share of the reference's
 ``mxtpu_fabric_*`` counters, and ``mxtpu_fabric_hosts`` counts hosts by
 liveness; a host's failover fires the ``host_down`` flight trigger and
-records a ``fabric_host_down`` event. The fleet pane (``fleet_collect``,
-``goodput_reconcile``) and the agent's telemetry dumps and spans wait for
-ROADMAP Q1.12b.
+records a ``fabric_host_down`` event. :meth:`fleet_collect` merges every
+agent's dump with this process's registry into one fleet view, and
+:meth:`goodput_reconcile` checks each host's goodput ledger against its
+own wall clock.
 """
 from __future__ import annotations
 
 import hashlib
+import json
 import os
 import shutil
 import signal
@@ -58,6 +64,7 @@ from ...resilience.faults import FaultInjected
 from .. import tailguard as _tailguard
 from ..errors import ServerClosedError, ServerOverloadError
 from ...telemetry import flight as _flight
+from ...telemetry.fleet import FleetCollector
 from ...telemetry.metrics import Baseline
 from ..supervisor import PoolSupervisor
 
@@ -84,19 +91,23 @@ _REQS_C = _telemetry.counter(
     labelnames=("host",))
 
 # The process-group member: a real subprocess a host, importing only the
-# port. Startup serves a tiny real workload on FABRIC_CTX, then each tick
+# port. Startup serves a tiny real workload on FABRIC_CTX (its spans join
+# the parent's journey via the inherited MXNET_TRACE_ID), then each tick
 # rewrites the heartbeat file (tmp + rename: a reader never sees half a
-# beat). It exits at its deadline or when its parent is gone.
+# beat), re-attributes goodput and rewrites this host's telemetry dump
+# (tmp + rename too). It exits at its deadline or when its parent is gone.
 _HOST_AGENT_SRC = """\
 import os, time
 import numpy as np
 import torch
 import mxnet_tpu_torch as mt
-from mxnet_tpu_torch import serving
+from mxnet_tpu_torch import serving, telemetry
 from mxnet_tpu_torch.gluon import nn
+from mxnet_tpu_torch.telemetry import goodput
 
 host = os.environ["FABRIC_HOST"]
 hb = os.environ["FABRIC_HB_PATH"]
+dump = os.environ["FABRIC_DUMP_PATH"]
 tick_s = float(os.environ["FABRIC_TICK_S"])
 deadline = time.time() + float(os.environ["FABRIC_AGENT_MAX_S"])
 parent = int(os.environ["FABRIC_PARENT_PID"])
@@ -105,7 +116,7 @@ ctx = mt.Context(kind, int(index))
 torch.set_num_threads(1)
 
 mt.random.seed(0)
-with ctx:
+with ctx, telemetry.span("fabric.host_agent", host=host):
     net = nn.HybridSequential()
     net.add(nn.Dense(8, activation="relu", in_units=6), nn.Dense(4, in_units=8))
     net.initialize(mt.init.Xavier(), ctx=ctx)
@@ -118,11 +129,14 @@ with ctx:
         srv.submit(name, np.zeros((2, 6), "float32")).result(timeout=30)
     srv.stop()
     serving.unregister(name)
+telemetry.spool_flush()
 while time.time() < deadline and os.getppid() == parent:
     tmp = hb + ".tmp"
     with open(tmp, "w") as f:
         f.write(repr(time.time()))
     os.replace(tmp, hb)
+    goodput.account()
+    telemetry.dump(dump)
     time.sleep(tick_s)
 """
 
@@ -137,7 +151,8 @@ def _hash(s: str) -> int:
 
 
 class _Host:
-    __slots__ = ("name", "server", "supervisor", "agent", "hb_path", "alive")
+    __slots__ = ("name", "server", "supervisor", "agent", "hb_path",
+                 "dump_path", "alive")
 
     def __init__(self, name, server):
         self.name = name
@@ -145,6 +160,7 @@ class _Host:
         self.supervisor = None
         self.agent = None
         self.hb_path = ""
+        self.dump_path = ""
         self.alive = True
 
 
@@ -166,7 +182,8 @@ class FrontDoor:
         Attach a PoolSupervisor to each host's server for intra-host
         worker/prep failover. On by default.
     workdir : str, optional
-        Where heartbeat files live (default: a fresh tempdir).
+        Where heartbeat files and the agents' telemetry dumps live
+        (default: a fresh tempdir, removed at :meth:`stop`).
 
     Each agent runs its probe workload on :func:`current_context` as it
     stands when the FrontDoor is built (``gpu(0)`` unless the caller is
@@ -195,6 +212,7 @@ class FrontDoor:
         for n in names:
             h = _Host(n, host_factory(n))
             h.hb_path = os.path.join(self._workdir, f"hb-{n}")
+            h.dump_path = os.path.join(self._workdir, f"dump-{n}.json")
             if supervise:
                 h.supervisor = PoolSupervisor(h.server).start()
             self._hosts[n] = h
@@ -224,6 +242,7 @@ class FrontDoor:
         env = dict(os.environ)
         env["FABRIC_HOST"] = h.name
         env["FABRIC_HB_PATH"] = h.hb_path
+        env["FABRIC_DUMP_PATH"] = h.dump_path
         env["FABRIC_TICK_S"] = str(_config.get("MXNET_FABRIC_HEARTBEAT_S"))
         env["FABRIC_AGENT_MAX_S"] = str(AGENT_TIMEOUT_S)
         env["FABRIC_PARENT_PID"] = str(os.getpid())
@@ -443,6 +462,38 @@ class FrontDoor:
                 reports.append(self.kill_host(
                     n, reason="agent_exit" if dead_proc else "heartbeat"))
         return reports
+
+    # -- one pane of glass ----------------------------------------------
+    def fleet_collect(self, include_local: bool = True) -> Dict:
+        """The fleet collector over every host agent's dump (plus this
+        front-door process when ``include_local``)."""
+        coll = FleetCollector(include_local=include_local,
+                              local_label=f"frontdoor-{os.getpid()}",
+                              glob="")
+        for n, h in self._hosts.items():
+            if os.path.exists(h.dump_path):
+                coll.add_file(h.dump_path, label=f"host-{n}")
+        return coll.collect()
+
+    def goodput_reconcile(self, tol: float = 0.01) -> Dict[str, Dict]:
+        """Per-host goodput ledger check from each host's own dump: the
+        bucket seconds must sum to that host's wall clock within ``tol``."""
+        out = {}
+        for n, h in self._hosts.items():
+            if not os.path.exists(h.dump_path):
+                continue
+            with open(h.dump_path) as f:
+                snap = json.load(f)
+            mets = snap.get("metrics", {})
+            wall = max((float(s.get("value", 0.0)) for s in
+                        mets.get("mxtpu_goodput_wall_seconds",
+                                 {}).get("series", [])), default=0.0)
+            total = sum(float(s.get("value", 0.0)) for s in
+                        mets.get("mxtpu_goodput_seconds_total",
+                                 {}).get("series", []))
+            out[n] = {"wall_s": wall, "buckets_sum_s": total,
+                      "ok": abs(total - wall) <= tol * max(wall, 1e-9)}
+        return out
 
     # -- lifecycle ------------------------------------------------------
     def stop(self, drain: bool = True):

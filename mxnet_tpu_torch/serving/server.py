@@ -81,6 +81,7 @@ from ..resilience import faults as _faults
 from ..resilience.retry import RetryPolicy
 from ..resilience.watchdog import (CircuitBreaker, Watchdog, DEGRADED,
                                    HALF_OPEN, HEALTHY, OPEN)
+from ..telemetry import debug_server as _debug
 from ..telemetry import flight as _flight
 from ..telemetry.metrics import Baseline
 from ..telemetry.slo import MONITOR as _SLO
@@ -398,6 +399,7 @@ class InferenceServer:
             gens = list(self._generators.values())
         for g in gens:
             g.start()
+        _debug.attach(self)     # /healthz + /statusz see every live server
         return self
 
     def _spawn_threads(self):  # caller holds the lock

@@ -34,9 +34,17 @@ Recording never waits for the card: counters, spans and events are host
 operations on durations the caller measured; device memory is read only on
 a scrape (``snapshot``, ``prometheus_text``), a dump or a trigger.
 
-Not ported yet (ROADMAP Q1.12b): the debug server, the fleet pane, goodput,
-the compile ledger and the cost model. :data:`NOT_REGISTERED` lists every
-reference family the port does not register, with the reason.
+``goodput`` attributes the process's wall clock to exclusive buckets
+(compile, data wait, step, checkpoint flush, recovery, drain, idle) from
+the families above; ``fleet`` merges several processes' snapshots (the
+live registry, ``dump()`` files, ``/metricsz?json=1`` scrapes) into one,
+with a worst-of health rollup; ``DebugServer`` serves the -z pages on
+loopback (``MXNET_DEBUG_PORT`` starts one at import).
+
+Not ported yet (ROADMAP Q1.12c): the compile ledger and the cost model;
+the debug server's ``/compilez`` and ``/costz`` answer 501 until then.
+:data:`NOT_REGISTERED` lists every reference family the port does not
+register, with the reason.
 """
 from __future__ import annotations
 
@@ -49,6 +57,8 @@ from .reporter import (PeriodicReporter, periodic_logger, dump,
                        sample_device_memory, summary_line)
 from .slo import MONITOR, Objective, SLOMonitor
 from . import flight, memstats, perf_sentinel, slo
+from . import debug_server, fleet, goodput
+from .debug_server import DebugServer
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
@@ -59,7 +69,8 @@ __all__ = [
     "summary_line",
     "FlightRecorder", "event", "flight",
     "SLOMonitor", "Objective", "MONITOR", "slo",
-    "memstats", "perf_sentinel",
+    "memstats", "perf_sentinel", "DebugServer", "debug_server", "fleet",
+    "goodput",
     "counter", "gauge", "histogram", "snapshot", "snapshot_json",
     "prometheus_text", "lint_names", "NOT_REGISTERED",
 ]
@@ -75,26 +86,21 @@ NOT_REGISTERED = {
     # buffer donation: ParallelTrainStep updates its state in place
     # (optimizer steps write the parameters' own storage), nothing is donated
     "mxtpu_train_donated_replace_total": "no buffer donation",
-    # modules that wait for ROADMAP Q1.12b
-    "mxtpu_goodput_seconds_total": "goodput waits for Q1.12b",
-    "mxtpu_goodput_wall_seconds": "goodput waits for Q1.12b",
-    "mxtpu_debug_requests_total": "the debug server waits for Q1.12b",
-    "mxtpu_fleet_processes": "the fleet pane waits for Q1.12b",
-    "mxtpu_fleet_replicas": "the fleet pane waits for Q1.12b",
-    "mxtpu_fleet_health": "the fleet pane waits for Q1.12b",
-    "mxtpu_compile_records_total": "the compile ledger waits for Q1.12b",
+    # modules that wait for ROADMAP Q1.12c: their reference reads
+    # StableHLO, and the port's analog needs a design first
+    "mxtpu_compile_records_total": "the compile ledger waits for Q1.12c",
     "mxtpu_compile_wall_seconds_total":
-        "the compile ledger waits for Q1.12b",
-    "mxtpu_compile_duplicates_total": "the compile ledger waits for Q1.12b",
+        "the compile ledger waits for Q1.12c",
+    "mxtpu_compile_duplicates_total": "the compile ledger waits for Q1.12c",
     "mxtpu_compile_duplicate_waste_seconds_total":
-        "the compile ledger waits for Q1.12b",
+        "the compile ledger waits for Q1.12c",
     "mxtpu_compile_text_retained_total":
-        "the compile ledger waits for Q1.12b",
-    "mxtpu_ir_guard_total": "the compile ledger waits for Q1.12b",
-    "mxtpu_cost_predicted_us": "the cost model waits for Q1.12b",
-    "mxtpu_cost_residual_ratio": "the cost model waits for Q1.12b",
-    "mxtpu_cost_prior_used_total": "the cost model waits for Q1.12b",
-    "mxtpu_cost_model_drift_total": "the cost model waits for Q1.12b",
+        "the compile ledger waits for Q1.12c",
+    "mxtpu_ir_guard_total": "the compile ledger waits for Q1.12c",
+    "mxtpu_cost_predicted_us": "the cost model waits for Q1.12c",
+    "mxtpu_cost_residual_ratio": "the cost model waits for Q1.12c",
+    "mxtpu_cost_prior_used_total": "the cost model waits for Q1.12c",
+    "mxtpu_cost_model_drift_total": "the cost model waits for Q1.12c",
 }
 
 

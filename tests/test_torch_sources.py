@@ -1312,7 +1312,9 @@ TELEMETRY_MODULES = sorted(
 #: may not wait for the card
 RECORDING_MODULES = ["telemetry/metrics.py", "telemetry/tracing.py",
                      "telemetry/flight.py", "telemetry/perf_sentinel.py",
-                     "serving/stats.py", "serving/generate/stats.py"]
+                     "serving/stats.py", "serving/generate/stats.py",
+                     "telemetry/goodput.py", "telemetry/fleet.py",
+                     "telemetry/debug_server.py"]
 
 
 @pytest.mark.parametrize("module", TELEMETRY_MODULES)
@@ -1352,3 +1354,125 @@ def test_whole_port_registers_linted_families():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 118
+
+
+# ---------------------------------------------------------------------------
+# goodput, the fleet pane and the debug server (S19)
+# ---------------------------------------------------------------------------
+#: what reads the card's memory counters (torch.cuda.memory_stats)
+_DEVICE_MEMORY_READS = ("sample_device_memory", "memory_stats",
+                        "_device_stats", "_refresh_memory_gauges")
+
+
+def _called_names(node):
+    for n in ast.walk(node):
+        if isinstance(n, ast.Call):
+            f = n.func
+            yield f.attr if isinstance(f, ast.Attribute) else \
+                getattr(f, "id", None)
+
+
+@pytest.mark.parametrize("module", ["telemetry/goodput.py",
+                                    "telemetry/fleet.py"])
+def test_goodput_and_fleet_never_sample_device_memory(module):
+    """Attribution and merging are arithmetic on snapshots: neither reads
+    the card's memory counters (the live registry's snapshot is
+    ``REGISTRY.snapshot()``, which samples nothing)."""
+    tree = _tree(PKG / module)
+    assert not set(_called_names(tree)) & set(_DEVICE_MEMORY_READS), module
+    for n in ast.walk(tree):
+        if isinstance(n, ast.ImportFrom):
+            assert not {a.name for a in n.names} & \
+                set(_DEVICE_MEMORY_READS), f"{module}:{n.lineno}"
+
+
+def test_only_the_scrape_pages_sample_device_memory():
+    """In the debug server, device memory is read on a scrape only: by
+    ``statusz`` and ``memz`` (which sample it themselves) and by the
+    handler's ``/metricsz`` (``snapshot``/``prometheus_text``, which
+    refresh it); no other function reads it."""
+    tree = _tree(PKG / "telemetry" / "debug_server.py")
+    readers = set()
+    for fn in ast.walk(tree):
+        if isinstance(fn, ast.FunctionDef) and \
+                set(_called_names(fn)) & set(_DEVICE_MEMORY_READS):
+            readers.add(fn.name)
+    assert readers == {"statusz", "memz"}, readers
+    (handler,) = [n for n in tree.body if isinstance(n, ast.ClassDef)
+                  and n.name == "_Handler"]
+    imported = {a.name for n in ast.walk(handler)
+                if isinstance(n, ast.ImportFrom) for a in n.names}
+    assert imported == {"snapshot", "prometheus_text"}, imported
+
+
+def _http_calls_are_proxyless_with_timeouts(path):
+    """No ``urlopen`` (it follows ``http_proxy`` from the environment);
+    every ``build_opener`` is given ``ProxyHandler({})``, every ``.open``
+    of such an opener and every ``HTTPConnection`` a timeout."""
+    tree = _tree(path)
+    openers = set()
+    for n in ast.walk(tree):
+        if isinstance(n, ast.Assign) and isinstance(n.value, ast.Call) and \
+                getattr(n.value.func, "attr", None) == "build_opener":
+            openers |= {t.id for t in n.targets if isinstance(t, ast.Name)}
+    for n in ast.walk(tree):
+        if not isinstance(n, ast.Call):
+            continue
+        f = n.func
+        name = f.attr if isinstance(f, ast.Attribute) else \
+            getattr(f, "id", None)
+        where = f"{path.name}:{n.lineno}"
+        assert name != "urlopen", f"{where}: urlopen follows proxies"
+        if name == "build_opener":
+            assert any(isinstance(a, ast.Call) and
+                       getattr(a.func, "attr", getattr(a.func, "id", None))
+                       == "ProxyHandler" and a.args and
+                       isinstance(a.args[0], ast.Dict) and
+                       not a.args[0].keys for a in n.args), \
+                f"{where}: an opener without ProxyHandler({{}})"
+        if name in ("HTTPConnection", "HTTPSConnection") or (
+                name == "open" and isinstance(f, ast.Attribute) and
+                isinstance(f.value, ast.Name) and f.value.id in openers):
+            assert any(k.arg == "timeout" for k in n.keywords), \
+                f"{where}: {name} without a timeout"
+
+
+@pytest.mark.parametrize("path", PORT_FILES + PORT_TESTS,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_every_http_fetch_is_proxyless_with_a_timeout(path):
+    _http_calls_are_proxyless_with_timeouts(path)
+
+
+def test_the_http_guard_catches_what_it_forbids(tmp_path):
+    """The guard above fails on each thing it forbids."""
+    bad = {
+        "urlopen": "import urllib.request\n"
+                   "urllib.request.urlopen('http://x', timeout=1)\n",
+        "proxy": "import urllib.request as u\n"
+                 "o = u.build_opener()\no.open('http://x', timeout=1)\n",
+        "open": "import urllib.request as u\n"
+                "o = u.build_opener(u.ProxyHandler({}))\no.open('http://x')\n",
+        "conn": "import http.client\n"
+                "http.client.HTTPConnection('127.0.0.1', 80)\n"}
+    for what, src in bad.items():
+        p = tmp_path / f"bad_{what}.py"
+        p.write_text(src)
+        with pytest.raises(AssertionError):
+            _http_calls_are_proxyless_with_timeouts(p)
+    good = tmp_path / "good.py"
+    good.write_text("import urllib.request as u\n"
+                    "o = u.build_opener(u.ProxyHandler({}))\n"
+                    "o.open('http://x', timeout=3)\n")
+    _http_calls_are_proxyless_with_timeouts(good)
+
+
+def test_the_fleet_modules_are_wired_at_the_references_sites():
+    """A started server, a pool and an autoscaler attach themselves to the
+    debug pages; the package starts the debug server from its knob."""
+    def calls(path):
+        return set(_called_names(_tree(path)))
+    assert "attach" in calls(PKG / "serving" / "server.py")
+    assert {"attach_pool", "attach_autoscaler"} <= \
+        calls(PKG / "serving" / "autoscaler.py")
+    assert "_autostart" in calls(PKG / "__init__.py")
+    assert "debug_server._autostart()" in (PKG / "__init__.py").read_text()

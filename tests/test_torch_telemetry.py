@@ -238,6 +238,17 @@ def test_catalog_parity_with_the_reference():
         if a.kind == "histogram":
             assert b.buckets == a.buckets, name
     assert all(telemetry.NOT_REGISTERED.values())
+    # the jit cache (4), buffer donation (1), and the compile ledger's (6)
+    # and the cost model's (4) families, which wait for Q1.12c
+    assert len(telemetry.NOT_REGISTERED) == 15
+    waiting = {n for n, why in telemetry.NOT_REGISTERED.items()
+               if why.endswith("waits for Q1.12c")}
+    assert waiting == {n for n in skipped if n.startswith(
+        ("mxtpu_compile_", "mxtpu_cost_", "mxtpu_ir_guard_"))}
+    assert len(waiting) == 10
+    assert {"mxtpu_goodput_seconds_total", "mxtpu_goodput_wall_seconds",
+            "mxtpu_debug_requests_total", "mxtpu_fleet_processes",
+            "mxtpu_fleet_replicas", "mxtpu_fleet_health"} <= port_names
 
 
 def _families(text):
