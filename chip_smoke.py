@@ -7,10 +7,12 @@ Needs one CUDA card, nvcc and the repository checkout; it imports neither
 JAX nor the JAX package. Phases (any failure exits non-zero):
 
 1. Environment: the card's name and power limit (nvidia-smi), the CUDA and
-   PyTorch versions, nvcc's version; builds the flash-attention forward (K1)
-   and backward (K2, K3) libraries and the fused 1x1-conv library (K4) from
-   ``mxnet_tpu_torch/csrc``, one nvcc each, started together, and prints
-   the build times and ptxas reports.
+   PyTorch versions, nvcc's version and the host's CPU count; builds the
+   flash-attention forward (K1) and backward (K2, K3) libraries and the
+   fused 1x1-conv library (K4) from ``mxnet_tpu_torch/csrc``, started
+   together: K1's as one ``nvcc -c`` a head dim (``fa.fwd_sources``),
+   all at once, and a link; K2+K3's and K4's one nvcc each. Prints the build
+   times, each K1 object's seconds and the ptxas reports.
 2. K1 against its plain version: ``flash_attention_fwd`` (O and LSE)
    against ``flash_attention_fwd_reference`` on the card at every listed
    shape (the serving and training shapes among them), f32 within 1e-4
@@ -196,7 +198,7 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    (tokens/s), 10 steps each closed by a fetch (median ms). Checks: every
    loss finite; K1, K2 and K3 each launched 12 times per step. Prints
    tokens/s, the step's median ms, the device ms per step and busy share
-   over three profiled steps (as ``tools/step_profile.py`` reads them;
+   over one profiled step (as ``tools/step_profile.py`` reads them;
    phase 4 prints the same for ``ParallelTrainStep``), peak memory. (c) At
    dropout 0, three such steps against three ``ParallelTrainStep``
    (bf16 compute) steps from the same bf16-exact weights, both handing
@@ -230,8 +232,8 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    closed by one fetch (tokens/s), 10 steps each closed by a fetch
    (median ms). Checks: losses finite; no hand-written kernel launched
    (none lies on this path). Prints tokens/s, the step's median ms, device
-   ms and busy share and device operations a step (torch.profiler, three
-   steps), peak memory; then the port's RNN op and ``torch.nn.LSTM``
+   ms and busy share and device operations a step (torch.profiler, one
+   step), peak memory; then the port's RNN op and ``torch.nn.LSTM``
    (cuDNN, a yardstick the port never calls), forward + backward at the
    same shape, through CUDA events and from CUDA graphs. (c) Three steps
    at batch 2 and dropout 0 from the same seeded weights on the card and
@@ -254,7 +256,7 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    closed by one fetch (img/s), 10 steps each closed by a fetch (median
    ms). Checks: losses finite and falling; K1–K5 launched 0 times (none
    lies on this path). Prints img/s, the step's median ms, device ms,
-   busy share and device operations a step (torch.profiler, three steps),
+   busy share and device operations a step (torch.profiler, one step),
    peak memory. (c) ``detect()`` on 32 of those images with the trained
    weights (f32; threshold 0.01, NMS 0.45, top 400): its ms (host clock
    to the synchronized rows) and ``MultiBoxDetection``'s alone, the K
@@ -322,7 +324,7 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    ``as_in_context(gpu(0))``. Checks: 16 finite losses; no hand-written
    kernel launched (none lies on the path). Prints img/s, the step's
    median ms (batch on the card to fetched loss), the consumer's wait a
-   batch p50/p99, device ms and busy share (three profiled steps), peak
+   batch p50/p99, device ms and busy share (one profiled step), peak
    memory, beside phase 5's img/s and step in the same run. Where the host
    has PIL or cv2, the same images as JPEG records (``pack_img``, quality
    95) and the same epoch through ``ImageRecordDataset``. (b)
@@ -357,8 +359,8 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    patience 0, min_delta 1e-3)`` stops by patience before its 3 epochs;
    finite losses; no hand-written kernel launched. Prints each epoch's
    training and validation accuracy and top-5, which handler stopped
-   training, img/s, the step median, device ms and busy share over three
-   profiled steps, the device-to-host copies a step with the two metrics
+   training, img/s, the step median, device ms and busy share over one
+   profiled step, the device-to-host copies a step with the two metrics
    and with the loss metric alone, peak memory, and phase 5's and phase
    13's img/s and step from this run. (b) ``resnet50_v2``, ``alexnet``,
    ``vgg16_bn``, ``squeezenet1_1``, ``densenet121``, ``inception_v3``
@@ -445,7 +447,7 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    --dist-worker``), held against one-process runs on the card made
    first, each with a limit of 4x a control's distance set before the
    ranks run: (b) ``BERTForPretraining(bert_base(max_length=128))`` bf16
-   over f32 masters, Adam(1e-4), dropout 0.1, on {"dp": 2}: 3 steps of a
+   over f32 masters, Adam(1e-4), dropout 0.1, on {"dp": 2}: 5 steps of a
    64 x 128 global batch (P = 19), 32 rows a rank, against the
    one-process 64 x 128 run; the control is that run with each step's
    gradient summed from its two 32-row halves (the global batch's dropout
@@ -501,17 +503,18 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    ms and the exchange counters against ``exchange_cost_bytes``. (e)
    ``runtime.Features()`` lists CUDA and the card; ``TensorInspector`` on
    a card tensor.
-18. Training resilience (``mxnet_tpu_torch.resilience``) on BERT-base
-   through K1-K3. (a)-(d) and (f) run in one process started with
-   ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` under
+18. Training resilience (``mxnet_tpu_torch.resilience``) on BERT at
+   full width through K1-K3. (a)-(d) and (f) run in one process started
+   with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` under
    ``torch.use_deterministic_algorithms(True)`` (``chip_smoke.py
    --slice18-worker det``), phase 4's step (bf16 over f32 masters, Adam,
-   dropout 0.1, 64 x 128, P = 19) under a ``RetryPolicy`` without backoff
+   dropout 0.1, 64 x 128, P = 19) on 4 of BERT-base's 12 layers
+   (``RES_LAYERS``) under a ``RetryPolicy`` without backoff
    sleeps, batches from a seeded shuffling DataLoader: (a) 8 steps, the
    losses and a sha256 of every parameter and optimizer state; (b)
    ``device_oom`` every 3rd attempt, a ``CheckpointManager`` (async, keep
    2) saving the step, the random state and the DataLoader's position
-   every 4 steps, a simulated crash after step 5, a new step from other
+   every 2 steps, a simulated crash after step 5, a new step from other
    weights, ``restore_latest`` (step 4) and on to step 8: losses and
    digest bitwise (a)'s; (c) a ``NumericsGuard(check_every_n=4)`` with
    ``nan_grad`` at step 3 (token batches: the loss is poisoned): bitwise
@@ -522,7 +525,7 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    on to step 8 bitwise (a)'s; (f) the checkpoint's bytes, a synchronous
    save's ms and MB/s, the loop's blocked ms under async saves,
    ``restore_latest``'s ms and the retry overhead a fault. K1-K3 launched
-   12 times a computed step. Then (a)'s first 3 steps twice in this
+   once a layer and computed step. Then (a)'s first 3 steps twice in this
    process without deterministic algorithms (bitwise or not, reported).
    (e) a two-rank job (``--slice18-worker tp``, both ranks on the card
    over gloo): BERT at full width with 2 layers on {"tp": 2}, a sharded
@@ -664,7 +667,40 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    computes what they read; the CPU tests run the readers themselves),
    and K1's launches are 12 x (the tenant's ``mxtpu_serving_batches_total``
    delta + both planes' probe and warm-up batches).
-23. A JSON line with the kernels' numbers (``launches_by_path`` gains
+23. The symbolic API on a BERT-base-width encoder written in ``mx.sym``
+   (``tools/symbol_bert.py``: 12 layers, 768 units, 12 heads, FFN 3072,
+   vocab 30522, a first-token head over 2 classes), f32, on ``gpu(0)``,
+   seeded weights carried from the Gluon ``bert_base(max_length=128)``:
+   (a) ``Module.bind`` at 32 x 128: shape inference (meta tensors)
+   allocates nothing, the bind allocates exactly the bound arguments,
+   gradients and auxiliary states, and no kernel is launched; (b) the
+   encoder's output (``get_internals()``), dropout 0, against the Gluon
+   ``BERTModel``'s sequence output on two batches within 1e-4 x max(1,
+   max|Gluon|); (c) ``Module.fit`` (Adam 1e-4, dropout 0.1, one epoch of 8
+   batches, ``do_checkpoint`` at its end), 5 ``forward_backward`` +
+   ``update`` on one fixed batch, then ``score``: every loss finite, the
+   fixed batch's loss falls, K1 launched 12 x forwards and K2, K3 12 x
+   backwards exactly; prints the step's median ms, tokens/s and peak
+   memory; (d) one f32 SGD step at 2 x 128 on the card against the CPU
+   (plain versions): loss within 1e-4 relative; each leaf's update held
+   against the step's f64 update (the graph bound in f64 on the CPU): the
+   card's distance at most SYM_DRIFT_FACTOR x the CPU's own f32 distance
+   plus one f32 ulp of the leaf's largest weight, in largest element and
+   in norm; (e) the epoch's checkpoint
+   files carry the reference's names, and ``Module.load`` + ``predict``
+   is bitwise the saved module's ``predict``; (f) ``BucketingModule``
+   over buckets 64 and 128: the parameter objects are shared (identity),
+   an update under bucket 128 is seen by bucket 64, exact launch counts;
+   (g) ``optimize_for(net, "xla")``: outputs and gradients bitwise the
+   unpartitioned graph's (a leaf the unpartitioned graph does not repeat
+   bitwise from run to run, as PyTorch's embedding backward at a 2-row
+   table may not, within 1e-4 x max(1, max|grad|)); (h) ``Monitor(1,
+   ".*attention.*")`` over one batch: 12 finite stats. Then K1, K2 and K3
+   f32 at (32, 12, 64, 64) (bucket 64's shape: half of each 128-row query
+   block masked) and (32, 12, 128, 64) against their plain versions, and
+   timed at the latter through the wrappers and from CUDA graphs beside SDPA's f32 forward and
+   backward and the bounds.
+24. A JSON line with the kernels' numbers (``launches_by_path`` gains
    ``int8_resnet``, ``int8_bert`` and ``kvstore_resnet`` (phase 15),
    ``dp_bert``, ``tp_bert`` and ``dist_trainer_bert``, counted on rank 0
    (phase 16), ``ring_attention`` (phase 17(b), rank 0),
@@ -677,9 +713,11 @@ JAX nor the JAX package. Phases (any failure exits non-zero):
    20), ``telemetry_serving``, ``telemetry_profiled_request``,
    ``telemetry_cost_batch``, ``telemetry_training`` and
    ``telemetry_oom_retry`` (phase 21), ``fleet_serving``,
-   ``fleet_training`` and ``fleet_frontdoor`` (phase 22), and K1-K3 gain
-   their times at the ring's block), then the last line ``{"ok": true,
-   "device": {...}}``.
+   ``fleet_training`` and ``fleet_frontdoor`` (phase 22) and
+   ``symbol_fit``, ``symbol_predict``, ``symbol_bucketing`` and
+   ``symbol_subgraph`` (phase 23), and K1-K3 gain their times at the
+   ring's block and their f32 times at phase 23's shape), then the last
+   line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -755,6 +793,13 @@ from mxnet_tpu_torch.tools import (RESNET50_V1_PARAM_COUNT, PretrainStep,
 from mxnet_tpu_torch.tools import int8_drift, op_cases
 from mxnet_tpu_torch.tools import rtc_examples as rx
 from mxnet_tpu_torch.tools.k4_compare import composition as k4_composition
+from mxnet_tpu_torch import callback as mcallback
+from mxnet_tpu_torch import module as mmod
+from mxnet_tpu_torch import monitor as mmonitor
+from mxnet_tpu_torch import subgraph
+from mxnet_tpu_torch import symbol as msym
+from mxnet_tpu_torch.tools.symbol_bert import (encoder_output,
+                                               gluon_arg_params, symbol_bert)
 
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,       # dense tensor cores
@@ -783,7 +828,8 @@ BWD_SHAPES = [  # (B, H, S, D), causal
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_P = 64, 128, 19   # bench.py's BERT cell
 TRAIN_K, TRAIN_CALLS, TRAIN_WARMUP, TRAIN_FIXED = 10, 3, 2, 10
 TRAIN_LR = 1e-4
-PROFILED_STEPS = 3         # steps under torch.profiler for the busy share
+PROFILED_STEPS = 1         # steps under torch.profiler for the busy share
+# (one: a profile's cost grows with its events)
 LENET_BATCH, LENET_STEPS, LENET_TOL = 64, 6, 1e-4
 GLUON_TIMED = 10           # timed Gluon steps: a window, then one by one
 GLUON_CHECK_STEPS = 3
@@ -937,7 +983,9 @@ def phase_environment(smi: str):
     nvcc = subprocess.run([_build._nvcc(), "--version"], check=True,
                           capture_output=True, text=True, timeout=60).stdout
     print(f"nvcc: {nvcc.strip().splitlines()[-1]}")
-    # one nvcc per library, started together
+    # the three libraries started together: K1's as one nvcc -c a head dim
+    # (fa.fwd_sources) and a link, K2+K3's and K4's one nvcc each
+    print(f"host cpus: {os.cpu_count()}")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(3) as pool:
         for f in [pool.submit(fa._kernel), pool.submit(fa._bwd_kernels),
@@ -948,9 +996,11 @@ def phase_environment(smi: str):
         log = _build.build_log(name)
         print(f"built {log['path']} (nvcc {log['seconds']:.1f} s, "
               f"cached={log['cached']})")
+        for obj in log.get("objects", []):
+            print(f"  object {obj['unit']}: {obj['seconds']:.1f} s")
         for line in log["ptxas"].splitlines():
             if "Compiling entry" in line or "registers" in line or \
-                    "spill" in line:
+                    "spill" in line or line.startswith("unit "):
                 print("  ptxas:", line.strip())
 
 
@@ -1104,10 +1154,11 @@ def _sdpa_bwd_graph_ms(q, k, v, do, scale, causal):
     return both - graph_ms(fwd)
 
 
-def time_backward(q, k, v, out, lse, do, scale, causal, smi, shape):
+def time_backward(q, k, v, out, lse, do, scale, causal, smi, shape,
+                  dtype=torch.bfloat16):
     """K2, K3 and the whole backward through the wrappers and from CUDA
     graphs, each kernel's plain version and SDPA's backward, beside the
-    bounds, at one shape (bf16); prints them and returns the record."""
+    bounds, at one shape and dtype; prints them and returns the record."""
     dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, do, lse, scale, causal)
     calls = {
         "dq": lambda: fa.flash_attention_bwd_dq(q, k, v, out, do, lse, scale,
@@ -1130,14 +1181,15 @@ def time_backward(q, k, v, out, lse, do, scale, causal, smi, shape):
         o_lib, (qs, ks, vs), do, retain_graph=True), calls=TIMED_CALLS)
     lib_dev = _sdpa_bwd_graph_ms(q, k, v, do, scale, causal)
     record = {"library_ms": lib, "library_device_ms": lib_dev}
-    line = (f"backward times at {shape} bf16 on {smi}: sdpa backward {lib:.4f}"
+    line = (f"backward times at {shape} {str(dtype)[6:]} on {smi}: sdpa "
+            f"backward {lib:.4f}"
             f" ms through autograd, {lib_dev:.4f} ms from a CUDA graph "
             f"(dq, dk, dv together)")
     for name, fn in calls.items():
         ms = median_ms(fn, calls=TIMED_CALLS)
         dev = graph_ms(fn)
         plain = median_ms(plains[name], reps=20, warmup=2, calls=TIMED_CALLS)
-        bms, by, nbytes, flops = bound_ms(shape, torch.bfloat16, causal, name)
+        bms, by, nbytes, flops = bound_ms(shape, dtype, causal, name)
         record[name] = {"ms": ms, "device_ms": dev, "plain_ms": plain,
                         "bound_ms": bms, "bound_by": by}
         line += (f"\n  {name}: {ms:.4f} ms ({dev:.4f} ms from a CUDA graph), "
@@ -5170,6 +5222,14 @@ def _same_on_ranks(tensors, what):
                          f"{len(tensors)} tensors, first {bad[:5]}")
 
 
+def _first_layers(named, layers):
+    """The weights of a ``layers``-layer BERTForPretraining at full width:
+    ``named`` without the encoder's later layers."""
+    return {k: v for k, v in named.items()
+            if not k.startswith("backbone.encoder.layer")
+            or int(k.split(".")[2][len("layer"):]) < layers}
+
+
 def _bert_model(dropout, layers=None):
     """BERTForPretraining over bert_base(max_length=128), or over the same
     width with ``layers`` layers."""
@@ -5438,9 +5498,7 @@ def dist_references(seed: int):
                                        ref["bert_losses"], ref["bert"],
                                        TRAIN_LR)
     del st
-    f32 = {k: v for k, v in named.items()
-           if not k.startswith("backbone.encoder.layer")
-           or int(k.split(".")[2][len("layer"):]) < DIST_F32["num_layers"]}
+    f32 = _first_layers(named, DIST_F32["num_layers"])
     st = _bert_step(f32, one, 0.0, None, layers=DIST_F32["num_layers"],
                     sgd=True, seed=seed)
     ref["f32_losses"] = _run_steps(st, batches, DIST_F32["steps"])
@@ -5551,7 +5609,8 @@ def _comm_alone(step, tp):
 
 
 def _dist_bert(seed, named, batches, tp, save):
-    """16(b) or (c) on this rank: 2 ranks, bf16 BERT-base, 5 steps."""
+    """16(b) or (c) on this rank: 2 ranks, bf16 BERT-base, DIST_STEPS
+    steps."""
     from mxnet_tpu_torch.parallel import collectives
     mesh = make_mesh({"tp": 2} if tp else {"dp": 2})
     step = _bert_step(named, mesh, 0.1, "bfloat16", tp=tp, seed=seed)
@@ -5592,9 +5651,7 @@ def _dist_bert(seed, named, batches, tp, save):
 def _dist_f32(seed, named, batches, tp):
     """The f32 2-layer run of 16(b)/(c) on this rank."""
     mesh = make_mesh({"tp": 2} if tp else {"dp": 2})
-    f32 = {k: v for k, v in named.items()
-           if not k.startswith("backbone.encoder.layer")
-           or int(k.split(".")[2][len("layer"):]) < DIST_F32["num_layers"]}
+    f32 = _first_layers(named, DIST_F32["num_layers"])
     step = _bert_step(f32, mesh, 0.0, None, tp=tp,
                       layers=DIST_F32["num_layers"], sgd=True, seed=seed)
     losses = _run_steps(step, step.place_batch_n(*batches), DIST_F32["steps"])
@@ -6535,6 +6592,9 @@ RES_CHECK_EVERY = 4            # (c): the guard's window
 RES_PREEMPT_AT = 4             # (d): the notice polled after this step
 RES_NONDET_STEPS = 3           # the check without deterministic algorithms
 RES_RETRY_TURNS = 3            # (f): clean and faulted steps, in turns
+RES_LAYERS = 4                 # (a)-(d), (f) and the nondeterministic
+# check: BERT at full width with 4 of its 12 layers (a depth cut for the
+# script's time: the checkpoint is 0.62 GB instead of 1.32 GB)
 RES_TP_LAYERS = 2              # (e): BERT at full width, 2 layers, tp=2
 RES_TP_STEPS, RES_TP_MORE = 3, 2
 RES_DLRM_STEPS = 4
@@ -6616,8 +6676,8 @@ def resilience_det(seed: int):
     from mxnet_tpu_torch.resilience import (CheckpointManager, NumericsGuard,
                                             PreemptionGuard, faults)
     torch.use_deterministic_algorithms(True)
-    named = seeded_bert_weights(BERTForPretraining(
-        bert_base(max_length=TRAIN_SEQ)), seed)
+    named = _first_layers(seeded_bert_weights(BERTForPretraining(
+        bert_base(max_length=TRAIN_SEQ)), seed), RES_LAYERS)
     host = pretrain_batch(np.random.default_rng(seed + 18), RES_STEPS,
                           TRAIN_BATCH, TRAIN_SEQ, TRAIN_P)
     out, t_phase = {}, time.perf_counter()
@@ -6626,7 +6686,7 @@ def resilience_det(seed: int):
 
     # (a) the uninterrupted control
     random.seed(seed)
-    step = _res_step(named, seed)
+    step = _res_step(named, seed, layers=RES_LAYERS)
     want, ms_a = _res_run(step, _res_loader(host), RES_STEPS)
     want_digest = _res_digest(step)
     computed += RES_STEPS
@@ -6641,7 +6701,7 @@ def resilience_det(seed: int):
     d_b = SLICE18_DIR / "b"
     random.seed(seed)
     loader = _res_loader(host)
-    step = _res_step(named, seed)
+    step = _res_step(named, seed, layers=RES_LAYERS)
     cm = CheckpointManager(str(d_b), keep=2, async_save=True)
     blocked, fault_ms, clean_ms = [], [], []
 
@@ -6678,7 +6738,8 @@ def resilience_det(seed: int):
         torch.cuda.empty_cache()
         random.seed(seed + 99)            # the new process's own seed
         loader = _res_loader(host)
-        step = _res_step(_res_other(named), seed + 99)
+        step = _res_step(_res_other(named), seed + 99,
+                              layers=RES_LAYERS)
         cm = CheckpointManager(str(d_b), keep=2, async_save=True)
         t0 = time.perf_counter()
         restored = cm.restore_latest(train_step=step, dataloader=loader)
@@ -6727,7 +6788,7 @@ def resilience_det(seed: int):
 
     # (c) NumericsGuard, nan_grad at step 3: bitwise the run without it
     placed = [_at(host, i) for i in range(RES_STEPS)]
-    step = _res_step(named, seed)
+    step = _res_step(named, seed, layers=RES_LAYERS)
     guard = NumericsGuard(check_every_n=RES_CHECK_EVERY, policy="skip")
     guard.attach(step)
     ms_c = []
@@ -6753,7 +6814,7 @@ def resilience_det(seed: int):
                                 if (i + 1) % RES_CHECK_EVERY == 0]}
     del step, guard
     torch.cuda.empty_cache()
-    step = _res_step(named, seed)
+    step = _res_step(named, seed, layers=RES_LAYERS)
     ms_o = []
     for i in range(RES_STEPS):
         if i == RES_NAN_AT - 1:
@@ -6773,7 +6834,7 @@ def resilience_det(seed: int):
     d_d = SLICE18_DIR / "d"
     random.seed(seed)
     loader = _res_loader(host)
-    step = _res_step(named, seed)
+    step = _res_step(named, seed, layers=RES_LAYERS)
     cm = CheckpointManager(str(d_d), keep=2, async_save=True)
     pg = PreemptionGuard(cm, capture=dict(train_step=step,
                                           dataloader=loader))
@@ -6788,7 +6849,7 @@ def resilience_det(seed: int):
     info = PreemptionGuard.resume_info(cm)
     random.seed(seed + 7)
     loader = _res_loader(host)
-    step = _res_step(_res_other(named), seed + 7)
+    step = _res_step(_res_other(named), seed + 7, layers=RES_LAYERS)
     restored = cm.restore_latest(train_step=step, dataloader=loader)
     more, _ = _res_run(step, loader, RES_STEPS, start=restored[0])
     computed += len(more)
@@ -6818,8 +6879,8 @@ def resilience_tp(seed: int):
                                             faults)
     mesh = make_mesh({"tp": 2})
     rank = collectives.rank()
-    named = _res_layers(seeded_bert_weights(BERTForPretraining(
-        bert_base(max_length=TRAIN_SEQ)), seed))
+    named = _first_layers(seeded_bert_weights(BERTForPretraining(
+        bert_base(max_length=TRAIN_SEQ)), seed), RES_TP_LAYERS)
     batches = _bert_batches(seed, RES_TP_STEPS + RES_TP_MORE)
     step = _res_step(named, seed, layers=RES_TP_LAYERS, mesh=mesh, tp=True)
     placed = step.place_batch_n(*batches)
@@ -6878,13 +6939,6 @@ def resilience_tp(seed: int):
     return res
 
 
-def _res_layers(named):
-    """The weights of a RES_TP_LAYERS-layer BERT at full width."""
-    return {k: v for k, v in named.items()
-            if not k.startswith("backbone.encoder.layer")
-            or int(k.split(".")[2][len("layer"):]) < RES_TP_LAYERS}
-
-
 def _res_flat(state):
     out = {f"params_{k}": v for k, v in state["params"].items()}
     for j, leaves in state["opt"].items():
@@ -6910,14 +6964,14 @@ def slice18_worker(mode: str, seed: int) -> int:
 def _res_nondeterministic(seed: int):
     """(a)'s control twice for RES_NONDET_STEPS steps in this process,
     without deterministic algorithms: bitwise or not (reported)."""
-    named = seeded_bert_weights(BERTForPretraining(
-        bert_base(max_length=TRAIN_SEQ)), seed)
+    named = _first_layers(seeded_bert_weights(BERTForPretraining(
+        bert_base(max_length=TRAIN_SEQ)), seed), RES_LAYERS)
     host = pretrain_batch(np.random.default_rng(seed + 18), RES_STEPS,
                           TRAIN_BATCH, TRAIN_SEQ, TRAIN_P)
     runs = []
     for _ in range(2):
         random.seed(seed)
-        step = _res_step(named, seed)
+        step = _res_step(named, seed, layers=RES_LAYERS)
         losses, _ = _res_run(step, _res_loader(host), RES_NONDET_STEPS)
         runs.append((losses, _res_digest(step)))
         del step
@@ -6933,8 +6987,8 @@ def _res_tp_report(ranks, seed, smi):
     r0 = ranks[0]
     d = SLICE18_DIR / "tp" / f"ckpt-{RES_TP_STEPS:08d}"
     shards = sorted(f for f in os.listdir(d) if f.startswith("shard-"))
-    named = _res_layers(seeded_bert_weights(BERTForPretraining(
-        bert_base(max_length=TRAIN_SEQ)), seed))
+    named = _first_layers(seeded_bert_weights(BERTForPretraining(
+        bert_base(max_length=TRAIN_SEQ)), seed), RES_TP_LAYERS)
     batches = _bert_batches(seed, RES_TP_STEPS + RES_TP_MORE)
     want = dict(np.load(SLICE18_DIR / "tp_state.npz"))
     cm = CheckpointManager(str(SLICE18_DIR / "tp"))
@@ -7050,7 +7104,8 @@ def phase_resilience(seed: int, smi: str):
     exp = det["layers"] * det["computed_steps"]
     print(f"18 in a process under torch.use_deterministic_algorithms(True) "
           f"and CUBLAS_WORKSPACE_CONFIG={RES_DET_ENV['CUBLAS_WORKSPACE_CONFIG']}"
-          f" ({det['seconds']:.1f} s): BERT-base bf16 over f32 masters, "
+          f" ({det['seconds']:.1f} s): BERT at full width with "
+          f"{det['layers']} layers, bf16 over f32 masters, "
           f"Adam, dropout 0.1, {TRAIN_BATCH} x {TRAIN_SEQ} (P = {TRAIN_P}) "
           f"from a seeded shuffling DataLoader; K1-K3 launches "
           f"{det['launches']} (expected {det['layers']} x "
@@ -9262,6 +9317,559 @@ def phase_fleet(seed: int, smi: str):
             "hand": {"fleet_training": dict(r["b"]["launches"], K4=0, K5=0)}}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the symbolic API (Symbol, Executor, Module, BucketingModule,
+# the subgraph partitioner, Monitor, checkpoints) over a BERT-base-width
+# encoder written in mx.sym
+# ---------------------------------------------------------------------------
+SYM_CFG = dict(layers=12, units=768, heads=12, ffn=3072, vocab=30522,
+               classes=2)
+SYM_BATCH, SYM_SEQ = 32, 128         # (a)-(c), (e)
+SYM_SHAPE = (SYM_BATCH, 12, SYM_SEQ, 64)    # K1-K3's f32 instances here
+SYM_FIT_BATCHES = 8                  # (c): one epoch
+SYM_FIXED_STEPS = 5                  # (c): steps on one fixed batch
+SYM_LR = 1e-4                        # (c): Adam
+SYM_DROPOUT = 0.1
+SYM_GLUON_BATCHES = 2                # (b)
+SYM_GLUON_TOL = 1e-4                 # (b): x max(1, max|Gluon|)
+SYM_CPU_BATCH = 2                    # (d)
+SYM_SGD_LR = 0.01                    # (d)
+SYM_LOSS_RTOL = 1e-4                 # (d)
+SYM_DRIFT_FACTOR = 3.0               # (d): x the CPU's own f32 drift
+SYM_PREDICT_BATCHES = 2              # (e)
+SYM_BUCKETS = (64, 128)              # (f)
+SYM_SUBGRAPH_BATCH = 8               # (g)
+SYM_DIR = Path(__file__).resolve().parent / "build" / "phase_symbolic23"
+
+
+def _sym_net(dropout):
+    return symbol_bert(msym, seq=SYM_SEQ, dropout=dropout, **SYM_CFG)
+
+
+def _sym_params(named, seed, ctx):
+    """The graph's arguments from the Gluon model's seeded weights, the
+    first-token head seeded beside them, as NDArrays on ``ctx``."""
+    rng = np.random.default_rng(seed + 23)
+    units, classes = SYM_CFG["units"], SYM_CFG["classes"]
+    args = dict(gluon_arg_params(named))
+    args["cls_weight"] = (rng.standard_normal((classes, units), np.float32)
+                          * np.float32(units ** -0.5))
+    args["cls_bias"] = np.zeros(classes, np.float32)
+    return {k: nd.array(v, ctx=ctx, dtype="float32")
+            for k, v in args.items()}
+
+
+def _sym_batches(seed, n, batch, seq):
+    rng = np.random.default_rng(seed + 230 + seq)
+    tokens = rng.integers(0, SYM_CFG["vocab"], (n * batch, seq))
+    labels = rng.integers(0, SYM_CFG["classes"], (n * batch,))
+    return tokens.astype(np.float32), labels.astype(np.float32)
+
+
+def _sym_module(net, ctx, batch, seq, params, for_training=True):
+    m = mmod.Module(net, data_names=("data",),
+                    label_names=("softmax_label",), context=ctx)
+    m.bind(data_shapes=[("data", (batch, seq))],
+           label_shapes=[("softmax_label", (batch,))],
+           for_training=for_training)
+    m.init_params(arg_params=params, aux_params={})
+    return m
+
+
+class _SymBatch:
+    """One batch of a bucket, as ``BucketingModule.forward`` reads it."""
+
+    def __init__(self, tokens, labels, ctx):
+        self.bucket_key = tokens.shape[1]
+        self.data = [nd.array(tokens, ctx=ctx)]
+        self.label = [nd.array(labels, ctx=ctx)]
+        self.provide_data = [("data", tokens.shape)]
+        self.provide_label = [("softmax_label", labels.shape)]
+
+
+def _xent(probs, labels):
+    """Mean cross-entropy of SoftmaxOutput probabilities (a device scalar)."""
+    y = labels.to(device=probs.device, dtype=torch.long)
+    return -torch.log(probs.gather(1, y[:, None]).clamp_min(1e-30)).mean()
+
+
+def _sym_loss(m, labels):
+    """Mean cross-entropy of the bound module's outputs (a device
+    scalar)."""
+    return _xent(m.get_outputs()[0].data, labels.data)
+
+
+def _k123():
+    return fa.launches, fa.launches_dq, fa.launches_dkv
+
+
+def _sym_alloc():
+    """(requested bytes, allocations) so far on card 0 (the caching
+    allocator's counts before its rounding)."""
+    st = torch.cuda.memory_stats(0)
+    return st["requested_bytes.all.allocated"], st["allocation.all.allocated"]
+
+
+def _sym_bind(net, smi):
+    """(a): the bind's shape inference and allocation, no launch."""
+    ctx = gpu(0)
+    _zero_counters()
+    torch.cuda.synchronize()
+    shapes = dict(data=(SYM_BATCH, SYM_SEQ), softmax_label=(SYM_BATCH,))
+    before = _sym_alloc()
+    t0 = time.perf_counter()
+    net.infer_shape(**shapes)
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net.infer_shape(**shapes)
+    infer_s = time.perf_counter() - t0
+    inferred = _sym_alloc()
+    t0 = time.perf_counter()
+    m = mmod.Module(net, context=ctx)
+    m.bind(data_shapes=[("data", shapes["data"])],
+           label_shapes=[("softmax_label", shapes["softmax_label"])])
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    after = _sym_alloc()
+    ex = m._exec
+    arrays = list(ex.arg_dict.values()) + list(ex.aux_dict.values()) + \
+        list(ex.grad_dict.values())
+    want = (sum(a.data.numel() * a.data.element_size() for a in arrays),
+            len(arrays))
+    got = (after[0] - inferred[0], after[1] - inferred[1])
+    counts = _read_counters()
+    print(f"23(a) bind BERT-base ({SYM_CFG['layers']} layers) at "
+          f"{SYM_BATCH} x {SYM_SEQ} f32: shape inference {cold_s:.3f} s "
+          f"the first time here (in a new process that includes loading "
+          f"PyTorch's meta kernels), {infer_s:.3f} s the second "
+          f"({inferred[0] - before[0]} bytes in "
+          f"{inferred[1] - before[1]} allocations), bind {bind_s:.3f} s: "
+          f"{len(ex.arg_dict)} arguments, {len(ex.grad_dict)} gradients, "
+          f"{got[0]} bytes in {got[1]} allocations (the bound arrays: "
+          f"{want[0]} bytes, {want[1]} arrays); launches {counts} on {smi}")
+    return inferred == before and got == want and not any(counts.values())
+
+
+def _sym_vs_gluon(named, params, seed, smi):
+    """(b): the encoder's output against the Gluon BERTModel's sequence
+    output, dropout 0, both on the card."""
+    ctx = gpu(0)
+    model = bert_base(max_length=SYM_SEQ, dropout=0.0)
+    load_jax_params(model, named, ctx=ctx)
+    enc = encoder_output(_sym_net(0.0), SYM_CFG["layers"])
+    ex = enc.simple_bind(ctx, grad_req="null", data=(SYM_BATCH, SYM_SEQ))
+    ex.copy_params_from(params, allow_extra_params=True)
+    tokens, _ = _sym_batches(seed, SYM_GLUON_BATCHES, SYM_BATCH, SYM_SEQ)
+    worst = 0.0
+    for i in range(SYM_GLUON_BATCHES):
+        tok = tokens[i * SYM_BATCH:(i + 1) * SYM_BATCH]
+        got = ex.forward(data=tok)[0].data
+        t = nd.array(tok, ctx=ctx, dtype="int32")
+        want = model(t, nd.zeros(tok.shape, ctx=ctx, dtype="int32"))[0].data
+        err = ((got - want).abs().max()
+               / max(1.0, want.abs().max().item())).item()
+        worst = max(worst, err)
+    print(f"23(b) the symbolic encoder vs the Gluon BERTModel, "
+          f"{SYM_GLUON_BATCHES} batches of {SYM_BATCH} x {SYM_SEQ} f32: "
+          f"max|d| / max(1, max|Gluon|) = {worst:.3g} (tol "
+          f"{SYM_GLUON_TOL:g}) on {smi}")
+    return worst <= SYM_GLUON_TOL
+
+
+def _sym_fit(params, seed, smi, prefix):
+    """(c) Module.fit, the fixed batch, score; (e)'s first predict and
+    do_checkpoint at the epoch's end. Returns the module's launches."""
+    ctx = gpu(0)
+    random.seed(seed)
+    tokens, labels = _sym_batches(seed, SYM_FIT_BATCHES, SYM_BATCH, SYM_SEQ)
+    train = io.NDArrayIter(tokens, labels, batch_size=SYM_BATCH,
+                           label_name="softmax_label")
+    m = mmod.Module(_sym_net(SYM_DROPOUT), context=ctx)
+    losses, stamps = [], []
+
+    def batch_end(param):
+        losses.append(_sym_loss(m, param.locals["data_batch"].label[0]))
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m.fit(train, num_epoch=1, optimizer="adam",
+          optimizer_params={"learning_rate": SYM_LR}, arg_params=params,
+          aux_params={}, eval_metric="acc", batch_end_callback=batch_end,
+          epoch_end_callback=mcallback.do_checkpoint(prefix))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    step_ms = float(np.median(np.diff([t0] + stamps)[1:])) * 1e3
+    fit_counts = _k123()
+    # (e): the module's predictions right after the epoch
+    pred_iter = io.NDArrayIter(tokens[:SYM_PREDICT_BATCHES * SYM_BATCH],
+                               labels[:SYM_PREDICT_BATCHES * SYM_BATCH],
+                               batch_size=SYM_BATCH,
+                               label_name="softmax_label")
+    _zero_counters()
+    saved_pred = m.predict(pred_iter).data.clone()
+    predict_counts = _k123()
+    # (c): SYM_FIXED_STEPS steps on one fixed batch, then score
+    _zero_counters()
+    fixed = io.DataBatch(data=[nd.array(tokens[:SYM_BATCH], ctx=cpu())],
+                         label=[nd.array(labels[:SYM_BATCH], ctx=cpu())])
+    fixed_losses = []
+    t1 = time.perf_counter()
+    for _ in range(SYM_FIXED_STEPS):
+        m.forward_backward(fixed)
+        m.update()
+        fixed_losses.append(_sym_loss(m, fixed.label[0]))
+    torch.cuda.synchronize()
+    fixed_s = time.perf_counter() - t1
+    score = dict(m.score(train, "acc"))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    k1, k2, k3 = (a + b for a, b in zip(fit_counts, _k123()))
+    layers = SYM_CFG["layers"]
+    forwards = SYM_FIT_BATCHES + SYM_FIXED_STEPS + SYM_FIT_BATCHES
+    backwards = SYM_FIT_BATCHES + SYM_FIXED_STEPS
+    all_losses = torch.stack(losses + fixed_losses).cpu()
+    tokens_s = SYM_BATCH * SYM_SEQ * SYM_FIXED_STEPS / fixed_s
+    print(f"23(c) Module.fit BERT-base f32, Adam({SYM_LR:g}), dropout "
+          f"{SYM_DROPOUT}: {SYM_FIT_BATCHES} batches of {SYM_BATCH} x "
+          f"{SYM_SEQ} in {fit_s:.2f} s (step median {step_ms:.1f} ms), "
+          f"losses {[round(x, 4) for x in all_losses[:SYM_FIT_BATCHES].tolist()]}"
+          f"; fixed batch {[round(x, 4) for x in all_losses[SYM_FIT_BATCHES:].tolist()]}"
+          f" ({tokens_s:.0f} tokens/s over {SYM_FIXED_STEPS} forward_backward"
+          f" + update); score {score}; K1 {k1} (want {layers * forwards}), "
+          f"K2 {k2}, K3 {k3} (want {layers * backwards}); peak device "
+          f"memory {peak / 2**30:.2f} GiB on {smi}")
+    ok = bool(torch.isfinite(all_losses).all()) \
+        and all_losses[-1] < all_losses[SYM_FIT_BATCHES] \
+        and k1 == layers * forwards and k2 == k3 == layers * backwards \
+        and predict_counts == (layers * SYM_PREDICT_BATCHES, 0, 0)
+    return ok, {"fit": (k1, k2, k3), "predict": predict_counts,
+                "pred_iter": pred_iter, "saved_pred": saved_pred}
+
+
+def _sym_checkpoint(prefix, fit, smi):
+    """(e): the epoch's checkpoint, written by do_checkpoint, loaded by
+    Module.load; its predictions bitwise the saved module's."""
+    files = sorted(p.name for p in SYM_DIR.iterdir())
+    want_files = [f"{Path(prefix).name}-0001.params",
+                  f"{Path(prefix).name}-symbol.json"]
+    m = mmod.Module.load(prefix, 1, context=gpu(0))
+    m.bind(data_shapes=[("data", (SYM_BATCH, SYM_SEQ))],
+           label_shapes=[("softmax_label", (SYM_BATCH,))],
+           for_training=False)
+    _zero_counters()
+    got = m.predict(fit["pred_iter"]).data
+    counts = _k123()
+    same = torch.equal(got, fit["saved_pred"])
+    print(f"23(e) do_checkpoint wrote {files}; Module.load + predict of "
+          f"{SYM_PREDICT_BATCHES} batches bitwise the saved module's: "
+          f"{same}; K1 {counts[0]} on {smi}")
+    return same and files == want_files and \
+        counts == (SYM_CFG["layers"] * SYM_PREDICT_BATCHES, 0, 0), counts
+
+
+def _sym_bucketing(params, seed, smi):
+    """(f): buckets 64 and 128 over shared parameter objects."""
+    ctx = gpu(0)
+
+    def sym_gen(key):
+        return _sym_net(0.0), ("data",), ("softmax_label",)
+
+    bm = mmod.BucketingModule(sym_gen, default_bucket_key=SYM_BUCKETS[-1],
+                              context=ctx)
+    bm.bind(data_shapes=[("data", (SYM_BATCH, SYM_BUCKETS[-1]))],
+            label_shapes=[("softmax_label", (SYM_BATCH,))])
+    bm.init_params(arg_params=params, aux_params={})
+    bm.init_optimizer(optimizer="sgd",
+                      optimizer_params={"learning_rate": SYM_SGD_LR})
+    batches = {s: _SymBatch(*_sym_batches(seed, 1, SYM_BATCH, s), ctx)
+               for s in SYM_BUCKETS}
+    _zero_counters()
+    short, long_ = SYM_BUCKETS
+    bm.forward(batches[short], is_train=False)
+    before = bm.get_outputs()[0].data.clone()
+    shared = all(bm._buckets[short]._exec.arg_dict[k]
+                 is bm._buckets[long_]._exec.arg_dict[k]
+                 for k in params)
+    bm.forward(batches[long_], is_train=True)
+    bm.backward()
+    bm.update()
+    bm.forward(batches[short], is_train=True)
+    bm.backward()
+    bm.update()
+    bm.forward(batches[short], is_train=False)
+    after = bm.get_outputs()[0].data
+    w = "layer0_qkv_weight"
+    seen = torch.equal(bm._buckets[short]._exec.arg_dict[w].data,
+                       bm._buckets[long_]._exec.arg_dict[w].data)
+    counts = _k123()
+    layers = SYM_CFG["layers"]
+    moved = not torch.equal(before, after)
+    print(f"23(f) BucketingModule buckets {SYM_BUCKETS}: parameter objects "
+          f"shared: {shared}; the bucket-{long_} update seen by bucket "
+          f"{short}: {seen and moved}; K1 {counts[0]} (want {layers * 4}), "
+          f"K2 {counts[1]}, K3 {counts[2]} (want {layers * 2}) on {smi}")
+    return shared and seen and moved and \
+        counts == (layers * 4, layers * 2, layers * 2), counts
+
+
+def _sym_subgraph(params, seed, smi):
+    """(g): optimize_for(net, "xla") against the unpartitioned graph,
+    outputs and every gradient bitwise; the unpartitioned graph run twice
+    as the control of run-to-run repeatability."""
+    ctx = gpu(0)
+    net = _sym_net(0.0)
+    part = subgraph.optimize_for(net, "xla")
+    regions = sum(n.op == "_CachedSubgraph" for n in part._topo())
+    tokens, labels = _sym_batches(seed, 1, SYM_SUBGRAPH_BATCH, SYM_SEQ)
+    runs = {}
+    for name, s in (("plain", net), ("partitioned", part),
+                    ("control", net)):
+        ex = s.simple_bind(ctx, data=(SYM_SUBGRAPH_BATCH, SYM_SEQ),
+                           softmax_label=(SYM_SUBGRAPH_BATCH,),
+                           grad_req={k: "null" if k in (
+                               "data", "softmax_label") else "write"
+                               for k in s.list_arguments()})
+        ex.copy_params_from(params)
+        _zero_counters()
+        out = ex.forward(is_train=True, data=tokens, softmax_label=labels)
+        ex.backward()
+        torch.cuda.synchronize()
+        runs[name] = ([o.data.clone() for o in out],
+                      {k: g.data.clone() for k, g in ex.grad_dict.items()},
+                      _k123())
+        del ex, out
+    plain, part_run, control = (runs[k] for k in ("plain", "partitioned",
+                                                  "control"))
+    outs_same = all(torch.equal(a, b) for a, b in zip(part_run[0], plain[0]))
+    unrepeatable = sorted(k for k in plain[1]
+                          if not torch.equal(plain[1][k], control[1][k]))
+    differ = sorted(k for k in plain[1]
+                    if not torch.equal(part_run[1][k], plain[1][k]))
+    # a leaf the unpartitioned graph itself does not repeat bitwise is held
+    # within 1e-4 x max(1, max|grad|) (f32 sums in another order)
+    loose = {k: ((part_run[1][k] - plain[1][k]).abs().max()
+                 / max(1.0, plain[1][k].abs().max().item())).item()
+             for k in unrepeatable}
+    layers = SYM_CFG["layers"]
+    print(f"23(g) optimize_for(net, 'xla'): {regions} _CachedSubgraph "
+          f"node(s); outputs bitwise: {outs_same}; gradients bitwise: "
+          f"{len(plain[1]) - len(differ)} of {len(plain[1])}; leaves the "
+          f"unpartitioned graph does not repeat bitwise: {unrepeatable} "
+          f"(partitioned within {loose}); launches {part_run[2]} on {smi}")
+    return regions >= 1 and outs_same \
+        and set(differ) <= set(unrepeatable) \
+        and all(v <= 1e-4 for v in loose.values()) \
+        and part_run[2] == (layers, layers, layers), part_run[2]
+
+
+def _sym_monitor(params, seed, smi):
+    """(h): Monitor(1, ".*attention.*") over one batch: one stat per
+    attention node, each finite."""
+    m = _sym_module(_sym_net(0.0), gpu(0), SYM_BATCH, SYM_SEQ, params,
+                    for_training=False)
+    mon = mmonitor.Monitor(1, pattern=".*attention.*")
+    m.install_monitor(mon)
+    tokens, labels = _sym_batches(seed, 1, SYM_BATCH, SYM_SEQ)
+    mon.tic()
+    m.forward(io.DataBatch(data=[nd.array(tokens, ctx=cpu())],
+                           label=[nd.array(labels, ctx=cpu())]),
+              is_train=False)
+    rows = mon.toc()
+    names = [name for _, name, _ in rows]
+    vals = [float(text.split("\t")[0]) for _, _, text in rows]
+    want = [f"layer{i}_attention_output" for i in range(SYM_CFG["layers"])]
+    print(f"23(h) Monitor(1, '.*attention.*'): {len(rows)} stats, "
+          f"{names[:2]} ... {names[-1:]}, mean |x| {min(vals):.4g} .. "
+          f"{max(vals):.4g} on {smi}")
+    return names == want and all(math.isfinite(v) for v in vals)
+
+
+def _sym_card_vs_cpu(params_of, smi):
+    """(d): one f32 SGD step at batch 2 on the card against the same step
+    on the CPU (plain versions), each leaf's update (w before - w after)
+    held against the step's f64 update lr x gradient (the graph bound in
+    f64 on the CPU, every op and the attention's plain versions in f64):
+    the card's distance to it at most SYM_DRIFT_FACTOR times the CPU's f32
+    distance, in largest element and in norm, each plus one f32 ulp of the
+    leaf's largest weight (an f32 update is a difference of two f32
+    weights)."""
+    tokens, labels = _sym_batches(0, 1, SYM_CPU_BATCH, SYM_SEQ)
+    batch = io.DataBatch(data=[nd.array(tokens, ctx=cpu())],
+                         label=[nd.array(labels, ctx=cpu())])
+    runs = {}
+    for name, ctx in (("card", gpu(0)), ("cpu", cpu())):
+        m = _sym_module(_sym_net(0.0), ctx, SYM_CPU_BATCH, SYM_SEQ,
+                        params_of(ctx))
+        m.init_optimizer(optimizer="sgd",
+                         optimizer_params={"learning_rate": SYM_SGD_LR})
+        before = {k: v.data.detach().cpu().clone()
+                  for k, v in m.get_params()[0].items()}
+        m.forward_backward(batch)
+        m.update()
+        loss = _xent(m.get_outputs()[0].data, batch.label[0].data).item()
+        runs[name] = (loss, {k: (before[k] - v.data.detach().cpu()).double()
+                             for k, v in m.get_params()[0].items()}, before)
+        del m
+    net = _sym_net(0.0)
+    args = {k: nd.array(v.asnumpy(), ctx=cpu(), dtype="float64")
+            for k, v in params_of(cpu()).items()}
+    args["data"] = nd.array(tokens, ctx=cpu(), dtype="float64")
+    args["softmax_label"] = nd.array(labels, ctx=cpu(), dtype="float64")
+    ex = net.bind(cpu(), args=args, grad_req={
+        k: "null" if k in ("data", "softmax_label") else "write"
+        for k in args})
+    loss64 = _xent(ex.forward(is_train=True)[0].data,
+                   torch.as_tensor(labels)).item()
+    ex.backward()
+    u64 = {k: SYM_SGD_LR * g.data for k, g in ex.grad_dict.items()}
+    (l_gpu, u_gpu, w0), (l_cpu, u_cpu, _) = runs["card"], runs["cpu"]
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    eps = torch.finfo(torch.float32).eps
+    worst = {"max": (0.0, None), "norm": (0.0, None)}
+    fails, reading = [], 0.0
+    for k in u64:
+        ulp = eps * w0[k].abs().max().item()
+        for kind, dist in (("max", lambda d: d.abs().max().item()),
+                           ("norm", lambda d: d.norm().item())):
+            card, own = dist(u_gpu[k] - u64[k]), dist(u_cpu[k] - u64[k])
+            ratio = card / (SYM_DRIFT_FACTOR * own + ulp)
+            if ratio > worst[kind][0]:
+                worst[kind] = (ratio, k)
+            if ratio > 1:
+                fails.append(f"{k} ({kind})")
+        reading = max(reading, (u_gpu[k] - u_cpu[k]).abs().max().item()
+                      / u_cpu[k].abs().max().item())
+    print(f"23(d) one f32 SGD step at {SYM_CPU_BATCH} x {SYM_SEQ}, card vs "
+          f"CPU plain versions: loss {l_gpu:.7f} vs {l_cpu:.7f} (relative "
+          f"{rel:.3g}, tol {SYM_LOSS_RTOL:g}; f64 {loss64:.7f}); each "
+          f"leaf's update against the f64 step's: card distance / "
+          f"({SYM_DRIFT_FACTOR:g} x the CPU's f32 distance + 1 ulp) at most "
+          f"{worst['max'][0]:.3g} ({worst['max'][1]}) in largest element, "
+          f"{worst['norm'][0]:.3g} ({worst['norm'][1]}) in norm (tol 1); "
+          f"card vs CPU update, largest over leaves of max|d| / max|CPU "
+          f"update|: {reading:.3g}; beyond: {fails[:4]} on {smi}")
+    return rel <= SYM_LOSS_RTOL and not fails
+
+
+def _sym_kernel_check(shape, gen, smi):
+    """K1, K2 and K3 f32 at ``shape`` on the card against their plain
+    versions on the same inputs (the q, k, v of a split QKV projection):
+    ``(ok, K1's max|d|, inputs and K1's outputs)``."""
+    B, H, S, D = shape
+    dt = torch.float32
+    q, k, v = split_qkv(shape, gen, dt)
+    do = _randn((B, S, H, D), gen, dt).transpose(1, 2)
+    scale = D ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, scale, False)
+    ref, ref_lse = fa.flash_attention_fwd_reference(q, k, v, scale, False)
+    err = max((out - ref).abs().max().item(),
+              (lse - ref_lse).abs().max().item())
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, do, lse, scale, False)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                        False)
+    want_dq = fa.flash_attention_bwd_dq_reference(q, k, v, out, do, lse,
+                                                  scale, False)
+    want_dkv = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                    scale, False)
+    errs_dq, ok_dq = _bwd_errors((dq, delta), want_dq, dt)
+    errs_dkv, ok_dkv = _bwd_errors((dk, dv), want_dkv, dt)
+    print(f"23 K1 f32 {shape}: max|d| vs plain {err:.3g} (tol {TOL[dt]:g});"
+          f" K2 max|d dq|, |d delta| {errs_dq}; K3 max|d dk|, |d dv| "
+          f"{errs_dkv} (tol {TOL[dt]:g} x max(1, max|plain|)) on {smi}")
+    ok = err <= TOL[dt] and ok_dq and ok_dkv
+    return ok, err, (max(errs_dq), max(errs_dkv)), (q, k, v, do, out, lse)
+
+
+def _sym_kernel_times(seed, smi):
+    """K1, K2 and K3 f32 against their plain versions at SYM_SHAPE and at
+    the first bucket's (half of each 128-row f32 query block masked), then
+    timed at SYM_SHAPE through their wrappers and from CUDA graphs, beside
+    SDPA's f32 forward and backward and the bounds (TF32 off for SDPA's
+    products, as everywhere in the port)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    dt = torch.float32
+    ok_bucket = _sym_kernel_check(
+        (SYM_BATCH, 12, SYM_BUCKETS[0], 64), gen, smi)[0]
+    ok, err, (err_dq, err_dkv), (q, k, v, do, out, lse) = \
+        _sym_kernel_check(SYM_SHAPE, gen, smi)
+    D = SYM_SHAPE[3]
+    scale = D ** -0.5
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qc, kc, vc, scale=scale)
+
+    ms = median_ms(lambda: fa.flash_attention_fwd(q, k, v, scale, False),
+                   calls=TIMED_CALLS)
+    dev = graph_ms(lambda: fa.flash_attention_fwd(q, k, v, scale, False))
+    plain = median_ms(lambda: fa.flash_attention_fwd_reference(
+        q, k, v, scale, False), reps=20, warmup=2, calls=TIMED_CALLS)
+    lib = median_ms(sdpa, calls=TIMED_CALLS)
+    lib_dev = graph_ms(sdpa)
+    bms, by, nbytes, flops = bound_ms(SYM_SHAPE, dt, False)
+    print(f"23 K1 f32 {SYM_SHAPE}: kernel {ms:.4f} ms ({dev:.4f} ms from a "
+          f"CUDA graph), plain {plain:.4f} ms, sdpa f32 {lib:.4f} ms "
+          f"({lib_dev:.4f} ms from a CUDA graph), bound {bms * 1e3:.1f} us "
+          f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+          f"{bms / dev:.1%} of bound from the graph on {smi}")
+    rec = {"fwd": {"ms": ms, "device_ms": dev, "plain_ms": plain,
+                   "library_ms": lib, "library_device_ms": lib_dev,
+                   "bound_ms": bms, "bound_by": by, "max_abs_err": err}}
+    rec["bwd"] = time_backward(q, k, v, out, lse, do, scale, False, smi,
+                               SYM_SHAPE, dtype=dt)
+    rec["dq_err"], rec["dkv_err"] = err_dq, err_dkv
+    return ok and ok_bucket, rec
+
+
+def phase_symbolic(seed: int, smi: str):
+    """Phase 23: the symbolic API over BERT-base in f32 (see the module
+    docstring, item 23)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(SYM_DIR, ignore_errors=True)
+    SYM_DIR.mkdir(parents=True)
+    prefix = str(SYM_DIR / "symbert")
+    named = seeded_bert_weights(bert_base(max_length=SYM_SEQ), seed)
+    params = _sym_params(named, seed, gpu(0))
+    checks, secs = {}, {}
+    marks = [time.perf_counter()]
+
+    def part(name, result):
+        marks.append(time.perf_counter())
+        secs[name] = marks[-1] - marks[-2]
+        return result
+
+    checks["a"] = part("a", _sym_bind(_sym_net(SYM_DROPOUT), smi))
+    checks["b"] = part("b", _sym_vs_gluon(named, params, seed, smi))
+    checks["c"], fit = part("c", _sym_fit(params, seed, smi, prefix))
+    checks["e"], predict = part("e", _sym_checkpoint(prefix, fit, smi))
+    checks["f"], bucketing = part("f", _sym_bucketing(params, seed, smi))
+    checks["g"], sub = part("g", _sym_subgraph(params, seed, smi))
+    checks["h"] = part("h", _sym_monitor(params, seed, smi))
+    checks["d"] = part("d", _sym_card_vs_cpu(
+        lambda ctx: _sym_params(named, seed, ctx), smi))
+    torch.cuda.empty_cache()
+    checks["kernels"], times = part("kernels", _sym_kernel_times(seed, smi))
+    shutil.rmtree(SYM_DIR, ignore_errors=True)
+    print("23 seconds by part: " + ", ".join(f"({k}) {v:.1f}"
+                                             for k, v in secs.items()))
+    for name in sorted(checks):
+        print(f"23({name}) holds: {checks[name]} on {smi}")
+    failed = [name for name in sorted(checks) if not checks[name]]
+    if failed:
+        raise SystemExit(f"FAIL: 23({failed[0]})" + (
+            f" (and {len(failed) - 1} more)" if len(failed) > 1 else ""))
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+    paths = {"symbol_fit": fit["fit"],
+             "symbol_predict": tuple(a + b for a, b in zip(fit["predict"],
+                                                           predict)),
+             "symbol_bucketing": bucketing, "symbol_subgraph": sub}
+    return {"paths": paths, "times": times}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9333,6 +9941,8 @@ def main(argv=None) -> int:
     s20 = phase_fabric(args.seed, smi)
     s21 = phase_telemetry(args.seed, smi)
     s22 = phase_fleet(args.seed, smi)
+    s23 = phase_symbolic(args.seed, smi)
+    sym_paths = s23["paths"]
     q_hand = {"int8_resnet": {k: quant["resnet"]["f32"]["hand"][k]
                               + quant["resnet"]["int8"]["hand"][k]
                               for k in ("K1", "K2", "K3", "K4", "K5")},
@@ -9365,7 +9975,7 @@ def main(argv=None) -> int:
          + sum(h["K1"] for h in q_hand.values())
          + sum(h["K1"] for h in d_hand.values()) + sum(s19.values())
          + sum(s20.values()) + sum(s21["k1"].values())
-         + sum(s22["k1"].values()),
+         + sum(s22["k1"].values()) + sum(c[0] for c in sym_paths.values()),
          "launches_by_path": {
              "serving": serve_launches,
              "training": train_launches["flash_attention_fwd"],
@@ -9380,7 +9990,8 @@ def main(argv=None) -> int:
              "estimator_resnet": util["hand"]["K1"],
              **{path: h["K1"] for path, h in q_hand.items()},
              **{path: h["K1"] for path, h in d_hand.items()}, **s19,
-             **s20, **s21["k1"], **s22["k1"]},
+             **s20, **s21["k1"], **s22["k1"],
+             **{path: c[0] for path, c in sym_paths.items()}},
          "max_abs_err": max(r["max_abs_err"], tr["max_abs_err"],
                             gen["k1_max_abs_err"],
                             *(ring[c]["fwd"]["max_abs_err"]
@@ -9416,11 +10027,17 @@ def main(argv=None) -> int:
                         "library_ms", "max_abs_err")},
          "host_us": record["host_us"]["k1"],
          "entry_host_us": record["host_us"]["entry"],
-         "library_host_us": record["host_us"]["sdpa"]}]
-    for name, wrapper, line, k in (
+         "library_host_us": record["host_us"]["sdpa"],
+         "symbolic_shape": list(SYM_SHAPE),
+         **{f"{key}_f32_symbolic_shape": s23["times"]["fwd"][key]
+            for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "library_device_ms",
+                        "max_abs_err")}}]
+    for i, (name, wrapper, line, k) in enumerate((
             ("dq", "flash_attention_bwd_dq", 403, "K2"),
-            ("dkv", "flash_attention_bwd_dkv", 421, "K3")):
+            ("dkv", "flash_attention_bwd_dkv", 421, "K3"))):
         t, sv = bwd["training"], bwd["serving"]
+        sym_bwd = s23["times"]["bwd"]
         kernels.append({
             "name": wrapper, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -9430,7 +10047,8 @@ def main(argv=None) -> int:
             + sum(c[wrapper] for c in amp_launches.values())
             + sp["hand"][k] + data["hand"][k] + util["hand"][k]
             + sum(h[k] for h in q_hand.values())
-            + sum(h[k] for h in d_hand.values()),
+            + sum(h[k] for h in d_hand.values())
+            + sum(c[i + 1] for c in sym_paths.values()),
             "launches_by_path": {
                 "training": train_launches[wrapper],
                 "gluon_training": glu["launches"][wrapper],
@@ -9441,7 +10059,8 @@ def main(argv=None) -> int:
                 "data_resnet": data["hand"][k],
                 "estimator_resnet": util["hand"][k],
                 **{path: h[k] for path, h in q_hand.items()},
-                **{path: h[k] for path, h in d_hand.items()}},
+                **{path: h[k] for path, h in d_hand.items()},
+                **{path: c[i + 1] for path, c in sym_paths.items()}},
             "max_abs_err": max(bwd[f"{name}_err"], *(
                 ring[c][f"max_abs_err_{name}"] for c in (False, True))),
             "ms": t[name]["ms"],
@@ -9479,7 +10098,15 @@ def main(argv=None) -> int:
             "ms_fp16_serving_shape": f16["serving"][name]["device_ms"],
             "bound_ms_fp16_serving_shape": f16["serving"][name]["bound_ms"],
             "library_ms_fp16_serving_shape":
-                f16["serving"]["library_ms_bwd"]})
+                f16["serving"]["library_ms_bwd"],
+            "symbolic_shape": list(SYM_SHAPE),
+            **{f"{key}_f32_symbolic_shape": sym_bwd[name][key]
+               for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                           "bound_by")},
+            "library_ms_f32_symbolic_shape": sym_bwd["library_ms"],
+            "library_device_ms_f32_symbolic_shape":
+                sym_bwd["library_device_ms"],
+            "max_abs_err_f32_symbolic_shape": s23["times"][f"{name}_err"]})
     s2 = k4["shapes"]["s2_reduce"]
     kernels.append({
         "name": "conv1x1_bn_act", "route": "cuda",
@@ -9549,7 +10176,7 @@ def main(argv=None) -> int:
         "launch_host_us": k5["rtc_launch_us"],
         "torch_add_host_us": k5["torch_add_us"],
         "by_kernel": k5["by_kernel"]})
-    print(f"chip_smoke.py phases 1-22: {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke.py phases 1-23: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,9 @@ attention of jobs that ``tools/launch.py`` starts, one process a rank;
 ``embedding`` the vocab-sharded tables and the DLRM step over them.
 ``runtime``, ``error``, ``libinfo``, ``log``, ``registry``, ``resource``,
 ``context``, ``tensor_inspector`` and ``util`` are the reference's thin
-top-level modules.
+top-level modules. ``symbol`` (``sym``), ``module`` (``mod``), ``model``,
+``subgraph``, ``monitor``, ``name`` and ``attribute`` are the symbolic API:
+graphs over the same ops, bound and trained through ``Module``.
 """
 __version__ = "2.0.0"
 
@@ -49,6 +51,12 @@ from . import embedding
 from . import (context, error, libinfo, log, registry, resource, runtime,
                tensor_inspector, util)
 from .tensor_inspector import TensorInspector
+from . import attribute, name, symbol, subgraph, model, module, monitor
+from . import symbol as sym
+from . import module as mod
+from .symbol import executor
+from .monitor import Monitor
+from .attribute import AttrScope
 
 library.initialize()   # fork handlers and the crash logger
 
@@ -71,4 +79,6 @@ __all__ = ["Context", "MXNetError", "cpu", "gpu", "current_context",
            "operator", "ops", "optimizer", "parallel", "profiler", "random",
            "recordio", "registry", "resource", "rtc", "runtime", "serving",
            "telemetry", "tensor_inspector", "TensorInspector", "util",
-           "visualization"]
+           "visualization", "AttrScope", "Monitor", "attribute",
+           "executor", "mod", "model", "module", "monitor", "name", "subgraph",
+           "sym", "symbol"]

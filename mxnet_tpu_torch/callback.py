@@ -1,15 +1,16 @@
 """Training callbacks of the port (the counterpart of
 ``mxnet_tpu/callback.py``): ``Speedometer``, ``BatchEndParam``,
 ``log_train_metric`` and ``LogValidationMetricsCallback``, over the port's
-metrics. ``do_checkpoint`` and ``module_checkpoint`` save through
-``model.save_checkpoint`` and ``Module``, which wait for the legacy API
-(ROADMAP Q1.13)."""
+metrics, and the epoch-end checkpoints ``do_checkpoint`` (through
+``model.save_checkpoint``) and ``module_checkpoint`` (through
+``Module.save_checkpoint``), which write the reference's file names."""
 from __future__ import annotations
 
 import logging
 import time
 
-__all__ = ["Speedometer", "BatchEndParam", "log_train_metric",
+__all__ = ["Speedometer", "BatchEndParam", "module_checkpoint",
+           "do_checkpoint", "log_train_metric",
            "LogValidationMetricsCallback"]
 
 
@@ -59,6 +60,29 @@ class BatchEndParam:
         self.nbatch = nbatch
         self.eval_metric = eval_metric
         self.locals = locals
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """An epoch-end callback saving ``mod`` every ``period`` epochs as
+    ``prefix-symbol.json`` and ``prefix-%04d.params`` (epoch + 1)."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+    return _callback
+
+
+def do_checkpoint(prefix, period=1):
+    """An epoch-end callback writing the symbol and parameters it is given
+    with ``model.save_checkpoint`` every ``period`` epochs."""
+    from .model import save_checkpoint
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _callback
 
 
 def log_train_metric(period, auto_reset=False):

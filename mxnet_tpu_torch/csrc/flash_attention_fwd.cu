@@ -72,13 +72,35 @@
 // to the caller's stream, allocates nothing, and returns
 // cudaGetLastError(), or minus the encode's CUresult. The PTX wrappers and
 // the encoder are shared with the backward kernels in hopper.cuh.
+//
+// Objects. The library is linked from objects of this one file, compiled
+// by separate nvcc processes started together (fwd_sources in
+// ops/cuda/flash_attention.py): an object compiled with MXT_FWD_DIM set
+// holds the kernels and launchers of that head dim (all three dtypes),
+// and the object compiled without it holds the C entry, which calls them. The kernels' code is
+// the same in either build.
 
 #include "hopper.cuh"
 
+namespace mxt_fwd {
+// One head dim's and dtype's launcher, defined in that head dim's object.
+template <int D, int DTYPE>
+int launch(const long long* views, float* lse, int B, int H, int S,
+           float scale_log2, int causal, cudaStream_t stream);
+}  // namespace mxt_fwd
+
+namespace {
+
+constexpr int kBQ = 128;          // query rows per bf16/fp16 work tile
+constexpr int kF32Threads = 128;  // = query rows per f32 block
+constexpr float kLog2e = 1.4426950408889634f;
+
+}  // namespace
+
+#ifdef MXT_FWD_DIM
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMinL = 1e-30f;
 
@@ -86,7 +108,6 @@ constexpr float kMinL = 1e-30f;
 // bf16 and fp16: persistent, warp-specialized TMA + wgmma kernel
 // ---------------------------------------------------------------------------
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int kBQ = 128;       // query rows per work tile
 constexpr int kWQ = 64;        // query rows per consumer warpgroup
 
 template <int D>
@@ -522,7 +543,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 // f32: one thread per query row, true fp32 FMA. K/V tiles in shared memory
 // are read as broadcasts (every lane reads the same key row).
 // ---------------------------------------------------------------------------
-constexpr int kF32Threads = 128;  // = query rows per block
 constexpr int kF32BK = 32;
 
 // Row strides and (b, h) offsets of q, k, v and o, in elements.
@@ -692,6 +712,32 @@ int launch_f32(const long long* views, float* lse, int B, int H, int S,
 
 }  // namespace
 
+namespace mxt_fwd {
+template <int D, int DTYPE>
+int launch(const long long* views, float* lse, int B, int H, int S,
+           float scale_log2, int causal, cudaStream_t stream) {
+  if constexpr (DTYPE == kDtypeF32)
+    return launch_f32<D>(views, lse, B, H, S, scale_log2, causal, stream);
+  else if constexpr (DTYPE == kDtypeBf16)
+    return launch_tc<D, __nv_bfloat16>(views, lse, B, H, S, scale_log2,
+                                       causal, stream);
+  else
+    return launch_tc<D, __half>(views, lse, B, H, S, scale_log2, causal,
+                                stream);
+}
+
+#define MXT_INSTANCE(DTYPE)                                              \
+  template int launch<MXT_FWD_DIM, DTYPE>(const long long*, float*, int, \
+                                          int, int, float, int,          \
+                                          cudaStream_t);
+MXT_INSTANCE(kDtypeF32)
+MXT_INSTANCE(kDtypeBf16)
+MXT_INSTANCE(kDtypeF16)
+#undef MXT_INSTANCE
+}  // namespace mxt_fwd
+
+#else  // the C entry's object
+
 // views: for q, k, v and o in turn {address, S stride, H stride, B stride},
 // strides in bytes, of (B, H, S, D) tensors with unit stride on D; dtype:
 // 0 = f32, 1 = bf16, 2 = fp16 (kDtypeF32, kDtypeBf16, kDtypeF16); every
@@ -721,9 +767,9 @@ extern "C" int mxt_flash_attention_fwd(const long long* views, void* lse,
   switch (head_dim) {
 #define MXT_CASE(DIM)                                                    \
   case DIM:                                                              \
-    if (f32) return run(launch_f32<DIM>);                                \
-    return dtype == kDtypeBf16 ? run(launch_tc<DIM, __nv_bfloat16>)      \
-                               : run(launch_tc<DIM, __half>);
+    if (f32) return run(mxt_fwd::launch<DIM, kDtypeF32>);                \
+    return dtype == kDtypeBf16 ? run(mxt_fwd::launch<DIM, kDtypeBf16>)   \
+                               : run(mxt_fwd::launch<DIM, kDtypeF16>);
     MXT_CASE(32)
     MXT_CASE(64)
     MXT_CASE(128)
@@ -732,3 +778,4 @@ extern "C" int mxt_flash_attention_fwd(const long long* views, void* lse,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+#endif  // MXT_FWD_DIM

@@ -23,7 +23,11 @@ loaded but not stored. A build that fails raises; the cache's only
 fallback is to build the library again.
 Nothing is built when a module is imported; the first call that launches a
 kernel builds it. Different libraries build in parallel when first used from
-different threads (one nvcc each).
+different threads (one nvcc each). A library may also be given as several
+translation units, each a ``(source, defines)`` pair (one source compiled
+with different ``-D`` macros, as K1's head dims are): then one ``nvcc -c``
+a unit runs, all started together, and one more links the objects, so the
+library takes about as long as its slowest unit.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -53,6 +58,9 @@ BUILD_DIR = _PKG.parent / "build" / "mxnet_tpu_torch"
 # sm_90a (not sm_90): wgmma and setmaxnreg exist only for the "a" target
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# a unit's object, and the link of a library's objects
+_OBJECT_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
+_LINK_FLAGS = NVCC_FLAGS[:2] + ("-shared",)
 
 _INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
@@ -108,19 +116,36 @@ def _with_includes(paths: Sequence[Path]) -> List[Path]:
     return out
 
 
-def source_hash(sources: Sequence[str]) -> str:
+def _units(sources) -> List[tuple]:
+    """``(path, defines)`` of each entry of ``sources``: a file name under
+    csrc/ or an absolute path (no defines), or a ``(source, defines)``
+    pair whose defines are ``NAME=VALUE`` strings."""
+    out = []
+    for s in sources:
+        src, defines = s if isinstance(s, tuple) else (s, ())
+        out.append(((CSRC / src).resolve(), tuple(defines)))
+    return out
+
+
+def source_hash(sources: Sequence) -> str:
     """sha256 (hex) over the nvcc flags and the name and bytes of every
-    source in ``sources`` (file names under csrc/, or absolute paths) and of
-    every header they include: the key of a built library."""
+    source in ``sources`` (file names under csrc/, absolute paths, or
+    ``(source, defines)`` units) and of every header they include, and
+    each unit's defines: the key of a built library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _with_includes([(CSRC / s).resolve() for s in sources]):
+    units = _units(sources)
+    for p in _with_includes([p for p, _ in units]):
         h.update(p.name.encode())
         h.update(p.read_bytes())
+    for p, defines in units:
+        if defines:
+            h.update(" ".join([p.name, *defines]).encode())
     return h.hexdigest()
 
 
-def build(name: str, sources: Sequence[str]) -> Path:
-    """Compile ``sources`` (file names under csrc/, or absolute paths) into
+def build(name: str, sources: Sequence) -> Path:
+    """Compile ``sources`` (file names under csrc/, absolute paths, or
+    ``(source, defines)`` units) into
     ``build/mxnet_tpu_torch/lib<name>-<hash>.so`` unless that file exists;
     returns its path. ``-Xptxas -v`` reports (registers, shared memory,
     spills per kernel) are kept for :func:`build_log`."""
@@ -137,13 +162,8 @@ def build(name: str, sources: Sequence[str]) -> Path:
     return out
 
 
-def _compile(name: str, sources: Sequence[str], out: Path) -> Path:
-    paths = [CSRC / s for s in sources]
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    nvcc = _nvcc()
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-Xptxas", "-v",
-           "-o", str(tmp),
-           *[str(p) for p in paths]]
+def _nvcc_run(name: str, cmd: List[str]):
+    """Run one nvcc command; its output and seconds, or MXNetError."""
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=1200)
     seconds = time.perf_counter() - t0
@@ -151,11 +171,52 @@ def _compile(name: str, sources: Sequence[str], out: Path) -> Path:
         raise MXNetError(f"nvcc failed for {name} (exit {proc.returncode}):\n"
                          f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     _xcache.note_compile("nvcc")
+    return proc.stdout + proc.stderr, seconds
+
+
+def _compile(name: str, sources: Sequence, out: Path) -> Path:
+    units = _units(sources)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    nvcc = _nvcc()
+    if not any(defines for _, defines in units):    # one nvcc, as ever
+        ptxas, seconds = _nvcc_run(name, [
+            nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-Xptxas", "-v",
+            "-o", str(tmp), *[str(p) for p, _ in units]])
+        objects = []
+    else:
+        ptxas, seconds, objects = _compile_units(name, nvcc, units, tmp)
     note_release(out, _nvcc_release(nvcc))      # before the library appears
     os.replace(tmp, out)
     _LOGS[name] = {"path": str(out), "seconds": seconds, "cached": False,
-                   "source": "nvcc", "ptxas": proc.stdout + proc.stderr}
+                   "source": "nvcc", "ptxas": ptxas, "objects": objects}
     return out
+
+
+def _compile_units(name: str, nvcc: str, units, tmp: Path):
+    """One ``nvcc -c`` a unit, all started together, then the link into
+    ``tmp``: (the ptxas reports, the wall seconds, one ``{"unit",
+    "seconds"}`` a unit)."""
+    objs = [tmp.with_name(f"{tmp.stem}.{i}.o") for i in range(len(units))]
+    cmds = [[nvcc, *_OBJECT_FLAGS, "-I", str(CSRC), "-Xptxas", "-v",
+             *[f"-D{d}" for d in defines], "-o", str(obj), str(path)]
+            for (path, defines), obj in zip(units, objs)]
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            runs = [pool.submit(_nvcc_run, name, cmd) for cmd in cmds]
+            done = [r.result() for r in runs]
+        _nvcc_run(name, [nvcc, *_LINK_FLAGS, "-o", str(tmp),
+                         *[str(o) for o in objs]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    labels = [" ".join([path.name, *[f"-D{d}" for d in defines]])
+              for path, defines in units]
+    ptxas = "".join(f"unit {label}:\n{text}"
+                    for label, (text, _) in zip(labels, done))
+    return (ptxas, time.perf_counter() - t0,
+            [{"unit": label, "seconds": sec}
+             for label, (_, sec) in zip(labels, done)])
 
 
 def _nvcc_release(nvcc: str) -> str:
@@ -199,7 +260,7 @@ def built_by(lib: Path) -> Optional[str]:
     return note.read_text().strip() or None if note.is_file() else None
 
 
-def cache_key(name: str, sources: Sequence[str],
+def cache_key(name: str, sources: Sequence,
               release: Optional[str] = None) -> Optional[dict]:
     """The executable-cache key of library ``name``: its sources' and
     flags' digest, the nvcc ``release`` (default :func:`nvcc_version`),
@@ -227,7 +288,7 @@ def _from_cache(name: str, key: dict):
     return _xcache.load(key, loader=dlopen)
 
 
-def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
+def load(name: str, sources: Sequence) -> ctypes.CDLL:
     """The loaded library for ``name``, building it on first use."""
     with _LOCK:
         lock = _NAME_LOCKS.setdefault(name, threading.Lock())
@@ -250,7 +311,8 @@ def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
 
 
 def build_log(name: str) -> dict:
-    """Path, build seconds, ptxas report and ``source`` (``nvcc``,
-    ``build_dir`` or ``exec_cache``) of the library ``name`` built (or
+    """Path, build seconds, ptxas report, ``source`` (``nvcc``,
+    ``build_dir`` or ``exec_cache``) and, for a library built from units,
+    each unit's seconds (``objects``) of the library ``name`` built (or
     found) in this process."""
     return dict(_LOGS.get(name, {}))

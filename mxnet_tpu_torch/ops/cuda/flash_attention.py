@@ -64,6 +64,7 @@ from ...base import MXNetError
 from .. import _build
 
 __all__ = ["FlashAttention", "bind_fwd", "block_ops", "flash_attention",
+           "fwd_sources",
            "flash_attention_fwd", "flash_attention_fwd_reference",
            "tma_strides", "tma_addressable",
            "flash_attention_bwd",
@@ -79,7 +80,6 @@ _HEAD_DIMS = (32, 64, 128)
 # csrc/hopper.cuh)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _LIB_NAME = "flash_attention_fwd"
-_SOURCES = ("flash_attention_fwd.cu",)
 _BWD_LIB_NAME = "flash_attention_bwd"
 _BWD_SOURCES = ("flash_attention_bwd.cu",)
 
@@ -108,11 +108,19 @@ def bind_fwd(lib):
     return fn
 
 
+def fwd_sources(source="flash_attention_fwd.cu", dims=_HEAD_DIMS):
+    """K1's translation units for ``_build.load``: ``source`` compiled once
+    per head dim of ``dims``, with ``MXT_FWD_DIM`` naming the kernels that
+    object holds (all three dtypes), and once without it, for the C entry
+    (a variant that builds fewer dims must call no other)."""
+    return (*[(source, (f"MXT_FWD_DIM={d}",)) for d in dims], source)
+
+
 def _kernel():
     global _lib_fn
     with _lib_lock:
         if _lib_fn is None:
-            _lib_fn = bind_fwd(_build.load(_LIB_NAME, _SOURCES))
+            _lib_fn = bind_fwd(_build.load(_LIB_NAME, fwd_sources()))
         return _lib_fn
 
 
@@ -139,21 +147,29 @@ def _bwd_kernels():
         return _bwd_fns
 
 
+def _wide(x):
+    """``x`` in the plain versions' accumulation dtype: f32, or f64 for an
+    f64 tensor."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def flash_attention_fwd_reference(q, k, v, sm_scale: float, causal: bool):
     """Plain PyTorch forward: ``(out, lse)`` for (B, H, S, D) inputs, the
     arithmetic the kernel does. Scores and softmax in f32 (bf16 inputs give
     exact bf16 products summed in f32); P is rounded to v's dtype before
     P.V; masked scores take -1e30 and l is clamped at 1e-30. Causal masks
-    are bottom-right aligned, which is plain ``tril`` when Lq == Lk."""
+    are bottom-right aligned, which is plain ``tril`` when Lq == Lk. (An
+    f64 input, which the kernel does not take, computes in f64 throughout:
+    the plain versions are then an f64 yardstick.)"""
     S, Sk = q.shape[2], k.shape[2]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    s = torch.matmul(_wide(q), _wide(k).transpose(-1, -2)) * sm_scale
     if causal:
         keep = torch.ones(S, Sk, dtype=torch.bool, device=q.device).tril(Sk - S)
         s = s.masked_fill(~keep, _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.matmul(p.to(v.dtype).float(), v.float()) / l_safe
+    out = torch.matmul(_wide(p.to(v.dtype)), _wide(v)) / l_safe
     lse = (m + torch.log(l_safe)).squeeze(-1)
     return out.to(q.dtype), lse
 
@@ -161,15 +177,16 @@ def flash_attention_fwd_reference(q, k, v, sm_scale: float, causal: bool):
 def _probs_and_ds(q, k, v, dout, lse, delta, sm_scale, causal):
     """P = exp(S - lse) with masked scores at -1e30, and dS = P (dP -
     delta) scale rounded to the input dtype (as a float32 tensor), for the
-    plain backward versions; every product summed in f32."""
+    plain backward versions; every product summed in f32 (f64 for f64
+    inputs)."""
     S = q.shape[2]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    s = torch.matmul(_wide(q), _wide(k).transpose(-1, -2)) * sm_scale
     if causal:
         keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~keep, _NEG_INF)
     p = torch.exp(s - lse.unsqueeze(-1))
-    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
-    ds = (p * (dp - delta.unsqueeze(-1)) * sm_scale).to(q.dtype).float()
+    dp = torch.matmul(_wide(dout), _wide(v).transpose(-1, -2))
+    ds = _wide((p * (dp - delta.unsqueeze(-1)) * sm_scale).to(q.dtype))
     return p, ds
 
 
@@ -180,9 +197,9 @@ def flash_attention_bwd_dq_reference(q, k, v, out, dout, lse,
     ``dout``, with the kernel's arithmetic (that of ``_bwd_dq_kernel``,
     with delta = rowsum(dO * O) in f32 as ``_pallas_bwd`` computes it):
     dq = dS K."""
-    delta = (dout.float() * out.float()).sum(dim=-1)
+    delta = (_wide(dout) * _wide(out)).sum(dim=-1)
     _, ds = _probs_and_ds(q, k, v, dout, lse, delta, sm_scale, causal)
-    return torch.matmul(ds, k.float()).to(q.dtype), delta
+    return torch.matmul(ds, _wide(k)).to(q.dtype), delta
 
 
 def flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
@@ -192,9 +209,9 @@ def flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
     arithmetic (that of ``_bwd_dkv_kernel``): dv = P^T dO with P rounded
     to dO's dtype, dk = dS^T Q."""
     p, ds = _probs_and_ds(q, k, v, dout, lse, delta, sm_scale, causal)
-    dv = torch.matmul(p.to(dout.dtype).float().transpose(-1, -2),
-                      dout.float())
-    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(_wide(p.to(dout.dtype)).transpose(-1, -2),
+                      _wide(dout))
+    dk = torch.matmul(ds.transpose(-1, -2), _wide(q))
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -416,6 +433,12 @@ def _on_cpu(*xs) -> bool:
     return all(x.device.type == "cpu" for x in xs)
 
 
+def _shape_only(q) -> bool:
+    """A ``meta`` tensor (shape inference): the plain versions compute no
+    value on it, and nothing is launched or counted."""
+    return q.device.type == "meta"
+
+
 def _in_place(dout):
     """The output gradient as K2 and K3 read it: as it is, unless TMA
     cannot address it (an expanded one, with zero strides, as
@@ -437,13 +460,13 @@ def block_ops(q):
     """``(fwd, bwd_dq, bwd_dkv)`` for attention blocks of ``q``'s device
     and head dim, with the signatures of K1's, K2's and K3's wrappers: the
     kernels for CUDA tensors (which raise on what they do not take), the
-    plain versions for CPU tensors and for head dims outside (32, 64, 128),
-    which the kernels do not take (dense attention's arithmetic on every
-    device). On the kernel route the backward pair reads every operand in
+    plain versions for CPU tensors, for meta tensors (shape inference) and
+    for head dims outside (32, 64, 128), which the kernels do not take
+    (dense attention's arithmetic on every device). On the kernel route the backward pair reads every operand in
     place but an output gradient TMA cannot address, which it copies
     contiguous first. :class:`FlashAttention` and the ring
     (``parallel/ring_attention.py``) both dispatch through this."""
-    if _on_cpu(q) or q.shape[-1] not in _HEAD_DIMS:
+    if _on_cpu(q) or _shape_only(q) or q.shape[-1] not in _HEAD_DIMS:
         return (flash_attention_fwd_reference,
                 flash_attention_bwd_dq_reference,
                 flash_attention_bwd_dkv_reference)
@@ -483,13 +506,13 @@ def _dense_attention(q, k, v, sm_scale: float, causal: bool):
     ``_dense_attention``, with its bottom-right causal convention (query
     row i sees keys j <= i + (Lk - Lq); the last query row sees every
     key)."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    s = torch.matmul(_wide(q), _wide(k).transpose(-1, -2)) * sm_scale
     if causal:
         S, Sk = q.shape[2], k.shape[2]
         keep = torch.ones(S, Sk, dtype=torch.bool, device=q.device).tril(Sk - S)
         s = s.masked_fill(~keep, _NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.matmul(p.float(), v.float()).to(q.dtype)
+    return torch.matmul(_wide(p), _wide(v)).to(q.dtype)
 
 
 def single_query_attention(q, k_ctx, v_ctx, k_new, v_new, lengths, *,

@@ -47,10 +47,12 @@ SHAPES = [(32, 12, 512, 64), (64, 12, 128, 64), (8, 12, 2048, 64)]
 # bf16 at D = 64 alone (each substitution replaces every occurrence)
 _ONLY_D64 = [
     ("    MXT_CASE(32)\n", ""), ("    MXT_CASE(128)\n", ""),
-    ("    if (f32) return run(launch_f32<DIM>);" + " " * 32 + "\\\n", ""),
-    ("    return dtype == kDtypeBf16 ? run(launch_tc<DIM, __nv_bfloat16>)"
-     "      \\\n" + " " * 31 + ": run(launch_tc<DIM, __half>);",
-     "    return run(launch_tc<DIM, __nv_bfloat16>);")]
+    ("    if (f32) return run(mxt_fwd::launch<DIM, kDtypeF32>);"
+     + " " * 16 + "\\\n", ""),
+    ("    return dtype == kDtypeBf16 ? run(mxt_fwd::launch<DIM, kDtypeBf16>)"
+     + " " * 3 + "\\\n" + " " * 31 + ": run(mxt_fwd::launch<DIM, kDtypeF16>);",
+     "    return run(mxt_fwd::launch<DIM, kDtypeBf16>);"),
+    ("MXT_INSTANCE(kDtypeF32)\n", ""), ("MXT_INSTANCE(kDtypeF16)\n", "")]
 _SOFTMAX = """online_softmax<BK, T::EX2_FMA_EVERY>(
             s, m0, m1, l0, l1, scale_log2, need_mask(it * BK), it * BK, t,
             row0, row1, S, causal);"""
@@ -96,7 +98,7 @@ def _build_variant(name):
     out_dir.mkdir(parents=True, exist_ok=True)
     cu = out_dir / f"{name}.cu"
     cu.write_text(_source(VARIANTS[name][0]))
-    return fa.bind_fwd(_build.load(f"k1_ablation_{name}", [cu]))
+    return fa.bind_fwd(_build.load(f"k1_ablation_{name}", fa.fwd_sources(cu, dims=(64,))))
 
 
 def main(argv=None) -> int:

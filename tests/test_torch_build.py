@@ -105,3 +105,81 @@ def test_ranks_that_start_cold_build_a_library_once(tmp_path):
     assert len(outs) == 2 and outs[0] == outs[1] and os.path.exists(outs[0])
     assert calls.read_text().split() == ["run"]
     assert _build.built_by(Path(outs[0])) == "0.0.1"
+
+
+def _recording_nvcc(tmp_path):
+    """A stand-in nvcc: logs each call's arguments, sleeps 1 s for a
+    compile (``-c``) and writes the ``-o`` file."""
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\n'
+                    'if [ "$1" = "--version" ]; then echo V0.0.2; exit 0; fi\n'
+                    'echo "$@" >> "%s"\n'
+                    'for a in "$@"; do [ "$a" = "-c" ] && sleep 1; done\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n'
+                    'echo "ptxas info : Compiling entry for $2"\n'
+                    'touch "$2"\n' % calls)
+    nvcc.chmod(0o755)
+    return nvcc, calls
+
+
+def test_units_build_in_parallel_and_link_once(tmp_path, monkeypatch):
+    """A library given as (source, defines) units (K1's head dims) is one
+    ``nvcc -c`` a unit, all started together, and one link; every unit's
+    defines reach its compile and its seconds reach the build log; no
+    object is left behind."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "kern.cu").write_text("int k() { return 1; }\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    nvcc, calls = _recording_nvcc(tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    units = [("kern.cu", (f"MXT_FWD_DIM={d}",)) for d in (32, 64, 128)] \
+        + ["kern.cu"]
+    t0 = __import__("time").perf_counter()
+    out = _build.build("kern", units)
+    wall = __import__("time").perf_counter() - t0
+    assert wall < 3.5, wall            # four 1-s compiles, in parallel
+    lines = calls.read_text().splitlines()
+    compiles = [ln for ln in lines if " -c " in f" {ln} "]
+    links = [ln for ln in lines if " -shared " in f" {ln} "]
+    assert len(compiles) == 4 and len(links) == 1, lines
+    assert all("-shared" not in ln for ln in compiles)
+    for d in (32, 64, 128):
+        assert sum(f"-DMXT_FWD_DIM={d}" in ln for ln in compiles) == 1
+    assert sum("-D" not in ln for ln in compiles) == 1
+    assert links[0].count(".o") == 4 and "arch=compute_90a,code=sm_90a" \
+        in links[0]
+    log = _build.build_log("kern")
+    assert [o["unit"] for o in log["objects"]] == [
+        "kern.cu -DMXT_FWD_DIM=32", "kern.cu -DMXT_FWD_DIM=64",
+        "kern.cu -DMXT_FWD_DIM=128", "kern.cu"]
+    assert all(o["seconds"] >= 1.0 for o in log["objects"])
+    assert log["ptxas"].count("Compiling entry") == 4
+    assert out.exists() and _build.built_by(out) == "0.0.2"
+    assert not list(out.parent.glob("*.o"))
+
+
+def test_the_key_covers_each_units_defines(csrc):
+    """Units of one source differing only by their defines build different
+    libraries; the same units in the same order give the same key."""
+    one = [("kern.cu", ("MXT_FWD_DIM=64",)), "kern.cu"]
+    assert _build.source_hash(one) == _build.source_hash(list(one))
+    assert _build.source_hash(one) != _build.source_hash(
+        [("kern.cu", ("MXT_FWD_DIM=128",)), "kern.cu"])
+    assert _build.source_hash(one) != _build.source_hash(["kern.cu"])
+
+
+def test_k1_builds_from_one_object_a_head_dim():
+    """K1's library: one unit a head dim and the C entry's unit, all of
+    the one source; a variant may build fewer head dims."""
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    units = fa.fwd_sources()
+    assert units[-1] == "flash_attention_fwd.cu" and len(units) == 4
+    assert [u[1] for u in units[:-1]] == [
+        ("MXT_FWD_DIM=32",), ("MXT_FWD_DIM=64",), ("MXT_FWD_DIM=128",)]
+    assert fa.fwd_sources("v.cu", dims=(64,)) == (
+        ("v.cu", ("MXT_FWD_DIM=64",)), "v.cu")
+    text = (_build.CSRC / "flash_attention_fwd.cu").read_text()
+    assert "#ifdef MXT_FWD_DIM" in text

@@ -1476,3 +1476,92 @@ def test_the_fleet_modules_are_wired_at_the_references_sites():
         calls(PKG / "serving" / "autoscaler.py")
     assert "_autostart" in calls(PKG / "__init__.py")
     assert "debug_server._autostart()" in (PKG / "__init__.py").read_text()
+
+
+# ---------------------------------------------------------------------------
+# the symbolic API (S20)
+# ---------------------------------------------------------------------------
+SYMBOL_MODULES = ["name.py", "attribute.py", "symbol/__init__.py",
+                  "symbol/symbol.py", "symbol/executor.py",
+                  "contrib/symbol.py", "subgraph.py", "model.py",
+                  "module/__init__.py", "module/module.py", "monitor.py",
+                  "callback.py", "visualization.py", "tools/symbol_bert.py"]
+#: the calls that make a tensor with storage
+_TENSOR_FACTORIES = {"empty", "zeros", "ones", "full", "rand", "randn",
+                     "randint", "tensor", "as_tensor", "arange",
+                     "empty_strided", "from_numpy"}
+#: the functions of shape inference
+_INFERENCE = ("_infer_shapes", "_meta_outputs", "_param_shape_hook",
+              "_array_slots")
+
+
+@pytest.mark.parametrize("module", SYMBOL_MODULES)
+def test_symbol_modules_are_guarded(module):
+    """The symbolic frontend imports no JAX and no module of the JAX
+    package (``tools/symbol_bert.py`` imports neither symbol module: it is
+    handed one), and no handler surrounds a call in the executor's or the
+    partitioner's evaluation."""
+    assert PKG / module in PORT_FILES
+    test_port_imports_neither_jax_nor_the_jax_package(PKG / module)
+    if module == "tools/symbol_bert.py":
+        assert not [n for n in ast.walk(_tree(PKG / module))
+                    if isinstance(n, (ast.Import, ast.ImportFrom))
+                    and n.module != "__future__"]
+
+
+def _functions(path, names):
+    return [n for n in ast.walk(_tree(path))
+            if isinstance(n, ast.FunctionDef) and n.name in names]
+
+
+def test_shape_inference_makes_only_meta_tensors():
+    """``_infer_shapes`` and what it calls make every tensor on the meta
+    device (no storage, nothing launched), move none and call no kernel
+    wrapper; ``_META`` is the meta device; the attention wrappers send a
+    meta tensor to their plain versions, which count nothing."""
+    path = PKG / "symbol" / "executor.py"
+    fns = _functions(path, _INFERENCE)
+    assert sorted(f.name for f in fns) == sorted(_INFERENCE)
+    made = 0
+    for fn in fns:
+        for c in ast.walk(fn):
+            if not isinstance(c, ast.Call) or not isinstance(
+                    c.func, ast.Attribute):
+                continue
+            if c.func.attr in _TENSOR_FACTORIES and \
+                    getattr(c.func.value, "id", None) == "torch":
+                made += 1
+                dev = [k.value for k in c.keywords if k.arg == "device"]
+                assert dev and getattr(dev[0], "id", None) == "_META", \
+                    f"executor.py:{c.lineno}: a tensor off the meta device"
+            assert c.func.attr not in ("to", "cuda", "cpu", "copy_",
+                                       "_set_data", "data_ptr"), \
+                f"executor.py:{c.lineno}: {c.func.attr} in shape inference"
+    assert made >= 1
+    called = {n for fn in fns for n in _called_names(fn)}
+    assert not called & {"flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv", "conv1x1_bn_act",
+                         "_kernel", "_bwd_kernels", "launch"}, called
+    meta = [n for n in _tree(path).body if isinstance(n, ast.Assign)
+            and any(getattr(t, "id", None) == "_META" for t in n.targets)]
+    assert meta and ast.unparse(meta[0].value) == "torch.device('meta')"
+    fa_path = PKG / "ops" / "cuda" / "flash_attention.py"
+    (route,) = _functions(fa_path, ("_shape_only",))
+    assert "'meta'" in ast.unparse(route)
+    (ops,) = _functions(fa_path, ("block_ops",))
+    assert "_shape_only" in set(_called_names(ops))
+
+
+def test_the_executor_and_partitioner_evaluate_without_handlers():
+    """A bound graph's evaluation reaches the kernels or raises: no
+    handler surrounds a call in ``Executor``'s forward or backward or in a
+    region's body (shape inference alone turns an op's failure into the
+    reference's MXNetError)."""
+    for path, names in ((PKG / "symbol" / "executor.py",
+                         ("_eval", "_eval_graph", "forward", "backward")),
+                        (PKG / "subgraph.py", ("_CachedSubgraph",))):
+        fns = _functions(path, names)
+        assert len(fns) == len(names), path
+        for fn in fns:
+            assert not [n for n in ast.walk(fn) if isinstance(n, ast.Try)
+                        and n.handlers], f"{path.name}: {fn.name}"
